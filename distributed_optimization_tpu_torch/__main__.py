@@ -1,0 +1,128 @@
+"""Run one experiment on the PyTorch port and print its summary.
+
+    python -m distributed_optimization_tpu_torch --problem-type logistic \\
+        --topology ring --n-workers 256 --mixing-impl pallas
+
+The single-run part of ``distributed_optimization_tpu/cli.py``: the
+dataset is generated, the optimum is solved for on the host, and the run
+goes on the card (``--device cuda``, the default) or on the CPU
+(``--device cpu``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from distributed_optimization_tpu_torch.config import (
+    ALGORITHMS,
+    DTYPES,
+    MIXING_IMPLS,
+    PROBLEM_TYPES,
+    SAMPLING_IMPLS,
+    TOPOLOGIES,
+    ExperimentConfig,
+)
+
+_DEFAULTS = ExperimentConfig()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m distributed_optimization_tpu_torch",
+        description="One decentralized-optimization run on the PyTorch port.",
+    )
+    p.add_argument("--algorithm", choices=ALGORITHMS, default=_DEFAULTS.algorithm)
+    p.add_argument("--topology", choices=TOPOLOGIES, default=_DEFAULTS.topology)
+    p.add_argument("--problem-type", choices=PROBLEM_TYPES, default=_DEFAULTS.problem_type)
+    p.add_argument("--n-workers", type=int, default=_DEFAULTS.n_workers)
+    p.add_argument("--n-samples", type=int, default=_DEFAULTS.n_samples)
+    p.add_argument("--n-features", type=int, default=_DEFAULTS.n_features)
+    p.add_argument("--n-informative-features", type=int,
+                   default=_DEFAULTS.n_informative_features)
+    p.add_argument("--n-iterations", type=int, default=_DEFAULTS.n_iterations)
+    p.add_argument("--local-batch-size", type=int, default=_DEFAULTS.local_batch_size)
+    p.add_argument("--learning-rate-eta0", type=float, default=_DEFAULTS.learning_rate_eta0)
+    p.add_argument("--l2-lambda", type=float, default=_DEFAULTS.l2_regularization_lambda)
+    p.add_argument("--seed", type=int, default=_DEFAULTS.seed)
+    p.add_argument("--data-seed", type=int, default=_DEFAULTS.data_seed)
+    p.add_argument("--eval-every", type=int, default=_DEFAULTS.eval_every)
+    p.add_argument("--suboptimality-threshold", type=float,
+                   default=_DEFAULTS.suboptimality_threshold)
+    p.add_argument("--mixing-impl", choices=MIXING_IMPLS, default=_DEFAULTS.mixing_impl,
+                   help="'pallas' selects the hand-written CUDA ring kernels")
+    p.add_argument("--sampling-impl", choices=SAMPLING_IMPLS, default=_DEFAULTS.sampling_impl)
+    p.add_argument("--dtype", choices=DTYPES, default=_DEFAULTS.dtype)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--json", action="store_true", help="print the summary as JSON")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
+    return ExperimentConfig(
+        algorithm=args.algorithm,
+        topology=args.topology,
+        problem_type=args.problem_type,
+        n_workers=args.n_workers,
+        n_samples=args.n_samples,
+        n_features=args.n_features,
+        n_informative_features=args.n_informative_features,
+        n_iterations=args.n_iterations,
+        local_batch_size=args.local_batch_size,
+        learning_rate_eta0=args.learning_rate_eta0,
+        l2_regularization_lambda=args.l2_lambda,
+        strong_convexity_mu=args.l2_lambda,
+        seed=args.seed,
+        data_seed=args.data_seed,
+        eval_every=args.eval_every,
+        suboptimality_threshold=args.suboptimality_threshold,
+        mixing_impl=args.mixing_impl,
+        sampling_impl=args.sampling_impl,
+        dtype=args.dtype,
+    )
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
+
+    from distributed_optimization_tpu_torch.backends import torch_backend
+    from distributed_optimization_tpu_torch.backends.base import resolve_device
+    from distributed_optimization_tpu_torch.metrics import iterations_to_threshold
+    from distributed_optimization_tpu_torch.utils.data import generate_synthetic_dataset
+    from distributed_optimization_tpu_torch.utils.oracle import compute_reference_optimum
+
+    device = resolve_device(args.device)  # fail before the host-side work
+    dataset = generate_synthetic_dataset(cfg)
+    _, f_opt = compute_reference_optimum(dataset, cfg.reg_param)
+    result = torch_backend.run(cfg, dataset, f_opt, device=device)
+    h = result.history
+    summary = {
+        "device": str(device),
+        "algorithm": cfg.algorithm,
+        "topology": cfg.topology,
+        "n_workers": cfg.n_workers,
+        "mixing_impl": cfg.mixing_impl,
+        "iterations_to_threshold": iterations_to_threshold(
+            h.objective, cfg.suboptimality_threshold, h.eval_iterations
+        ),
+        "threshold": cfg.suboptimality_threshold,
+        "final_gap": float(h.objective[-1]),
+        "final_consensus": (
+            float(h.consensus_error[-1]) if h.consensus_error is not None else None
+        ),
+        "total_floats_transmitted": h.total_floats_transmitted,
+        "iters_per_second": h.iters_per_second,
+        "warmup_seconds": h.compile_seconds,
+    }
+    if args.json:
+        print(json.dumps(summary))
+    else:
+        for key, value in summary.items():
+            print(f"{key:>26}: {value}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

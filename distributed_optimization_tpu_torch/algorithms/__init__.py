@@ -1,0 +1,3 @@
+"""Optimization algorithms: centralized SGD and D-SGD, as step rules."""
+
+from distributed_optimization_tpu_torch.algorithms.base import Algorithm, get_algorithm  # noqa: F401

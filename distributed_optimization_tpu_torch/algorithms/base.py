@@ -1,0 +1,80 @@
+"""Algorithm abstraction: a pure init/step pair over an [N, d] model stack.
+
+The port of ``distributed_optimization_tpu/algorithms/base.py``. State is a
+dict of ``[N, d]`` tensors with an ``x`` entry (the per-worker models); a
+step rule reads what it needs from a :class:`StepContext` the backend
+builds for each iteration.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict
+
+import torch
+
+State = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class StepContext:
+    """What a step rule may touch.
+
+    ``grad(params, slot)``: stochastic gradient at ``params`` ([N, d] ->
+    [N, d]) for batch draw ``slot``. ``mix``: x -> W x. ``neighbor_sum``:
+    x -> A x. ``eta``: this iteration's step size, a one-element tensor in
+    the run dtype on the run device. ``config``: the ExperimentConfig.
+    ``fused_mix_step``: optional (x, g, eta) -> W x − eta g in one kernel.
+    """
+
+    grad: Callable[[torch.Tensor, int], torch.Tensor]
+    mix: Callable[[torch.Tensor], torch.Tensor]
+    neighbor_sum: Callable[[torch.Tensor], torch.Tensor]
+    eta: torch.Tensor
+    config: Any
+    fused_mix_step: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Algorithm:
+    """A named step rule: ``init(x0, config) -> state`` and
+    ``step(state, ctx) -> state``. ``gossip_rounds``: model-sized exchanges
+    per iteration; ``is_decentralized``: False for the parameter server."""
+
+    name: str
+    init: Callable[..., State]
+    step: Callable[[State, StepContext], State]
+    gossip_rounds: int = 1
+    is_decentralized: bool = True
+
+
+def local_descent_loop(v: torch.Tensor, ctx: StepContext, direction) -> torch.Tensor:
+    """The round's τ−1 extra local descents. Only τ = 1 (no extra descent)
+    is ported so far."""
+    if ctx.config.local_steps > 1:
+        raise ValueError(
+            "local_steps > 1: the PyTorch port does not have it yet"
+        )
+    return v
+
+
+_REGISTRY: dict[str, Algorithm] = {}
+
+
+def register_algorithm(algo: Algorithm) -> Algorithm:
+    _REGISTRY[algo.name] = algo
+    return algo
+
+
+def get_algorithm(name: str) -> Algorithm:
+    from distributed_optimization_tpu_torch.algorithms import (  # noqa: F401
+        centralized,
+        dsgd,
+    )
+
+    if name not in _REGISTRY:
+        raise ValueError(
+            f"algorithm={name!r}: the PyTorch port does not have it yet "
+            f"(known: {sorted(_REGISTRY)})"
+        )
+    return _REGISTRY[name]

@@ -1,0 +1,270 @@
+"""The PyTorch execution backend: one run of one algorithm on one device.
+
+The port of the unsharded, fault-free run loop of
+``distributed_optimization_tpu/backends/jax_backend.py`` (``_run`` and
+``_make_step_eval``). One iteration is: per-worker mini-batch sampling →
+per-worker closed-form gradients → gossip (or the fused ring kernel) →
+step. The loop is a Python loop of asynchronous launches: the per-eval
+suboptimality gap and consensus error are written into preallocated device
+tensors, and the host fetches them once, after the last iteration. Nothing
+inside the loop synchronises with the device.
+
+Timing: iteration 0 is the warm-up. It builds the CUDA kernels when the run
+uses them, and its time, synchronised, is ``compile_seconds``.
+``iters_per_second`` counts iterations 1..T−1 between two
+``torch.cuda.synchronize()`` calls.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from distributed_optimization_tpu_torch.algorithms import get_algorithm
+from distributed_optimization_tpu_torch.algorithms.base import Algorithm, StepContext
+from distributed_optimization_tpu_torch.backends.base import (
+    BackendRunResult,
+    resolve_device,
+)
+from distributed_optimization_tpu_torch.metrics import (
+    RunHistory,
+    centralized_floats_per_iteration,
+    decentralized_floats_per_iteration,
+)
+from distributed_optimization_tpu_torch.models import get_problem
+from distributed_optimization_tpu_torch.ops import ring_kernels
+from distributed_optimization_tpu_torch.ops.mixing import MixingOp, make_mixing_op
+from distributed_optimization_tpu_torch.ops.sampling import (
+    sample_worker_batch_weights,
+    sample_worker_batches,
+)
+from distributed_optimization_tpu_torch.parallel.topology import build_topology
+from distributed_optimization_tpu_torch.utils.data import HostDataset, stack_shards
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def make_full_objective_fn(problem, reg: float):
+    """Full-dataset objective of one model ``w [d]`` over the stacked
+    shards: padding rows weigh 0 and every real row 1/total, so the sum
+    over workers is the mean over the concatenated dataset."""
+
+    def full_objective(w, X, y, n_valid):
+        n, L = X.shape[0], X.shape[1]
+        mask = (
+            torch.arange(L, device=X.device)[None, :] < n_valid[:, None]
+        ).to(X.dtype)
+        total = torch.clamp(n_valid.sum().to(X.dtype), min=1.0)
+        per_worker = problem.objective_weighted(
+            w.expand(n, -1), X, y, mask / total, 0.0
+        )
+        return per_worker.sum() + 0.5 * reg * torch.dot(w, w)
+
+    return full_objective
+
+
+def make_eta_schedule(config, T: int, device, dtype) -> torch.Tensor:
+    """``[T]`` step sizes in the run dtype: η₀/√(t+1) or constant η₀."""
+    eta0 = torch.full((T,), config.learning_rate_eta0, dtype=dtype, device=device)
+    if config.resolved_lr_schedule() == "sqrt_decay":
+        t1 = torch.arange(T, dtype=dtype, device=device) + 1.0
+        return torch.div(eta0, torch.sqrt(t1))
+    return eta0
+
+
+@dataclasses.dataclass
+class _Program:
+    """The bound pieces of one run: the step and the per-eval metrics."""
+
+    algo: Algorithm
+    config: object
+    grad_for: Callable[[int], Callable]
+    mix_op: Optional[MixingOp]
+    fused_mix_step: Optional[Callable]
+    eta: torch.Tensor  # [T]
+    full_objective: Callable
+    data: tuple
+
+    def step(self, state, t: int):
+        if self.mix_op is not None:
+            mix, nbr = self.mix_op.apply, self.mix_op.neighbor_sum
+        else:
+            mix, nbr = (lambda v: v), (lambda v: v * 0)
+        ctx = StepContext(
+            grad=self.grad_for(t), mix=mix, neighbor_sum=nbr,
+            eta=self.eta[t:t + 1], config=self.config,
+            fused_mix_step=self.fused_mix_step,
+        )
+        return self.algo.step(state, ctx)
+
+    def gap(self, x: torch.Tensor, f_opt: float) -> torch.Tensor:
+        """f(x̄) − f* on the full dataset."""
+        return self.full_objective(x.mean(dim=0), *self.data) - f_opt
+
+
+def consensus_error(x: torch.Tensor) -> torch.Tensor:
+    """(1/N) Σ_i ‖x_i − x̄‖²."""
+    xbar = x.mean(dim=0)
+    return torch.mean(torch.sum((x - xbar[None, :]) ** 2, dim=1))
+
+
+def _make_grad_factory(problem, reg, config, X, y, n_valid, schedule, sampling_impl):
+    batch_size = config.local_batch_size
+    L = X.shape[1]
+    if schedule is None and batch_size >= L:
+        # Full-batch fast path: b >= L without replacement is the whole
+        # shard with 1/n_i weights; no sampling at all.
+        fmask = (torch.arange(L, device=X.device)[None, :] < n_valid[:, None]).to(X.dtype)
+        full_wts = fmask / torch.clamp(n_valid[:, None].to(X.dtype), min=1.0)
+
+    def grad_for(t: int):
+        def grad(params, slot):
+            if schedule is not None:
+                idx = schedule[t]  # [N, b] injected batch indices
+                Xb = torch.take_along_dim(X, idx[:, :, None], dim=1)
+                yb = torch.take_along_dim(y, idx, dim=1)
+                wts = torch.full(idx.shape, 1.0 / idx.shape[1], dtype=X.dtype, device=X.device)
+            elif batch_size >= L:
+                Xb, yb, wts = X, y, full_wts
+            elif sampling_impl == "dense":
+                Xb, yb = X, y
+                wts = sample_worker_batch_weights(
+                    config.seed, slot, t, n_valid, L, batch_size, X.dtype
+                )
+            else:
+                Xb, yb, wts = sample_worker_batches(
+                    config.seed, slot, t, X, y, n_valid, batch_size
+                )
+            return problem.gradient_weighted(params, Xb, yb, wts, reg)
+
+        return grad
+
+    return grad_for
+
+
+def run(
+    config,
+    dataset: HostDataset,
+    f_opt: float,
+    *,
+    device: torch.device | str = "cuda",
+    batch_schedule: Optional[np.ndarray] = None,
+    collect_metrics: bool = True,
+) -> BackendRunResult:
+    """Run ``config.algorithm`` on ``dataset`` for ``config.n_iterations``.
+
+    ``batch_schedule [T, N, b]`` injects fixed batch indices (equivalence
+    tests against the JAX package). ``device`` defaults to ``cuda`` and
+    raises when no card is visible.
+    """
+    dev = resolve_device(device)
+    dtype = _DTYPES[config.dtype]
+    algo = get_algorithm(config.algorithm)
+    problem = get_problem(config.problem_type)
+    reg = config.reg_param
+    T = config.n_iterations
+    n = config.n_workers
+    eval_every = config.eval_every
+    n_evals = T // eval_every
+
+    host = stack_shards(dataset, dtype=np.dtype(config.dtype))
+    X = torch.as_tensor(host.X, device=dev)
+    y = torch.as_tensor(host.y, device=dev)
+    n_valid = torch.as_tensor(host.n_valid, dtype=torch.int64, device=dev)
+    d = host.n_features
+
+    mix_op = None
+    fused_mix_step = None
+    if algo.is_decentralized:
+        topo = build_topology(config.topology, n)
+        mix_op = make_mixing_op(topo, config.mixing_impl, device=dev, dtype=dtype)
+        floats_per_iter = decentralized_floats_per_iteration(topo, d, algo.gossip_rounds)
+        spectral_gap = topo.spectral_gap
+        if mix_op.impl == "pallas" and topo.name == "ring":
+            # The fused W x − η g kernel, bound as the JAX package binds its
+            # Pallas counterpart (no faults or Byzantine layer exist here).
+            fused_mix_step = ring_kernels.fused_ring_dsgd_step
+    else:
+        floats_per_iter = centralized_floats_per_iteration(n, d)
+        spectral_gap = None
+
+    schedule = None
+    if batch_schedule is not None:
+        indices = np.asarray(batch_schedule)
+        if indices.ndim != 3 or indices.shape[:2] != (T, n):
+            raise ValueError(
+                f"batch_schedule must be [T={T}, N={n}, b], got {indices.shape}"
+            )
+        if indices.min() < 0 or indices.max() >= X.shape[1]:
+            raise ValueError(
+                f"batch_schedule indices must lie in [0, L={X.shape[1]})"
+            )
+        schedule = torch.as_tensor(indices, dtype=torch.int64, device=dev)
+    sampling_impl = config.resolved_sampling_impl(dev.type, X.shape[1])
+
+    program = _Program(
+        algo=algo, config=config,
+        grad_for=_make_grad_factory(
+            problem, reg, config, X, y, n_valid, schedule, sampling_impl
+        ),
+        mix_op=mix_op, fused_mix_step=fused_mix_step,
+        eta=make_eta_schedule(config, T, dev, dtype),
+        full_objective=make_full_objective_fn(problem, reg),
+        data=(X, y, n_valid),
+    )
+
+    state = algo.init(torch.zeros((n, d), dtype=dtype, device=dev), config)
+    track_consensus = collect_metrics and algo.is_decentralized and config.record_consensus
+    gap_hist = torch.empty(n_evals, dtype=dtype, device=dev)
+    cons_hist = torch.empty(n_evals, dtype=dtype, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def iterate(state, t):
+        state = program.step(state, t)
+        if collect_metrics and (t + 1) % eval_every == 0:
+            k = (t + 1) // eval_every - 1
+            gap_hist[k] = program.gap(state["x"], f_opt)
+            if track_consensus:
+                cons_hist[k] = consensus_error(state["x"])
+        return state
+
+    sync()
+    t0 = time.perf_counter()
+    state = iterate(state, 0)
+    sync()
+    compile_seconds = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for t in range(1, T):
+        state = iterate(state, t)
+    sync()
+    run_seconds = time.perf_counter() - t0
+
+    if collect_metrics:
+        gap_np = gap_hist.cpu().numpy().astype(np.float64)
+        cons_np = cons_hist.cpu().numpy().astype(np.float64) if track_consensus else None
+    else:
+        gap_np, cons_np = np.empty(0), None
+    history = RunHistory(
+        objective=gap_np,
+        consensus_error=cons_np,
+        time=np.linspace(run_seconds / max(len(gap_np), 1), run_seconds, len(gap_np)),
+        eval_iterations=np.arange(eval_every, T + 1, eval_every)[: len(gap_np)],
+        total_floats_transmitted=floats_per_iter * T,
+        iters_per_second=(T - 1) / run_seconds if T > 1 and run_seconds > 0 else float("nan"),
+        compile_seconds=compile_seconds,
+        spectral_gap=spectral_gap,
+    )
+    final_models = state["x"].cpu().numpy().astype(np.float64)
+    return BackendRunResult(
+        history=history,
+        final_models=final_models,
+        final_avg_model=final_models.mean(axis=0),
+    )

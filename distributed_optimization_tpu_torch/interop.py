@@ -1,0 +1,49 @@
+"""Carry state and data across from the JAX package, as plain numpy arrays.
+
+Nothing here imports the JAX package: callers pass the arrays its objects
+hold (``BackendRunResult.final_state`` from ``jax_backend.run(...,
+return_state=True)``, or a ``HostDataset``'s fields).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from distributed_optimization_tpu_torch.utils.data import HostDataset
+
+
+def state_from_reference(
+    state: dict[str, np.ndarray],
+    device: torch.device | str,
+    dtype: torch.dtype,
+) -> dict[str, torch.Tensor]:
+    """The JAX package's state dict of ``[N, d]`` arrays as the port's
+    tensors (contiguous copies on ``device`` in ``dtype``)."""
+    if "x" not in state:
+        raise ValueError("a state needs its per-worker models under 'x'")
+    out = {}
+    for key, value in state.items():
+        arr = np.asarray(value)
+        if arr.ndim != 2:
+            raise ValueError(f"state[{key!r}] must be [N, d], got shape {arr.shape}")
+        out[key] = torch.tensor(arr, dtype=dtype, device=device).contiguous()
+    return out
+
+
+def dataset_from_reference(
+    X_full: np.ndarray,
+    y_full: np.ndarray,
+    shard_indices: list[np.ndarray],
+    problem_type: str,
+) -> HostDataset:
+    """The port's ``HostDataset`` from the JAX package's dataset fields."""
+    X = np.asarray(X_full, dtype=np.float64)
+    y = np.asarray(y_full, dtype=np.float64)
+    if X.ndim != 2 or y.shape != (X.shape[0],):
+        raise ValueError(f"X_full [n, d] and y_full [n] disagree: {X.shape}, {y.shape}")
+    return HostDataset(
+        X_full=X, y_full=y,
+        shard_indices=[np.asarray(s) for s in shard_indices],
+        problem_type=problem_type,
+    )

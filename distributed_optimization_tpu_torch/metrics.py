@@ -1,0 +1,64 @@
+"""Run history and the study's metrics: suboptimality gap, consensus error,
+floats transmitted and iterations to a threshold.
+
+The port's copy of the parts of ``distributed_optimization_tpu/metrics.py``
+this slice uses, with the same definitions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+from distributed_optimization_tpu_torch.parallel.topology import Topology
+
+
+@dataclasses.dataclass
+class RunHistory:
+    """Per-eval history of one training run (host numpy arrays)."""
+
+    objective: np.ndarray  # suboptimality gap f(x̄_t) − f(x*), [n_evals]
+    consensus_error: Optional[np.ndarray]  # [n_evals] or None (centralized)
+    time: np.ndarray  # seconds since the steady loop started, [n_evals]
+    eval_iterations: np.ndarray  # 1-based iteration of each row
+    total_floats_transmitted: float
+    iters_per_second: float = float("nan")
+    compile_seconds: float = 0.0  # warm-up step, kernel build included
+    spectral_gap: Optional[float] = None
+    # True for per-eval clock samples; False when ``time`` interpolates the
+    # run's total wall clock (the port never syncs inside the loop).
+    time_measured: bool = False
+
+
+def consensus_error(models: np.ndarray) -> float:
+    """(1/N) Σ_i ‖x_i − x̄‖² for an [N, d] model stack."""
+    mean = models.mean(axis=0)
+    return float(np.mean(np.sum((models - mean) ** 2, axis=1)))
+
+
+def iterations_to_threshold(objective_history: np.ndarray, threshold: float,
+                            eval_iterations: Optional[np.ndarray] = None) -> int:
+    """First (1-based) iteration whose gap is <= threshold, or -1."""
+    if objective_history.size == 0:
+        return -1
+    below = np.nonzero(objective_history <= threshold)[0]
+    if below.size == 0:
+        return -1
+    first = int(below[0])
+    if eval_iterations is not None:
+        return int(eval_iterations[first])
+    return first + 1
+
+
+def centralized_floats_per_iteration(n_workers: int, n_features: int) -> float:
+    """2·N·d: N gradient uploads plus N model broadcasts."""
+    return 2.0 * n_workers * n_features
+
+
+def decentralized_floats_per_iteration(
+    topo: Topology, n_features: int, gossip_rounds: int = 1
+) -> float:
+    """Σ_i deg_i · d floats per gossip round, times the rounds."""
+    return topo.floats_per_iteration * n_features * gossip_rounds

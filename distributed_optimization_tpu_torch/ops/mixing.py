@@ -1,0 +1,92 @@
+"""Gossip operators x -> W x and neighbour sums x -> A x.
+
+The port of ``distributed_optimization_tpu/ops/mixing.py`` for the ring and
+the fully-connected graph, in three forms:
+
+- ``stencil``: the ring as ``roll``s (all MH weights are 1/3), the
+  fully-connected graph as the column mean;
+- ``dense``: a product with the [N, N] matrix, ``torch.matmul`` as the JAX
+  package leaves it to XLA;
+- ``pallas``: the hand-written CUDA ring kernels of ``ops/ring_kernels.py``
+  (ring of N >= 3 only). The name is kept so that configs carry across.
+
+``auto`` resolves to ``stencil``, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from distributed_optimization_tpu_torch.ops import ring_kernels
+from distributed_optimization_tpu_torch.parallel.topology import Topology
+
+MixFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class MixingOp:
+    """``apply``: x [N, d] -> W x; ``neighbor_sum``: x [N, d] -> A x."""
+
+    topology_name: str
+    impl: str
+    apply: MixFn
+    neighbor_sum: MixFn
+
+
+def _supports_stencil(topo: Topology) -> bool:
+    return topo.name == "fully_connected" or (topo.name == "ring" and topo.n >= 3)
+
+
+def make_mixing_op(
+    topo: Topology,
+    impl: str = "auto",
+    *,
+    device: torch.device | str = "cpu",
+    dtype: torch.dtype = torch.float32,
+) -> MixingOp:
+    """Build the mixing operator of ``topo``; ``device``/``dtype`` place the
+    dense form's matrices."""
+    if impl == "auto":
+        impl = "stencil" if _supports_stencil(topo) else "dense"
+    if impl not in ("stencil", "dense", "pallas"):
+        raise ValueError(
+            f"mixing_impl={impl!r}: the PyTorch port does not have it yet"
+        )
+
+    if impl == "pallas":
+        if topo.name == "ring" and topo.n >= 3:
+            return MixingOp(
+                topo.name, "pallas", ring_kernels.ring_mix,
+                ring_kernels.ring_neighbor_sum,
+            )
+        raise ValueError(
+            "the port's pallas mixing (hand-written CUDA kernels) supports "
+            f"the ring of n>=3 only, not {topo.name} (n={topo.n}); the "
+            "fully-connected kernels are not ported yet"
+        )
+
+    if impl == "dense":
+        W = torch.as_tensor(topo.mixing_matrix, dtype=dtype, device=device)
+        A = torch.as_tensor(topo.adjacency, dtype=dtype, device=device)
+        return MixingOp(
+            topo.name, "dense", lambda x: torch.matmul(W, x),
+            lambda x: torch.matmul(A, x),
+        )
+
+    if not _supports_stencil(topo):
+        raise ValueError(f"stencil mixing unsupported for {topo.name} (n={topo.n})")
+    if topo.name == "fully_connected":
+        def apply(x: torch.Tensor) -> torch.Tensor:
+            return torch.mean(x, dim=0, keepdim=True).expand_as(x)
+
+        def neighbor_sum(x: torch.Tensor) -> torch.Tensor:
+            return torch.sum(x, dim=0, keepdim=True) - x
+
+        return MixingOp(topo.name, "stencil", apply, neighbor_sum)
+    return MixingOp(
+        topo.name, "stencil", ring_kernels.ring_mix_plain,
+        ring_kernels.ring_neighbor_sum_plain,
+    )

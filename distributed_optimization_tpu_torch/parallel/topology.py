@@ -1,0 +1,69 @@
+"""Communication graphs and their Metropolis–Hastings mixing matrices.
+
+The port's copy of the ring and fully-connected parts of
+``distributed_optimization_tpu/parallel/topology.py``: host-side numpy,
+``adjacency[i, j] = 1`` iff j sends to i, MH weights
+``W_ij = 1 / (1 + max(deg_i, deg_j))`` on edges and the remainder on the
+diagonal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    name: str
+    n: int
+    adjacency: np.ndarray  # [N, N] 0/1, zero diagonal
+    degrees: np.ndarray  # [N]
+    mixing_matrix: np.ndarray  # [N, N] doubly stochastic
+
+    @property
+    def spectral_gap(self) -> float:
+        """1 − ρ, ρ the second-largest |eigenvalue| of W."""
+        if self.n < 2:
+            return 1.0
+        eigs = np.sort(np.abs(np.linalg.eigvalsh(self.mixing_matrix)))
+        return float(1.0 - eigs[-2])
+
+    @property
+    def floats_per_iteration(self) -> float:
+        """Σ_i deg_i: floats sent per gossip round per model coordinate."""
+        return float(np.sum(self.degrees))
+
+
+def _ring_adjacency(n: int) -> np.ndarray:
+    adj = np.zeros((n, n))
+    ids = np.arange(n)
+    adj[ids, (ids + 1) % n] = 1.0
+    adj[ids, (ids - 1) % n] = 1.0
+    np.fill_diagonal(adj, 0.0)  # n == 1, 2 edge cases
+    return adj
+
+
+def metropolis_hastings_weights(adjacency: np.ndarray) -> np.ndarray:
+    degrees = adjacency.sum(axis=1)
+    pairwise_max = np.maximum(degrees[:, None], degrees[None, :])
+    W = adjacency / (1.0 + pairwise_max)
+    np.fill_diagonal(W, 0.0)
+    np.fill_diagonal(W, 1.0 - W.sum(axis=1))
+    return W
+
+
+def build_topology(name: str, n: int) -> Topology:
+    if name == "ring":
+        adj = _ring_adjacency(n)
+    elif name == "fully_connected":
+        adj = np.ones((n, n)) - np.eye(n)
+    else:
+        raise ValueError(
+            f"topology={name!r}: the PyTorch port does not have it yet"
+        )
+    return Topology(
+        name=name, n=n, adjacency=adj, degrees=adj.sum(axis=1),
+        mixing_matrix=metropolis_hastings_weights(adj),
+    )

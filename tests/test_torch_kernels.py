@@ -1,0 +1,169 @@
+"""The port's ring kernels and mixing operators against the JAX package.
+
+On the CPU the wrappers run their plain PyTorch versions, which are held
+here against the Pallas kernels in interpret mode, as tests/test_pallas.py
+runs them. Tolerance: 1 ulp (1e-6 in float32, 1e-15 in float64). The
+plain versions round every operation on its own; XLA on the CPU may
+contract the fused step's multiply and subtract into one FMA, which rounds
+once. The CUDA kernels are held bitwise against the plain versions by the
+``cuda`` tests below, which skip without a card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_optimization_tpu.ops import pallas_kernels as pk
+from distributed_optimization_tpu.ops.mixing import make_mixing_op as jax_mixing_op
+from distributed_optimization_tpu.parallel import build_topology as jax_topology
+from distributed_optimization_tpu.parallel._compat import enable_x64
+from distributed_optimization_tpu_torch.ops import ring_kernels as rk
+from distributed_optimization_tpu_torch.ops.mixing import make_mixing_op
+from distributed_optimization_tpu_torch.parallel.topology import build_topology
+
+RTOL = {np.float32: 1e-6, np.float64: 1e-15}
+TORCH_DTYPE = {np.float32: torch.float32, np.float64: torch.float64}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the ring kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _inputs(n, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, d)).astype(dtype),
+            rng.standard_normal((n, d)).astype(dtype))
+
+
+def _pallas(name, x, g, eta):
+    if name == "fused_ring_dsgd_step":
+        return np.asarray(pk.fused_ring_dsgd_step(jnp.asarray(x), jnp.asarray(g), eta,
+                                                  interpret=True))
+    return np.asarray(getattr(pk, name)(jnp.asarray(x), interpret=True))
+
+
+def _port(name, x, g, eta):
+    tx, tg = torch.from_numpy(x), torch.from_numpy(g)
+    if name == "fused_ring_dsgd_step":
+        return rk.fused_ring_dsgd_step(tx, tg, torch.tensor([eta], dtype=tx.dtype)).numpy()
+    return getattr(rk, name)(tx).numpy()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("d", [1, 12, 81])
+@pytest.mark.parametrize("n", [3, 8, 37])
+@pytest.mark.parametrize("name", rk.KERNELS)
+def test_plain_version_matches_pallas_interpret(name, n, d, dtype):
+    x, g = _inputs(n, d, dtype)
+    eta = float(dtype(0.05) / np.sqrt(dtype(7.0)))
+    with enable_x64():
+        want = _pallas(name, x, g, eta)
+    got = _port(name, x, g, eta)
+    assert got.dtype == want.dtype == dtype
+    # 1 ulp of the last operation's operands: where the fused step's
+    # subtraction cancels, an FMA's single rounding differs by up to the
+    # ulp of W x and η g, not of their small difference.
+    scale = np.abs(want)
+    if name == "fused_ring_dsgd_step":
+        mixed = rk.ring_mix_plain(torch.from_numpy(x)).numpy()
+        scale = np.abs(mixed) + np.abs(dtype(eta) * g)
+    assert np.all(np.abs(got - want) <= RTOL[dtype] * scale)
+
+
+def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
+    x, g = (torch.from_numpy(a) for a in _inputs(8, 12, np.float64))
+    eta = torch.tensor([0.01], dtype=torch.float64)
+    rk.reset_launch_counts()
+    assert torch.equal(rk.ring_mix(x), rk.ring_mix_plain(x))
+    assert torch.equal(rk.ring_neighbor_sum(x), rk.ring_neighbor_sum_plain(x))
+    assert torch.equal(rk.fused_ring_dsgd_step(x, g, eta),
+                       rk.fused_ring_dsgd_step_plain(x, g, eta))
+    assert rk.LAUNCHES == {name: 0 for name in rk.KERNELS}
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.zeros((8, 4), dtype=torch.float64)
+    with pytest.raises(ValueError, match="N >= 3"):
+        rk.ring_mix(torch.zeros((2, 4)))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        rk.ring_mix(torch.zeros((8, 4), dtype=torch.float16))
+    with pytest.raises(ValueError, match="contiguous"):
+        rk.ring_neighbor_sum(torch.zeros((4, 8)).t())
+    with pytest.raises(ValueError, match=r"\[N, d\]"):
+        rk.ring_mix(torch.zeros(8))
+    with pytest.raises(ValueError, match="match x"):
+        rk.fused_ring_dsgd_step(x, x.float(), 0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_step_equals_mix_then_step(dtype):
+    x, g = (torch.from_numpy(a).to(dtype) for a in _inputs(37, 81, np.float64, seed=3))
+    eta = torch.tensor([0.07], dtype=dtype)
+    assert torch.equal(rk.fused_ring_dsgd_step(x, g, eta), rk.ring_mix(x) - eta * g)
+
+
+@pytest.mark.parametrize("impl", ["stencil", "dense", "pallas"])
+@pytest.mark.parametrize("name", ["ring", "fully_connected"])
+def test_mixing_op_matches_dense_W_and_the_jax_op(name, impl):
+    if impl == "pallas" and name == "fully_connected":
+        with pytest.raises(ValueError, match="ring of n>=3 only"):
+            make_mixing_op(build_topology(name, 8), impl)
+        return
+    x = np.random.default_rng(1).standard_normal((8, 12))
+    topo = build_topology(name, 8)
+    ref_topo = jax_topology(name, 8)
+    np.testing.assert_array_equal(topo.mixing_matrix, ref_topo.mixing_matrix)
+    op = make_mixing_op(topo, impl, dtype=torch.float64)
+    assert op.impl == impl
+    tx = torch.from_numpy(x)
+    np.testing.assert_allclose(op.apply(tx).numpy(), topo.mixing_matrix @ x,
+                               rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(op.neighbor_sum(tx).numpy(), topo.adjacency @ x,
+                               rtol=1e-12, atol=1e-14)
+    with enable_x64():
+        ref = jax_mixing_op(ref_topo, impl=impl, dtype=jnp.float64)
+        if impl == "pallas":
+            want = np.asarray(pk.ring_mix(jnp.asarray(x), interpret=True))
+        else:
+            want = np.asarray(ref.apply(jnp.asarray(x)))
+    np.testing.assert_allclose(op.apply(tx).numpy(), want, rtol=1e-15, atol=1e-15)
+
+
+def test_auto_mixing_resolves_to_stencil():
+    assert make_mixing_op(build_topology("ring", 8)).impl == "stencil"
+    assert make_mixing_op(build_topology("fully_connected", 5)).impl == "stencil"
+
+
+def test_topology_spectral_gap_and_floats_match_the_reference():
+    for name, n in (("ring", 25), ("fully_connected", 6)):
+        ours, ref = build_topology(name, n), jax_topology(name, n)
+        assert ours.spectral_gap == pytest.approx(ref.spectral_gap, abs=1e-12)
+        assert ours.floats_per_iteration == ref.floats_per_iteration
+        np.testing.assert_array_equal(ours.degrees, ref.degrees)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(3, 1), (37, 12), (256, 81)])
+def test_cuda_kernels_bitwise_equal_their_plain_versions(cuda_device, shape, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
+    g = torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
+    eta = torch.tensor([0.013], dtype=dtype, device=cuda_device)
+    rk.reset_launch_counts()
+    assert torch.equal(rk.fused_ring_dsgd_step(x, g, eta),
+                       rk.fused_ring_dsgd_step_plain(x, g, eta))
+    assert torch.equal(rk.ring_mix(x), rk.ring_mix_plain(x))
+    assert torch.equal(rk.ring_neighbor_sum(x), rk.ring_neighbor_sum_plain(x))
+    assert rk.LAUNCHES == {name: 1 for name in rk.KERNELS}
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_rejects_a_host_eta(cuda_device):
+    x = torch.zeros((8, 4), device=cuda_device)
+    with pytest.raises(TypeError, match="eta must be a torch.Tensor"):
+        rk.fused_ring_dsgd_step(x, x, 0.1)

@@ -8,31 +8,66 @@ Phases:
 
 1. card: the card's name and power limit, the torch and CUDA versions, TF32
    off for matmuls and cuDNN, and the build of the CUDA kernels from the
-   sources in this checkout (``distributed_optimization_tpu_torch/csrc``).
-2. kernels: each ring kernel against its plain PyTorch version on the card,
-   at the main path's shape (N=256, d=81) and at N=4096, d=1024, in float32
-   and float64: the largest difference (must be within 1 ulp), the median
-   time of 200 launches from CUDA events, the plain version's time, one
-   PyTorch library call computing the same function (``torch.matmul`` or
-   ``torch.addmm`` with the dense MH matrix) and the bytes-or-operations
-   bound.
-3. reference: a small float64 run on the card (fused ring kernel) against
-   the same run on the CPU (plain versions): the gap histories must agree
-   to 1e-12, since the counter-based sampler gives both the same batches.
+   sources in this checkout (``distributed_optimization_tpu_torch/csrc``),
+   one nvcc per source, all started together.
+2. kernels: each of the seven kernels against its plain PyTorch version on
+   the card, in float32 and float64, with the largest difference, the
+   median time of 200 launches from CUDA events, the plain version's time,
+   one PyTorch library call computing the same function where there is one,
+   and the bytes-or-operations bound:
+   - ring kernels at N=256, d=81 (the main path), N=256, d=41 (the robust
+     cell's benign mix) and N=4096, d=1024, within 1 ulp (library:
+     ``torch.matmul``/``torch.addmm`` with the dense MH matrix);
+   - fc kernels at N=25, d=81 (the fc path), N=256, d=41 (the
+     robust_mixing path), N=256, d=81 and N=4096, d=1024, within
+     N·ε·max|x| (library: ``torch.matmul`` with the dense W or A);
+   - robust kernels, each rule (trimmed_mean, median, adaptive and fixed-τ
+     clipped_gossip) with and without the SGD update, on the ring at N=256,
+     d=41 (k_max=2) and on a symmetric table with k_max=15 at N=4096,
+     d=128, with about 20% of the slots dead and with every slot live:
+     bitwise for the count rules, clipping within 1e-12 (rtol and atol) in
+     float64 and, in float32, within 1e-5 of the largest |x| over each
+     row's closed neighbourhood. No one PyTorch call computes a screen, so
+     the library column is empty; the port's multi-op gather form is timed
+     beside it.
+3. reference: small float64 runs on the card (fused ring kernel; fused
+   robust kernel under sign-flip with trimmed_mean and clipped_gossip)
+   against the same runs on the CPU (plain versions): gap histories and
+   final models must agree to 1e-12, since the counter-based sampler gives
+   both the same batches.
 4. parity: the reference study's N=25 ring (logistic, T=10,000, float32,
    ``mixing_impl='pallas'``) must reach ε=0.08 within T; the fused kernel
    must launch exactly T times.
 5. main: the N=256 ring (dense-weights sampling, eval every iteration,
-   T=40,000) with ``mixing_impl='pallas'`` and with ``'stencil'``; each must
+   T=30,000) with ``mixing_impl='pallas'`` and with ``'stencil'``; each must
    stay finite, cross ε=0.08 within T and end with consensus below 1.0.
-   The fused kernel's launches are counted over the pallas run alone.
 6. mixing: the pallas ``MixingOp`` (``ring_mix``, ``ring_neighbor_sum``)
-   applied to the main run's final models, against the dense W and A; its
-   launches are counted over this phase alone.
+   applied to the main run's final models, against the dense W and A.
+7. fc: the reference study's fully-connected N=25 row (T=10,000, float32,
+   ``mixing_impl='pallas'``): ε=0.08 within T, ``fc_mix`` launched exactly
+   T times, and the stencil run's gap history within 1e-3 relative (float32
+   rounding of two summation orders, accumulated over T steps); the same
+   pair in float64 within 1e-10 relative, which shows that rounding is the
+   whole of the float32 difference.
+8. byzantine: the JAX package's breakdown demonstration
+   (``examples/bench_byzantine.py``: N=64 ring, full batch, T=4,000,
+   float32, fused screens) with its gates, each final honest gap within 1%
+   of ``docs/perf/byzantine.json``.
+9. robust: the N=256 ring of ``examples/bench_fused_robust.py`` (d=41,
+   b=16, T=5,000, sign-flip by 12 workers): plain gossip must diverge or
+   end 10× above attack-free, every screen within 2× of attack-free; the
+   fused robust step launches exactly T times in each fused run and never
+   in the gather run, whose trimmed-mean history must agree with the fused
+   one to 1e-6 relative.
+10. robust_mixing: the fused aggregator through the Byzantine mix on the
+    robust run's final models, for each rule, against the gather form and
+    the numpy oracle; and the pallas ``MixingOp`` on the fully-connected
+    graph (``fc_mix``, ``fc_neighbor_sum``) against the dense W and A.
 
-On request, ``profile`` traces 300 iterations of the main path with
-``torch.profiler`` and prints the device's busy share, the device
-operations per iteration and the kernels that take the most device time.
+Each phase that drives a path sets the launch counts to 0 just before it
+and reads them just after. On request, ``profile`` traces 300 iterations of
+the main path and of the robust cell's fused trimmed-mean run with
+``torch.profiler``.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -48,9 +83,10 @@ import subprocess
 import sys
 import time
 
-PHASES = ("card", "kernels", "reference", "parity", "main", "mixing")
+PHASES = ("card", "kernels", "reference", "parity", "main", "mixing", "fc", "byzantine",
+          "robust", "robust_mixing")
 # Run only when asked for (--phases ...,profile): a torch.profiler trace of
-# the main path's steady loop.
+# the main path's and the robust cell's steady loops.
 OPTIONAL_PHASES = ("profile",)
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; 67 TFLOP/s float32 and
@@ -59,19 +95,50 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 MAIN_SHAPE = (256, 81)
+ROBUST_SHAPE = (256, 41)  # the robust cell: its benign ring mix, its fc check
 # The main path's T: past the ε=0.08 crossing near 22,500 iterations that the
-# JAX package recorded, cut from bench.py's 300,000 to keep the run short.
-MAIN_ITERATIONS = 40_000
-SHAPES = (MAIN_SHAPE, (4096, 1024))
+# JAX package recorded, cut from bench.py's 300,000 so that the whole script
+# stays well under 600 s.
+MAIN_ITERATIONS = 30_000
+SHAPES = (MAIN_SHAPE, ROBUST_SHAPE, (4096, 1024))
+FC_SHAPES = ((25, 81), ROBUST_SHAPE, (256, 81), (4096, 1024))
+# The shape of each fc kernel's path: the fc phase, and robust_mixing.
+FC_RECORD_SHAPES = {"fc_mix": (25, 81), "fc_neighbor_sum": ROBUST_SHAPE}
+ROBUST_RECORD = ("ring", "trimmed_mean")  # the robust phase's path
 TIMED_LAUNCHES = 200
-KERNEL_SOURCE = "distributed_optimization_tpu_torch/csrc/ring_kernels.cu"
+PALLAS = "distributed_optimization_tpu/ops/pallas_kernels.py"
+CSRC = "distributed_optimization_tpu_torch/csrc"
+SOURCES = {
+    "fused_ring_dsgd_step": "ring_kernels.cu", "ring_mix": "ring_kernels.cu",
+    "ring_neighbor_sum": "ring_kernels.cu", "fc_mix": "fc_kernels.cu",
+    "fc_neighbor_sum": "fc_kernels.cu", "make_fused_robust_aggregator": "robust_kernels.cu",
+    "make_fused_robust_dsgd_step": "robust_kernels.cu",
+}
 REPLACES = {
-    "fused_ring_dsgd_step": "distributed_optimization_tpu/ops/pallas_kernels.py:143",
-    "ring_mix": "distributed_optimization_tpu/ops/pallas_kernels.py:137",
-    "ring_neighbor_sum": "distributed_optimization_tpu/ops/pallas_kernels.py:177",
+    "fused_ring_dsgd_step": f"{PALLAS}:143", "ring_mix": f"{PALLAS}:137",
+    "ring_neighbor_sum": f"{PALLAS}:177", "fc_mix": f"{PALLAS}:172",
+    "fc_neighbor_sum": f"{PALLAS}:183", "make_fused_robust_aggregator": f"{PALLAS}:410",
+    "make_fused_robust_dsgd_step": f"{PALLAS}:430",
 }
 # Floating-point operations per element of the [N, d] output.
-OPS_PER_ELEMENT = {"fused_ring_dsgd_step": 4, "ring_mix": 3, "ring_neighbor_sum": 1}
+OPS_PER_ELEMENT = {"fused_ring_dsgd_step": 4, "ring_mix": 3, "ring_neighbor_sum": 1,
+                   "fc_mix": 2, "fc_neighbor_sum": 2}
+# (rule, clip_tau) of the robust kernels' screens.
+SCREENS = (("trimmed_mean", 0.0), ("median", 0.0), ("clipped_gossip", 0.0),
+           ("clipped_gossip", 0.5))
+
+# The JAX package's float32 final honest gaps at the byzantine phase's
+# configuration (docs/perf/byzantine.json, written by
+# examples/bench_byzantine.py on a CPU); signflip_plain diverges there.
+BYZANTINE_REFERENCE = {"attack_free": 0.042538, "signflip_tm": 0.044533,
+                       "signflip_median": 0.044533, "signflip_clip": 0.045254,
+                       "alie_tm": 0.04402}
+# The JAX package's float32 final honest gaps at the robust phase's
+# configuration, on a CPU with use_mesh=False (its sampler draws other
+# batches than the port's, so these are printed beside, not gated on).
+ROBUST_REFERENCE = {"attack_free": 0.03952, "signflip_plain": float("nan"),
+                    "signflip_trimmed_mean": 0.04787, "signflip_median": 0.04787,
+                    "signflip_clipped_gossip": 0.05409}
 
 
 class PhaseFailed(RuntimeError):
@@ -90,7 +157,8 @@ def check(cond: bool, msg: str) -> None:
 def time_ms(torch, fn, n: int = TIMED_LAUNCHES) -> float:
     """Median device time of one call of ``fn`` over ``n`` calls, from CUDA
     event pairs. A sleep kernel first holds the stream, so the host queues
-    every call before the card starts them and host gaps stay out."""
+    every call before the card starts them and host gaps stay out (for a
+    call of many operations the host may still fall behind)."""
     fn()
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
@@ -104,17 +172,52 @@ def time_ms(torch, fn, n: int = TIMED_LAUNCHES) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def bound(name: str, n: int, d: int, dtype_name: str, itemsize: int):
-    """(ms, 'bytes' or 'operations'): each input read once, the output
-    written once, over the memory rate; the operations over the peak."""
-    arrays = 3 if name == "fused_ring_dsgd_step" else 2
-    nbytes = arrays * n * d * itemsize + (itemsize if name == "fused_ring_dsgd_step" else 0)
+def _bound(nbytes: float, ops: float, dtype_name: str):
+    """(ms, 'bytes' or 'operations'): the larger of the bytes over the
+    memory rate and the operations over the peak."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_ELEMENT[name] * n * d / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_card(torch, rk):
+def bound(name: str, n: int, d: int, dtype_name: str, itemsize: int):
+    """Ring and fc kernels: each input read once, the output written once."""
+    arrays = 3 if name == "fused_ring_dsgd_step" else 2
+    nbytes = arrays * n * d * itemsize + (itemsize if name == "fused_ring_dsgd_step" else 0)
+    return _bound(nbytes, OPS_PER_ELEMENT[name] * n * d, dtype_name)
+
+
+def compare_exchanges(width: int) -> int:
+    """Compare-exchanges of the odd-even transposition network."""
+    return sum(len(range(p % 2, width - 1, 2)) for p in range(width))
+
+
+def robust_bound(rule: str, n: int, d: int, k: int, dtype_name: str, itemsize: int,
+                 with_sgd: bool):
+    """Robust kernels: x (and g) read once, out written once, the [N, k]
+    int32 table and float32 liveness read once. Operations: for the count
+    rules the network's 2·CE(k+1) min/max, k+1 selection adds and the
+    count/divide per element; for clipping the norms (3·k·d per row), the
+    clipped sum (4·k·d per row) and the adaptive ranking's network."""
+    nbytes = (2 + with_sgd) * n * d * itemsize + 2 * n * k * 4 + 2 * itemsize
+    if rule in ("trimmed_mean", "median"):
+        ops = n * d * (2 * compare_exchanges(k + 1) + (k + 1) + 2)
+    else:
+        ops = n * (7 * k * d + d + 2 * compare_exchanges(k))
+    return _bound(nbytes, ops + 2 * n * d * with_sgd, dtype_name)
+
+
+def _nan_equal(torch, a, b) -> bool:
+    return bool(torch.all((a == b) | (torch.isnan(a) & torch.isnan(b))))
+
+
+def _record(name, err, ms, plain_ms, b_ms, b_by, lib_ms, **extra):
+    return {"name": name, "route": "cuda", "source": f"{CSRC}/{SOURCES[name]}",
+            "replaces": REPLACES[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, **extra}
+
+
+def phase_card(torch, kernels):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -126,15 +229,17 @@ def phase_card(torch, rk):
     torch.backends.cudnn.allow_tf32 = False
     say("[card] TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
+    build = kernels["build"]
+    sources = [m.SOURCE for m in (kernels["rk"], kernels["fk"], kernels["bk"])]
     t0 = time.perf_counter()
-    path = rk.build()
-    say(f"[card] built {path.name} from {KERNEL_SOURCE} in "
-        f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(rk.NVCC_FLAGS)})")
+    paths = build.build_all(sources)
+    say(f"[card] built {', '.join(p.name for p in paths)} in parallel in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(build.NVCC_FLAGS)})")
     return smi
 
 
-def _calls(torch, rk, name, x, g, eta, W, A):
-    """(kernel call, plain call, library call) for one kernel."""
+def _ring_calls(torch, rk, name, x, g, eta, W, A):
+    """(kernel call, plain call, library call) for one ring kernel."""
     if name == "fused_ring_dsgd_step":
         eta_f = float(eta.item())
         return (lambda: rk.fused_ring_dsgd_step(x, g, eta),
@@ -147,10 +252,14 @@ def _calls(torch, rk, name, x, g, eta, W, A):
             lambda: torch.matmul(A, x))
 
 
-def phase_kernels(torch, rk, topology):
-    """Returns {kernel: record} at the main path's shape in float32."""
-    records = {}
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def _kernel_line(name, shape, dname, err, ms, plain_ms, lib_ms, b_ms, b_by, extra=""):
+    lib = "library         —   " if lib_ms is None else f"library {lib_ms * 1e3:9.3f} us"
+    say(f"[kernels] {name:30s} {shape} {dname}: max_abs_err {err:.3e} "
+        f"kernel {ms * 1e3:9.3f} us  plain {plain_ms * 1e3:9.3f} us  {lib}  "
+        f"bound {b_ms * 1e3:8.4f} us ({b_by}){extra}")
+
+
+def kernels_ring(torch, rk, topology, gen, records):
     for n, d in SHAPES:
         topo = topology.build_topology("ring", n)
         for dtype in (torch.float32, torch.float64):
@@ -161,7 +270,7 @@ def phase_kernels(torch, rk, topology):
             W = torch.as_tensor(topo.mixing_matrix, dtype=dtype, device="cuda")
             A = torch.as_tensor(topo.adjacency, dtype=dtype, device="cuda")
             for name in rk.KERNELS:
-                kernel, plain, library = _calls(torch, rk, name, x, g, eta, W, A)
+                kernel, plain, library = _ring_calls(torch, rk, name, x, g, eta, W, A)
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
                 diff = (got - want).abs()
@@ -172,21 +281,149 @@ def phase_kernels(torch, rk, topology):
                       f"(max abs diff {err:.3e})")
                 ms, plain_ms, lib_ms = time_ms(torch, kernel), time_ms(torch, plain), time_ms(torch, library)
                 b_ms, b_by = bound(name, n, d, dname, x.element_size())
-                say(f"[kernels] {name:22s} N={n:5d} d={d:5d} {dname}: max_abs_err {err:.3e} "
-                    f"kernel {ms * 1e3:9.3f} us  plain {plain_ms * 1e3:9.3f} us  "
-                    f"library {lib_ms * 1e3:9.3f} us  bound {b_ms * 1e3:8.4f} us ({b_by})")
+                _kernel_line(name, f"N={n:5d} d={d:5d}", dname, err, ms, plain_ms, lib_ms, b_ms, b_by)
                 if (n, d) == MAIN_SHAPE and dtype == torch.float32:
-                    records[name] = {
-                        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                        "replaces": REPLACES[name], "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": lib_ms,
-                    }
-    say(f"[kernels] ported kernels: {', '.join(rk.KERNELS)}")
+                    records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, lib_ms)
+
+
+def kernels_fc(torch, fk, topology, gen, records):
+    for n, d in FC_SHAPES:
+        topo = topology.build_topology("fully_connected", n)
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).removeprefix("torch.")
+            x = torch.randn((n, d), generator=gen, device="cuda", dtype=dtype)
+            W = torch.as_tensor(topo.mixing_matrix, dtype=dtype, device="cuda")
+            A = torch.as_tensor(topo.adjacency, dtype=dtype, device="cuda")
+            for name, dense in (("fc_mix", W), ("fc_neighbor_sum", A)):
+                kernel = lambda: getattr(fk, name)(x)  # noqa: E731
+                plain = lambda: getattr(fk, f"{name}_plain")(x)  # noqa: E731
+                library = lambda: torch.matmul(dense, x)  # noqa: E731
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                tol = n * torch.finfo(dtype).eps * float(x.abs().max())
+                check(err <= tol, f"{name} N={n} d={d} {dname}: {err:.3e} from its plain "
+                                  f"version, beyond N·eps·max|x| = {tol:.3e}")
+                ms, plain_ms, lib_ms = time_ms(torch, kernel), time_ms(torch, plain), time_ms(torch, library)
+                b_ms, b_by = bound(name, n, d, dname, x.element_size())
+                _kernel_line(name, f"N={n:5d} d={d:5d}", dname, err, ms, plain_ms, lib_ms, b_ms, b_by)
+                if (n, d) == FC_RECORD_SHAPES[name] and dtype == torch.float32:
+                    records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, lib_ms)
+
+
+def k15_table(np, topology, n: int, dead: float, seed: int):
+    """A symmetric table of largest degree 15: the circulant graph over
+    offsets 1, 2, 3, 5, 7, 11, 13 and the matching i ↔ i + n/2, with about
+    ``dead`` of its edges down (both slots of an edge die together)."""
+    rng = np.random.default_rng(seed)
+    A = np.zeros((n, n), dtype=np.float32)
+    ids = np.arange(n)
+    for o in (1, 2, 3, 5, 7, 11, 13):
+        A[ids, (ids + o) % n] = A[(ids + o) % n, ids] = 1.0
+    A[ids, (ids + n // 2) % n] = 1.0
+    nbr, mask = topology.neighbor_table(A)
+    if dead > 0:
+        ei, ej = np.nonzero(np.triu(A, 1))
+        drop = rng.random(len(ei)) < dead
+        A[ei[drop], ej[drop]] = A[ej[drop], ei[drop]] = 0.0
+    live = np.take_along_axis(A, nbr.astype(np.int64), axis=1) * mask
+    return nbr, live.astype(np.float32)
+
+
+def robust_inputs(np, topology):
+    """(label, nbr, live, x) of the robust kernels' three inputs."""
+    rng = np.random.default_rng(11)
+    n, d = ROBUST_SHAPE
+    nbr, mask = topology.neighbor_tables_for(topology.build_topology("ring", n))
+    out = [("ring", nbr, mask.astype(np.float32), rng.standard_normal((n, d)))]
+    for label, dead in (("k15-dead", 0.2), ("k15-live", 0.0)):
+        nbr, live = k15_table(np, topology, 4096, dead, seed=5)
+        x = rng.standard_normal((4096, 128))
+        x[[1, 5, 77, 1000]] *= 1e4
+        out.append((label, nbr, live, x))
+    return out
+
+
+def kernels_robust(torch, np, bk, topology, gather_factory, records):
+    for label, nbr_np, live_np, x_np in robust_inputs(np, topology):
+        n, k = nbr_np.shape
+        d = x_np.shape[1]
+        dead = 1.0 - float(live_np.sum()) / float((nbr_np != np.arange(n)[:, None]).sum())
+        say(f"[kernels] robust input {label}: N={n} d={d} k_max={k}, {dead:.1%} of the "
+            f"real slots dead")
+        live = torch.as_tensor(live_np, device="cuda")
+        nbr64 = torch.as_tensor(nbr_np, dtype=torch.int64, device="cuda")
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).removeprefix("torch.")
+            x = torch.as_tensor(x_np, dtype=dtype, device="cuda")
+            # float32 clipping: 1e-5 of the largest |x| in each row's closed
+            # neighbourhood, so the rows scaled by 1e4 loosen only their own.
+            row_max = x.abs().amax(1)
+            nbhd_max = torch.maximum(
+                row_max, torch.where(live > 0, row_max[nbr64], 0.0).amax(1))
+            tol32 = 1e-5 * nbhd_max[:, None]
+            g = torch.randn(x.shape, device="cuda", dtype=dtype)
+            eta = torch.tensor([0.05 / 7.0], dtype=dtype, device="cuda")
+            for rule, ct in SCREENS:
+                adaptive = rule == "clipped_gossip" and ct == 0.0
+                tau = torch.tensor([ct], dtype=dtype, device="cuda")
+                agg = bk.make_fused_robust_aggregator(rule, 1, nbr_np, ct, device="cuda")
+                step = bk.make_fused_robust_dsgd_step(rule, 1, nbr_np, ct, device="cuda")
+                gather = gather_factory(rule, 1, nbr_np, ct, device="cuda")
+                variants = (
+                    ("make_fused_robust_aggregator", lambda: agg(live, x),
+                     lambda: bk.fused_robust_plain(rule, 1, nbr64, live, x, tau, adaptive=adaptive),
+                     lambda: gather(live, x), False),
+                    ("make_fused_robust_dsgd_step", lambda: step(live, x, g, eta),
+                     lambda: bk.fused_robust_plain(rule, 1, nbr64, live, x, tau,
+                                                   adaptive=adaptive, g=g, eta=eta),
+                     lambda: gather(live, x) - eta * g, True),
+                )
+                for name, kernel, plain, gathered, with_sgd in variants:
+                    got, want = kernel(), plain()
+                    torch.cuda.synchronize()
+                    err = float(torch.nan_to_num((got - want).abs(), nan=0.0).max())
+                    what = f"{name} {rule} tau={ct} {label} {dname}"
+                    if rule in ("trimmed_mean", "median"):
+                        check(_nan_equal(torch, got, want),
+                              f"{what}: not bitwise equal to its plain version ({err:.3e})")
+                    else:
+                        # float64: 1e-12 in rtol and atol (the JAX package's
+                        # clipping tolerance); float32: per row, as above.
+                        tol = 1e-12 + 1e-12 * want.abs() if dtype == torch.float64 else tol32
+                        check(bool(torch.all((got - want).abs() <= tol)),
+                              f"{what}: {err:.3e} from its plain version, beyond the tolerance")
+                    ms, plain_ms, gather_ms = (time_ms(torch, kernel), time_ms(torch, plain),
+                                               time_ms(torch, gathered))
+                    b_ms, b_by = robust_bound(rule, n, d, k, dname, x.element_size(), with_sgd)
+                    _kernel_line(f"{name[10:]} {rule[:8]} tau={ct}", f"{label:8s}", dname, err,
+                                 ms, plain_ms, None, b_ms, b_by,
+                                 extra=f"  gather form (multi-op) {gather_ms * 1e3:9.3f} us")
+                    if (label, rule, ct, dtype) == (*ROBUST_RECORD, 0.0, torch.float32):
+                        records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, None,
+                                                gather_ms=gather_ms)
+
+
+def phase_kernels(torch, np, kernels, topology, gather_factory):
+    """Returns {kernel: record} at each kernel's path shape in float32."""
+    records = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kernels_ring(torch, kernels["rk"], topology, gen, records)
+    kernels_fc(torch, kernels["fk"], topology, gen, records)
+    kernels_robust(torch, np, kernels["bk"], topology, gather_factory, records)
+    say(f"[kernels] ported kernels: {', '.join(records)}")
     return records
 
 
-def phase_reference(torch, pkg):
+def _agree(label, card, host, tol=1e-12):
+    diff = float(abs(card.history.objective - host.history.objective).max())
+    models = float(abs(card.final_models - host.final_models).max())
+    say(f"[reference] {label} on the card vs plain on the CPU: max gap diff {diff:.3e}, "
+        f"max model diff {models:.3e}")
+    check(diff <= tol and models <= tol, f"{label}: card and CPU runs disagree beyond {tol}")
+
+
+def phase_reference(torch, pkg, bk):
     cfg = pkg.ExperimentConfig(
         problem_type="logistic", n_workers=8, n_samples=400, n_features=10,
         n_informative_features=6, n_iterations=200, local_batch_size=8,
@@ -194,23 +431,31 @@ def phase_reference(torch, pkg):
     )
     ds = pkg.generate_synthetic_dataset(cfg)
     _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
-    card = pkg.run(cfg, ds, f_opt, device="cuda")
-    host = pkg.run(cfg, ds, f_opt, device="cpu")
-    diff = float(abs(card.history.objective - host.history.objective).max())
-    models = float(abs(card.final_models - host.final_models).max())
-    say(f"[reference] N=8 T=200 float64 pallas on the card vs plain on the CPU: "
-        f"max gap diff {diff:.3e}, max model diff {models:.3e}")
-    check(diff <= 1e-12 and models <= 1e-12, "card and CPU runs disagree beyond 1e-12")
+    _agree("N=8 T=200 float64 pallas", pkg.run(cfg, ds, f_opt, device="cuda"),
+           pkg.run(cfg, ds, f_opt, device="cpu"))
+    robust = cfg.replace(n_workers=12, n_samples=480, partition="shuffled",
+                         attack="sign_flip", n_byzantine=2, attack_scale=2.0)
+    ds = pkg.generate_synthetic_dataset(robust)
+    _, f_opt = pkg.compute_reference_optimum(ds, robust.reg_param)
+    for rule in ("trimmed_mean", "clipped_gossip"):
+        rcfg = robust.replace(aggregation=rule, robust_b=1, robust_impl="fused")
+        bk.reset_launch_counts()
+        card = pkg.run(rcfg, ds, f_opt, device="cuda")
+        check(bk.LAUNCHES["make_fused_robust_dsgd_step"] == rcfg.n_iterations,
+              f"the fused robust step launched {bk.LAUNCHES} times, not T")
+        _agree(f"N=12 T=200 float64 sign_flip {rule} fused", card,
+               pkg.run(rcfg, ds, f_opt, device="cpu"))
 
 
-def _converging_run(torch, pkg, rk, cfg, ds, f_opt, label):
-    rk.reset_launch_counts()
+def _converging_run(torch, pkg, counters, cfg, ds, f_opt, label):
+    for c in counters:
+        c.reset_launch_counts()
     res = pkg.run(cfg, ds, f_opt, device="cuda")
-    launches = dict(rk.LAUNCHES)
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
     h = res.history
     crossed = pkg.iterations_to_threshold(h.objective, cfg.suboptimality_threshold,
                                           h.eval_iterations)
-    say(f"[{label}] N={cfg.n_workers} T={cfg.n_iterations} {cfg.mixing_impl}: "
+    say(f"[{label}] N={cfg.n_workers} T={cfg.n_iterations} {cfg.topology} {cfg.mixing_impl}: "
         f"iters-to-{cfg.suboptimality_threshold} = {crossed}, final gap {h.objective[-1]:.6f}, "
         f"consensus {h.consensus_error[-1]:.3e}, {h.iters_per_second:.1f} iters/s "
         f"(warm-up {h.compile_seconds:.2f} s), kernel launches {launches}")
@@ -228,7 +473,7 @@ def phase_parity(torch, pkg, rk):
                                mixing_impl="pallas", dtype="float32", eval_every=1)
     ds = pkg.generate_synthetic_dataset(cfg)
     _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
-    _, launches = _converging_run(torch, pkg, rk, cfg, ds, f_opt, "parity")
+    _, launches = _converging_run(torch, pkg, [rk], cfg, ds, f_opt, "parity")
     say("[parity] reference Table I: 9927 iterations")
     check(launches["fused_ring_dsgd_step"] == cfg.n_iterations,
           f"fused kernel launched {launches['fused_ring_dsgd_step']} times, not T")
@@ -243,7 +488,7 @@ def phase_main(torch, pkg, rk, T):
     runs = {}
     launches = None
     for impl in ("pallas", "stencil"):
-        res, counted = _converging_run(torch, pkg, rk, cfg.replace(mixing_impl=impl),
+        res, counted = _converging_run(torch, pkg, [rk], cfg.replace(mixing_impl=impl),
                                        ds, f_opt, "main")
         check(float(res.history.consensus_error[-1]) < 1.0, "consensus error not below 1.0")
         runs[impl] = res
@@ -279,33 +524,243 @@ def phase_mixing(torch, pkg, rk, final_models):
     return launches
 
 
-def phase_profile(torch, pkg, T: int = 300):
+def phase_fc(torch, np, pkg, fk):
+    cfg = pkg.ExperimentConfig(problem_type="logistic", algorithm="dsgd",
+                               topology="fully_connected", mixing_impl="pallas",
+                               dtype="float32", eval_every=1)
+    ds = pkg.generate_synthetic_dataset(cfg)
+    _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
+    pallas, launches = _converging_run(torch, pkg, [fk], cfg, ds, f_opt, "fc")
+    say("[fc] reference Table I (fully connected): 9596 iterations")
+    check(launches["fc_mix"] == cfg.n_iterations,
+          f"fc_mix launched {launches['fc_mix']} times, not T={cfg.n_iterations}")
+    stencil, _ = _converging_run(torch, pkg, [fk], cfg.replace(mixing_impl="stencil"), ds,
+                                 f_opt, "fc")
+    rel = _relative_gap_diff(np, pallas, stencil)
+    say(f"[fc] float32: largest |gap(stencil) - gap(pallas)| / |gap(pallas)| = {rel:.3e}")
+    # fc_mix and torch.mean sum the column in different orders, so each step
+    # differs by about an ulp; with every worker averaged to one model the
+    # run does not damp those, and over T steps in float32 they add up to
+    # about 2e-4 of the gap (PERF.md). Held to 1e-3.
+    check(rel <= 1e-3, "the stencil run's gap history is not within 1e-3 relative of pallas")
+    # The second witness: the same pair in float64, where an ulp is 2^29
+    # times smaller. Rounding alone shrinks the difference by about as much;
+    # a fault in the kernel would not shrink.
+    cfg64 = cfg.replace(dtype="float64")
+    runs64 = [_converging_run(torch, pkg, [fk], cfg64.replace(mixing_impl=impl), ds, f_opt,
+                              "fc")[0] for impl in ("pallas", "stencil")]
+    rel64 = _relative_gap_diff(np, *runs64)
+    say(f"[fc] float64: largest |gap(stencil) - gap(pallas)| / |gap(pallas)| = {rel64:.3e}")
+    check(rel64 <= 1e-10, "the float64 stencil run is not within 1e-10 relative of pallas")
+    return launches
+
+
+def _relative_gap_diff(np, a, b) -> float:
+    ga, gb = a.history.objective, b.history.objective
+    return float(np.max(np.abs(gb - ga) / np.abs(ga)))
+
+
+def _screened_runs(pkg, rows, ds, f_opt, counters, label):
+    """Run each named config; returns {name: (result, launches)}."""
+    import numpy as np
+
+    out = {}
+    for name, cfg in rows.items():
+        for c in counters:
+            c.reset_launch_counts()
+        res = pkg.run(cfg, ds, f_opt, device="cuda")
+        launches = {k: v for c in counters for k, v in c.LAUNCHES.items() if v}
+        h = res.history
+        gap = float(h.objective[-1])
+        say(f"[{label}] {name:24s} final honest gap {gap:.6f} "
+            f"({'diverged' if not np.isfinite(gap) else 'finite'}), honest consensus "
+            f"{float(h.consensus_error[-1]):.3e}, {h.iters_per_second:.1f} iters/s, "
+            f"launches {launches}")
+        out[name] = (res, launches)
+    return out
+
+
+def _breakdown_gates(np, runs, screened, label):
+    clean = float(runs["attack_free"][0].history.objective[-1])
+    plain = float(runs["signflip_plain"][0].history.objective[-1])
+    check(not np.isfinite(plain) or plain >= 10.0 * clean,
+          f"{label}: plain gossip under sign-flip neither diverged nor stalled 10x above "
+          f"attack-free ({plain} vs {clean})")
+    for name in screened:
+        gaps = runs[name][0].history.objective
+        check(bool(np.all(np.isfinite(gaps))) and gaps[-1] <= 2.0 * clean,
+              f"{label}: {name} ended at {gaps[-1]}, not finite within 2x of attack-free {clean}")
+    return clean
+
+
+def phase_byzantine(np, pkg, bk):
+    base = pkg.ExperimentConfig(
+        problem_type="logistic", algorithm="dsgd", topology="ring", n_workers=64,
+        n_samples=6400, n_features=10, n_informative_features=6, n_iterations=4000,
+        local_batch_size=100, eval_every=500, partition="shuffled", dtype="float32",
+    )
+    attack = dict(attack="sign_flip", n_byzantine=6, attack_scale=5.0)
+    robust = dict(robust_b=1, robust_impl="fused")
+    rows = {
+        "attack_free": base,
+        "signflip_plain": base.replace(**attack),
+        "signflip_tm": base.replace(**attack, aggregation="trimmed_mean", **robust),
+        "signflip_median": base.replace(**attack, aggregation="median", **robust),
+        "signflip_clip": base.replace(**attack, aggregation="clipped_gossip", **robust),
+        "alie_tm": base.replace(attack="alie", n_byzantine=6, attack_scale=1.0,
+                                aggregation="trimmed_mean", **robust),
+    }
+    ds = pkg.generate_synthetic_dataset(base)
+    _, f_opt = pkg.compute_reference_optimum(ds, base.reg_param)
+    runs = _screened_runs(pkg, rows, ds, f_opt, [bk], "byzantine")
+    for name, (res, launches) in runs.items():
+        if name in ("attack_free", "signflip_plain"):
+            continue
+        check(launches.get("make_fused_robust_dsgd_step") == base.n_iterations,
+              f"byzantine {name}: fused robust step launched {launches}, not T")
+    _breakdown_gates(np, runs, ("signflip_tm", "signflip_median", "signflip_clip", "alie_tm"),
+                     "byzantine")
+    for name, want in BYZANTINE_REFERENCE.items():
+        got = float(runs[name][0].history.objective[-1])
+        say(f"[byzantine] {name:16s} port {got:.6f}  JAX package {want:.6f}  "
+            f"({(got - want) / want:+.3%})")
+        check(abs(got - want) <= 0.01 * want, f"byzantine {name}: {got} not within 1% of {want}")
+    say("[byzantine] signflip_plain: port "
+        f"{runs['signflip_plain'][0].history.objective[-1]}, JAX package diverged (NaN)")
+
+
+def robust_config(pkg, T: int = 5000):
+    return pkg.ExperimentConfig(
+        problem_type="logistic", algorithm="dsgd", topology="ring", n_workers=256,
+        n_samples=12_800, n_features=40, n_informative_features=20, n_iterations=T,
+        local_batch_size=16, eval_every=50, partition="shuffled", dtype="float32",
+        mixing_impl="pallas",
+    )
+
+
+def phase_robust(np, pkg, bk, rk):
+    base = robust_config(pkg)
+    T = base.n_iterations
+    attack = dict(attack="sign_flip", n_byzantine=12, attack_scale=5.0)
+    rows = {"attack_free": base, "signflip_plain": base.replace(**attack)}
+    for rule in ("trimmed_mean", "median", "clipped_gossip"):
+        rows[f"signflip_{rule}"] = base.replace(**attack, aggregation=rule, robust_b=1,
+                                                robust_impl="fused")
+    rows["signflip_trimmed_mean_gather"] = rows["signflip_trimmed_mean"].replace(
+        robust_impl="gather")
+    ds = pkg.generate_synthetic_dataset(base)
+    _, f_opt = pkg.compute_reference_optimum(ds, base.reg_param)
+    runs = _screened_runs(pkg, rows, ds, f_opt, [bk, rk], "robust")
+    total = 0
+    for name, (res, launches) in runs.items():
+        steps = launches.get("make_fused_robust_dsgd_step", 0)
+        want = T if name.startswith("signflip_") and name[9:] in (
+            "trimmed_mean", "median", "clipped_gossip") else 0
+        check(steps == want, f"robust {name}: fused robust step launched {steps} times, "
+                             f"not {want}")
+        total += steps
+    _breakdown_gates(np, runs, [n for n in rows if n.startswith("signflip_") and
+                                n != "signflip_plain"], "robust")
+    fused = runs["signflip_trimmed_mean"][0].history.objective
+    gather = runs["signflip_trimmed_mean_gather"][0].history.objective
+    rel = float(np.max(np.abs(gather - fused) / np.abs(fused)))
+    say(f"[robust] trimmed_mean fused vs gather: largest relative gap difference {rel:.3e}")
+    check(rel <= 1e-6, "fused and gather trimmed-mean histories differ beyond 1e-6 relative")
+    for name, want in ROBUST_REFERENCE.items():
+        say(f"[robust] {name:24s} port {float(runs[name][0].history.objective[-1]):.6f}  "
+            f"JAX package on a CPU {want:.5f}")
+    ips_f = runs["signflip_trimmed_mean"][0].history.iters_per_second
+    ips_g = runs["signflip_trimmed_mean_gather"][0].history.iters_per_second
+    say(f"[robust] trimmed_mean iters/s: fused {ips_f:.1f}, gather {ips_g:.1f} "
+        f"({ips_f / ips_g:.3f}x)")
+    return runs["signflip_trimmed_mean"][0].final_models, {"make_fused_robust_dsgd_step": total}
+
+
+def phase_robust_mixing(torch, np, pkg, kernels, final_models):
+    from distributed_optimization_tpu_torch.ops.robust_aggregation import robust_aggregate_np
+
+    bk, fk, rk = kernels["bk"], kernels["fk"], kernels["rk"]
+    base = robust_config(pkg).replace(attack="sign_flip", n_byzantine=12, attack_scale=5.0)
+    n = base.n_workers
+    topo = pkg.build_topology("ring", n)
+    algo = pkg.get_algorithm("dsgd")
+    dev = torch.device("cuda")
+    x = torch.as_tensor(final_models, dtype=torch.float32, device=dev).contiguous()
+    scale = float(x.abs().max())
+    for c in (bk, fk, rk):
+        c.reset_launch_counts()
+    for rule in ("trimmed_mean", "median", "clipped_gossip"):
+        out = {}
+        for impl in ("fused", "gather"):
+            cfg = base.replace(aggregation=rule, robust_b=1, robust_impl=impl)
+            op = pkg.make_mixing_op(topo, "pallas")
+            byz = pkg.bind_byzantine(cfg, algo, topo, op, device=dev, dtype=torch.float32)
+            out[impl] = byz.mix(x)
+        torch.cuda.synchronize()
+        err = float((out["fused"] - out["gather"]).abs().max())
+        if rule in ("trimmed_mean", "median"):
+            check(_nan_equal(torch, out["fused"], out["gather"]),
+                  f"robust_mixing {rule}: fused and gather Byzantine mixes differ ({err:.3e})")
+        else:
+            check(err <= 1e-5 * scale, f"robust_mixing {rule}: fused vs gather {err:.3e}")
+        corrupted = byz.adversary.corrupt(x).double().cpu().numpy()
+        want = robust_aggregate_np(rule, topo.adjacency, corrupted, cfg.robust_b)
+        byz_rows = byz.adversary.byzantine
+        want[byz_rows] = (topo.mixing_matrix @ x.double().cpu().numpy())[byz_rows]
+        oracle = float(np.abs(out["fused"].double().cpu().numpy() - want).max())
+        say(f"[robust_mixing] {rule:14s} byz_mix fused vs gather {err:.3e}, vs numpy oracle "
+            f"{oracle:.3e} (max |x| {scale:.3e})")
+        check(oracle <= 1e-5 * scale, f"robust_mixing {rule}: {oracle:.3e} from the oracle")
+    fc = pkg.build_topology("fully_connected", n)
+    op = pkg.make_mixing_op(fc, "pallas")
+    mixed, summed = op.apply(x), op.neighbor_sum(x)
+    torch.cuda.synchronize()
+    x64 = x.double().cpu().numpy()
+    err_w = float(np.abs(mixed.double().cpu().numpy() - fc.mixing_matrix @ x64).max())
+    err_a = float(np.abs(summed.double().cpu().numpy() - fc.adjacency @ x64).max())
+    tol = n * float(np.finfo(np.float32).eps) * scale
+    say(f"[robust_mixing] MixingOp(pallas) fully_connected N={n}: |Wx - dense| {err_w:.3e}, "
+        f"|Ax - dense| {err_a:.3e} (N·eps·max|x| {tol:.3e})")
+    check(err_w <= tol and err_a <= tol, "MixingOp(pallas) on fully_connected disagrees")
+    launches = {k: v for c in (bk, fk, rk) for k, v in c.LAUNCHES.items()}
+    say(f"[robust_mixing] launches {launches}")
+    return launches
+
+
+def _profile_run(torch, pkg, cfg, label, T):
     from torch.profiler import ProfilerActivity, profile
 
+    ds = pkg.generate_synthetic_dataset(cfg)
+    _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
+    pkg.run(cfg, ds, f_opt, device="cuda")  # warm: kernels built, caches filled
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = pkg.run(cfg, ds, f_opt, device="cuda")
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(device) > 0, "the profiler recorded no device activity")
+    start = min(e.time_range.start for e in device)
+    end = max(e.time_range.end for e in device)
+    busy = sum(e.time_range.elapsed_us() for e in device)
+    by_name = {}
+    for e in device:
+        total, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    say(f"[profile] {label} T={T}: {len(device) / T:.1f} device ops/iteration, "
+        f"device busy {busy / (end - start):.3f} of {(end - start) / T:.1f} us/iteration "
+        f"({busy / T:.1f} us busy), {res.history.iters_per_second:.1f} iters/s under the profiler")
+    for name, (total, count) in top:
+        say(f"[profile]   {total / T:8.2f} us/iteration  {count / T:5.1f}/iteration  {name[:90]}")
+
+
+def phase_profile(torch, pkg, T: int = 300):
     for impl in ("pallas", "stencil"):
         cfg = pkg.ExperimentConfig(problem_type="logistic", n_workers=256, n_iterations=T,
                                    mixing_impl=impl, dtype="float32", eval_every=1)
-        ds = pkg.generate_synthetic_dataset(cfg)
-        _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
-        pkg.run(cfg, ds, f_opt, device="cuda")  # warm: kernels built, caches filled
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            res = pkg.run(cfg, ds, f_opt, device="cuda")
-        device = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        check(len(device) > 0, "the profiler recorded no device activity")
-        start = min(e.time_range.start for e in device)
-        end = max(e.time_range.end for e in device)
-        busy = sum(e.time_range.elapsed_us() for e in device)
-        by_name = {}
-        for e in device:
-            total, count = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-        say(f"[profile] N=256 {impl} T={T}: {len(device) / T:.1f} device ops/iteration, "
-            f"device busy {busy / (end - start):.3f} of {(end - start) / T:.1f} us/iteration "
-            f"({busy / T:.1f} us busy), {res.history.iters_per_second:.1f} iters/s under the profiler")
-        for name, (total, count) in top:
-            say(f"[profile]   {total / T:8.2f} us/iteration  {count / T:5.1f}/iteration  {name[:90]}")
+        _profile_run(torch, pkg, cfg, f"N=256 {impl}", T)
+    cfg = robust_config(pkg, T).replace(attack="sign_flip", n_byzantine=12, attack_scale=5.0,
+                                        aggregation="trimmed_mean", robust_b=1,
+                                        robust_impl="fused")
+    _profile_run(torch, pkg, cfg, "robust N=256 sign_flip trimmed_mean fused", T)
 
 
 def main(argv=None) -> int:
@@ -324,44 +779,88 @@ def main(argv=None) -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
 
+    import numpy as np
+
+    from distributed_optimization_tpu_torch.ops import _cuda_build
+    from distributed_optimization_tpu_torch.ops import fc_kernels as fk
     from distributed_optimization_tpu_torch.ops import ring_kernels as rk
+    from distributed_optimization_tpu_torch.ops import robust_kernels as bk
+    from distributed_optimization_tpu_torch.ops.robust_aggregation import (
+        make_gather_robust_aggregator,
+    )
     from distributed_optimization_tpu_torch.parallel import topology
     pkg = _package()
+    kernels = {"build": _cuda_build, "rk": rk, "fk": fk, "bk": bk}
 
     t_start = time.perf_counter()
-    phase_card(torch, rk)
+    t_last = [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        say(f"[time] {name}: {now - t_last[0]:.1f} s")
+        t_last[0] = now
+
+    phase_card(torch, kernels)
+    lap("card")
     records = {}
     if "kernels" in phases:
-        records = phase_kernels(torch, rk, topology)
+        records = phase_kernels(torch, np, kernels, topology, make_gather_robust_aggregator)
+        lap("kernels")
     if "reference" in phases:
-        phase_reference(torch, pkg)
+        phase_reference(torch, pkg, bk)
+        lap("reference")
     if "parity" in phases:
         phase_parity(torch, pkg, rk)
-    main_launches = mixing_launches = None
+        lap("parity")
+    counted = {}
     if "main" in phases:
-        main_res, main_launches = phase_main(torch, pkg, rk, MAIN_ITERATIONS)
+        main_res, launches = phase_main(torch, pkg, rk, MAIN_ITERATIONS)
+        counted["fused_ring_dsgd_step"] = launches
+        lap("main")
         if "mixing" in phases:
-            mixing_launches = phase_mixing(torch, pkg, rk, main_res.final_models)
+            launches = phase_mixing(torch, pkg, rk, main_res.final_models)
+            counted["ring_mix"] = counted["ring_neighbor_sum"] = launches
+    if "fc" in phases:
+        counted["fc_mix"] = phase_fc(torch, np, pkg, fk)
+        lap("fc")
+    if "byzantine" in phases:
+        phase_byzantine(np, pkg, bk)
+        lap("byzantine")
+    if "robust" in phases:
+        robust_models, launches = phase_robust(np, pkg, bk, rk)
+        counted["make_fused_robust_dsgd_step"] = launches
+        lap("robust")
+        if "robust_mixing" in phases:
+            launches = phase_robust_mixing(torch, np, pkg, kernels, robust_models)
+            counted["make_fused_robust_aggregator"] = counted["fc_neighbor_sum"] = launches
 
     if "profile" in phases:
         phase_profile(torch, pkg)
+        lap("profile")
 
     if records:
         paths = {
-            "fused_ring_dsgd_step": (main_launches, "main: dsgd, ring, N=256, mixing_impl=pallas"),
-            "ring_mix": (mixing_launches, "mixing: MixingOp(pallas).apply"),
-            "ring_neighbor_sum": (mixing_launches, "mixing: MixingOp(pallas).neighbor_sum"),
+            "fused_ring_dsgd_step": "main: dsgd, ring, N=256, mixing_impl=pallas",
+            "ring_mix": "mixing: MixingOp(pallas).apply",
+            "ring_neighbor_sum": "mixing: MixingOp(pallas).neighbor_sum",
+            "fc_mix": "fc: dsgd, fully_connected, N=25, mixing_impl=pallas",
+            "fc_neighbor_sum":
+                "robust_mixing: MixingOp(pallas).neighbor_sum, fully_connected, N=256, d=41",
+            "make_fused_robust_aggregator":
+                "robust_mixing: byz_mix of the robust run's final models, one per rule",
+            "make_fused_robust_dsgd_step":
+                "robust: three fused runs (trimmed_mean, median, clipped_gossip), T each",
         }
-        kernels = []
-        for name in rk.KERNELS:
-            counted, path = paths[name]
-            kernels.append({**records[name],
-                            "launches": None if counted is None else counted[name],
-                            "path": path})
-        if main_launches is not None and mixing_launches is not None:
-            check(all(k["launches"] > 0 for k in kernels),
+        kernel_records = []
+        for name, record in records.items():
+            launches = counted.get(name)
+            kernel_records.append({**record,
+                                   "launches": None if launches is None else launches[name],
+                                   "path": paths[name]})
+        if len(counted) == len(records):
+            check(all(k["launches"] > 0 for k in kernel_records),
                   "a ported kernel was not launched on its path")
-        say(json.dumps({"kernels": kernels}))
+        say(json.dumps({"kernels": kernel_records}))
     say(f"[done] phases {','.join(phases)} in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -373,7 +872,8 @@ def _package():
     """The port's entry points, gathered into one namespace."""
     import types
 
-    from distributed_optimization_tpu_torch.backends.torch_backend import run
+    from distributed_optimization_tpu_torch.algorithms import get_algorithm
+    from distributed_optimization_tpu_torch.backends.torch_backend import bind_byzantine, run
     from distributed_optimization_tpu_torch.config import ExperimentConfig
     from distributed_optimization_tpu_torch.metrics import iterations_to_threshold
     from distributed_optimization_tpu_torch.ops.mixing import make_mixing_op
@@ -382,7 +882,8 @@ def _package():
     from distributed_optimization_tpu_torch.utils.oracle import compute_reference_optimum
 
     return types.SimpleNamespace(
-        run=run, ExperimentConfig=ExperimentConfig,
+        run=run, ExperimentConfig=ExperimentConfig, bind_byzantine=bind_byzantine,
+        get_algorithm=get_algorithm,
         iterations_to_threshold=iterations_to_threshold, make_mixing_op=make_mixing_op,
         build_topology=build_topology, generate_synthetic_dataset=generate_synthetic_dataset,
         compute_reference_optimum=compute_reference_optimum,

@@ -16,10 +16,14 @@ import json
 import sys
 
 from distributed_optimization_tpu_torch.config import (
+    AGGREGATIONS,
     ALGORITHMS,
+    ATTACKS,
     DTYPES,
     MIXING_IMPLS,
+    PARTITIONS,
     PROBLEM_TYPES,
+    ROBUST_IMPLS,
     SAMPLING_IMPLS,
     TOPOLOGIES,
     ExperimentConfig,
@@ -54,6 +58,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'pallas' selects the hand-written CUDA ring kernels")
     p.add_argument("--sampling-impl", choices=SAMPLING_IMPLS, default=_DEFAULTS.sampling_impl)
     p.add_argument("--dtype", choices=DTYPES, default=_DEFAULTS.dtype)
+    p.add_argument("--partition", choices=PARTITIONS, default=_DEFAULTS.partition,
+                   help="worker data split: 'sorted' (non-IID) or 'shuffled' (IID)")
+    p.add_argument("--attack", choices=ATTACKS, default=_DEFAULTS.attack,
+                   help="Byzantine payload the n-byzantine workers send")
+    p.add_argument("--n-byzantine", type=int, default=_DEFAULTS.n_byzantine)
+    p.add_argument("--attack-scale", type=float, default=_DEFAULTS.attack_scale,
+                   help="sign-flip multiplier or ALIE's z")
+    p.add_argument("--aggregation", choices=AGGREGATIONS, default=_DEFAULTS.aggregation,
+                   help="robust rule honest workers screen received models with")
+    p.add_argument("--robust-b", type=int, default=_DEFAULTS.robust_b,
+                   help="per-neighbourhood attack budget; 0 is plain gossip")
+    p.add_argument("--clip-tau", type=float, default=_DEFAULTS.clip_tau,
+                   help="fixed clipping radius for clipped_gossip (0 = adaptive)")
+    p.add_argument("--robust-impl", choices=ROBUST_IMPLS, default=_DEFAULTS.robust_impl,
+                   help="'fused' runs the hand-written CUDA robust kernels, 'gather' "
+                        "torch ops; 'auto' takes fused where the kernel can")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--json", action="store_true", help="print the summary as JSON")
     return p
@@ -80,6 +100,14 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         mixing_impl=args.mixing_impl,
         sampling_impl=args.sampling_impl,
         dtype=args.dtype,
+        partition=args.partition,
+        attack=args.attack,
+        n_byzantine=args.n_byzantine,
+        attack_scale=args.attack_scale,
+        aggregation=args.aggregation,
+        robust_b=args.robust_b,
+        clip_tau=args.clip_tau,
+        robust_impl=args.robust_impl,
     )
 
 
@@ -104,6 +132,10 @@ def main(argv: list[str] | None = None) -> int:
         "topology": cfg.topology,
         "n_workers": cfg.n_workers,
         "mixing_impl": cfg.mixing_impl,
+        "attack": cfg.attack,
+        "aggregation": cfg.aggregation,
+        # Under an attack the gap and consensus are over the honest rows.
+        "gap_over": "honest workers" if cfg.attack != "none" else "all workers",
         "iterations_to_threshold": iterations_to_threshold(
             h.objective, cfg.suboptimality_threshold, h.eval_iterations
         ),

@@ -39,13 +39,16 @@ class StepContext:
 class Algorithm:
     """A named step rule: ``init(x0, config) -> state`` and
     ``step(state, ctx) -> state``. ``gossip_rounds``: model-sized exchanges
-    per iteration; ``is_decentralized``: False for the parameter server."""
+    per iteration; ``is_decentralized``: False for the parameter server;
+    ``supports_byzantine``: the rule's update goes through ``ctx.mix``
+    alone, so Byzantine injection and robust screening compose with it."""
 
     name: str
     init: Callable[..., State]
     step: Callable[[State, StepContext], State]
     gossip_rounds: int = 1
     is_decentralized: bool = True
+    supports_byzantine: bool = False
 
 
 def local_descent_loop(v: torch.Tensor, ctx: StepContext, direction) -> torch.Tensor:

@@ -6,7 +6,8 @@ model, gossips, and steps,
 
     x_{i,t+1} = Σ_j W_ij x_{j,t} − η_t g_i(x_{i,t}),
 
-through ``ctx.fused_mix_step`` (one kernel) when the backend offers it.
+through ``ctx.fused_mix_step`` (one kernel) when the backend offers it: the
+fused ring step, or under Byzantine screening the fused robust step.
 """
 
 from __future__ import annotations
@@ -36,5 +37,5 @@ def _step(state: State, ctx: StepContext) -> State:
 
 
 DSGD = register_algorithm(
-    Algorithm(name="dsgd", init=_init, step=_step, gossip_rounds=1)
+    Algorithm(name="dsgd", init=_init, step=_step, gossip_rounds=1, supports_byzantine=True)
 )

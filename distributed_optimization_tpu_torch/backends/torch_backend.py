@@ -1,10 +1,11 @@
 """The PyTorch execution backend: one run of one algorithm on one device.
 
 The port of the unsharded, fault-free run loop of
-``distributed_optimization_tpu/backends/jax_backend.py`` (``_run`` and
-``_make_step_eval``). One iteration is: per-worker mini-batch sampling →
-per-worker closed-form gradients → gossip (or the fused ring kernel) →
-step. The loop is a Python loop of asynchronous launches: the per-eval
+``distributed_optimization_tpu/backends/jax_backend.py`` (``_run``,
+``_make_step_eval`` and ``_bind_byzantine``). One iteration is: per-worker
+mini-batch sampling → per-worker closed-form gradients → gossip (or the
+fused ring kernel; under Byzantine injection the corrupt → screen → mix
+composition, or the fused robust kernel) → step. The loop is a Python loop of asynchronous launches: the per-eval
 suboptimality gap and consensus error are written into preallocated device
 tensors, and the host fetches them once, after the last iteration. Nothing
 inside the loop synchronises with the device.
@@ -38,11 +39,29 @@ from distributed_optimization_tpu_torch.metrics import (
 from distributed_optimization_tpu_torch.models import get_problem
 from distributed_optimization_tpu_torch.ops import ring_kernels
 from distributed_optimization_tpu_torch.ops.mixing import MixingOp, make_mixing_op
+from distributed_optimization_tpu_torch.ops.robust_aggregation import (
+    make_gather_robust_aggregator,
+    validate_budget,
+)
+from distributed_optimization_tpu_torch.ops.robust_kernels import (
+    fused_robust_supported,
+    make_fused_robust_aggregator,
+    make_fused_robust_dsgd_step,
+)
+from distributed_optimization_tpu_torch.parallel.adversary import (
+    Adversary,
+    make_adversary,
+    make_byzantine_mixing,
+)
 from distributed_optimization_tpu_torch.ops.sampling import (
     sample_worker_batch_weights,
     sample_worker_batches,
 )
-from distributed_optimization_tpu_torch.parallel.topology import build_topology
+from distributed_optimization_tpu_torch.parallel.topology import (
+    Topology,
+    build_topology,
+    neighbor_tables_for,
+)
 from distributed_optimization_tpu_torch.utils.data import HostDataset, stack_shards
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -88,9 +107,12 @@ class _Program:
     eta: torch.Tensor  # [T]
     full_objective: Callable
     data: tuple
+    byz: Optional["Byzantine"] = None
 
     def step(self, state, t: int):
-        if self.mix_op is not None:
+        if self.byz is not None:
+            mix, nbr = self.byz.mix, self.byz.neighbor_sum
+        elif self.mix_op is not None:
             mix, nbr = self.mix_op.apply, self.mix_op.neighbor_sum
         else:
             mix, nbr = (lambda v: v), (lambda v: v * 0)
@@ -101,15 +123,102 @@ class _Program:
         )
         return self.algo.step(state, ctx)
 
-    def gap(self, x: torch.Tensor, f_opt: float) -> torch.Tensor:
-        """f(x̄) − f* on the full dataset."""
-        return self.full_objective(x.mean(dim=0), *self.data) - f_opt
+    def metrics(self, x: torch.Tensor, f_opt: float, with_consensus: bool):
+        """f(x̄) − f* and, if asked for, (1/N) Σ_i ‖x_i − x̄‖² (else None);
+        over the honest rows alone under an attack, since the Byzantine
+        rows are the adversary's."""
+        hw = self.byz.honest_w if self.byz is not None else None
+        if hw is None:
+            xbar = x.mean(dim=0)
+        else:
+            nh = torch.sum(hw)
+            xbar = torch.sum(x * hw[:, None], dim=0) / nh
+        gap = self.full_objective(xbar, *self.data) - f_opt
+        if not with_consensus:
+            return gap, None
+        sq = torch.sum((x - xbar[None, :]) ** 2, dim=1)
+        return gap, (torch.mean(sq) if hw is None else torch.sum(hw * sq) / nh)
 
 
-def consensus_error(x: torch.Tensor) -> torch.Tensor:
-    """(1/N) Σ_i ‖x_i − x̄‖²."""
-    xbar = x.mean(dim=0)
-    return torch.mean(torch.sum((x - xbar[None, :]) ** 2, dim=1))
+@dataclasses.dataclass
+class Byzantine:
+    """The bound Byzantine layer of a run (``_bind_byzantine``).
+
+    ``mix``: corrupt → screen (or plain gossip) → mix, with Byzantine rows
+    on the benign mix of the true stack. ``neighbor_sum``: A x of the
+    corrupted stack. ``fused_step``: the robust D-SGD update in one kernel
+    launch, or None. ``honest_w``: the [N] 0/1 honest mask on the device
+    when there is an attack, else None.
+    """
+
+    adversary: Optional[Adversary]
+    mix: Callable
+    neighbor_sum: Callable
+    fused_step: Optional[Callable]
+    honest_w: Optional[torch.Tensor]
+
+
+def resolve_robust_impl(config, topo: Topology) -> str:
+    """The robust rule's execution form, as ``_bind_byzantine`` resolves it
+    on an unsharded, fault-free run without telemetry: 'auto' promotes to
+    'fused' where the kernel takes the rule at this k_max."""
+    k_max = int(topo.degrees.max())
+    eligible = fused_robust_supported(config.aggregation, k_max, config.clip_tau)
+    return config.resolved_robust_impl(k_max, fused_eligible=eligible)
+
+
+def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
+                   device: torch.device, dtype: torch.dtype) -> Optional[Byzantine]:
+    """The Byzantine adversary and robust aggregation of a config, or None
+    when it is benign (no attack and no robust rule with a budget)."""
+    if not config.byzantine_active:
+        return None
+    if not algo.supports_byzantine:
+        raise ValueError(
+            f"Byzantine injection / robust aggregation is unsupported for "
+            f"{algo.name!r}: only step rules whose updates go through the "
+            "gossip mix alone compose with screened aggregation — use 'dsgd'"
+        )
+    adversary = make_adversary(
+        config.n_workers, config.attack, config.n_byzantine, config.attack_scale,
+        config.seed, device=device, dtype=dtype,
+    )
+    base_mix = mix_op.apply
+    aggregate = fused_step = None
+    if config.robust_active:
+        validate_budget(int(topo.degrees.min()), config.robust_b, config.aggregation)
+        robust_impl = resolve_robust_impl(config, topo)
+        nbr_idx, nbr_mask = neighbor_tables_for(topo)
+        live = torch.as_tensor(nbr_mask, dtype=torch.float32, device=device)
+        rule = (config.aggregation, config.robust_b, nbr_idx, config.clip_tau)
+        if robust_impl == "fused":
+            agg = make_fused_robust_aggregator(*rule, device=device)
+        else:
+            agg = make_gather_robust_aggregator(*rule, device=device)
+        aggregate = lambda v: agg(live, v)  # noqa: E731
+        if robust_impl == "fused" and algo.name == "dsgd":
+            kernel = make_fused_robust_dsgd_step(*rule, device=device)
+
+            def fused_step(x, g, eta):
+                # One launch for honest rows; Byzantine rows keep the
+                # benign mix of the true stack, then the same − η·g.
+                xc = adversary.corrupt(x) if adversary is not None else x
+                out = kernel(live, xc, g, eta)
+                if adversary is not None:
+                    out = torch.where(adversary.rows > 0, base_mix(x) - eta * g, out)
+                return out
+
+    nbr_sum = mix_op.neighbor_sum
+    if adversary is not None:
+        nbr_sum = lambda v: mix_op.neighbor_sum(adversary.corrupt(v))  # noqa: E731
+    return Byzantine(
+        adversary=adversary,
+        mix=make_byzantine_mixing(adversary, base_mix, aggregate),
+        neighbor_sum=nbr_sum,
+        fused_step=fused_step,
+        honest_w=(torch.as_tensor(adversary.honest, dtype=dtype, device=device)
+                  if adversary is not None else None),
+    )
 
 
 def _make_grad_factory(problem, reg, config, X, y, n_valid, schedule, sampling_impl):
@@ -177,18 +286,29 @@ def run(
     n_valid = torch.as_tensor(host.n_valid, dtype=torch.int64, device=dev)
     d = host.n_features
 
-    mix_op = None
+    mix_op = byz = None
     fused_mix_step = None
     if algo.is_decentralized:
         topo = build_topology(config.topology, n)
         mix_op = make_mixing_op(topo, config.mixing_impl, device=dev, dtype=dtype)
         floats_per_iter = decentralized_floats_per_iteration(topo, d, algo.gossip_rounds)
         spectral_gap = topo.spectral_gap
-        if mix_op.impl == "pallas" and topo.name == "ring":
+        byz = bind_byzantine(config, algo, topo, mix_op, device=dev, dtype=dtype)
+        if byz is not None:
+            fused_mix_step = byz.fused_step
+        elif mix_op.impl == "pallas" and topo.name == "ring":
             # The fused W x − η g kernel, bound as the JAX package binds its
-            # Pallas counterpart (no faults or Byzantine layer exist here).
+            # Pallas counterpart: never under Byzantine injection, where it
+            # would skip the corruption and the screen.
             fused_mix_step = ring_kernels.fused_ring_dsgd_step
     else:
+        if config.byzantine_active:
+            raise ValueError(
+                "fault injection / matching-based gossip / Byzantine "
+                "injection model peer exchanges and apply only to "
+                "decentralized algorithms; the centralized pattern has no "
+                "peer edges"
+            )
         floats_per_iter = centralized_floats_per_iteration(n, d)
         spectral_gap = None
 
@@ -214,7 +334,7 @@ def run(
         mix_op=mix_op, fused_mix_step=fused_mix_step,
         eta=make_eta_schedule(config, T, dev, dtype),
         full_objective=make_full_objective_fn(problem, reg),
-        data=(X, y, n_valid),
+        data=(X, y, n_valid), byz=byz,
     )
 
     state = algo.init(torch.zeros((n, d), dtype=dtype, device=dev), config)
@@ -230,9 +350,10 @@ def run(
         state = program.step(state, t)
         if collect_metrics and (t + 1) % eval_every == 0:
             k = (t + 1) // eval_every - 1
-            gap_hist[k] = program.gap(state["x"], f_opt)
+            gap, spread = program.metrics(state["x"], f_opt, track_consensus)
+            gap_hist[k] = gap
             if track_consensus:
-                cons_hist[k] = consensus_error(state["x"])
+                cons_hist[k] = spread
         return state
 
     sync()
@@ -263,8 +384,11 @@ def run(
         spectral_gap=spectral_gap,
     )
     final_models = state["x"].cpu().numpy().astype(np.float64)
+    # Under an attack the reported model is the honest average.
+    adversary = byz.adversary if byz is not None else None
+    honest = adversary.honest if adversary is not None else slice(None)
     return BackendRunResult(
         history=history,
         final_models=final_models,
-        final_avg_model=final_models.mean(axis=0),
+        final_avg_model=final_models[honest].mean(axis=0),
     )

@@ -21,6 +21,11 @@ MIXING_IMPLS = ("auto", "stencil", "dense", "pallas")
 SAMPLING_IMPLS = ("auto", "dense", "gather")
 DTYPES = ("float32", "float64")
 LR_SCHEDULES = ("auto", "sqrt_decay", "constant")
+PARTITIONS = ("sorted", "shuffled")
+# The JAX package's full lists; the values this slice lacks raise below.
+ATTACKS = ("none", "sign_flip", "large_noise", "alie")
+AGGREGATIONS = ("gossip", "trimmed_mean", "median", "clipped_gossip")
+ROBUST_IMPLS = ("auto", "dense", "gather", "fused")
 
 
 def _not_yet(field: str, value: Any, allowed: tuple) -> ValueError:
@@ -60,6 +65,25 @@ class ExperimentConfig:
     sampling_impl: str = "auto"
     dtype: str = "float32"
     record_consensus: bool = True
+    # 'sorted': the study's sort-by-target split; 'shuffled': a
+    # seed-deterministic IID split (the Byzantine benches use it).
+    partition: str = "sorted"
+    # Byzantine injection: n_byzantine workers (a static seeded set) send
+    # an attack payload in place of their model each gossip round.
+    attack: str = "none"
+    n_byzantine: int = 0
+    attack_scale: float = 1.0
+    # Robust aggregation: the screen honest workers apply to what they
+    # receive, its per-neighbourhood budget b, and a fixed clipping radius
+    # (0 = adaptive). robust_b == 0 is plain MH gossip.
+    aggregation: str = "gossip"
+    robust_b: int = 0
+    clip_tau: float = 0.0
+    # Execution form of the robust rule: 'gather' (torch ops over the
+    # [N, k_max] neighbour table) or 'fused' (the hand-written CUDA kernels
+    # of ops/robust_kernels.py); 'auto' promotes gather to fused where the
+    # kernel takes the rule. 'dense' is not ported.
+    robust_impl: str = "auto"
 
     def __post_init__(self) -> None:
         for field, allowed in (
@@ -75,6 +99,7 @@ class ExperimentConfig:
             value = getattr(self, field)
             if value not in allowed:
                 raise _not_yet(field, value, allowed)
+        self._validate_byzantine()
         if self.n_workers <= 0:
             raise ValueError("n_workers must be positive")
         if self.n_informative_features > self.n_features:
@@ -90,6 +115,99 @@ class ExperimentConfig:
                 f"eval_every ({self.eval_every}) must divide n_iterations "
                 f"({self.n_iterations})"
             )
+
+    def _validate_byzantine(self) -> None:
+        """The JAX package's checks of the Byzantine fields, in its order
+        and with its messages."""
+        if self.partition not in PARTITIONS:
+            raise ValueError(f"Unknown partition: {self.partition}")
+        if self.attack not in ATTACKS:
+            raise ValueError(f"Unknown attack: {self.attack}")
+        if self.attack == "large_noise":
+            # Its payload is jax.random.normal's bits at (seed, t).
+            raise _not_yet("attack", self.attack, ("none", "sign_flip", "alie"))
+        if self.aggregation not in AGGREGATIONS:
+            raise ValueError(f"Unknown aggregation: {self.aggregation}")
+        if self.n_byzantine < 0:
+            raise ValueError(
+                f"n_byzantine must be >= 0, got {self.n_byzantine}"
+            )
+        if (self.attack == "none") != (self.n_byzantine == 0):
+            raise ValueError(
+                f"attack={self.attack!r} and n_byzantine="
+                f"{self.n_byzantine} must be set together: an attack needs "
+                "attackers, and Byzantine workers need a payload to send"
+            )
+        if self.attack != "none":
+            if self.n_byzantine >= self.n_workers:
+                raise ValueError(
+                    f"n_byzantine ({self.n_byzantine}) must leave at least "
+                    f"one honest worker out of {self.n_workers}"
+                )
+            if self.attack_scale <= 0.0:
+                raise ValueError(
+                    f"attack_scale must be positive, got {self.attack_scale}"
+                )
+        elif self.attack_scale != 1.0:
+            raise ValueError(
+                f"attack_scale={self.attack_scale} only takes effect with "
+                "an attack; attack='none' would silently ignore it"
+            )
+        if self.robust_b < 0:
+            raise ValueError(f"robust_b must be >= 0, got {self.robust_b}")
+        if self.robust_b > 0 and self.aggregation == "gossip":
+            raise ValueError(
+                f"robust_b={self.robust_b} only takes effect with a robust "
+                "aggregation rule; plain 'gossip' has no screening step and "
+                "would silently ignore it"
+            )
+        if self.robust_impl not in ROBUST_IMPLS:
+            raise ValueError(f"Unknown robust impl: {self.robust_impl}")
+        if self.robust_impl != "auto" and not self.robust_active:
+            raise ValueError(
+                f"robust_impl={self.robust_impl!r} selects the execution "
+                "form of a robust aggregation rule; without one (a non-"
+                "gossip aggregation and robust_b > 0) it would be silently "
+                "ignored"
+            )
+        if self.robust_impl == "dense":
+            raise _not_yet("robust_impl", self.robust_impl, ("auto", "gather", "fused"))
+        if self.clip_tau < 0.0:
+            raise ValueError(f"clip_tau must be >= 0, got {self.clip_tau}")
+        if self.clip_tau > 0.0 and self.aggregation != "clipped_gossip":
+            raise ValueError(
+                f"clip_tau only applies to aggregation='clipped_gossip'; "
+                f"{self.aggregation!r} would silently ignore it"
+            )
+
+    @property
+    def robust_active(self) -> bool:
+        """A robust rule with a positive budget screens the gossip."""
+        return self.aggregation != "gossip" and self.robust_b > 0
+
+    @property
+    def byzantine_active(self) -> bool:
+        """An attack to simulate or a robust rule to defend with."""
+        return self.attack != "none" or self.robust_active
+
+    def resolved_robust_impl(self, k_max: int, *, fused_eligible: bool = False) -> str:
+        """Resolve robust_impl='auto' as the JAX package does: gather when
+        k_max + 1 < N, promoted to fused when the backend reports the
+        kernel eligible. The dense form it picks at k_max + 1 >= N (the
+        fully-connected graph) is not ported, and raises."""
+        impl = self.robust_impl
+        if impl == "auto":
+            if k_max + 1 >= self.n_workers:
+                impl = "dense"
+            else:
+                impl = "fused" if fused_eligible else "gather"
+        if impl == "dense":
+            raise ValueError(
+                f"robust_impl={self.robust_impl!r} resolves to 'dense' at "
+                f"k_max={k_max}, N={self.n_workers}: the PyTorch port does "
+                "not have it yet (it implements 'gather' and 'fused')"
+            )
+        return impl
 
     def resolved_data_seed(self) -> int:
         """``data_seed`` when pinned (>= 0), else ``seed``."""

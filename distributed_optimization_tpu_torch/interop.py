@@ -19,7 +19,9 @@ def state_from_reference(
     dtype: torch.dtype,
 ) -> dict[str, torch.Tensor]:
     """The JAX package's state dict of ``[N, d]`` arrays as the port's
-    tensors (contiguous copies on ``device`` in ``dtype``)."""
+    tensors (contiguous copies on ``device`` in ``dtype``). D-SGD's state,
+    with or without a Byzantine layer, is ``x`` alone: the attack and the
+    screen carry no state across iterations."""
     if "x" not in state:
         raise ValueError("a state needs its per-worker models under 'x'")
     out = {}

@@ -7,8 +7,9 @@ the fully-connected graph, in three forms:
   fully-connected graph as the column mean;
 - ``dense``: a product with the [N, N] matrix, ``torch.matmul`` as the JAX
   package leaves it to XLA;
-- ``pallas``: the hand-written CUDA ring kernels of ``ops/ring_kernels.py``
-  (ring of N >= 3 only). The name is kept so that configs carry across.
+- ``pallas``: the hand-written CUDA kernels of ``ops/ring_kernels.py``
+  (ring of N >= 3) and ``ops/fc_kernels.py`` (fully connected). The name
+  is kept so that configs carry across.
 
 ``auto`` resolves to ``stencil``, as in the JAX package.
 """
@@ -20,7 +21,7 @@ from typing import Callable
 
 import torch
 
-from distributed_optimization_tpu_torch.ops import ring_kernels
+from distributed_optimization_tpu_torch.ops import fc_kernels, ring_kernels
 from distributed_optimization_tpu_torch.parallel.topology import Topology
 
 MixFn = Callable[[torch.Tensor], torch.Tensor]
@@ -62,10 +63,13 @@ def make_mixing_op(
                 topo.name, "pallas", ring_kernels.ring_mix,
                 ring_kernels.ring_neighbor_sum,
             )
+        if topo.name == "fully_connected":
+            return MixingOp(
+                topo.name, "pallas", fc_kernels.fc_mix, fc_kernels.fc_neighbor_sum,
+            )
         raise ValueError(
-            "the port's pallas mixing (hand-written CUDA kernels) supports "
-            f"the ring of n>=3 only, not {topo.name} (n={topo.n}); the "
-            "fully-connected kernels are not ported yet"
+            f"pallas mixing supports ring (n>=3) and fully_connected, "
+            f"not {topo.name} (n={topo.n})"
         )
 
     if impl == "dense":
@@ -79,13 +83,9 @@ def make_mixing_op(
     if not _supports_stencil(topo):
         raise ValueError(f"stencil mixing unsupported for {topo.name} (n={topo.n})")
     if topo.name == "fully_connected":
-        def apply(x: torch.Tensor) -> torch.Tensor:
-            return torch.mean(x, dim=0, keepdim=True).expand_as(x)
-
-        def neighbor_sum(x: torch.Tensor) -> torch.Tensor:
-            return torch.sum(x, dim=0, keepdim=True) - x
-
-        return MixingOp(topo.name, "stencil", apply, neighbor_sum)
+        return MixingOp(
+            topo.name, "stencil", fc_kernels.fc_mix_plain, fc_kernels.fc_neighbor_sum_plain,
+        )
     return MixingOp(
         topo.name, "stencil", ring_kernels.ring_mix_plain,
         ring_kernels.ring_neighbor_sum_plain,

@@ -13,9 +13,8 @@ For a CUDA tensor it launches the kernel of ``csrc/ring_kernels.cu`` on the
 current stream, or raises; for a CPU tensor it runs the plain PyTorch
 version beside it (``*_plain``), which the kernel matches bit for bit.
 
-The shared library is built at first use with ``nvcc`` for ``sm_90a`` into
-``_build/`` inside the package, named after a hash of the source, and
-loaded with ``ctypes``. A failed build raises with nvcc's output.
+The shared library is built at first use by ``ops/_cuda_build.py`` (nvcc
+for ``sm_90a`` into ``_build/``, loaded with ``ctypes``).
 
 ``LAUNCHES`` counts kernel launches per wrapper; the plain versions do not
 count.
@@ -25,23 +24,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 
 import torch
 
+from distributed_optimization_tpu_torch.ops import _cuda_build
+
 THIRD = 1.0 / 3.0
 
-_PACKAGE = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE / "csrc" / "ring_kernels.cu"
-BUILD_DIR = _PACKAGE / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCE = _cuda_build.CSRC / "ring_kernels.cu"
 
 KERNELS = ("fused_ring_dsgd_step", "ring_mix", "ring_neighbor_sum")
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -70,51 +60,9 @@ def ring_neighbor_sum_plain(x: torch.Tensor) -> torch.Tensor:
 # --- build and load ----------------------------------------------------------
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is not None:
-        candidate = os.path.join(CUDA_HOME, "bin", "nvcc")
-        if os.path.exists(candidate):
-            return candidate
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found: the ring kernels are built from "
-            f"{SOURCE} at first use and need the CUDA toolkit"
-        )
-    return found
-
-
-def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"ring_kernels-{digest}.so"
-
-
-def build() -> pathlib.Path:
-    """Compile the shared library unless this source's build exists."""
-    target = library_path()
-    if target.exists():
-        return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    partial = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        partial.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}) building {SOURCE}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(partial, target)
-    return target
-
-
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = _cuda_build.load(SOURCE)
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     for suffix in ("f32", "f64"):
         fused = getattr(lib, f"fused_ring_dsgd_step_{suffix}")
@@ -129,45 +77,17 @@ def _library() -> ctypes.CDLL:
 
 # --- wrappers ----------------------------------------------------------------
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
 
 def _check_state(x: torch.Tensor, what: str = "x") -> None:
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{what} must be a torch.Tensor")
-    if x.dtype not in _SUFFIX:
-        raise TypeError(f"{what} must be float32 or float64, got {x.dtype}")
-    if x.dim() != 2:
-        raise ValueError(f"{what} must be [N, d], got shape {tuple(x.shape)}")
+    _cuda_build.check_stack(x, what)
     if x.shape[0] < 3:
         raise ValueError(f"the ring kernels need N >= 3 workers, got {x.shape[0]}")
-    if not x.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what} lies on {x.device}; the ring kernels take cpu or cuda")
-
-
-def _check_like(t: torch.Tensor, x: torch.Tensor, what: str) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{what} must be a torch.Tensor")
-    if t.dtype != x.dtype or t.device != x.device:
-        raise ValueError(
-            f"{what} must match x in dtype and device "
-            f"({t.dtype} on {t.device} vs {x.dtype} on {x.device})"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
 
 
 def _launch(name: str, x: torch.Tensor, *args: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
-    fn = getattr(_library(), f"{name}_{_SUFFIX[x.dtype]}")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*(a.data_ptr() for a in (x, *args)), out.data_ptr(),
-                 x.shape[0], x.shape[1], stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _cuda_build.call(_library(), name, x, *(a.data_ptr() for a in (x, *args)),
+                     out.data_ptr(), x.shape[0], x.shape[1])
     LAUNCHES[name] += 1
     return out
 
@@ -176,14 +96,12 @@ def fused_ring_dsgd_step(x: torch.Tensor, g: torch.Tensor, eta: torch.Tensor) ->
     """W x − η g on the ring. ``eta`` is a one-element tensor in x's dtype
     on x's device (a Python float is accepted for a CPU tensor)."""
     _check_state(x)
-    _check_like(g, x, "g")
+    _cuda_build.check_like(g, x, "g")
     if g.shape != x.shape:
         raise ValueError(f"g has shape {tuple(g.shape)}, x {tuple(x.shape)}")
     if x.device.type == "cpu":
         return fused_ring_dsgd_step_plain(x, g, eta)
-    _check_like(eta, x, "eta")
-    if eta.numel() != 1:
-        raise ValueError(f"eta must hold one element, got {eta.numel()}")
+    _cuda_build.check_scalar(eta, x, "eta")
     return _launch("fused_ring_dsgd_step", x, g, eta)
 
 

@@ -1,0 +1,118 @@
+"""Byzantine adversary injection: workers that send wrong models.
+
+The port of ``distributed_optimization_tpu/parallel/adversary.py`` for the
+two payloads that need no random draw:
+
+- **sign_flip**: send −scale·x_i;
+- **alie** ("a little is enough"): the colluders all send the honest
+  workers' per-coordinate mean − scale·std.
+
+``large_noise`` needs ``jax.random.normal``'s bits and is not ported yet.
+The Byzantine set is drawn on the host from the config seed
+(``byzantine_mask``), bit for bit the JAX package's draw. The payload math
+runs in promote(float32, dtype) and is cast back to the run dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from distributed_optimization_tpu_torch.ops.mixing import MixFn
+
+# The stream tag the JAX package folds into the seed of the Byzantine set.
+_BYZ_SET_TAG = 0xB12A
+
+
+def byzantine_mask(n_workers: int, n_byzantine: int, seed: int) -> np.ndarray:
+    """The static Byzantine set as a host [N] bool mask, drawn from
+    ``default_rng([seed, tag])``."""
+    if not 0 <= n_byzantine < n_workers:
+        raise ValueError(
+            f"n_byzantine must be in [0, n_workers), got {n_byzantine} "
+            f"of {n_workers}"
+        )
+    mask = np.zeros(n_workers, dtype=bool)
+    if n_byzantine > 0:
+        rng = np.random.default_rng([seed, _BYZ_SET_TAG])
+        mask[rng.choice(n_workers, size=n_byzantine, replace=False)] = True
+    return mask
+
+
+@dataclasses.dataclass(frozen=True)
+class Adversary:
+    """One attack bound to its Byzantine set. ``corrupt(x)`` replaces the
+    Byzantine rows of the [N, d] stack with the payload; honest rows pass
+    through. ``rows`` is the [N, 1] 0/1 Byzantine mask on the run device."""
+
+    byzantine: np.ndarray  # host [N] bool
+    rows: torch.Tensor
+    corrupt: MixFn
+
+    @property
+    def honest(self) -> np.ndarray:
+        return ~self.byzantine
+
+
+def make_adversary(
+    n_workers: int,
+    attack: str,
+    n_byzantine: int,
+    attack_scale: float,
+    seed: int,
+    *,
+    device: torch.device | str = "cpu",
+    dtype: torch.dtype = torch.float32,
+) -> Optional[Adversary]:
+    """The adversary of a config, or None when ``attack='none'``."""
+    if attack == "none":
+        return None
+    if attack not in ("sign_flip", "alie"):
+        raise ValueError(f"attack={attack!r}: the PyTorch port does not have it yet")
+    byz = byzantine_mask(n_workers, n_byzantine, seed)
+    acc = torch.promote_types(torch.float32, dtype)
+    m = torch.as_tensor(byz, dtype=acc, device=device)[:, None]
+    h = 1.0 - m
+
+    def corrupt(x: torch.Tensor) -> torch.Tensor:
+        xa = x.to(acc)
+        if attack == "sign_flip":
+            payload = -attack_scale * xa
+        else:  # alie
+            n_honest = torch.sum(h)
+            mu = torch.sum(xa * h, dim=0) / n_honest
+            var = torch.sum(h * (xa - mu[None, :]) ** 2, dim=0) / n_honest
+            payload = (mu - attack_scale * torch.sqrt(var)).expand_as(xa)
+        return torch.where(m > 0, payload, xa).to(x.dtype)
+
+    return Adversary(byzantine=byz, rows=m.to(dtype), corrupt=corrupt)
+
+
+def make_byzantine_mixing(
+    adversary: Optional[Adversary],
+    base_mix: MixFn,
+    aggregate: Optional[MixFn] = None,
+) -> MixFn:
+    """Corruption and (robust) aggregation composed into one ``mix(x)``.
+
+    Honest rows take ``aggregate`` (the robust screen) of the corrupted
+    stack, or ``base_mix`` of it when no rule is active. Byzantine rows
+    keep ``base_mix`` of the true stack: an attacker runs honest dynamics
+    and lies only on the wire.
+    """
+    corrupt = adversary.corrupt if adversary is not None else (lambda x: x)
+    screen = aggregate if aggregate is not None else base_mix
+
+    def honest_view(x: torch.Tensor) -> torch.Tensor:
+        return screen(corrupt(x))
+
+    if adversary is None:
+        return honest_view
+
+    def mix(x: torch.Tensor) -> torch.Tensor:
+        return torch.where(adversary.rows > 0, base_mix(x), honest_view(x))
+
+    return mix

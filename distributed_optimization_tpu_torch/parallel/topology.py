@@ -4,7 +4,7 @@ The port's copy of the ring and fully-connected parts of
 ``distributed_optimization_tpu/parallel/topology.py``: host-side numpy,
 ``adjacency[i, j] = 1`` iff j sends to i, MH weights
 ``W_ij = 1 / (1 + max(deg_i, deg_j))`` on edges and the remainder on the
-diagonal.
+diagonal; and the padded neighbour table the robust screens gather through.
 """
 
 from __future__ import annotations
@@ -67,3 +67,33 @@ def build_topology(name: str, n: int) -> Topology:
         name=name, n=n, adjacency=adj, degrees=adj.sum(axis=1),
         mixing_matrix=metropolis_hastings_weights(adj),
     )
+
+
+def neighbor_table(adjacency: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Padded neighbour table of an undirected 0/1 adjacency.
+
+    ``(nbr_idx [N, k_max] int32, nbr_mask [N, k_max] bool)``: row i lists
+    i's neighbours in ascending index order; padded slots point at i itself
+    with mask False. ``k_max`` is the largest degree (at least 1).
+    """
+    A = np.asarray(adjacency)
+    if not np.array_equal(A, A.T):
+        raise ValueError(
+            "neighbor_table expects an undirected (symmetric) adjacency; "
+            "the degree-bounded gather path has no directed form"
+        )
+    n = A.shape[0]
+    k_max = max(int(A.sum(axis=1).max()), 1) if n else 1
+    nbr_idx = np.tile(np.arange(n, dtype=np.int32)[:, None], (1, k_max))
+    nbr_mask = np.zeros((n, k_max), dtype=bool)
+    for i in range(n):
+        nbrs = np.nonzero(A[i])[0]
+        nbr_idx[i, : len(nbrs)] = nbrs
+        nbr_mask[i, : len(nbrs)] = True
+    return nbr_idx, nbr_mask
+
+
+def neighbor_tables_for(topo: Topology) -> tuple[np.ndarray, np.ndarray]:
+    """The (nbr_idx, nbr_mask) tables of a topology (every topology of the
+    port is dense, so they come from its adjacency)."""
+    return neighbor_table(topo.adjacency)

@@ -223,12 +223,14 @@ def _standardize(X: np.ndarray) -> np.ndarray:
 
 
 def generate_synthetic_dataset(config) -> HostDataset:
-    """The study's synthetic dataset and its sorted non-IID partition.
+    """The study's synthetic dataset and its partition over the workers.
 
     Same hyperparameters as the JAX package (n_redundant = n_features −
     n_informative, one cluster per class, flip_y=0.05, noise=10 for the
     regression), labels mapped to ±1, standardisation, a bias column, then
-    ``argsort(y)`` split contiguously over the workers.
+    ``argsort(y)`` (``partition='sorted'``, the non-IID split) or a
+    ``default_rng(data seed)`` permutation (``'shuffled'``, the IID split)
+    cut contiguously over the workers.
     """
     seed = config.resolved_data_seed()
     if config.problem_type == "logistic":
@@ -260,7 +262,10 @@ def generate_synthetic_dataset(config) -> HostDataset:
 
     X = _standardize(X)
     X = np.hstack([X, np.ones((X.shape[0], 1))])  # bias column: d -> d+1
-    order = np.argsort(y)
+    if config.partition == "shuffled":
+        order = np.random.default_rng(seed).permutation(y.shape[0])
+    else:
+        order = np.argsort(y)
     shard_indices = [
         np.asarray(s) for s in np.array_split(order, config.n_workers)
     ]

@@ -1,0 +1,168 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without a card. The file
+imports nothing of JAX, so it also runs on a machine that has only the
+port's dependencies:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+
+(``--noconftest``: tests/conftest.py configures JAX). Ring kernels and the
+robust count rules are held bitwise; robust clipping to 1e-12 (rtol and
+atol) in float64 and, in float32, to 1e-5 of the largest |x| over each
+row's closed neighbourhood; fc kernels to N·ε·max|x|.
+The instances of the robust kernels are shared with tests/test_torch_robust.py,
+which holds the plain versions against the JAX package on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_optimization_tpu_torch.ops import fc_kernels as fk
+from distributed_optimization_tpu_torch.ops import ring_kernels as rk
+from distributed_optimization_tpu_torch.ops import robust_kernels as bk
+from distributed_optimization_tpu_torch.parallel.topology import neighbor_table
+
+COUNT_RULES = ("trimmed_mean", "median")
+# (rule, clip_tau): the count rules, adaptive and fixed-radius clipping.
+SCREENS = [("trimmed_mean", 0.0), ("median", 0.0), ("clipped_gossip", 0.0),
+           ("clipped_gossip", 0.7)]
+
+
+def symmetric_instance(n, offsets, seed, d=6, dead=0.2, matching=False):
+    """A circulant graph over ``offsets`` (plus, with ``matching``, the edges
+    i ↔ i + n/2), its neighbour table, liveness with about ``dead`` of the
+    edges down (symmetrically), the realized adjacency, and x with two rows
+    scaled by 1e4."""
+    rng = np.random.default_rng(seed)
+    A = np.zeros((n, n))
+    ids = np.arange(n)
+    for o in offsets:
+        A[ids, (ids + o) % n] = A[(ids + o) % n, ids] = 1.0
+    if matching:
+        A[ids, (ids + n // 2) % n] = 1.0
+    np.fill_diagonal(A, 0.0)
+    nbr, mask = neighbor_table(A)
+    realized = A.copy()
+    ei, ej = np.nonzero(np.triu(A, 1))
+    drop = rng.random(len(ei)) < dead
+    realized[ei[drop], ej[drop]] = realized[ej[drop], ei[drop]] = 0.0
+    live = np.take_along_axis(realized, nbr.astype(np.int64), axis=1) * mask
+    x = rng.standard_normal((n, d))
+    x[[1, 5]] *= 1e4
+    return nbr, live.astype(np.float32), realized, x
+
+
+GRAPHS = {
+    # k_max = 4 with dead slots.
+    "k4": dict(n=14, offsets=(1, 3), seed=3),
+    # k_max = 15 (7 circulant offsets and a matching): the widest network.
+    "k15": dict(n=40, offsets=(1, 2, 3, 5, 7, 11, 13), seed=5, matching=True),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(GRAPHS))
+def graph(request):
+    return symmetric_instance(**GRAPHS[request.param])
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(3, 1), (37, 12), (256, 41), (256, 81)])
+def test_cuda_kernels_bitwise_equal_their_plain_versions(cuda_device, shape, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
+    g = torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
+    eta = torch.tensor([0.013], dtype=dtype, device=cuda_device)
+    rk.reset_launch_counts()
+    assert torch.equal(rk.fused_ring_dsgd_step(x, g, eta),
+                       rk.fused_ring_dsgd_step_plain(x, g, eta))
+    assert torch.equal(rk.ring_mix(x), rk.ring_mix_plain(x))
+    assert torch.equal(rk.ring_neighbor_sum(x), rk.ring_neighbor_sum_plain(x))
+    assert rk.LAUNCHES == {name: 1 for name in rk.KERNELS}
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_rejects_a_host_eta(cuda_device):
+    x = torch.zeros((8, 4), device=cuda_device)
+    with pytest.raises(TypeError, match="eta must be a torch.Tensor"):
+        rk.fused_ring_dsgd_step(x, x, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 3), (25, 81), (256, 41), (256, 81), (4096, 1024)])
+def test_cuda_fc_kernels_match_their_plain_versions(cuda_device, shape, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
+    fk.reset_launch_counts()
+    tol = shape[0] * torch.finfo(dtype).eps * float(x.abs().max())
+    torch.testing.assert_close(fk.fc_mix(x), fk.fc_mix_plain(x), rtol=0, atol=tol)
+    torch.testing.assert_close(fk.fc_neighbor_sum(x), fk.fc_neighbor_sum_plain(x), rtol=0, atol=tol)
+    assert fk.LAUNCHES == {name: 1 for name in fk.KERNELS}
+
+
+def _nan_equal(a, b):
+    return bool(torch.all((a == b) | (torch.isnan(a) & torch.isnan(b))))
+
+
+def _assert_clip_close(got, want, x, nbr64, live):
+    """float64: 1e-12 in rtol and atol; float32: 1e-5 of the largest |x| in
+    each row's closed neighbourhood."""
+    if x.dtype == torch.float64:
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+        return
+    row_max = x.abs().amax(1)
+    nbhd_max = torch.maximum(row_max, torch.where(live > 0, row_max[nbr64], 0.0).amax(1))
+    assert bool(torch.all((got - want).abs() <= 1e-5 * nbhd_max[:, None]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rule,ct", SCREENS)
+def test_cuda_kernels_match_their_plain_version(cuda_device, graph, rule, ct, dtype):
+    nbr, live, _, x = graph
+    tl = torch.from_numpy(live).to(cuda_device)
+    tx = torch.from_numpy(x).to(cuda_device, dtype)
+    g = torch.randn(tx.shape, device=cuda_device, dtype=dtype)
+    eta = torch.tensor([0.013], dtype=dtype, device=cuda_device)
+    nbr64 = torch.from_numpy(nbr).long().to(cuda_device)
+    tau = torch.tensor([ct], dtype=dtype, device=cuda_device)
+    adaptive = rule == "clipped_gossip" and ct == 0.0
+    bk.reset_launch_counts()
+    got = bk.make_fused_robust_aggregator(rule, 1, nbr, ct, device=cuda_device)(tl, tx)
+    got_step = bk.make_fused_robust_dsgd_step(rule, 1, nbr, ct, device=cuda_device)(tl, tx, g, eta)
+    want = bk.fused_robust_plain(rule, 1, nbr64, tl, tx, tau, adaptive=adaptive)
+    want_step = bk.fused_robust_plain(rule, 1, nbr64, tl, tx, tau, adaptive=adaptive, g=g, eta=eta)
+    assert bk.LAUNCHES == {name: 1 for name in bk.KERNELS}
+    if rule in COUNT_RULES:
+        assert _nan_equal(got, want) and _nan_equal(got_step, want_step)
+    else:
+        _assert_clip_close(got, want, tx, nbr64, tl)
+        _assert_clip_close(got_step, want_step, tx, nbr64, tl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_fixed_radius_clipping_at_the_widest_table(cuda_device, dtype):
+    # k_max = 1116 on the fully-connected graph: the most slots the clipping
+    # kernel's shared memory takes.
+    n = 1117
+    nbr, _ = neighbor_table(np.ones((n, n)) - np.eye(n))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((n, 8), generator=gen, device=cuda_device, dtype=dtype)
+    tl = torch.ones(nbr.shape, device=cuda_device)
+    nbr64 = torch.from_numpy(nbr).long().to(cuda_device)
+    tau = torch.tensor([0.7], dtype=dtype, device=cuda_device)
+    bk.reset_launch_counts()
+    got = bk.make_fused_robust_aggregator("clipped_gossip", 1, nbr, 0.7, device=cuda_device)(tl, x)
+    assert bk.LAUNCHES["make_fused_robust_aggregator"] == 1
+    want = bk.fused_robust_plain("clipped_gossip", 1, nbr64, tl, x, tau, adaptive=False)
+    _assert_clip_close(got, want, x, nbr64, tl)

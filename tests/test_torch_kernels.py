@@ -1,12 +1,13 @@
-"""The port's ring kernels and mixing operators against the JAX package.
+"""The port's ring and fully-connected kernels and mixing operators against
+the JAX package.
 
 On the CPU the wrappers run their plain PyTorch versions, which are held
 here against the Pallas kernels in interpret mode, as tests/test_pallas.py
 runs them. Tolerance: 1 ulp (1e-6 in float32, 1e-15 in float64). The
 plain versions round every operation on its own; XLA on the CPU may
 contract the fused step's multiply and subtract into one FMA, which rounds
-once. The CUDA kernels are held bitwise against the plain versions by the
-``cuda`` tests below, which skip without a card.
+once. The CUDA kernels are held against the plain versions by
+tests/test_torch_cuda.py.
 """
 
 import jax.numpy as jnp
@@ -18,19 +19,13 @@ from distributed_optimization_tpu.ops import pallas_kernels as pk
 from distributed_optimization_tpu.ops.mixing import make_mixing_op as jax_mixing_op
 from distributed_optimization_tpu.parallel import build_topology as jax_topology
 from distributed_optimization_tpu.parallel._compat import enable_x64
+from distributed_optimization_tpu_torch.ops import fc_kernels as fk
 from distributed_optimization_tpu_torch.ops import ring_kernels as rk
 from distributed_optimization_tpu_torch.ops.mixing import make_mixing_op
 from distributed_optimization_tpu_torch.parallel.topology import build_topology
 
 RTOL = {np.float32: 1e-6, np.float64: 1e-15}
 TORCH_DTYPE = {np.float32: torch.float32, np.float64: torch.float64}
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: the ring kernels run only on the card")
-    return torch.device("cuda")
 
 
 def _inputs(n, d, dtype, seed=0):
@@ -109,10 +104,6 @@ def test_fused_step_equals_mix_then_step(dtype):
 @pytest.mark.parametrize("impl", ["stencil", "dense", "pallas"])
 @pytest.mark.parametrize("name", ["ring", "fully_connected"])
 def test_mixing_op_matches_dense_W_and_the_jax_op(name, impl):
-    if impl == "pallas" and name == "fully_connected":
-        with pytest.raises(ValueError, match="ring of n>=3 only"):
-            make_mixing_op(build_topology(name, 8), impl)
-        return
     x = np.random.default_rng(1).standard_normal((8, 12))
     topo = build_topology(name, 8)
     ref_topo = jax_topology(name, 8)
@@ -127,10 +118,38 @@ def test_mixing_op_matches_dense_W_and_the_jax_op(name, impl):
     with enable_x64():
         ref = jax_mixing_op(ref_topo, impl=impl, dtype=jnp.float64)
         if impl == "pallas":
-            want = np.asarray(pk.ring_mix(jnp.asarray(x), interpret=True))
+            kernel = pk.ring_mix if name == "ring" else pk.fc_mix
+            want = np.asarray(kernel(jnp.asarray(x), interpret=True))
         else:
             want = np.asarray(ref.apply(jnp.asarray(x)))
     np.testing.assert_allclose(op.apply(tx).numpy(), want, rtol=1e-15, atol=1e-15)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,d", [(1, 3), (25, 81), (37, 12)])
+@pytest.mark.parametrize("name", fk.KERNELS)
+def test_fc_plain_version_matches_pallas_interpret(name, n, d, dtype):
+    """The column mean or sum over N is a reduction in another order on
+    each side: N·ε·max|x|."""
+    x, _ = _inputs(n, d, dtype, seed=4)
+    with enable_x64():
+        want = np.asarray(getattr(pk, name)(jnp.asarray(x), interpret=True))
+    got = getattr(fk, name)(torch.from_numpy(x)).numpy()
+    assert got.dtype == want.dtype == dtype and got.shape == (n, d)
+    eps = np.finfo(dtype).eps
+    np.testing.assert_allclose(got, want, rtol=0, atol=n * eps * np.abs(x).max())
+
+
+def test_fc_wrappers_run_the_plain_version_and_count_nothing():
+    x = torch.from_numpy(_inputs(6, 5, np.float64)[0])
+    fk.reset_launch_counts()
+    assert torch.equal(fk.fc_mix(x), fk.fc_mix_plain(x))
+    assert torch.equal(fk.fc_neighbor_sum(x), fk.fc_neighbor_sum_plain(x))
+    assert fk.LAUNCHES == {name: 0 for name in fk.KERNELS}
+    with pytest.raises(TypeError, match="float32 or float64"):
+        fk.fc_mix(torch.zeros((4, 4), dtype=torch.float16))
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.fc_neighbor_sum(torch.zeros((4, 8)).t())
 
 
 def test_auto_mixing_resolves_to_stencil():
@@ -145,25 +164,3 @@ def test_topology_spectral_gap_and_floats_match_the_reference():
         assert ours.floats_per_iteration == ref.floats_per_iteration
         np.testing.assert_array_equal(ours.degrees, ref.degrees)
 
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(3, 1), (37, 12), (256, 81)])
-def test_cuda_kernels_bitwise_equal_their_plain_versions(cuda_device, shape, dtype):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
-    g = torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
-    eta = torch.tensor([0.013], dtype=dtype, device=cuda_device)
-    rk.reset_launch_counts()
-    assert torch.equal(rk.fused_ring_dsgd_step(x, g, eta),
-                       rk.fused_ring_dsgd_step_plain(x, g, eta))
-    assert torch.equal(rk.ring_mix(x), rk.ring_mix_plain(x))
-    assert torch.equal(rk.ring_neighbor_sum(x), rk.ring_neighbor_sum_plain(x))
-    assert rk.LAUNCHES == {name: 1 for name in rk.KERNELS}
-
-
-@pytest.mark.cuda
-def test_cuda_wrapper_rejects_a_host_eta(cuda_device):
-    x = torch.zeros((8, 4), device=cuda_device)
-    with pytest.raises(TypeError, match="eta must be a torch.Tensor"):
-        rk.fused_ring_dsgd_step(x, x, 0.1)

@@ -14,10 +14,14 @@ Phases:
    the card, in float32 and float64, with the largest difference, the
    median time of 200 launches from CUDA events, the plain version's time,
    one PyTorch library call computing the same function where there is one,
-   and the bytes-or-operations bound:
-   - ring kernels at N=256, d=81 (the main path), N=256, d=41 (the robust
-     cell's benign mix) and N=4096, d=1024, within 1 ulp (library:
-     ``torch.matmul``/``torch.addmm`` with the dense MH matrix);
+   and the bytes-or-operations bound; first the launch floor, an empty
+   kernel through the same ctypes interface and a one-element ``torch.neg``,
+   timed the same way (each record carries it as ``floor_ms``):
+   - ring kernels, bitwise, at N=256, d=81 (the main path), N=256, d=41 (the
+     robust cell's benign mix), the JAX package's d-sweep at N=256 (d=128,
+     256, 512, 1024), N=4096, d=1024 and the million-worker ring N=1,000,000,
+     d=17 (library: ``torch.matmul``/``torch.addmm`` with the MH matrix,
+     dense up to 1 GiB, else CSR through cuSPARSE);
    - fc kernels at N=25, d=81 (the fc path), N=256, d=41 (the
      robust_mixing path), N=256, d=81 and N=4096, d=1024, within
      N·ε·max|x| (library: ``torch.matmul`` with the dense W or A);
@@ -67,7 +71,10 @@ Phases:
 Each phase that drives a path sets the launch counts to 0 just before it
 and reads them just after. On request, ``profile`` traces 300 iterations of
 the main path and of the robust cell's fused trimmed-mean run with
-``torch.profiler``.
+``torch.profiler``, and ``ring_ab`` (``--phases card,ring_ab --baseline
+PATH``) holds ``fused_ring_dsgd_step`` and ``ring_mix`` against the same
+kernels built from another ``ring_kernels.cu``, bitwise, and times both at
+every ring shape in turns (baseline, this tree, this tree, baseline).
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -85,9 +92,10 @@ import time
 
 PHASES = ("card", "kernels", "reference", "parity", "main", "mixing", "fc", "byzantine",
           "robust", "robust_mixing")
-# Run only when asked for (--phases ...,profile): a torch.profiler trace of
-# the main path's and the robust cell's steady loops.
-OPTIONAL_PHASES = ("profile",)
+# Run only when asked for: profile, a torch.profiler trace of the main
+# path's and the robust cell's steady loops; ring_ab (with --baseline), the
+# redesigned ring kernels against another build of ring_kernels.cu.
+OPTIONAL_PHASES = ("profile", "ring_ab")
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; 67 TFLOP/s float32 and
 # 34 TFLOP/s float64 outside the tensor cores.
@@ -100,7 +108,16 @@ ROBUST_SHAPE = (256, 41)  # the robust cell: its benign ring mix, its fc check
 # JAX package recorded, cut from bench.py's 300,000 so that the whole script
 # stays well under 600 s.
 MAIN_ITERATIONS = 30_000
-SHAPES = (MAIN_SHAPE, ROBUST_SHAPE, (4096, 1024))
+# The JAX package's d-sweep of the ring at N=256 (examples/
+# bench_pallas_regimes.py:86), its widths from 128 to 1024 in powers of two.
+D_SWEEP = tuple((256, d) for d in (128, 256, 512, 1024))
+# The million-worker ring of the JAX package's scale study
+# (docs/perf/mesh_scale.json, cell ring_1m_p16): 17 floats a row.
+MILLION_RING = (1_000_000, 17)
+SHAPES = (MAIN_SHAPE, ROBUST_SHAPE, *D_SWEEP, (4096, 1024), MILLION_RING)
+# The ring kernels' library yardstick multiplies by the dense [N, N] W or A
+# up to this size, and by the CSR ring matrix (cuSPARSE) beyond it.
+DENSE_LIBRARY_BYTES = 1 << 30
 FC_SHAPES = ((25, 81), ROBUST_SHAPE, (256, 81), (4096, 1024))
 # The shape of each fc kernel's path: the fc phase, and robust_mixing.
 FC_RECORD_SHAPES = {"fc_mix": (25, 81), "fc_neighbor_sum": ROBUST_SHAPE}
@@ -259,29 +276,53 @@ def _kernel_line(name, shape, dname, err, ms, plain_ms, lib_ms, b_ms, b_by, extr
         f"bound {b_ms * 1e3:8.4f} us ({b_by}){extra}")
 
 
-def kernels_ring(torch, rk, topology, gen, records):
-    for n, d in SHAPES:
+def ring_matrices(torch, topology, n: int, dtype):
+    """(W, A, form) of the N-ring on the card: dense up to
+    DENSE_LIBRARY_BYTES, else CSR with W's three weights of 1/3 a row."""
+    if n * n * torch.finfo(dtype).bits // 8 <= DENSE_LIBRARY_BYTES:
         topo = topology.build_topology("ring", n)
+        return (torch.as_tensor(topo.mixing_matrix, dtype=dtype, device="cuda"),
+                torch.as_tensor(topo.adjacency, dtype=dtype, device="cuda"), "dense")
+    i = torch.arange(n, device="cuda")
+
+    def csr(offsets, weight):
+        cols = torch.stack([(i + o) % n for o in offsets], 1).sort(1).values.flatten()
+        crow = torch.arange(0, cols.numel() + 1, len(offsets), device="cuda")
+        vals = torch.full((cols.numel(),), weight, dtype=dtype, device="cuda")
+        return torch.sparse_csr_tensor(crow, cols, vals, size=(n, n), check_invariants=True)
+
+    return csr((-1, 0, 1), 1.0 / 3.0), csr((-1, 1), 1.0), "CSR"
+
+
+def launch_floor(torch, rk):
+    """(empty kernel through the ctypes interface, one-element torch.neg),
+    each timed as every kernel is: what a launch alone costs."""
+    one = torch.zeros(1, device="cuda")
+    floor_ms = time_ms(torch, lambda: rk.launch_floor(one.device))
+    op_ms = time_ms(torch, lambda: torch.neg(one))
+    return floor_ms, op_ms
+
+
+def kernels_ring(torch, rk, topology, gen, records, floor_ms):
+    for n, d in SHAPES:
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).removeprefix("torch.")
             x = torch.randn((n, d), generator=gen, device="cuda", dtype=dtype)
             g = torch.randn((n, d), generator=gen, device="cuda", dtype=dtype)
             eta = torch.tensor([0.05 / 7.0], dtype=dtype, device="cuda")
-            W = torch.as_tensor(topo.mixing_matrix, dtype=dtype, device="cuda")
-            A = torch.as_tensor(topo.adjacency, dtype=dtype, device="cuda")
+            W, A, form = ring_matrices(torch, topology, n, dtype)
             for name in rk.KERNELS:
                 kernel, plain, library = _ring_calls(torch, rk, name, x, g, eta, W, A)
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
-                diff = (got - want).abs()
-                ulp = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs()
-                err = float(diff.max())
-                check(bool(torch.all(diff <= ulp)),
-                      f"{name} N={n} d={d} {dname}: more than 1 ulp from its plain version "
-                      f"(max abs diff {err:.3e})")
+                err = float((got - want).abs().max())
+                check(torch.equal(got, want), f"{name} N={n} d={d} {dname}: not bitwise equal "
+                                              f"to its plain version (max abs diff {err:.3e})")
                 ms, plain_ms, lib_ms = time_ms(torch, kernel), time_ms(torch, plain), time_ms(torch, library)
                 b_ms, b_by = bound(name, n, d, dname, x.element_size())
-                _kernel_line(name, f"N={n:5d} d={d:5d}", dname, err, ms, plain_ms, lib_ms, b_ms, b_by)
+                _kernel_line(name, f"N={n:7d} d={d:5d}", dname, err, ms, plain_ms, lib_ms, b_ms, b_by,
+                             extra=f" ({form})  floor +{(ms - floor_ms) * 1e3:.3f} us, "
+                                   f"bound/kernel {b_ms / ms:.1%}")
                 if (n, d) == MAIN_SHAPE and dtype == torch.float32:
                     records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, lib_ms)
 
@@ -408,11 +449,45 @@ def phase_kernels(torch, np, kernels, topology, gather_factory):
     """Returns {kernel: record} at each kernel's path shape in float32."""
     records = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels_ring(torch, kernels["rk"], topology, gen, records)
+    floor_ms, op_ms = launch_floor(torch, kernels["rk"])
+    say(f"[kernels] launch floor: empty kernel through ctypes {floor_ms * 1e3:.3f} us, "
+        f"one-element torch.neg {op_ms * 1e3:.3f} us")
+    kernels_ring(torch, kernels["rk"], topology, gen, records, floor_ms)
     kernels_fc(torch, kernels["fk"], topology, gen, records)
     kernels_robust(torch, np, kernels["bk"], topology, gather_factory, records)
     say(f"[kernels] ported kernels: {', '.join(records)}")
-    return records
+    return {name: {**record, "floor_ms": floor_ms} for name, record in records.items()}
+
+
+def phase_ring_ab(torch, rk, build, baseline: str):
+    """fused_ring_dsgd_step and ring_mix against the same kernels built from
+    ``baseline`` (a ring_kernels.cu with the same C interface, such as the
+    parent commit's), at every ring shape: bitwise equal outputs, and times
+    in turns baseline, this tree, this tree, baseline."""
+    import ctypes
+    import pathlib
+
+    lib = rk.bind(ctypes.CDLL(str(build.build(pathlib.Path(baseline).resolve()))))
+    floor_ms, op_ms = launch_floor(torch, rk)
+    say(f"[ring_ab] baseline {baseline}; launch floor {floor_ms * 1e3:.3f} us "
+        f"(one-element torch.neg {op_ms * 1e3:.3f} us)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n, d in SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).removeprefix("torch.")
+            x = torch.randn((n, d), generator=gen, device="cuda", dtype=dtype)
+            g = torch.randn((n, d), generator=gen, device="cuda", dtype=dtype)
+            eta = torch.tensor([0.05 / 7.0], dtype=dtype, device="cuda")
+            for name, args in (("fused_ring_dsgd_step", (g, eta)), ("ring_mix", ())):
+                new = lambda: getattr(rk, name)(x, *args)  # noqa: E731
+                old = lambda: rk.launch(lib, name, x, *args)  # noqa: E731
+                check(torch.equal(new(), old()),
+                      f"ring_ab {name} N={n} d={d} {dname}: this tree and the baseline differ")
+                t = [time_ms(torch, f) * 1e3 for f in (old, new, new, old)]
+                b_ms, _ = bound(name, n, d, dname, x.element_size())
+                say(f"[ring_ab] {name:20s} N={n:7d} d={d:5d} {dname}: baseline {t[0]:9.3f} "
+                    f"{t[3]:9.3f} us  this tree {t[1]:9.3f} {t[2]:9.3f} us  bound "
+                    f"{b_ms * 1e3:8.3f} us  (bound/this tree {b_ms * 1e3 / min(t[1], t[2]):.1%})")
 
 
 def _agree(label, card, host, tol=1e-12):
@@ -455,11 +530,17 @@ def _converging_run(torch, pkg, counters, cfg, ds, f_opt, label):
     h = res.history
     crossed = pkg.iterations_to_threshold(h.objective, cfg.suboptimality_threshold,
                                           h.eval_iterations)
+    import hashlib
+
+    import numpy as np
+
+    # Two trees whose runs print the same digest have bitwise-equal histories.
+    digest = hashlib.sha256(np.ascontiguousarray(h.objective).tobytes()).hexdigest()[:16]
     say(f"[{label}] N={cfg.n_workers} T={cfg.n_iterations} {cfg.topology} {cfg.mixing_impl}: "
         f"iters-to-{cfg.suboptimality_threshold} = {crossed}, final gap {h.objective[-1]:.6f}, "
         f"consensus {h.consensus_error[-1]:.3e}, {h.iters_per_second:.1f} iters/s "
-        f"(warm-up {h.compile_seconds:.2f} s), kernel launches {launches}")
-    import numpy as np
+        f"(warm-up {h.compile_seconds:.2f} s), kernel launches {launches}, "
+        f"gap history sha256 {digest}")
 
     check(h.objective.shape == (cfg.n_iterations // cfg.eval_every,), "gap history has the wrong shape")
     check(bool(np.all(np.isfinite(h.objective))), "non-finite gaps")
@@ -766,11 +847,14 @@ def phase_profile(torch, pkg, T: int = 300):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--baseline", help="the ring_kernels.cu that phase ring_ab compares with")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES) - set(OPTIONAL_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    if ("ring_ab" in phases) != (args.baseline is not None):
+        ap.error("phase ring_ab and --baseline go together")
 
     import torch
 
@@ -837,6 +921,9 @@ def main(argv=None) -> int:
     if "profile" in phases:
         phase_profile(torch, pkg)
         lap("profile")
+    if "ring_ab" in phases:
+        phase_ring_ab(torch, rk, _cuda_build, args.baseline)
+        lap("ring_ab")
 
     if records:
         paths = {

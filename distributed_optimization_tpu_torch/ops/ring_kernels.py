@@ -13,6 +13,26 @@ For a CUDA tensor it launches the kernel of ``csrc/ring_kernels.cu`` on the
 current stream, or raises; for a CPU tensor it runs the plain PyTorch
 version beside it (``*_plain``), which the kernel matches bit for bit.
 
+``fused_ring_dsgd_step`` and ``ring_mix`` share one kernel, a flat stencil:
+on the row-major array, ``roll(x, ±1, 0)`` is a shift by ∓d over the N·d
+elements, wrapping at the ends, so element e reads e − d and e + d (each
+moved by N·d where it falls outside) with no integer division. A thread
+takes 4 float32 or 2 float64 elements as one 16-byte load and store; the
+neighbours are vectors too when d is a multiple of that width, else one
+scalar load per element, each with its own wrap. A tensor whose address is
+not 16-byte aligned (a view at an odd offset) takes the one-element
+instance of the same kernel. The grid fills the card once (8 blocks of 256
+a multiprocessor) and loops beyond that; indices are 32-bit below 2³¹
+elements and 64-bit above. The sums keep the plain version's order,
+``((x_e + x_prev) + x_next)·⅓`` then ``− (η·g_e)``, each rounded on its own.
+A tensor-core form would sum the three products in another order, so there
+is none. ``ring_neighbor_sum`` still runs the first kernel's design: one
+element a thread, neighbour rows from 64-bit division.
+
+``launch_floor`` launches an empty kernel through the same interface, so
+that a measurement can see what a launch alone costs; it counts nothing
+and is on no path.
+
 The shared library is built at first use by ``ops/_cuda_build.py`` (nvcc
 for ``sm_90a`` into ``_build/``, loaded with ``ctypes``).
 
@@ -60,9 +80,8 @@ def ring_neighbor_sum_plain(x: torch.Tensor) -> torch.Tensor:
 # --- build and load ----------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    lib = _cuda_build.load(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument types of the three kernels' C functions."""
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     for suffix in ("f32", "f64"):
         fused = getattr(lib, f"fused_ring_dsgd_step_{suffix}")
@@ -75,6 +94,14 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = bind(_cuda_build.load(SOURCE))
+    lib.ring_launch_floor.argtypes = [ctypes.c_void_p]
+    lib.ring_launch_floor.restype = ctypes.c_int
+    return lib
+
+
 # --- wrappers ----------------------------------------------------------------
 
 
@@ -84,10 +111,17 @@ def _check_state(x: torch.Tensor, what: str = "x") -> None:
         raise ValueError(f"the ring kernels need N >= 3 workers, got {x.shape[0]}")
 
 
-def _launch(name: str, x: torch.Tensor, *args: torch.Tensor) -> torch.Tensor:
+def launch(lib: ctypes.CDLL, name: str, x: torch.Tensor, *args: torch.Tensor) -> torch.Tensor:
+    """Launch kernel ``name`` of ``lib`` (as ``bind`` declares it) on x and
+    ``args``; returns its output. Counts nothing."""
     out = torch.empty_like(x)
-    _cuda_build.call(_library(), name, x, *(a.data_ptr() for a in (x, *args)),
+    _cuda_build.call(lib, name, x, *(a.data_ptr() for a in (x, *args)),
                      out.data_ptr(), x.shape[0], x.shape[1])
+    return out
+
+
+def _launch(name: str, x: torch.Tensor, *args: torch.Tensor) -> torch.Tensor:
+    out = launch(_library(), name, x, *args)
     LAUNCHES[name] += 1
     return out
 
@@ -119,3 +153,13 @@ def ring_neighbor_sum(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return ring_neighbor_sum_plain(x)
     return _launch("ring_neighbor_sum", x)
+
+
+def launch_floor(device: torch.device) -> None:
+    """Launch the empty kernel on ``device``'s current stream. For measuring
+    what a launch through this interface costs; it counts nothing."""
+    lib = _library()
+    with torch.cuda.device(device):
+        err = lib.ring_launch_floor(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ring_launch_floor failed: CUDA error {err}")

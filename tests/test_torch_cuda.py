@@ -6,8 +6,9 @@ port's dependencies:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
-(``--noconftest``: tests/conftest.py configures JAX). Ring kernels and the
-robust count rules are held bitwise; robust clipping to 1e-12 (rtol and
+(``--noconftest``: tests/conftest.py configures JAX). Ring kernels (at every
+vector-width residue of d and N·d, on misaligned views and past 2³¹
+elements) and the robust count rules are held bitwise; robust clipping to 1e-12 (rtol and
 atol) in float64 and, in float32, to 1e-5 of the largest |x| over each
 row's closed neighbourhood; fc kernels to N·ε·max|x|.
 The instances of the robust kernels are shared with tests/test_torch_robust.py,
@@ -73,9 +74,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# d % 4 (float32's vector width) over 0..3 and d % 2 (float64's) over 0..1,
+# N·d not a multiple of the width ((3, 1), (7, 6), (9, 7), (11, 5)), every
+# element at the wrap (3, 1), the path shapes, the JAX package's widest d at
+# N=256, and the million-worker ring.
+RING_SHAPES = [(3, 1), (5, 4), (7, 6), (9, 7), (11, 5), (37, 12), (256, 41), (256, 81),
+               (256, 1024), (1_000_000, 17)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(3, 1), (37, 12), (256, 41), (256, 81)])
+@pytest.mark.parametrize("shape", RING_SHAPES)
 def test_cuda_kernels_bitwise_equal_their_plain_versions(cuda_device, shape, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
@@ -87,6 +96,52 @@ def test_cuda_kernels_bitwise_equal_their_plain_versions(cuda_device, shape, dty
     assert torch.equal(rk.ring_mix(x), rk.ring_mix_plain(x))
     assert torch.equal(rk.ring_neighbor_sum(x), rk.ring_neighbor_sum_plain(x))
     assert rk.LAUNCHES == {name: 1 for name in rk.KERNELS}
+
+
+def _offset_view(shape, dtype, device, gen, offset):
+    """A contiguous [N, d] view that starts ``offset`` elements into its
+    storage, so that it is not 16-byte aligned for an odd offset."""
+    n, d = shape
+    buf = torch.randn(n * d + offset, generator=gen, device=device, dtype=dtype)
+    return buf[offset:].view(n, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("misaligned", ["x", "g"])
+@pytest.mark.parametrize("shape", [(9, 7), (256, 81), (256, 1024)])
+def test_cuda_ring_kernels_on_a_misaligned_view(cuda_device, shape, misaligned, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = _offset_view(shape, dtype, cuda_device, gen, 1 if misaligned == "x" else 0)
+    g = _offset_view(shape, dtype, cuda_device, gen, 1 if misaligned == "g" else 0)
+    assert (x.data_ptr() % 16 != 0) == (misaligned == "x")
+    assert (g.data_ptr() % 16 != 0) == (misaligned == "g")
+    eta = torch.tensor([0.013], dtype=dtype, device=cuda_device)
+    rk.reset_launch_counts()
+    assert torch.equal(rk.fused_ring_dsgd_step(x, g, eta),
+                       rk.fused_ring_dsgd_step_plain(x, g, eta))
+    assert torch.equal(rk.ring_mix(x), rk.ring_mix_plain(x))
+    assert rk.LAUNCHES["fused_ring_dsgd_step"] == rk.LAUNCHES["ring_mix"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_ring_mix_past_2_to_the_31_elements(cuda_device):
+    # N·d = 2^31 + 2048 float32 elements (8.6 GB each for x and out): the
+    # 64-bit instance. Held on the rows at the wrap and beside element 2^31,
+    # each against the plain version on that row and its two neighbours.
+    d = 1024
+    n = (1 << 31) // d + 2
+    edge = (1 << 31) // d  # the row that starts at element 2^31
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((n, d), generator=gen, device=cuda_device, dtype=torch.float32)
+    rk.reset_launch_counts()
+    out = rk.ring_mix(x)
+    assert rk.LAUNCHES["ring_mix"] == 1
+    for i in (0, 1, edge - 1, edge, n - 1):
+        rows = x[[(i - 1) % n, i, (i + 1) % n]]
+        assert torch.equal(out[i], rk.ring_mix_plain(rows)[1]), f"row {i}"
+    del x, out
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda

@@ -101,6 +101,53 @@ def test_fused_step_equals_mix_then_step(dtype):
     assert torch.equal(rk.fused_ring_dsgd_step(x, g, eta), rk.ring_mix(x) - eta * g)
 
 
+def _flat_neighbours(n, d, width):
+    """The CUDA ring stencil's index plan (csrc/ring_kernels.cu): element e
+    of the flat [N·d] array reads prev = e − d and next = e + d, moved by
+    N·d where they fall outside, with no division. With ``width`` > 1 and
+    d % width == 0 a vector of ``width`` elements takes its neighbours as
+    vectors (the wrap applied to the vector's first element); otherwise, and
+    for the last N·d % width elements, each element wraps on its own."""
+    total = n * d
+    far = total - d
+    e = np.arange(total)
+    if width > 1 and d % width == 0:
+        base = e - e % width
+        lane = e - base
+        prev = np.where(base >= d, base - d, base + far) + lane
+        nxt = np.where(base >= far, base - far, base + d) + lane
+        tail = e >= total - total % width
+        prev[tail] = np.where(e[tail] >= d, e[tail] - d, e[tail] + far)
+        nxt[tail] = np.where(e[tail] >= far, e[tail] - far, e[tail] + d)
+        return prev, nxt
+    return np.where(e >= d, e - d, e + far), np.where(e >= far, e - far, e + d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", range(1, 41))
+def test_flat_stencil_is_the_plain_version_bitwise(d, dtype):
+    # The premise of the kernel's index math: on the flattened array, the
+    # ±d shift with its wrap reads exactly roll(x, ±1, 0), and the kernel's
+    # order of operations on those reads is the plain version bit for bit,
+    # for the vector width of float32 (4), of float64 (2), and the
+    # one-element instance of a misaligned view (1).
+    rng = np.random.default_rng(d)
+    for n in (3, 4, 5, 8, 13, 33, 64):
+        x = torch.from_numpy(rng.standard_normal((n, d))).to(dtype)
+        g = torch.from_numpy(rng.standard_normal((n, d))).to(dtype)
+        eta = torch.tensor([0.013], dtype=dtype)
+        rows, cols = np.divmod(np.arange(n * d), d)
+        for width in (4 if dtype == torch.float32 else 2, 1):
+            prev, nxt = _flat_neighbours(n, d, width)
+            np.testing.assert_array_equal(prev, (rows - 1) % n * d + cols)
+            np.testing.assert_array_equal(nxt, (rows + 1) % n * d + cols)
+            xf = x.flatten()
+            mixed = ((xf + xf[prev]) + xf[nxt]) * rk.THIRD
+            stepped = mixed - eta * g.flatten()
+            assert torch.equal(mixed.view(n, d), rk.ring_mix_plain(x))
+            assert torch.equal(stepped.view(n, d), rk.fused_ring_dsgd_step_plain(x, g, eta))
+
+
 @pytest.mark.parametrize("impl", ["stencil", "dense", "pallas"])
 @pytest.mark.parametrize("name", ["ring", "fully_connected"])
 def test_mixing_op_matches_dense_W_and_the_jax_op(name, impl):

@@ -69,12 +69,20 @@ Phases:
     graph (``fc_mix``, ``fc_neighbor_sum``) against the dense W and A.
 
 Each phase that drives a path sets the launch counts to 0 just before it
-and reads them just after. On request, ``profile`` traces 300 iterations of
-the main path and of the robust cell's fused trimmed-mean run with
-``torch.profiler``, and ``ring_ab`` (``--phases card,ring_ab --baseline
+and reads them just after; converging and screened runs print a sha256
+digest of their gap history, so two trees run in one call can be shown to
+give bitwise-equal histories. On request, ``profile`` traces 300
+iterations of the main path and of the robust cell's fused trimmed-mean run
+with ``torch.profiler``; ``ring_ab`` (``--phases card,ring_ab --baseline
 PATH``) holds ``fused_ring_dsgd_step`` and ``ring_mix`` against the same
 kernels built from another ``ring_kernels.cu``, bitwise, and times both at
-every ring shape in turns (baseline, this tree, this tree, baseline).
+every ring shape in turns (baseline, this tree, this tree, baseline);
+``robust_ab`` (``--phases card,robust_ab --robust-baseline PATH``) does the
+same for both fused robust kernels against another ``robust_kernels.cu``
+with the same C interface, at the robust kernels' three inputs, for every
+screen, both forms and both dtypes: the count rules bitwise equal to the
+baseline and to the plain version, clipping within the kernels phase's
+tolerance of the plain version on both builds.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -94,8 +102,10 @@ PHASES = ("card", "kernels", "reference", "parity", "main", "mixing", "fc", "byz
           "robust", "robust_mixing")
 # Run only when asked for: profile, a torch.profiler trace of the main
 # path's and the robust cell's steady loops; ring_ab (with --baseline), the
-# redesigned ring kernels against another build of ring_kernels.cu.
-OPTIONAL_PHASES = ("profile", "ring_ab")
+# redesigned ring kernels against another build of ring_kernels.cu;
+# robust_ab (with --robust-baseline), the fused robust kernels against
+# another build of robust_kernels.cu.
+OPTIONAL_PHASES = ("profile", "ring_ab", "robust_ab")
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; 67 TFLOP/s float32 and
 # 34 TFLOP/s float64 outside the tensor cores.
@@ -226,6 +236,35 @@ def robust_bound(rule: str, n: int, d: int, k: int, dtype_name: str, itemsize: i
 
 def _nan_equal(torch, a, b) -> bool:
     return bool(torch.all((a == b) | (torch.isnan(a) & torch.isnan(b))))
+
+
+def _check_robust(torch, rule, got, want, tol32, what) -> float:
+    """The count rules bitwise (NaN-aware); clipping within 1e-12 (rtol and
+    atol, the JAX package's clipping tolerance) in float64 and ``tol32`` in
+    float32. Returns the largest difference."""
+    err = float(torch.nan_to_num((got - want).abs(), nan=0.0).max())
+    if rule in ("trimmed_mean", "median"):
+        check(_nan_equal(torch, got, want), f"{what}: not bitwise equal ({err:.3e})")
+    else:
+        tol = 1e-12 + 1e-12 * want.abs() if got.dtype == torch.float64 else tol32
+        check(bool(torch.all((got - want).abs() <= tol)),
+              f"{what}: {err:.3e} apart, beyond the tolerance")
+    return err
+
+
+def _robust_tol32(torch, x, live, nbr64):
+    """float32 clipping: 1e-5 of the largest |x| in each row's closed
+    neighbourhood, so the rows scaled by 1e4 loosen only their own."""
+    row_max = x.abs().amax(1)
+    nbhd_max = torch.maximum(row_max, torch.where(live > 0, row_max[nbr64], 0.0).amax(1))
+    return 1e-5 * nbhd_max[:, None]
+
+
+def _digest(np, objective) -> str:
+    """Two trees whose runs print the same digest have bitwise-equal histories."""
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(objective).tobytes()).hexdigest()[:16]
 
 
 def _record(name, err, ms, plain_ms, b_ms, b_by, lib_ms, **extra):
@@ -397,12 +436,7 @@ def kernels_robust(torch, np, bk, topology, gather_factory, records):
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).removeprefix("torch.")
             x = torch.as_tensor(x_np, dtype=dtype, device="cuda")
-            # float32 clipping: 1e-5 of the largest |x| in each row's closed
-            # neighbourhood, so the rows scaled by 1e4 loosen only their own.
-            row_max = x.abs().amax(1)
-            nbhd_max = torch.maximum(
-                row_max, torch.where(live > 0, row_max[nbr64], 0.0).amax(1))
-            tol32 = 1e-5 * nbhd_max[:, None]
+            tol32 = _robust_tol32(torch, x, live, nbr64)
             g = torch.randn(x.shape, device="cuda", dtype=dtype)
             eta = torch.tensor([0.05 / 7.0], dtype=dtype, device="cuda")
             for rule, ct in SCREENS:
@@ -423,17 +457,8 @@ def kernels_robust(torch, np, bk, topology, gather_factory, records):
                 for name, kernel, plain, gathered, with_sgd in variants:
                     got, want = kernel(), plain()
                     torch.cuda.synchronize()
-                    err = float(torch.nan_to_num((got - want).abs(), nan=0.0).max())
-                    what = f"{name} {rule} tau={ct} {label} {dname}"
-                    if rule in ("trimmed_mean", "median"):
-                        check(_nan_equal(torch, got, want),
-                              f"{what}: not bitwise equal to its plain version ({err:.3e})")
-                    else:
-                        # float64: 1e-12 in rtol and atol (the JAX package's
-                        # clipping tolerance); float32: per row, as above.
-                        tol = 1e-12 + 1e-12 * want.abs() if dtype == torch.float64 else tol32
-                        check(bool(torch.all((got - want).abs() <= tol)),
-                              f"{what}: {err:.3e} from its plain version, beyond the tolerance")
+                    err = _check_robust(torch, rule, got, want, tol32,
+                                        f"{name} {rule} tau={ct} {label} {dname} vs plain")
                     ms, plain_ms, gather_ms = (time_ms(torch, kernel), time_ms(torch, plain),
                                                time_ms(torch, gathered))
                     b_ms, b_by = robust_bound(rule, n, d, k, dname, x.element_size(), with_sgd)
@@ -490,6 +515,77 @@ def phase_ring_ab(torch, rk, build, baseline: str):
                     f"{b_ms * 1e3:8.3f} us  (bound/this tree {b_ms * 1e3 / min(t[1], t[2]):.1%})")
 
 
+def phase_robust_ab(torch, np, kernels, topology, baseline: str):
+    """Both fused robust kernels against the same C function built from
+    ``baseline`` (a robust_kernels.cu with the same C interface, such as the
+    parent commit's), at the robust kernels' three inputs, for every screen,
+    both forms and both dtypes: the count rules bitwise equal to the
+    baseline and to the plain version, clipping within the kernels phase's
+    tolerance of the plain version on both builds; times in turns baseline,
+    this tree, this tree, baseline, beside the launch floor, the bound
+    (``robust_bound``, which counts the transposition network) and the
+    compare-exchanges of the network each build sorts a column with."""
+    import ctypes
+    import pathlib
+
+    bk, build = kernels["bk"], kernels["build"]
+    lib = bk.bind(ctypes.CDLL(str(build.build(pathlib.Path(baseline).resolve()))))
+    floor_ms, op_ms = launch_floor(torch, kernels["rk"])
+    say(f"[robust_ab] baseline {baseline}; launch floor {floor_ms * 1e3:.3f} us "
+        f"(one-element torch.neg {op_ms * 1e3:.3f} us)")
+    slower = []
+    for label, nbr_np, live_np, x_np in robust_inputs(np, topology):
+        n, k = nbr_np.shape
+        d = x_np.shape[1]
+        live = torch.as_tensor(live_np, device="cuda")
+        nbr32 = torch.as_tensor(nbr_np, dtype=torch.int32, device="cuda")
+        nbr64 = nbr32.long()
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).removeprefix("torch.")
+            x = torch.as_tensor(x_np, dtype=dtype, device="cuda")
+            tol32 = _robust_tol32(torch, x, live, nbr64)
+            g = torch.randn(x.shape, device="cuda", dtype=dtype)
+            eta = torch.tensor([0.05 / 7.0], dtype=dtype, device="cuda")
+            for rule, ct in SCREENS:
+                adaptive = rule == "clipped_gossip" and ct == 0.0
+                tau = torch.tensor([ct], dtype=dtype, device="cuda")
+                agg = bk.make_fused_robust_aggregator(rule, 1, nbr_np, ct, device="cuda")
+                step = bk.make_fused_robust_dsgd_step(rule, 1, nbr_np, ct, device="cuda")
+                if rule in ("trimmed_mean", "median"):
+                    net = f"CE {compare_exchanges(k + 1)} -> {len(bk.merge_network(k + 1))}"
+                elif adaptive:
+                    net = f"rank: CE {compare_exchanges(k)} -> stable rank"
+                else:
+                    net = "no ranking"
+                for form, new, old, plain, with_sgd in (
+                    ("aggregator", lambda: agg(live, x),
+                     lambda: bk.launch(lib, rule, 1, adaptive, nbr32, live, x, tau),
+                     lambda: bk.fused_robust_plain(rule, 1, nbr64, live, x, tau,
+                                                   adaptive=adaptive), False),
+                    ("dsgd_step", lambda: step(live, x, g, eta),
+                     lambda: bk.launch(lib, rule, 1, adaptive, nbr32, live, x, tau, g, eta),
+                     lambda: bk.fused_robust_plain(rule, 1, nbr64, live, x, tau,
+                                                   adaptive=adaptive, g=g, eta=eta), True),
+                ):
+                    got, base, want = new(), old(), plain()
+                    torch.cuda.synchronize()
+                    what = f"robust_ab {form} {rule} tau={ct} {label} {dname}"
+                    _check_robust(torch, rule, got, want, tol32, f"{what}: this tree vs plain")
+                    _check_robust(torch, rule, base, want, tol32, f"{what}: baseline vs plain")
+                    if rule in ("trimmed_mean", "median"):
+                        check(_nan_equal(torch, got, base), f"{what}: this tree and the "
+                                                            "baseline differ")
+                    t = [time_ms(torch, f) * 1e3 for f in (old, new, new, old)]
+                    b_ms, b_by = robust_bound(rule, n, d, k, dname, x.element_size(), with_sgd)
+                    if max(t[1], t[2]) > min(t[0], t[3]):
+                        slower.append(f"{form} {rule} tau={ct} {label} {dname}")
+                    say(f"[robust_ab] {form:10s} {rule[:8]:8s} tau={ct} {label:8s} {dname}: "
+                        f"baseline {t[0]:8.3f} {t[3]:8.3f} us  this tree {t[1]:8.3f} {t[2]:8.3f} us"
+                        f"  floor {floor_ms * 1e3:.3f}  bound {b_ms * 1e3:7.3f} us ({b_by})  {net}")
+    say(f"[robust_ab] this tree slower than the baseline's faster turn in {len(slower)} of 48: "
+        f"{', '.join(slower) if slower else 'none'}")
+
+
 def _agree(label, card, host, tol=1e-12):
     diff = float(abs(card.history.objective - host.history.objective).max())
     models = float(abs(card.final_models - host.final_models).max())
@@ -530,17 +626,13 @@ def _converging_run(torch, pkg, counters, cfg, ds, f_opt, label):
     h = res.history
     crossed = pkg.iterations_to_threshold(h.objective, cfg.suboptimality_threshold,
                                           h.eval_iterations)
-    import hashlib
-
     import numpy as np
 
-    # Two trees whose runs print the same digest have bitwise-equal histories.
-    digest = hashlib.sha256(np.ascontiguousarray(h.objective).tobytes()).hexdigest()[:16]
     say(f"[{label}] N={cfg.n_workers} T={cfg.n_iterations} {cfg.topology} {cfg.mixing_impl}: "
         f"iters-to-{cfg.suboptimality_threshold} = {crossed}, final gap {h.objective[-1]:.6f}, "
         f"consensus {h.consensus_error[-1]:.3e}, {h.iters_per_second:.1f} iters/s "
         f"(warm-up {h.compile_seconds:.2f} s), kernel launches {launches}, "
-        f"gap history sha256 {digest}")
+        f"gap history sha256 {_digest(np, h.objective)}")
 
     check(h.objective.shape == (cfg.n_iterations // cfg.eval_every,), "gap history has the wrong shape")
     check(bool(np.all(np.isfinite(h.objective))), "non-finite gaps")
@@ -656,7 +748,7 @@ def _screened_runs(pkg, rows, ds, f_opt, counters, label):
         say(f"[{label}] {name:24s} final honest gap {gap:.6f} "
             f"({'diverged' if not np.isfinite(gap) else 'finite'}), honest consensus "
             f"{float(h.consensus_error[-1]):.3e}, {h.iters_per_second:.1f} iters/s, "
-            f"launches {launches}")
+            f"launches {launches}, gap history sha256 {_digest(np, h.objective)}")
         out[name] = (res, launches)
     return out
 
@@ -848,6 +940,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--baseline", help="the ring_kernels.cu that phase ring_ab compares with")
+    ap.add_argument("--robust-baseline",
+                    help="the robust_kernels.cu that phase robust_ab compares with")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES) - set(OPTIONAL_PHASES)
@@ -855,6 +949,8 @@ def main(argv=None) -> int:
         ap.error(f"unknown phases {sorted(unknown)}")
     if ("ring_ab" in phases) != (args.baseline is not None):
         ap.error("phase ring_ab and --baseline go together")
+    if ("robust_ab" in phases) != (args.robust_baseline is not None):
+        ap.error("phase robust_ab and --robust-baseline go together")
 
     import torch
 
@@ -924,6 +1020,9 @@ def main(argv=None) -> int:
     if "ring_ab" in phases:
         phase_ring_ab(torch, rk, _cuda_build, args.baseline)
         lap("ring_ab")
+    if "robust_ab" in phases:
+        phase_robust_ab(torch, np, kernels, topology, args.robust_baseline)
+        lap("robust_ab")
 
     if records:
         paths = {

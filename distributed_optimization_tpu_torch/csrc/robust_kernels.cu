@@ -12,43 +12,64 @@
 // [N, k_max] int32 (padded slots point at i); live is [N, k_max] float32.
 // Math runs in the working type (promote(float32, T) is T for both types).
 //
-// Count rules (trimmed_mean, median), one thread per element (i, j): the
-// k_max + 1 values of the closed neighbourhood (a dead slot is +inf) sit in
-// a register array of compile-time width W = k_max + 1 <= 16 and go through
-// the odd-even transposition network of _sort_columns (:227): W passes of
-// compare-exchanges. trimmed_mean sums the sorted positions [b, count - b)
-// in slot order and divides by max(kept, 1), or keeps x[i] when kept < 1
-// (:277-286); median is 0.5 * (s[lo] + s[hi]) with lo = floor((c-1)/2),
-// hi = floor(c/2) as float one-hot picks (:289-298). Counts, positions, lo
-// and hi are floats in the working type, as in the Pallas body.
+// Count rules (trimmed_mean, median): a block holds a few rows and a strip
+// of up to 128 columns, one thread per element (i, j). The row's slots are
+// read once into shared memory (a dead slot as index -1), and one thread a
+// row turns its degree into the selection once: the kept positions
+// [b, stop) and the divisor for trimmed_mean (:277-286), the picked
+// positions lo and hi for median (:289-298), from counts, upper, kept, lo
+// and hi computed as floats in the working type, as the Pallas body does.
+// Each element then holds its k_max + 1 values (a dead slot is +inf) in a
+// register array of compile-time width W = k_max + 1 <= 16 and sorts them
+// by Batcher's odd-even merge network generated for W at compile time (63
+// compare-exchanges at W = 16 against the 120 of the transposition network
+// of _sort_columns :227), by fminf/fmaxf in float32 and by one compare and
+// two selects in float64 (where fmin and fmax each expand to a run of
+// compares and selects for their NaN rules). A column that holds a NaN
+// (one OR over its W values) instead runs the transposition network with
+// NaN-propagating min/max, as the plain version does. Without a NaN every
+// correct network gives the same sorted values, up to the places of +0 and
+// -0; both selections start from +0 and add in slot order, so they never
+// give -0 and the output bits do not depend on those places. For the same
+// reason trimmed_mean adds only the kept positions: adding the +0 of a
+// dropped one to a sum that is never -0 changes nothing.
 //
-// clipped_gossip, one block per row i: each warp takes slots s = warp,
-// warp + 8, ... and reduces the squared neighbour difference over d with
-// shuffles; the realized degrees are row sums of live gathered through nbr;
-// the adaptive radius ranks the masked norms by the same network and picks
-// the (deg - b)-th smallest (_kernel_adaptive_clip_tau :248), a fixed one
-// is read from tau; then out[i, j] = x[i, j] + sum_s (w_s * diff_sj) *
-// factor_s in slot order, w_s = live / (1 + max(deg_i, deg_nbr)), factor_s =
-// min(1, tau / max(norm_s, tiny)) (:300-313).
+// clipped_gossip, one warp per row, eight rows a block, for k_max <= 32:
+// lane s holds slot s, and the kernel is instantiated for slot counts KB =
+// 2, 4, 8, 16, 32 (the smallest power of two >= k_max), so that each lane
+// keeps one register a slot. The realized degree of i is a sum of the
+// lanes' live values in slot order, lane s sums its neighbour's live row
+// for deg_nbr, and one pass of the lanes over d sums every slot's squared
+// neighbour difference, which a reduce-scatter across the lanes (KB - 1
+// shuffles, then one a remaining butterfly) leaves one slot a lane. The
+// adaptive radius, the (deg - b)-th smallest live norm
+// (_kernel_adaptive_clip_tau :248), is the norm whose stable rank across
+// the lanes is that position: no sort and no block barrier. When a live norm is NaN, lane 0 runs the transposition
+// network over the warp's norms instead, so the radius is the plain
+// version's. A fixed radius is read from tau. Then out[i, j] = x[i, j] +
+// sum_s (w_s * diff_sj) * factor_s in slot order, w_s = live / (1 +
+// max(deg_i, deg_nbr)), factor_s = min(1, tau / max(norm_s, tiny))
+// (:300-313). Fixed-radius tables wider than a warp (k_max up to 1,116)
+// take one block a row with the slots in shared memory.
 //
 // Rounding: every operation is a round-to-nearest intrinsic in the order of
 // the plain PyTorch version (ops/robust_kernels.py), so no FMA contraction;
-// the D-SGD variant rounds eta * g and the subtraction separately. min and
-// max return NaN when either operand is NaN, else fmin/fmax, which is what
-// torch.minimum and torch.maximum compute on the card. So the count rules
-// are bitwise equal to the plain version; clipping's norm is a reduction
-// over d in another order, so there the two agree to a tolerance.
+// the D-SGD variant rounds eta * g and the subtraction separately. So the
+// count rules are bitwise equal to the plain version; clipping's norm is a
+// reduction over d in another order, so there the two agree to a tolerance.
 //
 // Bound: memory for the count rules on a ring (x, g and out once, nbr and
 // live once: at N=256, d=41, k_max=2 in float32 about 130 KB, 0.04 us); the
-// sort network's 2 * (compare-exchanges) operations per element bound it at
-// k_max = 15 in float64. The kernels allocate nothing, launch on the
-// caller's stream and return cudaGetLastError(). eta and tau are one-element
-// device arrays (no host synchronisation).
+// sort network's 2 * (compare-exchanges) operations per element bound them
+// at k_max = 15, and the neighbour reads bound clipping there. The kernels
+// allocate nothing, launch on the caller's stream and return
+// cudaGetLastError(). eta and tau are one-element device arrays (no host
+// synchronisation).
 
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <cfloat>
+#include <utility>
 
 namespace {
 
@@ -66,6 +87,12 @@ template <> struct Num<float> {
   static __device__ __forceinline__ float tiny() { return FLT_MIN; }
   static __device__ __forceinline__ float fmin(float a, float b) { return fminf(a, b); }
   static __device__ __forceinline__ float fmax(float a, float b) { return fmaxf(a, b); }
+  // Ascending compare-exchange of two values that are not NaN.
+  static __device__ __forceinline__ void order(float& a, float& b) {
+    const float lo = fminf(a, b);
+    b = fmaxf(a, b);
+    a = lo;
+  }
 };
 
 template <> struct Num<double> {
@@ -80,6 +107,16 @@ template <> struct Num<double> {
   static __device__ __forceinline__ double tiny() { return DBL_MIN; }
   static __device__ __forceinline__ double fmin(double a, double b) { return ::fmin(a, b); }
   static __device__ __forceinline__ double fmax(double a, double b) { return ::fmax(a, b); }
+  // One compare and selects: fmin and fmax on doubles each expand to a run
+  // of compares and selects for their NaN and signed-zero rules, which a
+  // column without NaN does not need. Equal values may leave swapped; the
+  // multiset stays.
+  static __device__ __forceinline__ void order(double& a, double& b) {
+    const bool swap = b < a;
+    const double lo = swap ? b : a;
+    b = swap ? a : b;
+    a = lo;
+  }
 };
 
 // torch.minimum / torch.maximum on the card: NaN if either operand is NaN.
@@ -105,9 +142,51 @@ __device__ __forceinline__ void sort_network(T* v, int width) {
   }
 }
 
+// Batcher's odd-even merge sort network for width w as a list of
+// compare-exchanges (lo[c], hi[c]), generated at compile time; at most 63
+// for w <= 16. ops/robust_kernels.py::merge_network is its Python mirror.
+struct Network {
+  int lo[64];
+  int hi[64];
+  int size;
+};
+
+constexpr Network merge_network(int w) {
+  Network net{};
+  for (int p = 1; p < w; p <<= 1) {
+    for (int k = p; k >= 1; k >>= 1) {
+      for (int j = k % p; j + k < w; j += 2 * k) {
+        for (int i = 0; i < k && i + j + k < w; ++i) {
+          if ((i + j) / (2 * p) == (i + j + k) / (2 * p)) {
+            net.lo[net.size] = i + j;
+            net.hi[net.size] = i + j + k;
+            ++net.size;
+          }
+        }
+      }
+    }
+  }
+  return net;
+}
+
+template <int W>
+constexpr Network kMerge = merge_network(W);
+
+template <int A, int B, typename T>
+__device__ __forceinline__ void exchange(T* v) {
+  Num<T>::order(v[A], v[B]);
+}
+
+template <int W, typename T, int... C>
+__device__ __forceinline__ void merge_sort(T* v, std::integer_sequence<int, C...>) {
+  (exchange<kMerge<W>.lo[C], kMerge<W>.hi[C]>(v), ...);
+}
+
 enum Rule { kTrimmedMean = 0, kMedian = 1 };
 
-constexpr int kThreads = 256;
+// A count-rule block is 128 threads: a strip of 32 to 128 columns times
+// 128 / strip rows, so at most this many rows.
+constexpr int kCountRows = 4;
 
 template <typename T, int W>
 __global__ void count_rule_kernel(int rule, int budget, const int32_t* __restrict__ nbr,
@@ -115,78 +194,272 @@ __global__ void count_rule_kernel(int rule, int budget, const int32_t* __restric
                                   const T* __restrict__ g, const T* __restrict__ eta,
                                   T* __restrict__ out, int64_t n, int64_t d) {
   constexpr int K = W - 1;
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= n * d) return;
-  const int64_t i = e / d;
-  const int64_t j = e - i * d;
-  const T self = x[e];
+  __shared__ int32_t s_nbr[kCountRows][K];
+  __shared__ T s_live[kCountRows][K];
+  __shared__ int s_pos[kCountRows][2];  // trimmed_mean: stop, kept >= 1; median: lo, hi
+  __shared__ T s_den[kCountRows];
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.y + ty;
+  const bool in_rows = i < n;
+
+  const int64_t j = static_cast<int64_t>(blockIdx.y) * blockDim.x + tx;
+  const bool in_cols = in_rows && j < d;
+  const int64_t e = i * d + j;
+  if (in_rows && tx < K) {
+    // Both loads at once: a load of nbr under the test of live would wait
+    // for live.
+    const float lf = live[i * K + tx];
+    const int32_t nb = nbr[i * K + tx];
+    s_live[ty][tx] = static_cast<T>(lf);
+    s_nbr[ty][tx] = lf > 0.0f ? nb : -1;
+  }
+  const T self = in_cols ? x[e] : T(0);
+  __syncthreads();
+  // Every element's neighbour loads are in flight while one thread a row
+  // turns its degree into the selection.
   T v[W];
   v[0] = self;
-  T deg = T(0);
 #pragma unroll
   for (int s = 0; s < K; ++s) {
-    const T lv = static_cast<T>(live[i * K + s]);
-    deg = Num<T>::add(deg, lv);
-    v[s + 1] = lv > T(0) ? x[static_cast<int64_t>(nbr[i * K + s]) * d + j] : Num<T>::inf();
+    const int32_t nb = s_nbr[ty][s];
+    v[s + 1] = in_cols && nb >= 0 ? x[static_cast<int64_t>(nb) * d + j] : Num<T>::inf();
   }
+  if (in_rows && tx == 0) {
+    T deg = T(0);
 #pragma unroll
-  for (int p = 0; p < W; ++p) {
+    for (int s = 0; s < K; ++s) deg = Num<T>::add(deg, s_live[ty][s]);
+    const T counts = Num<T>::add(deg, T(1));
+    if (rule == kTrimmedMean) {
+      const T upper = Num<T>::sub(counts, T(budget));
+      const T kept = vmax(Num<T>::sub(counts, T(2 * budget)), T(0));
+      int stop = 0;  // T(s) < upper exactly for s < stop
 #pragma unroll
-    for (int a = p & 1; a < W - 1; a += 2) {
-      const T lo = vmin(v[a], v[a + 1]);
-      const T hi = vmax(v[a], v[a + 1]);
-      v[a] = lo;
-      v[a + 1] = hi;
+      for (int s = 0; s < W; ++s) stop = T(s) < upper ? s + 1 : stop;
+      s_pos[ty][0] = stop;
+      s_pos[ty][1] = kept >= T(1);
+      s_den[ty] = vmax(kept, T(1));
+    } else {
+      const T lo = vmax(Num<T>::floor(Num<T>::div(Num<T>::sub(counts, T(1)), T(2))), T(0));
+      const T hi = vmax(Num<T>::floor(Num<T>::div(counts, T(2))), T(0));
+      int lo_at = -1, hi_at = -1;  // -1: no position picked, the pick is +0
+#pragma unroll
+      for (int s = 0; s < W; ++s) {
+        lo_at = T(s) == lo ? s : lo_at;
+        hi_at = T(s) == hi ? s : hi_at;
+      }
+      s_pos[ty][0] = lo_at;
+      s_pos[ty][1] = hi_at;
     }
   }
-  const T counts = Num<T>::add(deg, T(1));
+  __syncthreads();
+  if (!in_cols) return;
+
+  bool has_nan = false;
+#pragma unroll
+  for (int s = 0; s < W; ++s) has_nan |= v[s] != v[s];
+  if (has_nan) {
+#pragma unroll
+    for (int p = 0; p < W; ++p) {
+#pragma unroll
+      for (int a = p & 1; a < W - 1; a += 2) {
+        const T lo = vmin(v[a], v[a + 1]);
+        const T hi = vmax(v[a], v[a + 1]);
+        v[a] = lo;
+        v[a + 1] = hi;
+      }
+    }
+  } else {
+    merge_sort<W>(v, std::make_integer_sequence<int, kMerge<W>.size>{});
+  }
+
   T agg;
   if (rule == kTrimmedMean) {
-    const T upper = Num<T>::sub(counts, T(budget));
-    const T kept = vmax(Num<T>::sub(counts, T(2 * budget)), T(0));
+    const int stop = s_pos[ty][0];
     T total = T(0);
 #pragma unroll
     for (int s = 0; s < W; ++s) {
-      const bool keep = T(s) >= T(budget) && T(s) < upper;
-      total = Num<T>::add(total, keep ? v[s] : T(0));
+      if (s >= budget && s < stop) total = Num<T>::add(total, v[s]);
     }
-    const T mean = Num<T>::div(total, vmax(kept, T(1)));
-    agg = kept >= T(1) ? mean : self;
+    agg = s_pos[ty][1] ? Num<T>::div(total, s_den[ty]) : self;
   } else {
-    const T lo = vmax(Num<T>::floor(Num<T>::div(Num<T>::sub(counts, T(1)), T(2))), T(0));
-    const T hi = vmax(Num<T>::floor(Num<T>::div(counts, T(2))), T(0));
+    const int lo_at = s_pos[ty][0];
+    const int hi_at = s_pos[ty][1];
     T pick_lo = T(0), pick_hi = T(0);
 #pragma unroll
     for (int s = 0; s < W; ++s) {
-      pick_lo = Num<T>::add(pick_lo, T(s) == lo ? v[s] : T(0));
-      pick_hi = Num<T>::add(pick_hi, T(s) == hi ? v[s] : T(0));
+      pick_lo = s == lo_at ? v[s] : pick_lo;
+      pick_hi = s == hi_at ? v[s] : pick_hi;
     }
-    agg = Num<T>::mul(T(0.5), Num<T>::add(pick_lo, pick_hi));
+    // +0 + pick: the one-hot sum of the plain version, which turns -0 into +0.
+    agg = Num<T>::mul(T(0.5), Num<T>::add(Num<T>::add(T(0), pick_lo),
+                                         Num<T>::add(T(0), pick_hi)));
   }
   out[e] = g == nullptr ? agg : Num<T>::sub(agg, Num<T>::mul(eta[0], g[e]));
 }
 
-// Shared memory of the clipping kernel: five [k_max] arrays of T, then the
-// [k_max] neighbour indices.
-template <typename T>
-size_t clip_smem_bytes(int k_max) {
-  return static_cast<size_t>(k_max) * (5 * sizeof(T) + sizeof(int32_t));
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kClipWarps = 8;  // rows of a clipping block, one warp each
+constexpr int kWarpSlots = 32;
+
+// KB values a lane, KB a power of two <= 32: the sum of value s over the
+// warp's lanes, reduced by halving (each step sends the half the partner
+// keeps), then by plain butterflies; ends in lane s << (5 - log2 KB).
+template <int KB, typename T>
+__device__ __forceinline__ T reduce_scatter(T* v, int lane) {
+  int c = KB;
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) {
+    if (c > 1) {
+      c >>= 1;
+      const bool upper = lane & o;
+#pragma unroll
+      for (int q = 0; q < KB / 2; ++q) {
+        if (q < c) {
+          const T keep = upper ? v[q + c] : v[q];
+          const T send = upper ? v[q] : v[q + c];
+          v[q] = Num<T>::add(keep, __shfl_xor_sync(kFullMask, send, o));
+        }
+      }
+    } else {
+      v[0] = Num<T>::add(v[0], __shfl_xor_sync(kFullMask, v[0], o));
+    }
+  }
+  return v[0];
 }
 
+template <int KB> struct Log2 { static constexpr int value = 1 + Log2<KB / 2>::value; };
+template <> struct Log2<1> { static constexpr int value = 0; };
+
+// k_max <= KB: the slots sit in registers, unrolled over KB. A lane past
+// k_max stands for a padded slot that points at i, with live 0 and factor
+// 1: its norm is never read, and it adds exact zeros to deg and to moved,
+// whose sums start at +0 and so are never -0.
+template <typename T, int KB>
+__global__ void clip_warp_kernel(int budget, int adaptive, int k_max,
+                                 const int32_t* __restrict__ nbr, const float* __restrict__ live,
+                                 const T* __restrict__ x, const T* __restrict__ tau_in,
+                                 const T* __restrict__ g, const T* __restrict__ eta,
+                                 T* __restrict__ out, int64_t n, int64_t d) {
+  __shared__ T s_rank[kClipWarps][kWarpSlots];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kClipWarps + warp;
+  if (i >= n) return;  // the whole warp: nothing below waits on the block
+  const bool slot = lane < k_max;
+  const int32_t nb = slot ? nbr[i * k_max + lane] : static_cast<int32_t>(i);
+  const T lv = slot ? static_cast<T>(live[i * k_max + lane]) : T(0);
+  const int dd = static_cast<int>(d);  // the host keeps d below 2^31
+  const T* xi = x + i * d;
+  const T* xs[KB];
+#pragma unroll
+  for (int s = 0; s < KB; ++s) xs[s] = x + static_cast<int64_t>(__shfl_sync(kFullMask, nb, s)) * d;
+
+  // The realized degree of i, in slot order, and that of slot s's neighbour.
+  T deg = T(0);
+#pragma unroll
+  for (int s = 0; s < KB; ++s) deg = Num<T>::add(deg, __shfl_sync(kFullMask, lv, s));
+  T deg_nbr = T(0);
+  if (slot) {
+    const float* lj = live + static_cast<int64_t>(nb) * k_max;
+#pragma unroll
+    for (int u = 0; u < KB; ++u) {
+      if (u < k_max) deg_nbr = Num<T>::add(deg_nbr, static_cast<T>(lj[u]));
+    }
+  }
+
+  // Squared neighbour differences, every slot in one pass over d; lane s
+  // ends with the norm of slot s.
+  T part[KB];
+#pragma unroll
+  for (int s = 0; s < KB; ++s) part[s] = T(0);
+  for (int j = lane; j < dd; j += 32) {
+    const T xij = xi[j];
+#pragma unroll
+    for (int s = 0; s < KB; ++s) {
+      const T diff = Num<T>::sub(xs[s][j], xij);
+      part[s] = Num<T>::add(part[s], Num<T>::mul(diff, diff));
+    }
+  }
+  const T sq = reduce_scatter<KB>(part, lane);
+  const T norm = Num<T>::sqrt(__shfl_sync(kFullMask, sq, (lane & (KB - 1)) << (5 - Log2<KB>::value)));
+
+  T tau;
+  if (adaptive) {
+    const T val = slot && lv > T(0) ? norm : Num<T>::inf();
+    const T k = vmin(vmax(Num<T>::sub(Num<T>::sub(deg, T(budget)), T(1)), T(0)), T(k_max - 1));
+    T kth = T(0);
+    if (__any_sync(kFullMask, slot && val != val)) {
+      s_rank[warp][lane] = val;
+      __syncwarp();
+      if (lane == 0) {
+        sort_network(s_rank[warp], k_max);
+        for (int s = 0; s < k_max; ++s) kth = Num<T>::add(kth, T(s) == k ? s_rank[warp][s] : T(0));
+      }
+      kth = __shfl_sync(kFullMask, kth, 0);
+    } else {
+      // Stable rank: the sorted position of this lane's norm.
+      int rank = 0;
+#pragma unroll
+      for (int t = 0; t < KB; ++t) {  // a lane past k_max holds +inf after every slot
+        const T other = __shfl_sync(kFullMask, val, t);
+        rank += other < val || (other == val && t < lane);
+      }
+      const unsigned hit = __ballot_sync(kFullMask, slot && T(rank) == k);
+      const T picked = __shfl_sync(kFullMask, val, hit ? __ffs(hit) - 1 : 0);
+      kth = hit ? picked : T(0);
+    }
+    tau = Num<T>::sub(deg, T(budget)) >= T(1) ? kth : T(0);
+  } else {
+    tau = tau_in[0];
+  }
+
+  const T w_mine = Num<T>::div(lv, Num<T>::add(T(1), vmax(deg, deg_nbr)));
+  const T fac_mine = slot ? vmin(T(1), Num<T>::div(tau, vmax(norm, Num<T>::tiny()))) : T(1);
+  T w[KB], fac[KB];
+#pragma unroll
+  for (int s = 0; s < KB; ++s) {
+    w[s] = __shfl_sync(kFullMask, w_mine, s);
+    fac[s] = __shfl_sync(kFullMask, fac_mine, s);
+  }
+  T* oi = out + i * d;
+  const T* gi = g == nullptr ? nullptr : g + i * d;
+  for (int j = lane; j < dd; j += 32) {
+    const T xij = xi[j];
+    T moved = T(0);
+#pragma unroll
+    for (int s = 0; s < KB; ++s) {
+      const T diff = Num<T>::sub(xs[s][j], xij);
+      moved = Num<T>::add(moved, Num<T>::mul(Num<T>::mul(w[s], diff), fac[s]));
+    }
+    const T agg = Num<T>::add(xij, moved);
+    oi[j] = g == nullptr ? agg : Num<T>::sub(agg, Num<T>::mul(eta[0], gi[j]));
+  }
+}
+
+// Shared memory of the wide clipping kernel: four [k_max] arrays of T, then
+// the [k_max] neighbour indices.
 template <typename T>
-__global__ void clip_kernel(int budget, int adaptive, int k_max, const int32_t* __restrict__ nbr,
-                            const float* __restrict__ live, const T* __restrict__ x,
-                            const T* __restrict__ tau_in, const T* __restrict__ g,
-                            const T* __restrict__ eta, T* __restrict__ out, int64_t n,
-                            int64_t d) {
+size_t clip_smem_bytes(int k_max) {
+  return static_cast<size_t>(k_max) * (4 * sizeof(T) + sizeof(int32_t));
+}
+
+constexpr int kThreads = 256;
+
+// Fixed-radius clipping for k_max > 32: one block a row, each warp taking
+// slots s = warp, warp + 8, ... for the norms.
+template <typename T>
+__global__ void clip_wide_kernel(int k_max, const int32_t* __restrict__ nbr,
+                                 const float* __restrict__ live, const T* __restrict__ x,
+                                 const T* __restrict__ tau_in, const T* __restrict__ g,
+                                 const T* __restrict__ eta, T* __restrict__ out, int64_t n,
+                                 int64_t d) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_lv = reinterpret_cast<T*>(smem);
   T* s_norm = s_lv + k_max;
   T* s_w = s_norm + k_max;
   T* s_fac = s_w + k_max;
-  T* s_rank = s_fac + k_max;
-  int32_t* s_nbr = reinterpret_cast<int32_t*>(s_rank + k_max);
-  __shared__ T s_tau;
+  int32_t* s_nbr = reinterpret_cast<int32_t*>(s_fac + k_max);
 
   const int64_t i = blockIdx.x;
   const int tid = threadIdx.x;
@@ -201,7 +474,6 @@ __global__ void clip_kernel(int budget, int adaptive, int k_max, const int32_t* 
   }
   __syncthreads();
 
-  // Neighbour-difference norms, one warp per slot.
   for (int s = warp; s < k_max; s += n_warps) {
     const T* xs = x + static_cast<int64_t>(s_nbr[s]) * d;
     T sq = T(0);
@@ -209,35 +481,20 @@ __global__ void clip_kernel(int budget, int adaptive, int k_max, const int32_t* 
       const T diff = Num<T>::sub(xs[j], xi[j]);
       sq = Num<T>::add(sq, Num<T>::mul(diff, diff));
     }
-    for (int off = 16; off > 0; off >>= 1) sq = Num<T>::add(sq, __shfl_xor_sync(0xffffffffu, sq, off));
+    for (int off = 16; off > 0; off >>= 1) sq = Num<T>::add(sq, __shfl_xor_sync(kFullMask, sq, off));
     if (lane == 0) s_norm[s] = Num<T>::sqrt(sq);
   }
   __syncthreads();
 
-  // The realized degree of i: a row sum of live, in slot order.
   T deg = T(0);
   for (int s = 0; s < k_max; ++s) deg = Num<T>::add(deg, s_lv[s]);
-
-  if (tid == 0) {
-    if (adaptive) {
-      for (int s = 0; s < k_max; ++s) s_rank[s] = s_lv[s] > T(0) ? s_norm[s] : Num<T>::inf();
-      sort_network(s_rank, k_max);
-      const T k = vmin(vmax(Num<T>::sub(Num<T>::sub(deg, T(budget)), T(1)), T(0)), T(k_max - 1));
-      T kth = T(0);
-      for (int s = 0; s < k_max; ++s) kth = Num<T>::add(kth, T(s) == k ? s_rank[s] : T(0));
-      s_tau = Num<T>::sub(deg, T(budget)) >= T(1) ? kth : T(0);
-    } else {
-      s_tau = tau_in[0];
-    }
-  }
-  __syncthreads();
-
+  const T tau = tau_in[0];
   for (int s = tid; s < k_max; s += blockDim.x) {
     const float* lj = live + static_cast<int64_t>(s_nbr[s]) * k_max;
-    T deg_j = T(0);
-    for (int u = 0; u < k_max; ++u) deg_j = Num<T>::add(deg_j, static_cast<T>(lj[u]));
-    s_w[s] = Num<T>::div(s_lv[s], Num<T>::add(T(1), vmax(deg, deg_j)));
-    s_fac[s] = vmin(T(1), Num<T>::div(s_tau, vmax(s_norm[s], Num<T>::tiny())));
+    T deg_nbr = T(0);
+    for (int u = 0; u < k_max; ++u) deg_nbr = Num<T>::add(deg_nbr, static_cast<T>(lj[u]));
+    s_w[s] = Num<T>::div(s_lv[s], Num<T>::add(T(1), vmax(deg, deg_nbr)));
+    s_fac[s] = vmin(T(1), Num<T>::div(tau, vmax(s_norm[s], Num<T>::tiny())));
   }
   __syncthreads();
 
@@ -254,10 +511,19 @@ __global__ void clip_kernel(int budget, int adaptive, int k_max, const int32_t* 
 }
 
 template <typename T, int W>
-void launch_count(int rule, int budget, const int32_t* nbr, const float* live, const T* x,
-                  const T* g, const T* eta, T* out, int64_t n, int64_t d, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((n * d + kThreads - 1) / kThreads);
-  count_rule_kernel<T, W><<<blocks, kThreads, 0, stream>>>(rule, budget, nbr, live, x, g, eta, out, n, d);
+int launch_count(int rule, int budget, const int32_t* nbr, const float* live, const T* x,
+                 const T* g, const T* eta, T* out, int64_t n, int64_t d, cudaStream_t stream) {
+  // Strips of at most 128 columns, as even as d allows, rounded up to whole
+  // warps; the rest of 128 threads take further rows.
+  const int64_t strips = (d + 127) / 128;
+  if (strips > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int cols = static_cast<int>((d + strips - 1) / strips);
+  const int tx = (cols + 31) / 32 * 32;
+  const int ty = 128 / tx;
+  const dim3 block(tx, ty);
+  const dim3 grid(static_cast<unsigned>((n + ty - 1) / ty), static_cast<unsigned>(strips));
+  count_rule_kernel<T, W><<<grid, block, 0, stream>>>(rule, budget, nbr, live, x, g, eta, out, n, d);
+  return static_cast<int>(cudaSuccess);
 }
 
 template <typename T>
@@ -274,20 +540,35 @@ int fused_robust(int rule, int budget, int adaptive, int k_max, const void* nbr_
   auto stream = static_cast<cudaStream_t>(stream_v);
   if (n * d <= 0) return static_cast<int>(cudaGetLastError());
   if (rule == kTrimmedMean || rule == kMedian) {
+    int err;
     switch (k_max + 1) {
 #define ROBUST_WIDTH(W) \
-  case W: launch_count<T, W>(rule, budget, nbr, live, x, g, eta, out, n, d, stream); break;
+  case W: err = launch_count<T, W>(rule, budget, nbr, live, x, g, eta, out, n, d, stream); break;
       ROBUST_WIDTH(2) ROBUST_WIDTH(3) ROBUST_WIDTH(4) ROBUST_WIDTH(5) ROBUST_WIDTH(6)
       ROBUST_WIDTH(7) ROBUST_WIDTH(8) ROBUST_WIDTH(9) ROBUST_WIDTH(10) ROBUST_WIDTH(11)
       ROBUST_WIDTH(12) ROBUST_WIDTH(13) ROBUST_WIDTH(14) ROBUST_WIDTH(15) ROBUST_WIDTH(16)
 #undef ROBUST_WIDTH
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
+    if (err != 0) return err;
+  } else if (k_max <= kWarpSlots) {
+    if (d >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned blocks = static_cast<unsigned>((n + kClipWarps - 1) / kClipWarps);
+#define CLIP_SLOTS(KB)                                                              \
+  clip_warp_kernel<T, KB><<<blocks, kClipWarps * 32, 0, stream>>>(                 \
+      budget, adaptive, k_max, nbr, live, x, tau, g, eta, out, n, d)
+    if (k_max <= 2) CLIP_SLOTS(2);
+    else if (k_max <= 4) CLIP_SLOTS(4);
+    else if (k_max <= 8) CLIP_SLOTS(8);
+    else if (k_max <= 16) CLIP_SLOTS(16);
+    else CLIP_SLOTS(32);
+#undef CLIP_SLOTS
   } else {
-    // The wrapper keeps smem within the 48 KiB default.
-    const size_t smem = clip_smem_bytes<T>(k_max);
-    clip_kernel<T><<<static_cast<unsigned>(n), kThreads, smem, stream>>>(
-        budget, adaptive, k_max, nbr, live, x, tau, g, eta, out, n, d);
+    // Only a fixed radius is taken this wide; the wrapper keeps smem within
+    // the 48 KiB default.
+    if (adaptive) return static_cast<int>(cudaErrorInvalidValue);
+    clip_wide_kernel<T><<<static_cast<unsigned>(n), kThreads, clip_smem_bytes<T>(k_max), stream>>>(
+        k_max, nbr, live, x, tau, g, eta, out, n, d);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from distributed_optimization_tpu_torch.backends.base import resolve_device
 from distributed_optimization_tpu_torch.ops import fc_kernels, ring_kernels
 from distributed_optimization_tpu_torch.parallel.topology import Topology
 
@@ -45,11 +46,12 @@ def make_mixing_op(
     topo: Topology,
     impl: str = "auto",
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     dtype: torch.dtype = torch.float32,
 ) -> MixingOp:
     """Build the mixing operator of ``topo``; ``device``/``dtype`` place the
-    dense form's matrices."""
+    dense form's matrices. ``cuda`` raises when no card is visible."""
+    device = resolve_device(device)
     if impl == "auto":
         impl = "stencil" if _supports_stencil(topo) else "dense"
     if impl not in ("stencil", "dense", "pallas"):

@@ -27,6 +27,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from distributed_optimization_tpu_torch.backends.base import resolve_device
+
 ROBUST_RULES = ("trimmed_mean", "median", "clipped_gossip")
 
 RobustAggregator = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -88,7 +90,7 @@ def make_gather_robust_aggregator(
     nbr_idx,
     clip_tau: float = 0.0,
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> RobustAggregator:
     """``aggregate(live, x) -> x_new`` over the neighbour table.
 
@@ -97,7 +99,7 @@ def make_gather_robust_aggregator(
     as transmitted (corrupted upstream).
     """
     check_rule(name, budget)
-    nbr = torch.as_tensor(np.asarray(nbr_idx), dtype=torch.int64, device=device)
+    nbr = torch.as_tensor(np.asarray(nbr_idx), dtype=torch.int64, device=resolve_device(device))
     k_max = nbr.shape[1]
     adaptive = is_adaptive(name, clip_tau)
 

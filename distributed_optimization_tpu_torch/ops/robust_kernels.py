@@ -17,11 +17,15 @@ tensor it runs ``fused_robust_plain``, which follows the Pallas body
 (``_fused_robust_body`` :263) term for term in torch ops: the odd-even
 transposition network in ``torch.minimum``/``torch.maximum``, one-hot rank
 picks, and sums over the slot axis as loops in slot order. The kernel
-matches it bit for bit for the count rules; clipping's norm is a reduction
-over d with no fixed order, so there the two agree to a tolerance.
+sorts a column without NaN by Batcher's odd-even merge network instead
+(``merge_network`` is its compare-exchange list) and a column with one by
+the transposition network; it matches the plain version bit for bit for
+the count rules all the same. Clipping's norm is a reduction over d with
+no fixed order, so there the two agree to a tolerance.
 
-``LAUNCHES`` counts kernel launches per factory name; the plain versions do
-not count.
+The factories run on ``cuda`` unless the caller passes ``device="cpu"``,
+and raise when no card is visible. ``LAUNCHES`` counts kernel launches per
+factory name; the plain versions and ``launch`` do not count.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from distributed_optimization_tpu_torch.backends.base import resolve_device
 from distributed_optimization_tpu_torch.ops import _cuda_build
 from distributed_optimization_tpu_torch.ops.robust_aggregation import check_rule, is_adaptive
 
@@ -41,14 +46,14 @@ KERNELS = ("make_fused_robust_aggregator", "make_fused_robust_dsgd_step")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 # The widest sort network the count rules (closed neighbourhood, k_max + 1)
-# and the adaptive radius (k_max norms) may take: the kernel holds it in a
-# register array and its work grows with the square of the width.
+# and the adaptive radius (k_max norms) may take: the JAX package's bound;
+# the count-rule kernel holds the column in a register array.
 FUSED_MAX_SORT_WIDTH = 16
 COUNT_RULES = ("trimmed_mean", "median")
 _RULE_CODE = {"trimmed_mean": 0, "median": 1, "clipped_gossip": 2}
-# The clipping kernel keeps five [k_max] arrays of the working type and the
-# [k_max] indices in a block's shared memory, within the 48 KiB a launch gets
-# without opting in (16 bytes are left for its static radius).
+# Clipping tables wider than a warp take one block a row, with four [k_max]
+# arrays of the working type and the [k_max] indices in shared memory; room
+# for five leaves a margin within the 48 KiB a launch gets without opting in.
 _MAX_CLIP_SLOTS = (48 * 1024 - 16) // (5 * 8 + 4)
 
 
@@ -60,12 +65,30 @@ def reset_launch_counts() -> None:
 def fused_robust_supported(name: str, k_max: int, clip_tau=0.0) -> bool:
     """Does the fused kernel take ``name`` at this maximum degree? The count
     rules need k_max + 1 <= FUSED_MAX_SORT_WIDTH; adaptive clipping ranks
-    k_max norms through the same network; fixed clipping sorts nothing."""
+    k_max norms, held to the same bound; fixed clipping ranks nothing."""
     if name not in _RULE_CODE:
         return False
     if name == "clipped_gossip":
         return not is_adaptive(name, clip_tau) or k_max <= FUSED_MAX_SORT_WIDTH
     return (k_max + 1) <= FUSED_MAX_SORT_WIDTH
+
+
+def merge_network(width: int) -> list[tuple[int, int]]:
+    """Batcher's odd-even merge sort network for ``width`` values as a list
+    of compare-exchanges (lo, hi): the Python mirror of the list the CUDA
+    kernel generates at compile time (63 at width 16)."""
+    pairs = []
+    p = 1
+    while p < width:
+        k = p
+        while k >= 1:
+            for j in range(k % p, width - k, 2 * k):
+                for i in range(min(k, width - j - k)):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p):
+                        pairs.append((i + j, i + j + k))
+            k //= 2
+        p *= 2
+    return pairs
 
 
 # --- plain PyTorch version ------------------------------------------------------
@@ -161,15 +184,31 @@ def fused_robust_plain(
 # --- build, load and launch -------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    lib = _cuda_build.load(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument types of ``fused_robust_f32``/``_f64``."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"fused_robust_{suffix}")
         fn.argtypes = [i32, i32, i32, i32] + [ptr] * 7 + [i64, i64, ptr]
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    return bind(_cuda_build.load(SOURCE))
+
+
+def launch(lib: ctypes.CDLL, name: str, budget: int, adaptive: bool, nbr32, live, x, tau,
+           g=None, eta=None) -> torch.Tensor:
+    """Launch the screen ``name`` of ``lib`` (as ``bind`` declares it) on
+    CUDA tensors, with ``g`` and ``eta`` for the D-SGD step; returns its
+    output. Checks nothing and counts nothing."""
+    out = torch.empty_like(x)
+    ptrs = [t.data_ptr() if t is not None else None for t in (nbr32, live, x, tau, g, eta, out)]
+    _cuda_build.call(lib, "fused_robust", x, _RULE_CODE[name], budget, int(adaptive),
+                     nbr32.shape[1], *ptrs, x.shape[0], x.shape[1])
+    return out
 
 
 def _make_fused_robust(name: str, budget: int, nbr_idx, clip_tau, *, with_sgd: bool,
@@ -197,7 +236,7 @@ def _make_fused_robust(name: str, budget: int, nbr_idx, clip_tau, *, with_sgd: b
         )
     adaptive = is_adaptive(name, clip_tau)
     tau_val = 0.0 if adaptive else float(clip_tau)
-    dev = torch.device(device)
+    dev = resolve_device(device)
     nbr32 = torch.as_tensor(nbr_host, device=dev)
     nbr64 = nbr32.to(torch.int64)
     taus: dict[torch.dtype, torch.Tensor] = {}
@@ -226,11 +265,7 @@ def _make_fused_robust(name: str, budget: int, nbr_idx, clip_tau, *, with_sgd: b
                                       adaptive=adaptive, g=g, eta=eta)
         if with_sgd:
             _cuda_build.check_scalar(eta, x, "eta")
-        out = torch.empty_like(x)
-        ptrs = [t.data_ptr() if t is not None else None
-                for t in (nbr32, live, x, tau, g, eta, out)]
-        _cuda_build.call(_library(), "fused_robust", x, _RULE_CODE[name], budget,
-                         int(adaptive), k_max, *ptrs, x.shape[0], x.shape[1])
+        out = launch(_library(), name, budget, adaptive, nbr32, live, x, tau, g, eta)
         LAUNCHES[kernel] += 1
         return out
 
@@ -238,7 +273,7 @@ def _make_fused_robust(name: str, budget: int, nbr_idx, clip_tau, *, with_sgd: b
 
 
 def make_fused_robust_aggregator(
-    name: str, budget: int, nbr_idx, clip_tau=0.0, *, device: torch.device | str = "cpu",
+    name: str, budget: int, nbr_idx, clip_tau=0.0, *, device: torch.device | str = "cuda",
 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """``aggregate(live, x) -> x_new``: gather + screen + mix in one kernel.
     ``live`` is [N, k_max] float32 0/1 on the table's ``device``."""
@@ -247,7 +282,7 @@ def make_fused_robust_aggregator(
 
 
 def make_fused_robust_dsgd_step(
-    name: str, budget: int, nbr_idx, clip_tau=0.0, *, device: torch.device | str = "cpu",
+    name: str, budget: int, nbr_idx, clip_tau=0.0, *, device: torch.device | str = "cuda",
 ) -> Callable[..., torch.Tensor]:
     """``step(live, x, g, eta) -> x_new``: the whole robust D-SGD update
     (gather + screen + mix − η·g) in one kernel. ``eta`` is a one-element

@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from distributed_optimization_tpu_torch.backends.base import resolve_device
 from distributed_optimization_tpu_torch.ops.mixing import MixFn
 
 # The stream tag the JAX package folds into the seed of the Byzantine set.
@@ -64,10 +65,12 @@ def make_adversary(
     attack_scale: float,
     seed: int,
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     dtype: torch.dtype = torch.float32,
 ) -> Optional[Adversary]:
-    """The adversary of a config, or None when ``attack='none'``."""
+    """The adversary of a config, or None when ``attack='none'``. ``cuda``
+    raises when no card is visible."""
+    device = resolve_device(device)
     if attack == "none":
         return None
     if attack not in ("sign_flip", "alie"):

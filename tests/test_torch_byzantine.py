@@ -8,6 +8,7 @@ Honest gap history, honest consensus history and final models agree to
 bitwise the JAX package's.
 """
 
+import inspect
 import json
 import subprocess
 import sys
@@ -36,8 +37,9 @@ from distributed_optimization_tpu_torch.interop import dataset_from_reference, s
 from distributed_optimization_tpu_torch.models import get_problem
 from distributed_optimization_tpu_torch.ops import ring_kernels, robust_kernels
 from distributed_optimization_tpu_torch.ops.mixing import make_mixing_op
+from distributed_optimization_tpu_torch.ops.robust_aggregation import make_gather_robust_aggregator
 from distributed_optimization_tpu_torch.parallel.adversary import byzantine_mask, make_adversary
-from distributed_optimization_tpu_torch.parallel.topology import build_topology
+from distributed_optimization_tpu_torch.parallel.topology import build_topology, neighbor_table
 from distributed_optimization_tpu_torch.utils.data import generate_synthetic_dataset, stack_shards
 
 TOL = dict(rtol=1e-12, atol=1e-12)
@@ -108,7 +110,8 @@ def test_corrupt_matches_the_reference(attack, scale, dtype):
     with enable_x64():
         ref = ref_make_adversary(16, attack, 5, scale, 203)
         want = np.asarray(ref.corrupt(jnp.asarray(0), jnp.asarray(x)))
-    ours = make_adversary(16, attack, 5, scale, 203, dtype=torch.from_numpy(x).dtype)
+    ours = make_adversary(16, attack, 5, scale, 203, device="cpu",
+                          dtype=torch.from_numpy(x).dtype)
     got = ours.corrupt(torch.from_numpy(x)).numpy()
     assert got.dtype == dtype
     np.testing.assert_array_equal(ours.byzantine, ref.byzantine)
@@ -209,7 +212,7 @@ def test_state_from_reference_steps_like_the_reference(problems):
     cfg = ExperimentConfig(**fields, robust_impl="fused")
     state = state_from_reference(mid.final_state, "cpu", torch.float64)
     topo = build_topology("ring", 12)
-    op = make_mixing_op(topo, "stencil")
+    op = make_mixing_op(topo, "stencil", device="cpu")
     algo = get_algorithm("dsgd")
     byz = torch_backend.bind_byzantine(cfg, algo, topo, op, device=torch.device("cpu"),
                                        dtype=torch.float64)
@@ -269,3 +272,37 @@ def test_cli_runs_a_robust_experiment_on_the_cpu():
     assert summary["attack"] == "sign_flip" and summary["aggregation"] == "trimmed_mean"
     assert summary["gap_over"] == "honest workers"
     assert np.isfinite(summary["final_gap"]) and np.isfinite(summary["final_consensus"])
+
+
+_RING_NBR = neighbor_table(build_topology("ring", 12).adjacency)[0]
+# Each public factory that places tensors, with arguments that build on the
+# ring of 12.
+FACTORIES = {
+    "make_fused_robust_aggregator":
+        lambda **kw: robust_kernels.make_fused_robust_aggregator("median", 1, _RING_NBR, **kw),
+    "make_fused_robust_dsgd_step":
+        lambda **kw: robust_kernels.make_fused_robust_dsgd_step("median", 1, _RING_NBR, **kw),
+    "make_gather_robust_aggregator":
+        lambda **kw: make_gather_robust_aggregator("median", 1, _RING_NBR, **kw),
+    "make_mixing_op": lambda **kw: make_mixing_op(build_topology("ring", 12), "dense", **kw),
+    "make_adversary": lambda **kw: make_adversary(12, "sign_flip", 2, 5.0, 203, **kw),
+}
+_FACTORY_FUNCTIONS = {
+    "make_fused_robust_aggregator": robust_kernels.make_fused_robust_aggregator,
+    "make_fused_robust_dsgd_step": robust_kernels.make_fused_robust_dsgd_step,
+    "make_gather_robust_aggregator": make_gather_robust_aggregator,
+    "make_mixing_op": make_mixing_op, "make_adversary": make_adversary,
+}
+
+
+@pytest.mark.parametrize("name", sorted(FACTORIES))
+def test_factories_run_on_cuda_unless_asked_and_raise_without_a_card(name, monkeypatch):
+    """The port's entry points run on cuda by default: without a card a
+    factory called without ``device`` raises instead of building its tables
+    on the CPU and running the plain version; ``device='cpu'`` builds."""
+    default = inspect.signature(_FACTORY_FUNCTIONS[name]).parameters["device"].default
+    assert default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cuda' was asked for"):
+        FACTORIES[name]()
+    assert FACTORIES[name](device="cpu") is not None

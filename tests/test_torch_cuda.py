@@ -12,7 +12,9 @@ elements) and the robust count rules are held bitwise; robust clipping to 1e-12 
 atol) in float64 and, in float32, to 1e-5 of the largest |x| over each
 row's closed neighbourhood; fc kernels to N·ε·max|x|.
 The instances of the robust kernels are shared with tests/test_torch_robust.py,
-which holds the plain versions against the JAX package on the CPU.
+which holds the plain versions against the JAX package on the CPU, and with
+tests/test_torch_robust_network.py, which holds the count-rule kernel's
+sort network and selections against the plain version on the CPU.
 """
 
 import numpy as np
@@ -52,6 +54,26 @@ def symmetric_instance(n, offsets, seed, d=6, dead=0.2, matching=False):
     x = rng.standard_normal((n, d))
     x[[1, 5]] *= 1e4
     return nbr, live.astype(np.float32), realized, x
+
+
+def random_table(n, k_max, seed, d=6, dead=0.25, specials=True):
+    """A table of any k_max (rows need not be symmetric): neighbours drawn
+    at random, about ``dead`` of the slots down and padded to point at the
+    row itself, and x with repeated values, +0, -0, +inf and -inf in about a
+    third of its entries (``specials``)."""
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, n, size=(n, k_max)).astype(np.int32)
+    live = (rng.random((n, k_max)) >= dead).astype(np.float32)
+    nbr[live == 0] = np.arange(n, dtype=np.int32)[:, None].repeat(k_max, 1)[live == 0]
+    x = rng.standard_normal((n, d))
+    if specials:
+        pick = rng.random(x.shape)
+        x[pick < 0.15] = rng.choice([-1.5, 0.25, 2.0], size=int((pick < 0.15).sum()))
+        x[(pick >= 0.15) & (pick < 0.22)] = 0.0
+        x[(pick >= 0.22) & (pick < 0.29)] = -0.0
+        x[(pick >= 0.29) & (pick < 0.31)] = np.inf
+        x[(pick >= 0.31) & (pick < 0.33)] = -np.inf
+    return nbr, live, x
 
 
 GRAPHS = {
@@ -221,3 +243,97 @@ def test_cuda_fixed_radius_clipping_at_the_widest_table(cuda_device, dtype):
     assert bk.LAUNCHES["make_fused_robust_aggregator"] == 1
     want = bk.fused_robust_plain("clipped_gossip", 1, nbr64, tl, x, tau, adaptive=False)
     _assert_clip_close(got, want, x, nbr64, tl)
+
+
+def _count_rule_pair(cuda_device, rule, budget, nbr, live, x, dtype):
+    """(kernel, plain) outputs of the aggregator and the step on the card."""
+    tl = torch.from_numpy(live).to(cuda_device)
+    tx = torch.from_numpy(x).to(cuda_device, dtype)
+    g = torch.randn(tx.shape, device=cuda_device, dtype=dtype)
+    eta = torch.tensor([0.013], dtype=dtype, device=cuda_device)
+    nbr64 = torch.from_numpy(nbr).long().to(cuda_device)
+    tau = torch.zeros(1, dtype=dtype, device=cuda_device)
+    agg = bk.make_fused_robust_aggregator(rule, budget, nbr, device=cuda_device)(tl, tx)
+    step = bk.make_fused_robust_dsgd_step(rule, budget, nbr, device=cuda_device)(tl, tx, g, eta)
+    return ((agg, bk.fused_robust_plain(rule, budget, nbr64, tl, tx, tau, adaptive=False)),
+            (step, bk.fused_robust_plain(rule, budget, nbr64, tl, tx, tau, adaptive=False,
+                                         g=g, eta=eta)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 41, 128, 129])
+@pytest.mark.parametrize("k_max", range(1, 16))
+def test_cuda_count_rules_bitwise_at_every_width(cuda_device, k_max, d):
+    """Every sort width W = k_max + 1 the kernel is built for, every strip
+    layout (d below a warp, one strip, two strips), budgets from 1 to k_max
+    (kept < 1 keeps x[i]), on values with ties, ±0 and ±inf."""
+    nbr, live, x = random_table(53, k_max, seed=100 + k_max, d=d)
+    for rule in COUNT_RULES:
+        for budget in sorted({1, max(1, k_max // 2), k_max}):
+            for dtype in (torch.float32, torch.float64):
+                bk.reset_launch_counts()
+                for got, want in _count_rule_pair(cuda_device, rule, budget, nbr, live, x, dtype):
+                    assert _nan_equal(got, want), (rule, budget, dtype)
+                assert bk.LAUNCHES == {name: 1 for name in bk.KERNELS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_max", [2, 8, 15])
+def test_cuda_count_rules_bitwise_on_columns_with_nan(cuda_device, k_max):
+    """Columns that hold a NaN take the transposition network inside the
+    kernel; the others beside them take the merge network."""
+    nbr, live, x = random_table(64, k_max, seed=7 * k_max, d=45)
+    rng = np.random.default_rng(k_max)
+    x[rng.random(x.shape) < 0.03] = np.nan
+    assert np.isnan(x).any()
+    for rule in COUNT_RULES:
+        for dtype in (torch.float32, torch.float64):
+            for got, want in _count_rule_pair(cuda_device, rule, 1, nbr, live, x, dtype):
+                assert _nan_equal(got, want), (rule, dtype)
+                assert bool(torch.isnan(want).any())
+
+
+def _clip_pair(cuda_device, ct, nbr, live, x, dtype):
+    tl = torch.from_numpy(live).to(cuda_device)
+    tx = torch.from_numpy(x).to(cuda_device, dtype)
+    g = torch.randn(tx.shape, device=cuda_device, dtype=dtype)
+    eta = torch.tensor([0.013], dtype=dtype, device=cuda_device)
+    nbr64 = torch.from_numpy(nbr).long().to(cuda_device)
+    tau = torch.tensor([ct], dtype=dtype, device=cuda_device)
+    adaptive = ct == 0.0
+    agg = bk.make_fused_robust_aggregator("clipped_gossip", 1, nbr, ct, device=cuda_device)
+    step = bk.make_fused_robust_dsgd_step("clipped_gossip", 1, nbr, ct, device=cuda_device)
+    want = bk.fused_robust_plain("clipped_gossip", 1, nbr64, tl, tx, tau, adaptive=adaptive)
+    want_step = bk.fused_robust_plain("clipped_gossip", 1, nbr64, tl, tx, tau, adaptive=adaptive,
+                                      g=g, eta=eta)
+    return tx, nbr64, tl, ((agg(tl, tx), want), (step(tl, tx, g, eta), want_step))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k_max,ct", [*((k, 0.0) for k in range(1, 17)),
+                                      *((k, 0.7) for k in (1, 15, 31, 32, 33, 64))])
+def test_cuda_clipping_at_every_width(cuda_device, k_max, ct, dtype):
+    """Adaptive clipping at every k_max it takes (a warp a row), fixed-radius
+    clipping on both sides of a warp's 32 slots (a warp a row, then a block
+    a row)."""
+    nbr, live, x = random_table(70, k_max, seed=k_max, d=41, specials=False)
+    tx, nbr64, tl, pairs = _clip_pair(cuda_device, ct, nbr, live, x, dtype)
+    for got, want in pairs:
+        _assert_clip_close(got, want, tx, nbr64, tl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_adaptive_clipping_ranks_a_nan_norm_as_the_plain_version(cuda_device, dtype):
+    """A NaN in a neighbour's row makes that slot's norm NaN: the kernel
+    then ranks the warp's norms by the transposition network, as the plain
+    version does. Finite entries agree within the tolerance, NaN with NaN."""
+    nbr, live, x = random_table(40, 6, seed=3, d=41, specials=False)
+    x[[4, 17], [0, 9]] = np.nan
+    tx, nbr64, tl, pairs = _clip_pair(cuda_device, 0.0, nbr, live, x, dtype)
+    for got, want in pairs:
+        nan = torch.isnan(want)
+        assert bool(nan.any()) and torch.equal(torch.isnan(got), nan)
+        _assert_clip_close(torch.where(nan, 0.0, got), torch.where(nan, 0.0, want),
+                           torch.where(torch.isnan(tx), 0.0, tx), nbr64, tl)

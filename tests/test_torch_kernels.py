@@ -155,7 +155,7 @@ def test_mixing_op_matches_dense_W_and_the_jax_op(name, impl):
     topo = build_topology(name, 8)
     ref_topo = jax_topology(name, 8)
     np.testing.assert_array_equal(topo.mixing_matrix, ref_topo.mixing_matrix)
-    op = make_mixing_op(topo, impl, dtype=torch.float64)
+    op = make_mixing_op(topo, impl, device="cpu", dtype=torch.float64)
     assert op.impl == impl
     tx = torch.from_numpy(x)
     np.testing.assert_allclose(op.apply(tx).numpy(), topo.mixing_matrix @ x,
@@ -200,8 +200,8 @@ def test_fc_wrappers_run_the_plain_version_and_count_nothing():
 
 
 def test_auto_mixing_resolves_to_stencil():
-    assert make_mixing_op(build_topology("ring", 8)).impl == "stencil"
-    assert make_mixing_op(build_topology("fully_connected", 5)).impl == "stencil"
+    assert make_mixing_op(build_topology("ring", 8), device="cpu").impl == "stencil"
+    assert make_mixing_op(build_topology("fully_connected", 5), device="cpu").impl == "stencil"
 
 
 def test_topology_spectral_gap_and_floats_match_the_reference():

@@ -69,7 +69,8 @@ def test_plain_aggregator_matches_pallas_interpret(graph, rule, ct, dtype):
     nbr, live, _, x64 = graph
     x = x64.astype(dtype)
     want = _pallas(rule, ct, nbr, live, x)
-    got = rk.make_fused_robust_aggregator(rule, 1, nbr, ct)(torch.from_numpy(live), torch.from_numpy(x))
+    agg = rk.make_fused_robust_aggregator(rule, 1, nbr, ct, device="cpu")
+    got = agg(torch.from_numpy(live), torch.from_numpy(x))
     assert got.dtype == TORCH[dtype]
     np.testing.assert_allclose(got.numpy(), want, **_tols(dtype, rule, x))
 
@@ -85,11 +86,11 @@ def test_plain_dsgd_step_matches_pallas_interpret(graph, rule, ct, dtype):
     g = np.random.default_rng(21).standard_normal(x.shape).astype(dtype)
     eta = float(dtype(0.05))
     want = _pallas(rule, ct, nbr, live, x, g, eta)
-    step = rk.make_fused_robust_dsgd_step(rule, 1, nbr, ct)
+    step = rk.make_fused_robust_dsgd_step(rule, 1, nbr, ct, device="cpu")
     got = step(torch.from_numpy(live), torch.from_numpy(x), torch.from_numpy(g),
                torch.tensor([eta], dtype=TORCH[dtype])).numpy()
-    agg = rk.make_fused_robust_aggregator(rule, 1, nbr, ct)(torch.from_numpy(live),
-                                                            torch.from_numpy(x)).numpy()
+    agg = rk.make_fused_robust_aggregator(rule, 1, nbr, ct, device="cpu")(
+        torch.from_numpy(live), torch.from_numpy(x)).numpy()
     if dtype == np.float32 and rule in COUNT_RULES:
         assert np.all(np.abs(got - want) <= 1.2e-7 * (np.abs(agg) + np.abs(dtype(eta) * g)))
     else:
@@ -103,8 +104,8 @@ def test_plain_matches_the_gather_forms_and_the_oracle(graph, rule, ct, dtype):
     nbr, live, realized, x64 = graph
     x = x64.astype(dtype)
     tl, tx = torch.from_numpy(live), torch.from_numpy(x)
-    plain = rk.make_fused_robust_aggregator(rule, 1, nbr, ct)(tl, tx).numpy()
-    ours = make_gather_robust_aggregator(rule, 1, nbr, ct)(tl, tx).numpy()
+    plain = rk.make_fused_robust_aggregator(rule, 1, nbr, ct, device="cpu")(tl, tx).numpy()
+    ours = make_gather_robust_aggregator(rule, 1, nbr, ct, device="cpu")(tl, tx).numpy()
     tol = _tols(dtype, rule, x)
     if rule in COUNT_RULES:
         np.testing.assert_array_equal(plain, ours)
@@ -131,12 +132,12 @@ def test_identity_row_degradation_on_a_damaged_ring(rule, ct):
     A[3, 4] = A[4, 3] = 0.0
     nbr, mask = neighbor_table(topo.adjacency)
     live = (np.take_along_axis(A, nbr.astype(np.int64), axis=1) * mask).astype(np.float32)
-    out = rk.make_fused_robust_aggregator(rule, 1, nbr, ct)(torch.from_numpy(live),
-                                                            torch.from_numpy(x)).numpy()
+    out = rk.make_fused_robust_aggregator(rule, 1, nbr, ct, device="cpu")(
+        torch.from_numpy(live), torch.from_numpy(x)).numpy()
     if rule != "median":
         np.testing.assert_array_equal(out[0], x[0])
-    gather = make_gather_robust_aggregator(rule, 1, nbr, ct)(torch.from_numpy(live),
-                                                              torch.from_numpy(x)).numpy()
+    gather = make_gather_robust_aggregator(rule, 1, nbr, ct, device="cpu")(
+        torch.from_numpy(live), torch.from_numpy(x)).numpy()
     if rule in COUNT_RULES:
         np.testing.assert_array_equal(out, gather)
     else:
@@ -168,14 +169,14 @@ def test_fused_robust_supported_and_the_width_bound():
     nbr, _ = neighbor_table(build_topology("fully_connected", 24).adjacency)
     for rule in ("median", "clipped_gossip"):
         with pytest.raises(ValueError, match="sort network"):
-            rk.make_fused_robust_aggregator(rule, 1, nbr)
+            rk.make_fused_robust_aggregator(rule, 1, nbr, device="cpu")
         with pytest.raises(ValueError, match="sort network"):
-            rk.make_fused_robust_dsgd_step(rule, 1, nbr)
-    rk.make_fused_robust_aggregator("clipped_gossip", 1, nbr, clip_tau=0.7)
+            rk.make_fused_robust_dsgd_step(rule, 1, nbr, device="cpu")
+    rk.make_fused_robust_aggregator("clipped_gossip", 1, nbr, clip_tau=0.7, device="cpu")
     with pytest.raises(ValueError, match="positive attack budget"):
-        rk.make_fused_robust_aggregator("median", 0, nbr[:, :2])
+        rk.make_fused_robust_aggregator("median", 0, nbr[:, :2], device="cpu")
     with pytest.raises(ValueError, match="no robust aggregator"):
-        rk.make_fused_robust_aggregator("gossip", 1, nbr[:, :2])
+        rk.make_fused_robust_aggregator("gossip", 1, nbr[:, :2], device="cpu")
 
 
 @pytest.mark.parametrize("k_max,fits", [(1116, True), (1117, False)])
@@ -185,10 +186,10 @@ def test_fixed_radius_clipping_is_bounded_by_shared_memory(k_max, fits):
     nbr = np.zeros((2, k_max), dtype=np.int32)
     assert rk.fused_robust_supported("clipped_gossip", k_max, 0.7)
     if fits:
-        rk.make_fused_robust_dsgd_step("clipped_gossip", 1, nbr, clip_tau=0.7)
+        rk.make_fused_robust_dsgd_step("clipped_gossip", 1, nbr, clip_tau=0.7, device="cpu")
     else:
         with pytest.raises(ValueError, match="shared memory, which holds at most 1116"):
-            rk.make_fused_robust_dsgd_step("clipped_gossip", 1, nbr, clip_tau=0.7)
+            rk.make_fused_robust_dsgd_step("clipped_gossip", 1, nbr, clip_tau=0.7, device="cpu")
 
 
 def test_validate_budget_and_the_neighbor_table_match_the_reference():
@@ -208,7 +209,7 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing(graph):
     nbr, live, _, x = graph
     rk.reset_launch_counts()
     tl, tx = torch.from_numpy(live), torch.from_numpy(x)
-    agg = rk.make_fused_robust_aggregator("trimmed_mean", 1, nbr)
+    agg = rk.make_fused_robust_aggregator("trimmed_mean", 1, nbr, device="cpu")
     got = agg(tl, tx)
     want = rk.fused_robust_plain("trimmed_mean", 1, torch.from_numpy(nbr).long(), tl, tx,
                                  torch.zeros(1, dtype=tx.dtype), adaptive=False)

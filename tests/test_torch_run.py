@@ -160,7 +160,7 @@ def test_state_from_reference_steps_like_the_reference(problems):
     assert state["x"].dtype == torch.float64 and state["x"].is_contiguous()
     problem = get_problem("logistic")
     Xt, yt, wt = (torch.from_numpy(a) for a in (stacked.X, stacked.y, wts))
-    op = make_mixing_op(build_topology("ring", 8), "pallas")
+    op = make_mixing_op(build_topology("ring", 8), "pallas", device="cpu")
     ctx = StepContext(grad=lambda p, slot: problem.gradient_weighted(p, Xt, yt, wt, lam),
                       mix=op.apply, neighbor_sum=op.neighbor_sum,
                       eta=torch.tensor([eta], dtype=torch.float64),

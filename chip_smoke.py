@@ -23,8 +23,14 @@ Phases:
      d=17 (library: ``torch.matmul``/``torch.addmm`` with the MH matrix,
      dense up to 1 GiB, else CSR through cuSPARSE);
    - fc kernels at N=25, d=81 (the fc path), N=256, d=41 (the
-     robust_mixing path), N=256, d=81 and N=4096, d=1024, within
-     N·ε·max|x| (library: ``torch.matmul`` with the dense W or A);
+     robust_mixing path), N=256, d=81, N=4096, d=1024 and N=16384, d=1024
+     (beyond the 50 MB L2), within N·ε·max|x| of the plain version and
+     bitwise equal to the mirror of their summation order under the plan
+     they launch with, which each line prints (library: the one reduction
+     call, ``torch.mean``/``torch.sum`` over dim 0, which writes only d
+     elements; the dense ``torch.matmul`` with W or A beside it up to
+     N=4096); each line also gives the wall-clock time of one wrapper call
+     in a loop of 200 with no sleep kernel ahead, host work included;
    - robust kernels, each rule (trimmed_mean, median, adaptive and fixed-τ
      clipped_gossip) with and without the SGD update, on the ring at N=256,
      d=41 (k_max=2) and on a symmetric table with k_max=15 at N=4096,
@@ -82,7 +88,14 @@ same for both fused robust kernels against another ``robust_kernels.cu``
 with the same C interface, at the robust kernels' three inputs, for every
 screen, both forms and both dtypes: the count rules bitwise equal to the
 baseline and to the plain version, clipping within the kernels phase's
-tolerance of the plain version on both builds.
+tolerance of the plain version on both builds; ``fc_ab`` (``--phases
+card,fc_ab --fc-baseline PATH``) binds another ``fc_kernels.cu`` through
+the parent's five-argument C interface (x, out, n, d, stream), holds both
+builds within N·ε·max|x| of the plain version at every fc shape in both
+dtypes, times both in turns beside the floor, the bound and ``ring_mix``
+on the same array (one read and one write of it with no reduction, which
+splits the time over the floor), and counts the lines where this tree is
+slower than the baseline's faster turn.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -104,8 +117,10 @@ PHASES = ("card", "kernels", "reference", "parity", "main", "mixing", "fc", "byz
 # path's and the robust cell's steady loops; ring_ab (with --baseline), the
 # redesigned ring kernels against another build of ring_kernels.cu;
 # robust_ab (with --robust-baseline), the fused robust kernels against
-# another build of robust_kernels.cu.
-OPTIONAL_PHASES = ("profile", "ring_ab", "robust_ab")
+# another build of robust_kernels.cu; fc_ab (with --fc-baseline), the fc
+# kernels against another build of fc_kernels.cu with the parent's C
+# interface.
+OPTIONAL_PHASES = ("profile", "ring_ab", "robust_ab", "fc_ab")
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; 67 TFLOP/s float32 and
 # 34 TFLOP/s float64 outside the tensor cores.
@@ -128,7 +143,12 @@ SHAPES = (MAIN_SHAPE, ROBUST_SHAPE, *D_SWEEP, (4096, 1024), MILLION_RING)
 # The ring kernels' library yardstick multiplies by the dense [N, N] W or A
 # up to this size, and by the CSR ring matrix (cuSPARSE) beyond it.
 DENSE_LIBRARY_BYTES = 1 << 30
-FC_SHAPES = ((25, 81), ROBUST_SHAPE, (256, 81), (4096, 1024))
+# The fc kernels' shapes: the fc path, robust_mixing's, and two widths of
+# 1024 whose x and out (33.5 MB and 134 MB in float32) stay within and go
+# beyond the 50 MB L2 between timed launches.
+FC_SHAPES = ((25, 81), ROBUST_SHAPE, (256, 81), (4096, 1024), (16384, 1024))
+# The dense W x yardstick is printed up to this N.
+FC_DENSE_MAX_N = 4096
 # The shape of each fc kernel's path: the fc phase, and robust_mixing.
 FC_RECORD_SHAPES = {"fc_mix": (25, 81), "fc_neighbor_sum": ROBUST_SHAPE}
 ROBUST_RECORD = ("ring", "trimmed_mean")  # the robust phase's path
@@ -197,6 +217,18 @@ def time_ms(torch, fn, n: int = TIMED_LAUNCHES) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def wall_ms(torch, fn, n: int = TIMED_LAUNCHES) -> float:
+    """Wall-clock time of one call of ``fn`` in a loop of ``n`` with no
+    sleep kernel ahead: host work and device time, whichever is longer."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
 
 
 def _bound(nbytes: float, ops: float, dtype_name: str):
@@ -366,29 +398,53 @@ def kernels_ring(torch, rk, topology, gen, records, floor_ms):
                     records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, lib_ms)
 
 
-def kernels_fc(torch, fk, topology, gen, records):
+def _fc_calls(torch, fk, name, x):
+    """(kernel, plain, library reduction) calls of one fc kernel on x."""
+    reduce = torch.mean if name == "fc_mix" else torch.sum
+    return (lambda: getattr(fk, name)(x), lambda: getattr(fk, f"{name}_plain")(x),
+            lambda: reduce(x, 0, keepdim=True))
+
+
+def _fc_close(torch, got, want, x, what) -> float:
+    """Within N·eps·max|x| of the plain version, which sums in another
+    order; returns the largest difference."""
+    err = float((got - want).abs().max())
+    tol = x.shape[0] * torch.finfo(x.dtype).eps * float(x.abs().max())
+    check(err <= tol,
+          f"{what}: {err:.3e} from the plain version, beyond N·eps·max|x| = {tol:.3e}")
+    return err
+
+
+def kernels_fc(torch, fk, topology, gen, records, floor_ms):
     for n, d in FC_SHAPES:
-        topo = topology.build_topology("fully_connected", n)
+        topo = topology.build_topology("fully_connected", n) if n <= FC_DENSE_MAX_N else None
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).removeprefix("torch.")
             x = torch.randn((n, d), generator=gen, device="cuda", dtype=dtype)
-            W = torch.as_tensor(topo.mixing_matrix, dtype=dtype, device="cuda")
-            A = torch.as_tensor(topo.adjacency, dtype=dtype, device="cuda")
-            for name, dense in (("fc_mix", W), ("fc_neighbor_sum", A)):
-                kernel = lambda: getattr(fk, name)(x)  # noqa: E731
-                plain = lambda: getattr(fk, f"{name}_plain")(x)  # noqa: E731
-                library = lambda: torch.matmul(dense, x)  # noqa: E731
-                got, want = kernel(), plain()
+            for name in fk.KERNELS:
+                kernel, plain, library = _fc_calls(torch, fk, name, x)
+                plan = fk.plan_for(name, x)
+                got, want, mirror = kernel(), plain(), fk.MIRRORS[name](x, plan)
                 torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                tol = n * torch.finfo(dtype).eps * float(x.abs().max())
-                check(err <= tol, f"{name} N={n} d={d} {dname}: {err:.3e} from its plain "
-                                  f"version, beyond N·eps·max|x| = {tol:.3e}")
+                err = _fc_close(torch, got, want, x, f"{name} N={n} d={d} {dname}")
+                check(torch.equal(got, mirror), f"{name} N={n} d={d} {dname}: not bitwise equal "
+                                                f"to the mirror of its order ({plan.describe()})")
                 ms, plain_ms, lib_ms = time_ms(torch, kernel), time_ms(torch, plain), time_ms(torch, library)
+                wall = wall_ms(torch, kernel)
+                dense = ""
+                if topo is not None:
+                    mat = topo.mixing_matrix if name == "fc_mix" else topo.adjacency
+                    mat = torch.as_tensor(mat, dtype=dtype, device="cuda")
+                    dense_ms = time_ms(torch, lambda: torch.matmul(mat, x))
+                    dense = f", dense matmul {dense_ms * 1e3:.3f} us"
                 b_ms, b_by = bound(name, n, d, dname, x.element_size())
-                _kernel_line(name, f"N={n:5d} d={d:5d}", dname, err, ms, plain_ms, lib_ms, b_ms, b_by)
+                _kernel_line(name, f"N={n:5d} d={d:5d}", dname, err, ms, plain_ms, lib_ms, b_ms, b_by,
+                             extra=f"  floor +{(ms - floor_ms) * 1e3:.3f} us, bound/kernel "
+                                   f"{b_ms / ms:.1%}, wall per call {wall * 1e3:.3f} us{dense}; "
+                                   f"plan {plan.describe()}")
                 if (n, d) == FC_RECORD_SHAPES[name] and dtype == torch.float32:
-                    records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, lib_ms)
+                    records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, lib_ms,
+                                            plan=plan.describe())
 
 
 def k15_table(np, topology, n: int, dead: float, seed: int):
@@ -478,7 +534,7 @@ def phase_kernels(torch, np, kernels, topology, gather_factory):
     say(f"[kernels] launch floor: empty kernel through ctypes {floor_ms * 1e3:.3f} us, "
         f"one-element torch.neg {op_ms * 1e3:.3f} us")
     kernels_ring(torch, kernels["rk"], topology, gen, records, floor_ms)
-    kernels_fc(torch, kernels["fk"], topology, gen, records)
+    kernels_fc(torch, kernels["fk"], topology, gen, records, floor_ms)
     kernels_robust(torch, np, kernels["bk"], topology, gather_factory, records)
     say(f"[kernels] ported kernels: {', '.join(records)}")
     return {name: {**record, "floor_ms": floor_ms} for name, record in records.items()}
@@ -583,6 +639,61 @@ def phase_robust_ab(torch, np, kernels, topology, baseline: str):
                         f"baseline {t[0]:8.3f} {t[3]:8.3f} us  this tree {t[1]:8.3f} {t[2]:8.3f} us"
                         f"  floor {floor_ms * 1e3:.3f}  bound {b_ms * 1e3:7.3f} us ({b_by})  {net}")
     say(f"[robust_ab] this tree slower than the baseline's faster turn in {len(slower)} of 48: "
+        f"{', '.join(slower) if slower else 'none'}")
+
+
+def phase_fc_ab(torch, fk, rk, build, baseline: str):
+    """fc_mix and fc_neighbor_sum against the same kernels built from
+    ``baseline`` (an fc_kernels.cu with the parent's C interface: x, out, n,
+    d, stream), at every fc shape in both dtypes: both builds within
+    N·eps·max|x| of the plain version; times in turns baseline, this tree,
+    this tree, baseline, beside the launch floor, the bound and ``ring_mix``
+    on the same array."""
+    import ctypes
+    import pathlib
+
+    lib = ctypes.CDLL(str(build.build(pathlib.Path(baseline).resolve())))
+    for name in fk.KERNELS:
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+    def baseline_call(name, x):
+        out = torch.empty_like(x)
+        build.call(lib, name, x, x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1])
+        return out
+
+    floor_ms, op_ms = launch_floor(torch, rk)
+    say(f"[fc_ab] baseline {baseline}; launch floor {floor_ms * 1e3:.3f} us "
+        f"(one-element torch.neg {op_ms * 1e3:.3f} us)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    slower, lines = [], 0
+    for n, d in FC_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).removeprefix("torch.")
+            x = torch.randn((n, d), generator=gen, device="cuda", dtype=dtype)
+            ring_us = time_ms(torch, lambda: rk.ring_mix(x)) * 1e3
+            for name in fk.KERNELS:
+                new, plain, _ = _fc_calls(torch, fk, name, x)
+                old = lambda: baseline_call(name, x)  # noqa: E731
+                want = plain()
+                what = f"fc_ab {name} N={n} d={d} {dname}"
+                _fc_close(torch, new(), want, x, f"{what}: this tree")
+                _fc_close(torch, old(), want, x, f"{what}: baseline")
+                t = [time_ms(torch, f) * 1e3 for f in (old, new, new, old)]
+                b_ms, b_by = bound(name, n, d, dname, x.element_size())
+                lines += 1
+                if max(t[1], t[2]) > min(t[0], t[3]):
+                    slower.append(f"{name} N={n} d={d} {dname}")
+                chosen = fk.plan_for(name, x)
+                say(f"[fc_ab] {name:15s} N={n:5d} d={d:5d} {dname}: baseline {t[0]:9.3f} "
+                    f"{t[3]:9.3f} us  this tree {t[1]:9.3f} {t[2]:9.3f} us  floor "
+                    f"{floor_ms * 1e3:.3f}  ring_mix {ring_us:8.3f} us  bound {b_ms * 1e3:8.3f} us "
+                    f"({b_by})  bound/this tree {b_ms * 1e3 / min(t[1], t[2]):.1%}; plan "
+                    f"{chosen.describe()}")
+    say(f"[fc_ab] this tree slower than the baseline's faster turn in {len(slower)} of {lines}: "
         f"{', '.join(slower) if slower else 'none'}")
 
 
@@ -942,6 +1053,7 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", help="the ring_kernels.cu that phase ring_ab compares with")
     ap.add_argument("--robust-baseline",
                     help="the robust_kernels.cu that phase robust_ab compares with")
+    ap.add_argument("--fc-baseline", help="the fc_kernels.cu that phase fc_ab compares with")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES) - set(OPTIONAL_PHASES)
@@ -951,6 +1063,8 @@ def main(argv=None) -> int:
         ap.error("phase ring_ab and --baseline go together")
     if ("robust_ab" in phases) != (args.robust_baseline is not None):
         ap.error("phase robust_ab and --robust-baseline go together")
+    if ("fc_ab" in phases) != (args.fc_baseline is not None):
+        ap.error("phase fc_ab and --fc-baseline go together")
 
     import torch
 
@@ -1023,6 +1137,9 @@ def main(argv=None) -> int:
     if "robust_ab" in phases:
         phase_robust_ab(torch, np, kernels, topology, args.robust_baseline)
         lap("robust_ab")
+    if "fc_ab" in phases:
+        phase_fc_ab(torch, fk, rk, _cuda_build, args.fc_baseline)
+        lap("fc_ab")
 
     if records:
         paths = {

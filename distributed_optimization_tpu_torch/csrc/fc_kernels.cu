@@ -13,13 +13,32 @@
 // that is 16,200 bytes, so the launch sets the time; at N=4096, d=1024 it
 // is 33.5 MB, 10 us at 3.35 TB/s.
 //
-// Design: one block per strip of 32 columns, 32 x 8 threads. Thread (c, r)
-// sums rows r, r+8, ... of its column into a register; the 8 partial sums
-// of a column are added in row-group order from shared memory, and the
-// block then writes its strip of every row (the second read of x for the
-// neighbour sum mostly hits L2). The column sum has a fixed order here but
-// not the plain version's, so the two agree to N·eps·max|x|, not bitwise.
-// Every operation is a round-to-nearest intrinsic (no FMA contraction).
+// Design: one block a column strip.
+//
+// - The array is cut into column strips of lanes·V columns, V = 4 float32
+//   or 2 float64 elements a thread as one 16-byte access where x, out and d
+//   allow it (V = 1 otherwise). One block of lanes x groups threads, up to
+//   1024, owns a strip and all N rows. Narrow strips give many blocks.
+// - Thread (l, g) adds rows g, g + groups, ... of its V columns into
+//   registers, in row order from +0, eight loads in flight; the groups'
+//   partial sums meet in shared memory, and after one block barrier each
+//   thread adds its own columns' partials in group order 0..groups-1, so
+//   every thread of a column holds bitwise the same total.
+// - fc_mix divides each total by N once a thread (round to nearest, as
+//   jnp.mean does) and stores the mean to each of the thread's rows.
+//   fc_neighbor_sum stores total - x[i, j]: from the thread's registers
+//   where its rows fit one batch of eight loads (x read from device memory
+//   once), else from x read again.
+// - The plan (V, lanes, groups, where the rows stay) is chosen on the host
+//   (ops/fc_kernels.py, from N, d, the item size and the alignment) and
+//   passed in; ops/fc_kernels.py also holds a PyTorch mirror of this
+//   summation order, which the kernel matches bit for bit. The order is
+//   fixed, so launches are deterministic, but it is not torch.sum's: the
+//   kernel agrees with the plain version to N·eps·max|x|.
+//
+// Every operation is a round-to-nearest intrinsic (no FMA contraction; the
+// build also passes --fmad=false). The kernels allocate nothing, launch on
+// the caller's stream and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -40,63 +59,193 @@ template <> struct Rn<double> {
   static __device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
 };
 
-constexpr int kCols = 32;
-constexpr int kRowGroups = 8;
+template <typename T> struct Vec;
+template <> struct Vec<float> { using type = float4; static constexpr int kWidth = 4; };
+template <> struct Vec<double> { using type = double2; static constexpr int kWidth = 2; };
 
-// kMean: out = sum / N (fc_mix); otherwise out = sum - x (fc_neighbor_sum).
-template <typename T, bool kMean>
-__global__ void fc_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, int64_t d) {
-  __shared__ T partial[kRowGroups][kCols];
-  __shared__ T total[kCols];
-  const int c = threadIdx.x;
-  const int r = threadIdx.y;
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kCols + c;
-  T s = T(0);
-  if (j < d) {
-    for (int64_t i = r; i < n; i += kRowGroups) s = Rn<T>::add(s, x[i * d + j]);
+template <typename T, int V> struct alignas(sizeof(T) * V) Pack { T v[V]; };
+
+template <typename T, int V>
+__device__ __forceinline__ Pack<T, V> load_global(const T* p) {
+  Pack<T, V> r;
+  if constexpr (V == 1) {
+    r.v[0] = __ldg(p);
+  } else {
+    using VT = typename Vec<T>::type;
+    *reinterpret_cast<VT*>(r.v) = __ldg(reinterpret_cast<const VT*>(p));
   }
-  partial[r][c] = s;
-  __syncthreads();
-  if (r == 0) {
-    T t = partial[0][c];
-    for (int k = 1; k < kRowGroups; ++k) t = Rn<T>::add(t, partial[k][c]);
-    total[c] = t;
-  }
-  __syncthreads();
-  if (j >= d) return;
-  const T col = total[c];
-  const T rows = static_cast<T>(n);
-  for (int64_t i = r; i < n; i += kRowGroups) {
-    out[i * d + j] = kMean ? Rn<T>::div(col, rows) : Rn<T>::sub(col, x[i * d + j]);
+  return r;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_global(T* p, const Pack<T, V>& r) {
+  if constexpr (V == 1) {
+    __stcs(p, r.v[0]);
+  } else {
+    using VT = typename Vec<T>::type;
+    __stcs(reinterpret_cast<VT*>(p), *reinterpret_cast<const VT*>(r.v));
   }
 }
 
-template <typename T, bool kMean>
-int launch(const void* x, void* out, int64_t n, int64_t d, void* stream) {
-  if (n * d > 0) {
-    const dim3 block(kCols, kRowGroups);
-    const unsigned grid = static_cast<unsigned>((d + kCols - 1) / kCols);
-    fc_kernel<T, kMean><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<T*>(out), n, d);
+constexpr int kMaxThreads = 1024;
+constexpr int kUnroll = 8;  // rows loaded before they are added
+
+// fc_mix, or fc_neighbor_sum reading x again or keeping its rows in
+// registers; the order of the last two is the C interface's tile code.
+enum class Mode { kMean, kNeighbor, kNeighborRegisters };
+
+// Dynamic shared memory: the groups' partial sums, [groups][lanes·V].
+template <typename T, int V, Mode M>
+__global__ void __launch_bounds__(kMaxThreads)
+fc_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, int64_t d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int groups = blockDim.y;
+  const int width = blockDim.x * V;
+  T* partial = reinterpret_cast<T*>(smem);
+
+  const int lane_col = threadIdx.x * V;
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * width + lane_col;
+  const bool active = j < d;  // V > 1 only when d % V == 0
+  const int64_t step = static_cast<int64_t>(groups) * d;
+
+  // Pass 1: this thread's rows, in row order, kUnroll loads in flight. A
+  // row past N reads as +0: a sum started from +0 is never -0, so adding
+  // +0 leaves its bits as they are. kNeighborRegisters runs one batch
+  // (n <= kUnroll·groups) and keeps it in v for pass 2.
+  Pack<T, V> s;
+  Pack<T, V> v[kUnroll];
+#pragma unroll
+  for (int k = 0; k < V; ++k) s.v[k] = T(0);
+  if (active) {
+    const T* p = x + threadIdx.y * d + j;
+    for (int64_t i = threadIdx.y; i < n; i += kUnroll * groups, p += kUnroll * step) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (i + u * groups < n) {
+          v[u] = load_global<T, V>(p + u * step);
+        } else {
+#pragma unroll
+          for (int k = 0; k < V; ++k) v[u].v[k] = T(0);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) s.v[k] = Rn<T>::add(s.v[k], v[u].v[k]);
+      }
+    }
   }
+  *reinterpret_cast<Pack<T, V>*>(partial + threadIdx.y * width + lane_col) = s;
+  __syncthreads();
+
+  // The column totals: every thread adds its own columns' group sums in
+  // group order.
+  Pack<T, V> tot;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    T t = partial[lane_col + k];
+#pragma unroll 8
+    for (int g = 1; g < groups; ++g) t = Rn<T>::add(t, partial[g * width + lane_col + k]);
+    tot.v[k] = t;
+  }
+
+  // Pass 2: this thread's rows of out, kUnroll at a time.
+  if (active) {
+    if constexpr (M == Mode::kMean) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) tot.v[k] = Rn<T>::div(tot.v[k], static_cast<T>(n));
+    }
+    for (int64_t i = threadIdx.y, e = threadIdx.y * d + j; i < n;
+         i += kUnroll * groups, e += kUnroll * step) {
+      if constexpr (M == Mode::kNeighbor) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (i + u * groups < n) v[u] = load_global<T, V>(x + e + u * step);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (i + u * groups < n) {
+          if constexpr (M == Mode::kMean) {
+            store_global<T, V>(out + e + u * step, tot);
+          } else {
+            Pack<T, V> r;
+#pragma unroll
+            for (int k = 0; k < V; ++k) r.v[k] = Rn<T>::sub(tot.v[k], v[u].v[k]);
+            store_global<T, V>(out + e + u * step, r);
+          }
+        }
+      }
+    }
+  }
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <typename T, int V, Mode M>
+int launch_plan(const T* x, T* out, int64_t n, int64_t d, int lanes, int groups,
+                cudaStream_t stream) {
+  const int64_t width = static_cast<int64_t>(lanes) * V;
+  const int64_t strips = (d + width - 1) / width;
+  if (strips > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = static_cast<size_t>(groups * width) * sizeof(T);
+  const dim3 block(static_cast<unsigned>(lanes), static_cast<unsigned>(groups));
+  fc_kernel<T, V, M><<<static_cast<unsigned>(strips), block, smem, stream>>>(x, out, n, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, Mode M>
+int launch_vec(const void* x, void* out, int64_t n, int64_t d, int vec, int lanes, int groups,
+               cudaStream_t stream) {
+  const T* tx = static_cast<const T*>(x);
+  T* to = static_cast<T*>(out);
+  constexpr int kV = Vec<T>::kWidth;
+  return vec == 1 ? launch_plan<T, 1, M>(tx, to, n, d, lanes, groups, stream)
+                  : launch_plan<T, kV, M>(tx, to, n, d, lanes, groups, stream);
+}
+
+// vec is V (1, or the 16-byte width of T); tile (fc_neighbor_sum) is where
+// a thread's rows stay between the passes: 0 nowhere (x read again), 1 in
+// its registers. A plan the kernel cannot run returns cudaErrorInvalidValue
+// before any launch.
+template <typename T, bool kMean>
+int launch(const void* x, void* out, int64_t n, int64_t d, int vec, int lanes, int groups,
+           int tile, void* stream) {
+  if (n * d == 0) return static_cast<int>(cudaGetLastError());
+  constexpr int kV = Vec<T>::kWidth;
+  const bool plan_ok =
+      (vec == 1 || (vec == kV && d % kV == 0 && aligned16(x) && aligned16(out))) && lanes > 0 &&
+      groups > 0 && lanes * groups <= kMaxThreads && (tile == 0 || tile == 1) &&
+      (tile == 0 || n <= static_cast<int64_t>(kUnroll) * groups);
+  if (!plan_ok) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (kMean) {
+    return launch_vec<T, Mode::kMean>(x, out, n, d, vec, lanes, groups, s);
+  } else if (tile == 1) {
+    return launch_vec<T, Mode::kNeighborRegisters>(x, out, n, d, vec, lanes, groups, s);
+  }
+  return launch_vec<T, Mode::kNeighbor>(x, out, n, d, vec, lanes, groups, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-int fc_mix_f32(const void* x, void* out, int64_t n, int64_t d, void* stream) {
-  return launch<float, true>(x, out, n, d, stream);
+int fc_mix_f32(const void* x, void* out, int64_t n, int64_t d, int vec, int lanes, int groups,
+               int tile, void* stream) {
+  return launch<float, true>(x, out, n, d, vec, lanes, groups, tile, stream);
 }
-int fc_mix_f64(const void* x, void* out, int64_t n, int64_t d, void* stream) {
-  return launch<double, true>(x, out, n, d, stream);
+int fc_mix_f64(const void* x, void* out, int64_t n, int64_t d, int vec, int lanes, int groups,
+               int tile, void* stream) {
+  return launch<double, true>(x, out, n, d, vec, lanes, groups, tile, stream);
 }
-int fc_neighbor_sum_f32(const void* x, void* out, int64_t n, int64_t d, void* stream) {
-  return launch<float, false>(x, out, n, d, stream);
+int fc_neighbor_sum_f32(const void* x, void* out, int64_t n, int64_t d, int vec, int lanes,
+                        int groups, int tile, void* stream) {
+  return launch<float, false>(x, out, n, d, vec, lanes, groups, tile, stream);
 }
-int fc_neighbor_sum_f64(const void* x, void* out, int64_t n, int64_t d, void* stream) {
-  return launch<double, false>(x, out, n, d, stream);
+int fc_neighbor_sum_f64(const void* x, void* out, int64_t n, int64_t d, int vec, int lanes,
+                        int groups, int tile, void* stream) {
+  return launch<double, false>(x, out, n, d, vec, lanes, groups, tile, stream);
 }
 
 }  // extern "C"

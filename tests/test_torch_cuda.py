@@ -10,12 +10,17 @@ port's dependencies:
 vector-width residue of d and N·d, on misaligned views and past 2³¹
 elements) and the robust count rules are held bitwise; robust clipping to 1e-12 (rtol and
 atol) in float64 and, in float32, to 1e-5 of the largest |x| over each
-row's closed neighbourhood; fc kernels to N·ε·max|x|.
+row's closed neighbourhood; fc kernels to N·ε·max|x| of the plain version
+and bitwise to the mirror of their own summation order (ops/fc_kernels.py),
+under the plan the wrapper picks, under other strips and row groups and on
+misaligned views.
 The instances of the robust kernels are shared with tests/test_torch_robust.py,
 which holds the plain versions against the JAX package on the CPU, and with
 tests/test_torch_robust_network.py, which holds the count-rule kernel's
 sort network and selections against the plain version on the CPU.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -175,7 +180,8 @@ def test_cuda_wrapper_rejects_a_host_eta(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(1, 3), (25, 81), (256, 41), (256, 81), (4096, 1024)])
+@pytest.mark.parametrize("shape", [(1, 3), (25, 81), (256, 41), (256, 81), (4096, 1024),
+                                   (16384, 1024), (37, 1023), (4096, 1021)])
 def test_cuda_fc_kernels_match_their_plain_versions(cuda_device, shape, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
@@ -184,6 +190,94 @@ def test_cuda_fc_kernels_match_their_plain_versions(cuda_device, shape, dtype):
     torch.testing.assert_close(fk.fc_mix(x), fk.fc_mix_plain(x), rtol=0, atol=tol)
     torch.testing.assert_close(fk.fc_neighbor_sum(x), fk.fc_neighbor_sum_plain(x), rtol=0, atol=tol)
     assert fk.LAUNCHES == {name: 1 for name in fk.KERNELS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 3), (25, 81), (256, 41), (37, 1023), (4096, 1024),
+                                   (4096, 1021), (16384, 1024)])
+@pytest.mark.parametrize("name", fk.KERNELS)
+def test_cuda_fc_kernels_equal_their_mirror_bitwise(cuda_device, name, shape, dtype):
+    """At the plan the wrapper picks on this card: the mirror's order bit for
+    bit, the same bits from two launches, and every row of fc_mix equal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
+    kernel = getattr(fk, name)
+    fk.reset_launch_counts()
+    got, again = kernel(x), kernel(x)
+    assert fk.LAUNCHES[name] == 2
+    assert torch.equal(got, fk.MIRRORS[name](x, fk.plan_for(name, x)))
+    assert torch.equal(got, again)
+    if name == "fc_mix":
+        assert torch.equal(got, got[:1].expand_as(got))
+
+
+def _fc_plan(name, x, lanes, groups):
+    """The wrapper's plan for x with another strip and row-group count."""
+    n, d = x.shape
+    p = fk.plan_for(name, x)
+    registers = name == "fc_neighbor_sum" and -(-n // groups) <= fk.ROWS_PER_THREAD
+    return fk.Plan(p.vec, lanes, groups, -(-d // (lanes * p.vec)),
+                   "registers" if registers else "none")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes, groups", [(1, 1), (2, 16), (8, 4), (32, 8), (128, 8),
+                                           (2, 512)])
+@pytest.mark.parametrize("name", fk.KERNELS)
+def test_cuda_fc_kernels_under_other_strips_and_blocks(cuda_device, name, lanes, groups, dtype):
+    """Each strip and row-group count is a configuration of the same order:
+    bitwise its mirror, row groups ragged (N = 61 is a multiple of none)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn((61, 1024), generator=gen, device=cuda_device, dtype=dtype)
+    p = _fc_plan(name, x, lanes, groups)
+    assert torch.equal(fk._launch(fk.library(), name, x, p), fk.MIRRORS[name](x, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tile", fk.TILES)
+def test_cuda_fc_neighbor_sum_keeps_its_rows_anywhere(cuda_device, tile, dtype):
+    """The rows kept in registers (one batch a thread) or nowhere (x read
+    again) give the same bits: the mirror's."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn((300, 64), generator=gen, device=cuda_device, dtype=dtype)
+    p = dataclasses.replace(fk.plan_for("fc_neighbor_sum", x), tile=tile)
+    assert torch.equal(fk._launch(fk.library(), "fc_neighbor_sum", x, p),
+                       fk.fc_neighbor_sum_mirror(x, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(25, 81), (256, 1024), (4096, 1024)])
+@pytest.mark.parametrize("name", fk.KERNELS)
+def test_cuda_fc_kernels_on_a_misaligned_view(cuda_device, name, shape, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = _offset_view(shape, dtype, cuda_device, gen, 1)
+    assert x.data_ptr() % 16 != 0
+    p = fk.plan_for(name, x)
+    assert p.vec == 1
+    fk.reset_launch_counts()
+    assert torch.equal(getattr(fk, name)(x), fk.MIRRORS[name](x, p))
+    assert fk.LAUNCHES[name] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_fc_plan_the_kernel_cannot_run_raises(cuda_device):
+    x = _offset_view((64, 1024), torch.float32, cuda_device, torch.Generator(device=cuda_device), 1)
+    vectored = fk.plan("fc_mix", 64, 1024, 4, aligned=True)
+    with pytest.raises(RuntimeError, match="fc_mix kernel launch failed"):
+        fk._launch(fk.library(), "fc_mix", x, vectored)
+    # More threads a block than the kernel takes, and rows kept in
+    # registers beyond a thread's one batch.
+    y = torch.zeros((65536, 32), device=cuda_device)
+    unplaceable = fk.Plan(vec=4, lanes=8, groups=256, strips=1, tile="none")
+    with pytest.raises(RuntimeError, match="fc_mix kernel launch failed"):
+        fk._launch(fk.library(), "fc_mix", y, unplaceable)
+    unplaceable = fk.Plan(vec=4, lanes=8, groups=32, strips=1, tile="registers")
+    with pytest.raises(RuntimeError, match="fc_neighbor_sum kernel launch failed"):
+        fk._launch(fk.library(), "fc_neighbor_sum", y, unplaceable)
 
 
 def _nan_equal(a, b):

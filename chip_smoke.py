@@ -40,11 +40,11 @@ Phases:
      row's closed neighbourhood. No one PyTorch call computes a screen, so
      the library column is empty; the port's multi-op gather form is timed
      beside it.
-3. reference: small float64 runs on the card (fused ring kernel; fused
-   robust kernel under sign-flip with trimmed_mean and clipped_gossip)
-   against the same runs on the CPU (plain versions): gap histories and
-   final models must agree to 1e-12, since the counter-based sampler gives
-   both the same batches.
+3. reference: small float64 runs on the card (fused ring kernel; ADMM
+   through ``ring_neighbor_sum``; fused robust kernel under sign-flip with
+   trimmed_mean and clipped_gossip) against the same runs on the CPU (plain
+   versions): gap histories and final models must agree to 1e-12, since the
+   counter-based sampler gives both the same batches.
 4. parity: the reference study's N=25 ring (logistic, T=10,000, float32,
    ``mixing_impl='pallas'``) must reach ε=0.08 within T; the fused kernel
    must launch exactly T times.
@@ -59,17 +59,26 @@ Phases:
    rounding of two summation orders, accumulated over T steps); the same
    pair in float64 within 1e-10 relative, which shows that rounding is the
    whole of the float32 difference.
-8. byzantine: the JAX package's breakdown demonstration
+8. admm: decentralized ADMM (default c and ρ, float32, eval every
+   iteration, T=2,000) on the main path's data at N=256 on the ring and at
+   N=25 on the fully-connected graph, each with ``mixing_impl='pallas'`` and
+   ``'stencil'``: every run crosses ε=0.08 within T, finite, with consensus
+   below 1.0; the pallas runs launch ``ring_neighbor_sum`` /
+   ``fc_neighbor_sum`` exactly T+1 times (init and every iteration) and no
+   other ring or fc kernel; the ring pair's gap histories bitwise equal, the
+   fc pair's within 1e-3 relative. The JAX package's CPU figures are printed
+   beside (``ADMM_REFERENCE``), not gated on.
+9. byzantine: the JAX package's breakdown demonstration
    (``examples/bench_byzantine.py``: N=64 ring, full batch, T=4,000,
    float32, fused screens) with its gates, each final honest gap within 1%
    of ``docs/perf/byzantine.json``.
-9. robust: the N=256 ring of ``examples/bench_fused_robust.py`` (d=41,
+10. robust: the N=256 ring of ``examples/bench_fused_robust.py`` (d=41,
    b=16, T=5,000, sign-flip by 12 workers): plain gossip must diverge or
    end 10× above attack-free, every screen within 2× of attack-free; the
    fused robust step launches exactly T times in each fused run and never
    in the gather run, whose trimmed-mean history must agree with the fused
    one to 1e-6 relative.
-10. robust_mixing: the fused aggregator through the Byzantine mix on the
+11. robust_mixing: the fused aggregator through the Byzantine mix on the
     robust run's final models, for each rule, against the gather form and
     the numpy oracle; and the pallas ``MixingOp`` on the fully-connected
     graph (``fc_mix``, ``fc_neighbor_sum``) against the dense W and A.
@@ -78,16 +87,17 @@ Each phase that drives a path sets the launch counts to 0 just before it
 and reads them just after; converging and screened runs print a sha256
 digest of their gap history, so two trees run in one call can be shown to
 give bitwise-equal histories. On request, ``profile`` traces 300
-iterations of the main path and of the robust cell's fused trimmed-mean run
-with ``torch.profiler``; ``ring_ab`` (``--phases card,ring_ab --baseline
-PATH``) holds ``fused_ring_dsgd_step`` and ``ring_mix`` against the same
-kernels built from another ``ring_kernels.cu``, bitwise, and times both at
-every ring shape in turns (baseline, this tree, this tree, baseline);
-``robust_ab`` (``--phases card,robust_ab --robust-baseline PATH``) does the
-same for both fused robust kernels against another ``robust_kernels.cu``
-with the same C interface, at the robust kernels' three inputs, for every
-screen, both forms and both dtypes: the count rules bitwise equal to the
-baseline and to the plain version, clipping within the kernels phase's
+iterations of the main path, of the admm phase's ring and of the robust
+cell's fused trimmed-mean run with ``torch.profiler``; ``ring_ab``
+(``--phases card,ring_ab --baseline PATH``) holds the three ring kernels
+against the same kernels built from another ``ring_kernels.cu``, bitwise,
+and times both at every ring shape in turns (baseline, this tree, this
+tree, baseline); ``robust_ab`` (``--phases card,robust_ab
+--robust-baseline PATH``) does the same for both fused robust kernels
+against another ``robust_kernels.cu`` with the same C interface, at the
+robust kernels' three inputs, for every screen, both forms and both
+dtypes: the count rules bitwise equal to the baseline and to the plain
+version, clipping within the kernels phase's
 tolerance of the plain version on both builds; ``fc_ab`` (``--phases
 card,fc_ab --fc-baseline PATH``) binds another ``fc_kernels.cu`` through
 the parent's five-argument C interface (x, out, n, d, stream), holds both
@@ -111,13 +121,13 @@ import subprocess
 import sys
 import time
 
-PHASES = ("card", "kernels", "reference", "parity", "main", "mixing", "fc", "byzantine",
-          "robust", "robust_mixing")
+PHASES = ("card", "kernels", "reference", "parity", "main", "mixing", "fc", "admm",
+          "byzantine", "robust", "robust_mixing")
 # Run only when asked for: profile, a torch.profiler trace of the main
-# path's and the robust cell's steady loops; ring_ab (with --baseline), the
-# redesigned ring kernels against another build of ring_kernels.cu;
-# robust_ab (with --robust-baseline), the fused robust kernels against
-# another build of robust_kernels.cu; fc_ab (with --fc-baseline), the fc
+# path's, the admm ring's and the robust cell's steady loops; ring_ab (with
+# --baseline), the three ring kernels against another build of
+# ring_kernels.cu; robust_ab (with --robust-baseline), the fused robust
+# kernels against another build of robust_kernels.cu; fc_ab (with --fc-baseline), the fc
 # kernels against another build of fc_kernels.cu with the parent's C
 # interface.
 OPTIONAL_PHASES = ("profile", "ring_ab", "robust_ab", "fc_ab")
@@ -143,14 +153,24 @@ SHAPES = (MAIN_SHAPE, ROBUST_SHAPE, *D_SWEEP, (4096, 1024), MILLION_RING)
 # The ring kernels' library yardstick multiplies by the dense [N, N] W or A
 # up to this size, and by the CSR ring matrix (cuSPARSE) beyond it.
 DENSE_LIBRARY_BYTES = 1 << 30
+# The admm phase's T: past the ε=0.08 crossings the JAX package shows (214
+# on the N=256 ring, 165 on the N=25 fully-connected graph) by a wide margin.
+ADMM_ITERATIONS = 2_000
+# The JAX package's float32 figures at the admm phase's configurations, on
+# a CPU with use_mesh=False (its sampler draws other batches than the
+# port's, so these are printed beside, not gated on); tests/test_torch_admm.py
+# recomputes them.
+ADMM_REFERENCE = {"ring": {"iters_to_eps": 214, "final_gap": 2.123e-3, "consensus": 0.09364},
+                  "fully_connected": {"iters_to_eps": 165, "final_gap": 9.795e-4,
+                                      "consensus": 3.084e-3}}
 # The fc kernels' shapes: the fc path, robust_mixing's, and two widths of
 # 1024 whose x and out (33.5 MB and 134 MB in float32) stay within and go
 # beyond the 50 MB L2 between timed launches.
 FC_SHAPES = ((25, 81), ROBUST_SHAPE, (256, 81), (4096, 1024), (16384, 1024))
 # The dense W x yardstick is printed up to this N.
 FC_DENSE_MAX_N = 4096
-# The shape of each fc kernel's path: the fc phase, and robust_mixing.
-FC_RECORD_SHAPES = {"fc_mix": (25, 81), "fc_neighbor_sum": ROBUST_SHAPE}
+# The shape of both fc kernels' paths: the fc phase, and admm's fc run.
+FC_RECORD_SHAPE = (25, 81)
 ROBUST_RECORD = ("ring", "trimmed_mean")  # the robust phase's path
 TIMED_LAUNCHES = 200
 PALLAS = "distributed_optimization_tpu/ops/pallas_kernels.py"
@@ -442,7 +462,7 @@ def kernels_fc(torch, fk, topology, gen, records, floor_ms):
                              extra=f"  floor +{(ms - floor_ms) * 1e3:.3f} us, bound/kernel "
                                    f"{b_ms / ms:.1%}, wall per call {wall * 1e3:.3f} us{dense}; "
                                    f"plan {plan.describe()}")
-                if (n, d) == FC_RECORD_SHAPES[name] and dtype == torch.float32:
+                if (n, d) == FC_RECORD_SHAPE and dtype == torch.float32:
                     records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, lib_ms,
                                             plan=plan.describe())
 
@@ -541,10 +561,12 @@ def phase_kernels(torch, np, kernels, topology, gather_factory):
 
 
 def phase_ring_ab(torch, rk, build, baseline: str):
-    """fused_ring_dsgd_step and ring_mix against the same kernels built from
+    """The three ring kernels against the same kernels built from
     ``baseline`` (a ring_kernels.cu with the same C interface, such as the
     parent commit's), at every ring shape: bitwise equal outputs, and times
-    in turns baseline, this tree, this tree, baseline."""
+    in turns baseline, this tree, this tree, baseline, beside the launch
+    floor and the bound. Counts the lines where this tree is slower than the
+    baseline's faster turn."""
     import ctypes
     import pathlib
 
@@ -553,22 +575,31 @@ def phase_ring_ab(torch, rk, build, baseline: str):
     say(f"[ring_ab] baseline {baseline}; launch floor {floor_ms * 1e3:.3f} us "
         f"(one-element torch.neg {op_ms * 1e3:.3f} us)")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    slower, lines = [], 0
     for n, d in SHAPES:
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).removeprefix("torch.")
             x = torch.randn((n, d), generator=gen, device="cuda", dtype=dtype)
             g = torch.randn((n, d), generator=gen, device="cuda", dtype=dtype)
             eta = torch.tensor([0.05 / 7.0], dtype=dtype, device="cuda")
-            for name, args in (("fused_ring_dsgd_step", (g, eta)), ("ring_mix", ())):
+            for name, args in (("fused_ring_dsgd_step", (g, eta)), ("ring_mix", ()),
+                               ("ring_neighbor_sum", ())):
                 new = lambda: getattr(rk, name)(x, *args)  # noqa: E731
                 old = lambda: rk.launch(lib, name, x, *args)  # noqa: E731
                 check(torch.equal(new(), old()),
                       f"ring_ab {name} N={n} d={d} {dname}: this tree and the baseline differ")
                 t = [time_ms(torch, f) * 1e3 for f in (old, new, new, old)]
                 b_ms, _ = bound(name, n, d, dname, x.element_size())
+                lines += 1
+                if max(t[1], t[2]) > min(t[0], t[3]):
+                    slower.append(f"{name} N={n} d={d} {dname} "
+                                  f"(+{max(t[1], t[2]) - min(t[0], t[3]):.3f} us)")
                 say(f"[ring_ab] {name:20s} N={n:7d} d={d:5d} {dname}: baseline {t[0]:9.3f} "
                     f"{t[3]:9.3f} us  this tree {t[1]:9.3f} {t[2]:9.3f} us  bound "
-                    f"{b_ms * 1e3:8.3f} us  (bound/this tree {b_ms * 1e3 / min(t[1], t[2]):.1%})")
+                    f"{b_ms * 1e3:8.3f} us  (bound/this tree {b_ms * 1e3 / min(t[1], t[2]):.1%}, "
+                    f"bound/baseline {b_ms * 1e3 / min(t[0], t[3]):.1%})")
+    say(f"[ring_ab] this tree slower than the baseline's faster turn in {len(slower)} of "
+        f"{lines}: {', '.join(slower) if slower else 'none'}")
 
 
 def phase_robust_ab(torch, np, kernels, topology, baseline: str):
@@ -705,7 +736,7 @@ def _agree(label, card, host, tol=1e-12):
     check(diff <= tol and models <= tol, f"{label}: card and CPU runs disagree beyond {tol}")
 
 
-def phase_reference(torch, pkg, bk):
+def phase_reference(torch, pkg, rk, bk):
     cfg = pkg.ExperimentConfig(
         problem_type="logistic", n_workers=8, n_samples=400, n_features=10,
         n_informative_features=6, n_iterations=200, local_batch_size=8,
@@ -715,6 +746,12 @@ def phase_reference(torch, pkg, bk):
     _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
     _agree("N=8 T=200 float64 pallas", pkg.run(cfg, ds, f_opt, device="cuda"),
            pkg.run(cfg, ds, f_opt, device="cpu"))
+    admm = cfg.replace(algorithm="admm")
+    rk.reset_launch_counts()
+    card = pkg.run(admm, ds, f_opt, device="cuda")
+    check(rk.LAUNCHES["ring_neighbor_sum"] == admm.n_iterations + 1,
+          f"admm: ring_neighbor_sum launched {rk.LAUNCHES} times, not T+1")
+    _agree("N=8 T=200 float64 admm pallas", card, pkg.run(admm, ds, f_opt, device="cpu"))
     robust = cfg.replace(n_workers=12, n_samples=480, partition="shuffled",
                          attack="sign_flip", n_byzantine=2, attack_scale=2.0)
     ds = pkg.generate_synthetic_dataset(robust)
@@ -842,6 +879,54 @@ def phase_fc(torch, np, pkg, fk):
 def _relative_gap_diff(np, a, b) -> float:
     ga, gb = a.history.objective, b.history.objective
     return float(np.max(np.abs(gb - ga) / np.abs(ga)))
+
+
+def phase_admm(torch, np, pkg, rk, fk, T=ADMM_ITERATIONS):
+    """Decentralized ADMM on the main path's data, float32, eval every
+    iteration: the N=256 ring and the N=25 fully-connected graph, each with
+    ``mixing_impl='pallas'`` and ``'stencil'``. Every run crosses ε within T,
+    stays finite and ends with consensus below 1.0; the pallas runs launch
+    their neighbour-sum kernel T+1 times (once at init, once an iteration)
+    and no mixing kernel. The ring pair is bitwise equal (the kernel is
+    bitwise its plain version); the fc pair within 1e-3 relative (the fc
+    phase's gate: two summation orders). Returns the pallas runs' launches."""
+    launches = {}
+    for topology, n, kernel in (("ring", 256, "ring_neighbor_sum"),
+                                ("fully_connected", 25, "fc_neighbor_sum")):
+        cfg = pkg.ExperimentConfig(problem_type="logistic", algorithm="admm", topology=topology,
+                                   n_workers=n, n_iterations=T, dtype="float32", eval_every=1)
+        ds = pkg.generate_synthetic_dataset(cfg)
+        _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
+        runs = {}
+        for impl in ("pallas", "stencil"):
+            res, counted = _converging_run(torch, pkg, [rk, fk], cfg.replace(mixing_impl=impl),
+                                           ds, f_opt, "admm")
+            check(float(res.history.consensus_error[-1]) < 1.0,
+                  f"admm {topology} {impl}: consensus error not below 1.0")
+            want = {name: 0 for name in counted}
+            if impl == "pallas":
+                want[kernel] = T + 1
+                launches[kernel] = counted
+            check(counted == want, f"admm {topology} {impl}: launches {counted}, not {want}")
+            runs[impl] = res.history
+        pallas, stencil = runs["pallas"].objective, runs["stencil"].objective
+        rel = float(np.max(np.abs(stencil - pallas) / np.abs(pallas)))
+        say(f"[admm] {topology} N={n}: pallas and stencil histories "
+            f"{'bitwise equal' if np.array_equal(pallas, stencil) else 'differ'}, largest "
+            f"relative gap difference {rel:.3e}; sampling "
+            f"{cfg.resolved_sampling_impl('cuda', max(len(s) for s in ds.shard_indices))}")
+        ref = ADMM_REFERENCE[topology]
+        say(f"[admm] ADMM_REFERENCE {topology} N={n} (JAX package, CPU, float32): "
+            f"iters-to-0.08 {ref['iters_to_eps']}, final gap {ref['final_gap']}, consensus "
+            f"{ref['consensus']}; port on the card: iters-to-0.08 "
+            f"{pkg.iterations_to_threshold(pallas, 0.08, runs['pallas'].eval_iterations)}, "
+            f"final gap {pallas[-1]:.6f}, floats {runs['pallas'].total_floats_transmitted:.6g}")
+        if topology == "ring":
+            check(np.array_equal(pallas, stencil),
+                  "admm ring: the pallas and stencil gap histories are not bitwise equal")
+        else:
+            check(rel <= 1e-3, "admm fc: the stencil run is not within 1e-3 relative of pallas")
+    return launches
 
 
 def _screened_runs(pkg, rows, ds, f_opt, counters, label):
@@ -1037,10 +1122,12 @@ def _profile_run(torch, pkg, cfg, label, T):
 
 
 def phase_profile(torch, pkg, T: int = 300):
-    for impl in ("pallas", "stencil"):
-        cfg = pkg.ExperimentConfig(problem_type="logistic", n_workers=256, n_iterations=T,
-                                   mixing_impl=impl, dtype="float32", eval_every=1)
-        _profile_run(torch, pkg, cfg, f"N=256 {impl}", T)
+    for algorithm in ("dsgd", "admm"):
+        for impl in ("pallas", "stencil"):
+            cfg = pkg.ExperimentConfig(problem_type="logistic", algorithm=algorithm,
+                                       n_workers=256, n_iterations=T, mixing_impl=impl,
+                                       dtype="float32", eval_every=1)
+            _profile_run(torch, pkg, cfg, f"{algorithm} N=256 {impl}", T)
     cfg = robust_config(pkg, T).replace(attack="sign_flip", n_byzantine=12, attack_scale=5.0,
                                         aggregation="trimmed_mean", robust_b=1,
                                         robust_impl="fused")
@@ -1101,7 +1188,7 @@ def main(argv=None) -> int:
         records = phase_kernels(torch, np, kernels, topology, make_gather_robust_aggregator)
         lap("kernels")
     if "reference" in phases:
-        phase_reference(torch, pkg, bk)
+        phase_reference(torch, pkg, rk, bk)
         lap("reference")
     if "parity" in phases:
         phase_parity(torch, pkg, rk)
@@ -1112,11 +1199,13 @@ def main(argv=None) -> int:
         counted["fused_ring_dsgd_step"] = launches
         lap("main")
         if "mixing" in phases:
-            launches = phase_mixing(torch, pkg, rk, main_res.final_models)
-            counted["ring_mix"] = counted["ring_neighbor_sum"] = launches
+            counted["ring_mix"] = phase_mixing(torch, pkg, rk, main_res.final_models)
     if "fc" in phases:
         counted["fc_mix"] = phase_fc(torch, np, pkg, fk)
         lap("fc")
+    if "admm" in phases:
+        counted.update(phase_admm(torch, np, pkg, rk, fk))
+        lap("admm")
     if "byzantine" in phases:
         phase_byzantine(np, pkg, bk)
         lap("byzantine")
@@ -1125,8 +1214,8 @@ def main(argv=None) -> int:
         counted["make_fused_robust_dsgd_step"] = launches
         lap("robust")
         if "robust_mixing" in phases:
-            launches = phase_robust_mixing(torch, np, pkg, kernels, robust_models)
-            counted["make_fused_robust_aggregator"] = counted["fc_neighbor_sum"] = launches
+            counted["make_fused_robust_aggregator"] = phase_robust_mixing(
+                torch, np, pkg, kernels, robust_models)
 
     if "profile" in phases:
         phase_profile(torch, pkg)
@@ -1145,10 +1234,11 @@ def main(argv=None) -> int:
         paths = {
             "fused_ring_dsgd_step": "main: dsgd, ring, N=256, mixing_impl=pallas",
             "ring_mix": "mixing: MixingOp(pallas).apply",
-            "ring_neighbor_sum": "mixing: MixingOp(pallas).neighbor_sum",
+            "ring_neighbor_sum":
+                "admm: ring, N=256, mixing_impl=pallas, T+1 (init and every iteration)",
             "fc_mix": "fc: dsgd, fully_connected, N=25, mixing_impl=pallas",
             "fc_neighbor_sum":
-                "robust_mixing: MixingOp(pallas).neighbor_sum, fully_connected, N=256, d=41",
+                "admm: fully_connected, N=25, mixing_impl=pallas, T+1 (init and every iteration)",
             "make_fused_robust_aggregator":
                 "robust_mixing: byz_mix of the robust run's final models, one per rule",
             "make_fused_robust_dsgd_step":

@@ -20,6 +20,7 @@ from distributed_optimization_tpu_torch.config import (
     ALGORITHMS,
     ATTACKS,
     DTYPES,
+    LR_SCHEDULES,
     MIXING_IMPLS,
     PARTITIONS,
     PROBLEM_TYPES,
@@ -45,10 +46,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-features", type=int, default=_DEFAULTS.n_features)
     p.add_argument("--n-informative-features", type=int,
                    default=_DEFAULTS.n_informative_features)
+    p.add_argument("--classification-sep", type=float,
+                   default=_DEFAULTS.classification_sep)
     p.add_argument("--n-iterations", type=int, default=_DEFAULTS.n_iterations)
     p.add_argument("--local-batch-size", type=int, default=_DEFAULTS.local_batch_size)
     p.add_argument("--learning-rate-eta0", type=float, default=_DEFAULTS.learning_rate_eta0)
     p.add_argument("--l2-lambda", type=float, default=_DEFAULTS.l2_regularization_lambda)
+    p.add_argument("--lr-schedule", choices=LR_SCHEDULES, default=_DEFAULTS.lr_schedule)
+    p.add_argument("--admm-c", type=float, default=_DEFAULTS.admm_c)
+    p.add_argument("--admm-rho", type=float, default=_DEFAULTS.admm_rho)
     p.add_argument("--seed", type=int, default=_DEFAULTS.seed)
     p.add_argument("--data-seed", type=int, default=_DEFAULTS.data_seed)
     p.add_argument("--eval-every", type=int, default=_DEFAULTS.eval_every)
@@ -88,11 +94,15 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         n_samples=args.n_samples,
         n_features=args.n_features,
         n_informative_features=args.n_informative_features,
+        classification_sep=args.classification_sep,
         n_iterations=args.n_iterations,
         local_batch_size=args.local_batch_size,
         learning_rate_eta0=args.learning_rate_eta0,
         l2_regularization_lambda=args.l2_lambda,
         strong_convexity_mu=args.l2_lambda,
+        lr_schedule=args.lr_schedule,
+        admm_c=args.admm_c,
+        admm_rho=args.admm_rho,
         seed=args.seed,
         data_seed=args.data_seed,
         eval_every=args.eval_every,

@@ -1,3 +1,4 @@
-"""Optimization algorithms: centralized SGD and D-SGD, as step rules."""
+"""Optimization algorithms: centralized SGD, D-SGD and decentralized ADMM, as
+step rules."""
 
 from distributed_optimization_tpu_torch.algorithms.base import Algorithm, get_algorithm  # noqa: F401

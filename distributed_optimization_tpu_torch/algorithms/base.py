@@ -9,7 +9,7 @@ builds for each iteration.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -24,7 +24,10 @@ class StepContext:
     [N, d]) for batch draw ``slot``. ``mix``: x -> W x. ``neighbor_sum``:
     x -> A x. ``eta``: this iteration's step size, a one-element tensor in
     the run dtype on the run device. ``config``: the ExperimentConfig.
-    ``fused_mix_step``: optional (x, g, eta) -> W x − eta g in one kernel.
+    ``degrees``: [N, 1] node degrees in the run dtype on the run device
+    (zeros for the centralized pattern); the backend always passes it, and
+    only a rule that reads it (ADMM) needs it. ``fused_mix_step``:
+    optional (x, g, eta) -> W x − eta g in one kernel.
     """
 
     grad: Callable[[torch.Tensor, int], torch.Tensor]
@@ -32,14 +35,18 @@ class StepContext:
     neighbor_sum: Callable[[torch.Tensor], torch.Tensor]
     eta: torch.Tensor
     config: Any
+    degrees: Optional[torch.Tensor] = None
     fused_mix_step: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
 class Algorithm:
-    """A named step rule: ``init(x0, config) -> state`` and
-    ``step(state, ctx) -> state``. ``gossip_rounds``: model-sized exchanges
-    per iteration; ``is_decentralized``: False for the parameter server;
+    """A named step rule: ``init(x0, config, *, neighbor_sum=None) ->
+    state`` and ``step(state, ctx) -> state``. ``neighbor_sum`` (x -> A x),
+    when the backend passes it, lets a rule that carries a neighbour
+    aggregate (ADMM) compute it for any x0, once, before the loop.
+    ``gossip_rounds``: model-sized exchanges per iteration;
+    ``is_decentralized``: False for the parameter server;
     ``supports_byzantine``: the rule's update goes through ``ctx.mix``
     alone, so Byzantine injection and robust screening compose with it."""
 
@@ -71,6 +78,7 @@ def register_algorithm(algo: Algorithm) -> Algorithm:
 
 def get_algorithm(name: str) -> Algorithm:
     from distributed_optimization_tpu_torch.algorithms import (  # noqa: F401
+        admm,
         centralized,
         dsgd,
     )

@@ -21,7 +21,7 @@ from distributed_optimization_tpu_torch.algorithms.base import (
 )
 
 
-def _init(x0, config) -> State:
+def _init(x0, config, *, neighbor_sum=None) -> State:
     return {"x": x0}
 
 

@@ -5,15 +5,16 @@ The port of the unsharded, fault-free run loop of
 ``_make_step_eval`` and ``_bind_byzantine``). One iteration is: per-worker
 mini-batch sampling → per-worker closed-form gradients → gossip (or the
 fused ring kernel; under Byzantine injection the corrupt → screen → mix
-composition, or the fused robust kernel) → step. The loop is a Python loop of asynchronous launches: the per-eval
-suboptimality gap and consensus error are written into preallocated device
-tensors, and the host fetches them once, after the last iteration. Nothing
-inside the loop synchronises with the device.
+composition, or the fused robust kernel) → step; ADMM's step exchanges the
+neighbour sum A x instead of W x. The loop is a Python loop of asynchronous
+launches: the per-eval suboptimality gap and consensus error are written
+into preallocated device tensors, and the host fetches them once, after
+the last iteration. Nothing inside the loop synchronises with the device.
 
-Timing: iteration 0 is the warm-up. It builds the CUDA kernels when the run
-uses them, and its time, synchronised, is ``compile_seconds``.
-``iters_per_second`` counts iterations 1..T−1 between two
-``torch.cuda.synchronize()`` calls.
+Timing: the algorithm's init and iteration 0 are the warm-up. They build
+the CUDA kernels when the run uses them, and their time, synchronised, is
+``compile_seconds``. ``iters_per_second`` counts iterations 1..T−1 between
+two ``torch.cuda.synchronize()`` calls.
 """
 
 from __future__ import annotations
@@ -105,6 +106,7 @@ class _Program:
     mix_op: Optional[MixingOp]
     fused_mix_step: Optional[Callable]
     eta: torch.Tensor  # [T]
+    degrees: torch.Tensor  # [N, 1]
     full_objective: Callable
     data: tuple
     byz: Optional["Byzantine"] = None
@@ -118,7 +120,7 @@ class _Program:
             mix, nbr = (lambda v: v), (lambda v: v * 0)
         ctx = StepContext(
             grad=self.grad_for(t), mix=mix, neighbor_sum=nbr,
-            eta=self.eta[t:t + 1], config=self.config,
+            eta=self.eta[t:t + 1], degrees=self.degrees, config=self.config,
             fused_mix_step=self.fused_mix_step,
         )
         return self.algo.step(state, ctx)
@@ -291,6 +293,7 @@ def run(
     if algo.is_decentralized:
         topo = build_topology(config.topology, n)
         mix_op = make_mixing_op(topo, config.mixing_impl, device=dev, dtype=dtype)
+        degrees = torch.as_tensor(topo.degrees, dtype=dtype, device=dev)[:, None]
         floats_per_iter = decentralized_floats_per_iteration(topo, d, algo.gossip_rounds)
         spectral_gap = topo.spectral_gap
         byz = bind_byzantine(config, algo, topo, mix_op, device=dev, dtype=dtype)
@@ -309,6 +312,7 @@ def run(
                 "decentralized algorithms; the centralized pattern has no "
                 "peer edges"
             )
+        degrees = torch.zeros((n, 1), dtype=dtype, device=dev)
         floats_per_iter = centralized_floats_per_iteration(n, d)
         spectral_gap = None
 
@@ -332,12 +336,11 @@ def run(
             problem, reg, config, X, y, n_valid, schedule, sampling_impl
         ),
         mix_op=mix_op, fused_mix_step=fused_mix_step,
-        eta=make_eta_schedule(config, T, dev, dtype),
+        eta=make_eta_schedule(config, T, dev, dtype), degrees=degrees,
         full_objective=make_full_objective_fn(problem, reg),
         data=(X, y, n_valid), byz=byz,
     )
 
-    state = algo.init(torch.zeros((n, d), dtype=dtype, device=dev), config)
     track_consensus = collect_metrics and algo.is_decentralized and config.record_consensus
     gap_hist = torch.empty(n_evals, dtype=dtype, device=dev)
     cons_hist = torch.empty(n_evals, dtype=dtype, device=dev)
@@ -358,6 +361,12 @@ def run(
 
     sync()
     t0 = time.perf_counter()
+    # Eager, once, before the loop: ADMM's A x_0, through the unscreened
+    # mixing op's neighbour sum, as the JAX package binds it.
+    state = algo.init(
+        torch.zeros((n, d), dtype=dtype, device=dev), config,
+        neighbor_sum=mix_op.neighbor_sum if mix_op is not None else None,
+    )
     state = iterate(state, 0)
     sync()
     compile_seconds = time.perf_counter() - t0

@@ -14,7 +14,7 @@ from typing import Any
 
 # What this slice of the port implements. The JAX package accepts more;
 # each value outside these lists is refused below.
-ALGORITHMS = ("centralized", "dsgd")
+ALGORITHMS = ("centralized", "dsgd", "admm")
 TOPOLOGIES = ("ring", "fully_connected")
 PROBLEM_TYPES = ("logistic", "quadratic")
 MIXING_IMPLS = ("auto", "stencil", "dense", "pallas")
@@ -22,6 +22,9 @@ SAMPLING_IMPLS = ("auto", "dense", "gather")
 DTYPES = ("float32", "float64")
 LR_SCHEDULES = ("auto", "sqrt_decay", "constant")
 PARTITIONS = ("sorted", "shuffled")
+# The JAX package's rules that accept local_steps > 1; the port has none
+# of them with τ > 1 yet, and refuses the rest with the JAX message.
+LOCAL_STEP_ALGORITHMS = ("dsgd", "gradient_tracking")
 # The JAX package's full lists; the values this slice lacks raise below.
 ATTACKS = ("none", "sign_flip", "large_noise", "alie")
 AGGREGATIONS = ("gossip", "trimmed_mean", "median", "clipped_gossip")
@@ -54,7 +57,14 @@ class ExperimentConfig:
 
     algorithm: str = "dsgd"
     topology: str = "ring"
+    # LR schedule: 'auto' = eta0/sqrt(t+1) for the SGD-family rules,
+    # constant eta0 for admm (its linear-convergence regime).
     lr_schedule: str = "auto"
+    admm_c: float = 0.5  # ADMM edge-penalty coefficient
+    # DLM proximal-linearization weight; must dominate the loss gradient's
+    # Lipschitz constant for stability (L ≈ 4 for the standardized quadratic
+    # data here, ≈ 0.25 for logistic). 5.0 is safe for both study problems.
+    admm_rho: float = 5.0
     seed: int = 203
     data_seed: int = -1
     eval_every: int = 1
@@ -94,11 +104,11 @@ class ExperimentConfig:
             ("sampling_impl", SAMPLING_IMPLS),
             ("dtype", DTYPES),
             ("lr_schedule", LR_SCHEDULES),
-            ("local_steps", (1,)),
         ):
             value = getattr(self, field)
             if value not in allowed:
                 raise _not_yet(field, value, allowed)
+        self._validate_local_steps()
         self._validate_byzantine()
         if self.n_workers <= 0:
             raise ValueError("n_workers must be positive")
@@ -115,6 +125,23 @@ class ExperimentConfig:
                 f"eval_every ({self.eval_every}) must divide n_iterations "
                 f"({self.n_iterations})"
             )
+
+    def _validate_local_steps(self) -> None:
+        """The JAX package's check of ``local_steps``; τ > 1 on a rule that
+        takes it is not ported yet."""
+        if self.local_steps < 1:
+            raise ValueError(f"local_steps must be >= 1, got {self.local_steps}")
+        if self.local_steps > 1 and self.algorithm not in LOCAL_STEP_ALGORITHMS:
+            raise ValueError(
+                f"local_steps={self.local_steps} is unsupported for "
+                f"{self.algorithm!r}: τ local descents between gossip "
+                "exchanges only compose with the mix-based rules "
+                f"{LOCAL_STEP_ALGORITHMS} (EXTRA/ADMM/CHOCO/push-sum "
+                "pin a one-exchange-per-descent recursion that extra "
+                "local steps would silently break)"
+            )
+        if self.local_steps > 1:
+            raise _not_yet("local_steps", self.local_steps, (1,))
 
     def _validate_byzantine(self) -> None:
         """The JAX package's checks of the Byzantine fields, in its order
@@ -224,9 +251,15 @@ class ExperimentConfig:
         return "gather"
 
     def resolved_lr_schedule(self) -> str:
+        """The JAX package's rule: the SGD-family rules take the decaying
+        step, the dual method its constant one."""
         if self.lr_schedule != "auto":
             return self.lr_schedule
-        return "sqrt_decay"  # both algorithms of this slice are SGD-family
+        return (
+            "sqrt_decay"
+            if self.algorithm in ("centralized", "dsgd", "push_sum")
+            else "constant"
+        )
 
     @property
     def reg_param(self) -> float:

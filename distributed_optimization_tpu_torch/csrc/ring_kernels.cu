@@ -11,12 +11,14 @@
 // on a row-major [N, d] array, N >= 3, where roll(x,+1)[i] = x[i-1].
 //
 // Bound: memory. The fused step reads x and g once and writes out once,
-// 3·N·d elements for 4 floating-point operations each; ring_mix moves 2·N·d
-// for 3. At the main path's N=256, d=81 in float32 that is 248,832 bytes,
-// 0.074 us at 3.35 TB/s, so there the launch sets the time; at the
-// million-worker ring (N=1,000,000, d=17) it is 204 MB, 60.9 us.
+// 3·N·d elements for 4 floating-point operations each; ring_mix and
+// ring_neighbor_sum move 2·N·d, for 3 and 1. At the main path's N=256, d=81
+// in float32 that is 248,832 bytes, 0.074 us at 3.35 TB/s, so there the
+// launch sets the time; at the million-worker ring (N=1,000,000, d=17) it is
+// 204 MB, 60.9 us, and 136 MB, 40.6 us, for the two-array kernels.
 //
-// Design of fused_ring_dsgd_step and ring_mix (ring_stencil_kernel):
+// Design (ring_stencil_kernel, one template for the three, Op picks what a
+// thread computes):
 //
 // - A flat stencil with no division. On the row-major array, roll(x, ±1, 0)
 //   is a shift by ∓d on the flat array of total = N·d elements, wrapping
@@ -27,11 +29,12 @@
 //   when total < 2^31 and uint64_t otherwise, chosen once on the host.
 // - V elements per thread with 16-byte accesses: V = 4 in float32, 2 in
 //   float64. A thread loads its x and g as one float4/double2 through the
-//   read-only path and stores one. The neighbour vectors x[e ± d, +V) are
-//   16-byte aligned only when d % V == 0, and only then can they not
-//   straddle the wrap: that instance loads them as vectors too; otherwise
-//   each lane loads its neighbours as scalars, each with its own wrap. The
-//   last total % V elements are done one per thread. A pointer that is not
+//   read-only path and stores one; ring_neighbor_sum loads no x of its own,
+//   only the two neighbours. The neighbour vectors x[e ± d, +V) are 16-byte
+//   aligned only when d % V == 0, and only then can they not straddle the
+//   wrap: that instance loads them as vectors too; otherwise each lane
+//   loads its neighbours as scalars, each with its own wrap. The last
+//   total % V elements are done one per thread. A pointer that is not
 //   16-byte aligned (a view at an odd storage offset) gets the scalar
 //   instance of the same kernel: one element per thread.
 // - A grid sized for the card: 256 threads a block, one vector a thread,
@@ -53,18 +56,15 @@
 //   reuse to feed wgmma, and a matrix product would sum x_i/3 + x_{i-1}/3 +
 //   x_{i+1}/3 in its own order, which breaks the bitwise contract below.
 //
-// ring_neighbor_sum keeps the first kernel's design (one element per
-// thread, the rows (i - 1 + N) % N and (i + 1) % N from 64-bit division):
-// it is the next one to move onto the stencil above.
-//
 // Rounding: every operation uses the round-to-nearest intrinsics, in the
 // order of the plain PyTorch version ((x_i + x_{i-1}) + x_{i+1}) * THIRD,
 // then - (eta * g) as a separate multiply and subtract. nvcc would otherwise
 // contract the last two into one FMA, which rounds differently (the build
-// also passes --fmad=false; nothing here calls fma). With the intrinsics
-// the kernels are bitwise equal to the plain version. THIRD is 1/3 rounded
-// once to the working type. eta is read from a one-element device array in
-// the working type (no host synchronisation).
+// also passes --fmad=false; nothing here calls fma). The neighbour sum is
+// one add, x_{i-1} + x_{i+1}, as roll(x,+1) + roll(x,-1) rounds it. With
+// the intrinsics the kernels are bitwise equal to the plain version. THIRD
+// is 1/3 rounded once to the working type. eta is read from a one-element
+// device array in the working type (no host synchronisation).
 //
 // The kernels allocate nothing, launch on the caller's stream and return
 // cudaGetLastError(). ring_launch_floor launches an empty kernel through
@@ -92,8 +92,6 @@ template <> struct Rn<double> {
 };
 
 constexpr int kThreads = 256;
-
-// --- fused_ring_dsgd_step and ring_mix: the flat ±d stencil ----------------
 
 constexpr int kBlocksPerSm = 8;  // 8 x 256 threads fill a multiprocessor
 constexpr int kWaves = 64;       // full waves launched at most
@@ -123,6 +121,10 @@ template <> struct Vec<double> { using type = double2; static constexpr int kWid
 // (kVectorAligned, d % V == 0).
 enum class Layout { kScalar, kVector, kVectorAligned };
 
+// What a thread computes: x_prev + x_next (ring_neighbor_sum); W x
+// (ring_mix); or W x - eta * g (fused_ring_dsgd_step).
+enum class Op { kNeighborSum, kMix, kStep };
+
 template <typename T, int V> struct alignas(sizeof(T) * V) Pack { T v[V]; };
 
 template <typename T, int V>
@@ -147,12 +149,13 @@ __device__ __forceinline__ void store(T* p, const Pack<T, V>& r) {
   }
 }
 
-// ((x_e + x_prev) + x_next) * THIRD [- eta * g_e] for the V elements from
-// e; far = total - d.
-template <typename T, typename I, int V, bool kVecNbr, bool kStep>
+// For the V elements from e: x_prev + x_next, or ((x_e + x_prev) + x_next)
+// * THIRD [- eta * g_e]; far = total - d.
+template <typename T, typename I, int V, bool kVecNbr, Op kOp>
 __device__ __forceinline__ void stencil(const T* __restrict__ x, const T* __restrict__ g, T step,
                                         T* __restrict__ out, I e, I d, I far) {
-  const Pack<T, V> self = load<T, V>(x + e);
+  Pack<T, V> self;
+  if constexpr (kOp != Op::kNeighborSum) self = load<T, V>(x + e);
   Pack<T, V> prev, next;
   if constexpr (kVecNbr) {
     prev = load<T, V>(x + (e >= d ? e - d : e + far));
@@ -166,42 +169,46 @@ __device__ __forceinline__ void stencil(const T* __restrict__ x, const T* __rest
     }
   }
   Pack<T, V> grad;
-  if constexpr (kStep) grad = load<T, V>(g + e);
+  if constexpr (kOp == Op::kStep) grad = load<T, V>(g + e);
   Pack<T, V> r;
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    const T mixed = Rn<T>::mul(Rn<T>::add(Rn<T>::add(self.v[j], prev.v[j]), next.v[j]),
-                               Rn<T>::third());
-    if constexpr (kStep) {
-      r.v[j] = Rn<T>::sub(mixed, Rn<T>::mul(step, grad.v[j]));
+    if constexpr (kOp == Op::kNeighborSum) {
+      r.v[j] = Rn<T>::add(prev.v[j], next.v[j]);
     } else {
-      r.v[j] = mixed;
+      const T mixed = Rn<T>::mul(Rn<T>::add(Rn<T>::add(self.v[j], prev.v[j]), next.v[j]),
+                                 Rn<T>::third());
+      if constexpr (kOp == Op::kStep) {
+        r.v[j] = Rn<T>::sub(mixed, Rn<T>::mul(step, grad.v[j]));
+      } else {
+        r.v[j] = mixed;
+      }
     }
   }
   store<T, V>(out + e, r);
 }
 
-template <typename T, typename I, Layout L, bool kStep>
+template <typename T, typename I, Layout L, Op kOp>
 __global__ void __launch_bounds__(kThreads)
 ring_stencil_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ eta,
                     T* __restrict__ out, I total, I d) {
   constexpr int V = L == Layout::kScalar ? 1 : Vec<T>::kWidth;
   const I far = total - d;
   T step = T(0);
-  if constexpr (kStep) step = __ldg(eta);
+  if constexpr (kOp == Op::kStep) step = __ldg(eta);
   const I first = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x;
   const I stride = static_cast<I>(gridDim.x) * kThreads;
   const I nvec = total / V;  // V is a power of two: a shift
   for (I v = first; v < nvec; v += stride) {
-    stencil<T, I, V, L == Layout::kVectorAligned, kStep>(x, g, step, out, v * V, d, far);
+    stencil<T, I, V, L == Layout::kVectorAligned, kOp>(x, g, step, out, v * V, d, far);
   }
   if constexpr (V > 1) {
     const I e = nvec * V + first;  // the last total % V elements
-    if (e < total) stencil<T, I, 1, false, kStep>(x, g, step, out, e, d, far);
+    if (e < total) stencil<T, I, 1, false, kOp>(x, g, step, out, e, d, far);
   }
 }
 
-template <typename T, Layout L, bool kStep>
+template <typename T, Layout L, Op kOp>
 void launch_stencil(const T* x, const T* g, const T* eta, T* out, int64_t total, int64_t d,
                     cudaStream_t stream) {
   constexpr int64_t V = L == Layout::kScalar ? 1 : Vec<T>::kWidth;
@@ -209,17 +216,17 @@ void launch_stencil(const T* x, const T* g, const T* eta, T* out, int64_t total,
   const int64_t wanted = (threads + kThreads - 1) / kThreads;
   const unsigned blocks = static_cast<unsigned>(wanted < max_blocks() ? wanted : max_blocks());
   if (total < (int64_t{1} << 31)) {
-    ring_stencil_kernel<T, uint32_t, L, kStep><<<blocks, kThreads, 0, stream>>>(
+    ring_stencil_kernel<T, uint32_t, L, kOp><<<blocks, kThreads, 0, stream>>>(
         x, g, eta, out, static_cast<uint32_t>(total), static_cast<uint32_t>(d));
   } else {
-    ring_stencil_kernel<T, uint64_t, L, kStep><<<blocks, kThreads, 0, stream>>>(
+    ring_stencil_kernel<T, uint64_t, L, kOp><<<blocks, kThreads, 0, stream>>>(
         x, g, eta, out, static_cast<uint64_t>(total), static_cast<uint64_t>(d));
   }
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename T, bool kStep>
+template <typename T, Op kOp>
 int launch_ring(const void* x, const void* g, const void* eta, void* out, int64_t n, int64_t d,
                 void* stream) {
   const int64_t total = n * d;
@@ -229,51 +236,13 @@ int launch_ring(const void* x, const void* g, const void* eta, void* out, int64_
     const T* te = static_cast<const T*>(eta);
     T* to = static_cast<T*>(out);
     const auto s = static_cast<cudaStream_t>(stream);
-    if (!aligned16(x) || !aligned16(out) || (kStep && !aligned16(g))) {
-      launch_stencil<T, Layout::kScalar, kStep>(tx, tg, te, to, total, d, s);
+    if (!aligned16(x) || !aligned16(out) || (kOp == Op::kStep && !aligned16(g))) {
+      launch_stencil<T, Layout::kScalar, kOp>(tx, tg, te, to, total, d, s);
     } else if (d % Vec<T>::kWidth == 0) {
-      launch_stencil<T, Layout::kVectorAligned, kStep>(tx, tg, te, to, total, d, s);
+      launch_stencil<T, Layout::kVectorAligned, kOp>(tx, tg, te, to, total, d, s);
     } else {
-      launch_stencil<T, Layout::kVector, kStep>(tx, tg, te, to, total, d, s);
+      launch_stencil<T, Layout::kVector, kOp>(tx, tg, te, to, total, d, s);
     }
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// --- ring_neighbor_sum: the first design, kept -------------------------------
-
-struct RingIndex {
-  int64_t self, prev, next;
-};
-
-__device__ __forceinline__ bool ring_index(int64_t n, int64_t d, RingIndex* r) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= n * d) return false;
-  const int64_t i = e / d;
-  const int64_t j = e - i * d;
-  r->self = e;
-  r->prev = ((i - 1 + n) % n) * d + j;
-  r->next = ((i + 1) % n) * d + j;
-  return true;
-}
-
-template <typename T>
-__global__ void ring_neighbor_sum_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n,
-                                         int64_t d) {
-  RingIndex r;
-  if (!ring_index(n, d, &r)) return;
-  out[r.self] = Rn<T>::add(x[r.prev], x[r.next]);
-}
-
-inline unsigned blocks_for(int64_t n, int64_t d) {
-  return static_cast<unsigned>((n * d + kThreads - 1) / kThreads);
-}
-
-template <typename T>
-int launch_neighbor_sum(const void* x, void* out, int64_t n, int64_t d, void* stream) {
-  if (n * d > 0) {
-    ring_neighbor_sum_kernel<T><<<blocks_for(n, d), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<T*>(out), n, d);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -286,23 +255,23 @@ extern "C" {
 
 int fused_ring_dsgd_step_f32(const void* x, const void* g, const void* eta, void* out, int64_t n,
                              int64_t d, void* stream) {
-  return launch_ring<float, true>(x, g, eta, out, n, d, stream);
+  return launch_ring<float, Op::kStep>(x, g, eta, out, n, d, stream);
 }
 int fused_ring_dsgd_step_f64(const void* x, const void* g, const void* eta, void* out, int64_t n,
                              int64_t d, void* stream) {
-  return launch_ring<double, true>(x, g, eta, out, n, d, stream);
+  return launch_ring<double, Op::kStep>(x, g, eta, out, n, d, stream);
 }
 int ring_mix_f32(const void* x, void* out, int64_t n, int64_t d, void* stream) {
-  return launch_ring<float, false>(x, nullptr, nullptr, out, n, d, stream);
+  return launch_ring<float, Op::kMix>(x, nullptr, nullptr, out, n, d, stream);
 }
 int ring_mix_f64(const void* x, void* out, int64_t n, int64_t d, void* stream) {
-  return launch_ring<double, false>(x, nullptr, nullptr, out, n, d, stream);
+  return launch_ring<double, Op::kMix>(x, nullptr, nullptr, out, n, d, stream);
 }
 int ring_neighbor_sum_f32(const void* x, void* out, int64_t n, int64_t d, void* stream) {
-  return launch_neighbor_sum<float>(x, out, n, d, stream);
+  return launch_ring<float, Op::kNeighborSum>(x, nullptr, nullptr, out, n, d, stream);
 }
 int ring_neighbor_sum_f64(const void* x, void* out, int64_t n, int64_t d, void* stream) {
-  return launch_neighbor_sum<double>(x, out, n, d, stream);
+  return launch_ring<double, Op::kNeighborSum>(x, nullptr, nullptr, out, n, d, stream);
 }
 int ring_launch_floor(void* stream) {
   empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();

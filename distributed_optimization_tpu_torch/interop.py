@@ -21,7 +21,8 @@ def state_from_reference(
     """The JAX package's state dict of ``[N, d]`` arrays as the port's
     tensors (contiguous copies on ``device`` in ``dtype``). D-SGD's state,
     with or without a Byzantine layer, is ``x`` alone: the attack and the
-    screen carry no state across iterations."""
+    screen carry no state across iterations. ADMM's is ``x``, the duals
+    ``alpha`` and the carried neighbour sum ``nbr_x`` (A x)."""
     if "x" not in state:
         raise ValueError("a state needs its per-worker models under 'x'")
     out = {}

@@ -13,21 +13,21 @@ For a CUDA tensor it launches the kernel of ``csrc/ring_kernels.cu`` on the
 current stream, or raises; for a CPU tensor it runs the plain PyTorch
 version beside it (``*_plain``), which the kernel matches bit for bit.
 
-``fused_ring_dsgd_step`` and ``ring_mix`` share one kernel, a flat stencil:
-on the row-major array, ``roll(x, ±1, 0)`` is a shift by ∓d over the N·d
-elements, wrapping at the ends, so element e reads e − d and e + d (each
-moved by N·d where it falls outside) with no integer division. A thread
-takes 4 float32 or 2 float64 elements as one 16-byte load and store; the
-neighbours are vectors too when d is a multiple of that width, else one
-scalar load per element, each with its own wrap. A tensor whose address is
-not 16-byte aligned (a view at an odd offset) takes the one-element
-instance of the same kernel. The grid fills the card once (8 blocks of 256
-a multiprocessor) and loops beyond that; indices are 32-bit below 2³¹
+The three share one kernel, a flat stencil: on the row-major array,
+``roll(x, ±1, 0)`` is a shift by ∓d over the N·d elements, wrapping at
+the ends, so element e reads e − d and e + d (each moved by N·d where it
+falls outside) with no integer division; ``ring_neighbor_sum`` reads only
+those two, the other two x_e as well. A thread takes 4 float32 or 2
+float64 elements as one 16-byte load and store; the neighbours are vectors
+too when d is a multiple of that width, else one scalar load per element,
+each with its own wrap. A tensor whose address is not 16-byte aligned (a
+view at an odd offset) takes the one-element instance of the same kernel.
+The grid takes up to 64 full waves (8 blocks of 256 a multiprocessor) and
+loops beyond that; stores are evict-first; indices are 32-bit below 2³¹
 elements and 64-bit above. The sums keep the plain version's order,
-``((x_e + x_prev) + x_next)·⅓`` then ``− (η·g_e)``, each rounded on its own.
-A tensor-core form would sum the three products in another order, so there
-is none. ``ring_neighbor_sum`` still runs the first kernel's design: one
-element a thread, neighbour rows from 64-bit division.
+``((x_e + x_prev) + x_next)·⅓`` then ``− (η·g_e)``, each rounded on its
+own, and ``x_prev + x_next`` for the neighbour sum. A tensor-core form
+would sum the three products in another order, so there is none.
 
 ``launch_floor`` launches an empty kernel through the same interface, so
 that a measurement can see what a launch alone costs; it counts nothing

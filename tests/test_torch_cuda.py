@@ -8,7 +8,7 @@ port's dependencies:
 
 (``--noconftest``: tests/conftest.py configures JAX). Ring kernels (at every
 vector-width residue of d and N·d, on misaligned views and past 2³¹
-elements) and the robust count rules are held bitwise; robust clipping to 1e-12 (rtol and
+elements, each of the three) and the robust count rules are held bitwise; robust clipping to 1e-12 (rtol and
 atol) in float64 and, in float32, to 1e-5 of the largest |x| over each
 row's closed neighbourhood; fc kernels to N·ε·max|x| of the plain version
 and bitwise to the mirror of their own summation order (ops/fc_kernels.py),
@@ -167,6 +167,47 @@ def test_cuda_ring_mix_past_2_to_the_31_elements(cuda_device):
     for i in (0, 1, edge - 1, edge, n - 1):
         rows = x[[(i - 1) % n, i, (i + 1) % n]]
         assert torch.equal(out[i], rk.ring_mix_plain(rows)[1]), f"row {i}"
+    del x, out
+    torch.cuda.empty_cache()
+
+
+# ring_neighbor_sum at each instance of the stencil: N=3 (every row at the
+# wrap), d % 4 == 0 ((3, 8), (5, 4), (4096, 1024)), d % 4 == 2 ((7, 6)), d
+# odd, the admm path's (256, 81), the robust cell's width and the
+# million-worker ring; each on an aligned tensor and on a view at storage
+# offset 1, which takes the one-element instance.
+NEIGHBOR_SUM_SHAPES = [(3, 1), (3, 8), (5, 4), (7, 6), (9, 7), (256, 41), (256, 81),
+                       (4096, 1024), (1_000_000, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", NEIGHBOR_SUM_SHAPES)
+def test_cuda_ring_neighbor_sum_bitwise_at_every_instance(cuda_device, shape, offset, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = _offset_view(shape, dtype, cuda_device, gen, offset)
+    assert (x.data_ptr() % 16 != 0) == (offset == 1)
+    rk.reset_launch_counts()
+    assert torch.equal(rk.ring_neighbor_sum(x), rk.ring_neighbor_sum_plain(x))
+    assert rk.LAUNCHES["ring_neighbor_sum"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_ring_neighbor_sum_past_2_to_the_31_elements(cuda_device):
+    # As for ring_mix: N·d = 2^31 + 2048 float32 elements, the 64-bit
+    # instance, held on the rows at the wrap and beside element 2^31.
+    d = 1024
+    n = (1 << 31) // d + 2
+    edge = (1 << 31) // d
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn((n, d), generator=gen, device=cuda_device, dtype=torch.float32)
+    rk.reset_launch_counts()
+    out = rk.ring_neighbor_sum(x)
+    assert rk.LAUNCHES["ring_neighbor_sum"] == 1
+    for i in (0, 1, edge - 1, edge, n - 1):
+        rows = x[[(i - 1) % n, i, (i + 1) % n]]
+        assert torch.equal(out[i], rk.ring_neighbor_sum_plain(rows)[1]), f"row {i}"
     del x, out
     torch.cuda.empty_cache()
 

@@ -7,6 +7,7 @@ to 1e-12 (rtol and atol), the repo's float64 parity convention.
 """
 
 import ast
+import dataclasses
 import json
 import pathlib
 
@@ -215,6 +216,40 @@ def test_cli_runs_one_experiment_on_the_cpu(capsys):
     assert np.isfinite(summary["final_gap"]) and summary["total_floats_transmitted"] == 8 * 2 * 11 * 100
     for key in ("iterations_to_threshold", "final_consensus", "iters_per_second"):
         assert key in summary
+
+
+@pytest.mark.parametrize("flags, expected", [
+    (["--lr-schedule", "constant"], {"lr_schedule": "constant"}),
+    (["--classification-sep", "1.2"], {"classification_sep": 1.2}),
+    (["--algorithm", "admm", "--admm-rho", "2.0"], {"algorithm": "admm", "admm_rho": 2.0}),
+], ids=["lr-schedule", "classification-sep", "admm"])
+def test_cli_flags_reach_the_run_as_in_the_reference(flags, expected, capsys):
+    """Each flag the JAX CLI has and the port's config reads, through the
+    port's ``main``, against ``jax_backend.run`` with the same fields. Full
+    batch (b >= L) draws no batches, so both packages take the same steps;
+    both runs measure the gap from the port's f*."""
+    from distributed_optimization_tpu_torch.__main__ import build_parser, config_from_args
+    from distributed_optimization_tpu_torch.utils.data import generate_synthetic_dataset
+    from distributed_optimization_tpu_torch.utils.oracle import compute_reference_optimum
+
+    argv = ["--device", "cpu", "--problem-type", "logistic", "--n-workers", "8",
+            "--n-samples", "400", "--n-features", "10", "--n-informative-features", "6",
+            "--n-iterations", "50", "--local-batch-size", "64", "--dtype", "float64",
+            *flags]
+    cfg = config_from_args(build_parser().parse_args(argv))
+    assert {k: getattr(cfg, k) for k in expected} == expected
+    assert cli_main([*argv, "--json"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    ref_cfg = RefConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+                           if f.name in {g.name for g in dataclasses.fields(RefConfig)}})
+    ds = ref_generate(ref_cfg)
+    _, f_opt = compute_reference_optimum(generate_synthetic_dataset(cfg), cfg.reg_param)
+    ref = jax_backend.run(ref_cfg, ds, f_opt, use_mesh=False)
+    np.testing.assert_allclose(summary["final_gap"], ref.history.objective[-1], **TOL)
+    np.testing.assert_allclose(summary["final_consensus"], ref.history.consensus_error[-1], **TOL)
+    assert summary["total_floats_transmitted"] == ref.total_floats_transmitted
+    assert summary["algorithm"] == cfg.algorithm
 
 
 def _imports(path: pathlib.Path):

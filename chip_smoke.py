@@ -16,7 +16,11 @@ Phases:
    one PyTorch library call computing the same function where there is one,
    and the bytes-or-operations bound; first the launch floor, an empty
    kernel through the same ctypes interface and a one-element ``torch.neg``,
-   timed the same way (each record carries it as ``floor_ms``):
+   timed the same way (each record carries it as ``floor_ms``, and the
+   empty kernel's time a launch inside a CUDA graph as ``graph_floor_ms``);
+   at each kernel's path shape in float32, also the median time a launch
+   takes inside a captured CUDA graph of 200 launches (``graph_ms``), as
+   the run loop launches it:
    - ring kernels, bitwise, at N=256, d=81 (the main path), N=256, d=41 (the
      robust cell's benign mix), the JAX package's d-sweep at N=256 (d=128,
      256, 512, 1024), N=4096, d=1024 and the million-worker ring N=1,000,000,
@@ -47,15 +51,21 @@ Phases:
    counter-based sampler gives both the same batches.
 4. parity: the reference study's N=25 ring (logistic, T=10,000, float32,
    ``mixing_impl='pallas'``) must reach ε=0.08 within T; the fused kernel
-   must launch exactly T times.
+   must launch exactly T times. The same run with
+   ``measure_timestamps=True`` (the chunks from the host, no CUDA graph)
+   must give bitwise the graph run's gap history, final models and launch
+   counts; both runs' iters/s are printed.
 5. main: the N=256 ring (dense-weights sampling, eval every iteration,
    T=30,000) with ``mixing_impl='pallas'`` and with ``'stencil'``; each must
-   stay finite, cross ε=0.08 within T and end with consensus below 1.0.
+   stay finite, cross ε=0.08 within T and end with consensus below 1.0;
+   and the pallas run with ``measure_timestamps=True``, bitwise as in
+   parity.
 6. mixing: the pallas ``MixingOp`` (``ring_mix``, ``ring_neighbor_sum``)
    applied to the main run's final models, against the dense W and A.
 7. fc: the reference study's fully-connected N=25 row (T=10,000, float32,
    ``mixing_impl='pallas'``): ε=0.08 within T, ``fc_mix`` launched exactly
-   T times, and the stencil run's gap history within 1e-3 relative (float32
+   T times, bitwise its ``measure_timestamps=True`` run as in parity, and
+   the stencil run's gap history within 1e-3 relative (float32
    rounding of two summation orders, accumulated over T steps); the same
    pair in float64 within 1e-10 relative, which shows that rounding is the
    whole of the float32 difference.
@@ -68,27 +78,42 @@ Phases:
    other ring or fc kernel; the ring pair's gap histories bitwise equal, the
    fc pair's within 1e-3 relative. The JAX package's CPU figures are printed
    beside (``ADMM_REFERENCE``), not gated on.
-9. byzantine: the JAX package's breakdown demonstration
+9. study: the eight rows of ``examples/reproduce_report.py`` (the
+   reference study's Tables I and II) with that script's config defaults:
+   N=25, T=10,000, b=16, η₀=0.05/√(t+1), λ=1e-4, sorted partition,
+   ε=0.08, float32; centralized SGD and D-SGD on the ring, the periodic
+   5 × 5 grid and the fully-connected graph, for logistic and quadratic.
+   Every row crosses ε within T; floats transmitted are exactly 4.05e7
+   (centralized, ring), 8.1e7 (grid) and 4.86e8 (fully connected); each run
+   leaves the card's allocated memory as it found it. Printed beside each
+   row: the published count and the JAX package's
+   (``docs/perf/report_reproduction.json``).
+10. byzantine: the JAX package's breakdown demonstration
    (``examples/bench_byzantine.py``: N=64 ring, full batch, T=4,000,
    float32, fused screens) with its gates, each final honest gap within 1%
    of ``docs/perf/byzantine.json``.
-10. robust: the N=256 ring of ``examples/bench_fused_robust.py`` (d=41,
+11. robust: the N=256 ring of ``examples/bench_fused_robust.py`` (d=41,
    b=16, T=5,000, sign-flip by 12 workers): plain gossip must diverge or
    end 10× above attack-free, every screen within 2× of attack-free; the
    fused robust step launches exactly T times in each fused run and never
    in the gather run, whose trimmed-mean history must agree with the fused
    one to 1e-6 relative.
-11. robust_mixing: the fused aggregator through the Byzantine mix on the
+12. robust_mixing: the fused aggregator through the Byzantine mix on the
     robust run's final models, for each rule, against the gather form and
     the numpy oracle; and the pallas ``MixingOp`` on the fully-connected
     graph (``fc_mix``, ``fc_neighbor_sum``) against the dense W and A.
 
-Each phase that drives a path sets the launch counts to 0 just before it
-and reads them just after; converging and screened runs print a sha256
-digest of their gap history, so two trees run in one call can be shown to
-give bitwise-equal histories. On request, ``profile`` traces 300
-iterations of the main path, of the admm phase's ring and of the robust
-cell's fused trimmed-mean run with ``torch.profiler``; ``ring_ab``
+Every run goes through the port's run loop: after a warm-up chunk, CUDA
+graph replays (``backends/torch_backend.py``). The kernels count their own
+launches on the card, replays included (``csrc/launch_counts.cuh``). Each
+phase that drives a path sets the launch counts to 0 just before it and
+reads them just after; converging and screened runs print a sha256 digest of their gap
+history, so two trees run in one call can be shown to give bitwise-equal
+histories. On request, ``profile`` traces 300 iterations of the main path,
+of the admm phase's ring and of the robust cell's fused trimmed-mean run
+with ``torch.profiler``, each as the graph run and as the
+``measure_timestamps=True`` run, over the iterations after the warm-up
+chunk; ``ring_ab``
 (``--phases card,ring_ab --baseline PATH``) holds the three ring kernels
 against the same kernels built from another ``ring_kernels.cu``, bitwise,
 and times both at every ring shape in turns (baseline, this tree, this
@@ -122,9 +147,10 @@ import sys
 import time
 
 PHASES = ("card", "kernels", "reference", "parity", "main", "mixing", "fc", "admm",
-          "byzantine", "robust", "robust_mixing")
+          "study", "byzantine", "robust", "robust_mixing")
 # Run only when asked for: profile, a torch.profiler trace of the main
-# path's, the admm ring's and the robust cell's steady loops; ring_ab (with
+# path's, the admm ring's and the robust cell's steady loops, graph and
+# measured; ring_ab (with
 # --baseline), the three ring kernels against another build of
 # ring_kernels.cu; robust_ab (with --robust-baseline), the fused robust
 # kernels against another build of robust_kernels.cu; fc_ab (with --fc-baseline), the fc
@@ -194,6 +220,20 @@ OPS_PER_ELEMENT = {"fused_ring_dsgd_step": 4, "ring_mix": 3, "ring_neighbor_sum"
 SCREENS = (("trimmed_mean", 0.0), ("median", 0.0), ("clipped_gossip", 0.0),
            ("clipped_gossip", 0.5))
 
+# The study phase's rows (examples/reproduce_report.py): (problem, label)
+# -> (algorithm, topology, published iterations to ε (BASELINE.md), the JAX
+# package's (docs/perf/report_reproduction.json), floats transmitted).
+STUDY_ROWS = {
+    ("logistic", "Centralized SGD"): ("centralized", "ring", 9_641, 9_592, 4.05e7),
+    ("logistic", "D-SGD (ring)"): ("dsgd", "ring", 9_927, 9_910, 4.05e7),
+    ("logistic", "D-SGD (grid)"): ("dsgd", "grid", 9_636, 9_622, 8.1e7),
+    ("logistic", "D-SGD (fully connected)"): ("dsgd", "fully_connected", 9_596, 9_607, 4.86e8),
+    ("quadratic", "Centralized SGD"): ("centralized", "ring", 5_425, 5_394, 4.05e7),
+    ("quadratic", "D-SGD (ring)"): ("dsgd", "ring", 7_214, 7_136, 4.05e7),
+    ("quadratic", "D-SGD (grid)"): ("dsgd", "grid", 5_666, 5_552, 8.1e7),
+    ("quadratic", "D-SGD (fully connected)"): ("dsgd", "fully_connected", 5_549, 5_526, 4.86e8),
+}
+
 # The JAX package's float32 final honest gaps at the byzantine phase's
 # configuration (docs/perf/byzantine.json, written by
 # examples/bench_byzantine.py on a CPU); signflip_plain diverges there.
@@ -237,6 +277,30 @@ def time_ms(torch, fn, n: int = TIMED_LAUNCHES) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def graph_ms(torch, fn, n: int = TIMED_LAUNCHES, replays: int = 11) -> float:
+    """Median time of one call of ``fn`` inside a CUDA graph of ``n`` calls,
+    as the run loop launches a kernel: the graph captured once, then timed
+    by CUDA events around each of ``replays`` replays, over ``n``."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    graph.reset()
+    return statistics.median(times)
 
 
 def wall_ms(torch, fn, n: int = TIMED_LAUNCHES) -> float:
@@ -360,6 +424,15 @@ def _ring_calls(torch, rk, name, x, g, eta, W, A):
             lambda: torch.matmul(A, x))
 
 
+def _in_graph(torch, name, kernel, ms, b_ms):
+    """The kernel's time a launch inside a captured graph (printed beside
+    its event-timed time and bound); returns it in ms."""
+    in_graph = graph_ms(torch, kernel)
+    say(f"[kernels] {name:30s} in a graph of {TIMED_LAUNCHES} launches: {in_graph * 1e3:.3f} us "
+        f"a launch (event-timed {ms * 1e3:.3f} us, bound {b_ms * 1e3:.4f} us)")
+    return in_graph
+
+
 def _kernel_line(name, shape, dname, err, ms, plain_ms, lib_ms, b_ms, b_by, extra=""):
     lib = "library         —   " if lib_ms is None else f"library {lib_ms * 1e3:9.3f} us"
     say(f"[kernels] {name:30s} {shape} {dname}: max_abs_err {err:.3e} "
@@ -415,7 +488,8 @@ def kernels_ring(torch, rk, topology, gen, records, floor_ms):
                              extra=f" ({form})  floor +{(ms - floor_ms) * 1e3:.3f} us, "
                                    f"bound/kernel {b_ms / ms:.1%}")
                 if (n, d) == MAIN_SHAPE and dtype == torch.float32:
-                    records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, lib_ms)
+                    records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, lib_ms,
+                                            graph_ms=_in_graph(torch, name, kernel, ms, b_ms))
 
 
 def _fc_calls(torch, fk, name, x):
@@ -464,7 +538,8 @@ def kernels_fc(torch, fk, topology, gen, records, floor_ms):
                                    f"plan {plan.describe()}")
                 if (n, d) == FC_RECORD_SHAPE and dtype == torch.float32:
                     records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, lib_ms,
-                                            plan=plan.describe())
+                                            plan=plan.describe(),
+                                            graph_ms=_in_graph(torch, name, kernel, ms, b_ms))
 
 
 def k15_table(np, topology, n: int, dead: float, seed: int):
@@ -543,7 +618,8 @@ def kernels_robust(torch, np, bk, topology, gather_factory, records):
                                  extra=f"  gather form (multi-op) {gather_ms * 1e3:9.3f} us")
                     if (label, rule, ct, dtype) == (*ROBUST_RECORD, 0.0, torch.float32):
                         records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, None,
-                                                gather_ms=gather_ms)
+                                                gather_ms=gather_ms,
+                                                graph_ms=_in_graph(torch, name, kernel, ms, b_ms))
 
 
 def phase_kernels(torch, np, kernels, topology, gather_factory):
@@ -551,13 +627,17 @@ def phase_kernels(torch, np, kernels, topology, gather_factory):
     records = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     floor_ms, op_ms = launch_floor(torch, kernels["rk"])
-    say(f"[kernels] launch floor: empty kernel through ctypes {floor_ms * 1e3:.3f} us, "
+    one = torch.zeros(1, device="cuda")
+    floor_graph_ms = graph_ms(torch, lambda: kernels["rk"].launch_floor(one.device))
+    say(f"[kernels] launch floor: empty kernel through ctypes {floor_ms * 1e3:.3f} us "
+        f"({floor_graph_ms * 1e3:.3f} us a launch in a graph of {TIMED_LAUNCHES}), "
         f"one-element torch.neg {op_ms * 1e3:.3f} us")
     kernels_ring(torch, kernels["rk"], topology, gen, records, floor_ms)
     kernels_fc(torch, kernels["fk"], topology, gen, records, floor_ms)
     kernels_robust(torch, np, kernels["bk"], topology, gather_factory, records)
     say(f"[kernels] ported kernels: {', '.join(records)}")
-    return {name: {**record, "floor_ms": floor_ms} for name, record in records.items()}
+    return {name: {**record, "floor_ms": floor_ms, "graph_floor_ms": floor_graph_ms}
+            for name, record in records.items()}
 
 
 def phase_ring_ab(torch, rk, build, baseline: str):
@@ -766,20 +846,25 @@ def phase_reference(torch, pkg, rk, bk):
                pkg.run(rcfg, ds, f_opt, device="cpu"))
 
 
-def _converging_run(torch, pkg, counters, cfg, ds, f_opt, label):
+def _converging_run(torch, pkg, counters, cfg, ds, f_opt, label, measure_timestamps=False):
     for c in counters:
         c.reset_launch_counts()
-    res = pkg.run(cfg, ds, f_opt, device="cuda")
+    t0 = time.perf_counter()
+    res = pkg.run(cfg, ds, f_opt, device="cuda", measure_timestamps=measure_timestamps)
+    wall = time.perf_counter() - t0
     launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
     h = res.history
     crossed = pkg.iterations_to_threshold(h.objective, cfg.suboptimality_threshold,
                                           h.eval_iterations)
     import numpy as np
 
-    say(f"[{label}] N={cfg.n_workers} T={cfg.n_iterations} {cfg.topology} {cfg.mixing_impl}: "
+    loop = "measured chunk loop" if measure_timestamps else "graph"
+    say(f"[{label}] N={cfg.n_workers} T={cfg.n_iterations} {cfg.topology} {cfg.mixing_impl} "
+        f"({loop}): "
         f"iters-to-{cfg.suboptimality_threshold} = {crossed}, final gap {h.objective[-1]:.6f}, "
         f"consensus {h.consensus_error[-1]:.3e}, {h.iters_per_second:.1f} iters/s "
-        f"(warm-up {h.compile_seconds:.2f} s), kernel launches {launches}, "
+        f"(warm-up and capture {h.compile_seconds:.2f} s, whole run {wall:.2f} s, "
+        f"{cfg.n_iterations / wall:.1f} iters/s over it), kernel launches {launches}, "
         f"gap history sha256 {_digest(np, h.objective)}")
 
     check(h.objective.shape == (cfg.n_iterations // cfg.eval_every,), "gap history has the wrong shape")
@@ -789,18 +874,35 @@ def _converging_run(torch, pkg, counters, cfg, ds, f_opt, label):
     return res, launches
 
 
-def phase_parity(torch, pkg, rk):
+def _graph_equals_measured(torch, np, pkg, counters, cfg, ds, f_opt, label, graph, launches):
+    """The same run with ``measure_timestamps=True`` (no graph): its gap
+    history, final models and launch counts bitwise the graph run's."""
+    measured, counted = _converging_run(torch, pkg, counters, cfg, ds, f_opt, label,
+                                        measure_timestamps=True)
+    same = (np.array_equal(graph.history.objective, measured.history.objective)
+            and np.array_equal(graph.final_models, measured.final_models))
+    say(f"[{label}] graph run vs measured chunk loop: gap history and final models "
+        f"{'bitwise equal' if same else 'DIFFER'}, launches {launches} vs {counted}; iters/s "
+        f"graph {graph.history.iters_per_second:.1f}, measured "
+        f"{measured.history.iters_per_second:.1f} "
+        f"({graph.history.iters_per_second / measured.history.iters_per_second:.2f}x)")
+    check(same, f"{label}: the graph run is not bitwise its measure_timestamps=True run")
+    check(counted == launches, f"{label}: launch counts {launches} (graph) vs {counted}")
+
+
+def phase_parity(torch, np, pkg, rk):
     cfg = pkg.ExperimentConfig(problem_type="logistic", algorithm="dsgd", topology="ring",
                                mixing_impl="pallas", dtype="float32", eval_every=1)
     ds = pkg.generate_synthetic_dataset(cfg)
     _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
-    _, launches = _converging_run(torch, pkg, [rk], cfg, ds, f_opt, "parity")
+    res, launches = _converging_run(torch, pkg, [rk], cfg, ds, f_opt, "parity")
     say("[parity] reference Table I: 9927 iterations")
     check(launches["fused_ring_dsgd_step"] == cfg.n_iterations,
           f"fused kernel launched {launches['fused_ring_dsgd_step']} times, not T")
+    _graph_equals_measured(torch, np, pkg, [rk], cfg, ds, f_opt, "parity", res, launches)
 
 
-def phase_main(torch, pkg, rk, T):
+def phase_main(torch, np, pkg, rk, T):
     cfg = pkg.ExperimentConfig(problem_type="logistic", algorithm="dsgd", topology="ring",
                                n_workers=256, n_iterations=T, mixing_impl="pallas",
                                dtype="float32", eval_every=1)
@@ -817,6 +919,8 @@ def phase_main(torch, pkg, rk, T):
             launches = counted
             check(counted["fused_ring_dsgd_step"] == T,
                   f"fused kernel launched {counted['fused_ring_dsgd_step']} times, not T={T}")
+            _graph_equals_measured(torch, np, pkg, [rk], cfg.replace(mixing_impl=impl), ds,
+                                   f_opt, "main", res, counted)
     gap_diff = float(abs(runs["pallas"].history.objective - runs["stencil"].history.objective).max())
     say(f"[main] sampling dense (L={max(len(s) for s in ds.shard_indices)}), T={T}: "
         f"largest |gap(pallas) - gap(stencil)| = {gap_diff:.3e}")
@@ -855,6 +959,7 @@ def phase_fc(torch, np, pkg, fk):
     say("[fc] reference Table I (fully connected): 9596 iterations")
     check(launches["fc_mix"] == cfg.n_iterations,
           f"fc_mix launched {launches['fc_mix']} times, not T={cfg.n_iterations}")
+    _graph_equals_measured(torch, np, pkg, [fk], cfg, ds, f_opt, "fc", pallas, launches)
     stencil, _ = _converging_run(torch, pkg, [fk], cfg.replace(mixing_impl="stencil"), ds,
                                  f_opt, "fc")
     rel = _relative_gap_diff(np, pallas, stencil)
@@ -929,6 +1034,43 @@ def phase_admm(torch, np, pkg, rk, fk, T=ADMM_ITERATIONS):
     return launches
 
 
+def phase_study(torch, np, pkg):
+    """The eight rows of ``examples/reproduce_report.py`` at its config
+    defaults (the port's ``ExperimentConfig`` defaults: N=25, T=10,000,
+    b=16, η₀=0.05/√(t+1), λ=1e-4, sorted, ε=0.08, float32, mixing 'auto'),
+    one dataset and optimum per problem. Gates: each row crosses ε within T,
+    its floats transmitted are exactly the published count, and the run
+    leaves the card's allocated memory as it found it."""
+    data = {}
+    for (problem, label), (algorithm, topology, published, jax_iters, floats) in \
+            STUDY_ROWS.items():
+        cfg = pkg.ExperimentConfig(problem_type=problem, algorithm=algorithm, topology=topology)
+        if problem not in data:
+            ds = pkg.generate_synthetic_dataset(cfg)
+            data[problem] = (ds, pkg.compute_reference_optimum(ds, cfg.reg_param)[1])
+        ds, f_opt = data[problem]
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        res = pkg.run(cfg, ds, f_opt, device="cuda")
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - allocated
+        h = res.history
+        crossed = pkg.iterations_to_threshold(h.objective, cfg.suboptimality_threshold,
+                                              h.eval_iterations)
+        say(f"[study] {problem:9s} {label:24s} iters-to-{cfg.suboptimality_threshold} "
+            f"{crossed:6d}  published {published:6d} ({(crossed - published) / published:+.2%})"
+            f"  JAX package {jax_iters:6d} ({(jax_iters - published) / published:+.2%})  "
+            f"floats {h.total_floats_transmitted:.4g}  {h.iters_per_second:.1f} iters/s "
+            f"(warm-up and capture {h.compile_seconds:.2f} s), final gap {h.objective[-1]:.6f}, "
+            f"gap history sha256 {_digest(np, h.objective)}")
+        check(h.total_floats_transmitted == floats,
+              f"study {problem} {label}: {h.total_floats_transmitted} floats, not {floats}")
+        check(bool(np.all(np.isfinite(h.objective))), f"study {problem} {label}: non-finite gaps")
+        check(0 < crossed <= cfg.n_iterations,
+              f"study {problem} {label}: never reached ε within T={cfg.n_iterations}")
+        check(left == 0, f"study {problem} {label}: the run left {left} bytes allocated")
+
+
 def _screened_runs(pkg, rows, ds, f_opt, counters, label):
     """Run each named config; returns {name: (result, launches)}."""
     import numpy as np
@@ -937,13 +1079,16 @@ def _screened_runs(pkg, rows, ds, f_opt, counters, label):
     for name, cfg in rows.items():
         for c in counters:
             c.reset_launch_counts()
+        t0 = time.perf_counter()
         res = pkg.run(cfg, ds, f_opt, device="cuda")
+        wall = time.perf_counter() - t0
         launches = {k: v for c in counters for k, v in c.LAUNCHES.items() if v}
         h = res.history
         gap = float(h.objective[-1])
         say(f"[{label}] {name:24s} final honest gap {gap:.6f} "
             f"({'diverged' if not np.isfinite(gap) else 'finite'}), honest consensus "
-            f"{float(h.consensus_error[-1]):.3e}, {h.iters_per_second:.1f} iters/s, "
+            f"{float(h.consensus_error[-1]):.3e}, {h.iters_per_second:.1f} iters/s "
+            f"(warm-up and capture {h.compile_seconds:.2f} s, whole run {wall:.2f} s), "
             f"launches {launches}, gap history sha256 {_digest(np, h.objective)}")
         out[name] = (res, launches)
     return out
@@ -1096,42 +1241,68 @@ def phase_robust_mixing(torch, np, pkg, kernels, final_models):
     return launches
 
 
-def _profile_run(torch, pkg, cfg, label, T):
+def _profile_window(torch, prof, steady):
+    """Device operations inside the run loop's steady range (the iterations
+    after the warm-up chunk): (events, start, end) in µs. The profiler
+    mirrors the range onto the device's track as an annotation, which is
+    no operation and is left out."""
+    cuda = torch.autograd.DeviceType.CUDA
+    loop = [e for e in prof.events()
+            if e.name == steady and e.device_type == torch.autograd.DeviceType.CPU]
+    check(len(loop) == 1, f"the profile holds {len(loop)} host ranges named {steady}")
+    lo, hi = loop[0].time_range.start, loop[0].time_range.end
+    device = [e for e in prof.events() if e.device_type == cuda and e.name != steady
+              and lo <= e.time_range.start and e.time_range.end <= hi]
+    return device, lo, hi
+
+
+def _profile_run(torch, pkg, steady, cfg, label, T):
+    """The graph run and the measured chunk loop of ``cfg`` under
+    torch.profiler: device operations, busy µs and busy share over the
+    iterations after the warm-up chunk."""
     from torch.profiler import ProfilerActivity, profile
 
     ds = pkg.generate_synthetic_dataset(cfg)
     _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
-    pkg.run(cfg, ds, f_opt, device="cuda")  # warm: kernels built, caches filled
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = pkg.run(cfg, ds, f_opt, device="cuda")
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(len(device) > 0, "the profiler recorded no device activity")
-    start = min(e.time_range.start for e in device)
-    end = max(e.time_range.end for e in device)
-    busy = sum(e.time_range.elapsed_us() for e in device)
-    by_name = {}
-    for e in device:
-        total, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    say(f"[profile] {label} T={T}: {len(device) / T:.1f} device ops/iteration, "
-        f"device busy {busy / (end - start):.3f} of {(end - start) / T:.1f} us/iteration "
-        f"({busy / T:.1f} us busy), {res.history.iters_per_second:.1f} iters/s under the profiler")
-    for name, (total, count) in top:
-        say(f"[profile]   {total / T:8.2f} us/iteration  {count / T:5.1f}/iteration  {name[:90]}")
+    steps = T - cfg.eval_every
+    for measure in (False, True):
+        pkg.run(cfg, ds, f_opt, device="cuda", measure_timestamps=measure)  # warm
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = pkg.run(cfg, ds, f_opt, device="cuda", measure_timestamps=measure)
+        device, lo, hi = _profile_window(torch, prof, steady)
+        loop = "measured chunk loop" if measure else "graph replays"
+        if not device:
+            say(f"[profile] {label} T={T} {loop}: the profiler recorded no device activity "
+                f"in the steady loop; not measured")
+            continue
+        start = min(e.time_range.start for e in device)
+        end = max(e.time_range.end for e in device)
+        busy = sum(e.time_range.elapsed_us() for e in device)
+        by_name = {}
+        for e in device:
+            total, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        say(f"[profile] {label} T={T} {loop}: {len(device) / steps:.1f} device ops/iteration, "
+            f"device busy {busy / (hi - lo):.3f} of {(hi - lo) / steps:.1f} us/iteration "
+            f"({busy / steps:.1f} us busy; first to last device op {(end - start) / steps:.1f} "
+            f"us/iteration), {res.history.iters_per_second:.1f} iters/s under the profiler")
+        for name, (total, count) in top:
+            say(f"[profile]   {total / steps:8.2f} us/iteration  {count / steps:5.1f}/iteration"
+                f"  {name[:90]}")
 
 
-def phase_profile(torch, pkg, T: int = 300):
+def phase_profile(torch, pkg, steady, T: int = 300):
     for algorithm in ("dsgd", "admm"):
         for impl in ("pallas", "stencil"):
             cfg = pkg.ExperimentConfig(problem_type="logistic", algorithm=algorithm,
                                        n_workers=256, n_iterations=T, mixing_impl=impl,
                                        dtype="float32", eval_every=1)
-            _profile_run(torch, pkg, cfg, f"{algorithm} N=256 {impl}", T)
+            _profile_run(torch, pkg, steady, cfg, f"{algorithm} N=256 {impl}", T)
     cfg = robust_config(pkg, T).replace(attack="sign_flip", n_byzantine=12, attack_scale=5.0,
                                         aggregation="trimmed_mean", robust_b=1,
                                         robust_impl="fused")
-    _profile_run(torch, pkg, cfg, "robust N=256 sign_flip trimmed_mean fused", T)
+    _profile_run(torch, pkg, steady, cfg, "robust N=256 sign_flip trimmed_mean fused", T)
 
 
 def main(argv=None) -> int:
@@ -1191,11 +1362,11 @@ def main(argv=None) -> int:
         phase_reference(torch, pkg, rk, bk)
         lap("reference")
     if "parity" in phases:
-        phase_parity(torch, pkg, rk)
+        phase_parity(torch, np, pkg, rk)
         lap("parity")
     counted = {}
     if "main" in phases:
-        main_res, launches = phase_main(torch, pkg, rk, MAIN_ITERATIONS)
+        main_res, launches = phase_main(torch, np, pkg, rk, MAIN_ITERATIONS)
         counted["fused_ring_dsgd_step"] = launches
         lap("main")
         if "mixing" in phases:
@@ -1206,6 +1377,9 @@ def main(argv=None) -> int:
     if "admm" in phases:
         counted.update(phase_admm(torch, np, pkg, rk, fk))
         lap("admm")
+    if "study" in phases:
+        phase_study(torch, np, pkg)
+        lap("study")
     if "byzantine" in phases:
         phase_byzantine(np, pkg, bk)
         lap("byzantine")
@@ -1218,7 +1392,9 @@ def main(argv=None) -> int:
                 torch, np, pkg, kernels, robust_models)
 
     if "profile" in phases:
-        phase_profile(torch, pkg)
+        from distributed_optimization_tpu_torch.backends.torch_backend import STEADY_LOOP
+
+        phase_profile(torch, pkg, STEADY_LOOP)
         lap("profile")
     if "ring_ab" in phases:
         phase_ring_ab(torch, rk, _cuda_build, args.baseline)

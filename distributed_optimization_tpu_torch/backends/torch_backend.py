@@ -2,29 +2,57 @@
 
 The port of the unsharded, fault-free run loop of
 ``distributed_optimization_tpu/backends/jax_backend.py`` (``_run``,
-``_make_step_eval`` and ``_bind_byzantine``). One iteration is: per-worker
-mini-batch sampling → per-worker closed-form gradients → gossip (or the
-fused ring kernel; under Byzantine injection the corrupt → screen → mix
-composition, or the fused robust kernel) → step; ADMM's step exchanges the
-neighbour sum A x instead of W x. The loop is a Python loop of asynchronous
-launches: the per-eval suboptimality gap and consensus error are written
-into preallocated device tensors, and the host fetches them once, after
-the last iteration. Nothing inside the loop synchronises with the device.
+``_make_step_eval``, ``make_chunk`` and ``_bind_byzantine``). One iteration
+is: per-worker mini-batch sampling → per-worker closed-form gradients →
+gossip (or the fused ring kernel; under Byzantine injection the corrupt →
+screen → mix composition, or the fused robust kernel) → step; ADMM's step
+exchanges the neighbour sum A x instead of W x.
 
-Timing: the algorithm's init and iteration 0 are the warm-up. They build
-the CUDA kernels when the run uses them, and their time, synchronised, is
-``compile_seconds``. ``iters_per_second`` counts iterations 1..T−1 between
-two ``torch.cuda.synchronize()`` calls.
+The run is a sequence of chunks, the counterpart of the JAX package's scan
+over eval chunks: one chunk runs ``eval_every`` iterations and then writes
+the suboptimality gap and consensus error into preallocated device
+tensors. The iteration counter ``t`` and the eval slot ``k`` are int64
+device tensors of one element that the chunk advances in place, so a
+chunk's work does not depend on the host: the same function runs every
+chunk. The host fetches the histories once, after the last chunk.
+
+- On the CPU, the run calls the chunk function chunk after chunk.
+- On a card, the first chunk runs eagerly on a side stream as the warm-up
+  (it builds the CUDA kernels and any lazy state). Then one chunk is
+  captured on that stream as a CUDA graph, and the chunks left run only as
+  its replays, one a chunk. Every chunk does the same work, so one graph
+  serves them all. The state lives in static buffers that the graph's
+  last operations write back into, so replays chain. A capture that fails
+  raises; nothing falls back to an eager loop. (Graphs of 64 iterations
+  replayed as often, with a smaller graph for the rest, ran the main path
+  no faster at eval every iteration and took 0.3–0.4 s longer to capture;
+  PERF.md §6.)
+- ``measure_timestamps=True`` drives the same chunk function from the host
+  with no graph, synchronising after each chunk, and records a real
+  ``perf_counter`` time per eval (the JAX package's measured chunk loop).
+  It is the bitwise reference of the graph run.
+
+The kernels count their own launches on the card (``LAUNCHES`` of
+``ops/*_kernels.py``), so each replay counts each launch it holds, and the
+run loop keeps no count of its own.
+
+Timing: ``compile_seconds`` covers the algorithm's init, the warm-up chunk
+and the capture, synchronised. ``iters_per_second`` counts the
+iterations after the warm-up chunk (the replays, or the eager chunks)
+between two ``torch.cuda.synchronize()`` calls. A run releases its graph
+and its memory pool when it returns.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.profiler
 
 from distributed_optimization_tpu_torch.algorithms import get_algorithm
 from distributed_optimization_tpu_torch.algorithms.base import Algorithm, StepContext
@@ -67,6 +95,9 @@ from distributed_optimization_tpu_torch.utils.data import HostDataset, stack_sha
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
+# The profiler range around the iterations after the warm-up chunk.
+STEADY_LOOP = "torch_backend.steady_loop"
+
 
 def make_full_objective_fn(problem, reg: float):
     """Full-dataset objective of one model ``w [d]`` over the stacked
@@ -102,7 +133,7 @@ class _Program:
 
     algo: Algorithm
     config: object
-    grad_for: Callable[[int], Callable]
+    grad_for: Callable[[torch.Tensor], Callable]
     mix_op: Optional[MixingOp]
     fused_mix_step: Optional[Callable]
     eta: torch.Tensor  # [T]
@@ -111,7 +142,9 @@ class _Program:
     data: tuple
     byz: Optional["Byzantine"] = None
 
-    def step(self, state, t: int):
+    def step(self, state, t: torch.Tensor):
+        """One iteration at the counter ``t`` (an int64 tensor of one
+        element on the run's device)."""
         if self.byz is not None:
             mix, nbr = self.byz.mix, self.byz.neighbor_sum
         elif self.mix_op is not None:
@@ -120,7 +153,7 @@ class _Program:
             mix, nbr = (lambda v: v), (lambda v: v * 0)
         ctx = StepContext(
             grad=self.grad_for(t), mix=mix, neighbor_sum=nbr,
-            eta=self.eta[t:t + 1], degrees=self.degrees, config=self.config,
+            eta=self.eta.index_select(0, t), degrees=self.degrees, config=self.config,
             fused_mix_step=self.fused_mix_step,
         )
         return self.algo.step(state, ctx)
@@ -232,10 +265,10 @@ def _make_grad_factory(problem, reg, config, X, y, n_valid, schedule, sampling_i
         fmask = (torch.arange(L, device=X.device)[None, :] < n_valid[:, None]).to(X.dtype)
         full_wts = fmask / torch.clamp(n_valid[:, None].to(X.dtype), min=1.0)
 
-    def grad_for(t: int):
+    def grad_for(t: torch.Tensor):
         def grad(params, slot):
             if schedule is not None:
-                idx = schedule[t]  # [N, b] injected batch indices
+                idx = schedule.index_select(0, t)[0]  # [N, b] injected batch indices
                 Xb = torch.take_along_dim(X, idx[:, :, None], dim=1)
                 yb = torch.take_along_dim(y, idx, dim=1)
                 wts = torch.full(idx.shape, 1.0 / idx.shape[1], dtype=X.dtype, device=X.device)
@@ -257,6 +290,54 @@ def _make_grad_factory(problem, reg, config, X, y, n_valid, schedule, sampling_i
     return grad_for
 
 
+def _make_chunk(program: _Program, iterations: int, t: torch.Tensor, k: torch.Tensor,
+                metrics: Optional[Callable]):
+    """The port of ``make_chunk``: ``iterations`` steps, each advancing the
+    counter ``t`` in place, then ``metrics(state, k)`` (if given), which
+    writes eval slot ``k`` and advances it."""
+
+    def chunk(state):
+        for _ in range(iterations):
+            state = program.step(state, t)
+            t.add_(1)
+        if metrics is not None:
+            metrics(state, k)
+            k.add_(1)
+        return state
+
+    return chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(dev: torch.device) -> torch.cuda.Stream:
+    """One side stream per card for every run's warm-up and captures:
+    PyTorch keeps a cuBLAS workspace for each stream it multiplies on, so a
+    new stream each run would leave one more workspace allocated."""
+    return torch.cuda.Stream(dev)
+
+
+def _warm_up_and_capture(chunk, state, dev: torch.device, capture: bool):
+    """The warm-up chunk on a side stream, then (if ``capture``) one chunk
+    captured as a CUDA graph on that stream. Returns ``(graph or None,
+    state)``: the state in distinct, contiguous buffers that each replay
+    writes its result back into."""
+    stream = _side_stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = None
+    # The outer stream context restores the caller's stream even where a
+    # failed capture leaves torch.cuda.graph's own context unexited.
+    with torch.cuda.stream(stream):
+        state = {key: value.clone() for key, value in chunk(state).items()}
+        if capture:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                out = chunk(state)
+                for key, buf in state.items():
+                    buf.copy_(out[key])
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    return graph, state
+
+
 def run(
     config,
     dataset: HostDataset,
@@ -265,12 +346,17 @@ def run(
     device: torch.device | str = "cuda",
     batch_schedule: Optional[np.ndarray] = None,
     collect_metrics: bool = True,
+    measure_timestamps: bool = False,
 ) -> BackendRunResult:
     """Run ``config.algorithm`` on ``dataset`` for ``config.n_iterations``.
 
     ``batch_schedule [T, N, b]`` injects fixed batch indices (equivalence
     tests against the JAX package). ``device`` defaults to ``cuda`` and
-    raises when no card is visible.
+    raises when no card is visible. ``measure_timestamps=True`` runs the
+    chunks from the host without CUDA graphs, synchronising after each, and
+    records a measured time per eval (``history.time_measured``); by
+    default ``history.time`` spreads the run's wall clock evenly over the
+    evals.
     """
     dev = resolve_device(device)
     dtype = _DTYPES[config.dtype]
@@ -345,37 +431,55 @@ def run(
     gap_hist = torch.empty(n_evals, dtype=dtype, device=dev)
     cons_hist = torch.empty(n_evals, dtype=dtype, device=dev)
 
+    def write_metrics(state, k):
+        gap, spread = program.metrics(state["x"], f_opt, track_consensus)
+        gap_hist.index_copy_(0, k, gap.reshape(1))
+        if track_consensus:
+            cons_hist.index_copy_(0, k, spread.reshape(1))
+
+    t = torch.zeros(1, dtype=torch.int64, device=dev)
+    k = torch.zeros(1, dtype=torch.int64, device=dev)
+    chunk = _make_chunk(program, eval_every, t, k, write_metrics if collect_metrics else None)
+    use_graphs = dev.type == "cuda" and not measure_timestamps
+
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    def iterate(state, t):
-        state = program.step(state, t)
-        if collect_metrics and (t + 1) % eval_every == 0:
-            k = (t + 1) // eval_every - 1
-            gap, spread = program.metrics(state["x"], f_opt, track_consensus)
-            gap_hist[k] = gap
-            if track_consensus:
-                cons_hist[k] = spread
-        return state
+    graph = None
+    try:
+        sync()
+        t0 = time.perf_counter()
+        # Eager, once, before the warm-up: ADMM's A x_0, through the
+        # unscreened mixing op's neighbour sum, as the JAX package binds it.
+        state = algo.init(
+            torch.zeros((n, d), dtype=dtype, device=dev), config,
+            neighbor_sum=mix_op.neighbor_sum if mix_op is not None else None,
+        )
+        if use_graphs:
+            graph, state = _warm_up_and_capture(chunk, state, dev, capture=n_evals > 1)
+        else:
+            state = chunk(state)
+        sync()
+        compile_seconds = time.perf_counter() - t0
 
-    sync()
-    t0 = time.perf_counter()
-    # Eager, once, before the loop: ADMM's A x_0, through the unscreened
-    # mixing op's neighbour sum, as the JAX package binds it.
-    state = algo.init(
-        torch.zeros((n, d), dtype=dtype, device=dev), config,
-        neighbor_sum=mix_op.neighbor_sum if mix_op is not None else None,
-    )
-    state = iterate(state, 0)
-    sync()
-    compile_seconds = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    for t in range(1, T):
-        state = iterate(state, t)
-    sync()
-    run_seconds = time.perf_counter() - t0
+        stamps = [0.0]  # the warm-up chunk's eval, as the steady loop starts
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(STEADY_LOOP):
+            if use_graphs:
+                for _ in range(n_evals - 1):
+                    graph.replay()
+            else:
+                for _ in range(n_evals - 1):
+                    state = chunk(state)
+                    if measure_timestamps:
+                        sync()
+                        stamps.append(time.perf_counter() - t0)
+            sync()
+        run_seconds = time.perf_counter() - t0
+    finally:
+        if graph is not None:
+            graph.reset()
 
     if collect_metrics:
         gap_np = gap_hist.cpu().numpy().astype(np.float64)
@@ -385,10 +489,13 @@ def run(
     history = RunHistory(
         objective=gap_np,
         consensus_error=cons_np,
-        time=np.linspace(run_seconds / max(len(gap_np), 1), run_seconds, len(gap_np)),
+        time=(np.asarray(stamps[: len(gap_np)]) if measure_timestamps else
+              np.linspace(run_seconds / max(len(gap_np), 1), run_seconds, len(gap_np))),
+        time_measured=measure_timestamps,
         eval_iterations=np.arange(eval_every, T + 1, eval_every)[: len(gap_np)],
         total_floats_transmitted=floats_per_iter * T,
-        iters_per_second=(T - 1) / run_seconds if T > 1 and run_seconds > 0 else float("nan"),
+        iters_per_second=((T - eval_every) / run_seconds
+                          if T > eval_every and run_seconds > 0 else float("nan")),
         compile_seconds=compile_seconds,
         spectral_gap=spectral_gap,
     )

@@ -10,12 +10,13 @@ being accepted and ignored.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 # What this slice of the port implements. The JAX package accepts more;
 # each value outside these lists is refused below.
 ALGORITHMS = ("centralized", "dsgd", "admm")
-TOPOLOGIES = ("ring", "fully_connected")
+TOPOLOGIES = ("ring", "grid", "fully_connected")
 PROBLEM_TYPES = ("logistic", "quadratic")
 MIXING_IMPLS = ("auto", "stencil", "dense", "pallas")
 SAMPLING_IMPLS = ("auto", "dense", "gather")
@@ -125,6 +126,12 @@ class ExperimentConfig:
                 f"eval_every ({self.eval_every}) must divide n_iterations "
                 f"({self.n_iterations})"
             )
+        if self.topology == "grid":
+            side = math.isqrt(self.n_workers)
+            if side * side != self.n_workers:
+                raise ValueError(
+                    f"grid topology requires a perfect-square worker count, got {self.n_workers}"
+                )
 
     def _validate_local_steps(self) -> None:
         """The JAX package's check of ``local_steps``; τ > 1 on a rule that

@@ -37,11 +37,15 @@
 //   kernel agrees with the plain version to N·eps·max|x|.
 //
 // Every operation is a round-to-nearest intrinsic (no FMA contraction; the
-// build also passes --fmad=false). The kernels allocate nothing, launch on
+// build also passes --fmad=false). Each launch adds one to its kernel's slot
+// of launch_counts.cuh (slot 0 fc_mix, 1 fc_neighbor_sum: the order of
+// KERNELS in ops/fc_kernels.py). The kernels allocate nothing, launch on
 // the caller's stream and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "launch_counts.cuh"
 
 namespace {
 
@@ -98,6 +102,7 @@ enum class Mode { kMean, kNeighbor, kNeighborRegisters };
 template <typename T, int V, Mode M>
 __global__ void __launch_bounds__(kMaxThreads)
 fc_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, int64_t d) {
+  launch_counts::add(M == Mode::kMean ? 0 : 1);
   extern __shared__ __align__(16) unsigned char smem[];
   const int groups = blockDim.y;
   const int width = blockDim.x * V;

@@ -66,12 +66,16 @@
 // is 1/3 rounded once to the working type. eta is read from a one-element
 // device array in the working type (no host synchronisation).
 //
-// The kernels allocate nothing, launch on the caller's stream and return
-// cudaGetLastError(). ring_launch_floor launches an empty kernel through
+// Each launch adds one to its kernel's slot of launch_counts.cuh (slot 0
+// fused_ring_dsgd_step, 1 ring_mix, 2 ring_neighbor_sum: the order of
+// KERNELS in ops/ring_kernels.py). The kernels allocate nothing, launch on
+// the caller's stream and return cudaGetLastError(). ring_launch_floor launches an empty kernel through
 // the same interface, for measuring what a launch costs; it is on no path.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "launch_counts.cuh"
 
 namespace {
 
@@ -124,6 +128,11 @@ enum class Layout { kScalar, kVector, kVectorAligned };
 // What a thread computes: x_prev + x_next (ring_neighbor_sum); W x
 // (ring_mix); or W x - eta * g (fused_ring_dsgd_step).
 enum class Op { kNeighborSum, kMix, kStep };
+
+// The launch-count slot of each Op's kernel.
+__host__ __device__ constexpr int count_slot(Op op) {
+  return op == Op::kStep ? 0 : op == Op::kMix ? 1 : 2;
+}
 
 template <typename T, int V> struct alignas(sizeof(T) * V) Pack { T v[V]; };
 
@@ -192,6 +201,7 @@ template <typename T, typename I, Layout L, Op kOp>
 __global__ void __launch_bounds__(kThreads)
 ring_stencil_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ eta,
                     T* __restrict__ out, I total, I d) {
+  launch_counts::add(count_slot(kOp));
   constexpr int V = L == Layout::kScalar ? 1 : Vec<T>::kWidth;
   const I far = total - d;
   T step = T(0);

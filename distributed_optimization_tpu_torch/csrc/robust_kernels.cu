@@ -64,12 +64,16 @@
 // at k_max = 15, and the neighbour reads bound clipping there. The kernels
 // allocate nothing, launch on the caller's stream and return
 // cudaGetLastError(). eta and tau are one-element device arrays (no host
-// synchronisation).
+// synchronisation). Each launch adds one to its form's slot of
+// launch_counts.cuh: slot 0 the aggregator (g null), 1 the D-SGD step (the
+// order of KERNELS in ops/robust_kernels.py).
 
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <cfloat>
 #include <utility>
+
+#include "launch_counts.cuh"
 
 namespace {
 
@@ -193,6 +197,7 @@ __global__ void count_rule_kernel(int rule, int budget, const int32_t* __restric
                                   const float* __restrict__ live, const T* __restrict__ x,
                                   const T* __restrict__ g, const T* __restrict__ eta,
                                   T* __restrict__ out, int64_t n, int64_t d) {
+  launch_counts::add(g == nullptr ? 0 : 1);
   constexpr int K = W - 1;
   __shared__ int32_t s_nbr[kCountRows][K];
   __shared__ T s_live[kCountRows][K];
@@ -341,6 +346,7 @@ __global__ void clip_warp_kernel(int budget, int adaptive, int k_max,
                                  const T* __restrict__ x, const T* __restrict__ tau_in,
                                  const T* __restrict__ g, const T* __restrict__ eta,
                                  T* __restrict__ out, int64_t n, int64_t d) {
+  launch_counts::add(g == nullptr ? 0 : 1);
   __shared__ T s_rank[kClipWarps][kWarpSlots];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -454,6 +460,7 @@ __global__ void clip_wide_kernel(int k_max, const int32_t* __restrict__ nbr,
                                  const T* __restrict__ tau_in, const T* __restrict__ g,
                                  const T* __restrict__ eta, T* __restrict__ out, int64_t n,
                                  int64_t d) {
+  launch_counts::add(g == nullptr ? 0 : 1);
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_lv = reinterpret_cast<T*>(smem);
   T* s_norm = s_lv + k_max;

@@ -27,8 +27,8 @@ class RunHistory:
     iters_per_second: float = float("nan")
     compile_seconds: float = 0.0  # warm-up step, kernel build included
     spectral_gap: Optional[float] = None
-    # True for per-eval clock samples; False when ``time`` interpolates the
-    # run's total wall clock (the port never syncs inside the loop).
+    # True for per-eval clock samples (``measure_timestamps=True``); False
+    # when ``time`` spreads the run's total wall clock over the evals.
     time_measured: bool = False
 
 

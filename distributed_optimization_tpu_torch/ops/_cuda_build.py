@@ -5,12 +5,17 @@ the package, under a name that hashes the source and the flags, so a
 changed source builds anew and an unchanged one is reused. The library
 has a plain C interface and is loaded with ``ctypes``. A failed build
 raises with nvcc's output. ``build_all`` starts one nvcc per source at once.
+The headers of ``csrc/`` (``launch_counts.cuh``) are on the include path
+and in the hash.
 
-The argument checks every kernel wrapper shares live here too.
+The argument checks every kernel wrapper shares live here too, and
+``LaunchCounts``, the wrappers' view of the launch counts their kernels keep
+on the card.
 """
 
 from __future__ import annotations
 
+import collections.abc
 import ctypes
 import hashlib
 import os
@@ -46,8 +51,9 @@ def _nvcc() -> str:
 
 
 def library_path(source: pathlib.Path) -> pathlib.Path:
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
@@ -60,7 +66,7 @@ def _start(source: pathlib.Path):
         return target, None, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     partial = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(source)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(partial), str(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return target, partial, cmd, proc
 
@@ -147,3 +153,63 @@ def call(lib: ctypes.CDLL, name: str, x: torch.Tensor, *args) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+# --- launch counts -------------------------------------------------------------
+
+
+class LaunchCounts(collections.abc.Mapping):
+    """Launches of each kernel of one library on the current card, by name,
+    as the kernels count them: slot i of the library's device array
+    (``csrc/launch_counts.cuh``) is ``names[i]``. A count rises where the
+    kernel runs, once for an eager launch and once for each replay of a CUDA
+    graph that holds it; a CPU tensor's plain version counts nothing.
+    Reading or resetting synchronises the device, so neither belongs inside
+    a capture. Until ``library`` (a cached loader) has loaded the kernels,
+    every count reads 0 and nothing is built."""
+
+    def __init__(self, names, library):
+        self._names = tuple(names)
+        self._library = library
+
+    def _loaded(self):
+        if self._library.cache_info().currsize == 0:
+            return None
+        lib = self._library()
+        lib.launch_counts_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+        lib.launch_counts_read.restype = ctypes.c_int
+        lib.launch_counts_reset.argtypes = []
+        lib.launch_counts_reset.restype = ctypes.c_int
+        return lib
+
+    def _read(self) -> tuple[int, ...]:
+        lib = self._loaded()
+        if lib is None:
+            return (0,) * len(self._names)
+        slots = (ctypes.c_ulonglong * len(self._names))()
+        err = lib.launch_counts_read(slots, len(self._names))
+        if err != 0:
+            raise RuntimeError(f"reading the launch counts failed: CUDA error {err}")
+        return tuple(slots)
+
+    def __getitem__(self, name: str) -> int:
+        if name not in self._names:
+            raise KeyError(name)
+        return self._read()[self._names.index(name)]
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def __len__(self) -> int:
+        return len(self._names)
+
+    def __repr__(self) -> str:
+        return repr(dict(zip(self._names, self._read())))
+
+    def reset(self) -> None:
+        """Set every count to 0."""
+        lib = self._loaded()
+        if lib is not None:
+            err = lib.launch_counts_reset()
+            if err != 0:
+                raise RuntimeError(f"resetting the launch counts failed: CUDA error {err}")

@@ -24,8 +24,9 @@ repeats it in PyTorch ops: the kernels equal ``fc_mix_mirror`` /
 (another order) to N·ε·max|x|. Nothing on a run's path calls the mirrors;
 the tests and ``chip_smoke.py`` do.
 
-``LAUNCHES`` counts kernel launches per wrapper; the plain versions do not
-count.
+``LAUNCHES`` maps each kernel to its launches on the card, which the kernel
+counts where it runs (``_cuda_build.LaunchCounts``): graph replays count;
+the plain versions and the mirrors do not.
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ import torch
 from distributed_optimization_tpu_torch.ops import _cuda_build
 
 SOURCE = _cuda_build.CSRC / "fc_kernels.cu"
+# In the order of the kernels' launch-count slots (csrc/fc_kernels.cu).
 KERNELS = ("fc_mix", "fc_neighbor_sum")
-LAUNCHES = {name: 0 for name in KERNELS}
 
 THREADS = 512           # threads a block the plan gives at most (the kernel takes 1024)
 ROWS_PER_THREAD = 8     # rows a thread loads at once (the kernel's kUnroll)
@@ -49,11 +50,6 @@ WIDE_STRIP_BYTES = 64   # ... or two from WIDE_ROWS rows on
 WIDE_ROWS = 1024
 # Where the neighbour sum keeps a thread's rows between the passes, by the C code.
 TILES = ("none", "registers")
-
-
-def reset_launch_counts() -> None:
-    for name in KERNELS:
-        LAUNCHES[name] = 0
 
 
 # --- plain PyTorch versions ---------------------------------------------------
@@ -187,9 +183,16 @@ def library() -> ctypes.CDLL:
     return bind(_cuda_build.load(SOURCE))
 
 
+LAUNCHES = _cuda_build.LaunchCounts(KERNELS, library)
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.reset()
+
+
 def _launch(lib: ctypes.CDLL, name: str, x: torch.Tensor, p: Plan | None = None) -> torch.Tensor:
     """Launch kernel ``name`` of ``lib`` on x under plan ``p`` (the
-    wrappers' own by default); returns its output. Counts nothing."""
+    wrappers' own by default); returns its output."""
     out = torch.empty_like(x)
     p = plan_for(name, x, out) if p is None else p
     _cuda_build.call(lib, name, x, x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
@@ -201,9 +204,7 @@ def _run(name: str, x: torch.Tensor, plain) -> torch.Tensor:
     _cuda_build.check_stack(x)
     if x.device.type == "cpu":
         return plain(x)
-    out = _launch(library(), name, x)
-    LAUNCHES[name] += 1
-    return out
+    return _launch(library(), name, x)
 
 
 def fc_mix(x: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,17 @@
 """Gossip operators x -> W x and neighbour sums x -> A x.
 
-The port of ``distributed_optimization_tpu/ops/mixing.py`` for the ring and
-the fully-connected graph, in three forms:
+The port of ``distributed_optimization_tpu/ops/mixing.py`` for the ring, the
+periodic grid and the fully-connected graph, in three forms:
 
-- ``stencil``: the ring as ``roll``s (all MH weights are 1/3), the
+- ``stencil``: the ring as ``roll``s (all MH weights are 1/3), the grid as
+  four ``roll``s of its [rows, cols, d] view (all weights 1/5), the
   fully-connected graph as the column mean;
 - ``dense``: a product with the [N, N] matrix, ``torch.matmul`` as the JAX
   package leaves it to XLA;
 - ``pallas``: the hand-written CUDA kernels of ``ops/ring_kernels.py``
   (ring of N >= 3) and ``ops/fc_kernels.py`` (fully connected). The name
-  is kept so that configs carry across.
+  is kept so that configs carry across. The grid has no kernel, here as in
+  the JAX package, and ``pallas`` on it raises.
 
 ``auto`` resolves to ``stencil``, as in the JAX package.
 """
@@ -39,7 +41,29 @@ class MixingOp:
 
 
 def _supports_stencil(topo: Topology) -> bool:
-    return topo.name == "fully_connected" or (topo.name == "ring" and topo.n >= 3)
+    if topo.name == "fully_connected":
+        return True
+    if topo.name == "ring":
+        return topo.n >= 3
+    if topo.name == "grid":
+        return topo.grid_shape is not None and min(topo.grid_shape) >= 3
+    return False
+
+
+def _grid_stencil(topo: Topology) -> MixingOp:
+    """W x and A x on the torus: degree 4 everywhere, so every MH weight is
+    1/5; worker i sits at (i // cols, i % cols). The four shifts are added
+    in the JAX package's order."""
+    rows, cols = topo.grid_shape
+    w = 1.0 / 5.0
+
+    def shifts(x: torch.Tensor) -> torch.Tensor:
+        g = x.reshape(rows, cols, *x.shape[1:])
+        s = (torch.roll(g, 1, 0) + torch.roll(g, -1, 0)
+             + torch.roll(g, 1, 1) + torch.roll(g, -1, 1))
+        return s.reshape(x.shape)
+
+    return MixingOp(topo.name, "stencil", lambda x: w * (x + shifts(x)), shifts)
 
 
 def make_mixing_op(
@@ -88,6 +112,8 @@ def make_mixing_op(
         return MixingOp(
             topo.name, "stencil", fc_kernels.fc_mix_plain, fc_kernels.fc_neighbor_sum_plain,
         )
+    if topo.name == "grid":
+        return _grid_stencil(topo)
     return MixingOp(
         topo.name, "stencil", ring_kernels.ring_mix_plain,
         ring_kernels.ring_neighbor_sum_plain,

@@ -36,8 +36,9 @@ and is on no path.
 The shared library is built at first use by ``ops/_cuda_build.py`` (nvcc
 for ``sm_90a`` into ``_build/``, loaded with ``ctypes``).
 
-``LAUNCHES`` counts kernel launches per wrapper; the plain versions do not
-count.
+``LAUNCHES`` maps each kernel to its launches on the card, which the kernel
+counts where it runs (``_cuda_build.LaunchCounts``): graph replays count;
+the plain versions do not.
 """
 
 from __future__ import annotations
@@ -53,13 +54,8 @@ THIRD = 1.0 / 3.0
 
 SOURCE = _cuda_build.CSRC / "ring_kernels.cu"
 
+# In the order of the kernels' launch-count slots (csrc/ring_kernels.cu).
 KERNELS = ("fused_ring_dsgd_step", "ring_mix", "ring_neighbor_sum")
-LAUNCHES = {name: 0 for name in KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for name in KERNELS:
-        LAUNCHES[name] = 0
 
 
 # --- plain PyTorch versions (the contract the kernels are held to) ---------
@@ -102,6 +98,13 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+LAUNCHES = _cuda_build.LaunchCounts(KERNELS, _library)
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.reset()
+
+
 # --- wrappers ----------------------------------------------------------------
 
 
@@ -113,7 +116,7 @@ def _check_state(x: torch.Tensor, what: str = "x") -> None:
 
 def launch(lib: ctypes.CDLL, name: str, x: torch.Tensor, *args: torch.Tensor) -> torch.Tensor:
     """Launch kernel ``name`` of ``lib`` (as ``bind`` declares it) on x and
-    ``args``; returns its output. Counts nothing."""
+    ``args``; returns its output. Checks nothing."""
     out = torch.empty_like(x)
     _cuda_build.call(lib, name, x, *(a.data_ptr() for a in (x, *args)),
                      out.data_ptr(), x.shape[0], x.shape[1])
@@ -121,9 +124,7 @@ def launch(lib: ctypes.CDLL, name: str, x: torch.Tensor, *args: torch.Tensor) ->
 
 
 def _launch(name: str, x: torch.Tensor, *args: torch.Tensor) -> torch.Tensor:
-    out = launch(_library(), name, x, *args)
-    LAUNCHES[name] += 1
-    return out
+    return launch(_library(), name, x, *args)
 
 
 def fused_ring_dsgd_step(x: torch.Tensor, g: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:

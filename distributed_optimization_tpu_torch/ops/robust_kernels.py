@@ -24,8 +24,10 @@ the count rules all the same. Clipping's norm is a reduction over d with
 no fixed order, so there the two agree to a tolerance.
 
 The factories run on ``cuda`` unless the caller passes ``device="cpu"``,
-and raise when no card is visible. ``LAUNCHES`` counts kernel launches per
-factory name; the plain versions and ``launch`` do not count.
+and raise when no card is visible. ``LAUNCHES`` maps each factory name to
+its kernel's launches on the card, which the kernel counts where it runs
+(``_cuda_build.LaunchCounts``): graph replays count; the plain versions do
+not.
 """
 
 from __future__ import annotations
@@ -42,8 +44,8 @@ from distributed_optimization_tpu_torch.ops import _cuda_build
 from distributed_optimization_tpu_torch.ops.robust_aggregation import check_rule, is_adaptive
 
 SOURCE = _cuda_build.CSRC / "robust_kernels.cu"
+# In the order of the kernels' launch-count slots (csrc/robust_kernels.cu).
 KERNELS = ("make_fused_robust_aggregator", "make_fused_robust_dsgd_step")
-LAUNCHES = {name: 0 for name in KERNELS}
 
 # The widest sort network the count rules (closed neighbourhood, k_max + 1)
 # and the adaptive radius (k_max norms) may take: the JAX package's bound;
@@ -55,11 +57,6 @@ _RULE_CODE = {"trimmed_mean": 0, "median": 1, "clipped_gossip": 2}
 # arrays of the working type and the [k_max] indices in shared memory; room
 # for five leaves a margin within the 48 KiB a launch gets without opting in.
 _MAX_CLIP_SLOTS = (48 * 1024 - 16) // (5 * 8 + 4)
-
-
-def reset_launch_counts() -> None:
-    for name in KERNELS:
-        LAUNCHES[name] = 0
 
 
 def fused_robust_supported(name: str, k_max: int, clip_tau=0.0) -> bool:
@@ -199,11 +196,18 @@ def _library() -> ctypes.CDLL:
     return bind(_cuda_build.load(SOURCE))
 
 
+LAUNCHES = _cuda_build.LaunchCounts(KERNELS, _library)
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.reset()
+
+
 def launch(lib: ctypes.CDLL, name: str, budget: int, adaptive: bool, nbr32, live, x, tau,
            g=None, eta=None) -> torch.Tensor:
     """Launch the screen ``name`` of ``lib`` (as ``bind`` declares it) on
     CUDA tensors, with ``g`` and ``eta`` for the D-SGD step; returns its
-    output. Checks nothing and counts nothing."""
+    output. Checks nothing."""
     out = torch.empty_like(x)
     ptrs = [t.data_ptr() if t is not None else None for t in (nbr32, live, x, tau, g, eta, out)]
     _cuda_build.call(lib, "fused_robust", x, _RULE_CODE[name], budget, int(adaptive),
@@ -239,8 +243,10 @@ def _make_fused_robust(name: str, budget: int, nbr_idx, clip_tau, *, with_sgd: b
     dev = resolve_device(device)
     nbr32 = torch.as_tensor(nbr_host, device=dev)
     nbr64 = nbr32.to(torch.int64)
-    taus: dict[torch.dtype, torch.Tensor] = {}
-    kernel = KERNELS[1] if with_sgd else KERNELS[0]
+    # τ in each working type, on the device now: a copy from the host inside
+    # a call would synchronise, which a CUDA graph capture does not allow.
+    taus = {acc: torch.full((1,), tau_val, dtype=acc, device=dev)
+            for acc in (torch.float32, torch.float64)}
 
     def call(live, x, g=None, eta=None):
         _cuda_build.check_stack(x)
@@ -252,10 +258,7 @@ def _make_fused_robust(name: str, budget: int, nbr_idx, clip_tau, *, with_sgd: b
                 f"live {tuple(live.shape)} and the [{nbr32.shape[0]}, {k_max}] "
                 f"table must have N={x.shape[0]} rows"
             )
-        acc = torch.promote_types(torch.float32, x.dtype)
-        if acc not in taus:
-            taus[acc] = torch.tensor([tau_val], dtype=acc, device=x.device)
-        tau = taus[acc]
+        tau = taus[torch.promote_types(torch.float32, x.dtype)]
         if with_sgd:
             _cuda_build.check_like(g, x, "g")
             if g.shape != x.shape:
@@ -265,9 +268,7 @@ def _make_fused_robust(name: str, budget: int, nbr_idx, clip_tau, *, with_sgd: b
                                       adaptive=adaptive, g=g, eta=eta)
         if with_sgd:
             _cuda_build.check_scalar(eta, x, "eta")
-        out = launch(_library(), name, budget, adaptive, nbr32, live, x, tau, g, eta)
-        LAUNCHES[kernel] += 1
-        return out
+        return launch(_library(), name, budget, adaptive, nbr32, live, x, tau, g, eta)
 
     return call
 

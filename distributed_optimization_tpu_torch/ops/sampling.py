@@ -9,6 +9,11 @@ order of evaluation, and the CPU and a CUDA card give the same bits. The
 bits are not ``jax.random``'s; parity with the JAX package rests on
 injected batch schedules.
 
+The iteration counter ``t`` is a Python int or an int64 tensor of one
+element on the tensor's device; the run loop passes the tensor, which it
+advances in place, so that one captured CUDA graph serves every iteration.
+Both give the same bits.
+
 Both forms select the same subsets, as in the JAX package: a worker takes
 the ``b_eff = min(b, n_valid, L)`` valid rows of highest score, ties going
 to the lower row index (a stable descending sort). Padding rows score −1,
@@ -29,13 +34,17 @@ def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & _MASK32
 
 
-def threefry2x32(key0: int, key1: int, c0: int, c1: torch.Tensor):
+def threefry2x32(key0: int, key1: int, c0: int | torch.Tensor, c1: torch.Tensor):
     """Threefry-2x32 with 20 rounds (Salmon et al., SC'11), the generator
     behind ``jax.random``, for the counters (c0, c1[k]). Words are held in
-    int64 tensors in [0, 2³²)."""
+    int64 tensors in [0, 2³²); ``c0`` is a Python int or an int64 tensor
+    that broadcasts over ``c1``."""
     ks = (key0 & _MASK32, key1 & _MASK32,
           (key0 ^ key1 ^ _KS_PARITY) & _MASK32)
-    x0 = torch.full_like(c1, (c0 + ks[0]) & _MASK32)
+    if isinstance(c0, torch.Tensor):
+        x0 = ((c0 + ks[0]) & _MASK32).expand_as(c1)
+    else:
+        x0 = torch.full_like(c1, (c0 + ks[0]) & _MASK32)
     x1 = (c1 + ks[1]) & _MASK32
     for group in range(5):
         for r in _ROTATIONS[4 * (group % 2): 4 * (group % 2) + 4]:
@@ -47,7 +56,7 @@ def threefry2x32(key0: int, key1: int, c0: int, c1: torch.Tensor):
 
 
 def row_scores(
-    seed: int, slot: int, t: int, n_valid: torch.Tensor, n_local: int
+    seed: int, slot: int, t: int | torch.Tensor, n_valid: torch.Tensor, n_local: int
 ) -> torch.Tensor:
     """``[N, L]`` int64 ranking scores in [0, 2³²); −1 on padding rows."""
     n = n_valid.shape[0]
@@ -65,7 +74,7 @@ def _effective_batch(batch_size: int, n_valid: torch.Tensor, n_local: int):
 def sample_worker_batch_weights(
     seed: int,
     slot: int,
-    t: int,
+    t: int | torch.Tensor,
     n_valid: torch.Tensor,  # [N] true shard sizes
     n_local: int,  # L, the padded shard length
     batch_size: int,
@@ -88,7 +97,7 @@ def sample_worker_batch_weights(
 
 
 def sample_batch_indices(
-    seed: int, slot: int, t: int, n_valid: torch.Tensor, n_local: int,
+    seed: int, slot: int, t: int | torch.Tensor, n_valid: torch.Tensor, n_local: int,
     batch_size: int, dtype: torch.dtype,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(indices [N, b] int64, weights [N, b])`` of each worker's batch.
@@ -112,7 +121,7 @@ def sample_batch_indices(
 def sample_worker_batches(
     seed: int,
     slot: int,
-    t: int,
+    t: int | torch.Tensor,
     X: torch.Tensor,  # [N, L, d]
     y: torch.Tensor,  # [N, L]
     n_valid: torch.Tensor,  # [N]

@@ -472,3 +472,170 @@ def test_cuda_adaptive_clipping_ranks_a_nan_norm_as_the_plain_version(cuda_devic
         assert bool(nan.any()) and torch.equal(torch.isnan(got), nan)
         _assert_clip_close(torch.where(nan, 0.0, got), torch.where(nan, 0.0, want),
                            torch.where(torch.isnan(tx), 0.0, tx), nbr64, tl)
+
+
+# --- runs: the CUDA graph loop against the measured chunk loop -----------------
+
+# (name, config fields): each path that launches a kernel every iteration,
+# and the stencil ring, which launches none.
+GRAPH_RUNS = {
+    "dsgd-ring-pallas": dict(mixing_impl="pallas"),
+    "dsgd-ring-stencil": dict(mixing_impl="stencil"),
+    "dsgd-fc-pallas": dict(topology="fully_connected", mixing_impl="pallas"),
+    "admm-ring-pallas": dict(algorithm="admm", mixing_impl="pallas"),
+    "robust-trimmed-mean-fused": dict(partition="shuffled", attack="sign_flip", n_byzantine=2,
+                                      attack_scale=2.0, aggregation="trimmed_mean", robust_b=1,
+                                      robust_impl="fused", mixing_impl="pallas"),
+}
+
+
+@pytest.fixture(scope="module")
+def graph_data():
+    from distributed_optimization_tpu_torch.config import ExperimentConfig
+    from distributed_optimization_tpu_torch.utils.data import generate_synthetic_dataset
+    from distributed_optimization_tpu_torch.utils.oracle import compute_reference_optimum
+
+    out = {}
+    for partition in ("sorted", "shuffled"):
+        cfg = ExperimentConfig(problem_type="logistic", n_workers=16, n_samples=1600,
+                               n_features=20, n_informative_features=12, partition=partition)
+        ds = generate_synthetic_dataset(cfg)
+        out[partition] = (cfg, ds, compute_reference_optimum(ds, cfg.reg_param)[1])
+    return out
+
+
+def _launch_counts():
+    return {name: n for mod in (rk, fk, bk) for name, n in mod.LAUNCHES.items()}
+
+
+def _counted_run(cfg, ds, f_opt, **kw):
+    from distributed_optimization_tpu_torch.backends import torch_backend
+
+    before = _launch_counts()
+    res = torch_backend.run(cfg, ds, f_opt, device="cuda", **kw)
+    after = _launch_counts()
+    return res, {name: after[name] - before[name] for name in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ring_mix", "fc_mix", "make_fused_robust_dsgd_step"])
+def test_cuda_launch_counts_rise_where_the_kernel_runs(cuda_device, name):
+    """The kernel counts on the card: a capture, which runs nothing, adds
+    nothing, and each replay of the graph adds each launch it holds."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((64, 33), generator=gen, device=cuda_device)
+    if name == "make_fused_robust_dsgd_step":
+        nbr, _ = neighbor_table(np.roll(np.eye(64), 1, 1) + np.roll(np.eye(64), -1, 1))
+        step = bk.make_fused_robust_dsgd_step("trimmed_mean", 1, nbr, device=cuda_device)
+        live = torch.ones(nbr.shape, device=cuda_device)
+        g, eta = torch.randn_like(x), torch.tensor([0.1], device=cuda_device)
+        call, mod = (lambda: step(live, x, g, eta)), bk
+    else:
+        mod = rk if name == "ring_mix" else fk
+        call = lambda: getattr(mod, name)(x)  # noqa: E731
+    call()  # built and loaded
+    mod.reset_launch_counts()
+    call()
+    assert mod.LAUNCHES[name] == 1
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        for _ in range(3):
+            out = call()
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    assert mod.LAUNCHES[name] == 1
+    for _ in range(5):
+        graph.replay()
+    assert mod.LAUNCHES[name] == 1 + 3 * 5
+    assert torch.equal(out, call())
+    assert sum(mod.LAUNCHES.values()) == mod.LAUNCHES[name] == 2 + 3 * 5
+    graph.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, eval_every", [(300, 1), (1001, 7)])
+@pytest.mark.parametrize("name", sorted(GRAPH_RUNS))
+def test_cuda_graph_run_is_bitwise_its_measured_run(cuda_device, graph_data, name, T,
+                                                    eval_every):
+    """Gap and consensus histories and final models bitwise equal, and the
+    same launches counted. T=300 at eval_every=1 takes 299 replays of a
+    one-iteration graph; T=1,001 at eval_every=7, 142 replays of a
+    seven-iteration graph."""
+    kw = GRAPH_RUNS[name]
+    base, ds, f_opt = graph_data[kw.get("partition", "sorted")]
+    cfg = base.replace(n_iterations=T, eval_every=eval_every, **kw)
+    graph, graph_launches = _counted_run(cfg, ds, f_opt)
+    eager, eager_launches = _counted_run(cfg, ds, f_opt, measure_timestamps=True)
+    np.testing.assert_array_equal(graph.history.objective, eager.history.objective)
+    np.testing.assert_array_equal(graph.history.consensus_error, eager.history.consensus_error)
+    np.testing.assert_array_equal(graph.final_models, eager.final_models)
+    assert graph_launches == eager_launches
+    # The kernels each path launches every iteration (the Byzantine rows of
+    # the robust run keep the benign ring_mix); ADMM once more at init.
+    per_iteration = {"dsgd-ring-pallas": ["fused_ring_dsgd_step"], "dsgd-fc-pallas": ["fc_mix"],
+                     "admm-ring-pallas": ["ring_neighbor_sum"],
+                     "robust-trimmed-mean-fused": ["make_fused_robust_dsgd_step", "ring_mix"]}
+    want = {k: 0 for k in graph_launches}
+    for kernel in per_iteration.get(name, []):
+        want[kernel] = T + name.startswith("admm")
+    assert graph_launches == want
+    assert np.all(np.isfinite(graph.history.objective))
+    assert not graph.history.time_measured and eager.history.time_measured
+
+
+@pytest.mark.cuda
+def test_cuda_graph_run_releases_its_memory(cuda_device, graph_data):
+    cfg, ds, f_opt = graph_data["sorted"]
+    cfg = cfg.replace(n_iterations=200, mixing_impl="pallas")
+    _counted_run(cfg, ds, f_opt)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    for _ in range(3):
+        _counted_run(cfg, ds, f_opt)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == allocated
+
+
+@pytest.mark.cuda
+def test_cuda_capture_failure_raises_and_does_not_fall_back(cuda_device, graph_data,
+                                                             monkeypatch):
+    """A kernel launch inside the capture is refused (an fc plan of more
+    threads than a block takes): the run raises, with no eager loop after."""
+    cfg, ds, f_opt = graph_data["sorted"]
+    cfg = cfg.replace(topology="fully_connected", mixing_impl="pallas", n_iterations=200)
+    real = fk.plan_for
+
+    def plan_for(name, x, out=None):
+        if torch.cuda.is_current_stream_capturing():
+            return dataclasses.replace(real(name, x, out), lanes=64, groups=64)
+        return real(name, x, out)
+
+    monkeypatch.setattr(fk, "plan_for", plan_for)
+    fk.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        _counted_run(cfg, ds, f_opt)
+    # The warm-up launched once; the capture stopped at its first launch.
+    assert fk.LAUNCHES["fc_mix"] <= 2
+    monkeypatch.setattr(fk, "plan_for", real)
+    res, launches = _counted_run(cfg, ds, f_opt)  # the card is usable after
+    assert launches["fc_mix"] == 200 and np.all(np.isfinite(res.history.objective))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GRAPH_RUNS))
+def test_cuda_capture_reaches_no_synchronize(cuda_device, graph_data, name, monkeypatch):
+    real = torch.cuda.synchronize
+    reached = []
+
+    def synchronize(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            reached.append(name)
+            raise RuntimeError("torch.cuda.synchronize() during capture")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", synchronize)
+    kw = GRAPH_RUNS[name]
+    base, ds, f_opt = graph_data[kw.get("partition", "sorted")]
+    res, _ = _counted_run(base.replace(n_iterations=150, **kw), ds, f_opt)
+    assert not reached and np.all(np.isfinite(res.history.objective))

@@ -157,7 +157,7 @@ def test_config_refuses_what_the_port_lacks():
     with pytest.raises(ValueError, match="does not have it yet"):
         ExperimentConfig(mixing_impl="sparse")
     with pytest.raises(ValueError, match="does not have it yet"):
-        ExperimentConfig(topology="grid")
+        ExperimentConfig(topology="erdos_renyi")
     with pytest.raises(ValueError, match="does not have it yet"):
         ExperimentConfig(dtype="bfloat16")
     with pytest.raises(ValueError, match="must divide"):

@@ -44,32 +44,45 @@ Phases:
      row's closed neighbourhood. No one PyTorch call computes a screen, so
      the library column is empty; the port's multi-op gather form is timed
      beside it.
-3. reference: small float64 runs on the card (fused ring kernel; ADMM
+3. sampling: the two sampling kernels (``ops/sampling_kernels.py``: the dense
+   form's [N, L] weights, the gather form's [N, b] indices and weights; one
+   launch a gradient call, no pallas_call behind them) bitwise equal to the
+   plain twin of ``ops/sampling.py`` in both dtypes, at the main path's
+   input (N=256, L=49, b=16), the parity path's (N=25, L=500) and the robust
+   cell's (N=256, L=50), each with shards of 0, 3 and b − 1 rows, seeds 0,
+   42, 2³¹ − 1 (and 2⁴⁰ + 5 in float64), slots 0–2 and t = 0 and 2³¹ − 1;
+   the known-answer digests of the JAX package's draws (``KNOWN_ANSWERS``,
+   computed with jax 0.9.0) of the scores, weights and indices; and each
+   kernel's times at its path's input beside its plain twin and its bound
+   (Threefry rounds and rank compares over the INT32 rate).
+4. reference: small float64 runs on the card (fused ring kernel; ADMM
    through ``ring_neighbor_sum``; fused robust kernel under sign-flip with
    trimmed_mean and clipped_gossip) against the same runs on the CPU (plain
    versions): gap histories and final models must agree to 1e-12, since the
-   counter-based sampler gives both the same batches.
-4. parity: the reference study's N=25 ring (logistic, T=10,000, float32,
+   sampler (the twin of ``jax.random`` on the CPU, its kernel on the card)
+   gives both the same batches.
+5. parity: the reference study's N=25 ring (logistic, T=10,000, float32,
    ``mixing_impl='pallas'``) must reach ε=0.08 within T; the fused kernel
-   must launch exactly T times. The same run with
+   and the gather sampling kernel must launch exactly T times. The same run with
    ``measure_timestamps=True`` (the chunks from the host, no CUDA graph)
    must give bitwise the graph run's gap history, final models and launch
    counts; both runs' iters/s are printed.
-5. main: the N=256 ring (dense-weights sampling, eval every iteration,
+6. main: the N=256 ring (dense-weights sampling, eval every iteration,
    T=30,000) with ``mixing_impl='pallas'`` and with ``'stencil'``; each must
-   stay finite, cross ε=0.08 within T and end with consensus below 1.0;
+   stay finite, cross ε=0.08 within T and end with consensus below 1.0, and
+   launch the dense sampling kernel exactly T times;
    and the pallas run with ``measure_timestamps=True``, bitwise as in
    parity.
-6. mixing: the pallas ``MixingOp`` (``ring_mix``, ``ring_neighbor_sum``)
+7. mixing: the pallas ``MixingOp`` (``ring_mix``, ``ring_neighbor_sum``)
    applied to the main run's final models, against the dense W and A.
-7. fc: the reference study's fully-connected N=25 row (T=10,000, float32,
+8. fc: the reference study's fully-connected N=25 row (T=10,000, float32,
    ``mixing_impl='pallas'``): ε=0.08 within T, ``fc_mix`` launched exactly
    T times, bitwise its ``measure_timestamps=True`` run as in parity, and
    the stencil run's gap history within 1e-3 relative (float32
    rounding of two summation orders, accumulated over T steps); the same
    pair in float64 within 1e-10 relative, which shows that rounding is the
    whole of the float32 difference.
-8. admm: decentralized ADMM (default c and ρ, float32, eval every
+9. admm: decentralized ADMM (default c and ρ, float32, eval every
    iteration, T=2,000) on the main path's data at N=256 on the ring and at
    N=25 on the fully-connected graph, each with ``mixing_impl='pallas'`` and
    ``'stencil'``: every run crosses ε=0.08 within T, finite, with consensus
@@ -78,27 +91,39 @@ Phases:
    other ring or fc kernel; the ring pair's gap histories bitwise equal, the
    fc pair's within 1e-3 relative. The JAX package's CPU figures are printed
    beside (``ADMM_REFERENCE``), not gated on.
-9. study: the eight rows of ``examples/reproduce_report.py`` (the
+10. tracking: gradient tracking (T=3,000), EXTRA (T=3,000) and D-SGD with
+   τ = 3 local steps (T=10,000) on the main path's data (N=256 ring,
+   float32, eval every iteration), each with ``mixing_impl='pallas'`` and
+   ``'stencil'``: iterations to ε within 1% of the JAX package's count at
+   the same config (``TRACKING_RUNS``, jax 0.9.0; both packages draw the
+   same batches); ``ring_mix`` 2T (GT) or T (EXTRA) times and
+   ``fused_ring_dsgd_step`` T times (D-SGD) in the pallas runs, none in the
+   stencil runs, the sampling kernel once a gradient call; the GT and EXTRA
+   pallas runs bitwise their ``measure_timestamps=True`` runs; short
+   float64 runs of each on the card against the CPU (1e-12); and GT under
+   sign-flip with the fused trimmed mean on the robust cell (T=1,000),
+   whose aggregator launches twice an iteration.
+11. study: the eight rows of ``examples/reproduce_report.py`` (the
    reference study's Tables I and II) with that script's config defaults:
    N=25, T=10,000, b=16, η₀=0.05/√(t+1), λ=1e-4, sorted partition,
    ε=0.08, float32; centralized SGD and D-SGD on the ring, the periodic
    5 × 5 grid and the fully-connected graph, for logistic and quadratic.
-   Every row crosses ε within T; floats transmitted are exactly 4.05e7
-   (centralized, ring), 8.1e7 (grid) and 4.86e8 (fully connected); each run
-   leaves the card's allocated memory as it found it. Printed beside each
-   row: the published count and the JAX package's
-   (``docs/perf/report_reproduction.json``).
-10. byzantine: the JAX package's breakdown demonstration
+   Every row crosses ε within T and within 1% of the JAX package's count for
+   the same row (``STUDY_ROWS``, jax 0.9.0; both draw the same batches);
+   floats transmitted are exactly 4.05e7 (centralized, ring), 8.1e7 (grid)
+   and 4.86e8 (fully connected); each run leaves the card's allocated memory
+   as it found it. The published count is printed beside.
+12. byzantine: the JAX package's breakdown demonstration
    (``examples/bench_byzantine.py``: N=64 ring, full batch, T=4,000,
    float32, fused screens) with its gates, each final honest gap within 1%
    of ``docs/perf/byzantine.json``.
-11. robust: the N=256 ring of ``examples/bench_fused_robust.py`` (d=41,
+13. robust: the N=256 ring of ``examples/bench_fused_robust.py`` (d=41,
    b=16, T=5,000, sign-flip by 12 workers): plain gossip must diverge or
    end 10× above attack-free, every screen within 2× of attack-free; the
    fused robust step launches exactly T times in each fused run and never
    in the gather run, whose trimmed-mean history must agree with the fused
    one to 1e-6 relative.
-12. robust_mixing: the fused aggregator through the Byzantine mix on the
+14. robust_mixing: the fused aggregator through the Byzantine mix on the
     robust run's final models, for each rule, against the gather form and
     the numpy oracle; and the pallas ``MixingOp`` on the fully-connected
     graph (``fc_mix``, ``fc_neighbor_sum``) against the dense W and A.
@@ -110,7 +135,8 @@ phase that drives a path sets the launch counts to 0 just before it and
 reads them just after; converging and screened runs print a sha256 digest of their gap
 history, so two trees run in one call can be shown to give bitwise-equal
 histories. On request, ``profile`` traces 300 iterations of the main path,
-of the admm phase's ring and of the robust cell's fused trimmed-mean run
+of the admm phase's ring, of gradient tracking on the main path's data and
+of the robust cell's fused trimmed-mean run
 with ``torch.profiler``, each as the graph run and as the
 ``measure_timestamps=True`` run, over the iterations after the warm-up
 chunk; ``ring_ab``
@@ -141,13 +167,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 
-PHASES = ("card", "kernels", "reference", "parity", "main", "mixing", "fc", "admm",
-          "study", "byzantine", "robust", "robust_mixing")
+PHASES = ("card", "kernels", "sampling", "reference", "parity", "main", "mixing", "fc", "admm",
+          "tracking", "study", "byzantine", "robust", "robust_mixing")
 # Run only when asked for: profile, a torch.profiler trace of the main
 # path's, the admm ring's and the robust cell's steady loops, graph and
 # measured; ring_ab (with
@@ -183,9 +210,9 @@ DENSE_LIBRARY_BYTES = 1 << 30
 # on the N=256 ring, 165 on the N=25 fully-connected graph) by a wide margin.
 ADMM_ITERATIONS = 2_000
 # The JAX package's float32 figures at the admm phase's configurations, on
-# a CPU with use_mesh=False (its sampler draws other batches than the
-# port's, so these are printed beside, not gated on); tests/test_torch_admm.py
-# recomputes them.
+# a CPU with use_mesh=False (the same batches as the port's since the port
+# draws from the twin of jax.random; printed beside, not gated on);
+# tests/test_torch_admm.py recomputes them.
 ADMM_REFERENCE = {"ring": {"iters_to_eps": 214, "final_gap": 2.123e-3, "consensus": 0.09364},
                   "fully_connected": {"iters_to_eps": 165, "final_gap": 9.795e-4,
                                       "consensus": 3.084e-3}}
@@ -206,12 +233,18 @@ SOURCES = {
     "ring_neighbor_sum": "ring_kernels.cu", "fc_mix": "fc_kernels.cu",
     "fc_neighbor_sum": "fc_kernels.cu", "make_fused_robust_aggregator": "robust_kernels.cu",
     "make_fused_robust_dsgd_step": "robust_kernels.cu",
+    "sample_worker_batch_weights": "sampling_kernels.cu",
+    "sample_batch_indices": "sampling_kernels.cu",
 }
 REPLACES = {
     "fused_ring_dsgd_step": f"{PALLAS}:143", "ring_mix": f"{PALLAS}:137",
     "ring_neighbor_sum": f"{PALLAS}:177", "fc_mix": f"{PALLAS}:172",
     "fc_neighbor_sum": f"{PALLAS}:183", "make_fused_robust_aggregator": f"{PALLAS}:410",
     "make_fused_robust_dsgd_step": f"{PALLAS}:430",
+    # No pallas_call stands behind the sampling kernels: they take the place
+    # of the XLA code of the JAX package's sampler.
+    "sample_worker_batch_weights": "distributed_optimization_tpu/ops/sampling.py:79",
+    "sample_batch_indices": "distributed_optimization_tpu/ops/sampling.py:56",
 }
 # Floating-point operations per element of the [N, d] output.
 OPS_PER_ELEMENT = {"fused_ring_dsgd_step": 4, "ring_mix": 3, "ring_neighbor_sum": 1,
@@ -222,17 +255,22 @@ SCREENS = (("trimmed_mean", 0.0), ("median", 0.0), ("clipped_gossip", 0.0),
 
 # The study phase's rows (examples/reproduce_report.py): (problem, label)
 # -> (algorithm, topology, published iterations to ε (BASELINE.md), the JAX
-# package's (docs/perf/report_reproduction.json), floats transmitted).
+# package's at the same config (jax 0.9.0 on a CPU, use_mesh=False; the port
+# draws its batches; tests/test_torch_study.py recomputes them), floats
+# transmitted).
 STUDY_ROWS = {
     ("logistic", "Centralized SGD"): ("centralized", "ring", 9_641, 9_592, 4.05e7),
     ("logistic", "D-SGD (ring)"): ("dsgd", "ring", 9_927, 9_910, 4.05e7),
     ("logistic", "D-SGD (grid)"): ("dsgd", "grid", 9_636, 9_622, 8.1e7),
-    ("logistic", "D-SGD (fully connected)"): ("dsgd", "fully_connected", 9_596, 9_607, 4.86e8),
+    ("logistic", "D-SGD (fully connected)"): ("dsgd", "fully_connected", 9_596, 9_608, 4.86e8),
     ("quadratic", "Centralized SGD"): ("centralized", "ring", 5_425, 5_394, 4.05e7),
     ("quadratic", "D-SGD (ring)"): ("dsgd", "ring", 7_214, 7_136, 4.05e7),
-    ("quadratic", "D-SGD (grid)"): ("dsgd", "grid", 5_666, 5_552, 8.1e7),
-    ("quadratic", "D-SGD (fully connected)"): ("dsgd", "fully_connected", 5_549, 5_526, 4.86e8),
+    ("quadratic", "D-SGD (grid)"): ("dsgd", "grid", 5_666, 5_558, 8.1e7),
+    ("quadratic", "D-SGD (fully connected)"): ("dsgd", "fully_connected", 5_549, 5_525, 4.86e8),
 }
+# The study's and the tracking phase's gate: each count within 1% of the JAX
+# package's.
+COUNT_TOLERANCE = 0.01
 
 # The JAX package's float32 final honest gaps at the byzantine phase's
 # configuration (docs/perf/byzantine.json, written by
@@ -241,12 +279,61 @@ BYZANTINE_REFERENCE = {"attack_free": 0.042538, "signflip_tm": 0.044533,
                        "signflip_median": 0.044533, "signflip_clip": 0.045254,
                        "alie_tm": 0.04402}
 # The JAX package's float32 final honest gaps at the robust phase's
-# configuration, on a CPU with use_mesh=False (its sampler draws other
-# batches than the port's, so these are printed beside, not gated on).
+# configuration, on a CPU with use_mesh=False (the same batches as the
+# port's; printed beside, not gated on).
 ROBUST_REFERENCE = {"attack_free": 0.03952, "signflip_plain": float("nan"),
                     "signflip_trimmed_mean": 0.04787, "signflip_median": 0.04787,
                     "signflip_clipped_gossip": 0.05409}
 
+
+# The sampling kernel's inputs (label, N, L, b): the main path's dense form,
+# the parity path's gather form, the robust cell. Every input also has three
+# ragged shards (sampling_n_valid). Held at each seed, slot and counter here.
+SAMPLING_SHAPES = (("main", 256, 49, 16), ("parity", 25, 500, 16), ("robust", 256, 50, 16))
+SAMPLING_SEEDS = {"float32": (0, 42, 2**31 - 1), "float64": (0, 42, 2**31 - 1, 2**40 + 5)}
+SAMPLING_COUNTERS = (0, 2**31 - 1)
+SAMPLING_SLOTS = (0, 1, 2)  # slots 0 … τ−1 at the tracking phase's τ = 3
+# Each sampling kernel's record: its path's input, float32.
+SAMPLING_RECORD = {"sample_worker_batch_weights": ("main", 256, 49, 16),
+                   "sample_batch_indices": ("parity", 25, 500, 16)}
+SAMPLING_PATHS = {"sample_worker_batch_weights": "main: dsgd, ring, N=256, dense, once a grad call",
+                  "sample_batch_indices": "parity: dsgd, ring, N=25, gather, once a grad call"}
+# Known answers: sha256 (first 16 hex digits) of the JAX package's draws with
+# jax 0.9.0 at (seed, slot, t, dtype, N, L, b), n_valid as sampling_n_valid
+# gives it: the masked uniform scores [N, L] (ops/sampling.py's
+# _masked_scores, under enable_x64 in float64), the dense weights [N, L]
+# (float32) and the gather indices [N, b] (as int64). tests/test_torch_prng.py
+# recomputes them from the JAX package.
+KNOWN_ANSWERS = {
+    (203, 0, 0, "float32", 256, 49, 16): ("993c2b5c74102144", "50b173b6f96bda24",
+                                          "7de8b2b05155ac3d"),
+    (42, 1, 2**31 - 1, "float32", 25, 500, 16): ("f88cb8e435d31919", "b7cf4bff9e6b1a3f",
+                                                 "1cc6e9bfb8773301"),
+    (2**31 - 1, 2, 7, "float64", 256, 50, 16): ("1ef1439b3c0b533a", "2d5a0e7508f54d3b",
+                                                "efbe01b2605df4ab"),
+    (2**40 + 5, 0, 12_345, "float64", 25, 500, 16): ("ce15c5f081dfd885", "c3c0f374de42fc44",
+                                                     "b77743bc96e70b73"),
+}
+# Integer operations a second: the data sheet's 67 TFLOP/s float32 counts an
+# FMA as two operations on 128 lanes a multiprocessor; an SM has 64 INT32
+# lanes (Hopper white paper), one operation each a clock.
+PEAK_INT32_OPS = 67e12 * 64 / (128 * 2)
+# Integer operations of one Threefry-2x32 call (key parity 2, first key
+# injection 2, 20 rounds of add, rotate, xor, 5 injections of 3 adds).
+THREEFRY_OPS = 2 + 2 + 20 * 3 + 5 * 3
+# The tracking phase's runs on the main path's data (N=256 ring, logistic,
+# float32, eval every iteration), with T, and the JAX package's iterations to
+# ε=0.08 at each (jax 0.9.0 on a CPU, mixing 'stencil', use_mesh=False; both
+# packages draw the same batches). tests/test_torch_tracking.py recomputes
+# them.
+TRACKING_RUNS = {
+    "gradient_tracking": (dict(algorithm="gradient_tracking"), 3_000, 823),
+    "extra": (dict(algorithm="extra"), 3_000, 291),
+    "dsgd_tau3": (dict(algorithm="dsgd", local_steps=3), 10_000, 6_949),
+}
+# The tracking phase's screened run: GT on the robust cell's data under
+# sign-flip with the fused trimmed mean, T iterations.
+TRACKING_ROBUST_ITERATIONS = 1_000
 
 class PhaseFailed(RuntimeError):
     pass
@@ -402,7 +489,7 @@ def phase_card(torch, kernels):
     say("[card] TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
     build = kernels["build"]
-    sources = [m.SOURCE for m in (kernels["rk"], kernels["fk"], kernels["bk"])]
+    sources = [m.SOURCE for m in (kernels["rk"], kernels["fk"], kernels["bk"], kernels["sk"])]
     t0 = time.perf_counter()
     paths = build.build_all(sources)
     say(f"[card] built {', '.join(p.name for p in paths)} in parallel in "
@@ -808,6 +895,93 @@ def phase_fc_ab(torch, fk, rk, build, baseline: str):
         f"{', '.join(slower) if slower else 'none'}")
 
 
+def sampling_n_valid(torch, n: int, L: int, b: int):
+    """Every shard full but three: an empty one, one of 3 rows, one of b − 1."""
+    nv = torch.full((n,), L, dtype=torch.int64, device="cuda")
+    nv[1], nv[2], nv[3] = 0, 3, b - 1
+    return nv
+
+
+def sampling_bound(form: str, n: int, L: int, b: int, itemsize: int):
+    """(ms, 'bytes' or 'operations') for one draw, in either form: 1 + N +
+    N·L Threefry calls, the mantissa of each row (3 operations) and a top-k
+    selection of each worker's k = min(b, L) rows, L·⌈log2 k⌉ compares (a
+    heap of k; the kernel's L² rank is its design, not the function's
+    need), against t and n_valid read once and the output written once."""
+    select = n * L * max(1, math.ceil(math.log2(min(b, L))))
+    ops = THREEFRY_OPS * (1 + n + n * L) + 3 * n * L + select
+    out = n * L * itemsize if form == "sample_worker_batch_weights" else n * b * (8 + itemsize)
+    t_bytes = (8 + 8 * n + out) / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_sampling(torch, np, sk, sampling, prng):
+    """The sampling kernels against their plain twin on the card, bitwise, in
+    both forms and dtypes at every input of SAMPLING_SHAPES, seed, slot and
+    counter; the known-answer digests of the JAX package's draws; and each
+    kernel's times at its path's input. Returns the kernels' records."""
+    t = torch.zeros(1, dtype=torch.int64, device="cuda")
+    checked = 0
+    for label, n, L, b in SAMPLING_SHAPES:
+        nv = sampling_n_valid(torch, n, L, b)
+        for dname, seeds in SAMPLING_SEEDS.items():
+            dtype = getattr(torch, dname)
+            for seed in seeds:
+                run_key = prng.key(seed, x64=dtype == torch.float64)
+                for slot in SAMPLING_SLOTS:
+                    key = prng.fold_in(run_key, slot)
+                    for counter in SAMPLING_COUNTERS:
+                        t.fill_(counter)
+                        what = f"{label} N={n} L={L} b={b} {dname} seed={seed} slot={slot} t={counter}"
+                        w = sk.sample_worker_batch_weights(key, t, nv, L, b, dtype)
+                        check(torch.equal(w, sampling.sample_worker_batch_weights(
+                            key, t, nv, L, b, dtype)), f"sampling weights {what}: not bitwise")
+                        got = sk.sample_batch_indices(key, t, nv, L, b, dtype)
+                        want = sampling.sample_batch_indices(key, t, nv, L, b, dtype)
+                        check(all(torch.equal(g, h) for g, h in zip(got, want)),
+                              f"sampling indices {what}: not bitwise")
+                        checked += 1
+    say(f"[sampling] both kernels bitwise equal to the plain twin at {checked} inputs "
+        f"({len(SAMPLING_SHAPES)} shapes, both dtypes, seeds, slots {SAMPLING_SLOTS}, "
+        f"t {SAMPLING_COUNTERS}, ragged shards of 0, 3 and b - 1 rows)")
+    for (seed, slot, counter, dname, n, L, b), want in KNOWN_ANSWERS.items():
+        dtype = getattr(torch, dname)
+        key = prng.fold_in(prng.key(seed, x64=dtype == torch.float64), slot)
+        nv = sampling_n_valid(torch, n, L, b)
+        t.fill_(counter)
+        scores = sampling.masked_scores(key, t, nv, L, dtype)
+        weights = sk.sample_worker_batch_weights(key, t, nv, L, b, dtype).to(torch.float32)
+        indices, _ = sk.sample_batch_indices(key, t, nv, L, b, dtype)
+        got = tuple(_digest(np, a.cpu().numpy()) for a in (scores, weights, indices))
+        say(f"[sampling] known answer seed={seed} slot={slot} t={counter} {dname} N={n} L={L} "
+            f"b={b}: scores, weights, indices {' '.join(got)} "
+            f"({'equal to' if got == want else 'NOT'} jax 0.9.0's)")
+        check(got == want, f"sampling known answer {seed, slot, counter, dname}: {got} != {want}")
+    records = {}
+    for name, (label, n, L, b) in SAMPLING_RECORD.items():
+        nv = sampling_n_valid(torch, n, L, b)
+        key = prng.fold_in(prng.key(203, x64=False), 0)
+        t.fill_(12_345)
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).removeprefix("torch.")
+            kernel = lambda: getattr(sk, name)(key, t, nv, L, b, dtype)  # noqa: E731
+            plain = lambda: getattr(sampling, name)(key, t, nv, L, b, dtype)  # noqa: E731
+            got, want = kernel(), plain()
+            if isinstance(got, torch.Tensor):
+                got, want = (got,), (want,)
+            err = max(float((g.double() - h.double()).abs().max()) for g, h in zip(got, want))
+            check(all(torch.equal(g, h) for g, h in zip(got, want)),
+                  f"sampling {name} at its timed input {dname}: not bitwise (max diff {err:.3e})")
+            ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+            b_ms, b_by = sampling_bound(name, n, L, b, dtype.itemsize)
+            _kernel_line(name, f"{label} N={n} L={L} b={b}", dname, err, ms, plain_ms, None,
+                         b_ms, b_by)
+            if dtype == torch.float32:
+                records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, None,
+                                        graph_ms=_in_graph(torch, name, kernel, ms, b_ms))
+    return records
+
 def _agree(label, card, host, tol=1e-12):
     diff = float(abs(card.history.objective - host.history.objective).max())
     models = float(abs(card.final_models - host.final_models).max())
@@ -890,19 +1064,21 @@ def _graph_equals_measured(torch, np, pkg, counters, cfg, ds, f_opt, label, grap
     check(counted == launches, f"{label}: launch counts {launches} (graph) vs {counted}")
 
 
-def phase_parity(torch, np, pkg, rk):
+def phase_parity(torch, np, pkg, rk, sk):
     cfg = pkg.ExperimentConfig(problem_type="logistic", algorithm="dsgd", topology="ring",
                                mixing_impl="pallas", dtype="float32", eval_every=1)
     ds = pkg.generate_synthetic_dataset(cfg)
     _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
-    res, launches = _converging_run(torch, pkg, [rk], cfg, ds, f_opt, "parity")
+    res, launches = _converging_run(torch, pkg, [rk, sk], cfg, ds, f_opt, "parity")
     say("[parity] reference Table I: 9927 iterations")
-    check(launches["fused_ring_dsgd_step"] == cfg.n_iterations,
-          f"fused kernel launched {launches['fused_ring_dsgd_step']} times, not T")
-    _graph_equals_measured(torch, np, pkg, [rk], cfg, ds, f_opt, "parity", res, launches)
+    for kernel in ("fused_ring_dsgd_step", "sample_batch_indices"):
+        check(launches[kernel] == cfg.n_iterations,
+              f"{kernel} launched {launches[kernel]} times, not T")
+    _graph_equals_measured(torch, np, pkg, [rk, sk], cfg, ds, f_opt, "parity", res, launches)
+    return launches
 
 
-def phase_main(torch, np, pkg, rk, T):
+def phase_main(torch, np, pkg, rk, sk, T):
     cfg = pkg.ExperimentConfig(problem_type="logistic", algorithm="dsgd", topology="ring",
                                n_workers=256, n_iterations=T, mixing_impl="pallas",
                                dtype="float32", eval_every=1)
@@ -911,15 +1087,17 @@ def phase_main(torch, np, pkg, rk, T):
     runs = {}
     launches = None
     for impl in ("pallas", "stencil"):
-        res, counted = _converging_run(torch, pkg, [rk], cfg.replace(mixing_impl=impl),
+        res, counted = _converging_run(torch, pkg, [rk, sk], cfg.replace(mixing_impl=impl),
                                        ds, f_opt, "main")
         check(float(res.history.consensus_error[-1]) < 1.0, "consensus error not below 1.0")
+        check(counted["sample_worker_batch_weights"] == T,
+              f"sampling kernel launched {counted['sample_worker_batch_weights']} times, not T={T}")
         runs[impl] = res
         if impl == "pallas":
             launches = counted
             check(counted["fused_ring_dsgd_step"] == T,
                   f"fused kernel launched {counted['fused_ring_dsgd_step']} times, not T={T}")
-            _graph_equals_measured(torch, np, pkg, [rk], cfg.replace(mixing_impl=impl), ds,
+            _graph_equals_measured(torch, np, pkg, [rk, sk], cfg.replace(mixing_impl=impl), ds,
                                    f_opt, "main", res, counted)
     gap_diff = float(abs(runs["pallas"].history.objective - runs["stencil"].history.objective).max())
     say(f"[main] sampling dense (L={max(len(s) for s in ds.shard_indices)}), T={T}: "
@@ -1034,13 +1212,87 @@ def phase_admm(torch, np, pkg, rk, fk, T=ADMM_ITERATIONS):
     return launches
 
 
+def _within_count(label, crossed, want):
+    check(abs(crossed - want) <= COUNT_TOLERANCE * want,
+          f"{label}: {crossed} iterations to ε, not within {COUNT_TOLERANCE:.0%} of the JAX "
+          f"package's {want}")
+
+
+def phase_tracking(torch, np, pkg, kernels):
+    """Gradient tracking, EXTRA and D-SGD with τ = 3 local steps on the main
+    path's data (N=256 ring, float32, eval every iteration), each with
+    ``mixing_impl='pallas'`` and ``'stencil'``: finite, and iterations to ε
+    within 1% of the JAX package's count (TRACKING_RUNS). The pallas runs
+    launch ``ring_mix`` 2T (GT) or T (EXTRA) times, or ``fused_ring_dsgd_step``
+    T times (D-SGD), the stencil runs none, and every run the sampling kernel
+    once a gradient call (T, or 3T with τ = 3); the GT and EXTRA pallas runs
+    are bitwise their ``measure_timestamps=True`` runs. Then short float64
+    runs of each on the card against the CPU (1e-12), and GT under sign-flip
+    with the fused trimmed mean on the robust cell, whose aggregator launches
+    twice an iteration. Returns the launches of the GT pallas run."""
+    rk, bk, sk = kernels["rk"], kernels["bk"], kernels["sk"]
+    counters = [rk, kernels["fk"], bk, sk]
+    base = pkg.ExperimentConfig(problem_type="logistic", topology="ring", n_workers=256,
+                                dtype="float32", eval_every=1)
+    ds = pkg.generate_synthetic_dataset(base)
+    _, f_opt = pkg.compute_reference_optimum(ds, base.reg_param)
+    gt_launches = None
+    for name, (fields, T, want) in TRACKING_RUNS.items():
+        cfg = base.replace(n_iterations=T, **fields)
+        grads = cfg.local_steps
+        for impl in ("pallas", "stencil"):
+            run_cfg = cfg.replace(mixing_impl=impl)
+            res, counted = _converging_run(torch, pkg, counters, run_cfg, ds, f_opt, "tracking")
+            h = res.history
+            crossed = pkg.iterations_to_threshold(h.objective, 0.08, h.eval_iterations)
+            say(f"[tracking] {name} {impl}: iters-to-0.08 {crossed}, JAX package {want} "
+                f"({(crossed - want) / want:+.2%}), floats {h.total_floats_transmitted:.6g}")
+            _within_count(f"tracking {name} {impl}", crossed, want)
+            expect = {k: 0 for k in counted}
+            expect["sample_worker_batch_weights"] = grads * T
+            if impl == "pallas":
+                kernel = "fused_ring_dsgd_step" if fields["algorithm"] == "dsgd" else "ring_mix"
+                expect[kernel] = (2 if name == "gradient_tracking" else 1) * T
+            check(counted == expect, f"tracking {name} {impl}: launches {counted}, not {expect}")
+            if impl == "pallas" and name != "dsgd_tau3":
+                _graph_equals_measured(torch, np, pkg, counters, run_cfg, ds, f_opt,
+                                       "tracking", res, counted)
+            if name == "gradient_tracking" and impl == "pallas":
+                gt_launches = counted
+    small = pkg.ExperimentConfig(
+        problem_type="logistic", n_workers=8, n_samples=400, n_features=10,
+        n_informative_features=6, n_iterations=200, local_batch_size=8, mixing_impl="pallas",
+        sampling_impl="dense", dtype="float64",
+    )
+    sds = pkg.generate_synthetic_dataset(small)
+    _, sf = pkg.compute_reference_optimum(sds, small.reg_param)
+    for name, (fields, _, _) in TRACKING_RUNS.items():
+        cfg = small.replace(**fields)
+        _agree(f"N=8 T=200 float64 {name} pallas", pkg.run(cfg, sds, sf, device="cuda"),
+               pkg.run(cfg, sds, sf, device="cpu"))
+    robust = robust_config(pkg, TRACKING_ROBUST_ITERATIONS).replace(
+        algorithm="gradient_tracking", attack="sign_flip", n_byzantine=12, attack_scale=5.0,
+        aggregation="trimmed_mean", robust_b=1, robust_impl="fused")
+    rds = pkg.generate_synthetic_dataset(robust)
+    _, rf = pkg.compute_reference_optimum(rds, robust.reg_param)
+    runs = _screened_runs(pkg, {"gt_signflip_trimmed_mean": robust}, rds, rf, counters,
+                          "tracking")
+    res, launches = runs["gt_signflip_trimmed_mean"]
+    T = robust.n_iterations
+    check(launches.get("make_fused_robust_aggregator") == 2 * T
+          and "make_fused_robust_dsgd_step" not in launches,
+          f"tracking GT sign-flip: launches {launches}, not the aggregator 2T = {2 * T} times")
+    check(bool(np.all(np.isfinite(res.history.objective))), "tracking GT sign-flip: non-finite")
+    return gt_launches, launches
+
 def phase_study(torch, np, pkg):
     """The eight rows of ``examples/reproduce_report.py`` at its config
     defaults (the port's ``ExperimentConfig`` defaults: N=25, T=10,000,
     b=16, η₀=0.05/√(t+1), λ=1e-4, sorted, ε=0.08, float32, mixing 'auto'),
-    one dataset and optimum per problem. Gates: each row crosses ε within T,
-    its floats transmitted are exactly the published count, and the run
-    leaves the card's allocated memory as it found it."""
+    one dataset and optimum per problem. Gates: each row crosses ε within T
+    and within 1% of the JAX package's count for the same row, its floats
+    transmitted are exactly the published count, and the run leaves the
+    card's allocated memory as it found it."""
     data = {}
     for (problem, label), (algorithm, topology, published, jax_iters, floats) in \
             STUDY_ROWS.items():
@@ -1058,8 +1310,9 @@ def phase_study(torch, np, pkg):
         crossed = pkg.iterations_to_threshold(h.objective, cfg.suboptimality_threshold,
                                               h.eval_iterations)
         say(f"[study] {problem:9s} {label:24s} iters-to-{cfg.suboptimality_threshold} "
-            f"{crossed:6d}  published {published:6d} ({(crossed - published) / published:+.2%})"
-            f"  JAX package {jax_iters:6d} ({(jax_iters - published) / published:+.2%})  "
+            f"{crossed:6d}  JAX package {jax_iters:6d} ({(crossed - jax_iters) / jax_iters:+.2%})"
+            f"  published {published:6d} (port {(crossed - published) / published:+.2%}, JAX "
+            f"package {(jax_iters - published) / published:+.2%})  "
             f"floats {h.total_floats_transmitted:.4g}  {h.iters_per_second:.1f} iters/s "
             f"(warm-up and capture {h.compile_seconds:.2f} s), final gap {h.objective[-1]:.6f}, "
             f"gap history sha256 {_digest(np, h.objective)}")
@@ -1069,6 +1322,9 @@ def phase_study(torch, np, pkg):
         check(0 < crossed <= cfg.n_iterations,
               f"study {problem} {label}: never reached ε within T={cfg.n_iterations}")
         check(left == 0, f"study {problem} {label}: the run left {left} bytes allocated")
+        check(abs(crossed - jax_iters) <= COUNT_TOLERANCE * jax_iters,
+              f"study {problem} {label}: {crossed} iterations, not within "
+              f"{COUNT_TOLERANCE:.0%} of the JAX package's {jax_iters}")
 
 
 def _screened_runs(pkg, rows, ds, f_opt, counters, label):
@@ -1232,10 +1488,18 @@ def phase_robust_mixing(torch, np, pkg, kernels, final_models):
     x64 = x.double().cpu().numpy()
     err_w = float(np.abs(mixed.double().cpu().numpy() - fc.mixing_matrix @ x64).max())
     err_a = float(np.abs(summed.double().cpu().numpy() - fc.adjacency @ x64).max())
-    tol = n * float(np.finfo(np.float32).eps) * scale
-    say(f"[robust_mixing] MixingOp(pallas) fully_connected N={n}: |Wx - dense| {err_w:.3e}, "
-        f"|Ax - dense| {err_a:.3e} (N·eps·max|x| {tol:.3e})")
-    check(err_w <= tol and err_a <= tol, "MixingOp(pallas) on fully_connected disagrees")
+    eps = float(np.finfo(np.float32).eps)
+    # float32 rounding of a column's N-term sum: N·eps·Σ|x| for A x, whose
+    # entries reach Σ|x|; the mean W x is that over N, at most N·eps·max|x|.
+    tol = n * eps * scale
+    tol_a = n * eps * float(np.abs(x64).sum(axis=0).max())
+    mirror = fk.MIRRORS["fc_neighbor_sum"](x, fk.plan_for("fc_neighbor_sum", x))
+    say(f"[robust_mixing] MixingOp(pallas) fully_connected N={n}: |Wx - dense| {err_w:.3e} "
+        f"(N·eps·max|x| {tol:.3e}), |Ax - dense| {err_a:.3e} (N·eps·max Σ|x| {tol_a:.3e}), "
+        f"Ax {'bitwise equal to' if torch.equal(summed, mirror) else 'NOT'} the mirror of its "
+        f"summation order")
+    check(err_w <= tol and err_a <= tol_a, "MixingOp(pallas) on fully_connected disagrees")
+    check(torch.equal(summed, mirror), "fc_neighbor_sum is not bitwise the mirror of its order")
     launches = {k: v for c in (bk, fk, rk) for k, v in c.LAUNCHES.items()}
     say(f"[robust_mixing] launches {launches}")
     return launches
@@ -1293,7 +1557,7 @@ def _profile_run(torch, pkg, steady, cfg, label, T):
 
 
 def phase_profile(torch, pkg, steady, T: int = 300):
-    for algorithm in ("dsgd", "admm"):
+    for algorithm in ("dsgd", "admm", "gradient_tracking"):
         for impl in ("pallas", "stencil"):
             cfg = pkg.ExperimentConfig(problem_type="logistic", algorithm=algorithm,
                                        n_workers=256, n_iterations=T, mixing_impl=impl,
@@ -1336,13 +1600,15 @@ def main(argv=None) -> int:
     from distributed_optimization_tpu_torch.ops import _cuda_build
     from distributed_optimization_tpu_torch.ops import fc_kernels as fk
     from distributed_optimization_tpu_torch.ops import ring_kernels as rk
+    from distributed_optimization_tpu_torch.ops import prng, sampling
     from distributed_optimization_tpu_torch.ops import robust_kernels as bk
+    from distributed_optimization_tpu_torch.ops import sampling_kernels as sk
     from distributed_optimization_tpu_torch.ops.robust_aggregation import (
         make_gather_robust_aggregator,
     )
     from distributed_optimization_tpu_torch.parallel import topology
     pkg = _package()
-    kernels = {"build": _cuda_build, "rk": rk, "fk": fk, "bk": bk}
+    kernels = {"build": _cuda_build, "rk": rk, "fk": fk, "bk": bk, "sk": sk}
 
     t_start = time.perf_counter()
     t_last = [t_start]
@@ -1358,16 +1624,34 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         records = phase_kernels(torch, np, kernels, topology, make_gather_robust_aggregator)
         lap("kernels")
+    if "sampling" in phases:
+        records.update(phase_sampling(torch, np, sk, sampling, prng))
+        lap("sampling")
     if "reference" in phases:
         phase_reference(torch, pkg, rk, bk)
         lap("reference")
-    if "parity" in phases:
-        phase_parity(torch, np, pkg, rk)
-        lap("parity")
+    paths = {
+        "fused_ring_dsgd_step": "main: dsgd, ring, N=256, mixing_impl=pallas",
+        "ring_mix": "mixing: MixingOp(pallas).apply",
+        "ring_neighbor_sum":
+            "admm: ring, N=256, mixing_impl=pallas, T+1 (init and every iteration)",
+        "fc_mix": "fc: dsgd, fully_connected, N=25, mixing_impl=pallas",
+        "fc_neighbor_sum":
+            "admm: fully_connected, N=25, mixing_impl=pallas, T+1 (init and every iteration)",
+        "make_fused_robust_aggregator":
+            "robust_mixing: byz_mix of the robust run's final models, one per rule",
+        "make_fused_robust_dsgd_step":
+            "robust: three fused runs (trimmed_mean, median, clipped_gossip), T each",
+        **SAMPLING_PATHS,
+    }
     counted = {}
+    if "parity" in phases:
+        counted["sample_batch_indices"] = phase_parity(torch, np, pkg, rk, sk)
+        lap("parity")
     if "main" in phases:
-        main_res, launches = phase_main(torch, np, pkg, rk, MAIN_ITERATIONS)
+        main_res, launches = phase_main(torch, np, pkg, rk, sk, MAIN_ITERATIONS)
         counted["fused_ring_dsgd_step"] = launches
+        counted["sample_worker_batch_weights"] = launches
         lap("main")
         if "mixing" in phases:
             counted["ring_mix"] = phase_mixing(torch, pkg, rk, main_res.final_models)
@@ -1377,6 +1661,13 @@ def main(argv=None) -> int:
     if "admm" in phases:
         counted.update(phase_admm(torch, np, pkg, rk, fk))
         lap("admm")
+    if "tracking" in phases:
+        counted["ring_mix"], counted["make_fused_robust_aggregator"] = phase_tracking(
+            torch, np, pkg, kernels)
+        paths["ring_mix"] = "tracking: gradient_tracking, ring, N=256, pallas, 2 a step"
+        paths["make_fused_robust_aggregator"] = (
+            "tracking: gradient_tracking, sign-flip, trimmed_mean fused, N=256, 2 a step")
+        lap("tracking")
     if "study" in phases:
         phase_study(torch, np, pkg)
         lap("study")
@@ -1388,8 +1679,8 @@ def main(argv=None) -> int:
         counted["make_fused_robust_dsgd_step"] = launches
         lap("robust")
         if "robust_mixing" in phases:
-            counted["make_fused_robust_aggregator"] = phase_robust_mixing(
-                torch, np, pkg, kernels, robust_models)
+            counted.setdefault("make_fused_robust_aggregator", phase_robust_mixing(
+                torch, np, pkg, kernels, robust_models))
 
     if "profile" in phases:
         from distributed_optimization_tpu_torch.backends.torch_backend import STEADY_LOOP
@@ -1407,19 +1698,6 @@ def main(argv=None) -> int:
         lap("fc_ab")
 
     if records:
-        paths = {
-            "fused_ring_dsgd_step": "main: dsgd, ring, N=256, mixing_impl=pallas",
-            "ring_mix": "mixing: MixingOp(pallas).apply",
-            "ring_neighbor_sum":
-                "admm: ring, N=256, mixing_impl=pallas, T+1 (init and every iteration)",
-            "fc_mix": "fc: dsgd, fully_connected, N=25, mixing_impl=pallas",
-            "fc_neighbor_sum":
-                "admm: fully_connected, N=25, mixing_impl=pallas, T+1 (init and every iteration)",
-            "make_fused_robust_aggregator":
-                "robust_mixing: byz_mix of the robust run's final models, one per rule",
-            "make_fused_robust_dsgd_step":
-                "robust: three fused runs (trimmed_mean, median, clipped_gossip), T each",
-        }
         kernel_records = []
         for name, record in records.items():
             launches = counted.get(name)

@@ -58,6 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=_DEFAULTS.seed)
     p.add_argument("--data-seed", type=int, default=_DEFAULTS.data_seed)
     p.add_argument("--eval-every", type=int, default=_DEFAULTS.eval_every)
+    p.add_argument("--local-steps", type=int, default=_DEFAULTS.local_steps,
+                   help="τ local descents a gossip round (dsgd, gradient_tracking)")
     p.add_argument("--suboptimality-threshold", type=float,
                    default=_DEFAULTS.suboptimality_threshold)
     p.add_argument("--mixing-impl", choices=MIXING_IMPLS, default=_DEFAULTS.mixing_impl,
@@ -106,6 +108,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         seed=args.seed,
         data_seed=args.data_seed,
         eval_every=args.eval_every,
+        local_steps=args.local_steps,
         suboptimality_threshold=args.suboptimality_threshold,
         mixing_impl=args.mixing_impl,
         sampling_impl=args.sampling_impl,

@@ -27,7 +27,10 @@ class StepContext:
     ``degrees``: [N, 1] node degrees in the run dtype on the run device
     (zeros for the centralized pattern); the backend always passes it, and
     only a rule that reads it (ADMM) needs it. ``fused_mix_step``:
-    optional (x, g, eta) -> W x − eta g in one kernel.
+    optional (x, g, eta) -> W x − eta g in one kernel. ``t``: the iteration
+    counter, an int64 tensor of one element on the run device (EXTRA
+    branches on t == 0 with it, so one captured graph serves every
+    iteration).
     """
 
     grad: Callable[[torch.Tensor, int], torch.Tensor]
@@ -37,6 +40,7 @@ class StepContext:
     config: Any
     degrees: Optional[torch.Tensor] = None
     fused_mix_step: Any = None
+    t: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,12 +63,14 @@ class Algorithm:
 
 
 def local_descent_loop(v: torch.Tensor, ctx: StepContext, direction) -> torch.Tensor:
-    """The round's τ−1 extra local descents. Only τ = 1 (no extra descent)
-    is ported so far."""
-    if ctx.config.local_steps > 1:
-        raise ValueError(
-            "local_steps > 1: the PyTorch port does not have it yet"
-        )
+    """The round's τ−1 extra local descents (``config.local_steps`` = τ):
+    ``v ← v − η · direction(v, s)`` for the slots s = 1 … τ−1, unrolled in
+    Python as the JAX package's numpy-polymorphic form is. ``s`` reaches
+    ``ctx.grad`` as a Python int, so each slot's key is made on the host and
+    the whole round lies in one captured chunk. τ = 1 returns ``v``
+    untouched."""
+    for s in range(1, ctx.config.local_steps):
+        v = v - ctx.eta * direction(v, s)
     return v
 
 
@@ -81,6 +87,8 @@ def get_algorithm(name: str) -> Algorithm:
         admm,
         centralized,
         dsgd,
+        extra,
+        gradient_tracking,
     )
 
     if name not in _REGISTRY:

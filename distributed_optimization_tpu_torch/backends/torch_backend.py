@@ -3,10 +3,13 @@
 The port of the unsharded, fault-free run loop of
 ``distributed_optimization_tpu/backends/jax_backend.py`` (``_run``,
 ``_make_step_eval``, ``make_chunk`` and ``_bind_byzantine``). One iteration
-is: per-worker mini-batch sampling → per-worker closed-form gradients →
-gossip (or the fused ring kernel; under Byzantine injection the corrupt →
-screen → mix composition, or the fused robust kernel) → step; ADMM's step
-exchanges the neighbour sum A x instead of W x.
+is: per-worker mini-batch sampling (the JAX package's batches: one sampling
+kernel launch on a card, the twin of ``jax.random`` on the CPU) →
+per-worker closed-form gradients → gossip (or the fused ring kernel; under
+Byzantine injection the corrupt → screen → mix composition, or the fused
+robust kernel) → step; gradient tracking gossips twice, ADMM exchanges the
+neighbour sum A x instead of W x, and τ > 1 local steps add τ − 1 sampled
+descents.
 
 The run is a sequence of chunks, the counterpart of the JAX package's scan
 over eval chunks: one chunk runs ``eval_every`` iterations and then writes
@@ -66,7 +69,7 @@ from distributed_optimization_tpu_torch.metrics import (
     decentralized_floats_per_iteration,
 )
 from distributed_optimization_tpu_torch.models import get_problem
-from distributed_optimization_tpu_torch.ops import ring_kernels
+from distributed_optimization_tpu_torch.ops import prng, ring_kernels, sampling_kernels
 from distributed_optimization_tpu_torch.ops.mixing import MixingOp, make_mixing_op
 from distributed_optimization_tpu_torch.ops.robust_aggregation import (
     make_gather_robust_aggregator,
@@ -77,14 +80,11 @@ from distributed_optimization_tpu_torch.ops.robust_kernels import (
     make_fused_robust_aggregator,
     make_fused_robust_dsgd_step,
 )
+from distributed_optimization_tpu_torch.ops.sampling import gather_batches
 from distributed_optimization_tpu_torch.parallel.adversary import (
     Adversary,
     make_adversary,
     make_byzantine_mixing,
-)
-from distributed_optimization_tpu_torch.ops.sampling import (
-    sample_worker_batch_weights,
-    sample_worker_batches,
 )
 from distributed_optimization_tpu_torch.parallel.topology import (
     Topology,
@@ -154,7 +154,7 @@ class _Program:
         ctx = StepContext(
             grad=self.grad_for(t), mix=mix, neighbor_sum=nbr,
             eta=self.eta.index_select(0, t), degrees=self.degrees, config=self.config,
-            fused_mix_step=self.fused_mix_step,
+            fused_mix_step=self.fused_mix_step, t=t,
         )
         return self.algo.step(state, ctx)
 
@@ -196,9 +196,12 @@ class Byzantine:
 def resolve_robust_impl(config, topo: Topology) -> str:
     """The robust rule's execution form, as ``_bind_byzantine`` resolves it
     on an unsharded, fault-free run without telemetry: 'auto' promotes to
-    'fused' where the kernel takes the rule at this k_max."""
+    'fused' where the kernel takes the rule at this k_max and the round is
+    one descent (with τ > 1 local steps 'auto' stays on gather; an explicit
+    'fused' runs the kernel as the round's first descent)."""
     k_max = int(topo.degrees.max())
-    eligible = fused_robust_supported(config.aggregation, k_max, config.clip_tau)
+    eligible = (config.local_steps == 1
+                and fused_robust_supported(config.aggregation, k_max, config.clip_tau))
     return config.resolved_robust_impl(k_max, fused_eligible=eligible)
 
 
@@ -212,7 +215,9 @@ def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
         raise ValueError(
             f"Byzantine injection / robust aggregation is unsupported for "
             f"{algo.name!r}: only step rules whose updates go through the "
-            "gossip mix alone compose with screened aggregation — use 'dsgd'"
+            "gossip mix alone compose with screened aggregation (EXTRA's fixed "
+            "point needs the static linear W; ADMM pairs neighbor sums with "
+            "static degrees) — use 'dsgd' or 'gradient_tracking'"
         )
     adversary = make_adversary(
         config.n_workers, config.attack, config.n_byzantine, config.attack_scale,
@@ -257,6 +262,11 @@ def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
 
 
 def _make_grad_factory(problem, reg, config, X, y, n_valid, schedule, sampling_impl):
+    """``grad_for(t)`` gives the step's ``grad(params, slot)`` at counter t:
+    on injected batches, the whole shard (b >= L), or the batches the JAX
+    package draws, through the card's sampling kernel or on the CPU its
+    plain twin. ``slot`` is a Python int; its key, ``fold_in(key(seed),
+    slot)``, is made on the host once."""
     batch_size = config.local_batch_size
     L = X.shape[1]
     if schedule is None and batch_size >= L:
@@ -264,25 +274,27 @@ def _make_grad_factory(problem, reg, config, X, y, n_valid, schedule, sampling_i
         # shard with 1/n_i weights; no sampling at all.
         fmask = (torch.arange(L, device=X.device)[None, :] < n_valid[:, None]).to(X.dtype)
         full_wts = fmask / torch.clamp(n_valid[:, None].to(X.dtype), min=1.0)
+    run_key = prng.key(config.seed, x64=X.dtype == torch.float64)
+    slot_key = functools.lru_cache(maxsize=None)(lambda slot: prng.fold_in(run_key, slot))
 
     def grad_for(t: torch.Tensor):
         def grad(params, slot):
             if schedule is not None:
                 idx = schedule.index_select(0, t)[0]  # [N, b] injected batch indices
-                Xb = torch.take_along_dim(X, idx[:, :, None], dim=1)
-                yb = torch.take_along_dim(y, idx, dim=1)
+                Xb, yb = gather_batches(X, y, idx)
                 wts = torch.full(idx.shape, 1.0 / idx.shape[1], dtype=X.dtype, device=X.device)
             elif batch_size >= L:
                 Xb, yb, wts = X, y, full_wts
             elif sampling_impl == "dense":
                 Xb, yb = X, y
-                wts = sample_worker_batch_weights(
-                    config.seed, slot, t, n_valid, L, batch_size, X.dtype
+                wts = sampling_kernels.sample_worker_batch_weights(
+                    slot_key(slot), t, n_valid, L, batch_size, X.dtype
                 )
             else:
-                Xb, yb, wts = sample_worker_batches(
-                    config.seed, slot, t, X, y, n_valid, batch_size
+                idx, wts = sampling_kernels.sample_batch_indices(
+                    slot_key(slot), t, n_valid, L, batch_size, X.dtype
                 )
+                Xb, yb = gather_batches(X, y, idx)
             return problem.gradient_weighted(params, Xb, yb, wts, reg)
 
         return grad
@@ -332,6 +344,12 @@ def _warm_up_and_capture(chunk, state, dev: torch.device, capture: bool):
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=stream):
                 out = chunk(state)
+                # A state entry may come back as another's input buffer
+                # (EXTRA's x_prev is the x it was given): copy it aside
+                # before the write-back overwrites that buffer.
+                inputs = {id(buf) for buf in state.values()}
+                out = {key: value.clone() if id(value) in inputs else value
+                       for key, value in out.items()}
                 for key, buf in state.items():
                     buf.copy_(out[key])
     torch.cuda.current_stream(dev).wait_stream(stream)

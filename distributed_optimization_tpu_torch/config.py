@@ -15,7 +15,7 @@ from typing import Any
 
 # What this slice of the port implements. The JAX package accepts more;
 # each value outside these lists is refused below.
-ALGORITHMS = ("centralized", "dsgd", "admm")
+ALGORITHMS = ("centralized", "dsgd", "gradient_tracking", "extra", "admm")
 TOPOLOGIES = ("ring", "grid", "fully_connected")
 PROBLEM_TYPES = ("logistic", "quadratic")
 MIXING_IMPLS = ("auto", "stencil", "dense", "pallas")
@@ -23,8 +23,8 @@ SAMPLING_IMPLS = ("auto", "dense", "gather")
 DTYPES = ("float32", "float64")
 LR_SCHEDULES = ("auto", "sqrt_decay", "constant")
 PARTITIONS = ("sorted", "shuffled")
-# The JAX package's rules that accept local_steps > 1; the port has none
-# of them with τ > 1 yet, and refuses the rest with the JAX message.
+# The JAX package's rules that accept local_steps > 1; the rest are
+# refused with the JAX message.
 LOCAL_STEP_ALGORITHMS = ("dsgd", "gradient_tracking")
 # The JAX package's full lists; the values this slice lacks raise below.
 ATTACKS = ("none", "sign_flip", "large_noise", "alie")
@@ -134,8 +134,7 @@ class ExperimentConfig:
                 )
 
     def _validate_local_steps(self) -> None:
-        """The JAX package's check of ``local_steps``; τ > 1 on a rule that
-        takes it is not ported yet."""
+        """The JAX package's check of ``local_steps``, with its messages."""
         if self.local_steps < 1:
             raise ValueError(f"local_steps must be >= 1, got {self.local_steps}")
         if self.local_steps > 1 and self.algorithm not in LOCAL_STEP_ALGORITHMS:
@@ -147,8 +146,6 @@ class ExperimentConfig:
                 "pin a one-exchange-per-descent recursion that extra "
                 "local steps would silently break)"
             )
-        if self.local_steps > 1:
-            raise _not_yet("local_steps", self.local_steps, (1,))
 
     def _validate_byzantine(self) -> None:
         """The JAX package's checks of the Byzantine fields, in its order

@@ -105,6 +105,8 @@ def load(source: pathlib.Path) -> ctypes.CDLL:
 # --- the wrappers' shared argument checks -------------------------------------
 
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# What a launcher returns when it refuses its arguments.
+CUDA_ERROR_INVALID_VALUE = 1
 
 
 def check_stack(x, what: str = "x") -> None:
@@ -144,13 +146,17 @@ def check_scalar(t, x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} must hold one element, got {t.numel()}")
 
 
-def call(lib: ctypes.CDLL, name: str, x: torch.Tensor, *args) -> None:
+def call(lib: ctypes.CDLL, name: str, x: torch.Tensor, *args,
+         invalid: str | None = None) -> None:
     """Call ``name_<f32|f64>(*args, stream)`` on x's device and raise on a
-    non-zero CUDA error code."""
+    non-zero CUDA error code: a ValueError saying ``invalid``, where given,
+    when the launcher refuses its arguments (cudaErrorInvalidValue)."""
     fn = getattr(lib, f"{name}_{SUFFIX[x.dtype]}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*args, stream)
+    if err == CUDA_ERROR_INVALID_VALUE and invalid is not None:
+        raise ValueError(invalid)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 

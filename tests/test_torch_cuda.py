@@ -13,7 +13,9 @@ atol) in float64 and, in float32, to 1e-5 of the largest |x| over each
 row's closed neighbourhood; fc kernels to N·ε·max|x| of the plain version
 and bitwise to the mirror of their own summation order (ops/fc_kernels.py),
 under the plan the wrapper picks, under other strips and row groups and on
-misaligned views.
+misaligned views. The sampling kernels (both forms, both dtypes) bitwise
+equal the plain twin of ops/sampling.py, which tests/test_torch_sampling.py
+holds bitwise to the JAX package's sampler.
 The instances of the robust kernels are shared with tests/test_torch_robust.py,
 which holds the plain versions against the JAX package on the CPU, and with
 tests/test_torch_robust_network.py, which holds the count-rule kernel's
@@ -27,8 +29,10 @@ import pytest
 import torch
 
 from distributed_optimization_tpu_torch.ops import fc_kernels as fk
+from distributed_optimization_tpu_torch.ops import prng, sampling
 from distributed_optimization_tpu_torch.ops import ring_kernels as rk
 from distributed_optimization_tpu_torch.ops import robust_kernels as bk
+from distributed_optimization_tpu_torch.ops import sampling_kernels as sk
 from distributed_optimization_tpu_torch.parallel.topology import neighbor_table
 
 COUNT_RULES = ("trimmed_mean", "median")
@@ -486,6 +490,8 @@ GRAPH_RUNS = {
     "robust-trimmed-mean-fused": dict(partition="shuffled", attack="sign_flip", n_byzantine=2,
                                       attack_scale=2.0, aggregation="trimmed_mean", robust_b=1,
                                       robust_impl="fused", mixing_impl="pallas"),
+    "gt-ring-pallas": dict(algorithm="gradient_tracking", mixing_impl="pallas"),
+    "extra-ring-pallas": dict(algorithm="extra", mixing_impl="pallas"),
 }
 
 
@@ -505,7 +511,7 @@ def graph_data():
 
 
 def _launch_counts():
-    return {name: n for mod in (rk, fk, bk) for name, n in mod.LAUNCHES.items()}
+    return {name: n for mod in (rk, fk, bk, sk) for name, n in mod.LAUNCHES.items()}
 
 
 def _counted_run(cfg, ds, f_opt, **kw):
@@ -571,14 +577,18 @@ def test_cuda_graph_run_is_bitwise_its_measured_run(cuda_device, graph_data, nam
     np.testing.assert_array_equal(graph.history.consensus_error, eager.history.consensus_error)
     np.testing.assert_array_equal(graph.final_models, eager.final_models)
     assert graph_launches == eager_launches
-    # The kernels each path launches every iteration (the Byzantine rows of
-    # the robust run keep the benign ring_mix); ADMM once more at init.
-    per_iteration = {"dsgd-ring-pallas": ["fused_ring_dsgd_step"], "dsgd-fc-pallas": ["fc_mix"],
-                     "admm-ring-pallas": ["ring_neighbor_sum"],
-                     "robust-trimmed-mean-fused": ["make_fused_robust_dsgd_step", "ring_mix"]}
+    # The kernels each path launches every iteration, and how often (the
+    # Byzantine rows of the robust run keep the benign ring_mix; GT mixes
+    # twice); ADMM once more at init. Every run draws a gather batch
+    # (L = 100 > 64) once an iteration.
+    per_iteration = {"dsgd-ring-pallas": {"fused_ring_dsgd_step": 1},
+                     "dsgd-fc-pallas": {"fc_mix": 1}, "admm-ring-pallas": {"ring_neighbor_sum": 1},
+                     "robust-trimmed-mean-fused": {"make_fused_robust_dsgd_step": 1, "ring_mix": 1},
+                     "gt-ring-pallas": {"ring_mix": 2}, "extra-ring-pallas": {"ring_mix": 1}}
     want = {k: 0 for k in graph_launches}
-    for kernel in per_iteration.get(name, []):
-        want[kernel] = T + name.startswith("admm")
+    for kernel, times in per_iteration.get(name, {}).items():
+        want[kernel] = times * T + name.startswith("admm")
+    want["sample_batch_indices"] = T
     assert graph_launches == want
     assert np.all(np.isfinite(graph.history.objective))
     assert not graph.history.time_measured and eager.history.time_measured
@@ -639,3 +649,75 @@ def test_cuda_capture_reaches_no_synchronize(cuda_device, graph_data, name, monk
     base, ds, f_opt = graph_data[kw.get("partition", "sorted")]
     res, _ = _counted_run(base.replace(n_iterations=150, **kw), ds, f_opt)
     assert not reached and np.all(np.isfinite(res.history.objective))
+
+
+# The sampling kernels' inputs (N, L, b): the main path (dense), the parity
+# path (gather), the robust cell, a shard shorter than the batch (indices
+# tiled), one row, more rows than a block has threads, and a float64 shard
+# past 48 KB of shared memory.
+SAMPLING_SHAPES = [(256, 49, 16), (25, 500, 16), (256, 50, 16), (9, 7, 16), (5, 1, 4),
+                   (6, 1100, 16), (4, 7000, 16)]
+
+
+def _sampling_n_valid(cuda_device, n, L, b):
+    """Full shards but three: empty, 3 rows (or L) and min(b − 1, L)."""
+    nv = torch.full((n,), L, dtype=torch.int64, device=cuda_device)
+    nv[1], nv[2], nv[3 % n] = 0, min(3, L), min(b - 1, L)
+    return nv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", SAMPLING_SHAPES)
+def test_cuda_sampling_kernels_bitwise_equal_the_twin(cuda_device, shape, dtype):
+    n, L, b = shape
+    nv = _sampling_n_valid(cuda_device, n, L, b)
+    seeds = (0, 42, 2**31 - 1) + ((2**40 + 5,) if dtype == torch.float64 else ())
+    t = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    for seed in seeds:
+        run_key = prng.key(seed, x64=dtype == torch.float64)
+        for slot in (0, 1, 2):
+            key = prng.fold_in(run_key, slot)
+            for counter in (0, 2**31 - 1, 2**32 - 1):
+                t.fill_(counter)
+                assert torch.equal(sk.sample_worker_batch_weights(key, t, nv, L, b, dtype),
+                                   sampling.sample_worker_batch_weights(key, t, nv, L, b, dtype))
+                got = sk.sample_batch_indices(key, t, nv, L, b, dtype)
+                want = sampling.sample_batch_indices(key, t, nv, L, b, dtype)
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), (seed, slot, counter)
+
+
+@pytest.mark.cuda
+def test_cuda_sampling_kernel_reads_t_from_the_device(cuda_device):
+    """A captured launch replays with the counter's current value."""
+    nv = _sampling_n_valid(cuda_device, 256, 49, 16)
+    key = prng.fold_in(prng.key(203, x64=False), 0)
+    t = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    sk.sample_worker_batch_weights(key, t, nv, 49, 16, torch.float32)
+    sk.reset_launch_counts()
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        out = sk.sample_worker_batch_weights(key, t, nv, 49, 16, torch.float32)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    for counter in (5, 6, 2**31):
+        t.fill_(counter)
+        graph.replay()
+        assert torch.equal(out, sampling.sample_worker_batch_weights(key, counter, nv, 49, 16,
+                                                                     torch.float32))
+    assert sk.LAUNCHES["sample_worker_batch_weights"] == 3
+    graph.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_sampling_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    nv = torch.full((4,), 10, dtype=torch.int64, device=cuda_device)
+    t = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    key = prng.fold_in(prng.key(1, x64=False), 0)
+    with pytest.raises(TypeError, match="t must be"):
+        sk.sample_worker_batch_weights(key, 3, nv, 10, 4, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        sk.sample_batch_indices(key, t, nv, 40_000, 4, torch.float64)
+    with pytest.raises(ValueError, match="int64"):
+        sk.sample_worker_batch_weights(key, t, nv.int(), 10, 4, torch.float32)

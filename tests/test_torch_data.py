@@ -153,7 +153,9 @@ def test_metrics_match_the_reference():
 
 def test_config_refuses_what_the_port_lacks():
     with pytest.raises(ValueError, match="does not have it yet"):
-        ExperimentConfig(algorithm="gradient_tracking")
+        ExperimentConfig(algorithm="choco")
+    with pytest.raises(ValueError, match="does not have it yet"):
+        ExperimentConfig(algorithm="push_sum")
     with pytest.raises(ValueError, match="does not have it yet"):
         ExperimentConfig(mixing_impl="sparse")
     with pytest.raises(ValueError, match="does not have it yet"):

@@ -37,11 +37,12 @@ from distributed_optimization_tpu_torch.ops import (
     ring_kernels,
     robust_kernels,
 )
+from distributed_optimization_tpu_torch.ops import prng
 from distributed_optimization_tpu_torch.ops.sampling import (
-    row_scores,
+    gather_batches,
+    masked_scores,
     sample_batch_indices,
     sample_worker_batch_weights,
-    sample_worker_batches,
     threefry2x32,
 )
 from distributed_optimization_tpu_torch.utils.data import stack_shards
@@ -64,24 +65,28 @@ def test_threefry_takes_a_tensor_counter_word():
 @pytest.mark.parametrize("n_local", [7, 13])
 @pytest.mark.parametrize("t", COUNTERS)
 def test_tensor_counter_samples_the_int_counter_batches(t, n_local):
-    """Dense weights, gather indices and gathered rows at an odd L, with a
-    full, a short, a tiny and an empty shard."""
+    """Scores, dense weights, gather indices and gathered rows at an odd L,
+    with a full, a short, a tiny and an empty shard, in both dtypes."""
     n_valid = torch.tensor([n_local, n_local - 2, 2, 0])
     tt = torch.tensor([t])
-    assert torch.equal(row_scores(203, 1, tt, n_valid, n_local),
-                       row_scores(203, 1, t, n_valid, n_local))
-    for b in (1, 4, 16):
-        assert torch.equal(
-            sample_worker_batch_weights(203, 0, tt, n_valid, n_local, b, torch.float64),
-            sample_worker_batch_weights(203, 0, t, n_valid, n_local, b, torch.float64))
-        got = sample_batch_indices(203, 0, tt, n_valid, n_local, b, torch.float64)
-        want = sample_batch_indices(203, 0, t, n_valid, n_local, b, torch.float64)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
-    X = torch.randn((4, n_local, 3), dtype=torch.float64)
-    y = torch.randn((4, n_local), dtype=torch.float64)
-    got = sample_worker_batches(203, 0, tt, X, y, n_valid, 5)
-    want = sample_worker_batches(203, 0, t, X, y, n_valid, 5)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for dtype in (torch.float32, torch.float64):
+        key = prng.key(203, x64=dtype == torch.float64)
+        slot0, slot1 = prng.fold_in(key, 0), prng.fold_in(key, 1)
+        assert torch.equal(masked_scores(slot1, tt, n_valid, n_local, dtype),
+                           masked_scores(slot1, t, n_valid, n_local, dtype))
+        for b in (1, 4, 16):
+            assert torch.equal(
+                sample_worker_batch_weights(slot0, tt, n_valid, n_local, b, dtype),
+                sample_worker_batch_weights(slot0, t, n_valid, n_local, b, dtype))
+            got = sample_batch_indices(slot0, tt, n_valid, n_local, b, dtype)
+            want = sample_batch_indices(slot0, t, n_valid, n_local, b, dtype)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        X = torch.randn((4, n_local, 3), dtype=dtype)
+        y = torch.randn((4, n_local), dtype=dtype)
+        got = sample_batch_indices(slot0, tt, n_valid, n_local, 5, dtype)[0]
+        want = sample_batch_indices(slot0, t, n_valid, n_local, 5, dtype)[0]
+        assert all(torch.equal(g, w) for g, w in zip(gather_batches(X, y, got),
+                                                     gather_batches(X, y, want)))
 
 
 @pytest.fixture(scope="module")

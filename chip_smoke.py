@@ -45,16 +45,22 @@ Phases:
      the library column is empty; the port's multi-op gather form is timed
      beside it.
 3. sampling: the two sampling kernels (``ops/sampling_kernels.py``: the dense
-   form's [N, L] weights, the gather form's [N, b] indices and weights; one
-   launch a gradient call, no pallas_call behind them) bitwise equal to the
-   plain twin of ``ops/sampling.py`` in both dtypes, at the main path's
+   form's [N, L] weights, the gather form's [N, b] indices and weights and
+   its gathered rows Xb [N, b, d] and yb [N, b]; one launch a gradient call,
+   no pallas_call behind them) bitwise equal to the plain twin of
+   ``ops/sampling.py`` in both dtypes (Xb and yb to ``gather_batches`` of
+   the twin's indices, d=81), at the main path's
    input (N=256, L=49, b=16), the parity path's (N=25, L=500) and the robust
    cell's (N=256, L=50), each with shards of 0, 3 and b − 1 rows, seeds 0,
    42, 2³¹ − 1 (and 2⁴⁰ + 5 in float64), slots 0–2 and t = 0 and 2³¹ − 1;
    the known-answer digests of the JAX package's draws (``KNOWN_ANSWERS``,
    computed with jax 0.9.0) of the scores, weights and indices; and each
    kernel's times at its path's input beside its plain twin and its bound
-   (Threefry rounds and rank compares over the INT32 rate).
+   (Threefry rounds and a top-k selection over the INT32 rate), and
+   ``torch.topk`` of the same scores in a graph as a yardstick of the
+   selection alone; and the gather form's plan past 1,024 rows (L = 1,100
+   and 7,000): one block with 8 rows a thread against a thread block
+   cluster of a thread a row, both bitwise the twin, timed in turns.
 4. reference: small float64 runs on the card (fused ring kernel; ADMM
    through ``ring_neighbor_sum``; fused robust kernel under sign-flip with
    trimmed_mean and clipped_gossip) against the same runs on the CPU (plain
@@ -156,7 +162,14 @@ builds within N·ε·max|x| of the plain version at every fc shape in both
 dtypes, times both in turns beside the floor, the bound and ``ring_mix``
 on the same array (one read and one write of it with no reduction, which
 splits the time over the floor), and counts the lines where this tree is
-slower than the baseline's faster turn.
+slower than the baseline's faster turn; ``sampling_ab`` (``--phases
+card,sampling_ab --sampling-baseline PATH``) binds another
+``sampling_kernels.cu`` through the parent's C interface (sample_weights_*,
+sample_indices_*), holds both forms bitwise to it at the sampling inputs
+(the gathered rows against ``gather_batches`` of its indices), and times
+each form's whole sampling step in a graph in turns (the parent's gather
+step: its kernel and two ``take_along_dim`` launches). ``profile`` also
+traces the parity run (N=25, gather sampling).
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -182,8 +195,9 @@ PHASES = ("card", "kernels", "sampling", "reference", "parity", "main", "mixing"
 # ring_kernels.cu; robust_ab (with --robust-baseline), the fused robust
 # kernels against another build of robust_kernels.cu; fc_ab (with --fc-baseline), the fc
 # kernels against another build of fc_kernels.cu with the parent's C
-# interface.
-OPTIONAL_PHASES = ("profile", "ring_ab", "robust_ab", "fc_ab")
+# interface; sampling_ab (with --sampling-baseline), both sampling forms
+# against another build of sampling_kernels.cu.
+OPTIONAL_PHASES = ("profile", "ring_ab", "robust_ab", "fc_ab", "sampling_ab")
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; 67 TFLOP/s float32 and
 # 34 TFLOP/s float64 outside the tensor cores.
@@ -234,7 +248,7 @@ SOURCES = {
     "fc_neighbor_sum": "fc_kernels.cu", "make_fused_robust_aggregator": "robust_kernels.cu",
     "make_fused_robust_dsgd_step": "robust_kernels.cu",
     "sample_worker_batch_weights": "sampling_kernels.cu",
-    "sample_batch_indices": "sampling_kernels.cu",
+    "sample_worker_batches": "sampling_kernels.cu",
 }
 REPLACES = {
     "fused_ring_dsgd_step": f"{PALLAS}:143", "ring_mix": f"{PALLAS}:137",
@@ -244,7 +258,7 @@ REPLACES = {
     # No pallas_call stands behind the sampling kernels: they take the place
     # of the XLA code of the JAX package's sampler.
     "sample_worker_batch_weights": "distributed_optimization_tpu/ops/sampling.py:79",
-    "sample_batch_indices": "distributed_optimization_tpu/ops/sampling.py:56",
+    "sample_worker_batches": "distributed_optimization_tpu/ops/sampling.py:122",
 }
 # Floating-point operations per element of the [N, d] output.
 OPS_PER_ELEMENT = {"fused_ring_dsgd_step": 4, "ring_mix": 3, "ring_neighbor_sum": 1,
@@ -295,9 +309,18 @@ SAMPLING_COUNTERS = (0, 2**31 - 1)
 SAMPLING_SLOTS = (0, 1, 2)  # slots 0 … τ−1 at the tracking phase's τ = 3
 # Each sampling kernel's record: its path's input, float32.
 SAMPLING_RECORD = {"sample_worker_batch_weights": ("main", 256, 49, 16),
-                   "sample_batch_indices": ("parity", 25, 500, 16)}
+                   "sample_worker_batches": ("parity", 25, 500, 16)}
 SAMPLING_PATHS = {"sample_worker_batch_weights": "main: dsgd, ring, N=256, dense, once a grad call",
-                  "sample_batch_indices": "parity: dsgd, ring, N=25, gather, once a grad call"}
+                  "sample_worker_batches": "parity: dsgd, ring, N=25, gather, once a grad call"}
+# The width of a shard's rows on the parity and main paths (80 features and
+# the bias): the gather form's X [N, L, d].
+SAMPLING_D = 81
+# Each form's path: the input its path runs, float32 (sampling_ab's timing).
+SAMPLING_FORM_PATH = {"dense": "main", "gather": "parity"}
+# The gather form's plan past a block's 1,024 threads, (N, L) at b = 16:
+# one block with 8 rows a thread (the launcher's plan up to 8,192 rows)
+# against a thread block cluster of a thread a row, timed in turns.
+SAMPLING_PLAN_SHAPES = ((4, 1100), (25, 1100), (4, 7000), (25, 7000))
 # Known answers: sha256 (first 16 hex digits) of the JAX package's draws with
 # jax 0.9.0 at (seed, slot, t, dtype, N, L, b), n_valid as sampling_n_valid
 # gives it: the masked uniform scores [N, L] (ops/sampling.py's
@@ -902,31 +925,51 @@ def sampling_n_valid(torch, n: int, L: int, b: int):
     return nv
 
 
-def sampling_bound(form: str, n: int, L: int, b: int, itemsize: int):
+def sampling_bound(form: str, n: int, L: int, b: int, itemsize: int, d: int = SAMPLING_D):
     """(ms, 'bytes' or 'operations') for one draw, in either form: 1 + N +
     N·L Threefry calls, the mantissa of each row (3 operations) and a top-k
     selection of each worker's k = min(b, L) rows, L·⌈log2 k⌉ compares (a
-    heap of k; the kernel's L² rank is its design, not the function's
-    need), against t and n_valid read once and the output written once."""
-    select = n * L * max(1, math.ceil(math.log2(min(b, L))))
+    heap of k), against t and n_valid read once and the output written
+    once: the dense form's [N, L] weights; the gather form's k distinct
+    rows of X and y a worker read, Xb [N, b, d], yb and the weights written."""
+    k = min(b, L)
+    select = n * L * max(1, math.ceil(math.log2(k)))
     ops = THREEFRY_OPS * (1 + n + n * L) + 3 * n * L + select
-    out = n * L * itemsize if form == "sample_worker_batch_weights" else n * b * (8 + itemsize)
-    t_bytes = (8 + 8 * n + out) / PEAK_BYTES_PER_S * 1e3
+    if form == "sample_worker_batch_weights":
+        moved = n * L * itemsize
+    else:
+        moved = n * k * (d + 1) * itemsize + n * b * (d + 2) * itemsize
+    t_bytes = (8 + 8 * n + moved) / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_INT32_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sampling_rows(torch, n: int, L: int, dtype):
+    """The gather form's shards: X [N, L, SAMPLING_D] and y [N, L], from a seed."""
+    gen = torch.Generator(device="cuda").manual_seed(n * 100_003 + L)
+    X = torch.randn((n, L, SAMPLING_D), generator=gen, device="cuda", dtype=dtype)
+    return X, torch.randn((n, L), generator=gen, device="cuda", dtype=dtype)
+
+
+def _same(torch, got, want) -> bool:
+    return all(torch.equal(g, h) for g, h in zip(got, want))
 
 
 def phase_sampling(torch, np, sk, sampling, prng):
     """The sampling kernels against their plain twin on the card, bitwise, in
     both forms and dtypes at every input of SAMPLING_SHAPES, seed, slot and
-    counter; the known-answer digests of the JAX package's draws; and each
-    kernel's times at its path's input. Returns the kernels' records."""
+    counter: the dense weights, the gather form's indices and weights, and
+    its gathered rows against ``gather_batches`` of the twin's indices; the
+    known-answer digests of the JAX package's draws; each kernel's times at
+    its path's input, and ``torch.topk`` of the same scores in a graph as a
+    yardstick of the selection alone. Returns the kernels' records."""
     t = torch.zeros(1, dtype=torch.int64, device="cuda")
     checked = 0
     for label, n, L, b in SAMPLING_SHAPES:
         nv = sampling_n_valid(torch, n, L, b)
         for dname, seeds in SAMPLING_SEEDS.items():
             dtype = getattr(torch, dname)
+            X, y = sampling_rows(torch, n, L, dtype)
             for seed in seeds:
                 run_key = prng.key(seed, x64=dtype == torch.float64)
                 for slot in SAMPLING_SLOTS:
@@ -937,14 +980,17 @@ def phase_sampling(torch, np, sk, sampling, prng):
                         w = sk.sample_worker_batch_weights(key, t, nv, L, b, dtype)
                         check(torch.equal(w, sampling.sample_worker_batch_weights(
                             key, t, nv, L, b, dtype)), f"sampling weights {what}: not bitwise")
-                        got = sk.sample_batch_indices(key, t, nv, L, b, dtype)
                         want = sampling.sample_batch_indices(key, t, nv, L, b, dtype)
-                        check(all(torch.equal(g, h) for g, h in zip(got, want)),
+                        check(_same(torch, sk.sample_batch_indices(key, t, nv, L, b, dtype), want),
                               f"sampling indices {what}: not bitwise")
+                        check(_same(torch, sk.sample_worker_batches(key, t, X, y, nv, b),
+                                    (*sampling.gather_batches(X, y, want[0]), want[1])),
+                              f"sampling batches {what}: not bitwise gather_batches of the twin")
                         checked += 1
     say(f"[sampling] both kernels bitwise equal to the plain twin at {checked} inputs "
         f"({len(SAMPLING_SHAPES)} shapes, both dtypes, seeds, slots {SAMPLING_SLOTS}, "
-        f"t {SAMPLING_COUNTERS}, ragged shards of 0, 3 and b - 1 rows)")
+        f"t {SAMPLING_COUNTERS}, ragged shards of 0, 3 and b - 1 rows): the weights, the "
+        f"indices, and Xb, yb bitwise gather_batches of the twin's indices (d={SAMPLING_D})")
     for (seed, slot, counter, dname, n, L, b), want in KNOWN_ANSWERS.items():
         dtype = getattr(torch, dname)
         key = prng.fold_in(prng.key(seed, x64=dtype == torch.float64), slot)
@@ -965,13 +1011,18 @@ def phase_sampling(torch, np, sk, sampling, prng):
         t.fill_(12_345)
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).removeprefix("torch.")
-            kernel = lambda: getattr(sk, name)(key, t, nv, L, b, dtype)  # noqa: E731
-            plain = lambda: getattr(sampling, name)(key, t, nv, L, b, dtype)  # noqa: E731
+            X, y = sampling_rows(torch, n, L, dtype)
+            if name == "sample_worker_batch_weights":
+                kernel = lambda: sk.sample_worker_batch_weights(key, t, nv, L, b, dtype)  # noqa: E731
+                plain = lambda: sampling.sample_worker_batch_weights(key, t, nv, L, b, dtype)  # noqa: E731
+            else:
+                kernel = lambda: sk.sample_worker_batches(key, t, X, y, nv, b)  # noqa: E731
+                plain = lambda: sampling.sample_worker_batches(key, t, X, y, nv, b)  # noqa: E731
             got, want = kernel(), plain()
             if isinstance(got, torch.Tensor):
                 got, want = (got,), (want,)
             err = max(float((g.double() - h.double()).abs().max()) for g, h in zip(got, want))
-            check(all(torch.equal(g, h) for g, h in zip(got, want)),
+            check(_same(torch, got, want),
                   f"sampling {name} at its timed input {dname}: not bitwise (max diff {err:.3e})")
             ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
             b_ms, b_by = sampling_bound(name, n, L, b, dtype.itemsize)
@@ -980,7 +1031,129 @@ def phase_sampling(torch, np, sk, sampling, prng):
             if dtype == torch.float32:
                 records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, None,
                                         graph_ms=_in_graph(torch, name, kernel, ms, b_ms))
+                scores = sampling.masked_scores(key, t, nv, L, dtype)
+                topk_ms = graph_ms(torch, lambda: torch.topk(scores, min(b, L), dim=-1))
+                say(f"[sampling] yardstick torch.topk(scores [{n}, {L}], {min(b, L)}) {dname} in a "
+                    f"graph of {TIMED_LAUNCHES}: {topk_ms * 1e3:.3f} us a call (selection only, "
+                    f"not the function)")
+    for n, L in SAMPLING_PLAN_SHAPES:
+        nv = torch.full((n,), L, dtype=torch.int64, device="cuda")
+        cluster = min(8, 1 << math.ceil(math.log2(L / 1024)))
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).removeprefix("torch.")
+            key = prng.fold_in(prng.key(203, x64=dtype == torch.float64), 0)
+            scores = sk.draw_scores(key, 12_345, nv, L, dtype)
+            one = lambda: sk._select(scores, 16, dtype)  # noqa: E731
+            clustered = lambda: sk._select(scores, 16, dtype, cluster=cluster)  # noqa: E731
+            want = sampling.sample_batch_indices(key, 12_345, nv, L, 16, dtype)[0]
+            check(torch.equal(one(), want) and torch.equal(clustered(), want),
+                  f"sampling plan N={n} L={L} {dname}: not the twin's indices")
+            us = [graph_ms(torch, f) * 1e3 for f in (one, clustered, clustered, one)]
+            say(f"[sampling] plan N={n} L={L} b=16 {dname}: one block, 8 rows a thread "
+                f"{us[0]:.3f} {us[3]:.3f} us; a cluster of {cluster} blocks, a thread a row "
+                f"{us[1]:.3f} {us[2]:.3f} us (the selection on the draw's scores, in a graph of "
+                f"{TIMED_LAUNCHES}; both bitwise the twin)")
     return records
+
+
+def phase_sampling_ab(torch, kernels, sampling, prng, baseline: str):
+    """Both sampling forms against the same forms built from ``baseline`` (a
+    sampling_kernels.cu with the parent's C interface: sample_weights_* and
+    sample_indices_*, such as the parent commit's): at the main, parity and
+    robust inputs in both dtypes, this tree's weights and indices bitwise the
+    baseline's, and its gathered Xb and yb bitwise ``gather_batches`` of the
+    baseline's indices. Then each form's whole sampling step in a graph of
+    200 calls (dense: the weights; gather: the baseline's indices and its two
+    ``take_along_dim`` launches against this tree's one launch), in turns
+    baseline, this tree, this tree, baseline, beside the empty kernel in a
+    graph and the bound; counts the lines where this tree is slower than the
+    baseline's faster turn."""
+    import ctypes
+    import pathlib
+
+    build, sk, rk = kernels["build"], kernels["sk"], kernels["rk"]
+    lib = ctypes.CDLL(str(build.build(pathlib.Path(baseline).resolve())))
+    ptr, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
+    for suffix in ("f32", "f64"):
+        for name, outs in (("sample_weights", 1), ("sample_indices", 2)):
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = [ptr, u32, u32, ptr, i64, i64, i64] + [ptr] * (outs + 1)
+            fn.restype = ctypes.c_int
+
+    def base(name, key, t, nv, L, b, *outs):
+        build.call(lib, name, outs[-1], t.data_ptr(), key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF,
+                   nv.data_ptr(), nv.shape[0], L, b, *(o.data_ptr() for o in outs))
+        return outs
+
+    def base_weights(key, t, nv, L, b, dtype):
+        return base("sample_weights", key, t, nv, L, b,
+                    torch.empty((nv.shape[0], L), dtype=dtype, device="cuda"))[0]
+
+    def base_indices(key, t, nv, L, b, dtype):
+        return base("sample_indices", key, t, nv, L, b,
+                    torch.empty((nv.shape[0], b), dtype=torch.int64, device="cuda"),
+                    torch.empty((nv.shape[0], b), dtype=dtype, device="cuda"))
+
+    t = torch.zeros(1, dtype=torch.int64, device="cuda")
+    checked = 0
+    for label, n, L, b in SAMPLING_SHAPES:
+        nv = sampling_n_valid(torch, n, L, b)
+        for dname, seeds in SAMPLING_SEEDS.items():
+            dtype = getattr(torch, dname)
+            X, y = sampling_rows(torch, n, L, dtype)
+            for seed in seeds:
+                key = prng.fold_in(prng.key(seed, x64=dtype == torch.float64), 0)
+                for counter in SAMPLING_COUNTERS:
+                    t.fill_(counter)
+                    what = f"sampling_ab {label} {dname} seed={seed} t={counter}"
+                    check(torch.equal(sk.sample_worker_batch_weights(key, t, nv, L, b, dtype),
+                                      base_weights(key, t, nv, L, b, dtype)),
+                          f"{what}: the weights differ from the baseline's")
+                    idx, w = base_indices(key, t, nv, L, b, dtype)
+                    check(_same(torch, sk.sample_batch_indices(key, t, nv, L, b, dtype), (idx, w)),
+                          f"{what}: the indices differ from the baseline's")
+                    check(_same(torch, sk.sample_worker_batches(key, t, X, y, nv, b),
+                                (*sampling.gather_batches(X, y, idx), w)),
+                          f"{what}: Xb, yb differ from gather_batches of the baseline's indices")
+                    checked += 1
+    one = torch.zeros(1, device="cuda")
+    floor_us = graph_ms(torch, lambda: rk.launch_floor(one.device)) * 1e3
+    say(f"[sampling_ab] baseline {baseline}: this tree bitwise the baseline at {checked} inputs "
+        f"(weights, indices and weights, Xb and yb against gather_batches of its indices); "
+        f"empty kernel {floor_us:.3f} us a launch in a graph of {TIMED_LAUNCHES}")
+    key = prng.fold_in(prng.key(203, x64=False), 0)
+    t.fill_(12_345)
+    slower, lines = [], 0
+    for label, n, L, b in SAMPLING_SHAPES:
+        nv = sampling_n_valid(torch, n, L, b)
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).removeprefix("torch.")
+            X, y = sampling_rows(torch, n, L, dtype)
+            for form in ("dense", "gather"):
+                if form == "dense":
+                    name = "sample_worker_batch_weights"
+                    old = lambda: base_weights(key, t, nv, L, b, dtype)  # noqa: E731
+                    new = lambda: sk.sample_worker_batch_weights(key, t, nv, L, b, dtype)  # noqa: E731
+                    step = "1 launch each"
+                else:
+                    name = "sample_worker_batches"
+                    old = lambda: sampling.gather_batches(  # noqa: E731
+                        X, y, base_indices(key, t, nv, L, b, dtype)[0])
+                    new = lambda: sk.sample_worker_batches(key, t, X, y, nv, b)  # noqa: E731
+                    step = "baseline 3 launches, this tree 1"
+                us = [graph_ms(torch, f) * 1e3 for f in (old, new, new, old)]
+                b_ms, b_by = sampling_bound(name, n, L, b, dtype.itemsize)
+                path = label == SAMPLING_FORM_PATH[form] and dtype == torch.float32
+                lines += 1
+                if max(us[1], us[2]) > min(us[0], us[3]):
+                    slower.append(f"{form} {label} {dname}")
+                say(f"[sampling_ab] {form:6s} {label:6s} N={n:3d} L={L:3d} b={b} {dname}"
+                    f"{' (its path)' if path else ''}: baseline {us[0]:7.3f} {us[3]:7.3f} us  "
+                    f"this tree {us[1]:7.3f} {us[2]:7.3f} us a step in a graph ({step})  "
+                    f"bound {b_ms * 1e3:.4f} us ({b_by})")
+    say(f"[sampling_ab] this tree slower than the baseline's faster turn in {len(slower)} of "
+        f"{lines}: {', '.join(slower) if slower else 'none'}")
+
 
 def _agree(label, card, host, tol=1e-12):
     diff = float(abs(card.history.objective - host.history.objective).max())
@@ -1071,7 +1244,7 @@ def phase_parity(torch, np, pkg, rk, sk):
     _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
     res, launches = _converging_run(torch, pkg, [rk, sk], cfg, ds, f_opt, "parity")
     say("[parity] reference Table I: 9927 iterations")
-    for kernel in ("fused_ring_dsgd_step", "sample_batch_indices"):
+    for kernel in ("fused_ring_dsgd_step", "sample_worker_batches"):
         check(launches[kernel] == cfg.n_iterations,
               f"{kernel} launched {launches[kernel]} times, not T")
     _graph_equals_measured(torch, np, pkg, [rk, sk], cfg, ds, f_opt, "parity", res, launches)
@@ -1557,6 +1730,10 @@ def _profile_run(torch, pkg, steady, cfg, label, T):
 
 
 def phase_profile(torch, pkg, steady, T: int = 300):
+    parity = pkg.ExperimentConfig(problem_type="logistic", algorithm="dsgd", topology="ring",
+                                  n_iterations=T, mixing_impl="pallas", dtype="float32",
+                                  eval_every=1)
+    _profile_run(torch, pkg, steady, parity, "parity N=25 pallas (gather sampling)", T)
     for algorithm in ("dsgd", "admm", "gradient_tracking"):
         for impl in ("pallas", "stencil"):
             cfg = pkg.ExperimentConfig(problem_type="logistic", algorithm=algorithm,
@@ -1576,6 +1753,8 @@ def main(argv=None) -> int:
     ap.add_argument("--robust-baseline",
                     help="the robust_kernels.cu that phase robust_ab compares with")
     ap.add_argument("--fc-baseline", help="the fc_kernels.cu that phase fc_ab compares with")
+    ap.add_argument("--sampling-baseline",
+                    help="the sampling_kernels.cu that phase sampling_ab compares with")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES) - set(OPTIONAL_PHASES)
@@ -1587,6 +1766,8 @@ def main(argv=None) -> int:
         ap.error("phase robust_ab and --robust-baseline go together")
     if ("fc_ab" in phases) != (args.fc_baseline is not None):
         ap.error("phase fc_ab and --fc-baseline go together")
+    if ("sampling_ab" in phases) != (args.sampling_baseline is not None):
+        ap.error("phase sampling_ab and --sampling-baseline go together")
 
     import torch
 
@@ -1646,7 +1827,7 @@ def main(argv=None) -> int:
     }
     counted = {}
     if "parity" in phases:
-        counted["sample_batch_indices"] = phase_parity(torch, np, pkg, rk, sk)
+        counted["sample_worker_batches"] = phase_parity(torch, np, pkg, rk, sk)
         lap("parity")
     if "main" in phases:
         main_res, launches = phase_main(torch, np, pkg, rk, sk, MAIN_ITERATIONS)
@@ -1696,6 +1877,9 @@ def main(argv=None) -> int:
     if "fc_ab" in phases:
         phase_fc_ab(torch, fk, rk, _cuda_build, args.fc_baseline)
         lap("fc_ab")
+    if "sampling_ab" in phases:
+        phase_sampling_ab(torch, kernels, sampling, prng, args.sampling_baseline)
+        lap("sampling_ab")
 
     if records:
         kernel_records = []

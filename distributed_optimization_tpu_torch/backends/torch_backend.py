@@ -291,10 +291,9 @@ def _make_grad_factory(problem, reg, config, X, y, n_valid, schedule, sampling_i
                     slot_key(slot), t, n_valid, L, batch_size, X.dtype
                 )
             else:
-                idx, wts = sampling_kernels.sample_batch_indices(
-                    slot_key(slot), t, n_valid, L, batch_size, X.dtype
+                Xb, yb, wts = sampling_kernels.sample_worker_batches(
+                    slot_key(slot), t, X, y, n_valid, batch_size
                 )
-                Xb, yb = gather_batches(X, y, idx)
             return problem.gradient_weighted(params, Xb, yb, wts, reg)
 
         return grad

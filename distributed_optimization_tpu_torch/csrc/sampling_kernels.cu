@@ -1,56 +1,82 @@
 // Per-worker mini-batch sampling for Hopper (sm_90a), with a plain C interface.
 //
-// No Pallas kernel stands behind this one: it is the counterpart of the XLA
-// code that distributed_optimization_tpu/ops/sampling.py compiles to,
-// sample_worker_batch_weights (the dense form) and sample_worker_batches
-// (the gather form), on the JAX package's random stream. The plain version
-// is distributed_optimization_tpu_torch/ops/sampling.py (on the twin of
-// jax.random in ops/prng.py); the kernels equal it bit for bit.
+// No Pallas kernel stands behind these: they are the counterpart of the XLA
+// code that distributed_optimization_tpu/ops/sampling.py compiles to, on the
+// JAX package's random stream:
+//   dense_kernel   sample_worker_batch_weights (:79), [N, L] weights, where a
+//                  shard has at most 64 rows (every path that resolves to the
+//                  dense form);
+//   select_kernel  sample_worker_batches (:122): the top min(b, L) rows of
+//                  each worker by lax.top_k, tiled up to b, their weights and,
+//                  gathered, the batch's rows Xb [N, b, d] and yb [N, b]; the
+//                  indices alone for sample_batch_indices (:56); and the dense
+//                  weights of a shard longer than 64 rows.
+// The plain versions are distributed_optimization_tpu_torch/ops/sampling.py
+// (on the twin of jax.random in ops/prng.py); the kernels equal them bit for
+// bit.
 //
 // One launch draws every worker's batch for one gradient call:
 //   step key   = threefry2x32(slot key, (0, t mod 2^32))   t read from device memory
 //   worker key = threefry2x32(step key, (0, worker))
 //   row score  = threefry2x32(worker key, (0, row))        uniform's bits
-// then ranks each worker's rows by score, stable descending (ties to the
-// lower row), and writes
-//   sample_weights:  w[N, L] = 1/b_eff on the rows of rank < b_eff, else 0;
-//   sample_indices:  idx[N, b] = the rows of rank 0 .. min(b, L) - 1, tiled
-//                    up to b, and w[N, b] = 1/b_eff on the first b_eff;
-// with b_eff = min(b, n_valid, L).
+// and takes each worker's rows in stable descending order of score (ties to
+// the lower row), with b_eff = min(b, n_valid, L) and weight 1/b_eff.
 //
-// Bound: operations. A Threefry call is 20 rounds of add, rotate, xor and 5
-// key injections, about 75 integer operations; the rank compares each row
-// with every row of its worker, about 3 operations a pair. At the main
-// path's N=256, L=49 that is 256 * (2 * 75 + 49 * 75 + 49 * 49 * 3), 2.8
-// million operations, against 50 KB written. Both are far below what one
-// launch costs, so the launch sets the time.
+// Bound: far below what a launch costs. The function's need is 1 + N + N * L
+// Threefry calls (about 80 integer operations each) and a top-k selection,
+// 0.066 us at the INT32 rate at the main path's N=256, L=49; at the parity
+// path's N=25, L=500 the gathered rows set it, 0.079 us of bytes. What a
+// launch takes is its latency: the load of t, the dependent chain of three
+// Threefry calls (step key, worker key, row score), the selection's
+// barriers and the copy's loads.
 //
 // Design:
-// - One block a worker; its threads take rows l, l + blockDim, ... Each
-//   thread derives the step and worker keys itself (two Threefry calls, no
-//   barrier for them). t comes from the int64 counter on the device that
-//   the run loop advances in place, never from a launch argument, so one
-//   captured CUDA graph serves every iteration; the slot key is two host
-//   words.
-// - The rank runs on the integer mantissa that uniform keeps, in place of
-//   the float: (x0 ^ x1) >> 9 for float32 and (x0 << 32 | x1) >> 12 for
-//   float64. uniform maps the mantissa m to m * 2^-nmant, strictly
-//   increasing, so order and ties are the float's. The score in shared
-//   memory is m + 1, and 0 on padding rows (the plain version's -inf), below
-//   every valid row.
-// - rank[l] = #{m : s[m] > s[l], or s[m] == s[l] and m < l}, counted from
-//   shared memory by the thread of row l: O(L^2 / threads) a block, every
-//   thread of a warp reading the same s[m] (a broadcast).
+// - One selection key a row, shared by both kernels: the score m + 1 (m the
+//   integer mantissa uniform keeps, (x0 ^ x1) >> 9 for float32, (x0 << 32 |
+//   x1) >> 12 for float64; uniform maps m to m * 2^-nmant, strictly
+//   increasing, so order and ties are the float's; 0 on padding rows, the
+//   plain version's -inf, below every valid row) packed above L - 1 - row
+//   in ceil(log2 L) bits, left-aligned in the key word. Keys are distinct,
+//   the largest first in the twin's stable order, ties to the lower row. The
+//   word is 32 bits (float32) or 64 (float64) in dense_kernel; in
+//   select_kernel 64 bits, or 128 for float64 past L = 2,048 (53 + 11 bits).
+// - dense_kernel: one warp a worker, 4 workers a block, no shared memory and
+//   no barrier. n_valid and t are loaded before the key chain; lane i holds
+//   rows i and i + 32 (both Threefry calls in flight together); a row's rank
+//   counts the warp's keys above its own, 64 of them through __shfl_sync;
+//   each worker's L weights are one coalesced row.
+// - select_kernel: one block a worker, a thread a row up to L = 1,024 and 8
+//   rows a thread up to 8,192; above, a thread block cluster of 8 blocks of
+//   1,024 threads with 8 rows a thread (L <= 65,536), the blocks sharing the
+//   leader's (rank 0's) shared memory. Keys stay in registers. The k-th
+//   largest key is found by a radix select over 8-bit digits from the top: a
+//   256-bin histogram of the candidates' digit (shared-memory atomics), one
+//   warp of the leader scans it from the top for the bin that holds the k-th
+//   key. Scores are uniform, so one pass leaves about k + L/128 survivors
+//   (every row at or above that bin's lower bound); passes go on while the
+//   survivors exceed k + 128 (ties; at most one pass a digit). Only valid rows
+//   take part: padding rows follow them in ascending order. The survivors
+//   are compacted into shared memory and each counts the
+//   survivors' keys above its own: its rank, the row's global rank. Then the
+//   indices (top[j mod k], k = min(b, L)), the weights and the gathered rows
+//   of X and y are written: the batch's b * (d + 1) values, every thread
+//   copying in turn with kCopy loads in flight.
+// - t comes from the int64 counter on the device that the run loop advances
+//   in place, never from a launch argument, so one captured CUDA graph
+//   serves every iteration; the slot key is two host words.
 // - The weight is 1/max(b_eff, 1) in the run's type, rounded to float32 and
 //   back (the JAX sampler returns float32 weights, which the run casts),
 //   with the round-to-nearest intrinsics.
 //
-// Each launch adds one to its kernel's slot of launch_counts.cuh (slot 0
-// sample_weights, 1 sample_indices: the order of KERNELS in
-// ops/sampling_kernels.py). The kernels allocate nothing, launch on the
-// caller's stream and return cudaGetLastError(); a shard too long for
-// shared memory returns cudaErrorInvalidValue.
+// Each launch adds one to its kernel's slot of launch_counts.cuh (slot 0 the
+// dense weights, either kernel; 1 the gather form: the order of KERNELS in
+// ops/sampling_kernels.py); select_top, an entry point for the tests that
+// ranks given scores, counts nothing. The kernels allocate nothing, launch on
+// the caller's stream and return cudaGetLastError(); a shard of more than
+// 65,536 rows, or a batch whose survivors do not fit in a block's shared
+// memory, returns cudaErrorInvalidValue.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -58,11 +84,24 @@
 
 #include "launch_counts.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+using u128 = unsigned __int128;
+
 constexpr int kSlotWeights = 0;
-constexpr int kSlotIndices = 1;
+constexpr int kSlotBatches = 1;
+constexpr int kNoSlot = -1;
+constexpr int kWarpsPerBlock = 4;        // dense_kernel: workers a block
+constexpr int kDenseMaxRows = 64;        // dense_kernel: two rows a lane
 constexpr int kMaxThreads = 1024;
+constexpr int kMaxCluster = 8;           // the portable cluster size
+constexpr int kWideRows = 8;             // rows a thread past 1,024 rows
+constexpr int64_t kMaxRows = int64_t{kMaxCluster} * kMaxThreads * kWideRows;  // 65,536
+constexpr int kBins = 256;
+constexpr int kSurvivorSlack = 128;      // survivors beyond k that end the radix passes
+constexpr int kCopy = 4;                 // gathered values a thread loads at once
 constexpr size_t kDefaultSharedBytes = 48 * 1024;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB, the most a block takes on sm_90
 
@@ -90,14 +129,16 @@ __device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1, uint32_t
   return make_uint2(x0, x1);
 }
 
-// The mantissa uniform keeps, plus one (0 is the padding rows' score).
+// The mantissa uniform keeps, plus one (0 is the padding rows' score), in
+// kBits bits; the dense kernel's key word; the weight.
 template <typename Real>
 struct Score;
 
 template <>
 struct Score<float> {
-  using type = uint32_t;
-  static __device__ __forceinline__ type of(uint2 w) { return ((w.x ^ w.y) >> 9) + 1u; }
+  static constexpr int kBits = 24;
+  using DenseKey = uint32_t;
+  static __device__ __forceinline__ uint64_t of(uint2 w) { return ((w.x ^ w.y) >> 9) + 1u; }
   static __device__ __forceinline__ float weight(int eff) {
     return __fdiv_rn(1.0f, static_cast<float>(eff));
   }
@@ -105,8 +146,9 @@ struct Score<float> {
 
 template <>
 struct Score<double> {
-  using type = uint64_t;
-  static __device__ __forceinline__ type of(uint2 w) {
+  static constexpr int kBits = 53;
+  using DenseKey = uint64_t;
+  static __device__ __forceinline__ uint64_t of(uint2 w) {
     return ((static_cast<uint64_t>(w.x) << 20) | (w.y >> 12)) + 1ull;
   }
   static __device__ __forceinline__ double weight(int eff) {
@@ -114,73 +156,481 @@ struct Score<double> {
   }
 };
 
-template <typename Real, bool kIndices>
-__global__ void sample_kernel(const int64_t* __restrict__ t, uint32_t k0, uint32_t k1,
-                              const int64_t* __restrict__ n_valid, int L, int b,
-                              Real* __restrict__ w, int64_t* __restrict__ idx) {
-  launch_counts::add(kIndices ? kSlotIndices : kSlotWeights);
-  using S = typename Score<Real>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  S* score = reinterpret_cast<S*>(smem);
-  const int worker = blockIdx.x;
-  const uint2 step = threefry2x32(k0, k1, 0u, static_cast<uint32_t>(*t));
-  const uint2 key = threefry2x32(step.x, step.y, 0u, static_cast<uint32_t>(worker));
+// Bits of L - 1 - row: ceil(log2 L).
+__host__ __device__ __forceinline__ int row_bits(int L) {
+  int bits = 0;
+  while (bits < 31 && (1u << bits) < static_cast<uint32_t>(L)) ++bits;
+  return bits;
+}
+
+// The selection key: score above L - 1 - row, left-aligned in the word.
+template <typename Key, int kScoreBits>
+__device__ __forceinline__ Key pack(uint64_t score, uint32_t rev_row, int rbits) {
+  constexpr int kWidth = 8 * sizeof(Key);
+  return (static_cast<Key>(score) << (kWidth - kScoreBits)) |
+         (static_cast<Key>(rev_row) << (kWidth - kScoreBits - rbits));
+}
+
+// b_eff = min(b, n_valid, L), and 0 for a negative n_valid.
+__device__ __forceinline__ int effective(int64_t nv, int L, int b) {
+  const int k = b < L ? b : L;
+  return nv < 0 ? 0 : (nv < k ? static_cast<int>(nv) : k);
+}
+
+template <typename Real>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    dense_kernel(const int64_t* __restrict__ t, uint32_t k0, uint32_t k1,
+                 const int64_t* __restrict__ n_valid, int n, int L, int b,
+                 Real* __restrict__ w) {
+  launch_counts::add(kSlotWeights);
+  using S = Score<Real>;
+  using Key = typename S::DenseKey;
+  const int lane = threadIdx.x & 31;
+  const int worker = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (worker >= n) return;
   const int64_t nv = n_valid[worker];
-  for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    score[l] = l < nv ? Score<Real>::of(threefry2x32(key.x, key.y, 0u, static_cast<uint32_t>(l)))
-                      : S(0);
+  const uint32_t tt = static_cast<uint32_t>(*t);
+  const uint2 step = threefry2x32(k0, k1, 0u, tt);
+  const uint2 key = threefry2x32(step.x, step.y, 0u, static_cast<uint32_t>(worker));
+  const int rbits = row_bits(L);
+  Key mine[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int l = lane + 32 * h;
+    const uint64_t score =
+        l < nv ? S::of(threefry2x32(key.x, key.y, 0u, static_cast<uint32_t>(l))) : 0;
+    // A row past L keeps key 0: it beats no row (the comparison is strict).
+    mine[h] = l < L ? pack<Key, S::kBits>(score, static_cast<uint32_t>(L - 1 - l), rbits) : 0;
   }
-  __syncthreads();
-  const int eff = static_cast<int>(nv < b ? (nv < L ? nv : L) : min(b, L));
-  const Real inv = Score<Real>::weight(max(eff, 1));
-  const int k = min(b, L);
-  int* top = reinterpret_cast<int*>(score + L);
-  for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    const S s = score[l];
-    int rank = 0;
-#pragma unroll 4
-    for (int m = 0; m < L; ++m) {
-      const S v = score[m];
-      rank += (v > s) | ((v == s) & (m < l));
-    }
-    if (kIndices) {
-      if (rank < k) top[rank] = l;
-    } else {
-      w[static_cast<int64_t>(worker) * L + l] = (l < nv && rank < eff) ? inv : Real(0);
+  int rank[2] = {0, 0};
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const Key other = __shfl_sync(0xFFFFFFFFu, mine[h], j);
+      rank[0] += other > mine[0];
+      rank[1] += other > mine[1];
     }
   }
-  if (kIndices) {
-    __syncthreads();
-    for (int j = threadIdx.x; j < b; j += blockDim.x) {
-      const int64_t at = static_cast<int64_t>(worker) * b + j;
-      idx[at] = top[j % k];
-      w[at] = j < eff ? inv : Real(0);
-    }
+  const int eff = effective(nv, L, b);
+  const Real inv = S::weight(max(eff, 1));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int l = lane + 32 * h;
+    if (l < L) w[static_cast<int64_t>(worker) * L + l] = rank[h] < eff ? inv : Real(0);
   }
 }
 
-template <typename Real, bool kIndices>
-int launch_sample(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
-                  int64_t L, int64_t b, void* w, void* idx, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (L <= 0 || b <= 0 || n > 0x7FFFFFFF || L > 0x7FFFFFFF || b > 0x7FFFFFFF) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// What select_kernel reads and writes; every output may be null.
+template <typename Real>
+struct Args {
+  const int64_t* t;
+  uint32_t k0, k1;
+  const int64_t* n_valid;  // null: every row valid
+  const uint64_t* scores;  // non-null: [N, L] scores in place of the draw (select_top)
+  int L, b, d, slot;
+  const Real* X;  // [N, L, d]; null: no rows gathered
+  const Real* y;  // [N, L]
+  int64_t* idx;   // [N, b]
+  Real* w;        // [N, b], or [N, L] in the weights form
+  Real* Xb;       // [N, b, d]
+  Real* yb;       // [N, b]
+};
+
+// The leader's selection state, then its survivors' keys and rows and the
+// top k rows (in that order in shared memory).
+template <typename Key>
+struct State {
+  Key prefix;     // the candidates' key bits above the current digit
+  Key lower;      // survivors: (key >> p) >= lower
+  Key threshold;  // the need-th largest key (the weights form)
+  int p, krem, count, done;
+  unsigned hist[kBins];
+};
+
+template <typename Key>
+size_t shared_bytes(int cap, int k) {
+  return sizeof(State<Key>) + static_cast<size_t>(cap) * (sizeof(Key) + sizeof(int)) +
+         static_cast<size_t>(k) * sizeof(int);
+}
+
+// A worker in one block: __syncthreads, and the block's own shared memory.
+struct Block {
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
+  static __device__ __forceinline__ int rank() { return 0; }
+  static __device__ __forceinline__ int size() { return 1; }
+  template <typename T>
+  static __device__ __forceinline__ T* leader(T* p) { return p; }
+};
+
+// A worker over a thread block cluster: the cluster's barrier, and the
+// leader's (rank 0's) shared memory through distributed shared memory.
+struct Cluster {
+  static __device__ __forceinline__ void sync() { cg::this_cluster().sync(); }
+  static __device__ __forceinline__ int rank() {
+    return static_cast<int>(cg::this_cluster().block_rank());
   }
-  using S = typename Score<Real>::type;
-  const size_t bytes = L * sizeof(S) + (kIndices ? std::min(b, L) * sizeof(int) : 0);
-  if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = sample_kernel<Real, kIndices>;
+  static __device__ __forceinline__ int size() {
+    return static_cast<int>(cg::this_cluster().num_blocks());
+  }
+  template <typename T>
+  static __device__ __forceinline__ T* leader(T* p) {
+    return cg::this_cluster().map_shared_rank(p, 0);
+  }
+};
+
+// One warp of the leader: find the histogram's bin B that holds the krem-th
+// largest candidate, counting from the top bin; zero the bins; publish the
+// survivors' lower bound and whether the passes end.
+template <typename Key>
+__device__ void scan_histogram(State<Key>* st, int need, int cap) {
+  const int lane = threadIdx.x & 31;
+  const int top_bin = kBins - 1 - 8 * lane;  // this lane's bins, top_bin down to top_bin - 7
+  unsigned c[8];
+  unsigned sum = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    c[j] = st->hist[top_bin - j];
+    st->hist[top_bin - j] = 0;
+    sum += c[j];
+  }
+  unsigned incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned up = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+    if (lane >= off) incl += up;
+  }
+  const int krem = st->krem;
+  const unsigned hit = __ballot_sync(0xFFFFFFFFu, incl >= static_cast<unsigned>(krem));
+  if (lane != __ffs(hit) - 1) return;
+  unsigned above = incl - sum;
+  int bin = top_bin;
+  unsigned in_bin = c[0];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (above + c[j] >= static_cast<unsigned>(krem)) {
+      bin = top_bin - j;
+      in_bin = c[j];
+      break;
+    }
+    above += c[j];
+  }
+  const int survivors = (need - krem) + static_cast<int>(above + in_bin);
+  const Key lower = (st->prefix << 8) | static_cast<Key>(bin);
+  const bool done = survivors <= cap || st->p == 0;
+  st->lower = lower;
+  st->prefix = lower;
+  st->krem = krem - static_cast<int>(above);
+  st->done = done;
+  if (!done) st->p -= 8;
+}
+
+// The row at position i of a worker's order: the selection's, or past the
+// valid rows, the padding row i.
+__device__ __forceinline__ int top_row(const int* top, int i, int need) {
+  return i < need ? top[i] : i;
+}
+
+template <typename Real, typename Key, int R, typename Group, bool kWeights>
+__global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int cap) {
+  if (a.slot != kNoSlot) launch_counts::add(a.slot);
+  using S = Score<Real>;
+  constexpr int kWidth = 8 * sizeof(Key);
+  extern __shared__ __align__(16) unsigned char smem[];
+  State<Key>* st = Group::leader(reinterpret_cast<State<Key>*>(smem));
+  Key* skey = reinterpret_cast<Key*>(st + 1);
+  int* srow = reinterpret_cast<int*>(skey + cap);
+  int* top = srow + cap;
+  const int rank = Group::rank();
+  const int worker = blockIdx.x / Group::size();
+  const int L = a.L, b = a.b;
+  const int64_t nv = a.n_valid != nullptr ? a.n_valid[worker] : L;
+  const uint32_t tt = a.scores == nullptr ? static_cast<uint32_t>(*a.t) : 0u;
+  if (rank == 0) {
+    for (int i = threadIdx.x; i < kBins; i += blockDim.x) st->hist[i] = 0;
+    if (threadIdx.x == 0) {
+      st->prefix = 0;
+      st->p = kWidth - 8;
+      st->count = 0;
+    }
+  }
+  const int eff = effective(nv, L, b);
+  const int k = min(b, L);
+  // Rows that take part: the valid ones. Padding rows (l >= n_valid) follow
+  // every valid row in ascending order, so top[j] = j for n_valid <= j < k.
+  const int valid = a.scores != nullptr ? L : effective(nv, L, L);
+  const int need = kWeights ? eff : min(k, valid);
+  if (threadIdx.x == 0 && rank == 0) st->krem = need;
+
+  // Each thread's rows, their keys in registers.
+  uint2 wkey = make_uint2(0u, 0u);
+  if (a.scores == nullptr) {
+    const uint2 step = threefry2x32(a.k0, a.k1, 0u, tt);
+    wkey = threefry2x32(step.x, step.y, 0u, static_cast<uint32_t>(worker));
+  }
+  const int stride = Group::size() * blockDim.x;
+  const int first = rank * blockDim.x + threadIdx.x;
+  const int rbits = row_bits(L);
+  Key keys[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int l = first + r * stride;
+    uint64_t score = 0;
+    if (l < L) {
+      if (a.scores != nullptr) {
+        score = a.scores[static_cast<int64_t>(worker) * L + l];
+      } else if (l < nv) {
+        score = S::of(threefry2x32(wkey.x, wkey.y, 0u, static_cast<uint32_t>(l)));
+      }
+    }
+    keys[r] = pack<Key, S::kBits>(score, static_cast<uint32_t>(L - 1 - l), rbits);
+  }
+
+  if (need > 0) {  // the same for every block of a worker
+    Group::sync();
+    // Radix select: narrow the candidates a digit a pass.
+    for (;;) {
+      const int p = st->p;
+      const Key prefix = st->prefix;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (first + r * stride < valid && ((keys[r] >> p) >> 8) == prefix) {
+          atomicAdd(&st->hist[static_cast<unsigned>(keys[r] >> p) & 0xFFu], 1u);
+        }
+      }
+      Group::sync();
+      if (rank == 0 && threadIdx.x < 32) scan_histogram(st, need, cap);
+      Group::sync();
+      if (st->done) break;
+    }
+    // Compact the survivors, rank each among them (its global rank).
+    const int p = st->p;
+    const Key lower = st->lower;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int l = first + r * stride;
+      if (l < valid && (keys[r] >> p) >= lower) {
+        const int at = atomicAdd(&st->count, 1);
+        skey[at] = keys[r];
+        srow[at] = l;
+      }
+    }
+    Group::sync();
+    if (rank == 0) {
+      const int survivors = st->count;
+      for (int i = threadIdx.x; i < survivors; i += blockDim.x) {
+        const Key mine = skey[i];
+        int above = 0;
+        for (int j = 0; j < survivors; ++j) above += skey[j] > mine;
+        if (above < need) top[above] = srow[i];
+        if (kWeights && above == need - 1) st->threshold = mine;
+      }
+    }
+    Group::sync();
+  }
+
+  const Real inv = S::weight(max(eff, 1));
+  if (kWeights) {
+    const Key threshold = need > 0 ? st->threshold : Key(0);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int l = first + r * stride;
+      if (l < L) {
+        a.w[static_cast<int64_t>(worker) * L + l] = need > 0 && keys[r] >= threshold ? inv : Real(0);
+      }
+    }
+  } else {
+    for (int j = first; j < b; j += stride) {
+      const int64_t at = static_cast<int64_t>(worker) * b + j;
+      if (a.idx != nullptr) a.idx[at] = top_row(top, j % k, need);
+      if (a.w != nullptr) a.w[at] = j < eff ? inv : Real(0);
+    }
+    if (a.X != nullptr) {
+      // The batch's rows, b of d + 1 values (X's, then y's), in order,
+      // kCopy loads a thread in flight; (row, column) advance by the stride.
+      const int d = a.d, width = d + 1, total = b * width;
+      const Real* __restrict__ X = a.X + static_cast<int64_t>(worker) * L * d;
+      const Real* __restrict__ y = a.y + static_cast<int64_t>(worker) * L;
+      Real* __restrict__ Xb = a.Xb + static_cast<int64_t>(worker) * b * d;
+      Real* __restrict__ yb = a.yb + static_cast<int64_t>(worker) * b;
+      const int step_j = stride / width, step_c = stride - step_j * width;
+      int j = first / width, c = first - j * width;
+      for (int base = first; base < total; base += kCopy * stride) {
+        Real v[kCopy];
+        int at[kCopy];
+#pragma unroll
+        for (int u = 0; u < kCopy; ++u) {
+          at[u] = c < d ? j * d + c : -1 - j;  // Xb's element, or -1 - yb's
+          if (base + u * stride < total) {
+            const int row = top_row(top, j < k ? j : j % k, need);
+            v[u] = c < d ? X[static_cast<int64_t>(row) * d + c] : y[row];
+          }
+          c += step_c;
+          j += step_j;
+          if (c >= width) {
+            c -= width;
+            ++j;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kCopy; ++u) {
+          if (base + u * stride < total) {
+            if (at[u] >= 0) {
+              Xb[at[u]] = v[u];
+            } else {
+              yb[-1 - at[u]] = v[u];
+            }
+          }
+        }
+      }
+    }
+  }
+  // The leader's shared memory outlives every read of it.
+  if (Group::size() > 1) Group::sync();
+}
+
+template <typename Real>
+int launch_kernel(void (*kernel)(Args<Real>, int), int blocks, int cluster, int threads,
+                  size_t bytes, const Args<Real>& a, int cap, void* stream) {
   if (bytes > kDefaultSharedBytes) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int threads = static_cast<int>(std::min<int64_t>(kMaxThreads, (L + 31) / 32 * 32));
-  kernel<<<static_cast<unsigned>(n), threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(t), k0, k1, static_cast<const int64_t*>(n_valid),
-      static_cast<int>(L), static_cast<int>(b), static_cast<Real*>(w),
-      static_cast<int64_t*>(idx));
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(blocks));
+  config.blockDim = dim3(static_cast<unsigned>(threads));
+  config.dynamicSmemBytes = bytes;
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = cluster > 1 ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(&config, kernel, a, cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Real, typename Key, bool kWeights>
+int launch_select_key(const Args<Real>& a, int64_t n, void* stream, int forced_cluster) {
+  const int L = a.L;
+  const int k = std::min(a.b, L);
+  const int cap = k + kSurvivorSlack;
+  const size_t bytes = shared_bytes<Key>(cap, k);
+  if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  // The plan: one block a worker, a thread a row up to 1,024 rows and 8 rows a
+  // thread up to 8,192; past that a cluster of 8 blocks of 1,024 threads, 8 rows
+  // a thread. One block beats a cluster of a thread a row from 1,100 to 7,000
+  // rows (chip_smoke.py's sampling phase times both, forcing the cluster).
+  const int cluster =
+      forced_cluster > 0 ? forced_cluster : (L <= kMaxThreads * kWideRows ? 1 : kMaxCluster);
+  if (L > static_cast<int64_t>(cluster) * kMaxThreads * kWideRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = L <= cluster * kMaxThreads ? 1 : kWideRows;
+  const int per_block = (L + cluster * rows - 1) / (cluster * rows);
+  // Enough threads that a block copies its batch's rows in one round.
+  const int64_t copy = a.X != nullptr ? (a.b * (a.d + 1LL) + kCopy - 1) / kCopy : 0;
+  const int threads = static_cast<int>(
+      (std::min<int64_t>(kMaxThreads, std::max<int64_t>(per_block, copy)) + 31) / 32 * 32);
+  if (n * cluster > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>(n * cluster);
+  if (cluster == 1) {
+    return rows == 1 ? launch_kernel<Real>(select_kernel<Real, Key, 1, Block, kWeights>, blocks,
+                                           1, threads, bytes, a, cap, stream)
+                     : launch_kernel<Real>(select_kernel<Real, Key, kWideRows, Block, kWeights>,
+                                           blocks, 1, threads, bytes, a, cap, stream);
+  }
+  return rows == 1 ? launch_kernel<Real>(select_kernel<Real, Key, 1, Cluster, kWeights>, blocks,
+                                         cluster, threads, bytes, a, cap, stream)
+                   : launch_kernel<Real>(select_kernel<Real, Key, kWideRows, Cluster, kWeights>,
+                                         blocks, cluster, threads, bytes, a, cap, stream);
+}
+
+// The select kernel's key word: 64 bits, or 128 where a float64 score (53
+// bits) and L - 1 - row do not fit in 64. forced_cluster: 0, the plan; 2, 4
+// or 8, a cluster of that many blocks (select_top, to measure the plan).
+template <typename Real, bool kWeights>
+int launch_select(const Args<Real>& a, int64_t n, void* stream, int forced_cluster = 0) {
+  if constexpr (Score<Real>::kBits + 31 > 64) {
+    if (Score<Real>::kBits + row_bits(a.L) > 64) {
+      return launch_select_key<Real, u128, kWeights>(a, n, stream, forced_cluster);
+    }
+  }
+  return launch_select_key<Real, uint64_t, kWeights>(a, n, stream, forced_cluster);
+}
+
+bool refused(int64_t n, int64_t L, int64_t b) {
+  return L <= 0 || b <= 0 || n > 0x7FFFFFFF || L > kMaxRows || b > 0x7FFFFFFF;
+}
+
+template <typename Real>
+int sample_weights(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
+                   int64_t L, int64_t b, void* w, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (refused(n, L, b)) return static_cast<int>(cudaErrorInvalidValue);
+  if (L <= kDenseMaxRows) {
+    const unsigned blocks = static_cast<unsigned>((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+    dense_kernel<Real><<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int64_t*>(t), k0, k1, static_cast<const int64_t*>(n_valid),
+        static_cast<int>(n), static_cast<int>(L), static_cast<int>(b), static_cast<Real*>(w));
+    return static_cast<int>(cudaGetLastError());
+  }
+  Args<Real> a = {};
+  a.t = static_cast<const int64_t*>(t);
+  a.k0 = k0;
+  a.k1 = k1;
+  a.n_valid = static_cast<const int64_t*>(n_valid);
+  a.L = static_cast<int>(L);
+  a.b = static_cast<int>(b);
+  a.slot = kSlotWeights;
+  a.w = static_cast<Real*>(w);
+  return launch_select<Real, true>(a, n, stream);
+}
+
+template <typename Real>
+int sample_batches(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
+                   int64_t L, int64_t b, int64_t d, const void* X, const void* y, void* idx,
+                   void* w, void* Xb, void* yb, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (refused(n, L, b) || (X != nullptr && (d <= 0 || d > 0x7FFFFFFF || b * (d + 1) > 0x7FFFFFFF))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args<Real> a = {};
+  a.t = static_cast<const int64_t*>(t);
+  a.k0 = k0;
+  a.k1 = k1;
+  a.n_valid = static_cast<const int64_t*>(n_valid);
+  a.L = static_cast<int>(L);
+  a.b = static_cast<int>(b);
+  a.d = static_cast<int>(d);
+  a.slot = kSlotBatches;
+  a.X = static_cast<const Real*>(X);
+  a.y = static_cast<const Real*>(y);
+  a.idx = static_cast<int64_t*>(idx);
+  a.w = static_cast<Real*>(w);
+  a.Xb = static_cast<Real*>(Xb);
+  a.yb = static_cast<Real*>(yb);
+  return launch_select<Real, false>(a, n, stream);
+}
+
+template <typename Real>
+int select_top(const void* scores, int64_t n, int64_t L, int64_t b, int64_t cluster, void* idx,
+               void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (refused(n, L, b) || (cluster != 0 && cluster != 2 && cluster != 4 && cluster != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args<Real> a = {};
+  a.scores = static_cast<const uint64_t*>(scores);
+  a.L = static_cast<int>(L);
+  a.b = static_cast<int>(b);
+  a.slot = kNoSlot;
+  a.idx = static_cast<int64_t*>(idx);
+  return launch_select<Real, false>(a, n, stream, static_cast<int>(cluster));
 }
 
 }  // namespace
@@ -189,19 +639,45 @@ extern "C" {
 
 int sample_weights_f32(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
                        int64_t L, int64_t b, void* w, void* stream) {
-  return launch_sample<float, false>(t, k0, k1, n_valid, n, L, b, w, nullptr, stream);
+  return sample_weights<float>(t, k0, k1, n_valid, n, L, b, w, stream);
 }
 int sample_weights_f64(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
                        int64_t L, int64_t b, void* w, void* stream) {
-  return launch_sample<double, false>(t, k0, k1, n_valid, n, L, b, w, nullptr, stream);
+  return sample_weights<double>(t, k0, k1, n_valid, n, L, b, w, stream);
 }
 int sample_indices_f32(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
                        int64_t L, int64_t b, void* idx, void* w, void* stream) {
-  return launch_sample<float, true>(t, k0, k1, n_valid, n, L, b, w, idx, stream);
+  return sample_batches<float>(t, k0, k1, n_valid, n, L, b, 0, nullptr, nullptr, idx, w,
+                               nullptr, nullptr, stream);
 }
 int sample_indices_f64(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
                        int64_t L, int64_t b, void* idx, void* w, void* stream) {
-  return launch_sample<double, true>(t, k0, k1, n_valid, n, L, b, w, idx, stream);
+  return sample_batches<double>(t, k0, k1, n_valid, n, L, b, 0, nullptr, nullptr, idx, w,
+                                nullptr, nullptr, stream);
+}
+int sample_batches_f32(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
+                       int64_t L, int64_t b, int64_t d, const void* X, const void* y, void* w,
+                       void* Xb, void* yb, void* stream) {
+  return sample_batches<float>(t, k0, k1, n_valid, n, L, b, d, X, y, nullptr, w, Xb, yb,
+                               stream);
+}
+int sample_batches_f64(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
+                       int64_t L, int64_t b, int64_t d, const void* X, const void* y, void* w,
+                       void* Xb, void* yb, void* stream) {
+  return sample_batches<double>(t, k0, k1, n_valid, n, L, b, d, X, y, nullptr, w, Xb, yb,
+                                stream);
+}
+// For the tests and the plan's measurement: the top rows of given scores
+// ([N, L] uint64, 0 for padding, at most 2^23 in f32 and 2^52 in f64),
+// tiled to b, as the gather form selects them, under the launcher's plan
+// (cluster 0) or a cluster of 2, 4 or 8 blocks; counts no launch.
+int select_top_f32(const void* scores, int64_t n, int64_t L, int64_t b, int64_t cluster,
+                   void* idx, void* stream) {
+  return select_top<float>(scores, n, L, b, cluster, idx, stream);
+}
+int select_top_f64(const void* scores, int64_t n, int64_t L, int64_t b, int64_t cluster,
+                   void* idx, void* stream) {
+  return select_top<double>(scores, n, L, b, cluster, idx, stream);
 }
 
 }  // extern "C"

@@ -22,7 +22,8 @@ Both forms select the same subsets, as in the JAX package: a worker takes
 the ``b_eff = min(b, n_valid, L)`` valid rows of highest score, ties going
 to the lower row index (a stable descending sort). The dense form returns
 ``[N, L]`` weights carrying ``1/b_eff`` on the chosen rows; the gather form
-returns the chosen rows' indices, which ``gather_batches`` takes. The
+returns the chosen rows' indices, which ``gather_batches`` takes
+(``sample_worker_batches`` does both). The
 weight is ``1/b_eff`` computed in the run dtype, rounded to float32 and
 cast back, as the JAX package's sampler returns float32 weights that its
 backend casts to the run dtype.
@@ -112,4 +113,15 @@ def sample_batch_indices(
 def gather_batches(X: torch.Tensor, y: torch.Tensor, indices: torch.Tensor):
     """``(Xb [N, b, d], yb [N, b])``: each worker's rows at ``indices``."""
     return torch.take_along_dim(X, indices[:, :, None], dim=1), torch.take_along_dim(y, indices, dim=1)
+
+
+def sample_worker_batches(slot_key, t: int | torch.Tensor, X: torch.Tensor, y: torch.Tensor,
+                          n_valid: torch.Tensor, batch_size: int):
+    """``(Xb [N, b, d], yb [N, b], weights [N, b])``: each worker's batch
+    drawn by ``sample_batch_indices`` and gathered from the shards ``X [N, L,
+    d]``, ``y [N, L]``, as the JAX package's function of that name returns
+    it (its weights cast to X's dtype)."""
+    indices, weights = sample_batch_indices(slot_key, t, n_valid, X.shape[1], batch_size,
+                                            X.dtype)
+    return (*gather_batches(X, y, indices), weights)
 

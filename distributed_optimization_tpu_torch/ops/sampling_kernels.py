@@ -3,25 +3,34 @@
 No Pallas kernel stands behind it: it is the counterpart of the XLA code
 that ``distributed_optimization_tpu/ops/sampling.py`` compiles to, on the
 JAX package's random stream. ``sample_worker_batch_weights`` (the dense
-form, ``[N, L]`` weights) and ``sample_batch_indices`` (the gather form,
-``[N, b]`` indices and weights) take the slot key (two host words), the
+form, ``[N, L]`` weights), ``sample_worker_batches`` (the gather form: the
+batch's rows ``Xb [N, b, d]``, ``yb [N, b]`` and weights ``[N, b]``, as the
+JAX function of that name returns them) and ``sample_batch_indices`` (the
+gather form's indices and weights) take the slot key (two host words), the
 iteration counter ``t`` and the shard sizes. For CUDA tensors each launches
-its kernel of ``csrc/sampling_kernels.cu`` on the current stream, or raises;
-for CPU tensors it calls the plain version of ``ops/sampling.py``, which
-the kernel matches bit for bit. On the card ``t`` is the int64 counter of
-one element that the run loop advances in place: the kernel reads it from
-device memory, so a captured CUDA graph replays with the current ``t``.
+a kernel of ``csrc/sampling_kernels.cu`` on the current stream, or raises;
+for CPU tensors it calls the plain version of ``ops/sampling.py``, which the
+kernels match bit for bit. On the card ``t`` is the int64 counter of one
+element that the run loop advances in place: the kernel reads it from device
+memory, so a captured CUDA graph replays with the current ``t``.
 
-The kernel derives the keys of ``fold_in(fold_in(slot_key, t), worker)``,
-draws each row's uniform bits, ranks a worker's rows on their mantissas in
-shared memory (one block a worker) and writes the weights, or the indices
-and weights. A shard takes ``L·4`` (float32) or ``L·8`` (float64) bytes of
-shared memory, plus ``min(b, L)·4`` in the gather form, up to 227 KB.
+The kernels derive the keys of ``fold_in(fold_in(slot_key, t), worker)``
+and draw each row's uniform bits. The dense form (a shard of at most 64
+rows) ranks a worker's rows in one warp; the gather form, and the dense
+form of a longer shard, select each worker's top rows by a radix select on
+one key a row (the score's mantissa above the reversed row index) in one
+block or a thread block cluster; the gather form then copies the rows. A
+shard takes at most ``MAX_ROWS`` rows.
+
+``select_mirror`` repeats that selection in PyTorch ops on integer scores,
+for the tests; ``_select`` runs the kernel's selection on given scores on the
+card. Nothing on a run's path calls either.
 
 The shared library is built at first use by ``ops/_cuda_build.py``.
 ``LAUNCHES`` maps each kernel to its launches on the card, which the kernel
-counts where it runs (``_cuda_build.LaunchCounts``); the plain versions
-count nothing.
+counts where it runs (``_cuda_build.LaunchCounts``); the gather form counts
+under ``sample_worker_batches`` whether it writes rows or indices; the plain
+versions count nothing.
 """
 
 from __future__ import annotations
@@ -36,19 +45,30 @@ from distributed_optimization_tpu_torch.ops import _cuda_build, sampling
 SOURCE = _cuda_build.CSRC / "sampling_kernels.cu"
 
 # In the order of the kernels' launch-count slots (csrc/sampling_kernels.cu).
-KERNELS = ("sample_worker_batch_weights", "sample_batch_indices")
+KERNELS = ("sample_worker_batch_weights", "sample_worker_batches")
+
+# The kernels' constants (csrc/sampling_kernels.cu).
+MAX_ROWS = 65_536       # 8 blocks of a cluster x 1,024 threads x 8 rows a thread
+BINS = 256              # a radix digit of 8 bits
+SURVIVOR_SLACK = 128    # survivors beyond k that end the radix passes
+# Bits of the selection key's score, the mantissa plus one: 2^23 (float32)
+# and 2^52 (float64) at most.
+SCORE_BITS = {torch.float32: 24, torch.float64: 53}
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = _cuda_build.load(SOURCE)
     ptr, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
+    head = [ptr, u32, u32, ptr, i64, i64, i64]  # t, k0, k1, n_valid, N, L, b
     for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"sample_weights_{suffix}")
-        fn.argtypes = [ptr, u32, u32, ptr, i64, i64, i64, ptr, ptr]
-        fn.restype = ctypes.c_int
-        fn = getattr(lib, f"sample_indices_{suffix}")
-        fn.argtypes = [ptr, u32, u32, ptr, i64, i64, i64, ptr, ptr, ptr]
+        for name, rest in (("sample_weights", [ptr]), ("sample_indices", [ptr, ptr]),
+                           ("sample_batches", [i64, ptr, ptr, ptr, ptr, ptr])):
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = head + rest + [ptr]
+            fn.restype = ctypes.c_int
+        fn = getattr(lib, f"select_top_{suffix}")
+        fn.argtypes = [ptr, i64, i64, i64, i64, ptr, ptr]
         fn.restype = ctypes.c_int
     return lib
 
@@ -62,10 +82,10 @@ def reset_launch_counts() -> None:
 
 def _check(slot_key, t, n_valid: torch.Tensor, n_local: int, batch_size: int,
            dtype: torch.dtype) -> None:
-    """What the kernel takes: a slot key of two words, ``t`` an int64
+    """What the kernels take: a slot key of two words, ``t`` an int64
     one-element tensor and ``n_valid`` a contiguous int64 ``[N]`` tensor,
-    both on the card. Whether the shard fits in shared memory is the
-    launcher's check (csrc/sampling_kernels.cu)."""
+    both on the card. The shard's length limit is the launcher's check
+    (csrc/sampling_kernels.cu)."""
     if isinstance(slot_key, torch.Tensor) or len(slot_key) != 2:
         raise TypeError("the slot key must be two host words (ints)")
     if not isinstance(t, torch.Tensor) or t.dtype != torch.int64 or t.numel() != 1:
@@ -80,13 +100,17 @@ def _check(slot_key, t, n_valid: torch.Tensor, n_local: int, batch_size: int,
         raise ValueError(f"the shard length ({n_local}) and batch ({batch_size}) must be positive")
 
 
-def _call(name: str, out: torch.Tensor, slot_key, t, n_valid, n_local, batch_size, *ptrs):
+def _refused(name: str, n_local: int, batch_size: int, dtype) -> str:
+    return (f"{name} refuses a shard of {n_local} rows with a batch of {batch_size} in {dtype}: "
+            f"a shard takes at most {MAX_ROWS} rows, and min(b, L) + {SURVIVOR_SLACK} "
+            f"survivors must fit in the shared memory of one block")
+
+
+def _call(name: str, out: torch.Tensor, slot_key, t, n_valid, n_local, batch_size, *args):
     k0, k1 = slot_key
     _cuda_build.call(_library(), name, out, t.data_ptr(), k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF,
-                     n_valid.data_ptr(), n_valid.shape[0], n_local, batch_size, *ptrs,
-                     invalid=f"{name} refuses a shard of {n_local} rows with a batch of "
-                     f"{batch_size} in {out.dtype}: a worker's scores must fit in the shared "
-                     f"memory of one block")
+                     n_valid.data_ptr(), n_valid.shape[0], n_local, batch_size, *args,
+                     invalid=_refused(name, n_local, batch_size, out.dtype))
 
 
 def sample_worker_batch_weights(slot_key, t, n_valid: torch.Tensor, n_local: int,
@@ -113,3 +137,145 @@ def sample_batch_indices(slot_key, t, n_valid: torch.Tensor, n_local: int, batch
     _call("sample_indices", w, slot_key, t, n_valid, n_local, batch_size, idx.data_ptr(),
           w.data_ptr())
     return idx, w
+
+
+def sample_worker_batches(slot_key, t, X: torch.Tensor, y: torch.Tensor, n_valid: torch.Tensor,
+                          batch_size: int):
+    """``(Xb [N, b, d], yb [N, b], weights [N, b])``: each worker's batch,
+    its rows gathered from the shards ``X [N, L, d]`` and ``y [N, L]``."""
+    if n_valid.device.type == "cpu":
+        return sampling.sample_worker_batches(slot_key, t, X, y, n_valid, batch_size)
+    if X.dim() != 3 or not X.is_contiguous():
+        raise ValueError(f"X must be a contiguous [N, L, d] tensor, got shape {tuple(X.shape)}")
+    n, n_local, d = X.shape
+    _check(slot_key, t, n_valid, n_local, batch_size, X.dtype)
+    _cuda_build.check_like(y, X, "y")
+    if y.shape != (n, n_local) or n_valid.shape[0] != n or X.device != n_valid.device:
+        raise ValueError(f"X {tuple(X.shape)}, y {tuple(y.shape)} and n_valid "
+                         f"{tuple(n_valid.shape)} must share N and L and lie on one card")
+    Xb = torch.empty((n, batch_size, d), dtype=X.dtype, device=X.device)
+    yb = torch.empty((n, batch_size), dtype=X.dtype, device=X.device)
+    w = torch.empty((n, batch_size), dtype=X.dtype, device=X.device)
+    _call("sample_batches", w, slot_key, t, n_valid, n_local, batch_size, d, X.data_ptr(),
+          y.data_ptr(), w.data_ptr(), Xb.data_ptr(), yb.data_ptr())
+    return Xb, yb, w
+
+
+def _select(scores: torch.Tensor, batch_size: int, dtype: torch.dtype,
+            cluster: int = 0) -> torch.Tensor:
+    """The gather kernel's selection on given integer ``scores [N, L]`` (0 on
+    padding rows, at most 2^(SCORE_BITS − 1)): the top min(b, L) rows of each
+    worker, tiled to ``[N, b]``, under the launcher's plan or, with
+    ``cluster`` 2, 4 or 8, a thread block cluster of that many blocks a
+    worker. For the tests and the plan's measurement; counts no launch."""
+    if scores.dtype != torch.int64 or scores.dim() != 2 or not scores.is_contiguous():
+        raise ValueError("scores must be a contiguous int64 [N, L] tensor")
+    n, n_local = scores.shape
+    idx = torch.empty((n, batch_size), dtype=torch.int64, device=scores.device)
+    like = torch.empty(0, dtype=dtype, device=scores.device)
+    _cuda_build.call(_library(), "select_top", like, scores.data_ptr(), n, n_local, batch_size,
+                     cluster, idx.data_ptr(),
+                     invalid=_refused("select_top", n_local, batch_size, dtype))
+    return idx
+
+
+# --- a mirror of the kernels' selection, in PyTorch ops --------------------------
+
+_LIMB = 0xFFFFFFFF
+
+
+def draw_scores(slot_key, t, n_valid: torch.Tensor, n_local: int, dtype) -> torch.Tensor:
+    """The kernels' integer scores ``[N, L]``: the draw's mantissa plus one
+    (m = u·2^23 in float32, u·2^52 in float64, exact), 0 on padding rows."""
+    u = sampling.masked_scores(slot_key, t, n_valid, n_local, dtype)
+    m = (torch.where(torch.isinf(u), 0.0, u) * 2.0 ** (SCORE_BITS[dtype] - 1)).long()
+    return torch.where(torch.isinf(u), 0, m + 1)
+
+
+def _limb(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """Bits 0..31 of ``x << shift`` (a right shift where negative), x ≥ 0."""
+    if shift >= 32 or shift <= -63:
+        return torch.zeros_like(x)
+    if shift >= 0:
+        return (x & (_LIMB >> shift)) << shift
+    return (x >> -shift) & _LIMB
+
+
+def selection_keys(scores: torch.Tensor, dtype) -> tuple[list[torch.Tensor], int]:
+    """The key of each row, score above L − 1 − row in ⌈log2 L⌉ bits,
+    left-aligned in a word of 64 bits (128 where they do not fit, float64
+    past L = 2,048): (the word's 32-bit limbs, least significant first, as
+    int64 tensors; the width)."""
+    n_local = scores.shape[-1]
+    score_bits, row_bits = SCORE_BITS[dtype], (n_local - 1).bit_length()
+    width = 64 if score_bits + row_bits <= 64 else 128
+    rev = (n_local - 1 - torch.arange(n_local, device=scores.device)).expand_as(scores)
+    limbs = [_limb(scores, width - score_bits - 32 * j) | _limb(rev, width - score_bits
+                                                               - row_bits - 32 * j)
+             for j in range(width // 32)]
+    return limbs, width
+
+
+def _greater(limbs_a, limbs_b) -> torch.Tensor:
+    """a > b for keys given by limbs (most significant compared first)."""
+    gt = torch.zeros(torch.broadcast_shapes(limbs_a[0].shape, limbs_b[0].shape), dtype=torch.bool)
+    eq = torch.ones_like(gt)
+    for a, b in zip(reversed(limbs_a), reversed(limbs_b)):
+        gt |= eq & (a > b)
+        eq &= a == b
+    return gt
+
+
+def _select_worker(limbs, width: int, need: int, valid: int) -> tuple[torch.Tensor, int]:
+    """One worker's top ``need`` rows among its first ``valid`` in order,
+    and the radix passes taken (0 where nothing is selected)."""
+    if need == 0:
+        return torch.empty(0, dtype=torch.int64), 0
+    n_local = limbs[0].shape[0]
+    candidate = torch.arange(n_local) < valid
+    above_mask = torch.zeros(n_local, dtype=torch.bool)
+    krem, p, passes = need, width - 8, 0
+    while True:
+        passes += 1
+        digit = (limbs[p // 32] >> (p % 32)) & 0xFF
+        hist = torch.bincount(digit[candidate], minlength=BINS)
+        from_top = hist.flip(0).cumsum(0).flip(0)  # candidates in bins >= B
+        B = int(torch.nonzero(from_top >= krem).max())
+        above = int(from_top[B] - hist[B])
+        survivors = need - krem + int(from_top[B])
+        if survivors <= need + SURVIVOR_SLACK or p == 0:
+            chosen = above_mask | (candidate & (digit >= B))
+            break
+        above_mask |= candidate & (digit > B)
+        candidate &= digit == B
+        krem -= above
+        p -= 8
+    rows = torch.nonzero(chosen).flatten()
+    keys = [limb[rows] for limb in limbs]
+    rank = _greater([k[None, :] for k in keys], [k[:, None] for k in keys]).sum(1)
+    top = torch.empty(need, dtype=torch.int64)
+    keep = rank < need
+    top[rank[keep]] = rows[keep]
+    return top, passes
+
+
+def select_mirror(scores: torch.Tensor, batch_size: int, dtype,
+                  n_valid: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gather kernel's selection repeated in PyTorch ops on integer
+    ``scores [N, L]`` (CPU): ``(indices [N, b], radix passes [N])``, the
+    top k = min(b, L) rows of each worker tiled up to b. With ``n_valid``
+    (the draw's case, ``draw_scores``), only a worker's first n_valid rows
+    are selected among, and its padding rows follow in ascending order;
+    without it (``_select``'s case) every row takes part."""
+    n, n_local = scores.shape
+    k = min(batch_size, n_local)
+    limbs, width = selection_keys(scores, dtype)
+    tops, passes = [], []
+    for i in range(n):
+        valid = n_local if n_valid is None else max(0, min(int(n_valid[i]), n_local))
+        need = min(k, valid)
+        top, taken = _select_worker([limb[i] for limb in limbs], width, need, valid)
+        tops.append(torch.cat([top, torch.arange(need, k)]))
+        passes.append(taken)
+    indices = torch.stack(tops)[:, torch.arange(batch_size) % k]
+    return indices, torch.tensor(passes)

@@ -15,7 +15,10 @@ and bitwise to the mirror of their own summation order (ops/fc_kernels.py),
 under the plan the wrapper picks, under other strips and row groups and on
 misaligned views. The sampling kernels (both forms, both dtypes) bitwise
 equal the plain twin of ops/sampling.py, which tests/test_torch_sampling.py
-holds bitwise to the JAX package's sampler.
+holds bitwise to the JAX package's sampler; the gather form's rows equal
+gather_batches of the twin's indices, and its selection on given tie-heavy
+scores equals ops/sampling_kernels.select_mirror, which
+tests/test_torch_sampling_select.py holds to the stable sort.
 The instances of the robust kernels are shared with tests/test_torch_robust.py,
 which holds the plain versions against the JAX package on the CPU, and with
 tests/test_torch_robust_network.py, which holds the count-rule kernel's
@@ -588,7 +591,7 @@ def test_cuda_graph_run_is_bitwise_its_measured_run(cuda_device, graph_data, nam
     want = {k: 0 for k in graph_launches}
     for kernel, times in per_iteration.get(name, {}).items():
         want[kernel] = times * T + name.startswith("admm")
-    want["sample_batch_indices"] = T
+    want["sample_worker_batches"] = T
     assert graph_launches == want
     assert np.all(np.isfinite(graph.history.objective))
     assert not graph.history.time_measured and eager.history.time_measured
@@ -653,10 +656,14 @@ def test_cuda_capture_reaches_no_synchronize(cuda_device, graph_data, name, monk
 
 # The sampling kernels' inputs (N, L, b): the main path (dense), the parity
 # path (gather), the robust cell, a shard shorter than the batch (indices
-# tiled), one row, more rows than a block has threads, and a float64 shard
-# past 48 KB of shared memory.
+# tiled), one row, the dense kernel's edges (32, 33, 64 rows; 65 takes the
+# selection kernel), one block of 1,024 threads a row each and 8 rows a
+# thread from 1,025, and the float64 key of 128 bits (2,049). Clusters take
+# shards past 8,192 rows (test_cuda_sampling_past_the_old_shared_memory_limit).
 SAMPLING_SHAPES = [(256, 49, 16), (25, 500, 16), (256, 50, 16), (9, 7, 16), (5, 1, 4),
-                   (6, 1100, 16), (4, 7000, 16)]
+                   (6, 32, 16), (6, 33, 16), (6, 64, 16), (6, 65, 16), (6, 1024, 16),
+                   (6, 1025, 16), (6, 1100, 16), (4, 2049, 16), (4, 7000, 16)]
+SAMPLING_D = 5
 
 
 def _sampling_n_valid(cuda_device, n, L, b):
@@ -666,12 +673,23 @@ def _sampling_n_valid(cuda_device, n, L, b):
     return nv
 
 
+def _rows(cuda_device, n, L, dtype, seed=0):
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    return (torch.randn((n, L, SAMPLING_D), generator=gen, device=cuda_device, dtype=dtype),
+            torch.randn((n, L), generator=gen, device=cuda_device, dtype=dtype))
+
+
+def _same(got, want):
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", SAMPLING_SHAPES)
 def test_cuda_sampling_kernels_bitwise_equal_the_twin(cuda_device, shape, dtype):
     n, L, b = shape
     nv = _sampling_n_valid(cuda_device, n, L, b)
+    X, y = _rows(cuda_device, n, L, dtype)
     seeds = (0, 42, 2**31 - 1) + ((2**40 + 5,) if dtype == torch.float64 else ())
     t = torch.zeros(1, dtype=torch.int64, device=cuda_device)
     for seed in seeds:
@@ -684,7 +702,54 @@ def test_cuda_sampling_kernels_bitwise_equal_the_twin(cuda_device, shape, dtype)
                                    sampling.sample_worker_batch_weights(key, t, nv, L, b, dtype))
                 got = sk.sample_batch_indices(key, t, nv, L, b, dtype)
                 want = sampling.sample_batch_indices(key, t, nv, L, b, dtype)
-                assert all(torch.equal(g, w) for g, w in zip(got, want)), (seed, slot, counter)
+                assert _same(got, want), (seed, slot, counter)
+                assert _same(sk.sample_worker_batches(key, t, X, y, nv, b),
+                             (*sampling.gather_batches(X, y, want[0]), want[1])), (seed, slot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("L", [40_000, sk.MAX_ROWS])
+def test_cuda_sampling_past_the_old_shared_memory_limit(cuda_device, L, dtype):
+    """Shards past the 227 KB of scores the first design kept in shared
+    memory (29,056 rows in float64, 58,112 in float32), up to the most a
+    cluster takes: indices and rows against the twin; the dense weights
+    against the twin's gather draw scattered (the dense twin holds L² pairs)."""
+    n, b = 3, 40
+    nv = _sampling_n_valid(cuda_device, n, L, b)
+    X, y = _rows(cuda_device, n, L, dtype)
+    t = torch.full((1,), 2**31 - 1, dtype=torch.int64, device=cuda_device)
+    key = prng.fold_in(prng.key(42, x64=dtype == torch.float64), 1)
+    idx, w = sampling.sample_batch_indices(key, t, nv, L, b, dtype)
+    assert _same(sk.sample_batch_indices(key, t, nv, L, b, dtype), (idx, w))
+    assert _same(sk.sample_worker_batches(key, t, X, y, nv, b),
+                 (*sampling.gather_batches(X, y, idx), w))
+    dense = torch.zeros((n, L), dtype=dtype, device=cuda_device).scatter_add_(1, idx, w)
+    assert torch.equal(sk.sample_worker_batch_weights(key, t, nv, L, b, dtype), dense)
+
+
+# Tie-heavy integer scores for the selection: (N, L, b, highest score); 0 is
+# every score at the highest 0 (padding everywhere), 2^23 the full float32 range.
+SELECT_CASES = [(4, 32, 16, 1), (4, 33, 16, 0), (4, 64, 16, 2), (4, 65, 16, 1), (4, 500, 16, 3),
+                (4, 500, 16, 0), (3, 1024, 16, 1), (3, 1025, 16, 2), (3, 2049, 16, 1),
+                (3, 7000, 16, 0), (3, 7000, 40, 7), (2, 20_000, 16, 1), (5, 500, 16, 1 << 23)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_cuda_selection_equals_the_mirror_on_ties(cuda_device, case, dtype):
+    """The gather kernel's selection (``sk._select``, given scores in place of
+    the draw) bitwise ``select_mirror``, whose radix passes run into the row
+    bits on these ties, under the launcher's plan and forced clusters."""
+    n, L, b, hi = case
+    gen = torch.Generator().manual_seed(L + hi % 1009)
+    scores = torch.randint(0, hi + 1, (n, L), generator=gen, dtype=torch.int64)
+    want, _ = sk.select_mirror(scores, b, dtype)
+    for cluster in (0, 2, 8):  # the launcher's plan, and clusters of 2 and 8 blocks
+        if L <= max(cluster, 1) * 8 * 1024:
+            got = sk._select(scores.to(cuda_device), b, dtype, cluster=cluster)
+            assert torch.equal(got.cpu(), want), cluster
 
 
 @pytest.mark.cuda
@@ -711,13 +776,44 @@ def test_cuda_sampling_kernel_reads_t_from_the_device(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_gathered_batches_replay_with_t_from_the_device(cuda_device, dtype):
+    """The gather form's Xb, yb and weights under graph replay, with t
+    advanced on the device between replays, bitwise the twin's at each t;
+    each replay counts one launch of the gather form."""
+    n, L, b = 25, 500, 16
+    nv = _sampling_n_valid(cuda_device, n, L, b)
+    X, y = _rows(cuda_device, n, L, dtype)
+    key = prng.fold_in(prng.key(203, x64=dtype == torch.float64), 0)
+    t = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    sk.sample_worker_batches(key, t, X, y, nv, b)
+    sk.reset_launch_counts()
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        out = sk.sample_worker_batches(key, t, X, y, nv, b)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    for step in range(3):
+        t.add_(2**31 - 1 if step == 2 else 1)
+        graph.replay()
+        counter = int(t.item())
+        assert _same(out, sampling.sample_worker_batches(key, counter, X, y, nv, b)), counter
+    assert sk.LAUNCHES["sample_worker_batches"] == 3
+    assert sk.LAUNCHES["sample_worker_batch_weights"] == 0
+    graph.reset()
+
+
+@pytest.mark.cuda
 def test_cuda_sampling_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     nv = torch.full((4,), 10, dtype=torch.int64, device=cuda_device)
     t = torch.zeros(1, dtype=torch.int64, device=cuda_device)
     key = prng.fold_in(prng.key(1, x64=False), 0)
     with pytest.raises(TypeError, match="t must be"):
         sk.sample_worker_batch_weights(key, 3, nv, 10, 4, torch.float32)
+    with pytest.raises(ValueError, match="at most 65536 rows"):
+        sk.sample_batch_indices(key, t, nv, sk.MAX_ROWS + 1, 4, torch.float64)
     with pytest.raises(ValueError, match="shared memory"):
-        sk.sample_batch_indices(key, t, nv, 40_000, 4, torch.float64)
+        sk.sample_worker_batch_weights(key, t, nv, 40_000, 30_000, torch.float64)
     with pytest.raises(ValueError, match="int64"):
         sk.sample_worker_batch_weights(key, t, nv.int(), 10, 4, torch.float32)

@@ -109,7 +109,29 @@ Phases:
    float64 runs of each on the card against the CPU (1e-12); and GT under
    sign-flip with the fused trimmed mean on the robust cell (T=1,000),
    whose aggregator launches twice an iteration.
-11. study: the eight rows of ``examples/reproduce_report.py`` (the
+11. compression: the compression kernel (``ops/compression_kernels.py``,
+   the estimate update memory + Q(v − memory) of one error-feedback
+   exchange; no pallas_call behind it) against the plain twin of
+   ``ops/compression.py`` in both dtypes at N=256, d=81 (the main path),
+   N=25, d=81 and N=4096, d=1024, for top_k (k = 1, 9, 27, d), random_k (k
+   = 9, 27) and qsgd (1, 4, 16 bits), seeds 0, 203, 2³¹ − 1 (and 2⁴⁰ + 5 in
+   float64), t = 0, 12,345, 2³¹ − 1 and 2³² + 5, rounds 0 and 1, on inputs
+   with ties at the k boundary, zero rows and −0.0: top_k and random_k
+   bitwise, qsgd with no rounding decision differing and within 4 ulp of
+   ω‖v‖/s; known-answer digests of the JAX package's random_k masks and
+   qsgd uniforms (``COMPRESSION_KNOWN_ANSWERS``); the kernel's times at the
+   main shape beside its twin, its bound and ``torch.topk`` of its scores;
+   the ``COMPRESSION_RUNS`` on the main path's data (N=256 ring, float32,
+   eval every iteration, T=3,000), pallas and stencil, each within 1% of
+   the JAX package's iterations to ε with its floats transmitted exactly,
+   ``compress_exchange`` and (pallas) ``ring_mix`` launched T times (2T in
+   GT) and ``fused_ring_dsgd_step`` never, the pallas runs bitwise their
+   ``measure_timestamps=True`` runs and constant-step compressed D-SGD
+   bitwise CHOCO; the uncompressed D-SGD and GT iters/s of the same call
+   beside; and float64 runs on the card against the CPU (N=8, T=200,
+   pallas on the ring and the fully-connected graph) to 1e-12 on the
+   histories, the final models and the estimates.
+12. study: the eight rows of ``examples/reproduce_report.py`` (the
    reference study's Tables I and II) with that script's config defaults:
    N=25, T=10,000, b=16, η₀=0.05/√(t+1), λ=1e-4, sorted partition,
    ε=0.08, float32; centralized SGD and D-SGD on the ring, the periodic
@@ -119,17 +141,17 @@ Phases:
    floats transmitted are exactly 4.05e7 (centralized, ring), 8.1e7 (grid)
    and 4.86e8 (fully connected); each run leaves the card's allocated memory
    as it found it. The published count is printed beside.
-12. byzantine: the JAX package's breakdown demonstration
+13. byzantine: the JAX package's breakdown demonstration
    (``examples/bench_byzantine.py``: N=64 ring, full batch, T=4,000,
    float32, fused screens) with its gates, each final honest gap within 1%
    of ``docs/perf/byzantine.json``.
-13. robust: the N=256 ring of ``examples/bench_fused_robust.py`` (d=41,
+14. robust: the N=256 ring of ``examples/bench_fused_robust.py`` (d=41,
    b=16, T=5,000, sign-flip by 12 workers): plain gossip must diverge or
    end 10× above attack-free, every screen within 2× of attack-free; the
    fused robust step launches exactly T times in each fused run and never
    in the gather run, whose trimmed-mean history must agree with the fused
    one to 1e-6 relative.
-14. robust_mixing: the fused aggregator through the Byzantine mix on the
+15. robust_mixing: the fused aggregator through the Byzantine mix on the
     robust run's final models, for each rule, against the gather form and
     the numpy oracle; and the pallas ``MixingOp`` on the fully-connected
     graph (``fc_mix``, ``fc_neighbor_sum``) against the dense W and A.
@@ -143,9 +165,10 @@ history, so two trees run in one call can be shown to give bitwise-equal
 histories. On request, ``profile`` traces 300 iterations of the main path,
 of the admm phase's ring, of gradient tracking on the main path's data and
 of the robust cell's fused trimmed-mean run
-with ``torch.profiler``, each as the graph run and as the
-``measure_timestamps=True`` run, over the iterations after the warm-up
-chunk; ``ring_ab``
+with ``torch.profiler`` (and CHOCO with random_k and compressed GT with
+qsgd on the main path's data), each as the
+graph run and as the ``measure_timestamps=True`` run, over the iterations
+after the warm-up chunk; ``ring_ab``
 (``--phases card,ring_ab --baseline PATH``) holds the three ring kernels
 against the same kernels built from another ``ring_kernels.cu``, bitwise,
 and times both at every ring shape in turns (baseline, this tree, this
@@ -187,7 +210,7 @@ import sys
 import time
 
 PHASES = ("card", "kernels", "sampling", "reference", "parity", "main", "mixing", "fc", "admm",
-          "tracking", "study", "byzantine", "robust", "robust_mixing")
+          "tracking", "compression", "study", "byzantine", "robust", "robust_mixing")
 # Run only when asked for: profile, a torch.profiler trace of the main
 # path's, the admm ring's and the robust cell's steady loops, graph and
 # measured; ring_ab (with
@@ -249,6 +272,7 @@ SOURCES = {
     "make_fused_robust_dsgd_step": "robust_kernels.cu",
     "sample_worker_batch_weights": "sampling_kernels.cu",
     "sample_worker_batches": "sampling_kernels.cu",
+    "compress_exchange": "compression_kernels.cu",
 }
 REPLACES = {
     "fused_ring_dsgd_step": f"{PALLAS}:143", "ring_mix": f"{PALLAS}:137",
@@ -259,6 +283,9 @@ REPLACES = {
     # of the XLA code of the JAX package's sampler.
     "sample_worker_batch_weights": "distributed_optimization_tpu/ops/sampling.py:79",
     "sample_worker_batches": "distributed_optimization_tpu/ops/sampling.py:122",
+    # No pallas_call stands behind the compression kernel either: it takes the
+    # place of the XLA code of the error-feedback exchange's estimate update.
+    "compress_exchange": "distributed_optimization_tpu/ops/compression.py:176",
 }
 # Floating-point operations per element of the [N, d] output.
 OPS_PER_ELEMENT = {"fused_ring_dsgd_step": 4, "ring_mix": 3, "ring_neighbor_sum": 1,
@@ -357,6 +384,62 @@ TRACKING_RUNS = {
 # The tracking phase's screened run: GT on the robust cell's data under
 # sign-flip with the fused trimmed mean, T iterations.
 TRACKING_ROBUST_ITERATIONS = 1_000
+
+# The compression kernel's inputs (N, d): the main path, the study's N=25,
+# and the stress width; its operators (name, k; None is k = d) at each; the
+# seeds, counters (past 2³¹ − 1 and past 2³² as well) and rounds of its
+# draws. top_k draws nothing, so it is held once a shape and dtype.
+COMPRESSION_SHAPES = ((256, 81), (25, 81), (4096, 1024))
+COMPRESSION_OPERATORS = (("top_k", 1), ("top_k", 9), ("top_k", 27), ("top_k", None),
+                         ("random_k", 9), ("random_k", 27), ("qsgd", 1), ("qsgd", 4),
+                         ("qsgd", 16))
+COMPRESSION_SEEDS = {"float32": (0, 203, 2**31 - 1), "float64": (0, 203, 2**31 - 1, 2**40 + 5)}
+COMPRESSION_COUNTERS = (0, 12_345, 2**31 - 1, 2**32 + 5)
+COMPRESSION_ROUNDS = (0, 1)
+# The operators the compression runs launch, timed at the main shape in
+# float32; the record is random_k k=27 (choco_randk27 and dsgd_randk27_const).
+COMPRESSION_TIMED = (("top_k", 9), ("random_k", 27), ("qsgd", 4))
+COMPRESSION_RECORD = ("random_k", 27)
+# Known answers: sha256 (first 16 hex digits) of the JAX package's draws with
+# jax 0.9.0 at (seed, t, round, dtype, N, d, k): random_k's mask [N, d]
+# (int32, 1 where kept, of make_compressor('random_k', d, k).apply(key,
+# ones)) and qsgd's uniforms jax.random.uniform(compression_key(seed, t,
+# round), (N, d), dtype), under enable_x64 in float64.
+# tests/test_torch_compression.py recomputes them from the JAX package.
+COMPRESSION_KNOWN_ANSWERS = {
+    (203, 0, 0, "float32", 256, 81, 27): ("a6e16bf503c4ed45", "0e04dadcfb373ddd"),
+    (2**31 - 1, 2**31 - 1, 1, "float32", 25, 81, 9): ("25d99a25f14e264f", "836999d63effa771"),
+    (0, 12_345, 0, "float64", 256, 81, 27): ("ccb244ed6d932929", "25996da80bb566b6"),
+    (2**40 + 5, 7, 1, "float64", 25, 81, 9): ("81368606e948abe8", "53352c3ef11f80fc"),
+}
+# The compression phase's runs on the main path's data (N=256 ring,
+# logistic, float32, eval every iteration), with T, the JAX package's
+# iterations to ε=0.08 (jax 0.9.0 on a CPU, mixing 'stencil',
+# use_mesh=False; both packages draw the same batches and compressor draws)
+# and its floats transmitted. tests/test_torch_compression.py recomputes the
+# counts. The gap cannot see the compressor (CHOCO keeps the network average
+# whatever Q does), so k=9 at γ=0.1, whose count moves, is one of them; and
+# constant-step compressed D-SGD is CHOCO op for op.
+COMPRESSION_RUNS = {
+    "choco_topk9": (dict(algorithm="choco", compression="top_k", compression_k=9,
+                         choco_gamma=0.1), 3_000, 1_711, 27_648_000.0),
+    "choco_randk27": (dict(algorithm="choco", compression="random_k", compression_k=27,
+                           choco_gamma=0.3), 3_000, 1_480, 82_944_000.0),
+    "gt_qsgd4": (dict(algorithm="gradient_tracking", compression="qsgd", compression_k=4,
+                      choco_gamma=0.3), 3_000, 1_187, 41_952_000.0),
+    "dsgd_randk27_const": (dict(algorithm="dsgd", compression="random_k", compression_k=27,
+                                choco_gamma=0.3, lr_schedule="constant"), 3_000, 1_480,
+                           82_944_000.0),
+}
+# The card-against-CPU float64 runs (N=8, T=200, pallas on the ring and on
+# the fully-connected graph).
+COMPRESSION_REFERENCE = (
+    dict(algorithm="choco", compression="top_k", compression_k=3),
+    dict(algorithm="choco", compression="random_k", compression_k=4),
+    dict(algorithm="choco", compression="qsgd", compression_k=4),
+    dict(algorithm="dsgd", compression="random_k", compression_k=4),
+    dict(algorithm="gradient_tracking", compression="qsgd", compression_k=4),
+)
 
 class PhaseFailed(RuntimeError):
     pass
@@ -512,7 +595,8 @@ def phase_card(torch, kernels):
     say("[card] TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
     build = kernels["build"]
-    sources = [m.SOURCE for m in (kernels["rk"], kernels["fk"], kernels["bk"], kernels["sk"])]
+    sources = [m.SOURCE for m in (kernels["rk"], kernels["fk"], kernels["bk"], kernels["sk"],
+                                  kernels["ck"])]
     t0 = time.perf_counter()
     paths = build.build_all(sources)
     say(f"[card] built {', '.join(p.name for p in paths)} in parallel in "
@@ -1458,6 +1542,254 @@ def phase_tracking(torch, np, pkg, kernels):
     check(bool(np.all(np.isfinite(res.history.objective))), "tracking GT sign-flip: non-finite")
     return gt_launches, launches
 
+def compression_bound(name: str, n: int, d: int, k: int, itemsize: int):
+    """(ms, 'bytes' or 'operations') for one exchange's estimate update: v
+    and memory read once and memory⁺ written once, against the draws' N·d + 2
+    Threefry calls (random_k, qsgd) and a top-k selection of d·⌈log2 k⌉
+    compares a row (top_k, random_k) on the INT32 lanes."""
+    threefry = (n * d + 2) * THREEFRY_OPS if name != "top_k" else 0
+    select = n * d * max(1, math.ceil(math.log2(k))) if name != "qsgd" else 0
+    t_bytes = 3 * n * d * itemsize / PEAK_BYTES_PER_S * 1e3
+    t_ops = (threefry + select) / PEAK_INT32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compression_inputs(torch, n: int, d: int, dtype):
+    """v and memory [N, d] from a seed, with a row of zero differences, a row
+    whose middle magnitudes tie across every k of COMPRESSION_OPERATORS,
+    −0.0 differences (v = −0.0 over memory = 0), a row of equal magnitudes
+    of both signs and a zero memory row."""
+    gen = torch.Generator(device="cuda").manual_seed(n * 7_919 + d)
+    v = torch.randn((n, d), generator=gen, device="cuda", dtype=dtype)
+    memory = 0.5 * torch.randn((n, d), generator=gen, device="cuda", dtype=dtype)
+    v[1] = memory[1]
+    v[2] = memory[2] + 0.01 * torch.randn(d, generator=gen, device="cuda", dtype=dtype)
+    v[2, : min(d, 40)] = memory[2, : min(d, 40)] + 0.75
+    v[3, ::2], memory[3, ::2] = -0.0, 0.0
+    v[4] = memory[4] + torch.where(torch.rand(d, generator=gen, device="cuda") < 0.5, -1.5, 1.5)
+    memory[5] = 0.0
+    return v.contiguous(), memory.contiguous()
+
+
+def _bits(torch, x):
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+
+def _ulp(torch, x):
+    """The spacing of the floats at |x|."""
+    a = x.abs()
+    return torch.nextafter(a, torch.full_like(a, math.inf)) - a
+
+
+def _check_compression(torch, ck, comp, draw, v, memory, what):
+    """The kernel against the twin at one input: top_k and random_k bitwise
+    (memory⁺ and the mask); qsgd with no rounding decision differing and
+    each element within 4 ulp of the row's ω‖v‖/s times its level (plus an
+    ulp of memory⁺ for the add). Returns (largest difference, elements not
+    bitwise equal, decisions differing)."""
+    got = ck.ef_compress(comp, draw, v, memory)
+    out, levels = ck.ef_levels(comp, draw, v, memory)
+    want = ck.compression.ef_compress_plain(comp, draw, v, memory)
+    want_levels = ck.levels_plain(comp, draw, v, memory)
+    err = float((got - want).abs().max())
+    off = int((_bits(torch, got) != _bits(torch, want)).sum())
+    decisions = int((levels != want_levels).sum())
+    check(torch.equal(_bits(torch, got), _bits(torch, out)),
+          f"compression {what}: ef_compress and ef_levels differ")
+    if comp.name != "qsgd":
+        check(off == 0 and decisions == 0,
+              f"compression {what}: {off} elements not bitwise, {decisions} mask bits differ")
+    else:
+        check(decisions == 0, f"compression {what}: {decisions} rounding decisions differ")
+        norm = ck.compression.row_norm(v - memory)
+        unit = float(comp.delta) * norm / 2.0**comp.k
+        tol = 4 * want_levels.to(v.dtype) * _ulp(torch, unit) + _ulp(torch, want)
+        check(bool(torch.all((got - want).abs() <= tol)),
+              f"compression {what}: beyond 4 ulp of ω‖v‖/s ({err:.3e})")
+    return err, off, decisions
+
+
+def compression_kernel_checks(torch, np, ck, prng):
+    """The compression kernel against its twin at every input of the grid,
+    then the known answers. Returns the inputs checked."""
+    compression = ck.compression
+    t = torch.zeros(1, dtype=torch.int64, device="cuda")
+    checked = qsgd_bitwise = qsgd_total = 0
+    for n, d in COMPRESSION_SHAPES:
+        for dname, seeds in COMPRESSION_SEEDS.items():
+            dtype = getattr(torch, dname)
+            v, memory = compression_inputs(torch, n, d, dtype)
+            for name, k in COMPRESSION_OPERATORS:
+                comp = compression.make_compressor(name, d, d if k is None else k)
+                draws = [(seed, counter, rnd) for seed in seeds for counter in COMPRESSION_COUNTERS
+                         for rnd in COMPRESSION_ROUNDS] if name != "top_k" else [(0, 0, 0)]
+                for seed, counter, rnd in draws:
+                    t.fill_(counter)
+                    draw = compression.Draw(compression.tag_key(seed, x64=dtype == torch.float64),
+                                            t, rnd)
+                    what = (f"{name} k={comp.k} N={n} d={d} {dname} seed={seed} t={counter} "
+                            f"round={rnd}")
+                    _, off, _ = _check_compression(torch, ck, comp, draw, v, memory, what)
+                    checked += 1
+                    if name == "qsgd":
+                        qsgd_total += 1
+                        qsgd_bitwise += off == 0
+    say(f"[compression] kernel vs twin at {checked} inputs ({len(COMPRESSION_SHAPES)} shapes, "
+        f"both dtypes, {len(COMPRESSION_OPERATORS)} operators, seeds, t {COMPRESSION_COUNTERS}, "
+        f"rounds {COMPRESSION_ROUNDS}; ties, zero rows, -0.0): top_k and random_k bitwise, qsgd "
+        f"0 rounding decisions differing and within 4 ulp, bitwise at {qsgd_bitwise} of "
+        f"{qsgd_total}")
+    for (seed, counter, rnd, dname, n, d, k), want in COMPRESSION_KNOWN_ANSWERS.items():
+        dtype = getattr(torch, dname)
+        t.fill_(counter)
+        draw = compression.Draw(compression.tag_key(seed, x64=dtype == torch.float64), t, rnd)
+        ones = torch.ones((n, d), dtype=dtype, device="cuda")
+        _, mask = ck.ef_levels(compression.make_compressor("random_k", d, k), draw, ones,
+                               torch.zeros_like(ones))
+        u = prng.uniform(draw.key(), (n, d), dtype)
+        got = (_digest(np, mask.cpu().numpy()), _digest(np, u.cpu().numpy()))
+        say(f"[compression] known answer seed={seed} t={counter} round={rnd} {dname} N={n} d={d} "
+            f"k={k}: random_k mask (kernel), qsgd uniforms {' '.join(got)} "
+            f"({'equal to' if got == want else 'NOT'} jax 0.9.0's)")
+        check(got == want, f"compression known answer {seed, counter, rnd, dname}: {got} != {want}")
+        v, memory = compression_inputs(torch, n, d, dtype)
+        _check_compression(torch, ck, compression.make_compressor("qsgd", d, 4), draw, v, memory,
+                           f"qsgd at the known answer {seed, counter, rnd, dname}")
+    return checked
+
+
+def compression_records(torch, ck, prng):
+    """Times at the main shape in float32: each operator of the runs in a
+    graph of 200 and event-timed, its twin and its bound, and torch.topk of
+    its scores in a graph (the selection alone). Returns the record of
+    COMPRESSION_RECORD."""
+    compression = ck.compression
+    n, d = MAIN_SHAPE
+    dtype = torch.float32
+    v, memory = compression_inputs(torch, n, d, dtype)
+    t = torch.full((1,), 12_345, dtype=torch.int64, device="cuda")
+    draw = compression.Draw(compression.tag_key(203, x64=False), t, 0)
+    record = None
+    for name, k in COMPRESSION_TIMED:
+        comp = compression.make_compressor(name, d, k)
+        kernel = lambda: ck.ef_compress(comp, draw, v, memory)  # noqa: E731
+        plain = lambda: compression.ef_compress_plain(comp, draw, v, memory)  # noqa: E731
+        err, _, _ = _check_compression(torch, ck, comp, draw, v, memory, f"{name} timed input")
+        ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+        b_ms, b_by = compression_bound(name, n, d, k, dtype.itemsize)
+        label = f"compress_exchange[{name} k={k}]"
+        _kernel_line(label, f"N={n} d={d}", "float32", err, ms, plain_ms, None, b_ms, b_by)
+        in_graph = _in_graph(torch, label, kernel, ms, b_ms)
+        if name != "qsgd":
+            diff = v - memory
+            scores = diff.abs() if name == "top_k" else prng.uniform(draw.key(), v.shape, v.dtype)
+            topk_ms = graph_ms(torch, lambda: torch.topk(scores, k, dim=-1))
+            say(f"[compression] yardstick torch.topk(scores [{n}, {d}], {k}) float32 in a graph of "
+                f"{TIMED_LAUNCHES}: {topk_ms * 1e3:.3f} us a call (selection only, not the "
+                f"function)")
+        if (name, k) == COMPRESSION_RECORD:
+            record = _record("compress_exchange", err, ms, plain_ms, b_ms, b_by, None,
+                             graph_ms=in_graph, topk_graph_ms=topk_ms)
+    return record
+
+
+def _compression_agree(np, label, card, host, tol=1e-12):
+    """Card against CPU: gap and consensus histories, final models and every
+    estimate leaf to ``tol`` (rtol and atol)."""
+    pairs = [("gap", card.history.objective, host.history.objective),
+             ("consensus", card.history.consensus_error, host.history.consensus_error),
+             ("models", card.final_models, host.final_models)]
+    pairs += [(leaf, card.final_state[leaf], host.final_state[leaf])
+              for leaf in ("xhat", "yhat") if leaf in host.final_state]
+    worst = {what: float(np.max(np.abs(a - b) / (1.0 + np.abs(b)))) for what, a, b in pairs}
+    say(f"[compression] {label} on the card vs plain on the CPU: "
+        + ", ".join(f"{what} {err:.3e}" for what, err in worst.items()))
+    check(all(np.allclose(a, b, rtol=tol, atol=tol) for _, a, b in pairs),
+          f"{label}: card and CPU runs disagree beyond {tol}")
+
+
+def phase_compression(torch, np, pkg, kernels, prng):
+    """The compression kernel against its twin and JAX's known answers; its
+    times at the main shape; the COMPRESSION_RUNS on the main path's data,
+    pallas and stencil, gated on iterations to ε within 1% of the JAX count,
+    floats transmitted exactly JAX's, exact launch counts and (pallas)
+    bitwise their measure_timestamps=True runs, with constant-step D-SGD
+    bitwise CHOCO; beside them the uncompressed D-SGD and GT pallas runs of
+    the same T; then float64 runs on the card against the CPU. Returns (the
+    kernel's record, the launches of choco_randk27's pallas run)."""
+    ck = kernels["ck"]
+    counters = [kernels["rk"], kernels["fk"], kernels["bk"], kernels["sk"], ck]
+    compression_kernel_checks(torch, np, ck, prng)
+    record = compression_records(torch, ck, prng)
+    base = pkg.ExperimentConfig(problem_type="logistic", topology="ring", n_workers=256,
+                                dtype="float32", eval_every=1)
+    ds = pkg.generate_synthetic_dataset(base)
+    _, f_opt = pkg.compute_reference_optimum(ds, base.reg_param)
+    record_launches = None
+    results = {}
+    for name, (fields, T, want, floats) in COMPRESSION_RUNS.items():
+        cfg = base.replace(n_iterations=T, **fields)
+        rounds = 2 if fields["algorithm"] == "gradient_tracking" else 1
+        for impl in ("pallas", "stencil"):
+            run_cfg = cfg.replace(mixing_impl=impl)
+            res, counted = _converging_run(torch, pkg, counters, run_cfg, ds, f_opt, "compression")
+            h = res.history
+            crossed = pkg.iterations_to_threshold(h.objective, 0.08, h.eval_iterations)
+            say(f"[compression] {name} {impl}: iters-to-0.08 {crossed}, JAX package {want} "
+                f"({(crossed - want) / want:+.2%}), floats {h.total_floats_transmitted:.6g} "
+                f"(JAX {floats:.6g}), {h.iters_per_second:.1f} iters/s")
+            _within_count(f"compression {name} {impl}", crossed, want)
+            check(h.total_floats_transmitted == floats,
+                  f"compression {name}: floats {h.total_floats_transmitted} != JAX {floats}")
+            expect = {key: 0 for key in counted}
+            expect["sample_worker_batch_weights"] = T
+            expect["compress_exchange"] = rounds * T
+            if impl == "pallas":
+                expect["ring_mix"] = rounds * T
+            check(counted == expect, f"compression {name} {impl}: launches {counted}, not {expect}")
+            if impl == "pallas":
+                _graph_equals_measured(torch, np, pkg, counters, run_cfg, ds, f_opt,
+                                       "compression", res, counted)
+                results[name] = res
+                if name == "choco_randk27":
+                    record_launches = counted
+    a, b = results["dsgd_randk27_const"], results["choco_randk27"]
+    same = (np.array_equal(a.history.objective, b.history.objective)
+            and np.array_equal(a.final_models, b.final_models))
+    say(f"[compression] dsgd_randk27_const vs choco_randk27 (pallas): gap digests "
+        f"{_digest(np, a.history.objective)} {_digest(np, b.history.objective)}, final models "
+        f"{'bitwise equal' if same else 'DIFFER'}")
+    check(same, "constant-step compressed dsgd is not bitwise choco")
+    for algorithm in ("dsgd", "gradient_tracking"):
+        cfg = base.replace(n_iterations=3_000, mixing_impl="pallas", algorithm=algorithm)
+        h = pkg.run(cfg, ds, f_opt, device="cuda").history
+        say(f"[compression] uncompressed {algorithm} pallas N=256 T=3000, same call: "
+            f"{h.iters_per_second:.1f} iters/s (graph), final gap {h.objective[-1]:.6f}")
+    small = pkg.ExperimentConfig(
+        problem_type="logistic", n_workers=8, n_samples=400, n_features=10,
+        n_informative_features=6, n_iterations=200, local_batch_size=8, mixing_impl="pallas",
+        sampling_impl="dense", dtype="float64",
+    )
+    sds = pkg.generate_synthetic_dataset(small)
+    _, sf = pkg.compute_reference_optimum(sds, small.reg_param)
+    for topology in ("ring", "fully_connected"):
+        for fields in COMPRESSION_REFERENCE:
+            cfg = small.replace(topology=topology, **fields)
+            for c in counters:
+                c.reset_launch_counts()
+            card = pkg.run(cfg, sds, sf, device="cuda", return_state=True)
+            mix = "ring_mix" if topology == "ring" else "fc_mix"
+            rounds = 2 if fields["algorithm"] == "gradient_tracking" else 1
+            launched = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+            check(launched["compress_exchange"] == launched[mix] == rounds * cfg.n_iterations,
+                  f"compression float64 {topology} {fields}: launches {launched}")
+            label = (f"N=8 T=200 float64 {topology} pallas {fields['algorithm']} "
+                     f"{fields['compression']} k={fields['compression_k']}")
+            _compression_agree(np, label, card, pkg.run(cfg, sds, sf, device="cpu",
+                                                        return_state=True))
+    return record, record_launches
+
+
 def phase_study(torch, np, pkg):
     """The eight rows of ``examples/reproduce_report.py`` at its config
     defaults (the port's ``ExperimentConfig`` defaults: N=25, T=10,000,
@@ -1744,6 +2076,11 @@ def phase_profile(torch, pkg, steady, T: int = 300):
                                         aggregation="trimmed_mean", robust_b=1,
                                         robust_impl="fused")
     _profile_run(torch, pkg, steady, cfg, "robust N=256 sign_flip trimmed_mean fused", T)
+    for name in ("choco_randk27", "gt_qsgd4"):
+        fields = COMPRESSION_RUNS[name][0]
+        cfg = pkg.ExperimentConfig(problem_type="logistic", n_workers=256, n_iterations=T,
+                                   mixing_impl="pallas", dtype="float32", eval_every=1, **fields)
+        _profile_run(torch, pkg, steady, cfg, f"{name} N=256 pallas", T)
 
 
 def main(argv=None) -> int:
@@ -1779,6 +2116,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from distributed_optimization_tpu_torch.ops import _cuda_build
+    from distributed_optimization_tpu_torch.ops import compression_kernels as ck
     from distributed_optimization_tpu_torch.ops import fc_kernels as fk
     from distributed_optimization_tpu_torch.ops import ring_kernels as rk
     from distributed_optimization_tpu_torch.ops import prng, sampling
@@ -1789,7 +2127,7 @@ def main(argv=None) -> int:
     )
     from distributed_optimization_tpu_torch.parallel import topology
     pkg = _package()
-    kernels = {"build": _cuda_build, "rk": rk, "fk": fk, "bk": bk, "sk": sk}
+    kernels = {"build": _cuda_build, "rk": rk, "fk": fk, "bk": bk, "sk": sk, "ck": ck}
 
     t_start = time.perf_counter()
     t_last = [t_start]
@@ -1824,6 +2162,8 @@ def main(argv=None) -> int:
         "make_fused_robust_dsgd_step":
             "robust: three fused runs (trimmed_mean, median, clipped_gossip), T each",
         **SAMPLING_PATHS,
+        "compress_exchange":
+            "compression: choco, random_k k=27, ring, N=256, pallas, once a step (GT twice)",
     }
     counted = {}
     if "parity" in phases:
@@ -1849,6 +2189,10 @@ def main(argv=None) -> int:
         paths["make_fused_robust_aggregator"] = (
             "tracking: gradient_tracking, sign-flip, trimmed_mean fused, N=256, 2 a step")
         lap("tracking")
+    if "compression" in phases:
+        records["compress_exchange"], counted["compress_exchange"] = phase_compression(
+            torch, np, pkg, kernels, prng)
+        lap("compression")
     if "study" in phases:
         phase_study(torch, np, pkg)
         lap("study")

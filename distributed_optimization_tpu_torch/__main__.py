@@ -19,6 +19,7 @@ from distributed_optimization_tpu_torch.config import (
     AGGREGATIONS,
     ALGORITHMS,
     ATTACKS,
+    COMPRESSIONS,
     DTYPES,
     LR_SCHEDULES,
     MIXING_IMPLS,
@@ -55,6 +56,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr-schedule", choices=LR_SCHEDULES, default=_DEFAULTS.lr_schedule)
     p.add_argument("--admm-c", type=float, default=_DEFAULTS.admm_c)
     p.add_argument("--admm-rho", type=float, default=_DEFAULTS.admm_rho)
+    p.add_argument("--compression", choices=COMPRESSIONS, default=_DEFAULTS.compression,
+                   help="error-feedback gossip compression operator "
+                        "(choco, dsgd, gradient_tracking)")
+    p.add_argument("--compression-k", type=int, default=_DEFAULTS.compression_k,
+                   help="coordinates kept (top_k/random_k) or quantization bits (qsgd)")
+    p.add_argument("--choco-gamma", type=float, default=_DEFAULTS.choco_gamma,
+                   help="consensus step size γ of the compressed exchange")
     p.add_argument("--seed", type=int, default=_DEFAULTS.seed)
     p.add_argument("--data-seed", type=int, default=_DEFAULTS.data_seed)
     p.add_argument("--eval-every", type=int, default=_DEFAULTS.eval_every)
@@ -105,6 +113,9 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         lr_schedule=args.lr_schedule,
         admm_c=args.admm_c,
         admm_rho=args.admm_rho,
+        compression=args.compression,
+        compression_k=args.compression_k,
+        choco_gamma=args.choco_gamma,
         seed=args.seed,
         data_seed=args.data_seed,
         eval_every=args.eval_every,
@@ -145,6 +156,7 @@ def main(argv: list[str] | None = None) -> int:
         "topology": cfg.topology,
         "n_workers": cfg.n_workers,
         "mixing_impl": cfg.mixing_impl,
+        "compression": cfg.compression,
         "attack": cfg.attack,
         "aggregation": cfg.aggregation,
         # Under an attack the gap and consensus are over the honest rows.

@@ -30,7 +30,10 @@ class StepContext:
     optional (x, g, eta) -> W x − eta g in one kernel. ``t``: the iteration
     counter, an int64 tensor of one element on the run device (EXTRA
     branches on t == 0 with it, so one captured graph serves every
-    iteration).
+    iteration). ``draw(round)``: the ``ops/compression.Draw`` of this
+    iteration's compressed exchange ``round`` (the tag key of the run's seed,
+    ``t`` and the round), which the compressed rules hand to the
+    error-feedback exchange.
     """
 
     grad: Callable[[torch.Tensor, int], torch.Tensor]
@@ -41,6 +44,7 @@ class StepContext:
     degrees: Optional[torch.Tensor] = None
     fused_mix_step: Any = None
     t: Optional[torch.Tensor] = None
+    draw: Optional[Callable[[int], Any]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +56,11 @@ class Algorithm:
     ``gossip_rounds``: model-sized exchanges per iteration;
     ``is_decentralized``: False for the parameter server;
     ``supports_byzantine``: the rule's update goes through ``ctx.mix``
-    alone, so Byzantine injection and robust screening compose with it."""
+    alone, so Byzantine injection and robust screening compose with it.
+    ``comm_payload(config, d)``: floats a gossip edge carries an iteration
+    (the compressor's payload under compression), in place of
+    ``d · gossip_rounds`` in the floats-transmitted metric; None keeps
+    that."""
 
     name: str
     init: Callable[..., State]
@@ -60,6 +68,7 @@ class Algorithm:
     gossip_rounds: int = 1
     is_decentralized: bool = True
     supports_byzantine: bool = False
+    comm_payload: Optional[Callable[[Any, int], float]] = None
 
 
 def local_descent_loop(v: torch.Tensor, ctx: StepContext, direction) -> torch.Tensor:
@@ -86,6 +95,7 @@ def get_algorithm(name: str) -> Algorithm:
     from distributed_optimization_tpu_torch.algorithms import (  # noqa: F401
         admm,
         centralized,
+        choco,
         dsgd,
         extra,
         gradient_tracking,

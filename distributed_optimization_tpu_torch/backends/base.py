@@ -34,6 +34,8 @@ class BackendRunResult:
     history: RunHistory
     final_models: np.ndarray  # [N, d] per-worker models after T iterations
     final_avg_model: np.ndarray  # [d] network average (the reported model)
+    # Every leaf of the final state, on request (run(..., return_state=True)).
+    final_state: dict | None = None
 
     @property
     def total_floats_transmitted(self) -> float:

@@ -69,7 +69,7 @@ from distributed_optimization_tpu_torch.metrics import (
     decentralized_floats_per_iteration,
 )
 from distributed_optimization_tpu_torch.models import get_problem
-from distributed_optimization_tpu_torch.ops import prng, ring_kernels, sampling_kernels
+from distributed_optimization_tpu_torch.ops import compression, prng, ring_kernels, sampling_kernels
 from distributed_optimization_tpu_torch.ops.mixing import MixingOp, make_mixing_op
 from distributed_optimization_tpu_torch.ops.robust_aggregation import (
     make_gather_robust_aggregator,
@@ -142,6 +142,12 @@ class _Program:
     data: tuple
     byz: Optional["Byzantine"] = None
 
+    @functools.cached_property
+    def tag_key(self) -> tuple:
+        """The compressor's stream: ``compression.tag_key`` of the run's seed
+        (the seed's high word in float64 runs, as under ``enable_x64``)."""
+        return compression.tag_key(self.config.seed, x64=self.eta.dtype == torch.float64)
+
     def step(self, state, t: torch.Tensor):
         """One iteration at the counter ``t`` (an int64 tensor of one
         element on the run's device)."""
@@ -155,6 +161,7 @@ class _Program:
             grad=self.grad_for(t), mix=mix, neighbor_sum=nbr,
             eta=self.eta.index_select(0, t), degrees=self.degrees, config=self.config,
             fused_mix_step=self.fused_mix_step, t=t,
+            draw=functools.partial(compression.Draw, self.tag_key, t),
         )
         return self.algo.step(state, ctx)
 
@@ -364,6 +371,7 @@ def run(
     batch_schedule: Optional[np.ndarray] = None,
     collect_metrics: bool = True,
     measure_timestamps: bool = False,
+    return_state: bool = False,
 ) -> BackendRunResult:
     """Run ``config.algorithm`` on ``dataset`` for ``config.n_iterations``.
 
@@ -373,7 +381,9 @@ def run(
     chunks from the host without CUDA graphs, synchronising after each, and
     records a measured time per eval (``history.time_measured``); by
     default ``history.time`` spreads the run's wall clock evenly over the
-    evals.
+    evals. ``return_state=True`` also fetches every leaf of the final state
+    (e.g. the estimates ``xhat``, ``yhat`` of a compressed run) into
+    ``final_state``, as host float64 arrays.
     """
     dev = resolve_device(device)
     dtype = _DTYPES[config.dtype]
@@ -397,7 +407,11 @@ def run(
         topo = build_topology(config.topology, n)
         mix_op = make_mixing_op(topo, config.mixing_impl, device=dev, dtype=dtype)
         degrees = torch.as_tensor(topo.degrees, dtype=dtype, device=dev)[:, None]
-        floats_per_iter = decentralized_floats_per_iteration(topo, d, algo.gossip_rounds)
+        if algo.comm_payload is not None:
+            # The rule's floats an edge: the compressor's payload, or d a round.
+            floats_per_iter = topo.floats_per_iteration * algo.comm_payload(config, d)
+        else:
+            floats_per_iter = decentralized_floats_per_iteration(topo, d, algo.gossip_rounds)
         spectral_gap = topo.spectral_gap
         byz = bind_byzantine(config, algo, topo, mix_op, device=dev, dtype=dtype)
         if byz is not None:
@@ -524,4 +538,6 @@ def run(
         history=history,
         final_models=final_models,
         final_avg_model=final_models[honest].mean(axis=0),
+        final_state=({key: value.cpu().numpy().astype(np.float64) for key, value in state.items()}
+                     if return_state else None),
     )

@@ -15,7 +15,7 @@ from typing import Any
 
 # What this slice of the port implements. The JAX package accepts more;
 # each value outside these lists is refused below.
-ALGORITHMS = ("centralized", "dsgd", "gradient_tracking", "extra", "admm")
+ALGORITHMS = ("centralized", "dsgd", "gradient_tracking", "extra", "admm", "choco")
 TOPOLOGIES = ("ring", "grid", "fully_connected")
 PROBLEM_TYPES = ("logistic", "quadratic")
 MIXING_IMPLS = ("auto", "stencil", "dense", "pallas")
@@ -26,6 +26,10 @@ PARTITIONS = ("sorted", "shuffled")
 # The JAX package's rules that accept local_steps > 1; the rest are
 # refused with the JAX message.
 LOCAL_STEP_ALGORITHMS = ("dsgd", "gradient_tracking")
+# Gossip-compression operators (ops/compression.py) and the rules whose
+# gossip goes through the error-feedback exchange when compression is on.
+COMPRESSIONS = ("none", "top_k", "random_k", "qsgd")
+COMPRESSED_ALGORITHMS = ("choco", "dsgd", "gradient_tracking")
 # The JAX package's full lists; the values this slice lacks raise below.
 ATTACKS = ("none", "sign_flip", "large_noise", "alie")
 AGGREGATIONS = ("gossip", "trimmed_mean", "median", "clipped_gossip")
@@ -66,6 +70,12 @@ class ExperimentConfig:
     # Lipschitz constant for stability (L ≈ 4 for the standardized quadratic
     # data here, ≈ 0.25 for logistic). 5.0 is safe for both study problems.
     admm_rho: float = 5.0
+    # Compressed gossip: the operator applied to each transmitted difference
+    # (COMPRESSIONS), its parameter (coordinates kept for top_k/random_k,
+    # quantization bits for qsgd) and the consensus step size γ.
+    compression: str = "none"
+    compression_k: int = 0
+    choco_gamma: float = 0.3
     seed: int = 203
     data_seed: int = -1
     eval_every: int = 1
@@ -109,6 +119,7 @@ class ExperimentConfig:
             value = getattr(self, field)
             if value not in allowed:
                 raise _not_yet(field, value, allowed)
+        self._validate_compression()
         self._validate_local_steps()
         self._validate_byzantine()
         if self.n_workers <= 0:
@@ -133,6 +144,41 @@ class ExperimentConfig:
                     f"grid topology requires a perfect-square worker count, got {self.n_workers}"
                 )
 
+    def _validate_compression(self) -> None:
+        """The JAX package's checks of the compression fields, in its order
+        and with its messages (those against fault and schedule fields the
+        port lacks stay out)."""
+        if self.compression not in COMPRESSIONS:
+            raise ValueError(f"Unknown compression: {self.compression}")
+        if self.compression != "none":
+            if self.algorithm not in COMPRESSED_ALGORITHMS:
+                raise ValueError(
+                    f"compression={self.compression!r} only takes effect "
+                    f"with the error-feedback gossip algorithms "
+                    f"{COMPRESSED_ALGORITHMS}; other algorithms exchange "
+                    "full vectors and would silently ignore it"
+                )
+            if self.compression_k <= 0:
+                raise ValueError(
+                    "compression_k (coordinates kept, or qsgd bits) must be "
+                    f"positive when compression={self.compression!r}"
+                )
+            if self.attack != "none" or self.aggregation != "gossip":
+                raise ValueError(
+                    "compressed gossip does not compose with Byzantine "
+                    "injection / robust aggregation: screening operates "
+                    "on transmitted models, but error-feedback exchanges "
+                    "compressed DIFFERENCES against a shared estimate — "
+                    "a screened-out update still mutates every neighbor's "
+                    "X̂ copy, silently breaking the defense's contract"
+                )
+        if (
+            self.algorithm == "choco" or self.compression != "none"
+        ) and not 0.0 < self.choco_gamma <= 1.0:
+            raise ValueError(
+                f"choco_gamma must be in (0, 1], got {self.choco_gamma}"
+            )
+
     def _validate_local_steps(self) -> None:
         """The JAX package's check of ``local_steps``, with its messages."""
         if self.local_steps < 1:
@@ -145,6 +191,14 @@ class ExperimentConfig:
                 f"{LOCAL_STEP_ALGORITHMS} (EXTRA/ADMM/CHOCO/push-sum "
                 "pin a one-exchange-per-descent recursion that extra "
                 "local steps would silently break)"
+            )
+        if self.local_steps > 1 and self.compression != "none":
+            raise ValueError(
+                "local_steps > 1 does not compose with compressed "
+                "gossip: the error-feedback estimate exchange assumes "
+                "one descent per transmitted difference — τ local "
+                "steps between exchanges would leave the shared X̂ "
+                "tracking a state it never saw"
             )
 
     def _validate_byzantine(self) -> None:

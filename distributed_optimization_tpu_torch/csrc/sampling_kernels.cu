@@ -83,6 +83,7 @@
 #include <cstdint>
 
 #include "launch_counts.cuh"
+#include "threefry.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -104,30 +105,6 @@ constexpr int kSurvivorSlack = 128;      // survivors beyond k that end the radi
 constexpr int kCopy = 4;                 // gathered values a thread loads at once
 constexpr size_t kDefaultSharedBytes = 48 * 1024;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB, the most a block takes on sm_90
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// Threefry-2x32, 20 rounds: (x0, x1) for the counter (c0, c1) under (k0, k1).
-__device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1, uint32_t c0,
-                                              uint32_t c1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  constexpr int kRot[8] = {13, 15, 26, 6, 17, 29, 16, 24};
-  uint32_t x0 = c0 + ks[0];
-  uint32_t x1 = c1 + ks[1];
-#pragma unroll
-  for (int group = 0; group < 5; ++group) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x0 += x1;
-      x1 = rotl32(x1, kRot[4 * (group % 2) + i]) ^ x0;
-    }
-    x0 += ks[(group + 1) % 3];
-    x1 += ks[(group + 2) % 3] + static_cast<uint32_t>(group + 1);
-  }
-  return make_uint2(x0, x1);
-}
 
 // The mantissa uniform keeps, plus one (0 is the padding rows' score), in
 // kBits bits; the dense kernel's key word; the weight.

@@ -5,8 +5,8 @@ the package, under a name that hashes the source and the flags, so a
 changed source builds anew and an unchanged one is reused. The library
 has a plain C interface and is loaded with ``ctypes``. A failed build
 raises with nvcc's output. ``build_all`` starts one nvcc per source at once.
-The headers of ``csrc/`` (``launch_counts.cuh``) are on the include path
-and in the hash.
+The headers of ``csrc/`` (``launch_counts.cuh``, ``threefry.cuh``) are on
+the include path and in the hash.
 
 The argument checks every kernel wrapper shares live here too, and
 ``LaunchCounts``, the wrappers' view of the launch counts their kernels keep

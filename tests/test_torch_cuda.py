@@ -23,6 +23,9 @@ The instances of the robust kernels are shared with tests/test_torch_robust.py,
 which holds the plain versions against the JAX package on the CPU, and with
 tests/test_torch_robust_network.py, which holds the count-rule kernel's
 sort network and selections against the plain version on the CPU.
+The compression kernel (top_k, random_k, qsgd; both dtypes) equals the plain
+twin of ops/compression.py bit for bit, mask bits and qsgd levels included,
+which tests/test_torch_compression.py holds to the JAX package.
 """
 
 import dataclasses
@@ -31,6 +34,8 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_optimization_tpu_torch.ops import compression
+from distributed_optimization_tpu_torch.ops import compression_kernels as ck
 from distributed_optimization_tpu_torch.ops import fc_kernels as fk
 from distributed_optimization_tpu_torch.ops import prng, sampling
 from distributed_optimization_tpu_torch.ops import ring_kernels as rk
@@ -495,6 +500,10 @@ GRAPH_RUNS = {
                                       robust_impl="fused", mixing_impl="pallas"),
     "gt-ring-pallas": dict(algorithm="gradient_tracking", mixing_impl="pallas"),
     "extra-ring-pallas": dict(algorithm="extra", mixing_impl="pallas"),
+    "choco-randk-ring-pallas": dict(algorithm="choco", compression="random_k", compression_k=5,
+                                    mixing_impl="pallas"),
+    "gt-qsgd-fc-pallas": dict(algorithm="gradient_tracking", compression="qsgd",
+                              compression_k=4, topology="fully_connected", mixing_impl="pallas"),
 }
 
 
@@ -514,7 +523,7 @@ def graph_data():
 
 
 def _launch_counts():
-    return {name: n for mod in (rk, fk, bk, sk) for name, n in mod.LAUNCHES.items()}
+    return {name: n for mod in (rk, fk, bk, sk, ck) for name, n in mod.LAUNCHES.items()}
 
 
 def _counted_run(cfg, ds, f_opt, **kw):
@@ -587,7 +596,9 @@ def test_cuda_graph_run_is_bitwise_its_measured_run(cuda_device, graph_data, nam
     per_iteration = {"dsgd-ring-pallas": {"fused_ring_dsgd_step": 1},
                      "dsgd-fc-pallas": {"fc_mix": 1}, "admm-ring-pallas": {"ring_neighbor_sum": 1},
                      "robust-trimmed-mean-fused": {"make_fused_robust_dsgd_step": 1, "ring_mix": 1},
-                     "gt-ring-pallas": {"ring_mix": 2}, "extra-ring-pallas": {"ring_mix": 1}}
+                     "gt-ring-pallas": {"ring_mix": 2}, "extra-ring-pallas": {"ring_mix": 1},
+                     "choco-randk-ring-pallas": {"compress_exchange": 1, "ring_mix": 1},
+                     "gt-qsgd-fc-pallas": {"compress_exchange": 2, "fc_mix": 2}}
     want = {k: 0 for k in graph_launches}
     for kernel, times in per_iteration.get(name, {}).items():
         want[kernel] = times * T + name.startswith("admm")
@@ -817,3 +828,109 @@ def test_cuda_sampling_wrapper_refuses_what_the_kernel_does_not_take(cuda_device
         sk.sample_worker_batch_weights(key, t, nv, 40_000, 30_000, torch.float64)
     with pytest.raises(ValueError, match="int64"):
         sk.sample_worker_batch_weights(key, t, nv.int(), 10, 4, torch.float32)
+
+
+# The compression kernel's inputs (N, d): the main path, the study's N=25, a
+# row narrower than a warp, a row of 4 columns a thread and the stress width.
+COMPRESSION_SHAPES = [(256, 81), (25, 81), (9, 7), (5, 4096), (4096, 1024)]
+COMPRESSION_OPERATORS = [("top_k", 1), ("top_k", 9), ("top_k", None), ("random_k", 9),
+                         ("random_k", 27), ("qsgd", 1), ("qsgd", 4), ("qsgd", 16)]
+
+
+def compression_inputs(n, d, dtype, device):
+    """v and memory with a zero-difference row, ties across the k boundary,
+    −0.0 differences, equal magnitudes of both signs and a zero memory row."""
+    gen = torch.Generator(device=device).manual_seed(n * 7_919 + d)
+    v = torch.randn((n, d), generator=gen, device=device, dtype=dtype)
+    memory = 0.5 * torch.randn((n, d), generator=gen, device=device, dtype=dtype)
+    v[1] = memory[1]
+    v[2, : min(d, 40)] = memory[2, : min(d, 40)] + 0.75
+    v[3, ::2], memory[3, ::2] = -0.0, 0.0
+    v[4] = memory[4] + torch.where(torch.rand(d, generator=gen, device=device) < 0.5, -1.5, 1.5)
+    memory[min(5, n - 1)] = 0.0
+    return v, memory
+
+
+def _bits(x):
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", COMPRESSION_SHAPES)
+@pytest.mark.parametrize("name,k", COMPRESSION_OPERATORS)
+def test_cuda_compression_kernel_is_bitwise_its_twin(cuda_device, name, k, shape, dtype):
+    """memory⁺ bit for bit, and the mask bits or qsgd levels equal, at seeds
+    past 2³¹ (and, in float64, 2³²), t past 2³¹ and 2³², rounds 0 and 1."""
+    n, d = shape
+    comp = compression.make_compressor(name, d, d if k is None else min(k, d))
+    v, memory = compression_inputs(n, d, dtype, cuda_device)
+    t = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    seeds = (203, 2**31 - 1) + ((2**40 + 5,) if dtype == torch.float64 else ())
+    for seed in seeds:
+        for counter, rnd in ((0, 0), (2**31 - 1, 1), (2**32 + 5, 0)):
+            t.fill_(counter)
+            draw = compression.Draw(compression.tag_key(seed, x64=dtype == torch.float64), t, rnd)
+            got = ck.ef_compress(comp, draw, v, memory)
+            out, levels = ck.ef_levels(comp, draw, v, memory)
+            want = compression.ef_compress_plain(comp, draw, v, memory)
+            assert torch.equal(_bits(got), _bits(want)) and torch.equal(_bits(out), _bits(got))
+            assert torch.equal(levels, ck.levels_plain(comp, draw, v, memory))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,k", [("random_k", 4), ("qsgd", 4), ("top_k", 3)])
+def test_cuda_compression_graph_replays_with_the_current_t(cuda_device, name, k):
+    """One launch captured; each replay draws at the counter's current value
+    and counts one launch; top_k's result does not depend on t."""
+    v, memory = compression_inputs(64, 33, torch.float32, cuda_device)
+    comp = compression.make_compressor(name, 33, k)
+    t = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    draw = compression.Draw(compression.tag_key(7, x64=False), t, 1)
+    ck.ef_compress(comp, draw, v, memory)  # built and loaded
+    ck.reset_launch_counts()
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        out = ck.ef_compress(comp, draw, v, memory)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    assert ck.LAUNCHES["compress_exchange"] == 0
+    seen = set()
+    for step in range(3):
+        t.add_(2**31 - 1 if step == 2 else 1)
+        graph.replay()
+        counter = int(t.item())
+        want = compression.ef_compress_plain(
+            comp, compression.Draw(draw.tag_key, torch.tensor([counter], device=cuda_device), 1),
+            v, memory)
+        assert torch.equal(out, want), counter
+        seen.add(_bits(out).sum().item())
+    assert ck.LAUNCHES["compress_exchange"] == 3
+    assert len(seen) == (1 if name == "top_k" else 3)
+    graph.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_compression_none_launches_nothing(cuda_device, graph_data):
+    """compression='none' on choco: the identity exchange in torch ops, no
+    compression launch; the ring kernel mixes the estimates."""
+    base, ds, f_opt = graph_data["sorted"]
+    cfg = base.replace(algorithm="choco", mixing_impl="pallas", n_iterations=50)
+    _, launches = _counted_run(cfg, ds, f_opt)
+    assert launches["compress_exchange"] == 0 and launches["ring_mix"] == 50
+
+
+@pytest.mark.cuda
+def test_cuda_compression_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    v = torch.zeros((4, 8), device=cuda_device)
+    t = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    draw = compression.Draw(compression.tag_key(1, x64=False), t, 0)
+    comp = compression.make_compressor("random_k", 8, 2)
+    with pytest.raises(TypeError, match="int64 tensor"):
+        ck.ef_compress(comp, compression.Draw(draw.tag_key, 3, 0), v, v)
+    with pytest.raises(ValueError, match="d <= 4096"):
+        wide = torch.zeros((2, ck.MAX_D + 1), device=cuda_device)
+        ck.ef_compress(compression.make_compressor("top_k", ck.MAX_D + 1, 1), draw, wide, wide)
+    with pytest.raises(ValueError, match="must match"):
+        ck.ef_compress(comp, draw, v, v.double())

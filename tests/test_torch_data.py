@@ -153,7 +153,7 @@ def test_metrics_match_the_reference():
 
 def test_config_refuses_what_the_port_lacks():
     with pytest.raises(ValueError, match="does not have it yet"):
-        ExperimentConfig(algorithm="choco")
+        ExperimentConfig(problem_type="huber")
     with pytest.raises(ValueError, match="does not have it yet"):
         ExperimentConfig(algorithm="push_sum")
     with pytest.raises(ValueError, match="does not have it yet"):

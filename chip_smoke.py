@@ -60,7 +60,12 @@ Phases:
    ``torch.topk`` of the same scores in a graph as a yardstick of the
    selection alone; and the gather form's plan past 1,024 rows (L = 1,100
    and 7,000): one block with 8 rows a thread against a thread block
-   cluster of a thread a row, both bitwise the twin, timed in turns.
+   cluster of a thread a row, both bitwise the twin, timed in turns; and a
+   shard of 100,000 rows (``SAMPLING_LONG``, past the 65,536 a cluster holds
+   in registers, where each pass recomputes the keys): the gather form
+   bitwise the twin and the dense weights bitwise the twin's gather draw
+   scattered, at N=1 and with ragged shards at N=4, both forms timed at
+   N=1.
 4. reference: small float64 runs on the card (fused ring kernel; ADMM
    through ``ring_neighbor_sum``; fused robust kernel under sign-flip with
    trimmed_mean and clipped_gossip) against the same runs on the CPU (plain
@@ -113,14 +118,16 @@ Phases:
    the estimate update memory + Q(v − memory) of one error-feedback
    exchange; no pallas_call behind it) against the plain twin of
    ``ops/compression.py`` in both dtypes at N=256, d=81 (the main path),
-   N=25, d=81 and N=4096, d=1024, for top_k (k = 1, 9, 27, d), random_k (k
+   N=25, d=81, N=4096, d=1024, N=64, d=5,000 and N=8, d=100,003 (rows past
+   4,096, whose keys each radix pass recomputes), for top_k (k = 1, 9, 27, d), random_k (k
    = 9, 27) and qsgd (1, 4, 16 bits), seeds 0, 203, 2³¹ − 1 (and 2⁴⁰ + 5 in
    float64), t = 0, 12,345, 2³¹ − 1 and 2³² + 5, rounds 0 and 1, on inputs
    with ties at the k boundary, zero rows and −0.0: top_k and random_k
    bitwise, qsgd with no rounding decision differing and within 4 ulp of
    ω‖v‖/s; known-answer digests of the JAX package's random_k masks and
-   qsgd uniforms (``COMPRESSION_KNOWN_ANSWERS``); the kernel's times at the
-   main shape beside its twin, its bound and ``torch.topk`` of its scores;
+   qsgd uniforms (``COMPRESSION_KNOWN_ANSWERS``, one of them at d=5,000);
+   the kernel's times at the main shape beside its twin, its bound and
+   ``torch.topk`` of its scores, and at the wide shapes in both dtypes;
    the ``COMPRESSION_RUNS`` on the main path's data (N=256 ring, float32,
    eval every iteration, T=3,000), pallas and stencil, each within 1% of
    the JAX package's iterations to ε with its floats transmitted exactly,
@@ -191,8 +198,13 @@ card,sampling_ab --sampling-baseline PATH``) binds another
 sample_indices_*), holds both forms bitwise to it at the sampling inputs
 (the gathered rows against ``gather_batches`` of its indices), and times
 each form's whole sampling step in a graph in turns (the parent's gather
-step: its kernel and two ``take_along_dim`` launches). ``profile`` also
-traces the parity run (N=25, gather sampling).
+step: its kernel and two ``take_along_dim`` launches); ``compression_ab``
+(``--phases card,compression_ab --compression-baseline PATH``) binds
+another ``compression_kernels.cu`` with this tree's C interface, holds this
+tree bitwise to it (memory⁺ and the mask bits or levels) wherever it takes
+the shape, and times both in turns, in a graph and event-timed, at the main
+shape and the wide ones. ``profile`` also traces the parity run (N=25,
+gather sampling).
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -202,6 +214,7 @@ and prints no result line. Without a card it exits 1 before any phase.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import statistics
@@ -219,8 +232,10 @@ PHASES = ("card", "kernels", "sampling", "reference", "parity", "main", "mixing"
 # kernels against another build of robust_kernels.cu; fc_ab (with --fc-baseline), the fc
 # kernels against another build of fc_kernels.cu with the parent's C
 # interface; sampling_ab (with --sampling-baseline), both sampling forms
-# against another build of sampling_kernels.cu.
-OPTIONAL_PHASES = ("profile", "ring_ab", "robust_ab", "fc_ab", "sampling_ab")
+# against another build of sampling_kernels.cu; compression_ab (with
+# --compression-baseline), the compression kernel against another build of
+# compression_kernels.cu.
+OPTIONAL_PHASES = ("profile", "ring_ab", "robust_ab", "fc_ab", "sampling_ab", "compression_ab")
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; 67 TFLOP/s float32 and
 # 34 TFLOP/s float64 outside the tensor cores.
@@ -348,6 +363,11 @@ SAMPLING_FORM_PATH = {"dense": "main", "gather": "parity"}
 # one block with 8 rows a thread (the launcher's plan up to 8,192 rows)
 # against a thread block cluster of a thread a row, timed in turns.
 SAMPLING_PLAN_SHAPES = ((4, 1100), (25, 1100), (4, 7000), (25, 7000))
+# A shard past the 65,536 rows a cluster holds in registers, where each
+# thread recomputes its rows' keys at every radix pass: (N, L, b), N=1 as a
+# single worker holding more than 65,536 samples; held bitwise to the twin
+# at N=1 and with the ragged shards of sampling_n_valid at N=4, timed at N=1.
+SAMPLING_LONG = (1, 100_000, 16)
 # Known answers: sha256 (first 16 hex digits) of the JAX package's draws with
 # jax 0.9.0 at (seed, slot, t, dtype, N, L, b), n_valid as sampling_n_valid
 # gives it: the masked uniform scores [N, L] (ops/sampling.py's
@@ -386,10 +406,12 @@ TRACKING_RUNS = {
 TRACKING_ROBUST_ITERATIONS = 1_000
 
 # The compression kernel's inputs (N, d): the main path, the study's N=25,
-# and the stress width; its operators (name, k; None is k = d) at each; the
-# seeds, counters (past 2³¹ − 1 and past 2³² as well) and rounds of its
-# draws. top_k draws nothing, so it is held once a shape and dtype.
-COMPRESSION_SHAPES = ((256, 81), (25, 81), (4096, 1024))
+# the stress width, and rows past 4,096 (the block path's keys held in
+# registers up to 4,096 columns, recomputed at each radix pass past that);
+# its operators (name, k; None is k = d) at each; the seeds, counters (past
+# 2³¹ − 1 and past 2³² as well) and rounds of its draws. top_k draws
+# nothing, so it is held once a shape and dtype.
+COMPRESSION_SHAPES = ((256, 81), (25, 81), (4096, 1024), (64, 5_000), (8, 100_003))
 COMPRESSION_OPERATORS = (("top_k", 1), ("top_k", 9), ("top_k", 27), ("top_k", None),
                          ("random_k", 9), ("random_k", 27), ("qsgd", 1), ("qsgd", 4),
                          ("qsgd", 16))
@@ -400,6 +422,11 @@ COMPRESSION_ROUNDS = (0, 1)
 # float32; the record is random_k k=27 (choco_randk27 and dsgd_randk27_const).
 COMPRESSION_TIMED = (("top_k", 9), ("random_k", 27), ("qsgd", 4))
 COMPRESSION_RECORD = ("random_k", 27)
+# The wide shapes timed in both dtypes (no workload of the repo runs them).
+COMPRESSION_WIDE_TIMED = ((4096, 1024), (64, 5_000), (8, 100_003))
+# compression_ab's widths about the switch from a warp a row to a block a row
+# (128 columns), float32: where a build with another switch differs.
+COMPRESSION_SWITCH_SHAPES = ((256, 128), (256, 192), (256, 256))
 # Known answers: sha256 (first 16 hex digits) of the JAX package's draws with
 # jax 0.9.0 at (seed, t, round, dtype, N, d, k): random_k's mask [N, d]
 # (int32, 1 where kept, of make_compressor('random_k', d, k).apply(key,
@@ -411,6 +438,7 @@ COMPRESSION_KNOWN_ANSWERS = {
     (2**31 - 1, 2**31 - 1, 1, "float32", 25, 81, 9): ("25d99a25f14e264f", "836999d63effa771"),
     (0, 12_345, 0, "float64", 256, 81, 27): ("ccb244ed6d932929", "25996da80bb566b6"),
     (2**40 + 5, 7, 1, "float64", 25, 81, 9): ("81368606e948abe8", "53352c3ef11f80fc"),
+    (42, 777, 1, "float32", 6, 5_000, 27): ("e74cecdd241f8536", "4374f739fd7244c1"),
 }
 # The compression phase's runs on the main path's data (N=256 ring,
 # logistic, float32, eval every iteration), with T, the JAX package's
@@ -1137,7 +1165,60 @@ def phase_sampling(torch, np, sk, sampling, prng):
                 f"{us[0]:.3f} {us[3]:.3f} us; a cluster of {cluster} blocks, a thread a row "
                 f"{us[1]:.3f} {us[2]:.3f} us (the selection on the draw's scores, in a graph of "
                 f"{TIMED_LAUNCHES}; both bitwise the twin)")
+    sampling_long(torch, sk, sampling, prng)
     return records
+
+
+def sampling_long(torch, sk, sampling, prng):
+    """Both forms on a shard past 65,536 rows (SAMPLING_LONG): the gather
+    form's indices, weights and rows bitwise the twin, the dense weights
+    bitwise the twin's gather draw scattered (the dense twin holds L²
+    pairs), at N=1 and with ragged shards at N=4, in both dtypes, at two
+    seeds and counters; then each form's times at N=1 in a graph and
+    event-timed, beside the twin's gather draw and the bound."""
+    n1, L, b = SAMPLING_LONG
+    t = torch.zeros(1, dtype=torch.int64, device="cuda")
+    checked = 0
+    for n in (n1, 4):
+        nv = (torch.full((n,), L, dtype=torch.int64, device="cuda") if n == n1
+              else sampling_n_valid(torch, n, L, b))
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).removeprefix("torch.")
+            X, y = sampling_rows(torch, n, L, dtype)
+            for seed in (42, 2**31 - 1):
+                key = prng.fold_in(prng.key(seed, x64=dtype == torch.float64), 1)
+                for counter in (0, 2**31 - 1):
+                    t.fill_(counter)
+                    what = f"long shard N={n} L={L} b={b} {dname} seed={seed} t={counter}"
+                    idx, w = sampling.sample_batch_indices(key, t, nv, L, b, dtype)
+                    check(_same(torch, sk.sample_batch_indices(key, t, nv, L, b, dtype), (idx, w)),
+                          f"sampling indices {what}: not bitwise")
+                    check(_same(torch, sk.sample_worker_batches(key, t, X, y, nv, b),
+                                (*sampling.gather_batches(X, y, idx), w)),
+                          f"sampling batches {what}: not bitwise gather_batches of the twin")
+                    dense = torch.zeros((n, L), dtype=dtype, device="cuda").scatter_add_(1, idx, w)
+                    check(torch.equal(sk.sample_worker_batch_weights(key, t, nv, L, b, dtype), dense),
+                          f"sampling weights {what}: not the twin's gather draw scattered")
+                    checked += 1
+    say(f"[sampling] long shard L={L} b={b}: both forms bitwise the twin at {checked} inputs (N=1 "
+        f"and N=4 with shards of {L}, 0, 3 and {b - 1} rows; both dtypes; seeds 42, 2^31 - 1; "
+        f"t 0, 2^31 - 1; the dense weights against the twin's gather draw scattered)")
+    nv = torch.full((n1,), L, dtype=torch.int64, device="cuda")
+    key = prng.fold_in(prng.key(203, x64=False), 0)
+    t.fill_(12_345)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).removeprefix("torch.")
+        X, y = sampling_rows(torch, n1, L, dtype)
+        plain_ms = time_ms(torch, lambda: sampling.sample_worker_batches(key, t, X, y, nv, b))
+        for name, kernel in (
+                ("sample_worker_batches", lambda: sk.sample_worker_batches(key, t, X, y, nv, b)),
+                ("sample_worker_batch_weights",
+                 lambda: sk.sample_worker_batch_weights(key, t, nv, L, b, dtype))):
+            ms, in_graph = time_ms(torch, kernel), graph_ms(torch, kernel)
+            b_ms, b_by = sampling_bound(name, n1, L, b, dtype.itemsize)
+            say(f"[sampling] long shard {name} N={n1} L={L} b={b} {dname}: in a graph of "
+                f"{TIMED_LAUNCHES} {in_graph * 1e3:.3f} us, event-timed {ms * 1e3:.3f} us, twin's "
+                f"gather draw {plain_ms * 1e3:.3f} us, bound {b_ms * 1e3:.4f} us ({b_by})")
 
 
 def phase_sampling_ab(torch, kernels, sampling, prng, baseline: str):
@@ -1690,6 +1771,18 @@ def compression_records(torch, ck, prng):
         if (name, k) == COMPRESSION_RECORD:
             record = _record("compress_exchange", err, ms, plain_ms, b_ms, b_by, None,
                              graph_ms=in_graph, topk_graph_ms=topk_ms)
+    for (n, d), dtype, (name, k) in itertools.product(
+            COMPRESSION_WIDE_TIMED, (torch.float32, torch.float64), COMPRESSION_TIMED):
+        dname = str(dtype).removeprefix("torch.")
+        v, memory = compression_inputs(torch, n, d, dtype)
+        draw = compression.Draw(compression.tag_key(203, x64=dtype == torch.float64), t, 0)
+        comp = compression.make_compressor(name, d, k)
+        kernel = lambda: ck.ef_compress(comp, draw, v, memory)  # noqa: E731
+        ms, in_graph = time_ms(torch, kernel), graph_ms(torch, kernel)
+        b_ms, b_by = compression_bound(name, n, d, k, dtype.itemsize)
+        say(f"[compression] wide compress_exchange[{name} k={k}] N={n} d={d} {dname}: in a graph of "
+            f"{TIMED_LAUNCHES} {in_graph * 1e3:.3f} us, event-timed {ms * 1e3:.3f} us, bound "
+            f"{b_ms * 1e3:.4f} us ({b_by})")
     return record
 
 
@@ -1788,6 +1881,100 @@ def phase_compression(torch, np, pkg, kernels, prng):
             _compression_agree(np, label, card, pkg.run(cfg, sds, sf, device="cpu",
                                                         return_state=True))
     return record, record_launches
+
+
+def phase_compression_ab(torch, kernels, baseline: str):
+    """The compression kernel against the same kernel built from
+    ``baseline`` (a compression_kernels.cu with this tree's C interface,
+    such as the parent commit's): at every COMPRESSION_SHAPES and
+    COMPRESSION_SWITCH_SHAPES entry, dtype and timed operator, at two draws, this tree's memory⁺ and mask bits or
+    levels bitwise the baseline's where the baseline takes the shape; then
+    each timed operator at the main shape and the widths about the
+    warp-to-block switch in float32 and at the wide shapes in both dtypes, in
+    a graph of 200 and event-timed, in turns baseline,
+    this tree, this tree, baseline, beside the bound; counts the lines where
+    this tree is slower than the baseline's faster turn."""
+    import ctypes
+    import pathlib
+
+    build, ck = kernels["build"], kernels["ck"]
+    compression = ck.compression
+    lib = ctypes.CDLL(str(build.build(pathlib.Path(baseline).resolve())))
+    ptr, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
+    tail = [i64, i64, i64, i64, ptr, u32, u32, u32, ctypes.c_double, ptr]
+    for suffix in ("f32", "f64"):
+        getattr(lib, f"ef_compress_{suffix}").argtypes = [ptr, ptr, ptr] + tail
+        getattr(lib, f"ef_levels_{suffix}").argtypes = [ptr, ptr, ptr, ptr] + tail
+
+    def base(comp, draw, v, memory, levels=None):
+        out = torch.empty_like(v)
+        extra = () if levels is None else (levels.data_ptr(),)
+        (k0, k1), rnd = draw.tag_key, draw.round
+        n, d = v.shape
+        build.call(lib, "ef_compress" if levels is None else "ef_levels", v, v.data_ptr(),
+                   memory.data_ptr(), out.data_ptr(), *extra, n, d, ck.MODES[comp.name], comp.k,
+                   draw.t.data_ptr(), k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF, rnd & 0xFFFFFFFF,
+                   float(comp.delta), invalid="refused")
+        return out
+
+    t = torch.zeros(1, dtype=torch.int64, device="cuda")
+    checked, refused = 0, []
+    for (n, d), dtype, (name, k) in itertools.product(
+            COMPRESSION_SHAPES + COMPRESSION_SWITCH_SHAPES, (torch.float32, torch.float64),
+            COMPRESSION_TIMED):
+        dname = str(dtype).removeprefix("torch.")
+        v, memory = compression_inputs(torch, n, d, dtype)
+        comp = compression.make_compressor(name, d, k)
+        for seed, counter in ((203, 0), (2**31 - 1, 2**32 + 5)):
+            t.fill_(counter)
+            draw = compression.Draw(compression.tag_key(seed, x64=dtype == torch.float64), t, 1)
+            levels = torch.empty(v.shape, dtype=torch.int32, device="cuda")
+            try:
+                want = base(comp, draw, v, memory, levels)
+            except ValueError:
+                refused.append(f"{name} N={n} d={d} {dname}")
+                break
+            out, got_levels = ck.ef_levels(comp, draw, v, memory)
+            check(torch.equal(_bits(torch, out), _bits(torch, want))
+                  and torch.equal(got_levels, levels),
+                  f"compression_ab {name} N={n} d={d} {dname} seed={seed}: differs from the "
+                  f"baseline's")
+            checked += 1
+    say(f"[compression_ab] baseline {baseline}: this tree bitwise the baseline (memory+ and the "
+        f"mask bits or levels) at {checked} inputs; the baseline refuses "
+        f"{', '.join(sorted(set(refused))) or 'none'}")
+    t.fill_(12_345)
+    slower, lines = [], 0
+    timed = [(shape, torch.float32) for shape in (MAIN_SHAPE, *COMPRESSION_SWITCH_SHAPES)]
+    timed += itertools.product(COMPRESSION_WIDE_TIMED, (torch.float32, torch.float64))
+    for ((n, d), dtype), (name, k) in itertools.product(timed, COMPRESSION_TIMED):
+        dname = str(dtype).removeprefix("torch.")
+        v, memory = compression_inputs(torch, n, d, dtype)
+        draw = compression.Draw(compression.tag_key(203, x64=dtype == torch.float64), t, 0)
+        comp = compression.make_compressor(name, d, k)
+        new = lambda: ck.ef_compress(comp, draw, v, memory)  # noqa: E731
+        old = lambda: base(comp, draw, v, memory)  # noqa: E731
+        b_ms, b_by = compression_bound(name, n, d, k, dtype.itemsize)
+        try:
+            old()
+        except ValueError:
+            us = [graph_ms(torch, new) * 1e3 for _ in range(2)]
+            ev = [time_ms(torch, new) * 1e3 for _ in range(2)]
+            say(f"[compression_ab] {name:8s} k={k:2d} N={n:4d} d={d:6d} {dname}: baseline refuses; "
+                f"this tree {us[0]:9.3f} {us[1]:9.3f} us in a graph, event-timed {ev[0]:9.3f} "
+                f"{ev[1]:9.3f} us  bound {b_ms * 1e3:.4f} us ({b_by})")
+            continue
+        us = [graph_ms(torch, f) * 1e3 for f in (old, new, new, old)]
+        ev = [time_ms(torch, f) * 1e3 for f in (old, new, new, old)]
+        lines += 1
+        if max(us[1], us[2]) > min(us[0], us[3]):
+            slower.append(f"{name} N={n} d={d} {dname}")
+        say(f"[compression_ab] {name:8s} k={k:2d} N={n:4d} d={d:6d} {dname}: baseline {us[0]:9.3f} "
+            f"{us[3]:9.3f} us  this tree {us[1]:9.3f} {us[2]:9.3f} us in a graph; event-timed "
+            f"baseline {ev[0]:9.3f} {ev[3]:9.3f} us  this tree {ev[1]:9.3f} {ev[2]:9.3f} us  "
+            f"bound {b_ms * 1e3:.4f} us ({b_by})")
+    say(f"[compression_ab] this tree slower in a graph than the baseline's faster turn in "
+        f"{len(slower)} of {lines}: {', '.join(slower) if slower else 'none'}")
 
 
 def phase_study(torch, np, pkg):
@@ -2092,6 +2279,8 @@ def main(argv=None) -> int:
     ap.add_argument("--fc-baseline", help="the fc_kernels.cu that phase fc_ab compares with")
     ap.add_argument("--sampling-baseline",
                     help="the sampling_kernels.cu that phase sampling_ab compares with")
+    ap.add_argument("--compression-baseline",
+                    help="the compression_kernels.cu that phase compression_ab compares with")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES) - set(OPTIONAL_PHASES)
@@ -2105,6 +2294,8 @@ def main(argv=None) -> int:
         ap.error("phase fc_ab and --fc-baseline go together")
     if ("sampling_ab" in phases) != (args.sampling_baseline is not None):
         ap.error("phase sampling_ab and --sampling-baseline go together")
+    if ("compression_ab" in phases) != (args.compression_baseline is not None):
+        ap.error("phase compression_ab and --compression-baseline go together")
 
     import torch
 
@@ -2224,6 +2415,9 @@ def main(argv=None) -> int:
     if "sampling_ab" in phases:
         phase_sampling_ab(torch, kernels, sampling, prng, args.sampling_baseline)
         lap("sampling_ab")
+    if "compression_ab" in phases:
+        phase_compression_ab(torch, kernels, args.compression_baseline)
+        lap("compression_ab")
 
     if records:
         kernel_records = []

@@ -24,17 +24,18 @@
 // - top_k / random_k: keep the k largest scores, ties to the lower column
 //   (jax.lax.top_k's order; the twin's stable descending sort). The scores
 //   are |v - memory| for top_k, compared by their bits (non-negative floats
-//   order as their bits; NaN above +inf, as the sort puts it), and m for
-//   random_k (u's order, ties where the draws tie). Then
+//   order as their bits; every NaN as one value above +inf, as the sort puts
+//   them), and m for random_k (u's order, ties where the draws tie). Then
 //   memory' = memory + diff * mask, a multiply, as the JAX code masks.
-// - qsgd with s = 2^bits: ||diff|| summed in a fixed order, lane j of warp 0
+// - qsgd with s = 2^bits: ||diff|| summed in a fixed order, lane j of a warp
 //   adding the squares of columns j, j + 32, ... in turn, then a butterfly
-//   over the 32 lanes (lane j adds lane j ^ o, o = 16 ... 1), then the
-//   correctly rounded square root: the order of ops/compression.py's
-//   row_norm. level = |diff| / scale * s (scale = the norm, 1 on a zero
-//   row), low = floor(level), q = (low + (u < level - low)) / s, and
-//   memory' = memory + ((omega * norm) * sign(diff)) * q, sign as
-//   (diff > 0) - (diff < 0), omega rounded to the run's type.
+//   over the 32 lanes (lane j adds lane j ^ o, o = 16 ... 1; each step adds
+//   the same pair in either order, so every lane ends with the same bits),
+//   then the correctly rounded square root: the order of
+//   ops/compression.py's row_norm. level = |diff| / scale * s (scale = the
+//   norm, 1 on a zero row), low = floor(level), q = (low + (u < level -
+//   low)) / s, and memory' = memory + ((omega * norm) * sign(diff)) * q, sign
+//   as (diff > 0) - (diff < 0), omega rounded to the run's type.
 // Every operation is the _rn intrinsic of its IEEE operation (built with
 // --fmad=false), so every bit that reaches the mask or a rounding decision
 // is the twin's, and so is every output bit.
@@ -42,43 +43,68 @@
 // Bound: at the main path's N=256, d=81 in float32, reading v and memory and
 // writing memory' is 248,832 bytes, 0.0743 us at 3.35 TB/s; the draws are
 // N * d + 2 Threefry calls and the selection d * ceil(log2 k) compares a
-// row, below the bytes on the INT32 lanes for random_k at k <= 27. A launch
-// is latency: the load of t, two dependent Threefry calls for the step key,
-// one for the element, a barrier and the rank loop.
+// row, 0.104 us on the INT32 lanes for random_k at k = 27. A launch is
+// latency: the load of t, two dependent Threefry calls for the step key,
+// one for the element, and the rank.
 //
-// Design (simple and correct first; making it fast is later work): one
-// block a row, a thread a column (up to 1,024 threads, 4 columns a thread
-// up to d = 4,096). top_k / random_k: each thread writes its columns'
-// scores into shared memory; after a barrier it counts, for each of its
-// columns, the row's scores above its own (ties: lower columns) and stops
-// as soon as the count reaches k; k >= d keeps every column without a
-// count. qsgd: warp 0 sums the row's squares in the order above and puts
-// the norm in shared memory; after a barrier every thread quantizes its
-// columns.
+// Design: one launch an exchange, of one of three kernels.
+// - warp_select_kernel (top_k, random_k, d <= kWarpMaxD): a warp a row, 4
+//   rows a block, no shared memory and no barrier. Lane i holds columns i,
+//   i + 32, ... in registers. Each column's key packs its score above
+//   kWarpColMask - c, so keys are distinct and a strict > orders them as
+//   the sort (32 bits for float32 random_k, 64 for float32 top_k and
+//   float64 random_k); a float64 magnitude takes 63 bits, so its key is the
+//   magnitude alone and a tie goes to the lower column. A column's rank
+//   counts the warp's keys above its own, broadcast by __shfl_sync; it is
+//   kept when its rank is below k. The step key's Threefry calls are issued
+//   with the loads of v and memory, so their latencies overlap.
+// - block_select_kernel (top_k, random_k, wider rows): a block a row and a
+//   radix select (radix_select.cuh, shared with the gather sampler) over
+//   keys that pack the score above d - 1 - c, left-aligned in 64 bits
+//   (float32) or 128 (float64). The passes go on until the keys at or above
+//   the bin of the k-th key number exactly k, so that bin's lower bound is
+//   an exact threshold: keep = key >= threshold, and no order among the kept
+//   columns, no survivors in shared memory and no limit on k or d. Keys are
+//   held in registers, one a thread up to 1,024 columns and 4 a thread up to
+//   4,096; past that each pass recomputes them (top_k rereads v and memory,
+//   random_k redraws its Threefry).
+// - warp_qsgd_kernel: a warp a row at every width, 4 rows a block: the
+//   lanes' sums and the butterfly above, then each lane quantizes its
+//   columns. Up to kWarpMaxD columns they stay in registers, and their
+//   uniforms are drawn before the sum (they need only the step key); past
+//   that a second pass rereads them and draws as it goes.
+// k >= d keeps every column without a rank.
 //
 // Each launch of ef_compress_* adds one to slot 0 of launch_counts.cuh
 // (compress_exchange, the order of KERNELS in ops/compression_kernels.py);
 // ef_levels_*, an entry point for the tests that also writes each element's
 // mask bit (top_k, random_k) or level low + (u < p_up) (qsgd), counts
 // nothing. The kernels allocate nothing, launch on the caller's stream and
-// return cudaGetLastError(); d above 4,096, N * d of 2^32 or more, an
+// return cudaGetLastError(); N * d of 2^32 or more, d of 2^31 or more, an
 // unknown operator or k outside its range returns cudaErrorInvalidValue.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "launch_counts.cuh"
+#include "radix_select.cuh"
 #include "threefry.cuh"
 
 namespace {
 
 constexpr int kSlotCompress = 0;
 constexpr int kNoSlot = -1;
-constexpr int kMaxThreads = 1024;
-constexpr int kColumnsPerThread = 4;
-constexpr int64_t kMaxD = int64_t{kMaxThreads} * kColumnsPerThread;  // 4,096
 constexpr int kLanes = 32;
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kWarpsPerBlock = 4;  // the warp kernels: rows a block
+constexpr int kWarpMaxD = 128;     // top_k / random_k: a warp a row up to this width
+constexpr int kWarpColBits = 9;    // the warp path's reversed column: kWarpMaxD <= 512
+constexpr int kWarpColMask = (1 << kWarpColBits) - 1;
+constexpr int kMaxThreads = 1024;  // the block path: a block a row
+constexpr int kHeldColumns = 4;    // keys a thread in registers, up to 4,096 columns
+constexpr int kRecomputed = 0;     // past that: keys recomputed at each pass
 
 enum Mode : int { kTopK = 0, kRandK = 1, kQsgd = 2 };
 
@@ -87,40 +113,82 @@ struct Ops;
 
 template <>
 struct Ops<float> {
-  using Key = uint32_t;
+  using WideKey = uint64_t;
+  static constexpr int kMagnitudeBits = 31;
+  static constexpr int kMantissaBits = 23;
   static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
   static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
   static __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
   static __device__ __forceinline__ float sqrt(float a) { return __fsqrt_rn(a); }
   static __device__ __forceinline__ float of(double a) { return __double2float_rn(a); }
-  static __device__ __forceinline__ Key magnitude(float a) { return __float_as_uint(fabsf(a)); }
+  // |a|'s bits, every NaN as the one value just above +inf.
+  static __device__ __forceinline__ uint32_t magnitude(float a) {
+    return min(__float_as_uint(fabsf(a)), 0x7F800001u);
+  }
   // The mantissa uniform keeps, and u itself.
-  static __device__ __forceinline__ Key mantissa(uint2 w) { return (w.x ^ w.y) >> 9; }
-  static __device__ __forceinline__ float uniform(Key m) {
+  static __device__ __forceinline__ uint32_t mantissa(uint2 w) { return (w.x ^ w.y) >> 9; }
+  static __device__ __forceinline__ float uniform(uint32_t m) {
     return __uint_as_float(m | 0x3F800000u) - 1.0f;
   }
 };
 
 template <>
 struct Ops<double> {
-  using Key = uint64_t;
+  using WideKey = u128;
+  static constexpr int kMagnitudeBits = 63;
+  static constexpr int kMantissaBits = 52;
   static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
   static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
   static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
   static __device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
   static __device__ __forceinline__ double sqrt(double a) { return __dsqrt_rn(a); }
   static __device__ __forceinline__ double of(double a) { return a; }
-  static __device__ __forceinline__ Key magnitude(double a) {
-    return static_cast<Key>(__double_as_longlong(fabs(a)));
+  static __device__ __forceinline__ uint64_t magnitude(double a) {
+    const uint64_t bits = static_cast<uint64_t>(__double_as_longlong(fabs(a)));
+    return bits < 0x7FF0000000000001ull ? bits : 0x7FF0000000000001ull;
   }
-  static __device__ __forceinline__ Key mantissa(uint2 w) {
+  static __device__ __forceinline__ uint64_t mantissa(uint2 w) {
     return ((static_cast<uint64_t>(w.x) << 32) | w.y) >> 12;
   }
-  static __device__ __forceinline__ double uniform(Key m) {
+  static __device__ __forceinline__ double uniform(uint64_t m) {
     return __longlong_as_double(static_cast<long long>(m | 0x3FF0000000000000ull)) - 1.0;
   }
 };
+
+// Bits of a selection score: the magnitude (top_k) or the mantissa (random_k).
+template <typename Real, Mode kMode>
+constexpr int kScoreBits =
+    kMode == kTopK ? Ops<Real>::kMagnitudeBits : Ops<Real>::kMantissaBits;
+
+// The warp path's key of column c: its score above kWarpColMask - c where
+// they fit in 64 bits, else the score alone with the column as tie-break.
+// Columns past d take key 0 (and, unpacked, a column past every valid one),
+// which beats no valid column: a packed valid key is at least
+// kWarpColMask - kWarpMaxD + 1 > 0.
+template <typename Real, Mode kMode>
+struct WarpKey {
+  static constexpr int kBits = kScoreBits<Real, kMode> + kWarpColBits;
+  static constexpr bool kPacked = kBits <= 64;
+  using Key = std::conditional_t<kBits <= 32, uint32_t, uint64_t>;
+  static __device__ __forceinline__ Key make(uint64_t score, int c) {
+    if constexpr (kPacked) {
+      return (static_cast<Key>(score) << kWarpColBits) | static_cast<Key>(kWarpColMask - c);
+    } else {
+      return static_cast<Key>(score);
+    }
+  }
+  // Column other_c's key comes before column c's in the sort.
+  static __device__ __forceinline__ bool beats(Key other, int other_c, Key mine, int c) {
+    if constexpr (kPacked) {
+      return other > mine;
+    } else {
+      return (other > mine) | ((other == mine) & (other_c < c));
+    }
+  }
+};
+
+static_assert(kWarpMaxD <= kWarpColMask + 1, "the warp path's columns fit kWarpColBits");
 
 template <typename Real>
 struct Args {
@@ -128,6 +196,7 @@ struct Args {
   const Real* memory;
   Real* out;
   int32_t* levels;  // ef_levels_* only; null on the run's path
+  int64_t n;
   int d;
   int k;            // coordinates kept, or qsgd's bits
   const int64_t* t;
@@ -144,98 +213,267 @@ __device__ __forceinline__ uint2 step_key(const Args<Real>& a) {
   return key;
 }
 
-// top_k and random_k: the row's scores in shared memory, a rank by counting.
-template <typename Real, Mode kMode>
-__global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a) {
+// memory' of a top_k / random_k element, and its mask bit.
+template <typename Real>
+__device__ __forceinline__ void write_masked(const Args<Real>& a, int64_t at, Real mem, Real diff,
+                                             bool keep) {
+  using O = Ops<Real>;
+  a.out[at] = O::add(mem, O::mul(diff, keep ? Real(1) : Real(0)));
+  if (a.levels != nullptr) a.levels[at] = keep ? 1 : 0;
+}
+
+// top_k and random_k, a warp a row: J columns a lane in registers, each
+// ranked by counting the warp's keys above its own.
+template <typename Real, Mode kMode, int J>
+__global__ void __launch_bounds__(kWarpsPerBlock * kLanes) warp_select_kernel(Args<Real> a) {
   if (a.slot >= 0) launch_counts::add(a.slot);
   using O = Ops<Real>;
-  using Key = typename O::Key;
-  extern __shared__ __align__(16) unsigned char shared_bytes[];
-  Key* scores = reinterpret_cast<Key*>(shared_bytes);
+  using W = WarpKey<Real, kMode>;
+  using Key = typename W::Key;
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= a.n) return;
+  const int d = a.d;
+  const int64_t base = row * d;
+  Real mem[J], diff[J];
+#pragma unroll
+  for (int h = 0; h < J; ++h) {
+    const int c = lane + kLanes * h;
+    mem[h] = c < d ? a.memory[base + c] : Real(0);
+    diff[h] = c < d ? O::sub(a.v[base + c], mem[h]) : Real(0);
+  }
+  uint2 key = make_uint2(0u, 0u);
+  if (kMode == kRandK) key = step_key(a);
+  Key keys[J];
+#pragma unroll
+  for (int h = 0; h < J; ++h) {
+    const int c = lane + kLanes * h;
+    uint64_t score;
+    if constexpr (kMode == kTopK) {
+      score = O::magnitude(diff[h]);
+    } else {
+      score = O::mantissa(threefry2x32(key.x, key.y, 0u, static_cast<uint32_t>(base + c)));
+    }
+    keys[h] = c < d ? W::make(score, c) : Key(0);
+  }
+  bool keep[J];
+#pragma unroll
+  for (int h = 0; h < J; ++h) keep[h] = true;
+  if (a.k < d) {
+    int rank[J] = {};
+#pragma unroll
+    for (int src = 0; src < kLanes; ++src) {
+#pragma unroll
+      for (int g = 0; g < J; ++g) {
+        const Key other = __shfl_sync(kFullMask, keys[g], src);
+#pragma unroll
+        for (int h = 0; h < J; ++h) {
+          rank[h] += W::beats(other, src + kLanes * g, keys[h], lane + kLanes * h);
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < J; ++h) keep[h] = rank[h] < a.k;
+  }
+#pragma unroll
+  for (int h = 0; h < J; ++h) {
+    const int c = lane + kLanes * h;
+    if (c < d) write_masked(a, base + c, mem[h], diff[h], keep[h]);
+  }
+}
+
+// top_k and random_k, a block a row: a radix select to the exact k-th key.
+// R keys a thread in registers, or with R = kRecomputed each recomputed
+// where it is read.
+template <typename Real, Mode kMode, int R>
+__global__ void __launch_bounds__(kMaxThreads) block_select_kernel(Args<Real> a) {
+  if (a.slot >= 0) launch_counts::add(a.slot);
+  using O = Ops<Real>;
+  using Key = typename O::WideKey;
+  constexpr int kWidth = 8 * sizeof(Key);
+  __shared__ State<Key> st;
   const int d = a.d;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * d;
   uint2 key = make_uint2(0u, 0u);
   if (kMode == kRandK) key = step_key(a);
-  Real diff[kColumnsPerThread];
-  Real mem[kColumnsPerThread];
+  const int rbits = row_bits(d);
+  auto key_of = [&](int c) -> Key {
+    uint64_t score;
+    if constexpr (kMode == kTopK) {
+      score = O::magnitude(O::sub(a.v[base + c], a.memory[base + c]));
+    } else {
+      score = O::mantissa(threefry2x32(key.x, key.y, 0u, static_cast<uint32_t>(base + c)));
+    }
+    return pack<Key, kScoreBits<Real, kMode>>(score, static_cast<uint32_t>(d - 1 - c), rbits);
+  };
+  // f(c, key) for each of this thread's columns.
+  Key keys[R > 0 ? R : 1];
+  auto each = [&](auto&& f) {
+    if constexpr (R > 0) {
 #pragma unroll
-  for (int i = 0; i < kColumnsPerThread; ++i) {
-    const int c = threadIdx.x + i * blockDim.x;
-    if (c < d) {
-      mem[i] = a.memory[base + c];
-      diff[i] = O::sub(a.v[base + c], mem[i]);
-      if (kMode == kTopK) {
-        scores[c] = O::magnitude(diff[i]);
-      } else {
-        const uint32_t counter = static_cast<uint32_t>(base + c);
-        scores[c] = O::mantissa(threefry2x32(key.x, key.y, 0u, counter));
+      for (int r = 0; r < R; ++r) {
+        const int c = threadIdx.x + r * blockDim.x;
+        if (c < d) f(c, keys[r]);
+      }
+    } else {
+      for (int64_t c = threadIdx.x; c < d; c += blockDim.x) {
+        f(static_cast<int>(c), key_of(static_cast<int>(c)));
       }
     }
+  };
+  auto write = [&](int c, bool keep) {
+    const Real mem = a.memory[base + c];
+    write_masked(a, base + c, mem, O::sub(a.v[base + c], mem), keep);
+  };
+  if (a.k >= d) {
+    for (int64_t c = threadIdx.x; c < d; c += blockDim.x) write(static_cast<int>(c), true);
+    return;
+  }
+  for (int i = threadIdx.x; i < kBins; i += blockDim.x) st.hist[i] = 0;
+  if (threadIdx.x == 0) {
+    st.prefix = 0;
+    st.p = kWidth - 8;
+    st.krem = a.k;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int c = threadIdx.x + r * blockDim.x;
+    if (c < d) keys[r] = key_of(c);
   }
   __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kColumnsPerThread; ++i) {
-    const int c = threadIdx.x + i * blockDim.x;
-    if (c >= d) continue;
-    bool keep = true;
-    if (a.k < d) {
-      const Key own = scores[c];
-      int rank = 0;
-      for (int j = 0; j < d && rank < a.k; ++j) {
-        const Key other = scores[j];
-        rank += (other > own) | ((other == own) & (j < c));
-      }
-      keep = rank < a.k;
-    }
-    a.out[base + c] = O::add(mem[i], O::mul(diff[i], keep ? Real(1) : Real(0)));
-    if (a.levels != nullptr) a.levels[base + c] = keep ? 1 : 0;
+  for (;;) {
+    const int p = st.p;
+    const Key prefix = st.prefix;
+    each([&](int, Key k) {
+      if (((k >> p) >> 8) == prefix) atomicAdd(&st.hist[static_cast<unsigned>(k >> p) & 0xFFu], 1u);
+    });
+    __syncthreads();
+    // The survivors' room is k: the passes end when exactly k keys lie at or
+    // above the k-th key's bin.
+    if (threadIdx.x < kLanes) scan_histogram(&st, a.k, a.k);
+    __syncthreads();
+    if (st.done) break;
   }
+  const int p = st.p;
+  const Key lower = st.lower;
+  each([&](int c, Key k) { write(c, (k >> p) >= lower); });
 }
 
-// qsgd: warp 0 takes the row norm in the twin's order, then each thread
-// quantizes its columns.
-template <typename Real>
-__global__ void __launch_bounds__(kMaxThreads) qsgd_kernel(Args<Real> a) {
+// qsgd, a warp a row: J columns a lane in registers, or with J = 0 a loop
+// over the row in two passes.
+template <typename Real, int J>
+__global__ void __launch_bounds__(kWarpsPerBlock * kLanes) warp_qsgd_kernel(Args<Real> a) {
   if (a.slot >= 0) launch_counts::add(a.slot);
   using O = Ops<Real>;
-  __shared__ Real norm_shared;
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= a.n) return;
   const int d = a.d;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * d;
+  const int64_t base = row * d;
+  constexpr int kHeld = J > 0 ? J : 1;
+  Real mem[kHeld], diff[kHeld], u[kHeld];
+  if constexpr (J > 0) {
+#pragma unroll
+    for (int h = 0; h < J; ++h) {
+      const int c = lane + kLanes * h;
+      mem[h] = c < d ? a.memory[base + c] : Real(0);
+      diff[h] = c < d ? O::sub(a.v[base + c], mem[h]) : Real(0);
+    }
+  }
   const uint2 key = step_key(a);
-  if (threadIdx.x < kLanes) {
-    Real acc = Real(0);
-    for (int c = threadIdx.x; c < d; c += kLanes) {
+  auto uniform_at = [&](int64_t at) {
+    return O::uniform(O::mantissa(threefry2x32(key.x, key.y, 0u, static_cast<uint32_t>(at))));
+  };
+  Real acc = Real(0);
+  if constexpr (J > 0) {
+    // The draws need only the step key: drawn first, their Threefry calls
+    // overlap the sum and the butterfly.
+#pragma unroll
+    for (int h = 0; h < J; ++h) u[h] = uniform_at(base + lane + kLanes * h);
+#pragma unroll
+    for (int h = 0; h < J; ++h) {
+      if (lane + kLanes * h < d) acc = O::add(acc, O::mul(diff[h], diff[h]));
+    }
+  } else {
+#pragma unroll 4
+    for (int64_t c = lane; c < d; c += kLanes) {
       const Real x = O::sub(a.v[base + c], a.memory[base + c]);
       acc = O::add(acc, O::mul(x, x));
     }
-#pragma unroll
-    for (int offset = kLanes / 2; offset > 0; offset /= 2) {
-      acc = O::add(acc, __shfl_xor_sync(0xFFFFFFFFu, acc, offset));
-    }
-    if (threadIdx.x == 0) norm_shared = O::sqrt(acc);
   }
-  __syncthreads();
-  const Real norm = norm_shared;
+#pragma unroll
+  for (int offset = kLanes / 2; offset > 0; offset /= 2) {
+    acc = O::add(acc, __shfl_xor_sync(kFullMask, acc, offset));
+  }
+  const Real norm = O::sqrt(acc);
   const Real scale = norm > Real(0) ? norm : Real(1);
   const Real s = static_cast<Real>(1u << a.k);
   const Real weight = O::mul(O::of(a.omega), norm);
-#pragma unroll
-  for (int i = 0; i < kColumnsPerThread; ++i) {
-    const int c = threadIdx.x + i * blockDim.x;
-    if (c >= d) continue;
-    const Real mem = a.memory[base + c];
-    const Real diff = O::sub(a.v[base + c], mem);
-    const Real level = O::mul(O::div(fabs(diff), scale), s);
+  auto quantize = [&](int64_t at, Real m, Real df, Real uu) {
+    const Real level = O::mul(O::div(fabs(df), scale), s);
     const Real low = floor(level);
-    const uint32_t counter = static_cast<uint32_t>(base + c);
-    const Real u = O::uniform(O::mantissa(threefry2x32(key.x, key.y, 0u, counter)));
-    const Real up = u < O::sub(level, low) ? Real(1) : Real(0);
+    const Real up = uu < O::sub(level, low) ? Real(1) : Real(0);
     const Real lev = O::add(low, up);
-    const Real sign = static_cast<Real>(static_cast<int>(diff > Real(0)) -
-                                        static_cast<int>(diff < Real(0)));
-    const Real q = O::mul(O::mul(weight, sign), O::div(lev, s));
-    a.out[base + c] = O::add(mem, q);
-    if (a.levels != nullptr) a.levels[base + c] = static_cast<int32_t>(lev);
+    const Real sign = static_cast<Real>(static_cast<int>(df > Real(0)) -
+                                        static_cast<int>(df < Real(0)));
+    a.out[at] = O::add(m, O::mul(O::mul(weight, sign), O::div(lev, s)));
+    if (a.levels != nullptr) a.levels[at] = static_cast<int32_t>(lev);
+  };
+  if constexpr (J > 0) {
+#pragma unroll
+    for (int h = 0; h < J; ++h) {
+      const int c = lane + kLanes * h;
+      if (c < d) quantize(base + c, mem[h], diff[h], u[h]);
+    }
+  } else {
+#pragma unroll 4
+    for (int64_t c = lane; c < d; c += kLanes) {
+      const Real m = a.memory[base + c];
+      quantize(base + c, m, O::sub(a.v[base + c], m), uniform_at(base + c));
+    }
+  }
+}
+
+// The warp kernels' instance: the fewest columns a lane that hold the row
+// (J * 32 >= d), up to kWarpMaxD; past that, qsgd's loop (J = 0).
+template <typename Real, Mode kMode, int J = 1>
+void launch_warp(const Args<Real>& a, cudaStream_t s) {
+  if constexpr (J * kLanes < kWarpMaxD) {
+    if (a.d > J * kLanes) {
+      launch_warp<Real, kMode, J + 1>(a, s);
+      return;
+    }
+  }
+  const dim3 grid(static_cast<unsigned>((a.n + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  const dim3 block(kWarpsPerBlock * kLanes);
+  if constexpr (kMode == kQsgd) {
+    if (a.d > kWarpMaxD) {
+      warp_qsgd_kernel<Real, 0><<<grid, block, 0, s>>>(a);
+    } else {
+      warp_qsgd_kernel<Real, J><<<grid, block, 0, s>>>(a);
+    }
+  } else {
+    warp_select_kernel<Real, kMode, J><<<grid, block, 0, s>>>(a);
+  }
+}
+
+// top_k and random_k: a warp a row up to kWarpMaxD columns, else a block a
+// row (a thread a column up to 1,024, then kHeldColumns a thread up to
+// 4,096, then 1,024 threads recomputing).
+template <typename Real, Mode kMode>
+void launch_select(const Args<Real>& a, cudaStream_t s) {
+  if (a.d <= kWarpMaxD) {
+    launch_warp<Real, kMode>(a, s);
+    return;
+  }
+  const dim3 grid(static_cast<unsigned>(a.n));
+  if (a.d <= kMaxThreads) {
+    const dim3 block(static_cast<unsigned>((a.d + kLanes - 1) / kLanes * kLanes));
+    block_select_kernel<Real, kMode, 1><<<grid, block, 0, s>>>(a);
+  } else if (a.d <= kMaxThreads * kHeldColumns) {
+    block_select_kernel<Real, kMode, kHeldColumns><<<grid, kMaxThreads, 0, s>>>(a);
+  } else {
+    block_select_kernel<Real, kMode, kRecomputed><<<grid, kMaxThreads, 0, s>>>(a);
   }
 }
 
@@ -244,7 +482,7 @@ int launch(const void* v, const void* memory, void* out, void* levels, int64_t n
            int64_t mode, int64_t k, const void* t, uint32_t k0, uint32_t k1, uint32_t round,
            double omega, int slot, void* stream) {
   if (n <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
-  if (d > kMaxD || n > 0x7FFFFFFF || n * d >= (int64_t{1} << 32)) {
+  if (n > 0x7FFFFFFF || d > 0x7FFFFFFF || n * d >= (int64_t{1} << 32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool selects = mode == kTopK || mode == kRandK;
@@ -257,6 +495,7 @@ int launch(const void* v, const void* memory, void* out, void* levels, int64_t n
   a.memory = static_cast<const Real*>(memory);
   a.out = static_cast<Real*>(out);
   a.levels = static_cast<int32_t*>(levels);
+  a.n = n;
   a.d = static_cast<int>(d);
   a.k = static_cast<int>(k);
   a.t = static_cast<const int64_t*>(t);
@@ -265,20 +504,13 @@ int launch(const void* v, const void* memory, void* out, void* levels, int64_t n
   a.round = round;
   a.omega = omega;
   a.slot = slot;
-  // A thread a column up to 1,024 columns; past that 1,024 threads, each
-  // taking up to kColumnsPerThread.
-  const int threads = static_cast<int>(d < kMaxThreads ? (d + kLanes - 1) / kLanes * kLanes
-                                                       : kMaxThreads);
-  const dim3 grid(static_cast<unsigned>(n));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using Key = typename Ops<Real>::Key;
-  const size_t shared = static_cast<size_t>(d) * sizeof(Key);
   if (mode == kTopK) {
-    select_kernel<Real, kTopK><<<grid, threads, shared, s>>>(a);
+    launch_select<Real, kTopK>(a, s);
   } else if (mode == kRandK) {
-    select_kernel<Real, kRandK><<<grid, threads, shared, s>>>(a);
+    launch_select<Real, kRandK>(a, s);
   } else {
-    qsgd_kernel<Real><<<grid, threads, 0, s>>>(a);
+    launch_warp<Real, kQsgd>(a, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

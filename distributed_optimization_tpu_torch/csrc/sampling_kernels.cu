@@ -48,13 +48,17 @@
 // - select_kernel: one block a worker, a thread a row up to L = 1,024 and 8
 //   rows a thread up to 8,192; above, a thread block cluster of 8 blocks of
 //   1,024 threads with 8 rows a thread (L <= 65,536), the blocks sharing the
-//   leader's (rank 0's) shared memory. Keys stay in registers. The k-th
-//   largest key is found by a radix select over 8-bit digits from the top: a
-//   256-bin histogram of the candidates' digit (shared-memory atomics), one
-//   warp of the leader scans it from the top for the bin that holds the k-th
-//   key. Scores are uniform, so one pass leaves about k + L/128 survivors
-//   (every row at or above that bin's lower bound); passes go on while the
-//   survivors exceed k + 128 (ties; at most one pass a digit). Only valid rows
+//   leader's (rank 0's) shared memory. Keys stay in registers; past 65,536
+//   rows each thread takes ceil(L / 8,192) rows and recomputes their keys
+//   (Threefry of the worker key and the row, and the row's validity) at
+//   each pass instead. The k-th largest key is found by a radix select over
+//   8-bit digits from the top (radix_select.cuh, shared with the compression
+//   kernel): a 256-bin histogram of the candidates' digit (shared-memory
+//   atomics), one warp of the leader scans it from the top for the bin that
+//   holds the k-th key. Scores are uniform, so one pass leaves about k +
+//   L/128 survivors (every row at or above that bin's lower bound); passes
+//   go on while the survivors exceed k + 128 (ties; at most one pass a
+//   digit). Only valid rows
 //   take part: padding rows follow them in ascending order. The survivors
 //   are compacted into shared memory and each counts the
 //   survivors' keys above its own: its rank, the row's global rank. Then the
@@ -72,9 +76,9 @@
 // dense weights, either kernel; 1 the gather form: the order of KERNELS in
 // ops/sampling_kernels.py); select_top, an entry point for the tests that
 // ranks given scores, counts nothing. The kernels allocate nothing, launch on
-// the caller's stream and return cudaGetLastError(); a shard of more than
-// 65,536 rows, or a batch whose survivors do not fit in a block's shared
-// memory, returns cudaErrorInvalidValue.
+// the caller's stream and return cudaGetLastError(); a batch whose
+// survivors (min(b, L) + 128 keys and rows) do not fit in a block's shared
+// memory returns cudaErrorInvalidValue.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -83,13 +87,12 @@
 #include <cstdint>
 
 #include "launch_counts.cuh"
+#include "radix_select.cuh"
 #include "threefry.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-using u128 = unsigned __int128;
 
 constexpr int kSlotWeights = 0;
 constexpr int kSlotBatches = 1;
@@ -99,8 +102,7 @@ constexpr int kDenseMaxRows = 64;        // dense_kernel: two rows a lane
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxCluster = 8;           // the portable cluster size
 constexpr int kWideRows = 8;             // rows a thread past 1,024 rows
-constexpr int64_t kMaxRows = int64_t{kMaxCluster} * kMaxThreads * kWideRows;  // 65,536
-constexpr int kBins = 256;
+constexpr int kRecomputed = 0;           // rows a thread past 65,536: keys recomputed each pass
 constexpr int kSurvivorSlack = 128;      // survivors beyond k that end the radix passes
 constexpr int kCopy = 4;                 // gathered values a thread loads at once
 constexpr size_t kDefaultSharedBytes = 48 * 1024;
@@ -132,21 +134,6 @@ struct Score<double> {
     return static_cast<double>(__double2float_rn(__ddiv_rn(1.0, static_cast<double>(eff))));
   }
 };
-
-// Bits of L - 1 - row: ceil(log2 L).
-__host__ __device__ __forceinline__ int row_bits(int L) {
-  int bits = 0;
-  while (bits < 31 && (1u << bits) < static_cast<uint32_t>(L)) ++bits;
-  return bits;
-}
-
-// The selection key: score above L - 1 - row, left-aligned in the word.
-template <typename Key, int kScoreBits>
-__device__ __forceinline__ Key pack(uint64_t score, uint32_t rev_row, int rbits) {
-  constexpr int kWidth = 8 * sizeof(Key);
-  return (static_cast<Key>(score) << (kWidth - kScoreBits)) |
-         (static_cast<Key>(rev_row) << (kWidth - kScoreBits - rbits));
-}
 
 // b_eff = min(b, n_valid, L), and 0 for a negative n_valid.
 __device__ __forceinline__ int effective(int64_t nv, int L, int b) {
@@ -214,17 +201,8 @@ struct Args {
   Real* yb;       // [N, b]
 };
 
-// The leader's selection state, then its survivors' keys and rows and the
-// top k rows (in that order in shared memory).
-template <typename Key>
-struct State {
-  Key prefix;     // the candidates' key bits above the current digit
-  Key lower;      // survivors: (key >> p) >= lower
-  Key threshold;  // the need-th largest key (the weights form)
-  int p, krem, count, done;
-  unsigned hist[kBins];
-};
-
+// The leader's selection state (radix_select.cuh), then its survivors' keys
+// and rows and the top k rows (in that order in shared memory).
 template <typename Key>
 size_t shared_bytes(int cap, int k) {
   return sizeof(State<Key>) + static_cast<size_t>(cap) * (sizeof(Key) + sizeof(int)) +
@@ -255,52 +233,6 @@ struct Cluster {
     return cg::this_cluster().map_shared_rank(p, 0);
   }
 };
-
-// One warp of the leader: find the histogram's bin B that holds the krem-th
-// largest candidate, counting from the top bin; zero the bins; publish the
-// survivors' lower bound and whether the passes end.
-template <typename Key>
-__device__ void scan_histogram(State<Key>* st, int need, int cap) {
-  const int lane = threadIdx.x & 31;
-  const int top_bin = kBins - 1 - 8 * lane;  // this lane's bins, top_bin down to top_bin - 7
-  unsigned c[8];
-  unsigned sum = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    c[j] = st->hist[top_bin - j];
-    st->hist[top_bin - j] = 0;
-    sum += c[j];
-  }
-  unsigned incl = sum;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const unsigned up = __shfl_up_sync(0xFFFFFFFFu, incl, off);
-    if (lane >= off) incl += up;
-  }
-  const int krem = st->krem;
-  const unsigned hit = __ballot_sync(0xFFFFFFFFu, incl >= static_cast<unsigned>(krem));
-  if (lane != __ffs(hit) - 1) return;
-  unsigned above = incl - sum;
-  int bin = top_bin;
-  unsigned in_bin = c[0];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (above + c[j] >= static_cast<unsigned>(krem)) {
-      bin = top_bin - j;
-      in_bin = c[j];
-      break;
-    }
-    above += c[j];
-  }
-  const int survivors = (need - krem) + static_cast<int>(above + in_bin);
-  const Key lower = (st->prefix << 8) | static_cast<Key>(bin);
-  const bool done = survivors <= cap || st->p == 0;
-  st->lower = lower;
-  st->prefix = lower;
-  st->krem = krem - static_cast<int>(above);
-  st->done = done;
-  if (!done) st->p -= 8;
-}
 
 // The row at position i of a worker's order: the selection's, or past the
 // valid rows, the padding row i.
@@ -339,7 +271,9 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
   const int need = kWeights ? eff : min(k, valid);
   if (threadIdx.x == 0 && rank == 0) st->krem = need;
 
-  // Each thread's rows, their keys in registers.
+  // Each thread's rows: R of them, their keys in registers; or, with R =
+  // kRecomputed, rows first, first + stride, ..., each key recomputed where
+  // it is read.
   uint2 wkey = make_uint2(0u, 0u);
   if (a.scores == nullptr) {
     const uint2 step = threefry2x32(a.k0, a.k1, 0u, tt);
@@ -348,10 +282,7 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
   const int stride = Group::size() * blockDim.x;
   const int first = rank * blockDim.x + threadIdx.x;
   const int rbits = row_bits(L);
-  Key keys[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int l = first + r * stride;
+  auto key_of = [&](int l) -> Key {
     uint64_t score = 0;
     if (l < L) {
       if (a.scores != nullptr) {
@@ -360,8 +291,25 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
         score = S::of(threefry2x32(wkey.x, wkey.y, 0u, static_cast<uint32_t>(l)));
       }
     }
-    keys[r] = pack<Key, S::kBits>(score, static_cast<uint32_t>(L - 1 - l), rbits);
-  }
+    return pack<Key, S::kBits>(score, static_cast<uint32_t>(L - 1 - l), rbits);
+  };
+  Key keys[R > 0 ? R : 1];
+#pragma unroll
+  for (int r = 0; r < R; ++r) keys[r] = key_of(first + r * stride);
+  // f(l, key) for each of this thread's rows l below limit.
+  auto each = [&](int limit, auto&& f) {
+    if constexpr (R > 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int l = first + r * stride;
+        if (l < limit) f(l, keys[r]);
+      }
+    } else {
+      for (int64_t l = first; l < limit; l += stride) {
+        f(static_cast<int>(l), key_of(static_cast<int>(l)));
+      }
+    }
+  };
 
   if (need > 0) {  // the same for every block of a worker
     Group::sync();
@@ -369,12 +317,11 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
     for (;;) {
       const int p = st->p;
       const Key prefix = st->prefix;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (first + r * stride < valid && ((keys[r] >> p) >> 8) == prefix) {
-          atomicAdd(&st->hist[static_cast<unsigned>(keys[r] >> p) & 0xFFu], 1u);
+      each(valid, [&](int, Key key) {
+        if (((key >> p) >> 8) == prefix) {
+          atomicAdd(&st->hist[static_cast<unsigned>(key >> p) & 0xFFu], 1u);
         }
-      }
+      });
       Group::sync();
       if (rank == 0 && threadIdx.x < 32) scan_histogram(st, need, cap);
       Group::sync();
@@ -383,15 +330,13 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
     // Compact the survivors, rank each among them (its global rank).
     const int p = st->p;
     const Key lower = st->lower;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int l = first + r * stride;
-      if (l < valid && (keys[r] >> p) >= lower) {
+    each(valid, [&](int l, Key key) {
+      if ((key >> p) >= lower) {
         const int at = atomicAdd(&st->count, 1);
-        skey[at] = keys[r];
+        skey[at] = key;
         srow[at] = l;
       }
-    }
+    });
     Group::sync();
     if (rank == 0) {
       const int survivors = st->count;
@@ -409,13 +354,9 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
   const Real inv = S::weight(max(eff, 1));
   if (kWeights) {
     const Key threshold = need > 0 ? st->threshold : Key(0);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int l = first + r * stride;
-      if (l < L) {
-        a.w[static_cast<int64_t>(worker) * L + l] = need > 0 && keys[r] >= threshold ? inv : Real(0);
-      }
-    }
+    each(L, [&](int l, Key key) {
+      a.w[static_cast<int64_t>(worker) * L + l] = need > 0 && key >= threshold ? inv : Real(0);
+    });
   } else {
     for (int j = first; j < b; j += stride) {
       const int64_t at = static_cast<int64_t>(worker) * b + j;
@@ -500,15 +441,16 @@ int launch_select_key(const Args<Real>& a, int64_t n, void* stream, int forced_c
   if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   // The plan: one block a worker, a thread a row up to 1,024 rows and 8 rows a
   // thread up to 8,192; past that a cluster of 8 blocks of 1,024 threads, 8 rows
-  // a thread. One block beats a cluster of a thread a row from 1,100 to 7,000
-  // rows (chip_smoke.py's sampling phase times both, forcing the cluster).
+  // a thread up to 65,536 and past that ceil(L / 8,192) rows a thread, their
+  // keys recomputed at each pass. One block beats a cluster of a thread a row
+  // from 1,100 to 7,000 rows (chip_smoke.py's sampling phase times both,
+  // forcing the cluster).
   const int cluster =
       forced_cluster > 0 ? forced_cluster : (L <= kMaxThreads * kWideRows ? 1 : kMaxCluster);
-  if (L > static_cast<int64_t>(cluster) * kMaxThreads * kWideRows) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int rows = L <= cluster * kMaxThreads ? 1 : kWideRows;
-  const int per_block = (L + cluster * rows - 1) / (cluster * rows);
+  const int64_t held = int64_t{cluster} * kMaxThreads * kWideRows;
+  const int rows = L <= cluster * kMaxThreads ? 1 : L <= held ? kWideRows : kRecomputed;
+  const int per_block = rows == kRecomputed ? kMaxThreads
+                                            : (L + cluster * rows - 1) / (cluster * rows);
   // Enough threads that a block copies its batch's rows in one round.
   const int64_t copy = a.X != nullptr ? (a.b * (a.d + 1LL) + kCopy - 1) / kCopy : 0;
   const int threads = static_cast<int>(
@@ -520,6 +462,10 @@ int launch_select_key(const Args<Real>& a, int64_t n, void* stream, int forced_c
                                            1, threads, bytes, a, cap, stream)
                      : launch_kernel<Real>(select_kernel<Real, Key, kWideRows, Block, kWeights>,
                                            blocks, 1, threads, bytes, a, cap, stream);
+  }
+  if (rows == kRecomputed) {
+    return launch_kernel<Real>(select_kernel<Real, Key, kRecomputed, Cluster, kWeights>, blocks,
+                               cluster, threads, bytes, a, cap, stream);
   }
   return rows == 1 ? launch_kernel<Real>(select_kernel<Real, Key, 1, Cluster, kWeights>, blocks,
                                          cluster, threads, bytes, a, cap, stream)
@@ -541,7 +487,7 @@ int launch_select(const Args<Real>& a, int64_t n, void* stream, int forced_clust
 }
 
 bool refused(int64_t n, int64_t L, int64_t b) {
-  return L <= 0 || b <= 0 || n > 0x7FFFFFFF || L > kMaxRows || b > 0x7FFFFFFF;
+  return L <= 0 || b <= 0 || n > 0x7FFFFFFF || L > 0x7FFFFFFF || b > 0x7FFFFFFF;
 }
 
 template <typename Real>

@@ -13,12 +13,15 @@ current stream, or raises; for CPU tensors it runs the plain version
 device. On the card ``t`` is the run's int64 counter of one element, read
 from device memory, so a captured CUDA graph replays with the current ``t``.
 
-The kernel takes one block a row (a thread a column, up to ``MAX_D``
-columns): top_k and random_k rank each row's scores by counting, ties to the
-lower column; qsgd sums the row's squares in ``compression.row_norm``'s
-order. ``ef_levels`` runs the same kernel and also returns each element's
-mask bit (top_k, random_k) or qsgd level, for the tests; it counts nothing.
-``levels_plain`` gives the same from the plain version.
+top_k and random_k keep each row's k top scores, ties to the lower column:
+a warp a row ranks them by counting up to 128 columns, and a block a row
+finds the k-th by a radix select past that, at any width; qsgd takes a warp
+a row at every width and sums the row's squares in
+``compression.row_norm``'s order. The kernel takes N·d below 2³² (as the
+twin's draw does) and d below 2³¹. ``ef_levels`` runs the same kernel and
+also returns each element's mask bit (top_k, random_k) or qsgd level, for
+the tests; it counts nothing. ``levels_plain`` gives the same from the
+plain version.
 
 The shared library is built at first use by ``ops/_cuda_build.py``.
 ``LAUNCHES`` maps the kernel to its launches on the card, which it counts
@@ -39,9 +42,8 @@ SOURCE = _cuda_build.CSRC / "compression_kernels.cu"
 
 # In the order of the kernel's launch-count slots (csrc/compression_kernels.cu).
 KERNELS = ("compress_exchange",)
-# The kernel's operator codes, and its widest row (1,024 threads x 4 columns).
+# The kernel's operator codes.
 MODES = {"top_k": 0, "random_k": 1, "qsgd": 2}
-MAX_D = 4096
 
 
 @functools.lru_cache(maxsize=1)
@@ -69,15 +71,16 @@ def reset_launch_counts() -> None:
 
 def _check(compressor, draw, v: torch.Tensor, memory: torch.Tensor) -> None:
     """What the kernel takes: v and memory contiguous ``[N, d]`` stacks of one
-    dtype on one card, d up to MAX_D and N·d below 2³², and for the random
-    operators a draw whose t is an int64 tensor of one element on that card."""
+    dtype on one card, N·d below 2³² and d below 2³¹, and for the random
+    operators a draw whose t is an int64 tensor of one element on that card.
+    k's range is the launcher's check (csrc/compression_kernels.cu)."""
     _cuda_build.check_stack(v, "v")
     _cuda_build.check_like(memory, v, "memory")
     if memory.shape != v.shape:
         raise ValueError(f"memory {tuple(memory.shape)} and v {tuple(v.shape)} differ")
     n, d = v.shape
-    if d > MAX_D or n * d >= 2**32:
-        raise ValueError(f"the compression kernel takes d <= {MAX_D} and N·d < 2³², "
+    if n * d >= 2**32 or d >= 2**31:
+        raise ValueError(f"the compression kernel takes N·d < 2³² and d < 2³¹, "
                          f"got N={n}, d={d}")
     if compressor.name not in MODES:
         raise ValueError(f"no compression kernel for {compressor.name!r}")

@@ -19,8 +19,10 @@ and draw each row's uniform bits. The dense form (a shard of at most 64
 rows) ranks a worker's rows in one warp; the gather form, and the dense
 form of a longer shard, select each worker's top rows by a radix select on
 one key a row (the score's mantissa above the reversed row index) in one
-block or a thread block cluster; the gather form then copies the rows. A
-shard takes at most ``MAX_ROWS`` rows.
+block or a thread block cluster, the keys held in registers up to 65,536 rows
+and recomputed at each radix pass past that; the gather form then copies the
+rows. A batch's survivors, min(b, L) + ``SURVIVOR_SLACK`` keys, must fit in
+the shared memory of one block.
 
 ``select_mirror`` repeats that selection in PyTorch ops on integer scores,
 for the tests; ``_select`` runs the kernel's selection on given scores on the
@@ -48,7 +50,6 @@ SOURCE = _cuda_build.CSRC / "sampling_kernels.cu"
 KERNELS = ("sample_worker_batch_weights", "sample_worker_batches")
 
 # The kernels' constants (csrc/sampling_kernels.cu).
-MAX_ROWS = 65_536       # 8 blocks of a cluster x 1,024 threads x 8 rows a thread
 BINS = 256              # a radix digit of 8 bits
 SURVIVOR_SLACK = 128    # survivors beyond k that end the radix passes
 # Bits of the selection key's score, the mantissa plus one: 2^23 (float32)
@@ -84,8 +85,8 @@ def _check(slot_key, t, n_valid: torch.Tensor, n_local: int, batch_size: int,
            dtype: torch.dtype) -> None:
     """What the kernels take: a slot key of two words, ``t`` an int64
     one-element tensor and ``n_valid`` a contiguous int64 ``[N]`` tensor,
-    both on the card. The shard's length limit is the launcher's check
-    (csrc/sampling_kernels.cu)."""
+    both on the card. The survivors' shared-memory limit is the launcher's
+    check (csrc/sampling_kernels.cu)."""
     if isinstance(slot_key, torch.Tensor) or len(slot_key) != 2:
         raise TypeError("the slot key must be two host words (ints)")
     if not isinstance(t, torch.Tensor) or t.dtype != torch.int64 or t.numel() != 1:
@@ -102,8 +103,7 @@ def _check(slot_key, t, n_valid: torch.Tensor, n_local: int, batch_size: int,
 
 def _refused(name: str, n_local: int, batch_size: int, dtype) -> str:
     return (f"{name} refuses a shard of {n_local} rows with a batch of {batch_size} in {dtype}: "
-            f"a shard takes at most {MAX_ROWS} rows, and min(b, L) + {SURVIVOR_SLACK} "
-            f"survivors must fit in the shared memory of one block")
+            f"min(b, L) + {SURVIVOR_SLACK} survivors must fit in the shared memory of one block")
 
 
 def _call(name: str, out: torch.Tensor, slot_key, t, n_valid, n_local, batch_size, *args):

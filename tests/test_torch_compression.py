@@ -84,15 +84,18 @@ def test_compression_key_is_the_jax_package_s(seed, dtype):
 
 def _inputs(n, d, dtype, k, seed=0):
     """v with planted ties at the k-th magnitude, a zero row, −0.0 entries and
-    a row of equal magnitudes of both signs."""
+    a row of equal magnitudes of both signs (those of rows 1–4 that n has)."""
     rng = np.random.default_rng(seed)
     v = rng.standard_normal((n, d))
     v[1] = 0.0
     kk = min(max(k, 1), d)
-    v[2, :] = rng.standard_normal(d) * 0.1
-    v[2, max(kk - 2, 0): kk + 2] = 0.75  # ties across the k boundary
-    v[3, ::2] = -0.0
-    v[4] = np.where(rng.random(d) < 0.5, -1.5, 1.5)
+    if n > 2:
+        v[2, :] = rng.standard_normal(d) * 0.1
+        v[2, max(kk - 2, 0): kk + 2] = 0.75  # ties across the k boundary
+    if n > 3:
+        v[3, ::2] = -0.0
+    if n > 4:
+        v[4] = np.where(rng.random(d) < 0.5, -1.5, 1.5)
     return v.astype(dtype)
 
 
@@ -119,7 +122,27 @@ def _jax_qsgd_pieces(key, v, k):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("name,k", COMPRESSORS)
 def test_compressor_twin_is_the_jax_package_s(name, k, dtype, seed):
-    n, d = 9, 11
+    _assert_twin_is_jax(name, k, dtype, seed, 9, 11)
+
+
+# Rows wider than the 4,096 columns the card's first kernel took: (name, k)
+# with k at 1, 9 and d (None) for the selections, qsgd at 1, 4 and 16 bits.
+WIDE_SHAPES = [(3, 4_097), (2, 5_000)]
+WIDE_COMPRESSORS = [("top_k", 1), ("top_k", 9), ("top_k", None), ("random_k", 1),
+                    ("random_k", 9), ("random_k", None), ("qsgd", 1), ("qsgd", 4), ("qsgd", 16)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+@pytest.mark.parametrize("name,k", WIDE_COMPRESSORS)
+def test_compressor_twin_is_the_jax_package_s_past_4096_columns(name, k, shape, dtype):
+    n, d = shape
+    _assert_twin_is_jax(name, d if k is None else k, dtype, 203, n, d)
+
+
+def _assert_twin_is_jax(name, k, dtype, seed, n, d):
+    """The twin's ``apply`` against the JAX package's at three draws, with
+    the tolerances of the module docstring."""
     v = _inputs(n, d, dtype, k, seed)
     x64 = _x64(dtype)
     ours = compression.make_compressor(name, d, k)
@@ -203,6 +226,48 @@ def test_error_feedback_exchange_is_the_jax_package_s(name, k):
     got = ours.exchange(draw, torch.as_tensor(v), torch.as_tensor(memory), mix)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w, **TOL)
+
+
+# (name, k, dtype) of the wide exchange: k at 1, 9 and d (None) for the
+# selections in both dtypes; qsgd in float64 (float32 qsgd is held by the
+# apply test above, decision by decision: where a norm differs in its last
+# bit a decision may flip, and the mix spreads it over every row).
+WIDE_EXCHANGES = [(name, k, dtype) for dtype in (np.float32, np.float64)
+                  for name, k in (("top_k", 1), ("top_k", 9), ("top_k", None), ("random_k", 1),
+                                  ("random_k", 9), ("random_k", None))] + [("qsgd", 4, np.float64)]
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+@pytest.mark.parametrize("name,k,dtype", WIDE_EXCHANGES)
+def test_error_feedback_exchange_is_the_jax_package_s_past_4096_columns(name, k, dtype, shape):
+    """One exchange of rows past 4,096 columns with an averaging mix, from a
+    nonzero memory, against JAX's: in float64 both outputs to 1e-12; in
+    float32 the estimate x̂⁺ bit for bit and v⁺ to 1e-6 (the mix is a matrix
+    product in each package)."""
+    n, d = shape
+    k = d if k is None else k
+    W = np.full((n, n), 1.0 / n, dtype=dtype)
+    rng = np.random.default_rng(d)
+    v = rng.standard_normal((n, d)).astype(dtype)
+    memory = (rng.standard_normal((n, d)) * 0.3).astype(dtype)
+    x64 = _x64(dtype)
+    with jax.enable_x64(x64):
+        ef = ref_compression.make_error_feedback(name, d, k, 0.25)
+        key = ref_compression.compression_key(203, 17, 1)
+        want = ef.exchange(key, jnp.asarray(v), jnp.asarray(memory), lambda x: jnp.asarray(W) @ x)
+        want = [np.asarray(a) for a in want]
+    ours = compression.make_error_feedback(name, d, k, 0.25)
+    Wt = torch.as_tensor(W)
+    draw = compression.Draw(compression.tag_key(203, x64=x64), torch.tensor([17]), 1)
+    got = [a.numpy() for a in ours.exchange(draw, torch.as_tensor(v), torch.as_tensor(memory),
+                                            lambda x: Wt @ x)]
+    assert all(g.dtype == w.dtype for g, w in zip(got, want))
+    if dtype == np.float64:
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, **TOL)
+        return
+    np.testing.assert_array_equal(got[1].view(np.uint32), want[1].view(np.uint32))
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-6)
 
 
 @pytest.fixture(scope="module")

@@ -670,7 +670,8 @@ def test_cuda_capture_reaches_no_synchronize(cuda_device, graph_data, name, monk
 # tiled), one row, the dense kernel's edges (32, 33, 64 rows; 65 takes the
 # selection kernel), one block of 1,024 threads a row each and 8 rows a
 # thread from 1,025, and the float64 key of 128 bits (2,049). Clusters take
-# shards past 8,192 rows (test_cuda_sampling_past_the_old_shared_memory_limit).
+# shards past 8,192 rows, and recompute their keys past 65,536
+# (test_cuda_sampling_past_the_old_shared_memory_limit).
 SAMPLING_SHAPES = [(256, 49, 16), (25, 500, 16), (256, 50, 16), (9, 7, 16), (5, 1, 4),
                    (6, 32, 16), (6, 33, 16), (6, 64, 16), (6, 65, 16), (6, 1024, 16),
                    (6, 1025, 16), (6, 1100, 16), (4, 2049, 16), (4, 7000, 16)]
@@ -720,12 +721,14 @@ def test_cuda_sampling_kernels_bitwise_equal_the_twin(cuda_device, shape, dtype)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("L", [40_000, sk.MAX_ROWS])
+@pytest.mark.parametrize("L", [40_000, 65_536, 65_537, 100_000])
 def test_cuda_sampling_past_the_old_shared_memory_limit(cuda_device, L, dtype):
     """Shards past the 227 KB of scores the first design kept in shared
     memory (29,056 rows in float64, 58,112 in float32), up to the most a
-    cluster takes: indices and rows against the twin; the dense weights
-    against the twin's gather draw scattered (the dense twin holds L² pairs)."""
+    cluster holds in registers (65,536 rows) and past it, where each thread
+    recomputes its rows' keys at every pass: indices and rows against the
+    twin; the dense weights against the twin's gather draw scattered (the
+    dense twin holds L² pairs)."""
     n, b = 3, 40
     nv = _sampling_n_valid(cuda_device, n, L, b)
     X, y = _rows(cuda_device, n, L, dtype)
@@ -822,17 +825,21 @@ def test_cuda_sampling_wrapper_refuses_what_the_kernel_does_not_take(cuda_device
     key = prng.fold_in(prng.key(1, x64=False), 0)
     with pytest.raises(TypeError, match="t must be"):
         sk.sample_worker_batch_weights(key, 3, nv, 10, 4, torch.float32)
-    with pytest.raises(ValueError, match="at most 65536 rows"):
-        sk.sample_batch_indices(key, t, nv, sk.MAX_ROWS + 1, 4, torch.float64)
     with pytest.raises(ValueError, match="shared memory"):
         sk.sample_worker_batch_weights(key, t, nv, 40_000, 30_000, torch.float64)
+    with pytest.raises(ValueError, match="shared memory"):
+        sk.sample_batch_indices(key, t, nv, 100_000, 20_000, torch.float32)
     with pytest.raises(ValueError, match="int64"):
         sk.sample_worker_batch_weights(key, t, nv.int(), 10, 4, torch.float32)
 
 
 # The compression kernel's inputs (N, d): the main path, the study's N=25, a
-# row narrower than a warp, a row of 4 columns a thread and the stress width.
-COMPRESSION_SHAPES = [(256, 81), (25, 81), (9, 7), (5, 4096), (4096, 1024)]
+# row narrower than a warp, the widest row of the warp path (128) and the
+# narrowest of the block path (129), a block of a thread a column (1,024)
+# and of 4 columns a thread (1,025, 4,096), and rows past 4,096, whose keys
+# each radix pass recomputes.
+COMPRESSION_SHAPES = [(256, 81), (25, 81), (9, 7), (6, 128), (6, 129), (5, 1025), (5, 4096),
+                      (4096, 1024), (5, 5_000), (5, 100_003)]
 COMPRESSION_OPERATORS = [("top_k", 1), ("top_k", 9), ("top_k", None), ("random_k", 9),
                          ("random_k", 27), ("qsgd", 1), ("qsgd", 4), ("qsgd", 16)]
 
@@ -929,8 +936,15 @@ def test_cuda_compression_wrapper_refuses_what_the_kernel_does_not_take(cuda_dev
     comp = compression.make_compressor("random_k", 8, 2)
     with pytest.raises(TypeError, match="int64 tensor"):
         ck.ef_compress(comp, compression.Draw(draw.tag_key, 3, 0), v, v)
-    with pytest.raises(ValueError, match="d <= 4096"):
-        wide = torch.zeros((2, ck.MAX_D + 1), device=cuda_device)
-        ck.ef_compress(compression.make_compressor("top_k", ck.MAX_D + 1, 1), draw, wide, wide)
+    with pytest.raises(ValueError, match="no compression kernel"):
+        ck.ef_compress(dataclasses.replace(comp, name="bogus"), draw, v, v)
+    for name, k in (("top_k", 0), ("random_k", 9), ("qsgd", 0), ("qsgd", 17)):
+        with pytest.raises(ValueError, match="refuses"):
+            ck.ef_compress(dataclasses.replace(comp, name=name, k=k), draw, v, v)
     with pytest.raises(ValueError, match="must match"):
         ck.ef_compress(comp, draw, v, v.double())
+    huge = torch.empty((2**16, 2**16), device=cuda_device)  # N·d = 2³², 16 GiB, never written
+    with pytest.raises(ValueError, match="N·d < 2³²"):
+        ck.ef_compress(compression.make_compressor("top_k", 2**16, 1), draw, huge, huge)
+    del huge
+    torch.cuda.empty_cache()

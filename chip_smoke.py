@@ -37,8 +37,10 @@ Phases:
      in a loop of 200 with no sleep kernel ahead, host work included;
    - robust kernels, each rule (trimmed_mean, median, adaptive and fixed-τ
      clipped_gossip) with and without the SGD update, on the ring at N=256,
-     d=41 (k_max=2) and on a symmetric table with k_max=15 at N=4096,
-     d=128, with about 20% of the slots dead and with every slot live:
+     d=41 (k_max=2), on a symmetric table with k_max=15 at N=4096,
+     d=128, with about 20% of the slots dead and with every slot live, and
+     on the robust phase's Erdős–Rényi table at N=64, d=81 (k_max=13, rows
+     of 3 to 13 neighbours; each float32 line also timed in a graph):
      bitwise for the count rules, clipping within 1e-12 (rtol and atol) in
      float64 and, in float32, within 1e-5 of the largest |x| over each
      row's closed neighbourhood. No one PyTorch call computes a screen, so
@@ -138,7 +140,25 @@ Phases:
    beside; and float64 runs on the card against the CPU (N=8, T=200,
    pallas on the ring and the fully-connected graph) to 1e-12 on the
    histories, the final models and the estimates.
-12. study: the eight rows of ``examples/reproduce_report.py`` (the
+12. topologies: D-SGD on Erdős–Rényi at N=256 with mean degree 12
+   (``IRREGULAR_RUNS``, main-path data, float32, eval every 10, T=10,000)
+   under mixing ``auto`` (the dense product), ``gather`` and ``sparse``:
+   each within 1% of the JAX package's iterations to ε, the dense sampling
+   kernel T times and no other launch, bitwise its
+   ``measure_timestamps=True`` run; the three in float64 (T=200) on the
+   card against the CPU to 1e-12; chain and star at N=25 in float64, card
+   against CPU to 1e-12 and f(x̄_T) against the JAX package's
+   (``STUDY_GRAPHS``) to 1e-12; ER at N=1024 (``ER_1024``, the whole shard
+   each step) under the three forms, with iters/s. TF32 must be off.
+13. push_sum: push-sum on the directed ER of the same p (T=10,000, ``auto``
+   = dense): within 1% of the JAX count, bitwise its measured run, Σ w
+   within 1e-5 N of the JAX package's and within the float32 weights'
+   drift bound; the directed ring at N=25 in float64 under stencil, dense
+   and sparse, each card run against the CPU and the three against each
+   other to 1e-12; push-sum on the N=256 ring (T=3,000) with ``pallas``
+   (``ring_mix`` 2T times, for num and w, no fused step) bitwise its
+   stencil run, w exactly 1 in both.
+14. study: the eight rows of ``examples/reproduce_report.py`` (the
    reference study's Tables I and II) with that script's config defaults:
    N=25, T=10,000, b=16, η₀=0.05/√(t+1), λ=1e-4, sorted partition,
    ε=0.08, float32; centralized SGD and D-SGD on the ring, the periodic
@@ -148,17 +168,22 @@ Phases:
    floats transmitted are exactly 4.05e7 (centralized, ring), 8.1e7 (grid)
    and 4.86e8 (fully connected); each run leaves the card's allocated memory
    as it found it. The published count is printed beside.
-13. byzantine: the JAX package's breakdown demonstration
+15. byzantine: the JAX package's breakdown demonstration
    (``examples/bench_byzantine.py``: N=64 ring, full batch, T=4,000,
    float32, fused screens) with its gates, each final honest gap within 1%
    of ``docs/perf/byzantine.json``.
-14. robust: the N=256 ring of ``examples/bench_fused_robust.py`` (d=41,
+16. robust: the N=256 ring of ``examples/bench_fused_robust.py`` (d=41,
    b=16, T=5,000, sign-flip by 12 workers): plain gossip must diverge or
    end 10× above attack-free, every screen within 2× of attack-free; the
    fused robust step launches exactly T times in each fused run and never
    in the gather run, whose trimmed-mean history must agree with the fused
-   one to 1e-6 relative.
-15. robust_mixing: the fused aggregator through the Byzantine mix on the
+   one to 1e-6 relative. Then sign-flip on ER at N=64, p=0.1 (main-path
+   data, T=2,000, rows of 3 to 13 neighbours): trimmed mean and median,
+   fused (T launches, bitwise their measured runs) and gather (none), each
+   pair within 1e-6 relative, the fused pair in float64 (T=200) against the
+   CPU to 1e-12; and ``docs/perf/robust_scale.json``'s crossover cell (ER
+   at p=0.5, k_max 40), which ``auto`` runs in the gather form.
+17. robust_mixing: the fused aggregator through the Byzantine mix on the
     robust run's final models, for each rule, against the gather form and
     the numpy oracle; and the pallas ``MixingOp`` on the fully-connected
     graph (``fc_mix``, ``fc_neighbor_sum``) against the dense W and A.
@@ -173,7 +198,8 @@ histories. On request, ``profile`` traces 300 iterations of the main path,
 of the admm phase's ring, of gradient tracking on the main path's data and
 of the robust cell's fused trimmed-mean run
 with ``torch.profiler`` (and CHOCO with random_k and compressed GT with
-qsgd on the main path's data), each as the
+qsgd on the main path's data, D-SGD on the topologies phase's ER graph
+under dense, gather and sparse, and push-sum on its directed ER), each as the
 graph run and as the ``measure_timestamps=True`` run, over the iterations
 after the warm-up chunk; ``ring_ab``
 (``--phases card,ring_ab --baseline PATH``) holds the three ring kernels
@@ -223,7 +249,8 @@ import sys
 import time
 
 PHASES = ("card", "kernels", "sampling", "reference", "parity", "main", "mixing", "fc", "admm",
-          "tracking", "compression", "study", "byzantine", "robust", "robust_mixing")
+          "tracking", "compression", "topologies", "push_sum", "study", "byzantine", "robust",
+          "robust_mixing")
 # Run only when asked for: profile, a torch.profiler trace of the main
 # path's, the admm ring's and the robust cell's steady loops, graph and
 # measured; ring_ab (with
@@ -469,6 +496,59 @@ COMPRESSION_REFERENCE = (
     dict(algorithm="gradient_tracking", compression="qsgd", compression_k=4),
 )
 
+# The topologies and push_sum phases' converging runs on the main path's
+# data (logistic, 12,500 × 80 + bias, b=16, float32, seed 203) at N=256 on
+# Erdős–Rényi of mean degree 12 (examples/bench_sparse_mixing.py's p =
+# 12/N), eval every IRREGULAR_EVAL_EVERY, with T and the JAX package's
+# iterations to ε=0.08 at the same config (jax 0.9.0 on a CPU,
+# use_mesh=False; both packages draw the same batches).
+# tests/test_torch_irregular.py recomputes them.
+ER_P = 12 / 256
+IRREGULAR_RUNS = {
+    "dsgd_er256": (dict(algorithm="dsgd", topology="erdos_renyi", erdos_renyi_p=ER_P),
+                   10_000, 9_650),
+    "push_sum_der256": (dict(algorithm="push_sum", topology="directed_erdos_renyi",
+                             erdos_renyi_p=ER_P), 10_000, 9_620),
+}
+IRREGULAR_EVAL_EVERY = 10
+# Σ w at the end of the JAX package's push_sum_der256 run (same config, T).
+# float32 rounds the column-stochastic weights 1/(1 + outdeg) so that a
+# column sums to up to 5.2e-8 above 1: the mass grows by about that each mix
+# in both packages (2.0e-4 of N over 10,000 mixes), where float64 keeps it
+# to ~1e-12.
+PUSH_SUM_MASS = 256.05198472738266
+# The graph of dsgd_er256 at seed 203: (k_max, smallest degree, spectral gap).
+ER_GRAPH = (22, 4, 0.22764039810695547)
+# Chain and star at the study's N=25 (logistic, float64, eval every 10,
+# STUDY_GRAPH_ITERATIONS): the JAX package's final objective f(x̄_T), its
+# final gap plus its f* (jax 0.9.0 on a CPU, use_mesh=False), which the
+# card's gap plus the port's f* must equal to 1e-12 (the two f* differ by
+# about 8e-12: ROADMAP.md, Queue 3); recomputed by the same test.
+STUDY_GRAPHS = {"chain": 0.5587360874625624, "star": 0.5532810079093404}
+STUDY_GRAPH_ITERATIONS = 300
+# The card-against-CPU float64 runs of the new graphs: T.
+IRREGULAR_REFERENCE_ITERATIONS = 200
+# docs/perf/sparse_mixing.json's end-to-end row: D-SGD on ER at N=1024 with
+# mean degree 12, T=3,000 (L = 13 <= b, so the whole shard each step);
+# eval every 100 so that the chunk replays as a graph.
+ER_1024 = (1024, 12 / 1024, 3_000, 100)
+# Push-sum on the undirected ring at N=256 (pallas against stencil), T.
+PUSH_SUM_RING_ITERATIONS = 3_000
+# The robust phase's variable-degree table: sign-flip on ER at N=64, p=0.1,
+# seed 203 (degrees 3 to 13), on the main path's data, T, eval every 50;
+# the graph's (k_max, smallest degree).
+ER_ROBUST_ITERATIONS = 2_000
+ER_ROBUST_GRAPH = (13, 3)
+# docs/perf/robust_scale.json's crossover cell (examples/bench_robust_scale.py:
+# N=64, ER at p=0.5, k_max 40, trimmed mean b=1 with no attack, d=40, b=16,
+# shuffled, T=200): auto resolves to gather there.
+ROBUST_CROSSOVER = dict(problem_type="logistic", algorithm="dsgd", topology="erdos_renyi",
+                        n_workers=64, n_samples=3200, n_features=40, n_informative_features=20,
+                        n_iterations=200, local_batch_size=16, eval_every=100,
+                        partition="shuffled", erdos_renyi_p=0.5, aggregation="trimmed_mean",
+                        robust_b=1, dtype="float32")
+
+
 class PhaseFailed(RuntimeError):
     pass
 
@@ -620,8 +700,11 @@ def phase_card(torch, kernels):
         f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    check(torch.backends.cuda.matmul.allow_tf32 is False
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls are not at full precision")
     say("[card] TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
-        "torch.backends.cudnn.allow_tf32 = False")
+        "torch.backends.cudnn.allow_tf32 = False, float32 matmul precision 'highest'")
     build = kernels["build"]
     sources = [m.SOURCE for m in (kernels["rk"], kernels["fk"], kernels["bk"], kernels["sk"],
                                   kernels["ck"])]
@@ -784,7 +867,10 @@ def k15_table(np, topology, n: int, dead: float, seed: int):
 
 
 def robust_inputs(np, topology):
-    """(label, nbr, live, x) of the robust kernels' three inputs."""
+    """(label, nbr, live, x) of the robust kernels' four inputs: the robust
+    cell's ring, the k_max=15 table with dead slots and all live, and the
+    robust phase's ER graph at N=64, d=81, whose rows hold 3 to 13 live
+    slots of 13."""
     rng = np.random.default_rng(11)
     n, d = ROBUST_SHAPE
     nbr, mask = topology.neighbor_tables_for(topology.build_topology("ring", n))
@@ -794,16 +880,21 @@ def robust_inputs(np, topology):
         x = rng.standard_normal((4096, 128))
         x[[1, 5, 77, 1000]] *= 1e4
         out.append((label, nbr, live, x))
+    nbr, mask = topology.neighbor_tables_for(
+        topology.build_topology("erdos_renyi", 64, erdos_renyi_p=0.1, seed=203))
+    out.append(("er64", nbr, mask.astype(np.float32), rng.standard_normal((64, SAMPLING_D))))
     return out
 
 
 def kernels_robust(torch, np, bk, topology, gather_factory, records):
+    er_rows = {}
     for label, nbr_np, live_np, x_np in robust_inputs(np, topology):
         n, k = nbr_np.shape
         d = x_np.shape[1]
-        dead = 1.0 - float(live_np.sum()) / float((nbr_np != np.arange(n)[:, None]).sum())
-        say(f"[kernels] robust input {label}: N={n} d={d} k_max={k}, {dead:.1%} of the "
-            f"real slots dead")
+        real = float((nbr_np != np.arange(n)[:, None]).sum())
+        dead = 1.0 - float(live_np.sum()) / real
+        say(f"[kernels] robust input {label}: N={n} d={d} k_max={k}, {1.0 - real / (n * k):.1%} "
+            f"of the slots padding, {dead:.1%} of the real slots dead")
         live = torch.as_tensor(live_np, device="cuda")
         nbr64 = torch.as_tensor(nbr_np, dtype=torch.int64, device="cuda")
         for dtype in (torch.float32, torch.float64):
@@ -842,6 +933,15 @@ def kernels_robust(torch, np, bk, topology, gather_factory, records):
                         records[name] = _record(name, err, ms, plain_ms, b_ms, b_by, None,
                                                 gather_ms=gather_ms,
                                                 graph_ms=_in_graph(torch, name, kernel, ms, b_ms))
+                    if label == "er64" and dtype == torch.float32:
+                        in_graph = _in_graph(torch, f"{name[10:]} {rule[:8]} tau={ct} er64",
+                                             kernel, ms, b_ms)
+                        if (rule, ct) == (ROBUST_RECORD[1], 0.0):
+                            er_rows[name] = dict(er64_graph_ms=in_graph, er64_ms=ms,
+                                                 er64_plain_ms=plain_ms, er64_bound_ms=b_ms,
+                                                 er64_gather_ms=gather_ms, er64_max_abs_err=err)
+    for name, extra in er_rows.items():
+        records[name].update(extra)
 
 
 def phase_kernels(torch, np, kernels, topology, gather_factory):
@@ -971,8 +1071,9 @@ def phase_robust_ab(torch, np, kernels, topology, baseline: str):
                     say(f"[robust_ab] {form:10s} {rule[:8]:8s} tau={ct} {label:8s} {dname}: "
                         f"baseline {t[0]:8.3f} {t[3]:8.3f} us  this tree {t[1]:8.3f} {t[2]:8.3f} us"
                         f"  floor {floor_ms * 1e3:.3f}  bound {b_ms * 1e3:7.3f} us ({b_by})  {net}")
-    say(f"[robust_ab] this tree slower than the baseline's faster turn in {len(slower)} of 48: "
-        f"{', '.join(slower) if slower else 'none'}")
+    lines = len(robust_inputs(np, topology)) * len(SCREENS) * 2 * 2
+    say(f"[robust_ab] this tree slower than the baseline's faster turn in {len(slower)} of "
+        f"{lines}: {', '.join(slower) if slower else 'none'}")
 
 
 def phase_fc_ab(torch, fk, rk, build, baseline: str):
@@ -1320,10 +1421,10 @@ def phase_sampling_ab(torch, kernels, sampling, prng, baseline: str):
         f"{lines}: {', '.join(slower) if slower else 'none'}")
 
 
-def _agree(label, card, host, tol=1e-12):
+def _agree(label, card, host, tol=1e-12, phase="reference"):
     diff = float(abs(card.history.objective - host.history.objective).max())
     models = float(abs(card.final_models - host.final_models).max())
-    say(f"[reference] {label} on the card vs plain on the CPU: max gap diff {diff:.3e}, "
+    say(f"[{phase}] {label} on the card vs plain on the CPU: max gap diff {diff:.3e}, "
         f"max model diff {models:.3e}")
     check(diff <= tol and models <= tol, f"{label}: card and CPU runs disagree beyond {tol}")
 
@@ -1358,11 +1459,15 @@ def phase_reference(torch, pkg, rk, bk):
                pkg.run(rcfg, ds, f_opt, device="cpu"))
 
 
-def _converging_run(torch, pkg, counters, cfg, ds, f_opt, label, measure_timestamps=False):
+def _converging_run(torch, pkg, counters, cfg, ds, f_opt, label, measure_timestamps=False,
+                    converges=True, return_state=False):
+    """One run on the card with its launch counts; it must stay finite and,
+    where ``converges``, cross ε within T."""
     for c in counters:
         c.reset_launch_counts()
     t0 = time.perf_counter()
-    res = pkg.run(cfg, ds, f_opt, device="cuda", measure_timestamps=measure_timestamps)
+    res = pkg.run(cfg, ds, f_opt, device="cuda", measure_timestamps=measure_timestamps,
+                  return_state=return_state)
     wall = time.perf_counter() - t0
     launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
     h = res.history
@@ -1381,16 +1486,17 @@ def _converging_run(torch, pkg, counters, cfg, ds, f_opt, label, measure_timesta
 
     check(h.objective.shape == (cfg.n_iterations // cfg.eval_every,), "gap history has the wrong shape")
     check(bool(np.all(np.isfinite(h.objective))), "non-finite gaps")
-    check(0 < crossed <= cfg.n_iterations,
+    check(not converges or 0 < crossed <= cfg.n_iterations,
           f"never reached ε={cfg.suboptimality_threshold} within T={cfg.n_iterations}")
     return res, launches
 
 
-def _graph_equals_measured(torch, np, pkg, counters, cfg, ds, f_opt, label, graph, launches):
+def _graph_equals_measured(torch, np, pkg, counters, cfg, ds, f_opt, label, graph, launches,
+                           converges=True):
     """The same run with ``measure_timestamps=True`` (no graph): its gap
     history, final models and launch counts bitwise the graph run's."""
     measured, counted = _converging_run(torch, pkg, counters, cfg, ds, f_opt, label,
-                                        measure_timestamps=True)
+                                        measure_timestamps=True, converges=converges)
     same = (np.array_equal(graph.history.objective, measured.history.objective)
             and np.array_equal(graph.final_models, measured.final_models))
     say(f"[{label}] graph run vs measured chunk loop: gap history and final models "
@@ -1399,7 +1505,8 @@ def _graph_equals_measured(torch, np, pkg, counters, cfg, ds, f_opt, label, grap
         f"{measured.history.iters_per_second:.1f} "
         f"({graph.history.iters_per_second / measured.history.iters_per_second:.2f}x)")
     check(same, f"{label}: the graph run is not bitwise its measure_timestamps=True run")
-    check(counted == launches, f"{label}: launch counts {launches} (graph) vs {counted}")
+    check({k: v for k, v in counted.items() if v} == {k: v for k, v in launches.items() if v},
+          f"{label}: launch counts {launches} (graph) vs {counted}")
 
 
 def phase_parity(torch, np, pkg, rk, sk):
@@ -1622,6 +1729,238 @@ def phase_tracking(torch, np, pkg, kernels):
           f"tracking GT sign-flip: launches {launches}, not the aggregator 2T = {2 * T} times")
     check(bool(np.all(np.isfinite(res.history.objective))), "tracking GT sign-flip: non-finite")
     return gt_launches, launches
+
+def _main_data(pkg, n: int):
+    """The main path's data split over n workers, and its optimum."""
+    cfg = pkg.ExperimentConfig(problem_type="logistic", n_workers=n)
+    ds = pkg.generate_synthetic_dataset(cfg)
+    return ds, pkg.compute_reference_optimum(ds, cfg.reg_param)[1]
+
+
+def _only(counted, **want):
+    """The launch counts ``want``, and 0 for every other counted kernel."""
+    return {name: want.get(name, 0) for name in counted}
+
+
+def phase_topologies(torch, np, pkg, kernels):
+    """The irregular graphs on the card. D-SGD on Erdős–Rényi at N=256 (p =
+    12/256, IRREGULAR_RUNS) under mixing 'auto' (the dense product), 'gather'
+    and 'sparse', T=10,000, eval every 10: each crosses ε within 1% of the
+    JAX package's count, launches the dense sampling kernel once an
+    iteration and no other kernel, and is bitwise its
+    ``measure_timestamps=True`` run; the same three in float64 (T=200) on
+    the card against the CPU to 1e-12. Chain and star at the study's N=25 in
+    float64, card against CPU to 1e-12 and the final gap against the JAX
+    package's (STUDY_GRAPHS) to 1e-12. ER at N=1024 (ER_1024, the whole
+    shard each step) under the three forms: finite, iters/s of each."""
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on for float32 matmuls")
+    counters = [kernels[k] for k in ("rk", "fk", "bk", "sk")]
+    ds, f_opt = _main_data(pkg, 256)
+    fields, T, want = IRREGULAR_RUNS["dsgd_er256"]
+    cfg = pkg.ExperimentConfig(problem_type="logistic", n_workers=256, n_iterations=T,
+                               eval_every=IRREGULAR_EVAL_EVERY, dtype="float32", **fields)
+    topo = pkg.build_topology(cfg.topology, 256, erdos_renyi_p=cfg.erdos_renyi_p,
+                              seed=cfg.resolved_topology_seed())
+    graph = (int(topo.degrees.max()), int(topo.degrees.min()), topo.spectral_gap)
+    say(f"[topologies] ER N=256 p={cfg.erdos_renyi_p:.6f} seed {cfg.resolved_topology_seed()}: "
+        f"k_max {graph[0]}, smallest degree {graph[1]}, spectral gap {graph[2]:.6f}")
+    check(graph[:2] == ER_GRAPH[:2] and abs(graph[2] - ER_GRAPH[2]) <= 1e-12,
+          f"the ER graph is {graph}, not the JAX package's {ER_GRAPH}")
+    runs = {}
+    for impl in ("auto", "gather", "sparse"):
+        run_cfg = cfg.replace(mixing_impl=impl)
+        res, counted = _converging_run(torch, pkg, counters, run_cfg, ds, f_opt, "topologies")
+        h = res.history
+        crossed = pkg.iterations_to_threshold(h.objective, 0.08, h.eval_iterations)
+        say(f"[topologies] dsgd ER {impl}: iters-to-0.08 {crossed}, JAX package {want} "
+            f"({(crossed - want) / want:+.2%}), floats {h.total_floats_transmitted:.6g}")
+        _within_count(f"topologies dsgd ER {impl}", crossed, want)
+        expect = _only(counted, sample_worker_batch_weights=T)
+        check(counted == expect, f"topologies dsgd ER {impl}: launches {counted}, not {expect}")
+        _graph_equals_measured(torch, np, pkg, counters, run_cfg, ds, f_opt, "topologies", res,
+                               counted)
+        runs[impl] = res
+    for impl in ("gather", "sparse"):
+        rel = _relative_gap_diff(np, runs["auto"], runs[impl])
+        say(f"[topologies] float32 ER: largest relative gap difference, dense vs {impl}: "
+            f"{rel:.3e}")
+    small = cfg.replace(dtype="float64", n_iterations=IRREGULAR_REFERENCE_ITERATIONS)
+    for impl in ("auto", "gather", "sparse"):
+        run_cfg = small.replace(mixing_impl=impl)
+        _agree(f"ER N=256 T={small.n_iterations} float64 {impl}",
+               pkg.run(run_cfg, ds, f_opt, device="cuda"), pkg.run(run_cfg, ds, f_opt, device="cpu"),
+               phase="topologies")
+    study = pkg.ExperimentConfig(problem_type="logistic", dtype="float64", eval_every=10,
+                                 n_iterations=STUDY_GRAPH_ITERATIONS)
+    sds, sf = _main_data(pkg, study.n_workers)
+    for name, jax_objective in STUDY_GRAPHS.items():
+        run_cfg = study.replace(topology=name)
+        card, host = pkg.run(run_cfg, sds, sf, device="cuda"), pkg.run(run_cfg, sds, sf, device="cpu")
+        _agree(f"{name} N=25 T={study.n_iterations} float64", card, host, phase="topologies")
+        gap = float(card.history.objective[-1])
+        say(f"[topologies] {name} N=25 float64: final gap card {gap!r}, CPU "
+            f"{float(host.history.objective[-1])!r}; f(x̄_T) card {gap + sf!r}, JAX package "
+            f"{jax_objective!r} ({gap + sf - jax_objective:+.3e}); spectral gap "
+            f"{card.history.spectral_gap:.6f}")
+        check(abs(gap + sf - jax_objective) <= 1e-12,
+              f"{name}: the card's final objective is not the JAX package's to 1e-12")
+    n, p, T, every = ER_1024
+    big = pkg.ExperimentConfig(problem_type="logistic", topology="erdos_renyi", n_workers=n,
+                               erdos_renyi_p=p, n_iterations=T, eval_every=every,
+                               dtype="float32")
+    bds, bf = _main_data(pkg, n)
+    L = max(len(s) for s in bds.shard_indices)
+    check(L <= big.local_batch_size, f"N={n}: shards of {L} rows, not the whole-shard path")
+    for impl in ("auto", "gather", "sparse"):
+        res, counted = _converging_run(torch, pkg, counters, big.replace(mixing_impl=impl), bds,
+                                       bf, "topologies", converges=False)
+        check(counted == _only(counted), f"ER N={n} {impl}: launches {counted}, not none")
+        say(f"[topologies] ER N={n} p=12/{n} T={T} (L={L} <= b, whole shard) {impl}: "
+            f"{res.history.iters_per_second:.1f} iters/s")
+
+
+def phase_push_sum(torch, np, pkg, kernels):
+    """Push-sum on the card. Directed ER at N=256 (p = 12/256) under 'auto'
+    (the dense product), T=10,000, eval every 10: ε within 1% of the JAX
+    package's count, bitwise its ``measure_timestamps=True`` run, Σ w within
+    1e-5 N of the JAX package's (PUSH_SUM_MASS) and its drift from N within
+    what the float32 weights' column sums allow (T times their largest
+    excess over 1). The directed ring at the study's N=25 in
+    float64 under stencil, dense and sparse: each card run against its CPU
+    run, and the three against each other, to 1e-12. Push-sum on the
+    undirected ring at N=256 (T=3,000), pallas and stencil: bitwise equal
+    (the ring kernel is bitwise its twin), w exactly 1, ``ring_mix`` 2T
+    times in the pallas run (num and w) and no fused step. Returns the
+    pallas run's launches."""
+    counters = [kernels[k] for k in ("rk", "fk", "bk", "sk")]
+    ds, f_opt = _main_data(pkg, 256)
+    fields, T, want = IRREGULAR_RUNS["push_sum_der256"]
+    cfg = pkg.ExperimentConfig(problem_type="logistic", n_workers=256, n_iterations=T,
+                               eval_every=IRREGULAR_EVAL_EVERY, dtype="float32", **fields)
+    res, counted = _converging_run(torch, pkg, counters, cfg, ds, f_opt, "push_sum",
+                                   return_state=True)
+    h = res.history
+    crossed = pkg.iterations_to_threshold(h.objective, 0.08, h.eval_iterations)
+    w = res.final_state["w"]
+    mass = float(w.sum())
+    say(f"[push_sum] directed ER auto: iters-to-0.08 {crossed}, JAX package {want} "
+        f"({(crossed - want) / want:+.2%}), floats {h.total_floats_transmitted:.6g}, "
+        f"sum w {mass!r} (N={cfg.n_workers}, {mass / cfg.n_workers - 1:+.3e}), w in "
+        f"[{float(w.min()):.4f}, {float(w.max()):.4f}]")
+    _within_count("push_sum directed ER", crossed, want)
+    topo = pkg.build_topology(cfg.topology, cfg.n_workers, erdos_renyi_p=cfg.erdos_renyi_p,
+                              seed=cfg.resolved_topology_seed())
+    excess = float(np.abs(topo.mixing_matrix.astype(np.float32).astype(np.float64).sum(0)
+                          - 1.0).max())
+    drift = mass / cfg.n_workers - 1.0
+    say(f"[push_sum] sum w drift {drift:+.3e} of N, within T x the float32 weights' largest "
+        f"column excess {T * excess:.3e}; JAX package's sum w {PUSH_SUM_MASS!r} "
+        f"({(mass - PUSH_SUM_MASS) / cfg.n_workers:+.3e} of N apart)")
+    check(abs(drift) <= T * excess + 1e-5, f"push_sum: sum w = {mass} drifted past the float32 "
+                                           f"weights' own {T * excess:.3e}")
+    check(abs(mass - PUSH_SUM_MASS) <= 1e-5 * cfg.n_workers,
+          f"push_sum: sum w = {mass}, not the JAX package's {PUSH_SUM_MASS} within 1e-5 N")
+    expect = _only(counted, sample_worker_batch_weights=T)
+    check(counted == expect, f"push_sum directed ER: launches {counted}, not {expect}")
+    _graph_equals_measured(torch, np, pkg, counters, cfg, ds, f_opt, "push_sum", res, counted)
+    study = pkg.ExperimentConfig(problem_type="logistic", algorithm="push_sum",
+                                 topology="directed_ring", dtype="float64", eval_every=10,
+                                 n_iterations=IRREGULAR_REFERENCE_ITERATIONS)
+    sds, sf = _main_data(pkg, study.n_workers)
+    cards = {}
+    for impl in ("stencil", "dense", "sparse"):
+        run_cfg = study.replace(mixing_impl=impl)
+        cards[impl] = pkg.run(run_cfg, sds, sf, device="cuda")
+        _agree(f"push_sum directed ring N=25 T={study.n_iterations} float64 {impl}", cards[impl],
+               pkg.run(run_cfg, sds, sf, device="cpu"), phase="push_sum")
+    for impl in ("dense", "sparse"):
+        _agree(f"push_sum directed ring {impl} vs stencil, both", cards[impl], cards["stencil"],
+               phase="push_sum")
+    ring = pkg.ExperimentConfig(problem_type="logistic", algorithm="push_sum", n_workers=256,
+                                n_iterations=PUSH_SUM_RING_ITERATIONS, dtype="float32",
+                                eval_every=IRREGULAR_EVAL_EVERY)
+    T = ring.n_iterations
+    runs, launches = {}, None
+    for impl in ("pallas", "stencil"):
+        run_cfg = ring.replace(mixing_impl=impl)
+        runs[impl], counted = _converging_run(torch, pkg, counters, run_cfg, ds, f_opt,
+                                              "push_sum", converges=False, return_state=True)
+        expect = _only(counted, sample_worker_batch_weights=T,
+                       **({"ring_mix": 2 * T} if impl == "pallas" else {}))
+        check(counted == expect, f"push_sum ring {impl}: launches {counted}, not {expect}")
+        check(bool(np.all(runs[impl].final_state["w"] == 1.0)),
+              f"push_sum ring {impl}: w moved off 1 on the doubly stochastic ring")
+        if impl == "pallas":
+            launches = counted
+            _graph_equals_measured(torch, np, pkg, counters, run_cfg, ds, f_opt, "push_sum",
+                                   runs[impl], counted, converges=False)
+    same = (np.array_equal(runs["pallas"].history.objective, runs["stencil"].history.objective)
+            and np.array_equal(runs["pallas"].final_models, runs["stencil"].final_models))
+    say(f"[push_sum] ring N=256 pallas vs stencil: gap history and final models "
+        f"{'bitwise equal' if same else 'DIFFER'}, w exactly 1 in both; iters/s pallas "
+        f"{runs['pallas'].history.iters_per_second:.1f}, stencil "
+        f"{runs['stencil'].history.iters_per_second:.1f}")
+    check(same, "push_sum ring: the pallas run is not bitwise the stencil run")
+    return launches
+
+
+def robust_er(torch, np, pkg, bk, rk):
+    """Sign-flip on ER at N=64, p=0.1 (rows of 3 to 13 live slots of 13) on
+    the main path's data: trimmed mean and median with b=1, fused and
+    gather, T=2,000. The fused runs launch the fused step T times and are
+    bitwise their ``measure_timestamps=True`` runs, the gather runs launch
+    it never; each fused history within 1e-6 relative of its gather twin
+    (the robust phase's tolerance). Float64 fused runs (T=200), card
+    against CPU to 1e-12. Then robust_scale.json's crossover cell (k_max
+    40): 'auto' resolves to gather, and it runs finite. Returns the fused
+    step's launches."""
+    ds, f_opt = _main_data(pkg, 64)
+    base = pkg.ExperimentConfig(problem_type="logistic", algorithm="dsgd", topology="erdos_renyi",
+                                n_workers=64, erdos_renyi_p=0.1, n_iterations=ER_ROBUST_ITERATIONS,
+                                eval_every=50, dtype="float32", attack="sign_flip", n_byzantine=6,
+                                attack_scale=5.0)
+    topo = pkg.build_topology("erdos_renyi", 64, erdos_renyi_p=0.1,
+                              seed=base.resolved_topology_seed())
+    graph = (int(topo.degrees.max()), int(topo.degrees.min()))
+    say(f"[robust] ER N=64 p=0.1: k_max {graph[0]}, degrees {graph[1]} to {graph[0]}")
+    check(graph == ER_ROBUST_GRAPH, f"the robust ER graph is {graph}, not {ER_ROBUST_GRAPH}")
+    T = base.n_iterations
+    rows = {f"er_{rule}_{impl}": base.replace(aggregation=rule, robust_b=1, robust_impl=impl)
+            for rule in ("trimmed_mean", "median") for impl in ("fused", "gather")}
+    runs = _screened_runs(pkg, rows, ds, f_opt, [bk, rk], "robust")
+    total = 0
+    for name, (res, launches) in runs.items():
+        steps = launches.get("make_fused_robust_dsgd_step", 0)
+        fused = name.endswith("fused")
+        check(steps == (T if fused else 0), f"robust {name}: fused step launched {steps} times")
+        check(bool(np.all(np.isfinite(res.history.objective))), f"robust {name}: non-finite")
+        total += steps
+        if fused:
+            _graph_equals_measured(torch, np, pkg, [bk, rk], rows[name], ds, f_opt, "robust", res,
+                                   launches, converges=False)
+    for rule in ("trimmed_mean", "median"):
+        rel = _relative_gap_diff(np, runs[f"er_{rule}_fused"][0], runs[f"er_{rule}_gather"][0])
+        say(f"[robust] ER {rule} fused vs gather: largest relative gap difference {rel:.3e}")
+        check(rel <= 1e-6, f"ER {rule}: fused and gather histories differ beyond 1e-6 relative")
+        run_cfg = rows[f"er_{rule}_fused"].replace(dtype="float64",
+                                                   n_iterations=IRREGULAR_REFERENCE_ITERATIONS)
+        _agree(f"ER N=64 T={run_cfg.n_iterations} float64 sign_flip {rule} fused",
+               pkg.run(run_cfg, ds, f_opt, device="cuda"), pkg.run(run_cfg, ds, f_opt, device="cpu"),
+               phase="robust")
+    cross = pkg.ExperimentConfig(**ROBUST_CROSSOVER)
+    ctopo = pkg.build_topology("erdos_renyi", cross.n_workers, erdos_renyi_p=cross.erdos_renyi_p,
+                               seed=cross.resolved_topology_seed())
+    impl = pkg.resolve_robust_impl(cross, ctopo)
+    cds = pkg.generate_synthetic_dataset(cross)
+    _, cf = pkg.compute_reference_optimum(cds, cross.reg_param)
+    res, launches = _screened_runs(pkg, {"crossover_er64_p0.5": cross}, cds, cf, [bk, rk],
+                                   "robust")["crossover_er64_p0.5"]
+    say(f"[robust] robust_scale.json crossover cell: k_max {int(ctopo.degrees.max())}, auto "
+        f"resolves to {impl}")
+    check(impl == "gather" and not launches, f"crossover: {impl}, launches {launches}")
+    check(bool(np.all(np.isfinite(res.history.objective))), "crossover: non-finite")
+    return total
+
 
 def compression_bound(name: str, n: int, d: int, k: int, itemsize: int):
     """(ms, 'bytes' or 'operations') for one exchange's estimate update: v
@@ -2268,6 +2607,12 @@ def phase_profile(torch, pkg, steady, T: int = 300):
         cfg = pkg.ExperimentConfig(problem_type="logistic", n_workers=256, n_iterations=T,
                                    mixing_impl="pallas", dtype="float32", eval_every=1, **fields)
         _profile_run(torch, pkg, steady, cfg, f"{name} N=256 pallas", T)
+    for name, impls in (("dsgd_er256", ("auto", "gather", "sparse")), ("push_sum_der256", ("auto",))):
+        fields = IRREGULAR_RUNS[name][0]
+        for impl in impls:
+            cfg = pkg.ExperimentConfig(problem_type="logistic", n_workers=256, n_iterations=T,
+                                       mixing_impl=impl, dtype="float32", eval_every=1, **fields)
+            _profile_run(torch, pkg, steady, cfg, f"{name} {impl}", T)
 
 
 def main(argv=None) -> int:
@@ -2384,6 +2729,13 @@ def main(argv=None) -> int:
         records["compress_exchange"], counted["compress_exchange"] = phase_compression(
             torch, np, pkg, kernels, prng)
         lap("compression")
+    if "topologies" in phases:
+        phase_topologies(torch, np, pkg, kernels)
+        lap("topologies")
+    if "push_sum" in phases:
+        counted["ring_mix"] = phase_push_sum(torch, np, pkg, kernels)
+        paths["ring_mix"] = "push_sum: push_sum, ring, N=256, pallas, 2 a step (num and w)"
+        lap("push_sum")
     if "study" in phases:
         phase_study(torch, np, pkg)
         lap("study")
@@ -2392,7 +2744,11 @@ def main(argv=None) -> int:
         lap("byzantine")
     if "robust" in phases:
         robust_models, launches = phase_robust(np, pkg, bk, rk)
+        launches["make_fused_robust_dsgd_step"] += robust_er(torch, np, pkg, bk, rk)
         counted["make_fused_robust_dsgd_step"] = launches
+        paths["make_fused_robust_dsgd_step"] = (
+            "robust: three fused runs on the ring (N=256) and two on ER (N=64, degrees 3-13), "
+            "T each")
         lap("robust")
         if "robust_mixing" in phases:
             counted.setdefault("make_fused_robust_aggregator", phase_robust_mixing(
@@ -2442,7 +2798,11 @@ def _package():
     import types
 
     from distributed_optimization_tpu_torch.algorithms import get_algorithm
-    from distributed_optimization_tpu_torch.backends.torch_backend import bind_byzantine, run
+    from distributed_optimization_tpu_torch.backends.torch_backend import (
+        bind_byzantine,
+        resolve_robust_impl,
+        run,
+    )
     from distributed_optimization_tpu_torch.config import ExperimentConfig
     from distributed_optimization_tpu_torch.metrics import iterations_to_threshold
     from distributed_optimization_tpu_torch.ops.mixing import make_mixing_op
@@ -2452,6 +2812,7 @@ def _package():
 
     return types.SimpleNamespace(
         run=run, ExperimentConfig=ExperimentConfig, bind_byzantine=bind_byzantine,
+        resolve_robust_impl=resolve_robust_impl,
         get_algorithm=get_algorithm,
         iterations_to_threshold=iterations_to_threshold, make_mixing_op=make_mixing_op,
         build_topology=build_topology, generate_synthetic_dataset=generate_synthetic_dataset,

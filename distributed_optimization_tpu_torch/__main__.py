@@ -40,7 +40,12 @@ def build_parser() -> argparse.ArgumentParser:
         description="One decentralized-optimization run on the PyTorch port.",
     )
     p.add_argument("--algorithm", choices=ALGORITHMS, default=_DEFAULTS.algorithm)
-    p.add_argument("--topology", choices=TOPOLOGIES, default=_DEFAULTS.topology)
+    p.add_argument("--topology", choices=TOPOLOGIES, default=_DEFAULTS.topology,
+                   help="directed_ring and directed_erdos_renyi take --algorithm push_sum")
+    p.add_argument("--erdos-renyi-p", type=float, default=_DEFAULTS.erdos_renyi_p,
+                   help="edge probability of the two Erdős–Rényi graphs")
+    p.add_argument("--topology-seed", type=int, default=_DEFAULTS.topology_seed,
+                   help="seed of the random graphs (-1 follows --seed)")
     p.add_argument("--problem-type", choices=PROBLEM_TYPES, default=_DEFAULTS.problem_type)
     p.add_argument("--n-workers", type=int, default=_DEFAULTS.n_workers)
     p.add_argument("--n-samples", type=int, default=_DEFAULTS.n_samples)
@@ -71,7 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--suboptimality-threshold", type=float,
                    default=_DEFAULTS.suboptimality_threshold)
     p.add_argument("--mixing-impl", choices=MIXING_IMPLS, default=_DEFAULTS.mixing_impl,
-                   help="'pallas' selects the hand-written CUDA ring kernels")
+                   help="'pallas' selects the hand-written CUDA ring and fc kernels; "
+                        "'gather' the neighbour table (undirected graphs), 'sparse' "
+                        "the in-edge lists (any graph)")
     p.add_argument("--sampling-impl", choices=SAMPLING_IMPLS, default=_DEFAULTS.sampling_impl)
     p.add_argument("--dtype", choices=DTYPES, default=_DEFAULTS.dtype)
     p.add_argument("--partition", choices=PARTITIONS, default=_DEFAULTS.partition,
@@ -99,6 +106,8 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
     return ExperimentConfig(
         algorithm=args.algorithm,
         topology=args.topology,
+        erdos_renyi_p=args.erdos_renyi_p,
+        topology_seed=args.topology_seed,
         problem_type=args.problem_type,
         n_workers=args.n_workers,
         n_samples=args.n_samples,

@@ -1,9 +1,9 @@
 """Algorithm abstraction: a pure init/step pair over an [N, d] model stack.
 
 The port of ``distributed_optimization_tpu/algorithms/base.py``. State is a
-dict of ``[N, d]`` tensors with an ``x`` entry (the per-worker models); a
-step rule reads what it needs from a :class:`StepContext` the backend
-builds for each iteration.
+dict of ``[N, d]`` tensors (push-sum's mass ``w`` is ``[N, 1]``) with an
+``x`` entry (the per-worker models); a step rule reads what it needs from
+a :class:`StepContext` the backend builds for each iteration.
 """
 
 from __future__ import annotations
@@ -99,6 +99,7 @@ def get_algorithm(name: str) -> Algorithm:
         dsgd,
         extra,
         gradient_tracking,
+        push_sum,
     )
 
     if name not in _REGISTRY:

@@ -8,8 +8,8 @@ kernel launch on a card, the twin of ``jax.random`` on the CPU) →
 per-worker closed-form gradients → gossip (or the fused ring kernel; under
 Byzantine injection the corrupt → screen → mix composition, or the fused
 robust kernel) → step; gradient tracking gossips twice, ADMM exchanges the
-neighbour sum A x instead of W x, and τ > 1 local steps add τ − 1 sampled
-descents.
+neighbour sum A x instead of W x, push-sum mixes its numerators and their
+[N, 1] mass, and τ > 1 local steps add τ − 1 sampled descents.
 
 The run is a sequence of chunks, the counterpart of the JAX package's scan
 over eval chunks: one chunk runs ``eval_every`` iterations and then writes
@@ -220,11 +220,15 @@ def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
         return None
     if not algo.supports_byzantine:
         raise ValueError(
-            f"Byzantine injection / robust aggregation is unsupported for "
-            f"{algo.name!r}: only step rules whose updates go through the "
-            "gossip mix alone compose with screened aggregation (EXTRA's fixed "
-            "point needs the static linear W; ADMM pairs neighbor sums with "
-            "static degrees) — use 'dsgd' or 'gradient_tracking'"
+            f"Byzantine injection / robust aggregation is "
+            f"unsupported for {algo.name!r}: only step rules whose "
+            "updates go through the gossip mix alone compose with "
+            "screened aggregation (EXTRA's fixed point needs the "
+            "static linear W; ADMM pairs neighbor sums with static "
+            "degrees; CHOCO's shared estimates cannot represent "
+            "screened-out updates; push-sum's debiasing needs the "
+            "column-stochastic mass conservation screening breaks) "
+            "— use 'dsgd' or 'gradient_tracking'"
         )
     adversary = make_adversary(
         config.n_workers, config.attack, config.n_byzantine, config.attack_scale,
@@ -404,7 +408,8 @@ def run(
     mix_op = byz = None
     fused_mix_step = None
     if algo.is_decentralized:
-        topo = build_topology(config.topology, n)
+        topo = build_topology(config.topology, n, erdos_renyi_p=config.erdos_renyi_p,
+                              seed=config.resolved_topology_seed())
         mix_op = make_mixing_op(topo, config.mixing_impl, device=dev, dtype=dtype)
         degrees = torch.as_tensor(topo.degrees, dtype=dtype, device=dev)[:, None]
         if algo.comm_payload is not None:

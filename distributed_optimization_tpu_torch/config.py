@@ -15,10 +15,17 @@ from typing import Any
 
 # What this slice of the port implements. The JAX package accepts more;
 # each value outside these lists is refused below.
-ALGORITHMS = ("centralized", "dsgd", "gradient_tracking", "extra", "admm", "choco")
-TOPOLOGIES = ("ring", "grid", "fully_connected")
+ALGORITHMS = ("centralized", "dsgd", "gradient_tracking", "extra", "admm", "choco",
+              "push_sum")
+TOPOLOGIES = ("ring", "grid", "fully_connected", "erdos_renyi", "chain", "star",
+              "directed_ring", "directed_erdos_renyi")
+# Column-stochastic mixing: only push_sum, which divides out the tracked
+# mass, converges to the true average on them.
+DIRECTED_TOPOLOGIES = ("directed_ring", "directed_erdos_renyi")
+# The graphs drawn from ``resolved_topology_seed()``.
+RANDOM_TOPOLOGIES = ("erdos_renyi", "directed_erdos_renyi")
 PROBLEM_TYPES = ("logistic", "quadratic")
-MIXING_IMPLS = ("auto", "stencil", "dense", "pallas")
+MIXING_IMPLS = ("auto", "stencil", "dense", "pallas", "gather", "sparse")
 SAMPLING_IMPLS = ("auto", "dense", "gather")
 DTYPES = ("float32", "float64")
 LR_SCHEDULES = ("auto", "sqrt_decay", "constant")
@@ -34,6 +41,18 @@ COMPRESSED_ALGORITHMS = ("choco", "dsgd", "gradient_tracking")
 ATTACKS = ("none", "sign_flip", "large_noise", "alie")
 AGGREGATIONS = ("gossip", "trimmed_mean", "median", "clipped_gossip")
 ROBUST_IMPLS = ("auto", "dense", "gather", "fused")
+TOPOLOGY_IMPLS = ("auto", "dense", "neighbor")
+TOPOLOGY_SAMPLERS = ("auto", "dense", "sparse")
+# The JAX package's graphs with a matrix-free (neighbour-table) builder, and
+# its N at which topology_impl='auto' takes that builder: there it draws the
+# same tables as the dense builder, so the port builds the dense form and
+# ops/mixing.py's 'auto' routes to the same gather form.
+NEIGHBOR_TOPOLOGIES = ("ring", "grid", "chain", "erdos_renyi")
+MATRIX_FREE_AUTO_N = 4096
+# The N past which the JAX package's topology_sampler='auto' draws
+# Erdős–Rényi with its sparse sampler, another realization of G(n, p) that
+# the port does not have.
+SPARSE_SAMPLER_AUTO_N = 65_536
 
 
 def _not_yet(field: str, value: Any, allowed: tuple) -> ValueError:
@@ -105,6 +124,16 @@ class ExperimentConfig:
     # of ops/robust_kernels.py); 'auto' promotes gather to fused where the
     # kernel takes the rule. 'dense' is not ported.
     robust_impl: str = "auto"
+    # Edge probability of the two Erdős–Rényi graphs, and the seed they are
+    # drawn from (-1 follows ``seed``).
+    erdos_renyi_p: float = 0.4
+    topology_seed: int = -1
+    # The JAX package's graph representation and ER sampler. The port builds
+    # the dense form: 'auto' (whose JAX matrix-free tables are the dense
+    # builder's, bit for bit) and 'dense' run; 'neighbor' and 'sparse' are
+    # not ported.
+    topology_impl: str = "auto"
+    topology_sampler: str = "auto"
 
     def __post_init__(self) -> None:
         for field, allowed in (
@@ -122,6 +151,7 @@ class ExperimentConfig:
         self._validate_compression()
         self._validate_local_steps()
         self._validate_byzantine()
+        self._validate_topology()
         if self.n_workers <= 0:
             raise ValueError("n_workers must be positive")
         if self.n_informative_features > self.n_features:
@@ -143,6 +173,55 @@ class ExperimentConfig:
                 raise ValueError(
                     f"grid topology requires a perfect-square worker count, got {self.n_workers}"
                 )
+
+    def _validate_topology(self) -> None:
+        """The JAX package's checks of the graph fields, with its messages;
+        the representations the port lacks raise."""
+        if self.topology_impl not in TOPOLOGY_IMPLS:
+            raise ValueError(f"Unknown topology impl: {self.topology_impl}")
+        if self.topology_impl == "neighbor":
+            raise _not_yet("topology_impl", self.topology_impl, ("auto", "dense"))
+        if self.topology_sampler not in TOPOLOGY_SAMPLERS:
+            raise ValueError(
+                f"Unknown topology sampler: {self.topology_sampler!r} "
+                "(expected 'auto', 'dense', or 'sparse')"
+            )
+        if self.topology_sampler != "auto" and self.topology != "erdos_renyi":
+            raise ValueError(
+                f"topology_sampler={self.topology_sampler!r} selects the "
+                "matrix-free Erdős–Rényi constructor; topology="
+                f"{self.topology!r} has exactly one realization and would "
+                "silently ignore it — leave topology_sampler='auto'"
+            )
+        if self.topology_sampler == "sparse" and self.topology_impl == "dense":
+            raise ValueError(
+                "topology_sampler='sparse' only exists on the matrix-free "
+                "path: topology_impl='dense' replays the [N, N] uniform "
+                "stream as its own sampler — use topology_impl='auto' or "
+                "'neighbor'"
+            )
+        if self.resolved_topology_sampler() == "sparse":
+            raise ValueError(
+                f"topology_sampler={self.topology_sampler!r} resolves to "
+                f"'sparse' at N={self.n_workers} > {SPARSE_SAMPLER_AUTO_N}: "
+                "the PyTorch port does not have the sparse Erdős–Rényi "
+                "sampler yet (it draws the dense sampler's graph up to "
+                f"N={SPARSE_SAMPLER_AUTO_N})"
+            )
+        if self.topology in DIRECTED_TOPOLOGIES and self.algorithm != "push_sum":
+            raise ValueError(
+                f"topology {self.topology!r} is directed: its mixing matrix "
+                "is column-stochastic, not doubly stochastic, so "
+                f"{self.algorithm!r} would converge to the graph's Perron "
+                "weighting instead of the true average — use "
+                "algorithm='push_sum', which debiases by the tracked "
+                "push-sum mass"
+            )
+        if self.topology_seed < -1:
+            raise ValueError(
+                f"topology_seed must be -1 (follow seed) or >= 0, got "
+                f"{self.topology_seed}"
+            )
 
     def _validate_compression(self) -> None:
         """The JAX package's checks of the compression fields, in its order
@@ -293,6 +372,40 @@ class ExperimentConfig:
                 "not have it yet (it implements 'gather' and 'fused')"
             )
         return impl
+
+    def resolved_topology_seed(self) -> int:
+        """``topology_seed`` when pinned (>= 0), else ``seed``."""
+        return self.topology_seed if self.topology_seed >= 0 else self.seed
+
+    def resolved_topology_impl(self) -> str:
+        """The representation the JAX package's 'auto' resolves to on an
+        unsharded, fault-free, synchronous run: 'neighbor' at N >=
+        MATRIX_FREE_AUTO_N for the graphs with a matrix-free builder when
+        no dense-only feature is asked for, else 'dense'. The port builds
+        the dense form either way; the neighbour tables are the same."""
+        if self.topology_impl != "auto":
+            return self.topology_impl
+        dense_only = (
+            self.topology not in NEIGHBOR_TOPOLOGIES
+            or self.mixing_impl not in ("auto", "gather", "stencil")
+            or self.attack != "none"
+            or self.robust_active
+        )
+        if not dense_only and self.n_workers >= MATRIX_FREE_AUTO_N:
+            return "neighbor"
+        return "dense"
+
+    def resolved_topology_sampler(self) -> str:
+        """The JAX package's rule: the sparse Erdős–Rényi sampler past
+        SPARSE_SAMPLER_AUTO_N workers on the matrix-free ER path, else the
+        dense-stream sampler."""
+        if self.topology_sampler != "auto":
+            return self.topology_sampler
+        if (self.topology == "erdos_renyi"
+                and self.resolved_topology_impl() == "neighbor"
+                and self.n_workers > SPARSE_SAMPLER_AUTO_N):
+            return "sparse"
+        return "dense"
 
     def resolved_data_seed(self) -> int:
         """``data_seed`` when pinned (>= 0), else ``seed``."""

@@ -22,14 +22,16 @@ def state_from_reference(
     tensors (contiguous copies on ``device`` in ``dtype``). D-SGD's state,
     with or without a Byzantine layer, is ``x`` alone: the attack and the
     screen carry no state across iterations. ADMM's is ``x``, the duals
-    ``alpha`` and the carried neighbour sum ``nbr_x`` (A x)."""
+    ``alpha`` and the carried neighbour sum ``nbr_x`` (A x). Push-sum's is
+    ``x`` (the de-biased estimates num / w), the numerators ``num`` and the
+    mass ``w``, which is ``[N, 1]``."""
     if "x" not in state:
         raise ValueError("a state needs its per-worker models under 'x'")
     out = {}
     for key, value in state.items():
         arr = np.asarray(value)
         if arr.ndim != 2:
-            raise ValueError(f"state[{key!r}] must be [N, d], got shape {arr.shape}")
+            raise ValueError(f"state[{key!r}] must be [N, d] or [N, 1], got shape {arr.shape}")
         out[key] = torch.tensor(arr, dtype=dtype, device=device).contiguous()
     return out
 

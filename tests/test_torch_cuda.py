@@ -25,7 +25,10 @@ tests/test_torch_robust_network.py, which holds the count-rule kernel's
 sort network and selections against the plain version on the CPU.
 The compression kernel (top_k, random_k, qsgd; both dtypes) equals the plain
 twin of ops/compression.py bit for bit, mask bits and qsgd levels included,
-which tests/test_torch_compression.py holds to the JAX package.
+which tests/test_torch_compression.py holds to the JAX package. The robust
+kernels are also held on an Erdős–Rényi table of rows of 3 to 13 neighbours;
+the gather and sparse mixing forms replay bitwise in a CUDA graph and equal
+the CPU bit for bit; push-sum's [N, 1] mass goes through ring_mix.
 """
 
 import dataclasses
@@ -948,3 +951,97 @@ def test_cuda_compression_wrapper_refuses_what_the_kernel_does_not_take(cuda_dev
         ck.ef_compress(compression.make_compressor("top_k", 2**16, 1), draw, huge, huge)
     del huge
     torch.cuda.empty_cache()
+
+
+def _er_table(n=64, p=0.1, seed=203):
+    """The robust phase's Erdős–Rényi graph: rows of 3 to 13 live slots of
+    13, the rest padding from the graph itself."""
+    from distributed_optimization_tpu_torch.parallel.topology import (
+        build_topology,
+        neighbor_tables_for,
+    )
+
+    nbr, mask = neighbor_tables_for(build_topology("erdos_renyi", n, erdos_renyi_p=p, seed=seed))
+    return nbr, mask.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rule,ct", SCREENS)
+def test_cuda_robust_kernels_on_a_variable_degree_er_table(cuda_device, rule, ct, dtype):
+    nbr, live = _er_table()
+    assert int(live.sum(1).min()) == 3 and nbr.shape[1] == 13
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    tx = torch.randn((64, 81), generator=gen, device=cuda_device, dtype=dtype)
+    tl = torch.from_numpy(live).to(cuda_device)
+    g = torch.randn(tx.shape, generator=gen, device=cuda_device, dtype=dtype)
+    eta = torch.tensor([0.013], dtype=dtype, device=cuda_device)
+    nbr64 = torch.from_numpy(nbr).long().to(cuda_device)
+    tau = torch.tensor([ct], dtype=dtype, device=cuda_device)
+    adaptive = rule == "clipped_gossip" and ct == 0.0
+    got = bk.make_fused_robust_aggregator(rule, 1, nbr, ct, device=cuda_device)(tl, tx)
+    got_step = bk.make_fused_robust_dsgd_step(rule, 1, nbr, ct, device=cuda_device)(tl, tx, g, eta)
+    want = bk.fused_robust_plain(rule, 1, nbr64, tl, tx, tau, adaptive=adaptive)
+    want_step = bk.fused_robust_plain(rule, 1, nbr64, tl, tx, tau, adaptive=adaptive, g=g, eta=eta)
+    if rule in COUNT_RULES:
+        assert _nan_equal(got, want) and _nan_equal(got_step, want_step)
+    else:
+        _assert_clip_close(got, want, tx, nbr64, tl)
+        _assert_clip_close(got_step, want_step, tx, nbr64, tl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,impl", [("erdos_renyi", "gather"), ("erdos_renyi", "sparse"),
+                                       ("directed_erdos_renyi", "sparse"), ("star", "sparse"),
+                                       ("chain", "gather")])
+def test_cuda_table_mixing_forms_replay_bitwise_in_a_graph(cuda_device, name, impl, dtype):
+    """The gather and sparse forms hold no atomics and read nothing back to
+    the host: captured in a CUDA graph, every replay is bitwise the eager
+    call, which is bitwise the CPU's (the same elementwise products, added
+    slot after slot)."""
+    from distributed_optimization_tpu_torch.ops.mixing import make_mixing_op
+    from distributed_optimization_tpu_torch.parallel.topology import build_topology
+
+    topo = build_topology(name, 256, erdos_renyi_p=12 / 256, seed=203)
+    op = make_mixing_op(topo, impl, device=cuda_device, dtype=dtype)
+    cpu = make_mixing_op(topo, impl, device="cpu", dtype=dtype)
+    x = torch.randn((256, 81), device=cuda_device, dtype=dtype)
+    eager_w, eager_a = op.apply(x), op.neighbor_sum(x)
+    assert torch.equal(eager_w.cpu(), cpu.apply(x.cpu()))
+    assert torch.equal(eager_a.cpu(), cpu.neighbor_sum(x.cpu()))
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        op.apply(x)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out_w, out_a = op.apply(x), op.neighbor_sum(x)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize(cuda_device)
+        assert torch.equal(out_w, eager_w) and torch.equal(out_a, eager_a)
+    graph.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_ring_mix_on_the_push_sum_mass_column(cuda_device, dtype):
+    """Push-sum mixes its [N, 1] mass through ring_mix: bitwise the plain
+    version, and a column of ones stays ones (3 · fl(1/3) = 1)."""
+    w = torch.rand((256, 1), device=cuda_device, dtype=dtype)
+    assert torch.equal(rk.ring_mix(w), rk.ring_mix_plain(w))
+    ones = torch.ones((256, 1), device=cuda_device, dtype=dtype)
+    assert torch.equal(rk.ring_mix(ones), ones)
+
+
+@pytest.mark.cuda
+def test_cuda_push_sum_run_on_the_ring_launches_ring_mix_twice_a_step(cuda_device, graph_data):
+    base, ds, f_opt = graph_data["sorted"]
+    cfg = base.replace(algorithm="push_sum", mixing_impl="pallas", n_iterations=40)
+    res, launches = _counted_run(cfg, ds, f_opt, return_state=True)
+    assert launches["ring_mix"] == 80 and launches["fused_ring_dsgd_step"] == 0
+    assert np.all(res.final_state["w"] == 1.0)
+    stencil, _ = _counted_run(cfg.replace(mixing_impl="stencil"), ds, f_opt)
+    assert np.array_equal(res.history.objective, stencil.history.objective)

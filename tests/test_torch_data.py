@@ -155,11 +155,11 @@ def test_config_refuses_what_the_port_lacks():
     with pytest.raises(ValueError, match="does not have it yet"):
         ExperimentConfig(problem_type="huber")
     with pytest.raises(ValueError, match="does not have it yet"):
-        ExperimentConfig(algorithm="push_sum")
+        ExperimentConfig(mixing_impl="shard_map")
     with pytest.raises(ValueError, match="does not have it yet"):
-        ExperimentConfig(mixing_impl="sparse")
-    with pytest.raises(ValueError, match="does not have it yet"):
-        ExperimentConfig(topology="erdos_renyi")
+        ExperimentConfig(topology_impl="neighbor")
+    with pytest.raises(ValueError, match="does not have the sparse"):
+        ExperimentConfig(topology="erdos_renyi", topology_sampler="sparse")
     with pytest.raises(ValueError, match="does not have it yet"):
         ExperimentConfig(dtype="bfloat16")
     with pytest.raises(ValueError, match="must divide"):

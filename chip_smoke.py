@@ -187,6 +187,37 @@ Phases:
     robust run's final models, for each rule, against the gather form and
     the numpy oracle; and the pallas ``MixingOp`` on the fully-connected
     graph (``fc_mix``, ``fc_neighbor_sum``) against the dense W and A.
+18. objectives: the Huber and softmax families, every line with the
+    card's name and power limit. Huber at the main path's shapes
+    (``HUBER_MAIN``: N=256 ring, regression data, L=49, the dense sampler):
+    D-SGD under pallas and stencil in float64 (T=300) card against CPU to
+    1e-12 (rtol and atol) and the final gap against the JAX package's
+    (``JAX_FINAL_GAPS``) to 1e-12; in float32 at T=30,000, eval every 10,
+    with iters/s, the launches exact and the pallas run bitwise its
+    measured run; then ``tests/test_huber.py``'s gate on its small config
+    (``HUBER_ORACLE``): GT and EXTRA pin the oracle (|gap| < 1e-9,
+    consensus < 1e-12), D-SGD stalls above 1e-3. Softmax at K=10 on the
+    study's N=25 ring (d_model = 810, L=500: the gather sampler copies the
+    class labels): D-SGD (pallas), GT (``ring_mix`` at 810 columns, 2T) and
+    CHOCO (81 of 810, the compression kernel's block-a-row path) in
+    float64 card against CPU to 1e-12 with the floats transmitted exact
+    (CHOCO's W x̂ is ``ring_mix``, T launches): top_k and random_k at γ =
+    ``CHOCO_STABLE_GAMMA`` on every leaf, top_k at the study's γ = 0.3,
+    which amplifies rounding, exchange by exchange (``_top_k_agree``),
+    D-SGD's gap against the JAX package's, and D-SGD in float32 at
+    T=10,000 bitwise its measured run. The ring kernels at [25, 810] and
+    the fused step at [8, 2,097,664] and [8, 4,194,816], and the
+    compression kernel at [25, 810], bitwise their plain versions, timed
+    in a graph against the bytes bound. The compute-bound cells of
+    ``examples/bench_compute_bound.py`` (``COMPUTE_BOUND``: N=8, K=512,
+    b = L = 2,048, d = 4,096 and 8,192 features plus bias, its random
+    data, f* = 0): float32 under ``matmul_precision`` 'highest' and
+    'default', stencil and pallas, each finite and decreasing over T=200,
+    then timed with metrics off (iters/s, TFLOP/s from 4·N·b·d·K, and its
+    share of the FP32 or dense TF32 peak); at d = 4,096 three float32
+    iterations against float64 on the CPU ('highest' within
+    ``COMPUTE_BOUND_TOL``, 'default' farther off). TF32 must be off before
+    and after every run.
 
 Every run goes through the port's run loop: after a warm-up chunk, CUDA
 graph replays (``backends/torch_backend.py``). The kernels count their own
@@ -199,7 +230,9 @@ of the admm phase's ring, of gradient tracking on the main path's data and
 of the robust cell's fused trimmed-mean run
 with ``torch.profiler`` (and CHOCO with random_k and compressed GT with
 qsgd on the main path's data, D-SGD on the topologies phase's ER graph
-under dense, gather and sparse, and push-sum on its directed ER), each as the
+under dense, gather and sparse, push-sum on its directed ER, Huber at
+N=256, softmax K=10 at N=25, and the compute-bound cell at d=4,096 under
+both precisions, 40 iterations at eval every 10), each as the
 graph run and as the ``measure_timestamps=True`` run, over the iterations
 after the warm-up chunk; ``ring_ab``
 (``--phases card,ring_ab --baseline PATH``) holds the three ring kernels
@@ -240,6 +273,7 @@ and prints no result line. Without a card it exits 1 before any phase.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -250,7 +284,7 @@ import time
 
 PHASES = ("card", "kernels", "sampling", "reference", "parity", "main", "mixing", "fc", "admm",
           "tracking", "compression", "topologies", "push_sum", "study", "byzantine", "robust",
-          "robust_mixing")
+          "robust_mixing", "objectives")
 # Run only when asked for: profile, a torch.profiler trace of the main
 # path's, the admm ring's and the robust cell's steady loops, graph and
 # measured; ring_ab (with
@@ -547,6 +581,66 @@ ROBUST_CROSSOVER = dict(problem_type="logistic", algorithm="dsgd", topology="erd
                         n_iterations=200, local_batch_size=16, eval_every=100,
                         partition="shuffled", erdos_renyi_p=0.5, aggregation="trimmed_mean",
                         robust_b=1, dtype="float32")
+
+
+# The objectives phase: Huber and softmax. Huber at the main path's shapes
+# (N=256 ring, regression data 12,500 × 80 + bias, L=49, the dense sampler,
+# b=16); softmax at the study's N=25 ring with K=10 (d_model = 810, L=500,
+# the gather sampler, which copies the class labels with the rows).
+HUBER_MAIN = dict(problem_type="huber", n_workers=256, sampling_impl="dense")
+SOFTMAX_STUDY = dict(problem_type="softmax")
+# The float64 runs held card against CPU and against the JAX package: T and
+# the eval cadence.
+OBJECTIVE_ITERATIONS = 300
+OBJECTIVE_EVAL_EVERY = 10
+# The JAX package's float64 D-SGD gap after OBJECTIVE_ITERATIONS at those
+# configs (jax 0.9.0 on a CPU, use_mesh=False, stencil; both packages draw
+# the same batches and solve f* with the same scipy L-BFGS-B, so the f*
+# agree bit for bit); tests/test_torch_huber.py and test_torch_softmax.py
+# recompute them. The card's final gap must equal them to 1e-12 (rtol and
+# atol: Huber's gap is in the thousands).
+JAX_FINAL_GAPS = {"huber": 3391.257604294665, "softmax": 0.34749507923697154}
+# The float32 runs whose iters/s are printed: T (eval every OBJECTIVE_EVAL_EVERY).
+HUBER_ITERATIONS = 30_000
+SOFTMAX_ITERATIONS = 10_000
+# tests/test_huber.py's "exact methods pin the oracle" gate: GT and EXTRA at
+# full batch, constant η = 0.05, float64, on its small config.
+HUBER_ORACLE = dict(problem_type="huber", n_workers=8, n_samples=400, n_features=10,
+                    n_informative_features=6, n_iterations=4_000, local_batch_size=50,
+                    lr_schedule="constant", learning_rate_eta0=0.05, eval_every=400,
+                    dtype="float64")
+# CHOCO on the softmax study: top_k, and random_k, keep 81 of the 810
+# columns. At the study's γ = 0.3 the top_k run amplifies rounding
+# (``_top_k_agree``); at CHOCO_STABLE_GAMMA neither run does, and both are
+# held on every leaf to 1e-12 (random_k has no ties to break).
+SOFTMAX_TOP_K = 81
+CHOCO_STABLE_GAMMA = 0.1
+# The γ = 0.3 top_k run's estimates, card against CPU, through T: rounding
+# grows about tenfold every 25 iterations (two CPU runs part by 6e-11 at
+# T = 300), while a wrong value or pick shows at the scores' scale (~5e-3).
+TOP_K_DRIFT = 1e-9
+# examples/bench_compute_bound.py:125-136: N=8 ring, K=512, b = L = 2,048
+# (the full-batch path), d = 4,096 and 8,192 features plus bias, D-SGD on
+# its _random_dataset (default_rng(0): standard-normal X, uniform labels),
+# f* = 0, no consensus; float32 under matmul_precision 'highest' and
+# 'default'; stencil (the bench pins it) and pallas.
+COMPUTE_BOUND = dict(problem_type="softmax", n_classes=512, algorithm="dsgd", n_workers=8,
+                     local_batch_size=2048, n_informative_features=64,
+                     record_consensus=False, dtype="float32")
+COMPUTE_BOUND_FEATURES = (4096, 8192)
+COMPUTE_BOUND_ITERATIONS = 200
+COMPUTE_BOUND_EVAL_EVERY = 50
+# The float32 'highest' run against a float64 CPU run of the same few
+# iterations at d = 4,096: the gap within 1e-7 (rtol and atol) and the
+# models within 1e-4 of their largest |x|. On an H100 'highest' read
+# 2.5e-8 and 1.4e-6, TF32 ('default', 10 bits) 4.2e-7 and 3.3e-4: each
+# limit lies between the two with room on both sides, and 'default' must
+# land farther off.
+COMPUTE_BOUND_CHECK_ITERATIONS = 3
+COMPUTE_BOUND_TOL = {"gap": 1e-7, "models": 1e-4}
+# NVIDIA H100 SXM data sheet, dense: TF32 on the tensor cores (FP32 is
+# PEAK_FLOPS["float32"], outside them).
+PEAK_TF32_FLOPS = 495e12
 
 
 class PhaseFailed(RuntimeError):
@@ -2125,19 +2219,22 @@ def compression_records(torch, ck, prng):
     return record
 
 
-def _compression_agree(np, label, card, host, tol=1e-12):
+def _agree_close(np, phase, label, card, host, tol=1e-12):
     """Card against CPU: gap and consensus histories, final models and every
-    estimate leaf to ``tol`` (rtol and atol)."""
-    pairs = [("gap", card.history.objective, host.history.objective),
-             ("consensus", card.history.consensus_error, host.history.consensus_error),
-             ("models", card.final_models, host.final_models)]
-    pairs += [(leaf, card.final_state[leaf], host.final_state[leaf])
-              for leaf in ("xhat", "yhat") if leaf in host.final_state]
+    estimate leaf fetched to ``tol`` (rtol and atol)."""
+    pairs = [("gap", card.history.objective, host.history.objective)]
+    if host.history.consensus_error is not None:
+        pairs.append(("consensus", card.history.consensus_error, host.history.consensus_error))
+    pairs.append(("models", card.final_models, host.final_models))
+    if host.final_state is not None:
+        pairs += [(leaf, card.final_state[leaf], host.final_state[leaf])
+                  for leaf in ("xhat", "yhat") if leaf in host.final_state]
     worst = {what: float(np.max(np.abs(a - b) / (1.0 + np.abs(b)))) for what, a, b in pairs}
-    say(f"[compression] {label} on the card vs plain on the CPU: "
+    say(f"[{phase}] {label} on the card vs plain on the CPU: "
         + ", ".join(f"{what} {err:.3e}" for what, err in worst.items()))
     check(all(np.allclose(a, b, rtol=tol, atol=tol) for _, a, b in pairs),
           f"{label}: card and CPU runs disagree beyond {tol}")
+
 
 
 def phase_compression(torch, np, pkg, kernels, prng):
@@ -2217,8 +2314,8 @@ def phase_compression(torch, np, pkg, kernels, prng):
                   f"compression float64 {topology} {fields}: launches {launched}")
             label = (f"N=8 T=200 float64 {topology} pallas {fields['algorithm']} "
                      f"{fields['compression']} k={fields['compression_k']}")
-            _compression_agree(np, label, card, pkg.run(cfg, sds, sf, device="cpu",
-                                                        return_state=True))
+            _agree_close(np, "compression", label, card,
+                         pkg.run(cfg, sds, sf, device="cpu", return_state=True))
     return record, record_launches
 
 
@@ -2536,6 +2633,362 @@ def phase_robust_mixing(torch, np, pkg, kernels, final_models):
     return launches
 
 
+def _jax_gap(np, label, family, res, card):
+    """The run's final float64 gap against the JAX package's
+    (JAX_FINAL_GAPS) to 1e-12, rtol and atol."""
+    gap, want = float(res.history.objective[-1]), JAX_FINAL_GAPS[family]
+    say(f"[objectives] {label}: final gap {gap!r}, JAX package {want!r} "
+        f"({gap - want:+.3e}) ({card})")
+    check(abs(gap - want) <= 1e-12 * (1.0 + abs(want)),
+          f"{label}: the final gap is not the JAX package's to 1e-12")
+
+
+def _objective_run(torch, np, pkg, counters, cfg, ds, f_opt, label, want, card):
+    """A float32 run on the card (graph) with exactly the launches ``want``,
+    finite, bitwise its ``measure_timestamps=True`` run when ``want`` holds a
+    ring kernel; prints its iters/s beside the card."""
+    res, counted = _converging_run(torch, pkg, counters, cfg, ds, f_opt, "objectives",
+                                   converges=False)
+    expect = _only(counted, **want)
+    check(counted == expect, f"{label}: launches {counted}, not {expect}")
+    check(torch.backends.cuda.matmul.allow_tf32 is False, f"{label}: TF32 left on after the run")
+    say(f"[objectives] {label}: {res.history.iters_per_second:.1f} iters/s at eval every "
+        f"{cfg.eval_every}, final gap {res.history.objective[-1]:.6g} ({card})")
+    if any(name in want for name in ("fused_ring_dsgd_step", "ring_mix")):
+        _graph_equals_measured(torch, np, pkg, counters, cfg, ds, f_opt, "objectives", res,
+                               counted, converges=False)
+    return res, counted
+
+
+def objectives_huber(torch, np, pkg, counters, card):
+    """Huber: D-SGD at the main path's shapes under pallas and stencil,
+    float64 card against CPU and against the JAX package, then float32 at
+    T = HUBER_ITERATIONS; and the exact methods' oracle gate."""
+    base = pkg.ExperimentConfig(**HUBER_MAIN, eval_every=OBJECTIVE_EVAL_EVERY)
+    ds = pkg.generate_synthetic_dataset(base)
+    _, f_opt = pkg.compute_reference_optimum(ds, base.reg_param, huber_delta=base.huber_delta)
+    L = max(len(s) for s in ds.shard_indices)
+    check(L == 49, f"huber: shards of {L} rows, not main's 49")
+    small = base.replace(dtype="float64", n_iterations=OBJECTIVE_ITERATIONS)
+    for impl in ("pallas", "stencil"):
+        cfg = small.replace(mixing_impl=impl)
+        res = pkg.run(cfg, ds, f_opt, device="cuda")
+        label = f"huber N=256 T={cfg.n_iterations} float64 {impl}"
+        _agree_close(np, "objectives", label, res, pkg.run(cfg, ds, f_opt, device="cpu"))
+        _jax_gap(np, label, "huber", res, card)
+    T = HUBER_ITERATIONS
+    launches = None
+    for impl in ("pallas", "stencil"):
+        want = {"sample_worker_batch_weights": T}
+        if impl == "pallas":
+            want["fused_ring_dsgd_step"] = T
+        _, counted = _objective_run(torch, np, pkg, counters,
+                                    base.replace(n_iterations=T, mixing_impl=impl), ds, f_opt,
+                                    f"huber N=256 T={T} float32 {impl}", want, card)
+        launches = launches or counted
+    oracle = pkg.ExperimentConfig(**HUBER_ORACLE, mixing_impl="pallas")
+    ods = pkg.generate_synthetic_dataset(oracle)
+    _, of = pkg.compute_reference_optimum(ods, oracle.reg_param)
+    for algorithm in ("gradient_tracking", "extra", "dsgd"):
+        h = pkg.run(oracle.replace(algorithm=algorithm), ods, of, device="cuda").history
+        gap, spread = float(h.objective[-1]), float(h.consensus_error[-1])
+        say(f"[objectives] huber oracle gate, {algorithm} full batch η=0.05 constant, "
+            f"T={oracle.n_iterations} float64: gap {gap:.3e}, consensus {spread:.3e} ({card})")
+        if algorithm == "dsgd":
+            check(gap > 1e-3 and spread > 1e-3, "huber: D-SGD reached the oracle; it should stall")
+        else:
+            check(abs(gap) < 1e-9 and spread < 1e-12,
+                  f"huber: {algorithm} did not pin the oracle (gap {gap:.3e}, consensus {spread:.3e})")
+    return launches
+
+
+def objectives_softmax(torch, np, pkg, counters, ck, card):
+    """Softmax at K=10 on the study's N=25 ring: D-SGD (the gather sampler,
+    pallas), GT (ring_mix at 810 columns) and CHOCO (top_k at the study's
+    γ, then top_k and random_k at CHOCO_STABLE_GAMMA), float64 card against
+    CPU; D-SGD's gap against the JAX package's, and float32 at T =
+    SOFTMAX_ITERATIONS."""
+    base = pkg.ExperimentConfig(**SOFTMAX_STUDY, mixing_impl="pallas",
+                                eval_every=OBJECTIVE_EVAL_EVERY)
+    ds = pkg.generate_synthetic_dataset(base)
+    _, f_opt = pkg.compute_reference_optimum(ds, base.reg_param, n_classes=base.n_classes)
+    L = max(len(s) for s in ds.shard_indices)
+    check(base.resolved_sampling_impl("cuda", L) == "gather", f"softmax: L={L} is not gather's")
+    small = base.replace(dtype="float64", n_iterations=OBJECTIVE_ITERATIONS)
+    n, d_model, T = base.n_workers, 81 * base.n_classes, small.n_iterations
+    runs = {
+        "dsgd": (small, {"sample_worker_batches": T, "fused_ring_dsgd_step": T}),
+        "gradient_tracking": (small.replace(algorithm="gradient_tracking"),
+                              {"sample_worker_batches": T, "ring_mix": 2 * T}),
+    }
+    choco = small.replace(algorithm="choco", compression_k=SOFTMAX_TOP_K)
+    for compression, gamma in (("top_k", choco.choco_gamma), ("top_k", CHOCO_STABLE_GAMMA),
+                               ("random_k", CHOCO_STABLE_GAMMA)):
+        runs[f"choco {compression} k={SOFTMAX_TOP_K} γ={gamma}"] = (
+            choco.replace(compression=compression, choco_gamma=gamma),
+            {"sample_worker_batches": T, "compress_exchange": T, "ring_mix": T})
+    for name, (cfg, want) in runs.items():
+        for c in counters:
+            c.reset_launch_counts()
+        res = pkg.run(cfg, ds, f_opt, device="cuda", return_state=True)
+        counted = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+        label = f"softmax K={cfg.n_classes} N={n} T={T} float64 {name} pallas"
+        check(counted == _only(counted, **want), f"{label}: launches {counted}, not {want}")
+        check(res.final_models.shape == (n, d_model), f"{label}: models {res.final_models.shape}")
+        amplifies = cfg.compression == "top_k" and cfg.choco_gamma != CHOCO_STABLE_GAMMA
+        record = []
+        with _recorded_exchanges(ck, record) if amplifies else contextlib.nullcontext():
+            host = pkg.run(cfg, ds, f_opt, device="cpu", return_state=True)
+        if amplifies:
+            _top_k_agree(np, pkg, ck, label, cfg, ds, f_opt, res, host, record, card)
+        else:
+            _agree_close(np, "objectives", label, res, host)
+        floats = res.history.total_floats_transmitted
+        payload = 2 * SOFTMAX_TOP_K if cfg.compression != "none" else d_model
+        want_floats = 2 * n * payload * (2 if name == "gradient_tracking" else 1) * T
+        say(f"[objectives] {label}: floats transmitted {floats:.10g} (CPU "
+            f"{host.history.total_floats_transmitted:.10g}, expected {want_floats}) ({card})")
+        check(floats == host.history.total_floats_transmitted == want_floats,
+              f"{label}: floats transmitted {floats}, not {want_floats}")
+        if name == "dsgd":
+            _jax_gap(np, label, "softmax", res, card)
+    T = SOFTMAX_ITERATIONS
+    _, counted = _objective_run(
+        torch, np, pkg, counters, base.replace(n_iterations=T), ds, f_opt,
+        f"softmax K=10 N={n} T={T} float32 pallas",
+        {"sample_worker_batches": T, "fused_ring_dsgd_step": T}, card)
+    return counted
+
+
+@contextlib.contextmanager
+def _recorded_exchanges(ck, record):
+    """Record each estimate update of a run, as ``(scores |v − x̂|, the
+    selection [N, d] bool, x̂⁺, bitwise its twin)`` on the host. On a card
+    the selection is the kernel's own mask bits (``ef_levels``, which
+    counts no launch) and the twin is the plain version on the card's own
+    inputs; on the CPU both are the plain version. Calls ``.cpu()`` at
+    every exchange, so a card run must be ``measure_timestamps=True``."""
+    ef_compress = ck.ef_compress
+
+    def recorded(compressor, draw, v, memory):
+        out = ef_compress(compressor, draw, v, memory)
+        if v.device.type == "cuda":
+            mask = ck.ef_levels(compressor, draw, v, memory)[1]
+            same = out.equal(ck.compression.ef_compress_plain(compressor, draw, v, memory))
+        else:
+            mask, same = ck.levels_plain(compressor, draw, v, memory), True
+        record.append(((v - memory).abs().cpu(), mask.cpu() != 0, out.cpu(), same))
+        return out
+
+    ck.ef_compress = recorded
+    try:
+        yield record
+    finally:
+        ck.ef_compress = ef_compress
+
+
+def _top_k_agree(np, pkg, ck, label, cfg, ds, f_opt, res, host, host_rec, card):
+    """CHOCO top_k on the card against the CPU, exchange by exchange. At
+    the study's γ = 0.3 the run amplifies rounding about tenfold every 25
+    iterations without any selection differing (two CPU runs whose
+    products sum in two orders part so: ``tests/test_torch_softmax.py``),
+    so its final models cannot agree to 1e-12. Held instead: the gap and
+    consensus histories to 1e-12 over the whole run; at every exchange of
+    a measured card run (bitwise the graph run), the kernel's output
+    bitwise its twin on the card's own inputs, and the kernel's selection
+    the CPU's but for swaps among scores within 1e-12 of the row's k-th;
+    the estimates to 1e-12 through T/2 and to ``TOP_K_DRIFT`` through T.
+    ``host_rec`` is the CPU run's record (``_recorded_exchanges``)."""
+    pairs = [("gap", res.history.objective, host.history.objective),
+             ("consensus", res.history.consensus_error, host.history.consensus_error)]
+    worst = {what: float(np.max(np.abs(a - b) / (1.0 + np.abs(b)))) for what, a, b in pairs}
+    check(all(np.allclose(a, b, rtol=1e-12, atol=1e-12) for _, a, b in pairs),
+          f"{label}: card and CPU histories disagree beyond 1e-12: {worst}")
+    card_rec = []
+    with _recorded_exchanges(ck, card_rec):
+        measured = pkg.run(cfg, ds, f_opt, device="cuda", measure_timestamps=True,
+                           return_state=True)
+    T, k = cfg.n_iterations, cfg.compression_k
+    check(len(card_rec) == len(host_rec) == T, f"{label}: {len(card_rec)} exchanges, not {T}")
+    check(all(np.array_equal(measured.final_state[leaf], res.final_state[leaf])
+              for leaf in ("x", "xhat")), f"{label}: the measured run is not the graph run")
+    check(all(same for *_, same in card_rec),
+          f"{label}: the kernel's estimate is not bitwise its twin on the card's inputs")
+    swapped, parted, first = 0, [], None
+    for t, ((sa, ma, xa, _), (sb, mb, xb, _)) in enumerate(zip(card_rec, host_rec), 1):
+        rows = (ma != mb).any(dim=1).nonzero().flatten().tolist()
+        swapped += bool(rows)
+        for r in rows:
+            cols = (ma[r] != mb[r]).nonzero().flatten()
+            for s in (sa, sb):
+                kth = float(s[r].sort(descending=True).values[k - 1])
+                check(bool(((s[r, cols] - kth).abs() <= 1e-12 * (1.0 + kth)).all()),
+                      f"{label}: at iteration {t}, row {r}, the card and the CPU select other "
+                      f"columns ({cols.tolist()}) that do not tie the k-th score to 1e-12")
+        parted.append(float(((xa - xb).abs() / (1.0 + xb.abs())).max()))
+        if first is None and parted[-1] > 1e-12:
+            first = t
+    final = {leaf: float(np.max(np.abs(res.final_state[leaf] - host.final_state[leaf])
+                                / (1.0 + np.abs(host.final_state[leaf]))))
+             for leaf in ("x", "xhat")}
+    say(f"[objectives] {label} on the card vs plain on the CPU: gap {worst['gap']:.3e}, "
+        f"consensus {worst['consensus']:.3e}; {T} exchanges, each bitwise its twin on the "
+        f"card's inputs, selections equal the CPU's at {T - swapped} (the rest part on near "
+        f"ties); estimates within {max(parted[:T // 2]):.3e} through iteration {T // 2}, "
+        f"first beyond 1e-12 at iteration {first}, at T models {final['x']:.3e}, xhat "
+        f"{final['xhat']:.3e} ({card})")
+    check(max(parted[:T // 2]) <= 1e-12 and max(parted) <= TOP_K_DRIFT,
+          f"{label}: the estimates part beyond 1e-12 through iteration {T // 2} or beyond "
+          f"{TOP_K_DRIFT} through {T}")
+
+
+def _bench_dataset(np, pkg, n: int, b: int, d_feat: int, k: int):
+    """examples/bench_compute_bound.py's _random_dataset: default_rng(0),
+    standard-normal features plus a bias column, uniform labels, each
+    worker's shard its batch."""
+    rng = np.random.default_rng(0)
+    rows = n * b
+    X = rng.standard_normal((rows, d_feat)).astype(np.float64)
+    X = np.hstack([X, np.ones((rows, 1))])
+    y = rng.integers(0, k, size=rows).astype(np.float64)
+    return pkg.HostDataset(X_full=X, y_full=y,
+                           shard_indices=[np.arange(i * b, (i + 1) * b) for i in range(n)],
+                           problem_type="softmax")
+
+
+def _wide_ring_kernels(torch, rk, topology, card):
+    """The ring kernels at the objectives' widths in float32: bitwise their
+    plain versions, event-timed and in a graph, against the bytes bound and
+    the dense product with W (the library yardstick)."""
+    k = COMPUTE_BOUND["n_classes"]
+    shapes = [("ring_mix", 25, 810), ("fused_ring_dsgd_step", 25, 810)]
+    shapes += [("fused_ring_dsgd_step", 8, (d + 1) * k) for d in COMPUTE_BOUND_FEATURES]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for name, n, d in shapes:
+        x = torch.randn((n, d), generator=gen, device="cuda")
+        g = torch.randn((n, d), generator=gen, device="cuda")
+        eta = torch.tensor([0.05 / 7.0], device="cuda")
+        W, A, _ = ring_matrices(torch, topology, n, torch.float32)
+        kernel, plain, library = _ring_calls(torch, rk, name, x, g, eta, W, A)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"{name} [{n}, {d}]: not bitwise its plain version")
+        launches = 50 if d > 1_000_000 else TIMED_LAUNCHES
+        ms, in_graph = time_ms(torch, kernel, launches), graph_ms(torch, kernel, launches)
+        plain_ms, lib_ms = time_ms(torch, plain, launches), time_ms(torch, library, launches)
+        b_ms, b_by = bound(name, n, d, "float32", 4)
+        say(f"[objectives] {name} [{n}, {d}] float32: in a graph {in_graph * 1e3:.3f} us, "
+            f"event-timed {ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, library (dense W) "
+            f"{lib_ms * 1e3:.3f} us, bound {b_ms * 1e3:.3f} us ({b_by}), bound/in-graph "
+            f"{b_ms / in_graph:.1%} ({card})")
+        del x, g, got, want
+    torch.cuda.empty_cache()
+
+
+def _wide_compression(torch, ck, card):
+    """The compression kernel at CHOCO's softmax row (top_k 81 of 810, the
+    block-a-row path) in float32: bitwise its twin, timed, against its
+    bound."""
+    compression = ck.compression
+    n, d, k = 25, 810, SOFTMAX_TOP_K
+    v, memory = compression_inputs(torch, n, d, torch.float32)
+    t = torch.full((1,), 12_345, dtype=torch.int64, device="cuda")
+    draw = compression.Draw(compression.tag_key(203, x64=False), t, 0)
+    comp = compression.make_compressor("top_k", d, k)
+    err, _, _ = _check_compression(torch, ck, comp, draw, v, memory, f"top_k [{n}, {d}]")
+    kernel = lambda: ck.ef_compress(comp, draw, v, memory)  # noqa: E731
+    plain = lambda: compression.ef_compress_plain(comp, draw, v, memory)  # noqa: E731
+    ms, in_graph, plain_ms = time_ms(torch, kernel), graph_ms(torch, kernel), time_ms(torch, plain)
+    topk_ms = graph_ms(torch, lambda: torch.topk((v - memory).abs(), k, dim=-1))
+    b_ms, b_by = compression_bound("top_k", n, d, k, 4)
+    say(f"[objectives] compress_exchange[top_k k={k}] [{n}, {d}] float32: max_abs_err {err:.3e}, "
+        f"in a graph {in_graph * 1e3:.3f} us, event-timed {ms * 1e3:.3f} us, plain "
+        f"{plain_ms * 1e3:.3f} us, torch.topk of the scores in a graph {topk_ms * 1e3:.3f} us, "
+        f"bound {b_ms * 1e3:.4f} us ({b_by}) ({card})")
+
+
+def objectives_compute_bound(torch, np, pkg, counters, card):
+    """The compute-bound cells: finite and decreasing over T (metrics on),
+    then timed with metrics off as the bench times them; TFLOP/s from
+    4·N·b·d·K against the FP32 (highest) or dense TF32 (default) peak; at d
+    = 4,096 the float32 runs against a float64 CPU run of a few
+    iterations."""
+    n, b, k = COMPUTE_BOUND["n_workers"], COMPUTE_BOUND["local_batch_size"], COMPUTE_BOUND["n_classes"]
+    T, every = COMPUTE_BOUND_ITERATIONS, COMPUTE_BOUND_EVAL_EVERY
+    for d_feat in COMPUTE_BOUND_FEATURES:
+        ds = _bench_dataset(np, pkg, n, b, d_feat, k)
+        d = d_feat + 1
+        flops = 4.0 * n * b * d * k
+        base = pkg.ExperimentConfig(**COMPUTE_BOUND, n_samples=n * b, n_features=d_feat,
+                                    n_iterations=T, eval_every=every)
+        for precision, impl in itertools.product(("highest", "default"), ("stencil", "pallas")):
+            cfg = base.replace(matmul_precision=precision, mixing_impl=impl)
+            label = f"compute-bound d={d_feat} K={k} {precision} {impl}"
+            for c in counters:
+                c.reset_launch_counts()
+            h = pkg.run(cfg, ds, 0.0, device="cuda").history
+            counted = {name: v for c in counters for name, v in c.LAUNCHES.items()}
+            want = _only(counted, **({"fused_ring_dsgd_step": T} if impl == "pallas" else {}))
+            check(counted == want, f"{label}: launches {counted}, not {want}")
+            check(torch.backends.cuda.matmul.allow_tf32 is False, f"{label}: TF32 left on")
+            check(bool(np.all(np.isfinite(h.objective))) and h.objective[-1] < h.objective[0],
+                  f"{label}: the objective {h.objective} is not finite and decreasing")
+            timed = pkg.run(cfg, ds, 0.0, device="cuda", collect_metrics=False).history
+            ips = timed.iters_per_second
+            peak = PEAK_FLOPS["float32"] if precision == "highest" else PEAK_TF32_FLOPS
+            say(f"[objectives] {label}: objective {h.objective[0]:.6f} -> {h.objective[-1]:.6f} "
+                f"over T={T}; metrics off {ips:.2f} iters/s = {flops * ips / 1e12:.2f} TFLOP/s "
+                f"({flops / 1e9:.1f} GFLOP an iteration), {flops * ips / peak:.1%} of the "
+                f"{'FP32' if precision == 'highest' else 'dense TF32'} peak "
+                f"{peak / 1e12:.0f} TFLOP/s; metrics on {h.iters_per_second:.2f} iters/s; "
+                f"warm-up and capture {timed.compile_seconds:.2f} s ({card})")
+        if d_feat == COMPUTE_BOUND_FEATURES[0]:
+            _compute_bound_precision(torch, np, pkg, base, ds, card)
+        del ds
+        torch.cuda.empty_cache()
+
+
+def _compute_bound_precision(torch, np, pkg, base, ds, card):
+    """float32 'highest' and 'default' on the card against float64 on the
+    CPU, COMPUTE_BOUND_CHECK_ITERATIONS iterations at every eval."""
+    cfg = base.replace(n_iterations=COMPUTE_BOUND_CHECK_ITERATIONS, eval_every=1,
+                       mixing_impl="pallas")
+    t0 = time.perf_counter()
+    host = pkg.run(cfg.replace(dtype="float64"), ds, 0.0, device="cpu")
+    host_s = time.perf_counter() - t0
+    errs = {}
+    for precision in ("highest", "default"):
+        got = pkg.run(cfg.replace(matmul_precision=precision), ds, 0.0, device="cuda")
+        check(torch.backends.cuda.matmul.allow_tf32 is False, f"{precision}: TF32 left on")
+        gap = float(np.max(np.abs(got.history.objective - host.history.objective)
+                           / (1.0 + np.abs(host.history.objective))))
+        models = float(np.max(np.abs(got.final_models - host.final_models))
+                       / np.max(np.abs(host.final_models)))
+        errs[precision] = (gap, models)
+        say(f"[objectives] compute-bound d={cfg.n_features} T={cfg.n_iterations} float32 "
+            f"{precision} vs float64 on the CPU ({host_s:.1f} s there): gap {gap:.3e}, models "
+            f"{models:.3e} of the largest |x| ({card})")
+    gap, models = errs["highest"]
+    check(gap <= COMPUTE_BOUND_TOL["gap"] and models <= COMPUTE_BOUND_TOL["models"],
+          f"compute-bound 'highest' float32 is {gap:.3e} / {models:.3e} from float64, beyond "
+          f"{COMPUTE_BOUND_TOL}")
+    check(errs["default"][1] > 4 * models,
+          f"'default' (TF32) is no farther from float64 than 'highest': {errs}")
+
+
+def phase_objectives(torch, np, pkg, kernels, topology, card):
+    """Huber and softmax on the card (see the module docstring); returns
+    the launches of the Huber pallas D-SGD run and the softmax GT run."""
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on for float32 matmuls")
+    counters = [kernels[k] for k in ("rk", "fk", "bk", "sk", "ck")]
+    huber = objectives_huber(torch, np, pkg, counters, card)
+    softmax = objectives_softmax(torch, np, pkg, counters, kernels["ck"], card)
+    _wide_ring_kernels(torch, kernels["rk"], topology, card)
+    _wide_compression(torch, kernels["ck"], card)
+    objectives_compute_bound(torch, np, pkg, counters, card)
+    return huber, softmax
+
+
 def _profile_window(torch, prof, steady):
     """Device operations inside the run loop's steady range (the iterations
     after the warm-up chunk): (events, start, end) in µs. The profiler
@@ -2551,14 +3004,18 @@ def _profile_window(torch, prof, steady):
     return device, lo, hi
 
 
-def _profile_run(torch, pkg, steady, cfg, label, T):
+def _profile_run(torch, pkg, steady, cfg, label, T, data=None):
     """The graph run and the measured chunk loop of ``cfg`` under
     torch.profiler: device operations, busy µs and busy share over the
-    iterations after the warm-up chunk."""
+    iterations after the warm-up chunk. ``data``: (dataset, f*), else the
+    config's synthetic dataset and its optimum."""
     from torch.profiler import ProfilerActivity, profile
 
-    ds = pkg.generate_synthetic_dataset(cfg)
-    _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
+    if data is None:
+        ds = pkg.generate_synthetic_dataset(cfg)
+        _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
+    else:
+        ds, f_opt = data
     steps = T - cfg.eval_every
     for measure in (False, True):
         pkg.run(cfg, ds, f_opt, device="cuda", measure_timestamps=measure)  # warm
@@ -2613,6 +3070,21 @@ def phase_profile(torch, pkg, steady, T: int = 300):
             cfg = pkg.ExperimentConfig(problem_type="logistic", n_workers=256, n_iterations=T,
                                        mixing_impl=impl, dtype="float32", eval_every=1, **fields)
             _profile_run(torch, pkg, steady, cfg, f"{name} {impl}", T)
+    for fields, label in ((HUBER_MAIN, "huber N=256"), (SOFTMAX_STUDY, "softmax K=10 N=25")):
+        cfg = pkg.ExperimentConfig(**fields, n_iterations=T, mixing_impl="pallas",
+                                   dtype="float32", eval_every=1)
+        _profile_run(torch, pkg, steady, cfg, f"{label} pallas", T)
+    import numpy as np
+
+    d_feat = COMPUTE_BOUND_FEATURES[0]
+    n, b, k = COMPUTE_BOUND["n_workers"], COMPUTE_BOUND["local_batch_size"], COMPUTE_BOUND["n_classes"]
+    data = (_bench_dataset(np, pkg, n, b, d_feat, k), 0.0)
+    for precision in ("highest", "default"):
+        cfg = pkg.ExperimentConfig(**COMPUTE_BOUND, n_samples=n * b, n_features=d_feat,
+                                   n_iterations=40, eval_every=10, mixing_impl="pallas",
+                                   matmul_precision=precision)
+        _profile_run(torch, pkg, steady, cfg, f"compute-bound d={d_feat} {precision} pallas "
+                     "(eval every 10)", cfg.n_iterations, data)
 
 
 def main(argv=None) -> int:
@@ -2673,7 +3145,7 @@ def main(argv=None) -> int:
         say(f"[time] {name}: {now - t_last[0]:.1f} s")
         t_last[0] = now
 
-    phase_card(torch, kernels)
+    card = phase_card(torch, kernels)
     lap("card")
     records = {}
     if "kernels" in phases:
@@ -2753,6 +3225,17 @@ def main(argv=None) -> int:
         if "robust_mixing" in phases:
             counted.setdefault("make_fused_robust_aggregator", phase_robust_mixing(
                 torch, np, pkg, kernels, robust_models))
+    if "objectives" in phases:
+        huber, softmax = phase_objectives(torch, np, pkg, kernels, topology, card)
+        for name, launches, path in (
+                ("fused_ring_dsgd_step", huber, "objectives: huber dsgd, ring, N=256, pallas"),
+                ("sample_worker_batch_weights", huber,
+                 "objectives: huber dsgd, ring, N=256, dense sampling"),
+                ("sample_worker_batches", softmax,
+                 "objectives: softmax K=10 dsgd, ring, N=25, gather sampling")):
+            if name not in counted:
+                counted[name], paths[name] = launches, path
+        lap("objectives")
 
     if "profile" in phases:
         from distributed_optimization_tpu_torch.backends.torch_backend import STEADY_LOOP
@@ -2807,7 +3290,10 @@ def _package():
     from distributed_optimization_tpu_torch.metrics import iterations_to_threshold
     from distributed_optimization_tpu_torch.ops.mixing import make_mixing_op
     from distributed_optimization_tpu_torch.parallel.topology import build_topology
-    from distributed_optimization_tpu_torch.utils.data import generate_synthetic_dataset
+    from distributed_optimization_tpu_torch.utils.data import (
+        HostDataset,
+        generate_synthetic_dataset,
+    )
     from distributed_optimization_tpu_torch.utils.oracle import compute_reference_optimum
 
     return types.SimpleNamespace(
@@ -2816,7 +3302,7 @@ def _package():
         get_algorithm=get_algorithm,
         iterations_to_threshold=iterations_to_threshold, make_mixing_op=make_mixing_op,
         build_topology=build_topology, generate_synthetic_dataset=generate_synthetic_dataset,
-        compute_reference_optimum=compute_reference_optimum,
+        compute_reference_optimum=compute_reference_optimum, HostDataset=HostDataset,
     )
 
 

@@ -22,6 +22,7 @@ from distributed_optimization_tpu_torch.config import (
     COMPRESSIONS,
     DTYPES,
     LR_SCHEDULES,
+    MATMUL_PRECISIONS,
     MIXING_IMPLS,
     PARTITIONS,
     PROBLEM_TYPES,
@@ -47,6 +48,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--topology-seed", type=int, default=_DEFAULTS.topology_seed,
                    help="seed of the random graphs (-1 follows --seed)")
     p.add_argument("--problem-type", choices=PROBLEM_TYPES, default=_DEFAULTS.problem_type)
+    p.add_argument("--n-classes", type=int, default=_DEFAULTS.n_classes,
+                   help="class count K for --problem-type softmax (the "
+                        "compute-bound [d,K]-matrix-parameter family)")
+    p.add_argument("--huber-delta", type=float, default=_DEFAULTS.huber_delta,
+                   help="Huber transition point δ (problem huber only; "
+                        "default = the synthetic data's noise scale)")
     p.add_argument("--n-workers", type=int, default=_DEFAULTS.n_workers)
     p.add_argument("--n-samples", type=int, default=_DEFAULTS.n_samples)
     p.add_argument("--n-features", type=int, default=_DEFAULTS.n_features)
@@ -81,6 +88,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "the in-edge lists (any graph)")
     p.add_argument("--sampling-impl", choices=SAMPLING_IMPLS, default=_DEFAULTS.sampling_impl)
     p.add_argument("--dtype", choices=DTYPES, default=_DEFAULTS.dtype)
+    p.add_argument("--matmul-precision", choices=MATMUL_PRECISIONS,
+                   default=_DEFAULTS.matmul_precision,
+                   help="float32 products on the card: 'highest' in full FP32, "
+                        "'high' and 'default' in TF32")
     p.add_argument("--partition", choices=PARTITIONS, default=_DEFAULTS.partition,
                    help="worker data split: 'sorted' (non-IID) or 'shuffled' (IID)")
     p.add_argument("--attack", choices=ATTACKS, default=_DEFAULTS.attack,
@@ -109,6 +120,8 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         erdos_renyi_p=args.erdos_renyi_p,
         topology_seed=args.topology_seed,
         problem_type=args.problem_type,
+        n_classes=args.n_classes,
+        huber_delta=args.huber_delta,
         n_workers=args.n_workers,
         n_samples=args.n_samples,
         n_features=args.n_features,
@@ -133,6 +146,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         mixing_impl=args.mixing_impl,
         sampling_impl=args.sampling_impl,
         dtype=args.dtype,
+        matmul_precision=args.matmul_precision,
         partition=args.partition,
         attack=args.attack,
         n_byzantine=args.n_byzantine,
@@ -156,7 +170,8 @@ def main(argv: list[str] | None = None) -> int:
 
     device = resolve_device(args.device)  # fail before the host-side work
     dataset = generate_synthetic_dataset(cfg)
-    _, f_opt = compute_reference_optimum(dataset, cfg.reg_param)
+    _, f_opt = compute_reference_optimum(dataset, cfg.reg_param, huber_delta=cfg.huber_delta,
+                                         n_classes=cfg.n_classes)
     result = torch_backend.run(cfg, dataset, f_opt, device=device)
     h = result.history
     summary = {
@@ -164,6 +179,7 @@ def main(argv: list[str] | None = None) -> int:
         "algorithm": cfg.algorithm,
         "topology": cfg.topology,
         "n_workers": cfg.n_workers,
+        "problem_type": cfg.problem_type,
         "mixing_impl": cfg.mixing_impl,
         "compression": cfg.compression,
         "attack": cfg.attack,

@@ -51,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -97,10 +98,24 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 # The profiler range around the iterations after the warm-up chunk.
 STEADY_LOOP = "torch_backend.steady_loop"
+# Forcing sampling_impl='dense' past this padded shard length warns, as the
+# JAX package does: the dense form weighs all L rows of every shard each
+# iteration, and its measured crossover to gather is near L = 250.
+DENSE_SAMPLING_WARN_ROWS = 256
+
+
+def tf32_for(config, dev: torch.device) -> Optional[bool]:
+    """Whether a run's float32 products use TF32 on the card: off under
+    ``matmul_precision='highest'`` (full FP32), on under 'high' and
+    'default' (what XLA does with those precisions on an NVIDIA GPU).
+    None where the setting does not apply: float64, or the CPU."""
+    if dev.type != "cuda" or config.dtype != "float32":
+        return None
+    return config.matmul_precision != "highest"
 
 
 def make_full_objective_fn(problem, reg: float):
-    """Full-dataset objective of one model ``w [d]`` over the stacked
+    """Full-dataset objective of one model ``w [d_model]`` over the stacked
     shards: padding rows weigh 0 and every real row 1/total, so the sum
     over workers is the mean over the concatenated dataset."""
 
@@ -387,12 +402,15 @@ def run(
     default ``history.time`` spreads the run's wall clock evenly over the
     evals. ``return_state=True`` also fetches every leaf of the final state
     (e.g. the estimates ``xhat``, ``yhat`` of a compressed run) into
-    ``final_state``, as host float64 arrays.
+    ``final_state``, as host float64 arrays. On a card, a float32 run's
+    products follow ``config.matmul_precision`` (``tf32_for``), and the
+    caller's TF32 setting is restored when the run returns.
     """
     dev = resolve_device(device)
     dtype = _DTYPES[config.dtype]
     algo = get_algorithm(config.algorithm)
-    problem = get_problem(config.problem_type)
+    problem = get_problem(config.problem_type, huber_delta=config.huber_delta,
+                          n_classes=config.n_classes)
     reg = config.reg_param
     T = config.n_iterations
     n = config.n_workers
@@ -403,7 +421,10 @@ def run(
     X = torch.as_tensor(host.X, device=dev)
     y = torch.as_tensor(host.y, device=dev)
     n_valid = torch.as_tensor(host.n_valid, dtype=torch.int64, device=dev)
-    d = host.n_features
+    # The trained parameter's length: the feature count for the
+    # scalar-output families, d·K for softmax's flat [d, K] matrix. The
+    # state, the payload and the floats transmitted are sized from it.
+    d = problem.param_dim(host.n_features)
 
     mix_op = byz = None
     fused_mix_step = None
@@ -451,6 +472,14 @@ def run(
             )
         schedule = torch.as_tensor(indices, dtype=torch.int64, device=dev)
     sampling_impl = config.resolved_sampling_impl(dev.type, X.shape[1])
+    if config.sampling_impl == "dense" and X.shape[1] > DENSE_SAMPLING_WARN_ROWS:
+        warnings.warn(
+            f"--sampling-impl dense weighs all L = {X.shape[1]} rows of every "
+            "shard each iteration (and on the CPU ranks them by an [L, L] "
+            "comparison); at this L the JAX package's measured crossover "
+            "favors 'gather' — forcing dense anyway as requested",
+            stacklevel=2,
+        )
 
     program = _Program(
         algo=algo, config=config,
@@ -483,7 +512,13 @@ def run(
             torch.cuda.synchronize(dev)
 
     graph = None
+    tf32 = tf32_for(config, dev)
+    caller_tf32 = torch.backends.cuda.matmul.allow_tf32
     try:
+        if tf32 is not None:
+            # Before the warm-up and the capture: a CUDA graph keeps the
+            # cuBLAS algorithm chosen while it was captured.
+            torch.backends.cuda.matmul.allow_tf32 = tf32
         sync()
         t0 = time.perf_counter()
         # Eager, once, before the warm-up: ADMM's A x_0, through the
@@ -514,6 +549,7 @@ def run(
             sync()
         run_seconds = time.perf_counter() - t0
     finally:
+        torch.backends.cuda.matmul.allow_tf32 = caller_tf32
         if graph is not None:
             graph.reset()
 

@@ -24,10 +24,14 @@ TOPOLOGIES = ("ring", "grid", "fully_connected", "erdos_renyi", "chain", "star",
 DIRECTED_TOPOLOGIES = ("directed_ring", "directed_erdos_renyi")
 # The graphs drawn from ``resolved_topology_seed()``.
 RANDOM_TOPOLOGIES = ("erdos_renyi", "directed_erdos_renyi")
-PROBLEM_TYPES = ("logistic", "quadratic")
+PROBLEM_TYPES = ("logistic", "quadratic", "huber", "softmax")
 MIXING_IMPLS = ("auto", "stencil", "dense", "pallas", "gather", "sparse")
 SAMPLING_IMPLS = ("auto", "dense", "gather")
 DTYPES = ("float32", "float64")
+# The JAX package's jax.default_matmul_precision values. On a card, float32
+# products run in full FP32 under 'highest' and in TF32 under 'high' and
+# 'default' (what XLA does with those precisions on an NVIDIA GPU).
+MATMUL_PRECISIONS = ("default", "high", "highest")
 LR_SCHEDULES = ("auto", "sqrt_decay", "constant")
 PARTITIONS = ("sorted", "shuffled")
 # The JAX package's rules that accept local_steps > 1; the rest are
@@ -53,6 +57,11 @@ MATRIX_FREE_AUTO_N = 4096
 # Erdős–Rényi with its sparse sampler, another realization of G(n, p) that
 # the port does not have.
 SPARSE_SAMPLER_AUTO_N = 65_536
+# Huber's transition point δ: the synthetic regression data's noise scale
+# (make_regression noise=10.0, utils/data.py), so the kink sits at ~1σ of
+# the residuals at the optimum. The port's copy of the JAX package's
+# DEFAULT_HUBER_DELTA.
+DEFAULT_HUBER_DELTA = 10.0
 
 
 def _not_yet(field: str, value: Any, allowed: tuple) -> ValueError:
@@ -95,6 +104,12 @@ class ExperimentConfig:
     compression: str = "none"
     compression_k: int = 0
     choco_gamma: float = 0.3
+    # Class count of the softmax family: its parameter is a [n_features,
+    # n_classes] matrix, flattened (d-major) to d·K for the mixing and
+    # algorithm layers.
+    n_classes: int = 10
+    # Huber transition point δ (problem_type='huber' only).
+    huber_delta: float = DEFAULT_HUBER_DELTA
     seed: int = 203
     data_seed: int = -1
     eval_every: int = 1
@@ -104,6 +119,8 @@ class ExperimentConfig:
     mixing_impl: str = "auto"
     sampling_impl: str = "auto"
     dtype: str = "float32"
+    # The float32 matmul precision of a run on a card (MATMUL_PRECISIONS).
+    matmul_precision: str = "highest"
     record_consensus: bool = True
     # 'sorted': the study's sort-by-target split; 'shuffled': a
     # seed-deterministic IID split (the Byzantine benches use it).
@@ -149,6 +166,14 @@ class ExperimentConfig:
             if value not in allowed:
                 raise _not_yet(field, value, allowed)
         self._validate_compression()
+        if self.huber_delta <= 0.0:
+            raise ValueError(f"huber_delta must be positive, got {self.huber_delta}")
+        if self.n_classes < 2:
+            raise ValueError(
+                f"n_classes must be >= 2, got {self.n_classes}"
+            )
+        if self.matmul_precision not in MATMUL_PRECISIONS:
+            raise ValueError(f"Unknown matmul precision: {self.matmul_precision}")
         self._validate_local_steps()
         self._validate_byzantine()
         self._validate_topology()
@@ -434,7 +459,8 @@ class ExperimentConfig:
 
     @property
     def reg_param(self) -> float:
-        """mu for the quadratic problem, lambda otherwise."""
+        """mu for the quadratic problem, lambda otherwise (logistic, huber,
+        softmax)."""
         return (
             self.strong_convexity_mu
             if self.problem_type == "quadratic"

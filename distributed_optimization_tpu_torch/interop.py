@@ -18,20 +18,24 @@ def state_from_reference(
     device: torch.device | str,
     dtype: torch.dtype,
 ) -> dict[str, torch.Tensor]:
-    """The JAX package's state dict of ``[N, d]`` arrays as the port's
-    tensors (contiguous copies on ``device`` in ``dtype``). D-SGD's state,
+    """The JAX package's state dict of ``[N, d_model]`` arrays as the port's
+    tensors (contiguous copies on ``device`` in ``dtype``). ``d_model`` is
+    the flat parameter's length: the feature count, or d·K for softmax,
+    whose [d, K] matrices both packages flatten d-major. D-SGD's state,
     with or without a Byzantine layer, is ``x`` alone: the attack and the
     screen carry no state across iterations. ADMM's is ``x``, the duals
     ``alpha`` and the carried neighbour sum ``nbr_x`` (A x). Push-sum's is
     ``x`` (the de-biased estimates num / w), the numerators ``num`` and the
-    mass ``w``, which is ``[N, 1]``."""
+    mass ``w``, which is ``[N, 1]``. Gradient tracking's ``y``, ADMM's
+    ``nbr_x`` and push-sum's ``num`` are ``[N, d_model]`` like ``x``."""
     if "x" not in state:
         raise ValueError("a state needs its per-worker models under 'x'")
     out = {}
     for key, value in state.items():
         arr = np.asarray(value)
         if arr.ndim != 2:
-            raise ValueError(f"state[{key!r}] must be [N, d] or [N, 1], got shape {arr.shape}")
+            raise ValueError(
+                f"state[{key!r}] must be [N, d_model] or [N, 1], got shape {arr.shape}")
         out[key] = torch.tensor(arr, dtype=dtype, device=device).contiguous()
     return out
 

@@ -18,13 +18,16 @@ class Problem:
     """f(w) = data_term(w; X, y) + (reg/2)‖w‖².
 
     ``objective_weighted(w, X, y, weights, reg)`` -> ``[N]`` and
-    ``gradient_weighted(w, X, y, weights, reg)`` -> ``[N, d]``, batched over
-    the worker axis (see ``ops/losses.py`` for the shapes).
+    ``gradient_weighted(w, X, y, weights, reg)`` -> ``[N, d_model]``,
+    batched over the worker axis (see ``ops/losses.py`` for the shapes).
+    ``param_dim(d)`` is ``d_model``, the flat parameter's length for a
+    d-feature dataset: d for the scalar-output families, d·K for softmax.
     """
 
     name: str
     objective_weighted: Callable[..., torch.Tensor]
     gradient_weighted: Callable[..., torch.Tensor]
+    param_dim: Callable[[int], int] = lambda d: d
 
 
 _REGISTRY: dict[str, Problem] = {}
@@ -35,10 +38,21 @@ def register_problem(problem: Problem) -> Problem:
     return problem
 
 
-def get_problem(name: str) -> Problem:
+def get_problem(
+    name: str,
+    *,
+    huber_delta: float | None = None,
+    n_classes: int | None = None,
+) -> Problem:
+    """The family ``name``; ``huber_delta`` binds Huber's transition point
+    and ``n_classes`` softmax's class count (each ignored by the other
+    families; None is the registered default). One Problem is cached per
+    parameter value."""
     from distributed_optimization_tpu_torch.models import (  # noqa: F401
+        huber,
         logistic,
         quadratic,
+        softmax,
     )
 
     if name not in _REGISTRY:
@@ -46,4 +60,8 @@ def get_problem(name: str) -> Problem:
             f"problem_type={name!r}: the PyTorch port does not have it yet "
             f"(known: {sorted(_REGISTRY)})"
         )
+    if name == "huber" and huber_delta is not None:
+        return huber.make_huber_problem(float(huber_delta))
+    if name == "softmax" and n_classes is not None:
+        return softmax.make_softmax_problem(int(n_classes))
     return _REGISTRY[name]

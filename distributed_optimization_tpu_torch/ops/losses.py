@@ -1,10 +1,11 @@
 """Objectives and closed-form gradients in torch, batched over workers.
 
-The port of the logistic and quadratic parts of
-``distributed_optimization_tpu/ops/losses.py``. The weighted forms take the
-whole worker stack at once: ``X [N, L, d]``, ``y [N, L]``, ``w [N, d]``,
-``weights [N, L]``, and return ``[N]`` objectives or ``[N, d]`` gradients.
-No autograd: every gradient is written out.
+The port of the weighted forms of
+``distributed_optimization_tpu/ops/losses.py``. They take the whole worker
+stack at once: ``X [N, L, d]``, ``y [N, L]``, ``w [N, d_model]``,
+``weights [N, L]``, and return ``[N]`` objectives or contiguous ``[N,
+d_model]`` gradients. ``d_model`` is d for the scalar-output families and
+d·K for softmax. No autograd: every gradient is written out.
 """
 
 from __future__ import annotations
@@ -52,3 +53,60 @@ def quadratic_objective_weighted(w, X, y, weights, mu):
 def quadratic_gradient_weighted(w, X, y, weights, mu):
     residuals = _predict(w, X) - y
     return _data_gradient(X, weights * residuals) + mu * w
+
+
+# Huber regression: H_δ(r) = ½r² for |r| ≤ δ, else δ(|r| − ½δ). The
+# gradient's coefficient is clip(r, −δ, δ), so H_δ is C¹ (not C²).
+
+
+def _huber(r: torch.Tensor, delta: float) -> torch.Tensor:
+    a = torch.abs(r)
+    return torch.where(a <= delta, 0.5 * r * r, delta * (a - 0.5 * delta))
+
+
+def huber_objective_weighted(w, X, y, weights, lam, delta):
+    """Σ_l weights_l · H_δ(x_lᵀw − y_l) + (λ/2)‖w‖², per worker."""
+    r = _predict(w, X) - y
+    return torch.sum(weights * _huber(r, delta), dim=-1) + 0.5 * lam * _sq_norm(w)
+
+
+def huber_gradient_weighted(w, X, y, weights, lam, delta):
+    r = _predict(w, X) - y
+    return _data_gradient(X, weights * torch.clamp(r, -delta, delta)) + lam * w
+
+
+# Multinomial (softmax) logistic regression over K classes, labels in
+# {0, …, K−1} stored in the run dtype (exact up to 2²⁴ in float32). The
+# parameter of worker i is the [d, K] matrix W_i, carried flat as
+# w_i = W_i.reshape(-1) (row-major, d-major: the JAX package's
+# ``w.reshape(d, -1)``), so gossip stays elementwise; K is inferred from
+# w's width. The forward X W and backward Xᵀ(P − Y) are real products of
+# 2·L·d·K operations each a worker.
+
+
+def _class_logits(w: torch.Tensor, X: torch.Tensor):
+    """(W [N, d, K] as a view of w [N, d·K], logits X W [N, L, K])."""
+    W = w.reshape(w.shape[0], X.shape[-1], -1)
+    return W, torch.matmul(X, W)
+
+
+def _labels(y: torch.Tensor) -> torch.Tensor:
+    """Class indices [N, L, 1] of the float-stored labels."""
+    return y.to(torch.int64).unsqueeze(-1)
+
+
+def softmax_objective_weighted(w, X, y, weights, lam):
+    """Σ_l weights_l · (logsumexp(x_lᵀW) − (x_lᵀW)_{y_l}) + (λ/2)‖w‖²."""
+    _, logits = _class_logits(w, X)
+    ce = torch.logsumexp(logits, dim=-1) - torch.gather(logits, -1, _labels(y)).squeeze(-1)
+    return torch.sum(weights * ce, dim=-1) + 0.5 * lam * _sq_norm(w)
+
+
+def softmax_gradient_weighted(w, X, y, weights, lam):
+    W, logits = _class_logits(w, X)
+    P = torch.softmax(logits, dim=-1)
+    # The one-hot by scatter: no host check of the labels' range, so the
+    # gradient captures in a CUDA graph.
+    Y = torch.zeros_like(P).scatter_(-1, _labels(y), 1.0)
+    G = torch.matmul(X.transpose(-1, -2), weights.unsqueeze(-1) * (P - Y)) + lam * W
+    return G.reshape(w.shape[0], -1)

@@ -28,7 +28,7 @@ class HostDataset:
     """Full dataset + per-worker partition, host-side (numpy, float64)."""
 
     X_full: np.ndarray  # [n_samples, d] standardized, bias column appended
-    y_full: np.ndarray  # [n_samples] (±1 for logistic)
+    y_full: np.ndarray  # [n_samples] (±1 for logistic, class indices for softmax)
     shard_indices: list[np.ndarray]  # per-worker row indices into X_full
     problem_type: str
 
@@ -227,7 +227,9 @@ def generate_synthetic_dataset(config) -> HostDataset:
 
     Same hyperparameters as the JAX package (n_redundant = n_features −
     n_informative, one cluster per class, flip_y=0.05, noise=10 for the
-    regression), labels mapped to ±1, standardisation, a bias column, then
+    regression of quadratic and huber), labels mapped to ±1 for logistic
+    and kept as class indices for softmax, standardisation, a bias column,
+    then
     ``argsort(y)`` (``partition='sorted'``, the non-IID split) or a
     ``default_rng(data seed)`` permutation (``'shuffled'``, the IID split)
     cut contiguously over the workers.
@@ -245,7 +247,30 @@ def generate_synthetic_dataset(config) -> HostDataset:
             seed=seed,
         )
         y = y.astype(np.float64) * 2.0 - 1.0
-    elif config.problem_type == "quadratic":
+    elif config.problem_type == "softmax":
+        # The logistic generator with K classes; the labels stay the class
+        # indices 0 … K−1, stored as floats (stack_shards).
+        if config.n_classes > 2**config.n_informative_features:
+            raise ValueError(
+                f"n_classes ({config.n_classes}) exceeds what "
+                f"{config.n_informative_features} informative features can "
+                "separate (sklearn make_classification requires n_classes "
+                "<= 2^n_informative)"
+            )
+        X, y = make_classification(
+            config.n_samples,
+            config.n_features,
+            config.n_informative_features,
+            config.n_features - config.n_informative_features,
+            n_classes=config.n_classes,
+            n_clusters_per_class=1,
+            flip_y=0.05,
+            class_sep=config.classification_sep,
+            seed=seed,
+        )
+        y = y.astype(np.float64)
+    elif config.problem_type in ("quadratic", "huber"):
+        # Huber shares the regression data (its δ is the noise's scale).
         X, y = make_regression(
             config.n_samples,
             config.n_features,
@@ -276,7 +301,13 @@ def generate_synthetic_dataset(config) -> HostDataset:
 
 
 def stack_shards(dataset: HostDataset, dtype=np.float32) -> DeviceDataset:
-    """Stack the ragged shards into zero-padded ``[N, L, d]`` arrays."""
+    """Stack the ragged shards into zero-padded ``[N, L, d]`` arrays.
+
+    Every ``y`` is stored in the run dtype, softmax's class indices too:
+    they are exact up to 2²⁴ in float32, so the gather sampling kernel
+    copies them with the rows, and the loss casts them to int64. (The JAX
+    package stores them as int32, against bfloat16's rounding, which the
+    port does not have.)"""
     n = dataset.n_workers
     d = dataset.n_features
     sizes = np.array([len(idx) for idx in dataset.shard_indices], dtype=np.int32)

@@ -1045,3 +1045,89 @@ def test_cuda_push_sum_run_on_the_ring_launches_ring_mix_twice_a_step(cuda_devic
     assert np.all(res.final_state["w"] == 1.0)
     stencil, _ = _counted_run(cfg.replace(mixing_impl="stencil"), ds, f_opt)
     assert np.array_equal(res.history.objective, stencil.history.objective)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_gather_sampler_copies_class_labels_bitwise(cuda_device, dtype):
+    """Softmax's labels are class indices stored in the run dtype: the
+    gather form returns them integer-valued and bitwise the twin's."""
+    n, L, b, k = 25, 500, 16, 512
+    nv = _sampling_n_valid(cuda_device, n, L, b)
+    X, _ = _rows(cuda_device, n, L, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    y = torch.randint(0, k, (n, L), generator=gen, device=cuda_device).to(dtype)
+    key = prng.fold_in(prng.key(203, x64=dtype == torch.float64), 0)
+    for t in (0, 12_345):
+        got = sk.sample_worker_batches(key, torch.full((1,), t, device=cuda_device), X, y, nv, b)
+        assert _same(got, sampling.sample_worker_batches(key, t, X, y, nv, b))
+        labels = got[1]
+        assert torch.equal(labels, labels.round()) and 0 <= float(labels.min())
+        assert float(labels.max()) < k
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_precision_scopes_tf32_to_the_run(cuda_device, graph_data, monkeypatch):
+    """'default' turns TF32 on for the run's products (read inside the
+    gradient, during the warm-up and the capture) and restores the caller's
+    setting after; 'highest' keeps it off; float64 leaves it alone."""
+    from distributed_optimization_tpu_torch.backends import torch_backend
+    from distributed_optimization_tpu_torch.models import get_problem
+
+    seen = []
+    problem = get_problem("softmax", n_classes=4)
+
+    def recording_gradient(*args):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return problem.gradient_weighted(*args)
+
+    monkeypatch.setattr(torch_backend, "get_problem", lambda *a, **kw: dataclasses.replace(
+        problem, gradient_weighted=recording_gradient))
+    base, ds, _ = graph_data["sorted"]
+    ds = dataclasses.replace(ds, y_full=(ds.y_full > 0).astype(np.float64) * 3.0,
+                             problem_type="softmax")
+    cfg = base.replace(problem_type="softmax", n_classes=4, n_iterations=20, eval_every=10)
+    caller = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for start in (False, True):
+            for precision, dtype, inside in (("default", "float32", True),
+                                             ("high", "float32", True),
+                                             ("highest", "float32", False),
+                                             ("default", "float64", start)):
+                torch.backends.cuda.matmul.allow_tf32 = start
+                seen.clear()
+                torch_backend.run(cfg.replace(matmul_precision=precision, dtype=dtype), ds, 0.0,
+                                  device="cuda")
+                assert seen and all(flag is inside for flag in seen), (precision, dtype, seen)
+                assert torch.backends.cuda.matmul.allow_tf32 is start
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = caller
+
+
+@pytest.mark.cuda
+def test_cuda_softmax_graph_run_is_bitwise_its_measured_run(cuda_device, graph_data):
+    """Softmax (K=6, d_model = 21·6) through the gather sampler and the fused
+    ring step: the graph run equals the host-driven chunk loop bit for bit,
+    with the same launches; the absent classes' gradient columns tie
+    exactly on the card too."""
+    from distributed_optimization_tpu_torch.ops import losses
+
+    base, ds, _ = graph_data["sorted"]
+    labels = (ds.y_full > 0) * 4.0 + np.arange(ds.y_full.size) % 2  # classes 0, 1, 4, 5
+    ds = dataclasses.replace(ds, y_full=labels, problem_type="softmax")
+    cfg = base.replace(problem_type="softmax", n_classes=6, mixing_impl="pallas",
+                       n_iterations=60, eval_every=10)
+    graph, counted = _counted_run(cfg, ds, 0.0)
+    measured, again = _counted_run(cfg, ds, 0.0, measure_timestamps=True)
+    assert graph.final_models.shape == (16, 21 * 6)
+    assert np.array_equal(graph.history.objective, measured.history.objective)
+    assert np.array_equal(graph.final_models, measured.final_models)
+    assert counted == again and counted["fused_ring_dsgd_step"] == 60
+    assert counted["sample_worker_batches"] == 60
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    X = torch.randn((6, 16, 21), generator=gen, device=cuda_device, dtype=torch.float64)
+    y = torch.randint(0, 2, (6, 16), generator=gen, device=cuda_device).to(torch.float64)
+    g = losses.softmax_gradient_weighted(torch.zeros((6, 21 * 6), dtype=X.dtype, device=X.device),
+                                         X, y, torch.full_like(y, 1 / 16), 1e-4).view(6, 21, 6)
+    for c in range(3, 6):
+        assert torch.equal(g[..., c], g[..., 2])

@@ -135,7 +135,7 @@ def test_softplus_is_stable_at_large_margins():
 def test_problem_registry():
     assert get_problem("logistic").name == "logistic"
     with pytest.raises(ValueError, match="does not have it yet"):
-        get_problem("huber")
+        get_problem("poisson")
 
 
 def test_metrics_match_the_reference():
@@ -153,7 +153,7 @@ def test_metrics_match_the_reference():
 
 def test_config_refuses_what_the_port_lacks():
     with pytest.raises(ValueError, match="does not have it yet"):
-        ExperimentConfig(problem_type="huber")
+        ExperimentConfig(problem_type="poisson")
     with pytest.raises(ValueError, match="does not have it yet"):
         ExperimentConfig(mixing_impl="shard_map")
     with pytest.raises(ValueError, match="does not have it yet"):
@@ -166,11 +166,38 @@ def test_config_refuses_what_the_port_lacks():
         ExperimentConfig(n_iterations=10, eval_every=3)
 
 
+@pytest.mark.parametrize("fields", [
+    dict(huber_delta=0.0), dict(huber_delta=-1.0), dict(n_classes=1),
+    dict(matmul_precision="fastest"),
+], ids=["delta-zero", "delta-negative", "one-class", "precision"])
+def test_objective_fields_are_refused_with_the_reference_s_messages(fields):
+    with pytest.raises(ValueError) as want:
+        RefConfig(**fields)
+    with pytest.raises(ValueError) as got:
+        ExperimentConfig(**fields)
+    assert str(got.value) == str(want.value)
+
+
+def test_cli_takes_the_objective_flags():
+    from distributed_optimization_tpu_torch.__main__ import build_parser, config_from_args
+
+    defaults = config_from_args(build_parser().parse_args([]))
+    assert (defaults.n_classes, defaults.huber_delta, defaults.matmul_precision) == (
+        RefConfig().n_classes, RefConfig().huber_delta, RefConfig().matmul_precision)
+    cfg = config_from_args(build_parser().parse_args([
+        "--problem-type", "softmax", "--n-classes", "7", "--huber-delta", "2.5",
+        "--matmul-precision", "default"]))
+    assert (cfg.problem_type, cfg.n_classes, cfg.huber_delta, cfg.matmul_precision) == (
+        "softmax", 7, 2.5, "default")
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--matmul-precision", "fastest"])
+
+
 def test_config_defaults_and_resolution_match_the_reference():
     ours, ref = ExperimentConfig(), RefConfig()
     for field in dataclasses.fields(ours):
         assert getattr(ours, field.name) == getattr(ref, field.name), field.name
-    for problem in ("logistic", "quadratic"):
+    for problem in ("logistic", "quadratic", "huber", "softmax"):
         assert ours.replace(problem_type=problem).reg_param == ref.replace(problem_type=problem).reg_param
     for L in (49, 64, 65, 500):
         assert ours.resolved_sampling_impl("cuda", L) == ref.resolved_sampling_impl("tpu", L)

@@ -21,11 +21,13 @@ from distributed_optimization_tpu_torch.config import (
     ATTACKS,
     COMPRESSIONS,
     DTYPES,
+    GOSSIP_SCHEDULES,
     LR_SCHEDULES,
     MATMUL_PRECISIONS,
     MIXING_IMPLS,
     PARTITIONS,
     PROBLEM_TYPES,
+    REJOINS,
     ROBUST_IMPLS,
     SAMPLING_IMPLS,
     TOPOLOGIES,
@@ -98,7 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Byzantine payload the n-byzantine workers send")
     p.add_argument("--n-byzantine", type=int, default=_DEFAULTS.n_byzantine)
     p.add_argument("--attack-scale", type=float, default=_DEFAULTS.attack_scale,
-                   help="sign-flip multiplier or ALIE's z")
+                   help="sign-flip multiplier, large-noise sigma or ALIE's z")
     p.add_argument("--aggregation", choices=AGGREGATIONS, default=_DEFAULTS.aggregation,
                    help="robust rule honest workers screen received models with")
     p.add_argument("--robust-b", type=int, default=_DEFAULTS.robust_b,
@@ -108,6 +110,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--robust-impl", choices=ROBUST_IMPLS, default=_DEFAULTS.robust_impl,
                    help="'fused' runs the hand-written CUDA robust kernels, 'gather' "
                         "torch ops; 'auto' takes fused where the kernel can")
+    p.add_argument("--edge-drop-prob", type=float, default=_DEFAULTS.edge_drop_prob,
+                   help="failure injection: per-iteration probability that each "
+                        "topology edge drops (gossip reweights on the surviving graph)")
+    p.add_argument("--straggler-prob", type=float, default=_DEFAULTS.straggler_prob,
+                   help="per-iteration probability that a node sits the round out "
+                        "(no exchange, no local step)")
+    p.add_argument("--burst-len", type=float, default=_DEFAULTS.burst_len,
+                   help="bursty link failures (Gilbert-Elliott): mean burst-length "
+                        "multiplier at the same marginal --edge-drop-prob; 0 = "
+                        "memoryless drops, 1 reduces bitwise to them")
+    p.add_argument("--mttf", type=float, default=_DEFAULTS.mttf,
+                   help="crash-recovery churn: mean up-time (rounds), >= 1, with --mttr")
+    p.add_argument("--mttr", type=float, default=_DEFAULTS.mttr,
+                   help="crash-recovery churn: mean outage length (rounds), >= 1")
+    p.add_argument("--rejoin", choices=REJOINS, default=_DEFAULTS.rejoin,
+                   help="after an outage: 'frozen' (the stale state) or "
+                        "'neighbor_restart' (the realized neighbours' average)")
+    p.add_argument("--participation-rate", type=float,
+                   default=_DEFAULTS.participation_rate,
+                   help="per-round client sampling: each worker participates with "
+                        "this probability (1.0 = everyone)")
+    p.add_argument("--gossip-schedule", choices=GOSSIP_SCHEDULES,
+                   default=_DEFAULTS.gossip_schedule,
+                   help="'one_peer' = randomized pairwise gossip; 'round_robin' = "
+                        "deterministic matchings covering the edge set")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--json", action="store_true", help="print the summary as JSON")
     return p
@@ -155,6 +182,14 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         robust_b=args.robust_b,
         clip_tau=args.clip_tau,
         robust_impl=args.robust_impl,
+        edge_drop_prob=args.edge_drop_prob,
+        straggler_prob=args.straggler_prob,
+        burst_len=args.burst_len,
+        mttf=args.mttf,
+        mttr=args.mttr,
+        rejoin=args.rejoin,
+        participation_rate=args.participation_rate,
+        gossip_schedule=args.gossip_schedule,
     )
 
 
@@ -184,6 +219,7 @@ def main(argv: list[str] | None = None) -> int:
         "compression": cfg.compression,
         "attack": cfg.attack,
         "aggregation": cfg.aggregation,
+        "gossip_schedule": cfg.gossip_schedule,
         # Under an attack the gap and consensus are over the honest rows.
         "gap_over": "honest workers" if cfg.attack != "none" else "all workers",
         "iterations_to_threshold": iterations_to_threshold(

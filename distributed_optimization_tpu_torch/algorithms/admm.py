@@ -51,5 +51,6 @@ def _step(state: State, ctx: StepContext) -> State:
 # Byzantine injection is refused: the dual update pairs neighbor_sum with
 # the static degree d_i, so it does not go through ctx.mix alone.
 ADMM = register_algorithm(
-    Algorithm(name="admm", init=_init, step=_step, gossip_rounds=1, supports_byzantine=False)
+    Algorithm(name="admm", init=_init, step=_step, gossip_rounds=1, supports_byzantine=False,
+              supports_edge_faults=False)
 )

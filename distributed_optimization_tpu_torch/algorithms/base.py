@@ -60,7 +60,10 @@ class Algorithm:
     ``comm_payload(config, d)``: floats a gossip edge carries an iteration
     (the compressor's payload under compression), in place of
     ``d · gossip_rounds`` in the floats-transmitted metric; None keeps
-    that."""
+    that. ``supports_edge_faults``: the rule stays faithful over per-round
+    realized graphs (faults, matching schedules, participation);
+    ``supports_churn``: it also survives multi-round outages and the warm
+    restart on rejoin (the JAX package's flags and values)."""
 
     name: str
     init: Callable[..., State]
@@ -69,6 +72,8 @@ class Algorithm:
     is_decentralized: bool = True
     supports_byzantine: bool = False
     comm_payload: Optional[Callable[[Any, int], float]] = None
+    supports_edge_faults: bool = True
+    supports_churn: bool = False
 
 
 def local_descent_loop(v: torch.Tensor, ctx: StepContext, direction) -> torch.Tensor:

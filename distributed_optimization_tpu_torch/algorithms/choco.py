@@ -55,5 +55,5 @@ def comm_payload(config, d: int) -> float:
 
 CHOCO = register_algorithm(
     Algorithm(name="choco", init=init, step=step, gossip_rounds=1,
-              comm_payload=comm_payload)
+              comm_payload=comm_payload, supports_edge_faults=False)
 )

@@ -55,6 +55,6 @@ def _step(state: State, ctx: StepContext) -> State:
 
 
 DSGD = register_algorithm(
-    Algorithm(name="dsgd", init=_init, step=_step, gossip_rounds=1, supports_byzantine=True,
+    Algorithm(name="dsgd", init=_init, step=_step, gossip_rounds=1, supports_byzantine=True, supports_churn=True,
               comm_payload=choco.comm_payload)
 )

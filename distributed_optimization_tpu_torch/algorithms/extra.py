@@ -42,4 +42,5 @@ def _step(state: State, ctx: StepContext) -> State:
     return {"x": x_new, "x_prev": x, "mix_x_prev": mix_x, "g_prev": g}
 
 
-EXTRA = register_algorithm(Algorithm(name="extra", init=_init, step=_step, gossip_rounds=1))
+EXTRA = register_algorithm(Algorithm(name="extra", init=_init, step=_step, gossip_rounds=1,
+                                           supports_edge_faults=False))

@@ -78,5 +78,6 @@ def _comm_payload(config, d: int) -> float:
 
 GRADIENT_TRACKING = register_algorithm(
     Algorithm(name="gradient_tracking", init=_init, step=_step, gossip_rounds=2,
-              supports_byzantine=True, comm_payload=_comm_payload)
+              supports_byzantine=True, supports_churn=True,
+              comm_payload=_comm_payload)
 )

@@ -1,15 +1,21 @@
 """The PyTorch execution backend: one run of one algorithm on one device.
 
-The port of the unsharded, fault-free run loop of
+The port of the unsharded run loop of
 ``distributed_optimization_tpu/backends/jax_backend.py`` (``_run``,
-``_make_step_eval``, ``make_chunk`` and ``_bind_byzantine``). One iteration
-is: per-worker mini-batch sampling (the JAX package's batches: one sampling
-kernel launch on a card, the twin of ``jax.random`` on the CPU) →
-per-worker closed-form gradients → gossip (or the fused ring kernel; under
-Byzantine injection the corrupt → screen → mix composition, or the fused
-robust kernel) → step; gradient tracking gossips twice, ADMM exchanges the
-neighbour sum A x instead of W x, push-sum mixes its numerators and their
-[N, 1] mass, and τ > 1 local steps add τ − 1 sampled descents.
+``_make_step_eval``, ``make_chunk``, ``_build_faulty`` and
+``_bind_byzantine``). One iteration is: per-worker mini-batch sampling (the
+JAX package's batches: one sampling kernel launch on a card, the twin of
+``jax.random`` on the CPU) → per-worker closed-form gradients → gossip (or
+the fused ring kernel; under Byzantine injection the corrupt → screen → mix
+composition, or the fused robust kernel) → step; gradient tracking gossips
+twice, ADMM exchanges the neighbour sum A x instead of W x, push-sum mixes
+its numerators and their [N, 1] mass, and τ > 1 local steps add τ − 1
+sampled descents. Under faults or a matching schedule the round's graph is
+realized first (``parallel/faults.py``: one draw kernel launch on a card),
+its W_t takes the place of the mixing operator (and the fused ring step is
+off), a rejoining node's warm restart precedes the step, inactive nodes'
+rows of every state leaf are frozen after it, and the realized degrees are
+summed on the device for the floats transmitted.
 
 The run is a sequence of chunks, the counterpart of the JAX package's scan
 over eval chunks: one chunk runs ``eval_every`` iterations and then writes
@@ -74,6 +80,7 @@ from distributed_optimization_tpu_torch.ops import compression, prng, ring_kerne
 from distributed_optimization_tpu_torch.ops.mixing import MixingOp, make_mixing_op
 from distributed_optimization_tpu_torch.ops.robust_aggregation import (
     make_gather_robust_aggregator,
+    make_robust_aggregator,
     validate_budget,
 )
 from distributed_optimization_tpu_torch.ops.robust_kernels import (
@@ -86,6 +93,11 @@ from distributed_optimization_tpu_torch.parallel.adversary import (
     Adversary,
     make_adversary,
     make_byzantine_mixing,
+)
+from distributed_optimization_tpu_torch.parallel.faults import (
+    FaultyMixing,
+    make_faulty_mixing,
+    make_round_robin_mixing,
 )
 from distributed_optimization_tpu_torch.parallel.topology import (
     Topology,
@@ -156,6 +168,10 @@ class _Program:
     full_objective: Callable
     data: tuple
     byz: Optional["Byzantine"] = None
+    faulty: Optional[FaultyMixing] = None
+    # Σ realized degrees over the iterations run (a float64 device scalar;
+    # whole numbers, so exact), under a time-varying graph.
+    degree_total: Optional[torch.Tensor] = None
 
     @functools.cached_property
     def tag_key(self) -> tuple:
@@ -165,9 +181,18 @@ class _Program:
 
     def step(self, state, t: torch.Tensor):
         """One iteration at the counter ``t`` (an int64 tensor of one
-        element on the run's device)."""
+        element on the run's device). Under a time-varying graph the round
+        is realized first (``FaultyMixing.realize``); a rejoining node's
+        warm restart runs before the step, and the inactive nodes' rows of
+        every state leaf are frozen after it."""
+        rnd = self.faulty.realize(t) if self.faulty is not None else None
+        if rnd is not None and rnd.rejoin is not None:
+            state = {**state, "x": rnd.restart(state["x"])}
+        fused_mix_step = self.fused_mix_step
         if self.byz is not None:
-            mix, nbr = self.byz.mix, self.byz.neighbor_sum
+            mix, nbr, fused_mix_step = self.byz.at(t, rnd)
+        elif rnd is not None:
+            mix, nbr = rnd.mix, rnd.neighbor_sum
         elif self.mix_op is not None:
             mix, nbr = self.mix_op.apply, self.mix_op.neighbor_sum
         else:
@@ -175,10 +200,20 @@ class _Program:
         ctx = StepContext(
             grad=self.grad_for(t), mix=mix, neighbor_sum=nbr,
             eta=self.eta.index_select(0, t), degrees=self.degrees, config=self.config,
-            fused_mix_step=self.fused_mix_step, t=t,
+            fused_mix_step=fused_mix_step, t=t,
             draw=functools.partial(compression.Draw, self.tag_key, t),
         )
-        return self.algo.step(state, ctx)
+        new_state = self.algo.step(state, ctx)
+        if rnd is not None:
+            if self.faulty.freezes:
+                m = rnd.active
+                new_state = {
+                    key: torch.where(m.reshape((-1,) + (1,) * (new.dim() - 1)) > 0, new,
+                                     state[key])
+                    for key, new in new_state.items()
+                }
+            self.degree_total.add_(rnd.degree_sum())
+        return new_state
 
     def metrics(self, x: torch.Tensor, f_opt: float, with_consensus: bool):
         """f(x̄) − f* and, if asked for, (1/N) Σ_i ‖x_i − x̄‖² (else None);
@@ -201,28 +236,31 @@ class _Program:
 class Byzantine:
     """The bound Byzantine layer of a run (``_bind_byzantine``).
 
-    ``mix``: corrupt → screen (or plain gossip) → mix, with Byzantine rows
-    on the benign mix of the true stack. ``neighbor_sum``: A x of the
-    corrupted stack. ``fused_step``: the robust D-SGD update in one kernel
-    launch, or None. ``honest_w``: the [N] 0/1 honest mask on the device
-    when there is an attack, else None.
+    ``at(t, rnd)``: iteration t's ``(mix, neighbor_sum, fused_step)`` over
+    the round ``rnd`` (a ``faults.Round``, or None on the static graph).
+    ``mix``: corrupt → screen (or plain gossip) → mix, with Byzantine rows on
+    the benign mix of the true stack. ``neighbor_sum``: A x of the corrupted
+    stack. ``fused_step``: the robust D-SGD update in one kernel launch, or
+    None. ``honest_w``: the [N] 0/1 honest mask on the device when there is
+    an attack, else None. ``at(None, None)`` gives those of the static graph
+    for an attack that draws nothing.
     """
 
     adversary: Optional[Adversary]
-    mix: Callable
-    neighbor_sum: Callable
-    fused_step: Optional[Callable]
+    at: Callable
     honest_w: Optional[torch.Tensor]
 
 
 def resolve_robust_impl(config, topo: Topology) -> str:
     """The robust rule's execution form, as ``_bind_byzantine`` resolves it
-    on an unsharded, fault-free run without telemetry: 'auto' promotes to
-    'fused' where the kernel takes the rule at this k_max and the round is
-    one descent (with τ > 1 local steps 'auto' stays on gather; an explicit
-    'fused' runs the kernel as the round's first descent)."""
+    on an unsharded run without telemetry: 'auto' takes dense on the
+    fully-connected graph, else promotes to 'fused' where the kernel takes
+    the rule at this k_max, the graph is static and the round is one
+    descent (under a time-varying graph or τ > 1 local steps 'auto' stays on
+    gather; an explicit 'fused' runs the kernel on the round's liveness,
+    as the round's first descent)."""
     k_max = int(topo.degrees.max())
-    eligible = (config.local_steps == 1
+    eligible = (not config.time_varying and config.local_steps == 1
                 and fused_robust_supported(config.aggregation, k_max, config.clip_tau))
     return config.resolved_robust_impl(k_max, fused_eligible=eligible)
 
@@ -230,7 +268,10 @@ def resolve_robust_impl(config, topo: Topology) -> str:
 def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
                    device: torch.device, dtype: torch.dtype) -> Optional[Byzantine]:
     """The Byzantine adversary and robust aggregation of a config, or None
-    when it is benign (no attack and no robust rule with a budget)."""
+    when it is benign (no attack and no robust rule with a budget). Under a
+    time-varying graph each round's screen runs over its realized graph:
+    the gather and fused forms on the liveness gathered from A_t, the dense
+    form on A_t, and the benign mix is the round's."""
     if not config.byzantine_active:
         return None
     if not algo.supports_byzantine:
@@ -249,41 +290,101 @@ def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
         config.n_workers, config.attack, config.n_byzantine, config.attack_scale,
         config.seed, device=device, dtype=dtype,
     )
-    base_mix = mix_op.apply
-    aggregate = fused_step = None
+    screen = kernel = None
     if config.robust_active:
         validate_budget(int(topo.degrees.min()), config.robust_b, config.aggregation)
         robust_impl = resolve_robust_impl(config, topo)
-        nbr_idx, nbr_mask = neighbor_tables_for(topo)
-        live = torch.as_tensor(nbr_mask, dtype=torch.float32, device=device)
-        rule = (config.aggregation, config.robust_b, nbr_idx, config.clip_tau)
-        if robust_impl == "fused":
-            agg = make_fused_robust_aggregator(*rule, device=device)
+        rule = (config.aggregation, config.robust_b)
+        if robust_impl == "dense":
+            agg = make_robust_aggregator(*rule, config.clip_tau)
+            static_a = torch.as_tensor(topo.adjacency, dtype=torch.float32, device=device)
+
+            def screen(rnd):
+                a = rnd.A if rnd is not None else static_a
+                return None, (lambda v: agg(a, v))
         else:
-            agg = make_gather_robust_aggregator(*rule, device=device)
-        aggregate = lambda v: agg(live, v)  # noqa: E731
-        if robust_impl == "fused" and algo.name == "dsgd":
-            kernel = make_fused_robust_dsgd_step(*rule, device=device)
+            nbr_idx, nbr_mask = neighbor_tables_for(topo)
+            nbr = torch.as_tensor(nbr_idx, dtype=torch.int64, device=device)
+            static_live = torch.as_tensor(nbr_mask, dtype=torch.float32, device=device)
+            table = (*rule, nbr_idx, config.clip_tau)
+            if robust_impl == "fused":
+                agg = make_fused_robust_aggregator(*table, device=device)
+            else:
+                agg = make_gather_robust_aggregator(*table, device=device)
+            if robust_impl == "fused" and algo.name == "dsgd":
+                kernel = make_fused_robust_dsgd_step(*table, device=device)
 
-            def fused_step(x, g, eta):
-                # One launch for honest rows; Byzantine rows keep the
-                # benign mix of the true stack, then the same − η·g.
-                xc = adversary.corrupt(x) if adversary is not None else x
-                out = kernel(live, xc, g, eta)
-                if adversary is not None:
-                    out = torch.where(adversary.rows > 0, base_mix(x) - eta * g, out)
-                return out
+            def screen(rnd):
+                live = rnd.live(nbr, static_live) if rnd is not None else static_live
+                return live, (lambda v: agg(live, v))
 
-    nbr_sum = mix_op.neighbor_sum
-    if adversary is not None:
-        nbr_sum = lambda v: mix_op.neighbor_sum(adversary.corrupt(v))  # noqa: E731
+    def at(t, rnd):
+        base_mix = rnd.mix if rnd is not None else mix_op.apply
+        base_nbr = rnd.neighbor_sum if rnd is not None else mix_op.neighbor_sum
+        aggregate = fused_step = None
+        if screen is not None:
+            live, aggregate = screen(rnd)
+            if kernel is not None:
+
+                def fused_step(x, g, eta):
+                    # One launch for honest rows; Byzantine rows keep the
+                    # benign mix of the true stack, then the same − η·g.
+                    xc = adversary.corrupt(x, t) if adversary is not None else x
+                    out = kernel(live, xc, g, eta)
+                    if adversary is not None:
+                        out = torch.where(adversary.rows > 0, base_mix(x) - eta * g, out)
+                    return out
+
+        nbr_sum = base_nbr
+        if adversary is not None:
+            nbr_sum = lambda v: base_nbr(adversary.corrupt(v, t))  # noqa: E731
+        return make_byzantine_mixing(adversary, base_mix, aggregate, t), nbr_sum, fused_step
+
     return Byzantine(
         adversary=adversary,
-        mix=make_byzantine_mixing(adversary, base_mix, aggregate),
-        neighbor_sum=nbr_sum,
-        fused_step=fused_step,
+        at=at,
         honest_w=(torch.as_tensor(adversary.honest, dtype=dtype, device=device)
                   if adversary is not None else None),
+    )
+
+
+def build_faulty(config, algo: Algorithm, topo: Topology, T: int, *,
+                 device: torch.device) -> Optional[FaultyMixing]:
+    """The port of ``_build_faulty``: the per-round mixing of a time-varying
+    graph (faults, or a matching schedule), or None for a static graph,
+    after the JAX package's algorithm checks. Persistent processes unroll
+    their timeline here (on a card, one kernel launch)."""
+    if not config.time_varying:
+        return None
+    if not algo.supports_edge_faults:
+        raise ValueError(
+            f"time-varying gossip is unsupported for {algo.name!r}: "
+            "the step rule is not faithful under per-iteration "
+            "graphs — participation sampling included (ADMM pairs "
+            "neighbor sums with static degrees; CHOCO's shared "
+            "estimate state cannot represent undelivered updates; "
+            "EXTRA's fixed-point argument requires a static W)"
+        )
+    if config.mttf > 0.0 and not algo.supports_churn:
+        raise ValueError(
+            f"crash-recovery churn is unsupported for {algo.name!r}: "
+            "multi-round outages freeze a node's whole state and "
+            "may warm-restart its model on rejoin, which only "
+            "mix-based rules tolerate (push-sum's (num, w) mass "
+            "pair cannot be restarted consistently; EXTRA/ADMM/"
+            "CHOCO already reject time-varying graphs) — use "
+            "'dsgd' or 'gradient_tracking'"
+        )
+    if config.gossip_schedule == "round_robin":
+        return make_round_robin_mixing(topo, device=device)
+    return make_faulty_mixing(
+        topo, config.edge_drop_prob, config.seed,
+        straggler_prob=config.straggler_prob,
+        one_peer=config.gossip_schedule == "one_peer",
+        burst_len=config.burst_len, mttf=config.mttf, mttr=config.mttr,
+        rejoin=config.rejoin, horizon=T,
+        participation_rate=config.participation_rate,
+        device=device, x64=config.dtype == "float64",
     )
 
 
@@ -426,8 +527,9 @@ def run(
     # state, the payload and the floats transmitted are sized from it.
     d = problem.param_dim(host.n_features)
 
-    mix_op = byz = None
+    mix_op = byz = faulty = None
     fused_mix_step = None
+    fault_seconds = 0.0
     if algo.is_decentralized:
         topo = build_topology(config.topology, n, erdos_renyi_p=config.erdos_renyi_p,
                               seed=config.resolved_topology_seed())
@@ -435,20 +537,26 @@ def run(
         degrees = torch.as_tensor(topo.degrees, dtype=dtype, device=dev)[:, None]
         if algo.comm_payload is not None:
             # The rule's floats an edge: the compressor's payload, or d a round.
-            floats_per_iter = topo.floats_per_iteration * algo.comm_payload(config, d)
+            edge_payload = algo.comm_payload(config, d)
+            floats_per_iter = topo.floats_per_iteration * edge_payload
         else:
+            edge_payload = d * algo.gossip_rounds
             floats_per_iter = decentralized_floats_per_iteration(topo, d, algo.gossip_rounds)
         spectral_gap = topo.spectral_gap
+        t_fault = time.perf_counter()
+        faulty = build_faulty(config, algo, topo, T, device=dev)
+        if faulty is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        fault_seconds = time.perf_counter() - t_fault
         byz = bind_byzantine(config, algo, topo, mix_op, device=dev, dtype=dtype)
-        if byz is not None:
-            fused_mix_step = byz.fused_step
-        elif mix_op.impl == "pallas" and topo.name == "ring":
+        if byz is None and faulty is None and mix_op.impl == "pallas" and topo.name == "ring":
             # The fused W x − η g kernel, bound as the JAX package binds its
             # Pallas counterpart: never under Byzantine injection, where it
-            # would skip the corruption and the screen.
+            # would skip the corruption and the screen, nor over a
+            # time-varying graph, whose W_t it does not apply.
             fused_mix_step = ring_kernels.fused_ring_dsgd_step
     else:
-        if config.byzantine_active:
+        if config.byzantine_active or config.time_varying:
             raise ValueError(
                 "fault injection / matching-based gossip / Byzantine "
                 "injection model peer exchanges and apply only to "
@@ -489,7 +597,9 @@ def run(
         mix_op=mix_op, fused_mix_step=fused_mix_step,
         eta=make_eta_schedule(config, T, dev, dtype), degrees=degrees,
         full_objective=make_full_objective_fn(problem, reg),
-        data=(X, y, n_valid), byz=byz,
+        data=(X, y, n_valid), byz=byz, faulty=faulty,
+        degree_total=(torch.zeros((), dtype=torch.float64, device=dev)
+                      if faulty is not None else None),
     )
 
     track_consensus = collect_metrics and algo.is_decentralized and config.record_consensus
@@ -532,7 +642,9 @@ def run(
         else:
             state = chunk(state)
         sync()
-        compile_seconds = time.perf_counter() - t0
+        # The fault timeline's set-up counts as compile time, as the JAX
+        # package's host precompute does.
+        compile_seconds = time.perf_counter() - t0 + fault_seconds
 
         stamps = [0.0]  # the warm-up chunk's eval, as the steady loop starts
         t0 = time.perf_counter()
@@ -565,11 +677,15 @@ def run(
               np.linspace(run_seconds / max(len(gap_np), 1), run_seconds, len(gap_np))),
         time_measured=measure_timestamps,
         eval_iterations=np.arange(eval_every, T + 1, eval_every)[: len(gap_np)],
-        total_floats_transmitted=floats_per_iter * T,
+        # Under a time-varying graph, the floats the realized edges carried:
+        # Σ_t Σ_i realized deg_i (a whole number) times an edge's payload.
+        total_floats_transmitted=(float(program.degree_total) * edge_payload
+                                  if faulty is not None else floats_per_iter * T),
         iters_per_second=((T - eval_every) / run_seconds
                           if T > eval_every and run_seconds > 0 else float("nan")),
         compile_seconds=compile_seconds,
         spectral_gap=spectral_gap,
+        fault_setup_seconds=fault_seconds,
     )
     final_models = state["x"].cpu().numpy().astype(np.float64)
     # Under an attack the reported model is the honest average.

@@ -46,6 +46,12 @@ ATTACKS = ("none", "sign_flip", "large_noise", "alie")
 AGGREGATIONS = ("gossip", "trimmed_mean", "median", "clipped_gossip")
 ROBUST_IMPLS = ("auto", "dense", "gather", "fused")
 TOPOLOGY_IMPLS = ("auto", "dense", "neighbor")
+# Rejoin policies after a crash-recovery outage (parallel/faults.py takes
+# this constant as its REJOIN_POLICIES) and the gossip schedules: every
+# (surviving) neighbour a round, one mutually proposed random peer, or the
+# deterministic matchings of parallel/matchings.py.
+REJOINS = ("frozen", "neighbor_restart")
+GOSSIP_SCHEDULES = ("synchronous", "one_peer", "round_robin")
 TOPOLOGY_SAMPLERS = ("auto", "dense", "sparse")
 # The JAX package's graphs with a matrix-free (neighbour-table) builder, and
 # its N at which topology_impl='auto' takes that builder: there it draws the
@@ -136,10 +142,11 @@ class ExperimentConfig:
     aggregation: str = "gossip"
     robust_b: int = 0
     clip_tau: float = 0.0
-    # Execution form of the robust rule: 'gather' (torch ops over the
+    # Execution form of the robust rule: 'dense' (the closed neighbourhood
+    # sorted over the node axis, [N, N, d]), 'gather' (torch ops over the
     # [N, k_max] neighbour table) or 'fused' (the hand-written CUDA kernels
-    # of ops/robust_kernels.py); 'auto' promotes gather to fused where the
-    # kernel takes the rule. 'dense' is not ported.
+    # of ops/robust_kernels.py); 'auto' takes dense on the fully-connected
+    # graph, else gather promoted to fused where the kernel takes the rule.
     robust_impl: str = "auto"
     # Edge probability of the two Erdős–Rényi graphs, and the seed they are
     # drawn from (-1 follows ``seed``).
@@ -151,6 +158,23 @@ class ExperimentConfig:
     # not ported.
     topology_impl: str = "auto"
     topology_sampler: str = "auto"
+    # Failure injection (parallel/faults.py), the JAX package's fields and
+    # defaults: per-round iid edge drops and stragglers; bursty edges (a
+    # Gilbert-Elliott chain per edge at the same marginal rate, mean burst
+    # burst_len/(1 - p); 0 = the memoryless sampler, 1 reduces to it bit
+    # for bit); crash-recovery churn (mean up-time mttf, mean outage mttr
+    # rounds) and what a node resumes with; per-round client sampling.
+    edge_drop_prob: float = 0.0
+    straggler_prob: float = 0.0
+    burst_len: float = 0.0
+    mttf: float = 0.0
+    mttr: float = 0.0
+    rejoin: str = "frozen"
+    participation_rate: float = 1.0
+    # 'synchronous' (all surviving neighbours), 'one_peer' (Boyd-style
+    # randomized pairwise gossip) or 'round_robin' (deterministic
+    # matchings covering the edge set).
+    gossip_schedule: str = "synchronous"
 
     def __post_init__(self) -> None:
         for field, allowed in (
@@ -176,6 +200,7 @@ class ExperimentConfig:
             raise ValueError(f"Unknown matmul precision: {self.matmul_precision}")
         self._validate_local_steps()
         self._validate_byzantine()
+        self._validate_faults()
         self._validate_topology()
         if self.n_workers <= 0:
             raise ValueError("n_workers must be positive")
@@ -225,6 +250,14 @@ class ExperimentConfig:
                 "stream as its own sampler — use topology_impl='auto' or "
                 "'neighbor'"
             )
+        if self.time_varying and self.resolved_topology_impl() == "neighbor":
+            raise ValueError(
+                f"topology_impl={self.topology_impl!r} resolves to the "
+                f"matrix-free form at N={self.n_workers}, whose fault "
+                "processes draw one uniform an edge a round: the PyTorch "
+                "port does not have that fault form yet (it runs the dense "
+                "form's faults; use topology_impl='dense')"
+            )
         if self.resolved_topology_sampler() == "sparse":
             raise ValueError(
                 f"topology_sampler={self.topology_sampler!r} resolves to "
@@ -266,6 +299,20 @@ class ExperimentConfig:
                 raise ValueError(
                     "compression_k (coordinates kept, or qsgd bits) must be "
                     f"positive when compression={self.compression!r}"
+                )
+            if (
+                self.edge_drop_prob > 0.0
+                or self.straggler_prob > 0.0
+                or self.mttf > 0.0
+                or self.gossip_schedule != "synchronous"
+            ):
+                raise ValueError(
+                    "compressed gossip does not compose with time-varying "
+                    "graphs: a dropped exchange leaves the neighbor's copy "
+                    "of the shared error-feedback estimate stale, which "
+                    "the single shared X̂ leaf cannot represent (per-edge "
+                    "[N, N, d] staleness state would be needed) — run "
+                    "faults uncompressed, or compression on a static graph"
                 )
             if self.attack != "none" or self.aggregation != "gossip":
                 raise ValueError(
@@ -312,9 +359,6 @@ class ExperimentConfig:
             raise ValueError(f"Unknown partition: {self.partition}")
         if self.attack not in ATTACKS:
             raise ValueError(f"Unknown attack: {self.attack}")
-        if self.attack == "large_noise":
-            # Its payload is jax.random.normal's bits at (seed, t).
-            raise _not_yet("attack", self.attack, ("none", "sign_flip", "alie"))
         if self.aggregation not in AGGREGATIONS:
             raise ValueError(f"Unknown aggregation: {self.aggregation}")
         if self.n_byzantine < 0:
@@ -359,8 +403,6 @@ class ExperimentConfig:
                 "gossip aggregation and robust_b > 0) it would be silently "
                 "ignored"
             )
-        if self.robust_impl == "dense":
-            raise _not_yet("robust_impl", self.robust_impl, ("auto", "gather", "fused"))
         if self.clip_tau < 0.0:
             raise ValueError(f"clip_tau must be >= 0, got {self.clip_tau}")
         if self.clip_tau > 0.0 and self.aggregation != "clipped_gossip":
@@ -368,6 +410,152 @@ class ExperimentConfig:
                 f"clip_tau only applies to aggregation='clipped_gossip'; "
                 f"{self.aggregation!r} would silently ignore it"
             )
+        if self.aggregation != "gossip" and self.gossip_schedule != "synchronous":
+            raise ValueError(
+                f"aggregation={self.aggregation!r} screens MULTIPLE received "
+                "neighbor messages per round; matching schedules "
+                f"({self.gossip_schedule!r}) deliver at most one, so no "
+                "trimming/clipping budget is realizable — use 'synchronous'"
+            )
+
+    def _validate_faults(self) -> None:
+        """The JAX package's checks of the fault and schedule fields, in its
+        order and with its messages."""
+        if not 0.0 <= self.edge_drop_prob < 1.0:
+            raise ValueError(
+                f"edge_drop_prob must be in [0, 1), got {self.edge_drop_prob}"
+            )
+        if not 0.0 <= self.straggler_prob < 1.0:
+            raise ValueError(
+                f"straggler_prob must be in [0, 1), got {self.straggler_prob}"
+            )
+        if self.burst_len != 0.0 and self.burst_len < 1.0:
+            raise ValueError(
+                f"burst_len must be 0 (iid edge drops) or >= 1 (mean burst "
+                f"multiplier), got {self.burst_len}"
+            )
+        if self.burst_len != 0.0 and self.edge_drop_prob == 0.0:
+            raise ValueError(
+                f"burst_len={self.burst_len} shapes the edge-failure "
+                "process and needs edge_drop_prob > 0; without a drop rate "
+                "it would be silently ignored"
+            )
+        if (self.mttf > 0.0) != (self.mttr > 0.0):
+            raise ValueError(
+                f"mttf ({self.mttf}) and mttr ({self.mttr}) must be set "
+                "together: crash-recovery churn needs both a mean up-time "
+                "and a mean outage length"
+            )
+        if self.mttf < 0.0 or self.mttr < 0.0:
+            raise ValueError(
+                f"mttf/mttr must be >= 0, got ({self.mttf}, {self.mttr})"
+            )
+        if self.mttf > 0.0:
+            if self.mttf < 1.0 or self.mttr < 1.0:
+                raise ValueError(
+                    "mttf/mttr are mean holding times in rounds and must "
+                    f"be >= 1, got ({self.mttf}, {self.mttr})"
+                )
+            if self.straggler_prob > 0.0:
+                raise ValueError(
+                    "crash-recovery churn (mttf/mttr) replaces iid "
+                    "stragglers; set straggler_prob=0 (the iid model is "
+                    "churn at mttf=1/q, mttr=1/(1-q))"
+                )
+            if self.gossip_schedule != "synchronous":
+                raise ValueError(
+                    "crash-recovery churn requires "
+                    "gossip_schedule='synchronous': rejoin policies act on "
+                    "the realized neighborhood, which matching schedules "
+                    f"({self.gossip_schedule!r}, at most one partner per "
+                    "round) cannot supply"
+                )
+        if self.rejoin not in REJOINS:
+            raise ValueError(f"Unknown rejoin policy: {self.rejoin}")
+        if self.rejoin == "neighbor_restart" and self.byzantine_active:
+            raise ValueError(
+                "rejoin='neighbor_restart' does not compose with Byzantine "
+                "injection / robust aggregation: the warm restart averages "
+                "neighbors' raw model rows, bypassing both the attack "
+                "payloads and the screening rule — it would model an "
+                "unrealistically safe rejoin at exactly the moment an "
+                "adversary controls the unscreened average. Use "
+                "rejoin='frozen' under attack"
+            )
+        if self.rejoin != "frozen" and self.mttf == 0.0:
+            raise ValueError(
+                f"rejoin={self.rejoin!r} only takes effect with "
+                "crash-recovery churn (mttf/mttr); without outages there "
+                "are no rejoin rounds and it would be silently ignored"
+            )
+        if not 0.0 < self.participation_rate <= 1.0:
+            raise ValueError(
+                f"participation_rate must be in (0, 1], got "
+                f"{self.participation_rate}"
+            )
+        if self.participation_rate < 1.0:
+            if self.algorithm == "centralized":
+                raise ValueError(
+                    "participation_rate models per-round client sampling "
+                    "of peer exchanges; the centralized pattern has no "
+                    "peer edges — it applies to decentralized algorithms "
+                    "only"
+                )
+            if self.gossip_schedule != "synchronous":
+                raise ValueError(
+                    "participation_rate < 1 requires "
+                    "gossip_schedule='synchronous': the sampled subgraph "
+                    "reweights the whole realized neighborhood, which "
+                    f"matching schedules ({self.gossip_schedule!r}) "
+                    "cannot supply"
+                )
+            if self.compression != "none":
+                raise ValueError(
+                    "participation_rate < 1 does not compose with "
+                    "compressed gossip (same reason as edge faults: a "
+                    "sampled-out round leaves neighbors' error-feedback "
+                    "estimates stale) — sample participation uncompressed"
+                )
+        if self.gossip_schedule not in GOSSIP_SCHEDULES:
+            raise ValueError(
+                f"Unknown gossip schedule: {self.gossip_schedule}"
+            )
+        if self.gossip_schedule == "round_robin" and (
+            self.edge_drop_prob > 0.0 or self.straggler_prob > 0.0
+        ):
+            raise ValueError(
+                "round_robin is a deterministic schedule; combine failure "
+                "injection with 'synchronous' or 'one_peer' instead"
+            )
+        if (
+            self.topology in DIRECTED_TOPOLOGIES
+            and self.gossip_schedule != "synchronous"
+        ):
+            raise ValueError(
+                f"gossip_schedule={self.gossip_schedule!r} realizes mutual "
+                "pairwise matchings, an undirected construction; directed "
+                f"topology {self.topology!r} has one-way links — use "
+                "'synchronous' (edge_drop_prob/straggler_prob compose with "
+                "it via column-stochastic renormalization of surviving "
+                "out-links)"
+            )
+
+    @property
+    def faults_active(self) -> bool:
+        """Any synchronous node or edge fault process (the JAX package's
+        ``config_faults_active``)."""
+        return (
+            self.edge_drop_prob > 0.0
+            or self.straggler_prob > 0.0
+            or self.mttf > 0.0
+            or self.participation_rate < 1.0
+        )
+
+    @property
+    def time_varying(self) -> bool:
+        """A fault process or a matching schedule: the round's graph changes
+        with t (the JAX package's ``_build_faulty`` test)."""
+        return self.faults_active or self.gossip_schedule != "synchronous"
 
     @property
     def robust_active(self) -> bool:
@@ -380,23 +568,15 @@ class ExperimentConfig:
         return self.attack != "none" or self.robust_active
 
     def resolved_robust_impl(self, k_max: int, *, fused_eligible: bool = False) -> str:
-        """Resolve robust_impl='auto' as the JAX package does: gather when
-        k_max + 1 < N, promoted to fused when the backend reports the
-        kernel eligible. The dense form it picks at k_max + 1 >= N (the
-        fully-connected graph) is not ported, and raises."""
-        impl = self.robust_impl
-        if impl == "auto":
-            if k_max + 1 >= self.n_workers:
-                impl = "dense"
-            else:
-                impl = "fused" if fused_eligible else "gather"
-        if impl == "dense":
-            raise ValueError(
-                f"robust_impl={self.robust_impl!r} resolves to 'dense' at "
-                f"k_max={k_max}, N={self.n_workers}: the PyTorch port does "
-                "not have it yet (it implements 'gather' and 'fused')"
-            )
-        return impl
+        """Resolve robust_impl='auto' as the JAX package does: dense when
+        k_max + 1 >= N (the fully-connected graph), else gather, promoted
+        to fused when the backend reports the kernel eligible. An explicit
+        robust_impl is kept."""
+        if self.robust_impl != "auto":
+            return self.robust_impl
+        if k_max + 1 >= self.n_workers:
+            return "dense"
+        return "fused" if fused_eligible else "gather"
 
     def resolved_topology_seed(self) -> int:
         """``topology_seed`` when pinned (>= 0), else ``seed``."""
@@ -415,6 +595,7 @@ class ExperimentConfig:
             or self.mixing_impl not in ("auto", "gather", "stencil")
             or self.attack != "none"
             or self.robust_active
+            or self.gossip_schedule != "synchronous"
         )
         if not dense_only and self.n_workers >= MATRIX_FREE_AUTO_N:
             return "neighbor"

@@ -30,6 +30,8 @@ class RunHistory:
     # True for per-eval clock samples (``measure_timestamps=True``); False
     # when ``time`` spreads the run's total wall clock over the evals.
     time_measured: bool = False
+    # Seconds spent unrolling the fault timeline (within compile_seconds).
+    fault_setup_seconds: float = 0.0
 
 
 def consensus_error(models: np.ndarray) -> float:

@@ -1,6 +1,6 @@
 """Robust neighbour aggregation: Byzantine-tolerant replacements for W x.
 
-The port of the gather form of
+The port of the dense and gather forms of
 ``distributed_optimization_tpu/ops/robust_aggregation.py``. Each honest
 worker screens the models it receives before combining them:
 
@@ -11,7 +11,11 @@ worker screens the models it receives before combining them:
   weights of the realized graph, τᵢ fixed or adaptive (the (deg−b)-th
   smallest neighbour-difference norm).
 
-The gather form works over the static ``[N, k_max]`` neighbour table
+The dense form (``make_robust_aggregator``, ``robust_impl='dense'``) sorts
+the closed neighbourhood over the node axis, ``[N, N, d]``, for a realized
+0/1 adjacency A_t; the JAX package computes it in XLA with no Pallas kernel,
+and ``torch.sort`` does here. The gather form works over the static
+``[N, k_max]`` neighbour table
 (``parallel/topology.py::neighbor_table``) and per-slot liveness bits, in
 torch ops (``torch.sort``, ``take_along_dim``; sums over the slot axis in
 slot order): ``robust_impl='gather'``.
@@ -82,6 +86,62 @@ def _adaptive_clip_tau(mask: torch.Tensor, norms: torch.Tensor, budget: int,
     k = torch.clamp(deg - budget - 1, 0, k_cap - 1)
     kth = torch.take_along_dim(ranked, k[:, None], dim=1)[:, 0]
     return torch.where(deg - budget >= 1, kth, torch.zeros_like(kth))
+
+
+def make_robust_aggregator(name: str, budget: int, clip_tau: float = 0.0) -> RobustAggregator:
+    """``aggregate(A_t, x) -> x_new`` over the node axis (the dense form).
+
+    ``A_t``: realized 0/1 adjacency, zero diagonal, ``A[i, j] = 1`` iff j's
+    message reaches i this round. ``x``: the [N, d] stack as transmitted.
+    """
+    check_rule(name, budget)
+    adaptive = is_adaptive(name, clip_tau)
+
+    def closed_sorted(A, x):
+        """The closed neighbourhood sorted over the node axis ([N, N, d],
+        +inf beyond each row's count) and the counts."""
+        closed = A + torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+        vals = torch.where((closed > 0)[:, :, None], x[None, :, :], torch.inf)
+        return torch.sort(vals, dim=1).values, torch.sum(closed, dim=1)
+
+    def aggregate(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        acc = torch.promote_types(torch.float32, x.dtype)
+        xa = x.to(acc)
+        Aa = A.to(acc)
+        if name == "trimmed_mean":
+            s, counts = closed_sorted(Aa, xa)
+            pos = torch.arange(A.shape[0], dtype=acc, device=x.device)
+            keep = (pos[None, :] >= budget) & (pos[None, :] < (counts - budget)[:, None])
+            kept = torch.clamp(counts - 2 * budget, min=0.0)
+            total = torch.sum(torch.where(keep[:, :, None], s, 0.0), dim=1)
+            mean = total / torch.clamp(kept, min=1.0)[:, None]
+            return torch.where((kept >= 1.0)[:, None], mean, xa).to(x.dtype)
+        if name == "median":
+            s, counts = closed_sorted(Aa, xa)
+            c = counts.to(torch.int64)
+            lo = torch.clamp((c - 1) // 2, min=0)[:, None, None]
+            hi = torch.clamp(c // 2, min=0)[:, None, None]
+            med = 0.5 * (torch.take_along_dim(s, lo, dim=1) + torch.take_along_dim(s, hi, dim=1))
+            return med[:, 0, :].to(x.dtype)
+        from distributed_optimization_tpu_torch.parallel.faults import (
+            metropolis_hastings_weights,
+        )
+
+        W = metropolis_hastings_weights(Aa)
+        diffs = xa[None, :, :] - xa[:, None, :]  # [receiver i, sender j, d]
+        norms = torch.sqrt(torch.sum(diffs * diffs, dim=-1))
+        if adaptive:
+            tau = _adaptive_clip_tau(Aa, norms, budget, A.shape[0])
+        else:
+            tau = torch.full((A.shape[0],), float(clip_tau), dtype=acc, device=x.device)
+        factor = torch.minimum(
+            torch.ones((), dtype=acc, device=x.device),
+            tau[:, None] / torch.clamp(norms, min=torch.finfo(acc).tiny),
+        )
+        moved = torch.sum(W[:, :, None] * diffs * factor[:, :, None], dim=1)
+        return (xa + moved).to(x.dtype)
+
+    return aggregate
 
 
 def make_gather_robust_aggregator(

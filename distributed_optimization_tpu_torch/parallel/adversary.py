@@ -1,13 +1,16 @@
 """Byzantine adversary injection: workers that send wrong models.
 
-The port of ``distributed_optimization_tpu/parallel/adversary.py`` for the
-two payloads that need no random draw:
+The port of ``distributed_optimization_tpu/parallel/adversary.py``:
 
 - **sign_flip**: send −scale·x_i;
+- **large_noise**: send x_i + scale·N(0, I), the normal draw of
+  ``jax.random.normal`` at ``fold_in(fold_in(key(seed), 0xBAD0), t)``,
+  redrawn each iteration and shared by an iteration's gossip rounds; on a
+  card one launch of ``ops/draw_kernels.large_noise``, on the CPU its
+  plain twin;
 - **alie** ("a little is enough"): the colluders all send the honest
   workers' per-coordinate mean − scale·std.
 
-``large_noise`` needs ``jax.random.normal``'s bits and is not ported yet.
 The Byzantine set is drawn on the host from the config seed
 (``byzantine_mask``), bit for bit the JAX package's draw. The payload math
 runs in promote(float32, dtype) and is cast back to the run dtype.
@@ -16,16 +19,19 @@ runs in promote(float32, dtype) and is cast back to the run dtype.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from distributed_optimization_tpu_torch.backends.base import resolve_device
+from distributed_optimization_tpu_torch.ops import draw_kernels, prng
 from distributed_optimization_tpu_torch.ops.mixing import MixFn
 
-# The stream tag the JAX package folds into the seed of the Byzantine set.
+# The stream tags the JAX package folds into the seed: of the Byzantine set,
+# and of the large-noise draws.
 _BYZ_SET_TAG = 0xB12A
+_BYZ_NOISE_TAG = 0xBAD0
 
 
 def byzantine_mask(n_workers: int, n_byzantine: int, seed: int) -> np.ndarray:
@@ -45,13 +51,15 @@ def byzantine_mask(n_workers: int, n_byzantine: int, seed: int) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class Adversary:
-    """One attack bound to its Byzantine set. ``corrupt(x)`` replaces the
-    Byzantine rows of the [N, d] stack with the payload; honest rows pass
-    through. ``rows`` is the [N, 1] 0/1 Byzantine mask on the run device."""
+    """One attack bound to its Byzantine set. ``corrupt(x, t)`` replaces the
+    Byzantine rows of the [N, d] stack with iteration t's payload (``t``,
+    the run's int64 counter tensor, is read by ``large_noise`` alone);
+    honest rows pass through. ``rows`` is the [N, 1] 0/1 Byzantine mask on
+    the run device."""
 
     byzantine: np.ndarray  # host [N] bool
     rows: torch.Tensor
-    corrupt: MixFn
+    corrupt: Callable[..., torch.Tensor]
 
     @property
     def honest(self) -> np.ndarray:
@@ -69,18 +77,26 @@ def make_adversary(
     dtype: torch.dtype = torch.float32,
 ) -> Optional[Adversary]:
     """The adversary of a config, or None when ``attack='none'``. ``cuda``
-    raises when no card is visible."""
+    raises when no card is visible. The large-noise key is
+    ``key(seed, x64=dtype is float64)``, as a float64 run keys its streams."""
     device = resolve_device(device)
     if attack == "none":
         return None
-    if attack not in ("sign_flip", "alie"):
-        raise ValueError(f"attack={attack!r}: the PyTorch port does not have it yet")
+    if attack not in ("sign_flip", "large_noise", "alie"):
+        raise ValueError(f"Unknown attack: {attack}")
     byz = byzantine_mask(n_workers, n_byzantine, seed)
     acc = torch.promote_types(torch.float32, dtype)
     m = torch.as_tensor(byz, dtype=acc, device=device)[:, None]
     h = 1.0 - m
+    byz_u8 = torch.as_tensor(byz, dtype=torch.uint8, device=device)
+    noise_key = prng.fold_in(prng.key(seed, x64=dtype == torch.float64), _BYZ_NOISE_TAG)
 
-    def corrupt(x: torch.Tensor) -> torch.Tensor:
+    def corrupt(x: torch.Tensor, t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if attack == "large_noise":
+            if t is None:
+                raise ValueError("large_noise draws at the iteration counter: pass t")
+            return draw_kernels.large_noise(noise_key, t, byz_u8, x.to(acc).contiguous(),
+                                            attack_scale).to(x.dtype)
         xa = x.to(acc)
         if attack == "sign_flip":
             payload = -attack_scale * xa
@@ -98,19 +114,20 @@ def make_byzantine_mixing(
     adversary: Optional[Adversary],
     base_mix: MixFn,
     aggregate: Optional[MixFn] = None,
+    t: Optional[torch.Tensor] = None,
 ) -> MixFn:
-    """Corruption and (robust) aggregation composed into one ``mix(x)``.
+    """Corruption and (robust) aggregation composed into one ``mix(x)`` for
+    iteration ``t``.
 
     Honest rows take ``aggregate`` (the robust screen) of the corrupted
     stack, or ``base_mix`` of it when no rule is active. Byzantine rows
     keep ``base_mix`` of the true stack: an attacker runs honest dynamics
     and lies only on the wire.
     """
-    corrupt = adversary.corrupt if adversary is not None else (lambda x: x)
     screen = aggregate if aggregate is not None else base_mix
 
     def honest_view(x: torch.Tensor) -> torch.Tensor:
-        return screen(corrupt(x))
+        return screen(adversary.corrupt(x, t) if adversary is not None else x)
 
     if adversary is None:
         return honest_view

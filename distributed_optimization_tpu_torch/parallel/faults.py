@@ -1,0 +1,618 @@
+"""Failure injection: gossip over dropped edges, stragglers, churn and matchings.
+
+The port of the dense form of ``distributed_optimization_tpu/parallel/faults.py``.
+Each round t realizes a graph from the base topology:
+
+- **edge drops** (``drop_prob``): each edge drops with probability p, both
+  ends agreeing (one-way links drop on their own on a directed graph);
+- **stragglers** (``straggler_prob``): each node sits the round out with
+  probability q: it exchanges nothing and the backend freezes its state;
+- **bursty edges** (``burst_len >= 1``): a Gilbert-Elliott chain per edge at
+  the same marginal rate, ``burst_len=1`` bitwise the memoryless draws;
+- **crash-recovery churn** (``mttf``/``mttr``): a two-state chain per node,
+  with the rejoin policy ``frozen`` or ``neighbor_restart``;
+- **participation** (``participation_rate``): per-round client sampling;
+- **one-peer gossip**: each node proposes one random neighbour; an edge
+  activates iff the proposal is mutual, W_t = ½(I + P_t);
+- **round-robin matchings** (``make_round_robin_mixing``), from
+  ``parallel/matchings.py``.
+
+Undirected graphs mix with the Metropolis-Hastings weights of the realized
+graph, directed ones with its column-stochastic out-weights. Every draw is
+the JAX package's: float32 uniforms of ``ops/prng.py``'s Threefry stream at
+``fold_in(tag key, t)``, edge (i, j) at counter i·N + j (the i < j entry
+for an undirected edge). Memoryless processes draw each round
+(``ops/draw_kernels.realize_round``: one kernel launch on a card);
+persistent ones (bursty edges, churn, participation) unroll a
+``FaultTimeline`` once at set-up (``fault_timeline``, one launch) and index
+it at t. Masks, degrees and the accounting are float32 whatever the run
+dtype; only the mixed values take it.
+
+``FaultyMixing.realize(t)`` gives one ``Round``: its realized A_t, active
+mask or partners on the run's device, and the mix, neighbour sum, degree
+sum, gather-form liveness and warm restart over them. ``t`` is the run's
+int64 counter tensor, so a captured CUDA graph replays every round. The
+matrix-free form (``_make_gather_faulty_mixing``), the worker-mesh form
+(``make_halo_faulty_mixing``) and the replica stacker
+(``stack_fault_timelines``) are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from distributed_optimization_tpu_torch.backends.base import resolve_device
+from distributed_optimization_tpu_torch.config import REJOINS
+from distributed_optimization_tpu_torch.ops import draw_kernels, prng
+from distributed_optimization_tpu_torch.parallel.topology import Topology
+
+# Allowed rejoin policies after a crash-recovery outage.
+REJOIN_POLICIES = REJOINS
+# The stream tags folded into the seed key.
+FAULT_TAG, NODE_TAG, MATCH_TAG, PART_TAG = 0x0FA17, 0x57A66, 0x3A7C4, 0x9AC70
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultTimeline:
+    """Precomputed ``[horizon]``-indexed fault realizations (host arrays).
+
+    ``edge_up[t, e]`` indexes the base topology's edge list ``edge_index``
+    ([E, 2]; i < j rows for undirected graphs, (receiver, sender) pairs for
+    directed ones). ``node_up[t, i]`` is node availability; ``rejoin[t, i]``
+    marks the first up-round after an outage; ``part_up[t, i]`` the
+    participation draw. None for a process that is off.
+    """
+
+    horizon: int
+    directed: bool
+    edge_index: Optional[np.ndarray] = None  # [E, 2] int32
+    edge_up: Optional[np.ndarray] = None     # [horizon, E] bool
+    node_up: Optional[np.ndarray] = None     # [horizon, N] bool
+    rejoin: Optional[np.ndarray] = None      # [horizon, N] bool
+    part_up: Optional[np.ndarray] = None     # [horizon, N] bool
+
+
+def _tag_keys(seed: int, x64: bool, *tags):
+    base = prng.key(seed, x64=x64)
+    return tuple(prng.fold_in(base, tag) for tag in tags)
+
+
+def metropolis_hastings_weights(adjacency: torch.Tensor) -> torch.Tensor:
+    """MH weights of a realized 0/1 adjacency: W_ij = 1/(1 + max(d_i, d_j))
+    on edges, the row remainder on the diagonal (1 for an isolated node)."""
+    deg = torch.sum(adjacency, dim=1)
+    pair = 1.0 / (1.0 + torch.maximum(deg[:, None], deg[None, :]))
+    W = adjacency * pair
+    return W + torch.diag(1.0 - torch.sum(W, dim=1))
+
+
+def column_stochastic_weights(adjacency: torch.Tensor) -> torch.Tensor:
+    """Uniform out-weights of a realized directed graph (``adjacency[i, j] =
+    1`` iff j sends to i): W_ij = 1/(1 + outdeg_j), the column remainder on
+    the diagonal, so every column sums to 1 (push-sum's mass)."""
+    out_deg = torch.sum(adjacency, dim=0)
+    W = adjacency / (1.0 + out_deg)[None, :]
+    return W + torch.diag(1.0 - torch.sum(W, dim=0))
+
+
+def sample_one_peer_matching(scores: torch.Tensor, adjacency: torch.Tensor) -> torch.Tensor:
+    """Mutual-proposal matching from the proposal scores ``u · A_t``:
+    partner[i] (self if unmatched). Each node proposes its first highest
+    score; isolated rows propose themselves."""
+    n = adjacency.shape[0]
+    idx = torch.arange(n, device=adjacency.device)
+    prop = torch.argmax(scores, dim=1)
+    prop = torch.where(torch.sum(adjacency, dim=1) > 0, prop, idx)
+    mutual = prop[prop] == idx
+    return torch.where(mutual, prop, idx)
+
+
+def iid_equivalent_churn(straggler_prob: float) -> tuple[float, float]:
+    """The (mttf, mttr) point at which churn reduces bitwise to iid
+    stragglers at rate q: mttf = 1/q, mttr = 1/(1−q)."""
+    if not 0.0 < straggler_prob < 1.0:
+        raise ValueError(
+            f"straggler_prob must be in (0, 1), got {straggler_prob}"
+        )
+    return 1.0 / straggler_prob, 1.0 / (1.0 - straggler_prob)
+
+
+def _edge_list(topo: Topology) -> np.ndarray:
+    """[E, 2] int32 edge list: one i < j row per undirected edge (the triu
+    entry both ends share), or one (i, j) row per one-way link."""
+    A = np.asarray(topo.adjacency)
+    src = np.triu(A, 1) if not topo.directed else A
+    ei, ej = np.nonzero(src)
+    return np.stack([ei, ej], axis=1).astype(np.int32)
+
+
+def config_faults_active(config) -> bool:
+    """Whether a config runs any synchronous node or edge fault process."""
+    return config.faults_active
+
+
+def timeline_for_config(config, topo: Topology, horizon: int, seed=None, *,
+                        device="cuda") -> FaultTimeline:
+    """The config → ``build_fault_timeline`` mapping of the JAX package: the
+    burst clamp and the straggler-vs-churn rule in one place."""
+    return build_fault_timeline(
+        topo, horizon, config.seed if seed is None else seed,
+        edge_drop_prob=config.edge_drop_prob,
+        burst_len=config.burst_len if config.burst_len >= 1.0 else 1.0,
+        straggler_prob=(
+            0.0 if config.mttf > 0.0 else config.straggler_prob
+        ),
+        mttf=config.mttf, mttr=config.mttr,
+        participation_rate=config.participation_rate,
+        device=device, x64=config.dtype == "float64",
+    )
+
+
+def _check_timeline_args(horizon, burst_len, straggler_prob, mttf, mttr,
+                         participation_rate) -> None:
+    if horizon <= 0:
+        raise ValueError(f"timeline horizon must be positive, got {horizon}")
+    if burst_len < 1.0:
+        raise ValueError(f"burst_len must be >= 1, got {burst_len}")
+    if (mttf > 0.0) != (mttr > 0.0):
+        raise ValueError("mttf and mttr must be set together")
+    if mttf > 0.0 and (mttf < 1.0 or mttr < 1.0):
+        raise ValueError(
+            f"mttf/mttr are mean holding times in rounds and must be >= 1 "
+            f"(got mttf={mttf}, mttr={mttr})"
+        )
+    if mttf > 0.0 and straggler_prob > 0.0:
+        raise ValueError(
+            "crash-recovery churn replaces iid stragglers; set one of "
+            "(mttf, mttr) / straggler_prob, not both"
+        )
+    if not 0.0 < participation_rate <= 1.0:
+        raise ValueError(
+            f"participation_rate must be in (0, 1], got {participation_rate}"
+        )
+
+
+def _timeline_tensors(topo: Topology, horizon: int, seed: int, *, edge_drop_prob: float,
+                      burst_len: float, straggler_prob: float, mttf: float, mttr: float,
+                      participation_rate: float, device, x64: bool):
+    """The timeline's bool tensors on ``device`` (``draw_kernels.fault_timeline``)
+    and the edge list."""
+    _check_timeline_args(horizon, burst_len, straggler_prob, mttf, mttr, participation_rate)
+    keys = _tag_keys(seed, x64, FAULT_TAG, NODE_TAG, PART_TAG)
+    edge_index = edges = edge_chain = None
+    if edge_drop_prob > 0.0:
+        edge_index = _edge_list(topo)
+        edges = torch.as_tensor(edge_index, device=device)
+        p = edge_drop_prob
+        if burst_len == 1.0:
+            # State-independent thresholds: exactly the iid comparison.
+            edge_chain = (p, p, p)
+        else:
+            edge_chain = (p, p / burst_len, 1.0 - (1.0 - p) / burst_len)
+    node_chain = None
+    if mttf > 0.0:
+        node_chain = (mttr / (mttf + mttr), 1.0 / mttf, 1.0 - 1.0 / mttr)
+    elif straggler_prob > 0.0:
+        node_chain = (straggler_prob,) * 3
+    p_out = 1.0 - participation_rate if participation_rate < 1.0 else None
+    out = draw_kernels.fault_timeline(keys, topo.n, edges, horizon, edge_chain, node_chain,
+                                      p_out, device=device)
+    return out, edge_index
+
+
+def build_fault_timeline(
+    topo: Topology,
+    horizon: int,
+    seed: int,
+    *,
+    edge_drop_prob: float = 0.0,
+    burst_len: float = 1.0,
+    straggler_prob: float = 0.0,
+    mttf: float = 0.0,
+    mttr: float = 0.0,
+    participation_rate: float = 1.0,
+    device="cuda",
+    x64: bool = False,
+) -> FaultTimeline:
+    """Unroll the per-edge / per-node fault chains into host arrays, bit for
+    bit the JAX package's: alive iff u >= the threshold, with
+
+        edge:  P(down | up) = p/B,   P(down | down) = 1 − (1−p)/B
+        node:  P(down | up) = 1/mttf, P(down | down) = 1 − 1/mttr (or q)
+
+    and the t = 0 state from the stationary marginal. The draws run on
+    ``device``, a card unless the caller asks for the CPU, as one kernel
+    launch (``draw_kernels.fault_timeline``); ``x64`` keys the stream as a
+    float64 run does."""
+    out, edge_index = _timeline_tensors(
+        topo, horizon, seed, edge_drop_prob=edge_drop_prob, burst_len=burst_len,
+        straggler_prob=straggler_prob, mttf=mttf, mttr=mttr,
+        participation_rate=participation_rate, device=resolve_device(device), x64=x64)
+    host = {k: (v.cpu().numpy() if v is not None else None) for k, v in out.items()}
+    return FaultTimeline(horizon=horizon, directed=topo.directed, edge_index=edge_index,
+                         **host)
+
+
+# --- availability / staleness diagnostics (host-side, over a timeline) ----
+
+
+def node_downtime(timeline: FaultTimeline) -> np.ndarray:
+    """Per-node fraction of rounds spent down over the timeline horizon."""
+    if timeline.node_up is None:
+        raise ValueError("timeline has no node fault process")
+    return 1.0 - timeline.node_up.mean(axis=0)
+
+
+def outage_stats(timeline: FaultTimeline) -> dict:
+    """Count, mean and max outage length (rounds) across all nodes."""
+    if timeline.node_up is None:
+        raise ValueError("timeline has no node fault process")
+    lengths: list[int] = []
+    for i in range(timeline.node_up.shape[1]):
+        run = 0
+        for up in timeline.node_up[:, i]:
+            if not up:
+                run += 1
+            elif run:
+                lengths.append(run)
+                run = 0
+        if run:
+            lengths.append(run)  # outage still open at the horizon
+    return {
+        "n_outages": len(lengths),
+        "mean_outage_rounds": float(np.mean(lengths)) if lengths else 0.0,
+        "max_outage_rounds": int(max(lengths)) if lengths else 0,
+    }
+
+
+def _realized_edge_alive(timeline: FaultTimeline, topo: Topology):
+    """([T, E] alive mask, [E, 2] edge list): an edge is alive iff its link
+    is up and both its ends are up and sampled in."""
+    edges = timeline.edge_index if timeline.edge_index is not None else _edge_list(topo)
+    T = timeline.horizon
+    alive = (timeline.edge_up.copy() if timeline.edge_up is not None
+             else np.ones((T, edges.shape[0]), dtype=bool))
+    for mask in (timeline.node_up, timeline.part_up):
+        if mask is not None:
+            alive &= mask[:, edges[:, 0]] & mask[:, edges[:, 1]]
+    return alive, edges
+
+
+def _union_connected(present: np.ndarray, edges: np.ndarray, n: int) -> bool:
+    """Union-find connectivity of the graph with ``edges[present]``."""
+    parent = list(range(n))
+
+    def find(a: int) -> int:
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    comps = n
+    for i, j in edges[present]:
+        ri, rj = find(int(i)), find(int(j))
+        if ri != rj:
+            parent[ri] = rj
+            comps -= 1
+    return comps == 1
+
+
+def windowed_connectivity(timeline: FaultTimeline, topo: Topology) -> Optional[int]:
+    """B̂: the smallest B such that every length-B window's union of realized
+    graphs is connected (weakly, for directed graphs); None if even the
+    whole horizon's union is not."""
+    alive, edges = _realized_edge_alive(timeline, topo)
+    n = topo.n
+    T = timeline.horizon
+    csum = np.concatenate(
+        [np.zeros((1, edges.shape[0]), dtype=np.int64),
+         np.cumsum(alive, axis=0, dtype=np.int64)],
+        axis=0,
+    )
+
+    def all_windows_connected(B: int) -> bool:
+        for s in range(T - B + 1):
+            if not _union_connected((csum[s + B] - csum[s]) > 0, edges, n):
+                return False
+        return True
+
+    if not all_windows_connected(T):
+        return None
+    lo, hi = 1, T
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if all_windows_connected(mid):
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+# --- one round ---------------------------------------------------------------
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(torch.float32, dtype)
+
+
+class Round:
+    """One round's realized graph on the run's device, and the operations
+    over it. ``A``: the float32 [N, N] realized adjacency (None under a
+    matching schedule); ``active``: the float32 [N] node mask; ``partner``:
+    the int64 [N] matching (matching schedules); ``rejoin``: this round's
+    rejoining nodes (bool [N]) under ``neighbor_restart``."""
+
+    def __init__(self, A, active, partner=None, *, directed=False, rejoin=None):
+        self.A, self.active, self.partner = A, active, partner
+        self.directed, self.rejoin = directed, rejoin
+        self._weights = {}
+
+    def weights(self, acc: torch.dtype) -> torch.Tensor:
+        """W_t in ``acc``: MH, or column-stochastic on a directed graph."""
+        if acc not in self._weights:
+            rule = column_stochastic_weights if self.directed else metropolis_hastings_weights
+            self._weights[acc] = rule(self.A.to(acc))
+        return self._weights[acc]
+
+    def mix(self, x: torch.Tensor) -> torch.Tensor:
+        """W_t x, in promote(float32, dtype), cast back."""
+        if self.partner is not None:
+            return (0.5 * (x + x[self.partner])).to(x.dtype)
+        acc = _acc(x.dtype)
+        return torch.matmul(self.weights(acc), x.to(acc)).to(x.dtype)
+
+    def neighbor_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """A_t x (the matched partner's row under a matching)."""
+        if self.partner is not None:
+            idx = torch.arange(x.shape[0], device=x.device)
+            matched = (self.partner != idx).to(x.dtype)
+            return (x[self.partner] * matched.reshape((-1,) + (1,) * (x.ndim - 1))).to(x.dtype)
+        acc = _acc(x.dtype)
+        return torch.matmul(self.A.to(acc), x.to(acc)).to(x.dtype)
+
+    def degree_sum(self) -> torch.Tensor:
+        """Σ realized degrees, a float32 tensor of one element."""
+        if self.partner is not None:
+            idx = torch.arange(self.partner.shape[0], device=self.partner.device)
+            return torch.sum((self.partner != idx).to(torch.float32))
+        return torch.sum(self.A)
+
+    def live(self, nbr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The gather form: float32 [N, k_max] liveness of each neighbour-table
+        slot, A_t[i, nbr[i, s]] on live slots (bitwise the JAX package's
+        per-slot gather of the same draws)."""
+        return torch.gather(self.A, 1, nbr) * mask
+
+    def restart(self, x: torch.Tensor) -> torch.Tensor:
+        """``neighbor_restart``: a rejoining node with realized neighbours
+        takes their average; every other row passes through."""
+        acc = _acc(x.dtype)
+        A = self.A.to(acc)
+        deg = torch.sum(A, dim=1)
+        nbr_avg = torch.matmul(A, x.to(acc)) / torch.clamp(deg, min=1.0)[:, None]
+        take = self.rejoin & (deg > 0)
+        return torch.where(take[:, None], nbr_avg, x.to(acc)).to(x.dtype)
+
+
+class FaultyMixing:
+    """Per-round mixing over a randomly failing topology (see the module
+    docstring); ``realize(t)`` gives the round. ``freezes``: inactive nodes
+    keep their whole state for the round (stragglers, churn or
+    participation). ``timeline``: the host timeline, or None on the
+    memoryless path."""
+
+    def __init__(self, topo: Topology, *, device, drop_prob=0.0, straggler_prob=0.0,
+                 one_peer=False, churn_active=False, participation_active=False,
+                 rejoin="frozen", keys=None, timeline_tensors=None, timeline=None,
+                 partners=None):
+        self.topo, self.device = topo, device
+        self.drop_prob, self.straggler_prob = drop_prob, straggler_prob
+        self.one_peer, self.churn_active = one_peer, churn_active
+        self.participation_active, self.rejoin = participation_active, rejoin
+        self.timeline = timeline
+        self.freezes = straggler_prob > 0.0 or churn_active or participation_active
+        self._keys = keys
+        self._tl = timeline_tensors
+        self._partners = partners  # round-robin phases [P, N]
+        n = topo.n
+        self._base = torch.as_tensor(np.asarray(topo.adjacency) != 0, dtype=torch.uint8,
+                                     device=device).contiguous()
+        self._ones = torch.ones(n, dtype=torch.float32, device=device)
+        if timeline_tensors is not None:
+            tl = timeline_tensors
+            self._edge_up = self._eid = None
+            if tl["edge_up"] is not None:
+                # Edge e's liveness read at both of its entries; non-edges at
+                # the appended zero column.
+                E = tl["edge_up"].shape[1]
+                eid = np.full((n, n), E, dtype=np.int64)
+                ei, ej = timeline.edge_index[:, 0], timeline.edge_index[:, 1]
+                eid[ei, ej] = np.arange(E)
+                if not topo.directed:
+                    eid[ej, ei] = np.arange(E)
+                self._eid = torch.as_tensor(eid, device=device)
+                self._edge_up = torch.cat(
+                    [tl["edge_up"].to(torch.float32),
+                     torch.zeros((tl["edge_up"].shape[0], 1), device=device)], dim=1)
+            self._node_up = (tl["node_up"].to(torch.float32)
+                             if tl["node_up"] is not None else None)
+            self._part_up = (tl["part_up"].to(torch.float32)
+                             if tl["part_up"] is not None else None)
+            self._rejoin = tl["rejoin"] if rejoin == "neighbor_restart" else None
+
+    @property
+    def directed(self) -> bool:
+        return self.topo.directed
+
+    def realize(self, t: torch.Tensor) -> Round:
+        """The round at the counter ``t`` (an int64 tensor of one element on
+        the run's device)."""
+        if self._partners is not None:
+            phase = torch.remainder(t, self._partners.shape[0])
+            return Round(None, self._ones, self._partners.index_select(0, phase)[0])
+        if self._tl is None:
+            A, active, scores = draw_kernels.realize_round(
+                t, self._keys, self._base, drop_prob=self.drop_prob,
+                straggler_prob=self.straggler_prob, directed=self.directed,
+                scores=self.one_peer)
+            rejoin = None
+        else:
+            active = self._ones
+            if self._node_up is not None:
+                active = self._node_up.index_select(0, t)[0]
+                if self._part_up is not None:
+                    active = active * self._part_up.index_select(0, t)[0]
+            elif self._part_up is not None:
+                active = self._part_up.index_select(0, t)[0]
+            if self._edge_up is not None:
+                A = self._edge_up.index_select(0, t)[0][self._eid]
+            else:
+                A = self._base.to(torch.float32)
+            if self._node_up is not None or self._part_up is not None:
+                A = A * active[:, None] * active[None, :]
+            scores = None
+            if self.one_peer:
+                _, _, scores = draw_kernels.realize_round(
+                    t, self._keys, self._base, drop_prob=0.0, straggler_prob=0.0,
+                    directed=self.directed, scores=True, given=A.contiguous())
+            rejoin = (self._rejoin.index_select(0, t)[0] if self._rejoin is not None else None)
+        if self.one_peer:
+            return Round(None, active, sample_one_peer_matching(scores, A))
+        return Round(A, active, directed=self.directed, rejoin=rejoin)
+
+    # The JAX package's per-t functions, through ``realize`` (for the tests).
+
+    def _t(self, t) -> torch.Tensor:
+        if isinstance(t, torch.Tensor):
+            return t.reshape(1).to(device=self.device, dtype=torch.int64)
+        return torch.tensor([int(t)], dtype=torch.int64, device=self.device)
+
+    def realized_adjacency(self, t) -> torch.Tensor:
+        return self.realize(self._t(t)).A
+
+    def active(self, t) -> torch.Tensor:
+        return self.realize(self._t(t)).active
+
+    def partner(self, t) -> torch.Tensor:
+        return self.realize(self._t(t)).partner
+
+    def mix(self, t, x: torch.Tensor) -> torch.Tensor:
+        return self.realize(self._t(t)).mix(x)
+
+    def neighbor_sum(self, t, x: torch.Tensor) -> torch.Tensor:
+        return self.realize(self._t(t)).neighbor_sum(x)
+
+    def realized_degree_sum(self, t) -> torch.Tensor:
+        return self.realize(self._t(t)).degree_sum()
+
+    def rejoin_restart(self, t, x: torch.Tensor) -> torch.Tensor:
+        return self.realize(self._t(t)).restart(x)
+
+
+def make_round_robin_mixing(topo: Topology, *, device="cuda") -> FaultyMixing:
+    """The deterministic matching schedule (``parallel/matchings.py``) as
+    per-round mixing: phase t mod P at round t."""
+    from distributed_optimization_tpu_torch.parallel.matchings import round_robin_partners
+
+    device = resolve_device(device)
+    partners = torch.as_tensor(round_robin_partners(topo), dtype=torch.int64, device=device)
+    return FaultyMixing(topo, device=device, partners=partners)
+
+
+def make_faulty_mixing(
+    topo: Topology,
+    drop_prob: float,
+    seed: int,
+    straggler_prob: float = 0.0,
+    one_peer: bool = False,
+    burst_len: float = 0.0,
+    mttf: float = 0.0,
+    mttr: float = 0.0,
+    rejoin: str = "frozen",
+    horizon: Optional[int] = None,
+    timeline: Optional[FaultTimeline] = None,
+    participation_rate: float = 1.0,
+    *,
+    device="cuda",
+    x64: bool = False,
+) -> FaultyMixing:
+    """Per-round mixing over the dense base topology, with the JAX
+    package's validation and messages. Memoryless faults draw each round;
+    bursty edges, churn and participation need ``horizon`` and unroll a
+    timeline at set-up (bitwise the memoryless draws at burst_len=1 and at
+    the iid-equivalent churn point). ``timeline`` injects a prebuilt one.
+    ``x64`` keys the streams as a float64 run does."""
+    if not 0.0 <= drop_prob < 1.0:
+        raise ValueError(f"drop_prob must be in [0, 1), got {drop_prob}")
+    if not 0.0 <= straggler_prob < 1.0:
+        raise ValueError(
+            f"straggler_prob must be in [0, 1), got {straggler_prob}"
+        )
+    if topo.directed and one_peer:
+        raise ValueError(
+            "one_peer gossip is a mutual-matching (undirected) schedule; "
+            f"topology {topo.name!r} has one-way links, so a pairwise "
+            "exchange cannot be realized"
+        )
+    if burst_len != 0.0 and burst_len < 1.0:
+        raise ValueError(
+            f"burst_len must be 0 (iid sampler) or >= 1, got {burst_len}"
+        )
+    if rejoin not in REJOIN_POLICIES:
+        raise ValueError(
+            f"Unknown rejoin policy: {rejoin!r}; known: {REJOIN_POLICIES}"
+        )
+    churn_active = mttf > 0.0 or mttr > 0.0
+    if churn_active and one_peer:
+        raise ValueError(
+            "crash-recovery churn requires the synchronous schedule: rejoin "
+            "policies act on the realized neighborhood, which a one-peer "
+            "matching (at most one partner per round) cannot supply"
+        )
+    if not 0.0 < participation_rate <= 1.0:
+        raise ValueError(
+            f"participation_rate must be in (0, 1], got {participation_rate}"
+        )
+    participation_active = participation_rate < 1.0
+    if participation_active and one_peer:
+        raise ValueError(
+            "participation sampling requires the synchronous schedule: the "
+            "sampled subgraph reweights the whole realized neighborhood, "
+            "which a one-peer matching cannot supply"
+        )
+    device = resolve_device(device)
+    use_timeline = (burst_len >= 1.0 or churn_active or participation_active
+                    or timeline is not None)
+    keys = _tag_keys(seed, x64, FAULT_TAG, NODE_TAG, MATCH_TAG)
+    tensors = None
+    if use_timeline:
+        if timeline is None:
+            if horizon is None:
+                raise ValueError(
+                    "persistent fault processes (burst_len >= 1, mttf/mttr, or "
+                    "participation_rate < 1) precompute a [horizon]-indexed "
+                    "timeline; pass horizon=n_iterations"
+                )
+            tensors, edge_index = _timeline_tensors(
+                topo, horizon, seed, edge_drop_prob=drop_prob,
+                burst_len=burst_len if burst_len >= 1.0 else 1.0,
+                straggler_prob=0.0 if churn_active else straggler_prob,
+                mttf=mttf, mttr=mttr, participation_rate=participation_rate,
+                device=device, x64=x64)
+            timeline = FaultTimeline(
+                horizon=horizon, directed=topo.directed, edge_index=edge_index,
+                **{k: (v.cpu().numpy() if v is not None else None) for k, v in tensors.items()})
+        else:
+            tensors = {k: (torch.as_tensor(getattr(timeline, k), device=device)
+                           if getattr(timeline, k) is not None else None)
+                       for k in ("edge_up", "node_up", "rejoin", "part_up")}
+    return FaultyMixing(
+        topo, device=device, drop_prob=drop_prob, straggler_prob=straggler_prob,
+        one_peer=one_peer, churn_active=churn_active,
+        participation_active=participation_active, rejoin=rejoin, keys=keys,
+        timeline_tensors=tensors, timeline=timeline,
+    )

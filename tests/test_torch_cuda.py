@@ -28,7 +28,14 @@ twin of ops/compression.py bit for bit, mask bits and qsgd levels included,
 which tests/test_torch_compression.py holds to the JAX package. The robust
 kernels are also held on an Erdős–Rényi table of rows of 3 to 13 neighbours;
 the gather and sparse mixing forms replay bitwise in a CUDA graph and equal
-the CPU bit for bit; push-sum's [N, 1] mass goes through ring_mix.
+the CPU bit for bit; push-sum's [N, 1] mass goes through ring_mix. The draw
+kernels (ops/draw_kernels.py: one round's realized graph, the fault
+timeline, the large-noise payload) equal their plain versions on the card
+bit for bit at N = 16, 64, 256 and 1,024, directed and undirected, which
+tests/test_torch_fault_rounds.py and test_torch_large_noise.py hold to the
+JAX package on the CPU; both fused robust kernels on a liveness that changes
+every round equal the gather form bit for bit (count rules); a faulted run
+in the graph equals its measured run bit for bit with exact launch counts.
 """
 
 import dataclasses
@@ -39,6 +46,7 @@ import torch
 
 from distributed_optimization_tpu_torch.ops import compression
 from distributed_optimization_tpu_torch.ops import compression_kernels as ck
+from distributed_optimization_tpu_torch.ops import draw_kernels as dk
 from distributed_optimization_tpu_torch.ops import fc_kernels as fk
 from distributed_optimization_tpu_torch.ops import prng, sampling
 from distributed_optimization_tpu_torch.ops import ring_kernels as rk
@@ -526,7 +534,7 @@ def graph_data():
 
 
 def _launch_counts():
-    return {name: n for mod in (rk, fk, bk, sk, ck) for name, n in mod.LAUNCHES.items()}
+    return {name: n for mod in (rk, fk, bk, sk, ck, dk) for name, n in mod.LAUNCHES.items()}
 
 
 def _counted_run(cfg, ds, f_opt, **kw):
@@ -1131,3 +1139,170 @@ def test_cuda_softmax_graph_run_is_bitwise_its_measured_run(cuda_device, graph_d
                                          X, y, torch.full_like(y, 1 / 16), 1e-4).view(6, 21, 6)
     for c in range(3, 6):
         assert torch.equal(g[..., c], g[..., 2])
+
+
+# --- the fault and noise draws ------------------------------------------------
+
+DRAW_NODES = (16, 64, 256, 1024)
+DRAW_GRAPHS = ("ring", "erdos_renyi", "directed_ring", "directed_erdos_renyi")
+
+
+def _draw_topology(name, n):
+    from distributed_optimization_tpu_torch.parallel.topology import build_topology
+
+    return build_topology(name, n, erdos_renyi_p=min(1.0, 12.0 / n), seed=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", DRAW_GRAPHS)
+@pytest.mark.parametrize("n", DRAW_NODES)
+def test_cuda_realize_round_is_bitwise_its_plain_version(cuda_device, graph, n):
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    topo = _draw_topology(graph, n)
+    keys = faults._tag_keys(203, False, faults.FAULT_TAG, faults.NODE_TAG, faults.MATCH_TAG)
+    base = torch.as_tensor(topo.adjacency != 0, dtype=torch.uint8).contiguous()
+    for p, q, scores in ((0.2, 0.0, False), (0.0, 0.1, False), (0.2, 0.1, True),
+                         (0.0, 0.0, True), (0.9, 0.5, False)):
+        if scores and topo.directed:
+            continue
+        for t in (0, 1, 12_345, 2**31 - 1, 2**32 + 7):
+            want = dk.realize_round_plain(torch.tensor([t]), keys, base, drop_prob=p,
+                                          straggler_prob=q, directed=topo.directed,
+                                          scores=scores)
+            got = dk.realize_round(torch.tensor([t], device=cuda_device), keys,
+                                   base.to(cuda_device), drop_prob=p, straggler_prob=q,
+                                   directed=topo.directed, scores=scores)
+            for a, b in zip(got, want):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    assert torch.equal(a.cpu(), b), (p, q, t)
+    given = torch.as_tensor(topo.adjacency, dtype=torch.float32).contiguous()
+    if not topo.directed:
+        t = torch.tensor([5])
+        want = dk.realize_round_plain(t, keys, base, drop_prob=0.0, straggler_prob=0.0,
+                                      directed=False, scores=True, given=given)[2]
+        got = dk.realize_round(t.to(cuda_device), keys, base.to(cuda_device), drop_prob=0.0,
+                               straggler_prob=0.0, directed=False, scores=True,
+                               given=given.to(cuda_device))[2]
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", DRAW_GRAPHS)
+@pytest.mark.parametrize("n", DRAW_NODES)
+def test_cuda_fault_timeline_is_bitwise_its_plain_version(cuda_device, graph, n):
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    topo = _draw_topology(graph, n)
+    horizon = 200 if n < 1024 else 40
+    for kw in (dict(edge_drop_prob=0.3, burst_len=4.0), dict(edge_drop_prob=0.3),
+               dict(mttf=8.0, mttr=3.0, participation_rate=0.7),
+               dict(straggler_prob=0.2, edge_drop_prob=0.1, burst_len=2.0)):
+        want = faults.build_fault_timeline(topo, horizon, 203, device="cpu", **kw)
+        got = faults.build_fault_timeline(topo, horizon, 203, device=cuda_device, **kw)
+        for field in ("edge_up", "node_up", "rejoin", "part_up"):
+            a, b = getattr(got, field), getattr(want, field)
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert np.array_equal(a, b), (kw, field)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", DRAW_NODES)
+def test_cuda_large_noise_is_bitwise_its_plain_version(cuda_device, n, dtype):
+    key = prng.fold_in(prng.key(203, x64=dtype == torch.float64), 0xBAD0)
+    for d in (1, 41, 81, 1000):
+        gen = torch.Generator(device=cuda_device).manual_seed(d)
+        x = torch.randn((n, d), generator=gen, device=cuda_device, dtype=dtype)
+        byz = (torch.arange(n, device=cuda_device) % 5 == 1).to(torch.uint8)
+        for t in (0, 7, 2**31 - 1):
+            tt = torch.tensor([t], device=cuda_device)
+            got = dk.large_noise(key, tt, byz, x, 10.0)
+            want = dk.large_noise_plain(key, tt, byz, x, 10.0)
+            assert torch.equal(got, want), (d, t)
+            assert torch.equal(got[byz == 0], x[byz == 0])
+
+
+@pytest.mark.cuda
+def test_cuda_draw_kernels_replay_with_the_current_t(cuda_device):
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    topo = _draw_topology("ring", 64)
+    keys = faults._tag_keys(203, False, faults.FAULT_TAG, faults.NODE_TAG, faults.MATCH_TAG)
+    base = torch.as_tensor(topo.adjacency != 0, dtype=torch.uint8, device=cuda_device)
+    t = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    kw = dict(drop_prob=0.2, straggler_prob=0.1, directed=False)
+    dk.realize_round(t, keys, base, **kw)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dk.realize_round(t, keys, base, **kw)[0]
+    dk.reset_launch_counts()
+    for step in range(5):
+        t.fill_(step)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = dk.realize_round_plain(torch.tensor([step]), keys, base.cpu(), **kw)[0]
+        assert torch.equal(out.cpu(), want)
+    assert dk.LAUNCHES["realize_round"] == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", COUNT_RULES)
+def test_cuda_fused_robust_kernels_on_per_round_liveness(cuda_device, rule):
+    """Both fused kernels on a liveness gathered from a new A_t each round
+    equal the gather form bit for bit."""
+    from distributed_optimization_tpu_torch.ops.robust_aggregation import (
+        make_gather_robust_aggregator,
+    )
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    from distributed_optimization_tpu_torch.parallel.topology import build_topology
+
+    topo = build_topology("erdos_renyi", 64, erdos_renyi_p=0.1, seed=3)  # k_max 13
+    nbr_idx, nbr_mask = neighbor_table(topo.adjacency)
+    fm = faults.make_faulty_mixing(topo, 0.3, 203, straggler_prob=0.1, device=cuda_device)
+    nbr = torch.as_tensor(nbr_idx, dtype=torch.int64, device=cuda_device)
+    mask = torch.as_tensor(nbr_mask, dtype=torch.float32, device=cuda_device)
+    agg = bk.make_fused_robust_aggregator(rule, 1, nbr_idx, device=cuda_device)
+    step = bk.make_fused_robust_dsgd_step(rule, 1, nbr_idx, device=cuda_device)
+    gather = make_gather_robust_aggregator(rule, 1, nbr_idx, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((64, 81), generator=gen, device=cuda_device)
+    g = torch.randn((64, 81), generator=gen, device=cuda_device)
+    eta = torch.tensor([0.05], device=cuda_device)
+    lives = []
+    for t in range(6):
+        live = fm.realize(torch.tensor([t], device=cuda_device)).live(nbr, mask)
+        lives.append(live)
+        want = gather(live, x)
+        assert torch.equal(agg(live, x), want)
+        assert torch.equal(step(live, x, g, eta), want - eta * g)
+    assert not all(torch.equal(lives[0], lv) for lv in lives[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields", [
+    dict(edge_drop_prob=0.2, straggler_prob=0.1),
+    dict(gossip_schedule="one_peer", edge_drop_prob=0.2),
+    dict(edge_drop_prob=0.3, burst_len=4.0, mttf=10.0, mttr=4.0, rejoin="neighbor_restart"),
+    dict(partition="shuffled", attack="large_noise", n_byzantine=2, attack_scale=5.0,
+         aggregation="trimmed_mean", robust_b=1, robust_impl="fused", edge_drop_prob=0.1),
+], ids=["iid", "one_peer", "bursty-churn", "noise-fused"])
+def test_cuda_faulted_graph_run_is_bitwise_its_measured_run(cuda_device, graph_data, fields):
+    base, ds, f_opt = graph_data[fields.get("partition", "sorted")]
+    cfg = base.replace(**fields, n_iterations=60, eval_every=10)
+    graph, glaunch = _counted_run(cfg, ds, f_opt)
+    measured, mlaunch = _counted_run(cfg, ds, f_opt, measure_timestamps=True)
+    assert np.array_equal(graph.history.objective, measured.history.objective)
+    assert np.array_equal(graph.final_models, measured.final_models)
+    assert graph.history.total_floats_transmitted == measured.history.total_floats_transmitted
+    assert glaunch == mlaunch
+    T = cfg.n_iterations
+    memoryless = fields.get("burst_len", 0.0) == 0.0
+    assert glaunch["realize_round"] == (T if memoryless else 0)
+    assert glaunch["fault_timeline"] == (0 if memoryless else 1)
+    if "attack" in fields:
+        assert glaunch["large_noise"] == T
+        assert glaunch["make_fused_robust_dsgd_step"] == T

@@ -232,11 +232,18 @@ Phases:
     and after every run.
 
 19. faults: the three draw kernels (``ops/draw_kernels.py``: one round's
-    realized graph, the fault timeline, the large-noise payload; no
-    pallas_call behind them) bitwise their plain versions on the card
-    (realize_round at N=64, 256 and 1,024, directed, with one-peer scores;
-    the timeline at the churn phase's cells; the noise in both dtypes up to
-    4,096 × 1,024), timed against their bounds;
+    mixing operands, the fault timeline, the large-noise payload; no
+    pallas_call behind them) bitwise their plain versions on the card:
+    realize_round's A_t, active, W_t (float32 and float64), degree count
+    and one-peer scores, on the ring, Erdős–Rényi,
+    grid, directed ring and directed ER at N=64, 256 and 1,024 and the
+    fully-connected graph at N=25 (``ROUND_GRAPHS``), under every fault
+    mode (``ROUND_MODES``: drops, stragglers, both, bursty edges, churn
+    with either rejoin policy, participation, one-peer), a timeline's also
+    at and past its horizon; the timeline at
+    the churn phase's cells; the noise in both dtypes up to 4,096 × 1,024;
+    each timed against its bound (realize_round at main's faulted shape,
+    in a graph and event-timed);
     ``examples/bench_faults.py``'s twelve variants (logistic N=64 ring, the
     gather sampler, T=20,000, eval every iteration: D-SGD fault-free, 20%
     drops, 10% stragglers, both, one-peer, round-robin; GT and push-sum on
@@ -253,7 +260,8 @@ Phases:
     (timelines drawn by the kernel), GT's tracking residual under churn
     below 1e-9 in float64, ``neighbor_restart`` ending at or below
     ``frozen``'s consensus after 150-round outages; ``fault_timeline``
-    once in each run with bursty edges or churn.
+    once in each run with bursty edges or churn, and ``realize_round`` once
+    a step in every run (it reads the timeline where there is one).
 
 Every run goes through the port's run loop: after a warm-up chunk, CUDA
 graph replays (``backends/torch_backend.py``). The kernels count their own
@@ -299,7 +307,15 @@ step: its kernel and two ``take_along_dim`` launches); ``compression_ab``
 another ``compression_kernels.cu`` with this tree's C interface, holds this
 tree bitwise to it (memory⁺ and the mask bits or levels) wherever it takes
 the shape, and times both in turns, in a graph and event-timed, at the main
-shape and the wide ones. ``profile`` also traces the parity run (N=25,
+shape and the wide ones; ``draw_ab`` (``--phases card,draw_ab
+--draw-baseline PATH``) binds another ``draw_kernels.cu`` through the
+round's C interface of commit c2e806b (the last before the round kernel
+gave W_t; a later source does not bind), holds this tree's round to it at ``DRAW_AB_SHAPES``
+(A_t and active bitwise, W_t bitwise on the rings and within k_max − 1 ulps
+of 1.0 elsewhere, two orders of a row's sum; the degree totals equal) and
+times the parent's round (its
+launch, then W_t and the degree sum in PyTorch) against this tree's one
+launch in a graph, in turns. ``profile`` also traces the parity run (N=25,
 gather sampling).
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
@@ -332,8 +348,11 @@ PHASES = ("card", "kernels", "sampling", "reference", "parity", "main", "mixing"
 # interface; sampling_ab (with --sampling-baseline), both sampling forms
 # against another build of sampling_kernels.cu; compression_ab (with
 # --compression-baseline), the compression kernel against another build of
-# compression_kernels.cu.
-OPTIONAL_PHASES = ("profile", "ring_ab", "robust_ab", "fc_ab", "sampling_ab", "compression_ab")
+# compression_kernels.cu; draw_ab (with --draw-baseline), one faulted round
+# of another draw_kernels.cu with commit c2e806b's C interface (its launch, then
+# W_t and the degree sum in PyTorch) against this tree's one launch.
+OPTIONAL_PHASES = ("profile", "ring_ab", "robust_ab", "fc_ab", "sampling_ab", "compression_ab",
+                   "draw_ab")
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; 67 TFLOP/s float32 and
 # 34 TFLOP/s float64 outside the tensor cores.
@@ -516,6 +535,33 @@ CHURN_OUTAGE = dict(n_iterations=2000, mttf=400.0, mttr=150.0)
 # fault_timeline at the churn phase's GT cell, large_noise at the byzantine
 # phase's noise rows (N=64, d=11).
 NOISE_SHAPE = (64, 11)
+# The round kernel's graphs, held bitwise to its plain version in every fault
+# mode (ROUND_MODES), W_t in both dtypes: (name, N), Erdős–Rényi
+# and directed ER at mean degree 12 (p = 12 / N).
+ROUND_GRAPHS = tuple((g, n) for g in ("ring", "erdos_renyi", "grid", "directed_ring",
+                                      "directed_erdos_renyi") for n in (64, 256, 1024))
+ROUND_GRAPHS += (("fully_connected", 25),)
+ROUND_DEGREE = 12.0
+# The fault modes, make_faulty_mixing's arguments: memoryless draws, the
+# timeline's processes (horizon 60), one-peer scores.
+ROUND_HORIZON = 60
+ROUND_MODES = {
+    "drops": dict(drop_prob=0.2),
+    "stragglers": dict(drop_prob=0.0, straggler_prob=0.1),
+    "both": dict(drop_prob=0.2, straggler_prob=0.1),
+    "bursty": dict(drop_prob=0.3, burst_len=4.0, horizon=ROUND_HORIZON),
+    "churn_frozen": dict(drop_prob=0.2, mttf=8.0, mttr=3.0, horizon=ROUND_HORIZON),
+    "churn_restart": dict(drop_prob=0.0, mttf=8.0, mttr=3.0, rejoin="neighbor_restart",
+                          horizon=ROUND_HORIZON),
+    "participation": dict(drop_prob=0.1, participation_rate=0.7, horizon=ROUND_HORIZON),
+    "one_peer": dict(drop_prob=0.2, straggler_prob=0.1, one_peer=True),
+}
+# draw_ab's inputs: (graph, N, W_t's dtype), the parent's round (its launch,
+# then W_t and the degree sum in PyTorch) against this tree's one launch,
+# under 20% drops and 10% stragglers.
+DRAW_AB_SHAPES = (("ring", 256, "float32"), ("ring", 256, "float64"), ("ring", 64, "float32"),
+                  ("directed_ring", 64, "float32"), ("erdos_renyi", 256, "float32"),
+                  ("fully_connected", 25, "float32"), ("erdos_renyi", 1024, "float32"))
 # Floating-point operations of one normal draw's erf_inv (log1p, the Horner
 # steps, the select and the products), by dtype.
 ERF_INV_OPS = {"float32": 2 * 9 + 24, "float64": 2 * 23 + 30}
@@ -1630,6 +1676,93 @@ def phase_sampling_ab(torch, kernels, sampling, prng, baseline: str):
                     f"bound {b_ms * 1e3:.4f} us ({b_by})")
     say(f"[sampling_ab] this tree slower than the baseline's faster turn in {len(slower)} of "
         f"{lines}: {', '.join(slower) if slower else 'none'}")
+
+
+def phase_draw_ab(torch, kernels, pkg, baseline: str):
+    """One faulted round of the parent's design against this tree's, in one
+    call. ``baseline``: a draw_kernels.cu with the round's C interface of
+    commit c2e806b (realize_round(t, keys, base, given, n, p, q, drop,
+    strag, directed, a, active, scores, stream)), that commit's own; no
+    later source has it. Its round is its
+    launch writing A_t and active, then W_t (``metropolis_hastings_weights``
+    or ``column_stochastic_weights`` of A_t in the accumulation dtype) and
+    the degree sum added to the float64 total in PyTorch, as the parent's
+    step did; this tree's is one launch. At each DRAW_AB_SHAPES input under
+    20% drops and 10% stragglers: A_t and active bitwise the baseline's, W_t
+    bitwise on the rings and elsewhere within k_max − 1 ulps of 1.0 (the
+    bound on two orders of summing a row's k_max weights: the baseline's
+    ``torch.sum`` on the card adds in a tree, this tree in slot order), the
+    degree totals equal; then both rounds timed in
+    a graph of 200 in turns (baseline, this tree, this tree, baseline) and
+    event-timed, beside the empty kernel in a graph and the bound."""
+    import ctypes
+    import pathlib
+
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    build, dk, rk = kernels["build"], kernels["dk"], kernels["rk"]
+    lib = ctypes.CDLL(str(build.build(pathlib.Path(baseline).resolve())))
+    ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+    lib.realize_round.argtypes = [ptr, ptr, ptr, ptr, i64, f32, f32, i32, i32, i32, ptr, ptr,
+                                  ptr, ptr]
+    lib.realize_round.restype = ctypes.c_int
+    p, q = 0.2, 0.1
+    one = torch.zeros(1, device="cuda")
+    floor_us = graph_ms(torch, lambda: rk.launch_floor(one.device)) * 1e3
+    say(f"[draw_ab] baseline {baseline}; empty kernel {floor_us:.3f} us a launch in a graph "
+        f"of {TIMED_LAUNCHES}")
+    slower = []
+    for graph, n, dname in DRAW_AB_SHAPES:
+        dtype = getattr(torch, dname)
+        topo = pkg.build_topology(graph, n, erdos_renyi_p=ROUND_DEGREE / n, seed=1)
+        fm = faults.make_faulty_mixing(topo, p, 203, straggler_prob=q, device="cuda",
+                                       x64=dtype == torch.float64)
+        base = torch.as_tensor(topo.adjacency != 0, dtype=torch.uint8, device="cuda")
+        words = dk._words(*fm._keys)
+        rule = faults.column_stochastic_weights if topo.directed else \
+            faults.metropolis_hastings_weights
+        t = torch.tensor([4_321], device="cuda")
+        old_total = torch.zeros((), dtype=torch.float64, device="cuda")
+        new_total = torch.zeros((), dtype=torch.float64, device="cuda")
+
+        def old_round():
+            a = torch.empty((n, n), dtype=torch.float32, device="cuda")
+            active = torch.empty(n, dtype=torch.float32, device="cuda")
+            err = lib.realize_round(t.data_ptr(), words, base.data_ptr(), None, n,
+                                    dk._f32(p), dk._f32(q), 1, 1, int(topo.directed),
+                                    a.data_ptr(), active.data_ptr(), None,
+                                    torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"draw_ab: the baseline's launch failed ({err})")
+            W = rule(a.to(dtype))
+            old_total.add_(torch.sum(a))
+            return a, active, W
+
+        def new_round():
+            return dk.realize_round(t, fm._keys, fm._tables, drop_prob=p, straggler_prob=q,
+                                    weights=dtype, degree_total=new_total)
+
+        a, active, W = old_round()
+        got = new_round()
+        exact = graph.endswith("ring")
+        k_max = fm._tables.in_nbr.shape[1]
+        tol = (k_max - 1) * float(torch.finfo(dtype).eps)
+        w_err = float((got.W - W).abs().max())
+        check(torch.equal(got.A, a) and torch.equal(got.active, active)
+              and (torch.equal(got.W, W) if exact else w_err <= tol)
+              and torch.equal(old_total, new_total),
+              f"draw_ab {graph} N={n} {dname}: this tree's round differs from the baseline's "
+              f"(W_t by {w_err:.3e})")
+        us = [graph_ms(torch, f) * 1e3 for f in (old_round, new_round, new_round, old_round)]
+        ev = [time_ms(torch, f) * 1e3 for f in (old_round, new_round)]
+        b_ms, b_by = realize_bound(fm._tables, dtype.itemsize)
+        if max(us[1], us[2]) > min(us[0], us[3]):
+            slower.append(f"{graph} N={n} {dname}")
+        say(f"[draw_ab] {graph:20s} N={n:5d} {dname}: baseline {us[0]:8.3f} {us[3]:8.3f} us  "
+            f"this tree {us[1]:8.3f} {us[2]:8.3f} us a round in a graph (event-timed "
+            f"{ev[0]:.3f} / {ev[1]:.3f} us); W_t {'bitwise' if exact else f'within {w_err:.2e}'}"
+            f" of the baseline's; bound {b_ms * 1e3:.4f} us ({b_by})")
+    say(f"[draw_ab] this tree slower than the baseline's faster turn in {len(slower)} of "
+        f"{len(DRAW_AB_SHAPES)}: {', '.join(slower) if slower else 'none'}")
 
 
 def _agree(label, card, host, tol=1e-12, phase="reference"):
@@ -2803,16 +2936,37 @@ def phase_robust_mixing(torch, np, pkg, kernels, final_models):
     return launches
 
 
-def realize_bound(n: int, edges: int, one_peer: bool = False):
-    """(ms, 'bytes' or 'operations') for one round: the [N, N] uint8 base
-    adjacency and t read once, A_t [N, N] float32 and active [N] written once
-    (and the [N, N] scores with one-peer); one Threefry call an edge, a node
-    and a round key (and an entry of the scores), a compare each."""
-    nbytes = 8 + n * n + 4 * n * n + 4 * n + (4 * n * n if one_peer else 0)
-    draws = edges + n + 3 + (n * n if one_peer else 0)
+def realize_bound(tables, itemsize: int):
+    """(ms, 'bytes' or 'operations') for one round: t and the neighbour
+    tables read once; A_t [N, N] float32, W_t [N, N] (``itemsize`` bytes an
+    entry), active [N] and the degree total (read and written) once; one
+    Threefry call and a compare a base edge and a node, one a round key."""
+    n = tables.n
+    table_bytes = sum(x.numel() * x.element_size() for x in (
+        tables.in_nbr, tables.in_cnt, tables.out_nbr, tables.out_cnt) if x is not None)
+    edges = int(tables.in_cnt.sum()) // (1 if tables.directed else 2)
+    nbytes = 8 + table_bytes + (4 + itemsize) * n * n + 4 * n + 16
+    draws = edges + n + 3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = (THREEFRY_OPS + 1) * draws / PEAK_INT32_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _round_is_the_twin_s(torch, dk, fm, t, dtype, graph, n, mode) -> int:
+    """One round of ``fm`` (a card's FaultyMixing) at t through the kernel
+    against its plain version on the same card tensors: A_t, active, W_t,
+    the scores and the degree count bit for bit."""
+    tt = torch.tensor([t], device="cuda")
+    kw = dict(drop_prob=fm.drop_prob, straggler_prob=fm.straggler_prob, timeline=fm._tl,
+              weights=None if fm.one_peer else dtype, scores=fm.one_peer)
+    want_total = torch.full((), 5.0, dtype=torch.float64, device="cuda")
+    want = dk.realize_round_plain(tt, fm._keys, fm._tables, degree_total=want_total, **kw)
+    total = torch.full((), 5.0, dtype=torch.float64, device="cuda")
+    got = dk.realize_round(tt, fm._keys, fm._tables, degree_total=total, **kw)
+    same = all((a is None) == (b is None) and (a is None or torch.equal(a, b))
+               for a, b in zip(got, want)) and torch.equal(total, want_total)
+    check(same, f"realize_round {graph} N={n} {mode} {dtype} t={t}: not bitwise its plain "
+                "version")
 
 
 def timeline_bound(horizon: int, edges: int, nodes: int, part: int, streams: int):
@@ -2838,41 +2992,74 @@ def noise_bound(n: int, d: int, n_byz: int, dtype_name: str, itemsize: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def draw_kernel_records(torch, np, dk, pkg):
+def draw_kernel_records(torch, np, dk, kernels_bk, pkg):
     """The three draw kernels against their plain versions on the card,
-    bitwise, at their path inputs and beside them, with their times."""
+    bitwise, at their path inputs and beside them, with their times; and
+    the fused robust aggregator (``kernels_bk``) on a round's liveness."""
     from distributed_optimization_tpu_torch.parallel import faults
 
     dev = torch.device("cuda")
     records = {}
-    keys = faults._tag_keys(203, False, faults.FAULT_TAG, faults.NODE_TAG, faults.MATCH_TAG)
-    for n, graph, p, q, one_peer in ((256, "ring", 0.2, 0.1, False), (64, "ring", 0.2, 0.1, False),
-                                     (64, "ring", 0.0, 0.0, True), (64, "directed_ring", 0.2, 0.1,
-                                                                     False),
-                                     (1024, "erdos_renyi", 0.2, 0.1, True)):
-        topo = pkg.build_topology(graph, n, erdos_renyi_p=12.0 / n, seed=1)
-        base = torch.as_tensor(topo.adjacency != 0, dtype=torch.uint8, device=dev).contiguous()
-        kw = dict(drop_prob=p, straggler_prob=q, directed=topo.directed, scores=one_peer)
-        for t in (0, 17, 2**31 - 1, 2**32 + 9):
-            tt = torch.tensor([t], device=dev)
-            got = dk.realize_round(tt, keys, base, **kw)
-            want = dk.realize_round_plain(tt, keys, base, **kw)
-            for a, b in zip(got, want):
-                check((a is None) == (b is None) and (a is None or torch.equal(a, b)),
-                      f"realize_round N={n} {graph} p={p} q={q} one_peer={one_peer} t={t}: "
-                      "not bitwise its plain version")
-        if (n, graph, one_peer) == (256, "ring", False):
-            tt = torch.tensor([123], device=dev)
-            ms = time_ms(torch, lambda: dk.realize_round(tt, keys, base, **kw))
-            in_graph = graph_ms(torch, lambda: dk.realize_round(tt, keys, base, **kw))
-            plain = time_ms(torch, lambda: dk.realize_round_plain(tt, keys, base, **kw), n=20)
-            b_ms, b_by = realize_bound(n, int(topo.adjacency.sum() // 2))
-            _kernel_line("realize_round", (n, n), "float32", 0.0, ms, plain, None, b_ms,
-                         b_by, f", in a graph {in_graph * 1e3:.2f} us")
-            records["realize_round"] = _record("realize_round", 0.0, ms, plain, b_ms, b_by, None,
-                                               graph_ms=in_graph, shape=[n, n], dtype="float32")
-    say("[faults] realize_round bitwise its plain version at N=256 and 64 (ring), 64 "
-        "(directed ring, one-peer scores) and 1,024 (Erdős–Rényi with scores), 4 counters each")
+    checked = 0
+    for graph, n in ROUND_GRAPHS:
+        topo = pkg.build_topology(graph, n, erdos_renyi_p=ROUND_DEGREE / n, seed=1)
+        for mode, kw in ROUND_MODES.items():
+            if topo.directed and mode == "one_peer":
+                continue
+            for dtype in (torch.float32, torch.float64):
+                fm = faults.make_faulty_mixing(topo, seed=203, device=dev,
+                                               x64=dtype == torch.float64, **kw)
+                ts = (0, 17, ROUND_HORIZON - 1, ROUND_HORIZON, ROUND_HORIZON + 40) \
+                    if fm.timeline is not None else (0, 17, 2**31 - 1, 2**32 + 9)
+                for t in ts:
+                    _round_is_the_twin_s(torch, dk, fm, t, dtype, graph, n, mode)
+                    checked += 1
+    say(f"[faults] realize_round bitwise its plain version (A_t, active, W_t, the degree "
+        f"count, one-peer scores) at {checked} inputs: "
+        f"{', '.join(f'{g} N={n}' for g, n in ROUND_GRAPHS)}; modes {', '.join(ROUND_MODES)}; "
+        "W_t in float32 and float64")
+    # The path's record: main's shapes under 20% drops and 10% stragglers.
+    topo = pkg.build_topology("ring", 256)
+    fm = faults.make_faulty_mixing(topo, 0.2, 203, straggler_prob=0.1, device=dev)
+    tt = torch.tensor([123], device=dev)
+    total = torch.zeros((), dtype=torch.float64, device=dev)
+    kw = dict(drop_prob=0.2, straggler_prob=0.1, weights=torch.float32, degree_total=total)
+    ms = time_ms(torch, lambda: dk.realize_round(tt, fm._keys, fm._tables, **kw))
+    in_graph = graph_ms(torch, lambda: dk.realize_round(tt, fm._keys, fm._tables, **kw))
+    plain = time_ms(torch, lambda: dk.realize_round_plain(tt, fm._keys, fm._tables, **kw),
+                    n=20)
+    b_ms, b_by = realize_bound(fm._tables, 4)
+    _kernel_line("realize_round", (256, 256), "float32", 0.0, ms, plain, None, b_ms, b_by,
+                 f", in a graph {in_graph * 1e3:.3f} us (A_t, W_t, active, degree count)")
+    records["realize_round"] = _record("realize_round", 0.0, ms, plain, b_ms, b_by, None,
+                                       graph_ms=in_graph, shape=[256, 256], dtype="float32")
+    # The fused robust aggregator on a round's liveness: the robust cell's
+    # ring (N=256, d=41) under 10% drops, trimmed mean b=1, as GT's two
+    # screens a step run it.
+    from distributed_optimization_tpu_torch.parallel.topology import neighbor_tables_for
+
+    topo = pkg.build_topology("ring", ROBUST_SHAPE[0])
+    fm = faults.make_faulty_mixing(topo, ROBUST_EDGE_DROP, 203, device=dev)
+    nbr_np, mask_np = neighbor_tables_for(topo)
+    nbr64 = torch.as_tensor(nbr_np, dtype=torch.int64, device=dev)
+    live = fm.realize(tt).live(nbr64, torch.as_tensor(mask_np, dtype=torch.float32, device=dev))
+    x = torch.randn(ROBUST_SHAPE, generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+    agg = kernels_bk.make_fused_robust_aggregator("trimmed_mean", 1, nbr_np, device=dev)
+    tau = torch.zeros(1, device=dev)
+    got = agg(live, x)
+    want = kernels_bk.fused_robust_plain("trimmed_mean", 1, nbr64, live, x, tau, adaptive=False)
+    check(torch.equal(got, want), "fused robust aggregator on a round's liveness: not bitwise "
+                                  "its plain version")
+    ms = time_ms(torch, lambda: agg(live, x))
+    in_graph = graph_ms(torch, lambda: agg(live, x))
+    plain = time_ms(torch, lambda: kernels_bk.fused_robust_plain(
+        "trimmed_mean", 1, nbr64, live, x, tau, adaptive=False), n=20)
+    b_ms, b_by = robust_bound("trimmed_mean", *ROBUST_SHAPE, nbr_np.shape[1], "float32", 4,
+                              False)
+    _kernel_line("robust_aggregator, round liveness", ROBUST_SHAPE, "float32", 0.0, ms, plain,
+                 None, b_ms, b_by, f", in a graph {in_graph * 1e3:.3f} us (ring, "
+                 f"{ROBUST_EDGE_DROP:.0%} drops, trimmed_mean b=1)")
     # The timeline at the churn phase's GT cell and at the burst sweep's.
     topo = pkg.build_topology("ring", CHURN_BASE["n_workers"])
     for horizon, kw in ((CHURN_GT["n_iterations"], dict(edge_drop_prob=0.2, burst_len=8.0,
@@ -3050,7 +3237,7 @@ def phase_churn(torch, np, pkg, kernels):
         check(bool(np.all(np.isfinite(h.objective))), f"churn {label}: non-finite gaps")
         persistent = cfg.burst_len >= 1.0 or cfg.mttf > 0.0
         check(launches.get("fault_timeline", 0) == (1 if persistent else 0)
-              and launches.get("realize_round", 0) == (0 if persistent else cfg.n_iterations),
+              and launches.get("realize_round", 0) == cfg.n_iterations,
               f"churn {label}: launches {launches}")
         return res
 
@@ -3588,6 +3775,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fc-baseline", help="the fc_kernels.cu that phase fc_ab compares with")
     ap.add_argument("--sampling-baseline",
                     help="the sampling_kernels.cu that phase sampling_ab compares with")
+    ap.add_argument("--draw-baseline",
+                    help="the draw_kernels.cu (parent's C interface) that phase draw_ab "
+                         "compares with")
     ap.add_argument("--compression-baseline",
                     help="the compression_kernels.cu that phase compression_ab compares with")
     args = ap.parse_args(argv)
@@ -3605,6 +3795,8 @@ def main(argv=None) -> int:
         ap.error("phase sampling_ab and --sampling-baseline go together")
     if ("compression_ab" in phases) != (args.compression_baseline is not None):
         ap.error("phase compression_ab and --compression-baseline go together")
+    if ("draw_ab" in phases) != (args.draw_baseline is not None):
+        ap.error("phase draw_ab and --draw-baseline go together")
 
     import torch
 
@@ -3737,7 +3929,7 @@ def main(argv=None) -> int:
         lap("objectives")
 
     if "faults" in phases:
-        records.update(draw_kernel_records(torch, np, dk, pkg))
+        records.update(draw_kernel_records(torch, np, dk, bk, pkg))
         counted["realize_round"] = phase_faults(torch, np, pkg, kernels)
         lap("faults")
     if "churn" in phases:
@@ -3764,6 +3956,9 @@ def main(argv=None) -> int:
     if "compression_ab" in phases:
         phase_compression_ab(torch, kernels, args.compression_baseline)
         lap("compression_ab")
+    if "draw_ab" in phases:
+        phase_draw_ab(torch, kernels, pkg, args.draw_baseline)
+        lap("draw_ab")
 
     if records:
         kernel_records = []
@@ -3772,7 +3967,7 @@ def main(argv=None) -> int:
             kernel_records.append({**record,
                                    "launches": None if launches is None else launches[name],
                                    "path": paths[name]})
-        if len(counted) == len(records):
+        if set(records) <= set(counted):
             check(all(k["launches"] > 0 for k in kernel_records),
                   "a ported kernel was not launched on its path")
         say(json.dumps({"kernels": kernel_records}))

@@ -11,11 +11,12 @@ composition, or the fused robust kernel) → step; gradient tracking gossips
 twice, ADMM exchanges the neighbour sum A x instead of W x, push-sum mixes
 its numerators and their [N, 1] mass, and τ > 1 local steps add τ − 1
 sampled descents. Under faults or a matching schedule the round's graph is
-realized first (``parallel/faults.py``: one draw kernel launch on a card),
-its W_t takes the place of the mixing operator (and the fused ring step is
-off), a rejoining node's warm restart precedes the step, inactive nodes'
-rows of every state leaf are frozen after it, and the realized degrees are
-summed on the device for the floats transmitted.
+realized first (``parallel/faults.py``: one draw kernel launch on a card,
+which also gives W_t and adds the realized degrees to the device total
+behind the floats transmitted), its W_t takes the place of the mixing
+operator (and the fused ring step is off), a rejoining node's warm restart
+precedes the step, and inactive nodes' rows of every state leaf are frozen
+after it.
 
 The run is a sequence of chunks, the counterpart of the JAX package's scan
 over eval chunks: one chunk runs ``eval_every`` iterations and then writes
@@ -182,10 +183,11 @@ class _Program:
     def step(self, state, t: torch.Tensor):
         """One iteration at the counter ``t`` (an int64 tensor of one
         element on the run's device). Under a time-varying graph the round
-        is realized first (``FaultyMixing.realize``); a rejoining node's
-        warm restart runs before the step, and the inactive nodes' rows of
-        every state leaf are frozen after it."""
-        rnd = self.faulty.realize(t) if self.faulty is not None else None
+        is realized first (``FaultyMixing.realize``, which adds its degree
+        count to ``degree_total``); a rejoining node's warm restart runs
+        before the step, and the inactive nodes' rows of every state leaf
+        are frozen after it."""
+        rnd = self.faulty.realize(t, self.degree_total) if self.faulty is not None else None
         if rnd is not None and rnd.rejoin is not None:
             state = {**state, "x": rnd.restart(state["x"])}
         fused_mix_step = self.fused_mix_step
@@ -212,7 +214,6 @@ class _Program:
                                      state[key])
                     for key, new in new_state.items()
                 }
-            self.degree_total.add_(rnd.degree_sum())
         return new_state
 
     def metrics(self, x: torch.Tensor, f_opt: float, with_consensus: bool):

@@ -16,7 +16,8 @@
 // run's int64 counter in device memory, so one captured CUDA graph serves
 // every iteration. The kernel derives
 //   step key  = fold_in(tag key, t mod 2^32), then fold_in(., round) if round != 0
-//   element (r, c) draws threefry2x32(step key, (0, r * d + c)) (threefry.cuh):
+//   element (r, c) draws threefry2x32(step key, (hi, lo)), (hi, lo) the two
+//   words of the 64-bit flat index r * d + c (threefry_at, threefry.cuh):
 //   float32 keeps the top 23 bits of x0 ^ x1, float64 the top 52 of x0 << 32 | x1,
 //   as the mantissa m of the uniform u = m * 2^-nmant.
 //
@@ -80,8 +81,8 @@
 // ef_levels_*, an entry point for the tests that also writes each element's
 // mask bit (top_k, random_k) or level low + (u < p_up) (qsgd), counts
 // nothing. The kernels allocate nothing, launch on the caller's stream and
-// return cudaGetLastError(); N * d of 2^32 or more, d of 2^31 or more, an
-// unknown operator or k outside its range returns cudaErrorInvalidValue.
+// return cudaGetLastError(); N or d of 2^31 or more, an unknown operator or
+// k outside its range returns cudaErrorInvalidValue.
 
 #include <cuda_runtime.h>
 
@@ -252,7 +253,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes) warp_select_kernel(Ar
     if constexpr (kMode == kTopK) {
       score = O::magnitude(diff[h]);
     } else {
-      score = O::mantissa(threefry2x32(key.x, key.y, 0u, static_cast<uint32_t>(base + c)));
+      score = O::mantissa(threefry_at(key.x, key.y, static_cast<uint64_t>(base + c)));
     }
     keys[h] = c < d ? W::make(score, c) : Key(0);
   }
@@ -302,7 +303,7 @@ __global__ void __launch_bounds__(kMaxThreads) block_select_kernel(Args<Real> a)
     if constexpr (kMode == kTopK) {
       score = O::magnitude(O::sub(a.v[base + c], a.memory[base + c]));
     } else {
-      score = O::mantissa(threefry2x32(key.x, key.y, 0u, static_cast<uint32_t>(base + c)));
+      score = O::mantissa(threefry_at(key.x, key.y, static_cast<uint64_t>(base + c)));
     }
     return pack<Key, kScoreBits<Real, kMode>>(score, static_cast<uint32_t>(d - 1 - c), rbits);
   };
@@ -382,7 +383,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes) warp_qsgd_kernel(Args
   }
   const uint2 key = step_key(a);
   auto uniform_at = [&](int64_t at) {
-    return O::uniform(O::mantissa(threefry2x32(key.x, key.y, 0u, static_cast<uint32_t>(at))));
+    return O::uniform(O::mantissa(threefry_at(key.x, key.y, static_cast<uint64_t>(at))));
   };
   Real acc = Real(0);
   if constexpr (J > 0) {
@@ -482,7 +483,7 @@ int launch(const void* v, const void* memory, void* out, void* levels, int64_t n
            int64_t mode, int64_t k, const void* t, uint32_t k0, uint32_t k1, uint32_t round,
            double omega, int slot, void* stream) {
   if (n <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
-  if (n > 0x7FFFFFFF || d > 0x7FFFFFFF || n * d >= (int64_t{1} << 32)) {
+  if (n > 0x7FFFFFFF || d > 0x7FFFFFFF) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool selects = mode == kTopK || mode == kRandK;

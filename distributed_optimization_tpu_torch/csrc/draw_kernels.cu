@@ -3,12 +3,22 @@
 // No Pallas kernel stands behind these: they are the counterpart of the XLA
 // code that jax.random compiles to inside distributed_optimization_tpu's
 // fault layer and large-noise attack, on the JAX package's random stream:
-//   realize_kernel   one round's realized graph at the device counter t
-//                    (parallel/faults.py :223-246 sample_surviving_adjacency
-//                    and its directed twin, :334-348 the one-peer scores,
-//                    :962-990 active / realized_adjacency): A_t [N, N]
-//                    float32 with the node mask applied, active [N] float32,
-//                    and the one-peer proposal scores u * A_t where asked;
+//   round_kernel     one round's mixing operands at the device counter t:
+//                    the whole of the JAX package's mix(t, x) up to the
+//                    product (parallel/faults.py :1098-1101, with
+//                    :951-986 realized_adjacency and active, :223-246
+//                    sample_surviving_adjacency and its directed twin,
+//                    :269-281 metropolis_hastings_weights, :248-266
+//                    column_stochastic_weights, :334-348 the one-peer
+//                    scores, :1109 realized_degree_sum): A_t [N, N]
+//                    float32 with the node mask applied, W_t [N, N] in the
+//                    run's accumulation type, active [N] float32, the
+//                    round's realized degree count added to the run's
+//                    float64 total, and the one-peer proposal scores u * A_t
+//                    where asked; from the memoryless draws, or from a
+//                    precomputed timeline's edge and node states at t (its
+//                    row index clamped into [0, T) as JAX's dynamic index
+//                    is: t < 0 counts from the end);
 //   timeline_kernel  build_fault_timeline (:419-587): the per-edge
 //                    Gilbert-Elliott chains, the crash-recovery node chains
 //                    and the participation stream, unrolled over t;
@@ -31,6 +41,15 @@
 // and then compares against P(down | up) or P(down | down); rejoin is up
 // and not up the round before (all nodes up before t = 0).
 //
+// The round's weights. A slot of row i is live iff its base edge survives
+// and both ends are up; d_i counts row i's live slots. Undirected (MH):
+// W_ij = 1 / (1 + max(d_i, d_j)). Directed (adjacency[i, j] = 1 iff j sends
+// to i): W_ij = 1 / (1 + outdeg_j), outdeg_j the live links out of j. The
+// diagonal is 1 minus row i's sum (MH) or column i's (directed), summed in
+// ascending neighbour order with each add rounded on its own, as the plain
+// version's loop over the neighbour table's slots adds them. Divisions and
+// adds are the _rn intrinsics (the build passes --fmad=false).
+//
 // The normal: u = max(lo, f * (1 - lo) + lo), f the uniform's [0, 1) float
 // of its bits (32, or 64 in float64) and lo the float after -1 toward 0;
 // then sqrt(2) * erf_inv(u), erf_inv the polynomial XLA lowers lax.erf_inv
@@ -38,17 +57,40 @@
 // product and sum rounded on its own (the _rn intrinsics; the build passes
 // --fmad=false), log1p and sqrt the CUDA math library's.
 //
-// Design: simple. realize_kernel: a thread an entry of A_t in 32 x 8
-// blocks; the round keys and the node draws of the block's 8 rows and 32
-// columns go to shared memory first. timeline_kernel: a thread an edge or
-// a node, looping over t with its chain state in a register; its writes
-// [t, entity] are coalesced across a warp. noise_kernel: a thread an element;
-// honest rows copy x.
+// Bound of round_kernel: bytes. At main's N=256 in float32 it writes A_t and
+// W_t (2 x 256 KB) and reads the neighbour table, about 0.16 us at 3.35
+// TB/s; its draws (k_max^2 + k_max a row) are far below the INT32 rate. What
+// a launch takes is its latency: the load of t, the round keys, the slot
+// draws and the neighbours' degrees, and the row writes.
 //
-// Each launch adds one to its kernel's slot of launch_counts.cuh (0 realize,
-// 1 timeline, 2 noise: the order of KERNELS in ops/draw_kernels.py). The
-// kernels allocate nothing, launch on the caller's stream and return
-// cudaGetLastError(); arguments they cannot take return cudaErrorInvalidValue.
+// Design.
+// - round_kernel: a warp a row. Each warp folds its own round keys, one lane
+//   a key (lane 0 the fault key, 1 the node key, 2 the match key, each only
+//   where its process is on), shared by __shfl_sync: no shared-memory round
+//   trip and no barrier before the rows. The warp writes its rows of A_t,
+//   W_t and the scores with zeros, then, lanes over the slots of a
+//   neighbour table built once on the host (in-lists, and out-lists on a
+//   directed graph; an edge-id table of the same shape on the timeline
+//   path), draws only on base edges. d_i is a ballot count; the neighbours'
+//   degrees d_j are recomputed from j's own slots, the warp's lanes spread
+//   over the (slot, entry) pairs so that a chunk's draws run at once: an
+//   edge's draw is keyed on its (lo, hi) counter, so both ends see the same
+//   bit, at k_max^2 draws a row and with no grid-wide sync. A link's draw
+//   and its ends' node draws are issued together (no short-circuit chain).
+//   The diagonal's sum walks the slots in order through __shfl_sync. Each
+//   block adds its rows' degree count to the run's total with one atomicAdd
+//   (whole numbers, so exact in any order). A second form that shared the
+//   degrees through a thread block cluster's distributed shared memory lost
+//   or tied at every shape timed (PERF.md section 6) and was taken out.
+// - timeline_kernel: a thread an edge or a node, looping over t with its
+//   chain state in a register; its writes [t, entity] are coalesced across
+//   a warp. noise_kernel: a thread an element; honest rows copy x.
+//
+// Each launch adds one to its kernel's slot of launch_counts.cuh (0 the
+// round, 1 timeline, 2 noise: the order of KERNELS in
+// ops/draw_kernels.py). The kernels allocate nothing, launch on the caller's
+// stream and return cudaGetLastError(); arguments they cannot take return
+// cudaErrorInvalidValue.
 
 #include <cuda_runtime.h>
 
@@ -63,9 +105,11 @@ namespace {
 constexpr int kSlotRealize = 0;
 constexpr int kSlotTimeline = 1;
 constexpr int kSlotNoise = 2;
-constexpr int kCols = 32;  // realize_kernel: a block's columns
-constexpr int kRows = 8;   // and rows
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kRoundWarps = 4;  // round_kernel: rows (warps) a block
+constexpr int kRoundThreads = 32 * kRoundWarps;
+constexpr int64_t kMaxNodes = 65535;  // edge counters i * N + j stay below 2^32
 
 __device__ __forceinline__ uint2 round_key(uint2 tag, const int64_t* t) {
   return threefry2x32(tag.x, tag.y, 0u, static_cast<uint32_t>(static_cast<uint64_t>(*t)));
@@ -83,60 +127,272 @@ __device__ __forceinline__ float uniform32(uint2 key, uint32_t c) {
 
 // ---- one round ------------------------------------------------------------
 
-// keys: fault, node, match tag keys. base: [N, N] uint8 adjacency. given:
-// a realized A_t to score instead of drawing one (or null). Writes a [N, N]
-// and active [N] unless given; scores [N, N] where non-null.
-__global__ void realize_kernel(const int64_t* __restrict__ t, uint2 fault_tag, uint2 node_tag,
-                               uint2 match_tag, const uint8_t* __restrict__ base,
-                               const float* __restrict__ given, int n, float p, float q,
-                               int drop, int strag, int directed, float* __restrict__ a,
-                               float* __restrict__ active, float* __restrict__ scores) {
+// What the round kernel reads and writes. ops/draw_kernels.py mirrors it
+// field for field as a ctypes Structure.
+struct RoundArgs {
+  const int64_t* t;        // the round's counter, read from device memory
+  const int32_t* in_nbr;   // [N, k_in]: row i's base neighbours j (senders), ascending
+  const int32_t* in_cnt;   // [N]: row i's real slots
+  const int32_t* in_eid;   // [N, k_in]: each slot's timeline edge id, or null
+  const int32_t* out_nbr;  // [N, k_out]: node j's receivers, ascending (directed; else null)
+  const int32_t* out_cnt;  // [N]
+  const int32_t* out_eid;  // [N, k_out], or null
+  const uint8_t* edge_up;  // [T, E] the timeline's edge states, or null
+  const uint8_t* node_up;  // [T, N] the timeline's node chain, or null
+  const uint8_t* part_up;  // [T, N] the participation stream, or null
+  float* a;                // [N, N] A_t
+  float* active;           // [N]
+  void* w;                 // [N, N] W_t in Real, or null
+  float* scores;           // [N, N] the one-peer proposal scores, or null
+  double* degree_total;    // the run's sum of realized degrees, or null
+  int64_t n, k_in, k_out, n_edges;
+  int64_t horizon;         // T, the timeline's rows (0 without one)
+  uint32_t keys[6];        // fault, node, match tag keys
+  float p, q;              // the drop and straggler thresholds
+  int32_t drop, strag, directed;
+};
+
+template <typename Real>
+struct Rn;
+
+template <>
+struct Rn<float> {
+  static __device__ __forceinline__ float add(float x, float y) { return __fadd_rn(x, y); }
+  static __device__ __forceinline__ float sub(float x, float y) { return __fsub_rn(x, y); }
+  static __device__ __forceinline__ float div(float x, float y) { return __fdiv_rn(x, y); }
+};
+
+template <>
+struct Rn<double> {
+  static __device__ __forceinline__ double add(double x, double y) { return __dadd_rn(x, y); }
+  static __device__ __forceinline__ double sub(double x, double y) { return __dsub_rn(x, y); }
+  static __device__ __forceinline__ double div(double x, double y) { return __ddiv_rn(x, y); }
+};
+
+__device__ __forceinline__ uint2 shfl2(uint2 v, int lane) {
+  return make_uint2(__shfl_sync(kFull, v.x, lane), __shfl_sync(kFull, v.y, lane));
+}
+
+// The round at t: its keys, and the liveness of nodes and links. tt is the
+// timeline's row at t.
+struct Round {
+  RoundArgs a;
+  uint2 fkey, nkey, mkey;
+  int64_t tt;
+
+  // Node i is up: the timeline's states at t, else its straggler draw.
+  __device__ __forceinline__ bool up(int i) const {
+    if (a.node_up != nullptr || a.part_up != nullptr) {
+      const int64_t at = tt * a.n + i;
+      return (a.node_up == nullptr || a.node_up[at] != 0) &&
+             (a.part_up == nullptr || a.part_up[at] != 0);
+    }
+    return !a.strag || uniform32(nkey, static_cast<uint32_t>(i)) >= a.q;
+  }
+
+  // The base link into i from j survives: the timeline's edge e at t, else
+  // the draw at (i, j) (directed) or (min, max) (undirected).
+  __device__ __forceinline__ bool link(int i, int j, int e) const {
+    if (a.edge_up != nullptr) return a.edge_up[tt * a.n_edges + e] != 0;
+    if (!a.drop) return true;
+    const int lo = a.directed ? i : min(i, j);
+    const int hi = a.directed ? j : max(i, j);
+    return uniform32(fkey, static_cast<uint32_t>(lo) * static_cast<uint32_t>(a.n) +
+                               static_cast<uint32_t>(hi)) >= a.p;
+  }
+
+  // The lists a node's degree counts: its slots (undirected) or its
+  // out-links (directed), with their timeline edge ids.
+  __device__ __forceinline__ int64_t deg_k() const { return a.directed ? a.k_out : a.k_in; }
+  __device__ __forceinline__ const int32_t* deg_nbr() const {
+    return a.directed ? a.out_nbr : a.in_nbr;
+  }
+  __device__ __forceinline__ const int32_t* deg_cnt() const {
+    return a.directed ? a.out_cnt : a.in_cnt;
+  }
+  __device__ __forceinline__ const int32_t* deg_eid() const {
+    return a.directed ? a.out_eid : a.in_eid;
+  }
+
+  // Entry m of up node j's list is live: the link between j and its
+  // neighbour q survives and q is up (both draws issued together).
+  __device__ __forceinline__ bool deg_live(int j, int m) const {
+    const int64_t at = j * deg_k() + m;
+    const int q = deg_nbr()[at];
+    const int e = deg_eid() != nullptr ? deg_eid()[at] : 0;
+    return (a.directed ? link(q, j, e) : link(j, q, e)) & up(q);
+  }
+
+  // Neighbours' degrees, recomputed from their draws: for a chunk of up to
+  // 32 slots (lane l holding slot l, its neighbour live where bit l of
+  // live_mask is set), each live neighbour's degree. The warp's lanes
+  // spread over the (slot, entry) pairs, k_max entries a slot, kPairGroups
+  // chunks of 32 pairs at once so that their draws are in flight together;
+  // lane l adds the ballot bits of slot l's pairs.
+  __device__ int slot_degrees(const int32_t* slots, int nslots, unsigned live_mask,
+                              int lane) const;
+};
+
+// The timeline's row at t, as JAX indexes an array of T rows with a traced
+// t: t < 0 counts from the end, then the index is clamped into [0, T).
+__device__ __forceinline__ int64_t timeline_row(int64_t t, int64_t horizon) {
+  if (t < 0) t += horizon;
+  return t < 0 ? 0 : t < horizon ? t : horizon - 1;
+}
+
+// Each warp folds its own round keys, a lane a key.
+__device__ __forceinline__ Round make_round(const RoundArgs& a, int lane) {
+  Round r;
+  r.a = a;
+  const int64_t t = *a.t;
+  r.tt = a.horizon > 0 ? timeline_row(t, a.horizon) : 0;
+  const bool want = lane == 0 ? a.drop != 0 : lane == 1 ? a.strag != 0
+                                            : lane == 2 && a.scores != nullptr;
+  uint2 k = make_uint2(0u, 0u);
+  if (want) {
+    const uint2 tag = lane == 0   ? make_uint2(a.keys[0], a.keys[1])
+                      : lane == 1 ? make_uint2(a.keys[2], a.keys[3])
+                                  : make_uint2(a.keys[4], a.keys[5]);
+    k = round_key_at(tag, t);
+  }
+  r.fkey = shfl2(k, 0);
+  r.nkey = shfl2(k, 1);
+  r.mkey = shfl2(k, 2);
+  return r;
+}
+
+__device__ __forceinline__ unsigned low_bits(int n) { return n >= 32 ? kFull : (1u << n) - 1u; }
+
+constexpr int kPairGroups = 4;
+
+__device__ int Round::slot_degrees(const int32_t* slots, int nslots, unsigned live_mask,
+                                   int lane) const {
+  const int k = static_cast<int>(deg_k());
+  const int pairs = nslots * k;
+  int d = 0;
+  for (int p0 = 0; p0 < pairs; p0 += 32 * kPairGroups) {
+    bool live[kPairGroups];
+#pragma unroll
+    for (int g = 0; g < kPairGroups; ++g) {
+      const int p = p0 + 32 * g + lane;
+      const int s = p / k, m = p - s * k;
+      live[g] = p < pairs && ((live_mask >> s) & 1u) && m < deg_cnt()[slots[s]] &&
+                deg_live(slots[s], m);
+    }
+#pragma unroll
+    for (int g = 0; g < kPairGroups; ++g) {
+      const unsigned bits = __ballot_sync(kFull, live[g]);
+      const int c0 = p0 + 32 * g;
+      const int lo = max(lane * k, c0) - c0, hi = min(lane * k + k, c0 + 32) - c0;
+      if (lo < hi) d += __popc(bits & (low_bits(hi - lo) << lo));
+    }
+  }
+  return d;
+}
+
+// Row i of A_t, W_t and the scores, and active[i], by one warp. Returns d_i,
+// the row's live slots. The first chunk of 32 slots is drawn and weighed
+// before the row's first store.
+template <typename Real>
+__device__ int round_row(const Round& r, int i, int lane) {
+  using O = Rn<Real>;
+  const RoundArgs& a = r.a;
+  const int64_t n = a.n;
+  const int64_t row = static_cast<int64_t>(i) * n;
+  Real* w = static_cast<Real*>(a.w);
+  const int cnt = a.in_cnt[i];
+  const int32_t* nbr = a.in_nbr + i * a.k_in;
+  const int32_t* eid = a.in_eid != nullptr ? a.in_eid + i * a.k_in : nullptr;
+  const bool ui = r.up(i);
+  // Slot s is live: its link survives and both ends are up (draws together).
+  auto live_at = [&](int s) {
+    const int j = nbr[s];
+    return ui & r.link(i, j, eid != nullptr ? eid[s] : 0) & r.up(j);
+  };
+  const bool first = lane < cnt && live_at(lane);
+  const unsigned first_mask = __ballot_sync(kFull, first);
+  int di = __popc(first_mask);
+  for (int s0 = 32; s0 < cnt; s0 += 32) {
+    di += __popc(__ballot_sync(kFull, s0 + lane < cnt && live_at(s0 + lane)));
+  }
+  // A directed row's diagonal takes its column: outdeg_i, i's live out-links.
+  int outdeg = 0;
+  if (a.directed && w != nullptr) {
+    const int ocnt = a.out_cnt[i];
+    for (int m0 = 0; m0 < ocnt; m0 += 32) {
+      outdeg += __popc(__ballot_sync(kFull, m0 + lane < ocnt && ui &&
+                                                r.deg_live(i, m0 + lane)));
+    }
+  }
+  const Real one = Real(1);
+  // Slot s's weight (0 where it is dead) and one-peer score.
+  auto weigh = [&](int s0, bool live, unsigned live_mask, Real& wv, float& score) {
+    if (w != nullptr) {
+      const int dj = r.slot_degrees(nbr + s0, min(32, cnt - s0), live_mask, lane);
+      wv = live ? O::div(one, O::add(one, static_cast<Real>(a.directed ? dj : max(di, dj))))
+                : Real(0);
+    }
+    if (a.scores != nullptr && live) {
+      score = uniform32(r.mkey, static_cast<uint32_t>(i) * static_cast<uint32_t>(n) +
+                                    static_cast<uint32_t>(nbr[s0 + lane]));
+    }
+  };
+  Real w_first = Real(0);
+  float score_first = 0.0f;
+  weigh(0, first, first_mask, w_first, score_first);
+  for (int64_t c = lane; c < n; c += 32) {
+    a.a[row + c] = 0.0f;
+    if (w != nullptr) w[row + c] = Real(0);
+    if (a.scores != nullptr) a.scores[row + c] = 0.0f;
+  }
+  if (lane == 0) a.active[i] = ui ? 1.0f : 0.0f;
+  __syncwarp();  // the zeros land before the slots' values
+  Real sum = Real(0);
+  for (int s0 = 0; s0 < cnt; s0 += 32) {
+    bool live = first;
+    Real wv = w_first;
+    float score = score_first;
+    if (s0 > 0) {
+      live = s0 + lane < cnt && live_at(s0 + lane);
+      weigh(s0, live, __ballot_sync(kFull, live), wv, score);
+    }
+    if (live) {
+      const int j = nbr[s0 + lane];
+      a.a[row + j] = 1.0f;
+      if (w != nullptr) w[row + j] = wv;
+      if (a.scores != nullptr) a.scores[row + j] = score;
+    }
+    if (w != nullptr && !a.directed) {
+      // Row i's sum in slot order: lane l holds slot s0 + l.
+      const int nslots = min(32, cnt - s0);
+      for (int l = 0; l < nslots; ++l) sum = O::add(sum, __shfl_sync(kFull, wv, l));
+    }
+  }
+  if (w != nullptr && lane == 0) {
+    if (a.directed) {
+      // Column i holds outdeg_i equal weights 1 / (1 + outdeg_i), in order.
+      const Real c = O::div(one, O::add(one, static_cast<Real>(outdeg)));
+      for (int m = 0; m < outdeg; ++m) sum = O::add(sum, c);
+    }
+    w[row + i] = O::sub(one, sum);
+  }
+  return di;
+}
+
+template <typename Real>
+__global__ void __launch_bounds__(kRoundThreads) round_kernel(RoundArgs a) {
   launch_counts::add(kSlotRealize);
-  __shared__ uint2 keys[3];
-  __shared__ unsigned char row_up[kRows];
-  __shared__ unsigned char col_up[kCols];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kCols + tx;
-  const int i = blockIdx.y * kRows + ty;
-  const int j = blockIdx.x * kCols + tx;
-  if (tid == 0) {
-    keys[0] = round_key(fault_tag, t);
-    keys[1] = round_key(node_tag, t);
-    keys[2] = round_key(match_tag, t);
-  }
+  __shared__ int warp_degrees[kRoundWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kRoundWarps + warp;
+  const Round r = make_round(a, lane);
+  const int di = i < a.n ? round_row<Real>(r, static_cast<int>(i), lane) : 0;
+  if (lane == 0) warp_degrees[warp] = di;
   __syncthreads();
-  if (given == nullptr && strag) {
-    if (tid < kRows) {
-      const int r = blockIdx.y * kRows + tid;
-      row_up[tid] = r < n && uniform32(keys[1], static_cast<uint32_t>(r)) >= q;
-    } else if (tid < kRows + kCols) {
-      const int c = blockIdx.x * kCols + (tid - kRows);
-      col_up[tid - kRows] = c < n && uniform32(keys[1], static_cast<uint32_t>(c)) >= q;
-    }
-  }
-  __syncthreads();
-  if (i >= n || j >= n) return;
-  const size_t at = static_cast<size_t>(i) * n + j;
-  float live;
-  if (given != nullptr) {
-    live = given[at];
-  } else {
-    bool up = base[at] != 0;
-    if (up && drop) {
-      const int lo = directed ? i : min(i, j);
-      const int hi = directed ? j : max(i, j);
-      up = uniform32(keys[0], static_cast<uint32_t>(lo) * static_cast<uint32_t>(n) +
-                                  static_cast<uint32_t>(hi)) >= p;
-    }
-    if (strag) up = up && row_up[ty] && col_up[tx];
-    live = up ? 1.0f : 0.0f;
-    a[at] = live;
-    if (j == 0) active[i] = (!strag || row_up[ty]) ? 1.0f : 0.0f;
-  }
-  if (scores != nullptr) {
-    const float u = uniform32(keys[2], static_cast<uint32_t>(i) * static_cast<uint32_t>(n) +
-                                           static_cast<uint32_t>(j));
-    scores[at] = live != 0.0f ? u : 0.0f;
+  if (threadIdx.x == 0 && a.degree_total != nullptr) {
+    int block = 0;
+    for (int v = 0; v < kRoundWarps; ++v) block += warp_degrees[v];
+    if (block != 0) atomicAdd(a.degree_total, static_cast<double>(block));
   }
 }
 
@@ -302,6 +558,23 @@ __global__ void noise_kernel(const int64_t* __restrict__ t, uint2 tag,
 inline int finish() { return static_cast<int>(cudaGetLastError()); }
 
 template <typename Real>
+int launch_round(const RoundArgs* args, void* stream) {
+  const RoundArgs& a = *args;
+  const bool timeline_edges = a.edge_up != nullptr;
+  if (a.n <= 0 || a.n > kMaxNodes || a.k_in <= 0 || a.in_nbr == nullptr ||
+      a.in_cnt == nullptr || a.a == nullptr || a.active == nullptr || a.t == nullptr ||
+      (a.directed && (a.out_nbr == nullptr || a.out_cnt == nullptr || a.k_out <= 0)) ||
+      (timeline_edges && (a.n_edges <= 0 || a.in_eid == nullptr ||
+                          (a.directed && a.out_eid == nullptr))) ||
+      ((timeline_edges || a.node_up != nullptr || a.part_up != nullptr) && a.horizon <= 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned blocks = static_cast<unsigned>((a.n + kRoundWarps - 1) / kRoundWarps);
+  round_kernel<Real><<<blocks, kRoundThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return finish();
+}
+
+template <typename Real>
 int launch_noise(const void* t, uint32_t k0, uint32_t k1, const void* byzantine, const void* x,
                  double scale, void* out, int64_t n, int64_t d, void* stream) {
   if (n <= 0 || d <= 0 || n * d > (int64_t{1} << 32)) return static_cast<int>(cudaErrorInvalidValue);
@@ -318,22 +591,13 @@ int launch_noise(const void* t, uint32_t k0, uint32_t k1, const void* byzantine,
 
 extern "C" {
 
-// One round at the counter *t. keys: k[0..5] = fault, node, match tag keys
-// as word pairs. given (nullable): a realized A_t to score; a/active are
-// then not written. scores (nullable): the one-peer proposal scores.
-int realize_round(const void* t, const uint32_t* keys, const void* base, const void* given,
-                  int64_t n, float p, float q, int drop, int strag, int directed, void* a,
-                  void* active, void* scores, void* stream) {
-  if (n <= 0 || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kCols, kRows);
-  const dim3 grid(static_cast<unsigned>((n + kCols - 1) / kCols),
-                  static_cast<unsigned>((n + kRows - 1) / kRows));
-  realize_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(t), make_uint2(keys[0], keys[1]), make_uint2(keys[2], keys[3]),
-      make_uint2(keys[4], keys[5]), static_cast<const uint8_t*>(base),
-      static_cast<const float*>(given), static_cast<int>(n), p, q, drop, strag, directed,
-      static_cast<float*>(a), static_cast<float*>(active), static_cast<float*>(scores));
-  return finish();
+// One round at the counter *args->t (RoundArgs above), W_t in float32 or
+// float64.
+int realize_round_f32(const void* args, void* stream) {
+  return launch_round<float>(static_cast<const RoundArgs*>(args), stream);
+}
+int realize_round_f64(const void* args, void* stream) {
+  return launch_round<double>(static_cast<const RoundArgs*>(args), stream);
 }
 
 // The timeline over t = 0 .. horizon - 1. keys: fault, node, participation

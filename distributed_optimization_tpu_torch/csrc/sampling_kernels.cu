@@ -76,9 +76,13 @@
 // dense weights, either kernel; 1 the gather form: the order of KERNELS in
 // ops/sampling_kernels.py); select_top, an entry point for the tests that
 // ranks given scores, counts nothing. The kernels allocate nothing, launch on
-// the caller's stream and return cudaGetLastError(); a batch whose
-// survivors (min(b, L) + 128 keys and rows) do not fit in a block's shared
-// memory returns cudaErrorInvalidValue.
+// the caller's stream and return cudaGetLastError().
+// - Where a worker's survivors (min(b, L) + 128 keys and rows, and the top
+//   k rows) do not fit in a block's 227 KB of shared memory beside the
+//   selection state, they live in a global-memory workspace that the caller
+//   allocates once (select_workspace_bytes_*: a 16-byte-aligned region a
+//   worker), with the same selection and the same bits; a launch that needs
+//   one and is given none returns cudaErrorInvalidValue.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -199,14 +203,28 @@ struct Args {
   Real* w;        // [N, b], or [N, L] in the weights form
   Real* Xb;       // [N, b, d]
   Real* yb;       // [N, b]
+  unsigned char* workspace;  // survivors past shared memory, ws_stride bytes a worker; or null
+  int64_t ws_stride;
 };
 
-// The leader's selection state (radix_select.cuh), then its survivors' keys
-// and rows and the top k rows (in that order in shared memory).
+// The leader's selection state (radix_select.cuh) in shared memory; its
+// survivors' keys and rows and the top k rows, in that order, after it, or
+// in the worker's region of the workspace where shared memory cannot hold
+// them (rounded up to 16 bytes there).
 template <typename Key>
-size_t shared_bytes(int cap, int k) {
-  return sizeof(State<Key>) + static_cast<size_t>(cap) * (sizeof(Key) + sizeof(int)) +
+size_t survivor_bytes(int cap, int k) {
+  return static_cast<size_t>(cap) * (sizeof(Key) + sizeof(int)) +
          static_cast<size_t>(k) * sizeof(int);
+}
+
+template <typename Key>
+bool survivors_in_shared(int cap, int k) {
+  return sizeof(State<Key>) + survivor_bytes<Key>(cap, k) <= kMaxSharedBytes;
+}
+
+template <typename Key>
+int64_t workspace_stride(int cap, int k) {
+  return static_cast<int64_t>((survivor_bytes<Key>(cap, k) + 15) / 16 * 16);
 }
 
 // A worker in one block: __syncthreads, and the block's own shared memory.
@@ -247,11 +265,13 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
   constexpr int kWidth = 8 * sizeof(Key);
   extern __shared__ __align__(16) unsigned char smem[];
   State<Key>* st = Group::leader(reinterpret_cast<State<Key>*>(smem));
-  Key* skey = reinterpret_cast<Key*>(st + 1);
-  int* srow = reinterpret_cast<int*>(skey + cap);
-  int* top = srow + cap;
   const int rank = Group::rank();
   const int worker = blockIdx.x / Group::size();
+  Key* skey = a.workspace != nullptr
+                  ? reinterpret_cast<Key*>(a.workspace + worker * a.ws_stride)
+                  : reinterpret_cast<Key*>(st + 1);
+  int* srow = reinterpret_cast<int*>(skey + cap);
+  int* top = srow + cap;
   const int L = a.L, b = a.b;
   const int64_t nv = a.n_valid != nullptr ? a.n_valid[worker] : L;
   const uint32_t tt = a.scores == nullptr ? static_cast<uint32_t>(*a.t) : 0u;
@@ -437,8 +457,12 @@ int launch_select_key(const Args<Real>& a, int64_t n, void* stream, int forced_c
   const int L = a.L;
   const int k = std::min(a.b, L);
   const int cap = k + kSurvivorSlack;
-  const size_t bytes = shared_bytes<Key>(cap, k);
-  if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const bool shared = survivors_in_shared<Key>(cap, k);
+  if (!shared && a.workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  Args<Real> run = a;
+  if (shared) run.workspace = nullptr;
+  run.ws_stride = workspace_stride<Key>(cap, k);
+  const size_t bytes = sizeof(State<Key>) + (shared ? survivor_bytes<Key>(cap, k) : 0);
   // The plan: one block a worker, a thread a row up to 1,024 rows and 8 rows a
   // thread up to 8,192; past that a cluster of 8 blocks of 1,024 threads, 8 rows
   // a thread up to 65,536 and past that ceil(L / 8,192) rows a thread, their
@@ -459,18 +483,18 @@ int launch_select_key(const Args<Real>& a, int64_t n, void* stream, int forced_c
   const int blocks = static_cast<int>(n * cluster);
   if (cluster == 1) {
     return rows == 1 ? launch_kernel<Real>(select_kernel<Real, Key, 1, Block, kWeights>, blocks,
-                                           1, threads, bytes, a, cap, stream)
+                                           1, threads, bytes, run, cap, stream)
                      : launch_kernel<Real>(select_kernel<Real, Key, kWideRows, Block, kWeights>,
-                                           blocks, 1, threads, bytes, a, cap, stream);
+                                           blocks, 1, threads, bytes, run, cap, stream);
   }
   if (rows == kRecomputed) {
     return launch_kernel<Real>(select_kernel<Real, Key, kRecomputed, Cluster, kWeights>, blocks,
-                               cluster, threads, bytes, a, cap, stream);
+                               cluster, threads, bytes, run, cap, stream);
   }
   return rows == 1 ? launch_kernel<Real>(select_kernel<Real, Key, 1, Cluster, kWeights>, blocks,
-                                         cluster, threads, bytes, a, cap, stream)
+                                         cluster, threads, bytes, run, cap, stream)
                    : launch_kernel<Real>(select_kernel<Real, Key, kWideRows, Cluster, kWeights>,
-                                         blocks, cluster, threads, bytes, a, cap, stream);
+                                         blocks, cluster, threads, bytes, run, cap, stream);
 }
 
 // The select kernel's key word: 64 bits, or 128 where a float64 score (53
@@ -486,13 +510,28 @@ int launch_select(const Args<Real>& a, int64_t n, void* stream, int forced_clust
   return launch_select_key<Real, uint64_t, kWeights>(a, n, stream, forced_cluster);
 }
 
+// The workspace a launch of n workers needs (0: the survivors fit in shared
+// memory), under the same key word as launch_select.
+template <typename Real>
+int64_t workspace_bytes(int64_t n, int64_t L, int64_t b) {
+  if (n <= 0 || L <= 0 || b <= 0 || L > 0x7FFFFFFF || b > 0x7FFFFFFF) return 0;
+  const int k = static_cast<int>(std::min(b, L));
+  const int cap = k + kSurvivorSlack;
+  auto need = [&](auto key) -> int64_t {
+    using Key = decltype(key);
+    return survivors_in_shared<Key>(cap, k) ? 0 : n * workspace_stride<Key>(cap, k);
+  };
+  if (Score<Real>::kBits + row_bits(static_cast<int>(L)) > 64) return need(u128{});
+  return need(uint64_t{});
+}
+
 bool refused(int64_t n, int64_t L, int64_t b) {
   return L <= 0 || b <= 0 || n > 0x7FFFFFFF || L > 0x7FFFFFFF || b > 0x7FFFFFFF;
 }
 
 template <typename Real>
 int sample_weights(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
-                   int64_t L, int64_t b, void* w, void* stream) {
+                   int64_t L, int64_t b, void* w, void* workspace, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
   if (refused(n, L, b)) return static_cast<int>(cudaErrorInvalidValue);
   if (L <= kDenseMaxRows) {
@@ -511,13 +550,14 @@ int sample_weights(const void* t, uint32_t k0, uint32_t k1, const void* n_valid,
   a.b = static_cast<int>(b);
   a.slot = kSlotWeights;
   a.w = static_cast<Real*>(w);
+  a.workspace = static_cast<unsigned char*>(workspace);
   return launch_select<Real, true>(a, n, stream);
 }
 
 template <typename Real>
 int sample_batches(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
                    int64_t L, int64_t b, int64_t d, const void* X, const void* y, void* idx,
-                   void* w, void* Xb, void* yb, void* stream) {
+                   void* w, void* Xb, void* yb, void* workspace, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
   if (refused(n, L, b) || (X != nullptr && (d <= 0 || d > 0x7FFFFFFF || b * (d + 1) > 0x7FFFFFFF))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -537,12 +577,13 @@ int sample_batches(const void* t, uint32_t k0, uint32_t k1, const void* n_valid,
   a.w = static_cast<Real*>(w);
   a.Xb = static_cast<Real*>(Xb);
   a.yb = static_cast<Real*>(yb);
+  a.workspace = static_cast<unsigned char*>(workspace);
   return launch_select<Real, false>(a, n, stream);
 }
 
 template <typename Real>
 int select_top(const void* scores, int64_t n, int64_t L, int64_t b, int64_t cluster, void* idx,
-               void* stream) {
+               void* workspace, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
   if (refused(n, L, b) || (cluster != 0 && cluster != 2 && cluster != 4 && cluster != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -553,6 +594,7 @@ int select_top(const void* scores, int64_t n, int64_t L, int64_t b, int64_t clus
   a.b = static_cast<int>(b);
   a.slot = kNoSlot;
   a.idx = static_cast<int64_t*>(idx);
+  a.workspace = static_cast<unsigned char*>(workspace);
   return launch_select<Real, false>(a, n, stream, static_cast<int>(cluster));
 }
 
@@ -560,47 +602,57 @@ int select_top(const void* scores, int64_t n, int64_t L, int64_t b, int64_t clus
 
 extern "C" {
 
+// Each entry point's workspace (nullable): select_workspace_bytes_* of its
+// (N, L, b) bytes on the card, where that is not 0.
 int sample_weights_f32(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
-                       int64_t L, int64_t b, void* w, void* stream) {
-  return sample_weights<float>(t, k0, k1, n_valid, n, L, b, w, stream);
+                       int64_t L, int64_t b, void* w, void* workspace, void* stream) {
+  return sample_weights<float>(t, k0, k1, n_valid, n, L, b, w, workspace, stream);
 }
 int sample_weights_f64(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
-                       int64_t L, int64_t b, void* w, void* stream) {
-  return sample_weights<double>(t, k0, k1, n_valid, n, L, b, w, stream);
+                       int64_t L, int64_t b, void* w, void* workspace, void* stream) {
+  return sample_weights<double>(t, k0, k1, n_valid, n, L, b, w, workspace, stream);
 }
 int sample_indices_f32(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
-                       int64_t L, int64_t b, void* idx, void* w, void* stream) {
+                       int64_t L, int64_t b, void* idx, void* w, void* workspace, void* stream) {
   return sample_batches<float>(t, k0, k1, n_valid, n, L, b, 0, nullptr, nullptr, idx, w,
-                               nullptr, nullptr, stream);
+                               nullptr, nullptr, workspace, stream);
 }
 int sample_indices_f64(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
-                       int64_t L, int64_t b, void* idx, void* w, void* stream) {
+                       int64_t L, int64_t b, void* idx, void* w, void* workspace, void* stream) {
   return sample_batches<double>(t, k0, k1, n_valid, n, L, b, 0, nullptr, nullptr, idx, w,
-                                nullptr, nullptr, stream);
+                                nullptr, nullptr, workspace, stream);
 }
 int sample_batches_f32(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
                        int64_t L, int64_t b, int64_t d, const void* X, const void* y, void* w,
-                       void* Xb, void* yb, void* stream) {
+                       void* Xb, void* yb, void* workspace, void* stream) {
   return sample_batches<float>(t, k0, k1, n_valid, n, L, b, d, X, y, nullptr, w, Xb, yb,
-                               stream);
+                               workspace, stream);
 }
 int sample_batches_f64(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
                        int64_t L, int64_t b, int64_t d, const void* X, const void* y, void* w,
-                       void* Xb, void* yb, void* stream) {
+                       void* Xb, void* yb, void* workspace, void* stream) {
   return sample_batches<double>(t, k0, k1, n_valid, n, L, b, d, X, y, nullptr, w, Xb, yb,
-                                stream);
+                                workspace, stream);
 }
 // For the tests and the plan's measurement: the top rows of given scores
 // ([N, L] uint64, 0 for padding, at most 2^23 in f32 and 2^52 in f64),
 // tiled to b, as the gather form selects them, under the launcher's plan
 // (cluster 0) or a cluster of 2, 4 or 8 blocks; counts no launch.
 int select_top_f32(const void* scores, int64_t n, int64_t L, int64_t b, int64_t cluster,
-                   void* idx, void* stream) {
-  return select_top<float>(scores, n, L, b, cluster, idx, stream);
+                   void* idx, void* workspace, void* stream) {
+  return select_top<float>(scores, n, L, b, cluster, idx, workspace, stream);
 }
 int select_top_f64(const void* scores, int64_t n, int64_t L, int64_t b, int64_t cluster,
-                   void* idx, void* stream) {
-  return select_top<double>(scores, n, L, b, cluster, idx, stream);
+                   void* idx, void* workspace, void* stream) {
+  return select_top<double>(scores, n, L, b, cluster, idx, workspace, stream);
+}
+// The workspace bytes a launch over N workers of L rows and batch b needs in
+// float32 / float64: 0 where every worker's survivors fit in shared memory.
+int64_t select_workspace_bytes_f32(int64_t n, int64_t L, int64_t b) {
+  return workspace_bytes<float>(n, L, b);
+}
+int64_t select_workspace_bytes_f64(int64_t n, int64_t L, int64_t b) {
+  return workspace_bytes<double>(n, L, b);
 }
 
 }  // extern "C"

@@ -4,8 +4,9 @@
 // distributed_optimization_tpu_torch/ops/prng.py::threefry2x32.
 //
 //   fold_in(key, data)   = threefry2x32(key, (0, data mod 2^32))
-//   element i of a draw  = threefry2x32(key, (0, i)); its 32 bits x0 ^ x1,
-//                          its 64 bits x0 << 32 | x1
+//   element i of a draw  = threefry2x32(key, (i >> 32, i mod 2^32)), the flat
+//                          index's two words (jax's iota_2x32_shape); its 32
+//                          bits x0 ^ x1, its 64 bits x0 << 32 | x1
 //   uniform in float32   = the top 23 of the 32 bits as m, u = m * 2^-23
 //   uniform in float64   = the top 52 of the 64 bits as m, u = m * 2^-52
 
@@ -36,4 +37,9 @@ __device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1, uint32_t
     x1 += ks[(group + 2) % 3] + static_cast<uint32_t>(group + 1);
   }
   return make_uint2(x0, x1);
+}
+
+// Element i of a draw under (k0, k1): the counter's high and low words.
+__device__ __forceinline__ uint2 threefry_at(uint32_t k0, uint32_t k1, uint64_t i) {
+  return threefry2x32(k0, k1, static_cast<uint32_t>(i >> 32), static_cast<uint32_t>(i));
 }

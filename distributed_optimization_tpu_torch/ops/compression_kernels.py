@@ -17,8 +17,9 @@ top_k and random_k keep each row's k top scores, ties to the lower column:
 a warp a row ranks them by counting up to 128 columns, and a block a row
 finds the k-th by a radix select past that, at any width; qsgd takes a warp
 a row at every width and sums the row's squares in
-``compression.row_norm``'s order. The kernel takes N·d below 2³² (as the
-twin's draw does) and d below 2³¹. ``ef_levels`` runs the same kernel and
+``compression.row_norm``'s order. The kernel takes N and d below 2³¹;
+element (r, c) draws at the 64-bit counter r·d + c, split into its two
+words as JAX splits the flat index. ``ef_levels`` runs the same kernel and
 also returns each element's mask bit (top_k, random_k) or qsgd level, for
 the tests; it counts nothing. ``levels_plain`` gives the same from the
 plain version.
@@ -71,7 +72,7 @@ def reset_launch_counts() -> None:
 
 def _check(compressor, draw, v: torch.Tensor, memory: torch.Tensor) -> None:
     """What the kernel takes: v and memory contiguous ``[N, d]`` stacks of one
-    dtype on one card, N·d below 2³² and d below 2³¹, and for the random
+    dtype on one card, N and d below 2³¹, and for the random
     operators a draw whose t is an int64 tensor of one element on that card.
     k's range is the launcher's check (csrc/compression_kernels.cu)."""
     _cuda_build.check_stack(v, "v")
@@ -79,8 +80,8 @@ def _check(compressor, draw, v: torch.Tensor, memory: torch.Tensor) -> None:
     if memory.shape != v.shape:
         raise ValueError(f"memory {tuple(memory.shape)} and v {tuple(v.shape)} differ")
     n, d = v.shape
-    if n * d >= 2**32 or d >= 2**31:
-        raise ValueError(f"the compression kernel takes N·d < 2³² and d < 2³¹, "
+    if n >= 2**31 or d >= 2**31:
+        raise ValueError(f"the compression kernel takes N < 2³¹ and d < 2³¹, "
                          f"got N={n}, d={d}")
     if compressor.name not in MODES:
         raise ValueError(f"no compression kernel for {compressor.name!r}")

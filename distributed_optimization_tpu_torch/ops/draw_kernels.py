@@ -8,10 +8,17 @@ attack (``parallel/adversary.py``). A draw there is a Threefry stream at
 spends about 350 elementwise launches on one such draw inside a captured
 graph, so the card takes each as one kernel:
 
-- ``realize_round``: one round's realized graph at the device counter
-  ``t``: the float32 ``A_t [N, N]`` (the surviving edges, the node mask
-  applied), ``active [N]``, and where asked the one-peer proposal scores
-  ``u · A_t``; or, given an ``A_t`` (the timeline's), only the scores;
+- ``realize_round``: one round's mixing operands at the device counter
+  ``t``, the JAX package's ``mix(t, x)`` up to the product: the float32
+  ``A_t [N, N]`` (the surviving edges, the node mask applied), ``active
+  [N]``, ``W_t [N, N]`` in the run's accumulation dtype (Metropolis-Hastings
+  on the realized degrees, or column-stochastic on a directed graph), the
+  round's realized degree count added to the run's float64 total, and where
+  asked the one-peer proposal scores ``u · A_t``; from the memoryless draws,
+  or from a precomputed timeline's edge and node states at t (row
+  ``timeline_row(t, T)``, JAX's index of a traced t). It walks the
+  base graph's neighbour tables (``RoundTables``, built once on the host),
+  so it draws only on base edges;
 - ``fault_timeline``: the per-edge Gilbert-Elliott chains, the
   crash-recovery node chains (with their rejoin rounds) and the
   participation stream over a horizon, as ``[T, E]`` / ``[T, N]`` bool;
@@ -36,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,17 +54,33 @@ SOURCE = _cuda_build.CSRC / "draw_kernels.cu"
 
 # In the order of the kernels' launch-count slots (csrc/draw_kernels.cu).
 KERNELS = ("realize_round", "fault_timeline", "large_noise")
-# The realization kernel's largest N (a grid row a block of 8 rows).
+# The largest N of the round and timeline kernels: edge counters i·N + j
+# stay below 2^32.
 MAX_NODES = 65535
+
+_ROUND_POINTERS = ("t", "in_nbr", "in_cnt", "in_eid", "out_nbr", "out_cnt", "out_eid",
+                   "edge_up", "node_up", "part_up", "a", "active", "w", "scores",
+                   "degree_total")
+
+
+class _RoundArgs(ctypes.Structure):
+    """``RoundArgs`` of csrc/draw_kernels.cu, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in _ROUND_POINTERS]
+                + [(name, ctypes.c_int64)
+                   for name in ("n", "k_in", "k_out", "n_edges", "horizon")]
+                + [("keys", ctypes.c_uint32 * 6), ("p", ctypes.c_float), ("q", ctypes.c_float)]
+                + [(name, ctypes.c_int32) for name in ("drop", "strag", "directed")])
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = _cuda_build.load(SOURCE)
-    ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-    lib.realize_round.argtypes = [ptr, ptr, ptr, ptr, i64, f32, f32, i32, i32, i32, ptr, ptr,
-                                  ptr, ptr]
-    lib.realize_round.restype = ctypes.c_int
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"realize_round_{suffix}")
+        fn.argtypes = [ptr, ptr]
+        fn.restype = ctypes.c_int
     lib.fault_timeline.argtypes = [ptr, i64, ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr, ptr,
                                    ptr]
     lib.fault_timeline.restype = ctypes.c_int
@@ -103,70 +126,209 @@ def _f32(v: float) -> float:
 # --- one round -------------------------------------------------------------------
 
 
-def realize_round_plain(t, keys, base: torch.Tensor, *, drop_prob: float,
-                        straggler_prob: float, directed: bool, scores: bool = False,
-                        given: Optional[torch.Tensor] = None):
-    """The plain version of ``realize_round``, in torch ops on ``prng``."""
+class RoundTables(NamedTuple):
+    """A base graph's neighbour tables for ``realize_round``, on one device.
+
+    ``in_nbr [N, k_in]`` int32: row i's base neighbours in ascending order
+    (on a directed graph the senders j with ``adjacency[i, j] = 1``),
+    padded with i; ``in_cnt [N]`` int32 the real slots. On a directed graph
+    ``out_nbr``/``out_cnt`` list each node's receivers the same way (None
+    on an undirected one). ``in_eid``/``out_eid``, the same shapes, give each
+    slot's edge id in a timeline's edge list (None without one).
+    """
+
+    n: int
+    directed: bool
+    in_nbr: torch.Tensor
+    in_cnt: torch.Tensor
+    in_eid: Optional[torch.Tensor] = None
+    out_nbr: Optional[torch.Tensor] = None
+    out_cnt: Optional[torch.Tensor] = None
+    out_eid: Optional[torch.Tensor] = None
+
+
+class RoundTimeline(NamedTuple):
+    """A precomputed timeline's states, bool ``[T, E]`` (edge_up, indexed
+    by the tables' edge ids) and ``[T, N]`` (node_up, part_up), None for a
+    process that is off."""
+
+    edge_up: Optional[torch.Tensor] = None
+    node_up: Optional[torch.Tensor] = None
+    part_up: Optional[torch.Tensor] = None
+
+    @property
+    def horizon(self) -> int:
+        """T, the rows of its states (0 with every process off)."""
+        return next((x.shape[0] for x in self if x is not None), 0)
+
+
+def timeline_row(t: torch.Tensor, horizon: int) -> torch.Tensor:
+    """The row of a timeline of ``horizon`` rows at the counter ``t`` (int64,
+    one element) as JAX indexes such an array with a traced t: t < 0 counts
+    from the end, then the index is clamped into [0, T)."""
+    return torch.where(t < 0, t + horizon, t).clamp(0, horizon - 1).reshape(1)
+
+
+class Realized(NamedTuple):
+    """One round: ``A [N, N]`` float32, ``active [N]`` float32, ``W [N, N]``
+    in the asked dtype (or None) and the one-peer ``scores [N, N]`` float32
+    (or None)."""
+
+    A: torch.Tensor
+    active: torch.Tensor
+    W: Optional[torch.Tensor]
+    scores: Optional[torch.Tensor]
+
+
+def realize_round_plain(t, keys, tables: RoundTables, *, drop_prob: float,
+                        straggler_prob: float, timeline: Optional[RoundTimeline] = None,
+                        weights: Optional[torch.dtype] = None, scores: bool = False,
+                        degree_total: Optional[torch.Tensor] = None) -> Realized:
+    """The plain version of ``realize_round``, in torch ops on ``prng``:
+    the same slots, draws and sums in the same order (W_t's diagonal adds
+    the slots in ascending index order, a loop of k adds)."""
     fault_key, node_key, match_key = keys
-    n = base.shape[0]
-    dev = base.device
+    n, dev = tables.n, tables.in_nbr.device
     tt = t.reshape(())
-    counters = torch.arange(n * n, dtype=torch.int64, device=dev).reshape(n, n)
-    active = None
-    if given is not None:
-        a = given
+    nodes = torch.arange(n, dtype=torch.int64, device=dev)
+    edge_at = None
+    if timeline is not None:
+        row = timeline_row(t, timeline.horizon)
+        up = torch.ones(n, dtype=torch.bool, device=dev)
+        for states in (timeline.node_up, timeline.part_up):
+            if states is not None:
+                up = up & states.index_select(0, row)[0].bool()
+        if timeline.edge_up is not None:
+            edge_at = timeline.edge_up.index_select(0, row)[0].bool()
+    elif straggler_prob > 0.0:
+        up = prng.uniform_at(prng.fold_in(node_key, tt), nodes) >= _f32(straggler_prob)
     else:
-        a = base.to(torch.float32)
-        if drop_prob > 0.0:
-            u = prng.uniform_at(prng.fold_in(fault_key, tt), counters)
-            if not directed:
-                u = torch.triu(u, 1)
-                u = u + u.T
-            a = torch.where(u >= _f32(drop_prob), a, torch.zeros_like(a))
-        active = torch.ones(n, dtype=torch.float32, device=dev)
-        if straggler_prob > 0.0:
-            un = prng.uniform_at(prng.fold_in(node_key, tt), counters[0])
-            active = (un >= _f32(straggler_prob)).to(torch.float32)
-            a = a * active[:, None] * active[None, :]
+        up = torch.ones(n, dtype=torch.bool, device=dev)
+    draw = timeline is None and drop_prob > 0.0
+
+    def links(i, j, eid):
+        """The base link into i from j survives (i, j int64 [N, k])."""
+        if edge_at is not None:
+            return edge_at[eid.long()]
+        if draw:
+            lo, hi = (i, j) if tables.directed else (torch.minimum(i, j), torch.maximum(i, j))
+            return prng.uniform_at(prng.fold_in(fault_key, tt), lo * n + hi) >= _f32(drop_prob)
+        return torch.ones(i.shape, dtype=torch.bool, device=dev)
+
+    def slots(nbr, cnt, eid, receivers_are_rows):
+        """Each slot's liveness: the link survives and both ends are up."""
+        other = nbr.long()
+        rows = nodes[:, None].expand_as(other)
+        valid = torch.arange(other.shape[1], device=dev)[None, :] < cnt[:, None]
+        i, j = (rows, other) if receivers_are_rows else (other, rows)
+        return valid & up[:, None] & up[other] & links(i, j, eid), other
+
+    live, j = slots(tables.in_nbr, tables.in_cnt, tables.in_eid, True)
+    A = torch.zeros((n, n), dtype=torch.float32, device=dev).scatter_(1, j, live.float())
+    d = live.sum(dim=1)
+    if degree_total is not None:
+        degree_total.add_(d.sum().to(torch.float64))
+    W = None
+    if weights is not None:
+        one = torch.ones((), dtype=weights, device=dev)
+        if tables.directed:
+            out_live, _ = slots(tables.out_nbr, tables.out_cnt, tables.out_eid, False)
+            c = one / (one + out_live.sum(dim=1).to(weights))
+            w_slot = torch.where(live, c[j], 0.0)
+            terms = torch.where(out_live, c[:, None], 0.0)  # column i's weights
+        else:
+            deg = d.to(weights)
+            w_slot = torch.where(live, one / (one + torch.maximum(deg[:, None], deg[j])), 0.0)
+            terms = w_slot
+        total = torch.zeros(n, dtype=weights, device=dev)
+        for col in terms.unbind(1):
+            total = total + col
+        W = torch.zeros((n, n), dtype=weights, device=dev).scatter_(1, j, w_slot)
+        W.diagonal().copy_(one - total)
     s = None
     if scores:
-        s = prng.uniform_at(prng.fold_in(match_key, tt), counters) * a
-    return a, active, s
+        u = prng.uniform_at(prng.fold_in(match_key, tt), nodes[:, None] * n + j)
+        s = torch.zeros((n, n), dtype=torch.float32, device=dev).scatter_(
+            1, j, torch.where(live, u, 0.0))
+    return Realized(A, up.float(), W, s)
 
 
-def realize_round(t, keys, base: torch.Tensor, *, drop_prob: float, straggler_prob: float,
-                  directed: bool, scores: bool = False, given: Optional[torch.Tensor] = None):
-    """``(A_t [N, N] float32, active [N] float32, scores [N, N] float32 or
-    None)`` at the counter ``t``. ``keys``: the fault, node and match tag
-    keys. ``base``: the [N, N] uint8 adjacency. ``given``: a realized A_t
-    (float32, contiguous) to score instead of drawing one; ``active`` is
-    then None and A_t is ``given``."""
-    if base.dtype != torch.uint8 or base.dim() != 2 or not base.is_contiguous():
-        raise ValueError("base must be a contiguous uint8 [N, N] adjacency")
-    _check_counter(t, base.device)
-    if base.device.type == "cpu":
-        return realize_round_plain(t, keys, base, drop_prob=drop_prob,
-                                   straggler_prob=straggler_prob, directed=directed,
-                                   scores=scores, given=given)
-    n = base.shape[0]
-    if given is not None:
-        _cuda_build.check_like(given, base, "given", dtype=torch.float32)
-        a, active = given, None
-    else:
-        a = torch.empty((n, n), dtype=torch.float32, device=base.device)
-        active = torch.empty(n, dtype=torch.float32, device=base.device)
-    s = torch.empty((n, n), dtype=torch.float32, device=base.device) if scores else None
-    with torch.cuda.device(base.device):
-        stream = torch.cuda.current_stream(base.device).cuda_stream
-        err = _library().realize_round(
-            t.data_ptr(), _words(*keys), base.data_ptr(),
-            given.data_ptr() if given is not None else None, n, _f32(drop_prob),
-            _f32(straggler_prob), int(drop_prob > 0.0), int(straggler_prob > 0.0),
-            int(directed), None if given is not None else a.data_ptr(),
-            None if given is not None else active.data_ptr(),
-            s.data_ptr() if s is not None else None, stream)
+def _ptr(x: Optional[torch.Tensor]):
+    return x.data_ptr() if x is not None else None
+
+
+def _check_round(t, tables: RoundTables, timeline, weights, degree_total) -> None:
+    dev = tables.in_nbr.device
+    _check_counter(t, dev)
+    n = tables.n
+    if not 0 < n <= MAX_NODES:
+        raise ValueError(f"realize_round takes 0 < N <= {MAX_NODES}, got {n}")
+    for name in ("in_nbr", "in_cnt", "in_eid", "out_nbr", "out_cnt", "out_eid"):
+        x = getattr(tables, name)
+        if x is not None and (x.dtype != torch.int32 or x.device != dev
+                              or not x.is_contiguous() or x.shape[0] != n):
+            raise ValueError(f"tables.{name} must be a contiguous int32 tensor of N rows on {dev}")
+    if tables.directed and tables.out_nbr is None:
+        raise ValueError("a directed graph's tables need its out-lists")
+    if weights not in (None, torch.float32, torch.float64):
+        raise TypeError(f"weights must be None, float32 or float64, got {weights}")
+    if degree_total is not None and (degree_total.dtype != torch.float64
+                                     or degree_total.numel() != 1
+                                     or degree_total.device != dev):
+        raise ValueError("degree_total must be a float64 tensor of one element on the "
+                         "tables' device")
+    if timeline is not None:
+        for name, states in timeline._asdict().items():
+            if states is not None and (states.dtype not in (torch.bool, torch.uint8)
+                                       or states.dim() != 2 or not states.is_contiguous()
+                                       or states.device != dev):
+                raise ValueError(f"timeline.{name} must be a contiguous bool [T, M] tensor "
+                                 f"on {dev}")
+        if len({x.shape[0] for x in timeline if x is not None}) > 1:
+            raise ValueError("the timeline's states must share their T rows")
+        if timeline.edge_up is not None and (tables.in_eid is None or (
+                tables.directed and tables.out_eid is None)):
+            raise ValueError("a timeline's edges need the tables' edge ids")
+
+
+def realize_round(t, keys, tables: RoundTables, *, drop_prob: float, straggler_prob: float,
+                  timeline: Optional[RoundTimeline] = None,
+                  weights: Optional[torch.dtype] = None, scores: bool = False,
+                  degree_total: Optional[torch.Tensor] = None) -> Realized:
+    """One round at the counter ``t`` over the base graph of ``tables``.
+    ``keys``: the fault, node and match tag keys. Memoryless edge drops and
+    stragglers draw at ``drop_prob``/``straggler_prob``; with ``timeline``
+    the round reads its states at ``timeline_row(t, T)`` instead (a t at or
+    past the horizon reads its last row). ``weights``: W_t's dtype, or
+    None for no W_t. ``scores``: the one-peer proposal scores. The round's
+    realized degree count is added to ``degree_total`` (float64, one
+    element) where given."""
+    _check_round(t, tables, timeline, weights, degree_total)
+    dev = tables.in_nbr.device
+    if dev.type == "cpu":
+        return realize_round_plain(t, keys, tables, drop_prob=drop_prob,
+                                   straggler_prob=straggler_prob, timeline=timeline,
+                                   weights=weights, scores=scores, degree_total=degree_total)
+    n = tables.n
+    A = torch.empty((n, n), dtype=torch.float32, device=dev)
+    active = torch.empty(n, dtype=torch.float32, device=dev)
+    W = torch.empty((n, n), dtype=weights, device=dev) if weights is not None else None
+    s = torch.empty((n, n), dtype=torch.float32, device=dev) if scores else None
+    tl = timeline if timeline is not None else RoundTimeline()
+    args = _RoundArgs(
+        t.data_ptr(), tables.in_nbr.data_ptr(), tables.in_cnt.data_ptr(), _ptr(tables.in_eid),
+        _ptr(tables.out_nbr), _ptr(tables.out_cnt), _ptr(tables.out_eid), _ptr(tl.edge_up),
+        _ptr(tl.node_up), _ptr(tl.part_up), A.data_ptr(), active.data_ptr(), _ptr(W), _ptr(s),
+        _ptr(degree_total), n, tables.in_nbr.shape[1],
+        tables.out_nbr.shape[1] if tables.out_nbr is not None else 0,
+        tl.edge_up.shape[1] if tl.edge_up is not None else 0, tl.horizon, _words(*keys),
+        _f32(drop_prob), _f32(straggler_prob), int(timeline is None and drop_prob > 0.0),
+        int(timeline is None and straggler_prob > 0.0), int(tables.directed))
+    fn = getattr(_library(), "realize_round_" + ("f64" if weights == torch.float64 else "f32"))
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     _raise(err, "realize_round")
-    return a, active, s
+    return Realized(A, active, W, s)
 
 
 # --- the timeline ------------------------------------------------------------------

@@ -10,8 +10,9 @@ that the port's sampler uses:
   64-bit words ``(seed >> 32, seed mod 2³²)``;
 - ``fold_in(key, data)`` is ``threefry2x32(key, (0, data mod 2³²))``;
 - ``random_bits(key, shape, width)``: element i of the flattened shape is
-  ``(x0, x1) = threefry2x32(key, (0, i))``, and its bits are ``x0 ^ x1``
-  (32) or ``x0 << 32 | x1`` (64);
+  ``(x0, x1) = threefry2x32(key, (i >> 32, i mod 2³²))``, the flat index's
+  two words as jax's ``iota_2x32_shape`` splits it, and its bits are
+  ``x0 ^ x1`` (32) or ``x0 << 32 | x1`` (64);
 - ``uniform(key, shape, dtype, minval, maxval)``: the top 23 (float32) or
   52 (float64) of those bits as the mantissa of a float in [1, 2), minus 1,
   then jax's ``max(minval, u·(maxval − minval) + minval)`` in ``dtype``;
@@ -103,13 +104,14 @@ def _key_device(key: Key):
 
 
 def _words_at(key: Key, counter: torch.Tensor):
-    """The two Threefry output words at each counter under each key:
+    """The two Threefry output words at each counter (int64, ≥ 0; its high
+    and low words are the Threefry counter's) under each key:
     ``[..., *counter.shape]`` each."""
     k0, k1 = _words(key)
     if isinstance(k0, torch.Tensor):
         k0 = k0.reshape(k0.shape + (1,) * counter.dim())
         k1 = k1.reshape(k1.shape + (1,) * counter.dim())
-    return threefry2x32(k0, k1, 0, counter)
+    return threefry2x32(k0, k1, counter >> 32, counter & MASK32)
 
 
 def _counter_words(key: Key, shape):
@@ -118,8 +120,8 @@ def _counter_words(key: Key, shape):
     int key)."""
     shape = tuple(shape)
     size = math.prod(shape)
-    if size >= 2**32:
-        raise ValueError(f"shape {shape} holds 2³² or more elements")
+    if size >= 2**63:
+        raise ValueError(f"shape {shape} holds 2⁶³ or more elements")
     counter = torch.arange(size, dtype=torch.int64, device=_key_device(key)).reshape(shape)
     return _words_at(key, counter)
 
@@ -165,7 +167,7 @@ def uniform(key: Key, shape, dtype: torch.dtype = torch.float32, minval=0.0,
 def uniform_at(key: Key, counters: torch.Tensor, dtype: torch.dtype = torch.float32,
                minval=0.0, maxval=1.0) -> torch.Tensor:
     """The elements of ``uniform(key, shape, dtype, minval, maxval)`` at the
-    flat indices ``counters`` (an int64 tensor in [0, 2³²)), without the
+    flat indices ``counters`` (a non-negative int64 tensor), without the
     rest: ``[..., *counters.shape]`` for keys ``[..., 2]``."""
     if dtype not in _ONE_BITS:
         raise ValueError(f"dtype must be float32 or float64, got {dtype}")

@@ -21,8 +21,11 @@ form of a longer shard, select each worker's top rows by a radix select on
 one key a row (the score's mantissa above the reversed row index) in one
 block or a thread block cluster, the keys held in registers up to 65,536 rows
 and recomputed at each radix pass past that; the gather form then copies the
-rows. A batch's survivors, min(b, L) + ``SURVIVOR_SLACK`` keys, must fit in
-the shared memory of one block.
+rows. A worker's survivors, min(b, L) + ``SURVIVOR_SLACK`` keys and rows,
+live in one block's shared memory where they fit, else in a global-memory
+workspace (``workspace_for``), with the same selection and the same bits;
+the wrapper allocates it with its outputs (inside a captured graph, once at
+capture from the graph's pool).
 
 ``select_mirror`` repeats that selection in PyTorch ops on integer scores,
 for the tests; ``_select`` runs the kernel's selection on given scores on the
@@ -66,11 +69,14 @@ def _library() -> ctypes.CDLL:
         for name, rest in (("sample_weights", [ptr]), ("sample_indices", [ptr, ptr]),
                            ("sample_batches", [i64, ptr, ptr, ptr, ptr, ptr])):
             fn = getattr(lib, f"{name}_{suffix}")
-            fn.argtypes = head + rest + [ptr]
+            fn.argtypes = head + rest + [ptr, ptr]  # ..., workspace, stream
             fn.restype = ctypes.c_int
         fn = getattr(lib, f"select_top_{suffix}")
-        fn.argtypes = [ptr, i64, i64, i64, i64, ptr, ptr]
+        fn.argtypes = [ptr, i64, i64, i64, i64, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
+        fn = getattr(lib, f"select_workspace_bytes_{suffix}")
+        fn.argtypes = [i64, i64, i64]
+        fn.restype = ctypes.c_int64
     return lib
 
 
@@ -85,8 +91,7 @@ def _check(slot_key, t, n_valid: torch.Tensor, n_local: int, batch_size: int,
            dtype: torch.dtype) -> None:
     """What the kernels take: a slot key of two words, ``t`` an int64
     one-element tensor and ``n_valid`` a contiguous int64 ``[N]`` tensor,
-    both on the card. The survivors' shared-memory limit is the launcher's
-    check (csrc/sampling_kernels.cu)."""
+    both on the card."""
     if isinstance(slot_key, torch.Tensor) or len(slot_key) != 2:
         raise TypeError("the slot key must be two host words (ints)")
     if not isinstance(t, torch.Tensor) or t.dtype != torch.int64 or t.numel() != 1:
@@ -101,16 +106,32 @@ def _check(slot_key, t, n_valid: torch.Tensor, n_local: int, batch_size: int,
         raise ValueError(f"the shard length ({n_local}) and batch ({batch_size}) must be positive")
 
 
-def _refused(name: str, n_local: int, batch_size: int, dtype) -> str:
-    return (f"{name} refuses a shard of {n_local} rows with a batch of {batch_size} in {dtype}: "
-            f"min(b, L) + {SURVIVOR_SLACK} survivors must fit in the shared memory of one block")
+def workspace_for(n: int, n_local: int, batch_size: int, dtype: torch.dtype,
+                  device) -> torch.Tensor | None:
+    """The global-memory workspace that a launch over ``n`` workers of
+    ``n_local`` rows and batch ``batch_size`` needs on ``device`` (a card),
+    or None where every worker's survivors fit in shared memory. Each
+    wrapper allocates it with its outputs."""
+    size = _workspace_bytes(n, n_local, batch_size, dtype)
+    return torch.empty(size, dtype=torch.uint8, device=device) if size else None
+
+
+@functools.lru_cache(maxsize=64)
+def _workspace_bytes(n: int, n_local: int, batch_size: int, dtype: torch.dtype) -> int:
+    if n < 1 or n_local < 1 or batch_size < 1:
+        return 0
+    return getattr(_library(), f"select_workspace_bytes_{_cuda_build.SUFFIX[dtype]}")(
+        n, n_local, batch_size)
 
 
 def _call(name: str, out: torch.Tensor, slot_key, t, n_valid, n_local, batch_size, *args):
+    workspace = workspace_for(n_valid.shape[0], n_local, batch_size, out.dtype, n_valid.device)
     k0, k1 = slot_key
     _cuda_build.call(_library(), name, out, t.data_ptr(), k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF,
                      n_valid.data_ptr(), n_valid.shape[0], n_local, batch_size, *args,
-                     invalid=_refused(name, n_local, batch_size, out.dtype))
+                     workspace.data_ptr() if workspace is not None else None,
+                     invalid=f"{name} refuses a shard of {n_local} rows with a batch of "
+                             f"{batch_size} in {out.dtype}")
 
 
 def sample_worker_batch_weights(slot_key, t, n_valid: torch.Tensor, n_local: int,
@@ -156,8 +177,8 @@ def sample_worker_batches(slot_key, t, X: torch.Tensor, y: torch.Tensor, n_valid
     Xb = torch.empty((n, batch_size, d), dtype=X.dtype, device=X.device)
     yb = torch.empty((n, batch_size), dtype=X.dtype, device=X.device)
     w = torch.empty((n, batch_size), dtype=X.dtype, device=X.device)
-    _call("sample_batches", w, slot_key, t, n_valid, n_local, batch_size, d, X.data_ptr(),
-          y.data_ptr(), w.data_ptr(), Xb.data_ptr(), yb.data_ptr())
+    _call("sample_batches", w, slot_key, t, n_valid, n_local, batch_size, d,
+          X.data_ptr(), y.data_ptr(), w.data_ptr(), Xb.data_ptr(), yb.data_ptr())
     return Xb, yb, w
 
 
@@ -173,9 +194,12 @@ def _select(scores: torch.Tensor, batch_size: int, dtype: torch.dtype,
     n, n_local = scores.shape
     idx = torch.empty((n, batch_size), dtype=torch.int64, device=scores.device)
     like = torch.empty(0, dtype=dtype, device=scores.device)
+    workspace = workspace_for(n, n_local, batch_size, dtype, scores.device)
     _cuda_build.call(_library(), "select_top", like, scores.data_ptr(), n, n_local, batch_size,
                      cluster, idx.data_ptr(),
-                     invalid=_refused("select_top", n_local, batch_size, dtype))
+                     workspace.data_ptr() if workspace is not None else None,
+                     invalid=f"select_top refuses N={n}, L={n_local}, b={batch_size}, "
+                             f"cluster {cluster}")
     return idx
 
 

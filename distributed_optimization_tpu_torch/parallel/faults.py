@@ -21,17 +21,21 @@ Undirected graphs mix with the Metropolis-Hastings weights of the realized
 graph, directed ones with its column-stochastic out-weights. Every draw is
 the JAX package's: float32 uniforms of ``ops/prng.py``'s Threefry stream at
 ``fold_in(tag key, t)``, edge (i, j) at counter i·N + j (the i < j entry
-for an undirected edge). Memoryless processes draw each round
-(``ops/draw_kernels.realize_round``: one kernel launch on a card);
-persistent ones (bursty edges, churn, participation) unroll a
-``FaultTimeline`` once at set-up (``fault_timeline``, one launch) and index
-it at t. Masks, degrees and the accounting are float32 whatever the run
-dtype; only the mixed values take it.
+for an undirected edge). Persistent processes (bursty edges, churn,
+participation) unroll a ``FaultTimeline`` once at set-up
+(``fault_timeline``, one launch) that each round reads at t; memoryless
+ones draw each round. Either way a round is one launch on a card
+(``ops/draw_kernels.realize_round``): A_t, the active mask, W_t in the
+run's accumulation dtype and the round's degree count, over the base
+graph's neighbour tables (``round_tables``, built once). Masks and A_t are
+float32 whatever the run dtype; W_t and the mixed values take
+promote(float32, dtype).
 
-``FaultyMixing.realize(t)`` gives one ``Round``: its realized A_t, active
-mask or partners on the run's device, and the mix, neighbour sum, degree
-sum, gather-form liveness and warm restart over them. ``t`` is the run's
-int64 counter tensor, so a captured CUDA graph replays every round. The
+``FaultyMixing.realize(t, degree_total)`` gives one ``Round``: its realized
+A_t, W_t, active mask or partners on the run's device, and the mix,
+neighbour sum, gather-form liveness and warm restart over them; the
+round's realized degree count lands in ``degree_total``. ``t`` is the
+run's int64 counter tensor, so a captured CUDA graph replays every round. The
 matrix-free form (``_make_gather_faulty_mixing``), the worker-mesh form
 (``make_halo_faulty_mixing``) and the replica stacker
 (``stack_fault_timelines``) are not ported.
@@ -39,6 +43,7 @@ matrix-free form (``_make_gather_faulty_mixing``), the worker-mesh form
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -339,24 +344,78 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(torch.float32, dtype)
 
 
+def _padded_lists(adjacency: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Row i's nonzero columns in ascending order, padded with i, and their
+    count: ([N, k] int32, [N] int32), k the largest count (at least 1). On
+    an undirected graph the table is ``topology.neighbor_table``'s, which
+    refuses directed graphs; here it also gives their in- and out-lists."""
+    n = adjacency.shape[0]
+    counts = adjacency.sum(axis=1).astype(np.int32)
+    nbr = np.tile(np.arange(n, dtype=np.int32)[:, None], (1, max(int(counts.max()), 1)))
+    for i in range(n):
+        row = np.nonzero(adjacency[i])[0]
+        nbr[i, : len(row)] = row
+    return nbr, counts
+
+
+def round_tables(topo: Topology, edge_index: Optional[np.ndarray] = None, *,
+                 device) -> draw_kernels.RoundTables:
+    """The round kernel's neighbour tables of the base graph on ``device``:
+    each row's neighbours (on a directed graph its senders, and then each
+    node's receivers); with ``edge_index`` (a timeline's [E, 2] edge list),
+    each slot's edge id."""
+    A = np.asarray(topo.adjacency) != 0
+    n = topo.n
+    in_nbr, in_cnt = _padded_lists(A)
+    out_nbr = out_cnt = None
+    if topo.directed:
+        out_nbr, out_cnt = _padded_lists(A.T)
+    in_eid = out_eid = None
+    if edge_index is not None:
+        eid = np.zeros((n, n), dtype=np.int32)
+        ei, ej = edge_index[:, 0], edge_index[:, 1]
+        eid[ei, ej] = np.arange(len(edge_index), dtype=np.int32)
+        if not topo.directed:
+            eid[ej, ei] = eid[ei, ej]
+        rows = np.arange(n)[:, None]
+        in_eid = eid[rows, in_nbr]
+        if topo.directed:
+            out_eid = eid[out_nbr, rows]  # the link into out_nbr[j, s] from j
+
+    def put(a):
+        return None if a is None else torch.as_tensor(
+            np.ascontiguousarray(a, dtype=np.int32), device=device)
+
+    return draw_kernels.RoundTables(n, topo.directed, put(in_nbr), put(in_cnt), put(in_eid),
+                                    put(out_nbr), put(out_cnt), put(out_eid))
+
+
+def _add_matched(degree_total: Optional[torch.Tensor], partner: torch.Tensor) -> None:
+    """A matching's degree count: its matched nodes."""
+    if degree_total is not None:
+        idx = torch.arange(partner.shape[0], device=partner.device)
+        degree_total.add_(torch.sum(partner != idx).to(torch.float64))
+
+
 class Round:
     """One round's realized graph on the run's device, and the operations
     over it. ``A``: the float32 [N, N] realized adjacency (None under a
-    matching schedule); ``active``: the float32 [N] node mask; ``partner``:
-    the int64 [N] matching (matching schedules); ``rejoin``: this round's
-    rejoining nodes (bool [N]) under ``neighbor_restart``."""
+    matching schedule); ``W``: W_t in the run's promote(float32, dtype) (MH,
+    or column-stochastic on a directed graph), from the same launch;
+    ``active``: the float32 [N]
+    node mask; ``partner``: the int64 [N] matching (matching schedules);
+    ``rejoin``: this round's rejoining nodes (bool [N]) under
+    ``neighbor_restart``."""
 
-    def __init__(self, A, active, partner=None, *, directed=False, rejoin=None):
+    def __init__(self, A, active, partner=None, *, W=None, rejoin=None):
         self.A, self.active, self.partner = A, active, partner
-        self.directed, self.rejoin = directed, rejoin
-        self._weights = {}
+        self.W, self.rejoin = W, rejoin
 
     def weights(self, acc: torch.dtype) -> torch.Tensor:
-        """W_t in ``acc``: MH, or column-stochastic on a directed graph."""
-        if acc not in self._weights:
-            rule = column_stochastic_weights if self.directed else metropolis_hastings_weights
-            self._weights[acc] = rule(self.A.to(acc))
-        return self._weights[acc]
+        """W_t, realized in ``acc``."""
+        if acc != self.W.dtype:
+            raise ValueError(f"this round's W_t was realized in {self.W.dtype}, not {acc}")
+        return self.W
 
     def mix(self, x: torch.Tensor) -> torch.Tensor:
         """W_t x, in promote(float32, dtype), cast back."""
@@ -373,13 +432,6 @@ class Round:
             return (x[self.partner] * matched.reshape((-1,) + (1,) * (x.ndim - 1))).to(x.dtype)
         acc = _acc(x.dtype)
         return torch.matmul(self.A.to(acc), x.to(acc)).to(x.dtype)
-
-    def degree_sum(self) -> torch.Tensor:
-        """Σ realized degrees, a float32 tensor of one element."""
-        if self.partner is not None:
-            idx = torch.arange(self.partner.shape[0], device=self.partner.device)
-            return torch.sum((self.partner != idx).to(torch.float32))
-        return torch.sum(self.A)
 
     def live(self, nbr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """The gather form: float32 [N, k_max] liveness of each neighbour-table
@@ -400,89 +452,65 @@ class Round:
 
 class FaultyMixing:
     """Per-round mixing over a randomly failing topology (see the module
-    docstring); ``realize(t)`` gives the round. ``freezes``: inactive nodes
-    keep their whole state for the round (stragglers, churn or
-    participation). ``timeline``: the host timeline, or None on the
-    memoryless path."""
+    docstring); ``realize(t, degree_total)`` gives the round. ``freezes``:
+    inactive nodes keep their whole state for the round (stragglers, churn
+    or participation). ``timeline``: the host timeline, or None on the
+    memoryless path. ``acc``: the dtype of each round's W_t, the run's
+    promote(float32, dtype)."""
 
     def __init__(self, topo: Topology, *, device, drop_prob=0.0, straggler_prob=0.0,
                  one_peer=False, churn_active=False, participation_active=False,
                  rejoin="frozen", keys=None, timeline_tensors=None, timeline=None,
-                 partners=None):
+                 partners=None, acc=torch.float32):
         self.topo, self.device = topo, device
         self.drop_prob, self.straggler_prob = drop_prob, straggler_prob
         self.one_peer, self.churn_active = one_peer, churn_active
         self.participation_active, self.rejoin = participation_active, rejoin
-        self.timeline = timeline
+        self.timeline, self.acc = timeline, acc
         self.freezes = straggler_prob > 0.0 or churn_active or participation_active
         self._keys = keys
-        self._tl = timeline_tensors
         self._partners = partners  # round-robin phases [P, N]
-        n = topo.n
-        self._base = torch.as_tensor(np.asarray(topo.adjacency) != 0, dtype=torch.uint8,
-                                     device=device).contiguous()
-        self._ones = torch.ones(n, dtype=torch.float32, device=device)
+        self._ones = torch.ones(topo.n, dtype=torch.float32, device=device)
+        self._tl = self._rejoin = None
+        edge_index = None
         if timeline_tensors is not None:
             tl = timeline_tensors
-            self._edge_up = self._eid = None
-            if tl["edge_up"] is not None:
-                # Edge e's liveness read at both of its entries; non-edges at
-                # the appended zero column.
-                E = tl["edge_up"].shape[1]
-                eid = np.full((n, n), E, dtype=np.int64)
-                ei, ej = timeline.edge_index[:, 0], timeline.edge_index[:, 1]
-                eid[ei, ej] = np.arange(E)
-                if not topo.directed:
-                    eid[ej, ei] = np.arange(E)
-                self._eid = torch.as_tensor(eid, device=device)
-                self._edge_up = torch.cat(
-                    [tl["edge_up"].to(torch.float32),
-                     torch.zeros((tl["edge_up"].shape[0], 1), device=device)], dim=1)
-            self._node_up = (tl["node_up"].to(torch.float32)
-                             if tl["node_up"] is not None else None)
-            self._part_up = (tl["part_up"].to(torch.float32)
-                             if tl["part_up"] is not None else None)
+            self._tl = draw_kernels.RoundTimeline(tl["edge_up"], tl["node_up"], tl["part_up"])
             self._rejoin = tl["rejoin"] if rejoin == "neighbor_restart" else None
+            if tl["edge_up"] is not None:
+                edge_index = (timeline.edge_index if timeline.edge_index is not None
+                              else _edge_list(topo))
+        self._tables = (round_tables(topo, edge_index, device=device)
+                        if partners is None else None)
 
     @property
     def directed(self) -> bool:
         return self.topo.directed
 
-    def realize(self, t: torch.Tensor) -> Round:
+    def realize(self, t: torch.Tensor, degree_total: Optional[torch.Tensor] = None) -> Round:
         """The round at the counter ``t`` (an int64 tensor of one element on
-        the run's device)."""
+        the run's device), its W_t in ``self.acc``; its realized degree count
+        (matched nodes under a matching) is added to ``degree_total``, a
+        float64 tensor of one element, where given."""
         if self._partners is not None:
             phase = torch.remainder(t, self._partners.shape[0])
-            return Round(None, self._ones, self._partners.index_select(0, phase)[0])
-        if self._tl is None:
-            A, active, scores = draw_kernels.realize_round(
-                t, self._keys, self._base, drop_prob=self.drop_prob,
-                straggler_prob=self.straggler_prob, directed=self.directed,
-                scores=self.one_peer)
-            rejoin = None
-        else:
-            active = self._ones
-            if self._node_up is not None:
-                active = self._node_up.index_select(0, t)[0]
-                if self._part_up is not None:
-                    active = active * self._part_up.index_select(0, t)[0]
-            elif self._part_up is not None:
-                active = self._part_up.index_select(0, t)[0]
-            if self._edge_up is not None:
-                A = self._edge_up.index_select(0, t)[0][self._eid]
-            else:
-                A = self._base.to(torch.float32)
-            if self._node_up is not None or self._part_up is not None:
-                A = A * active[:, None] * active[None, :]
-            scores = None
-            if self.one_peer:
-                _, _, scores = draw_kernels.realize_round(
-                    t, self._keys, self._base, drop_prob=0.0, straggler_prob=0.0,
-                    directed=self.directed, scores=True, given=A.contiguous())
-            rejoin = (self._rejoin.index_select(0, t)[0] if self._rejoin is not None else None)
+            partner = self._partners.index_select(0, phase)[0]
+            _add_matched(degree_total, partner)
+            return Round(None, self._ones, partner)
+        out = draw_kernels.realize_round(
+            t, self._keys, self._tables, drop_prob=self.drop_prob,
+            straggler_prob=self.straggler_prob, timeline=self._tl,
+            weights=None if self.one_peer else self.acc, scores=self.one_peer,
+            degree_total=None if self.one_peer else degree_total)
         if self.one_peer:
-            return Round(None, active, sample_one_peer_matching(scores, A))
-        return Round(A, active, directed=self.directed, rejoin=rejoin)
+            partner = sample_one_peer_matching(out.scores, out.A)
+            _add_matched(degree_total, partner)
+            return Round(None, out.active, partner)
+        rejoin = None
+        if self._rejoin is not None:
+            row = draw_kernels.timeline_row(t, self._rejoin.shape[0])
+            rejoin = self._rejoin.index_select(0, row)[0]
+        return Round(out.A, out.active, W=out.W, rejoin=rejoin)
 
     # The JAX package's per-t functions, through ``realize`` (for the tests).
 
@@ -501,13 +529,19 @@ class FaultyMixing:
         return self.realize(self._t(t)).partner
 
     def mix(self, t, x: torch.Tensor) -> torch.Tensor:
-        return self.realize(self._t(t)).mix(x)
+        """W_t x, with W_t realized in x's promote(float32, dtype)."""
+        same = copy.copy(self)
+        same.acc = _acc(x.dtype)
+        return same.realize(self._t(t)).mix(x)
 
     def neighbor_sum(self, t, x: torch.Tensor) -> torch.Tensor:
         return self.realize(self._t(t)).neighbor_sum(x)
 
     def realized_degree_sum(self, t) -> torch.Tensor:
-        return self.realize(self._t(t)).degree_sum()
+        """Σ realized degrees at t, a float64 tensor of one element."""
+        total = torch.zeros((), dtype=torch.float64, device=self.device)
+        self.realize(self._t(t), total)
+        return total
 
     def rejoin_restart(self, t, x: torch.Tensor) -> torch.Tensor:
         return self.realize(self._t(t)).restart(x)
@@ -545,7 +579,8 @@ def make_faulty_mixing(
     bursty edges, churn and participation need ``horizon`` and unroll a
     timeline at set-up (bitwise the memoryless draws at burst_len=1 and at
     the iid-equivalent churn point). ``timeline`` injects a prebuilt one.
-    ``x64`` keys the streams as a float64 run does."""
+    ``x64`` keys the streams as a float64 run does and realizes W_t in
+    float64."""
     if not 0.0 <= drop_prob < 1.0:
         raise ValueError(f"drop_prob must be in [0, 1), got {drop_prob}")
     if not 0.0 <= straggler_prob < 1.0:
@@ -607,7 +642,7 @@ def make_faulty_mixing(
                 horizon=horizon, directed=topo.directed, edge_index=edge_index,
                 **{k: (v.cpu().numpy() if v is not None else None) for k, v in tensors.items()})
         else:
-            tensors = {k: (torch.as_tensor(getattr(timeline, k), device=device)
+            tensors = {k: (torch.as_tensor(getattr(timeline, k), device=device).contiguous()
                            if getattr(timeline, k) is not None else None)
                        for k in ("edge_up", "node_up", "rejoin", "part_up")}
     return FaultyMixing(
@@ -615,4 +650,5 @@ def make_faulty_mixing(
         one_peer=one_peer, churn_active=churn_active,
         participation_active=participation_active, rejoin=rejoin, keys=keys,
         timeline_tensors=tensors, timeline=timeline,
+        acc=torch.float64 if x64 else torch.float32,
     )

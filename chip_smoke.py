@@ -240,10 +240,15 @@ Phases:
     fully-connected graph at N=25 (``ROUND_GRAPHS``), under every fault
     mode (``ROUND_MODES``: drops, stragglers, both, bursty edges, churn
     with either rejoin policy, participation, one-peer), a timeline's also
-    at and past its horizon; the timeline at
-    the churn phase's cells; the noise in both dtypes up to 4,096 × 1,024;
-    each timed against its bound (realize_round at main's faulted shape,
-    in a graph and event-timed);
+    at and past its horizon; the timeline (two launches: the draws, the
+    scan) at the churn phase's processes over horizons across its segment
+    and tile edges (``TIMELINE_HORIZONS``) and at ``TIMELINE_SHAPES`` (the
+    churn GT cell, bursty N=64 at T=20,000, main's shape at T=30,000); the
+    noise in both dtypes up to 4,096 × 1,024 and 8 × 4,194,816
+    (``NOISE_CHECK_SHAPES``), honest rows equal to x; each timed against
+    its bound in a graph and event-timed (realize_round at main's faulted
+    shape, the timeline at ``TIMELINE_SHAPES``, the noise at
+    ``NOISE_TIMED``);
     ``examples/bench_faults.py``'s twelve variants (logistic N=64 ring, the
     gather sampler, T=20,000, eval every iteration: D-SGD fault-free, 20%
     drops, 10% stragglers, both, one-peer, round-robin; GT and push-sum on
@@ -253,14 +258,20 @@ Phases:
     2|E|·payload·T, round-robin exactly half), ``realize_round`` T times
     in each memoryless faulted run; main's shapes under 20% drops and 10%
     stragglers (the fused ring step off), bitwise its measured run at
-    T=3,000; each fault mode in float64 on the card against the CPU
-    (1e-12).
+    T=3,000; main's shapes under bursty drops and churn
+    (``FULL_WIDTH_FAULTS``, T=30,000), its timeline bitwise the plain
+    version's on the CPU and its graph run bitwise its measured run at
+    T=1,000, with its set-up seconds (timeline included); the robust cell
+    (N=256 ring, d=41) under ``large_noise`` at scale 10, trimmed mean b=1,
+    fused and gather, ``large_noise`` T times; each fault mode in float64
+    on the card against the CPU (1e-12).
 20. churn: ``examples/bench_churn.py``'s four gates (quadratic N=16 ring):
     ``burst_len=1`` bitwise the iid run, B̂ growing with the burst length
     (timelines drawn by the kernel), GT's tracking residual under churn
     below 1e-9 in float64, ``neighbor_restart`` ending at or below
-    ``frozen``'s consensus after 150-round outages; ``fault_timeline``
-    once in each run with bursty edges or churn, and ``realize_round`` once
+    ``frozen``'s consensus after 150-round outages; ``fault_timeline``'s
+    two launches once in each run with bursty edges or churn, and
+    ``realize_round`` once
     a step in every run (it reads the timeline where there is one).
 
 Every run goes through the port's run loop: after a warm-up chunk, CUDA
@@ -308,14 +319,12 @@ another ``compression_kernels.cu`` with this tree's C interface, holds this
 tree bitwise to it (memory⁺ and the mask bits or levels) wherever it takes
 the shape, and times both in turns, in a graph and event-timed, at the main
 shape and the wide ones; ``draw_ab`` (``--phases card,draw_ab
---draw-baseline PATH``) binds another ``draw_kernels.cu`` through the
-round's C interface of commit c2e806b (the last before the round kernel
-gave W_t; a later source does not bind), holds this tree's round to it at ``DRAW_AB_SHAPES``
-(A_t and active bitwise, W_t bitwise on the rings and within k_max − 1 ulps
-of 1.0 elsewhere, two orders of a row's sum; the degree totals equal) and
-times the parent's round (its
-launch, then W_t and the degree sum in PyTorch) against this tree's one
-launch in a graph, in turns. ``profile`` also traces the parity run (N=25,
+--draw-baseline PATH``) binds another ``draw_kernels.cu`` through commit
+48849bd's C interface (its one-launch timeline, its noise), holds this
+tree's timeline and noise bitwise to it at every timed shape, times both
+in a graph and event-timed in turns, and runs the faults phase's
+full-width runs with its timeline and noise and with this tree's: their
+digests must be equal. ``profile`` also traces the parity run (N=25,
 gather sampling).
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
@@ -348,9 +357,9 @@ PHASES = ("card", "kernels", "sampling", "reference", "parity", "main", "mixing"
 # interface; sampling_ab (with --sampling-baseline), both sampling forms
 # against another build of sampling_kernels.cu; compression_ab (with
 # --compression-baseline), the compression kernel against another build of
-# compression_kernels.cu; draw_ab (with --draw-baseline), one faulted round
-# of another draw_kernels.cu with commit c2e806b's C interface (its launch, then
-# W_t and the degree sum in PyTorch) against this tree's one launch.
+# compression_kernels.cu; draw_ab (with --draw-baseline), the timeline and
+# noise kernels of another draw_kernels.cu with commit 48849bd's C interface
+# against this tree's, and the full-width faulted runs with each.
 OPTIONAL_PHASES = ("profile", "ring_ab", "robust_ab", "fc_ab", "sampling_ab", "compression_ab",
                    "draw_ab")
 
@@ -535,6 +544,26 @@ CHURN_OUTAGE = dict(n_iterations=2000, mttf=400.0, mttr=150.0)
 # fault_timeline at the churn phase's GT cell, large_noise at the byzantine
 # phase's noise rows (N=64, d=11).
 NOISE_SHAPE = (64, 11)
+# bench_churn.py's GT processes: bursty edge drops and churn.
+_BURSTY_CHURN = dict(edge_drop_prob=0.2, burst_len=8.0, mttf=60.0, mttr=25.0)
+# The timeline's timed shapes, (label, ring N, T, processes): the churn GT
+# cell, FAULT_F64's bursty mode at FAULTS_BASE's horizon, main's shape under
+# bursty drops and churn.
+TIMELINE_SHAPES = (("churn_gt", 16, CHURN_GT["n_iterations"], _BURSTY_CHURN),
+                   ("bursty_n64", 64, FAULTS_BASE["n_iterations"], FAULT_F64["bursty"]),
+                   ("main", 256, MAIN_ITERATIONS, _BURSTY_CHURN))
+# Horizons across the timeline kernels' segment (16 rounds) and tile (128)
+# edges.
+TIMELINE_HORIZONS = (1, 2, 15, 16, 17, 31, 32, 33, 127, 128, 129, 1000)
+# The noise kernel's shapes held bitwise its plain version, and its timed
+# ones: the path's, main's, every tenth row of 4,096 × 1,024, one row of the
+# compute-bound tier's width (d = 8,193 × K = 512).
+NOISE_CHECK_SHAPES = (NOISE_SHAPE, (256, 81), (25, 810), (4096, 1024), (8, 4_194_816))
+NOISE_TIMED = (NOISE_SHAPE, (256, 81), (4096, 1024), (8, 4_194_816))
+# Main's shapes (N=256 ring, L=49, the dense sampler, T=30,000) under bursty
+# drops and churn, frozen rejoin: the timeline's full-width path.
+FULL_WIDTH_FAULTS = dict(_BURSTY_CHURN, rejoin="frozen")
+FULL_WIDTH_MEASURED = 1_000  # its graph-vs-measured check's T
 # The round kernel's graphs, held bitwise to its plain version in every fault
 # mode (ROUND_MODES), W_t in both dtypes: (name, N), Erdős–Rényi
 # and directed ER at mean degree 12 (p = 12 / N).
@@ -556,12 +585,6 @@ ROUND_MODES = {
     "participation": dict(drop_prob=0.1, participation_rate=0.7, horizon=ROUND_HORIZON),
     "one_peer": dict(drop_prob=0.2, straggler_prob=0.1, one_peer=True),
 }
-# draw_ab's inputs: (graph, N, W_t's dtype), the parent's round (its launch,
-# then W_t and the degree sum in PyTorch) against this tree's one launch,
-# under 20% drops and 10% stragglers.
-DRAW_AB_SHAPES = (("ring", 256, "float32"), ("ring", 256, "float64"), ("ring", 64, "float32"),
-                  ("directed_ring", 64, "float32"), ("erdos_renyi", 256, "float32"),
-                  ("fully_connected", 25, "float32"), ("erdos_renyi", 1024, "float32"))
 # Floating-point operations of one normal draw's erf_inv (log1p, the Horner
 # steps, the select and the products), by dtype.
 ERF_INV_OPS = {"float32": 2 * 9 + 24, "float64": 2 * 23 + 30}
@@ -1678,91 +1701,137 @@ def phase_sampling_ab(torch, kernels, sampling, prng, baseline: str):
         f"{lines}: {', '.join(slower) if slower else 'none'}")
 
 
-def phase_draw_ab(torch, kernels, pkg, baseline: str):
-    """One faulted round of the parent's design against this tree's, in one
-    call. ``baseline``: a draw_kernels.cu with the round's C interface of
-    commit c2e806b (realize_round(t, keys, base, given, n, p, q, drop,
-    strag, directed, a, active, scores, stream)), that commit's own; no
-    later source has it. Its round is its
-    launch writing A_t and active, then W_t (``metropolis_hastings_weights``
-    or ``column_stochastic_weights`` of A_t in the accumulation dtype) and
-    the degree sum added to the float64 total in PyTorch, as the parent's
-    step did; this tree's is one launch. At each DRAW_AB_SHAPES input under
-    20% drops and 10% stragglers: A_t and active bitwise the baseline's, W_t
-    bitwise on the rings and elsewhere within k_max − 1 ulps of 1.0 (the
-    bound on two orders of summing a row's k_max weights: the baseline's
-    ``torch.sum`` on the card adds in a tree, this tree in slot order), the
-    degree totals equal; then both rounds timed in
-    a graph of 200 in turns (baseline, this tree, this tree, baseline) and
-    event-timed, beside the empty kernel in a graph and the bound."""
+def _baseline_draws(torch, kernels, baseline: str):
+    """The draw kernels of ``baseline``, a draw_kernels.cu with commit
+    48849bd's C interface (the round's and the noise's as this tree's; its
+    fault_timeline one launch, with no carry workspace): (its library, its
+    timeline and its noise as drop-in replacements of ``dk.fault_timeline``
+    and ``dk.large_noise``)."""
     import ctypes
     import pathlib
 
+    build, dk = kernels["build"], kernels["dk"]
+    lib = ctypes.CDLL(str(build.build(pathlib.Path(baseline).resolve())))
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    for suffix in ("f32", "f64"):
+        getattr(lib, f"realize_round_{suffix}").argtypes = [ptr, ptr]
+        getattr(lib, f"large_noise_{suffix}").argtypes = [
+            ptr, ctypes.c_uint32, ctypes.c_uint32, ptr, ptr, ctypes.c_double, ptr, i64, i64, ptr]
+    lib.fault_timeline.argtypes = [ptr, i64, ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr, ptr,
+                                   ptr]
+
+    def timeline(keys, n, edges, horizon, edge_chain=None, node_chain=None, p_out=None, *,
+                 device):
+        device = torch.device(device)
+        n_edges = 0 if edges is None else edges.shape[0]
+        n_nodes = 0 if node_chain is None else n
+        n_part = 0 if p_out is None else n
+        bufs = [torch.empty((horizon, max(m, 1)), dtype=torch.bool, device=device)
+                for m in (n_edges, n_nodes, n_nodes, n_part)]
+        err = lib.fault_timeline(
+            dk._words(*keys), n, edges.data_ptr() if edges is not None else None, n_edges,
+            n_nodes, n_part, dk.timeline_thresholds(edge_chain, node_chain, p_out), horizon,
+            *(b.data_ptr() for b in bufs), torch.cuda.current_stream(device).cuda_stream)
+        check(err == 0, f"draw_ab: the baseline's fault_timeline failed ({err})")
+        return {name: b if m else None for name, b, m in zip(
+            ("edge_up", "node_up", "rejoin", "part_up"), bufs, (n_edges, n_nodes, n_nodes, n_part))}
+
+    def noise(key, t, byzantine, x, scale):
+        out = torch.empty_like(x)
+        kernels["build"].call(lib, "large_noise", x, t.data_ptr(), key[0] & 0xFFFFFFFF,
+                              key[1] & 0xFFFFFFFF, byzantine.data_ptr(), x.data_ptr(),
+                              float(scale), out.data_ptr(), x.shape[0], x.shape[1])
+        return out
+
+    return lib, timeline, noise
+
+
+def phase_draw_ab(torch, np, kernels, pkg, baseline: str):
+    """The parent's timeline and noise kernels against this tree's, in one
+    call (``baseline``: see ``_baseline_draws``). At every TIMELINE_SHAPES
+    input and every NOISE_TIMED shape (both dtypes): the outputs bitwise
+    equal, then both timed in a graph of 20 (timeline) or 200 (noise) in
+    turns (baseline, this tree, this tree, baseline) and event-timed, beside
+    the empty kernel in a graph and the bound. Then the full-width runs
+    (``full_width_runs``) with the baseline's timeline and noise in place of
+    this tree's (this tree's two launched not once) and with this tree's
+    (launched TIMELINE_LAUNCHES and T times): their set-up seconds and
+    digests, which must be equal. The round kernel is this tree's in both."""
     from distributed_optimization_tpu_torch.parallel import faults
 
-    build, dk, rk = kernels["build"], kernels["dk"], kernels["rk"]
-    lib = ctypes.CDLL(str(build.build(pathlib.Path(baseline).resolve())))
-    ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-    lib.realize_round.argtypes = [ptr, ptr, ptr, ptr, i64, f32, f32, i32, i32, i32, ptr, ptr,
-                                  ptr, ptr]
-    lib.realize_round.restype = ctypes.c_int
-    p, q = 0.2, 0.1
-    one = torch.zeros(1, device="cuda")
+    dk, rk = kernels["dk"], kernels["rk"]
+    _, old_timeline, old_noise = _baseline_draws(torch, kernels, baseline)
+    dev = torch.device("cuda")
+    one = torch.zeros(1, device=dev)
     floor_us = graph_ms(torch, lambda: rk.launch_floor(one.device)) * 1e3
     say(f"[draw_ab] baseline {baseline}; empty kernel {floor_us:.3f} us a launch in a graph "
         f"of {TIMED_LAUNCHES}")
+
+    def turns(label, old, new, n, bound):
+        us = [graph_ms(torch, f, n=n) * 1e3 for f in (old, new, new, old)]
+        ev = [time_ms(torch, f, n=n) * 1e3 for f in (old, new)]
+        b_ms, b_by = bound
+        say(f"[draw_ab] {label}: baseline {us[0]:9.3f} {us[3]:9.3f} us  this tree {us[1]:9.3f} "
+            f"{us[2]:9.3f} us a call in a graph (event-timed {ev[0]:.3f} / {ev[1]:.3f} us); "
+            f"bitwise equal; bound {b_ms * 1e3:.4f} us ({b_by})")
+        return max(us[1], us[2]) > min(us[0], us[3])
+
     slower = []
-    for graph, n, dname in DRAW_AB_SHAPES:
-        dtype = getattr(torch, dname)
-        topo = pkg.build_topology(graph, n, erdos_renyi_p=ROUND_DEGREE / n, seed=1)
-        fm = faults.make_faulty_mixing(topo, p, 203, straggler_prob=q, device="cuda",
-                                       x64=dtype == torch.float64)
-        base = torch.as_tensor(topo.adjacency != 0, dtype=torch.uint8, device="cuda")
-        words = dk._words(*fm._keys)
-        rule = faults.column_stochastic_weights if topo.directed else \
-            faults.metropolis_hastings_weights
-        t = torch.tensor([4_321], device="cuda")
-        old_total = torch.zeros((), dtype=torch.float64, device="cuda")
-        new_total = torch.zeros((), dtype=torch.float64, device="cuda")
+    for label, n, horizon, kw in TIMELINE_SHAPES:
+        topo = pkg.build_topology("ring", n)
+        args, edge_index = faults.timeline_args(topo, 203, device=dev, x64=False,
+                                                **_timeline_kw(kw))
 
-        def old_round():
-            a = torch.empty((n, n), dtype=torch.float32, device="cuda")
-            active = torch.empty(n, dtype=torch.float32, device="cuda")
-            err = lib.realize_round(t.data_ptr(), words, base.data_ptr(), None, n,
-                                    dk._f32(p), dk._f32(q), 1, 1, int(topo.directed),
-                                    a.data_ptr(), active.data_ptr(), None,
-                                    torch.cuda.current_stream().cuda_stream)
-            check(err == 0, f"draw_ab: the baseline's launch failed ({err})")
-            W = rule(a.to(dtype))
-            old_total.add_(torch.sum(a))
-            return a, active, W
+        def old_call():
+            return old_timeline(horizon=horizon, device=dev, **args)
 
-        def new_round():
-            return dk.realize_round(t, fm._keys, fm._tables, drop_prob=p, straggler_prob=q,
-                                    weights=dtype, degree_total=new_total)
+        def new_call():
+            return dk.fault_timeline(horizon=horizon, device=dev, **args)
 
-        a, active, W = old_round()
-        got = new_round()
-        exact = graph.endswith("ring")
-        k_max = fm._tables.in_nbr.shape[1]
-        tol = (k_max - 1) * float(torch.finfo(dtype).eps)
-        w_err = float((got.W - W).abs().max())
-        check(torch.equal(got.A, a) and torch.equal(got.active, active)
-              and (torch.equal(got.W, W) if exact else w_err <= tol)
-              and torch.equal(old_total, new_total),
-              f"draw_ab {graph} N={n} {dname}: this tree's round differs from the baseline's "
-              f"(W_t by {w_err:.3e})")
-        us = [graph_ms(torch, f) * 1e3 for f in (old_round, new_round, new_round, old_round)]
-        ev = [time_ms(torch, f) * 1e3 for f in (old_round, new_round)]
-        b_ms, b_by = realize_bound(fm._tables, dtype.itemsize)
-        if max(us[1], us[2]) > min(us[0], us[3]):
-            slower.append(f"{graph} N={n} {dname}")
-        say(f"[draw_ab] {graph:20s} N={n:5d} {dname}: baseline {us[0]:8.3f} {us[3]:8.3f} us  "
-            f"this tree {us[1]:8.3f} {us[2]:8.3f} us a round in a graph (event-timed "
-            f"{ev[0]:.3f} / {ev[1]:.3f} us); W_t {'bitwise' if exact else f'within {w_err:.2e}'}"
-            f" of the baseline's; bound {b_ms * 1e3:.4f} us ({b_by})")
-    say(f"[draw_ab] this tree slower than the baseline's faster turn in {len(slower)} of "
-        f"{len(DRAW_AB_SHAPES)}: {', '.join(slower) if slower else 'none'}")
+        got, want = new_call(), old_call()
+        check(all((a is None) == (want[f] is None) and (a is None or torch.equal(a, want[f]))
+                  for f, a in got.items()),
+              f"draw_ab fault_timeline {label}: not bitwise the baseline's")
+        nodes = n if args["node_chain"] is not None else 0
+        edges = len(edge_index)
+        if turns(f"fault_timeline {label:10s} N={n} T={horizon}", old_call, new_call, 20,
+                 timeline_bound(horizon, edges, nodes, 0, (edges > 0) + (nodes > 0))):
+            slower.append(f"fault_timeline {label}")
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        key = pkg.prng.fold_in(pkg.prng.key(203, x64=dtype == torch.float64), 0xBAD0)
+        for n, d in NOISE_TIMED:
+            x = torch.randn((n, d), generator=torch.Generator(device=dev).manual_seed(n + d),
+                            device=dev, dtype=dtype)
+            if (n, d) == NOISE_SHAPE:
+                byz = torch.as_tensor(pkg.byzantine_mask(n, 6, 203), dtype=torch.uint8,
+                                      device=dev)
+            else:
+                byz = (torch.arange(n, device=dev) % 10 == 3).to(torch.uint8)
+            tt = torch.tensor([77], device=dev)
+            check(torch.equal(dk.large_noise(key, tt, byz, x, 10.0),
+                              old_noise(key, tt, byz, x, 10.0)),
+                  f"draw_ab large_noise {n}×{d} {dname}: not bitwise the baseline's")
+            if turns(f"large_noise {n}×{d} {dname}", lambda: old_noise(key, tt, byz, x, 10.0),
+                     lambda: dk.large_noise(key, tt, byz, x, 10.0), TIMED_LAUNCHES,
+                     noise_bound(n, d, int(byz.sum()), dname, dtype.itemsize)):
+                slower.append(f"large_noise {n}×{d} {dname}")
+    say(f"[draw_ab] this tree slower than the baseline's faster turn in {len(slower)}: "
+        f"{', '.join(slower) if slower else 'none'}")
+    data = full_width_data(pkg)
+    saved = dk.fault_timeline, dk.large_noise
+    dk.fault_timeline, dk.large_noise = old_timeline, old_noise
+    try:
+        old_runs = full_width_runs(torch, np, pkg, kernels, data, "draw_ab baseline",
+                                   verify=False, baseline=True)
+    finally:
+        dk.fault_timeline, dk.large_noise = saved
+    new_runs = full_width_runs(torch, np, pkg, kernels, data, "draw_ab this tree", verify=False)
+    for name, (setup, digest) in new_runs.items():
+        old_setup, old_digest = old_runs[name]
+        say(f"[draw_ab] {name}: set-up baseline {old_setup:.4f} s, this tree {setup:.4f} s; "
+            f"gap history sha256 baseline {old_digest}, this tree {digest}")
+        check(digest == old_digest, f"draw_ab {name}: the digests differ")
 
 
 def _agree(label, card, host, tol=1e-12, phase="reference"):
@@ -2992,6 +3061,31 @@ def noise_bound(n: int, d: int, n_byz: int, dtype_name: str, itemsize: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _timeline_kw(kw):
+    """``faults.timeline_args``'s processes: ``kw`` over all off."""
+    return dict(dict(edge_drop_prob=0.0, burst_len=1.0, straggler_prob=0.0, mttf=0.0, mttr=0.0,
+                     participation_rate=1.0), **kw)
+
+
+def _timeline_is_the_twin_s(torch, dk, args, horizon, dev, what) -> float:
+    """``fault_timeline`` on the card against its plain version on the same
+    card tensors, every output bit for bit. Returns the plain version's
+    time, ms, of that one call (CUDA events, after the kernel's call has
+    finished)."""
+    got = dk.fault_timeline(horizon=horizon, device=dev, **args)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = dk.fault_timeline_plain(horizon=horizon, device=dev, **args)
+    end.record()
+    torch.cuda.synchronize()
+    for field, a in got.items():
+        b = want[field]
+        check((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+              f"fault_timeline {what} {field}: not bitwise its plain version")
+    return start.elapsed_time(end)
+
+
 def draw_kernel_records(torch, np, dk, kernels_bk, pkg):
     """The three draw kernels against their plain versions on the card,
     bitwise, at their path inputs and beside them, with their times; and
@@ -3060,75 +3154,191 @@ def draw_kernel_records(torch, np, dk, kernels_bk, pkg):
     _kernel_line("robust_aggregator, round liveness", ROBUST_SHAPE, "float32", 0.0, ms, plain,
                  None, b_ms, b_by, f", in a graph {in_graph * 1e3:.3f} us (ring, "
                  f"{ROBUST_EDGE_DROP:.0%} drops, trimmed_mean b=1)")
-    # The timeline at the churn phase's GT cell and at the burst sweep's.
+    # The timeline bitwise its plain version on the card: the churn GT cell's
+    # processes, the burst sweep's and iid stragglers with participation, at
+    # horizons across the kernels' segment and tile edges and the sweep's.
     topo = pkg.build_topology("ring", CHURN_BASE["n_workers"])
-    for horizon, kw in ((CHURN_GT["n_iterations"], dict(edge_drop_prob=0.2, burst_len=8.0,
-                                                         mttf=60.0, mttr=25.0)),
-                        (CHURN_BASE["n_iterations"], dict(edge_drop_prob=CHURN_P,
-                                                          burst_len=4.0)),
-                        (500, dict(straggler_prob=0.1, participation_rate=0.7,
-                                   edge_drop_prob=0.2, burst_len=1.0))):
-        got = faults.build_fault_timeline(topo, horizon, 203, device=dev, **kw)
-        want = faults.build_fault_timeline(topo, horizon, 203, device="cpu", **kw)
-        for field in ("edge_up", "node_up", "rejoin", "part_up"):
-            a, b = getattr(got, field), getattr(want, field)
-            check((a is None) == (b is None) and (a is None or np.array_equal(a, b)),
-                  f"fault_timeline {kw} {field}: not bitwise its plain version")
-    horizon = CHURN_GT["n_iterations"]
-    kw = dict(edge_drop_prob=0.2, burst_len=8.0, mttf=60.0, mttr=25.0)
-    tl_kw = dict(edge_drop_prob=0.2, burst_len=8.0, straggler_prob=0.0, mttf=60.0, mttr=25.0,
-                 participation_rate=1.0, x64=False)
-    tl_keys = faults._tag_keys(203, False, faults.FAULT_TAG, faults.NODE_TAG, faults.PART_TAG)
-    edge_list = torch.as_tensor(faults._edge_list(topo), device=dev)
-    chains = ((0.2, 0.2 / 8.0, 1.0 - 0.8 / 8.0), (25.0 / 85.0, 1.0 / 60.0, 1.0 - 1.0 / 25.0))
-    # The launch alone, its keys, edge list and thresholds built once; the
-    # set-up call that builds them from the topology is timed apart.
-    ms = time_ms(torch, lambda: dk.fault_timeline(tl_keys, topo.n, edge_list, horizon, *chains,
-                                                  None, device=dev), n=20)
-    in_graph = graph_ms(torch, lambda: dk.fault_timeline(tl_keys, topo.n, edge_list, horizon,
-                                                         *chains, None, device=dev), n=20)
-    setup = time_ms(torch, lambda: faults._timeline_tensors(topo, horizon, 203, device=dev,
-                                                            **tl_kw), n=20)
-    plain = time_ms(torch, lambda: dk.fault_timeline_plain(tl_keys, topo.n, edge_list, horizon,
-                                                           *chains, None, device=dev), n=2)
-    edges = len(faults._edge_list(topo))
-    b_ms, b_by = timeline_bound(horizon, edges, topo.n, 0, 2)
-    _kernel_line("fault_timeline", (horizon, edges + topo.n), "bool", 0.0, ms, plain, None,
-                 b_ms, b_by, f" ({kw}), in a graph {in_graph * 1e3:.2f} us; the set-up call "
-                 f"from the topology (edge list, keys, host-to-device copy) {setup * 1e3:.2f} us")
-    records["fault_timeline"] = _record("fault_timeline", 0.0, ms, plain, b_ms, b_by, None,
-                                        graph_ms=in_graph, shape=[horizon, edges + topo.n],
-                                        dtype="bool")
-    say("[faults] fault_timeline bitwise its plain version: churn GT cell, burst sweep B=4, "
-        "iid stragglers with participation")
-    # The noise payload.
+    modes = (_BURSTY_CHURN, dict(edge_drop_prob=CHURN_P, burst_len=4.0),
+             dict(straggler_prob=0.1, participation_rate=0.7, edge_drop_prob=0.2,
+                  burst_len=1.0))
+    horizons = TIMELINE_HORIZONS + (CHURN_BASE["n_iterations"],)
+    for horizon in horizons:
+        for kw in modes:
+            args, _ = faults.timeline_args(topo, 203, device=dev, x64=False, **_timeline_kw(kw))
+            _timeline_is_the_twin_s(torch, dk, args, horizon, dev, f"N=16 T={horizon} {kw}")
+    say(f"[faults] fault_timeline bitwise its plain version at T = {horizons} (N=16 ring): "
+        "the churn GT cell, the burst sweep's B=4, iid stragglers with participation")
+    # Its timed shapes, each bitwise the plain version: the launches alone,
+    # their keys, edge list and thresholds built once.
+    for label, n, horizon, kw in TIMELINE_SHAPES:
+        topo = pkg.build_topology("ring", n)
+        args, edge_index = faults.timeline_args(topo, 203, device=dev, x64=False,
+                                                **_timeline_kw(kw))
+        plain = _timeline_is_the_twin_s(torch, dk, args, horizon, dev,
+                                        f"{label} N={n} T={horizon}")
+
+        def call():
+            return dk.fault_timeline(horizon=horizon, device=dev, **args)
+
+        ms = time_ms(torch, call, n=20)
+        in_graph = graph_ms(torch, call, n=20)
+        edges = len(edge_index)
+        nodes = n if args["node_chain"] is not None else 0
+        streams = (edges > 0) + (nodes > 0)
+        b_ms, b_by = timeline_bound(horizon, edges, nodes, 0, streams)
+        extra = f" ({label}: {kw}), in a graph {in_graph * 1e3:.3f} us"
+        if label == "churn_gt":
+            setup = time_ms(torch, lambda: faults._timeline_tensors(
+                topo, horizon, 203, device=dev, x64=False, **_timeline_kw(kw)), n=20)
+            extra += (f"; the set-up call from the topology (edge list, keys, host-to-device "
+                      f"copy) {setup * 1e3:.2f} us")
+            records["fault_timeline"] = _record("fault_timeline", 0.0, ms, plain, b_ms, b_by,
+                                                None, graph_ms=in_graph,
+                                                shape=[horizon, edges + nodes], dtype="bool")
+        _kernel_line("fault_timeline", (horizon, edges + nodes), "bool", 0.0, ms, plain, None,
+                     b_ms, b_by, extra)
+    # The noise payload: bitwise its plain version at every shape, three
+    # counters each, every tenth row Byzantine; timed at NOISE_TIMED.
     for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
         key = pkg.prng.fold_in(pkg.prng.key(203, x64=dtype == torch.float64), 0xBAD0)
-        for n, d in (NOISE_SHAPE, (256, 81), (25, 810), (4096, 1024)):
+        for n, d in NOISE_CHECK_SHAPES:
             gen = torch.Generator(device=dev).manual_seed(n + d)
             x = torch.randn((n, d), generator=gen, device=dev, dtype=dtype)
             byz = (torch.arange(n, device=dev) % 10 == 3).to(torch.uint8)
             for t in (0, 4000, 2**31 - 1):
                 tt = torch.tensor([t], device=dev)
-                check(torch.equal(dk.large_noise(key, tt, byz, x, 10.0),
-                                  dk.large_noise_plain(key, tt, byz, x, 10.0)),
+                got = dk.large_noise(key, tt, byz, x, 10.0)
+                check(torch.equal(got, dk.large_noise_plain(key, tt, byz, x, 10.0))
+                      and torch.equal(got[byz == 0], x[byz == 0]),
                       f"large_noise {dtype} N={n} d={d} t={t}: not bitwise its plain version")
+            if (n, d) not in NOISE_TIMED:
+                continue
+            if (n, d) == NOISE_SHAPE:
+                byz = torch.as_tensor(pkg.byzantine_mask(n, 6, 203), dtype=torch.uint8,
+                                      device=dev)
+            tt = torch.tensor([77], device=dev)
+            ms = time_ms(torch, lambda: dk.large_noise(key, tt, byz, x, 10.0))
+            in_graph = graph_ms(torch, lambda: dk.large_noise(key, tt, byz, x, 10.0))
+            plain = time_ms(torch, lambda: dk.large_noise_plain(key, tt, byz, x, 10.0),
+                            n=20 if n * d < 1 << 22 else 3)
+            b_ms, b_by = noise_bound(n, d, int(byz.sum()), dname, dtype.itemsize)
+            _kernel_line("large_noise", (n, d), dname, 0.0, ms, plain, None, b_ms, b_by,
+                         f", in a graph {in_graph * 1e3:.3f} us ({int(byz.sum())} of {n} rows "
+                         "Byzantine)")
             if (n, d) == NOISE_SHAPE and dtype == torch.float32:
-                byz_mask = pkg.byzantine_mask(n, 6, 203)
-                byz = torch.as_tensor(byz_mask, dtype=torch.uint8, device=dev)
-                tt = torch.tensor([77], device=dev)
-                ms = time_ms(torch, lambda: dk.large_noise(key, tt, byz, x, 10.0))
-                in_graph = graph_ms(torch, lambda: dk.large_noise(key, tt, byz, x, 10.0))
-                plain = time_ms(torch, lambda: dk.large_noise_plain(key, tt, byz, x, 10.0), n=20)
-                b_ms, b_by = noise_bound(n, d, int(byz_mask.sum()), "float32", 4)
-                _kernel_line("large_noise", (n, d), "float32", 0.0, ms, plain, None, b_ms,
-                             b_by, f", in a graph {in_graph * 1e3:.2f} us")
                 records["large_noise"] = _record("large_noise", 0.0, ms, plain, b_ms, b_by,
                                                  None, graph_ms=in_graph, shape=[n, d],
                                                  dtype="float32")
-    say("[faults] large_noise bitwise its plain version in both dtypes at N×d = 64×11, "
-        "256×81, 25×810 and 4,096×1,024, 3 counters each")
+    say(f"[faults] large_noise bitwise its plain version in both dtypes at N×d = "
+        f"{', '.join(f'{n}×{d}' for n, d in NOISE_CHECK_SHAPES)}, 3 counters each; honest rows "
+        "equal x")
     return records
+
+
+def full_width_data(pkg, main=None):
+    """The full-width runs' data and optima: main's (N=256; ``main`` where
+    the caller has it) and the robust cell's."""
+    rcfg = robust_config(pkg)
+    rds = pkg.generate_synthetic_dataset(rcfg)
+    return {"main": main or _main_data(pkg, 256),
+            "robust": (rds, pkg.compute_reference_optimum(rds, rcfg.reg_param)[1])}
+
+
+def full_width_runs(torch, np, pkg, kernels, data, label="faults", verify=True,
+                    baseline=False):
+    """Main's shapes under bursty drops and churn (FULL_WIDTH_FAULTS) and the
+    robust cell under large_noise (12 Byzantine rows, scale 10, trimmed mean
+    b=1, fused and gather). ``data``: ``full_width_data``'s. Each run
+    launches this tree's fault_timeline exactly TIMELINE_LAUNCHES times and
+    its large_noise T times, or, with ``baseline`` (another tree's kernels
+    patched in), neither of them once. With ``verify``, the timeline the main
+    run itself built on the card is held bitwise against the plain version
+    on the CPU (drawn in a thread while the card runs), and its graph run
+    against its measured run (T = FULL_WIDTH_MEASURED). Returns each run's
+    set-up seconds and gap-history digest."""
+    import concurrent.futures
+
+    from distributed_optimization_tpu_torch.backends import torch_backend
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    dk, sk, rk, bk = kernels["dk"], kernels["sk"], kernels["rk"], kernels["bk"]
+    counters = [dk, sk, rk, bk]
+    cfg = pkg.ExperimentConfig(problem_type="logistic", algorithm="dsgd", topology="ring",
+                               n_workers=256, n_iterations=MAIN_ITERATIONS, mixing_impl="pallas",
+                               dtype="float32", eval_every=1, **FULL_WIDTH_FAULTS)
+    ds, f_opt = data["main"]
+    T = cfg.n_iterations
+    topo = pkg.build_topology("ring", cfg.n_workers)
+    timeline_launches = 0 if baseline else dk.TIMELINE_LAUNCHES
+    out = {}
+    made = []  # the main run's FaultyMixing, as the run built it
+    make = torch_backend.make_faulty_mixing
+
+    def keep(*args, **kw):
+        made.append(make(*args, **kw))
+        return made[-1]
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(faults.timeline_for_config, cfg, topo, T, device="cpu") \
+            if verify else None
+        torch_backend.make_faulty_mixing = keep
+        try:
+            res, launches = _converging_run(torch, pkg, counters, cfg, ds, f_opt,
+                                            f"{label} full width", converges=False)
+        finally:
+            torch_backend.make_faulty_mixing = make
+        h = res.history
+        say(f"[{label}] full width, main's shapes under bursty drops and churn: set-up "
+            f"{h.fault_setup_seconds:.4f} s (timeline included), warm-up and capture "
+            f"{h.compile_seconds:.2f} s, {h.iters_per_second:.1f} iters/s in the graph, gap "
+            f"history sha256 {_digest(np, h.objective)}")
+        check(launches.get("realize_round") == T
+              and launches.get("sample_worker_batch_weights") == T
+              and launches.get("fault_timeline", 0) == timeline_launches
+              and not launches.get("fused_ring_dsgd_step") and len(made) == 1,
+              f"{label} full width: launches {launches} (fault_timeline: "
+              f"{timeline_launches} wanted), {len(made)} fault processes made")
+        out["full_width"] = (h.fault_setup_seconds, _digest(np, h.objective))
+        if verify:
+            short = cfg.replace(n_iterations=FULL_WIDTH_MEASURED)
+            graph, glaunch = _converging_run(torch, pkg, counters, short, ds, f_opt,
+                                             f"{label} full width", converges=False)
+            _graph_equals_measured(torch, np, pkg, counters, short, ds, f_opt,
+                                   f"{label} full width", graph, glaunch, converges=False)
+        base = robust_config(pkg).replace(attack="large_noise", n_byzantine=12,
+                                          attack_scale=10.0, aggregation="trimmed_mean",
+                                          robust_b=1)
+        rds, rf = data["robust"]
+        for impl in ("fused", "gather"):
+            rcfg = base.replace(robust_impl=impl)
+            res, launches = _converging_run(torch, pkg, counters, rcfg, rds, rf,
+                                            f"{label} robust noise", converges=False)
+            h = res.history
+            say(f"[{label}] robust cell under large_noise (scale 10), trimmed mean b=1, {impl}: "
+                f"large_noise {launches.get('large_noise')} launches, "
+                f"{h.iters_per_second:.1f} iters/s, final gap {h.objective[-1]:.6f}, gap "
+                f"history sha256 {_digest(np, h.objective)}")
+            check(launches.get("large_noise", 0) == (0 if baseline else rcfg.n_iterations)
+                  and launches.get("make_fused_robust_dsgd_step", 0)
+                  == (rcfg.n_iterations if impl == "fused" else 0),
+                  f"{label} robust noise {impl}: launches {launches}")
+            out[f"robust_noise_{impl}"] = (h.fault_setup_seconds, _digest(np, h.objective))
+        if verify:
+            run = made[0]
+            want = host.result()
+            same = all(np.array_equal(getattr(run.timeline, f), getattr(want, f))
+                       for f in ("edge_up", "node_up", "rejoin"))
+            same = same and all(torch.equal(getattr(run._tl, f).cpu(),
+                                            torch.from_numpy(getattr(want, f)))
+                                for f in ("edge_up", "node_up"))
+            say(f"[{label}] full width: the timeline the run drew on the card ({T} × "
+                f"{want.edge_up.shape[1]} edges, {T} × {want.node_up.shape[1]} nodes) "
+                f"{'bitwise equal to' if same else 'DIFFERS from'} the plain version's on the "
+                "CPU")
+            check(same and want.part_up is None and run._tl.part_up is None,
+                  f"{label} full width: the timeline differs")
+    return out
 
 
 def phase_faults(torch, np, pkg, kernels):
@@ -3202,6 +3412,8 @@ def phase_faults(torch, np, pkg, kernels):
     _graph_equals_measured(torch, np, pkg, counters, short, mds, mf, "faults main", graph,
                            glaunch, converges=False)
 
+    full_width_runs(torch, np, pkg, kernels, full_width_data(pkg, (mds, mf)))
+
     # Each fault mode in float64, card against the CPU.
     small = base.replace(dtype="float64", n_iterations=FAULT_F64_ITERATIONS, eval_every=10)
     for name, fields in FAULT_F64.items():
@@ -3236,7 +3448,7 @@ def phase_churn(torch, np, pkg, kernels):
             f"{_digest(np, h.objective)}")
         check(bool(np.all(np.isfinite(h.objective))), f"churn {label}: non-finite gaps")
         persistent = cfg.burst_len >= 1.0 or cfg.mttf > 0.0
-        check(launches.get("fault_timeline", 0) == (1 if persistent else 0)
+        check(launches.get("fault_timeline", 0) == (dk.TIMELINE_LAUNCHES if persistent else 0)
               and launches.get("realize_round", 0) == cfg.n_iterations,
               f"churn {label}: launches {launches}")
         return res
@@ -3776,8 +3988,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sampling-baseline",
                     help="the sampling_kernels.cu that phase sampling_ab compares with")
     ap.add_argument("--draw-baseline",
-                    help="the draw_kernels.cu (parent's C interface) that phase draw_ab "
-                         "compares with")
+                    help="the draw_kernels.cu (commit 48849bd's C interface) that phase "
+                         "draw_ab compares with")
     ap.add_argument("--compression-baseline",
                     help="the compression_kernels.cu that phase compression_ab compares with")
     args = ap.parse_args(argv)
@@ -3957,7 +4169,7 @@ def main(argv=None) -> int:
         phase_compression_ab(torch, kernels, args.compression_baseline)
         lap("compression_ab")
     if "draw_ab" in phases:
-        phase_draw_ab(torch, kernels, pkg, args.draw_baseline)
+        phase_draw_ab(torch, np, kernels, pkg, args.draw_baseline)
         lap("draw_ab")
 
     if records:
@@ -4005,13 +4217,32 @@ def _package():
     )
     from distributed_optimization_tpu_torch.utils.oracle import compute_reference_optimum
 
+    # The phases draw the same datasets again and again (main's N=256 split
+    # takes seconds with its optimum): each is made once, by the fields the
+    # generator reads, and each optimum once a dataset and its arguments.
+    datasets, optima = {}, {}
+
+    def dataset(config):
+        key = (config.resolved_data_seed(), config.problem_type, config.n_samples,
+               config.n_features, config.n_informative_features, config.classification_sep,
+               config.n_classes, config.partition, config.n_workers)
+        if key not in datasets:
+            datasets[key] = generate_synthetic_dataset(config)
+        return datasets[key]
+
+    def optimum(ds, reg_param, **kw):
+        key = (id(ds), reg_param, tuple(sorted(kw.items())))
+        if key not in optima:  # the entry holds ds, so its id is not reused
+            optima[key] = (ds, compute_reference_optimum(ds, reg_param, **kw))
+        return optima[key][1]
+
     return types.SimpleNamespace(
         run=run, ExperimentConfig=ExperimentConfig, bind_byzantine=bind_byzantine,
         resolve_robust_impl=resolve_robust_impl,
         get_algorithm=get_algorithm,
         iterations_to_threshold=iterations_to_threshold, make_mixing_op=make_mixing_op,
-        build_topology=build_topology, generate_synthetic_dataset=generate_synthetic_dataset,
-        compute_reference_optimum=compute_reference_optimum, HostDataset=HostDataset,
+        build_topology=build_topology, generate_synthetic_dataset=dataset,
+        compute_reference_optimum=optimum, HostDataset=HostDataset,
         prng=prng, byzantine_mask=byzantine_mask, build_fault_timeline=build_fault_timeline,
         outage_stats=outage_stats, windowed_connectivity=windowed_connectivity,
     )

@@ -19,12 +19,14 @@
 //                    precomputed timeline's edge and node states at t (its
 //                    row index clamped into [0, T) as JAX's dynamic index
 //                    is: t < 0 counts from the end);
-//   timeline_kernel  build_fault_timeline (:419-587): the per-edge
+//   timeline_draw_kernel, timeline_scan_kernel
+//                    build_fault_timeline (:419-587): the per-edge
 //                    Gilbert-Elliott chains, the crash-recovery node chains
 //                    and the participation stream, unrolled over t;
 //   noise_kernel     the large_noise payload (parallel/adversary.py
 //                    :118-130): x + s * sqrt(2) * erf_inv(u) on the
-//                    Byzantine rows, u jax.random.normal's uniform.
+//                    Byzantine rows, u jax.random.normal's uniform at the
+//                    element's 64-bit counter i * d + j.
 // The plain versions are distributed_optimization_tpu_torch/ops/draw_kernels.py
 // (on the twin of jax.random in ops/prng.py); the kernels equal them bit for
 // bit on the card.
@@ -36,6 +38,8 @@
 //   edge (i, j)    counter i * N + j; an undirected edge reads its i < j
 //                  entry from both ends (the triu(u, 1) + its transpose)
 //   node i         counter i of the node key's round draw
+//   noise (i, j)   the words (k >> 32, k mod 2^32) of k = i * d + j, as
+//                  jax's iota_2x32_shape gives them: no size limit
 // An edge survives iff u >= p; a node is up iff u >= q (float32 thresholds).
 // The timeline starts every chain from its stationary threshold at t = 0
 // and then compares against P(down | up) or P(down | down); rejoin is up
@@ -82,18 +86,45 @@
 //   (whole numbers, so exact in any order). A second form that shared the
 //   degrees through a thread block cluster's distributed shared memory lost
 //   or tied at every shape timed (PERF.md section 6) and was taken out.
-// - timeline_kernel: a thread an edge or a node, looping over t with its
-//   chain state in a register; its writes [t, entity] are coalesced across
-//   a warp. noise_kernel: a thread an element; honest rows copy x.
+// - the timeline: a chain's draws do not depend on its state, only its
+//   compare does. So round s of a chain is a map of {down, up} to itself
+//   (two bits), maps compose associatively, and the chain is a scan over
+//   maps drawn all at once. Two launches on the stream. The draw pass takes
+//   a tile of 128 rounds and 32 entities of one stream a block: the tile's
+//   round keys folded once, a thread each, into shared memory (one a
+//   stream and round, not one a chain and round), then lane l draws entity
+//   l over its warp's segment of 16 rounds (16 independent Threefry calls in
+//   flight), writes each round's map into the output, and the block
+//   composes its 8 segments into a byte a chain of the caller's carry
+//   workspace; participation writes its states. The scan pass enters each
+//   tile with the composition of the tiles before it (each warp composes an
+//   eighth of them), each segment past the segments before it, and applies
+//   its maps in order over the map bytes, writing the states and rejoin.
+//   Every write [t, entity] is coalesced across a warp. Bound: operations
+//   (a Threefry call an entity and round); at main's shape (ring N = 256,
+//   T = 30,000, bursty edges and churn, 512 chains) ~74.6 us of integer
+//   operations against ~23 MB of output.
+// - the noise: an element a thread, each at its 64-bit counter k = i * d + j,
+//   the grid as large as the stack (its y axis past the x axis's limit).
+//   The block's first thread folds the round key while every thread loads
+//   its element and its row's flag (a division by d) and stores an honest
+//   element; then one barrier and the draw. At the path's 64 x 11 a launch
+//   is its latency. Other layouts were measured and not kept (PERF.md
+//   section 6): a warp a row with 16-byte packs and a 2-D grid an element a
+//   thread were slower or tied at 64 x 11; a 2-D grid of row slices with
+//   16-byte packs was faster only at stacks of 16 MiB and more, which no
+//   path runs; a grid-stride loop (a second copy of the draw) was slower at
+//   the wide stacks. Bound: bytes (x read, out written).
 //
 // Each launch adds one to its kernel's slot of launch_counts.cuh (0 the
-// round, 1 timeline, 2 noise: the order of KERNELS in
+// round, 1 timeline (both passes), 2 noise: the order of KERNELS in
 // ops/draw_kernels.py). The kernels allocate nothing, launch on the caller's
 // stream and return cudaGetLastError(); arguments they cannot take return
 // cudaErrorInvalidValue.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 
@@ -111,18 +142,19 @@ constexpr int kRoundWarps = 4;  // round_kernel: rows (warps) a block
 constexpr int kRoundThreads = 32 * kRoundWarps;
 constexpr int64_t kMaxNodes = 65535;  // edge counters i * N + j stay below 2^32
 
-__device__ __forceinline__ uint2 round_key(uint2 tag, const int64_t* t) {
-  return threefry2x32(tag.x, tag.y, 0u, static_cast<uint32_t>(static_cast<uint64_t>(*t)));
-}
-
 __device__ __forceinline__ uint2 round_key_at(uint2 tag, int64_t t) {
   return threefry2x32(tag.x, tag.y, 0u, static_cast<uint32_t>(static_cast<uint64_t>(t)));
 }
 
-// The float32 uniform on [0, 1) at counter c: its 23 mantissa bits times 2^-23.
-__device__ __forceinline__ float uniform32(uint2 key, uint32_t c) {
-  const uint2 w = threefry2x32(key.x, key.y, 0u, c);
+// The float32 uniform on [0, 1) of a draw's words: the top 23 bits of x0 ^ x1
+// times 2^-23.
+__device__ __forceinline__ float unit32(uint2 w) {
   return __fsub_rn(__uint_as_float(((w.x ^ w.y) >> 9) | 0x3F800000u), 1.0f);
+}
+
+// The float32 uniform at the 32-bit counter c.
+__device__ __forceinline__ float uniform32(uint2 key, uint32_t c) {
+  return unit32(threefry2x32(key.x, key.y, 0u, c));
 }
 
 // ---- one round ------------------------------------------------------------
@@ -398,49 +430,174 @@ __global__ void __launch_bounds__(kRoundThreads) round_kernel(RoundArgs a) {
 
 // ---- the timeline -----------------------------------------------------------
 
-struct Chain {
-  float init, enter, stay;  // thresholds at t = 0, after up, after down
+// A chain's round s is a map of its states {down = 0, up = 1} to themselves,
+// two bits: bit 0 the image of down (u >= stay), bit 1 the image of up (u >=
+// enter); at s = 0 both images are u >= init. Maps compose associatively,
+// so the chain is a scan over s of maps drawn independently.
+constexpr unsigned kIdentity = 2u;  // down -> down, up -> up
+constexpr int kSeg = 16;            // rounds a thread walks
+constexpr int kSegs = kThreads / 32;
+constexpr int kTile = kSeg * kSegs;  // rounds a block takes: a segment a warp
+
+// f, then g.
+__device__ __forceinline__ unsigned then(unsigned f, unsigned g) {
+  return ((g >> (f & 1u)) & 1u) | (((g >> (f >> 1)) & 1u) << 1);
+}
+
+// The state after f from the state st.
+__device__ __forceinline__ unsigned apply(unsigned f, unsigned st) { return (f >> st) & 1u; }
+
+// What both timeline passes read and write, filled by fault_timeline below.
+struct TimelineArgs {
+  uint2 tags[3];         // the fault, node and participation tag keys
+  const int32_t* edges;  // [E, 2]: edge e's counter is edges[e][0] * n + edges[e][1]
+  uint8_t* out[3];       // edge_up [T, E], node_up [T, N], part_up [T, N]
+  uint8_t* rejoin;       // [T, N]
+  uint8_t* carry;        // [tiles, E + N]: each tile's composed map of each chain
+  int64_t count[3];      // E, the node chains, the participation streams (0: off)
+  int64_t n, horizon;
+  float th[7];           // edge (init, enter, stay), node (init, enter, stay), p_out
 };
 
-// Entities: [0, n_edges) the edge chains (counter of edge e: ei * n + ej),
-// then n_nodes node chains, then n_part participation streams.
-__global__ void timeline_kernel(uint2 fault_tag, uint2 node_tag, uint2 part_tag, int n,
-                                const int32_t* __restrict__ edges, int n_edges, Chain edge,
-                                int n_nodes, Chain node, int n_part, float p_out, int64_t horizon,
-                                uint8_t* __restrict__ edge_up, uint8_t* __restrict__ node_up,
-                                uint8_t* __restrict__ rejoin, uint8_t* __restrict__ part_up) {
+// A block's 32 entities of one stream: the entity groups of the edges, then
+// of the node chains, then of the participation streams (grid x).
+struct Group {
+  int stream;
+  int64_t e0;
+};
+
+__device__ __forceinline__ int64_t groups_of(int64_t m) { return (m + 31) / 32; }
+
+__device__ __forceinline__ Group group_of(const TimelineArgs& a, int64_t g) {
+  const int64_t ge = groups_of(a.count[0]), gn = groups_of(a.count[1]);
+  if (g < ge) return {0, 32 * g};
+  if (g < ge + gn) return {1, 32 * (g - ge)};
+  return {2, 32 * (g - ge - gn)};
+}
+
+// Pass 1: every (round, entity) drawn at once. Warp w of the block walks
+// segment w of the tile and lane l entity e0 + l, so a round's bytes are
+// written coalesced across the warp. The tile's round keys are folded
+// first, one a thread, into shared memory: one key a (stream, round) for 32
+// entities. A chain writes its round maps into its output, which pass 2
+// overwrites with the states, and each tile's composed map into carry;
+// participation writes its states.
+__global__ void __launch_bounds__(kThreads) timeline_draw_kernel(TimelineArgs a) {
   launch_counts::add(kSlotTimeline);
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e < n_edges) {
-    const uint32_t c = static_cast<uint32_t>(edges[2 * e]) * static_cast<uint32_t>(n) +
-                       static_cast<uint32_t>(edges[2 * e + 1]);
-    bool up = true;
-    for (int64_t s = 0; s < horizon; ++s) {
-      const float u = uniform32(round_key_at(fault_tag, s), c);
-      up = u >= (s == 0 ? edge.init : (up ? edge.enter : edge.stay));
-      edge_up[s * n_edges + e] = up;
-    }
-    return;
+  __shared__ uint2 keys[kTile];
+  __shared__ uint8_t seg[kSegs][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Group gr = group_of(a, blockIdx.x);
+  const int64_t m = a.count[gr.stream];
+  const int64_t e = gr.e0 + lane;
+  const bool live = e < m;
+  const bool chain = gr.stream != 2;
+  uint32_t c = static_cast<uint32_t>(e);
+  if (gr.stream == 0 && live) {
+    c = static_cast<uint32_t>(a.edges[2 * e]) * static_cast<uint32_t>(a.n) +
+        static_cast<uint32_t>(a.edges[2 * e + 1]);
   }
-  const int64_t k = e - n_edges;
-  if (k < n_nodes) {
-    const uint32_t c = static_cast<uint32_t>(k);
-    bool up = true;
-    for (int64_t s = 0; s < horizon; ++s) {
-      const float u = uniform32(round_key_at(node_tag, s), c);
-      const bool now = u >= (s == 0 ? node.init : (up ? node.enter : node.stay));
-      node_up[s * n_nodes + k] = now;
-      rejoin[s * n_nodes + k] = now && !up;
-      up = now;
+  const int th = chain ? 3 * gr.stream : 0;
+  const float init = a.th[th], enter = a.th[th + 1], stay = a.th[th + 2], p_out = a.th[6];
+  uint8_t* out = a.out[gr.stream];
+  const int64_t chains = a.count[0] + a.count[1];
+  const int64_t tiles = (a.horizon + kTile - 1) / kTile;
+  for (int64_t tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const int64_t s0 = tile * kTile;
+    if (threadIdx.x < kTile && s0 + threadIdx.x < a.horizon) {
+      keys[threadIdx.x] = round_key_at(a.tags[gr.stream], s0 + threadIdx.x);
     }
-    return;
+    __syncthreads();
+    const int64_t sb = s0 + warp * kSeg;
+    unsigned summary = kIdentity;
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < kSeg; ++j) {
+        const int64_t s = sb + j;
+        if (s < a.horizon) {
+          const float u = uniform32(keys[warp * kSeg + j], c);
+          unsigned v;
+          if (chain) {
+            const unsigned up = u >= (s == 0 ? init : enter);
+            const unsigned down = u >= (s == 0 ? init : stay);
+            v = down | (up << 1);
+            summary = then(summary, v);
+          } else {
+            v = u >= p_out;
+          }
+          out[s * m + e] = static_cast<uint8_t>(v);
+        }
+      }
+    }
+    if (chain) {
+      seg[warp][lane] = static_cast<uint8_t>(summary);
+      __syncthreads();
+      if (warp == 0 && live) {
+        unsigned f = kIdentity;
+#pragma unroll
+        for (int w = 0; w < kSegs; ++w) f = then(f, seg[w][lane]);
+        a.carry[tile * chains + (gr.stream == 0 ? e : a.count[0] + e)] = static_cast<uint8_t>(f);
+      }
+    }
+    __syncthreads();  // keys and seg are the next tile's
   }
-  const int64_t m = k - n_nodes;
-  if (m < n_part) {
-    for (int64_t s = 0; s < horizon; ++s) {
-      part_up[s * n_part + m] = uniform32(round_key_at(part_tag, s), static_cast<uint32_t>(m)) >=
-                                p_out;
+}
+
+// Pass 2, the chains' groups only. The state entering tile k is the
+// composition of tiles 0 .. k-1 applied to up (warp w composes the w-th
+// eighth of them); each warp then composes its segment's maps, enters its
+// segment past the segments before it, and applies its maps in order,
+// writing the states (and rejoin: up now and down the round before) over
+// the maps.
+__global__ void __launch_bounds__(kThreads) timeline_scan_kernel(TimelineArgs a) {
+  launch_counts::add(kSlotTimeline);
+  __shared__ uint8_t part[kSegs][32], seg[kSegs][32];
+  if (blockIdx.x >= groups_of(a.count[0]) + groups_of(a.count[1])) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Group gr = group_of(a, blockIdx.x);
+  const int64_t m = a.count[gr.stream];
+  const int64_t e = gr.e0 + lane;
+  const bool live = e < m;
+  const int64_t chains = a.count[0] + a.count[1];
+  const uint8_t* carry = a.carry + (gr.stream == 0 ? e : a.count[0] + e);
+  uint8_t* out = a.out[gr.stream];
+  const int64_t tiles = (a.horizon + kTile - 1) / kTile;
+  for (int64_t tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const int64_t per = (tile + kSegs - 1) / kSegs;
+    const int64_t lo = warp * per, hi = min(tile, lo + per);
+    unsigned f = kIdentity;
+    if (live) {
+#pragma unroll 4
+      for (int64_t k = lo; k < hi; ++k) f = then(f, carry[k * chains]);
     }
+    part[warp][lane] = static_cast<uint8_t>(f);
+    const int64_t sb = tile * kTile + warp * kSeg;
+    uint8_t maps[kSeg];
+    unsigned own = kIdentity;
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j) {
+      maps[j] = live && sb + j < a.horizon ? out[(sb + j) * m + e] : kIdentity;
+      own = then(own, maps[j]);
+    }
+    seg[warp][lane] = static_cast<uint8_t>(own);
+    __syncthreads();
+    unsigned st = 1u;  // every chain is up before t = 0
+#pragma unroll
+    for (int w = 0; w < kSegs; ++w) st = apply(part[w][lane], st);
+    for (int w = 0; w < warp; ++w) st = apply(seg[w][lane], st);
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < kSeg; ++j) {
+        const int64_t s = sb + j;
+        if (s < a.horizon) {
+          const unsigned now = apply(maps[j], st);
+          out[s * m + e] = static_cast<uint8_t>(now);
+          if (gr.stream == 1) a.rejoin[s * m + e] = static_cast<uint8_t>(now & (st ^ 1u));
+          st = now;
+        }
+      }
+    }
+    __syncthreads();  // part and seg are the next tile's
   }
 }
 
@@ -452,12 +609,12 @@ struct Normal;
 template <>
 struct Normal<float> {
   static __device__ __forceinline__ float lower() { return nextafterf(-1.0f, 0.0f); }
-  static __device__ __forceinline__ float uniform(uint2 key, uint32_t c) {
+  static __device__ __forceinline__ float uniform(uint2 key, uint64_t k) {
     const float lo = lower();
-    const float f = uniform32(key, c);
+    const float f = unit32(threefry_at(key.x, key.y, k));
     return fmaxf(lo, __fadd_rn(__fmul_rn(f, __fsub_rn(1.0f, lo)), lo));
   }
-  static __device__ float erf_inv(float x) {
+  static __device__ __forceinline__ float erf_inv(float x) {
     const float small[9] = {2.81022636e-08f,  3.43273939e-07f, -3.5233877e-06f,
                             -4.39150654e-06f, 0.00021858087f,  -0.00125372503f,
                             -0.00417768164f,  0.246640727f,    1.50140941f};
@@ -480,9 +637,9 @@ struct Normal<float> {
 template <>
 struct Normal<double> {
   static __device__ __forceinline__ double lower() { return nextafter(-1.0, 0.0); }
-  static __device__ __forceinline__ double uniform(uint2 key, uint32_t c) {
+  static __device__ __forceinline__ double uniform(uint2 key, uint64_t k) {
     const double lo = lower();
-    const uint2 w = threefry2x32(key.x, key.y, 0u, c);
+    const uint2 w = threefry_at(key.x, key.y, k);
     const uint64_t bits = (static_cast<uint64_t>(w.x) << 32) | w.y;
     const double f =
         __dsub_rn(__longlong_as_double(static_cast<long long>((bits >> 12) |
@@ -490,7 +647,7 @@ struct Normal<double> {
                   1.0);
     return fmax(lo, __dadd_rn(__dmul_rn(f, __dsub_rn(1.0, lo)), lo));
   }
-  static __device__ double erf_inv(double x) {
+  static __device__ __forceinline__ double erf_inv(double x) {
     const double c625[23] = {
         -3.6444120640178196996e-21, -1.685059138182016589e-19, 1.2858480715256400167e-18,
         1.115787767802518096e-17,   -1.333171662854620906e-16, 2.0972767875968561637e-17,
@@ -536,23 +693,35 @@ struct Normal<double> {
 };
 
 template <typename Real>
-__global__ void noise_kernel(const int64_t* __restrict__ t, uint2 tag,
-                             const uint8_t* __restrict__ byzantine, const Real* __restrict__ x,
-                             Real scale, Real* __restrict__ out, int64_t n, int64_t d) {
+__device__ __forceinline__ Real noisy(uint2 key, uint64_t k, Real v, Real scale) {
+  using N = Normal<Real>;
+  const Real z = N::mul(N::sqrt2(), N::erf_inv(N::uniform(key, k)));
+  return N::add(v, N::mul(scale, z));
+}
+
+// An element a thread: thread k of the launch takes element k = i * d + j
+// of the stack (block (bx, by) holds elements from (by * gridDim.x + bx) *
+// kThreads). The block's first thread folds the round key while every
+// thread loads its element, divides out its row and loads the row's flag;
+// honest elements are stored before the one barrier that waits for the key.
+template <typename Real>
+__global__ void __launch_bounds__(kThreads) noise_kernel(
+    const int64_t* __restrict__ t, uint2 tag, const uint8_t* __restrict__ byzantine,
+    const Real* __restrict__ x, Real scale, Real* __restrict__ out, int64_t n, int64_t d) {
   launch_counts::add(kSlotNoise);
   __shared__ uint2 key;
-  if (threadIdx.x == 0) key = round_key(tag, t);
-  __syncthreads();
-  const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (k >= n * d) return;
-  const Real v = x[k];
-  if (!byzantine[k / d]) {
-    out[k] = v;
-    return;
+  const int64_t k =
+      (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * kThreads + threadIdx.x;
+  if (threadIdx.x == 0) key = round_key_at(tag, *t);
+  Real v = Real(0);
+  bool byz = false;
+  if (k < n * d) {
+    v = x[k];
+    byz = byzantine[k / d] != 0;
+    if (!byz) out[k] = v;
   }
-  using N = Normal<Real>;
-  const Real z = N::mul(N::sqrt2(), N::erf_inv(N::uniform(key, static_cast<uint32_t>(k))));
-  out[k] = N::add(v, N::mul(scale, z));
+  __syncthreads();
+  if (byz) out[k] = noisy(key, static_cast<uint64_t>(k), v, scale);
 }
 
 inline int finish() { return static_cast<int>(cudaGetLastError()); }
@@ -574,16 +743,18 @@ int launch_round(const RoundArgs* args, void* stream) {
   return finish();
 }
 
+// The payload over x [n, d], an element a thread.
 template <typename Real>
 int launch_noise(const void* t, uint32_t k0, uint32_t k1, const void* byzantine, const void* x,
                  double scale, void* out, int64_t n, int64_t d, void* stream) {
-  if (n <= 0 || d <= 0 || n * d > (int64_t{1} << 32)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 0 || d < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || d == 0) return 0;
   const int64_t blocks = (n * d + kThreads - 1) / kThreads;
-  noise_kernel<Real><<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(t), make_uint2(k0, k1),
-      static_cast<const uint8_t*>(byzantine), static_cast<const Real*>(x),
-      static_cast<Real>(scale), static_cast<Real*>(out), n, d);
+  const int64_t bx = std::min<int64_t>(blocks, 0x7FFFFFFF);  // the grid's x limit
+  const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>((blocks + bx - 1) / bx));
+  noise_kernel<Real><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(t), make_uint2(k0, k1), static_cast<const uint8_t*>(byzantine),
+      static_cast<const Real*>(x), static_cast<Real>(scale), static_cast<Real*>(out), n, d);
   return finish();
 }
 
@@ -600,28 +771,49 @@ int realize_round_f64(const void* args, void* stream) {
   return launch_round<double>(static_cast<const RoundArgs*>(args), stream);
 }
 
-// The timeline over t = 0 .. horizon - 1. keys: fault, node, participation
-// tag keys. thresholds: edge (init, enter, stay), node (init, enter, stay),
-// then p_out. A process with a count of 0 is off.
+// The timeline over t = 0 .. horizon - 1 in two launches on the stream:
+// the draws, then the chains' scan. keys: fault, node, participation tag
+// keys. thresholds: edge (init, enter, stay), node (init, enter, stay), then
+// p_out. A process with a count of 0 is off. carry: the caller's
+// workspace of fault_timeline_tile-round tiles times (n_edges + n_nodes)
+// bytes.
 int fault_timeline(const uint32_t* keys, int64_t n, const void* edges, int64_t n_edges,
                    int64_t n_nodes, int64_t n_part, const float* thresholds, int64_t horizon,
-                   void* edge_up, void* node_up, void* rejoin, void* part_up, void* stream) {
-  if (n <= 0 || n > 65535 || horizon <= 0 || n_edges < 0 || n_nodes < 0 || n_part < 0)
+                   void* edge_up, void* node_up, void* rejoin, void* part_up, void* carry,
+                   void* stream) {
+  if (n <= 0 || n > kMaxNodes || horizon <= 0 || n_edges < 0 || n_nodes < 0 || n_part < 0 ||
+      (n_edges > 0 && edges == nullptr) || (n_edges + n_nodes > 0 && carry == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t total = n_edges + n_nodes + n_part;
-  if (total == 0) return 0;
-  const Chain edge{thresholds[0], thresholds[1], thresholds[2]};
-  const Chain node{thresholds[3], thresholds[4], thresholds[5]};
-  const int threads = 128;
-  timeline_kernel<<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      make_uint2(keys[0], keys[1]), make_uint2(keys[2], keys[3]), make_uint2(keys[4], keys[5]),
-      static_cast<int>(n), static_cast<const int32_t*>(edges), static_cast<int>(n_edges), edge,
-      static_cast<int>(n_nodes), node, static_cast<int>(n_part), thresholds[6], horizon,
-      static_cast<uint8_t*>(edge_up), static_cast<uint8_t*>(node_up),
-      static_cast<uint8_t*>(rejoin), static_cast<uint8_t*>(part_up));
+  TimelineArgs a;
+  for (int k = 0; k < 3; ++k) a.tags[k] = make_uint2(keys[2 * k], keys[2 * k + 1]);
+  a.edges = static_cast<const int32_t*>(edges);
+  a.out[0] = static_cast<uint8_t*>(edge_up);
+  a.out[1] = static_cast<uint8_t*>(node_up);
+  a.out[2] = static_cast<uint8_t*>(part_up);
+  a.rejoin = static_cast<uint8_t*>(rejoin);
+  a.carry = static_cast<uint8_t*>(carry);
+  a.count[0] = n_edges;
+  a.count[1] = n_nodes;
+  a.count[2] = n_part;
+  a.n = n;
+  a.horizon = horizon;
+  for (int k = 0; k < 7; ++k) a.th[k] = thresholds[k];
+  const int64_t chain_groups = (n_edges + 31) / 32 + (n_nodes + 31) / 32;
+  const int64_t groups = chain_groups + (n_part + 31) / 32;
+  if (groups == 0) return 0;
+  const unsigned gy = static_cast<unsigned>(std::min<int64_t>((horizon + kTile - 1) / kTile, 65535));
+  const auto s = static_cast<cudaStream_t>(stream);
+  timeline_draw_kernel<<<dim3(static_cast<unsigned>(groups), gy), kThreads, 0, s>>>(a);
+  const int err = finish();
+  if (err != 0) return err;
+  timeline_scan_kernel<<<dim3(static_cast<unsigned>(std::max<int64_t>(chain_groups, 1)), gy),
+                         kThreads, 0, s>>>(a);
   return finish();
 }
+
+// The rounds of a timeline tile: the carry workspace holds one byte a
+// (tile, chain).
+int fault_timeline_tile() { return kTile; }
 
 int large_noise_f32(const void* t, uint32_t k0, uint32_t k1, const void* byzantine, const void* x,
                     double scale, void* out, int64_t n, int64_t d, void* stream) {

@@ -21,9 +21,17 @@ graph, so the card takes each as one kernel:
   so it draws only on base edges;
 - ``fault_timeline``: the per-edge Gilbert-Elliott chains, the
   crash-recovery node chains (with their rejoin rounds) and the
-  participation stream over a horizon, as ``[T, E]`` / ``[T, N]`` bool;
+  participation stream over a horizon, as ``[T, E]`` / ``[T, N]`` bool.
+  Each round of a chain is a map of its two states drawn on its own, so
+  the card draws every (round, entity) at once and unrolls the chains as a
+  scan over those maps: two launches, the draws (with each tile of rounds
+  composed into a byte a chain of a workspace the wrapper allocates) and
+  the scan. ``_chains_scan`` is that decomposition in torch ops, for the
+  CPU tests;
 - ``large_noise``: ``x + s·√2·erf_inv(u)`` on the Byzantine rows, ``u``
-  ``jax.random.normal``'s uniform at counter i·d + j.
+  ``jax.random.normal``'s uniform at the 64-bit counter i·d + j, an
+  element a thread (the ``.cu`` header's "Design."); ``large_noise_rows_plain``
+  draws chosen rows alone, for tests past the plain version's size.
 
 For CUDA tensors (``realize_round``, ``large_noise``) or a CUDA ``device``
 (``fault_timeline``) each launches its kernel of ``csrc/draw_kernels.cu``
@@ -54,9 +62,11 @@ SOURCE = _cuda_build.CSRC / "draw_kernels.cu"
 
 # In the order of the kernels' launch-count slots (csrc/draw_kernels.cu).
 KERNELS = ("realize_round", "fault_timeline", "large_noise")
-# The largest N of the round and timeline kernels: edge counters i·N + j
-# stay below 2^32.
+# The largest N of the round and timeline kernels: they draw an edge at the
+# 32-bit counter i·N + j (jax.random's element counter is 64 bits wide).
 MAX_NODES = 65535
+# Launches of one fault_timeline call on the card: the draws, then the scan.
+TIMELINE_LAUNCHES = 2
 
 _ROUND_POINTERS = ("t", "in_nbr", "in_cnt", "in_eid", "out_nbr", "out_cnt", "out_eid",
                    "edge_up", "node_up", "part_up", "a", "active", "w", "scores",
@@ -82,8 +92,10 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr]
         fn.restype = ctypes.c_int
     lib.fault_timeline.argtypes = [ptr, i64, ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr, ptr,
-                                   ptr]
+                                   ptr, ptr]
     lib.fault_timeline.restype = ctypes.c_int
+    lib.fault_timeline_tile.argtypes = []
+    lib.fault_timeline_tile.restype = ctypes.c_int
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"large_noise_{suffix}")
         fn.argtypes = [ptr, ctypes.c_uint32, ctypes.c_uint32, ptr, ptr, ctypes.c_double, ptr,
@@ -348,26 +360,86 @@ def _chains_plain(u: torch.Tensor, init: float, enter: float, stay: float):
     return ups
 
 
+# A chain's round as a map of its states {down = 0, up = 1} to themselves:
+# bit 0 the image of down, bit 1 the image of up (csrc/draw_kernels.cu).
+_IDENTITY = 2
+
+
+def _then(f: torch.Tensor, g) -> torch.Tensor:
+    """The map f, then g (uint8 maps, broadcast)."""
+    return ((g >> (f & 1)) & 1) | (((g >> (f >> 1)) & 1) << 1)
+
+
+def _apply(f: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """The state after the map f from ``state`` (uint8 0 or 1)."""
+    return (f >> state) & 1
+
+
+def _chains_scan(u: torch.Tensor, init: float, enter: float, stay: float, tile: int):
+    """``_chains_plain`` as ``fault_timeline``'s kernels compute it, in torch
+    ops: each round's map of the states (at t = 0 both images u >= init,
+    then up -> u >= enter and down -> u >= stay), each tile of ``tile``
+    rounds composed into its summary, the maps entering each tile by a scan
+    over the summaries, and the apply pass over each tile's rounds from the
+    state its carry gives up. For the CPU tests; no run takes it."""
+    T, M = u.shape
+    th = {k: torch.tensor(v, dtype=torch.float32, device=u.device)
+          for k, v in (("init", init), ("enter", enter), ("stay", stay))}
+    first = torch.arange(T, device=u.device)[:, None] == 0
+    up = torch.where(first, u >= th["init"], u >= th["enter"]).to(torch.uint8)
+    down = torch.where(first, u >= th["init"], u >= th["stay"]).to(torch.uint8)
+    tiles = -(-T // tile)
+    maps = torch.full((tiles * tile, M), _IDENTITY, dtype=torch.uint8, device=u.device)
+    maps[:T] = down | (up << 1)
+    maps = maps.reshape(tiles, tile, M)
+    summary = torch.full((tiles, M), _IDENTITY, dtype=torch.uint8, device=u.device)
+    for j in range(tile):
+        summary = _then(summary, maps[:, j])
+    entering = torch.empty_like(summary)
+    carry = torch.full((M,), _IDENTITY, dtype=torch.uint8, device=u.device)
+    for k in range(tiles):
+        entering[k] = carry
+        carry = _then(carry, summary[k])
+    state = _apply(entering, torch.ones_like(entering))  # every chain is up before t = 0
+    ups = torch.empty((tiles, tile, M), dtype=torch.uint8, device=u.device)
+    for j in range(tile):
+        state = _apply(maps[:, j], state)
+        ups[:, j] = state
+    return ups.reshape(tiles * tile, M)[:T].bool()
+
+
 def fault_timeline_plain(keys, n: int, edges: Optional[torch.Tensor], horizon: int,
-                         edge_chain=None, node_chain=None, p_out=None, *, device):
-    """The plain version of ``fault_timeline``."""
+                         edge_chain=None, node_chain=None, p_out=None, *, device,
+                         tile: Optional[int] = None):
+    """The plain version of ``fault_timeline``; with ``tile``, its chains
+    unrolled by the kernels' decomposition over tiles of that many rounds
+    (``_chains_scan``) instead of round by round."""
     fault_key, node_key, part_key = keys
+    chains = _chains_plain if tile is None else functools.partial(_chains_scan, tile=tile)
     ts = torch.arange(horizon, dtype=torch.int64, device=device)
     nodes = torch.arange(n, dtype=torch.int64, device=device)
     out = {"edge_up": None, "node_up": None, "rejoin": None, "part_up": None}
     if edges is not None:
         counters = edges[:, 0].to(torch.int64) * n + edges[:, 1].to(torch.int64)
         u = prng.uniform_at(prng.fold_in(fault_key, ts), counters)
-        out["edge_up"] = _chains_plain(u, *edge_chain)
+        out["edge_up"] = chains(u, *edge_chain)
     if node_chain is not None:
         u = prng.uniform_at(prng.fold_in(node_key, ts), nodes)
-        node_up = _chains_plain(u, *node_chain)
+        node_up = chains(u, *node_chain)
         prev = torch.cat([torch.ones_like(node_up[:1]), node_up[:-1]])
         out["node_up"], out["rejoin"] = node_up, node_up & ~prev
     if p_out is not None:
         u = prng.uniform_at(prng.fold_in(part_key, ts), nodes)
         out["part_up"] = u >= torch.tensor(p_out, dtype=torch.float32, device=device)
     return out
+
+
+def timeline_thresholds(edge_chain, node_chain, p_out) -> "ctypes.Array":
+    """The kernel's seven float32 thresholds: the edge chain's (init, enter,
+    stay), the node chain's, p_out; 0 for a process that is off."""
+    values = [*(edge_chain or (0.0,) * 3), *(node_chain or (0.0,) * 3),
+              p_out if p_out is not None else 0.0]
+    return (ctypes.c_float * 7)(*(_f32(v) for v in values))
 
 
 def fault_timeline(keys, n: int, edges: Optional[torch.Tensor], horizon: int,
@@ -397,15 +469,16 @@ def fault_timeline(keys, n: int, edges: Optional[torch.Tensor], horizon: int,
         return torch.empty((horizon, max(m, 1)), dtype=torch.bool, device=device)
 
     edge_up, node_up, rejoin, part_up = buf(n_edges), buf(n_nodes), buf(n_nodes), buf(n_part)
-    thresholds = [_f32(v) for v in (edge_chain or (0.0,) * 3)]
-    thresholds += [_f32(v) for v in (node_chain or (0.0,) * 3)]
-    thresholds.append(_f32(p_out if p_out is not None else 0.0))
+    lib = _library()
+    tiles = -(-horizon // lib.fault_timeline_tile())
+    carry = torch.empty(max(tiles * (n_edges + n_nodes), 1), dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _library().fault_timeline(
+        err = lib.fault_timeline(
             _words(*keys), n, edges.data_ptr() if edges is not None else None, n_edges,
-            n_nodes, n_part, (ctypes.c_float * 7)(*thresholds), horizon, edge_up.data_ptr(),
-            node_up.data_ptr(), rejoin.data_ptr(), part_up.data_ptr(), stream)
+            n_nodes, n_part, timeline_thresholds(edge_chain, node_chain, p_out), horizon,
+            edge_up.data_ptr(), node_up.data_ptr(), rejoin.data_ptr(), part_up.data_ptr(),
+            carry.data_ptr(), stream)
     _raise(err, "fault_timeline")
     return {"edge_up": edge_up if n_edges else None,
             "node_up": node_up if n_nodes else None,
@@ -424,6 +497,17 @@ def large_noise_plain(key, t, byzantine: torch.Tensor, x: torch.Tensor, scale: f
     return torch.where(byzantine.bool()[:, None], x + s * z, x)
 
 
+def large_noise_rows_plain(key, t, rows, x_rows: torch.Tensor, d: int, scale: float):
+    """Rows ``rows`` of ``large_noise_plain`` for Byzantine rows, drawn
+    alone: ``x_rows`` (those rows of x, [len(rows), d]) plus ``scale`` times
+    the normal at the 64-bit counters i·d + j of each row i, without the rest
+    of the stack. For tests of stacks too large for the plain version."""
+    rows = torch.as_tensor(rows, dtype=torch.int64, device=x_rows.device)
+    counters = rows[:, None] * d + torch.arange(d, dtype=torch.int64, device=x_rows.device)
+    z = prng.normal_at(prng.fold_in(key, t.reshape(()).to(x_rows.device)), counters, x_rows.dtype)
+    return x_rows + torch.tensor(scale, dtype=x_rows.dtype, device=x_rows.device) * z
+
+
 def large_noise(key, t, byzantine: torch.Tensor, x: torch.Tensor, scale: float) -> torch.Tensor:
     """``x`` with its Byzantine rows (``byzantine``: uint8 [N]) replaced by
     ``x + scale · normal(fold_in(key, t), x.shape)``, in x's dtype."""
@@ -437,6 +521,5 @@ def large_noise(key, t, byzantine: torch.Tensor, x: torch.Tensor, scale: float) 
     out = torch.empty_like(x)
     _cuda_build.call(_library(), "large_noise", x, t.data_ptr(), key[0] & 0xFFFFFFFF,
                      key[1] & 0xFFFFFFFF, byzantine.data_ptr(), x.data_ptr(), float(scale),
-                     out.data_ptr(), x.shape[0], x.shape[1],
-                     invalid=f"large_noise takes N·d <= 2^32, got {tuple(x.shape)}")
+                     out.data_ptr(), x.shape[0], x.shape[1])
     return out

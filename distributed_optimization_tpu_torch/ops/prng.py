@@ -252,8 +252,17 @@ def normal_lower(dtype: torch.dtype) -> float:
     return -1.0 + float(torch.finfo(dtype).eps) / 2.0
 
 
+def _standard(u: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(math.sqrt(2.0), dtype=u.dtype, device=u.device) * erf_inv(u)
+
+
 def normal(key: Key, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``jax.random.normal(key, shape, dtype)``: √2 · erf_inv of a uniform on
     (nextafter(−1, 0), 1)."""
-    u = uniform(key, shape, dtype, normal_lower(dtype), 1.0)
-    return torch.tensor(math.sqrt(2.0), dtype=dtype, device=u.device) * erf_inv(u)
+    return _standard(uniform(key, shape, dtype, normal_lower(dtype), 1.0))
+
+
+def normal_at(key: Key, counters: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The elements of ``normal(key, shape, dtype)`` at the flat indices
+    ``counters`` (a non-negative int64 tensor), without the rest."""
+    return _standard(uniform_at(key, counters, dtype, normal_lower(dtype), 1.0))

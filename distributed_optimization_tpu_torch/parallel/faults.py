@@ -23,7 +23,8 @@ the JAX package's: float32 uniforms of ``ops/prng.py``'s Threefry stream at
 ``fold_in(tag key, t)``, edge (i, j) at counter i·N + j (the i < j entry
 for an undirected edge). Persistent processes (bursty edges, churn,
 participation) unroll a ``FaultTimeline`` once at set-up
-(``fault_timeline``, one launch) that each round reads at t; memoryless
+(``fault_timeline``: two launches, the draws and the chains' scan) that
+each round reads at t; memoryless
 ones draw each round. Either way a round is one launch on a card
 (``ops/draw_kernels.realize_round``): A_t, the active mask, W_t in the
 run's accumulation dtype and the round's degree count, over the base
@@ -181,12 +182,13 @@ def _check_timeline_args(horizon, burst_len, straggler_prob, mttf, mttr,
         )
 
 
-def _timeline_tensors(topo: Topology, horizon: int, seed: int, *, edge_drop_prob: float,
-                      burst_len: float, straggler_prob: float, mttf: float, mttr: float,
-                      participation_rate: float, device, x64: bool):
-    """The timeline's bool tensors on ``device`` (``draw_kernels.fault_timeline``)
-    and the edge list."""
-    _check_timeline_args(horizon, burst_len, straggler_prob, mttf, mttr, participation_rate)
+def timeline_args(topo: Topology, seed: int, *, edge_drop_prob: float, burst_len: float,
+                  straggler_prob: float, mttf: float, mttr: float, participation_rate: float,
+                  device, x64: bool):
+    """The processes' arguments of ``draw_kernels.fault_timeline`` (and of
+    its plain version) but the horizon and device: the keys, N, the edge
+    list on ``device``, the chains' thresholds and p_out; and the edge list
+    on the host."""
     keys = _tag_keys(seed, x64, FAULT_TAG, NODE_TAG, PART_TAG)
     edge_index = edges = edge_chain = None
     if edge_drop_prob > 0.0:
@@ -204,9 +206,21 @@ def _timeline_tensors(topo: Topology, horizon: int, seed: int, *, edge_drop_prob
     elif straggler_prob > 0.0:
         node_chain = (straggler_prob,) * 3
     p_out = 1.0 - participation_rate if participation_rate < 1.0 else None
-    out = draw_kernels.fault_timeline(keys, topo.n, edges, horizon, edge_chain, node_chain,
-                                      p_out, device=device)
-    return out, edge_index
+    return dict(keys=keys, n=topo.n, edges=edges, edge_chain=edge_chain, node_chain=node_chain,
+                p_out=p_out), edge_index
+
+
+def _timeline_tensors(topo: Topology, horizon: int, seed: int, *, edge_drop_prob: float,
+                      burst_len: float, straggler_prob: float, mttf: float, mttr: float,
+                      participation_rate: float, device, x64: bool):
+    """The timeline's bool tensors on ``device`` (``draw_kernels.fault_timeline``)
+    and the edge list."""
+    _check_timeline_args(horizon, burst_len, straggler_prob, mttf, mttr, participation_rate)
+    args, edge_index = timeline_args(
+        topo, seed, edge_drop_prob=edge_drop_prob, burst_len=burst_len,
+        straggler_prob=straggler_prob, mttf=mttf, mttr=mttr,
+        participation_rate=participation_rate, device=device, x64=x64)
+    return draw_kernels.fault_timeline(horizon=horizon, device=device, **args), edge_index
 
 
 def build_fault_timeline(
@@ -230,9 +244,9 @@ def build_fault_timeline(
         node:  P(down | up) = 1/mttf, P(down | down) = 1 − 1/mttr (or q)
 
     and the t = 0 state from the stationary marginal. The draws run on
-    ``device``, a card unless the caller asks for the CPU, as one kernel
-    launch (``draw_kernels.fault_timeline``); ``x64`` keys the stream as a
-    float64 run does."""
+    ``device``, a card unless the caller asks for the CPU, as the two
+    launches of ``draw_kernels.fault_timeline``; ``x64`` keys the stream as
+    a float64 run does."""
     out, edge_index = _timeline_tensors(
         topo, horizon, seed, edge_drop_prob=edge_drop_prob, burst_len=burst_len,
         straggler_prob=straggler_prob, mttf=mttf, mttr=mttr,

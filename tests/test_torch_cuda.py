@@ -30,12 +30,16 @@ kernels are also held on an Erdős–Rényi table of rows of 3 to 13 neighbours;
 the gather and sparse mixing forms replay bitwise in a CUDA graph and equal
 the CPU bit for bit; push-sum's [N, 1] mass goes through ring_mix. The draw
 kernels (ops/draw_kernels.py: one round's A_t, W_t in both dtypes, active
-mask, degree count and one-peer scores in both kernel forms and every fault
-mode; the fault timeline; the large-noise payload) equal their plain
-versions on the card bit for bit at N = 16, 64, 256 and 1,024, directed and
-undirected (and the round on the grid and the fully-connected N=25), which
-tests/test_torch_fault_rounds.py, test_torch_round_weights.py and
-test_torch_large_noise.py hold to the JAX package on the CPU. The sampler
+mask, degree count and one-peer scores in every fault mode; the fault
+timeline, also across its kernels' segment and tile edges and at main's
+shape, with its two launches a call counted; the large-noise payload, also
+at 8 × 4,194,816 and 4,096 × 1,024 and past N·d = 2³² against the row-wise
+plain version) equal their plain versions on the card bit for bit at N =
+16, 64, 256 and 1,024, directed and undirected (and the round on the grid
+and the fully-connected N=25), which
+tests/test_torch_fault_rounds.py, test_torch_round_weights.py,
+test_torch_large_noise.py, test_torch_timeline_scan.py and
+test_torch_noise_rows.py hold to the JAX package on the CPU. The sampler
 past a block's shared memory (b = L = 16,384) and the compression kernel
 past N·d = 2³² match their twins. Both fused robust kernels on a liveness that changes
 every round equal the gather form bit for bit (count rules); a faulted run
@@ -1356,6 +1360,121 @@ def test_cuda_large_noise_is_bitwise_its_plain_version(cuda_device, n, dtype):
             assert torch.equal(got[byz == 0], x[byz == 0])
 
 
+# Horizons across the timeline kernels' segment (16 rounds) and tile (128
+# rounds) edges.
+TIMELINE_HORIZONS = (1, 15, 16, 17, 31, 32, 33, 127, 128, 129, 1000)
+BURSTY_CHURN = dict(edge_drop_prob=0.2, burst_len=8.0, mttf=60.0, mttr=25.0)
+TIMELINE_OFF = dict(edge_drop_prob=0.0, burst_len=1.0, straggler_prob=0.0, mttf=0.0, mttr=0.0,
+                    participation_rate=1.0)
+
+
+def _timeline_args(n, kw, device):
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    topo = _draw_topology("ring", n)
+    return faults.timeline_args(topo, 203, device=device, x64=False,
+                                **dict(TIMELINE_OFF, **kw))[0]
+
+
+def _assert_timeline_is_the_twin_s(args, horizon, device):
+    got = dk.fault_timeline(horizon=horizon, device=device, **args)
+    want = dk.fault_timeline_plain(horizon=horizon, device=device, **args)
+    for field, a in got.items():
+        assert (a is None) == (want[field] is None), field
+        if a is not None:
+            assert torch.equal(a, want[field]), (horizon, field)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon", TIMELINE_HORIZONS)
+@pytest.mark.parametrize("kw", [BURSTY_CHURN, dict(edge_drop_prob=0.3, burst_len=4.0),
+                                dict(straggler_prob=0.1, participation_rate=0.7,
+                                     edge_drop_prob=0.2)],
+                         ids=["bursty-churn", "bursty", "stragglers-participation"])
+def test_cuda_fault_timeline_across_tile_edges(cuda_device, kw, horizon):
+    """The scan's carry across segments and tiles, bitwise the plain
+    version at horizons on both sides of each edge (N=40: two entity groups
+    of edges and of nodes, the second part full)."""
+    _assert_timeline_is_the_twin_s(_timeline_args(40, kw, cuda_device), horizon, cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_fault_timeline_at_main_s_shape(cuda_device):
+    """Main's shape under bursty drops and churn: ring N=256, T=30,000."""
+    _assert_timeline_is_the_twin_s(_timeline_args(256, BURSTY_CHURN, cuda_device), 30_000,
+                                   cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_fault_timeline_counts_its_launches(cuda_device):
+    """Each call counts its two launches (the draws and the scan), eagerly
+    and at each replay of a captured graph; participation alone too."""
+    for kw in (BURSTY_CHURN, dict(participation_rate=0.7)):
+        args = _timeline_args(16, kw, cuda_device)
+        dk.fault_timeline(horizon=50, device=cuda_device, **args)
+        dk.reset_launch_counts()
+        dk.fault_timeline(horizon=50, device=cuda_device, **args)
+        assert dk.LAUNCHES["fault_timeline"] == dk.TIMELINE_LAUNCHES
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = dk.fault_timeline(horizon=50, device=cuda_device, **args)
+        dk.reset_launch_counts()
+        for _ in range(3):
+            graph.replay()
+        assert dk.LAUNCHES["fault_timeline"] == 3 * dk.TIMELINE_LAUNCHES
+        want = dk.fault_timeline_plain(horizon=50, device=cuda_device, **args)
+        for field, a in out.items():
+            assert a is None or torch.equal(a, want[field]), field
+        graph.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,every", [((8, 4_194_816), 8), ((4096, 1024), 10)])
+def test_cuda_large_noise_at_wide_shapes(cuda_device, dtype, shape, every):
+    """The compute-bound tier's width (one Byzantine row) and 4,096 × 1,024
+    (every tenth row), on an aligned stack and on a view off 16-byte
+    alignment: bitwise the plain version, honest rows equal to x."""
+    n, d = shape
+    key = prng.fold_in(prng.key(203, x64=dtype == torch.float64), 0xBAD0)
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    base = torch.randn(n * d + 1, generator=gen, device=cuda_device, dtype=dtype)
+    byz = (torch.arange(n, device=cuda_device) % every == 3).to(torch.uint8)
+    for x in (base[:-1].view(n, d), base[1:].view(n, d)):
+        for t in (0, 4000, 2**31 - 1):
+            tt = torch.tensor([t], device=cuda_device)
+            got = dk.large_noise(key, tt, byz, x, 10.0)
+            assert torch.equal(got, dk.large_noise_plain(key, tt, byz, x, 10.0)), t
+            assert torch.equal(got[byz == 0], x[byz == 0])
+
+
+@pytest.mark.cuda
+def test_cuda_large_noise_past_two_to_the_32_elements(cuda_device):
+    """N·d just past 2³² float32 elements (17 GB a stack): the kernel
+    launches, rows before, across and past the counter 2³² equal the row-wise
+    plain version's draws at the 64-bit counters, and the honest rows equal
+    x."""
+    n, d = 1_431_657, 3_000  # N·d = 2³² + 3,704; row 1,431,655 crosses 2³²
+    assert (n - 2) * d < 2**32 < (n - 1) * d
+    key = prng.fold_in(prng.key(203, x64=False), 0xBAD0)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((n, d), generator=gen, device=cuda_device)
+    rows = (7, n - 2, n - 1)
+    byz = torch.zeros(n, dtype=torch.uint8, device=cuda_device)
+    byz[list(rows)] = 1
+    t = torch.tensor([2**31 + 3], device=cuda_device)
+    got = dk.large_noise(key, t, byz, x, 10.0)
+    want = dk.large_noise_rows_plain(key, t, rows, x[list(rows)], d, 10.0)
+    assert torch.equal(got[list(rows)], want)
+    honest = byz == 0
+    for start in range(0, n, 1 << 18):
+        stop = min(n, start + (1 << 18))
+        keep = honest[start:stop]
+        assert torch.equal(got[start:stop][keep], x[start:stop][keep]), start
+    del got, x
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.cuda
 def test_cuda_draw_kernels_replay_with_the_current_t(cuda_device):
     topo = _draw_topology("ring", 64)
@@ -1434,7 +1553,7 @@ def test_cuda_faulted_graph_run_is_bitwise_its_measured_run(cuda_device, graph_d
     T = cfg.n_iterations
     memoryless = fields.get("burst_len", 0.0) == 0.0
     assert glaunch["realize_round"] == T  # the timeline's rounds go through it too
-    assert glaunch["fault_timeline"] == (0 if memoryless else 1)
+    assert glaunch["fault_timeline"] == (0 if memoryless else dk.TIMELINE_LAUNCHES)
     if "attack" in fields:
         assert glaunch["large_noise"] == T
         assert glaunch["make_fused_robust_dsgd_step"] == T

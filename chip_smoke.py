@@ -273,6 +273,27 @@ Phases:
     two launches once in each run with bursty edges or churn, and
     ``realize_round`` once
     a step in every run (it reads the timeline where there is one).
+21. replicas: the replica axis (``torch_backend.run_batch``). The four
+    kernels that take it (both samplers, the round, the noise; float32 at
+    each one's path shape): one launch bitwise its plain stack, and
+    replica r of it bitwise single launch r, at R = 1, 3, 8 and 32 (the
+    records' max_abs_err is the launch's against the plain stack); in a
+    graph of 200, one launch for R against
+    R single launches, beside the bound, at R = 1, 8 and 32 (their
+    records carry R = 32). ``examples/bench_sweep.py``'s two cells
+    (flagship N=25, T=2,000, eval every 500, R = 1 … 32; northstar
+    N=256, T=400, eval every 100, R = 8 and 32) beside the single run
+    in the same call, and its η₀ sweep of 8 values. Main's config at R =
+    8 (seeds 203–210, T=30,000, eval every iteration): every replica
+    crosses ε, replica 0 within 1% of the main phase's count, the
+    sampler launched T times; at T=1,000 the graph run bitwise its
+    measured run; float64 at R = 3 (T=100) within 1e-12 of the CPU's
+    batch. Main's shapes under bursty drops, churn, sign-flip and the
+    gather trimmed mean at R = 4 (T=3,000): the round T times, the
+    timeline twice a replica, each replica's floats equal to its
+    sequential run's and its gaps within 1e-4 relative of them (float32,
+    two product orders); the robust cell under large_noise at R = 4: the
+    noise T times.
 
 Every run goes through the port's run loop: after a warm-up chunk, CUDA
 graph replays (``backends/torch_backend.py``). The kernels count their own
@@ -290,42 +311,14 @@ under dense, gather and sparse, push-sum on its directed ER, Huber at
 N=256, softmax K=10 at N=25, and the compute-bound cell at d=4,096 under
 both precisions, 40 iterations at eval every 10), each as the
 graph run and as the ``measure_timestamps=True`` run, over the iterations
-after the warm-up chunk; ``ring_ab``
-(``--phases card,ring_ab --baseline PATH``) holds the three ring kernels
-against the same kernels built from another ``ring_kernels.cu``, bitwise,
-and times both at every ring shape in turns (baseline, this tree, this
-tree, baseline); ``robust_ab`` (``--phases card,robust_ab
---robust-baseline PATH``) does the same for both fused robust kernels
-against another ``robust_kernels.cu`` with the same C interface, at the
-robust kernels' three inputs, for every screen, both forms and both
-dtypes: the count rules bitwise equal to the baseline and to the plain
-version, clipping within the kernels phase's
-tolerance of the plain version on both builds; ``fc_ab`` (``--phases
-card,fc_ab --fc-baseline PATH``) binds another ``fc_kernels.cu`` through
-the parent's five-argument C interface (x, out, n, d, stream), holds both
-builds within N·ε·max|x| of the plain version at every fc shape in both
-dtypes, times both in turns beside the floor, the bound and ``ring_mix``
-on the same array (one read and one write of it with no reduction, which
-splits the time over the floor), and counts the lines where this tree is
-slower than the baseline's faster turn; ``sampling_ab`` (``--phases
-card,sampling_ab --sampling-baseline PATH``) binds another
-``sampling_kernels.cu`` through the parent's C interface (sample_weights_*,
-sample_indices_*), holds both forms bitwise to it at the sampling inputs
-(the gathered rows against ``gather_batches`` of its indices), and times
-each form's whole sampling step in a graph in turns (the parent's gather
-step: its kernel and two ``take_along_dim`` launches); ``compression_ab``
-(``--phases card,compression_ab --compression-baseline PATH``) binds
-another ``compression_kernels.cu`` with this tree's C interface, holds this
-tree bitwise to it (memory⁺ and the mask bits or levels) wherever it takes
-the shape, and times both in turns, in a graph and event-timed, at the main
-shape and the wide ones; ``draw_ab`` (``--phases card,draw_ab
---draw-baseline PATH``) binds another ``draw_kernels.cu`` through commit
-48849bd's C interface (its one-launch timeline, its noise), holds this
-tree's timeline and noise bitwise to it at every timed shape, times both
-in a graph and event-timed in turns, and runs the faults phase's
-full-width runs with its timeline and noise and with this tree's: their
-digests must be equal. ``profile`` also traces the parity run (N=25,
-gather sampling).
+after the warm-up chunk; ``ab`` (``--phases card,ab --ab-baseline DIR``,
+DIR the root of another checkout, such as an unpacked ``git archive`` of
+the parent) imports that tree's kernel wrappers beside this tree's and
+runs each kernel of the ``kernels`` line through both on the same input at
+its path's shape in float32 (``ab_calls``): the outputs bitwise equal, then
+a launch in a graph of 200 in turns baseline, this tree, this tree,
+baseline; a kernel whose baseline wrapper refuses the call is named and
+skipped. ``profile`` also traces the parity run (N=25, gather sampling).
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -346,22 +339,12 @@ import time
 
 PHASES = ("card", "kernels", "sampling", "reference", "parity", "main", "mixing", "fc", "admm",
           "tracking", "compression", "topologies", "push_sum", "study", "byzantine", "robust",
-          "robust_mixing", "objectives", "faults", "churn")
+          "robust_mixing", "objectives", "faults", "churn", "replicas")
 # Run only when asked for: profile, a torch.profiler trace of the main
 # path's, the admm ring's and the robust cell's steady loops, graph and
-# measured; ring_ab (with
-# --baseline), the three ring kernels against another build of
-# ring_kernels.cu; robust_ab (with --robust-baseline), the fused robust
-# kernels against another build of robust_kernels.cu; fc_ab (with --fc-baseline), the fc
-# kernels against another build of fc_kernels.cu with the parent's C
-# interface; sampling_ab (with --sampling-baseline), both sampling forms
-# against another build of sampling_kernels.cu; compression_ab (with
-# --compression-baseline), the compression kernel against another build of
-# compression_kernels.cu; draw_ab (with --draw-baseline), the timeline and
-# noise kernels of another draw_kernels.cu with commit 48849bd's C interface
-# against this tree's, and the full-width faulted runs with each.
-OPTIONAL_PHASES = ("profile", "ring_ab", "robust_ab", "fc_ab", "sampling_ab", "compression_ab",
-                   "draw_ab")
+# measured; ab (with --ab-baseline), every kernel's wrapper against another
+# tree's on the same input, bitwise and in a graph in turns.
+OPTIONAL_PHASES = ("profile", "ab")
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; 67 TFLOP/s float32 and
 # 34 TFLOP/s float64 outside the tensor cores.
@@ -416,6 +399,10 @@ SOURCES = {
     "compress_exchange": "compression_kernels.cu",
     "realize_round": "draw_kernels.cu", "fault_timeline": "draw_kernels.cu",
     "large_noise": "draw_kernels.cu",
+    "sample_worker_batch_weights, replica axis": "sampling_kernels.cu",
+    "sample_worker_batches, replica axis": "sampling_kernels.cu",
+    "realize_round, replica axis": "draw_kernels.cu",
+    "large_noise, replica axis": "draw_kernels.cu",
 }
 REPLACES = {
     "fused_ring_dsgd_step": f"{PALLAS}:143", "ring_mix": f"{PALLAS}:137",
@@ -435,6 +422,11 @@ REPLACES = {
     "fault_timeline": "distributed_optimization_tpu/parallel/faults.py:419",
     "large_noise": "distributed_optimization_tpu/parallel/adversary.py:126",
 }
+# The replica axis (run_batch): the same four kernels, one launch for R
+# replicas (the replicas phase).
+REPLICA_KERNELS = ("sample_worker_batch_weights", "sample_worker_batches", "realize_round",
+                   "large_noise")
+REPLACES.update({f"{name}, replica axis": REPLACES[name] for name in REPLICA_KERNELS})
 # Floating-point operations per element of the [N, d] output.
 OPS_PER_ELEMENT = {"fused_ring_dsgd_step": 4, "ring_mix": 3, "ring_neighbor_sum": 1,
                    "fc_mix": 2, "fc_neighbor_sum": 2}
@@ -604,8 +596,6 @@ SAMPLING_PATHS = {"sample_worker_batch_weights": "main: dsgd, ring, N=256, dense
 # The width of a shard's rows on the parity and main paths (80 features and
 # the bias): the gather form's X [N, L, d].
 SAMPLING_D = 81
-# Each form's path: the input its path runs, float32 (sampling_ab's timing).
-SAMPLING_FORM_PATH = {"dense": "main", "gather": "parity"}
 # The gather form's plan past a block's 1,024 threads, (N, L) at b = 16:
 # one block with 8 rows a thread (the launcher's plan up to 8,192 rows)
 # against a thread block cluster of a thread a row, timed in turns.
@@ -671,9 +661,6 @@ COMPRESSION_TIMED = (("top_k", 9), ("random_k", 27), ("qsgd", 4))
 COMPRESSION_RECORD = ("random_k", 27)
 # The wide shapes timed in both dtypes (no workload of the repo runs them).
 COMPRESSION_WIDE_TIMED = ((4096, 1024), (64, 5_000), (8, 100_003))
-# compression_ab's widths about the switch from a warp a row to a block a row
-# (128 columns), float32: where a build with another switch differs.
-COMPRESSION_SWITCH_SHAPES = ((256, 128), (256, 192), (256, 256))
 # Known answers: sha256 (first 16 hex digits) of the JAX package's draws with
 # jax 0.9.0 at (seed, t, round, dtype, N, d, k): random_k's mask [N, d]
 # (int32, 1 where kept, of make_compressor('random_k', d, k).apply(key,
@@ -1242,175 +1229,6 @@ def phase_kernels(torch, np, kernels, topology, gather_factory):
             for name, record in records.items()}
 
 
-def phase_ring_ab(torch, rk, build, baseline: str):
-    """The three ring kernels against the same kernels built from
-    ``baseline`` (a ring_kernels.cu with the same C interface, such as the
-    parent commit's), at every ring shape: bitwise equal outputs, and times
-    in turns baseline, this tree, this tree, baseline, beside the launch
-    floor and the bound. Counts the lines where this tree is slower than the
-    baseline's faster turn."""
-    import ctypes
-    import pathlib
-
-    lib = rk.bind(ctypes.CDLL(str(build.build(pathlib.Path(baseline).resolve()))))
-    floor_ms, op_ms = launch_floor(torch, rk)
-    say(f"[ring_ab] baseline {baseline}; launch floor {floor_ms * 1e3:.3f} us "
-        f"(one-element torch.neg {op_ms * 1e3:.3f} us)")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    slower, lines = [], 0
-    for n, d in SHAPES:
-        for dtype in (torch.float32, torch.float64):
-            dname = str(dtype).removeprefix("torch.")
-            x = torch.randn((n, d), generator=gen, device="cuda", dtype=dtype)
-            g = torch.randn((n, d), generator=gen, device="cuda", dtype=dtype)
-            eta = torch.tensor([0.05 / 7.0], dtype=dtype, device="cuda")
-            for name, args in (("fused_ring_dsgd_step", (g, eta)), ("ring_mix", ()),
-                               ("ring_neighbor_sum", ())):
-                new = lambda: getattr(rk, name)(x, *args)  # noqa: E731
-                old = lambda: rk.launch(lib, name, x, *args)  # noqa: E731
-                check(torch.equal(new(), old()),
-                      f"ring_ab {name} N={n} d={d} {dname}: this tree and the baseline differ")
-                t = [time_ms(torch, f) * 1e3 for f in (old, new, new, old)]
-                b_ms, _ = bound(name, n, d, dname, x.element_size())
-                lines += 1
-                if max(t[1], t[2]) > min(t[0], t[3]):
-                    slower.append(f"{name} N={n} d={d} {dname} "
-                                  f"(+{max(t[1], t[2]) - min(t[0], t[3]):.3f} us)")
-                say(f"[ring_ab] {name:20s} N={n:7d} d={d:5d} {dname}: baseline {t[0]:9.3f} "
-                    f"{t[3]:9.3f} us  this tree {t[1]:9.3f} {t[2]:9.3f} us  bound "
-                    f"{b_ms * 1e3:8.3f} us  (bound/this tree {b_ms * 1e3 / min(t[1], t[2]):.1%}, "
-                    f"bound/baseline {b_ms * 1e3 / min(t[0], t[3]):.1%})")
-    say(f"[ring_ab] this tree slower than the baseline's faster turn in {len(slower)} of "
-        f"{lines}: {', '.join(slower) if slower else 'none'}")
-
-
-def phase_robust_ab(torch, np, kernels, topology, baseline: str):
-    """Both fused robust kernels against the same C function built from
-    ``baseline`` (a robust_kernels.cu with the same C interface, such as the
-    parent commit's), at the robust kernels' three inputs, for every screen,
-    both forms and both dtypes: the count rules bitwise equal to the
-    baseline and to the plain version, clipping within the kernels phase's
-    tolerance of the plain version on both builds; times in turns baseline,
-    this tree, this tree, baseline, beside the launch floor, the bound
-    (``robust_bound``, which counts the transposition network) and the
-    compare-exchanges of the network each build sorts a column with."""
-    import ctypes
-    import pathlib
-
-    bk, build = kernels["bk"], kernels["build"]
-    lib = bk.bind(ctypes.CDLL(str(build.build(pathlib.Path(baseline).resolve()))))
-    floor_ms, op_ms = launch_floor(torch, kernels["rk"])
-    say(f"[robust_ab] baseline {baseline}; launch floor {floor_ms * 1e3:.3f} us "
-        f"(one-element torch.neg {op_ms * 1e3:.3f} us)")
-    slower = []
-    for label, nbr_np, live_np, x_np in robust_inputs(np, topology):
-        n, k = nbr_np.shape
-        d = x_np.shape[1]
-        live = torch.as_tensor(live_np, device="cuda")
-        nbr32 = torch.as_tensor(nbr_np, dtype=torch.int32, device="cuda")
-        nbr64 = nbr32.long()
-        for dtype in (torch.float32, torch.float64):
-            dname = str(dtype).removeprefix("torch.")
-            x = torch.as_tensor(x_np, dtype=dtype, device="cuda")
-            tol32 = _robust_tol32(torch, x, live, nbr64)
-            g = torch.randn(x.shape, device="cuda", dtype=dtype)
-            eta = torch.tensor([0.05 / 7.0], dtype=dtype, device="cuda")
-            for rule, ct in SCREENS:
-                adaptive = rule == "clipped_gossip" and ct == 0.0
-                tau = torch.tensor([ct], dtype=dtype, device="cuda")
-                agg = bk.make_fused_robust_aggregator(rule, 1, nbr_np, ct, device="cuda")
-                step = bk.make_fused_robust_dsgd_step(rule, 1, nbr_np, ct, device="cuda")
-                if rule in ("trimmed_mean", "median"):
-                    net = f"CE {compare_exchanges(k + 1)} -> {len(bk.merge_network(k + 1))}"
-                elif adaptive:
-                    net = f"rank: CE {compare_exchanges(k)} -> stable rank"
-                else:
-                    net = "no ranking"
-                for form, new, old, plain, with_sgd in (
-                    ("aggregator", lambda: agg(live, x),
-                     lambda: bk.launch(lib, rule, 1, adaptive, nbr32, live, x, tau),
-                     lambda: bk.fused_robust_plain(rule, 1, nbr64, live, x, tau,
-                                                   adaptive=adaptive), False),
-                    ("dsgd_step", lambda: step(live, x, g, eta),
-                     lambda: bk.launch(lib, rule, 1, adaptive, nbr32, live, x, tau, g, eta),
-                     lambda: bk.fused_robust_plain(rule, 1, nbr64, live, x, tau,
-                                                   adaptive=adaptive, g=g, eta=eta), True),
-                ):
-                    got, base, want = new(), old(), plain()
-                    torch.cuda.synchronize()
-                    what = f"robust_ab {form} {rule} tau={ct} {label} {dname}"
-                    _check_robust(torch, rule, got, want, tol32, f"{what}: this tree vs plain")
-                    _check_robust(torch, rule, base, want, tol32, f"{what}: baseline vs plain")
-                    if rule in ("trimmed_mean", "median"):
-                        check(_nan_equal(torch, got, base), f"{what}: this tree and the "
-                                                            "baseline differ")
-                    t = [time_ms(torch, f) * 1e3 for f in (old, new, new, old)]
-                    b_ms, b_by = robust_bound(rule, n, d, k, dname, x.element_size(), with_sgd)
-                    if max(t[1], t[2]) > min(t[0], t[3]):
-                        slower.append(f"{form} {rule} tau={ct} {label} {dname}")
-                    say(f"[robust_ab] {form:10s} {rule[:8]:8s} tau={ct} {label:8s} {dname}: "
-                        f"baseline {t[0]:8.3f} {t[3]:8.3f} us  this tree {t[1]:8.3f} {t[2]:8.3f} us"
-                        f"  floor {floor_ms * 1e3:.3f}  bound {b_ms * 1e3:7.3f} us ({b_by})  {net}")
-    lines = len(robust_inputs(np, topology)) * len(SCREENS) * 2 * 2
-    say(f"[robust_ab] this tree slower than the baseline's faster turn in {len(slower)} of "
-        f"{lines}: {', '.join(slower) if slower else 'none'}")
-
-
-def phase_fc_ab(torch, fk, rk, build, baseline: str):
-    """fc_mix and fc_neighbor_sum against the same kernels built from
-    ``baseline`` (an fc_kernels.cu with the parent's C interface: x, out, n,
-    d, stream), at every fc shape in both dtypes: both builds within
-    N·eps·max|x| of the plain version; times in turns baseline, this tree,
-    this tree, baseline, beside the launch floor, the bound and ``ring_mix``
-    on the same array."""
-    import ctypes
-    import pathlib
-
-    lib = ctypes.CDLL(str(build.build(pathlib.Path(baseline).resolve())))
-    for name in fk.KERNELS:
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"{name}_{suffix}")
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-
-    def baseline_call(name, x):
-        out = torch.empty_like(x)
-        build.call(lib, name, x, x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1])
-        return out
-
-    floor_ms, op_ms = launch_floor(torch, rk)
-    say(f"[fc_ab] baseline {baseline}; launch floor {floor_ms * 1e3:.3f} us "
-        f"(one-element torch.neg {op_ms * 1e3:.3f} us)")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    slower, lines = [], 0
-    for n, d in FC_SHAPES:
-        for dtype in (torch.float32, torch.float64):
-            dname = str(dtype).removeprefix("torch.")
-            x = torch.randn((n, d), generator=gen, device="cuda", dtype=dtype)
-            ring_us = time_ms(torch, lambda: rk.ring_mix(x)) * 1e3
-            for name in fk.KERNELS:
-                new, plain, _ = _fc_calls(torch, fk, name, x)
-                old = lambda: baseline_call(name, x)  # noqa: E731
-                want = plain()
-                what = f"fc_ab {name} N={n} d={d} {dname}"
-                _fc_close(torch, new(), want, x, f"{what}: this tree")
-                _fc_close(torch, old(), want, x, f"{what}: baseline")
-                t = [time_ms(torch, f) * 1e3 for f in (old, new, new, old)]
-                b_ms, b_by = bound(name, n, d, dname, x.element_size())
-                lines += 1
-                if max(t[1], t[2]) > min(t[0], t[3]):
-                    slower.append(f"{name} N={n} d={d} {dname}")
-                chosen = fk.plan_for(name, x)
-                say(f"[fc_ab] {name:15s} N={n:5d} d={d:5d} {dname}: baseline {t[0]:9.3f} "
-                    f"{t[3]:9.3f} us  this tree {t[1]:9.3f} {t[2]:9.3f} us  floor "
-                    f"{floor_ms * 1e3:.3f}  ring_mix {ring_us:8.3f} us  bound {b_ms * 1e3:8.3f} us "
-                    f"({b_by})  bound/this tree {b_ms * 1e3 / min(t[1], t[2]):.1%}; plan "
-                    f"{chosen.describe()}")
-    say(f"[fc_ab] this tree slower than the baseline's faster turn in {len(slower)} of {lines}: "
-        f"{', '.join(slower) if slower else 'none'}")
-
-
 def sampling_n_valid(torch, n: int, L: int, b: int):
     """Every shard full but three: an empty one, one of 3 rows, one of b − 1."""
     nv = torch.full((n,), L, dtype=torch.int64, device="cuda")
@@ -1600,238 +1418,6 @@ def sampling_long(torch, sk, sampling, prng):
             say(f"[sampling] long shard {name} N={n1} L={L} b={b} {dname}: in a graph of "
                 f"{TIMED_LAUNCHES} {in_graph * 1e3:.3f} us, event-timed {ms * 1e3:.3f} us, twin's "
                 f"gather draw {plain_ms * 1e3:.3f} us, bound {b_ms * 1e3:.4f} us ({b_by})")
-
-
-def phase_sampling_ab(torch, kernels, sampling, prng, baseline: str):
-    """Both sampling forms against the same forms built from ``baseline`` (a
-    sampling_kernels.cu with the parent's C interface: sample_weights_* and
-    sample_indices_*, such as the parent commit's): at the main, parity and
-    robust inputs in both dtypes, this tree's weights and indices bitwise the
-    baseline's, and its gathered Xb and yb bitwise ``gather_batches`` of the
-    baseline's indices. Then each form's whole sampling step in a graph of
-    200 calls (dense: the weights; gather: the baseline's indices and its two
-    ``take_along_dim`` launches against this tree's one launch), in turns
-    baseline, this tree, this tree, baseline, beside the empty kernel in a
-    graph and the bound; counts the lines where this tree is slower than the
-    baseline's faster turn."""
-    import ctypes
-    import pathlib
-
-    build, sk, rk = kernels["build"], kernels["sk"], kernels["rk"]
-    lib = ctypes.CDLL(str(build.build(pathlib.Path(baseline).resolve())))
-    ptr, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
-    for suffix in ("f32", "f64"):
-        for name, outs in (("sample_weights", 1), ("sample_indices", 2)):
-            fn = getattr(lib, f"{name}_{suffix}")
-            fn.argtypes = [ptr, u32, u32, ptr, i64, i64, i64] + [ptr] * (outs + 1)
-            fn.restype = ctypes.c_int
-
-    def base(name, key, t, nv, L, b, *outs):
-        build.call(lib, name, outs[-1], t.data_ptr(), key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF,
-                   nv.data_ptr(), nv.shape[0], L, b, *(o.data_ptr() for o in outs))
-        return outs
-
-    def base_weights(key, t, nv, L, b, dtype):
-        return base("sample_weights", key, t, nv, L, b,
-                    torch.empty((nv.shape[0], L), dtype=dtype, device="cuda"))[0]
-
-    def base_indices(key, t, nv, L, b, dtype):
-        return base("sample_indices", key, t, nv, L, b,
-                    torch.empty((nv.shape[0], b), dtype=torch.int64, device="cuda"),
-                    torch.empty((nv.shape[0], b), dtype=dtype, device="cuda"))
-
-    t = torch.zeros(1, dtype=torch.int64, device="cuda")
-    checked = 0
-    for label, n, L, b in SAMPLING_SHAPES:
-        nv = sampling_n_valid(torch, n, L, b)
-        for dname, seeds in SAMPLING_SEEDS.items():
-            dtype = getattr(torch, dname)
-            X, y = sampling_rows(torch, n, L, dtype)
-            for seed in seeds:
-                key = prng.fold_in(prng.key(seed, x64=dtype == torch.float64), 0)
-                for counter in SAMPLING_COUNTERS:
-                    t.fill_(counter)
-                    what = f"sampling_ab {label} {dname} seed={seed} t={counter}"
-                    check(torch.equal(sk.sample_worker_batch_weights(key, t, nv, L, b, dtype),
-                                      base_weights(key, t, nv, L, b, dtype)),
-                          f"{what}: the weights differ from the baseline's")
-                    idx, w = base_indices(key, t, nv, L, b, dtype)
-                    check(_same(torch, sk.sample_batch_indices(key, t, nv, L, b, dtype), (idx, w)),
-                          f"{what}: the indices differ from the baseline's")
-                    check(_same(torch, sk.sample_worker_batches(key, t, X, y, nv, b),
-                                (*sampling.gather_batches(X, y, idx), w)),
-                          f"{what}: Xb, yb differ from gather_batches of the baseline's indices")
-                    checked += 1
-    one = torch.zeros(1, device="cuda")
-    floor_us = graph_ms(torch, lambda: rk.launch_floor(one.device)) * 1e3
-    say(f"[sampling_ab] baseline {baseline}: this tree bitwise the baseline at {checked} inputs "
-        f"(weights, indices and weights, Xb and yb against gather_batches of its indices); "
-        f"empty kernel {floor_us:.3f} us a launch in a graph of {TIMED_LAUNCHES}")
-    key = prng.fold_in(prng.key(203, x64=False), 0)
-    t.fill_(12_345)
-    slower, lines = [], 0
-    for label, n, L, b in SAMPLING_SHAPES:
-        nv = sampling_n_valid(torch, n, L, b)
-        for dtype in (torch.float32, torch.float64):
-            dname = str(dtype).removeprefix("torch.")
-            X, y = sampling_rows(torch, n, L, dtype)
-            for form in ("dense", "gather"):
-                if form == "dense":
-                    name = "sample_worker_batch_weights"
-                    old = lambda: base_weights(key, t, nv, L, b, dtype)  # noqa: E731
-                    new = lambda: sk.sample_worker_batch_weights(key, t, nv, L, b, dtype)  # noqa: E731
-                    step = "1 launch each"
-                else:
-                    name = "sample_worker_batches"
-                    old = lambda: sampling.gather_batches(  # noqa: E731
-                        X, y, base_indices(key, t, nv, L, b, dtype)[0])
-                    new = lambda: sk.sample_worker_batches(key, t, X, y, nv, b)  # noqa: E731
-                    step = "baseline 3 launches, this tree 1"
-                us = [graph_ms(torch, f) * 1e3 for f in (old, new, new, old)]
-                b_ms, b_by = sampling_bound(name, n, L, b, dtype.itemsize)
-                path = label == SAMPLING_FORM_PATH[form] and dtype == torch.float32
-                lines += 1
-                if max(us[1], us[2]) > min(us[0], us[3]):
-                    slower.append(f"{form} {label} {dname}")
-                say(f"[sampling_ab] {form:6s} {label:6s} N={n:3d} L={L:3d} b={b} {dname}"
-                    f"{' (its path)' if path else ''}: baseline {us[0]:7.3f} {us[3]:7.3f} us  "
-                    f"this tree {us[1]:7.3f} {us[2]:7.3f} us a step in a graph ({step})  "
-                    f"bound {b_ms * 1e3:.4f} us ({b_by})")
-    say(f"[sampling_ab] this tree slower than the baseline's faster turn in {len(slower)} of "
-        f"{lines}: {', '.join(slower) if slower else 'none'}")
-
-
-def _baseline_draws(torch, kernels, baseline: str):
-    """The draw kernels of ``baseline``, a draw_kernels.cu with commit
-    48849bd's C interface (the round's and the noise's as this tree's; its
-    fault_timeline one launch, with no carry workspace): (its library, its
-    timeline and its noise as drop-in replacements of ``dk.fault_timeline``
-    and ``dk.large_noise``)."""
-    import ctypes
-    import pathlib
-
-    build, dk = kernels["build"], kernels["dk"]
-    lib = ctypes.CDLL(str(build.build(pathlib.Path(baseline).resolve())))
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    for suffix in ("f32", "f64"):
-        getattr(lib, f"realize_round_{suffix}").argtypes = [ptr, ptr]
-        getattr(lib, f"large_noise_{suffix}").argtypes = [
-            ptr, ctypes.c_uint32, ctypes.c_uint32, ptr, ptr, ctypes.c_double, ptr, i64, i64, ptr]
-    lib.fault_timeline.argtypes = [ptr, i64, ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr, ptr,
-                                   ptr]
-
-    def timeline(keys, n, edges, horizon, edge_chain=None, node_chain=None, p_out=None, *,
-                 device):
-        device = torch.device(device)
-        n_edges = 0 if edges is None else edges.shape[0]
-        n_nodes = 0 if node_chain is None else n
-        n_part = 0 if p_out is None else n
-        bufs = [torch.empty((horizon, max(m, 1)), dtype=torch.bool, device=device)
-                for m in (n_edges, n_nodes, n_nodes, n_part)]
-        err = lib.fault_timeline(
-            dk._words(*keys), n, edges.data_ptr() if edges is not None else None, n_edges,
-            n_nodes, n_part, dk.timeline_thresholds(edge_chain, node_chain, p_out), horizon,
-            *(b.data_ptr() for b in bufs), torch.cuda.current_stream(device).cuda_stream)
-        check(err == 0, f"draw_ab: the baseline's fault_timeline failed ({err})")
-        return {name: b if m else None for name, b, m in zip(
-            ("edge_up", "node_up", "rejoin", "part_up"), bufs, (n_edges, n_nodes, n_nodes, n_part))}
-
-    def noise(key, t, byzantine, x, scale):
-        out = torch.empty_like(x)
-        kernels["build"].call(lib, "large_noise", x, t.data_ptr(), key[0] & 0xFFFFFFFF,
-                              key[1] & 0xFFFFFFFF, byzantine.data_ptr(), x.data_ptr(),
-                              float(scale), out.data_ptr(), x.shape[0], x.shape[1])
-        return out
-
-    return lib, timeline, noise
-
-
-def phase_draw_ab(torch, np, kernels, pkg, baseline: str):
-    """The parent's timeline and noise kernels against this tree's, in one
-    call (``baseline``: see ``_baseline_draws``). At every TIMELINE_SHAPES
-    input and every NOISE_TIMED shape (both dtypes): the outputs bitwise
-    equal, then both timed in a graph of 20 (timeline) or 200 (noise) in
-    turns (baseline, this tree, this tree, baseline) and event-timed, beside
-    the empty kernel in a graph and the bound. Then the full-width runs
-    (``full_width_runs``) with the baseline's timeline and noise in place of
-    this tree's (this tree's two launched not once) and with this tree's
-    (launched TIMELINE_LAUNCHES and T times): their set-up seconds and
-    digests, which must be equal. The round kernel is this tree's in both."""
-    from distributed_optimization_tpu_torch.parallel import faults
-
-    dk, rk = kernels["dk"], kernels["rk"]
-    _, old_timeline, old_noise = _baseline_draws(torch, kernels, baseline)
-    dev = torch.device("cuda")
-    one = torch.zeros(1, device=dev)
-    floor_us = graph_ms(torch, lambda: rk.launch_floor(one.device)) * 1e3
-    say(f"[draw_ab] baseline {baseline}; empty kernel {floor_us:.3f} us a launch in a graph "
-        f"of {TIMED_LAUNCHES}")
-
-    def turns(label, old, new, n, bound):
-        us = [graph_ms(torch, f, n=n) * 1e3 for f in (old, new, new, old)]
-        ev = [time_ms(torch, f, n=n) * 1e3 for f in (old, new)]
-        b_ms, b_by = bound
-        say(f"[draw_ab] {label}: baseline {us[0]:9.3f} {us[3]:9.3f} us  this tree {us[1]:9.3f} "
-            f"{us[2]:9.3f} us a call in a graph (event-timed {ev[0]:.3f} / {ev[1]:.3f} us); "
-            f"bitwise equal; bound {b_ms * 1e3:.4f} us ({b_by})")
-        return max(us[1], us[2]) > min(us[0], us[3])
-
-    slower = []
-    for label, n, horizon, kw in TIMELINE_SHAPES:
-        topo = pkg.build_topology("ring", n)
-        args, edge_index = faults.timeline_args(topo, 203, device=dev, x64=False,
-                                                **_timeline_kw(kw))
-
-        def old_call():
-            return old_timeline(horizon=horizon, device=dev, **args)
-
-        def new_call():
-            return dk.fault_timeline(horizon=horizon, device=dev, **args)
-
-        got, want = new_call(), old_call()
-        check(all((a is None) == (want[f] is None) and (a is None or torch.equal(a, want[f]))
-                  for f, a in got.items()),
-              f"draw_ab fault_timeline {label}: not bitwise the baseline's")
-        nodes = n if args["node_chain"] is not None else 0
-        edges = len(edge_index)
-        if turns(f"fault_timeline {label:10s} N={n} T={horizon}", old_call, new_call, 20,
-                 timeline_bound(horizon, edges, nodes, 0, (edges > 0) + (nodes > 0))):
-            slower.append(f"fault_timeline {label}")
-    for dtype in (torch.float32, torch.float64):
-        dname = str(dtype).split(".")[1]
-        key = pkg.prng.fold_in(pkg.prng.key(203, x64=dtype == torch.float64), 0xBAD0)
-        for n, d in NOISE_TIMED:
-            x = torch.randn((n, d), generator=torch.Generator(device=dev).manual_seed(n + d),
-                            device=dev, dtype=dtype)
-            if (n, d) == NOISE_SHAPE:
-                byz = torch.as_tensor(pkg.byzantine_mask(n, 6, 203), dtype=torch.uint8,
-                                      device=dev)
-            else:
-                byz = (torch.arange(n, device=dev) % 10 == 3).to(torch.uint8)
-            tt = torch.tensor([77], device=dev)
-            check(torch.equal(dk.large_noise(key, tt, byz, x, 10.0),
-                              old_noise(key, tt, byz, x, 10.0)),
-                  f"draw_ab large_noise {n}×{d} {dname}: not bitwise the baseline's")
-            if turns(f"large_noise {n}×{d} {dname}", lambda: old_noise(key, tt, byz, x, 10.0),
-                     lambda: dk.large_noise(key, tt, byz, x, 10.0), TIMED_LAUNCHES,
-                     noise_bound(n, d, int(byz.sum()), dname, dtype.itemsize)):
-                slower.append(f"large_noise {n}×{d} {dname}")
-    say(f"[draw_ab] this tree slower than the baseline's faster turn in {len(slower)}: "
-        f"{', '.join(slower) if slower else 'none'}")
-    data = full_width_data(pkg)
-    saved = dk.fault_timeline, dk.large_noise
-    dk.fault_timeline, dk.large_noise = old_timeline, old_noise
-    try:
-        old_runs = full_width_runs(torch, np, pkg, kernels, data, "draw_ab baseline",
-                                   verify=False, baseline=True)
-    finally:
-        dk.fault_timeline, dk.large_noise = saved
-    new_runs = full_width_runs(torch, np, pkg, kernels, data, "draw_ab this tree", verify=False)
-    for name, (setup, digest) in new_runs.items():
-        old_setup, old_digest = old_runs[name]
-        say(f"[draw_ab] {name}: set-up baseline {old_setup:.4f} s, this tree {setup:.4f} s; "
-            f"gap history sha256 baseline {old_digest}, this tree {digest}")
-        check(digest == old_digest, f"draw_ab {name}: the digests differ")
 
 
 def _agree(label, card, host, tol=1e-12, phase="reference"):
@@ -2634,100 +2220,6 @@ def phase_compression(torch, np, pkg, kernels, prng):
     return record, record_launches
 
 
-def phase_compression_ab(torch, kernels, baseline: str):
-    """The compression kernel against the same kernel built from
-    ``baseline`` (a compression_kernels.cu with this tree's C interface,
-    such as the parent commit's): at every COMPRESSION_SHAPES and
-    COMPRESSION_SWITCH_SHAPES entry, dtype and timed operator, at two draws, this tree's memory⁺ and mask bits or
-    levels bitwise the baseline's where the baseline takes the shape; then
-    each timed operator at the main shape and the widths about the
-    warp-to-block switch in float32 and at the wide shapes in both dtypes, in
-    a graph of 200 and event-timed, in turns baseline,
-    this tree, this tree, baseline, beside the bound; counts the lines where
-    this tree is slower than the baseline's faster turn."""
-    import ctypes
-    import pathlib
-
-    build, ck = kernels["build"], kernels["ck"]
-    compression = ck.compression
-    lib = ctypes.CDLL(str(build.build(pathlib.Path(baseline).resolve())))
-    ptr, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
-    tail = [i64, i64, i64, i64, ptr, u32, u32, u32, ctypes.c_double, ptr]
-    for suffix in ("f32", "f64"):
-        getattr(lib, f"ef_compress_{suffix}").argtypes = [ptr, ptr, ptr] + tail
-        getattr(lib, f"ef_levels_{suffix}").argtypes = [ptr, ptr, ptr, ptr] + tail
-
-    def base(comp, draw, v, memory, levels=None):
-        out = torch.empty_like(v)
-        extra = () if levels is None else (levels.data_ptr(),)
-        (k0, k1), rnd = draw.tag_key, draw.round
-        n, d = v.shape
-        build.call(lib, "ef_compress" if levels is None else "ef_levels", v, v.data_ptr(),
-                   memory.data_ptr(), out.data_ptr(), *extra, n, d, ck.MODES[comp.name], comp.k,
-                   draw.t.data_ptr(), k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF, rnd & 0xFFFFFFFF,
-                   float(comp.delta), invalid="refused")
-        return out
-
-    t = torch.zeros(1, dtype=torch.int64, device="cuda")
-    checked, refused = 0, []
-    for (n, d), dtype, (name, k) in itertools.product(
-            COMPRESSION_SHAPES + COMPRESSION_SWITCH_SHAPES, (torch.float32, torch.float64),
-            COMPRESSION_TIMED):
-        dname = str(dtype).removeprefix("torch.")
-        v, memory = compression_inputs(torch, n, d, dtype)
-        comp = compression.make_compressor(name, d, k)
-        for seed, counter in ((203, 0), (2**31 - 1, 2**32 + 5)):
-            t.fill_(counter)
-            draw = compression.Draw(compression.tag_key(seed, x64=dtype == torch.float64), t, 1)
-            levels = torch.empty(v.shape, dtype=torch.int32, device="cuda")
-            try:
-                want = base(comp, draw, v, memory, levels)
-            except ValueError:
-                refused.append(f"{name} N={n} d={d} {dname}")
-                break
-            out, got_levels = ck.ef_levels(comp, draw, v, memory)
-            check(torch.equal(_bits(torch, out), _bits(torch, want))
-                  and torch.equal(got_levels, levels),
-                  f"compression_ab {name} N={n} d={d} {dname} seed={seed}: differs from the "
-                  f"baseline's")
-            checked += 1
-    say(f"[compression_ab] baseline {baseline}: this tree bitwise the baseline (memory+ and the "
-        f"mask bits or levels) at {checked} inputs; the baseline refuses "
-        f"{', '.join(sorted(set(refused))) or 'none'}")
-    t.fill_(12_345)
-    slower, lines = [], 0
-    timed = [(shape, torch.float32) for shape in (MAIN_SHAPE, *COMPRESSION_SWITCH_SHAPES)]
-    timed += itertools.product(COMPRESSION_WIDE_TIMED, (torch.float32, torch.float64))
-    for ((n, d), dtype), (name, k) in itertools.product(timed, COMPRESSION_TIMED):
-        dname = str(dtype).removeprefix("torch.")
-        v, memory = compression_inputs(torch, n, d, dtype)
-        draw = compression.Draw(compression.tag_key(203, x64=dtype == torch.float64), t, 0)
-        comp = compression.make_compressor(name, d, k)
-        new = lambda: ck.ef_compress(comp, draw, v, memory)  # noqa: E731
-        old = lambda: base(comp, draw, v, memory)  # noqa: E731
-        b_ms, b_by = compression_bound(name, n, d, k, dtype.itemsize)
-        try:
-            old()
-        except ValueError:
-            us = [graph_ms(torch, new) * 1e3 for _ in range(2)]
-            ev = [time_ms(torch, new) * 1e3 for _ in range(2)]
-            say(f"[compression_ab] {name:8s} k={k:2d} N={n:4d} d={d:6d} {dname}: baseline refuses; "
-                f"this tree {us[0]:9.3f} {us[1]:9.3f} us in a graph, event-timed {ev[0]:9.3f} "
-                f"{ev[1]:9.3f} us  bound {b_ms * 1e3:.4f} us ({b_by})")
-            continue
-        us = [graph_ms(torch, f) * 1e3 for f in (old, new, new, old)]
-        ev = [time_ms(torch, f) * 1e3 for f in (old, new, new, old)]
-        lines += 1
-        if max(us[1], us[2]) > min(us[0], us[3]):
-            slower.append(f"{name} N={n} d={d} {dname}")
-        say(f"[compression_ab] {name:8s} k={k:2d} N={n:4d} d={d:6d} {dname}: baseline {us[0]:9.3f} "
-            f"{us[3]:9.3f} us  this tree {us[1]:9.3f} {us[2]:9.3f} us in a graph; event-timed "
-            f"baseline {ev[0]:9.3f} {ev[3]:9.3f} us  this tree {ev[1]:9.3f} {ev[2]:9.3f} us  "
-            f"bound {b_ms * 1e3:.4f} us ({b_by})")
-    say(f"[compression_ab] this tree slower in a graph than the baseline's faster turn in "
-        f"{len(slower)} of {lines}: {', '.join(slower) if slower else 'none'}")
-
-
 def phase_study(torch, np, pkg):
     """The eight rows of ``examples/reproduce_report.py`` at its config
     defaults (the port's ``ExperimentConfig`` defaults: N=25, T=10,000,
@@ -3245,18 +2737,15 @@ def full_width_data(pkg, main=None):
             "robust": (rds, pkg.compute_reference_optimum(rds, rcfg.reg_param)[1])}
 
 
-def full_width_runs(torch, np, pkg, kernels, data, label="faults", verify=True,
-                    baseline=False):
+def full_width_runs(torch, np, pkg, kernels, data, label="faults"):
     """Main's shapes under bursty drops and churn (FULL_WIDTH_FAULTS) and the
     robust cell under large_noise (12 Byzantine rows, scale 10, trimmed mean
     b=1, fused and gather). ``data``: ``full_width_data``'s. Each run
-    launches this tree's fault_timeline exactly TIMELINE_LAUNCHES times and
-    its large_noise T times, or, with ``baseline`` (another tree's kernels
-    patched in), neither of them once. With ``verify``, the timeline the main
-    run itself built on the card is held bitwise against the plain version
-    on the CPU (drawn in a thread while the card runs), and its graph run
-    against its measured run (T = FULL_WIDTH_MEASURED). Returns each run's
-    set-up seconds and gap-history digest."""
+    launches fault_timeline exactly TIMELINE_LAUNCHES times and large_noise
+    T times. The timeline the main run itself built on the card is held
+    bitwise against the plain version on the CPU (drawn in a thread while
+    the card runs), and its graph run against its measured run (T =
+    FULL_WIDTH_MEASURED)."""
     import concurrent.futures
 
     from distributed_optimization_tpu_torch.backends import torch_backend
@@ -3270,8 +2759,6 @@ def full_width_runs(torch, np, pkg, kernels, data, label="faults", verify=True,
     ds, f_opt = data["main"]
     T = cfg.n_iterations
     topo = pkg.build_topology("ring", cfg.n_workers)
-    timeline_launches = 0 if baseline else dk.TIMELINE_LAUNCHES
-    out = {}
     made = []  # the main run's FaultyMixing, as the run built it
     make = torch_backend.make_faulty_mixing
 
@@ -3280,8 +2767,7 @@ def full_width_runs(torch, np, pkg, kernels, data, label="faults", verify=True,
         return made[-1]
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
-        host = pool.submit(faults.timeline_for_config, cfg, topo, T, device="cpu") \
-            if verify else None
+        host = pool.submit(faults.timeline_for_config, cfg, topo, T, device="cpu")
         torch_backend.make_faulty_mixing = keep
         try:
             res, launches = _converging_run(torch, pkg, counters, cfg, ds, f_opt,
@@ -3295,17 +2781,15 @@ def full_width_runs(torch, np, pkg, kernels, data, label="faults", verify=True,
             f"history sha256 {_digest(np, h.objective)}")
         check(launches.get("realize_round") == T
               and launches.get("sample_worker_batch_weights") == T
-              and launches.get("fault_timeline", 0) == timeline_launches
+              and launches.get("fault_timeline", 0) == dk.TIMELINE_LAUNCHES
               and not launches.get("fused_ring_dsgd_step") and len(made) == 1,
               f"{label} full width: launches {launches} (fault_timeline: "
-              f"{timeline_launches} wanted), {len(made)} fault processes made")
-        out["full_width"] = (h.fault_setup_seconds, _digest(np, h.objective))
-        if verify:
-            short = cfg.replace(n_iterations=FULL_WIDTH_MEASURED)
-            graph, glaunch = _converging_run(torch, pkg, counters, short, ds, f_opt,
-                                             f"{label} full width", converges=False)
-            _graph_equals_measured(torch, np, pkg, counters, short, ds, f_opt,
-                                   f"{label} full width", graph, glaunch, converges=False)
+              f"{dk.TIMELINE_LAUNCHES} wanted), {len(made)} fault processes made")
+        short = cfg.replace(n_iterations=FULL_WIDTH_MEASURED)
+        graph, glaunch = _converging_run(torch, pkg, counters, short, ds, f_opt,
+                                         f"{label} full width", converges=False)
+        _graph_equals_measured(torch, np, pkg, counters, short, ds, f_opt,
+                               f"{label} full width", graph, glaunch, converges=False)
         base = robust_config(pkg).replace(attack="large_noise", n_byzantine=12,
                                           attack_scale=10.0, aggregation="trimmed_mean",
                                           robust_b=1)
@@ -3319,26 +2803,23 @@ def full_width_runs(torch, np, pkg, kernels, data, label="faults", verify=True,
                 f"large_noise {launches.get('large_noise')} launches, "
                 f"{h.iters_per_second:.1f} iters/s, final gap {h.objective[-1]:.6f}, gap "
                 f"history sha256 {_digest(np, h.objective)}")
-            check(launches.get("large_noise", 0) == (0 if baseline else rcfg.n_iterations)
+            check(launches.get("large_noise", 0) == rcfg.n_iterations
                   and launches.get("make_fused_robust_dsgd_step", 0)
                   == (rcfg.n_iterations if impl == "fused" else 0),
                   f"{label} robust noise {impl}: launches {launches}")
-            out[f"robust_noise_{impl}"] = (h.fault_setup_seconds, _digest(np, h.objective))
-        if verify:
-            run = made[0]
-            want = host.result()
-            same = all(np.array_equal(getattr(run.timeline, f), getattr(want, f))
-                       for f in ("edge_up", "node_up", "rejoin"))
-            same = same and all(torch.equal(getattr(run._tl, f).cpu(),
-                                            torch.from_numpy(getattr(want, f)))
-                                for f in ("edge_up", "node_up"))
-            say(f"[{label}] full width: the timeline the run drew on the card ({T} × "
-                f"{want.edge_up.shape[1]} edges, {T} × {want.node_up.shape[1]} nodes) "
-                f"{'bitwise equal to' if same else 'DIFFERS from'} the plain version's on the "
-                "CPU")
-            check(same and want.part_up is None and run._tl.part_up is None,
-                  f"{label} full width: the timeline differs")
-    return out
+        run = made[0]
+        want = host.result()
+        same = all(np.array_equal(getattr(run.timeline, f), getattr(want, f))
+                   for f in ("edge_up", "node_up", "rejoin"))
+        same = same and all(torch.equal(getattr(run._tl, f).cpu(),
+                                        torch.from_numpy(getattr(want, f)))
+                            for f in ("edge_up", "node_up"))
+        say(f"[{label}] full width: the timeline the run drew on the card ({T} × "
+            f"{want.edge_up.shape[1]} edges, {T} × {want.node_up.shape[1]} nodes) "
+            f"{'bitwise equal to' if same else 'DIFFERS from'} the plain version's on the "
+            "CPU")
+        check(same and want.part_up is None and run._tl.part_up is None,
+              f"{label} full width: the timeline differs")
 
 
 def phase_faults(torch, np, pkg, kernels):
@@ -3491,6 +2972,456 @@ def phase_churn(torch, np, pkg, kernels):
     check(stats["max_outage_rounds"] >= 50, "churn: no long outage")
     check(rc <= fc, f"churn: neighbor_restart {rc} ends above frozen {fc}")
     return counts["gt_churn_frozen"]
+
+
+# --- the replica axis (run_batch) ------------------------------------------------
+
+# Replicas a launch for the kernels' times: one, a sweep's eight, the 32 of
+# the sweep benches' largest cell.
+REPLICA_TIMED = (1, 8, 32)
+REPLICA_CHECKED = (1, 3, 8, 32)
+REPLICA_SEEDS = tuple(range(203, 203 + 32))
+# examples/bench_sweep.py:84-102 (its two cells) and its η₀ sweep.
+SWEEP_CELLS = {"flagship_n25": (dict(n_iterations=2000, eval_every=500), (1, 2, 4, 8, 16, 32)),
+               "northstar_n256": (dict(n_workers=256, n_iterations=400, eval_every=100), (8, 32))}
+SWEEP_ETAS = (0.01, 0.02, 0.05, 0.08, 0.1, 0.15, 0.2, 0.3)
+# The full-width replica run: main's config at R = 8, seeds 203-210; its
+# graph-vs-measured check's T; the float64 card-vs-CPU check (R = 3, T).
+REPLICA_MAIN_R = 8
+REPLICA_MEASURED = 1_000
+REPLICA_F64 = (3, 100)
+# Main's shapes under bursty drops and churn with sign-flip and the gather
+# trimmed mean, at R = 4 against the sequential runs, and the robust cell
+# under large_noise at R = 4 (the noise kernel's replica path).
+REPLICA_BYZ = dict(FULL_WIDTH_FAULTS, attack="sign_flip", n_byzantine=12,
+                   aggregation="trimmed_mean", robust_b=1, robust_impl="gather")
+REPLICA_BYZ_T = 3_000
+# Its gaps against the sequential runs': the two differ only in the order of
+# their float32 products (the batch's skinny product a worker, in the
+# gradients and the objective), a spread under 1e-6 relative; a fault in a
+# replica's Byzantine rows, noise or screen would move the gaps far more.
+REPLICA_BYZ_GAP_RTOL = 1e-4
+REPLICA_NOISE_T = 1_000
+
+
+def _replica_calls(torch, pkg, kernels, name, R):
+    """(one launch for R replicas, R single launches, the plain stack, bound
+    (ms, by), largest |launch − plain|) for one replica-axis kernel at its
+    path's shape in float32, and checks that the launch is its plain stack
+    bitwise and that replica r of it is single launch r bitwise."""
+    from distributed_optimization_tpu_torch.ops import sampling
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    dk, sk, prng = kernels["dk"], kernels["sk"], pkg.prng
+    dev = torch.device("cuda")
+    seeds = list(REPLICA_SEEDS[:R])
+    t = torch.tensor([12_345], device=dev)
+    if name in ("sample_worker_batch_weights", "sample_worker_batches"):
+        _, n, L, b = SAMPLING_RECORD[name]
+        nv = sampling_n_valid(torch, n, L, b)
+        X, y = sampling_rows(torch, n, L, torch.float32)
+        keys = prng.keys(seeds, x64=False, tags=(0,), device=dev)
+        singles = [prng.fold_in(prng.key(s, x64=False), 0) for s in seeds]
+        if name == "sample_worker_batch_weights":
+            def call(k, form=sk):
+                return (form.sample_worker_batch_weights(k, t, nv, L, b, torch.float32),)
+        else:
+            def call(k, form=sk):
+                return form.sample_worker_batches(k, t, X, y, nv, b)
+        plain = lambda: call(keys, sampling)  # noqa: E731
+        b_ms, b_by = sampling_bound(name, R * n, L, b, 4)
+    elif name == "realize_round":
+        topo = pkg.build_topology("ring", 256)
+        fm = faults.make_faulty_mixing(topo, 0.2, seeds, straggler_prob=0.1, device=dev)
+        ones = [faults.make_faulty_mixing(topo, 0.2, s, straggler_prob=0.1, device=dev)
+                for s in seeds]
+        kw = dict(drop_prob=0.2, straggler_prob=0.1, weights=torch.float32)
+        total = torch.zeros(R, dtype=torch.float64, device=dev)
+        one_total = torch.zeros((), dtype=torch.float64, device=dev)
+        keys, singles = fm._keys, [m._keys for m in ones]
+
+        def call(k):
+            tot = total if isinstance(k, torch.Tensor) else one_total
+            return dk.realize_round(t, k, fm._tables, degree_total=tot, **kw)[:3]
+        plain = lambda: dk._replica_rounds(  # noqa: E731
+            t, keys, fm._tables, timeline=None, scores=False, degree_total=total, **kw)[:3]
+        b_ms, b_by = realize_bound(fm._tables, 4)
+        b_ms *= R  # R rounds' work
+    else:
+        n, d = NOISE_SHAPE
+        x = torch.randn((R, n, d), generator=torch.Generator(device=dev).manual_seed(5),
+                        device=dev)
+        byz = torch.stack([torch.as_tensor(pkg.byzantine_mask(n, 6, s), dtype=torch.uint8,
+                                           device=dev) for s in seeds])
+        keys = prng.keys(seeds, x64=False, tags=(0xBAD0,), device=dev)
+        singles = [prng.fold_in(prng.key(s, x64=False), 0xBAD0) for s in seeds]
+        rows = [(byz[r].contiguous(), x[r].contiguous()) for r in range(R)]
+
+        def call(k, r=None):
+            if isinstance(k, torch.Tensor):
+                return (dk.large_noise(k, t, byz, x, 10.0),)
+            return (dk.large_noise(k, t, *rows[r], 10.0),)
+        plain = lambda: (torch.stack([dk.large_noise_plain(  # noqa: E731
+            k, t, byz[r], x[r], 10.0) for r, k in enumerate(singles)]),)
+        b_ms, b_by = noise_bound(R * n, d, int(byz.sum()), "float32", 4)
+    batched = lambda: call(keys)  # noqa: E731
+    if name == "large_noise":
+        one_by_one = lambda: [call(k, r) for r, k in enumerate(singles)]  # noqa: E731
+    else:
+        one_by_one = lambda: [call(k) for k in singles]  # noqa: E731
+    got, want = batched(), plain()
+    err = max(float((a.double() - w.double()).abs().max()) for a, w in zip(got, want))
+    check(_same(torch, got, want),
+          f"replicas: {name} at R={R} not bitwise its plain version (max diff {err:.3e})")
+    for r, k in enumerate(singles):
+        want = call(k, r) if name == "large_noise" else call(k)
+        check(all(torch.equal(a[r], w) for a, w in zip(got, want)),
+              f"replicas: {name} replica {r} of R={R} not bitwise its single launch")
+    return batched, one_by_one, plain, (b_ms, b_by), err
+
+
+def replica_kernel_records(torch, pkg, kernels):
+    """Each replica-axis kernel at its path's shape: one launch bitwise its
+    plain stack, and replica r of it bitwise single launch r, at R = 1, 3,
+    8, 32; in a graph of 200, one
+    launch for R against R single launches, beside the bound, at R = 1, 8,
+    32; the R = 32 launch event-timed and its plain stack timed for the
+    record. Returns the records."""
+    records = {}
+    for name in REPLICA_KERNELS:
+        for R in REPLICA_CHECKED:
+            _replica_calls(torch, pkg, kernels, name, R)
+        line = []
+        for R in REPLICA_TIMED:
+            batched, singles, plain, (b_ms, b_by), err = _replica_calls(
+                torch, pkg, kernels, name, R)
+            one = graph_ms(torch, batched)
+            many = graph_ms(torch, singles, n=max(1, TIMED_LAUNCHES // R))
+            line.append(f"R={R}: {one * 1e3:.3f} us one launch, {many * 1e3:.3f} us {R} single "
+                        f"launches, bound {b_ms * 1e3:.4f} us ({b_by})")
+            if R == REPLICA_TIMED[-1]:
+                ms = time_ms(torch, batched)
+                plain_ms = time_ms(torch, plain, n=3)
+                records[f"{name}, replica axis"] = _record(
+                    f"{name}, replica axis", err, ms, plain_ms, b_ms, b_by, None, graph_ms=one,
+                    replicas=R, singles_graph_ms=many)
+                _kernel_line(f"{name} R={R}", "path shape", "float32", err, ms, plain_ms,
+                             None, b_ms, b_by, f", in a graph {one * 1e3:.3f} us")
+        say(f"[replicas] {name} at its path's shape, in a graph of {TIMED_LAUNCHES}: "
+            + "; ".join(line))
+    say(f"[replicas] every launch bitwise its plain stack and each replica of it bitwise its "
+        f"single launch at R = {REPLICA_CHECKED} ({', '.join(REPLICA_KERNELS)})")
+    return records
+
+
+def _batch_run(torch, pkg, counters, cfg, ds, f_opt, seeds, label, **kw):
+    """One run_batch on the card with its launch counts (zeroed just before)."""
+    import numpy as np
+
+    for c in counters:
+        c.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pkg.run_batch(cfg, ds, f_opt, seeds=list(seeds), device="cuda", **kw)
+    wall = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items() if v}
+    crossed = [pkg.iterations_to_threshold(res.objective[r], cfg.suboptimality_threshold,
+                                           res.results[0].history.eval_iterations)
+               for r in range(len(seeds))]
+    say(f"[{label}] R={len(seeds)} N={cfg.n_workers} T={cfg.n_iterations} eval every "
+        f"{cfg.eval_every}{' (measured chunk loop)' if kw.get('measure_timestamps') else ''}: "
+        f"{res.aggregate_iters_per_second:.1f} aggregate iters/s "
+        f"({res.aggregate_iters_per_second / len(seeds):.1f} a replica), warm-up and capture "
+        f"{res.compile_seconds:.2f} s, whole call {wall:.2f} s; iters-to-"
+        f"{cfg.suboptimality_threshold} {crossed}; final gaps "
+        f"{[round(float(v), 6) for v in res.objective[:, -1]]}; launches {launches}; gap "
+        f"history sha256 {_digest(np, res.objective)}")
+    check(bool(np.all(np.isfinite(res.objective))), f"{label}: non-finite gaps")
+    return res, launches, crossed
+
+
+def phase_replicas(torch, np, pkg, kernels, main_res=None):
+    """The replica axis (``torch_backend.run_batch``) on the card: the
+    kernels' replica checks and times; bench_sweep.py's two cells beside the
+    single run and its η₀ sweep; main's config at R = 8 (every replica
+    crosses ε, replica 0 within 1% of the main phase's count, the graph run
+    bitwise its measured run), float64 R = 3 against the CPU; main's shapes
+    under bursty drops, churn, sign-flip and the gather trimmed mean at R =
+    4 (floats exact against the sequential runs); the robust cell under
+    large_noise at R = 4. Returns (records, launches on the phase's runs)."""
+    dk, sk, rk, bk = kernels["dk"], kernels["sk"], kernels["rk"], kernels["bk"]
+    counters = [dk, sk, rk, bk]
+    records = replica_kernel_records(torch, pkg, kernels)
+    # Each kernel's launches on its replica path (the counts zeroed just
+    # before that run and read just after it).
+    counted = {}
+
+    def note(name, launches):
+        counted[f"{name}, replica axis"] = launches.get(name, 0)
+
+    # bench_sweep.py's cells, each beside the single run in this call.
+    base = pkg.ExperimentConfig(problem_type="logistic", algorithm="dsgd", topology="ring",
+                                dtype="float32")
+    for cell, (fields, r_points) in SWEEP_CELLS.items():
+        cfg = base.replace(**fields)
+        ds, f_opt = _main_data(pkg, cfg.n_workers)
+        single, launches = _converging_run(torch, pkg, counters, cfg, ds, f_opt,
+                                           f"replicas {cell} single", converges=False)
+        one = single.history.iters_per_second
+        rows = []
+        for R in r_points:
+            res, launches, _ = _batch_run(torch, pkg, counters, cfg, ds, f_opt,
+                                          [cfg.seed + i for i in range(R)], f"replicas {cell}")
+            sampler = "sample_worker_batches" if cfg.n_workers == 25 else \
+                "sample_worker_batch_weights"
+            check(launches.get(sampler) == cfg.n_iterations,
+                  f"replicas {cell} R={R}: {sampler} launched {launches.get(sampler)} times, "
+                  f"not T")
+            if sampler == "sample_worker_batches":
+                note(sampler, launches)
+            rows.append(f"R={R} {res.aggregate_iters_per_second:.1f} "
+                        f"({res.aggregate_iters_per_second / one:.2f}x)")
+        say(f"[replicas] {cell}: single run {one:.1f} iters/s; aggregate " + ", ".join(rows))
+    cfg = base.replace(n_iterations=1000, eval_every=250)
+    ds, f_opt = _main_data(pkg, cfg.n_workers)
+    res, _, _ = _batch_run(torch, pkg, counters, cfg, ds, f_opt, [cfg.seed] * len(SWEEP_ETAS),
+                           "replicas eta0 sweep", sweep={"learning_rate_eta0": list(SWEEP_ETAS)})
+    say(f"[replicas] eta0 sweep {SWEEP_ETAS}: final gaps "
+        f"{[round(float(v), 6) for v in res.objective[:, -1]]}")
+    # Main's config at full width, R = 8.
+    main_cfg = pkg.ExperimentConfig(problem_type="logistic", algorithm="dsgd", topology="ring",
+                                    n_workers=256, n_iterations=MAIN_ITERATIONS,
+                                    dtype="float32", eval_every=1)
+    ds, f_opt = _main_data(pkg, 256)
+    if main_res is None:
+        main_res, _ = _converging_run(torch, pkg, counters, main_cfg, ds, f_opt,
+                                      "replicas main single")
+    want = pkg.iterations_to_threshold(main_res.history.objective, 0.08,
+                                       main_res.history.eval_iterations)
+    seeds = REPLICA_SEEDS[:REPLICA_MAIN_R]
+    res, launches, crossed = _batch_run(torch, pkg, counters, main_cfg, ds, f_opt, seeds,
+                                        "replicas main")
+    note("sample_worker_batch_weights", launches)
+    check(all(0 < c <= MAIN_ITERATIONS for c in crossed),
+          f"replicas main: a replica never crossed ε ({crossed})")
+    check(abs(crossed[0] - want) <= COUNT_TOLERANCE * want,
+          f"replicas main: replica 0 crossed at {crossed[0]}, the main phase at {want}")
+    check(launches.get("sample_worker_batch_weights") == MAIN_ITERATIONS,
+          f"replicas main: launches {launches}")
+    say(f"[replicas] main R={REPLICA_MAIN_R}: replica 0 crossed at {crossed[0]}, the main "
+        f"phase's run at {want}")
+    short = main_cfg.replace(n_iterations=REPLICA_MEASURED)
+    graph, glaunch, _ = _batch_run(torch, pkg, counters, short, ds, f_opt, seeds,
+                                   "replicas main")
+    measured, mlaunch, _ = _batch_run(torch, pkg, counters, short, ds, f_opt, seeds,
+                                      "replicas main", measure_timestamps=True)
+    same = (np.array_equal(graph.objective, measured.objective)
+            and np.array_equal(graph.consensus_error, measured.consensus_error)
+            and np.array_equal(graph.final_states["x"], measured.final_states["x"]))
+    say(f"[replicas] main R={REPLICA_MAIN_R} T={REPLICA_MEASURED}: graph run vs measured chunk "
+        f"loop {'bitwise equal' if same else 'DIFFER'}, launches {glaunch} vs {mlaunch}")
+    check(same and glaunch == mlaunch, "replicas main: the graph run is not its measured run")
+    # Float64, R = 3: the card against the CPU.
+    R, T = REPLICA_F64
+    f64 = main_cfg.replace(dtype="float64", n_iterations=T, eval_every=10,
+                           sampling_impl="dense")
+    card, _, _ = _batch_run(torch, pkg, counters, f64, ds, f_opt, REPLICA_SEEDS[:R],
+                            "replicas float64")
+    host = pkg.run_batch(f64, ds, f_opt, seeds=list(REPLICA_SEEDS[:R]), device="cpu")
+    worst = 0.0
+    for card_a, host_a in ((card.objective, host.objective),
+                           (card.consensus_error, host.consensus_error),
+                           (card.final_states["x"], host.final_states["x"])):
+        worst = max(worst, float(np.max(np.abs(card_a - host_a) / (1.0 + np.abs(host_a)))))
+        check(np.allclose(card_a, host_a, rtol=1e-12, atol=1e-12),
+              "replicas float64: the card's batch and the CPU's disagree beyond 1e-12")
+    say(f"[replicas] float64 R={R} T={T} (N=256, dense sampling) on the card vs plain on the "
+        f"CPU: gaps, consensus and final models within 1e-12 (largest |diff| / (1 + |x|) "
+        f"{worst:.3e})")
+    # Faulted + Byzantine at R = 4 against the sequential runs.
+    byz = main_cfg.replace(n_iterations=REPLICA_BYZ_T, eval_every=10, **REPLICA_BYZ)
+    seeds = REPLICA_SEEDS[:4]
+    res, launches, _ = _batch_run(torch, pkg, counters, byz, ds, f_opt, seeds,
+                                  "replicas faults+byzantine")
+    note("realize_round", launches)
+    check(launches.get("realize_round") == REPLICA_BYZ_T
+          and launches.get("fault_timeline") == len(seeds) * dk.TIMELINE_LAUNCHES,
+          f"replicas faults+byzantine: launches {launches}")
+    floats = []
+    for r, seed in enumerate(seeds):
+        seq, _ = _converging_run(torch, pkg, counters, byz.replace(
+            seed=seed, topology_seed=byz.resolved_topology_seed()), ds, f_opt,
+            "replicas faults+byzantine sequential", converges=False)
+        floats.append((res.results[r].history.total_floats_transmitted,
+                       seq.history.total_floats_transmitted))
+        rel = float(np.max(np.abs(res.objective[r] - seq.history.objective)
+                           / np.abs(seq.history.objective)))
+        say(f"[replicas] faults+byzantine replica {r}: floats {floats[-1][0]:.0f} (sequential "
+            f"{floats[-1][1]:.0f}); largest relative gap difference {rel:.3e} (float32, two "
+            "product orders)")
+        check(rel <= REPLICA_BYZ_GAP_RTOL,
+              f"replicas faults+byzantine replica {r}: gaps {rel:.3e} from the sequential "
+              f"run's, beyond {REPLICA_BYZ_GAP_RTOL}")
+    check(all(a == b for a, b in floats), f"replicas faults+byzantine: floats {floats}")
+    rcfg = robust_config(pkg, REPLICA_NOISE_T).replace(
+        mixing_impl="auto", attack="large_noise", n_byzantine=12, attack_scale=10.0,
+        aggregation="trimmed_mean", robust_b=1, robust_impl="gather")
+    rds = pkg.generate_synthetic_dataset(rcfg)
+    rf = pkg.compute_reference_optimum(rds, rcfg.reg_param)[1]
+    res, launches, _ = _batch_run(torch, pkg, counters, rcfg, rds, rf, seeds,
+                                  "replicas robust noise")
+    note("large_noise", launches)
+    check(launches.get("large_noise") == REPLICA_NOISE_T,
+          f"replicas robust noise: launches {launches}")
+    return records, counted
+
+
+AB_MODULES = {"rk": "ring_kernels", "fk": "fc_kernels", "bk": "robust_kernels",
+              "sk": "sampling_kernels", "ck": "compression_kernels", "dk": "draw_kernels"}
+
+
+def _baseline_kernels(root: str) -> dict:
+    """Another tree's kernel wrappers (``root``: the root of a checkout,
+    such as an unpacked ``git archive`` of the parent), keyed as AB_MODULES.
+    They are imported under the package's name and then set aside, so this
+    tree's modules stay in place; each binds its own tree's helpers, csrc
+    and build directory."""
+    import importlib
+    import pathlib
+
+    root = pathlib.Path(root).resolve()
+    name = "distributed_optimization_tpu_torch"
+
+    def loaded():
+        return {k: v for k, v in sys.modules.items() if k == name or k.startswith(name + ".")}
+
+    ours = loaded()
+    for k in ours:
+        del sys.modules[k]
+    sys.path.insert(0, str(root))
+    importlib.invalidate_caches()
+    try:
+        mods = {key: importlib.import_module(f"{name}.ops.{m}") for key, m in AB_MODULES.items()}
+    finally:
+        sys.path.remove(str(root))
+        for k in loaded():
+            del sys.modules[k]
+        sys.modules.update(ours)
+    check(all(pathlib.Path(m.__file__).resolve().is_relative_to(root) for m in mods.values()),
+          f"ab: the baseline's modules were not imported from {root}")
+    return mods
+
+
+def ab_calls(torch, np, pkg, topology) -> dict:
+    """{kernel: make}: each kernel of the ``kernels`` line (its single-run
+    wrapper) at its path's input in float32, where ``make(mods)`` gives the
+    zero-argument call through a set of wrapper modules keyed as AB_MODULES
+    (this tree's or a baseline's). The inputs are built once, here."""
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t = torch.tensor([12_345], device=dev)
+    n, d = MAIN_SHAPE
+    x, g = (torch.randn((n, d), generator=gen, device=dev) for _ in range(2))
+    eta = torch.tensor([0.05 / 7.0], device=dev)
+    x_fc = torch.randn(FC_RECORD_SHAPE, generator=gen, device=dev)
+    calls = {
+        "fused_ring_dsgd_step": lambda m: lambda: m["rk"].fused_ring_dsgd_step(x, g, eta),
+        "ring_mix": lambda m: lambda: m["rk"].ring_mix(x),
+        "ring_neighbor_sum": lambda m: lambda: m["rk"].ring_neighbor_sum(x),
+        "fc_mix": lambda m: lambda: m["fk"].fc_mix(x_fc),
+        "fc_neighbor_sum": lambda m: lambda: m["fk"].fc_neighbor_sum(x_fc),
+    }
+    _, nbr, live, x_r = next(r for r in robust_inputs(np, topology)
+                                 if r[0] == ROBUST_RECORD[0])
+    live = torch.as_tensor(live, device=dev)
+    x_r = torch.as_tensor(x_r, dtype=torch.float32, device=dev)
+    g_r = torch.randn(x_r.shape, generator=gen, device=dev)
+
+    def robust(m, factory, *args):
+        fn = getattr(m["bk"], factory)(ROBUST_RECORD[1], 1, nbr, 0.0, device=dev)
+        return lambda: fn(live, x_r, *args)
+
+    calls["make_fused_robust_aggregator"] = lambda m: robust(m, "make_fused_robust_aggregator")
+    calls["make_fused_robust_dsgd_step"] = lambda m: robust(
+        m, "make_fused_robust_dsgd_step", g_r, eta)
+    key = pkg.prng.fold_in(pkg.prng.key(203, x64=False), 0)
+    _, n_w, L, b = SAMPLING_RECORD["sample_worker_batch_weights"]
+    nv_w = sampling_n_valid(torch, n_w, L, b)
+    calls["sample_worker_batch_weights"] = lambda m: lambda: m["sk"].sample_worker_batch_weights(
+        key, t, nv_w, L, b, torch.float32)
+    _, n_g, L_g, b_g = SAMPLING_RECORD["sample_worker_batches"]
+    nv_g = sampling_n_valid(torch, n_g, L_g, b_g)
+    X, y = sampling_rows(torch, n_g, L_g, torch.float32)
+    calls["sample_worker_batches"] = lambda m: lambda: m["sk"].sample_worker_batches(
+        key, t, X, y, nv_g, b_g)
+    v, memory = compression_inputs(torch, n, d, torch.float32)
+
+    def compress(m):
+        c, (operator, k) = m["ck"].compression, COMPRESSION_RECORD
+        comp = c.make_compressor(operator, d, k)
+        draw = c.Draw(c.tag_key(203, x64=False), t, 0)
+        return lambda: m["ck"].ef_compress(comp, draw, v, memory)
+
+    calls["compress_exchange"] = compress
+    fm = faults.make_faulty_mixing(pkg.build_topology("ring", 256), 0.2, 203,
+                                   straggler_prob=0.1, device=dev)
+    total = torch.zeros((), dtype=torch.float64, device=dev)
+    calls["realize_round"] = lambda m: lambda: m["dk"].realize_round(
+        t, fm._keys, fm._tables, drop_prob=0.2, straggler_prob=0.1, weights=torch.float32,
+        degree_total=total)[:3]
+    _, n_t, horizon, kw = TIMELINE_SHAPES[0]
+    args, _ = faults.timeline_args(pkg.build_topology("ring", n_t), 203, device=dev, x64=False,
+                                   **_timeline_kw(kw))
+    calls["fault_timeline"] = lambda m: lambda: m["dk"].fault_timeline(
+        horizon=horizon, device=dev, **args)
+    n_n, d_n = NOISE_SHAPE
+    x_n = torch.randn(NOISE_SHAPE, generator=gen, device=dev)
+    byz = torch.as_tensor(pkg.byzantine_mask(n_n, 6, 203), dtype=torch.uint8, device=dev)
+    noise_key = pkg.prng.fold_in(pkg.prng.key(203, x64=False), 0xBAD0)
+    calls["large_noise"] = lambda m: lambda: m["dk"].large_noise(noise_key, t, byz, x_n, 10.0)
+    return calls
+
+
+def _tensors(out) -> tuple:
+    """A wrapper's output as the tuple of its tensors."""
+    if isinstance(out, dict):
+        out = tuple(out.values())
+    elif not isinstance(out, tuple):
+        out = (out,)
+    return tuple(o for o in out if o is not None)
+
+
+def phase_ab(torch, np, pkg, kernels, topology, baseline: str):
+    """Each kernel of the ``kernels`` line (``ab_calls``) against another
+    tree's wrapper of the same name on the same input, in one call
+    (``baseline``: see ``_baseline_kernels``): the outputs bitwise equal,
+    then a launch in a graph of 200 in turns baseline, this tree, this tree,
+    baseline, this tree's faster turn against the baseline's. A kernel whose
+    baseline wrapper refuses this tree's call is named and not compared."""
+    base = _baseline_kernels(baseline)
+    ours = {key: kernels[key] for key in AB_MODULES}
+    t0 = time.perf_counter()
+    base["dk"]._cuda_build.build_all([m.SOURCE for m in base.values()])
+    say(f"[ab] baseline {baseline}: built in parallel in {time.perf_counter() - t0:.2f} s")
+    skipped = []
+    for name, make in ab_calls(torch, np, pkg, topology).items():
+        new = make(ours)
+        try:
+            old = make(base)
+            want = _tensors(old())
+            torch.cuda.synchronize()
+        except (AttributeError, TypeError, ValueError) as e:
+            skipped.append(name)
+            say(f"[ab] {name}: the baseline refuses this tree's call ({type(e).__name__}: {e})")
+            continue
+        check(_same(torch, _tensors(new()), want), f"ab {name}: this tree differs from the baseline")
+        us = [graph_ms(torch, f) * 1e3 for f in (old, new, new, old)]
+        change = min(us[1], us[2]) / min(us[0], us[3]) - 1.0
+        say(f"[ab] {name} (its path's input, float32): baseline {us[0]:.3f} {us[3]:.3f} us, "
+            f"this tree {us[1]:.3f} {us[2]:.3f} us a launch in a graph of {TIMED_LAUNCHES}: "
+            f"{change * 100:+.1f}% (bitwise equal)")
+    say(f"[ab] not compared: {', '.join(skipped) if skipped else 'none'}")
 
 
 def robust_dense_fc(torch, np, pkg, bk):
@@ -3981,34 +3912,15 @@ def phase_profile(torch, pkg, steady, T: int = 300):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
-    ap.add_argument("--baseline", help="the ring_kernels.cu that phase ring_ab compares with")
-    ap.add_argument("--robust-baseline",
-                    help="the robust_kernels.cu that phase robust_ab compares with")
-    ap.add_argument("--fc-baseline", help="the fc_kernels.cu that phase fc_ab compares with")
-    ap.add_argument("--sampling-baseline",
-                    help="the sampling_kernels.cu that phase sampling_ab compares with")
-    ap.add_argument("--draw-baseline",
-                    help="the draw_kernels.cu (commit 48849bd's C interface) that phase "
-                         "draw_ab compares with")
-    ap.add_argument("--compression-baseline",
-                    help="the compression_kernels.cu that phase compression_ab compares with")
+    ap.add_argument("--ab-baseline",
+                    help="the root of the other tree (a checkout) that phase ab compares with")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES) - set(OPTIONAL_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    if ("ring_ab" in phases) != (args.baseline is not None):
-        ap.error("phase ring_ab and --baseline go together")
-    if ("robust_ab" in phases) != (args.robust_baseline is not None):
-        ap.error("phase robust_ab and --robust-baseline go together")
-    if ("fc_ab" in phases) != (args.fc_baseline is not None):
-        ap.error("phase fc_ab and --fc-baseline go together")
-    if ("sampling_ab" in phases) != (args.sampling_baseline is not None):
-        ap.error("phase sampling_ab and --sampling-baseline go together")
-    if ("compression_ab" in phases) != (args.compression_baseline is not None):
-        ap.error("phase compression_ab and --compression-baseline go together")
-    if ("draw_ab" in phases) != (args.draw_baseline is not None):
-        ap.error("phase draw_ab and --draw-baseline go together")
+    if ("ab" in phases) != (args.ab_baseline is not None):
+        ap.error("phase ab and --ab-baseline go together")
 
     import torch
 
@@ -4074,6 +3986,14 @@ def main(argv=None) -> int:
         "fault_timeline":
             "churn: gt_churn_frozen, GT, N=16 ring, bursty edges and churn, once a run",
         "large_noise": "byzantine: noise_plain, N=64, d=11, once a step",
+        "sample_worker_batch_weights, replica axis":
+            "replicas: main's config, N=256 ring, R=8, dense sampling, once a step",
+        "sample_worker_batches, replica axis":
+            "replicas: flagship_n25 sweep cell, R=32, gather sampling, once a step",
+        "realize_round, replica axis":
+            "replicas: main's shapes, bursty drops, churn, sign-flip, R=4, once a step",
+        "large_noise, replica axis":
+            "replicas: robust cell under large_noise, gather trimmed mean, R=4, once a step",
     }
     counted = {}
     if "parity" in phases:
@@ -4147,30 +4067,21 @@ def main(argv=None) -> int:
     if "churn" in phases:
         counted["fault_timeline"] = phase_churn(torch, np, pkg, kernels)
         lap("churn")
+    if "replicas" in phases:
+        replica_records, replica_counted = phase_replicas(
+            torch, np, pkg, kernels, main_res if "main" in phases else None)
+        records.update(replica_records)
+        counted.update({name: {name: launches} for name, launches in replica_counted.items()})
+        lap("replicas")
 
     if "profile" in phases:
         from distributed_optimization_tpu_torch.backends.torch_backend import STEADY_LOOP
 
         phase_profile(torch, pkg, STEADY_LOOP)
         lap("profile")
-    if "ring_ab" in phases:
-        phase_ring_ab(torch, rk, _cuda_build, args.baseline)
-        lap("ring_ab")
-    if "robust_ab" in phases:
-        phase_robust_ab(torch, np, kernels, topology, args.robust_baseline)
-        lap("robust_ab")
-    if "fc_ab" in phases:
-        phase_fc_ab(torch, fk, rk, _cuda_build, args.fc_baseline)
-        lap("fc_ab")
-    if "sampling_ab" in phases:
-        phase_sampling_ab(torch, kernels, sampling, prng, args.sampling_baseline)
-        lap("sampling_ab")
-    if "compression_ab" in phases:
-        phase_compression_ab(torch, kernels, args.compression_baseline)
-        lap("compression_ab")
-    if "draw_ab" in phases:
-        phase_draw_ab(torch, np, kernels, pkg, args.draw_baseline)
-        lap("draw_ab")
+    if "ab" in phases:
+        phase_ab(torch, np, pkg, kernels, topology, args.ab_baseline)
+        lap("ab")
 
     if records:
         kernel_records = []
@@ -4199,6 +4110,7 @@ def _package():
         bind_byzantine,
         resolve_robust_impl,
         run,
+        run_batch,
     )
     from distributed_optimization_tpu_torch.config import ExperimentConfig
     from distributed_optimization_tpu_torch.metrics import iterations_to_threshold
@@ -4237,7 +4149,8 @@ def _package():
         return optima[key][1]
 
     return types.SimpleNamespace(
-        run=run, ExperimentConfig=ExperimentConfig, bind_byzantine=bind_byzantine,
+        run=run, run_batch=run_batch, ExperimentConfig=ExperimentConfig,
+        bind_byzantine=bind_byzantine,
         resolve_robust_impl=resolve_robust_impl,
         get_algorithm=get_algorithm,
         iterations_to_threshold=iterations_to_threshold, make_mixing_op=make_mixing_op,

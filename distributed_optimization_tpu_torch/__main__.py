@@ -6,7 +6,10 @@
 The single-run part of ``distributed_optimization_tpu/cli.py``: the
 dataset is generated, the optimum is solved for on the host, and the run
 goes on the card (``--device cuda``, the default) or on the CPU
-(``--device cpu``).
+(``--device cpu``). ``--replicas R`` (seeds seed … seed+R−1) or ``--seeds
+S1,S2,...`` run the seeds as one replica batch
+(``torch_backend.run_batch``) and print each quantity as mean ± std over
+the replicas, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -78,6 +81,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--choco-gamma", type=float, default=_DEFAULTS.choco_gamma,
                    help="consensus step size γ of the compressed exchange")
     p.add_argument("--seed", type=int, default=_DEFAULTS.seed)
+    p.add_argument("--replicas", type=int, default=_DEFAULTS.replicas,
+                   help="run this many seed replicates (seed, seed+1, ...) as one "
+                        "batch and report mean ± std over the replica axis")
+    p.add_argument("--seeds", metavar="S1,S2,...", default=None,
+                   help="explicit comma-separated replica seed list (overrides "
+                        "--replicas/--seed's arithmetic progression); implies a "
+                        "replica batch")
     p.add_argument("--data-seed", type=int, default=_DEFAULTS.data_seed)
     p.add_argument("--eval-every", type=int, default=_DEFAULTS.eval_every)
     p.add_argument("--local-steps", type=int, default=_DEFAULTS.local_steps,
@@ -166,6 +176,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         compression_k=args.compression_k,
         choco_gamma=args.choco_gamma,
         seed=args.seed,
+        replicas=args.replicas,
         data_seed=args.data_seed,
         eval_every=args.eval_every,
         local_steps=args.local_steps,
@@ -193,8 +204,31 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
     )
 
 
+def _seed_list(args: argparse.Namespace):
+    """``--seeds`` as a list (it sets ``--replicas`` and anchors ``--seed``
+    on its first seed, as the JAX CLI does), or None."""
+    if not args.seeds:
+        return None
+    try:
+        seeds = [int(x) for x in args.seeds.split(",") if x.strip()]
+    except ValueError:
+        raise SystemExit(
+            f"--seeds must be a comma-separated integer list, got {args.seeds!r}"
+        )
+    if not seeds:
+        raise SystemExit("--seeds needs at least one seed")
+    args.replicas = len(seeds)
+    args.seed = seeds[0]
+    return seeds
+
+
+def _mean_std(mean, std) -> str:
+    return "None" if mean is None else f"{mean} ± {std}"
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    seeds = _seed_list(args)
     cfg = config_from_args(args)
 
     from distributed_optimization_tpu_torch.backends import torch_backend
@@ -207,6 +241,9 @@ def main(argv: list[str] | None = None) -> int:
     dataset = generate_synthetic_dataset(cfg)
     _, f_opt = compute_reference_optimum(dataset, cfg.reg_param, huber_delta=cfg.huber_delta,
                                          n_classes=cfg.n_classes)
+    if cfg.replicas > 1 or seeds is not None:
+        return _report_batch(args, cfg, torch_backend.run_batch(
+            cfg, dataset, f_opt, seeds=seeds, device=device), device)
     result = torch_backend.run(cfg, dataset, f_opt, device=device)
     h = result.history
     summary = {
@@ -234,11 +271,68 @@ def main(argv: list[str] | None = None) -> int:
         "iters_per_second": h.iters_per_second,
         "warmup_seconds": h.compile_seconds,
     }
+    _print(args, summary)
+    return 0
+
+
+def _print(args: argparse.Namespace, summary: dict) -> None:
     if args.json:
         print(json.dumps(summary))
     else:
         for key, value in summary.items():
             print(f"{key:>26}: {value}")
+
+
+def _report_batch(args, cfg, batch, device) -> int:
+    """A replica batch's summary: each quantity as mean ± std over the
+    replicas (``metrics.summarize_replicates``), the seeds, each replica's
+    iterations to ε and the aggregate iters/s."""
+    import numpy as np
+
+    from distributed_optimization_tpu_torch.metrics import summarize_replicates
+
+    h0 = batch.results[0].history
+    stats = summarize_replicates(batch.objective, batch.consensus_error, h0.eval_iterations,
+                                 cfg.suboptimality_threshold, batch.seeds,
+                                 batch.aggregate_iters_per_second)
+    floats = [r.history.total_floats_transmitted for r in batch.results]
+    summary = {
+        "device": str(device),
+        "algorithm": cfg.algorithm,
+        "topology": cfg.topology,
+        "n_workers": cfg.n_workers,
+        "problem_type": cfg.problem_type,
+        "replicas": stats.n_replicas,
+        "seeds": stats.seeds,
+        "gap_over": "honest workers" if cfg.attack != "none" else "all workers",
+        "threshold": cfg.suboptimality_threshold,
+        "final_gap": _mean_std(stats.final_gap_mean, stats.final_gap_std),
+        "final_consensus": _mean_std(stats.consensus_mean, stats.consensus_std),
+        "iterations_to_threshold": _mean_std(
+            None if np.isnan(stats.iterations_to_threshold_mean)
+            else stats.iterations_to_threshold_mean, stats.iterations_to_threshold_std),
+        "n_reached": f"{stats.n_reached}/{stats.n_replicas}",
+        "per_replica_iterations": stats.per_replica_iterations,
+        "total_floats_transmitted": _mean_std(float(np.mean(floats)), float(np.std(floats))),
+        "aggregate_iters_per_second": stats.aggregate_iters_per_second,
+        "warmup_seconds": batch.compile_seconds,
+    }
+    if args.json:
+        summary["replicates"] = {
+            "n": stats.n_replicas, "seeds": stats.seeds,
+            "final_gap_mean": stats.final_gap_mean, "final_gap_std": stats.final_gap_std,
+            "consensus_mean": stats.consensus_mean, "consensus_std": stats.consensus_std,
+            "iterations_to_threshold_mean": (None if np.isnan(stats.iterations_to_threshold_mean)
+                                             else stats.iterations_to_threshold_mean),
+            "iterations_to_threshold_std": (None if np.isnan(stats.iterations_to_threshold_std)
+                                            else stats.iterations_to_threshold_std),
+            "n_reached": stats.n_reached,
+            "objective_mean": np.mean(batch.objective, axis=0).tolist(),
+            "objective_std": np.std(batch.objective, axis=0).tolist(),
+        }
+    else:
+        print(f"[R={stats.n_replicas}] seeds {stats.seeds}")
+    _print(args, summary)
     return 0
 
 

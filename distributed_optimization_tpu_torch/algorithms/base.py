@@ -3,7 +3,10 @@
 The port of ``distributed_optimization_tpu/algorithms/base.py``. State is a
 dict of ``[N, d]`` tensors (push-sum's mass ``w`` is ``[N, 1]``) with an
 ``x`` entry (the per-worker models); a step rule reads what it needs from
-a :class:`StepContext` the backend builds for each iteration.
+a :class:`StepContext` the backend builds for each iteration. Under
+``torch_backend.run_batch`` every leaf has a leading replica axis, ``[R, N,
+d]``: the rules act on the worker axis at −2, ``degrees [N, 1]`` and a
+step size of shape ``[R, 1, 1]`` broadcast against it.
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ def _init(x0, config, *, neighbor_sum=None) -> State:
 def _step(state: State, ctx: StepContext) -> State:
     x = state["x"]
     grads = ctx.grad(x, 0)
-    avg_grad = grads.mean(dim=0, keepdim=True)
+    avg_grad = grads.mean(dim=-2, keepdim=True)
     return {"x": x - ctx.eta * avg_grad}
 
 

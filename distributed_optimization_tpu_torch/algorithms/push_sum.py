@@ -39,7 +39,7 @@ from distributed_optimization_tpu_torch.algorithms.base import (
 
 
 def _init(x0, config, *, neighbor_sum=None) -> State:
-    w0 = torch.ones((x0.shape[0], 1), dtype=x0.dtype, device=x0.device)
+    w0 = torch.ones((*x0.shape[:-1], 1), dtype=x0.dtype, device=x0.device)
     return {"x": x0, "num": x0, "w": w0}
 
 

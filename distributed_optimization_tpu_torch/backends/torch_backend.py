@@ -46,6 +46,18 @@ The kernels count their own launches on the card (``LAUNCHES`` of
 ``ops/*_kernels.py``), so each replay counts each launch it holds, and the
 run loop keeps no count of its own.
 
+The replica axis (``run_batch``, the port of ``jax_backend.run_batch``): R
+seeds of one config, and per-replica values of ``SWEEPABLE_FIELDS``, run
+as the same program over a leading [R] axis on every state leaf: the same
+``_Program``, chunk and capture, one CUDA graph for all R. Each step's
+sampling, round and noise draws are one launch for all R (the kernels take
+the replicas' keys from device memory); the graph, the mixing operator
+and the shards are shared, each replica's streams, Byzantine set, timeline
+and swept scalars are its own. Replica r is the sequential run of
+``config.replace(seed=seeds[r], topology_seed=<base>, **sweep[r])``. The
+single run has no replica axis: its shapes, kernels and bits are as
+before.
+
 Timing: ``compile_seconds`` covers the algorithm's init, the warm-up chunk
 and the capture, synchronised. ``iters_per_second`` counts the
 iterations after the warm-up chunk (the replays, or the eager chunks)
@@ -71,6 +83,7 @@ from distributed_optimization_tpu_torch.backends.base import (
     BackendRunResult,
     resolve_device,
 )
+from distributed_optimization_tpu_torch.config import SWEEPABLE_FIELDS
 from distributed_optimization_tpu_torch.metrics import (
     RunHistory,
     centralized_floats_per_iteration,
@@ -130,7 +143,9 @@ def tf32_for(config, dev: torch.device) -> Optional[bool]:
 def make_full_objective_fn(problem, reg: float):
     """Full-dataset objective of one model ``w [d_model]`` over the stacked
     shards: padding rows weigh 0 and every real row 1/total, so the sum
-    over workers is the mean over the concatenated dataset."""
+    over workers is the mean over the concatenated dataset. R replicas'
+    models ``w [R, d_model]`` give ``[R]`` objectives from one product a
+    worker (``ops/losses.py``'s shared-shard form)."""
 
     def full_objective(w, X, y, n_valid):
         n, L = X.shape[0], X.shape[1]
@@ -138,6 +153,11 @@ def make_full_objective_fn(problem, reg: float):
             torch.arange(L, device=X.device)[None, :] < n_valid[:, None]
         ).to(X.dtype)
         total = torch.clamp(n_valid.sum().to(X.dtype), min=1.0)
+        if w.dim() == 2:
+            per_worker = problem.objective_weighted(
+                w[:, None, :].expand(-1, n, -1), X, y, mask / total, 0.0
+            )
+            return per_worker.sum(dim=-1) + 0.5 * reg * torch.sum(w * w, dim=-1)
         per_worker = problem.objective_weighted(
             w.expand(n, -1), X, y, mask / total, 0.0
         )
@@ -146,13 +166,19 @@ def make_full_objective_fn(problem, reg: float):
     return full_objective
 
 
-def make_eta_schedule(config, T: int, device, dtype) -> torch.Tensor:
-    """``[T]`` step sizes in the run dtype: η₀/√(t+1) or constant η₀."""
-    eta0 = torch.full((T,), config.learning_rate_eta0, dtype=dtype, device=device)
-    if config.resolved_lr_schedule() == "sqrt_decay":
+def make_eta_schedule(config, T: int, device, dtype, eta0=None) -> torch.Tensor:
+    """``[T]`` step sizes in the run dtype: η₀/√(t+1) or constant η₀. With
+    ``eta0`` a list of R (the replica axis), ``[T, R]``: column r replica
+    r's schedule, each entry the single run's."""
+    if eta0 is None:
+        eta0 = torch.full((T,), config.learning_rate_eta0, dtype=dtype, device=device)
         t1 = torch.arange(T, dtype=dtype, device=device) + 1.0
+    else:
+        eta0 = torch.tensor(eta0, dtype=dtype, device=device).expand(T, -1)
+        t1 = (torch.arange(T, dtype=dtype, device=device) + 1.0)[:, None]
+    if config.resolved_lr_schedule() == "sqrt_decay":
         return torch.div(eta0, torch.sqrt(t1))
-    return eta0
+    return eta0.contiguous()
 
 
 @dataclasses.dataclass
@@ -164,15 +190,18 @@ class _Program:
     grad_for: Callable[[torch.Tensor], Callable]
     mix_op: Optional[MixingOp]
     fused_mix_step: Optional[Callable]
-    eta: torch.Tensor  # [T]
+    eta: torch.Tensor  # [T], or [T, R] on the replica axis
     degrees: torch.Tensor  # [N, 1]
     full_objective: Callable
     data: tuple
     byz: Optional["Byzantine"] = None
     faulty: Optional[FaultyMixing] = None
-    # Σ realized degrees over the iterations run (a float64 device scalar;
-    # whole numbers, so exact), under a time-varying graph.
+    # Σ realized degrees over the iterations run (a float64 device scalar,
+    # [R] on the replica axis; whole numbers, so exact), under a
+    # time-varying graph.
     degree_total: Optional[torch.Tensor] = None
+    # R on the replica axis (every state leaf [R, N, ...]), else None.
+    replicas: Optional[int] = None
 
     @functools.cached_property
     def tag_key(self) -> tuple:
@@ -186,7 +215,8 @@ class _Program:
         is realized first (``FaultyMixing.realize``, which adds its degree
         count to ``degree_total``); a rejoining node's warm restart runs
         before the step, and the inactive nodes' rows of every state leaf
-        are frozen after it."""
+        are frozen after it. On the replica axis the step size is ``[R, 1,
+        1]``, the round's operands and the frozen mask are each replica's."""
         rnd = self.faulty.realize(t, self.degree_total) if self.faulty is not None else None
         if rnd is not None and rnd.rejoin is not None:
             state = {**state, "x": rnd.restart(state["x"])}
@@ -199,9 +229,12 @@ class _Program:
             mix, nbr = self.mix_op.apply, self.mix_op.neighbor_sum
         else:
             mix, nbr = (lambda v: v), (lambda v: v * 0)
+        eta = self.eta.index_select(0, t)
+        if self.replicas is not None:
+            eta = eta.reshape(-1, 1, 1)
         ctx = StepContext(
             grad=self.grad_for(t), mix=mix, neighbor_sum=nbr,
-            eta=self.eta.index_select(0, t), degrees=self.degrees, config=self.config,
+            eta=eta, degrees=self.degrees, config=self.config,
             fused_mix_step=fused_mix_step, t=t,
             draw=functools.partial(compression.Draw, self.tag_key, t),
         )
@@ -210,8 +243,8 @@ class _Program:
             if self.faulty.freezes:
                 m = rnd.active
                 new_state = {
-                    key: torch.where(m.reshape((-1,) + (1,) * (new.dim() - 1)) > 0, new,
-                                     state[key])
+                    key: torch.where(m.reshape(m.shape + (1,) * (new.dim() - m.dim())) > 0,
+                                     new, state[key])
                     for key, new in new_state.items()
                 }
         return new_state
@@ -219,18 +252,18 @@ class _Program:
     def metrics(self, x: torch.Tensor, f_opt: float, with_consensus: bool):
         """f(x̄) − f* and, if asked for, (1/N) Σ_i ‖x_i − x̄‖² (else None);
         over the honest rows alone under an attack, since the Byzantine
-        rows are the adversary's."""
+        rows are the adversary's. Each ``[R]`` on the replica axis."""
         hw = self.byz.honest_w if self.byz is not None else None
         if hw is None:
-            xbar = x.mean(dim=0)
+            xbar = x.mean(dim=-2)
         else:
-            nh = torch.sum(hw)
-            xbar = torch.sum(x * hw[:, None], dim=0) / nh
+            nh = torch.sum(hw, dim=-1)
+            xbar = torch.sum(x * hw[..., None], dim=-2) / nh[..., None]
         gap = self.full_objective(xbar, *self.data) - f_opt
         if not with_consensus:
             return gap, None
-        sq = torch.sum((x - xbar[None, :]) ** 2, dim=1)
-        return gap, (torch.mean(sq) if hw is None else torch.sum(hw * sq) / nh)
+        sq = torch.sum((x - xbar.unsqueeze(-2)) ** 2, dim=-1)
+        return gap, (torch.mean(sq, dim=-1) if hw is None else torch.sum(hw * sq, dim=-1) / nh)
 
 
 @dataclasses.dataclass
@@ -243,8 +276,8 @@ class Byzantine:
     the benign mix of the true stack. ``neighbor_sum``: A x of the corrupted
     stack. ``fused_step``: the robust D-SGD update in one kernel launch, or
     None. ``honest_w``: the [N] 0/1 honest mask on the device when there is
-    an attack, else None. ``at(None, None)`` gives those of the static graph
-    for an attack that draws nothing.
+    an attack ([R, N] on the replica axis), else None. ``at(None, None)``
+    gives those of the static graph for an attack that draws nothing.
     """
 
     adversary: Optional[Adversary]
@@ -267,12 +300,16 @@ def resolve_robust_impl(config, topo: Topology) -> str:
 
 
 def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
-                   device: torch.device, dtype: torch.dtype) -> Optional[Byzantine]:
+                   device: torch.device, dtype: torch.dtype, seeds=None,
+                   clip_tau: Optional[list] = None) -> Optional[Byzantine]:
     """The Byzantine adversary and robust aggregation of a config, or None
     when it is benign (no attack and no robust rule with a budget). Under a
     time-varying graph each round's screen runs over its realized graph:
     the gather and fused forms on the liveness gathered from A_t, the dense
-    form on A_t, and the benign mix is the round's."""
+    form on A_t, and the benign mix is the round's. ``seeds`` (a list of R)
+    binds the replica axis: each replica's Byzantine set and noise key from
+    its seed, ``clip_tau`` a radius a replica where swept, and 'auto' never
+    takes the fused form, as in the JAX package's batch."""
     if not config.byzantine_active:
         return None
     if not algo.supports_byzantine:
@@ -289,16 +326,24 @@ def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
         )
     adversary = make_adversary(
         config.n_workers, config.attack, config.n_byzantine, config.attack_scale,
-        config.seed, device=device, dtype=dtype,
+        config.seed if seeds is None else list(seeds), device=device, dtype=dtype,
     )
+    # The replica axis's leading shape, for the static graph's operands.
+    lead = () if seeds is None else (len(seeds),)
     screen = kernel = None
     if config.robust_active:
         validate_budget(int(topo.degrees.min()), config.robust_b, config.aggregation)
-        robust_impl = resolve_robust_impl(config, topo)
+        if seeds is None:
+            robust_impl = resolve_robust_impl(config, topo)
+        else:
+            robust_impl = config.resolved_robust_impl(int(topo.degrees.max()))
         rule = (config.aggregation, config.robust_b)
+        tau = (config.clip_tau if clip_tau is None
+               else torch.tensor(clip_tau, dtype=torch.float64, device=device))
         if robust_impl == "dense":
-            agg = make_robust_aggregator(*rule, config.clip_tau)
+            agg = make_robust_aggregator(*rule, tau)
             static_a = torch.as_tensor(topo.adjacency, dtype=torch.float32, device=device)
+            static_a = static_a.expand(*lead, *static_a.shape)
 
             def screen(rnd):
                 a = rnd.A if rnd is not None else static_a
@@ -307,7 +352,8 @@ def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
             nbr_idx, nbr_mask = neighbor_tables_for(topo)
             nbr = torch.as_tensor(nbr_idx, dtype=torch.int64, device=device)
             static_live = torch.as_tensor(nbr_mask, dtype=torch.float32, device=device)
-            table = (*rule, nbr_idx, config.clip_tau)
+            static_live = static_live.expand(*lead, *static_live.shape)
+            table = (*rule, nbr_idx, tau)
             if robust_impl == "fused":
                 agg = make_fused_robust_aggregator(*table, device=device)
             else:
@@ -350,11 +396,13 @@ def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
 
 
 def build_faulty(config, algo: Algorithm, topo: Topology, T: int, *,
-                 device: torch.device) -> Optional[FaultyMixing]:
+                 device: torch.device, seeds=None, drop_probs=None) -> Optional[FaultyMixing]:
     """The port of ``_build_faulty``: the per-round mixing of a time-varying
     graph (faults, or a matching schedule), or None for a static graph,
     after the JAX package's algorithm checks. Persistent processes unroll
-    their timeline here (on a card, one kernel launch)."""
+    their timeline here (on a card, one launch pair) over ``T`` rounds.
+    ``seeds`` (a list of R) and ``drop_probs`` (R, where swept) bind the
+    replica axis: each replica's streams and timeline from its own seed."""
     if not config.time_varying:
         return None
     if not algo.supports_edge_faults:
@@ -379,7 +427,8 @@ def build_faulty(config, algo: Algorithm, topo: Topology, T: int, *,
     if config.gossip_schedule == "round_robin":
         return make_round_robin_mixing(topo, device=device)
     return make_faulty_mixing(
-        topo, config.edge_drop_prob, config.seed,
+        topo, config.edge_drop_prob if drop_probs is None else list(drop_probs),
+        config.seed if seeds is None else list(seeds),
         straggler_prob=config.straggler_prob,
         one_peer=config.gossip_schedule == "one_peer",
         burst_len=config.burst_len, mttf=config.mttf, mttr=config.mttr,
@@ -389,12 +438,16 @@ def build_faulty(config, algo: Algorithm, topo: Topology, T: int, *,
     )
 
 
-def _make_grad_factory(problem, reg, config, X, y, n_valid, schedule, sampling_impl):
+def _make_grad_factory(problem, reg, config, X, y, n_valid, schedule, sampling_impl,
+                       seeds=None):
     """``grad_for(t)`` gives the step's ``grad(params, slot)`` at counter t:
     on injected batches, the whole shard (b >= L), or the batches the JAX
     package draws, through the card's sampling kernel or on the CPU its
     plain twin. ``slot`` is a Python int; its key, ``fold_in(key(seed),
-    slot)``, is made on the host once."""
+    slot)``, is made on the host once. With ``seeds`` (the replica axis)
+    a slot's key is the ``[R, 2]`` stack of the replicas' keys on the
+    run's device, every slot's made here, before any capture (a copy to
+    the card cannot be captured), and one launch draws all R batches."""
     batch_size = config.local_batch_size
     L = X.shape[1]
     if schedule is None and batch_size >= L:
@@ -402,8 +455,14 @@ def _make_grad_factory(problem, reg, config, X, y, n_valid, schedule, sampling_i
         # shard with 1/n_i weights; no sampling at all.
         fmask = (torch.arange(L, device=X.device)[None, :] < n_valid[:, None]).to(X.dtype)
         full_wts = fmask / torch.clamp(n_valid[:, None].to(X.dtype), min=1.0)
-    run_key = prng.key(config.seed, x64=X.dtype == torch.float64)
-    slot_key = functools.lru_cache(maxsize=None)(lambda slot: prng.fold_in(run_key, slot))
+    x64 = X.dtype == torch.float64
+    if seeds is None:
+        run_key = prng.key(config.seed, x64=x64)
+        slot_key = functools.lru_cache(maxsize=None)(lambda slot: prng.fold_in(run_key, slot))
+    else:
+        stacks = {slot: prng.keys(seeds, x64=x64, tags=(slot,), device=X.device)
+                  for slot in range(config.local_steps)}
+        slot_key = stacks.__getitem__
 
     def grad_for(t: torch.Tensor):
         def grad(params, slot):
@@ -483,32 +542,69 @@ def _warm_up_and_capture(chunk, state, dev: torch.device, capture: bool):
     return graph, state
 
 
-def run(
-    config,
-    dataset: HostDataset,
-    f_opt: float,
-    *,
-    device: torch.device | str = "cuda",
-    batch_schedule: Optional[np.ndarray] = None,
-    collect_metrics: bool = True,
-    measure_timestamps: bool = False,
-    return_state: bool = False,
-) -> BackendRunResult:
-    """Run ``config.algorithm`` on ``dataset`` for ``config.n_iterations``.
+@dataclasses.dataclass
+class _Replicas:
+    """The replica axis of ``run_batch``: R seeds, the per-replica configs
+    (``config.replace(seed=s, topology_seed=<base>, **sweep)``, each the
+    sequential run replica r equals), the swept fields, the first
+    iteration ``t0`` and the stacked state to continue from."""
 
-    ``batch_schedule [T, N, b]`` injects fixed batch indices (equivalence
-    tests against the JAX package). ``device`` defaults to ``cuda`` and
-    raises when no card is visible. ``measure_timestamps=True`` runs the
-    chunks from the host without CUDA graphs, synchronising after each, and
-    records a measured time per eval (``history.time_measured``); by
-    default ``history.time`` spreads the run's wall clock evenly over the
-    evals. ``return_state=True`` also fetches every leaf of the final state
-    (e.g. the estimates ``xhat``, ``yhat`` of a compressed run) into
-    ``final_state``, as host float64 arrays. On a card, a float32 run's
-    products follow ``config.matmul_precision`` (``tf32_for``), and the
-    caller's TF32 setting is restored when the run returns.
-    """
-    dev = resolve_device(device)
+    seeds: list
+    configs: list
+    sweep: dict
+    t0: int = 0
+    state0: Optional[dict] = None
+
+    def values(self, field: str) -> Optional[list]:
+        """The replicas' values of a swept ``field``, else None."""
+        return [getattr(c, field) for c in self.configs] if field in self.sweep else None
+
+
+@dataclasses.dataclass
+class _Built:
+    """A run bound to its device, before it runs: the program, the chunk,
+    the initial state's maker and the buffers the metrics land in."""
+
+    program: _Program
+    chunk: Callable
+    init_state: Callable[[], dict]
+    n_evals: int
+    gap_hist: torch.Tensor  # [n_evals] ([n_evals, R] on the replica axis)
+    cons_hist: torch.Tensor
+    track_consensus: bool
+    floats_per_iter: float
+    edge_payload: Optional[float]
+    spectral_gap: Optional[float]
+    fault_seconds: float
+
+
+def _replicate(state: dict, replicas: _Replicas, dev: torch.device) -> dict:
+    """The initial state of R replicas: every leaf repeated R times, or the
+    caller's stacked ``state0`` after the JAX package's checks."""
+    R = len(replicas.seeds)
+    if replicas.state0 is None:
+        return {k: v.unsqueeze(0).repeat(R, *([1] * v.dim())) for k, v in state.items()}
+    if set(replicas.state0) != set(state):
+        raise ValueError(
+            f"state0 leaves {sorted(replicas.state0)} do not match the "
+            f"algorithm's state {sorted(state)}"
+        )
+    out = {}
+    for k, v in replicas.state0.items():
+        v = torch.as_tensor(np.asarray(v)).to(device=dev, dtype=state[k].dtype)
+        if tuple(v.shape) != (R,) + tuple(state[k].shape):
+            raise ValueError(
+                f"state0[{k!r}] has shape {tuple(v.shape)}; expected "
+                f"{(R,) + tuple(state[k].shape)} ([replicas, ...])"
+            )
+        out[k] = v.contiguous()
+    return out
+
+
+def _build(config, dataset: HostDataset, f_opt: float, dev: torch.device, *,
+           batch_schedule: Optional[np.ndarray] = None, collect_metrics: bool = True,
+           replicas: Optional[_Replicas] = None) -> _Built:
+    """Bind one run (``replicas`` None) or R replicas of it to ``dev``."""
     dtype = _DTYPES[config.dtype]
     algo = get_algorithm(config.algorithm)
     problem = get_problem(config.problem_type, huber_delta=config.huber_delta,
@@ -518,6 +614,13 @@ def run(
     n = config.n_workers
     eval_every = config.eval_every
     n_evals = T // eval_every
+    # On the replica axis: the seeds, the first iteration, and the config
+    # whose run-level flags every replica shares (a swept edge_drop_prob
+    # makes each replica's run time-varying where the base config's is not).
+    seeds = replicas.seeds if replicas is not None else None
+    t0 = replicas.t0 if replicas is not None else 0
+    flags = replicas.configs[0] if replicas is not None else config
+    lead = () if seeds is None else (len(seeds),)
 
     host = stack_shards(dataset, dtype=np.dtype(config.dtype))
     X = torch.as_tensor(host.X, device=dev)
@@ -531,6 +634,7 @@ def run(
     mix_op = byz = faulty = None
     fused_mix_step = None
     fault_seconds = 0.0
+    edge_payload = None
     if algo.is_decentralized:
         topo = build_topology(config.topology, n, erdos_renyi_p=config.erdos_renyi_p,
                               seed=config.resolved_topology_seed())
@@ -545,19 +649,24 @@ def run(
             floats_per_iter = decentralized_floats_per_iteration(topo, d, algo.gossip_rounds)
         spectral_gap = topo.spectral_gap
         t_fault = time.perf_counter()
-        faulty = build_faulty(config, algo, topo, T, device=dev)
+        # The timeline covers t0 + T rounds: a continued batch reads the
+        # rounds the one-shot run would (timelines are prefix-stable).
+        faulty = build_faulty(flags, algo, topo, t0 + T, device=dev, seeds=seeds,
+                              drop_probs=replicas.values("edge_drop_prob") if replicas else None)
         if faulty is not None and dev.type == "cuda":
             torch.cuda.synchronize(dev)
         fault_seconds = time.perf_counter() - t_fault
-        byz = bind_byzantine(config, algo, topo, mix_op, device=dev, dtype=dtype)
-        if byz is None and faulty is None and mix_op.impl == "pallas" and topo.name == "ring":
+        byz = bind_byzantine(config, algo, topo, mix_op, device=dev, dtype=dtype, seeds=seeds,
+                             clip_tau=replicas.values("clip_tau") if replicas else None)
+        if (replicas is None and byz is None and faulty is None and mix_op.impl == "pallas"
+                and topo.name == "ring"):
             # The fused W x − η g kernel, bound as the JAX package binds its
             # Pallas counterpart: never under Byzantine injection, where it
             # would skip the corruption and the screen, nor over a
             # time-varying graph, whose W_t it does not apply.
             fused_mix_step = ring_kernels.fused_ring_dsgd_step
     else:
-        if config.byzantine_active or config.time_varying:
+        if flags.byzantine_active or flags.time_varying:
             raise ValueError(
                 "fault injection / matching-based gossip / Byzantine "
                 "injection model peer exchanges and apply only to "
@@ -587,35 +696,63 @@ def run(
             "shard each iteration (and on the CPU ranks them by an [L, L] "
             "comparison); at this L the JAX package's measured crossover "
             "favors 'gather' — forcing dense anyway as requested",
-            stacklevel=2,
+            stacklevel=3,
         )
 
     program = _Program(
         algo=algo, config=config,
         grad_for=_make_grad_factory(
-            problem, reg, config, X, y, n_valid, schedule, sampling_impl
+            problem, reg, config, X, y, n_valid, schedule, sampling_impl, seeds
         ),
         mix_op=mix_op, fused_mix_step=fused_mix_step,
-        eta=make_eta_schedule(config, T, dev, dtype), degrees=degrees,
+        eta=make_eta_schedule(
+            config, t0 + T, dev, dtype,
+            eta0=None if replicas is None else [c.learning_rate_eta0 for c in replicas.configs]),
+        degrees=degrees,
         full_objective=make_full_objective_fn(problem, reg),
         data=(X, y, n_valid), byz=byz, faulty=faulty,
-        degree_total=(torch.zeros((), dtype=torch.float64, device=dev)
+        degree_total=(torch.zeros(lead, dtype=torch.float64, device=dev)
                       if faulty is not None else None),
+        replicas=lead[0] if lead else None,
     )
 
     track_consensus = collect_metrics and algo.is_decentralized and config.record_consensus
-    gap_hist = torch.empty(n_evals, dtype=dtype, device=dev)
-    cons_hist = torch.empty(n_evals, dtype=dtype, device=dev)
+    gap_hist = torch.empty((n_evals, *lead), dtype=dtype, device=dev)
+    cons_hist = torch.empty((n_evals, *lead), dtype=dtype, device=dev)
 
     def write_metrics(state, k):
         gap, spread = program.metrics(state["x"], f_opt, track_consensus)
-        gap_hist.index_copy_(0, k, gap.reshape(1))
+        gap_hist.index_copy_(0, k, gap.reshape(1, *lead))
         if track_consensus:
-            cons_hist.index_copy_(0, k, spread.reshape(1))
+            cons_hist.index_copy_(0, k, spread.reshape(1, *lead))
 
-    t = torch.zeros(1, dtype=torch.int64, device=dev)
+    t = torch.full((1,), t0, dtype=torch.int64, device=dev)
     k = torch.zeros(1, dtype=torch.int64, device=dev)
-    chunk = _make_chunk(program, eval_every, t, k, write_metrics if collect_metrics else None)
+
+    def init_state():
+        # ADMM's A x_0, through the unscreened mixing op's neighbour sum, as
+        # the JAX package binds it; R replicas start from R copies.
+        state = algo.init(
+            torch.zeros((n, d), dtype=dtype, device=dev), config,
+            neighbor_sum=mix_op.neighbor_sum if mix_op is not None else None,
+        )
+        return state if replicas is None else _replicate(state, replicas, dev)
+
+    return _Built(
+        program=program,
+        chunk=_make_chunk(program, eval_every, t, k, write_metrics if collect_metrics else None),
+        init_state=init_state, n_evals=n_evals, gap_hist=gap_hist, cons_hist=cons_hist,
+        track_consensus=track_consensus, floats_per_iter=floats_per_iter,
+        edge_payload=edge_payload, spectral_gap=spectral_gap, fault_seconds=fault_seconds,
+    )
+
+
+def _execute(built: _Built, config, dev: torch.device, measure_timestamps: bool):
+    """Run a bound run: the initial state and the warm-up chunk, then every
+    chunk left as a replay of one captured graph on a card (the chunk
+    function from the host on the CPU or with ``measure_timestamps``).
+    Returns ``(final state, compile seconds, steady seconds, stamps)``."""
+    n_evals = built.n_evals
     use_graphs = dev.type == "cuda" and not measure_timestamps
 
     def sync():
@@ -632,20 +769,16 @@ def run(
             torch.backends.cuda.matmul.allow_tf32 = tf32
         sync()
         t0 = time.perf_counter()
-        # Eager, once, before the warm-up: ADMM's A x_0, through the
-        # unscreened mixing op's neighbour sum, as the JAX package binds it.
-        state = algo.init(
-            torch.zeros((n, d), dtype=dtype, device=dev), config,
-            neighbor_sum=mix_op.neighbor_sum if mix_op is not None else None,
-        )
+        # Eager, once, before the warm-up.
+        state = built.init_state()
         if use_graphs:
-            graph, state = _warm_up_and_capture(chunk, state, dev, capture=n_evals > 1)
+            graph, state = _warm_up_and_capture(built.chunk, state, dev, capture=n_evals > 1)
         else:
-            state = chunk(state)
+            state = built.chunk(state)
         sync()
         # The fault timeline's set-up counts as compile time, as the JAX
         # package's host precompute does.
-        compile_seconds = time.perf_counter() - t0 + fault_seconds
+        compile_seconds = time.perf_counter() - t0 + built.fault_seconds
 
         stamps = [0.0]  # the warm-up chunk's eval, as the steady loop starts
         t0 = time.perf_counter()
@@ -655,7 +788,7 @@ def run(
                     graph.replay()
             else:
                 for _ in range(n_evals - 1):
-                    state = chunk(state)
+                    state = built.chunk(state)
                     if measure_timestamps:
                         sync()
                         stamps.append(time.perf_counter() - t0)
@@ -665,12 +798,52 @@ def run(
         torch.backends.cuda.matmul.allow_tf32 = caller_tf32
         if graph is not None:
             graph.reset()
+    return state, compile_seconds, run_seconds, stamps
 
-    if collect_metrics:
-        gap_np = gap_hist.cpu().numpy().astype(np.float64)
-        cons_np = cons_hist.cpu().numpy().astype(np.float64) if track_consensus else None
-    else:
-        gap_np, cons_np = np.empty(0), None
+
+def _histories(built: _Built, collect_metrics: bool):
+    """The gap and consensus histories on the host, float64."""
+    if not collect_metrics:
+        return np.empty((0,) + tuple(built.gap_hist.shape[1:])), None
+    gap = built.gap_hist.cpu().numpy().astype(np.float64)
+    cons = built.cons_hist.cpu().numpy().astype(np.float64) if built.track_consensus else None
+    return gap, cons
+
+
+def run(
+    config,
+    dataset: HostDataset,
+    f_opt: float,
+    *,
+    device: torch.device | str = "cuda",
+    batch_schedule: Optional[np.ndarray] = None,
+    collect_metrics: bool = True,
+    measure_timestamps: bool = False,
+    return_state: bool = False,
+) -> BackendRunResult:
+    """Run ``config.algorithm`` on ``dataset`` for ``config.n_iterations``.
+
+    ``batch_schedule [T, N, b]`` injects fixed batch indices (equivalence
+    tests against the JAX package). ``device`` defaults to ``cuda`` and
+    raises when no card is visible. ``measure_timestamps=True`` runs the
+    chunks from the host without CUDA graphs, synchronising after each, and
+    records a measured time per eval (``history.time_measured``); by
+    default ``history.time`` spreads the run's wall clock evenly over the
+    evals. ``return_state=True`` also fetches every leaf of the final state
+    (e.g. the estimates ``xhat``, ``yhat`` of a compressed run) into
+    ``final_state``, as host float64 arrays. On a card, a float32 run's
+    products follow ``config.matmul_precision`` (``tf32_for``), and the
+    caller's TF32 setting is restored when the run returns.
+    """
+    dev = resolve_device(device)
+    T = config.n_iterations
+    eval_every = config.eval_every
+    built = _build(config, dataset, f_opt, dev, batch_schedule=batch_schedule,
+                   collect_metrics=collect_metrics)
+    state, compile_seconds, run_seconds, stamps = _execute(built, config, dev,
+                                                           measure_timestamps)
+    program = built.program
+    gap_np, cons_np = _histories(built, collect_metrics)
     history = RunHistory(
         objective=gap_np,
         consensus_error=cons_np,
@@ -680,17 +853,17 @@ def run(
         eval_iterations=np.arange(eval_every, T + 1, eval_every)[: len(gap_np)],
         # Under a time-varying graph, the floats the realized edges carried:
         # Σ_t Σ_i realized deg_i (a whole number) times an edge's payload.
-        total_floats_transmitted=(float(program.degree_total) * edge_payload
-                                  if faulty is not None else floats_per_iter * T),
+        total_floats_transmitted=(float(program.degree_total) * built.edge_payload
+                                  if program.faulty is not None else built.floats_per_iter * T),
         iters_per_second=((T - eval_every) / run_seconds
                           if T > eval_every and run_seconds > 0 else float("nan")),
         compile_seconds=compile_seconds,
-        spectral_gap=spectral_gap,
-        fault_setup_seconds=fault_seconds,
+        spectral_gap=built.spectral_gap,
+        fault_setup_seconds=built.fault_seconds,
     )
     final_models = state["x"].cpu().numpy().astype(np.float64)
     # Under an attack the reported model is the honest average.
-    adversary = byz.adversary if byz is not None else None
+    adversary = program.byz.adversary if program.byz is not None else None
     honest = adversary.honest if adversary is not None else slice(None)
     return BackendRunResult(
         history=history,
@@ -698,4 +871,251 @@ def run(
         final_avg_model=final_models[honest].mean(axis=0),
         final_state=({key: value.cpu().numpy().astype(np.float64) for key, value in state.items()}
                      if return_state else None),
+    )
+
+
+# --------------------------------------------------------------------------
+# The replica axis: R seeds of one config (and per-replica sweeps of its
+# scalar fields) as one program over [R, N, d] state, one captured graph on
+# a card, the port of ``jax_backend.run_batch``.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BatchRunResult:
+    """R replica trajectories from one ``run_batch`` call.
+
+    ``results[r]`` is a per-replica ``BackendRunResult`` whose history is
+    trajectory-equivalent to a sequential ``run`` of ``config.replace(
+    seed=seeds[r], topology_seed=<base>, **{f: sweep[f][r]})``.
+    ``aggregate_iters_per_second`` is R times the iterations timed (those
+    after the warm-up chunk, as in ``run``) over ``run_seconds``; each
+    replica's ``iters_per_second`` is the aggregate divided by R (the batch
+    time-slices the card evenly). ``final_states`` holds the stacked state
+    ([R, ...] leaves, run dtype): pass it back as ``state0`` with ``t0``
+    advanced to continue the batch exactly.
+    """
+
+    results: list
+    seeds: list
+    sweep: Optional[dict]
+    objective: np.ndarray  # [R, n_evals] suboptimality gaps
+    consensus_error: Optional[np.ndarray]  # [R, n_evals] or None
+    aggregate_iters_per_second: float
+    run_seconds: float
+    compile_seconds: float
+    final_states: dict
+
+
+def batch_unsupported_reason(config) -> Optional[str]:
+    """Why ``run_batch`` cannot execute this config, or None when it can:
+    the JAX package's reasons (and strings) for the fields the port has."""
+    if config.algorithm == "choco":
+        return (
+            "run_batch does not support 'choco': its step rule derives "
+            "the compressor stream from config.seed internally, which the "
+            "batched per-replica seed axis cannot reach — replicas would "
+            "silently share compression draws"
+        )
+    if config.mixing_impl in ("shard_map", "pallas"):
+        return (
+            f"run_batch is incompatible with mixing_impl="
+            f"{config.mixing_impl!r}: shard_map stencils pin a device "
+            "mesh and the pallas kernels address unbatched VMEM blocks — "
+            "use 'auto', 'dense', 'stencil', or 'sparse'"
+        )
+    if config.robust_impl == "fused":
+        return (
+            "run_batch is incompatible with robust_impl='fused': the "
+            "fused pallas kernel addresses unbatched VMEM blocks — use "
+            "'auto', 'gather', or 'dense' (auto never promotes to fused "
+            "inside the replica batch)"
+        )
+    if config.compression != "none":
+        return (
+            "run_batch does not support compressed gossip: the "
+            "error-feedback step derives its compressor stream from "
+            "config.seed internally, which the batched per-replica seed "
+            "axis cannot reach — replicas would silently share "
+            "compression draws"
+        )
+    return None
+
+
+def _replicas_for(config, seeds, sweep, t0: int, state0) -> _Replicas:
+    """The JAX package's validation of a batch's seeds, sweep and start,
+    with its messages, and the per-replica configs."""
+    if seeds is None:
+        seeds = config.replica_seeds()
+    seeds = [int(s) for s in seeds]
+    if not seeds:
+        raise ValueError("run_batch needs at least one replica seed")
+    R = len(seeds)
+    sweep = {k: list(v) for k, v in (sweep or {}).items()}
+    for field, values in sweep.items():
+        if field not in SWEEPABLE_FIELDS:
+            raise ValueError(
+                f"cannot sweep {field!r} inside one batched program: only "
+                f"per-replica scalars that enter the compiled program as "
+                f"data batch this way ({', '.join(SWEEPABLE_FIELDS)}); "
+                "structural axes change the traced program itself — run "
+                "separate (possibly batched) calls per value"
+            )
+        if len(values) != R:
+            raise ValueError(
+                f"sweep[{field!r}] has {len(values)} values for {R} "
+                "replicas; every swept axis must match the seed vector's "
+                "length"
+            )
+    unbatchable = batch_unsupported_reason(config)
+    if unbatchable is not None:
+        raise ValueError(unbatchable)
+    if t0 < 0:
+        raise ValueError(f"t0 must be >= 0, got {t0}")
+    if not get_algorithm(config.algorithm).is_decentralized and (
+        config.edge_drop_prob > 0.0
+        or config.straggler_prob > 0.0
+        or config.mttf > 0.0
+        or config.gossip_schedule != "synchronous"
+        or config.attack != "none"
+        or (config.aggregation != "gossip" and config.robust_b > 0)
+        or "edge_drop_prob" in sweep
+    ):
+        raise ValueError(
+            "fault injection / matching-based gossip / Byzantine "
+            "injection model peer exchanges and apply only to "
+            "decentralized algorithms; the centralized pattern has no "
+            "peer edges"
+        )
+    if "edge_drop_prob" in sweep and not all(
+        0.0 < float(v) < 1.0 for v in sweep["edge_drop_prob"]
+    ):
+        raise ValueError(
+            "swept edge_drop_prob values must all be in (0, 1): the "
+            "batched fault threshold is traced data, so every replica "
+            "must run the fault-sampling path (p = 0 rows belong in a "
+            "separate fault-free batch)"
+        )
+    if "clip_tau" in sweep:
+        if config.aggregation != "clipped_gossip" or config.robust_b <= 0:
+            raise ValueError(
+                "sweeping clip_tau requires aggregation='clipped_gossip' "
+                "with robust_b > 0 — otherwise the radius is silently "
+                "ignored"
+            )
+        if not all(float(v) > 0.0 for v in sweep["clip_tau"]):
+            raise ValueError(
+                "swept clip_tau values must all be > 0: the adaptive "
+                "radius (clip_tau=0) is a different traced program — run "
+                "it as its own batch"
+            )
+    # Replica r is exactly the sequential run of configs[r] (each validated
+    # by the dataclass's own checks); the topology seed is pinned to the
+    # base config's, so every replica gossips over one graph.
+    configs = [
+        config.replace(
+            seed=s, topology_seed=config.resolved_topology_seed(),
+            **{f: type(getattr(config, f))(vals[r]) for f, vals in sweep.items()},
+        )
+        for r, s in enumerate(seeds)
+    ]
+    return _Replicas(seeds=seeds, configs=configs, sweep=sweep, t0=t0, state0=state0)
+
+
+def run_batch(
+    config,
+    dataset: HostDataset,
+    f_opt: float,
+    *,
+    seeds=None,
+    sweep=None,
+    device: torch.device | str = "cuda",
+    collect_metrics: bool = True,
+    measure_timestamps: bool = False,
+    state0=None,
+    t0: int = 0,
+    executable_cache=None,
+    progress_cb=None,
+    monitors=None,
+) -> BatchRunResult:
+    """Run R replicas of ``config`` as one program over a leading [R] axis:
+    on a card one CUDA graph, each step's sampling, round and noise draws
+    one launch for all R.
+
+    ``seeds``: the per-replica seeds (default ``config.replica_seeds()``:
+    seed, seed+1, ..., seed+replicas−1). ``sweep``: a dict mapping a
+    ``SWEEPABLE_FIELDS`` name to R per-replica values. Replica r is the
+    sequential ``run`` of ``config.replace(seed=seeds[r],
+    topology_seed=<base>, **{field: values[r]})``: the graph is the base
+    config's, the sampling, fault, match, Byzantine-set and noise streams
+    are replica r's. ``state0``/``t0`` continue a previous batch from its
+    ``final_states`` (the counter-based draws resume at t0, so the
+    continuation is the one-shot batch split in two).
+    ``measure_timestamps=True`` drives the chunks from the host with no
+    graph (the graph run's bitwise reference). ``device`` defaults to
+    ``cuda`` and raises when no card is visible.
+
+    The JAX package's rejections (its messages): a structural sweep axis,
+    a sweep whose length is not R, bad swept values, a centralized run with
+    faults or an attack, a bad ``state0``, and
+    ``batch_unsupported_reason``. ``executable_cache``, ``progress_cb`` and
+    ``monitors`` (serving and observability) are not ported yet and raise.
+    """
+    for name, value in (("executable_cache", executable_cache),
+                        ("progress_cb", progress_cb), ("monitors", monitors)):
+        if value is not None:
+            raise ValueError(
+                f"run_batch({name}=...): the PyTorch port does not have it yet "
+                "(serving and observability are not ported)"
+            )
+    replicas = _replicas_for(config, seeds, sweep, t0, state0)
+    dev = resolve_device(device)
+    R = len(replicas.seeds)
+    T = config.n_iterations
+    eval_every = config.eval_every
+    built = _build(config, dataset, f_opt, dev, collect_metrics=collect_metrics,
+                   replicas=replicas)
+    state, compile_seconds, run_seconds, stamps = _execute(built, config, dev,
+                                                           measure_timestamps)
+    program = built.program
+    gap, cons = _histories(built, collect_metrics)  # [n_evals, R]
+    objective = gap.T if collect_metrics else np.full((R, built.n_evals), np.nan)
+    cons = cons.T if cons is not None else None
+    timed = T - eval_every
+    aggregate = (R * timed / run_seconds if timed > 0 and run_seconds > 0 else float("nan"))
+    n_done = objective.shape[1]
+    times = (np.asarray(stamps[:n_done]) if measure_timestamps else
+             np.linspace(run_seconds / max(n_done, 1), run_seconds, n_done))
+    eval_iterations = np.arange(t0 + eval_every, t0 + T + 1, eval_every)[:n_done]
+    final_states = {key: value.cpu().numpy() for key, value in state.items()}
+    final_models = final_states["x"].astype(np.float64)  # [R, N, d]
+    adversary = program.byz.adversary if program.byz is not None else None
+    degree_totals = (program.degree_total.cpu().numpy() if program.faulty is not None
+                     else None)
+    results = []
+    for r in range(R):
+        history = RunHistory(
+            objective=objective[r],
+            consensus_error=cons[r] if cons is not None else None,
+            time=times,
+            time_measured=measure_timestamps,
+            eval_iterations=eval_iterations,
+            total_floats_transmitted=(float(degree_totals[r]) * built.edge_payload
+                                      if degree_totals is not None
+                                      else built.floats_per_iter * T),
+            iters_per_second=aggregate / R,
+            compile_seconds=compile_seconds,
+            spectral_gap=built.spectral_gap,
+            fault_setup_seconds=built.fault_seconds,
+        )
+        honest = adversary.honest[r] if adversary is not None else slice(None)
+        results.append(BackendRunResult(
+            history=history,
+            final_models=final_models[r],
+            final_avg_model=final_models[r][honest].mean(axis=0),
+        ))
+    return BatchRunResult(
+        results=results, seeds=replicas.seeds, sweep=replicas.sweep or None,
+        objective=objective, consensus_error=cons, aggregate_iters_per_second=aggregate,
+        run_seconds=run_seconds, compile_seconds=compile_seconds, final_states=final_states,
     )

@@ -68,6 +68,12 @@ SPARSE_SAMPLER_AUTO_N = 65_536
 # the residuals at the optimum. The port's copy of the JAX package's
 # DEFAULT_HUBER_DELTA.
 DEFAULT_HUBER_DELTA = 10.0
+# The per-replica scalars ``torch_backend.run_batch`` sweeps beside the
+# seeds (replica r behaves exactly like a sequential run of
+# ``config.replace(seed=seeds[r], **{field: values[r]})``): each enters the
+# captured program as device data. Structural fields change the program
+# and are refused.
+SWEEPABLE_FIELDS = ("learning_rate_eta0", "clip_tau", "edge_drop_prob")
 
 
 def _not_yet(field: str, value: Any, allowed: tuple) -> ValueError:
@@ -118,6 +124,9 @@ class ExperimentConfig:
     huber_delta: float = DEFAULT_HUBER_DELTA
     seed: int = 203
     data_seed: int = -1
+    # Seed replicates of one config run as one program over a leading [R]
+    # axis (``torch_backend.run_batch``): seeds seed … seed + replicas − 1.
+    replicas: int = 1
     eval_every: int = 1
     local_steps: int = 1
     # 'pallas' keeps its name so configs carry across; in the port it
@@ -202,6 +211,7 @@ class ExperimentConfig:
         self._validate_byzantine()
         self._validate_faults()
         self._validate_topology()
+        self._validate_replicas()
         if self.n_workers <= 0:
             raise ValueError("n_workers must be positive")
         if self.n_informative_features > self.n_features:
@@ -222,6 +232,52 @@ class ExperimentConfig:
             if side * side != self.n_workers:
                 raise ValueError(
                     f"grid topology requires a perfect-square worker count, got {self.n_workers}"
+                )
+
+    def _validate_replicas(self) -> None:
+        """The JAX package's checks of ``replicas``, with its messages (the
+        port has no ``backend`` field, so that branch stays out)."""
+        if self.replicas < 1:
+            raise ValueError(
+                f"replicas must be >= 1, got {self.replicas}"
+            )
+        if self.replicas > 1:
+            if self.mixing_impl in ("shard_map", "pallas"):
+                raise ValueError(
+                    f"replicas={self.replicas} is incompatible with "
+                    f"mixing_impl={self.mixing_impl!r}: the replica axis "
+                    "vmaps the whole compiled program, but shard_map "
+                    "stencils pin a fixed device mesh and the pallas "
+                    "kernels address unbatched VMEM blocks — use 'auto', "
+                    "'dense', 'stencil', 'sparse', or 'gather' (the "
+                    "sharded-gather worker_mesh route instead dispatches "
+                    "replicas as sequential mesh runs — see "
+                    "jax_backend.run_batch)"
+                )
+            if self.algorithm == "choco":
+                raise ValueError(
+                    "replicas > 1 is unsupported for 'choco': its step "
+                    "rule derives the compressor stream from config.seed "
+                    "internally, which a batched per-replica seed axis "
+                    "cannot reach — replicas would silently share "
+                    "compression draws; run seeds sequentially instead"
+                )
+            if self.compression != "none":
+                raise ValueError(
+                    "replicas > 1 is unsupported with compressed gossip: "
+                    "the error-feedback step derives its compressor "
+                    "stream from config.seed internally, which a batched "
+                    "per-replica seed axis cannot reach — replicas would "
+                    "silently share compression draws; run seeds "
+                    "sequentially instead"
+                )
+            if self.robust_impl == "fused":
+                raise ValueError(
+                    "replicas > 1 is incompatible with "
+                    "robust_impl='fused': the replica axis vmaps the "
+                    "whole compiled program, but the fused pallas kernel "
+                    "addresses unbatched VMEM blocks — use 'auto', "
+                    "'gather', or 'dense'"
                 )
 
     def _validate_topology(self) -> None:
@@ -577,6 +633,11 @@ class ExperimentConfig:
         if k_max + 1 >= self.n_workers:
             return "dense"
         return "fused" if fused_eligible else "gather"
+
+    def replica_seeds(self) -> list[int]:
+        """The per-replica seed vector a replicated run sweeps: seed,
+        seed+1, ..., seed+replicas−1 (length 1 for single runs)."""
+        return [self.seed + r for r in range(self.replicas)]
 
     def resolved_topology_seed(self) -> int:
         """``topology_seed`` when pinned (>= 0), else ``seed``."""

@@ -116,6 +116,20 @@
 //   path runs; a grid-stride loop (a second copy of the draw) was slower at
 //   the wide stacks. Bound: bytes (x read, out written).
 //
+// The replica axis (run_batch). round_kernel takes R replicas' rounds in one
+// launch, the replica on the grid's y axis: replica r folds its own 6 key
+// words and compares against its own drop threshold, both read from device
+// memory ([R, 6] int64 words, [R] float32; a by-value table in the argument
+// struct would cap R at the 4 KB parameter space), reads its own [T, E] /
+// [T, N] slices of [R, T, ...] timeline states and writes its own [N, N]
+// and [N] slices of [R, ...] outputs and its own float64 degree total.
+// noise_kernel takes R tag keys ([R, 2] words) and [R, N] flags on the
+// grid's z axis, each replica on blocks of its own, since a block folds one
+// key and N * d need not be a multiple of the block. Replica r's bits are a
+// single launch's with replica r's keys; the single run passes its keys by
+// value and no arrays (R = 1). The timeline needs no axis: a run builds it
+// once, a launch pair a replica.
+//
 // Each launch adds one to its kernel's slot of launch_counts.cuh (0 the
 // round, 1 timeline (both passes), 2 noise: the order of KERNELS in
 // ops/draw_kernels.py). The kernels allocate nothing, launch on the caller's
@@ -182,6 +196,9 @@ struct RoundArgs {
   uint32_t keys[6];        // fault, node, match tag keys
   float p, q;              // the drop and straggler thresholds
   int32_t drop, strag, directed;
+  const int64_t* rkeys;    // [R, 6] key words, replica blockIdx.y's in place of keys; or null
+  const float* rp;         // [R] drop thresholds in place of p; or null
+  int64_t replicas;        // R, the grid's y (1: the single run)
 };
 
 template <typename Real>
@@ -272,7 +289,11 @@ __device__ __forceinline__ int64_t timeline_row(int64_t t, int64_t horizon) {
   return t < 0 ? 0 : t < horizon ? t : horizon - 1;
 }
 
-// Each warp folds its own round keys, a lane a key.
+// Each warp folds its own round keys, a lane a key. On the replica axis
+// (kReplicas: rkeys non-null), replica blockIdx.y's keys and threshold, and
+// its slices of the timeline and the outputs (W_t's, typed, in
+// round_kernel); the single run's instance has none of that code.
+template <bool kReplicas>
 __device__ __forceinline__ Round make_round(const RoundArgs& a, int lane) {
   Round r;
   r.a = a;
@@ -282,10 +303,26 @@ __device__ __forceinline__ Round make_round(const RoundArgs& a, int lane) {
                                             : lane == 2 && a.scores != nullptr;
   uint2 k = make_uint2(0u, 0u);
   if (want) {
-    const uint2 tag = lane == 0   ? make_uint2(a.keys[0], a.keys[1])
-                      : lane == 1 ? make_uint2(a.keys[2], a.keys[3])
-                                  : make_uint2(a.keys[4], a.keys[5]);
+    uint2 tag = lane == 0   ? make_uint2(a.keys[0], a.keys[1])
+                : lane == 1 ? make_uint2(a.keys[2], a.keys[3])
+                            : make_uint2(a.keys[4], a.keys[5]);
+    if constexpr (kReplicas) {
+      const int64_t* w = a.rkeys + 6 * static_cast<int64_t>(blockIdx.y) + 2 * lane;
+      tag = make_uint2(static_cast<uint32_t>(w[0]), static_cast<uint32_t>(w[1]));
+    }
     k = round_key_at(tag, t);
+  }
+  if constexpr (kReplicas) {
+    const int64_t rep = blockIdx.y;
+    const int64_t nn = a.n * a.n, span = a.horizon * a.n;
+    if (a.rp != nullptr) r.a.p = a.rp[rep];
+    if (a.edge_up != nullptr) r.a.edge_up += rep * a.horizon * a.n_edges;
+    if (a.node_up != nullptr) r.a.node_up += rep * span;
+    if (a.part_up != nullptr) r.a.part_up += rep * span;
+    r.a.a += rep * nn;
+    r.a.active += rep * a.n;
+    if (a.scores != nullptr) r.a.scores += rep * nn;
+    if (a.degree_total != nullptr) r.a.degree_total += rep;
   }
   r.fkey = shfl2(k, 0);
   r.nkey = shfl2(k, 1);
@@ -411,20 +448,23 @@ __device__ int round_row(const Round& r, int i, int lane) {
   return di;
 }
 
-template <typename Real>
+template <typename Real, bool kReplicas>
 __global__ void __launch_bounds__(kRoundThreads) round_kernel(RoundArgs a) {
   launch_counts::add(kSlotRealize);
   __shared__ int warp_degrees[kRoundWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kRoundWarps + warp;
-  const Round r = make_round(a, lane);
+  Round r = make_round<kReplicas>(a, lane);
+  if constexpr (kReplicas) {
+    if (a.w != nullptr) r.a.w = static_cast<Real*>(a.w) + blockIdx.y * a.n * a.n;
+  }
   const int di = i < a.n ? round_row<Real>(r, static_cast<int>(i), lane) : 0;
   if (lane == 0) warp_degrees[warp] = di;
   __syncthreads();
-  if (threadIdx.x == 0 && a.degree_total != nullptr) {
+  if (threadIdx.x == 0 && r.a.degree_total != nullptr) {
     int block = 0;
     for (int v = 0; v < kRoundWarps; ++v) block += warp_degrees[v];
-    if (block != 0) atomicAdd(a.degree_total, static_cast<double>(block));
+    if (block != 0) atomicAdd(r.a.degree_total, static_cast<double>(block));
   }
 }
 
@@ -704,14 +744,24 @@ __device__ __forceinline__ Real noisy(uint2 key, uint64_t k, Real v, Real scale)
 // kThreads). The block's first thread folds the round key while every
 // thread loads its element, divides out its row and loads the row's flag;
 // honest elements are stored before the one barrier that waits for the key.
+// Replica blockIdx.z (the replica axis: keys non-null) takes its own key,
+// flags and [n, d] slices.
 template <typename Real>
 __global__ void __launch_bounds__(kThreads) noise_kernel(
-    const int64_t* __restrict__ t, uint2 tag, const uint8_t* __restrict__ byzantine,
-    const Real* __restrict__ x, Real scale, Real* __restrict__ out, int64_t n, int64_t d) {
+    const int64_t* __restrict__ t, uint2 tag, const int64_t* __restrict__ keys,
+    const uint8_t* __restrict__ byzantine, const Real* __restrict__ x, Real scale,
+    Real* __restrict__ out, int64_t n, int64_t d) {
   launch_counts::add(kSlotNoise);
   __shared__ uint2 key;
   const int64_t k =
       (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * kThreads + threadIdx.x;
+  if (keys != nullptr) {
+    const int64_t rep = blockIdx.z;
+    tag = make_uint2(static_cast<uint32_t>(keys[2 * rep]), static_cast<uint32_t>(keys[2 * rep + 1]));
+    byzantine += rep * n;
+    x += rep * n * d;
+    out += rep * n * d;
+  }
   if (threadIdx.x == 0) key = round_key_at(tag, *t);
   Real v = Real(0);
   bool byz = false;
@@ -731,6 +781,7 @@ int launch_round(const RoundArgs* args, void* stream) {
   const RoundArgs& a = *args;
   const bool timeline_edges = a.edge_up != nullptr;
   if (a.n <= 0 || a.n > kMaxNodes || a.k_in <= 0 || a.in_nbr == nullptr ||
+      a.replicas < 1 || a.replicas > 65535 || (a.replicas > 1 && a.rkeys == nullptr) ||
       a.in_cnt == nullptr || a.a == nullptr || a.active == nullptr || a.t == nullptr ||
       (a.directed && (a.out_nbr == nullptr || a.out_cnt == nullptr || a.k_out <= 0)) ||
       (timeline_edges && (a.n_edges <= 0 || a.in_eid == nullptr ||
@@ -738,23 +789,35 @@ int launch_round(const RoundArgs* args, void* stream) {
       ((timeline_edges || a.node_up != nullptr || a.part_up != nullptr) && a.horizon <= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const unsigned blocks = static_cast<unsigned>((a.n + kRoundWarps - 1) / kRoundWarps);
-  round_kernel<Real><<<blocks, kRoundThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const dim3 blocks(static_cast<unsigned>((a.n + kRoundWarps - 1) / kRoundWarps),
+                    static_cast<unsigned>(a.replicas));
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (a.rkeys != nullptr) {
+    round_kernel<Real, true><<<blocks, kRoundThreads, 0, s>>>(a);
+  } else {
+    round_kernel<Real, false><<<blocks, kRoundThreads, 0, s>>>(a);
+  }
   return finish();
 }
 
-// The payload over x [n, d], an element a thread.
+// The payload over x [n, d] (keys null) or over R replicas' [R, n, d]
+// (keys [R, 2] words), an element a thread.
 template <typename Real>
-int launch_noise(const void* t, uint32_t k0, uint32_t k1, const void* byzantine, const void* x,
-                 double scale, void* out, int64_t n, int64_t d, void* stream) {
-  if (n < 0 || d < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0 || d == 0) return 0;
+int launch_noise(const void* t, uint32_t k0, uint32_t k1, const void* keys, int64_t replicas,
+                 const void* byzantine, const void* x, double scale, void* out, int64_t n,
+                 int64_t d, void* stream) {
+  if (n < 0 || d < 0 || replicas < 0 || replicas > 65535 || (replicas > 1 && keys == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0 || d == 0 || replicas == 0) return 0;
   const int64_t blocks = (n * d + kThreads - 1) / kThreads;
   const int64_t bx = std::min<int64_t>(blocks, 0x7FFFFFFF);  // the grid's x limit
-  const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>((blocks + bx - 1) / bx));
+  const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>((blocks + bx - 1) / bx),
+                  static_cast<unsigned>(replicas));
   noise_kernel<Real><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(t), make_uint2(k0, k1), static_cast<const uint8_t*>(byzantine),
-      static_cast<const Real*>(x), static_cast<Real>(scale), static_cast<Real*>(out), n, d);
+      static_cast<const int64_t*>(t), make_uint2(k0, k1), static_cast<const int64_t*>(keys),
+      static_cast<const uint8_t*>(byzantine), static_cast<const Real*>(x),
+      static_cast<Real>(scale), static_cast<Real*>(out), n, d);
   return finish();
 }
 
@@ -817,11 +880,23 @@ int fault_timeline_tile() { return kTile; }
 
 int large_noise_f32(const void* t, uint32_t k0, uint32_t k1, const void* byzantine, const void* x,
                     double scale, void* out, int64_t n, int64_t d, void* stream) {
-  return launch_noise<float>(t, k0, k1, byzantine, x, scale, out, n, d, stream);
+  return launch_noise<float>(t, k0, k1, nullptr, 1, byzantine, x, scale, out, n, d, stream);
 }
 int large_noise_f64(const void* t, uint32_t k0, uint32_t k1, const void* byzantine, const void* x,
                     double scale, void* out, int64_t n, int64_t d, void* stream) {
-  return launch_noise<double>(t, k0, k1, byzantine, x, scale, out, n, d, stream);
+  return launch_noise<double>(t, k0, k1, nullptr, 1, byzantine, x, scale, out, n, d, stream);
+}
+// The replica axis: keys [R, 2] int64 tag-key words, byzantine [R, n], x
+// and out [R, n, d].
+int large_noise_batch_f32(const void* t, const void* keys, int64_t replicas, const void* byzantine,
+                          const void* x, double scale, void* out, int64_t n, int64_t d,
+                          void* stream) {
+  return launch_noise<float>(t, 0u, 0u, keys, replicas, byzantine, x, scale, out, n, d, stream);
+}
+int large_noise_batch_f64(const void* t, const void* keys, int64_t replicas, const void* byzantine,
+                          const void* x, double scale, void* out, int64_t n, int64_t d,
+                          void* stream) {
+  return launch_noise<double>(t, 0u, 0u, keys, replicas, byzantine, x, scale, out, n, d, stream);
 }
 
 }  // extern "C"

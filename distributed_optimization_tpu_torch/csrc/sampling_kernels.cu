@@ -71,6 +71,14 @@
 // - The weight is 1/max(b_eff, 1) in the run's type, rounded to float32 and
 //   back (the JAX sampler returns float32 weights, which the run casts),
 //   with the round-to-nearest intrinsics.
+// - The replica axis (the *_batch entry points): R replicas' slot keys, an
+//   [R, 2] int64 array of words in device memory, in one launch, the
+//   replica on the grid's y axis. Every replica reads the same shards (X,
+//   y, n_valid) and writes its own [N, L] weights, or [N, b] indices,
+//   weights and rows, at replica r * N + worker of [R, N, ...] outputs (and
+//   of the workspace): replica r's bits are a single launch's with slot key
+//   r. The single-run entry points pass their two words by value and no
+//   array (R = 1).
 //
 // Each launch adds one to its kernel's slot of launch_counts.cuh (slot 0 the
 // dense weights, either kernel; 1 the gather form: the order of KERNELS in
@@ -148,14 +156,19 @@ __device__ __forceinline__ int effective(int64_t nv, int L, int b) {
 template <typename Real>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     dense_kernel(const int64_t* __restrict__ t, uint32_t k0, uint32_t k1,
-                 const int64_t* __restrict__ n_valid, int n, int L, int b,
-                 Real* __restrict__ w) {
+                 const int64_t* __restrict__ keys, const int64_t* __restrict__ n_valid, int n,
+                 int L, int b, Real* __restrict__ w) {
   launch_counts::add(kSlotWeights);
   using S = Score<Real>;
   using Key = typename S::DenseKey;
   const int lane = threadIdx.x & 31;
   const int worker = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (worker >= n) return;
+  const int rep = blockIdx.y;
+  if (keys != nullptr) {
+    k0 = static_cast<uint32_t>(keys[2 * rep]);
+    k1 = static_cast<uint32_t>(keys[2 * rep + 1]);
+  }
   const int64_t nv = n_valid[worker];
   const uint32_t tt = static_cast<uint32_t>(*t);
   const uint2 step = threefry2x32(k0, k1, 0u, tt);
@@ -185,7 +198,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int l = lane + 32 * h;
-    if (l < L) w[static_cast<int64_t>(worker) * L + l] = rank[h] < eff ? inv : Real(0);
+    if (l < L) w[(static_cast<int64_t>(rep) * n + worker) * L + l] = rank[h] < eff ? inv : Real(0);
   }
 }
 
@@ -194,6 +207,8 @@ template <typename Real>
 struct Args {
   const int64_t* t;
   uint32_t k0, k1;
+  const int64_t* keys;     // non-null: [R, 2] slot-key words, replica blockIdx.y's in place of k0, k1
+  int n, replicas;         // workers; replicas (the grid's y)
   const int64_t* n_valid;  // null: every row valid
   const uint64_t* scores;  // non-null: [N, L] scores in place of the draw (select_top)
   int L, b, d, slot;
@@ -267,8 +282,10 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
   State<Key>* st = Group::leader(reinterpret_cast<State<Key>*>(smem));
   const int rank = Group::rank();
   const int worker = blockIdx.x / Group::size();
+  // The worker's place in the [R, N, ...] outputs and the workspace.
+  const int64_t out = static_cast<int64_t>(blockIdx.y) * a.n + worker;
   Key* skey = a.workspace != nullptr
-                  ? reinterpret_cast<Key*>(a.workspace + worker * a.ws_stride)
+                  ? reinterpret_cast<Key*>(a.workspace + out * a.ws_stride)
                   : reinterpret_cast<Key*>(st + 1);
   int* srow = reinterpret_cast<int*>(skey + cap);
   int* top = srow + cap;
@@ -296,7 +313,12 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
   // it is read.
   uint2 wkey = make_uint2(0u, 0u);
   if (a.scores == nullptr) {
-    const uint2 step = threefry2x32(a.k0, a.k1, 0u, tt);
+    uint32_t k0 = a.k0, k1 = a.k1;
+    if (a.keys != nullptr) {
+      k0 = static_cast<uint32_t>(a.keys[2 * blockIdx.y]);
+      k1 = static_cast<uint32_t>(a.keys[2 * blockIdx.y + 1]);
+    }
+    const uint2 step = threefry2x32(k0, k1, 0u, tt);
     wkey = threefry2x32(step.x, step.y, 0u, static_cast<uint32_t>(worker));
   }
   const int stride = Group::size() * blockDim.x;
@@ -375,11 +397,11 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
   if (kWeights) {
     const Key threshold = need > 0 ? st->threshold : Key(0);
     each(L, [&](int l, Key key) {
-      a.w[static_cast<int64_t>(worker) * L + l] = need > 0 && key >= threshold ? inv : Real(0);
+      a.w[out * L + l] = need > 0 && key >= threshold ? inv : Real(0);
     });
   } else {
     for (int j = first; j < b; j += stride) {
-      const int64_t at = static_cast<int64_t>(worker) * b + j;
+      const int64_t at = out * b + j;
       if (a.idx != nullptr) a.idx[at] = top_row(top, j % k, need);
       if (a.w != nullptr) a.w[at] = j < eff ? inv : Real(0);
     }
@@ -389,8 +411,8 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
       const int d = a.d, width = d + 1, total = b * width;
       const Real* __restrict__ X = a.X + static_cast<int64_t>(worker) * L * d;
       const Real* __restrict__ y = a.y + static_cast<int64_t>(worker) * L;
-      Real* __restrict__ Xb = a.Xb + static_cast<int64_t>(worker) * b * d;
-      Real* __restrict__ yb = a.yb + static_cast<int64_t>(worker) * b;
+      Real* __restrict__ Xb = a.Xb + out * b * d;
+      Real* __restrict__ yb = a.yb + out * b;
       const int step_j = stride / width, step_c = stride - step_j * width;
       int j = first / width, c = first - j * width;
       for (int base = first; base < total; base += kCopy * stride) {
@@ -436,7 +458,7 @@ int launch_kernel(void (*kernel)(Args<Real>, int), int blocks, int cluster, int 
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(static_cast<unsigned>(blocks));
+  config.gridDim = dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(a.replicas));
   config.blockDim = dim3(static_cast<unsigned>(threads));
   config.dynamicSmemBytes = bytes;
   config.stream = static_cast<cudaStream_t>(stream);
@@ -460,6 +482,7 @@ int launch_select_key(const Args<Real>& a, int64_t n, void* stream, int forced_c
   const bool shared = survivors_in_shared<Key>(cap, k);
   if (!shared && a.workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Args<Real> run = a;
+  run.n = static_cast<int>(n);
   if (shared) run.workspace = nullptr;
   run.ws_stride = workspace_stride<Key>(cap, k);
   const size_t bytes = sizeof(State<Key>) + (shared ? survivor_bytes<Key>(cap, k) : 0);
@@ -479,7 +502,9 @@ int launch_select_key(const Args<Real>& a, int64_t n, void* stream, int forced_c
   const int64_t copy = a.X != nullptr ? (a.b * (a.d + 1LL) + kCopy - 1) / kCopy : 0;
   const int threads = static_cast<int>(
       (std::min<int64_t>(kMaxThreads, std::max<int64_t>(per_block, copy)) + 31) / 32 * 32);
-  if (n * cluster > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  if (n * cluster > 0x7FFFFFFF || a.replicas < 1 || a.replicas > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int blocks = static_cast<int>(n * cluster);
   if (cluster == 1) {
     return rows == 1 ? launch_kernel<Real>(select_kernel<Real, Key, 1, Block, kWeights>, blocks,
@@ -529,22 +554,30 @@ bool refused(int64_t n, int64_t L, int64_t b) {
   return L <= 0 || b <= 0 || n > 0x7FFFFFFF || L > 0x7FFFFFFF || b > 0x7FFFFFFF;
 }
 
+// keys: null (one run, its slot key k0, k1) or [replicas, 2] slot-key words.
 template <typename Real>
-int sample_weights(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
-                   int64_t L, int64_t b, void* w, void* workspace, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (refused(n, L, b)) return static_cast<int>(cudaErrorInvalidValue);
+int sample_weights(const void* t, uint32_t k0, uint32_t k1, const void* keys, int64_t replicas,
+                   const void* n_valid, int64_t n, int64_t L, int64_t b, void* w,
+                   void* workspace, void* stream) {
+  if (n <= 0 || replicas == 0) return static_cast<int>(cudaSuccess);
+  if (refused(n, L, b) || replicas < 0 || replicas > 65535 || (replicas > 1 && keys == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (L <= kDenseMaxRows) {
-    const unsigned blocks = static_cast<unsigned>((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+    const dim3 blocks(static_cast<unsigned>((n + kWarpsPerBlock - 1) / kWarpsPerBlock),
+                      static_cast<unsigned>(replicas));
     dense_kernel<Real><<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int64_t*>(t), k0, k1, static_cast<const int64_t*>(n_valid),
-        static_cast<int>(n), static_cast<int>(L), static_cast<int>(b), static_cast<Real*>(w));
+        static_cast<const int64_t*>(t), k0, k1, static_cast<const int64_t*>(keys),
+        static_cast<const int64_t*>(n_valid), static_cast<int>(n), static_cast<int>(L),
+        static_cast<int>(b), static_cast<Real*>(w));
     return static_cast<int>(cudaGetLastError());
   }
   Args<Real> a = {};
   a.t = static_cast<const int64_t*>(t);
   a.k0 = k0;
   a.k1 = k1;
+  a.keys = static_cast<const int64_t*>(keys);
+  a.replicas = static_cast<int>(replicas);
   a.n_valid = static_cast<const int64_t*>(n_valid);
   a.L = static_cast<int>(L);
   a.b = static_cast<int>(b);
@@ -555,17 +588,21 @@ int sample_weights(const void* t, uint32_t k0, uint32_t k1, const void* n_valid,
 }
 
 template <typename Real>
-int sample_batches(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
-                   int64_t L, int64_t b, int64_t d, const void* X, const void* y, void* idx,
-                   void* w, void* Xb, void* yb, void* workspace, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (refused(n, L, b) || (X != nullptr && (d <= 0 || d > 0x7FFFFFFF || b * (d + 1) > 0x7FFFFFFF))) {
+int sample_batches(const void* t, uint32_t k0, uint32_t k1, const void* keys, int64_t replicas,
+                   const void* n_valid, int64_t n, int64_t L, int64_t b, int64_t d,
+                   const void* X, const void* y, void* idx, void* w, void* Xb, void* yb,
+                   void* workspace, void* stream) {
+  if (n <= 0 || replicas == 0) return static_cast<int>(cudaSuccess);
+  if (refused(n, L, b) || (X != nullptr && (d <= 0 || d > 0x7FFFFFFF || b * (d + 1) > 0x7FFFFFFF)) ||
+      replicas < 0 || replicas > 65535 || (replicas > 1 && keys == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args<Real> a = {};
   a.t = static_cast<const int64_t*>(t);
   a.k0 = k0;
   a.k1 = k1;
+  a.keys = static_cast<const int64_t*>(keys);
+  a.replicas = static_cast<int>(replicas);
   a.n_valid = static_cast<const int64_t*>(n_valid);
   a.L = static_cast<int>(L);
   a.b = static_cast<int>(b);
@@ -589,6 +626,7 @@ int select_top(const void* scores, int64_t n, int64_t L, int64_t b, int64_t clus
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args<Real> a = {};
+  a.replicas = 1;
   a.scores = static_cast<const uint64_t*>(scores);
   a.L = static_cast<int>(L);
   a.b = static_cast<int>(b);
@@ -603,37 +641,50 @@ int select_top(const void* scores, int64_t n, int64_t L, int64_t b, int64_t clus
 extern "C" {
 
 // Each entry point's workspace (nullable): select_workspace_bytes_* of its
-// (N, L, b) bytes on the card, where that is not 0.
-int sample_weights_f32(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
-                       int64_t L, int64_t b, void* w, void* workspace, void* stream) {
-  return sample_weights<float>(t, k0, k1, n_valid, n, L, b, w, workspace, stream);
-}
-int sample_weights_f64(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
-                       int64_t L, int64_t b, void* w, void* workspace, void* stream) {
-  return sample_weights<double>(t, k0, k1, n_valid, n, L, b, w, workspace, stream);
-}
-int sample_indices_f32(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
-                       int64_t L, int64_t b, void* idx, void* w, void* workspace, void* stream) {
-  return sample_batches<float>(t, k0, k1, n_valid, n, L, b, 0, nullptr, nullptr, idx, w,
-                               nullptr, nullptr, workspace, stream);
-}
-int sample_indices_f64(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
-                       int64_t L, int64_t b, void* idx, void* w, void* workspace, void* stream) {
-  return sample_batches<double>(t, k0, k1, n_valid, n, L, b, 0, nullptr, nullptr, idx, w,
-                                nullptr, nullptr, workspace, stream);
-}
-int sample_batches_f32(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
-                       int64_t L, int64_t b, int64_t d, const void* X, const void* y, void* w,
-                       void* Xb, void* yb, void* workspace, void* stream) {
-  return sample_batches<float>(t, k0, k1, n_valid, n, L, b, d, X, y, nullptr, w, Xb, yb,
-                               workspace, stream);
-}
-int sample_batches_f64(const void* t, uint32_t k0, uint32_t k1, const void* n_valid, int64_t n,
-                       int64_t L, int64_t b, int64_t d, const void* X, const void* y, void* w,
-                       void* Xb, void* yb, void* workspace, void* stream) {
-  return sample_batches<double>(t, k0, k1, n_valid, n, L, b, d, X, y, nullptr, w, Xb, yb,
-                                workspace, stream);
-}
+// (R * N, L, b) bytes on the card, where that is not 0. The *_batch forms
+// take the replica axis: keys, [R, 2] int64 slot-key words on the card.
+#define SAMPLING_ENTRY_POINTS(Real, suffix)                                                      \
+  int sample_weights_##suffix(const void* t, uint32_t k0, uint32_t k1, const void* n_valid,      \
+                              int64_t n, int64_t L, int64_t b, void* w, void* workspace,         \
+                              void* stream) {                                                    \
+    return sample_weights<Real>(t, k0, k1, nullptr, 1, n_valid, n, L, b, w, workspace, stream);  \
+  }                                                                                              \
+  int sample_weights_batch_##suffix(const void* t, const void* keys, int64_t replicas,           \
+                                    const void* n_valid, int64_t n, int64_t L, int64_t b,        \
+                                    void* w, void* workspace, void* stream) {                    \
+    return sample_weights<Real>(t, 0u, 0u, keys, replicas, n_valid, n, L, b, w, workspace,       \
+                                stream);                                                         \
+  }                                                                                              \
+  int sample_indices_##suffix(const void* t, uint32_t k0, uint32_t k1, const void* n_valid,      \
+                              int64_t n, int64_t L, int64_t b, void* idx, void* w,               \
+                              void* workspace, void* stream) {                                   \
+    return sample_batches<Real>(t, k0, k1, nullptr, 1, n_valid, n, L, b, 0, nullptr, nullptr,    \
+                                idx, w, nullptr, nullptr, workspace, stream);                    \
+  }                                                                                              \
+  int sample_indices_batch_##suffix(const void* t, const void* keys, int64_t replicas,           \
+                                    const void* n_valid, int64_t n, int64_t L, int64_t b,        \
+                                    void* idx, void* w, void* workspace, void* stream) {         \
+    return sample_batches<Real>(t, 0u, 0u, keys, replicas, n_valid, n, L, b, 0, nullptr,         \
+                                nullptr, idx, w, nullptr, nullptr, workspace, stream);           \
+  }                                                                                              \
+  int sample_batches_##suffix(const void* t, uint32_t k0, uint32_t k1, const void* n_valid,      \
+                              int64_t n, int64_t L, int64_t b, int64_t d, const void* X,         \
+                              const void* y, void* w, void* Xb, void* yb, void* workspace,       \
+                              void* stream) {                                                    \
+    return sample_batches<Real>(t, k0, k1, nullptr, 1, n_valid, n, L, b, d, X, y, nullptr, w,    \
+                                Xb, yb, workspace, stream);                                      \
+  }                                                                                              \
+  int sample_batches_batch_##suffix(const void* t, const void* keys, int64_t replicas,           \
+                                    const void* n_valid, int64_t n, int64_t L, int64_t b,        \
+                                    int64_t d, const void* X, const void* y, void* w, void* Xb,  \
+                                    void* yb, void* workspace, void* stream) {                   \
+    return sample_batches<Real>(t, 0u, 0u, keys, replicas, n_valid, n, L, b, d, X, y, nullptr,   \
+                                w, Xb, yb, workspace, stream);                                   \
+  }
+
+SAMPLING_ENTRY_POINTS(float, f32)
+SAMPLING_ENTRY_POINTS(double, f64)
+
 // For the tests and the plan's measurement: the top rows of given scores
 // ([N, L] uint64, 0 for padding, at most 2^23 in f32 and 2^52 in f64),
 // tiled to b, as the gather form selects them, under the launcher's plan
@@ -647,7 +698,8 @@ int select_top_f64(const void* scores, int64_t n, int64_t L, int64_t b, int64_t 
   return select_top<double>(scores, n, L, b, cluster, idx, workspace, stream);
 }
 // The workspace bytes a launch over N workers of L rows and batch b needs in
-// float32 / float64: 0 where every worker's survivors fit in shared memory.
+// float32 / float64 (R * N workers on the replica axis): 0 where every
+// worker's survivors fit in shared memory.
 int64_t select_workspace_bytes_f32(int64_t n, int64_t L, int64_t b) {
   return workspace_bytes<float>(n, L, b);
 }

@@ -17,6 +17,8 @@ def state_from_reference(
     state: dict[str, np.ndarray],
     device: torch.device | str,
     dtype: torch.dtype,
+    *,
+    replicas: int | None = None,
 ) -> dict[str, torch.Tensor]:
     """The JAX package's state dict of ``[N, d_model]`` arrays as the port's
     tensors (contiguous copies on ``device`` in ``dtype``). ``d_model`` is
@@ -27,15 +29,20 @@ def state_from_reference(
     ``alpha`` and the carried neighbour sum ``nbr_x`` (A x). Push-sum's is
     ``x`` (the de-biased estimates num / w), the numerators ``num`` and the
     mass ``w``, which is ``[N, 1]``. Gradient tracking's ``y``, ADMM's
-    ``nbr_x`` and push-sum's ``num`` are ``[N, d_model]`` like ``x``."""
+    ``nbr_x`` and push-sum's ``num`` are ``[N, d_model]`` like ``x``.
+    ``replicas=R`` takes a replica batch's stacked state (the JAX package's
+    ``BatchRunResult.final_states``): every leaf ``[R, N, ...]``, as
+    ``torch_backend.run_batch``'s ``state0`` takes it."""
     if "x" not in state:
         raise ValueError("a state needs its per-worker models under 'x'")
+    lead = () if replicas is None else (replicas,)
     out = {}
     for key, value in state.items():
         arr = np.asarray(value)
-        if arr.ndim != 2:
-            raise ValueError(
-                f"state[{key!r}] must be [N, d_model] or [N, 1], got shape {arr.shape}")
+        if arr.ndim != 2 + len(lead) or arr.shape[:len(lead)] != lead:
+            want = "[N, d_model] or [N, 1]" if not lead else \
+                f"[{replicas}, N, d_model] or [{replicas}, N, 1]"
+            raise ValueError(f"state[{key!r}] must be {want}, got shape {arr.shape}")
         out[key] = torch.tensor(arr, dtype=dtype, device=device).contiguous()
     return out
 

@@ -1,5 +1,6 @@
 """Run history and the study's metrics: suboptimality gap, consensus error,
-floats transmitted and iterations to a threshold.
+floats transmitted, iterations to a threshold, and a replica batch's mean
+± std of them (``summarize_replicates``).
 
 The port's copy of the parts of ``distributed_optimization_tpu/metrics.py``
 this slice uses, with the same definitions.
@@ -52,6 +53,69 @@ def iterations_to_threshold(objective_history: np.ndarray, threshold: float,
     if eval_iterations is not None:
         return int(eval_iterations[first])
     return first + 1
+
+
+@dataclasses.dataclass
+class ReplicateStats:
+    """Seed-variance summary of a replica batch (``torch_backend.run_batch``).
+
+    Every scalar the single-run report quotes becomes a (mean, std) pair
+    over the R replicas. ``iterations_to_threshold_*`` aggregate over the
+    replicas that reached the threshold (``n_reached`` of ``n_replicas``);
+    both are NaN when none did. Stds are population (ddof=0) over the
+    replicas aggregated.
+    """
+
+    n_replicas: int
+    seeds: list
+    final_gap_mean: float
+    final_gap_std: float
+    consensus_mean: Optional[float]  # None when consensus was not tracked
+    consensus_std: Optional[float]
+    iterations_to_threshold_mean: float
+    iterations_to_threshold_std: float
+    n_reached: int
+    per_replica_iterations: list  # -1 = that replica never reached ε
+    aggregate_iters_per_second: float
+
+
+def summarize_replicates(
+    objective: np.ndarray,  # [R, n_evals] per-replica suboptimality gaps
+    consensus: Optional[np.ndarray],  # [R, n_evals] or None
+    eval_iterations: np.ndarray,
+    threshold: float,
+    seeds: list,
+    aggregate_iters_per_second: float,
+) -> ReplicateStats:
+    """Reduce a batch's [R, n_evals] histories to mean ± std statistics."""
+    R = objective.shape[0]
+    finals = objective[:, -1]
+    per_rep = [
+        iterations_to_threshold(objective[r], threshold, eval_iterations)
+        for r in range(R)
+    ]
+    reached = np.asarray([it for it in per_rep if it > 0], dtype=np.float64)
+    return ReplicateStats(
+        n_replicas=R,
+        seeds=list(seeds),
+        final_gap_mean=float(np.mean(finals)),
+        final_gap_std=float(np.std(finals)),
+        consensus_mean=(
+            float(np.mean(consensus[:, -1])) if consensus is not None else None
+        ),
+        consensus_std=(
+            float(np.std(consensus[:, -1])) if consensus is not None else None
+        ),
+        iterations_to_threshold_mean=(
+            float(reached.mean()) if reached.size else float("nan")
+        ),
+        iterations_to_threshold_std=(
+            float(reached.std()) if reached.size else float("nan")
+        ),
+        n_reached=int(reached.size),
+        per_replica_iterations=per_rep,
+        aggregate_iters_per_second=aggregate_iters_per_second,
+    )
 
 
 def centralized_floats_per_iteration(n_workers: int, n_features: int) -> float:

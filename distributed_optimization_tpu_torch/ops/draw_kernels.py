@@ -41,6 +41,17 @@ bit for bit on the card. ``t`` is the run's int64 counter of one element,
 read from device memory, so a captured CUDA graph replays with the current
 t. Keys are two host words each.
 
+The replica axis (``torch_backend.run_batch``): ``realize_round`` also
+takes R replicas' keys as an int64 ``[R, 3, 2]`` tensor on the card (the
+fault, node and match keys of each), the drop threshold as a float32
+``[R]`` tensor where it is swept, ``[R, T, ...]`` timeline states and an
+``[R]`` degree total, and gives ``[R, ...]`` outputs in one launch;
+``large_noise`` takes ``[R, 2]`` keys, ``[R, N]`` flags and ``[R, N, d]``
+stacks in one launch. Replica r's outputs are the single launch's with
+replica r's keys and threshold, bit for bit. Their plain versions call the
+single plain version once a replica. The timeline has no replica axis: a
+batch builds one a replica at set-up and stacks them.
+
 The shared library is built at first use by ``ops/_cuda_build.py``.
 ``LAUNCHES`` maps each kernel to its launches on the card, which it counts
 where it runs (``_cuda_build.LaunchCounts``); the plain versions count
@@ -80,7 +91,9 @@ class _RoundArgs(ctypes.Structure):
                 + [(name, ctypes.c_int64)
                    for name in ("n", "k_in", "k_out", "n_edges", "horizon")]
                 + [("keys", ctypes.c_uint32 * 6), ("p", ctypes.c_float), ("q", ctypes.c_float)]
-                + [(name, ctypes.c_int32) for name in ("drop", "strag", "directed")])
+                + [(name, ctypes.c_int32) for name in ("drop", "strag", "directed")]
+                + [("rkeys", ctypes.c_void_p), ("rp", ctypes.c_void_p),
+                   ("replicas", ctypes.c_int64)])
 
 
 @functools.lru_cache(maxsize=1)
@@ -100,6 +113,9 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, f"large_noise_{suffix}")
         fn.argtypes = [ptr, ctypes.c_uint32, ctypes.c_uint32, ptr, ptr, ctypes.c_double, ptr,
                        i64, i64, ptr]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"large_noise_batch_{suffix}")
+        fn.argtypes = [ptr, ptr, i64, ptr, ptr, ctypes.c_double, ptr, i64, i64, ptr]
         fn.restype = ctypes.c_int
     return lib
 
@@ -162,7 +178,8 @@ class RoundTables(NamedTuple):
 class RoundTimeline(NamedTuple):
     """A precomputed timeline's states, bool ``[T, E]`` (edge_up, indexed
     by the tables' edge ids) and ``[T, N]`` (node_up, part_up), None for a
-    process that is off."""
+    process that is off; on the replica axis ``[R, T, ...]``, a timeline a
+    replica."""
 
     edge_up: Optional[torch.Tensor] = None
     node_up: Optional[torch.Tensor] = None
@@ -171,7 +188,11 @@ class RoundTimeline(NamedTuple):
     @property
     def horizon(self) -> int:
         """T, the rows of its states (0 with every process off)."""
-        return next((x.shape[0] for x in self if x is not None), 0)
+        return next((x.shape[-2] for x in self if x is not None), 0)
+
+    def replica(self, r: int) -> "RoundTimeline":
+        """Replica r's timeline of a stacked one."""
+        return RoundTimeline(*(x[r] if x is not None else None for x in self))
 
 
 def timeline_row(t: torch.Tensor, horizon: int) -> torch.Tensor:
@@ -269,7 +290,32 @@ def _ptr(x: Optional[torch.Tensor]):
     return x.data_ptr() if x is not None else None
 
 
-def _check_round(t, tables: RoundTables, timeline, weights, degree_total) -> None:
+def replica_count(keys) -> Optional[int]:
+    """R for the replica axis's ``[R, 3, 2]`` key tensor, else None (three
+    host keys)."""
+    return keys.shape[0] if isinstance(keys, torch.Tensor) else None
+
+
+def _check_replicas(keys, drop_prob, dev) -> Optional[int]:
+    replicas = replica_count(keys)
+    if replicas is None:
+        if isinstance(drop_prob, torch.Tensor):
+            raise TypeError("a drop threshold a replica needs the replica axis's keys")
+        return None
+    if (keys.dtype != torch.int64 or keys.shape[1:] != (3, 2) or not keys.is_contiguous()
+            or keys.device != dev or not 1 <= replicas <= 65535):
+        raise ValueError("the replica axis's keys must be a contiguous int64 [R, 3, 2] tensor "
+                         f"(1 <= R <= 65,535) on {dev}")
+    if isinstance(drop_prob, torch.Tensor) and (
+            drop_prob.dtype != torch.float32 or drop_prob.shape != (replicas,)
+            or drop_prob.device != dev or not drop_prob.is_contiguous()):
+        raise ValueError(f"a drop threshold a replica must be a float32 [{replicas}] tensor "
+                         f"on {dev}")
+    return replicas
+
+
+def _check_round(t, tables: RoundTables, timeline, weights, degree_total,
+                 replicas: Optional[int] = None) -> None:
     dev = tables.in_nbr.device
     _check_counter(t, dev)
     n = tables.n
@@ -284,26 +330,47 @@ def _check_round(t, tables: RoundTables, timeline, weights, degree_total) -> Non
         raise ValueError("a directed graph's tables need its out-lists")
     if weights not in (None, torch.float32, torch.float64):
         raise TypeError(f"weights must be None, float32 or float64, got {weights}")
+    lead = () if replicas is None else (replicas,)
     if degree_total is not None and (degree_total.dtype != torch.float64
-                                     or degree_total.numel() != 1
-                                     or degree_total.device != dev):
-        raise ValueError("degree_total must be a float64 tensor of one element on the "
-                         "tables' device")
+                                     or degree_total.numel() != (replicas or 1)
+                                     or degree_total.device != dev
+                                     or not degree_total.is_contiguous()):
+        raise ValueError("degree_total must be a float64 tensor of one element (one a "
+                         "replica) on the tables' device")
     if timeline is not None:
         for name, states in timeline._asdict().items():
             if states is not None and (states.dtype not in (torch.bool, torch.uint8)
-                                       or states.dim() != 2 or not states.is_contiguous()
+                                       or states.dim() != 2 + len(lead)
+                                       or states.shape[:len(lead)] != lead
+                                       or not states.is_contiguous()
                                        or states.device != dev):
-                raise ValueError(f"timeline.{name} must be a contiguous bool [T, M] tensor "
-                                 f"on {dev}")
-        if len({x.shape[0] for x in timeline if x is not None}) > 1:
+                raise ValueError(f"timeline.{name} must be a contiguous bool "
+                                 f"{'[R, T, M]' if lead else '[T, M]'} tensor on {dev}")
+        if len({x.shape[-2] for x in timeline if x is not None}) > 1:
             raise ValueError("the timeline's states must share their T rows")
         if timeline.edge_up is not None and (tables.in_eid is None or (
                 tables.directed and tables.out_eid is None)):
             raise ValueError("a timeline's edges need the tables' edge ids")
 
 
-def realize_round(t, keys, tables: RoundTables, *, drop_prob: float, straggler_prob: float,
+def _replica_rounds(t, keys, tables, *, drop_prob, straggler_prob, timeline, weights, scores,
+                    degree_total) -> Realized:
+    """The replica axis's plain version: the single plain version once a
+    replica, with its host keys and threshold, stacked."""
+    rounds = []
+    for r in range(keys.shape[0]):
+        rounds.append(realize_round_plain(
+            t, tuple(tuple(k) for k in keys[r].tolist()), tables,
+            drop_prob=float(drop_prob[r]) if isinstance(drop_prob, torch.Tensor) else drop_prob,
+            straggler_prob=straggler_prob,
+            timeline=timeline.replica(r) if timeline is not None else None,
+            weights=weights, scores=scores,
+            degree_total=degree_total[r:r + 1] if degree_total is not None else None))
+    return Realized(*(torch.stack(parts) if parts[0] is not None else None
+                      for parts in zip(*rounds)))
+
+
+def realize_round(t, keys, tables: RoundTables, *, drop_prob, straggler_prob: float,
                   timeline: Optional[RoundTimeline] = None,
                   weights: Optional[torch.dtype] = None, scores: bool = False,
                   degree_total: Optional[torch.Tensor] = None) -> Realized:
@@ -314,28 +381,39 @@ def realize_round(t, keys, tables: RoundTables, *, drop_prob: float, straggler_p
     past the horizon reads its last row). ``weights``: W_t's dtype, or
     None for no W_t. ``scores``: the one-peer proposal scores. The round's
     realized degree count is added to ``degree_total`` (float64, one
-    element) where given."""
-    _check_round(t, tables, timeline, weights, degree_total)
+    element) where given. On the replica axis (``keys`` an int64 ``[R, 3,
+    2]`` tensor; ``drop_prob`` a float or a float32 ``[R]`` tensor;
+    ``[R, T, ...]`` timeline states; ``degree_total [R]``) every output
+    gains a leading ``[R]``, in one launch."""
     dev = tables.in_nbr.device
+    replicas = _check_replicas(keys, drop_prob, dev)
+    _check_round(t, tables, timeline, weights, degree_total, replicas)
+    per_replica = isinstance(drop_prob, torch.Tensor)
     if dev.type == "cpu":
-        return realize_round_plain(t, keys, tables, drop_prob=drop_prob,
-                                   straggler_prob=straggler_prob, timeline=timeline,
-                                   weights=weights, scores=scores, degree_total=degree_total)
+        rounds = realize_round_plain if replicas is None else _replica_rounds
+        return rounds(t, keys, tables, drop_prob=drop_prob, straggler_prob=straggler_prob,
+                      timeline=timeline, weights=weights, scores=scores,
+                      degree_total=degree_total)
     n = tables.n
-    A = torch.empty((n, n), dtype=torch.float32, device=dev)
-    active = torch.empty(n, dtype=torch.float32, device=dev)
-    W = torch.empty((n, n), dtype=weights, device=dev) if weights is not None else None
-    s = torch.empty((n, n), dtype=torch.float32, device=dev) if scores else None
+    lead = () if replicas is None else (replicas,)
+    A = torch.empty(lead + (n, n), dtype=torch.float32, device=dev)
+    active = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    W = torch.empty(lead + (n, n), dtype=weights, device=dev) if weights is not None else None
+    s = torch.empty(lead + (n, n), dtype=torch.float32, device=dev) if scores else None
     tl = timeline if timeline is not None else RoundTimeline()
+    drop = per_replica or drop_prob > 0.0
     args = _RoundArgs(
         t.data_ptr(), tables.in_nbr.data_ptr(), tables.in_cnt.data_ptr(), _ptr(tables.in_eid),
         _ptr(tables.out_nbr), _ptr(tables.out_cnt), _ptr(tables.out_eid), _ptr(tl.edge_up),
         _ptr(tl.node_up), _ptr(tl.part_up), A.data_ptr(), active.data_ptr(), _ptr(W), _ptr(s),
         _ptr(degree_total), n, tables.in_nbr.shape[1],
         tables.out_nbr.shape[1] if tables.out_nbr is not None else 0,
-        tl.edge_up.shape[1] if tl.edge_up is not None else 0, tl.horizon, _words(*keys),
-        _f32(drop_prob), _f32(straggler_prob), int(timeline is None and drop_prob > 0.0),
-        int(timeline is None and straggler_prob > 0.0), int(tables.directed))
+        tl.edge_up.shape[-1] if tl.edge_up is not None else 0, tl.horizon,
+        _words(*keys) if replicas is None else _words((0, 0), (0, 0), (0, 0)),
+        0.0 if per_replica else _f32(drop_prob), _f32(straggler_prob),
+        int(timeline is None and drop), int(timeline is None and straggler_prob > 0.0),
+        int(tables.directed), _ptr(keys) if replicas is not None else None,
+        _ptr(drop_prob) if per_replica else None, replicas or 1)
     fn = getattr(_library(), "realize_round_" + ("f64" if weights == torch.float64 else "f32"))
     with torch.cuda.device(dev):
         err = fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
@@ -510,16 +588,38 @@ def large_noise_rows_plain(key, t, rows, x_rows: torch.Tensor, d: int, scale: fl
 
 def large_noise(key, t, byzantine: torch.Tensor, x: torch.Tensor, scale: float) -> torch.Tensor:
     """``x`` with its Byzantine rows (``byzantine``: uint8 [N]) replaced by
-    ``x + scale · normal(fold_in(key, t), x.shape)``, in x's dtype."""
-    _cuda_build.check_stack(x)
+    ``x + scale · normal(fold_in(key, t), x.shape)``, in x's dtype. On the
+    replica axis, ``key`` an int64 ``[R, 2]`` tensor of tag keys on x's
+    device, ``byzantine [R, N]`` and ``x [R, N, d]``: each replica's stack
+    under its own key and flags, in one launch."""
+    batched = isinstance(key, torch.Tensor)
+    # The stack's [N, d] checks, on replica 0's rows on the replica axis.
+    _cuda_build.check_stack(x[0] if batched and x.dim() == 3 else x)
+    if batched and (x.dim() != 3 or not x.is_contiguous()):
+        raise ValueError(f"x must be a contiguous [R, N, d] stack, got {tuple(x.shape)}")
     _check_counter(t, x.device)
-    if byzantine.dtype != torch.uint8 or byzantine.shape != (x.shape[0],) \
-            or byzantine.device != x.device:
-        raise ValueError("byzantine must be a uint8 [N] mask on x's device")
+    lead = x.shape[:-1]  # (N,), or (R, N) on the replica axis
+    if batched and (key.dtype != torch.int64 or key.shape != (lead[0], 2)
+                    or key.device != x.device or not key.is_contiguous()
+                    or not 1 <= lead[0] <= 65535):
+        raise ValueError(f"keys must be a contiguous int64 [{lead[0]}, 2] tensor on x's device "
+                         "(1 <= R <= 65,535)")
+    if byzantine.dtype != torch.uint8 or byzantine.shape != lead \
+            or byzantine.device != x.device or not byzantine.is_contiguous():
+        raise ValueError(f"byzantine must be a contiguous uint8 {list(lead)} mask on x's device")
     if x.device.type == "cpu":
-        return large_noise_plain(key, t, byzantine, x, scale)
+        if not batched:
+            return large_noise_plain(key, t, byzantine, x, scale)
+        # The single plain version once a replica.
+        return torch.stack([large_noise_plain(tuple(key[r].tolist()), t, byzantine[r], x[r],
+                                              scale) for r in range(lead[0])])
     out = torch.empty_like(x)
-    _cuda_build.call(_library(), "large_noise", x, t.data_ptr(), key[0] & 0xFFFFFFFF,
-                     key[1] & 0xFFFFFFFF, byzantine.data_ptr(), x.data_ptr(), float(scale),
-                     out.data_ptr(), x.shape[0], x.shape[1])
+    if batched:
+        _cuda_build.call(_library(), "large_noise_batch", x, t.data_ptr(), key.data_ptr(),
+                         lead[0], byzantine.data_ptr(), x.data_ptr(), float(scale),
+                         out.data_ptr(), *lead[1:], x.shape[-1])
+    else:
+        _cuda_build.call(_library(), "large_noise", x, t.data_ptr(), key[0] & 0xFFFFFFFF,
+                         key[1] & 0xFFFFFFFF, byzantine.data_ptr(), x.data_ptr(), float(scale),
+                         out.data_ptr(), *x.shape)
     return out

@@ -56,11 +56,12 @@ TILES = ("none", "registers")
 
 
 def fc_mix_plain(x: torch.Tensor) -> torch.Tensor:
-    return torch.mean(x, dim=0, keepdim=True).expand_as(x)
+    """The worker axis is −2, so a leading replica axis passes through."""
+    return torch.mean(x, dim=-2, keepdim=True).expand_as(x)
 
 
 def fc_neighbor_sum_plain(x: torch.Tensor) -> torch.Tensor:
-    return torch.sum(x, dim=0, keepdim=True).expand_as(x) - x
+    return torch.sum(x, dim=-2, keepdim=True).expand_as(x) - x
 
 
 # --- the plan -----------------------------------------------------------------

@@ -6,6 +6,14 @@ stack at once: ``X [N, L, d]``, ``y [N, L]``, ``w [N, d_model]``,
 ``weights [N, L]``, and return ``[N]`` objectives or contiguous ``[N,
 d_model]`` gradients. ``d_model`` is d for the scalar-output families and
 d·K for softmax. No autograd: every gradient is written out.
+
+The replica axis: ``w [R, N, d_model]`` with ``weights [R, N, L]`` against
+the shared shards ``X [N, L, d]``, ``y [N, L]`` gives ``[R, N]`` /
+``[R, N, d_model]``. X is not broadcast R times: each worker's R models
+are the rows of one skinny product a worker, ``bmm(w.transpose(0, 1),
+X.transpose(1, 2))`` → ``[N, R, L]`` (softmax: ``[N, L, d] × [N, d,
+R·K]``). Per-replica batches
+(``X [R, N, b, d]``, the gather form's) take the broadcasting product.
 """
 
 from __future__ import annotations
@@ -18,13 +26,24 @@ def _softplus_neg(z: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(-z, 0.0) + torch.log1p(torch.exp(-torch.abs(z)))
 
 
+def _shared(w: torch.Tensor, X: torch.Tensor) -> bool:
+    """R replicas' parameters ``[R, N, ...]`` against shared shards ``[N, L, d]``."""
+    return w.dim() == X.dim()
+
+
 def _predict(w: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """Per-row linear predictions X_i w_i: [N, L, d] × [N, d] -> [N, L]."""
+    """Per-row linear predictions X_i w_i: [N, L, d] × [N, d] -> [N, L]
+    (× [R, N, d] -> [R, N, L], one skinny product a worker)."""
+    if _shared(w, X):
+        return torch.bmm(w.transpose(0, 1), X.transpose(1, 2)).transpose(0, 1)
     return torch.matmul(X, w.unsqueeze(-1)).squeeze(-1)
 
 
 def _data_gradient(X: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
-    """X_iᵀ coeff_i for each worker: [N, L, d] × [N, L] -> [N, d]."""
+    """X_iᵀ coeff_i for each worker: [N, L, d] × [N, L] -> [N, d] (× [R, N,
+    L] -> [R, N, d], one skinny product a worker)."""
+    if _shared(coeff, X):
+        return torch.bmm(coeff.transpose(0, 1), X).transpose(0, 1).contiguous()
     return torch.matmul(coeff.unsqueeze(-2), X).squeeze(-2)
 
 
@@ -85,20 +104,28 @@ def huber_gradient_weighted(w, X, y, weights, lam, delta):
 
 
 def _class_logits(w: torch.Tensor, X: torch.Tensor):
-    """(W [N, d, K] as a view of w [N, d·K], logits X W [N, L, K])."""
-    W = w.reshape(w.shape[0], X.shape[-1], -1)
+    """(W [N, d, K] as a view of w [N, d·K], logits X W [N, L, K]); with R
+    replicas against shared shards, W [R, N, d, K] and logits [R, N, L,
+    K] from one [N, L, d] × [N, d, R·K] product."""
+    W = w.reshape(*w.shape[:-1], X.shape[-1], -1)
+    if _shared(w, X):
+        r, n, d, k = W.shape
+        flat = torch.bmm(X, W.permute(1, 2, 0, 3).reshape(n, d, r * k))
+        return W, flat.reshape(n, -1, r, k).permute(2, 0, 1, 3)
     return W, torch.matmul(X, W)
 
 
-def _labels(y: torch.Tensor) -> torch.Tensor:
-    """Class indices [N, L, 1] of the float-stored labels."""
-    return y.to(torch.int64).unsqueeze(-1)
+def _labels(y: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """Class indices [..., N, L, 1] of the float-stored labels, as many as
+    the logits' rows."""
+    labels = y.to(torch.int64).unsqueeze(-1)
+    return labels.expand(*logits.shape[:-1], 1)
 
 
 def softmax_objective_weighted(w, X, y, weights, lam):
     """Σ_l weights_l · (logsumexp(x_lᵀW) − (x_lᵀW)_{y_l}) + (λ/2)‖w‖²."""
     _, logits = _class_logits(w, X)
-    ce = torch.logsumexp(logits, dim=-1) - torch.gather(logits, -1, _labels(y)).squeeze(-1)
+    ce = torch.logsumexp(logits, dim=-1) - torch.gather(logits, -1, _labels(y, logits)).squeeze(-1)
     return torch.sum(weights * ce, dim=-1) + 0.5 * lam * _sq_norm(w)
 
 
@@ -107,6 +134,11 @@ def softmax_gradient_weighted(w, X, y, weights, lam):
     P = torch.softmax(logits, dim=-1)
     # The one-hot by scatter: no host check of the labels' range, so the
     # gradient captures in a CUDA graph.
-    Y = torch.zeros_like(P).scatter_(-1, _labels(y), 1.0)
-    G = torch.matmul(X.transpose(-1, -2), weights.unsqueeze(-1) * (P - Y)) + lam * W
-    return G.reshape(w.shape[0], -1)
+    Y = torch.zeros_like(P).scatter_(-1, _labels(y, logits), 1.0)
+    coeff = weights.unsqueeze(-1) * (P - Y)
+    if _shared(w, X):
+        r, n, d, k = W.shape
+        flat = torch.bmm(X.transpose(1, 2), coeff.permute(1, 2, 0, 3).reshape(n, -1, r * k))
+        return (flat.reshape(n, d, r, k).permute(2, 0, 1, 3) + lam * W).reshape(*w.shape)
+    G = torch.matmul(X.transpose(-1, -2), coeff) + lam * W
+    return G.reshape(w.shape)

@@ -18,6 +18,10 @@ The port of ``distributed_optimization_tpu/ops/mixing.py``, in five forms:
   is kept so that configs carry across; any other graph raises, as in the
   JAX package.
 
+Every form acts on the worker axis at −2, so a state with a leading
+replica axis ``[R, N, d]`` (``torch_backend.run_batch``) mixes each
+replica's stack as the single run mixes its own.
+
 The gather and sparse forms sum over the slot axis in slot order
 (``robust_aggregation.slot_sum``): no atomics, so a replay of a captured
 graph adds the same values in the same order, and no size is read back to
@@ -77,9 +81,9 @@ def _grid_stencil(topo: Topology) -> MixingOp:
     w = 1.0 / 5.0
 
     def shifts(x: torch.Tensor) -> torch.Tensor:
-        g = x.reshape(rows, cols, *x.shape[1:])
-        s = (torch.roll(g, 1, 0) + torch.roll(g, -1, 0)
-             + torch.roll(g, 1, 1) + torch.roll(g, -1, 1))
+        g = x.reshape(*x.shape[:-2], rows, cols, x.shape[-1])
+        s = (torch.roll(g, 1, -3) + torch.roll(g, -1, -3)
+             + torch.roll(g, 1, -2) + torch.roll(g, -1, -2))
         return s.reshape(x.shape)
 
     return MixingOp(topo.name, "stencil", lambda x: w * (x + shifts(x)), shifts)
@@ -112,10 +116,10 @@ def _slot_form(topo: Topology, impl: str, idx, w_slot, w_self, mask, *, device,
     w_self = put(w_self)[:, None]
 
     def apply(x):
-        return w_self * x + slot_sum(w_slot * x[idx])
+        return w_self * x + slot_sum(w_slot * x[..., idx, :])
 
     def neighbor_sum(x):
-        return slot_sum(mask * x[idx])
+        return slot_sum(mask * x[..., idx, :])
 
     return MixingOp(topo.name, impl, apply, neighbor_sum)
 
@@ -210,8 +214,8 @@ def make_mixing_op(
     if topo.name == "directed_ring":
         # Out-degree 1 everywhere: weights 1/2 on the self-loop and the
         # edge from the predecessor, one roll.
-        return MixingOp(topo.name, "stencil", lambda x: 0.5 * (x + torch.roll(x, 1, 0)),
-                        lambda x: torch.roll(x, 1, 0))
+        return MixingOp(topo.name, "stencil", lambda x: 0.5 * (x + torch.roll(x, 1, -2)),
+                        lambda x: torch.roll(x, 1, -2))
     return MixingOp(
         topo.name, "stencil", ring_kernels.ring_mix_plain,
         ring_kernels.ring_neighbor_sum_plain,

@@ -26,6 +26,7 @@ that the port's sampler uses:
 
 A key is two Python ints (a key made on the host) or an int64 tensor whose
 last dimension holds the two words, on any device; words lie in [0, 2³²).
+``keys(seeds, ...)`` stacks R of them, one a replica, as ``[R, 2]``.
 Keys broadcast against data, so ``fold_in`` of one key and a tensor of data
 gives a tensor of keys, and ``random_bits``/``uniform`` of keys ``[..., 2]``
 give ``[..., *shape]``, what ``jax.vmap`` over the keys gives. Everything
@@ -87,6 +88,19 @@ def key(seed: int, *, x64: bool) -> tuple[int, int]:
     if x64:
         return (seed >> 32) & MASK32, seed & MASK32
     return 0, seed & MASK32
+
+
+def keys(seeds, *, x64: bool, tags=(), device="cpu") -> torch.Tensor:
+    """The replica axis's keys: ``[R, 2]`` int64 words on ``device``, row r
+    ``key(seeds[r], x64=x64)`` with each of ``tags`` folded in after it, in
+    order, as the single run derives its key from its seed."""
+    rows = []
+    for seed in seeds:
+        k = key(int(seed), x64=x64)
+        for tag in tags:
+            k = fold_in(k, tag)
+        rows.append(k)
+    return torch.tensor(rows, dtype=torch.int64, device=device).reshape(len(rows), 2)
 
 
 def fold_in(key: Key, data: Word) -> Key:

@@ -62,7 +62,8 @@ KERNELS = ("fused_ring_dsgd_step", "ring_mix", "ring_neighbor_sum")
 
 
 def ring_mix_plain(x: torch.Tensor) -> torch.Tensor:
-    return (x + torch.roll(x, 1, 0) + torch.roll(x, -1, 0)) * THIRD
+    """The worker axis is −2, so a leading replica axis passes through."""
+    return (x + torch.roll(x, 1, -2) + torch.roll(x, -1, -2)) * THIRD
 
 
 def fused_ring_dsgd_step_plain(x: torch.Tensor, g: torch.Tensor, eta) -> torch.Tensor:
@@ -70,7 +71,7 @@ def fused_ring_dsgd_step_plain(x: torch.Tensor, g: torch.Tensor, eta) -> torch.T
 
 
 def ring_neighbor_sum_plain(x: torch.Tensor) -> torch.Tensor:
-    return torch.roll(x, 1, 0) + torch.roll(x, -1, 0)
+    return torch.roll(x, 1, -2) + torch.roll(x, -1, -2)
 
 
 # --- build and load ----------------------------------------------------------

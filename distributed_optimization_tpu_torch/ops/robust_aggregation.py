@@ -22,6 +22,11 @@ slot order): ``robust_impl='gather'``.
 The single-kernel form is ``ops/robust_kernels.py``. The per-node numpy
 oracle ``robust_aggregate_np`` is a copy of the JAX package's, for the
 tests. Math runs in promote(float32, dtype); only the output is cast back.
+
+The replica axis (``torch_backend.run_batch``): both forms take a leading
+[R] on the stack and the liveness (``x [R, N, d]``, ``live [R, N, k]``,
+``A_t [R, N, N]``) and screen each replica as the single run does; a fixed
+clipping radius may be a tensor of R (a swept ``clip_tau``).
 """
 
 from __future__ import annotations
@@ -49,10 +54,11 @@ def check_rule(name: str, budget: int) -> None:
 
 
 def slot_sum(t: torch.Tensor) -> torch.Tensor:
-    """Σ over dim 1 as a loop in slot order, so that every form of a rule
-    adds the same values in the same order."""
-    out = torch.zeros_like(t[:, 0])
-    for col in t.unbind(1):
+    """Σ over the slot axis ``[..., N, k, d]`` (dim −2) as a loop in slot
+    order, so that every form of a rule adds the same values in the same
+    order."""
+    out = torch.zeros_like(t[..., 0, :])
+    for col in t.unbind(-2):
         out = out + col
     return out
 
@@ -71,6 +77,14 @@ def validate_budget(min_degree: int, budget: int, aggregation: str) -> None:
         )
 
 
+def _fixed_tau(clip_tau, shape, acc, device) -> torch.Tensor:
+    """The fixed radius of every node: ``[N]`` for a float, ``[R, N]`` for
+    a tensor of R radii (one a replica), in ``acc``."""
+    if isinstance(clip_tau, torch.Tensor):
+        return clip_tau.to(device=device, dtype=acc)[:, None].expand(-1, shape[-2])
+    return torch.full((shape[-2],), float(clip_tau), dtype=acc, device=device)
+
+
 def is_adaptive(name: str, clip_tau) -> bool:
     """Clipping takes the adaptive radius for a concrete ``clip_tau <= 0``."""
     return name == "clipped_gossip" and isinstance(clip_tau, (int, float)) and clip_tau <= 0.0
@@ -80,11 +94,11 @@ def _adaptive_clip_tau(mask: torch.Tensor, norms: torch.Tensor, budget: int,
                        k_cap: int) -> torch.Tensor:
     """The (deg−b)-th smallest realized neighbour-difference norm per node;
     τ = 0 (the identity row) where deg ≤ b."""
-    deg = torch.sum(mask, dim=1).to(torch.int64)
+    deg = torch.sum(mask, dim=-1).to(torch.int64)
     masked = torch.where(mask > 0, norms, torch.inf)
-    ranked = torch.sort(masked, dim=1).values
+    ranked = torch.sort(masked, dim=-1).values
     k = torch.clamp(deg - budget - 1, 0, k_cap - 1)
-    kth = torch.take_along_dim(ranked, k[:, None], dim=1)[:, 0]
+    kth = torch.take_along_dim(ranked, k[..., None], dim=-1)[..., 0]
     return torch.where(deg - budget >= 1, kth, torch.zeros_like(kth))
 
 
@@ -100,45 +114,46 @@ def make_robust_aggregator(name: str, budget: int, clip_tau: float = 0.0) -> Rob
     def closed_sorted(A, x):
         """The closed neighbourhood sorted over the node axis ([N, N, d],
         +inf beyond each row's count) and the counts."""
-        closed = A + torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
-        vals = torch.where((closed > 0)[:, :, None], x[None, :, :], torch.inf)
-        return torch.sort(vals, dim=1).values, torch.sum(closed, dim=1)
+        closed = A + torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+        vals = torch.where((closed > 0)[..., None], x[..., None, :, :], torch.inf)
+        return torch.sort(vals, dim=-2).values, torch.sum(closed, dim=-1)
 
     def aggregate(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         acc = torch.promote_types(torch.float32, x.dtype)
         xa = x.to(acc)
         Aa = A.to(acc)
+        n = A.shape[-1]
         if name == "trimmed_mean":
             s, counts = closed_sorted(Aa, xa)
-            pos = torch.arange(A.shape[0], dtype=acc, device=x.device)
-            keep = (pos[None, :] >= budget) & (pos[None, :] < (counts - budget)[:, None])
+            pos = torch.arange(n, dtype=acc, device=x.device)
+            keep = (pos >= budget) & (pos < (counts - budget)[..., None])
             kept = torch.clamp(counts - 2 * budget, min=0.0)
-            total = torch.sum(torch.where(keep[:, :, None], s, 0.0), dim=1)
-            mean = total / torch.clamp(kept, min=1.0)[:, None]
-            return torch.where((kept >= 1.0)[:, None], mean, xa).to(x.dtype)
+            total = torch.sum(torch.where(keep[..., None], s, 0.0), dim=-2)
+            mean = total / torch.clamp(kept, min=1.0)[..., None]
+            return torch.where((kept >= 1.0)[..., None], mean, xa).to(x.dtype)
         if name == "median":
             s, counts = closed_sorted(Aa, xa)
             c = counts.to(torch.int64)
-            lo = torch.clamp((c - 1) // 2, min=0)[:, None, None]
-            hi = torch.clamp(c // 2, min=0)[:, None, None]
-            med = 0.5 * (torch.take_along_dim(s, lo, dim=1) + torch.take_along_dim(s, hi, dim=1))
-            return med[:, 0, :].to(x.dtype)
+            lo = torch.clamp((c - 1) // 2, min=0)[..., None, None]
+            hi = torch.clamp(c // 2, min=0)[..., None, None]
+            med = 0.5 * (torch.take_along_dim(s, lo, dim=-2) + torch.take_along_dim(s, hi, dim=-2))
+            return med[..., 0, :].to(x.dtype)
         from distributed_optimization_tpu_torch.parallel.faults import (
             metropolis_hastings_weights,
         )
 
         W = metropolis_hastings_weights(Aa)
-        diffs = xa[None, :, :] - xa[:, None, :]  # [receiver i, sender j, d]
+        diffs = xa[..., None, :, :] - xa[..., :, None, :]  # [receiver i, sender j, d]
         norms = torch.sqrt(torch.sum(diffs * diffs, dim=-1))
         if adaptive:
-            tau = _adaptive_clip_tau(Aa, norms, budget, A.shape[0])
+            tau = _adaptive_clip_tau(Aa, norms, budget, n)
         else:
-            tau = torch.full((A.shape[0],), float(clip_tau), dtype=acc, device=x.device)
+            tau = _fixed_tau(clip_tau, x.shape, acc, x.device)
         factor = torch.minimum(
             torch.ones((), dtype=acc, device=x.device),
-            tau[:, None] / torch.clamp(norms, min=torch.finfo(acc).tiny),
+            tau[..., None] / torch.clamp(norms, min=torch.finfo(acc).tiny),
         )
-        moved = torch.sum(W[:, :, None] * diffs * factor[:, :, None], dim=1)
+        moved = torch.sum(W[..., None] * diffs * factor[..., None], dim=-2)
         return (xa + moved).to(x.dtype)
 
     return aggregate
@@ -166,9 +181,9 @@ def make_gather_robust_aggregator(
     def closed_sorted(live, x):
         """The closed neighbourhood sorted over the slot axis
         ([N, k_max+1, d], +inf beyond each row's count) and the counts."""
-        vals = torch.where(live[:, :, None] > 0, x[nbr], torch.inf)
-        closed = torch.cat([x[:, None, :], vals], dim=1)
-        return torch.sort(closed, dim=1).values, torch.sum(live, dim=1) + 1.0
+        vals = torch.where(live[..., None] > 0, x[..., nbr, :], torch.inf)
+        closed = torch.cat([x[..., None, :], vals], dim=-2)
+        return torch.sort(closed, dim=-2).values, torch.sum(live, dim=-1) + 1.0
 
     def aggregate(live: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         acc = torch.promote_types(torch.float32, x.dtype)
@@ -177,31 +192,31 @@ def make_gather_robust_aggregator(
         if name == "trimmed_mean":
             s, counts = closed_sorted(lv, xa)
             pos = torch.arange(k_max + 1, dtype=acc, device=x.device)
-            keep = (pos[None, :] >= budget) & (pos[None, :] < (counts - budget)[:, None])
+            keep = (pos >= budget) & (pos < (counts - budget)[..., None])
             kept = torch.clamp(counts - 2 * budget, min=0.0)
-            total = slot_sum(torch.where(keep[:, :, None], s, 0.0))
-            mean = total / torch.clamp(kept, min=1.0)[:, None]
-            return torch.where((kept >= 1.0)[:, None], mean, xa).to(x.dtype)
+            total = slot_sum(torch.where(keep[..., None], s, 0.0))
+            mean = total / torch.clamp(kept, min=1.0)[..., None]
+            return torch.where((kept >= 1.0)[..., None], mean, xa).to(x.dtype)
         if name == "median":
             s, counts = closed_sorted(lv, xa)
             c = counts.to(torch.int64)
-            lo = torch.clamp((c - 1) // 2, min=0)[:, None, None]
-            hi = torch.clamp(c // 2, min=0)[:, None, None]
-            med = 0.5 * (torch.take_along_dim(s, lo, dim=1) + torch.take_along_dim(s, hi, dim=1))
-            return med[:, 0, :].to(x.dtype)
-        deg = torch.sum(lv, dim=1)
-        diffs = xa[nbr] - xa[:, None, :]
+            lo = torch.clamp((c - 1) // 2, min=0)[..., None, None]
+            hi = torch.clamp(c // 2, min=0)[..., None, None]
+            med = 0.5 * (torch.take_along_dim(s, lo, dim=-2) + torch.take_along_dim(s, hi, dim=-2))
+            return med[..., 0, :].to(x.dtype)
+        deg = torch.sum(lv, dim=-1)
+        diffs = xa[..., nbr, :] - xa[..., None, :]
         norms = torch.sqrt(torch.sum(diffs * diffs, dim=-1))
         if adaptive:
             tau = _adaptive_clip_tau(lv, norms, budget, k_max)
         else:
-            tau = torch.full((nbr.shape[0],), float(clip_tau), dtype=acc, device=x.device)
-        w = lv / (1.0 + torch.maximum(deg[:, None], deg[nbr]))
+            tau = _fixed_tau(clip_tau, x.shape, acc, x.device)
+        w = lv / (1.0 + torch.maximum(deg[..., None], deg[..., nbr]))
         factor = torch.minimum(
             torch.ones((), dtype=acc, device=x.device),
-            tau[:, None] / torch.clamp(norms, min=torch.finfo(acc).tiny),
+            tau[..., None] / torch.clamp(norms, min=torch.finfo(acc).tiny),
         )
-        moved = slot_sum(w[:, :, None] * diffs * factor[:, :, None])
+        moved = slot_sum(w[..., None] * diffs * factor[..., None])
         return (xa + moved).to(x.dtype)
 
     return aggregate

@@ -13,6 +13,12 @@ These are the plain versions. The run loop goes through
 ``ops/sampling_kernels.py``, which launches the card's sampling kernel on a
 CUDA tensor and calls these on a CPU tensor.
 
+The replica axis: a slot key may also be an int64 ``[R, 2]`` stack of R
+replicas' slot keys (``prng.keys``). Every function then returns its
+outputs with a leading ``[R]``, replica r's equal to the single call with
+slot key r, bit for bit; the shards (``X``, ``y``, ``n_valid``) stay
+shared.
+
 The iteration counter ``t`` is a Python int or an int64 tensor of one
 element on the tensor's device; the run loop passes the tensor, which it
 advances in place, so that one captured CUDA graph serves every iteration.
@@ -37,16 +43,25 @@ from distributed_optimization_tpu_torch.ops import prng
 from distributed_optimization_tpu_torch.ops.prng import threefry2x32  # noqa: F401
 
 
+def stacked(slot_key) -> bool:
+    """Whether ``slot_key`` is an ``[R, 2]`` stack of replicas' keys."""
+    return isinstance(slot_key, torch.Tensor) and slot_key.dim() == 2
+
+
 def worker_keys(slot_key, t: int | torch.Tensor, n_workers: int, device) -> torch.Tensor:
-    """``[N, 2]`` keys ``fold_in(fold_in(slot_key, t), worker)``."""
+    """``[N, 2]`` keys ``fold_in(fold_in(slot_key, t), worker)`` (``[R, N,
+    2]`` for a stack of R slot keys)."""
     step_key = prng.fold_in(slot_key, t)
+    if stacked(slot_key):
+        step_key = step_key.unsqueeze(-2)
     return prng.fold_in(step_key, torch.arange(n_workers, dtype=torch.int64, device=device))
 
 
 def masked_scores(
     slot_key, t: int | torch.Tensor, n_valid: torch.Tensor, n_local: int, dtype: torch.dtype
 ) -> torch.Tensor:
-    """``[N, L]`` uniform ranking scores in ``dtype``; −inf on padding rows."""
+    """``[N, L]`` uniform ranking scores in ``dtype`` (``[R, N, L]`` for R
+    slot keys); −inf on padding rows."""
     keys = worker_keys(slot_key, t, n_valid.shape[0], n_valid.device)
     scores = prng.uniform(keys, (n_local,), dtype)
     rows = torch.arange(n_local, device=n_valid.device)
@@ -79,7 +94,7 @@ def sample_worker_batch_weights(
     """
     u = masked_scores(slot_key, t, n_valid, n_local, dtype)
     idx = torch.arange(n_local, device=u.device)
-    ui, um = u[:, :, None], u[:, None, :]
+    ui, um = u[..., :, None], u[..., None, :]
     beats = (um > ui) | ((um == ui) & (idx[None, :] < idx[:, None]))
     rank = beats.sum(dim=-1)
     effective = _effective_batch(batch_size, n_valid, n_local)
@@ -92,7 +107,8 @@ def sample_batch_indices(
     slot_key, t: int | torch.Tensor, n_valid: torch.Tensor, n_local: int,
     batch_size: int, dtype: torch.dtype,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(indices [N, b] int64, weights [N, b])`` of each worker's batch.
+    """``(indices [N, b] int64, weights [N, b])`` of each worker's batch
+    (each ``[R, N, b]`` for R slot keys).
 
     The top ``min(b, L)`` rows by a stable descending sort, tiled up to b
     when the shard is shorter than the batch; weights are 1/b_eff on the
@@ -100,18 +116,21 @@ def sample_batch_indices(
     """
     u = masked_scores(slot_key, t, n_valid, n_local, dtype)
     order = torch.sort(u, dim=-1, descending=True, stable=True).indices
-    top = order[:, : min(batch_size, n_local)]
-    reps = -(-batch_size // top.shape[1])
-    indices = top.repeat(1, reps)[:, :batch_size]
+    k = min(batch_size, n_local)
+    indices = order[..., torch.arange(batch_size, device=u.device) % k]
     effective = _effective_batch(batch_size, n_valid, n_local)
     real = torch.arange(batch_size, device=u.device)[None, :] < effective[:, None]
     inv = batch_weight(effective, dtype)
     weights = torch.where(real, inv[:, None], torch.zeros((), dtype=dtype, device=u.device))
-    return indices, weights
+    return indices, weights.expand(indices.shape)
 
 
 def gather_batches(X: torch.Tensor, y: torch.Tensor, indices: torch.Tensor):
-    """``(Xb [N, b, d], yb [N, b])``: each worker's rows at ``indices``."""
+    """``(Xb [N, b, d], yb [N, b])``: each worker's rows at ``indices``
+    (``[R, N, b, d]``, ``[R, N, b]`` for indices ``[R, N, b]``)."""
+    if indices.dim() == 3:
+        rows = torch.arange(X.shape[0], device=X.device)[:, None]
+        return X[rows, indices], y[rows, indices]
     return torch.take_along_dim(X, indices[:, :, None], dim=1), torch.take_along_dim(y, indices, dim=1)
 
 

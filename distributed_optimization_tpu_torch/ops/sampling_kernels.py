@@ -36,12 +36,21 @@ The shared library is built at first use by ``ops/_cuda_build.py``.
 counts where it runs (``_cuda_build.LaunchCounts``); the gather form counts
 under ``sample_worker_batches`` whether it writes rows or indices; the plain
 versions count nothing.
+
+The replica axis: each of the three wrappers also takes an int64 ``[R,
+2]`` stack of R replicas' slot keys on the card (``prng.keys``) in place
+of the two host words, and launches once for all R (the ``*_batch`` entry
+points, the replica on the grid's y axis), writing ``[R, N, ...]``
+outputs from the shared shards; replica r's are the single launch's with
+slot key r, bit for bit, and on the CPU the plain versions take the same
+stack. The workspace then holds R·N workers' survivors.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -65,12 +74,14 @@ def _library() -> ctypes.CDLL:
     lib = _cuda_build.load(SOURCE)
     ptr, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
     head = [ptr, u32, u32, ptr, i64, i64, i64]  # t, k0, k1, n_valid, N, L, b
+    batch_head = [ptr, ptr, i64, ptr, i64, i64, i64]  # t, keys, R, n_valid, N, L, b
     for suffix in ("f32", "f64"):
         for name, rest in (("sample_weights", [ptr]), ("sample_indices", [ptr, ptr]),
                            ("sample_batches", [i64, ptr, ptr, ptr, ptr, ptr])):
-            fn = getattr(lib, f"{name}_{suffix}")
-            fn.argtypes = head + rest + [ptr, ptr]  # ..., workspace, stream
-            fn.restype = ctypes.c_int
+            for form, first in (("", head), ("_batch", batch_head)):
+                fn = getattr(lib, f"{name}{form}_{suffix}")
+                fn.argtypes = first + rest + [ptr, ptr]  # ..., workspace, stream
+                fn.restype = ctypes.c_int
         fn = getattr(lib, f"select_top_{suffix}")
         fn.argtypes = [ptr, i64, i64, i64, i64, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
@@ -89,11 +100,18 @@ def reset_launch_counts() -> None:
 
 def _check(slot_key, t, n_valid: torch.Tensor, n_local: int, batch_size: int,
            dtype: torch.dtype) -> None:
-    """What the kernels take: a slot key of two words, ``t`` an int64
+    """What the kernels take: a slot key of two words (or a contiguous int64
+    ``[R, 2]`` stack of them on the card, 1 <= R <= 65,535), ``t`` an int64
     one-element tensor and ``n_valid`` a contiguous int64 ``[N]`` tensor,
     both on the card."""
-    if isinstance(slot_key, torch.Tensor) or len(slot_key) != 2:
-        raise TypeError("the slot key must be two host words (ints)")
+    if sampling.stacked(slot_key):
+        if (slot_key.dtype != torch.int64 or slot_key.shape[1] != 2
+                or not 1 <= slot_key.shape[0] <= 65535 or not slot_key.is_contiguous()
+                or slot_key.device != n_valid.device):
+            raise ValueError("a stack of slot keys must be a contiguous int64 [R, 2] tensor "
+                             "(1 <= R <= 65,535) on n_valid's card")
+    elif isinstance(slot_key, torch.Tensor) or len(slot_key) != 2:
+        raise TypeError("the slot key must be two host words (ints) or an [R, 2] stack")
     if not isinstance(t, torch.Tensor) or t.dtype != torch.int64 or t.numel() != 1:
         raise TypeError("t must be an int64 tensor of one element on the card")
     if t.device != n_valid.device:
@@ -124,10 +142,20 @@ def _workspace_bytes(n: int, n_local: int, batch_size: int, dtype: torch.dtype) 
         n, n_local, batch_size)
 
 
+def _lead(slot_key) -> tuple:
+    """The outputs' leading shape: (R,) for a stack of slot keys, else ()."""
+    return (slot_key.shape[0],) if sampling.stacked(slot_key) else ()
+
+
 def _call(name: str, out: torch.Tensor, slot_key, t, n_valid, n_local, batch_size, *args):
-    workspace = workspace_for(n_valid.shape[0], n_local, batch_size, out.dtype, n_valid.device)
-    k0, k1 = slot_key
-    _cuda_build.call(_library(), name, out, t.data_ptr(), k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF,
+    replicas = _lead(slot_key)
+    workspace = workspace_for(math.prod(replicas) * n_valid.shape[0], n_local, batch_size,
+                              out.dtype, n_valid.device)
+    if replicas:
+        name, words = name + "_batch", (slot_key.data_ptr(), replicas[0])
+    else:
+        words = (slot_key[0] & 0xFFFFFFFF, slot_key[1] & 0xFFFFFFFF)
+    _cuda_build.call(_library(), name, out, t.data_ptr(), *words,
                      n_valid.data_ptr(), n_valid.shape[0], n_local, batch_size, *args,
                      workspace.data_ptr() if workspace is not None else None,
                      invalid=f"{name} refuses a shard of {n_local} rows with a batch of "
@@ -136,25 +164,28 @@ def _call(name: str, out: torch.Tensor, slot_key, t, n_valid, n_local, batch_siz
 
 def sample_worker_batch_weights(slot_key, t, n_valid: torch.Tensor, n_local: int,
                                 batch_size: int, dtype: torch.dtype) -> torch.Tensor:
-    """``[N, L]`` weights: 1/b_eff on each worker's sampled rows, else 0."""
+    """``[N, L]`` weights: 1/b_eff on each worker's sampled rows, else 0
+    (``[R, N, L]`` for a stack of R slot keys)."""
     if n_valid.device.type == "cpu":
         return sampling.sample_worker_batch_weights(slot_key, t, n_valid, n_local, batch_size,
                                                     dtype)
     _check(slot_key, t, n_valid, n_local, batch_size, dtype)
-    w = torch.empty((n_valid.shape[0], n_local), dtype=dtype, device=n_valid.device)
+    w = torch.empty(_lead(slot_key) + (n_valid.shape[0], n_local), dtype=dtype,
+                    device=n_valid.device)
     _call("sample_weights", w, slot_key, t, n_valid, n_local, batch_size, w.data_ptr())
     return w
 
 
 def sample_batch_indices(slot_key, t, n_valid: torch.Tensor, n_local: int, batch_size: int,
                          dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(indices [N, b] int64, weights [N, b])`` of each worker's batch."""
+    """``(indices [N, b] int64, weights [N, b])`` of each worker's batch
+    (each ``[R, N, b]`` for a stack of R slot keys)."""
     if n_valid.device.type == "cpu":
         return sampling.sample_batch_indices(slot_key, t, n_valid, n_local, batch_size, dtype)
     _check(slot_key, t, n_valid, n_local, batch_size, dtype)
-    n = n_valid.shape[0]
-    idx = torch.empty((n, batch_size), dtype=torch.int64, device=n_valid.device)
-    w = torch.empty((n, batch_size), dtype=dtype, device=n_valid.device)
+    shape = _lead(slot_key) + (n_valid.shape[0], batch_size)
+    idx = torch.empty(shape, dtype=torch.int64, device=n_valid.device)
+    w = torch.empty(shape, dtype=dtype, device=n_valid.device)
     _call("sample_indices", w, slot_key, t, n_valid, n_local, batch_size, idx.data_ptr(),
           w.data_ptr())
     return idx, w
@@ -163,7 +194,8 @@ def sample_batch_indices(slot_key, t, n_valid: torch.Tensor, n_local: int, batch
 def sample_worker_batches(slot_key, t, X: torch.Tensor, y: torch.Tensor, n_valid: torch.Tensor,
                           batch_size: int):
     """``(Xb [N, b, d], yb [N, b], weights [N, b])``: each worker's batch,
-    its rows gathered from the shards ``X [N, L, d]`` and ``y [N, L]``."""
+    its rows gathered from the shards ``X [N, L, d]`` and ``y [N, L]``
+    (``[R, N, ...]`` for a stack of R slot keys, from the same shards)."""
     if n_valid.device.type == "cpu":
         return sampling.sample_worker_batches(slot_key, t, X, y, n_valid, batch_size)
     if X.dim() != 3 or not X.is_contiguous():
@@ -174,9 +206,10 @@ def sample_worker_batches(slot_key, t, X: torch.Tensor, y: torch.Tensor, n_valid
     if y.shape != (n, n_local) or n_valid.shape[0] != n or X.device != n_valid.device:
         raise ValueError(f"X {tuple(X.shape)}, y {tuple(y.shape)} and n_valid "
                          f"{tuple(n_valid.shape)} must share N and L and lie on one card")
-    Xb = torch.empty((n, batch_size, d), dtype=X.dtype, device=X.device)
-    yb = torch.empty((n, batch_size), dtype=X.dtype, device=X.device)
-    w = torch.empty((n, batch_size), dtype=X.dtype, device=X.device)
+    lead = _lead(slot_key)
+    Xb = torch.empty(lead + (n, batch_size, d), dtype=X.dtype, device=X.device)
+    yb = torch.empty(lead + (n, batch_size), dtype=X.dtype, device=X.device)
+    w = torch.empty(lead + (n, batch_size), dtype=X.dtype, device=X.device)
     _call("sample_batches", w, slot_key, t, n_valid, n_local, batch_size, d,
           X.data_ptr(), y.data_ptr(), w.data_ptr(), Xb.data_ptr(), yb.data_ptr())
     return Xb, yb, w

@@ -14,6 +14,12 @@ The port of ``distributed_optimization_tpu/parallel/adversary.py``:
 The Byzantine set is drawn on the host from the config seed
 (``byzantine_mask``), bit for bit the JAX package's draw. The payload math
 runs in promote(float32, dtype) and is cast back to the run dtype.
+
+The replica axis (``torch_backend.run_batch``): given R seeds,
+``make_adversary`` draws each replica's set and noise key from its own
+seed and corrupts ``[R, N, d]`` stacks, each replica's as the single run
+does (alie's honest mean and variance over its own worker axis; the noise
+in one launch for all R).
 """
 
 from __future__ import annotations
@@ -55,9 +61,10 @@ class Adversary:
     Byzantine rows of the [N, d] stack with iteration t's payload (``t``,
     the run's int64 counter tensor, is read by ``large_noise`` alone);
     honest rows pass through. ``rows`` is the [N, 1] 0/1 Byzantine mask on
-    the run device."""
+    the run device. On the replica axis: ``byzantine`` [R, N], ``rows``
+    [R, N, 1], stacks [R, N, d]."""
 
-    byzantine: np.ndarray  # host [N] bool
+    byzantine: np.ndarray  # host [N] bool ([R, N] on the replica axis)
     rows: torch.Tensor
     corrupt: Callable[..., torch.Tensor]
 
@@ -71,25 +78,31 @@ def make_adversary(
     attack: str,
     n_byzantine: int,
     attack_scale: float,
-    seed: int,
+    seed,
     *,
     device: torch.device | str = "cuda",
     dtype: torch.dtype = torch.float32,
 ) -> Optional[Adversary]:
     """The adversary of a config, or None when ``attack='none'``. ``cuda``
     raises when no card is visible. The large-noise key is
-    ``key(seed, x64=dtype is float64)``, as a float64 run keys its streams."""
+    ``key(seed, x64=dtype is float64)``, as a float64 run keys its streams.
+    ``seed`` a sequence of R seeds gives the replica axis's adversary."""
     device = resolve_device(device)
     if attack == "none":
         return None
     if attack not in ("sign_flip", "large_noise", "alie"):
         raise ValueError(f"Unknown attack: {attack}")
-    byz = byzantine_mask(n_workers, n_byzantine, seed)
+    x64 = dtype == torch.float64
+    if isinstance(seed, (list, tuple)):
+        byz = np.stack([byzantine_mask(n_workers, n_byzantine, s) for s in seed])
+        noise_key = prng.keys(seed, x64=x64, tags=(_BYZ_NOISE_TAG,), device=device)
+    else:
+        byz = byzantine_mask(n_workers, n_byzantine, seed)
+        noise_key = prng.fold_in(prng.key(seed, x64=x64), _BYZ_NOISE_TAG)
     acc = torch.promote_types(torch.float32, dtype)
-    m = torch.as_tensor(byz, dtype=acc, device=device)[:, None]
+    m = torch.as_tensor(byz, dtype=acc, device=device)[..., None]
     h = 1.0 - m
     byz_u8 = torch.as_tensor(byz, dtype=torch.uint8, device=device)
-    noise_key = prng.fold_in(prng.key(seed, x64=dtype == torch.float64), _BYZ_NOISE_TAG)
 
     def corrupt(x: torch.Tensor, t: Optional[torch.Tensor] = None) -> torch.Tensor:
         if attack == "large_noise":
@@ -100,11 +113,11 @@ def make_adversary(
         xa = x.to(acc)
         if attack == "sign_flip":
             payload = -attack_scale * xa
-        else:  # alie
-            n_honest = torch.sum(h)
-            mu = torch.sum(xa * h, dim=0) / n_honest
-            var = torch.sum(h * (xa - mu[None, :]) ** 2, dim=0) / n_honest
-            payload = (mu - attack_scale * torch.sqrt(var)).expand_as(xa)
+        else:  # alie, over each replica's worker axis (−2)
+            n_honest = torch.sum(h, dim=-2)
+            mu = torch.sum(xa * h, dim=-2) / n_honest
+            var = torch.sum(h * (xa - mu[..., None, :]) ** 2, dim=-2) / n_honest
+            payload = (mu - attack_scale * torch.sqrt(var))[..., None, :].expand_as(xa)
         return torch.where(m > 0, payload, xa).to(x.dtype)
 
     return Adversary(byzantine=byz, rows=m.to(dtype), corrupt=corrupt)

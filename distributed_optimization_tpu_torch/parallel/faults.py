@@ -36,17 +36,24 @@ promote(float32, dtype).
 A_t, W_t, active mask or partners on the run's device, and the mix,
 neighbour sum, gather-form liveness and warm restart over them; the
 round's realized degree count lands in ``degree_total``. ``t`` is the
-run's int64 counter tensor, so a captured CUDA graph replays every round. The
-matrix-free form (``_make_gather_faulty_mixing``), the worker-mesh form
-(``make_halo_faulty_mixing``) and the replica stacker
-(``stack_fault_timelines``) are not ported.
+run's int64 counter tensor, so a captured CUDA graph replays every round.
+
+The replica axis (``torch_backend.run_batch``): ``make_faulty_mixing``
+given R seeds (and R drop probabilities, where swept) keys each replica's
+streams from its own seed, builds each persistent replica's timeline as
+the single run would (a launch pair each) and stacks them
+(``stack_fault_timelines``); a round is then one launch for all R, and
+every ``Round`` operand and operation gains a leading ``[R]``. Round-robin
+matchings draw nothing, so their schedule stays shared. The matrix-free
+form (``_make_gather_faulty_mixing``) and the worker-mesh form
+(``make_halo_faulty_mixing``) are not ported.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -87,13 +94,56 @@ def _tag_keys(seed: int, x64: bool, *tags):
     return tuple(prng.fold_in(base, tag) for tag in tags)
 
 
+def replica_keys(seeds: Sequence[int], x64: bool, *tags, device) -> torch.Tensor:
+    """The replica axis's keys: int64 ``[R, len(tags), 2]`` on ``device``,
+    row r the tag keys ``_tag_keys(seeds[r], x64, *tags)``."""
+    return torch.stack([prng.keys(seeds, x64=x64, tags=(tag,), device=device) for tag in tags],
+                       dim=1).contiguous()
+
+
+def stack_fault_timelines(timelines: list[FaultTimeline]) -> FaultTimeline:
+    """Stack per-replica timelines into one with [R, ...] leading axes, as
+    the JAX package's function of that name does (its checks and
+    messages): ``edge_index`` is the topology's and shared; which processes
+    are on must match across the replicas (one config, many seeds)."""
+    if not timelines:
+        raise ValueError("need at least one timeline to stack")
+    t0 = timelines[0]
+    for t in timelines[1:]:
+        if (
+            t.horizon != t0.horizon
+            or t.directed != t0.directed
+            or (t.edge_up is None) != (t0.edge_up is None)
+            or (t.node_up is None) != (t0.node_up is None)
+            or (t.part_up is None) != (t0.part_up is None)
+        ):
+            raise ValueError(
+                "timelines disagree in structure (horizon / fault modes); "
+                "replica stacking requires one config over many seeds"
+            )
+
+    def _stack(field):
+        vals = [getattr(t, field) for t in timelines]
+        return np.stack(vals) if vals[0] is not None else None
+
+    return FaultTimeline(
+        horizon=t0.horizon,
+        directed=t0.directed,
+        edge_index=t0.edge_index,
+        edge_up=_stack("edge_up"),
+        node_up=_stack("node_up"),
+        rejoin=_stack("rejoin"),
+        part_up=_stack("part_up"),
+    )
+
+
 def metropolis_hastings_weights(adjacency: torch.Tensor) -> torch.Tensor:
     """MH weights of a realized 0/1 adjacency: W_ij = 1/(1 + max(d_i, d_j))
     on edges, the row remainder on the diagonal (1 for an isolated node)."""
-    deg = torch.sum(adjacency, dim=1)
-    pair = 1.0 / (1.0 + torch.maximum(deg[:, None], deg[None, :]))
+    deg = torch.sum(adjacency, dim=-1)
+    pair = 1.0 / (1.0 + torch.maximum(deg[..., :, None], deg[..., None, :]))
     W = adjacency * pair
-    return W + torch.diag(1.0 - torch.sum(W, dim=1))
+    return W + torch.diag_embed(1.0 - torch.sum(W, dim=-1))
 
 
 def column_stochastic_weights(adjacency: torch.Tensor) -> torch.Tensor:
@@ -108,12 +158,13 @@ def column_stochastic_weights(adjacency: torch.Tensor) -> torch.Tensor:
 def sample_one_peer_matching(scores: torch.Tensor, adjacency: torch.Tensor) -> torch.Tensor:
     """Mutual-proposal matching from the proposal scores ``u · A_t``:
     partner[i] (self if unmatched). Each node proposes its first highest
-    score; isolated rows propose themselves."""
-    n = adjacency.shape[0]
+    score; isolated rows propose themselves. ``[R, N]`` partners for
+    ``[R, N, N]`` rounds."""
+    n = adjacency.shape[-1]
     idx = torch.arange(n, device=adjacency.device)
-    prop = torch.argmax(scores, dim=1)
-    prop = torch.where(torch.sum(adjacency, dim=1) > 0, prop, idx)
-    mutual = prop[prop] == idx
+    prop = torch.argmax(scores, dim=-1)
+    prop = torch.where(torch.sum(adjacency, dim=-1) > 0, prop, idx)
+    mutual = torch.gather(prop, -1, prop) == idx
     return torch.where(mutual, prop, idx)
 
 
@@ -405,10 +456,20 @@ def round_tables(topo: Topology, edge_index: Optional[np.ndarray] = None, *,
 
 
 def _add_matched(degree_total: Optional[torch.Tensor], partner: torch.Tensor) -> None:
-    """A matching's degree count: its matched nodes."""
+    """A matching's degree count: its matched nodes (each replica's, for
+    [R, N] partners; a shared [N] matching adds its count to every
+    replica's total)."""
     if degree_total is not None:
-        idx = torch.arange(partner.shape[0], device=partner.device)
-        degree_total.add_(torch.sum(partner != idx).to(torch.float64))
+        idx = torch.arange(partner.shape[-1], device=partner.device)
+        degree_total.add_(torch.sum(partner != idx, dim=-1).to(torch.float64))
+
+
+def _partner_rows(x: torch.Tensor, partner: torch.Tensor) -> torch.Tensor:
+    """Each worker's partner's row of x (the worker axis −2): a shared [N]
+    matching, or a replica's own [R, N] one."""
+    if partner.dim() == 1:
+        return x.index_select(x.dim() - 2, partner)
+    return torch.take_along_dim(x, partner[..., None], dim=-2)
 
 
 class Round:
@@ -419,7 +480,9 @@ class Round:
     ``active``: the float32 [N]
     node mask; ``partner``: the int64 [N] matching (matching schedules);
     ``rejoin``: this round's rejoining nodes (bool [N]) under
-    ``neighbor_restart``."""
+    ``neighbor_restart``. On the replica axis each has a leading [R] (a
+    round-robin matching and its mask stay [N], shared), and the
+    operations take [R, N, ...] stacks."""
 
     def __init__(self, A, active, partner=None, *, W=None, rejoin=None):
         self.A, self.active, self.partner = A, active, partner
@@ -434,34 +497,35 @@ class Round:
     def mix(self, x: torch.Tensor) -> torch.Tensor:
         """W_t x, in promote(float32, dtype), cast back."""
         if self.partner is not None:
-            return (0.5 * (x + x[self.partner])).to(x.dtype)
+            return (0.5 * (x + _partner_rows(x, self.partner))).to(x.dtype)
         acc = _acc(x.dtype)
         return torch.matmul(self.weights(acc), x.to(acc)).to(x.dtype)
 
     def neighbor_sum(self, x: torch.Tensor) -> torch.Tensor:
         """A_t x (the matched partner's row under a matching)."""
         if self.partner is not None:
-            idx = torch.arange(x.shape[0], device=x.device)
+            idx = torch.arange(self.partner.shape[-1], device=x.device)
             matched = (self.partner != idx).to(x.dtype)
-            return (x[self.partner] * matched.reshape((-1,) + (1,) * (x.ndim - 1))).to(x.dtype)
+            return (_partner_rows(x, self.partner) * matched[..., None]).to(x.dtype)
         acc = _acc(x.dtype)
         return torch.matmul(self.A.to(acc), x.to(acc)).to(x.dtype)
 
     def live(self, nbr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """The gather form: float32 [N, k_max] liveness of each neighbour-table
         slot, A_t[i, nbr[i, s]] on live slots (bitwise the JAX package's
-        per-slot gather of the same draws)."""
-        return torch.gather(self.A, 1, nbr) * mask
+        per-slot gather of the same draws); [R, N, k_max] on the replica
+        axis."""
+        return torch.gather(self.A, -1, nbr.expand(*self.A.shape[:-2], *nbr.shape)) * mask
 
     def restart(self, x: torch.Tensor) -> torch.Tensor:
         """``neighbor_restart``: a rejoining node with realized neighbours
         takes their average; every other row passes through."""
         acc = _acc(x.dtype)
         A = self.A.to(acc)
-        deg = torch.sum(A, dim=1)
-        nbr_avg = torch.matmul(A, x.to(acc)) / torch.clamp(deg, min=1.0)[:, None]
+        deg = torch.sum(A, dim=-1)
+        nbr_avg = torch.matmul(A, x.to(acc)) / torch.clamp(deg, min=1.0)[..., None]
         take = self.rejoin & (deg > 0)
-        return torch.where(take[:, None], nbr_avg, x.to(acc)).to(x.dtype)
+        return torch.where(take[..., None], nbr_avg, x.to(acc)).to(x.dtype)
 
 
 class FaultyMixing:
@@ -470,7 +534,9 @@ class FaultyMixing:
     inactive nodes keep their whole state for the round (stragglers, churn
     or participation). ``timeline``: the host timeline, or None on the
     memoryless path. ``acc``: the dtype of each round's W_t, the run's
-    promote(float32, dtype)."""
+    promote(float32, dtype). ``replicas``: R on the replica axis (``keys``
+    an int64 [R, 3, 2] tensor, ``drop_prob`` a float or a float32 [R]
+    tensor, the timeline stacked), else None."""
 
     def __init__(self, topo: Topology, *, device, drop_prob=0.0, straggler_prob=0.0,
                  one_peer=False, churn_active=False, participation_active=False,
@@ -482,6 +548,7 @@ class FaultyMixing:
         self.participation_active, self.rejoin = participation_active, rejoin
         self.timeline, self.acc = timeline, acc
         self.freezes = straggler_prob > 0.0 or churn_active or participation_active
+        self.replicas = draw_kernels.replica_count(keys)
         self._keys = keys
         self._partners = partners  # round-robin phases [P, N]
         self._ones = torch.ones(topo.n, dtype=torch.float32, device=device)
@@ -522,8 +589,8 @@ class FaultyMixing:
             return Round(None, out.active, partner)
         rejoin = None
         if self._rejoin is not None:
-            row = draw_kernels.timeline_row(t, self._rejoin.shape[0])
-            rejoin = self._rejoin.index_select(0, row)[0]
+            row = draw_kernels.timeline_row(t, self._rejoin.shape[-2])
+            rejoin = self._rejoin.index_select(-2, row).squeeze(-2)
         return Round(out.A, out.active, W=out.W, rejoin=rejoin)
 
     # The JAX package's per-t functions, through ``realize`` (for the tests).
@@ -552,8 +619,10 @@ class FaultyMixing:
         return self.realize(self._t(t)).neighbor_sum(x)
 
     def realized_degree_sum(self, t) -> torch.Tensor:
-        """Σ realized degrees at t, a float64 tensor of one element."""
-        total = torch.zeros((), dtype=torch.float64, device=self.device)
+        """Σ realized degrees at t, a float64 tensor of one element (one a
+        replica)."""
+        total = torch.zeros((self.replicas,) if self.replicas else (), dtype=torch.float64,
+                            device=self.device)
         self.realize(self._t(t), total)
         return total
 
@@ -571,10 +640,27 @@ def make_round_robin_mixing(topo: Topology, *, device="cuda") -> FaultyMixing:
     return FaultyMixing(topo, device=device, partners=partners)
 
 
+def _timeline_stack(topo: Topology, horizon: int, seeds, drops, **processes):
+    """The timelines of R replicas (``_timeline_tensors`` a seed and drop
+    probability: a launch pair each on a card), as one dict of ``[R, T,
+    ...]`` device tensors and the stacked host ``FaultTimeline``."""
+    tensors, hosts = [], []
+    for seed, drop in zip(seeds, drops):
+        out, edge_index = _timeline_tensors(topo, horizon, seed, edge_drop_prob=drop,
+                                            **processes)
+        tensors.append(out)
+        hosts.append(FaultTimeline(
+            horizon=horizon, directed=topo.directed, edge_index=edge_index,
+            **{k: (v.cpu().numpy() if v is not None else None) for k, v in out.items()}))
+    stacked = {k: (torch.stack([out[k] for out in tensors]) if tensors[0][k] is not None
+                   else None) for k in tensors[0]}
+    return stacked, stack_fault_timelines(hosts)
+
+
 def make_faulty_mixing(
     topo: Topology,
-    drop_prob: float,
-    seed: int,
+    drop_prob,
+    seed,
     straggler_prob: float = 0.0,
     one_peer: bool = False,
     burst_len: float = 0.0,
@@ -594,9 +680,23 @@ def make_faulty_mixing(
     timeline at set-up (bitwise the memoryless draws at burst_len=1 and at
     the iid-equivalent churn point). ``timeline`` injects a prebuilt one.
     ``x64`` keys the streams as a float64 run does and realizes W_t in
-    float64."""
-    if not 0.0 <= drop_prob < 1.0:
-        raise ValueError(f"drop_prob must be in [0, 1), got {drop_prob}")
+    float64.
+
+    The replica axis: ``seed`` a sequence of R seeds, and ``drop_prob`` a
+    float or a sequence of R (a swept edge_drop_prob); replica r's rounds
+    are the single run's with seed r and drop probability r, and an
+    injected ``timeline`` is a stacked one."""
+    replicated = isinstance(seed, (list, tuple))
+    swept = isinstance(drop_prob, (list, tuple))
+    if swept and not replicated:
+        raise ValueError("a drop probability a replica needs a seed a replica")
+    seeds = list(seed) if replicated else [seed]
+    drops = [float(p) for p in drop_prob] if swept else [drop_prob] * len(seeds)
+    if len(drops) != len(seeds) or not seeds:
+        raise ValueError(f"{len(drops)} drop probabilities for {len(seeds)} seeds")
+    for drop in drops:
+        if not 0.0 <= drop < 1.0:
+            raise ValueError(f"drop_prob must be in [0, 1), got {drop}")
     if not 0.0 <= straggler_prob < 1.0:
         raise ValueError(
             f"straggler_prob must be in [0, 1), got {straggler_prob}"
@@ -636,7 +736,12 @@ def make_faulty_mixing(
     device = resolve_device(device)
     use_timeline = (burst_len >= 1.0 or churn_active or participation_active
                     or timeline is not None)
-    keys = _tag_keys(seed, x64, FAULT_TAG, NODE_TAG, MATCH_TAG)
+    if replicated:
+        keys = replica_keys(seeds, x64, FAULT_TAG, NODE_TAG, MATCH_TAG, device=device)
+        if swept:
+            drop_prob = torch.tensor(drops, dtype=torch.float32, device=device)
+    else:
+        keys = _tag_keys(seed, x64, FAULT_TAG, NODE_TAG, MATCH_TAG)
     tensors = None
     if use_timeline:
         if timeline is None:
@@ -646,15 +751,20 @@ def make_faulty_mixing(
                     "participation_rate < 1) precompute a [horizon]-indexed "
                     "timeline; pass horizon=n_iterations"
                 )
-            tensors, edge_index = _timeline_tensors(
-                topo, horizon, seed, edge_drop_prob=drop_prob,
+            processes = dict(
                 burst_len=burst_len if burst_len >= 1.0 else 1.0,
                 straggler_prob=0.0 if churn_active else straggler_prob,
                 mttf=mttf, mttr=mttr, participation_rate=participation_rate,
                 device=device, x64=x64)
-            timeline = FaultTimeline(
-                horizon=horizon, directed=topo.directed, edge_index=edge_index,
-                **{k: (v.cpu().numpy() if v is not None else None) for k, v in tensors.items()})
+            if replicated:
+                tensors, timeline = _timeline_stack(topo, horizon, seeds, drops, **processes)
+            else:
+                tensors, edge_index = _timeline_tensors(
+                    topo, horizon, seed, edge_drop_prob=drop_prob, **processes)
+                timeline = FaultTimeline(
+                    horizon=horizon, directed=topo.directed, edge_index=edge_index,
+                    **{k: (v.cpu().numpy() if v is not None else None)
+                       for k, v in tensors.items()})
         else:
             tensors = {k: (torch.as_tensor(getattr(timeline, k), device=device).contiguous()
                            if getattr(timeline, k) is not None else None)

@@ -44,6 +44,11 @@ past a block's shared memory (b = L = 16,384) and the compression kernel
 past N·d = 2³² match their twins. Both fused robust kernels on a liveness that changes
 every round equal the gather form bit for bit (count rules); a faulted run
 in the graph equals its measured run bit for bit with exact launch counts.
+The replica axis: one sampler (both forms), round or noise launch over R =
+1, 3 and 32 replicas' keys (a drop threshold a replica, stacked timelines,
+flags a replica) gives each replica the single launch's bits, and a
+``run_batch`` graph run equals its measured run with one sampler, round and
+noise launch a step whatever R is.
 """
 
 import dataclasses
@@ -1557,3 +1562,184 @@ def test_cuda_faulted_graph_run_is_bitwise_its_measured_run(cuda_device, graph_d
     if "attack" in fields:
         assert glaunch["large_noise"] == T
         assert glaunch["make_fused_robust_dsgd_step"] == T
+
+
+# --- the replica axis (run_batch) -------------------------------------------------
+
+# R replicas a launch: one, a few, and the 32 of the sweep benches.
+REPLICA_COUNTS = (1, 3, 32)
+REPLICA_SEEDS = tuple(203 + 7 * r for r in range(32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("R", REPLICA_COUNTS)
+@pytest.mark.parametrize("shape", [(256, 49, 16), (25, 500, 16), (6, 65, 16), (3, 2049, 16)])
+def test_cuda_replica_sampling_equals_single_launches(cuda_device, shape, R, dtype):
+    """One launch over R slot keys: replica r's weights, indices and batch
+    rows are the single launch's with slot key r, bit for bit, in both
+    forms, from one shared set of shards (main's and the parity path's
+    shapes, the dense form's cluster-free select past 64 rows, 128-bit
+    keys past 2,048 rows in float64)."""
+    n, L, b = shape
+    nv = _sampling_n_valid(cuda_device, n, L, b)
+    X, y = _rows(cuda_device, n, L, dtype)
+    x64 = dtype == torch.float64
+    seeds = REPLICA_SEEDS[:R]
+    t = torch.full((1,), 2**31 + 5, dtype=torch.int64, device=cuda_device)
+    for slot in (0, 2):
+        keys = prng.keys(seeds, x64=x64, tags=(slot,), device=cuda_device)
+        w = sk.sample_worker_batch_weights(keys, t, nv, L, b, dtype)
+        idx = sk.sample_batch_indices(keys, t, nv, L, b, dtype)
+        rows = sk.sample_worker_batches(keys, t, X, y, nv, b)
+        assert w.shape == (R, n, L) and rows[0].shape == (R, n, b, SAMPLING_D)
+        for r, seed in enumerate(seeds):
+            key = prng.fold_in(prng.key(seed, x64=x64), slot)
+            assert torch.equal(w[r], sk.sample_worker_batch_weights(key, t, nv, L, b, dtype))
+            assert _same([v[r] for v in idx], sk.sample_batch_indices(key, t, nv, L, b, dtype))
+            assert _same([v[r] for v in rows], sk.sample_worker_batches(key, t, X, y, nv, b))
+    # And the plain versions' stack, on the card's inputs.
+    keys = prng.keys(seeds, x64=x64, tags=(1,), device=cuda_device)
+    assert torch.equal(sk.sample_worker_batch_weights(keys, t, nv, L, b, dtype),
+                       sampling.sample_worker_batch_weights(keys, t, nv, L, b, dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_replica_sampling_in_the_workspace(cuda_device):
+    """Survivors past shared memory: R replicas' workers take R·N regions of
+    the workspace, each replica bitwise its single launch."""
+    n, L, b, R = 4, 16_384, 16_384, 3
+    dtype = torch.float32
+    nv = _sampling_n_valid(cuda_device, n, L, b)
+    X, y = _rows(cuda_device, n, L, dtype)
+    t = torch.full((1,), 9, dtype=torch.int64, device=cuda_device)
+    assert sk.workspace_for(R * n, L, b, dtype, cuda_device) is not None
+    keys = prng.keys(REPLICA_SEEDS[:R], x64=False, tags=(0,), device=cuda_device)
+    rows = sk.sample_worker_batches(keys, t, X, y, nv, b)
+    for r, seed in enumerate(REPLICA_SEEDS[:R]):
+        key = prng.fold_in(prng.key(seed, x64=False), 0)
+        assert _same([v[r] for v in rows], sk.sample_worker_batches(key, t, X, y, nv, b))
+
+
+# Fault modes of the replica round: memoryless, timelines, one-peer, and a
+# drop threshold a replica (the swept edge_drop_prob).
+REPLICA_ROUND_MODES = {
+    "both": dict(drop_prob=0.2, straggler_prob=0.1),
+    "bursty-churn": dict(drop_prob=0.3, burst_len=4.0, mttf=10.0, mttr=4.0,
+                         rejoin="neighbor_restart", horizon=60),
+    "participation": dict(drop_prob=0.1, participation_rate=0.7, horizon=60),
+    "one-peer": dict(drop_prob=0.2, straggler_prob=0.1, one_peer=True),
+    "swept": dict(drop_prob="swept"),
+    "swept-bursty": dict(drop_prob="swept", burst_len=2.0, horizon=60),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", REPLICA_COUNTS)
+@pytest.mark.parametrize("graph, n", [("ring", 256), ("erdos_renyi", 64),
+                                      ("directed_erdos_renyi", 64)])
+def test_cuda_replica_round_equals_single_launches(cuda_device, graph, n, R):
+    """One round launch over R replicas' keys, thresholds and stacked
+    timelines: replica r's A_t, W_t (both dtypes), mask, one-peer scores and
+    degree count are the single launch's with replica r's seed, bit for bit."""
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    topo = _draw_topology(graph, n)
+    seeds = list(REPLICA_SEEDS[:R])
+    for mode, kw in REPLICA_ROUND_MODES.items():
+        if topo.directed and mode == "one-peer":
+            continue
+        swept = kw["drop_prob"] == "swept"
+        drops = [0.05 + 0.6 * r / R for r in range(R)] if swept else [kw["drop_prob"]] * R
+        for dtype in (torch.float32, torch.float64):
+            rest = dict(kw, x64=dtype == torch.float64)
+            del rest["drop_prob"]
+            batch = faults.make_faulty_mixing(topo, drops if swept else drops[0], seeds,
+                                              device=cuda_device, **rest)
+            singles = [faults.make_faulty_mixing(topo, drops[r], s, device=cuda_device, **rest)
+                       for r, s in enumerate(seeds)]
+            for t in (0, 7, 61, 2**31 + 3):
+                tt = torch.tensor([t], device=cuda_device)
+                total = torch.zeros(R, dtype=torch.float64, device=cuda_device)
+                dk.reset_launch_counts()
+                rnd = batch.realize(tt, total)
+                assert dk.LAUNCHES["realize_round"] == 1
+                for r in range(R):
+                    one_total = torch.zeros((), dtype=torch.float64, device=cuda_device)
+                    one = singles[r].realize(tt, one_total)
+                    assert float(total[r]) == float(one_total), (mode, t, r)
+                    assert torch.equal(rnd.active[r], one.active)
+                    if one.partner is not None:
+                        assert torch.equal(rnd.partner[r], one.partner), (mode, t, r)
+                    else:
+                        assert torch.equal(rnd.A[r], one.A) and torch.equal(rnd.W[r], one.W)
+                        if one.rejoin is not None:
+                            assert torch.equal(rnd.rejoin[r], one.rejoin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("R", REPLICA_COUNTS)
+@pytest.mark.parametrize("n, d", [(64, 11), (256, 81), (25, 810), (3, 5)])
+def test_cuda_replica_noise_equals_single_launches(cuda_device, n, d, R, dtype):
+    """One noise launch over R tag keys and [R, N] flags (N·d not a multiple
+    of the block at 64 × 11, 25 × 810 and 3 × 5): replica r's stack is the
+    single launch's with key r and flags r, bit for bit."""
+    x64 = dtype == torch.float64
+    seeds = REPLICA_SEEDS[:R]
+    keys = prng.keys(seeds, x64=x64, tags=(0xBAD0,), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.randn((R, n, d), generator=gen, device=cuda_device, dtype=dtype)
+    byz = (torch.rand((R, n), generator=gen, device=cuda_device) < 0.3).to(torch.uint8)
+    for t in (0, 7, 2**31 - 1):
+        tt = torch.tensor([t], device=cuda_device)
+        dk.reset_launch_counts()
+        got = dk.large_noise(keys, tt, byz, x, 5.0)
+        assert dk.LAUNCHES["large_noise"] == 1
+        for r, seed in enumerate(seeds):
+            key = prng.fold_in(prng.key(seed, x64=x64), 0xBAD0)
+            assert torch.equal(got[r], dk.large_noise(key, tt, byz[r].contiguous(),
+                                                      x[r].contiguous(), 5.0)), (t, r)
+
+
+def _counted_batch(cfg, ds, f_opt, R, **kw):
+    from distributed_optimization_tpu_torch.backends import torch_backend
+
+    before = _launch_counts()
+    res = torch_backend.run_batch(cfg, ds, f_opt, seeds=list(REPLICA_SEEDS[:R]), **kw)
+    after = _launch_counts()
+    return res, {name: after[name] - before[name] for name in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 4])
+@pytest.mark.parametrize("fields", [
+    dict(sampling_impl="dense", partition="shuffled", attack="large_noise", n_byzantine=2,
+         attack_scale=5.0, aggregation="trimmed_mean", robust_b=1, edge_drop_prob=0.2,
+         straggler_prob=0.1),
+    dict(edge_drop_prob=0.3, burst_len=4.0, mttf=10.0, mttr=4.0, rejoin="neighbor_restart"),
+    dict(gossip_schedule="one_peer", edge_drop_prob=0.2, algorithm="gradient_tracking"),
+], ids=["noise-iid-dense", "bursty-churn", "one-peer-gt"])
+def test_cuda_batch_graph_run_is_bitwise_its_measured_run(cuda_device, graph_data, fields, R):
+    """A batch's graph run equals its measured run bit for bit (histories,
+    models, floats), and a step launches the sampler, the round and the
+    noise once each, whatever R is; the timeline twice a replica."""
+    base, ds, f_opt = graph_data[fields.get("partition", "sorted")]
+    cfg = base.replace(**fields, n_iterations=60, eval_every=10)
+    graph, glaunch = _counted_batch(cfg, ds, f_opt, R)
+    measured, mlaunch = _counted_batch(cfg, ds, f_opt, R, measure_timestamps=True)
+    assert np.array_equal(graph.objective, measured.objective)
+    assert np.array_equal(graph.consensus_error, measured.consensus_error)
+    assert np.array_equal(graph.final_states["x"], measured.final_states["x"])
+    assert [r.history.total_floats_transmitted for r in graph.results] == \
+        [r.history.total_floats_transmitted for r in measured.results]
+    assert glaunch == mlaunch
+    T = cfg.n_iterations
+    sampler = ("sample_worker_batch_weights" if fields.get("sampling_impl") == "dense"
+               else "sample_worker_batches")
+    assert glaunch[sampler] == T  # one gradient call a step (D-SGD, GT)
+    assert glaunch["realize_round"] == T
+    memoryless = fields.get("burst_len", 0.0) == 0.0
+    assert glaunch["fault_timeline"] == (0 if memoryless else R * dk.TIMELINE_LAUNCHES)
+    assert glaunch["large_noise"] == (T if "attack" in fields else 0)
+    assert np.all(np.isfinite(graph.objective))

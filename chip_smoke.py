@@ -45,7 +45,15 @@ Phases:
      float64 and, in float32, within 1e-5 of the largest |x| over each
      row's closed neighbourhood. No one PyTorch call computes a screen, so
      the library column is empty; the port's multi-op gather form is timed
-     beside it.
+     beside it;
+   - the matrix-free fault form's kernels (``kernels_matrix_free``): the
+     timeline's per-edge stream and the slot round (both dtypes, t inside,
+     at and past the horizon) bitwise their plain versions at the federated
+     phase's cell (ii) (ER N=100,000, p = 16/N, the sparse sampler, 10% iid
+     drops, participation 0.5; its records) and on the ring at N=256
+     (bursty drops, churn, participation); and the dense round on the ring
+     at N=65,537, whose counters i·N + j pass 2³², five rows bitwise the
+     rows-only plain version.
 3. sampling: the two sampling kernels (``ops/sampling_kernels.py``: the dense
    form's [N, L] weights, the gather form's [N, b] indices and weights and
    its gathered rows Xb [N, b, d] and yb [N, b]; one launch a gradient call,
@@ -294,6 +302,26 @@ Phases:
     sequential run's and its gaps within 1e-4 relative of them (float32,
     two product orders); the robust cell under large_noise at R = 4: the
     noise T times.
+22. federated: the JAX package's federated-scale cells on one card
+    (quadratic, 16 features, float32; ``FEDERATED_BASE``), each with its
+    graph and timeline set-up seconds, graph iters/s, peak device memory,
+    gaps and resolved representation and sampler: (i)
+    ``examples/bench_federated.py``'s ER scale cells (p = 12/N, n_samples =
+    2N, b = 4, T = 100, an eval at 100), 'neighbor' at N = 1,024, 4,096
+    and 10,000 and 'dense' below 10,000, timed over 1,000 iterations (the
+    T = 100 run bitwise the timed run's first eval at N = 1,024), the
+    N = 1,024 pair in float64 within 1e-12; (ii) ``bench_worker_mesh.py``'s
+    er_100k_p4_sparse unsharded (N = 100,000, p = 16/N, topology_seed 1,
+    T = 50, eval every 25; 'auto' takes the matrix-free graph and the
+    sparse sampler): the table's digest the JAX package's
+    (``ER_100K_DIGEST``), fault-free floats 2|E|·d·T, under 10% iid drops
+    and participation 0.5 the floats the live slots of the run's own
+    timeline × d, ``realize_slot_round`` twice a step and
+    ``fault_timeline`` twice a run, and in float64 at T = 10 the card
+    within 1e-12 of the CPU; (iii) ``bench_mesh_scale.py``'s ring_1m_p16
+    unsharded (ring N = 1,000,000, neighbor, gather, b = 1, timed over 100
+    iterations with an eval every 10, whose first eval the cell's own T = 10
+    run equals bit for bit).
 
 Every run goes through the port's run loop: after a warm-up chunk, CUDA
 graph replays (``backends/torch_backend.py``). The kernels count their own
@@ -309,7 +337,8 @@ stragglers, three of ``FAULT_ROWS``' N=64 cells, CHOCO with random_k and
 compressed GT with qsgd on the main path's data, D-SGD on the topologies phase's ER graph
 under dense, gather and sparse, push-sum on its directed ER, Huber at
 N=256, softmax K=10 at N=25, and the compute-bound cell at d=4,096 under
-both precisions, 40 iterations at eval every 10), each as the
+both precisions, 40 iterations at eval every 10, and the federated phase's
+cells, ``_profile_federated``), each as the
 graph run and as the ``measure_timestamps=True`` run, over the iterations
 after the warm-up chunk; ``ab`` (``--phases card,ab --ab-baseline DIR``,
 DIR the root of another checkout, such as an unpacked ``git archive`` of
@@ -339,11 +368,11 @@ import time
 
 PHASES = ("card", "kernels", "sampling", "reference", "parity", "main", "mixing", "fc", "admm",
           "tracking", "compression", "topologies", "push_sum", "study", "byzantine", "robust",
-          "robust_mixing", "objectives", "faults", "churn", "replicas")
+          "robust_mixing", "objectives", "faults", "churn", "replicas", "federated")
 # Run only when asked for: profile, a torch.profiler trace of the main
-# path's, the admm ring's and the robust cell's steady loops, graph and
-# measured; ab (with --ab-baseline), every kernel's wrapper against another
-# tree's on the same input, bitwise and in a graph in turns.
+# path's, the admm ring's, the robust cell's and the federated cells' steady
+# loops, graph and measured; ab (with --ab-baseline), every kernel's wrapper
+# against another tree's on the same input, bitwise and in a graph in turns.
 OPTIONAL_PHASES = ("profile", "ab")
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; 67 TFLOP/s float32 and
@@ -403,6 +432,8 @@ SOURCES = {
     "sample_worker_batches, replica axis": "sampling_kernels.cu",
     "realize_round, replica axis": "draw_kernels.cu",
     "large_noise, replica axis": "draw_kernels.cu",
+    "realize_slot_round": "draw_kernels.cu",
+    "fault_timeline, per-edge stream": "draw_kernels.cu",
 }
 REPLACES = {
     "fused_ring_dsgd_step": f"{PALLAS}:143", "ring_mix": f"{PALLAS}:137",
@@ -421,6 +452,10 @@ REPLACES = {
     "realize_round": "distributed_optimization_tpu/parallel/faults.py:223",
     "fault_timeline": "distributed_optimization_tpu/parallel/faults.py:419",
     "large_noise": "distributed_optimization_tpu/parallel/adversary.py:126",
+    # The matrix-free fault form: _make_gather_faulty_mixing's round (live,
+    # weights, degree sum) and build_fault_timeline's per-edge draws.
+    "realize_slot_round": "distributed_optimization_tpu/parallel/faults.py:1133",
+    "fault_timeline, per-edge stream": "distributed_optimization_tpu/parallel/faults.py:489",
 }
 # The replica axis (run_batch): the same four kernels, one launch for R
 # replicas (the replicas phase).
@@ -814,6 +849,49 @@ COMPUTE_BOUND_TOL = {"gap": 1e-7, "models": 1e-4}
 # NVIDIA H100 SXM data sheet, dense: TF32 on the tensor cores (FP32 is
 # PEAK_FLOPS["float32"], outside them).
 PEAK_TF32_FLOPS = 495e12
+
+
+# The federated phase: the JAX package's federated-scale cells, unsharded on
+# one card, quadratic with 16 features in float32 (FEDERATED_BASE).
+# (i) examples/bench_federated.py:205-220: ER at mean degree 12 (p = 12/N),
+# n_samples = 2N, b = 4, T = 100 with an eval at 100; 'neighbor' at every
+# N, 'dense' below its DENSE_SKIP_N. Each cell runs for FEDERATED_TIMED_T
+# iterations with an eval every 100: its first eval is the cell's gap at
+# 100 (the trajectory's prefix; the N=1,024 cell's own T=100 run is held
+# bitwise to it), its 9 replays time the graph.
+FEDERATED_BASE = dict(problem_type="quadratic", n_features=16, n_informative_features=10,
+                      algorithm="dsgd", dtype="float32")
+FEDERATED_SCALE_N = (1024, 4096, 10_000)
+FEDERATED_DENSE_SKIP_N = 10_000
+FEDERATED_SCALE_T = 100
+FEDERATED_TIMED_T = 1_000
+# (ii) examples/bench_worker_mesh.py:72-74's er_100k_p4_sparse on one card:
+# 'auto' resolves to the matrix-free graph and the sparse sampler. Once
+# fault-free and once under ER_100K_FAULTS, then float64 at ER_100K_F64_T
+# against the CPU.
+ER_100K = dict(topology="erdos_renyi", n_workers=100_000, erdos_renyi_p=16 / 100_000,
+               topology_seed=1, n_samples=200_000, local_batch_size=4, n_iterations=50,
+               eval_every=25)
+ER_100K_FAULTS = dict(edge_drop_prob=0.1, participation_rate=0.5)
+ER_100K_F64_T = 10
+# sha256 (first 16 hex digits) of the cell's nbr_idx and nbr_mask bytes, from
+# the JAX package's sparse sampler (tests/test_torch_matrix_free.py
+# recomputes it).
+ER_100K_DIGEST = "150f77251db3d2c9"
+# (iii) examples/bench_mesh_scale.py:62-66's ring_1m_p16 on one card: one
+# sample a worker, b = 1, T = 10 with an eval at 10 (timed as T = 100,
+# an eval every 10).
+RING_1M = dict(topology="ring", n_workers=1_000_000, n_samples=1_000_000, local_batch_size=1,
+               topology_impl="neighbor", mixing_impl="gather")
+RING_1M_T = 10
+RING_1M_TIMED_T = 100
+# The matrix-free kernels' rows: cell (ii)'s graph and processes (the path's
+# shape), and the ring at N=256 under bursty drops, churn and participation.
+SLOT_ROWS = {"er_100k": (ER_100K_FAULTS, ER_100K["n_iterations"]),
+             "ring_256": (dict(edge_drop_prob=0.2, burst_len=8.0, mttf=60.0, mttr=25.0,
+                               rejoin="neighbor_restart", participation_rate=0.7), 60)}
+# The dense round past i·N + j = 2³²: a ring of this N.
+DENSE_ROUND_N = 65_537
 
 
 class PhaseFailed(RuntimeError):
@@ -2530,16 +2608,32 @@ def _round_is_the_twin_s(torch, dk, fm, t, dtype, graph, n, mode) -> int:
                 "version")
 
 
-def timeline_bound(horizon: int, edges: int, nodes: int, part: int, streams: int):
-    """The timeline: the [E, 2] int32 edge list read once, one byte an
-    (iteration, edge or node) written (node_up and rejoin for the chain);
-    each iteration a round key a stream and one Threefry call and compare an
-    entity."""
-    nbytes = 8 * edges + horizon * (edges + 2 * nodes + part)
+def timeline_bound(horizon: int, edges: int, nodes: int, part: int, streams: int,
+                   edge_list: bool = True):
+    """The timeline: the [E, 2] int32 edge list read once (none on the
+    per-edge stream), one byte an (iteration, edge or node) written
+    (node_up and rejoin for the chain); each iteration a round key a stream
+    and one Threefry call and compare an entity."""
+    nbytes = 8 * edges * edge_list + horizon * (edges + 2 * nodes + part)
     ops = horizon * ((THREEFRY_OPS + 2) * (edges + nodes + part) + THREEFRY_OPS * streams)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_INT32_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def slot_round_bound(tables, row_bytes: int, itemsize: int, live_slots: int):
+    """(ms, 'bytes' or 'operations') for one slot round: t and the counts
+    read once, the neighbour and edge-id entries of the real slots only
+    (cnt's sum: neither table is read at a padded slot), the timeline's row
+    (``row_bytes``) once; live [N, k] float32, w [N, k] and w_self [N] in
+    ``itemsize`` bytes, active [N] and the degree total (read and written)
+    written once; a max, an add and a divide a live slot (``live_slots``,
+    this round's)."""
+    n, k = tables.nbr.shape
+    real = int(tables.cnt.sum())
+    nbytes = 8 + 4 * real * (1 + (tables.eid is not None)) + 4 * n + row_bytes
+    nbytes += (4 + itemsize) * n * k + (4 + itemsize) * n + 16
+    return _bound(nbytes, 3 * live_slots, "float32" if itemsize == 4 else "float64")
 
 
 def noise_bound(n: int, d: int, n_byz: int, dtype_name: str, itemsize: int):
@@ -2759,21 +2853,12 @@ def full_width_runs(torch, np, pkg, kernels, data, label="faults"):
     ds, f_opt = data["main"]
     T = cfg.n_iterations
     topo = pkg.build_topology("ring", cfg.n_workers)
-    made = []  # the main run's FaultyMixing, as the run built it
-    make = torch_backend.make_faulty_mixing
-
-    def keep(*args, **kw):
-        made.append(make(*args, **kw))
-        return made[-1]
-
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
         host = pool.submit(faults.timeline_for_config, cfg, topo, T, device="cpu")
-        torch_backend.make_faulty_mixing = keep
-        try:
+        # made: the main run's FaultyMixing, as the run built it.
+        with _kept(torch_backend, "make_faulty_mixing") as made:
             res, launches = _converging_run(torch, pkg, counters, cfg, ds, f_opt,
                                             f"{label} full width", converges=False)
-        finally:
-            torch_backend.make_faulty_mixing = make
         h = res.history
         say(f"[{label}] full width, main's shapes under bursty drops and churn: set-up "
             f"{h.fault_setup_seconds:.4f} s (timeline included), warm-up and capture "
@@ -3275,6 +3360,292 @@ def phase_replicas(torch, np, pkg, kernels, main_res=None):
     return records, counted
 
 
+def _slot_topology(pkg, label):
+    """The matrix-free graph of a SLOT_ROWS row."""
+    if label == "er_100k":
+        return pkg.build_topology("erdos_renyi", ER_100K["n_workers"],
+                                  erdos_renyi_p=ER_100K["erdos_renyi_p"],
+                                  seed=ER_100K["topology_seed"], impl="neighbor",
+                                  sampler="sparse")
+    return pkg.build_topology("ring", 256, impl="neighbor")
+
+
+def _slot_round_is_the_twin_s(torch, dk, fm, t, dtype, what):
+    """One launch pair of the slot round against its plain version on the
+    same card tensors: live, w, w_self, active and the degree count bit for
+    bit."""
+    tt = torch.tensor([t], device="cuda")
+    total = torch.full((), 5.0, dtype=torch.float64, device="cuda")
+    want_total = torch.full((), 5.0, dtype=torch.float64, device="cuda")
+    got = dk.realize_slot_round(tt, fm._slots, fm._tl, weights=dtype, degree_total=total)
+    want = dk.realize_slot_round_plain(tt, fm._slots, fm._tl, weights=dtype,
+                                       degree_total=want_total)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(total, want_total),
+          f"realize_slot_round {what} {dtype} t={t}: not bitwise its plain version")
+
+
+def kernels_matrix_free(torch, np, dk, pkg):
+    """The matrix-free fault form's two kernel forms against their plain
+    versions on the card, bitwise, at cell (ii)'s shape (ER N=100,000, p =
+    16/N, the sparse sampler, 10% iid drops and participation 0.5) and on
+    the ring at N=256 (bursty drops, churn, participation): the timeline's
+    per-edge stream, and the slot round in both dtypes inside, at and past
+    the horizon; each timed at cell (ii)'s shape (its record). Then the
+    dense round past the 32-bit counter (``dense_round_past_2_32``)."""
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    dev = torch.device("cuda")
+    records = {}
+    for label, (kw, horizon) in SLOT_ROWS.items():
+        topo = _slot_topology(pkg, label)
+        processes = {k: v for k, v in kw.items() if k != "rejoin"}
+        args, edge_index = faults.timeline_args(topo, 203, device=dev, x64=False,
+                                                **_timeline_kw(processes))
+        check(args["edges"] is None and args["n_edges"] == len(edge_index),
+              f"{label}: the timeline is not on the per-edge stream")
+        plain = _timeline_is_the_twin_s(torch, dk, args, horizon, dev, f"per-edge {label}")
+        edges, nodes = len(edge_index), (topo.n if args["node_chain"] is not None else 0)
+        part = topo.n if args["p_out"] is not None else 0
+        streams = 1 + (nodes > 0) + (part > 0)
+
+        def call():
+            return dk.fault_timeline(horizon=horizon, device=dev, **args)
+
+        ms = time_ms(torch, call, n=20)
+        in_graph = graph_ms(torch, call, n=20)
+        b_ms, b_by = timeline_bound(horizon, edges, nodes, part, streams, edge_list=False)
+        shape = (horizon, edges + nodes + part)
+        _kernel_line("fault_timeline, per-edge stream", shape, "bool", 0.0, ms, plain, None,
+                     b_ms, b_by, f" ({label}: {processes}), in a graph {in_graph * 1e3:.3f} us")
+        if label == "er_100k":
+            records["fault_timeline, per-edge stream"] = _record(
+                "fault_timeline, per-edge stream", 0.0, ms, plain, b_ms, b_by, None,
+                graph_ms=in_graph, shape=list(shape), dtype="bool")
+        fm_kw = dict(kw, drop_prob=kw["edge_drop_prob"])
+        del fm_kw["edge_drop_prob"]
+        for dtype in (torch.float32, torch.float64):
+            fm = faults.make_faulty_mixing(topo, seed=203, horizon=horizon, device=dev,
+                                           x64=dtype == torch.float64, **fm_kw)
+            for t in (0, 17, horizon - 1, horizon, horizon + 40):
+                _slot_round_is_the_twin_s(torch, dk, fm, t, dtype, label)
+        fm = faults.make_faulty_mixing(topo, seed=203, horizon=horizon, device=dev, **fm_kw)
+        tt = torch.tensor([17], device=dev)
+        total = torch.zeros((), dtype=torch.float64, device=dev)
+
+        def slot():
+            return dk.realize_slot_round(tt, fm._slots, fm._tl, degree_total=total)
+
+        ms = time_ms(torch, slot)
+        in_graph = graph_ms(torch, slot)
+        plain = time_ms(torch, lambda: dk.realize_slot_round_plain(
+            tt, fm._slots, fm._tl, degree_total=total), n=20)
+        row_bytes = sum(x.shape[-1] for x in fm._tl if x is not None)
+        live_slots = int(dk.realize_slot_round_plain(tt, fm._slots, fm._tl).live.sum())
+        b_ms, b_by = slot_round_bound(fm._slots, row_bytes, 4, live_slots)
+        n, k = fm._slots.nbr.shape
+        _kernel_line("realize_slot_round", (n, k), "float32", 0.0, ms, plain, None, b_ms, b_by,
+                     f" ({label}: {kw}; two launches), in a graph {in_graph * 1e3:.3f} us")
+        if label == "er_100k":
+            records["realize_slot_round"] = _record(
+                "realize_slot_round", 0.0, ms, plain, b_ms, b_by, None, graph_ms=in_graph,
+                shape=[n, k], dtype="float32")
+        del fm
+    say("[kernels] the timeline's per-edge stream and realize_slot_round (live, w, w_self, "
+        "active, the degree count; W in float32 and float64; t inside, at and past the "
+        f"horizon) bitwise their plain versions at {', '.join(SLOT_ROWS)}")
+    dense_round_past_2_32(torch, dk, pkg)
+    return records
+
+
+def dense_round_past_2_32(torch, dk, pkg):
+    """The dense round at N = DENSE_ROUND_N on the ring, where the counter
+    i·N + j passes 2³², under 20% drops and 10% stragglers: A_t and W_t (2 ×
+    17.2 GB in float32) from tables built of the matrix-free ring's own
+    table (no [N, N] host array), five rows bitwise the rows-only plain
+    version at two counters."""
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    dev = torch.device("cuda")
+    n = DENSE_ROUND_N
+    topo = pkg.build_topology("ring", n, impl="neighbor")
+    tables = faults.round_tables(topo, device=dev)
+    keys = faults._tag_keys(203, False, faults.FAULT_TAG, faults.NODE_TAG, faults.MATCH_TAG)
+    rows = [0, 1, n // 2, n - 2, n - 1]
+    kw = dict(drop_prob=0.2, straggler_prob=0.1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for t in (17, 2**32 + 3):
+        tt = torch.tensor([t], device=dev)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = dk.realize_round(tt, keys, tables, weights=torch.float32, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        got = (out.A[rows].clone(), out.W[rows].clone(), out.active[rows].clone())
+        del out
+        want = dk.realize_round_rows_plain(tt, keys, tables, rows, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"realize_round at N={n} t={t}: rows not bitwise the rows-only plain version")
+        say(f"[kernels] realize_round at ring N={n} (counters to {(n - 1) * n + n - 1:,} > 2^32), "
+            f"t={t}: rows {rows} bitwise the rows-only plain version; one launch "
+            f"{start.elapsed_time(end):.1f} ms (A_t and W_t {2 * 4 * n * n / 1e9:.1f} GB), "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    torch.cuda.empty_cache()
+
+
+def _fed_run(torch, pkg, counters, cfg, ds, f_opt, label):
+    """One federated cell on the card: its graph and timeline set-up,
+    warm-up and capture, graph iters/s, peak device memory and gaps.
+    Returns (result, launches, the topology the run built)."""
+    from distributed_optimization_tpu_torch.backends import torch_backend
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _kept(torch_backend, "build_topology") as built:
+        res, launches = _converging_run(torch, pkg, counters, cfg, ds, f_opt, label,
+                                        converges=False)
+    peak = torch.cuda.max_memory_allocated()
+    check(len(built) == 1, f"federated {label}: {len(built)} graphs built, not one")
+    topo, h = built[0], res.history
+    say(f"[federated] {label}: N={cfg.n_workers} {cfg.topology} "
+        f"impl={cfg.resolved_topology_impl()} sampler={cfg.resolved_topology_sampler()} "
+        f"k_max={int(topo.degrees.max())}: graph set-up {h.topology_setup_seconds:.3f} s, "
+        f"timeline set-up "
+        f"{h.fault_setup_seconds:.4f} s, warm-up and capture {h.compile_seconds:.2f} s, "
+        f"{h.iters_per_second:.1f} iters/s in the graph, peak device memory "
+        f"{peak / 2**20:.1f} MiB, gap at {int(h.eval_iterations[0])} {h.objective[0]:.6f}, "
+        f"final gap {h.objective[-1]:.6f}, spectral gap {h.spectral_gap:.6g}")
+    return res, launches, topo
+
+
+def _table_digest(topo) -> str:
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(topo.nbr_idx).tobytes())
+    h.update(np.ascontiguousarray(topo.nbr_mask).tobytes())
+    return h.hexdigest()[:16]
+
+
+def phase_federated(torch, np, pkg, kernels):
+    """The JAX package's federated-scale cells on one card: (i)
+    bench_federated.py's ER scale cells, neighbor at N = 1,024, 4,096 and
+    10,000, dense below 10,000, and the N=1,024 pair in float64 within
+    1e-12; (ii) er_100k_p4_sparse fault-free and under 10% iid drops with
+    participation 0.5 (the table's digest the CPU build's, the floats exact,
+    float64 against the CPU at T = 10 within 1e-12); (iii) ring_1m_p16.
+    Returns the launches of the faulted cell (ii) run."""
+    from distributed_optimization_tpu_torch.backends import torch_backend
+
+    dk, sk, rk, bk = kernels["dk"], kernels["sk"], kernels["rk"], kernels["bk"]
+    counters = [dk, sk, rk, bk]
+    base = pkg.ExperimentConfig(**FEDERATED_BASE)
+    d = base.n_features + 1
+
+    # (i) the scale cells.
+    for n in FEDERATED_SCALE_N:
+        cell = base.replace(n_workers=n, n_samples=2 * n, topology="erdos_renyi",
+                            erdos_renyi_p=12.0 / n, local_batch_size=4,
+                            n_iterations=FEDERATED_TIMED_T, eval_every=FEDERATED_SCALE_T)
+        ds = pkg.generate_synthetic_dataset(cell)
+        _, f_opt = pkg.compute_reference_optimum(ds, cell.reg_param)
+        impls = ("neighbor", "dense") if n < FEDERATED_DENSE_SKIP_N else ("neighbor",)
+        gaps = {}
+        for impl in impls:
+            cfg = cell.replace(topology_impl=impl)
+            res, launches, topo = _fed_run(torch, pkg, counters, cfg, ds, f_opt,
+                                           f"scale N={n} {impl}")
+            # A shard of L = 2 rows under b = 4 is the whole batch (no
+            # sampler), and the gather and dense mixes are PyTorch's: no
+            # kernel launches.
+            check(not any(launches.values()), f"federated scale N={n} {impl}: launches {launches}")
+            check(res.history.total_floats_transmitted
+                  == topo.floats_per_iteration * d * cfg.n_iterations,
+                  f"federated scale N={n} {impl}: floats not 2|E|·d·T")
+            gaps[impl] = res.history.objective[0]
+            if n == FEDERATED_SCALE_N[0] and impl == "neighbor":
+                # The cell's own config (T = 100, one eval): the timed run's
+                # first eval, bit for bit.
+                own = cfg.replace(n_iterations=FEDERATED_SCALE_T)
+                one, _ = _converging_run(torch, pkg, counters, own, ds, f_opt,
+                                         f"federated scale N={n} T={FEDERATED_SCALE_T}",
+                                         converges=False)
+                check(np.array_equal(one.history.objective, res.history.objective[:1]),
+                      "federated: the cell's T=100 gap is not the timed run's first eval")
+        say(f"[federated] scale N={n}: gap at {FEDERATED_SCALE_T} "
+            + ", ".join(f"{k} {v:.6f}" for k, v in gaps.items()))
+        if n == FEDERATED_SCALE_N[0]:
+            f64 = cell.replace(dtype="float64", n_iterations=FEDERATED_SCALE_T)
+            nb = pkg.run(f64.replace(topology_impl="neighbor"), ds, f_opt, device="cuda")
+            dn = pkg.run(f64.replace(topology_impl="dense"), ds, f_opt, device="cuda")
+            diff = float(np.abs(nb.final_models - dn.final_models).max())
+            say(f"[federated] scale N={n} float64 T={FEDERATED_SCALE_T}: neighbor against dense "
+                f"final models {diff:.3e} apart, floats {nb.history.total_floats_transmitted:.0f} "
+                f"and {dn.history.total_floats_transmitted:.0f}")
+            check(diff <= 1e-12 and nb.history.total_floats_transmitted
+                  == dn.history.total_floats_transmitted,
+                  f"federated scale N={n}: neighbor and dense float64 models {diff:.3e} apart")
+
+    # (ii) er_100k_p4_sparse, unsharded.
+    cfg = base.replace(**ER_100K)
+    check(cfg.resolved_topology_impl() == "neighbor" and cfg.resolved_topology_sampler()
+          == "sparse", "federated er_100k: 'auto' does not resolve to neighbor + sparse")
+    ds = pkg.generate_synthetic_dataset(cfg)
+    _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
+    res, launches, topo = _fed_run(torch, pkg, counters, cfg, ds, f_opt, "er_100k fault-free")
+    digest = _table_digest(topo)
+    say(f"[federated] er_100k: table digest {digest} (the JAX package's sparse build "
+        f"{ER_100K_DIGEST}), E = {int(topo.degrees.sum()) // 2:,}")
+    check(digest == ER_100K_DIGEST, "federated er_100k: the table differs from the CPU build's")
+    check(res.history.total_floats_transmitted == topo.floats_per_iteration * d * cfg.n_iterations
+          and not any(launches.values()),
+          f"federated er_100k fault-free: floats or launches {launches}")
+    faulted = cfg.replace(**ER_100K_FAULTS)
+    with _kept(torch_backend, "make_faulty_mixing") as made:
+        res, fault_launches, _ = _fed_run(torch, pkg, counters, faulted, ds, f_opt,
+                                          "er_100k faulted")
+    T = faulted.n_iterations
+    check(_only(fault_launches, realize_slot_round=dk.SLOT_ROUND_LAUNCHES * T,
+                fault_timeline=dk.TIMELINE_LAUNCHES) == fault_launches and len(made) == 1,
+          f"federated er_100k faulted: launches {fault_launches}")
+    # The floats: each round's live slots, counted on the host from the
+    # timeline the run drew.
+    tl = made[0].timeline
+    ei, ej = tl.edge_index[:, 0], tl.edge_index[:, 1]
+    live_edges = tl.edge_up & tl.part_up[:, ei] & tl.part_up[:, ej]
+    want = 2.0 * float(live_edges.sum()) * d
+    say(f"[federated] er_100k faulted: floats {res.history.total_floats_transmitted:.0f}, from "
+        f"the run's timeline on the host {want:.0f}; the fault-free cell's "
+        f"{topo.floats_per_iteration * d * T:.0f}")
+    check(res.history.total_floats_transmitted == want,
+          "federated er_100k faulted: floats not the timeline's live slots × d")
+    del made
+    f64 = faulted.replace(dtype="float64", n_iterations=ER_100K_F64_T,
+                          eval_every=ER_100K_F64_T // 2)
+    card = pkg.run(f64, ds, f_opt, device="cuda")
+    host = pkg.run(f64, ds, f_opt, device="cpu")
+    _agree(f"er_100k faulted float64 T={ER_100K_F64_T}", card, host, phase="federated")
+    check(card.history.total_floats_transmitted == host.history.total_floats_transmitted,
+          "federated er_100k float64: card and CPU floats differ")
+
+    # (iii) ring_1m_p16, unsharded.
+    cfg = base.replace(**RING_1M, n_iterations=RING_1M_TIMED_T, eval_every=RING_1M_T)
+    ds = pkg.generate_synthetic_dataset(cfg)
+    _, f_opt = pkg.compute_reference_optimum(ds, cfg.reg_param)
+    res, launches, topo = _fed_run(torch, pkg, counters, cfg, ds, f_opt, "ring_1m")
+    check(not any(launches.values())
+          and res.history.total_floats_transmitted == 2 * cfg.n_workers * d * cfg.n_iterations,
+          f"federated ring_1m: launches {launches} or floats")
+    own = cfg.replace(n_iterations=RING_1M_T)
+    one, _ = _converging_run(torch, pkg, counters, own, ds, f_opt,
+                             f"federated ring_1m T={RING_1M_T}", converges=False)
+    check(np.array_equal(one.history.objective, res.history.objective[:1]),
+          "federated ring_1m: the cell's T=10 gap is not the timed run's first eval")
+    return fault_launches
+
+
 AB_MODULES = {"rk": "ring_kernels", "fk": "fc_kernels", "bk": "robust_kernels",
               "sk": "sampling_kernels", "ck": "compression_kernels", "dk": "draw_kernels"}
 
@@ -3373,6 +3744,8 @@ def ab_calls(torch, np, pkg, topology) -> dict:
     _, n_t, horizon, kw = TIMELINE_SHAPES[0]
     args, _ = faults.timeline_args(pkg.build_topology("ring", n_t), 203, device=dev, x64=False,
                                    **_timeline_kw(kw))
+    # A dense graph's arguments (the per-edge stream's n_edges left out).
+    args = {k: v for k, v in args.items() if not (k == "n_edges" and v is None)}
     calls["fault_timeline"] = lambda m: lambda: m["dk"].fault_timeline(
         horizon=horizon, device=dev, **args)
     n_n, d_n = NOISE_SHAPE
@@ -3571,6 +3944,24 @@ def objectives_softmax(torch, np, pkg, counters, ck, card):
         f"softmax K=10 N={n} T={T} float32 pallas",
         {"sample_worker_batches": T, "fused_ring_dsgd_step": T}, card)
     return counted
+
+
+@contextlib.contextmanager
+def _kept(module, name: str):
+    """Within the block, each call of ``module.name`` keeps its result in
+    the list yielded (a run's own topology or fault process, as the run
+    built it)."""
+    made, fn = [], getattr(module, name)
+
+    def keep(*args, **kw):
+        made.append(fn(*args, **kw))
+        return made[-1]
+
+    setattr(module, name, keep)
+    try:
+        yield made
+    finally:
+        setattr(module, name, fn)
 
 
 @contextlib.contextmanager
@@ -3907,6 +4298,33 @@ def phase_profile(torch, pkg, steady, T: int = 300):
                                    matmul_precision=precision)
         _profile_run(torch, pkg, steady, cfg, f"compute-bound d={d_feat} {precision} pallas "
                      "(eval every 10)", cfg.n_iterations, data)
+    _profile_federated(torch, pkg, steady)
+
+
+def _profile_federated(torch, pkg, steady):
+    """torch.profiler breakdowns of the federated cells' steady loops, graph
+    and measured: ER N=10,000 neighbor (cell (i), T = 400, an eval every
+    100), er_100k fault-free and faulted (T = 100, an eval every 25) and
+    the million-worker ring (T = 40, an eval every 10)."""
+    base = pkg.ExperimentConfig(**FEDERATED_BASE)
+    n = FEDERATED_SCALE_N[-1]
+    cells = (
+        (base.replace(n_workers=n, n_samples=2 * n, topology="erdos_renyi",
+                      erdos_renyi_p=12.0 / n, local_batch_size=4, n_iterations=400,
+                      eval_every=FEDERATED_SCALE_T, topology_impl="neighbor"),
+         f"federated scale N={n} neighbor"),
+        (base.replace(**dict(ER_100K, n_iterations=100)), "federated er_100k fault-free"),
+        (base.replace(**dict(ER_100K, n_iterations=100), **ER_100K_FAULTS),
+         "federated er_100k faulted"),
+        (base.replace(**RING_1M, n_iterations=40, eval_every=RING_1M_T), "federated ring_1m"),
+    )
+    data = {}
+    for cfg, label in cells:
+        key = (cfg.n_workers, cfg.topology)
+        if key not in data:
+            ds = pkg.generate_synthetic_dataset(cfg)
+            data[key] = (ds, pkg.compute_reference_optimum(ds, cfg.reg_param)[1])
+        _profile_run(torch, pkg, steady, cfg, label, cfg.n_iterations, data[key])
 
 
 def main(argv=None) -> int:
@@ -3959,6 +4377,7 @@ def main(argv=None) -> int:
     records = {}
     if "kernels" in phases:
         records = phase_kernels(torch, np, kernels, topology, make_gather_robust_aggregator)
+        records.update(kernels_matrix_free(torch, np, dk, pkg))
         lap("kernels")
     if "sampling" in phases:
         records.update(phase_sampling(torch, np, sk, sampling, prng))
@@ -3994,6 +4413,11 @@ def main(argv=None) -> int:
             "replicas: main's shapes, bursty drops, churn, sign-flip, R=4, once a step",
         "large_noise, replica axis":
             "replicas: robust cell under large_noise, gather trimmed mean, R=4, once a step",
+        "realize_slot_round":
+            "federated: er_100k (ER N=100,000, sparse sampler), 10% iid drops, participation "
+            "0.5, two launches a step",
+        "fault_timeline, per-edge stream":
+            "federated: er_100k under 10% iid drops and participation 0.5, two launches a run",
     }
     counted = {}
     if "parity" in phases:
@@ -4073,6 +4497,13 @@ def main(argv=None) -> int:
         records.update(replica_records)
         counted.update({name: {name: launches} for name, launches in replica_counted.items()})
         lap("replicas")
+
+    if "federated" in phases:
+        launches = phase_federated(torch, np, pkg, kernels)
+        counted["realize_slot_round"] = {"realize_slot_round": launches["realize_slot_round"]}
+        counted["fault_timeline, per-edge stream"] = {
+            "fault_timeline, per-edge stream": launches["fault_timeline"]}
+        lap("federated")
 
     if "profile" in phases:
         from distributed_optimization_tpu_torch.backends.torch_backend import STEADY_LOOP

@@ -27,6 +27,7 @@ from distributed_optimization_tpu_torch.config import (
     GOSSIP_SCHEDULES,
     LR_SCHEDULES,
     MATMUL_PRECISIONS,
+    MATRIX_FREE_AUTO_N,
     MIXING_IMPLS,
     PARTITIONS,
     PROBLEM_TYPES,
@@ -34,6 +35,8 @@ from distributed_optimization_tpu_torch.config import (
     ROBUST_IMPLS,
     SAMPLING_IMPLS,
     TOPOLOGIES,
+    TOPOLOGY_IMPLS,
+    TOPOLOGY_SAMPLERS,
     ExperimentConfig,
 )
 
@@ -98,6 +101,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'pallas' selects the hand-written CUDA ring and fc kernels; "
                         "'gather' the neighbour table (undirected graphs), 'sparse' "
                         "the in-edge lists (any graph)")
+    p.add_argument("--topology-impl", choices=TOPOLOGY_IMPLS, default=_DEFAULTS.topology_impl,
+                   help="topology representation: 'neighbor' builds the matrix-free "
+                        "padded [N, k_max] neighbor table (ring/grid/chain/erdos_renyi; "
+                        "the only form that fits N >= 10k), 'dense' the [N, N] "
+                        f"matrices; 'auto' = neighbor from {MATRIX_FREE_AUTO_N} workers "
+                        "when no dense-only feature is requested")
+    p.add_argument("--topology-sampler", choices=TOPOLOGY_SAMPLERS,
+                   default=_DEFAULTS.topology_sampler,
+                   help="Erdős–Rényi graph sampler: 'dense' replays the [N, N] uniform "
+                        "stream bit-for-bit (O(N²) draws), 'sparse' draws O(N·k_max) — "
+                        "the million-worker path, a different realization of the same "
+                        "G(n, p) law. 'auto' = dense below N=65,536 on the matrix-free "
+                        "ER path, sparse above")
     p.add_argument("--sampling-impl", choices=SAMPLING_IMPLS, default=_DEFAULTS.sampling_impl)
     p.add_argument("--dtype", choices=DTYPES, default=_DEFAULTS.dtype)
     p.add_argument("--matmul-precision", choices=MATMUL_PRECISIONS,
@@ -182,6 +198,8 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         local_steps=args.local_steps,
         suboptimality_threshold=args.suboptimality_threshold,
         mixing_impl=args.mixing_impl,
+        topology_impl=args.topology_impl,
+        topology_sampler=args.topology_sampler,
         sampling_impl=args.sampling_impl,
         dtype=args.dtype,
         matmul_precision=args.matmul_precision,
@@ -250,6 +268,8 @@ def main(argv: list[str] | None = None) -> int:
         "device": str(device),
         "algorithm": cfg.algorithm,
         "topology": cfg.topology,
+        "topology_impl": cfg.resolved_topology_impl(),
+        "topology_sampler": cfg.resolved_topology_sampler(),
         "n_workers": cfg.n_workers,
         "problem_type": cfg.problem_type,
         "mixing_impl": cfg.mixing_impl,
@@ -300,6 +320,8 @@ def _report_batch(args, cfg, batch, device) -> int:
         "device": str(device),
         "algorithm": cfg.algorithm,
         "topology": cfg.topology,
+        "topology_impl": cfg.resolved_topology_impl(),
+        "topology_sampler": cfg.resolved_topology_sampler(),
         "n_workers": cfg.n_workers,
         "problem_type": cfg.problem_type,
         "replicas": stats.n_replicas,

@@ -16,7 +16,11 @@ which also gives W_t and adds the realized degrees to the device total
 behind the floats transmitted), its W_t takes the place of the mixing
 operator (and the fused ring step is off), a rejoining node's warm restart
 precedes the step, and inactive nodes' rows of every state leaf are frozen
-after it.
+after it. The graph is built as the config's ``resolved_topology_impl()``
+and ``resolved_topology_sampler()`` say: a matrix-free graph (the [N,
+k_max] neighbour table alone) mixes in gather form, screens on its own
+table and realizes a faulted round as the slot round (one launch pair a
+step, ``draw_kernels.realize_slot_round``), with no [N, N] object.
 
 The run is a sequence of chunks, the counterpart of the JAX package's scan
 over eval chunks: one chunk runs ``eval_every`` iterations and then writes
@@ -295,13 +299,16 @@ def resolve_robust_impl(config, topo: Topology) -> str:
     as the round's first descent)."""
     k_max = int(topo.degrees.max())
     eligible = (not config.time_varying and config.local_steps == 1
+                # A matrix-free graph runs the gather form only.
+                and not topo.is_matrix_free
                 and fused_robust_supported(config.aggregation, k_max, config.clip_tau))
     return config.resolved_robust_impl(k_max, fused_eligible=eligible)
 
 
 def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
                    device: torch.device, dtype: torch.dtype, seeds=None,
-                   clip_tau: Optional[list] = None) -> Optional[Byzantine]:
+                   clip_tau: Optional[list] = None,
+                   faulty: Optional[FaultyMixing] = None) -> Optional[Byzantine]:
     """The Byzantine adversary and robust aggregation of a config, or None
     when it is benign (no attack and no robust rule with a budget). Under a
     time-varying graph each round's screen runs over its realized graph:
@@ -309,7 +316,9 @@ def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
     form on A_t, and the benign mix is the round's. ``seeds`` (a list of R)
     binds the replica axis: each replica's Byzantine set and noise key from
     its seed, ``clip_tau`` a radius a replica where swept, and 'auto' never
-    takes the fused form, as in the JAX package's batch."""
+    takes the fused form, as in the JAX package's batch. ``faulty``: the
+    run's fault process, whose rounds give a matrix-free graph's liveness
+    over its own table."""
     if not config.byzantine_active:
         return None
     if not algo.supports_byzantine:
@@ -337,6 +346,12 @@ def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
             robust_impl = resolve_robust_impl(config, topo)
         else:
             robust_impl = config.resolved_robust_impl(int(topo.degrees.max()))
+        if topo.is_matrix_free and robust_impl != "gather":
+            raise ValueError(
+                f"matrix-free robust aggregation runs in gather form; "
+                f"resolved robust_impl={robust_impl!r} needs the dense "
+                "[N, N] adjacency"
+            )
         rule = (config.aggregation, config.robust_b)
         tau = (config.clip_tau if clip_tau is None
                else torch.tensor(clip_tau, dtype=torch.float64, device=device))
@@ -349,8 +364,13 @@ def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
                 a = rnd.A if rnd is not None else static_a
                 return None, (lambda v: agg(a, v))
         else:
+            # A matrix-free graph's own table, else the adjacency's (the
+            # same layout).
             nbr_idx, nbr_mask = neighbor_tables_for(topo)
-            nbr = torch.as_tensor(nbr_idx, dtype=torch.int64, device=device)
+            if faulty is not None and topo.is_matrix_free:
+                nbr = faulty.own_table(nbr_idx, nbr_mask)
+            else:
+                nbr = torch.as_tensor(nbr_idx, dtype=torch.int64, device=device)
             static_live = torch.as_tensor(nbr_mask, dtype=torch.float32, device=device)
             static_live = static_live.expand(*lead, *static_live.shape)
             table = (*rule, nbr_idx, tau)
@@ -576,6 +596,7 @@ class _Built:
     edge_payload: Optional[float]
     spectral_gap: Optional[float]
     fault_seconds: float
+    topology_seconds: float
 
 
 def _replicate(state: dict, replicas: _Replicas, dev: torch.device) -> dict:
@@ -633,11 +654,17 @@ def _build(config, dataset: HostDataset, f_opt: float, dev: torch.device, *,
 
     mix_op = byz = faulty = None
     fused_mix_step = None
-    fault_seconds = 0.0
+    fault_seconds = topology_seconds = 0.0
     edge_payload = None
     if algo.is_decentralized:
+        # The representation and sampler as replica 0's config resolves
+        # them (each replica's is the base config's graph).
+        t_topo = time.perf_counter()
         topo = build_topology(config.topology, n, erdos_renyi_p=config.erdos_renyi_p,
-                              seed=config.resolved_topology_seed())
+                              seed=config.resolved_topology_seed(),
+                              impl=flags.resolved_topology_impl(),
+                              sampler=flags.resolved_topology_sampler())
+        topology_seconds = time.perf_counter() - t_topo
         mix_op = make_mixing_op(topo, config.mixing_impl, device=dev, dtype=dtype)
         degrees = torch.as_tensor(topo.degrees, dtype=dtype, device=dev)[:, None]
         if algo.comm_payload is not None:
@@ -657,7 +684,8 @@ def _build(config, dataset: HostDataset, f_opt: float, dev: torch.device, *,
             torch.cuda.synchronize(dev)
         fault_seconds = time.perf_counter() - t_fault
         byz = bind_byzantine(config, algo, topo, mix_op, device=dev, dtype=dtype, seeds=seeds,
-                             clip_tau=replicas.values("clip_tau") if replicas else None)
+                             clip_tau=replicas.values("clip_tau") if replicas else None,
+                             faulty=faulty)
         if (replicas is None and byz is None and faulty is None and mix_op.impl == "pallas"
                 and topo.name == "ring"):
             # The fused W x − η g kernel, bound as the JAX package binds its
@@ -744,6 +772,7 @@ def _build(config, dataset: HostDataset, f_opt: float, dev: torch.device, *,
         init_state=init_state, n_evals=n_evals, gap_hist=gap_hist, cons_hist=cons_hist,
         track_consensus=track_consensus, floats_per_iter=floats_per_iter,
         edge_payload=edge_payload, spectral_gap=spectral_gap, fault_seconds=fault_seconds,
+        topology_seconds=topology_seconds,
     )
 
 
@@ -860,6 +889,7 @@ def run(
         compile_seconds=compile_seconds,
         spectral_gap=built.spectral_gap,
         fault_setup_seconds=built.fault_seconds,
+        topology_setup_seconds=built.topology_seconds,
     )
     final_models = state["x"].cpu().numpy().astype(np.float64)
     # Under an attack the reported model is the honest average.
@@ -1107,6 +1137,7 @@ def run_batch(
             compile_seconds=compile_seconds,
             spectral_gap=built.spectral_gap,
             fault_setup_seconds=built.fault_seconds,
+            topology_setup_seconds=built.topology_seconds,
         )
         honest = adversary.honest[r] if adversary is not None else slice(None)
         results.append(BackendRunResult(

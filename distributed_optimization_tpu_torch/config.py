@@ -53,15 +53,13 @@ TOPOLOGY_IMPLS = ("auto", "dense", "neighbor")
 REJOINS = ("frozen", "neighbor_restart")
 GOSSIP_SCHEDULES = ("synchronous", "one_peer", "round_robin")
 TOPOLOGY_SAMPLERS = ("auto", "dense", "sparse")
-# The JAX package's graphs with a matrix-free (neighbour-table) builder, and
-# its N at which topology_impl='auto' takes that builder: there it draws the
-# same tables as the dense builder, so the port builds the dense form and
-# ops/mixing.py's 'auto' routes to the same gather form.
+# The JAX package's graphs with a matrix-free (neighbour-table) builder,
+# and the N at which topology_impl='auto' builds them matrix-free
+# (parallel/topology.py::build_neighbor_topology).
 NEIGHBOR_TOPOLOGIES = ("ring", "grid", "chain", "erdos_renyi")
 MATRIX_FREE_AUTO_N = 4096
-# The N past which the JAX package's topology_sampler='auto' draws
-# Erdős–Rényi with its sparse sampler, another realization of G(n, p) that
-# the port does not have.
+# The N past which topology_sampler='auto' draws a matrix-free Erdős–Rényi
+# graph with the sparse O(N·k_max) sampler, another realization of G(n, p).
 SPARSE_SAMPLER_AUTO_N = 65_536
 # Huber's transition point δ: the synthetic regression data's noise scale
 # (make_regression noise=10.0, utils/data.py), so the kink sits at ~1σ of
@@ -161,10 +159,12 @@ class ExperimentConfig:
     # drawn from (-1 follows ``seed``).
     erdos_renyi_p: float = 0.4
     topology_seed: int = -1
-    # The JAX package's graph representation and ER sampler. The port builds
-    # the dense form: 'auto' (whose JAX matrix-free tables are the dense
-    # builder's, bit for bit) and 'dense' run; 'neighbor' and 'sparse' are
-    # not ported.
+    # The graph's representation: 'dense' ([N, N] matrices), 'neighbor' (the
+    # matrix-free [N, k_max] table, ring/grid/chain/erdos_renyi) or 'auto'
+    # (neighbor from MATRIX_FREE_AUTO_N workers when nothing dense-only is
+    # asked for); and the matrix-free Erdős–Rényi sampler: 'dense' (the
+    # [N, N] stream's graph), 'sparse' (O(N·k_max) draws) or 'auto' (sparse
+    # past SPARSE_SAMPLER_AUTO_N).
     topology_impl: str = "auto"
     topology_sampler: str = "auto"
     # Failure injection (parallel/faults.py), the JAX package's fields and
@@ -286,7 +286,7 @@ class ExperimentConfig:
         if self.topology_impl not in TOPOLOGY_IMPLS:
             raise ValueError(f"Unknown topology impl: {self.topology_impl}")
         if self.topology_impl == "neighbor":
-            raise _not_yet("topology_impl", self.topology_impl, ("auto", "dense"))
+            self._validate_neighbor()
         if self.topology_sampler not in TOPOLOGY_SAMPLERS:
             raise ValueError(
                 f"Unknown topology sampler: {self.topology_sampler!r} "
@@ -306,22 +306,6 @@ class ExperimentConfig:
                 "stream as its own sampler — use topology_impl='auto' or "
                 "'neighbor'"
             )
-        if self.time_varying and self.resolved_topology_impl() == "neighbor":
-            raise ValueError(
-                f"topology_impl={self.topology_impl!r} resolves to the "
-                f"matrix-free form at N={self.n_workers}, whose fault "
-                "processes draw one uniform an edge a round: the PyTorch "
-                "port does not have that fault form yet (it runs the dense "
-                "form's faults; use topology_impl='dense')"
-            )
-        if self.resolved_topology_sampler() == "sparse":
-            raise ValueError(
-                f"topology_sampler={self.topology_sampler!r} resolves to "
-                f"'sparse' at N={self.n_workers} > {SPARSE_SAMPLER_AUTO_N}: "
-                "the PyTorch port does not have the sparse Erdős–Rényi "
-                "sampler yet (it draws the dense sampler's graph up to "
-                f"N={SPARSE_SAMPLER_AUTO_N})"
-            )
         if self.topology in DIRECTED_TOPOLOGIES and self.algorithm != "push_sum":
             raise ValueError(
                 f"topology {self.topology!r} is directed: its mixing matrix "
@@ -335,6 +319,51 @@ class ExperimentConfig:
             raise ValueError(
                 f"topology_seed must be -1 (follow seed) or >= 0, got "
                 f"{self.topology_seed}"
+            )
+
+    def _validate_neighbor(self) -> None:
+        """The JAX package's checks of ``topology_impl='neighbor'``, in its
+        order and with its messages (the port has no ``backend`` or
+        ``tp_degree`` field, so those checks stay out)."""
+        if self.topology == "fully_connected":
+            raise ValueError(
+                "topology_impl='neighbor' with 'fully_connected' would "
+                "allocate an [N, N-1] neighbor table — the quadratic "
+                "object the matrix-free path exists to avoid; use "
+                "topology_impl='dense' (k_max = N−1 leaves nothing "
+                "for a degree-bounded route to win)"
+            )
+        if self.topology not in NEIGHBOR_TOPOLOGIES:
+            raise ValueError(
+                f"topology_impl='neighbor' supports "
+                f"{NEIGHBOR_TOPOLOGIES}; {self.topology!r} has no "
+                "matrix-free constructor"
+            )
+        if self.mixing_impl not in ("auto", "gather", "stencil"):
+            raise ValueError(
+                f"topology_impl='neighbor' never materializes the "
+                f"[N, N] matrices that mixing_impl="
+                f"{self.mixing_impl!r} consumes — use 'auto', "
+                "'gather', or 'stencil'. To run the gather path over "
+                "real collectives, shard the worker axis instead: "
+                "worker_mesh >= 2 lowers gather mixing to a ppermute "
+                "halo exchange (the sharded-gather path; "
+                "docs/PERF.md §16) — mixing_impl='shard_map' is the "
+                "dense-representation stencil form only"
+            )
+        if self.byzantine_active and self.robust_impl not in ("auto", "gather"):
+            raise ValueError(
+                f"topology_impl='neighbor' runs robust aggregation in "
+                f"gather form over the [N, k_max] table; robust_impl="
+                f"{self.robust_impl!r} materializes dense/VMEM objects "
+                "the matrix-free path never builds — use 'auto' or "
+                "'gather'"
+            )
+        if self.gossip_schedule != "synchronous":
+            raise ValueError(
+                "topology_impl='neighbor' requires "
+                "gossip_schedule='synchronous' (matching schedules "
+                "sample partners from the dense adjacency)"
             )
 
     def _validate_compression(self) -> None:
@@ -644,11 +673,11 @@ class ExperimentConfig:
         return self.topology_seed if self.topology_seed >= 0 else self.seed
 
     def resolved_topology_impl(self) -> str:
-        """The representation the JAX package's 'auto' resolves to on an
-        unsharded, fault-free, synchronous run: 'neighbor' at N >=
-        MATRIX_FREE_AUTO_N for the graphs with a matrix-free builder when
-        no dense-only feature is asked for, else 'dense'. The port builds
-        the dense form either way; the neighbour tables are the same."""
+        """The JAX package's rule for an unsharded synchronous run: 'neighbor'
+        at N >= MATRIX_FREE_AUTO_N for the graphs with a matrix-free builder
+        when no dense-only feature is asked for (a mixing form that reads
+        [N, N] matrices, an attack or a robust rule, a matching schedule),
+        else 'dense'. Fault processes are not dense-only."""
         if self.topology_impl != "auto":
             return self.topology_impl
         dense_only = (

@@ -22,7 +22,17 @@
 //   timeline_draw_kernel, timeline_scan_kernel
 //                    build_fault_timeline (:419-587): the per-edge
 //                    Gilbert-Elliott chains, the crash-recovery node chains
-//                    and the participation stream, unrolled over t;
+//                    and the participation stream, unrolled over t; the
+//                    edge chains draw on the dense form's stream (edge
+//                    (i, j) at i * N + j) or, for a matrix-free graph, on
+//                    its per-edge stream (edge e at e, :489-503);
+//   slot_live_kernel, slot_weight_kernel
+//                    one round of the matrix-free (gather) fault form
+//                    (_make_gather_faulty_mixing, :1133-1300) read from a
+//                    timeline at t: the live slots [N, k] float32 of the
+//                    neighbour table, active [N], the MH slot weights
+//                    w [N, k] and w_self [N] in the run's accumulation type
+//                    and the round's degree count, with no [N, N] object;
 //   noise_kernel     the large_noise payload (parallel/adversary.py
 //                    :118-130): x + s * sqrt(2) * erf_inv(u) on the
 //                    Byzantine rows, u jax.random.normal's uniform at the
@@ -35,8 +45,13 @@
 //   round key      = threefry2x32(tag key, (0, t mod 2^32))
 //   float32 u      = ((x0 ^ x1) >> 9) * 2^-23 at counter c, (x0, x1) =
 //                    threefry2x32(round key, (0, c))
-//   edge (i, j)    counter i * N + j; an undirected edge reads its i < j
-//                  entry from both ends (the triu(u, 1) + its transpose)
+//   counter c      Threefry's counter words (c >> 32, c mod 2^32), as
+//                  jax's iota_2x32_shape splits a flat index: no size limit
+//   edge (i, j)    counter i * N + j (64 bits; round_kernel forms it in
+//                  32 bits up to N = 2^16, where it fits); an undirected
+//                  edge reads its i < j entry from both ends (the
+//                  triu(u, 1) + its transpose). The matrix-free per-edge
+//                  stream: edge e of the [E, 2] edge list at counter e
 //   node i         counter i of the node key's round draw
 //   noise (i, j)   the words (k >> 32, k mod 2^32) of k = i * d + j, as
 //                  jax's iota_2x32_shape gives them: no size limit
@@ -86,6 +101,8 @@
 //   (whole numbers, so exact in any order). A second form that shared the
 //   degrees through a thread block cluster's distributed shared memory lost
 //   or tied at every shape timed (PERF.md section 6) and was taken out.
+//   Up to N = 2^16 the kernel's instance forms the pair counters in 32
+//   bits (the same bits; the 64-bit products cost 3.5% at main's shape).
 // - the timeline: a chain's draws do not depend on its state, only its
 //   compare does. So round s of a chain is a map of {down, up} to itself
 //   (two bits), maps compose associatively, and the chain is a scan over
@@ -116,6 +133,20 @@
 //   path runs; a grid-stride loop (a second copy of the draw) was slower at
 //   the wide stacks. Bound: bytes (x read, out written).
 //
+// - the slot round: two launches, a warp a row each. The first reads the
+//   round's timeline row and writes each slot's liveness (the base slot's
+//   edge up and both ends up), active and each row's live-slot count d into
+//   an [R, N] int32 workspace the wrapper allocates, and adds the block's
+//   degree count to the total; the second writes w = 1 / (1 + max(d_i,
+//   d_nbr)) on live slots (0 elsewhere) and w_self = 1 minus the row's
+//   slots added in ascending order. d_nbr is another row's count, and the
+//   grid has no global sync: the second launch reads it from the workspace
+//   (N * k reads of 4 bytes) where one launch would recount each
+//   neighbour's slots (k_max^2 gathers a row: ~16 x 16 at the federated ER
+//   cells' mean degree 16). Padded slots are never read at their edge id
+//   (lanes past a row's count skip the timeline). Bound: bytes (the tables,
+//   the timeline row's gathers and the [N, k] outputs).
+//
 // The replica axis (run_batch). round_kernel takes R replicas' rounds in one
 // launch, the replica on the grid's y axis: replica r folds its own 6 key
 // words and compares against its own drop threshold, both read from device
@@ -130,9 +161,12 @@
 // value and no arrays (R = 1). The timeline needs no axis: a run builds it
 // once, a launch pair a replica.
 //
+// The slot round takes the replica on grid y the same way: [R, T, ...]
+// timeline states, [R, ...] outputs and workspace, an [R] degree total.
+//
 // Each launch adds one to its kernel's slot of launch_counts.cuh (0 the
-// round, 1 timeline (both passes), 2 noise: the order of KERNELS in
-// ops/draw_kernels.py). The kernels allocate nothing, launch on the caller's
+// round, 1 timeline (both passes), 2 noise, 3 the slot round (both
+// passes): the order of KERNELS in ops/draw_kernels.py). The kernels allocate nothing, launch on the caller's
 // stream and return cudaGetLastError(); arguments they cannot take return
 // cudaErrorInvalidValue.
 
@@ -150,11 +184,12 @@ namespace {
 constexpr int kSlotRealize = 0;
 constexpr int kSlotTimeline = 1;
 constexpr int kSlotNoise = 2;
+constexpr int kSlotSlotRound = 3;
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kRoundWarps = 4;  // round_kernel: rows (warps) a block
 constexpr int kRoundThreads = 32 * kRoundWarps;
-constexpr int64_t kMaxNodes = 65535;  // edge counters i * N + j stay below 2^32
+constexpr int64_t kMaxRows = 0x7FFFFFFF;  // int32 neighbour tables
 
 __device__ __forceinline__ uint2 round_key_at(uint2 tag, int64_t t) {
   return threefry2x32(tag.x, tag.y, 0u, static_cast<uint32_t>(static_cast<uint64_t>(t)));
@@ -166,9 +201,10 @@ __device__ __forceinline__ float unit32(uint2 w) {
   return __fsub_rn(__uint_as_float(((w.x ^ w.y) >> 9) | 0x3F800000u), 1.0f);
 }
 
-// The float32 uniform at the 32-bit counter c.
-__device__ __forceinline__ float uniform32(uint2 key, uint32_t c) {
-  return unit32(threefry2x32(key.x, key.y, 0u, c));
+// The float32 uniform at the 64-bit counter c (below 2^32 its high word is
+// 0: the bits of the 32-bit counter).
+__device__ __forceinline__ float uniform32(uint2 key, uint64_t c) {
+  return unit32(threefry_at(key.x, key.y, c));
 }
 
 // ---- one round ------------------------------------------------------------
@@ -222,8 +258,28 @@ __device__ __forceinline__ uint2 shfl2(uint2 v, int lane) {
   return make_uint2(__shfl_sync(kFull, v.x, lane), __shfl_sync(kFull, v.y, lane));
 }
 
+// The uniform of the pair (lo, hi) at the counter lo * N + hi: its 64-bit
+// product (kWide), or, up to 2^16 nodes, the 32-bit product with the high
+// word 0 (the same bits, without the 64-bit multiply and the high word's
+// draw input: round_kernel takes this instance whenever N allows it).
+template <bool kWide>
+__device__ __forceinline__ float pair_uniform(uint2 key, int lo, int hi, int64_t n) {
+  if constexpr (kWide) {
+    return uniform32(key, static_cast<uint64_t>(lo) * static_cast<uint64_t>(n) +
+                              static_cast<uint64_t>(hi));
+  } else {
+    return unit32(threefry2x32(key.x, key.y, 0u,
+                               static_cast<uint32_t>(lo) * static_cast<uint32_t>(n) +
+                                   static_cast<uint32_t>(hi)));
+  }
+}
+
+// The widest N whose pair counters (N - 1) * N + N - 1 = N^2 - 1 fit 32 bits.
+constexpr int64_t kNarrowNodes = 65536;
+
 // The round at t: its keys, and the liveness of nodes and links. tt is the
 // timeline's row at t.
+template <bool kWide>
 struct Round {
   RoundArgs a;
   uint2 fkey, nkey, mkey;
@@ -246,8 +302,7 @@ struct Round {
     if (!a.drop) return true;
     const int lo = a.directed ? i : min(i, j);
     const int hi = a.directed ? j : max(i, j);
-    return uniform32(fkey, static_cast<uint32_t>(lo) * static_cast<uint32_t>(a.n) +
-                               static_cast<uint32_t>(hi)) >= a.p;
+    return pair_uniform<kWide>(fkey, lo, hi, a.n) >= a.p;
   }
 
   // The lists a node's degree counts: its slots (undirected) or its
@@ -293,9 +348,9 @@ __device__ __forceinline__ int64_t timeline_row(int64_t t, int64_t horizon) {
 // (kReplicas: rkeys non-null), replica blockIdx.y's keys and threshold, and
 // its slices of the timeline and the outputs (W_t's, typed, in
 // round_kernel); the single run's instance has none of that code.
-template <bool kReplicas>
-__device__ __forceinline__ Round make_round(const RoundArgs& a, int lane) {
-  Round r;
+template <bool kReplicas, bool kWide>
+__device__ __forceinline__ Round<kWide> make_round(const RoundArgs& a, int lane) {
+  Round<kWide> r;
   r.a = a;
   const int64_t t = *a.t;
   r.tt = a.horizon > 0 ? timeline_row(t, a.horizon) : 0;
@@ -334,8 +389,9 @@ __device__ __forceinline__ unsigned low_bits(int n) { return n >= 32 ? kFull : (
 
 constexpr int kPairGroups = 4;
 
-__device__ int Round::slot_degrees(const int32_t* slots, int nslots, unsigned live_mask,
-                                   int lane) const {
+template <bool kWide>
+__device__ int Round<kWide>::slot_degrees(const int32_t* slots, int nslots,
+                                          unsigned live_mask, int lane) const {
   const int k = static_cast<int>(deg_k());
   const int pairs = nslots * k;
   int d = 0;
@@ -362,8 +418,8 @@ __device__ int Round::slot_degrees(const int32_t* slots, int nslots, unsigned li
 // Row i of A_t, W_t and the scores, and active[i], by one warp. Returns d_i,
 // the row's live slots. The first chunk of 32 slots is drawn and weighed
 // before the row's first store.
-template <typename Real>
-__device__ int round_row(const Round& r, int i, int lane) {
+template <typename Real, bool kWide>
+__device__ int round_row(const Round<kWide>& r, int i, int lane) {
   using O = Rn<Real>;
   const RoundArgs& a = r.a;
   const int64_t n = a.n;
@@ -402,8 +458,7 @@ __device__ int round_row(const Round& r, int i, int lane) {
                 : Real(0);
     }
     if (a.scores != nullptr && live) {
-      score = uniform32(r.mkey, static_cast<uint32_t>(i) * static_cast<uint32_t>(n) +
-                                    static_cast<uint32_t>(nbr[s0 + lane]));
+      score = pair_uniform<kWide>(r.mkey, i, nbr[s0 + lane], n);
     }
   };
   Real w_first = Real(0);
@@ -448,17 +503,17 @@ __device__ int round_row(const Round& r, int i, int lane) {
   return di;
 }
 
-template <typename Real, bool kReplicas>
+template <typename Real, bool kReplicas, bool kWide>
 __global__ void __launch_bounds__(kRoundThreads) round_kernel(RoundArgs a) {
   launch_counts::add(kSlotRealize);
   __shared__ int warp_degrees[kRoundWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kRoundWarps + warp;
-  Round r = make_round<kReplicas>(a, lane);
+  Round<kWide> r = make_round<kReplicas, kWide>(a, lane);
   if constexpr (kReplicas) {
     if (a.w != nullptr) r.a.w = static_cast<Real*>(a.w) + blockIdx.y * a.n * a.n;
   }
-  const int di = i < a.n ? round_row<Real>(r, static_cast<int>(i), lane) : 0;
+  const int di = i < a.n ? round_row<Real, kWide>(r, static_cast<int>(i), lane) : 0;
   if (lane == 0) warp_degrees[warp] = di;
   __syncthreads();
   if (threadIdx.x == 0 && r.a.degree_total != nullptr) {
@@ -466,6 +521,108 @@ __global__ void __launch_bounds__(kRoundThreads) round_kernel(RoundArgs a) {
     for (int v = 0; v < kRoundWarps; ++v) block += warp_degrees[v];
     if (block != 0) atomicAdd(r.a.degree_total, static_cast<double>(block));
   }
+}
+
+// ---- the slot round (the matrix-free fault form) --------------------------
+
+// What the slot round's two launches read and write. ops/draw_kernels.py
+// mirrors it field for field as a ctypes Structure.
+struct SlotArgs {
+  const int64_t* t;        // the round's counter, read from device memory
+  const int32_t* nbr;      // [N, k]: row i's neighbours, ascending, padded with i
+  const int32_t* cnt;      // [N]: row i's real slots (the first cnt[i])
+  const int32_t* eid;      // [N, k]: each slot's timeline edge id, or null
+  const uint8_t* edge_up;  // [R, T, E] the timeline's edge states, or null
+  const uint8_t* node_up;  // [R, T, N] the node chain, or null
+  const uint8_t* part_up;  // [R, T, N] the participation stream, or null
+  float* live;             // [R, N, k]
+  void* w;                 // [R, N, k] in Real
+  void* w_self;            // [R, N] in Real
+  float* active;           // [R, N]
+  int32_t* deg;            // [R, N] workspace: each row's live slots
+  double* degree_total;    // [R] the run's sums of realized degrees, or null
+  int64_t n, k, n_edges, horizon, replicas;
+};
+
+constexpr int kSlotWarps = kThreads / 32;  // rows a block
+
+// Launch 1: slot s of row i is live iff s < cnt[i], both ends are up and
+// its edge is up at the round's timeline row. Writes live, active and the
+// row's count d_i, and adds the block's count to the replica's total.
+__global__ void __launch_bounds__(kThreads) slot_live_kernel(SlotArgs a) {
+  launch_counts::add(kSlotSlotRound);
+  __shared__ int warp_degrees[kSlotWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kSlotWarps + warp;
+  const int64_t rep = blockIdx.y;
+  const int64_t tt = a.horizon > 0 ? timeline_row(*a.t, a.horizon) : 0;
+  const int64_t at = rep * a.horizon + tt;
+  const uint8_t* node_up = a.node_up != nullptr ? a.node_up + at * a.n : nullptr;
+  const uint8_t* part_up = a.part_up != nullptr ? a.part_up + at * a.n : nullptr;
+  const uint8_t* edge_up = a.edge_up != nullptr ? a.edge_up + at * a.n_edges : nullptr;
+  auto up = [&](int64_t j) {
+    return (node_up == nullptr || node_up[j] != 0) & (part_up == nullptr || part_up[j] != 0);
+  };
+  int d = 0;
+  if (i < a.n) {
+    const bool ui = up(i);
+    const int cnt = a.cnt[i];
+    const int64_t row = i * a.k;
+    float* live = a.live + rep * a.n * a.k + row;
+    for (int64_t s0 = 0; s0 < a.k; s0 += 32) {
+      const int64_t s = s0 + lane;
+      bool v = false;
+      if (s < cnt) {
+        v = ui & up(a.nbr[row + s]) & (edge_up == nullptr || edge_up[a.eid[row + s]] != 0);
+      }
+      if (s < a.k) live[s] = v ? 1.0f : 0.0f;
+      d += __popc(__ballot_sync(kFull, v));
+    }
+    if (lane == 0) {
+      a.deg[rep * a.n + i] = d;
+      a.active[rep * a.n + i] = ui ? 1.0f : 0.0f;
+    }
+  }
+  if (lane == 0) warp_degrees[warp] = d;
+  __syncthreads();
+  if (threadIdx.x == 0 && a.degree_total != nullptr) {
+    int block = 0;
+    for (int v = 0; v < kSlotWarps; ++v) block += warp_degrees[v];
+    if (block != 0) atomicAdd(a.degree_total + rep, static_cast<double>(block));
+  }
+}
+
+// Launch 2: w[i, s] = 1 / (1 + max(d_i, d_nbr)) on live slots, 0 elsewhere,
+// and w_self[i] = 1 minus the row's weights added in ascending slot order
+// (lane l holds slot s0 + l; lane 0's sum walks them through __shfl_sync).
+template <typename Real>
+__global__ void __launch_bounds__(kThreads) slot_weight_kernel(SlotArgs a) {
+  using O = Rn<Real>;
+  launch_counts::add(kSlotSlotRound);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kSlotWarps + warp;
+  const int64_t rep = blockIdx.y;
+  if (i >= a.n) return;
+  const int32_t* deg = a.deg + rep * a.n;
+  const int di = deg[i];
+  const int64_t row = i * a.k;
+  const float* live = a.live + rep * a.n * a.k + row;
+  Real* w = static_cast<Real*>(a.w) + rep * a.n * a.k + row;
+  const Real one = Real(1);
+  Real sum = Real(0);
+  for (int64_t s0 = 0; s0 < a.k; s0 += 32) {
+    const int64_t s = s0 + lane;
+    Real wv = Real(0);
+    if (s < a.k) {
+      if (live[s] != 0.0f) {
+        wv = O::div(one, O::add(one, static_cast<Real>(max(di, deg[a.nbr[row + s]]))));
+      }
+      w[s] = wv;
+    }
+    const int nslots = a.k - s0 < 32 ? static_cast<int>(a.k - s0) : 32;
+    for (int l = 0; l < nslots; ++l) sum = O::add(sum, __shfl_sync(kFull, wv, l));
+  }
+  if (lane == 0) static_cast<Real*>(a.w_self)[rep * a.n + i] = O::sub(one, sum);
 }
 
 // ---- the timeline -----------------------------------------------------------
@@ -490,7 +647,7 @@ __device__ __forceinline__ unsigned apply(unsigned f, unsigned st) { return (f >
 // What both timeline passes read and write, filled by fault_timeline below.
 struct TimelineArgs {
   uint2 tags[3];         // the fault, node and participation tag keys
-  const int32_t* edges;  // [E, 2]: edge e's counter is edges[e][0] * n + edges[e][1]
+  const int32_t* edges;  // [E, 2]: edge e's counter is edges[e][0] * n + edges[e][1]; null: e
   uint8_t* out[3];       // edge_up [T, E], node_up [T, N], part_up [T, N]
   uint8_t* rejoin;       // [T, N]
   uint8_t* carry;        // [tiles, E + N]: each tile's composed map of each chain
@@ -532,10 +689,10 @@ __global__ void __launch_bounds__(kThreads) timeline_draw_kernel(TimelineArgs a)
   const int64_t e = gr.e0 + lane;
   const bool live = e < m;
   const bool chain = gr.stream != 2;
-  uint32_t c = static_cast<uint32_t>(e);
-  if (gr.stream == 0 && live) {
-    c = static_cast<uint32_t>(a.edges[2 * e]) * static_cast<uint32_t>(a.n) +
-        static_cast<uint32_t>(a.edges[2 * e + 1]);
+  uint64_t c = static_cast<uint64_t>(e);
+  if (gr.stream == 0 && live && a.edges != nullptr) {
+    c = static_cast<uint64_t>(a.edges[2 * e]) * static_cast<uint64_t>(a.n) +
+        static_cast<uint64_t>(a.edges[2 * e + 1]);
   }
   const int th = chain ? 3 * gr.stream : 0;
   const float init = a.th[th], enter = a.th[th + 1], stay = a.th[th + 2], p_out = a.th[6];
@@ -780,7 +937,7 @@ template <typename Real>
 int launch_round(const RoundArgs* args, void* stream) {
   const RoundArgs& a = *args;
   const bool timeline_edges = a.edge_up != nullptr;
-  if (a.n <= 0 || a.n > kMaxNodes || a.k_in <= 0 || a.in_nbr == nullptr ||
+  if (a.n <= 0 || a.n > kMaxRows || a.k_in <= 0 || a.in_nbr == nullptr ||
       a.replicas < 1 || a.replicas > 65535 || (a.replicas > 1 && a.rkeys == nullptr) ||
       a.in_cnt == nullptr || a.a == nullptr || a.active == nullptr || a.t == nullptr ||
       (a.directed && (a.out_nbr == nullptr || a.out_cnt == nullptr || a.k_out <= 0)) ||
@@ -792,11 +949,39 @@ int launch_round(const RoundArgs* args, void* stream) {
   const dim3 blocks(static_cast<unsigned>((a.n + kRoundWarps - 1) / kRoundWarps),
                     static_cast<unsigned>(a.replicas));
   const auto s = static_cast<cudaStream_t>(stream);
+  const bool wide = a.n > kNarrowNodes;
   if (a.rkeys != nullptr) {
-    round_kernel<Real, true><<<blocks, kRoundThreads, 0, s>>>(a);
+    if (wide) {
+      round_kernel<Real, true, true><<<blocks, kRoundThreads, 0, s>>>(a);
+    } else {
+      round_kernel<Real, true, false><<<blocks, kRoundThreads, 0, s>>>(a);
+    }
+  } else if (wide) {
+    round_kernel<Real, false, true><<<blocks, kRoundThreads, 0, s>>>(a);
   } else {
-    round_kernel<Real, false><<<blocks, kRoundThreads, 0, s>>>(a);
+    round_kernel<Real, false, false><<<blocks, kRoundThreads, 0, s>>>(a);
   }
+  return finish();
+}
+
+template <typename Real>
+int launch_slot_round(const SlotArgs* args, void* stream) {
+  const SlotArgs& a = *args;
+  const bool timeline_edges = a.edge_up != nullptr;
+  if (a.n <= 0 || a.n > kMaxRows || a.k <= 0 || a.replicas < 1 || a.replicas > 65535 ||
+      a.t == nullptr || a.nbr == nullptr || a.cnt == nullptr || a.live == nullptr ||
+      a.w == nullptr || a.w_self == nullptr || a.active == nullptr || a.deg == nullptr ||
+      (timeline_edges && (a.n_edges <= 0 || a.eid == nullptr)) ||
+      ((timeline_edges || a.node_up != nullptr || a.part_up != nullptr) && a.horizon <= 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 blocks(static_cast<unsigned>((a.n + kSlotWarps - 1) / kSlotWarps),
+                    static_cast<unsigned>(a.replicas));
+  const auto s = static_cast<cudaStream_t>(stream);
+  slot_live_kernel<<<blocks, kThreads, 0, s>>>(a);
+  const int err = finish();
+  if (err != 0) return err;
+  slot_weight_kernel<Real><<<blocks, kThreads, 0, s>>>(a);
   return finish();
 }
 
@@ -834,9 +1019,20 @@ int realize_round_f64(const void* args, void* stream) {
   return launch_round<double>(static_cast<const RoundArgs*>(args), stream);
 }
 
+// One round of the matrix-free fault form at the counter *args->t
+// (SlotArgs above) in two launches on the stream, w and w_self in float32
+// or float64.
+int realize_slot_round_f32(const void* args, void* stream) {
+  return launch_slot_round<float>(static_cast<const SlotArgs*>(args), stream);
+}
+int realize_slot_round_f64(const void* args, void* stream) {
+  return launch_slot_round<double>(static_cast<const SlotArgs*>(args), stream);
+}
+
 // The timeline over t = 0 .. horizon - 1 in two launches on the stream:
 // the draws, then the chains' scan. keys: fault, node, participation tag
-// keys. thresholds: edge (init, enter, stay), node (init, enter, stay), then
+// keys. edges: the [n_edges, 2] list whose pairs give the dense form's
+// counters, or null for the per-edge stream (edge e at counter e). thresholds: edge (init, enter, stay), node (init, enter, stay), then
 // p_out. A process with a count of 0 is off. carry: the caller's
 // workspace of fault_timeline_tile-round tiles times (n_edges + n_nodes)
 // bytes.
@@ -844,8 +1040,8 @@ int fault_timeline(const uint32_t* keys, int64_t n, const void* edges, int64_t n
                    int64_t n_nodes, int64_t n_part, const float* thresholds, int64_t horizon,
                    void* edge_up, void* node_up, void* rejoin, void* part_up, void* carry,
                    void* stream) {
-  if (n <= 0 || n > kMaxNodes || horizon <= 0 || n_edges < 0 || n_nodes < 0 || n_part < 0 ||
-      (n_edges > 0 && edges == nullptr) || (n_edges + n_nodes > 0 && carry == nullptr))
+  if (n <= 0 || horizon <= 0 || n_edges < 0 || n_nodes < 0 || n_part < 0 ||
+      (n_edges + n_nodes > 0 && carry == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   TimelineArgs a;
   for (int k = 0; k < 3; ++k) a.tags[k] = make_uint2(keys[2 * k], keys[2 * k + 1]);

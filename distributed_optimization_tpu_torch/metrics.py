@@ -33,6 +33,9 @@ class RunHistory:
     time_measured: bool = False
     # Seconds spent unrolling the fault timeline (within compile_seconds).
     fault_setup_seconds: float = 0.0
+    # Seconds spent building the communication graph on the host (not
+    # within compile_seconds; 0 for the centralized pattern).
+    topology_setup_seconds: float = 0.0
 
 
 def consensus_error(models: np.ndarray) -> float:

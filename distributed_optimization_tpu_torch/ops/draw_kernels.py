@@ -19,9 +19,18 @@ graph, so the card takes each as one kernel:
   ``timeline_row(t, T)``, JAX's index of a traced t). It walks the
   base graph's neighbour tables (``RoundTables``, built once on the host),
   so it draws only on base edges;
+- ``realize_slot_round``: one round of the matrix-free fault form (the JAX
+  package's ``_make_gather_faulty_mixing``) read from a timeline at ``t``,
+  over the ``[N, k_max]`` neighbour table (``SlotTables``) with no
+  ``[N, N]`` object: the float32 live slots, ``active``, the MH slot
+  weights ``w`` and ``w_self`` in the run's accumulation dtype and the
+  round's degree count; two launches (the liveness and each row's count,
+  then the weights, which need the neighbours' counts);
 - ``fault_timeline``: the per-edge Gilbert-Elliott chains, the
   crash-recovery node chains (with their rejoin rounds) and the
-  participation stream over a horizon, as ``[T, E]`` / ``[T, N]`` bool.
+  participation stream over a horizon, as ``[T, E]`` / ``[T, N]`` bool;
+  the edge chains on the dense form's stream (edge (i, j) at counter
+  i·N + j) or on a matrix-free graph's per-edge stream (edge e at e).
   Each round of a chain is a map of its two states drawn on its own, so
   the card draws every (round, entity) at once and unrolls the chains as a
   scan over those maps: two launches, the draws (with each tile of rounds
@@ -32,6 +41,11 @@ graph, so the card takes each as one kernel:
   ``jax.random.normal``'s uniform at the 64-bit counter i·d + j, an
   element a thread (the ``.cu`` header's "Design."); ``large_noise_rows_plain``
   draws chosen rows alone, for tests past the plain version's size.
+
+Every counter is 64 bits wide, as ``jax.random``'s element counter is:
+below 2³² its high word is 0. ``realize_round_rows_plain`` computes chosen
+rows of a round alone, for tests at N past 65,535, where the plain
+version's [N, N] arrays do not fit.
 
 For CUDA tensors (``realize_round``, ``large_noise``) or a CUDA ``device``
 (``fault_timeline``) each launches its kernel of ``csrc/draw_kernels.cu``
@@ -72,12 +86,13 @@ from distributed_optimization_tpu_torch.ops import _cuda_build, prng
 SOURCE = _cuda_build.CSRC / "draw_kernels.cu"
 
 # In the order of the kernels' launch-count slots (csrc/draw_kernels.cu).
-KERNELS = ("realize_round", "fault_timeline", "large_noise")
-# The largest N of the round and timeline kernels: they draw an edge at the
-# 32-bit counter i·N + j (jax.random's element counter is 64 bits wide).
-MAX_NODES = 65535
+KERNELS = ("realize_round", "fault_timeline", "large_noise", "realize_slot_round")
+# The largest N: the neighbour tables hold int32 indices.
+MAX_ROWS = 2**31 - 1
 # Launches of one fault_timeline call on the card: the draws, then the scan.
 TIMELINE_LAUNCHES = 2
+# Launches of one realize_slot_round call: the liveness, then the weights.
+SLOT_ROUND_LAUNCHES = 2
 
 _ROUND_POINTERS = ("t", "in_nbr", "in_cnt", "in_eid", "out_nbr", "out_cnt", "out_eid",
                    "edge_up", "node_up", "part_up", "a", "active", "w", "scores",
@@ -107,6 +122,10 @@ def _library() -> ctypes.CDLL:
     lib.fault_timeline.argtypes = [ptr, i64, ptr, i64, i64, i64, ptr, i64, ptr, ptr, ptr, ptr,
                                    ptr, ptr]
     lib.fault_timeline.restype = ctypes.c_int
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"realize_slot_round_{suffix}")
+        fn.argtypes = [ptr, ptr]
+        fn.restype = ctypes.c_int
     lib.fault_timeline_tile.argtypes = []
     lib.fault_timeline_tile.restype = ctypes.c_int
     for suffix in ("f32", "f64"):
@@ -319,8 +338,8 @@ def _check_round(t, tables: RoundTables, timeline, weights, degree_total,
     dev = tables.in_nbr.device
     _check_counter(t, dev)
     n = tables.n
-    if not 0 < n <= MAX_NODES:
-        raise ValueError(f"realize_round takes 0 < N <= {MAX_NODES}, got {n}")
+    if not 0 < n <= MAX_ROWS:
+        raise ValueError(f"realize_round takes 0 < N <= {MAX_ROWS}, got {n}")
     for name in ("in_nbr", "in_cnt", "in_eid", "out_nbr", "out_cnt", "out_eid"):
         x = getattr(tables, name)
         if x is not None and (x.dtype != torch.int32 or x.device != dev
@@ -330,6 +349,16 @@ def _check_round(t, tables: RoundTables, timeline, weights, degree_total,
         raise ValueError("a directed graph's tables need its out-lists")
     if weights not in (None, torch.float32, torch.float64):
         raise TypeError(f"weights must be None, float32 or float64, got {weights}")
+    _check_total_and_states(degree_total, timeline, replicas, dev)
+    if timeline is not None and timeline.edge_up is not None and (tables.in_eid is None or (
+            tables.directed and tables.out_eid is None)):
+        raise ValueError("a timeline's edges need the tables' edge ids")
+
+
+def _check_total_and_states(degree_total, timeline, replicas: Optional[int], dev) -> None:
+    """A round's degree total (float64, one element a replica) and timeline
+    states (contiguous bool [T, M], or [R, T, M] on the replica axis, of one
+    T) on ``dev``."""
     lead = () if replicas is None else (replicas,)
     if degree_total is not None and (degree_total.dtype != torch.float64
                                      or degree_total.numel() != (replicas or 1)
@@ -348,9 +377,6 @@ def _check_round(t, tables: RoundTables, timeline, weights, degree_total,
                                  f"{'[R, T, M]' if lead else '[T, M]'} tensor on {dev}")
         if len({x.shape[-2] for x in timeline if x is not None}) > 1:
             raise ValueError("the timeline's states must share their T rows")
-        if timeline.edge_up is not None and (tables.in_eid is None or (
-                tables.directed and tables.out_eid is None)):
-            raise ValueError("a timeline's edges need the tables' edge ids")
 
 
 def _replica_rounds(t, keys, tables, *, drop_prob, straggler_prob, timeline, weights, scores,
@@ -421,6 +447,195 @@ def realize_round(t, keys, tables: RoundTables, *, drop_prob, straggler_prob: fl
     return Realized(A, active, W, s)
 
 
+def realize_round_rows_plain(t, keys, tables: RoundTables, rows, *, drop_prob: float,
+                             straggler_prob: float, weights: torch.dtype = torch.float32):
+    """Rows ``rows`` of ``realize_round_plain``'s A_t and W_t and their
+    active flags, computed alone on an undirected graph's memoryless draws:
+    each row's live slots and its neighbours' counts from their own slots,
+    with the same draws, weights and sums (the diagonal's slots added in
+    ascending order). For tests at N past the plain version's size."""
+    if tables.directed:
+        raise ValueError("realize_round_rows_plain takes an undirected graph's tables")
+    fault_key, node_key, _ = keys
+    n, dev = tables.n, tables.in_nbr.device
+    tt = t.reshape(())
+    k = tables.in_nbr.shape[1]
+    slot = torch.arange(k, device=dev)
+
+    def up(nodes):
+        if straggler_prob > 0.0:
+            return prng.uniform_at(prng.fold_in(node_key, tt), nodes) >= _f32(straggler_prob)
+        return torch.ones(nodes.shape, dtype=torch.bool, device=dev)
+
+    def live_of(i):
+        """[r, k] liveness of the slots of rows i (int64 [r]) and the slots'
+        neighbours."""
+        j = tables.in_nbr.index_select(0, i).long()
+        ok = slot[None, :] < tables.in_cnt.index_select(0, i)[:, None]
+        ok = ok & up(i)[:, None] & up(j)
+        if drop_prob > 0.0:
+            ii = i[:, None].expand_as(j)
+            lo, hi = torch.minimum(ii, j), torch.maximum(ii, j)
+            u = prng.uniform_at(prng.fold_in(fault_key, tt), lo * n + hi)
+            ok = ok & (u >= _f32(drop_prob))
+        return ok, j
+
+    rows = torch.as_tensor(rows, dtype=torch.int64, device=dev)
+    live, j = live_of(rows)
+    d = live.sum(dim=1)
+    live_j, _ = live_of(j.reshape(-1))
+    d_j = live_j.sum(dim=1).reshape(j.shape)
+    one = torch.ones((), dtype=weights, device=dev)
+    pair = torch.maximum(d[:, None], d_j).to(weights)
+    w_slot = torch.where(live, one / (one + pair), 0.0)
+    total = torch.zeros(len(rows), dtype=weights, device=dev)
+    for col in w_slot.unbind(1):
+        total = total + col
+    A = torch.zeros((len(rows), n), dtype=torch.float32, device=dev).scatter_(1, j, live.float())
+    W = torch.zeros((len(rows), n), dtype=weights, device=dev).scatter_(1, j, w_slot)
+    W.scatter_(1, rows[:, None], (one - total)[:, None])
+    return A, W, up(rows).float()
+
+
+# --- one round of the matrix-free fault form ---------------------------------------
+
+
+class SlotTables(NamedTuple):
+    """A matrix-free graph's neighbour table for ``realize_slot_round``, on
+    one device: ``nbr [N, k]`` int32 (row i's neighbours ascending, padded
+    with i), ``cnt [N]`` int32 its real slots (the first cnt[i]) and, with a
+    timeline's edges, ``eid [N, k]`` int32 each slot's edge id (−1 on
+    padded slots)."""
+
+    n: int
+    nbr: torch.Tensor
+    cnt: torch.Tensor
+    eid: Optional[torch.Tensor] = None
+
+
+class SlotRound(NamedTuple):
+    """One round over the table: ``live [N, k]`` float32, ``w [N, k]`` and
+    ``w_self [N]`` in the asked dtype, ``active [N]`` float32; each with a
+    leading ``[R]`` on the replica axis."""
+
+    live: torch.Tensor
+    w: torch.Tensor
+    w_self: torch.Tensor
+    active: torch.Tensor
+
+
+def realize_slot_round_plain(t, tables: SlotTables, timeline: Optional[RoundTimeline] = None, *,
+                             weights: torch.dtype = torch.float32,
+                             degree_total: Optional[torch.Tensor] = None) -> SlotRound:
+    """The plain version of ``realize_slot_round``, in torch ops: the same
+    slots and weights, w_self adding the slots in ascending order (a loop
+    of k adds)."""
+    n, dev = tables.n, tables.nbr.device
+    k = tables.nbr.shape[1]
+    up = torch.ones(n, dtype=torch.bool, device=dev)
+    edge_at = None
+    if timeline is not None and timeline.horizon:
+        row = timeline_row(t, timeline.horizon)
+        for states in (timeline.node_up, timeline.part_up):
+            if states is not None:
+                up = up & states.index_select(0, row)[0].bool()
+        if timeline.edge_up is not None:
+            edge_at = timeline.edge_up.index_select(0, row)[0].bool()
+    nbr = tables.nbr.long()
+    live = torch.arange(k, device=dev)[None, :] < tables.cnt[:, None]
+    live = live & up[:, None] & up[nbr]
+    if edge_at is not None:
+        live = live & edge_at[tables.eid.long().clamp(min=0)]
+    d = live.sum(dim=1)
+    if degree_total is not None:
+        degree_total.add_(d.sum().to(torch.float64))
+    deg = d.to(weights)
+    one = torch.ones((), dtype=weights, device=dev)
+    w = torch.where(live, one / (one + torch.maximum(deg[:, None], deg[nbr])), 0.0)
+    total = torch.zeros(n, dtype=weights, device=dev)
+    for col in w.unbind(1):
+        total = total + col
+    return SlotRound(live.float(), w, one - total, up.float())
+
+
+def _check_slot_round(t, tables: SlotTables, timeline, weights, degree_total,
+                      replicas: Optional[int]) -> None:
+    dev = tables.nbr.device
+    _check_counter(t, dev)
+    n = tables.n
+    if not 0 < n <= MAX_ROWS:
+        raise ValueError(f"realize_slot_round takes 0 < N <= {MAX_ROWS}, got {n}")
+    for name in ("nbr", "cnt", "eid"):
+        x = getattr(tables, name)
+        if x is not None and (x.dtype != torch.int32 or x.device != dev
+                              or not x.is_contiguous() or x.shape[0] != n):
+            raise ValueError(f"tables.{name} must be a contiguous int32 tensor of N rows on {dev}")
+    if tables.nbr.dim() != 2 or tables.nbr.shape[1] < 1:
+        raise ValueError("tables.nbr must be [N, k] with k >= 1")
+    if weights not in (torch.float32, torch.float64):
+        raise TypeError(f"weights must be float32 or float64, got {weights}")
+    if replicas is not None and not 1 <= replicas <= 65535:
+        raise ValueError(f"the replica axis takes 1 <= R <= 65,535, got {replicas}")
+    _check_total_and_states(degree_total, timeline, replicas, dev)
+    if timeline is not None and timeline.edge_up is not None and tables.eid is None:
+        raise ValueError("a timeline's edges need the tables' edge ids")
+
+
+class _SlotArgs(ctypes.Structure):
+    """``SlotArgs`` of csrc/draw_kernels.cu, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "t", "nbr", "cnt", "eid", "edge_up", "node_up", "part_up", "live", "w", "w_self",
+        "active", "deg", "degree_total")]
+        + [(name, ctypes.c_int64) for name in ("n", "k", "n_edges", "horizon", "replicas")])
+
+
+def realize_slot_round(t, tables: SlotTables, timeline: Optional[RoundTimeline] = None, *,
+                       weights: torch.dtype = torch.float32,
+                       degree_total: Optional[torch.Tensor] = None,
+                       replicas: Optional[int] = None) -> SlotRound:
+    """One round of the matrix-free fault form at the counter ``t`` over the
+    table of ``tables``, its states read from ``timeline`` at
+    ``timeline_row(t, T)`` (every node and slot up without one): a slot is
+    live iff it is real, both ends are up and its edge is up; ``w`` =
+    live / (1 + max(d_i, d_nbr)), d the live-slot counts, and ``w_self`` = 1
+    − Σ_s w, in ``weights``; the round's degree count is added to
+    ``degree_total`` (float64) where given. On the replica axis
+    (``replicas`` R; ``[R, T, ...]`` timeline states; ``degree_total [R]``)
+    every output gains a leading ``[R]``, in one launch pair. On the card
+    two launches (``SLOT_ROUND_LAUNCHES``)."""
+    _check_slot_round(t, tables, timeline, weights, degree_total, replicas)
+    dev = tables.nbr.device
+    if dev.type == "cpu":
+        if replicas is None:
+            return realize_slot_round_plain(t, tables, timeline, weights=weights,
+                                            degree_total=degree_total)
+        rounds = [realize_slot_round_plain(
+            t, tables, timeline.replica(r) if timeline is not None else None, weights=weights,
+            degree_total=degree_total[r:r + 1] if degree_total is not None else None)
+            for r in range(replicas)]
+        return SlotRound(*(torch.stack(parts) for parts in zip(*rounds)))
+    n, k = tables.n, tables.nbr.shape[1]
+    lead = () if replicas is None else (replicas,)
+    live = torch.empty(lead + (n, k), dtype=torch.float32, device=dev)
+    w = torch.empty(lead + (n, k), dtype=weights, device=dev)
+    w_self = torch.empty(lead + (n,), dtype=weights, device=dev)
+    active = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    deg = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    tl = timeline if timeline is not None else RoundTimeline()
+    args = _SlotArgs(
+        t.data_ptr(), tables.nbr.data_ptr(), tables.cnt.data_ptr(), _ptr(tables.eid),
+        _ptr(tl.edge_up), _ptr(tl.node_up), _ptr(tl.part_up), live.data_ptr(), w.data_ptr(),
+        w_self.data_ptr(), active.data_ptr(), deg.data_ptr(), _ptr(degree_total), n, k,
+        tl.edge_up.shape[-1] if tl.edge_up is not None else 0, tl.horizon, replicas or 1)
+    fn = getattr(_library(), "realize_slot_round_" + ("f64" if weights == torch.float64
+                                                      else "f32"))
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    _raise(err, "realize_slot_round")
+    return SlotRound(live, w, w_self, active)
+
+
 # --- the timeline ------------------------------------------------------------------
 
 
@@ -486,9 +701,19 @@ def _chains_scan(u: torch.Tensor, init: float, enter: float, stay: float, tile: 
     return ups.reshape(tiles * tile, M)[:T].bool()
 
 
+def _edge_counters(n: int, edges: Optional[torch.Tensor], n_edges: Optional[int], device):
+    """Each edge's counter: i·N + j of its [E, 2] pair, or e on the per-edge
+    stream (``edges`` None, ``n_edges`` E); None without edges."""
+    if edges is not None:
+        return edges[:, 0].to(torch.int64) * n + edges[:, 1].to(torch.int64)
+    if n_edges:
+        return torch.arange(n_edges, dtype=torch.int64, device=device)
+    return None
+
+
 def fault_timeline_plain(keys, n: int, edges: Optional[torch.Tensor], horizon: int,
                          edge_chain=None, node_chain=None, p_out=None, *, device,
-                         tile: Optional[int] = None):
+                         n_edges: Optional[int] = None, tile: Optional[int] = None):
     """The plain version of ``fault_timeline``; with ``tile``, its chains
     unrolled by the kernels' decomposition over tiles of that many rounds
     (``_chains_scan``) instead of round by round."""
@@ -497,8 +722,8 @@ def fault_timeline_plain(keys, n: int, edges: Optional[torch.Tensor], horizon: i
     ts = torch.arange(horizon, dtype=torch.int64, device=device)
     nodes = torch.arange(n, dtype=torch.int64, device=device)
     out = {"edge_up": None, "node_up": None, "rejoin": None, "part_up": None}
-    if edges is not None:
-        counters = edges[:, 0].to(torch.int64) * n + edges[:, 1].to(torch.int64)
+    counters = _edge_counters(n, edges, n_edges, device)
+    if counters is not None:
         u = prng.uniform_at(prng.fold_in(fault_key, ts), counters)
         out["edge_up"] = chains(u, *edge_chain)
     if node_chain is not None:
@@ -521,25 +746,35 @@ def timeline_thresholds(edge_chain, node_chain, p_out) -> "ctypes.Array":
 
 
 def fault_timeline(keys, n: int, edges: Optional[torch.Tensor], horizon: int,
-                   edge_chain=None, node_chain=None, p_out=None, *, device):
+                   edge_chain=None, node_chain=None, p_out=None, *, device,
+                   n_edges: Optional[int] = None):
     """The fault timeline over t = 0 … horizon−1 as bool tensors on
     ``device``: ``edge_up [T, E]``, ``node_up``, ``rejoin``, ``part_up`` [T,
     N], None for a process that is off. ``keys``: the fault, node and
     participation tag keys. ``edges``: the [E, 2] int32 edge list (counter
-    i·N + j), with ``edge_chain`` its float32 (init, enter, stay)
-    thresholds; ``node_chain`` the node chain's; ``p_out`` the
-    participation threshold."""
+    i·N + j), or None with ``n_edges`` E for a matrix-free graph's per-edge
+    stream (edge e at counter e, the JAX package's ``(E,)`` draw a round);
+    ``edge_chain`` their float32 (init, enter, stay) thresholds;
+    ``node_chain`` the node chain's; ``p_out`` the participation
+    threshold."""
     device = torch.device(device)
     if edges is not None:
         if edges.dtype != torch.int32 or edges.dim() != 2 or edges.shape[1] != 2:
             raise ValueError("edges must be an int32 [E, 2] tensor")
+        if n_edges is not None and n_edges != edges.shape[0]:
+            raise ValueError(f"n_edges={n_edges} for an edge list of {edges.shape[0]} rows")
         edges = edges.to(device).contiguous()
+        n_edges = edges.shape[0]
+    if n_edges is not None and not 0 <= n_edges <= MAX_ROWS:
+        raise ValueError(f"fault_timeline takes 0 <= E <= {MAX_ROWS}, got {n_edges}")
+    if (n_edges or 0) > 0 and edge_chain is None:
+        raise ValueError("edges need their chain's thresholds (edge_chain)")
     if device.type == "cpu":
         return fault_timeline_plain(keys, n, edges, horizon, edge_chain, node_chain, p_out,
-                                    device=device)
-    if horizon <= 0 or not 0 < n <= MAX_NODES:
-        raise ValueError(f"fault_timeline takes 0 < N <= {MAX_NODES} and a positive horizon")
-    n_edges = 0 if edges is None else edges.shape[0]
+                                    device=device, n_edges=n_edges)
+    if horizon <= 0 or not 0 < n <= MAX_ROWS:
+        raise ValueError(f"fault_timeline takes 0 < N <= {MAX_ROWS} and a positive horizon")
+    n_edges = n_edges or 0
     n_nodes = 0 if node_chain is None else n
     n_part = 0 if p_out is None else n
 

@@ -26,8 +26,10 @@ The gather and sparse forms sum over the slot axis in slot order
 (``robust_aggregation.slot_sum``): no atomics, so a replay of a captured
 graph adds the same values in the same order, and no size is read back to
 the host. ``auto`` resolves as the JAX package does: the stencil where the
-graph embeds as shifts; the gather form for an undirected graph of
-N >= MATRIX_FREE_AUTO_N whose table is degree-bounded; else dense.
+graph embeds as shifts; the gather form on a matrix-free graph, and on an
+undirected graph of N >= MATRIX_FREE_AUTO_N whose table is degree-bounded;
+else dense. A matrix-free graph has no [N, N] matrix, so ``dense``,
+``sparse`` and ``pallas`` raise on it, with the JAX package's message.
 """
 
 from __future__ import annotations
@@ -91,11 +93,14 @@ def _grid_stencil(topo: Topology) -> MixingOp:
 
 def _resolve_auto(topo: Topology) -> str:
     """The JAX package's 'auto': the stencil where the graph embeds as
-    shifts; the gather form for an undirected graph at N >=
-    MATRIX_FREE_AUTO_N whose table is degree-bounded (k_max + 1 < N and at
-    most NEIGHBOR_TABLE_MAX_CELLS cells); else the dense product."""
+    shifts; the gather form on a matrix-free graph, and on an undirected
+    graph at N >= MATRIX_FREE_AUTO_N whose table is degree-bounded (k_max +
+    1 < N and at most NEIGHBOR_TABLE_MAX_CELLS cells); else the dense
+    product."""
     if _supports_stencil(topo):
         return "stencil"
+    if topo.is_matrix_free:
+        return "gather"
     if not topo.directed and topo.n >= MATRIX_FREE_AUTO_N:
         k_max = int(np.asarray(topo.degrees).max())
         if k_max + 1 < topo.n and max(k_max, 1) * topo.n <= NEIGHBOR_TABLE_MAX_CELLS:
@@ -163,6 +168,15 @@ def make_mixing_op(
         raise ValueError(
             f"mixing_impl={impl!r}: the PyTorch port does not have it yet"
         )
+    if impl == "stencil" and not _supports_stencil(topo):
+        raise ValueError(f"stencil mixing unsupported for {topo.name} (n={topo.n})")
+    if topo.is_matrix_free and impl not in ("stencil", "gather"):
+        raise ValueError(
+            f"mixing_impl={impl!r} consumes the dense [N, N] matrices a "
+            f"matrix-free topology ({topo.name}, n={topo.n}) never "
+            "materializes — use 'gather' (or 'stencil' where the graph "
+            "embeds as shifts)"
+        )
 
     if impl == "pallas":
         if topo.name == "ring" and topo.n >= 3:
@@ -203,8 +217,6 @@ def make_mixing_op(
             lambda x: torch.matmul(A, x),
         )
 
-    if not _supports_stencil(topo):
-        raise ValueError(f"stencil mixing unsupported for {topo.name} (n={topo.n})")
     if topo.name == "fully_connected":
         return MixingOp(
             topo.name, "stencil", fc_kernels.fc_mix_plain, fc_kernels.fc_neighbor_sum_plain,

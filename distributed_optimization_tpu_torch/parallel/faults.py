@@ -1,7 +1,8 @@
 """Failure injection: gossip over dropped edges, stragglers, churn and matchings.
 
-The port of the dense form of ``distributed_optimization_tpu/parallel/faults.py``.
-Each round t realizes a graph from the base topology:
+The port of ``distributed_optimization_tpu/parallel/faults.py``'s dense and
+matrix-free (gather) forms. Each round t realizes a graph from the base
+topology:
 
 - **edge drops** (``drop_prob``): each edge drops with probability p, both
   ends agreeing (one-way links drop on their own on a directed graph);
@@ -38,15 +39,25 @@ neighbour sum, gather-form liveness and warm restart over them; the
 round's realized degree count lands in ``degree_total``. ``t`` is the
 run's int64 counter tensor, so a captured CUDA graph replays every round.
 
+A matrix-free topology (``topology.is_matrix_free``) takes the gather
+form, the JAX package's ``_make_gather_faulty_mixing``: every fault
+process goes through the timeline (iid drops and stragglers as its
+``burst_len = 1`` chains), whose edge chains draw on the per-edge stream
+(edge e of ``_edge_list`` at counter e of the round's ``(E,)`` draw,
+another realization than the dense form's); a round is one launch pair
+of ``ops/draw_kernels.realize_slot_round`` over the ``[N, k_max]`` table
+(``slot_tables``), whose ``GatherRound`` mixes with the realized slot
+weights, w_self·x + Σ_s w[:, s]·x[nbr[:, s]], with no [N, N] object. Its
+host tables are O(N·k_max), as ``round_tables``' are for every graph.
+
 The replica axis (``torch_backend.run_batch``): ``make_faulty_mixing``
 given R seeds (and R drop probabilities, where swept) keys each replica's
 streams from its own seed, builds each persistent replica's timeline as
 the single run would (a launch pair each) and stacks them
 (``stack_fault_timelines``); a round is then one launch for all R, and
 every ``Round`` operand and operation gains a leading ``[R]``. Round-robin
-matchings draw nothing, so their schedule stays shared. The matrix-free
-form (``_make_gather_faulty_mixing``) and the worker-mesh form
-(``make_halo_faulty_mixing``) are not ported.
+matchings draw nothing, so their schedule stays shared. The worker-mesh
+form (``make_halo_faulty_mixing``) is not ported.
 """
 
 from __future__ import annotations
@@ -61,7 +72,13 @@ import torch
 from distributed_optimization_tpu_torch.backends.base import resolve_device
 from distributed_optimization_tpu_torch.config import REJOINS
 from distributed_optimization_tpu_torch.ops import draw_kernels, prng
-from distributed_optimization_tpu_torch.parallel.topology import Topology
+from distributed_optimization_tpu_torch.ops.robust_aggregation import slot_sum
+from distributed_optimization_tpu_torch.parallel.topology import (
+    Topology,
+    incident_edge_slots,
+    neighbor_tables_for,
+    pair_edge_ids,
+)
 
 # Allowed rejoin policies after a crash-recovery outage.
 REJOIN_POLICIES = REJOINS
@@ -180,7 +197,13 @@ def iid_equivalent_churn(straggler_prob: float) -> tuple[float, float]:
 
 def _edge_list(topo: Topology) -> np.ndarray:
     """[E, 2] int32 edge list: one i < j row per undirected edge (the triu
-    entry both ends share), or one (i, j) row per one-way link."""
+    entry both ends share), or one (i, j) row per one-way link. A
+    matrix-free graph gives the same i < j rows from its table."""
+    if topo.is_matrix_free:
+        rows, slots = np.nonzero(topo.nbr_mask)
+        js = topo.nbr_idx[rows, slots]
+        keep = rows < js
+        return np.stack([rows[keep], js[keep]], axis=1).astype(np.int32)
     A = np.asarray(topo.adjacency)
     src = np.triu(A, 1) if not topo.directed else A
     ei, ej = np.nonzero(src)
@@ -238,13 +261,17 @@ def timeline_args(topo: Topology, seed: int, *, edge_drop_prob: float, burst_len
                   device, x64: bool):
     """The processes' arguments of ``draw_kernels.fault_timeline`` (and of
     its plain version) but the horizon and device: the keys, N, the edge
-    list on ``device``, the chains' thresholds and p_out; and the edge list
-    on the host."""
+    list on ``device`` (None with its count ``n_edges`` on a matrix-free
+    graph, whose chains draw on the per-edge stream), the chains'
+    thresholds and p_out; and the edge list on the host."""
     keys = _tag_keys(seed, x64, FAULT_TAG, NODE_TAG, PART_TAG)
-    edge_index = edges = edge_chain = None
+    edge_index = edges = edge_chain = n_edges = None
     if edge_drop_prob > 0.0:
         edge_index = _edge_list(topo)
-        edges = torch.as_tensor(edge_index, device=device)
+        if topo.is_matrix_free:
+            n_edges = len(edge_index)
+        else:
+            edges = torch.as_tensor(edge_index, device=device)
         p = edge_drop_prob
         if burst_len == 1.0:
             # State-independent thresholds: exactly the iid comparison.
@@ -257,8 +284,8 @@ def timeline_args(topo: Topology, seed: int, *, edge_drop_prob: float, burst_len
     elif straggler_prob > 0.0:
         node_chain = (straggler_prob,) * 3
     p_out = 1.0 - participation_rate if participation_rate < 1.0 else None
-    return dict(keys=keys, n=topo.n, edges=edges, edge_chain=edge_chain, node_chain=node_chain,
-                p_out=p_out), edge_index
+    return dict(keys=keys, n=topo.n, edges=edges, n_edges=n_edges, edge_chain=edge_chain,
+                node_chain=node_chain, p_out=p_out), edge_index
 
 
 def _timeline_tensors(topo: Topology, horizon: int, seed: int, *, edge_drop_prob: float,
@@ -409,18 +436,16 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(torch.float32, dtype)
 
 
-def _padded_lists(adjacency: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Row i's nonzero columns in ascending order, padded with i, and their
-    count: ([N, k] int32, [N] int32), k the largest count (at least 1). On
-    an undirected graph the table is ``topology.neighbor_table``'s, which
-    refuses directed graphs; here it also gives their in- and out-lists."""
-    n = adjacency.shape[0]
-    counts = adjacency.sum(axis=1).astype(np.int32)
-    nbr = np.tile(np.arange(n, dtype=np.int32)[:, None], (1, max(int(counts.max()), 1)))
-    for i in range(n):
-        row = np.nonzero(adjacency[i])[0]
-        nbr[i, : len(row)] = row
-    return nbr, counts
+def _padded_pairs(rows: np.ndarray, cols: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Row-major (row, col) pairs as each row's cols in order, padded with
+    the row, and the rows' counts: ([N, k] int32, [N] int32), k the largest
+    count (at least 1)."""
+    counts = np.bincount(rows, minlength=n)
+    k = max(int(counts.max()) if n else 0, 1)
+    table = np.tile(np.arange(n, dtype=np.int32)[:, None], (1, k))
+    slot = np.arange(len(rows), dtype=np.int64) - (np.cumsum(counts) - counts)[rows]
+    table[rows, slot] = cols
+    return table, counts.astype(np.int32)
 
 
 def round_tables(topo: Topology, edge_index: Optional[np.ndarray] = None, *,
@@ -428,24 +453,29 @@ def round_tables(topo: Topology, edge_index: Optional[np.ndarray] = None, *,
     """The round kernel's neighbour tables of the base graph on ``device``:
     each row's neighbours (on a directed graph its senders, and then each
     node's receivers); with ``edge_index`` (a timeline's [E, 2] edge list),
-    each slot's edge id."""
-    A = np.asarray(topo.adjacency) != 0
+    each slot's edge id (−1 on padded slots). O(N·k_max) on the host: the
+    undirected graphs' ``neighbor_tables_for`` (a matrix-free graph's own
+    table), a directed graph's nonzero pairs."""
     n = topo.n
-    in_nbr, in_cnt = _padded_lists(A)
-    out_nbr = out_cnt = None
+    out_nbr = out_cnt = out_eid = in_eid = None
     if topo.directed:
-        out_nbr, out_cnt = _padded_lists(A.T)
-    in_eid = out_eid = None
+        in_nbr, in_cnt = _padded_pairs(*np.nonzero(topo.adjacency), n)
+        out_nbr, out_cnt = _padded_pairs(*np.nonzero(topo.adjacency.T), n)
+    else:
+        in_nbr, mask = neighbor_tables_for(topo)
+        in_cnt = mask.sum(axis=1).astype(np.int32)
+    k = np.arange(in_nbr.shape[1])
+    in_valid = k[None, :] < in_cnt[:, None]
     if edge_index is not None:
-        eid = np.zeros((n, n), dtype=np.int32)
-        ei, ej = edge_index[:, 0], edge_index[:, 1]
-        eid[ei, ej] = np.arange(len(edge_index), dtype=np.int32)
-        if not topo.directed:
-            eid[ej, ei] = eid[ei, ej]
-        rows = np.arange(n)[:, None]
-        in_eid = eid[rows, in_nbr]
+        rows = np.broadcast_to(np.arange(n)[:, None], in_nbr.shape)
         if topo.directed:
-            out_eid = eid[out_nbr, rows]  # the link into out_nbr[j, s] from j
+            in_eid = pair_edge_ids(rows, in_nbr, in_valid, edge_index, n)
+            out_rows = np.broadcast_to(np.arange(n)[:, None], out_nbr.shape)
+            out_valid = np.arange(out_nbr.shape[1])[None, :] < out_cnt[:, None]
+            # The link into out_nbr[j, s] from j.
+            out_eid = pair_edge_ids(out_nbr, out_rows, out_valid, edge_index, n)
+        else:
+            in_eid = np.where(in_valid, incident_edge_slots(in_nbr, in_valid, edge_index), -1)
 
     def put(a):
         return None if a is None else torch.as_tensor(
@@ -453,6 +483,26 @@ def round_tables(topo: Topology, edge_index: Optional[np.ndarray] = None, *,
 
     return draw_kernels.RoundTables(n, topo.directed, put(in_nbr), put(in_cnt), put(in_eid),
                                     put(out_nbr), put(out_cnt), put(out_eid))
+
+
+def slot_tables(nbr_idx: np.ndarray, nbr_mask: np.ndarray,
+                edge_index: Optional[np.ndarray] = None, *, device) -> draw_kernels.SlotTables:
+    """The slot round's tables on ``device``: the neighbour table, each row's
+    real slots (a prefix of the row, as every builder lays them out) and,
+    with a timeline's ``edge_index``, each slot's edge id
+    (``incident_edge_slots``; −1 on padded slots). O(N·k_max) on the host."""
+    cnt = nbr_mask.sum(axis=1)
+    if not np.array_equal(nbr_mask, np.arange(nbr_mask.shape[1])[None, :] < cnt[:, None]):
+        raise ValueError("a neighbour table's real slots must come first in each row")
+    eid = None
+    if edge_index is not None:
+        eid = np.where(nbr_mask, incident_edge_slots(nbr_idx, nbr_mask, edge_index), -1)
+
+    def put(a):
+        return None if a is None else torch.as_tensor(
+            np.ascontiguousarray(a, dtype=np.int32), device=device)
+
+    return draw_kernels.SlotTables(nbr_idx.shape[0], put(nbr_idx), put(cnt), put(eid))
 
 
 def _add_matched(degree_total: Optional[torch.Tensor], partner: torch.Tensor) -> None:
@@ -528,6 +578,64 @@ class Round:
         return torch.where(take[..., None], nbr_avg, x.to(acc)).to(x.dtype)
 
 
+OWN_TABLE_MSG = ("a matrix-free round's liveness is over its topology's own neighbour "
+                 "table; pass the table FaultyMixing.own_table returns")
+
+
+class GatherRound:
+    """One round of the matrix-free (gather) form on the run's device: the
+    operations of ``Round`` over the realized slot table. ``A`` and ``W``
+    are None (no [N, N] object); ``active``: the float32 [N] node mask;
+    ``rejoin``: this round's rejoining nodes under ``neighbor_restart``. On
+    the replica axis each has a leading [R]."""
+
+    A = W = partner = None
+
+    def __init__(self, realized: draw_kernels.SlotRound, nbr: torch.Tensor, *, rejoin=None):
+        self._r, self._nbr = realized, nbr  # nbr: int64 [N, k] on the device
+        self.active, self.rejoin = realized.active, rejoin
+
+    def _gathered(self, x: torch.Tensor) -> torch.Tensor:
+        """x's rows at each slot's neighbour, in promote(float32, dtype): [...,
+        N, k, d]."""
+        return x.to(_acc(x.dtype))[..., self._nbr, :]
+
+    def mix(self, x: torch.Tensor) -> torch.Tensor:
+        """w_self·x + Σ_s w[:, s]·x[nbr[:, s]] (slots in order), in
+        promote(float32, dtype), cast back."""
+        acc = _acc(x.dtype)
+        if acc != self._r.w.dtype:
+            raise ValueError(f"this round's weights were realized in {self._r.w.dtype}, "
+                             f"not {acc}")
+        out = self._r.w_self[..., None] * x.to(acc) + slot_sum(
+            self._r.w[..., None] * self._gathered(x))
+        return out.to(x.dtype)
+
+    def neighbor_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Σ_s live[:, s]·x[nbr[:, s]]."""
+        acc = _acc(x.dtype)
+        return slot_sum(self._r.live.to(acc)[..., None] * self._gathered(x)).to(x.dtype)
+
+    def live(self, nbr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The float32 liveness of each slot of the graph's own table:
+        ``nbr`` must be the very tensor ``FaultyMixing.own_table`` gave,
+        which checked the caller's table against the topology's once."""
+        if nbr is not self._nbr:
+            raise ValueError(OWN_TABLE_MSG)
+        return self._r.live
+
+    def restart(self, x: torch.Tensor) -> torch.Tensor:
+        """``neighbor_restart``: a rejoining node with realized neighbours
+        takes their average; every other row passes through."""
+        acc = _acc(x.dtype)
+        lv = self._r.live.to(acc)
+        deg = torch.sum(lv, dim=-1)
+        nbr_avg = slot_sum(lv[..., None] * self._gathered(x)) / torch.clamp(deg, min=1.0)[
+            ..., None]
+        take = self.rejoin & (deg > 0)
+        return torch.where(take[..., None], nbr_avg, x.to(acc)).to(x.dtype)
+
+
 class FaultyMixing:
     """Per-round mixing over a randomly failing topology (see the module
     docstring); ``realize(t, degree_total)`` gives the round. ``freezes``:
@@ -561,8 +669,12 @@ class FaultyMixing:
             if tl["edge_up"] is not None:
                 edge_index = (timeline.edge_index if timeline.edge_index is not None
                               else _edge_list(topo))
-        self._tables = (round_tables(topo, edge_index, device=device)
-                        if partners is None else None)
+        self._tables = self._slots = None
+        if topo.is_matrix_free:
+            self._slots = slot_tables(topo.nbr_idx, topo.nbr_mask, edge_index, device=device)
+            self._nbr = self._slots.nbr.long()
+        elif partners is None:
+            self._tables = round_tables(topo, edge_index, device=device)
 
     @property
     def directed(self) -> bool:
@@ -573,6 +685,11 @@ class FaultyMixing:
         the run's device), its W_t in ``self.acc``; its realized degree count
         (matched nodes under a matching) is added to ``degree_total``, a
         float64 tensor of one element, where given."""
+        if self._slots is not None:
+            out = draw_kernels.realize_slot_round(t, self._slots, self._tl, weights=self.acc,
+                                                  degree_total=degree_total,
+                                                  replicas=self.replicas)
+            return GatherRound(out, self._nbr, rejoin=self._rejoin_at(t))
         if self._partners is not None:
             phase = torch.remainder(t, self._partners.shape[0])
             partner = self._partners.index_select(0, phase)[0]
@@ -587,11 +704,14 @@ class FaultyMixing:
             partner = sample_one_peer_matching(out.scores, out.A)
             _add_matched(degree_total, partner)
             return Round(None, out.active, partner)
-        rejoin = None
-        if self._rejoin is not None:
-            row = draw_kernels.timeline_row(t, self._rejoin.shape[-2])
-            rejoin = self._rejoin.index_select(-2, row).squeeze(-2)
-        return Round(out.A, out.active, W=out.W, rejoin=rejoin)
+        return Round(out.A, out.active, W=out.W, rejoin=self._rejoin_at(t))
+
+    def _rejoin_at(self, t: torch.Tensor) -> Optional[torch.Tensor]:
+        """The rejoining nodes at t under ``neighbor_restart``, else None."""
+        if self._rejoin is None:
+            return None
+        row = draw_kernels.timeline_row(t, self._rejoin.shape[-2])
+        return self._rejoin.index_select(-2, row).squeeze(-2)
 
     # The JAX package's per-t functions, through ``realize`` (for the tests).
 
@@ -628,6 +748,28 @@ class FaultyMixing:
 
     def rejoin_restart(self, t, x: torch.Tensor) -> torch.Tensor:
         return self.realize(self._t(t)).restart(x)
+
+    def own_table(self, nbr_idx: np.ndarray, nbr_mask: np.ndarray) -> torch.Tensor:
+        """The device table a matrix-free round's ``live`` takes, once the
+        caller's host table is checked to be the topology's own (there is
+        exactly one table, and the slot round realizes only its slots)."""
+        topo = self.topo
+        if not (np.array_equal(np.asarray(nbr_idx), topo.nbr_idx)
+                and np.array_equal(np.asarray(nbr_mask), topo.nbr_mask)):
+            raise ValueError(OWN_TABLE_MSG)
+        return self._nbr
+
+    def make_neighbor_liveness(self, nbr_idx: np.ndarray, nbr_mask: np.ndarray):
+        """``live(t)``: the float32 liveness of each slot of an undirected
+        neighbour table at t (a matrix-free graph's own), the per-slot
+        gather of the round's realized graph (the JAX package's function of
+        that name)."""
+        if self._slots is not None:
+            nbr = self.own_table(nbr_idx, nbr_mask)
+            return lambda t: self.realize(self._t(t)).live(nbr, None)
+        nbr = torch.as_tensor(np.asarray(nbr_idx), dtype=torch.int64, device=self.device)
+        mask = torch.as_tensor(np.asarray(nbr_mask), dtype=torch.float32, device=self.device)
+        return lambda t: self.realize(self._t(t)).live(nbr, mask)
 
 
 def make_round_robin_mixing(topo: Topology, *, device="cuda") -> FaultyMixing:
@@ -674,11 +816,14 @@ def make_faulty_mixing(
     device="cuda",
     x64: bool = False,
 ) -> FaultyMixing:
-    """Per-round mixing over the dense base topology, with the JAX
-    package's validation and messages. Memoryless faults draw each round;
-    bursty edges, churn and participation need ``horizon`` and unroll a
-    timeline at set-up (bitwise the memoryless draws at burst_len=1 and at
-    the iid-equivalent churn point). ``timeline`` injects a prebuilt one.
+    """Per-round mixing over the base topology, with the JAX package's
+    validation and messages. Memoryless faults draw each round; bursty
+    edges, churn and participation need ``horizon`` and unroll a timeline
+    at set-up (bitwise the memoryless draws at burst_len=1 and at the
+    iid-equivalent churn point). ``timeline`` injects a prebuilt one. A
+    matrix-free topology takes the gather form, every process through the
+    timeline (its edge chains on the per-edge stream), and refuses
+    matchings and directed graphs.
     ``x64`` keys the streams as a float64 run does and realizes W_t in
     float64.
 
@@ -734,8 +879,25 @@ def make_faulty_mixing(
             "which a one-peer matching cannot supply"
         )
     device = resolve_device(device)
+    drop_active = swept or any(drop > 0.0 for drop in drops)
     use_timeline = (burst_len >= 1.0 or churn_active or participation_active
-                    or timeline is not None)
+                    or timeline is not None
+                    # The matrix-free form takes every process through the
+                    # timeline: iid drops and stragglers are its burst_len=1
+                    # chains, with no [N, N] draw anywhere.
+                    or (topo.is_matrix_free and (straggler_prob > 0.0 or drop_active)))
+    if use_timeline and timeline is None and horizon is None:
+        raise ValueError(
+            "persistent fault processes (burst_len >= 1, mttf/mttr, or "
+            "participation_rate < 1) precompute a [horizon]-indexed "
+            "timeline; pass horizon=n_iterations"
+        )
+    if topo.is_matrix_free and (one_peer or topo.directed):
+        raise ValueError(
+            "matrix-free topologies support synchronous fault "
+            "processes only; matching schedules and directed graphs "
+            "need the dense adjacency — use topology_impl='dense'"
+        )
     if replicated:
         keys = replica_keys(seeds, x64, FAULT_TAG, NODE_TAG, MATCH_TAG, device=device)
         if swept:
@@ -745,12 +907,6 @@ def make_faulty_mixing(
     tensors = None
     if use_timeline:
         if timeline is None:
-            if horizon is None:
-                raise ValueError(
-                    "persistent fault processes (burst_len >= 1, mttf/mttr, or "
-                    "participation_rate < 1) precompute a [horizon]-indexed "
-                    "timeline; pass horizon=n_iterations"
-                )
             processes = dict(
                 burst_len=burst_len if burst_len >= 1.0 else 1.0,
                 straggler_prob=0.0 if churn_active else straggler_prob,

@@ -237,11 +237,11 @@ def test_state_from_reference_steps_like_the_reference(problems):
 def test_what_the_port_does_not_have_yet_raises(problems):
     # large_noise and the dense screen are ported: they build, and 'auto' on
     # the fully-connected graph runs the dense form. The matrix-free fault
-    # form is what still raises.
+    # form is ported too: a faulted config at N = 4,096 resolves to it.
     assert ExperimentConfig(attack="large_noise", n_byzantine=2).attack == "large_noise"
     ExperimentConfig(aggregation="median", robust_b=1, robust_impl="dense")
-    with pytest.raises(ValueError, match="does not have that fault form yet"):
-        ExperimentConfig(n_workers=4096, edge_drop_prob=0.1)
+    assert ExperimentConfig(n_workers=4096, edge_drop_prob=0.1).resolved_topology_impl() \
+        == "neighbor"
     ds, f_opt, _ = problems["logistic"]
     fc = ExperimentConfig(**dict(SMALL, problem_type="logistic", topology="fully_connected",
                                  aggregation="median", robust_b=1))

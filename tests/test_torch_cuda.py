@@ -48,7 +48,12 @@ The replica axis: one sampler (both forms), round or noise launch over R =
 1, 3 and 32 replicas' keys (a drop threshold a replica, stacked timelines,
 flags a replica) gives each replica the single launch's bits, and a
 ``run_batch`` graph run equals its measured run with one sampler, round and
-noise launch a step whatever R is.
+noise launch a step whatever R is. The matrix-free fault form: the slot
+round (both launches) at ring N=256, ER N=1,024 and ER N=100,000, R = 1, 3
+and 8, and the timeline's per-edge stream bitwise their plain versions; a
+faulted matrix-free run's graph bitwise its measured run with two slot-round
+launches a step; and the dense round at N = 65,537 (counters past 2³²)
+bitwise the rows-only plain version.
 """
 
 import dataclasses
@@ -1743,3 +1748,128 @@ def test_cuda_batch_graph_run_is_bitwise_its_measured_run(cuda_device, graph_dat
     assert glaunch["fault_timeline"] == (0 if memoryless else R * dk.TIMELINE_LAUNCHES)
     assert glaunch["large_noise"] == (T if "attack" in fields else 0)
     assert np.all(np.isfinite(graph.objective))
+
+
+# The matrix-free fault form: the slot round over a neighbour table and the
+# per-edge timeline stream. (name, N, p, sampler): ring N=256, ER N=1,024 and
+# the federated phase's cell (ii) shape, ER N=100,000 at p = 16/N.
+SLOT_GRAPHS = {"ring-256": ("ring", 256, None, "dense"),
+               "er-1024": ("erdos_renyi", 1024, 12 / 1024, "dense"),
+               "er-100k": ("erdos_renyi", 100_000, 16 / 100_000, "sparse")}
+SLOT_MODES = {
+    "iid-edges": dict(drop_prob=0.1),
+    "bursty-churn-restart": dict(drop_prob=0.3, burst_len=4.0, mttf=10.0, mttr=4.0,
+                                 rejoin="neighbor_restart"),
+    "participation-stragglers": dict(drop_prob=0.1, straggler_prob=0.1,
+                                     participation_rate=0.5),
+}
+SLOT_HORIZON = 12
+
+
+def _slot_topology(key):
+    from distributed_optimization_tpu_torch.parallel.topology import build_topology
+
+    name, n, p, sampler = SLOT_GRAPHS[key]
+    kw = dict(erdos_renyi_p=p, seed=1, sampler=sampler) if p else {}
+    return build_topology(name, n, impl="neighbor", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 3, 8])
+@pytest.mark.parametrize("graph", sorted(SLOT_GRAPHS))
+def test_cuda_slot_round_is_bitwise_its_plain_version(cuda_device, graph, R):
+    """One launch pair of the slot round against its plain version on the
+    same card tensors, replica by replica: live, w, w_self, active and the
+    degree totals bit for bit, in every mode and both dtypes, at t inside,
+    at and past the horizon."""
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    topo = _slot_topology(graph)
+    seeds = list(REPLICA_SEEDS[:R]) if R > 1 else 203
+    for mode, kw in SLOT_MODES.items():
+        for dtype in (torch.float32, torch.float64):
+            fm = faults.make_faulty_mixing(topo, seed=seeds, horizon=SLOT_HORIZON,
+                                           device=cuda_device, x64=dtype == torch.float64, **kw)
+            for t in (0, 7, SLOT_HORIZON - 1, SLOT_HORIZON, SLOT_HORIZON + 5):
+                tt = torch.tensor([t], device=cuda_device)
+                lead = (R,) if R > 1 else ()
+                total = torch.full(lead, 3.0, dtype=torch.float64, device=cuda_device)
+                got = dk.realize_slot_round(tt, fm._slots, fm._tl, weights=dtype,
+                                            degree_total=total, replicas=R if R > 1 else None)
+                for r in range(R):
+                    tl = fm._tl.replica(r) if R > 1 else fm._tl
+                    want_total = torch.full((), 3.0, dtype=torch.float64, device=cuda_device)
+                    want = dk.realize_slot_round_plain(tt, fm._slots, tl, weights=dtype,
+                                                       degree_total=want_total)
+                    for a, b in zip(got, want):
+                        assert torch.equal(a[r] if R > 1 else a, b), (mode, dtype, t, r)
+                    assert float(total.reshape(-1)[r]) == float(want_total), (mode, t, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", sorted(SLOT_GRAPHS))
+def test_cuda_per_edge_timeline_is_bitwise_its_plain_version(cuda_device, graph):
+    """The timeline's per-edge stream (no edge list: edge e at counter e),
+    with the node and participation streams, bitwise the plain version,
+    across the kernels' tile edge."""
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    topo = _slot_topology(graph)
+    for kw in (dict(edge_drop_prob=0.1), dict(edge_drop_prob=0.3, burst_len=4.0, mttf=10.0,
+                                               mttr=4.0),
+               dict(edge_drop_prob=0.1, straggler_prob=0.1, participation_rate=0.5)):
+        args, _ = faults.timeline_args(topo, 203, device=cuda_device, x64=False,
+                                       **dict(TIMELINE_OFF, **kw))
+        assert args["edges"] is None and args["n_edges"] > 0
+        for horizon in (1, 50, 129) if topo.n < 100_000 else (50,):
+            _assert_timeline_is_the_twin_s(args, horizon, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields", [
+    dict(edge_drop_prob=0.3, burst_len=4.0, mttf=10.0, mttr=4.0, rejoin="neighbor_restart"),
+    dict(edge_drop_prob=0.1, straggler_prob=0.1, participation_rate=0.5,
+         algorithm="gradient_tracking"),
+    dict(edge_drop_prob=0.1, partition="shuffled", attack="sign_flip", n_byzantine=2,
+         aggregation="trimmed_mean", robust_b=1),
+], ids=["bursty-churn-restart", "gt-participation", "sign-flip-gather"])
+def test_cuda_matrix_free_graph_run_is_bitwise_its_measured_run(cuda_device, graph_data, fields):
+    """A faulted matrix-free run: the graph replay equals the measured chunk
+    loop bit for bit (histories, models, floats), with the slot round's two
+    launches a step, the timeline's two a run and no dense round."""
+    base, ds, f_opt = graph_data[fields.get("partition", "sorted")]
+    cfg = base.replace(topology_impl="neighbor", n_iterations=60, eval_every=10, **fields)
+    graph, glaunch = _counted_run(cfg, ds, f_opt)
+    measured, mlaunch = _counted_run(cfg, ds, f_opt, measure_timestamps=True)
+    assert np.array_equal(graph.history.objective, measured.history.objective)
+    assert np.array_equal(graph.final_models, measured.final_models)
+    assert graph.history.total_floats_transmitted == measured.history.total_floats_transmitted
+    assert glaunch == mlaunch
+    T = cfg.n_iterations
+    assert glaunch["realize_slot_round"] == dk.SLOT_ROUND_LAUNCHES * T
+    assert glaunch["fault_timeline"] == dk.TIMELINE_LAUNCHES
+    assert glaunch["realize_round"] == 0
+    assert np.all(np.isfinite(graph.history.objective))
+
+
+@pytest.mark.cuda
+def test_cuda_dense_round_rows_past_two_to_the_32(cuda_device):
+    """The dense round at N = 65,537 on the ring, where i·N + j passes 2³²:
+    A_t and W_t (2 × 17.2 GB in float32) from tables built of the
+    matrix-free ring's table, rows bitwise the rows-only plain version."""
+    from distributed_optimization_tpu_torch.parallel import faults
+    from distributed_optimization_tpu_torch.parallel.topology import build_topology
+
+    n = 65_537
+    topo = build_topology("ring", n, impl="neighbor")
+    tables = faults.round_tables(topo, device=cuda_device)
+    keys = faults._tag_keys(203, False, faults.FAULT_TAG, faults.NODE_TAG, faults.MATCH_TAG)
+    rows = [0, 1, n // 2, n - 2, n - 1]
+    tt = torch.tensor([17], device=cuda_device)
+    kw = dict(drop_prob=0.2, straggler_prob=0.1)
+    out = dk.realize_round(tt, keys, tables, weights=torch.float32, **kw)
+    A, W, active = (out.A[rows].clone(), out.W[rows].clone(), out.active[rows].clone())
+    del out
+    torch.cuda.empty_cache()
+    want = dk.realize_round_rows_plain(tt, keys, tables, rows, **kw)
+    assert torch.equal(A, want[0]) and torch.equal(W, want[1]) and torch.equal(active, want[2])

@@ -156,10 +156,10 @@ def test_config_refuses_what_the_port_lacks():
         ExperimentConfig(problem_type="poisson")
     with pytest.raises(ValueError, match="does not have it yet"):
         ExperimentConfig(mixing_impl="shard_map")
-    with pytest.raises(ValueError, match="does not have it yet"):
-        ExperimentConfig(topology_impl="neighbor")
-    with pytest.raises(ValueError, match="does not have the sparse"):
-        ExperimentConfig(topology="erdos_renyi", topology_sampler="sparse")
+    # The matrix-free representation and the sparse sampler are ported.
+    assert ExperimentConfig(topology_impl="neighbor").resolved_topology_impl() == "neighbor"
+    assert ExperimentConfig(topology="erdos_renyi",
+                            topology_sampler="sparse").resolved_topology_sampler() == "sparse"
     with pytest.raises(ValueError, match="does not have it yet"):
         ExperimentConfig(dtype="bfloat16")
     with pytest.raises(ValueError, match="must divide"):

@@ -343,8 +343,10 @@ def test_fault_entry_points_run_on_cuda_unless_asked(name, monkeypatch):
 
 
 def test_matrix_free_fault_form_raises_not_yet():
-    with pytest.raises(ValueError, match="does not have that fault form yet"):
-        ExperimentConfig(n_workers=4096, edge_drop_prob=0.1)
+    # The matrix-free fault form is ported: a faulted config at N = 4,096
+    # resolves to it, and an explicit 'dense' keeps the dense form.
+    assert ExperimentConfig(n_workers=4096, edge_drop_prob=0.1).resolved_topology_impl() \
+        == "neighbor"
     cfg = ExperimentConfig(n_workers=4096, edge_drop_prob=0.1, topology_impl="dense")
     assert cfg.time_varying and cfg.resolved_topology_impl() == "dense"
 

@@ -171,16 +171,15 @@ def test_config_refuses_with_the_jax_message(fields):
 
 
 def test_the_representations_the_port_lacks_raise_not_yet():
-    with pytest.raises(ValueError, match="does not have it yet"):
-        ExperimentConfig(topology_impl="neighbor")
-    with pytest.raises(ValueError, match="sparse Erdős–Rényi sampler"):
-        ExperimentConfig(topology="erdos_renyi", topology_sampler="sparse")
+    # Both representations and both samplers are ported: nothing raises.
+    assert ExperimentConfig(topology_impl="neighbor").resolved_topology_impl() == "neighbor"
+    assert ExperimentConfig(topology="erdos_renyi",
+                            topology_sampler="sparse").resolved_topology_sampler() == "sparse"
     # Past SPARSE_SAMPLER_AUTO_N the JAX package's 'auto' draws ER with its
-    # sparse sampler, another graph: the port refuses rather than differ.
+    # sparse sampler, and so does the port's.
     big = dict(topology="erdos_renyi", n_workers=65_537, erdos_renyi_p=1e-3)
     assert RefConfig(**big).resolved_topology_sampler() == "sparse"
-    with pytest.raises(ValueError, match="sparse Erdős–Rényi sampler"):
-        ExperimentConfig(**big)
+    assert ExperimentConfig(**big).resolved_topology_sampler() == "sparse"
     at = dict(big, n_workers=65_536)
     assert RefConfig(**at).resolved_topology_sampler() == "dense"
     assert ExperimentConfig(**at).resolved_topology_sampler() == "dense"

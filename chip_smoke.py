@@ -322,6 +322,28 @@ Phases:
     unsharded (ring N = 1,000,000, neighbor, gather, b = 1, timed over 100
     iterations with an eval every 10, whose first eval the cell's own T = 10
     run equals bit for bit).
+23. async: the asynchronous event clock (``execution='async'``,
+    ``backends/async_scan.py``): each event's batch one launch of the event
+    sampler (the gather kernel's event mode), the events replayed as CUDA
+    graphs over a device cursor. ``examples/bench_async.py``'s four latency
+    cells (quadratic N=32 ring, T=2,000, b=16, eval every 50, float32;
+    ``ASYNC_BENCH``) beside the port's sync one-peer and full-gossip runs:
+    each final gap within 1% of the JAX package's (``ASYNC_REFERENCE``),
+    floats exact, the sampler N·T times, the bench's wall-clock speedup
+    floors (2, 3, 3) and final-gap envelopes (1.25, 1.3, 2), and at
+    constant latency the synchronous clock, zero skew and one-peer's
+    floats; its degenerate gate (N=16, T=200, float64, shared batches):
+    async against sync one-peer and card against CPU, each within 1e-12;
+    ``examples/bench_async_faults.py``'s cells (N=16, T=800, lognormal
+    1.25, seed 7): churn 12/4 and participation 0.75 each at least 0.8×
+    healthy and within 2× of each other, the floats the fired live
+    exchanges, the wall-clock speedup under churn at least 2, and GT under
+    churn with participation 0.9 in float64 with |mean y − mean g_prev| below
+    1e-9; main's shapes on the event clock (N=256 ring, logistic, L=49, b=16,
+    lognormal 1.25, T=200: 51,200 events; events/s, µs an event, capture
+    seconds, gap digest) and a T=20 run's graph bitwise its uncaptured run;
+    the event sampler bitwise its plain version at main's shard, timed in a
+    graph and event-timed (its record in the ``kernels`` line).
 
 Every run goes through the port's run loop: after a warm-up chunk, CUDA
 graph replays (``backends/torch_backend.py``). The kernels count their own
@@ -368,7 +390,7 @@ import time
 
 PHASES = ("card", "kernels", "sampling", "reference", "parity", "main", "mixing", "fc", "admm",
           "tracking", "compression", "topologies", "push_sum", "study", "byzantine", "robust",
-          "robust_mixing", "objectives", "faults", "churn", "replicas", "federated")
+          "robust_mixing", "objectives", "faults", "churn", "replicas", "federated", "async")
 # Run only when asked for: profile, a torch.profiler trace of the main
 # path's, the admm ring's, the robust cell's and the federated cells' steady
 # loops, graph and measured; ab (with --ab-baseline), every kernel's wrapper
@@ -434,6 +456,7 @@ SOURCES = {
     "large_noise, replica axis": "draw_kernels.cu",
     "realize_slot_round": "draw_kernels.cu",
     "fault_timeline, per-edge stream": "draw_kernels.cu",
+    "sample_event_batch": "sampling_kernels.cu",
 }
 REPLACES = {
     "fused_ring_dsgd_step": f"{PALLAS}:143", "ring_mix": f"{PALLAS}:137",
@@ -456,6 +479,8 @@ REPLACES = {
     # weights, degree sum) and build_fault_timeline's per-edge draws.
     "realize_slot_round": "distributed_optimization_tpu/parallel/faults.py:1133",
     "fault_timeline, per-edge stream": "distributed_optimization_tpu/parallel/faults.py:489",
+    # The event clock's per-event batch draw (no Pallas kernel).
+    "sample_event_batch": "distributed_optimization_tpu/backends/async_scan.py:516",
 }
 # The replica axis (run_batch): the same four kernels, one launch for R
 # replicas (the replicas phase).
@@ -892,6 +917,57 @@ SLOT_ROWS = {"er_100k": (ER_100K_FAULTS, ER_100K["n_iterations"]),
                                rejoin="neighbor_restart", participation_rate=0.7), 60)}
 # The dense round past i·N + j = 2³²: a ring of this N.
 DENSE_ROUND_N = 65_537
+
+
+# The async event clock (phase async). examples/bench_async.py's base
+# (quadratic N=32 ring, T=2,000, eval every 50, float32) and its four
+# latency cells, each (fields, the JAX package's final gap, floats), from
+# jax_backend.run on a CPU (tests/test_torch_async.py recomputes them; not
+# docs/perf/async.json, which predates the JAX code as it stands), with
+# the bench's speedup floors and final-gap envelopes against sync one-peer.
+ASYNC_BENCH = dict(problem_type="quadratic", algorithm="dsgd", topology="ring", n_workers=32,
+                   n_samples=1600, n_features=10, n_informative_features=6,
+                   n_iterations=2000, local_batch_size=16, eval_every=50)
+ASYNC_REFERENCE = {
+    "constant": (dict(execution="async"), 53.573055267333984, 354068.0),
+    "exponential": (dict(execution="async", latency_model="exponential"),
+                    54.49319076538086, 354068.0),
+    "lognormal": (dict(execution="async", latency_model="lognormal", latency_tail=1.25),
+                  80.46687316894531, 354068.0),
+    "pareto": (dict(execution="async", latency_model="pareto", latency_tail=1.3),
+               186.8241424560547, 354068.0),
+}
+ASYNC_FLOORS = {"exponential": 2.0, "lognormal": 3.0, "pareto": 3.0}
+ASYNC_ENVELOPES = {"constant": 1.25, "exponential": 1.3, "lognormal": 2.0}
+ASYNC_GAP_TOLERANCE = 0.01
+# bench_async.py's degenerate gate: N=16, T=200, float64, shared batches.
+ASYNC_DEGENERATE = dict(n_workers=16, n_iterations=200, eval_every=50, n_samples=800,
+                        dtype="float64")
+# examples/bench_async_faults.py's cells (N=16 ring, T=800, lognormal 1.25,
+# seed 7): healthy, churn 12/4 and participation 0.75 (float32; churn and
+# thinning each at least 0.8× healthy's final gap, within 2× of each
+# other), and GT under churn with participation 0.9 in float64, whose
+# tracker residual |mean y − mean g_prev| stays under ASYNC_TRACKING_BOUND.
+ASYNC_FAULTS_BENCH = dict(problem_type="quadratic", algorithm="dsgd", topology="ring",
+                          n_workers=16, n_samples=1600, n_features=10,
+                          n_informative_features=6, n_iterations=800, local_batch_size=16,
+                          eval_every=50, execution="async", latency_model="lognormal",
+                          latency_mean=1.0, latency_tail=1.25, seed=7)
+ASYNC_FAULT_CELLS = {
+    "healthy": {},
+    "churn": dict(mttf=12.0, mttr=4.0),
+    "thinning": dict(participation_rate=0.75),
+    "gt_composed": dict(algorithm="gradient_tracking", dtype="float64", mttf=12.0, mttr=4.0,
+                        participation_rate=0.9),
+}
+ASYNC_TRACKING_BOUND = 1e-9
+# Main's shapes on the event clock: N=256 ring, logistic, d=81, L=49, b=16,
+# lognormal 1.25, T=200 (51,200 events), eval every 10; the graph run
+# against the same events run uncaptured at ASYNC_MAIN_UNCAPTURED rounds.
+ASYNC_MAIN = dict(problem_type="logistic", algorithm="dsgd", topology="ring", n_workers=256,
+                  n_iterations=200, eval_every=10, execution="async",
+                  latency_model="lognormal", latency_tail=1.25)
+ASYNC_MAIN_UNCAPTURED = 20
 
 
 class PhaseFailed(RuntimeError):
@@ -3646,6 +3722,246 @@ def phase_federated(torch, np, pkg, kernels):
     return fault_launches
 
 
+def event_sampler_bound(L: int, b: int, d: int, itemsize: int):
+    """(ms, 'bytes' or 'operations') for one event's draw: 2 + L Threefry
+    calls (the worker and step keys, each row's score), the mantissas and a
+    top-k selection of k = min(b, L) rows (L·⌈log2 k⌉ compares), against the
+    cursor, the event's worker and step and n_valid read once, the k rows
+    of X and y read and Xb [b, d], yb and the weights written."""
+    k = min(b, L)
+    ops = THREEFRY_OPS * (2 + L) + 3 * L + L * max(1, math.ceil(math.log2(k)))
+    nbytes = 32 + k * (d + 1) * itemsize + b * (d + 2) * itemsize
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _first_crossing(np, gaps, clocks, eps):
+    hit = np.nonzero(np.asarray(gaps) <= eps)[0]
+    return float(clocks[hit[0]]) if hit.size else None
+
+
+def _async_run(torch, pkg, counters, cfg, ds, f_opt, label, **kw):
+    """One event-clock run on the card with its launch counts, finite."""
+    import numpy as np
+
+    for c in counters:
+        c.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pkg.run_async(cfg, ds, f_opt, device="cuda", **kw)
+    wall = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items() if v}
+    h = res.history
+    events_per_s = h.iters_per_second * cfg.n_workers
+    say(f"[async] {label}: N={cfg.n_workers} T={cfg.n_iterations} "
+        f"({cfg.n_workers * cfg.n_iterations:,} events, {cfg.dtype}"
+        f"{', uncaptured' if kw.get('capture') is False else ''}): final gap "
+        f"{h.objective[-1]:.6f}, floats {h.total_floats_transmitted:.0f}, "
+        f"{events_per_s:,.1f} events/s ({1e6 / events_per_s:.2f} us an event), "
+        f"capture {h.capture_seconds:.3f} s, warm-up and capture {h.compile_seconds:.3f} s, "
+        f"whole run {wall:.2f} s, launches {launches}, gap history sha256 "
+        f"{_digest(np, h.objective)}")
+    check(bool(np.all(np.isfinite(h.objective))), f"async {label}: non-finite gaps")
+    return res, launches
+
+
+def phase_async(torch, np, pkg, kernels):
+    """The asynchronous event clock on the card. (1) bench_async.py's four
+    latency cells with the sync one-peer and full-gossip baselines: each
+    final gap within 1% of the JAX package's (``ASYNC_REFERENCE``), floats
+    exact, the bench's speedup floors and gap envelopes, and at constant
+    latency the sync clock, floats and zero skew; (2) the degenerate gate
+    in float64: async at constant latency against sync one-peer on shared
+    batches, and card against CPU, each within 1e-12; (3)
+    bench_async_faults.py's cells: churn and thinning against healthy, the
+    wall-clock gate under churn, GT composed in float64 under the tracking
+    bound; (4) main's shapes on the event clock (events/s, µs an event,
+    capture seconds) and a short run's graph bitwise its uncaptured run.
+    Returns (the event sampler's record, its launches on main's run)."""
+    sk = kernels["sk"]
+    counters = [kernels[k] for k in ("rk", "fk", "bk", "sk", "ck", "dk")]
+
+    # (1) the latency cells.
+    base = pkg.ExperimentConfig(**ASYNC_BENCH)
+    N, T, every = base.n_workers, base.n_iterations, base.eval_every
+    ds = pkg.generate_synthetic_dataset(base)
+    f_opt = pkg.compute_reference_optimum(ds, base.reg_param)[1]
+    peer = pkg.run(base.replace(gossip_schedule="one_peer"), ds, f_opt, device="cuda")
+    full = pkg.run(base, ds, f_opt, device="cuda")
+    gaps_sync = peer.history.objective
+    say(f"[async] sync baselines N={N} T={T}: one-peer final gap {gaps_sync[-1]:.6f} "
+        f"(floats {peer.history.total_floats_transmitted:.0f}), full gossip "
+        f"{full.history.objective[-1]:.6f} (floats {full.history.total_floats_transmitted:.0f})")
+    for name, (fields, ref_gap, ref_floats) in ASYNC_REFERENCE.items():
+        cfg = base.replace(**fields)
+        res, launches = _async_run(torch, pkg, counters, cfg, ds, f_opt, name)
+        gaps = res.history.objective
+        _, tl = pkg.async_timeline_for(cfg, "cuda")
+        vt_async = tl.t_virtual[every * N - 1::every * N]
+        vt_sync = pkg.sync_round_times(tl)[every - 1::every]
+        eps = 1.3 * max(float(gaps[-1]), float(gaps_sync[-1]))
+        t_async = _first_crossing(np, gaps, vt_async, eps)
+        t_sync = _first_crossing(np, gaps_sync, vt_sync, eps)
+        speedup = t_sync / t_async if t_async and t_sync else None
+        ratio = float(gaps[-1]) / float(gaps_sync[-1])
+        rel = abs(float(gaps[-1]) / ref_gap - 1.0)
+        say(f"[async] {name}: final gap {gaps[-1]:.6f} against the JAX package's {ref_gap:.6f} "
+            f"({rel * 100:.3f}% apart), x{ratio:.3f} sync one-peer's; virtual clock to "
+            f"eps={eps:.4f}: async {t_async}, sync {t_sync}, speedup {speedup}; staleness "
+            f"{pkg.staleness_histogram(tl)}, clock skew {pkg.clock_skew(tl)['rel_spread']:.4f}")
+        check(rel <= ASYNC_GAP_TOLERANCE, f"async {name}: final gap {rel * 100:.3f}% from JAX's")
+        check(res.history.total_floats_transmitted == ref_floats,
+              f"async {name}: floats {res.history.total_floats_transmitted} not {ref_floats}")
+        check(launches == {"sample_event_batch": N * T}, f"async {name}: launches {launches}")
+        if name in ASYNC_FLOORS:
+            check(speedup is not None and speedup >= ASYNC_FLOORS[name],
+                  f"async {name}: speedup {speedup} under the {ASYNC_FLOORS[name]}x floor")
+        if name in ASYNC_ENVELOPES:
+            check(ratio <= ASYNC_ENVELOPES[name],
+                  f"async {name}: final gap x{ratio:.3f} sync's, past {ASYNC_ENVELOPES[name]}x")
+        if name == "constant":
+            check(np.array_equal(vt_async, vt_sync) and round(speedup, 3) == 1.0
+                  and pkg.clock_skew(tl)["rel_spread"] == 0.0
+                  and res.history.total_floats_transmitted
+                  == peer.history.total_floats_transmitted,
+                  "async constant: not the synchronous clock and one-peer floats")
+
+    # (2) the degenerate gate, float64, shared batches.
+    eq_cfg = base.replace(**ASYNC_DEGENERATE)
+    eq_ds = pkg.generate_synthetic_dataset(eq_cfg)
+    eq_f = pkg.compute_reference_optimum(eq_ds, eq_cfg.reg_param)[1]
+    rng = np.random.default_rng(0)
+    sizes = [len(s) for s in eq_ds.shard_indices]
+    sync_sched = np.stack([np.stack([rng.integers(0, sizes[i], size=eq_cfg.local_batch_size)
+                                     for i in range(eq_cfg.n_workers)])
+                           for _ in range(eq_cfg.n_iterations)])
+    a_cfg = eq_cfg.replace(execution="async")
+    _, eq_tl = pkg.async_timeline_for(a_cfg, "cuda")
+    async_sched = sync_sched[eq_tl.local_step, eq_tl.worker]
+    r_a = pkg.run(a_cfg, eq_ds, eq_f, device="cuda", batch_schedule=async_sched)
+    r_s = pkg.run(eq_cfg.replace(gossip_schedule="one_peer"), eq_ds, eq_f, device="cuda",
+                  batch_schedule=sync_sched)
+    r_h = pkg.run(a_cfg, eq_ds, eq_f, device="cpu", batch_schedule=async_sched)
+    dev_sync = float(np.max(np.abs(r_a.final_models - r_s.final_models)))
+    dev_host = max(float(np.max(np.abs(r_a.final_models - r_h.final_models))),
+                   float(np.max(np.abs(r_a.history.objective - r_h.history.objective))))
+    say(f"[async] degenerate gate N={eq_cfg.n_workers} T={eq_cfg.n_iterations} float64: async "
+        f"at constant latency against sync one-peer on shared batches {dev_sync:.3e} apart "
+        f"(floats {r_a.history.total_floats_transmitted:.0f} and "
+        f"{r_s.history.total_floats_transmitted:.0f}); card against CPU {dev_host:.3e}")
+    check(dev_sync <= 1e-12 and r_a.history.total_floats_transmitted
+          == r_s.history.total_floats_transmitted, "async: the degenerate gate failed")
+    check(dev_host <= 1e-12, "async: the card and the CPU part in float64")
+
+    # (3) bench_async_faults.py's cells.
+    fb = pkg.ExperimentConfig(**ASYNC_FAULTS_BENCH)
+    f_ds = pkg.generate_synthetic_dataset(fb)
+    f_f = pkg.compute_reference_optimum(f_ds, fb.reg_param)[1]
+    finals = {}
+    for name, fields in ASYNC_FAULT_CELLS.items():
+        cfg = fb.replace(**fields)
+        res, launches = _async_run(torch, pkg, counters, cfg, f_ds, f_f, f"faults {name}",
+                                   return_state=name == "gt_composed")
+        topo, tl = pkg.async_timeline_for(cfg, "cuda")
+        _, real, _ = pkg.event_faults_for(cfg, topo, tl, device="cuda")
+        fired = real.matched_fired if real is not None else tl.matched()
+        per = (4.0 if cfg.algorithm == "gradient_tracking" else 2.0) * (cfg.n_features + 1)
+        check(res.history.total_floats_transmitted == per * float(fired.sum()),
+              f"async faults {name}: floats not the fired live exchanges")
+        # The event sampler once an event; the config's fault chains drawn
+        # once a run (the timeline's two launches), on the card.
+        check(launches == {"sample_event_batch": cfg.n_workers * cfg.n_iterations,
+                           **({"fault_timeline": kernels["dk"].TIMELINE_LAUNCHES}
+                              if cfg.faults_active else {})},
+              f"async faults {name}: launches {launches}")
+        finals[name] = float(res.history.objective[-1])
+        if real is not None:
+            say(f"[async] faults {name}: availability {real.availability:.4f}, in-flight lost "
+                f"{real.n_inflight_lost}, thinned {real.n_thinned}, degraded {real.n_degraded}")
+        if name == "gt_composed":
+            st = res.final_state
+            residual = float(np.max(np.abs(st["y"].mean(0) - st["g_prev"].mean(0))))
+            say(f"[async] faults gt_composed: tracker residual {residual:.3e} "
+                f"(bound {ASYNC_TRACKING_BOUND})")
+            check(residual < ASYNC_TRACKING_BOUND, "async: the tracking invariant broke")
+        if name == "churn":
+            churn_res, churn_tl = res, tl
+    g_h, g_c, g_t = finals["healthy"], finals["churn"], finals["thinning"]
+    envelope = max(g_c, g_t) / min(g_c, g_t)
+    say(f"[async] faults: healthy {g_h:.4f}, churn {g_c:.4f}, thinning {g_t:.4f}, "
+        f"envelope x{envelope:.3f}")
+    check(g_c >= 0.8 * g_h and g_t >= 0.8 * g_h, "async faults: a faulty run beat healthy")
+    check(envelope <= 2.0, f"async faults: churn and thinning {envelope:.2f}x apart")
+    sync_churn = pkg.run(fb.replace(execution="sync", latency_model="constant", latency_tail=0.0,
+                                    **ASYNC_FAULT_CELLS["churn"]), f_ds, f_f, device="cuda")
+    gs, ga = sync_churn.history.objective, churn_res.history.objective
+    f_every, f_n = fb.eval_every, fb.n_workers
+    eps = 1.3 * max(float(ga[-1]), float(gs[-1]))
+    t_a = _first_crossing(np, ga, churn_tl.t_virtual[f_every * f_n - 1::f_every * f_n], eps)
+    t_s = _first_crossing(np, gs, pkg.sync_round_times(churn_tl)[f_every - 1::f_every], eps)
+    speedup = t_s / t_a if t_a and t_s else None
+    say(f"[async] faults wall clock under churn: eps {eps:.3f}, async {t_a}, sync {t_s}, "
+        f"speedup {speedup}")
+    check(speedup is not None and speedup >= 2.0, f"async faults: speedup {speedup} under 2x")
+
+    # (4) main's shapes on the event clock.
+    main_ds, main_f = _main_data(pkg, MAIN_SHAPE[0])
+    cfg = pkg.ExperimentConfig(**ASYNC_MAIN)
+    res, main_launches = _async_run(torch, pkg, counters, cfg, main_ds, main_f, "main's shapes")
+    check(main_launches == {"sample_event_batch": cfg.n_workers * cfg.n_iterations},
+          f"async main: launches {main_launches}")
+    short = cfg.replace(n_iterations=ASYNC_MAIN_UNCAPTURED)
+    graph, g_launch = _async_run(torch, pkg, counters, short, main_ds, main_f,
+                                 "main's shapes, graph", return_state=True)
+    eager, e_launch = _async_run(torch, pkg, counters, short, main_ds, main_f,
+                                 "main's shapes", return_state=True, capture=False)
+    same = (np.array_equal(graph.history.objective, eager.history.objective)
+            and np.array_equal(graph.history.consensus_error, eager.history.consensus_error)
+            and all(np.array_equal(graph.final_state[k], eager.final_state[k])
+                    for k in graph.final_state))
+    say(f"[async] main's shapes T={ASYNC_MAIN_UNCAPTURED}: the graph run "
+        f"{'bitwise equals' if same else 'DIFFERS from'} the same events run uncaptured")
+    check(same and g_launch == e_launch, "async: the graph run is not its uncaptured run")
+
+    # The event sampler at main's shard (L = 49, b = 16, d = 81), float32:
+    # bitwise its plain version, timed in a graph and event-timed.
+    dev = torch.device("cuda")
+    host = pkg.stack_shards(main_ds, dtype=np.dtype("float32"))
+    X = torch.as_tensor(host.X, device=dev)
+    y = torch.as_tensor(host.y, device=dev)
+    nv = torch.as_tensor(host.n_valid, dtype=torch.int64, device=dev)
+    _, tl = pkg.async_timeline_for(cfg, "cuda")
+    workers = torch.as_tensor(tl.worker, dtype=torch.int64, device=dev)
+    steps = torch.as_tensor(tl.local_step, dtype=torch.int64, device=dev)
+    key = pkg.event_key(cfg.seed, x64=False)
+    cursor = torch.zeros(1, dtype=torch.int64, device=dev)
+    b = cfg.local_batch_size
+    for e in (0, 1, 777, len(tl.worker) - 1):
+        cursor.fill_(e)
+        got = sk.sample_event_batch(key, cursor, workers, steps, X, y, nv, b)
+        want = pkg.plain_event_batch(key, cursor, workers, steps, X, y, nv, b)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"async: the event sampler differs from its plain version at event {e}")
+    cursor.fill_(777)
+
+    def kernel():
+        return sk.sample_event_batch(key, cursor, workers, steps, X, y, nv, b)
+
+    def plain():
+        return pkg.plain_event_batch(key, cursor, workers, steps, X, y, nv, b)
+
+    ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
+    b_ms, b_by = event_sampler_bound(X.shape[1], b, X.shape[2], 4)
+    in_graph = graph_ms(torch, kernel)
+    say(f"[kernels] sample_event_batch (L={X.shape[1]}, b={b}, d={X.shape[2]}) float32: "
+        f"bitwise its plain version; in a graph of {TIMED_LAUNCHES} launches "
+        f"{in_graph * 1e3:.3f} us a launch, event-timed {ms * 1e3:.3f} us, plain "
+        f"{plain_ms * 1e3:.3f} us, bound {b_ms * 1e3:.4f} us ({b_by})")
+    record = _record("sample_event_batch", 0.0, ms, plain_ms, b_ms, b_by, None,
+                     graph_ms=in_graph)
+    return record, main_launches
+
+
 AB_MODULES = {"rk": "ring_kernels", "fk": "fc_kernels", "bk": "robust_kernels",
               "sk": "sampling_kernels", "ck": "compression_kernels", "dk": "draw_kernels"}
 
@@ -3726,6 +4042,15 @@ def ab_calls(torch, np, pkg, topology) -> dict:
     X, y = sampling_rows(torch, n_g, L_g, torch.float32)
     calls["sample_worker_batches"] = lambda m: lambda: m["sk"].sample_worker_batches(
         key, t, X, y, nv_g, b_g)
+    # The event sampler at main's shard (a tree before the event clock has
+    # no sample_event_batch, and is skipped).
+    X_m, y_m = sampling_rows(torch, n_w, L, torch.float32)
+    e_workers = torch.arange(n_w, dtype=torch.int64, device=dev)
+    e_steps = torch.full((n_w,), 12_345, dtype=torch.int64, device=dev)
+    cursor = torch.tensor([7], dtype=torch.int64, device=dev)
+    e_key = pkg.event_key(203, x64=False)
+    calls["sample_event_batch"] = lambda m: lambda: m["sk"].sample_event_batch(
+        e_key, cursor, e_workers, e_steps, X_m, y_m, nv_w, b)
     v, memory = compression_inputs(torch, n, d, torch.float32)
 
     def compress(m):
@@ -4418,6 +4743,9 @@ def main(argv=None) -> int:
             "0.5, two launches a step",
         "fault_timeline, per-edge stream":
             "federated: er_100k under 10% iid drops and participation 0.5, two launches a run",
+        "sample_event_batch":
+            "async: main's shapes on the event clock (N=256 ring, lognormal 1.25, T=200), "
+            "once an event (T·N)",
     }
     counted = {}
     if "parity" in phases:
@@ -4505,6 +4833,11 @@ def main(argv=None) -> int:
             "fault_timeline, per-edge stream": launches["fault_timeline"]}
         lap("federated")
 
+    if "async" in phases:
+        records["sample_event_batch"], launches = phase_async(torch, np, pkg, kernels)
+        counted["sample_event_batch"] = launches
+        lap("async")
+
     if "profile" in phases:
         from distributed_optimization_tpu_torch.backends.torch_backend import STEADY_LOOP
 
@@ -4537,6 +4870,13 @@ def _package():
     import types
 
     from distributed_optimization_tpu_torch.algorithms import get_algorithm
+    from distributed_optimization_tpu_torch.backends.async_scan import (
+        event_faults_for,
+        run_async,
+    )
+    from distributed_optimization_tpu_torch.backends.async_scan import (
+        timeline_for as async_timeline_for,
+    )
     from distributed_optimization_tpu_torch.backends.torch_backend import (
         bind_byzantine,
         resolve_robust_impl,
@@ -4547,16 +4887,26 @@ def _package():
     from distributed_optimization_tpu_torch.metrics import iterations_to_threshold
     from distributed_optimization_tpu_torch.ops import prng
     from distributed_optimization_tpu_torch.ops.mixing import make_mixing_op
+    from distributed_optimization_tpu_torch.ops.sampling import event_key
+    from distributed_optimization_tpu_torch.ops.sampling import (
+        sample_event_batch as plain_event_batch,
+    )
     from distributed_optimization_tpu_torch.parallel.adversary import byzantine_mask
     from distributed_optimization_tpu_torch.parallel.faults import (
         build_fault_timeline,
         outage_stats,
         windowed_connectivity,
     )
+    from distributed_optimization_tpu_torch.parallel.events import (
+        clock_skew,
+        staleness_histogram,
+        sync_round_times,
+    )
     from distributed_optimization_tpu_torch.parallel.topology import build_topology
     from distributed_optimization_tpu_torch.utils.data import (
         HostDataset,
         generate_synthetic_dataset,
+        stack_shards,
     )
     from distributed_optimization_tpu_torch.utils.oracle import compute_reference_optimum
 
@@ -4589,6 +4939,10 @@ def _package():
         compute_reference_optimum=optimum, HostDataset=HostDataset,
         prng=prng, byzantine_mask=byzantine_mask, build_fault_timeline=build_fault_timeline,
         outage_stats=outage_stats, windowed_connectivity=windowed_connectivity,
+        run_async=run_async, async_timeline_for=async_timeline_for,
+        event_faults_for=event_faults_for, sync_round_times=sync_round_times,
+        clock_skew=clock_skew, staleness_histogram=staleness_histogram, event_key=event_key,
+        plain_event_batch=plain_event_batch, stack_shards=stack_shards,
     )
 
 

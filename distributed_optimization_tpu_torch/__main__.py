@@ -9,7 +9,9 @@ goes on the card (``--device cuda``, the default) or on the CPU
 (``--device cpu``). ``--replicas R`` (seeds seed … seed+R−1) or ``--seeds
 S1,S2,...`` run the seeds as one replica batch
 (``torch_backend.run_batch``) and print each quantity as mean ± std over
-the replicas, as the JAX CLI does.
+the replicas, as the JAX CLI does. ``--execution async`` (with
+``--latency-model``, ``--latency-mean``, ``--latency-tail``) runs the
+asynchronous event clock; its iterations are rounds of N events.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ from distributed_optimization_tpu_torch.config import (
     ATTACKS,
     COMPRESSIONS,
     DTYPES,
+    EXECUTIONS,
     GOSSIP_SCHEDULES,
+    LATENCY_MODELS,
     LR_SCHEDULES,
     MATMUL_PRECISIONS,
     MATRIX_FREE_AUTO_N,
@@ -161,6 +165,22 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_DEFAULTS.gossip_schedule,
                    help="'one_peer' = randomized pairwise gossip; 'round_robin' = "
                         "deterministic matchings covering the edge set")
+    p.add_argument("--execution", choices=EXECUTIONS, default=_DEFAULTS.execution,
+                   help="'async' runs a precomputed EVENT schedule (AD-PSGD-style "
+                        "bounded-staleness gossip: one worker's stale-read local step "
+                        "+ a pairwise exchange per event; stragglers are latency, not "
+                        "drops). n_iterations then counts per-worker gradient steps (N "
+                        "events per round); dsgd and gradient_tracking")
+    p.add_argument("--latency-model", choices=LATENCY_MODELS,
+                   default=_DEFAULTS.latency_model,
+                   help="per-worker compute-time distribution of the async event "
+                        "schedule (all matched to mean --latency-mean; async only)")
+    p.add_argument("--latency-mean", type=float, default=_DEFAULTS.latency_mean,
+                   help="mean compute time per gradient step in virtual seconds "
+                        "(async only)")
+    p.add_argument("--latency-tail", type=float, default=_DEFAULTS.latency_tail,
+                   help="heavy-tail straggler knob: lognormal log-std (> 0) or pareto "
+                        "shape alpha (> 1); 0 for constant/exponential (async only)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--json", action="store_true", help="print the summary as JSON")
     return p
@@ -219,6 +239,10 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         rejoin=args.rejoin,
         participation_rate=args.participation_rate,
         gossip_schedule=args.gossip_schedule,
+        execution=args.execution,
+        latency_model=args.latency_model,
+        latency_mean=args.latency_mean,
+        latency_tail=args.latency_tail,
     )
 
 
@@ -277,6 +301,7 @@ def main(argv: list[str] | None = None) -> int:
         "attack": cfg.attack,
         "aggregation": cfg.aggregation,
         "gossip_schedule": cfg.gossip_schedule,
+        "execution": cfg.execution,
         # Under an attack the gap and consensus are over the honest rows.
         "gap_over": "honest workers" if cfg.attack != "none" else "all workers",
         "iterations_to_threshold": iterations_to_threshold(

@@ -863,7 +863,22 @@ def run(
     ``final_state``, as host float64 arrays. On a card, a float32 run's
     products follow ``config.matmul_precision`` (``tf32_for``), and the
     caller's TF32 setting is restored when the run returns.
+
+    ``execution='async'`` runs the event clock (``async_scan.run_async``),
+    which has no per-eval timestamps.
     """
+    if config.execution == "async":
+        if measure_timestamps:
+            raise ValueError(
+                "execution='async' reports the event schedule's simulated "
+                "VIRTUAL clock (telemetry.async health block), not "
+                "host-driven per-eval timestamps"
+            )
+        from distributed_optimization_tpu_torch.backends import async_scan
+
+        return async_scan.run_async(config, dataset, f_opt, device=device,
+                                    batch_schedule=batch_schedule,
+                                    collect_metrics=collect_metrics, return_state=return_state)
     dev = resolve_device(device)
     T = config.n_iterations
     eval_every = config.eval_every
@@ -968,6 +983,14 @@ def batch_unsupported_reason(config) -> Optional[str]:
             "config.seed internally, which the batched per-replica seed "
             "axis cannot reach — replicas would silently share "
             "compression draws"
+        )
+    if config.execution == "async":
+        return (
+            "run_batch does not support execution='async': the event "
+            "path is a sequential scan over one totally ordered schedule "
+            "per seed, and the per-replica schedules have different "
+            "event ORDERS (the order is data, but the staleness replay "
+            "is not) — run seeds sequentially"
         )
     return None
 

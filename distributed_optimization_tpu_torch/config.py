@@ -72,6 +72,12 @@ DEFAULT_HUBER_DELTA = 10.0
 # captured program as device data. Structural fields change the program
 # and are refused.
 SWEEPABLE_FIELDS = ("learning_rate_eta0", "clip_tau", "edge_drop_prob")
+# Execution modes: the bulk-synchronous round loop, or the asynchronous
+# event clock (backends/async_scan.py over parallel/events.py's schedule),
+# and the latency models of its per-worker compute-time draws
+# (parallel/events.py takes this tuple as its LATENCY_MODELS).
+EXECUTIONS = ("sync", "async")
+LATENCY_MODELS = ("constant", "exponential", "lognormal", "pareto")
 
 
 def _not_yet(field: str, value: Any, allowed: tuple) -> ValueError:
@@ -184,6 +190,19 @@ class ExperimentConfig:
     # randomized pairwise gossip) or 'round_robin' (deterministic
     # matchings covering the edge set).
     gossip_schedule: str = "synchronous"
+    # 'sync' | 'async'. 'async' runs the asynchronous event clock (AD-PSGD):
+    # a precomputed event schedule (parallel/events.py::build_event_timeline)
+    # in place of rounds. n_iterations then counts each worker's gradient
+    # steps (N events a round), eval_every keeps its round meaning, and
+    # wall-clock comparisons use the schedule's virtual clock.
+    execution: str = "sync"
+    # The latency distribution of the per-worker compute-time draws
+    # (LATENCY_MODELS), their mean in virtual seconds (every model is
+    # matched-mean), and the tail knob: lognormal log-std (> 0) or pareto
+    # shape alpha (> 1); 0 for constant and exponential. Async only.
+    latency_model: str = "constant"
+    latency_mean: float = 1.0
+    latency_tail: float = 0.0
 
     def __post_init__(self) -> None:
         for field, allowed in (
@@ -287,6 +306,7 @@ class ExperimentConfig:
             raise ValueError(f"Unknown topology impl: {self.topology_impl}")
         if self.topology_impl == "neighbor":
             self._validate_neighbor()
+        self._validate_execution()
         if self.topology_sampler not in TOPOLOGY_SAMPLERS:
             raise ValueError(
                 f"Unknown topology sampler: {self.topology_sampler!r} "
@@ -364,6 +384,96 @@ class ExperimentConfig:
                 "topology_impl='neighbor' requires "
                 "gossip_schedule='synchronous' (matching schedules "
                 "sample partners from the dense adjacency)"
+            )
+
+    def _validate_execution(self) -> None:
+        """The JAX package's checks of ``execution`` and the latency fields,
+        in its order and with its messages (the port has no ``backend`` or
+        ``tp_degree`` field, so those clauses stay out)."""
+        if self.execution not in EXECUTIONS:
+            raise ValueError(f"Unknown execution mode: {self.execution}")
+        if self.latency_model not in LATENCY_MODELS:
+            raise ValueError(f"Unknown latency model: {self.latency_model}")
+        if self.execution == "sync":
+            if (
+                self.latency_model != "constant"
+                or self.latency_mean != 1.0
+                or self.latency_tail != 0.0
+            ):
+                raise ValueError(
+                    "latency_model/latency_mean/latency_tail shape the "
+                    "asynchronous event schedule; execution='sync' would "
+                    "silently ignore them — set execution='async'"
+                )
+            return
+        if self.latency_mean <= 0.0:
+            raise ValueError(
+                f"latency_mean must be positive, got {self.latency_mean}"
+            )
+        if self.latency_model == "lognormal" and self.latency_tail <= 0.0:
+            raise ValueError(
+                "latency_model='lognormal' needs latency_tail > 0 "
+                "(the log-std tail knob)"
+            )
+        if self.latency_model == "pareto" and self.latency_tail <= 1.0:
+            raise ValueError(
+                "latency_model='pareto' needs latency_tail > 1 (the "
+                "shape alpha; alpha <= 1 has no finite mean)"
+            )
+        if (
+            self.latency_model in ("constant", "exponential")
+            and self.latency_tail != 0.0
+        ):
+            raise ValueError(
+                f"latency_tail only shapes the lognormal/pareto tails; "
+                f"latency_model={self.latency_model!r} would silently "
+                "ignore it"
+            )
+        if self.algorithm not in ("dsgd", "gradient_tracking"):
+            raise ValueError(
+                f"execution='async' is unsupported for "
+                f"{self.algorithm!r}: an event applies ONE worker's "
+                "update at its realized staleness — only dsgd's "
+                "pairwise-average descent and gradient tracking's "
+                "per-event tracker telescoping have an event form; "
+                "EXTRA/ADMM's static-W fixed points, CHOCO's shared "
+                "estimates and push-sum's mass pair do not — use "
+                "algorithm='dsgd' or 'gradient_tracking'"
+            )
+        if self.topology in DIRECTED_TOPOLOGIES:
+            raise ValueError(
+                "execution='async' realizes mutual pairwise exchanges; "
+                f"directed topology {self.topology!r} has one-way links"
+            )
+        if self.attack != "none" or (
+            self.aggregation != "gossip" and self.robust_b > 0
+        ):
+            raise ValueError(
+                "execution='async' does not compose with Byzantine "
+                "injection / robust aggregation: screening needs "
+                "multiple received messages per aggregation, but an "
+                "event delivers exactly one pairwise exchange — no "
+                "trimming/clipping budget is realizable"
+            )
+        if self.compression != "none":
+            raise ValueError(
+                "execution='async' does not compose with compressed "
+                "gossip: the error-feedback estimate exchange assumes "
+                "synchronized rounds, which the event schedule removes"
+            )
+        if self.replicas > 1:
+            raise ValueError(
+                "execution='async' is a sequential scan over a totally "
+                "ordered event schedule; the tensor-parallel mesh and "
+                "the replica vmap axis have no event form — run "
+                "tp_degree=1, replicas=1"
+            )
+        if self.topology_impl == "neighbor":
+            raise ValueError(
+                "execution='async' scans events over the dense-"
+                "representation topology (its regime is modest N with "
+                "long horizons, not the matrix-free 10k+ axis); use "
+                "topology_impl='dense' or 'auto'"
             )
 
     def _validate_compression(self) -> None:
@@ -676,8 +786,9 @@ class ExperimentConfig:
         """The JAX package's rule for an unsharded synchronous run: 'neighbor'
         at N >= MATRIX_FREE_AUTO_N for the graphs with a matrix-free builder
         when no dense-only feature is asked for (a mixing form that reads
-        [N, N] matrices, an attack or a robust rule, a matching schedule),
-        else 'dense'. Fault processes are not dense-only."""
+        [N, N] matrices, an attack or a robust rule, a matching schedule,
+        the async event clock), else 'dense'. Fault processes are not
+        dense-only."""
         if self.topology_impl != "auto":
             return self.topology_impl
         dense_only = (
@@ -686,6 +797,7 @@ class ExperimentConfig:
             or self.attack != "none"
             or self.robust_active
             or self.gossip_schedule != "synchronous"
+            or self.execution == "async"
         )
         if not dense_only and self.n_workers >= MATRIX_FREE_AUTO_N:
             return "neighbor"

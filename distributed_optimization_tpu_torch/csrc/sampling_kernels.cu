@@ -10,7 +10,10 @@
 //                  each worker by lax.top_k, tiled up to b, their weights and,
 //                  gathered, the batch's rows Xb [N, b, d] and yb [N, b]; the
 //                  indices alone for sample_batch_indices (:56); and the dense
-//                  weights of a shard longer than 64 rows.
+//                  weights of a shard longer than 64 rows;
+//                  in its event mode, the asynchronous event clock's batch of
+//                  one worker (backends/async_scan.py:514-519: one
+//                  sample_batch_indices at a per-event key, and the gather).
 // The plain versions are distributed_optimization_tpu_torch/ops/sampling.py
 // (on the twin of jax.random in ops/prng.py); the kernels equal them bit for
 // bit.
@@ -80,9 +83,21 @@
 //   r. The single-run entry points pass their two words by value and no
 //   array (R = 1).
 //
+// - The event mode (sample_event_*): one launch an event (or a local
+//   descent), one worker, select_kernel's selection. The kernel reads the
+//   event cursor e from device memory, then worker[e] and local_step[e]
+//   (int64 schedule arrays), and derives the key in the kernel:
+//     worker key = threefry2x32(base key, (0, worker))   base key = fold_in(
+//     step key   = threefry2x32(worker key, (0, step))     key(seed), 0xA57E)
+//     (descent m: threefry2x32(step key, (0, m)) once more)
+//   the worker first, then its own step count (the rounds fold t first).
+//   It writes the b indices and weights and, optionally, gathers Xb [b, d]
+//   and yb [b] from the worker's shard. The cursor lives on the card, so a
+//   CUDA graph of many events replays with the current one.
+//
 // Each launch adds one to its kernel's slot of launch_counts.cuh (slot 0 the
-// dense weights, either kernel; 1 the gather form: the order of KERNELS in
-// ops/sampling_kernels.py); select_top, an entry point for the tests that
+// dense weights, either kernel; 1 the gather form; 2 the event mode: the
+// order of KERNELS in ops/sampling_kernels.py); select_top, an entry point for the tests that
 // ranks given scores, counts nothing. The kernels allocate nothing, launch on
 // the caller's stream and return cudaGetLastError().
 // - Where a worker's survivors (min(b, L) + 128 keys and rows, and the top
@@ -108,6 +123,7 @@ namespace {
 
 constexpr int kSlotWeights = 0;
 constexpr int kSlotBatches = 1;
+constexpr int kSlotEvents = 2;
 constexpr int kNoSlot = -1;
 constexpr int kWarpsPerBlock = 4;        // dense_kernel: workers a block
 constexpr int kDenseMaxRows = 64;        // dense_kernel: two rows a lane
@@ -208,6 +224,13 @@ struct Args {
   const int64_t* t;
   uint32_t k0, k1;
   const int64_t* keys;     // non-null: [R, 2] slot-key words, replica blockIdx.y's in place of k0, k1
+  // The event mode (non-null cursor): the event e = *cursor, its worker
+  // ev_worker[e] and step ev_step[e]; k0, k1 the base key; descent >= 0
+  // folded in after the step. t is null there.
+  const int64_t* cursor;
+  const int64_t* ev_worker;
+  const int64_t* ev_step;
+  int descent;
   int n, replicas;         // workers; replicas (the grid's y)
   const int64_t* n_valid;  // null: every row valid
   const uint64_t* scores;  // non-null: [N, L] scores in place of the draw (select_top)
@@ -281,9 +304,12 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
   extern __shared__ __align__(16) unsigned char smem[];
   State<Key>* st = Group::leader(reinterpret_cast<State<Key>*>(smem));
   const int rank = Group::rank();
-  const int worker = blockIdx.x / Group::size();
-  // The worker's place in the [R, N, ...] outputs and the workspace.
-  const int64_t out = static_cast<int64_t>(blockIdx.y) * a.n + worker;
+  const int64_t event = a.cursor != nullptr ? *a.cursor : -1;
+  const int worker =
+      event >= 0 ? static_cast<int>(a.ev_worker[event]) : static_cast<int>(blockIdx.x) / Group::size();
+  // The worker's place in the [R, N, ...] outputs and the workspace (the
+  // event mode writes one worker's, at 0).
+  const int64_t out = event >= 0 ? 0 : static_cast<int64_t>(blockIdx.y) * a.n + worker;
   Key* skey = a.workspace != nullptr
                   ? reinterpret_cast<Key*>(a.workspace + out * a.ws_stride)
                   : reinterpret_cast<Key*>(st + 1);
@@ -291,7 +317,7 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
   int* top = srow + cap;
   const int L = a.L, b = a.b;
   const int64_t nv = a.n_valid != nullptr ? a.n_valid[worker] : L;
-  const uint32_t tt = a.scores == nullptr ? static_cast<uint32_t>(*a.t) : 0u;
+  const uint32_t tt = a.t != nullptr ? static_cast<uint32_t>(*a.t) : 0u;
   if (rank == 0) {
     for (int i = threadIdx.x; i < kBins; i += blockDim.x) st->hist[i] = 0;
     if (threadIdx.x == 0) {
@@ -312,7 +338,11 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
   // kRecomputed, rows first, first + stride, ..., each key recomputed where
   // it is read.
   uint2 wkey = make_uint2(0u, 0u);
-  if (a.scores == nullptr) {
+  if (event >= 0) {
+    const uint2 wk = threefry2x32(a.k0, a.k1, 0u, static_cast<uint32_t>(worker));
+    wkey = threefry2x32(wk.x, wk.y, 0u, static_cast<uint32_t>(a.ev_step[event]));
+    if (a.descent >= 0) wkey = threefry2x32(wkey.x, wkey.y, 0u, static_cast<uint32_t>(a.descent));
+  } else if (a.scores == nullptr) {
     uint32_t k0 = a.k0, k1 = a.k1;
     if (a.keys != nullptr) {
       k0 = static_cast<uint32_t>(a.keys[2 * blockIdx.y]);
@@ -618,6 +648,40 @@ int sample_batches(const void* t, uint32_t k0, uint32_t k1, const void* keys, in
   return launch_select<Real, false>(a, n, stream);
 }
 
+// The event mode: one worker's batch at the event *cursor (see Args).
+template <typename Real>
+int sample_event(const void* cursor, const void* workers, const void* steps, int64_t descent,
+                 uint32_t k0, uint32_t k1, const void* n_valid, int64_t L, int64_t b, int64_t d,
+                 const void* X, const void* y, void* idx, void* w, void* Xb, void* yb,
+                 void* workspace, void* stream) {
+  if (cursor == nullptr || workers == nullptr || steps == nullptr || n_valid == nullptr ||
+      refused(1, L, b) || descent < -1 || descent > 0x7FFFFFFF ||
+      (X != nullptr && (d <= 0 || d > 0x7FFFFFFF || b * (d + 1) > 0x7FFFFFFF))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args<Real> a = {};
+  a.k0 = k0;
+  a.k1 = k1;
+  a.replicas = 1;
+  a.cursor = static_cast<const int64_t*>(cursor);
+  a.ev_worker = static_cast<const int64_t*>(workers);
+  a.ev_step = static_cast<const int64_t*>(steps);
+  a.descent = static_cast<int>(descent);
+  a.n_valid = static_cast<const int64_t*>(n_valid);
+  a.L = static_cast<int>(L);
+  a.b = static_cast<int>(b);
+  a.d = static_cast<int>(d);
+  a.slot = kSlotEvents;
+  a.X = static_cast<const Real*>(X);
+  a.y = static_cast<const Real*>(y);
+  a.idx = static_cast<int64_t*>(idx);
+  a.w = static_cast<Real*>(w);
+  a.Xb = static_cast<Real*>(Xb);
+  a.yb = static_cast<Real*>(yb);
+  a.workspace = static_cast<unsigned char*>(workspace);
+  return launch_select<Real, false>(a, 1, stream);
+}
+
 template <typename Real>
 int select_top(const void* scores, int64_t n, int64_t L, int64_t b, int64_t cluster, void* idx,
                void* workspace, void* stream) {
@@ -641,8 +705,11 @@ int select_top(const void* scores, int64_t n, int64_t L, int64_t b, int64_t clus
 extern "C" {
 
 // Each entry point's workspace (nullable): select_workspace_bytes_* of its
-// (R * N, L, b) bytes on the card, where that is not 0. The *_batch forms
-// take the replica axis: keys, [R, 2] int64 slot-key words on the card.
+// (R * N, L, b) bytes on the card (sample_event: (1, L, b)), where that is
+// not 0. The *_batch forms take the replica axis: keys, [R, 2] int64
+// slot-key words on the card. sample_event's cursor, workers and steps are
+// int64 on the card, its base key two words, descent -1 for none; any of
+// idx, w, Xb (with yb) may be null, X null for no gather.
 #define SAMPLING_ENTRY_POINTS(Real, suffix)                                                      \
   int sample_weights_##suffix(const void* t, uint32_t k0, uint32_t k1, const void* n_valid,      \
                               int64_t n, int64_t L, int64_t b, void* w, void* workspace,         \
@@ -680,6 +747,14 @@ extern "C" {
                                     void* yb, void* workspace, void* stream) {                   \
     return sample_batches<Real>(t, 0u, 0u, keys, replicas, n_valid, n, L, b, d, X, y, nullptr,   \
                                 w, Xb, yb, workspace, stream);                                   \
+  }                                                                                              \
+  int sample_event_##suffix(const void* cursor, const void* workers, const void* steps,          \
+                            int64_t descent, uint32_t k0, uint32_t k1, const void* n_valid,      \
+                            int64_t L, int64_t b, int64_t d, const void* X, const void* y,       \
+                            void* idx, void* w, void* Xb, void* yb, void* workspace,             \
+                            void* stream) {                                                      \
+    return sample_event<Real>(cursor, workers, steps, descent, k0, k1, n_valid, L, b, d, X, y,   \
+                              idx, w, Xb, yb, workspace, stream);                                \
   }
 
 SAMPLING_ENTRY_POINTS(float, f32)

@@ -29,7 +29,11 @@ def state_from_reference(
     ``alpha`` and the carried neighbour sum ``nbr_x`` (A x). Push-sum's is
     ``x`` (the de-biased estimates num / w), the numerators ``num`` and the
     mass ``w``, which is ``[N, 1]``. Gradient tracking's ``y``, ADMM's
-    ``nbr_x`` and push-sum's ``num`` are ``[N, d_model]`` like ``x``.
+    ``nbr_x`` and push-sum's ``num`` are ``[N, d_model]`` like ``x``. The
+    async event clock's carry (``execution='async'``) is ``x`` and the read
+    snapshots ``x_read``, with gradient tracking's ``y`` and last gradients
+    ``g_prev``, each ``[N, d_model]``: ``async_scan.run_async``'s
+    ``state0``.
     ``replicas=R`` takes a replica batch's stacked state (the JAX package's
     ``BatchRunResult.final_states``): every leaf ``[R, N, ...]``, as
     ``torch_backend.run_batch``'s ``state0`` takes it."""

@@ -34,8 +34,12 @@ class RunHistory:
     # Seconds spent unrolling the fault timeline (within compile_seconds).
     fault_setup_seconds: float = 0.0
     # Seconds spent building the communication graph on the host (not
-    # within compile_seconds; 0 for the centralized pattern).
+    # within compile_seconds; 0 for the centralized pattern), and under the
+    # async event clock its event schedule too.
     topology_setup_seconds: float = 0.0
+    # Seconds capturing the async event clock's CUDA graphs (within
+    # compile_seconds; 0 elsewhere).
+    capture_seconds: float = 0.0
 
 
 def consensus_error(models: np.ndarray) -> float:

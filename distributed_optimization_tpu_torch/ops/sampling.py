@@ -42,6 +42,9 @@ import torch
 from distributed_optimization_tpu_torch.ops import prng
 from distributed_optimization_tpu_torch.ops.prng import threefry2x32  # noqa: F401
 
+# The event clock's stream tag, folded into the run's key.
+ASYNC_BATCH_TAG = 0xA57E
+
 
 def stacked(slot_key) -> bool:
     """Whether ``slot_key`` is an ``[R, 2]`` stack of replicas' keys."""
@@ -144,3 +147,55 @@ def sample_worker_batches(slot_key, t: int | torch.Tensor, X: torch.Tensor, y: t
                                             X.dtype)
     return (*gather_batches(X, y, indices), weights)
 
+
+def event_key(seed: int, *, x64: bool) -> tuple[int, int]:
+    """The event clock's base key ``fold_in(key(seed), 0xA57E)`` (two host
+    words); ``x64`` as the run's ``prng.key``."""
+    return prng.fold_in(prng.key(seed, x64=x64), ASYNC_BATCH_TAG)
+
+
+def _at(values: torch.Tensor, cursor: torch.Tensor) -> torch.Tensor:
+    return values.index_select(0, cursor.reshape(1))
+
+
+def event_batch_indices(base_key, cursor: torch.Tensor, workers: torch.Tensor,
+                        steps: torch.Tensor, n_valid: torch.Tensor, n_local: int,
+                        batch_size: int, dtype: torch.dtype, descent: int | None = None):
+    """``(indices [b] int64, weights [b])`` of event ``cursor``'s batch (an
+    int64 tensor of one element indexing the schedule's ``workers`` and
+    ``steps``, int64 ``[E]``): key ``fold_in(fold_in(base_key, worker),
+    step)``, and ``descent`` folded in after where given; the worker's
+    scores, top ``min(b, L)`` rows tiled to b and weights as
+    ``sample_batch_indices``. The worker and step are read to the host and
+    the key folded there (ints), as this runs on the CPU."""
+    worker = _at(workers, cursor)
+    key = prng.fold_in(prng.fold_in(base_key, int(worker)), int(_at(steps, cursor)))
+    if descent is not None:
+        key = prng.fold_in(key, descent)
+    nv = n_valid.index_select(0, worker)
+    scores = prng.uniform(key, (n_local,), dtype).to(n_valid.device)
+    rows = torch.arange(n_local, device=n_valid.device)
+    u = torch.where(rows[None, :] < nv[:, None], scores, float("-inf"))
+    order = torch.sort(u[0], descending=True, stable=True).indices
+    k = min(batch_size, n_local)
+    indices = order[torch.arange(batch_size, device=u.device) % k]
+    effective = _effective_batch(batch_size, nv, n_local)
+    real = torch.arange(batch_size, device=u.device) < effective
+    weights = torch.where(real, batch_weight(effective, dtype),
+                          torch.zeros((), dtype=dtype, device=u.device))
+    return indices, weights
+
+
+def sample_event_batch(base_key, cursor: torch.Tensor, workers: torch.Tensor,
+                       steps: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
+                       n_valid: torch.Tensor, batch_size: int, descent: int | None = None):
+    """``(Xb [1, b, d], yb [1, b], weights [1, b])``: event ``cursor``'s
+    batch (``event_batch_indices``) gathered from its worker's shard of
+    ``X [N, L, d]``, ``y [N, L]``, shaped as one worker's gradient call
+    takes it."""
+    indices, weights = event_batch_indices(base_key, cursor, workers, steps, n_valid,
+                                           X.shape[1], batch_size, X.dtype, descent)
+    worker = _at(workers, cursor)
+    Xb = X.index_select(0, worker)[:, indices]
+    yb = y.index_select(0, worker)[:, indices]
+    return Xb, yb, weights[None, :]

@@ -44,6 +44,17 @@ points, the replica on the grid's y axis), writing ``[R, N, ...]``
 outputs from the shared shards; replica r's are the single launch's with
 slot key r, bit for bit, and on the CPU the plain versions take the same
 stack. The workspace then holds R·N workers' survivors.
+
+The asynchronous event clock (``backends/async_scan.py``) draws one
+worker's batch an event: ``sample_event_batch`` (the rows ``Xb [1, b,
+d]``, ``yb [1, b]`` and weights ``[1, b]``) and ``event_batch_indices``
+(the indices and weights ``[b]``) take the event clock's base key (two host
+words, ``sampling.event_key``), the event cursor (an int64 one-element
+tensor) and the schedule's int64 ``[E]`` worker and step arrays. On the
+card one launch of the gather kernel's event mode reads the cursor, the
+event's worker and step, derives the key and selects and gathers the
+rows; both count under ``sample_event_batch``. On the CPU the plain
+versions of ``ops/sampling.py``.
 """
 
 from __future__ import annotations
@@ -59,7 +70,7 @@ from distributed_optimization_tpu_torch.ops import _cuda_build, sampling
 SOURCE = _cuda_build.CSRC / "sampling_kernels.cu"
 
 # In the order of the kernels' launch-count slots (csrc/sampling_kernels.cu).
-KERNELS = ("sample_worker_batch_weights", "sample_worker_batches")
+KERNELS = ("sample_worker_batch_weights", "sample_worker_batches", "sample_event_batch")
 
 # The kernels' constants (csrc/sampling_kernels.cu).
 BINS = 256              # a radix digit of 8 bits
@@ -82,6 +93,11 @@ def _library() -> ctypes.CDLL:
                 fn = getattr(lib, f"{name}{form}_{suffix}")
                 fn.argtypes = first + rest + [ptr, ptr]  # ..., workspace, stream
                 fn.restype = ctypes.c_int
+        fn = getattr(lib, f"sample_event_{suffix}")
+        # cursor, workers, steps, descent, k0, k1, n_valid, L, b, d, X, y,
+        # idx, w, Xb, yb, workspace, stream
+        fn.argtypes = [ptr, ptr, ptr, i64, u32, u32, ptr, i64, i64, i64] + [ptr] * 8
+        fn.restype = ctypes.c_int
         fn = getattr(lib, f"select_top_{suffix}")
         fn.argtypes = [ptr, i64, i64, i64, i64, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
@@ -212,6 +228,81 @@ def sample_worker_batches(slot_key, t, X: torch.Tensor, y: torch.Tensor, n_valid
     w = torch.empty(lead + (n, batch_size), dtype=X.dtype, device=X.device)
     _call("sample_batches", w, slot_key, t, n_valid, n_local, batch_size, d,
           X.data_ptr(), y.data_ptr(), w.data_ptr(), Xb.data_ptr(), yb.data_ptr())
+    return Xb, yb, w
+
+
+def _check_event(base_key, cursor, workers, steps, n_valid: torch.Tensor, n_local: int,
+                 batch_size: int, dtype: torch.dtype, descent) -> None:
+    """What the event mode takes: a base key of two host words, the cursor
+    an int64 one-element tensor and the schedule's worker and step arrays
+    contiguous int64 [E] tensors, all on n_valid's card."""
+    if isinstance(base_key, torch.Tensor) or len(base_key) != 2:
+        raise TypeError("the event clock's base key must be two host words (ints)")
+    for name, v in (("cursor", cursor), ("workers", workers), ("steps", steps)):
+        if (not isinstance(v, torch.Tensor) or v.dtype != torch.int64 or v.dim() != 1
+                or not v.is_contiguous() or v.device != n_valid.device):
+            raise ValueError(f"{name} must be a contiguous int64 [E] tensor on n_valid's card")
+    if cursor.numel() != 1 or workers.shape != steps.shape:
+        raise ValueError("the cursor holds one element; workers and steps one an event")
+    if n_valid.dtype != torch.int64 or n_valid.dim() != 1 or not n_valid.is_contiguous():
+        raise ValueError("n_valid must be a contiguous int64 [N] tensor")
+    if dtype not in _cuda_build.SUFFIX:
+        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+    if n_local < 1 or batch_size < 1:
+        raise ValueError(f"the shard length ({n_local}) and batch ({batch_size}) must be positive")
+    if descent is not None and not 0 <= descent < 2**31:
+        raise ValueError(f"descent must lie in [0, 2^31), got {descent}")
+
+
+def _event_call(out_like, base_key, cursor, workers, steps, n_valid, n_local, batch_size,
+                descent, d, X, y, idx, w, Xb, yb):
+    workspace = workspace_for(1, n_local, batch_size, out_like.dtype, n_valid.device)
+    _cuda_build.call(_library(), "sample_event", out_like, cursor.data_ptr(), workers.data_ptr(),
+                     steps.data_ptr(), -1 if descent is None else descent,
+                     base_key[0] & 0xFFFFFFFF, base_key[1] & 0xFFFFFFFF, n_valid.data_ptr(),
+                     n_local, batch_size, d, *(v.data_ptr() if v is not None else None
+                                               for v in (X, y, idx, w, Xb, yb)),
+                     workspace.data_ptr() if workspace is not None else None,
+                     invalid=f"sample_event refuses a shard of {n_local} rows with a batch of "
+                             f"{batch_size} in {out_like.dtype}")
+
+
+def event_batch_indices(base_key, cursor, workers, steps, n_valid: torch.Tensor, n_local: int,
+                        batch_size: int, dtype: torch.dtype, descent: int | None = None):
+    """``(indices [b] int64, weights [b])`` of event ``cursor``'s batch, on
+    its worker's and step's key (``descent`` folded in after, where given)."""
+    if n_valid.device.type == "cpu":
+        return sampling.event_batch_indices(base_key, cursor, workers, steps, n_valid, n_local,
+                                            batch_size, dtype, descent)
+    _check_event(base_key, cursor, workers, steps, n_valid, n_local, batch_size, dtype, descent)
+    idx = torch.empty(batch_size, dtype=torch.int64, device=n_valid.device)
+    w = torch.empty(batch_size, dtype=dtype, device=n_valid.device)
+    _event_call(w, base_key, cursor, workers, steps, n_valid, n_local, batch_size, descent, 0,
+                None, None, idx, w, None, None)
+    return idx, w
+
+
+def sample_event_batch(base_key, cursor, workers, steps, X: torch.Tensor, y: torch.Tensor,
+                       n_valid: torch.Tensor, batch_size: int, descent: int | None = None):
+    """``(Xb [1, b, d], yb [1, b], weights [1, b])``: event ``cursor``'s
+    batch gathered from its worker's shard of ``X [N, L, d]``, ``y [N, L]``
+    (one launch on the card)."""
+    if n_valid.device.type == "cpu":
+        return sampling.sample_event_batch(base_key, cursor, workers, steps, X, y, n_valid,
+                                           batch_size, descent)
+    if X.dim() != 3 or not X.is_contiguous():
+        raise ValueError(f"X must be a contiguous [N, L, d] tensor, got shape {tuple(X.shape)}")
+    n, n_local, d = X.shape
+    _check_event(base_key, cursor, workers, steps, n_valid, n_local, batch_size, X.dtype, descent)
+    _cuda_build.check_like(y, X, "y")
+    if y.shape != (n, n_local) or n_valid.shape[0] != n or X.device != n_valid.device:
+        raise ValueError(f"X {tuple(X.shape)}, y {tuple(y.shape)} and n_valid "
+                         f"{tuple(n_valid.shape)} must share N and L and lie on one card")
+    Xb = torch.empty((1, batch_size, d), dtype=X.dtype, device=X.device)
+    yb = torch.empty((1, batch_size), dtype=X.dtype, device=X.device)
+    w = torch.empty((1, batch_size), dtype=X.dtype, device=X.device)
+    _event_call(X, base_key, cursor, workers, steps, n_valid, n_local, batch_size, descent, d,
+                X, y, None, w, Xb, yb)
     return Xb, yb, w
 
 

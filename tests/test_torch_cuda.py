@@ -53,7 +53,11 @@ round (both launches) at ring N=256, ER N=1,024 and ER N=100,000, R = 1, 3
 and 8, and the timeline's per-edge stream bitwise their plain versions; a
 faulted matrix-free run's graph bitwise its measured run with two slot-round
 launches a step; and the dense round at N = 65,537 (counters past 2³²)
-bitwise the rows-only plain version.
+bitwise the rows-only plain version. The async event clock: the event
+sampler (the gather kernel's event mode, one launch an event) bitwise its
+plain version in both dtypes, which tests/test_torch_events.py holds to the
+JAX package; and the event graph run bitwise the same events run eagerly,
+float64 within 1e-12 of the CPU's.
 """
 
 import dataclasses
@@ -1873,3 +1877,101 @@ def test_cuda_dense_round_rows_past_two_to_the_32(cuda_device):
     torch.cuda.empty_cache()
     want = dk.realize_round_rows_plain(tt, keys, tables, rows, **kw)
     assert torch.equal(A, want[0]) and torch.equal(W, want[1]) and torch.equal(active, want[2])
+
+
+# The async event clock's sampler: (N, L, b) at main's shard, bench_async's
+# (N=32, 1,600 samples: L = 50), shards shorter than b, past 1,024 rows and
+# the float64 key of 128 bits (L = 2,049).
+EVENT_SHAPES = [(256, 49, 16), (32, 50, 16), (9, 7, 16), (6, 1100, 16), (4, 2049, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", EVENT_SHAPES)
+def test_cuda_event_sampler_bitwise_equals_the_plain_version(cuda_device, shape, dtype):
+    """One launch an event: the kernel reads the cursor, the event's worker
+    and step, folds worker then step (then the descent) into the base key
+    and selects and gathers; indices, weights and rows bitwise the plain
+    version's at every event, and one count a launch."""
+    n, L, b = shape
+    nv = _sampling_n_valid(cuda_device, n, L, b)
+    X, y = _rows(cuda_device, n, L, dtype)
+    gen = np.random.default_rng(1)
+    E = 12
+    workers = torch.as_tensor(np.r_[np.arange(min(n, 4)), gen.integers(0, n, E - min(n, 4))],
+                              dtype=torch.int64, device=cuda_device)
+    steps = torch.as_tensor(np.r_[0, 2**31 - 1, 2**32 - 1, gen.integers(0, 5000, E - 3)],
+                            dtype=torch.int64, device=cuda_device)
+    cursor = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    for seed in (0, 42, 2**31 - 1) + ((2**40 + 5,) if dtype == torch.float64 else ()):
+        key = sampling.event_key(seed, x64=dtype == torch.float64)
+        for descent in (None, 0, 2):
+            for e in range(E):
+                cursor.fill_(e)
+                want = sampling.event_batch_indices(key, cursor, workers, steps, nv, L, b, dtype,
+                                                    descent)
+                got = sk.event_batch_indices(key, cursor, workers, steps, nv, L, b, dtype,
+                                             descent)
+                assert _same(got, want), (seed, descent, e)
+                w = int(workers[e])
+                sk.reset_launch_counts()
+                Xb, yb, wb = sk.sample_event_batch(key, cursor, workers, steps, X, y, nv, b,
+                                                   descent)
+                assert sk.LAUNCHES["sample_event_batch"] == 1
+                assert torch.equal(Xb[0], X[w, want[0]]) and torch.equal(yb[0], y[w, want[0]])
+                assert torch.equal(wb[0], want[1])
+
+
+# (name, config fields) of the async event clock's graph runs: sampled
+# batches, GT with τ = 2 under churn with neighbor_restart, the full shard,
+# and a float64 run under drops and participation.
+ASYNC_GRAPH_RUNS = {
+    "dsgd-lognormal": dict(latency_model="lognormal", latency_tail=1.25),
+    "gt-tau2-churn-restart": dict(algorithm="gradient_tracking", local_steps=2, mttf=8.0,
+                                  mttr=3.0, rejoin="neighbor_restart"),
+    "dsgd-full-batch": dict(local_batch_size=200),
+    "dsgd-float64-faults": dict(dtype="float64", edge_drop_prob=0.2, participation_rate=0.8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ASYNC_GRAPH_RUNS))
+def test_cuda_async_graph_run_is_bitwise_its_uncaptured_run(cuda_device, graph_data, name):
+    """The event clock's graph run (blocks of events replayed over the
+    device cursor, the metrics graph once a window) equals the same events
+    run eagerly from the host bit for bit, with the event sampler launched
+    once an event and local descent (none on the full shard) and a faulted
+    run's timeline twice; the float64 run also within 1e-12 of the CPU's."""
+    from distributed_optimization_tpu_torch.backends import async_scan
+
+    base, ds, f_opt = graph_data["sorted"]
+    cfg = base.replace(execution="async", n_iterations=40, eval_every=10,
+                       **ASYNC_GRAPH_RUNS[name])
+    runs = []
+    for capture in (True, False):
+        before = _launch_counts()
+        res = async_scan.run_async(cfg, ds, f_opt, device="cuda", capture=capture,
+                                   return_state=True)
+        after = _launch_counts()
+        runs.append((res, {k: after[k] - before[k] for k in after}))
+    (graph, glaunch), (eager, elaunch) = runs
+    np.testing.assert_array_equal(graph.history.objective, eager.history.objective)
+    np.testing.assert_array_equal(graph.history.consensus_error, eager.history.consensus_error)
+    for key in graph.final_state:
+        np.testing.assert_array_equal(graph.final_state[key], eager.final_state[key])
+    assert glaunch == elaunch
+    events = cfg.n_iterations * cfg.n_workers
+    sampled = cfg.local_batch_size < 100
+    want = {k: 0 for k in glaunch}
+    want["sample_event_batch"] = events * cfg.local_steps if sampled else 0
+    # A faulted config's chains: the timeline's two launches, once a run.
+    want["fault_timeline"] = dk.TIMELINE_LAUNCHES if cfg.faults_active else 0
+    assert glaunch == want
+    assert np.all(np.isfinite(graph.history.objective)) and graph.history.capture_seconds > 0
+    if cfg.dtype == "float64":
+        host = async_scan.run_async(cfg, ds, f_opt, device="cpu", return_state=True)
+        np.testing.assert_allclose(graph.history.objective, host.history.objective,
+                                   rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(graph.final_models, host.final_models, rtol=1e-12,
+                                   atol=1e-12)
+        assert graph.total_floats_transmitted == host.total_floats_transmitted

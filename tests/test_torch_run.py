@@ -222,7 +222,11 @@ def test_cli_runs_one_experiment_on_the_cpu(capsys):
     (["--lr-schedule", "constant"], {"lr_schedule": "constant"}),
     (["--classification-sep", "1.2"], {"classification_sep": 1.2}),
     (["--algorithm", "admm", "--admm-rho", "2.0"], {"algorithm": "admm", "admm_rho": 2.0}),
-], ids=["lr-schedule", "classification-sep", "admm"])
+    (["--execution", "async", "--latency-model", "lognormal", "--latency-mean", "2.0",
+      "--latency-tail", "1.25"],
+     {"execution": "async", "latency_model": "lognormal", "latency_mean": 2.0,
+      "latency_tail": 1.25}),
+], ids=["lr-schedule", "classification-sep", "admm", "async"])
 def test_cli_flags_reach_the_run_as_in_the_reference(flags, expected, capsys):
     """Each flag the JAX CLI has and the port's config reads, through the
     port's ``main``, against ``jax_backend.run`` with the same fields. Full
@@ -264,6 +268,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = sorted((REPO / "distributed_optimization_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    package = REPO / "distributed_optimization_tpu_torch"
+    assert {package / "parallel" / "events.py", package / "backends" / "async_scan.py"} <= set(files)
     for path in files:
         for module in _imports(path):
             root = module.split(".")[0]

@@ -48,10 +48,14 @@ Phases:
      beside it;
    - the matrix-free fault form's kernels (``kernels_matrix_free``): the
      timeline's per-edge stream and the slot round (both dtypes, t inside,
-     at and past the horizon) bitwise their plain versions at the federated
-     phase's cell (ii) (ER N=100,000, p = 16/N, the sparse sampler, 10% iid
-     drops, participation 0.5; its records) and on the ring at N=256
-     (bursty drops, churn, participation); and the dense round on the ring
+     at and past the horizon; R = 4 replicas in one launch pair) bitwise
+     their plain versions at the federated phase's cell (ii) (ER N=100,000,
+     p = 16/N, the sparse sampler, 10% iid drops, participation 0.5; its
+     records, the slot round's two launches also timed apart) and on the
+     ring at N=256 (bursty drops, churn, participation; in the slot round's
+     record as ``ring_256``), the slot round's live pass alone over a
+     caller's tables (slots reordered, a masked hole) bitwise its plain
+     version; and the dense round on the ring
      at N=65,537, whose counters i·N + j pass 2³², five rows bitwise the
      rows-only plain version.
 3. sampling: the two sampling kernels (``ops/sampling_kernels.py``: the dense
@@ -316,20 +320,22 @@ Phases:
     sparse sampler): the table's digest the JAX package's
     (``ER_100K_DIGEST``), fault-free floats 2|E|·d·T, under 10% iid drops
     and participation 0.5 the floats the live slots of the run's own
-    timeline × d, ``realize_slot_round`` twice a step and
+    timeline × d, ``realize_slot_round`` twice a step (iters/s beside the
+    parent's, ``FEDERATED_PARENT``) and
     ``fault_timeline`` twice a run, and in float64 at T = 10 the card
     within 1e-12 of the CPU; (iii) ``bench_mesh_scale.py``'s ring_1m_p16
     unsharded (ring N = 1,000,000, neighbor, gather, b = 1, timed over 100
     iterations with an eval every 10, whose first eval the cell's own T = 10
     run equals bit for bit).
 23. async: the asynchronous event clock (``execution='async'``,
-    ``backends/async_scan.py``): each event's batch one launch of the event
-    sampler (the gather kernel's event mode), the events replayed as CUDA
-    graphs over a device cursor. ``examples/bench_async.py``'s four latency
+    ``backends/async_scan.py``): a block of events' batches one launch of
+    the event sampler (the gather kernel's event mode, a grid block a
+    draw), the events replayed as CUDA graphs over a device cursor; each
+    cell's events/s printed beside the parent's (``ASYNC_PARENT``). ``examples/bench_async.py``'s four latency
     cells (quadratic N=32 ring, T=2,000, b=16, eval every 50, float32;
     ``ASYNC_BENCH``) beside the port's sync one-peer and full-gossip runs:
     each final gap within 1% of the JAX package's (``ASYNC_REFERENCE``),
-    floats exact, the sampler N·T times, the bench's wall-clock speedup
+    floats exact, the sampler once a block of events, the bench's wall-clock speedup
     floors (2, 3, 3) and final-gap envelopes (1.25, 1.3, 2), and at
     constant latency the synchronous clock, zero skew and one-peer's
     floats; its degenerate gate (N=16, T=200, float64, shared batches):
@@ -342,8 +348,11 @@ Phases:
     1e-9; main's shapes on the event clock (N=256 ring, logistic, L=49, b=16,
     lognormal 1.25, T=200: 51,200 events; events/s, µs an event, capture
     seconds, gap digest) and a T=20 run's graph bitwise its uncaptured run;
-    the event sampler bitwise its plain version at main's shard, timed in a
-    graph and event-timed (its record in the ``kernels`` line).
+    the block sampler at main's shard (blocks of 256 events at the run's
+    first, one inside and the schedule's last, 200 at τ = 2) bitwise its
+    plain version and its events' own launches, timed in a graph and
+    event-timed beside 256 launches of the per-event entry (its record in
+    the ``kernels`` line).
 
 Every run goes through the port's run loop: after a warm-up chunk, CUDA
 graph replays (``backends/torch_backend.py``). The kernels count their own
@@ -369,7 +378,10 @@ runs each kernel of the ``kernels`` line through both on the same input at
 its path's shape in float32 (``ab_calls``): the outputs bitwise equal, then
 a launch in a graph of 200 in turns baseline, this tree, this tree,
 baseline; a kernel whose baseline wrapper refuses the call is named and
-skipped. ``profile`` also traces the parity run (N=25, gather sampling).
+skipped. A redesign with another interface gets a row both trees take:
+``sample_event_block`` holds a block of 256 events against 256 launches of
+a tree's per-event ``sample_event_batch`` where it has no block entry, and
+``realize_slot_round`` runs at the federated cell's table and the ring. ``profile`` also traces the parity run (N=25, gather sampling).
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -456,7 +468,7 @@ SOURCES = {
     "large_noise, replica axis": "draw_kernels.cu",
     "realize_slot_round": "draw_kernels.cu",
     "fault_timeline, per-edge stream": "draw_kernels.cu",
-    "sample_event_batch": "sampling_kernels.cu",
+    "sample_event_block": "sampling_kernels.cu",
 }
 REPLACES = {
     "fused_ring_dsgd_step": f"{PALLAS}:143", "ring_mix": f"{PALLAS}:137",
@@ -479,8 +491,9 @@ REPLACES = {
     # weights, degree sum) and build_fault_timeline's per-edge draws.
     "realize_slot_round": "distributed_optimization_tpu/parallel/faults.py:1133",
     "fault_timeline, per-edge stream": "distributed_optimization_tpu/parallel/faults.py:489",
-    # The event clock's per-event batch draw (no Pallas kernel).
-    "sample_event_batch": "distributed_optimization_tpu/backends/async_scan.py:516",
+    # The event clock's per-event batch draw (no Pallas kernel), a launch a
+    # block of events.
+    "sample_event_block": "distributed_optimization_tpu/backends/async_scan.py:516",
 }
 # The replica axis (run_batch): the same four kernels, one launch for R
 # replicas (the replicas phase).
@@ -915,6 +928,8 @@ RING_1M_TIMED_T = 100
 SLOT_ROWS = {"er_100k": (ER_100K_FAULTS, ER_100K["n_iterations"]),
              "ring_256": (dict(edge_drop_prob=0.2, burst_len=8.0, mttf=60.0, mttr=25.0,
                                rejoin="neighbor_restart", participation_rate=0.7), 60)}
+# The slot round's replica axis, checked at each SLOT_ROWS row.
+SLOT_REPLICAS = 4
 # The dense round past i·N + j = 2³²: a ring of this N.
 DENSE_ROUND_N = 65_537
 
@@ -968,6 +983,17 @@ ASYNC_MAIN = dict(problem_type="logistic", algorithm="dsgd", topology="ring", n_
                   n_iterations=200, eval_every=10, execution="async",
                   latency_model="lognormal", latency_tail=1.25)
 ASYNC_MAIN_UNCAPTURED = 20
+# Events/s of the event clock's cells in the graph at ed403b4, where the
+# sampler was a launch an event (this script's async phase on that tree;
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's.
+ASYNC_PARENT = {"constant": 25_605.6, "exponential": 25_595.8, "lognormal": 25_612.1,
+                "pareto": 28_866.0, "faults healthy": 25_619.4, "faults churn": 21_639.9,
+                "faults thinning": 21_652.7, "faults gt_composed": 15_215.0,
+                "main's shapes": 22_598.0}
+# The federated cells' graph iters/s at 57ca189, whose slot round took a
+# warp a row in both launches (this script's federated phase on that tree;
+# the same card and limit), printed beside this run's.
+FEDERATED_PARENT = {"er_100k fault-free": 924.7, "er_100k faulted": 819.1}
 
 
 class PhaseFailed(RuntimeError):
@@ -3460,6 +3486,52 @@ def _slot_round_is_the_twin_s(torch, dk, fm, t, dtype, what):
           f"realize_slot_round {what} {dtype} t={t}: not bitwise its plain version")
 
 
+def _slot_round_replicas_are_the_twin_s(torch, dk, faults, topo, horizon, fm_kw, label):
+    """One launch pair of the slot round over R = 4 replicas' timelines
+    against the plain version replica by replica, bitwise, both dtypes."""
+    dev = torch.device("cuda")
+    R = SLOT_REPLICAS
+    for dtype in (torch.float32, torch.float64):
+        fm = faults.make_faulty_mixing(topo, seed=list(range(203, 203 + R)), horizon=horizon,
+                                       device=dev, x64=dtype == torch.float64, **fm_kw)
+        for t in (0, 17, horizon + 40):
+            tt = torch.tensor([t], device=dev)
+            total = torch.zeros(R, dtype=torch.float64, device=dev)
+            got = dk.realize_slot_round(tt, fm._slots, fm._tl, weights=dtype, degree_total=total,
+                                        replicas=R)
+            for r in range(R):
+                want_total = torch.zeros((), dtype=torch.float64, device=dev)
+                want = dk.realize_slot_round_plain(tt, fm._slots, fm._tl.replica(r),
+                                                   weights=dtype, degree_total=want_total)
+                check(all(torch.equal(a[r], b) for a, b in zip(got, want))
+                      and float(total[r]) == float(want_total),
+                      f"realize_slot_round {label} R={R} {dtype} t={t}: replica {r} is not "
+                      "bitwise its plain version")
+    say(f"[kernels] realize_slot_round {label}: R = {R} replicas in one launch pair, each "
+        "bitwise its plain version (float32 and float64)")
+
+
+def _caller_liveness_is_the_twin_s(torch, np, dk, fm, topo, horizon, label):
+    """The live pass alone over a caller's tables (the topology's rows in
+    reverse slot order, and a float mask with a hole: not a prefix) bitwise
+    its plain version."""
+    nbr, mask = topo.nbr_idx.copy(), topo.nbr_mask.copy()
+    cnt = mask.sum(1)
+    for i in np.nonzero(cnt > 1)[0]:
+        nbr[i, :cnt[i]] = topo.nbr_idx[i, :cnt[i]][::-1]
+    holed = np.where(mask, 0.5 + np.arange(mask.shape[1])[None, :], 0.0).astype(np.float32)
+    holed[::3, 0] = 0.0
+    for table in (fm.device_table(nbr, mask), fm.device_table(topo.nbr_idx, holed)):
+        for t in (0, 17, horizon + 40):
+            tt = torch.tensor([t], device="cuda")
+            check(torch.equal(dk.slot_liveness(tt, table, fm._tl),
+                              dk.slot_liveness_plain(tt, table, fm._tl)),
+                  f"slot_liveness {label} t={t}: a caller's table is not bitwise the plain "
+                  "version")
+    say(f"[kernels] slot_liveness {label}: a caller's reordered table and a masked hole "
+        "bitwise the plain version")
+
+
 def kernels_matrix_free(torch, np, dk, pkg):
     """The matrix-free fault form's two kernel forms against their plain
     versions on the card, bitwise, at cell (ii)'s shape (ER N=100,000, p =
@@ -3504,7 +3576,9 @@ def kernels_matrix_free(torch, np, dk, pkg):
                                            x64=dtype == torch.float64, **fm_kw)
             for t in (0, 17, horizon - 1, horizon, horizon + 40):
                 _slot_round_is_the_twin_s(torch, dk, fm, t, dtype, label)
+        _slot_round_replicas_are_the_twin_s(torch, dk, faults, topo, horizon, fm_kw, label)
         fm = faults.make_faulty_mixing(topo, seed=203, horizon=horizon, device=dev, **fm_kw)
+        _caller_liveness_is_the_twin_s(torch, np, dk, fm, topo, horizon, label)
         tt = torch.tensor([17], device=dev)
         total = torch.zeros((), dtype=torch.float64, device=dev)
 
@@ -3513,19 +3587,33 @@ def kernels_matrix_free(torch, np, dk, pkg):
 
         ms = time_ms(torch, slot)
         in_graph = graph_ms(torch, slot)
+        _, live_pass, weight_pass = dk.slot_round_passes(tt, fm._slots, fm._tl,
+                                                         degree_total=total)
+        live_pass()
+        passes = {name: (graph_ms(torch, fn), time_ms(torch, fn))
+                  for name, fn in (("live", live_pass), ("weight", weight_pass))}
         plain = time_ms(torch, lambda: dk.realize_slot_round_plain(
             tt, fm._slots, fm._tl, degree_total=total), n=20)
         row_bytes = sum(x.shape[-1] for x in fm._tl if x is not None)
         live_slots = int(dk.realize_slot_round_plain(tt, fm._slots, fm._tl).live.sum())
         b_ms, b_by = slot_round_bound(fm._slots, row_bytes, 4, live_slots)
         n, k = fm._slots.nbr.shape
+        apart = ", ".join(f"the {name} pass {g * 1e3:.3f} us in a graph ({e * 1e3:.3f} "
+                          "event-timed)" for name, (g, e) in passes.items())
         _kernel_line("realize_slot_round", (n, k), "float32", 0.0, ms, plain, None, b_ms, b_by,
-                     f" ({label}: {kw}; two launches), in a graph {in_graph * 1e3:.3f} us")
+                     f" ({label}: {kw}; two launches), in a graph {in_graph * 1e3:.3f} us; "
+                     f"{apart}")
+        row = dict(graph_ms=in_graph, live_pass_graph_ms=passes["live"][0],
+                   weight_pass_graph_ms=passes["weight"][0], live_pass_ms=passes["live"][1],
+                   weight_pass_ms=passes["weight"][1], shape=[n, k], dtype="float32")
         if label == "er_100k":
             records["realize_slot_round"] = _record(
-                "realize_slot_round", 0.0, ms, plain, b_ms, b_by, None, graph_ms=in_graph,
-                shape=[n, k], dtype="float32")
+                "realize_slot_round", 0.0, ms, plain, b_ms, b_by, None, **row)
+        else:
+            ring_row = dict(row, ms=ms, plain_ms=plain, bound_ms=b_ms)
         del fm
+    if "realize_slot_round" in records:
+        records["realize_slot_round"]["ring_256"] = ring_row
     say("[kernels] the timeline's per-edge stream and realize_slot_round (live, w, w_self, "
         "active, the degree count; W in float32 and float64; t inside, at and past the "
         f"horizon) bitwise their plain versions at {', '.join(SLOT_ROWS)}")
@@ -3590,7 +3678,9 @@ def _fed_run(torch, pkg, counters, cfg, ds, f_opt, label):
         f"{h.fault_setup_seconds:.4f} s, warm-up and capture {h.compile_seconds:.2f} s, "
         f"{h.iters_per_second:.1f} iters/s in the graph, peak device memory "
         f"{peak / 2**20:.1f} MiB, gap at {int(h.eval_iterations[0])} {h.objective[0]:.6f}, "
-        f"final gap {h.objective[-1]:.6f}, spectral gap {h.spectral_gap:.6g}")
+        f"final gap {h.objective[-1]:.6f}, spectral gap {h.spectral_gap:.6g}"
+        + (f"; 57ca189's {FEDERATED_PARENT[label]:,.1f} iters/s"
+           if label in FEDERATED_PARENT else ""))
     return res, launches, topo
 
 
@@ -3722,15 +3812,16 @@ def phase_federated(torch, np, pkg, kernels):
     return fault_launches
 
 
-def event_sampler_bound(L: int, b: int, d: int, itemsize: int):
-    """(ms, 'bytes' or 'operations') for one event's draw: 2 + L Threefry
-    calls (the worker and step keys, each row's score), the mantissas and a
-    top-k selection of k = min(b, L) rows (L·⌈log2 k⌉ compares), against the
-    cursor, the event's worker and step and n_valid read once, the k rows
-    of X and y read and Xb [b, d], yb and the weights written."""
+def event_sampler_bound(L: int, b: int, d: int, itemsize: int, events: int = 1):
+    """(ms, 'bytes' or 'operations') for a block of ``events`` events' draws:
+    each 2 + L Threefry calls (the worker and step keys, each row's score),
+    the mantissas and a top-k selection of k = min(b, L) rows (L·⌈log2 k⌉
+    compares), against the cursor and n_valid read once, each event's
+    worker and step, the k rows of X and y read and Xb [b, d], yb and the
+    weights written."""
     k = min(b, L)
-    ops = THREEFRY_OPS * (2 + L) + 3 * L + L * max(1, math.ceil(math.log2(k)))
-    nbytes = 32 + k * (d + 1) * itemsize + b * (d + 2) * itemsize
+    ops = events * (THREEFRY_OPS * (2 + L) + 3 * L + L * max(1, math.ceil(math.log2(k))))
+    nbytes = 16 + events * (16 + k * (d + 1) * itemsize + b * (d + 2) * itemsize)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_INT32_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -3739,6 +3830,13 @@ def event_sampler_bound(L: int, b: int, d: int, itemsize: int):
 def _first_crossing(np, gaps, clocks, eps):
     hit = np.nonzero(np.asarray(gaps) <= eps)[0]
     return float(clocks[hit[0]]) if hit.size else None
+
+
+def _block_draws(pkg, cfg) -> int:
+    """The event sampler's launches in a run of ``cfg``: one a block of
+    events."""
+    events = cfg.n_workers * cfg.n_iterations
+    return events // pkg.event_block(cfg.eval_every * cfg.n_workers)
 
 
 def _async_run(torch, pkg, counters, cfg, ds, f_opt, label, **kw):
@@ -3760,7 +3858,9 @@ def _async_run(torch, pkg, counters, cfg, ds, f_opt, label, **kw):
         f"{events_per_s:,.1f} events/s ({1e6 / events_per_s:.2f} us an event), "
         f"capture {h.capture_seconds:.3f} s, warm-up and capture {h.compile_seconds:.3f} s, "
         f"whole run {wall:.2f} s, launches {launches}, gap history sha256 "
-        f"{_digest(np, h.objective)}")
+        f"{_digest(np, h.objective)}"
+        + (f"; ed403b4's {ASYNC_PARENT[label]:,.1f} events/s"
+           if label in ASYNC_PARENT and kw.get("capture") is not False else ""))
     check(bool(np.all(np.isfinite(h.objective))), f"async {label}: non-finite gaps")
     return res, launches
 
@@ -3812,7 +3912,8 @@ def phase_async(torch, np, pkg, kernels):
         check(rel <= ASYNC_GAP_TOLERANCE, f"async {name}: final gap {rel * 100:.3f}% from JAX's")
         check(res.history.total_floats_transmitted == ref_floats,
               f"async {name}: floats {res.history.total_floats_transmitted} not {ref_floats}")
-        check(launches == {"sample_event_batch": N * T}, f"async {name}: launches {launches}")
+        check(launches == {"sample_event_block": _block_draws(pkg, cfg)},
+              f"async {name}: launches {launches}")
         if name in ASYNC_FLOORS:
             check(speedup is not None and speedup >= ASYNC_FLOORS[name],
                   f"async {name}: speedup {speedup} under the {ASYNC_FLOORS[name]}x floor")
@@ -3870,7 +3971,7 @@ def phase_async(torch, np, pkg, kernels):
               f"async faults {name}: floats not the fired live exchanges")
         # The event sampler once an event; the config's fault chains drawn
         # once a run (the timeline's two launches), on the card.
-        check(launches == {"sample_event_batch": cfg.n_workers * cfg.n_iterations,
+        check(launches == {"sample_event_block": _block_draws(pkg, cfg),
                            **({"fault_timeline": kernels["dk"].TIMELINE_LAUNCHES}
                               if cfg.faults_active else {})},
               f"async faults {name}: launches {launches}")
@@ -3908,7 +4009,7 @@ def phase_async(torch, np, pkg, kernels):
     main_ds, main_f = _main_data(pkg, MAIN_SHAPE[0])
     cfg = pkg.ExperimentConfig(**ASYNC_MAIN)
     res, main_launches = _async_run(torch, pkg, counters, cfg, main_ds, main_f, "main's shapes")
-    check(main_launches == {"sample_event_batch": cfg.n_workers * cfg.n_iterations},
+    check(main_launches == {"sample_event_block": _block_draws(pkg, cfg)},
           f"async main: launches {main_launches}")
     short = cfg.replace(n_iterations=ASYNC_MAIN_UNCAPTURED)
     graph, g_launch = _async_run(torch, pkg, counters, short, main_ds, main_f,
@@ -3924,7 +4025,10 @@ def phase_async(torch, np, pkg, kernels):
     check(same and g_launch == e_launch, "async: the graph run is not its uncaptured run")
 
     # The event sampler at main's shard (L = 49, b = 16, d = 81), float32:
-    # bitwise its plain version, timed in a graph and event-timed.
+    # a block of main's B = 256 events (the run's first, one inside, the
+    # schedule's last), and of 200 at τ = 2, bitwise its plain version and
+    # the per-event launches; the block timed in a graph and event-timed,
+    # beside B launches of the per-event entry.
     dev = torch.device("cuda")
     host = pkg.stack_shards(main_ds, dtype=np.dtype("float32"))
     X = torch.as_tensor(host.X, device=dev)
@@ -3934,31 +4038,56 @@ def phase_async(torch, np, pkg, kernels):
     workers = torch.as_tensor(tl.worker, dtype=torch.int64, device=dev)
     steps = torch.as_tensor(tl.local_step, dtype=torch.int64, device=dev)
     key = pkg.event_key(cfg.seed, x64=False)
+    b, E = cfg.local_batch_size, len(tl.worker)
+    B = pkg.event_block(cfg.eval_every * cfg.n_workers)
     cursor = torch.zeros(1, dtype=torch.int64, device=dev)
-    b = cfg.local_batch_size
-    for e in (0, 1, 777, len(tl.worker) - 1):
-        cursor.fill_(e)
-        got = sk.sample_event_batch(key, cursor, workers, steps, X, y, nv, b)
-        want = pkg.plain_event_batch(key, cursor, workers, steps, X, y, nv, b)
+    one = torch.zeros(1, dtype=torch.int64, device=dev)
+    for events, tau, first in ((B, 1, 0), (B, 1, 777), (B, 1, E - B), (200, 2, 4_000)):
+        cursor.fill_(first)
+        descents = None if tau == 1 else tau
+        got = sk.sample_event_block(key, cursor, workers, steps, X, y, nv, b, events,
+                                    descents=descents)
+        want = pkg.plain_event_block(key, cursor, workers, steps, X, y, nv, b, events, descents)
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
-              f"async: the event sampler differs from its plain version at event {e}")
+              f"async: the block of {events} events at {first}, τ={tau}, differs from its "
+              "plain version")
+        for e in (0, events // 2, events - 1):
+            for m in range(tau):
+                one.fill_(first + e)
+                single = sk.sample_event_batch(key, one, workers, steps, X, y, nv, b,
+                                               None if tau == 1 else m)
+                check(all(torch.equal(g[e, m], s[0]) for g, s in zip(got, single)),
+                      f"async: the block's event {first + e} differs from its own launch")
+    say(f"[kernels] sample_event_block (L={X.shape[1]}, b={b}, d={X.shape[2]}) float32: "
+        f"blocks of {B} events at 0, 777 and {E - B} (the schedule's last) and of 200 at τ = 2 "
+        "bitwise their plain versions and their events' own launches")
     cursor.fill_(777)
+    out = sk.event_block_buffer(B, 1, b, X.shape[2], torch.float32, dev)
 
     def kernel():
-        return sk.sample_event_batch(key, cursor, workers, steps, X, y, nv, b)
+        return sk.sample_event_block(key, cursor, workers, steps, X, y, nv, b, B, out=out)
 
     def plain():
-        return pkg.plain_event_batch(key, cursor, workers, steps, X, y, nv, b)
+        return pkg.plain_event_block(key, cursor, workers, steps, X, y, nv, b, B)
 
-    ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
-    b_ms, b_by = event_sampler_bound(X.shape[1], b, X.shape[2], 4)
+    cursors = [torch.full((1,), 777 + e, dtype=torch.int64, device=dev) for e in range(B)]
+
+    def per_event():
+        for c in cursors:
+            sk.sample_event_batch(key, c, workers, steps, X, y, nv, b)
+
+    ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain, n=3)
+    b_ms, b_by = event_sampler_bound(X.shape[1], b, X.shape[2], 4, events=B)
     in_graph = graph_ms(torch, kernel)
-    say(f"[kernels] sample_event_batch (L={X.shape[1]}, b={b}, d={X.shape[2]}) float32: "
+    singles = graph_ms(torch, per_event, n=4)
+    say(f"[kernels] sample_event_block (B={B}, L={X.shape[1]}, b={b}, d={X.shape[2]}) float32: "
         f"bitwise its plain version; in a graph of {TIMED_LAUNCHES} launches "
         f"{in_graph * 1e3:.3f} us a launch, event-timed {ms * 1e3:.3f} us, plain "
-        f"{plain_ms * 1e3:.3f} us, bound {b_ms * 1e3:.4f} us ({b_by})")
-    record = _record("sample_event_batch", 0.0, ms, plain_ms, b_ms, b_by, None,
-                     graph_ms=in_graph)
+        f"{plain_ms * 1e3:.3f} us, bound {b_ms * 1e3:.4f} us ({b_by}); its {B} events as "
+        f"{B} launches of the per-event entry in a graph {singles * 1e3:.3f} us "
+        f"({singles / in_graph:.1f}x)")
+    record = _record("sample_event_block", 0.0, ms, plain_ms, b_ms, b_by, None,
+                     graph_ms=in_graph, per_event_launches_graph_ms=singles, events=B)
     return record, main_launches
 
 
@@ -4051,6 +4180,43 @@ def ab_calls(torch, np, pkg, topology) -> dict:
     e_key = pkg.event_key(203, x64=False)
     calls["sample_event_batch"] = lambda m: lambda: m["sk"].sample_event_batch(
         e_key, cursor, e_workers, e_steps, X_m, y_m, nv_w, b)
+    # A block of main's 256 events: one launch here; a tree before the block
+    # draw (the parent's) takes the same events as 256 per-event launches.
+    blk = 256
+    b_workers = e_workers.repeat(2)
+    b_steps = torch.arange(2 * n_w, dtype=torch.int64, device=dev) * 7 + 12_345
+    b_cursors = [torch.tensor([7 + e], dtype=torch.int64, device=dev) for e in range(blk)]
+
+    def event_block(m):
+        if hasattr(m["sk"], "sample_event_block"):
+            out = m["sk"].event_block_buffer(blk, 1, b, X_m.shape[2], torch.float32, dev)
+
+            def call():
+                got = m["sk"].sample_event_block(e_key, cursor, b_workers, b_steps, X_m, y_m,
+                                                 nv_w, b, blk, out=out)
+                return tuple(part.reshape(blk, *part.shape[2:]) for part in got)
+        else:
+            def call():
+                got = [m["sk"].sample_event_batch(e_key, c, b_workers, b_steps, X_m, y_m, nv_w, b)
+                       for c in b_cursors]
+                return tuple(torch.cat(parts) for parts in zip(*got))
+        call.graph_n = 4  # calls a graph: 4 blocks, or 1,024 per-event launches
+        return call
+
+    calls["sample_event_block"] = event_block
+    # The slot round at the federated cell's table (ER N=100,000, k_max 38,
+    # 10% drops and participation 0.5) and the ring at N=256 (bursty drops,
+    # churn and participation), t inside the horizon.
+    for label, (kw, horizon) in SLOT_ROWS.items():
+        fm_kw = dict(kw, drop_prob=kw["edge_drop_prob"])
+        del fm_kw["edge_drop_prob"]
+        slot_fm = faults.make_faulty_mixing(_slot_topology(pkg, label), seed=203,
+                                            horizon=horizon, device=dev, **fm_kw)
+        slot_total = torch.zeros((), dtype=torch.float64, device=dev)
+        t17 = torch.tensor([17], device=dev)
+        calls[f"realize_slot_round, {label}"] = (
+            lambda fm_, total_, t_: lambda m: lambda: m["dk"].realize_slot_round(
+                t_, fm_._slots, fm_._tl, degree_total=total_))(slot_fm, slot_total, t17)
     v, memory = compression_inputs(torch, n, d, torch.float32)
 
     def compress(m):
@@ -4114,10 +4280,11 @@ def phase_ab(torch, np, pkg, kernels, topology, baseline: str):
             say(f"[ab] {name}: the baseline refuses this tree's call ({type(e).__name__}: {e})")
             continue
         check(_same(torch, _tensors(new()), want), f"ab {name}: this tree differs from the baseline")
-        us = [graph_ms(torch, f) * 1e3 for f in (old, new, new, old)]
+        n = getattr(new, "graph_n", TIMED_LAUNCHES)
+        us = [graph_ms(torch, f, n=n) * 1e3 for f in (old, new, new, old)]
         change = min(us[1], us[2]) / min(us[0], us[3]) - 1.0
         say(f"[ab] {name} (its path's input, float32): baseline {us[0]:.3f} {us[3]:.3f} us, "
-            f"this tree {us[1]:.3f} {us[2]:.3f} us a launch in a graph of {TIMED_LAUNCHES}: "
+            f"this tree {us[1]:.3f} {us[2]:.3f} us a call in a graph of {n}: "
             f"{change * 100:+.1f}% (bitwise equal)")
     say(f"[ab] not compared: {', '.join(skipped) if skipped else 'none'}")
 
@@ -4743,9 +4910,9 @@ def main(argv=None) -> int:
             "0.5, two launches a step",
         "fault_timeline, per-edge stream":
             "federated: er_100k under 10% iid drops and participation 0.5, two launches a run",
-        "sample_event_batch":
+        "sample_event_block":
             "async: main's shapes on the event clock (N=256 ring, lognormal 1.25, T=200), "
-            "once an event (T·N)",
+            "once a block of 256 events (T·N / 256)",
     }
     counted = {}
     if "parity" in phases:
@@ -4834,8 +5001,8 @@ def main(argv=None) -> int:
         lap("federated")
 
     if "async" in phases:
-        records["sample_event_batch"], launches = phase_async(torch, np, pkg, kernels)
-        counted["sample_event_batch"] = launches
+        records["sample_event_block"], launches = phase_async(torch, np, pkg, kernels)
+        counted["sample_event_block"] = launches
         lap("async")
 
     if "profile" in phases:
@@ -4871,6 +5038,7 @@ def _package():
 
     from distributed_optimization_tpu_torch.algorithms import get_algorithm
     from distributed_optimization_tpu_torch.backends.async_scan import (
+        event_block,
         event_faults_for,
         run_async,
     )
@@ -4889,7 +5057,7 @@ def _package():
     from distributed_optimization_tpu_torch.ops.mixing import make_mixing_op
     from distributed_optimization_tpu_torch.ops.sampling import event_key
     from distributed_optimization_tpu_torch.ops.sampling import (
-        sample_event_batch as plain_event_batch,
+        sample_event_block as plain_event_block,
     )
     from distributed_optimization_tpu_torch.parallel.adversary import byzantine_mask
     from distributed_optimization_tpu_torch.parallel.faults import (
@@ -4942,7 +5110,8 @@ def _package():
         run_async=run_async, async_timeline_for=async_timeline_for,
         event_faults_for=event_faults_for, sync_round_times=sync_round_times,
         clock_skew=clock_skew, staleness_histogram=staleness_histogram, event_key=event_key,
-        plain_event_batch=plain_event_batch, stack_shards=stack_shards,
+        plain_event_block=plain_event_block, stack_shards=stack_shards,
+        event_block=event_block,
     )
 
 

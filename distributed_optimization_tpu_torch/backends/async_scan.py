@@ -10,7 +10,7 @@ realized staleness plus a pairwise average with its partner, AD-PSGD
 The event body (the JAX package's ``event_step``): read x[i] and x[j] (and
 under ``neighbor_restart`` a rejoining worker's warm row, ``restart_w @
 x``, first), average the pair, take the stale-read gradient at
-``x_read[i]`` (one batch draw: the card's event sampling kernel), write j
+``x_read[i]`` (its batch drawn with the block's, below), write j
 and then i (so the solo case j == i stays a plain local step), and re-read
 ``x_read[i] <- x[i]``. Gradient tracking telescopes its tracker ``y`` and
 last gradient ``g_prev`` per event; τ > 1 fuses τ local descents into the
@@ -20,7 +20,11 @@ partner.
 
 Every event reads the schedule (worker, partner, local step, fire, rejoin)
 at an int64 event cursor in device memory and advances it in place, so the
-event's work does not depend on the host:
+event's work does not depend on the host. A block of events first draws
+all its batches in one launch of the card's event sampling kernel
+(``sample_event_block``, a grid block a draw; an event's batch depends on
+its worker, step and descent alone, never on the models), then runs its
+events, each reading its static slice of the run's batch buffer:
 
 - On the CPU the events run one after another from the host.
 - On a card, the first block of events runs eagerly on a side stream (the
@@ -245,10 +249,14 @@ def _initial_state(state0, carry_leaves, start_event: int, n: int, d_model: int,
     return out
 
 
-def _make_event(config, problem, data, sched: _Schedule, state: dict, cursor: torch.Tensor,
-                eta_table: torch.Tensor, base_key, full_batch: bool):
-    """``event()``: one event at the cursor, its writes into ``state`` in
-    place, then the cursor advanced."""
+def _make_block(config, problem, data, sched: _Schedule, state: dict, cursor: torch.Tensor,
+                eta_table: torch.Tensor, base_key, full_batch: bool, B: int):
+    """``block()``: B events from the cursor, their writes into ``state`` in
+    place, the cursor advanced past them. Without injected batches or a
+    full batch, the block's batches are drawn first, at the cursor, by one
+    ``sample_event_block`` into a buffer of the run (an event's batch
+    depends on its worker, step and descent alone); event e of the block
+    reads its static slice."""
     X, y_data, n_valid = data
     dev, dtype = X.device, X.dtype
     reg = config.reg_param
@@ -259,10 +267,14 @@ def _make_event(config, problem, data, sched: _Schedule, state: dict, cursor: to
     rows = torch.arange(L, device=dev)
     uniform = (torch.full((1, sched.batches.shape[-1]), 1.0 / sched.batches.shape[-1],
                           dtype=dtype, device=dev) if sched.batches is not None else None)
+    drawn = None
+    if sched.batches is None and not full_batch:
+        drawn = sampling_kernels.event_block_buffer(B, tau, b, X.shape[2], dtype, dev)
 
-    def grad(params, i, m):
-        """The stale-read gradient of the m-th local descent (m None: the
-        single descent of τ = 1, whose key folds no descent in)."""
+    def grad(params, i, e, m):
+        """The stale-read gradient of the m-th local descent of the block's
+        event e (m None: the single descent of τ = 1, whose key folds no
+        descent in)."""
         if sched.batches is not None:
             idx = sched.batches.index_select(0, cursor)[0]
             if m is not None:
@@ -276,23 +288,22 @@ def _make_event(config, problem, data, sched: _Schedule, state: dict, cursor: to
             wts = mask / torch.clamp(ni.to(dtype), min=1.0)[:, None]
             Xb, yb = X.index_select(0, i), y_data.index_select(0, i)
         else:
-            Xb, yb, wts = sampling_kernels.sample_event_batch(
-                base_key, cursor, sched.worker, sched.local_step, X, y_data, n_valid, b,
-                descent=m)
+            at = (e, 0 if m is None else m)
+            Xb, yb, wts = drawn.Xb[at][None], drawn.yb[at][None], drawn.w[at][None]
         return problem.gradient_weighted(params, Xb, yb, wts, reg)
 
-    def local_chain(x_start, corr, eta, i):
+    def local_chain(x_start, corr, eta, i, e):
         """τ local descents fused into the event: z_{m+1} = z_m − η(corr +
         g(z_m)); (z_τ − z_0, the mean gradient)."""
         z = x_start
         gsum = torch.zeros_like(x_start)
         for m in range(tau):
-            gm = grad(z, i, m)
+            gm = grad(z, i, e, m)
             gsum = gsum + gm
             z = z - eta * (gm if corr is None else corr + gm)
         return z - x_start, gsum / tau
 
-    def event():
+    def event(e):
         x, x_read = state["x"], state["x_read"]
         i = sched.worker.index_select(0, cursor)
         j = sched.partner.index_select(0, cursor)
@@ -318,18 +329,18 @@ def _make_event(config, problem, data, sched: _Schedule, state: dict, cursor: to
             avg_y = 0.5 * (yi + yj)
             base_y = torch.where(matched, avg_y, yi)
             if tau == 1:
-                g_ev = grad(read_i, i, None)
+                g_ev = grad(read_i, i, e, None)
                 new_y_i = base_y + g_ev - gpi
                 new_i = base_i - eta * new_y_i
             else:
-                delta, g_ev = local_chain(read_i, base_y - gpi, eta, i)
+                delta, g_ev = local_chain(read_i, base_y - gpi, eta, i, e)
                 new_y_i = base_y + g_ev - gpi
                 new_i = base_i + delta
             new_y_j = torch.where(matched, avg_y, yj)
         elif tau == 1:
-            new_i = base_i - eta * grad(read_i, i, None)
+            new_i = base_i - eta * grad(read_i, i, e, None)
         else:
-            delta, _ = local_chain(read_i, None, eta, i)
+            delta, _ = local_chain(read_i, None, eta, i, e)
             new_i = base_i + delta
         new_j = torch.where(matched, avg, xj)
         if sched.fire is not None:
@@ -354,7 +365,15 @@ def _make_event(config, problem, data, sched: _Schedule, state: dict, cursor: to
             g_prev.index_copy_(0, i, new_gp)
         cursor.add_(1)
 
-    return event
+    def block():
+        if drawn is not None:
+            sampling_kernels.sample_event_block(
+                base_key, cursor, sched.worker, sched.local_step, X, y_data, n_valid, b, B,
+                descents=None if tau == 1 else tau, out=drawn)
+        for e in range(B):
+            event(e)
+
+    return block
 
 
 def _not_yet(name: str) -> ValueError:
@@ -389,8 +408,9 @@ def run_async(
     ``batch_schedule`` injects per-EVENT batch indices into the firing
     worker's shard: ``[E, b]``, or ``[E, τ, b]`` at ``local_steps=τ > 1``
     (one row a local descent), with weights 1/b. Without it each event
-    draws its batch (the card's event sampling kernel, on the CPU its plain
-    version), or takes the whole shard when b >= L. ``state0`` /
+    draws its batch (the card's event sampling kernel, a launch a block of
+    events; on the CPU its plain version), or takes the whole shard when b
+    >= L. ``state0`` /
     ``start_event`` / ``n_events`` continue a previous slice from its
     ``final_state`` (every leaf, ``return_state=True``): the continuation
     is the one-shot run split in two, bit for bit. ``_fault_timeline``
@@ -437,13 +457,18 @@ def run_async(
     fault_seconds = time.perf_counter() - t_fault
     state = _initial_state(state0, carry_leaves, start_event, n, d_model, dev, dtype)
 
+    B = event_block(events_per_eval)
+    blocks_per_eval = events_per_eval // B
     cursor = torch.full((1,), start_event, dtype=torch.int64, device=dev)
     k = torch.zeros(1, dtype=torch.int64, device=dev)
-    event = _make_event(
+    # Every block starts at start_event plus a multiple of B and ends by the
+    # window's end (B divides the window's eval-aligned length): no block
+    # draws past the schedule.
+    block = _make_block(
         config, problem, (X, y_data, n_valid), sched, state, cursor,
         make_eta_schedule(config, config.n_iterations, dev, dtype),
         sampling.event_key(config.seed, x64=dtype == torch.float64),
-        batch_schedule is None and config.local_batch_size >= L)
+        batch_schedule is None and config.local_batch_size >= L, B)
     full_objective = make_full_objective_fn(problem, config.reg_param)
     track_consensus = collect_metrics and config.record_consensus
     gap_hist = torch.full((n_evals,), float("nan"), dtype=dtype, device=dev)
@@ -457,13 +482,6 @@ def run_async(
             spread = torch.mean(torch.sum((x - xbar[None, :]) ** 2, dim=1))
             cons_hist.index_copy_(0, k, spread.reshape(1))
         k.add_(1)
-
-    B = event_block(events_per_eval)
-    blocks_per_eval = events_per_eval // B
-
-    def block():
-        for _ in range(B):
-            event()
 
     use_graphs = dev.type == "cuda" and capture
     graphs = []

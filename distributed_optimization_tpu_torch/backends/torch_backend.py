@@ -368,7 +368,7 @@ def bind_byzantine(config, algo: Algorithm, topo: Topology, mix_op: MixingOp, *,
             # same layout).
             nbr_idx, nbr_mask = neighbor_tables_for(topo)
             if faulty is not None and topo.is_matrix_free:
-                nbr = faulty.own_table(nbr_idx, nbr_mask)
+                nbr = faulty.device_table(nbr_idx, nbr_mask)
             else:
                 nbr = torch.as_tensor(nbr_idx, dtype=torch.int64, device=device)
             static_live = torch.as_tensor(nbr_mask, dtype=torch.float32, device=device)

@@ -33,6 +33,8 @@
 //                    neighbour table, active [N], the MH slot weights
 //                    w [N, k] and w_self [N] in the run's accumulation type
 //                    and the round's degree count, with no [N, N] object;
+//                    the first alone, over any caller's table and mask, is
+//                    make_neighbor_liveness (:1249-1283);
 //   noise_kernel     the large_noise payload (parallel/adversary.py
 //                    :118-130): x + s * sqrt(2) * erf_inv(u) on the
 //                    Byzantine rows, u jax.random.normal's uniform at the
@@ -133,19 +135,37 @@
 //   path runs; a grid-stride loop (a second copy of the draw) was slower at
 //   the wide stacks. Bound: bytes (x read, out written).
 //
-// - the slot round: two launches, a warp a row each. The first reads the
-//   round's timeline row and writes each slot's liveness (the base slot's
-//   edge up and both ends up), active and each row's live-slot count d into
-//   an [R, N] int32 workspace the wrapper allocates, and adds the block's
-//   degree count to the total; the second writes w = 1 / (1 + max(d_i,
-//   d_nbr)) on live slots (0 elsewhere) and w_self = 1 minus the row's
-//   slots added in ascending order. d_nbr is another row's count, and the
-//   grid has no global sync: the second launch reads it from the workspace
-//   (N * k reads of 4 bytes) where one launch would recount each
-//   neighbour's slots (k_max^2 gathers a row: ~16 x 16 at the federated ER
-//   cells' mean degree 16). Padded slots are never read at their edge id
-//   (lanes past a row's count skip the timeline). Bound: bytes (the tables,
-//   the timeline row's gathers and the [N, k] outputs).
+// - the slot round: two launches, the work following each row's real
+//   slots (cnt[i]), not k_max. The live pass takes a group of 8 lanes a
+//   row (2 where k_max <= 2), lane l at slots l, l + 8, ..., so a group's
+//   table reads and live writes are contiguous and a warp serves 4 rows;
+//   it reads only the real slots' table entries and gathers the
+//   neighbours' node states and the edges' timeline states, 2 steps of
+//   slots in flight a lane. A step's live flags are one ballot, which
+//   gives the row's count d and its bit word with no atomics. It writes
+//   live (every slot), active, d into an [R, N] int32 workspace and the
+//   live bits into an [R, N, ceil(k / 32)] workspace, and adds the block's
+//   degree count to the total. The weight pass takes a thread a row: it
+//   walks the row's live slots off its bit words (8 bytes a row at k_max
+//   38, not a float array of k_max), 8 at a time (their neighbours, then
+//   those rows' counts, in flight together), writes w = 1 / (1 + max(d_i,
+//   d_nbr)) into a zeroed [rows, k] tile in shared memory that the block
+//   copies out coalesced, and adds them in ascending slot order in its
+//   registers (a padded or dead slot's +0 is skipped: a sum of weights >=
+//   +0 is the same with it), then w_self. d_nbr is another row's count,
+//   and the grid has no global sync, hence the two launches; recounting
+//   each neighbour's slots would take k_max^2 gathers a row. Measured at
+//   [100,000, 38], in a graph (PERF.md section 6): the first design, a warp
+//   a row over all k_max slots, lane 0's sum through k_max dependent shuffles, 79.670
+//   us; a slot a thread over blocks of rows with shared-memory atomics,
+//   54.716 us; a thread a row in both passes, 42.784 us (its live pass
+//   bound by the L1 requests of 32 rows' table lines a load: it took as
+//   long with no timeline); a group a row in both, 44.8 us (the weight
+//   pass 17.7 against 13.3 a thread a row). With a caller's mask
+//   (slot_liveness: any neighbour table, its real slots not a prefix) the
+//   live pass alone runs and writes mask * [slot live] at every slot, the
+//   JAX package's mask * edge_up * m_i * m_j bit for bit. Bound: bytes (the
+//   tables' real slots, the timeline row's gathers and the [N, k] outputs).
 //
 // The replica axis (run_batch). round_kernel takes R replicas' rounds in one
 // launch, the replica on the grid's y axis: replica r folds its own 6 key
@@ -530,99 +550,198 @@ __global__ void __launch_bounds__(kRoundThreads) round_kernel(RoundArgs a) {
 struct SlotArgs {
   const int64_t* t;        // the round's counter, read from device memory
   const int32_t* nbr;      // [N, k]: row i's neighbours, ascending, padded with i
-  const int32_t* cnt;      // [N]: row i's real slots (the first cnt[i])
+  const int32_t* cnt;      // [N]: row i's real slots (the first cnt[i]); unread with a mask
   const int32_t* eid;      // [N, k]: each slot's timeline edge id, or null
+  const float* mask;       // [N, k]: a caller's slot mask (a slot is real where != 0), or null
   const uint8_t* edge_up;  // [R, T, E] the timeline's edge states, or null
   const uint8_t* node_up;  // [R, T, N] the node chain, or null
   const uint8_t* part_up;  // [R, T, N] the participation stream, or null
   float* live;             // [R, N, k]
-  void* w;                 // [R, N, k] in Real
-  void* w_self;            // [R, N] in Real
+  void* w;                 // [R, N, k] in Real (the weight pass)
+  void* w_self;            // [R, N] in Real (the weight pass)
   float* active;           // [R, N]
   int32_t* deg;            // [R, N] workspace: each row's live slots
+  uint32_t* bits;          // [R, N, ceil(k / 32)] workspace: each row's live slots, a bit each
   double* degree_total;    // [R] the run's sums of realized degrees, or null
   int64_t n, k, n_edges, horizon, replicas;
+  int32_t passes;          // kLivePass, kWeightPass, or both
 };
 
-constexpr int kSlotWarps = kThreads / 32;  // rows a block
+constexpr int kLivePass = 1;
+constexpr int kWeightPass = 2;
+constexpr int kSlotSteps = 2;                 // live pass: steps of G slots a lane has in flight
+constexpr int kSlotBatch = 8;                 // weight pass: live slots a thread has in flight
+constexpr size_t kDefaultShared = 48 * 1024;  // a block's shared memory without opting in
+constexpr size_t kMaxShared = 232448;         // 227 KB, the most a block takes on sm_90
 
-// Launch 1: slot s of row i is live iff s < cnt[i], both ends are up and
-// its edge is up at the round's timeline row. Writes live, active and the
-// row's count d_i, and adds the block's count to the replica's total.
-__global__ void __launch_bounds__(kThreads) slot_live_kernel(SlotArgs a) {
-  launch_counts::add(kSlotSlotRound);
-  __shared__ int warp_degrees[kSlotWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kSlotWarps + warp;
-  const int64_t rep = blockIdx.y;
+// The round's states at the timeline row of t, replica rep's.
+struct SlotStates {
+  const uint8_t* node_up;
+  const uint8_t* part_up;
+  const uint8_t* edge_up;
+  __device__ __forceinline__ bool up(int64_t j) const {
+    return (node_up == nullptr || node_up[j] != 0) & (part_up == nullptr || part_up[j] != 0);
+  }
+  __device__ __forceinline__ bool edge(int32_t e) const {
+    return edge_up == nullptr || edge_up[e] != 0;
+  }
+};
+
+__device__ __forceinline__ SlotStates slot_states(const SlotArgs& a, int64_t rep) {
   const int64_t tt = a.horizon > 0 ? timeline_row(*a.t, a.horizon) : 0;
   const int64_t at = rep * a.horizon + tt;
-  const uint8_t* node_up = a.node_up != nullptr ? a.node_up + at * a.n : nullptr;
-  const uint8_t* part_up = a.part_up != nullptr ? a.part_up + at * a.n : nullptr;
-  const uint8_t* edge_up = a.edge_up != nullptr ? a.edge_up + at * a.n_edges : nullptr;
-  auto up = [&](int64_t j) {
-    return (node_up == nullptr || node_up[j] != 0) & (part_up == nullptr || part_up[j] != 0);
-  };
+  return {a.node_up != nullptr ? a.node_up + at * a.n : nullptr,
+          a.part_up != nullptr ? a.part_up + at * a.n : nullptr,
+          a.edge_up != nullptr ? a.edge_up + at * a.n_edges : nullptr};
+}
+
+// The live pass: a group of G lanes a row (G = 8; 2 where k_max <= 2),
+// lane l of the group at slots l, l + G, l + 2G, ..., so a group's reads
+// and writes of a row are contiguous. Each lane takes kSlotSteps steps at
+// a time: the table reads of the real slots (cnt[i]; every slot with a
+// caller's mask), then the gathers of the neighbours' node states and the
+// edges' timeline states, all in flight together. Slot s of row i is live
+// iff it is real, both ends are up and its edge is up; live is written at
+// every slot (with a mask, mask * [live]). A step's live flags are one
+// ballot: the group's G bits, the row's bit word and count, no atomics.
+// The group's first lane writes d_i, active and the bit words; the block
+// adds its count to the replica's total.
+template <int G>
+__global__ void __launch_bounds__(kThreads) slot_live_kernel(SlotArgs a) {
+  launch_counts::add(kSlotSlotRound);
+  __shared__ int s_warp[kThreads / 32];
+  const int k = static_cast<int>(a.k);
+  const int words = (k + 31) / 32;
+  const bool masked = a.mask != nullptr;
+  const int lane = threadIdx.x & 31, gl = lane % G, shift = lane - gl;
+  const int64_t rep = blockIdx.y;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * (kThreads / G) + threadIdx.x / G;
+  const bool in = i < a.n;
+  const SlotStates st = slot_states(a, rep);
+  bool ui = false;
+  int c = 0;
+  if (in) {
+    ui = st.up(i);
+    const int cnt = masked ? k : a.cnt[i];
+    // A down row has no live slot, and skips its gathers (with a mask it
+    // still writes mask * 0 at every slot).
+    c = masked ? k : (ui ? cnt : 0);
+  }
+  const int64_t base = i * a.k;
+  float* live = a.live + rep * a.n * a.k + base;
+  uint32_t* bits = a.bits + (rep * a.n + i) * words;
   int d = 0;
-  if (i < a.n) {
-    const bool ui = up(i);
-    const int cnt = a.cnt[i];
-    const int64_t row = i * a.k;
-    float* live = a.live + rep * a.n * a.k + row;
-    for (int64_t s0 = 0; s0 < a.k; s0 += 32) {
-      const int64_t s = s0 + lane;
-      bool v = false;
-      if (s < cnt) {
-        v = ui & up(a.nbr[row + s]) & (edge_up == nullptr || edge_up[a.eid[row + s]] != 0);
-      }
-      if (s < a.k) live[s] = v ? 1.0f : 0.0f;
-      d += __popc(__ballot_sync(kFull, v));
+  uint32_t word = 0u;
+  for (int t0 = 0; t0 * G < k; t0 += kSlotSteps) {
+    int32_t j[kSlotSteps], e[kSlotSteps];
+    float m[kSlotSteps];
+    bool real[kSlotSteps], v[kSlotSteps];
+#pragma unroll
+    for (int u = 0; u < kSlotSteps; ++u) {
+      const int s = (t0 + u) * G + gl;
+      m[u] = masked && s < c ? a.mask[base + s] : 1.0f;
+      real[u] = s < c && ui && (!masked || m[u] != 0.0f);
+      j[u] = real[u] ? a.nbr[base + s] : 0;
+      e[u] = real[u] && st.edge_up != nullptr ? a.eid[base + s] : 0;
     }
-    if (lane == 0) {
-      a.deg[rep * a.n + i] = d;
-      a.active[rep * a.n + i] = ui ? 1.0f : 0.0f;
+#pragma unroll
+    for (int u = 0; u < kSlotSteps; ++u) v[u] = real[u] && (st.up(j[u]) & st.edge(e[u]));
+#pragma unroll
+    for (int u = 0; u < kSlotSteps; ++u) {
+      const int first = (t0 + u) * G;  // the step's first slot
+      const int s = first + gl;
+      if (in && s < k) live[s] = masked ? __fmul_rn(m[u], v[u] ? 1.0f : 0.0f) : (v[u] ? 1.0f : 0.0f);
+      const uint32_t mine = (__ballot_sync(kFull, v[u]) >> shift) & ((1u << G) - 1u);
+      d += __popc(mine);
+      word |= mine << (first & 31);
+      if (first < k && ((first + G) % 32 == 0 || first + G >= k)) {
+        if (in && gl == 0) bits[first >> 5] = word;
+        word = 0u;
+      }
     }
   }
-  if (lane == 0) warp_degrees[warp] = d;
-  __syncthreads();
-  if (threadIdx.x == 0 && a.degree_total != nullptr) {
-    int block = 0;
-    for (int v = 0; v < kSlotWarps; ++v) block += warp_degrees[v];
-    if (block != 0) atomicAdd(a.degree_total + rep, static_cast<double>(block));
+  if (in && gl == 0) {
+    a.deg[rep * a.n + i] = d;
+    a.active[rep * a.n + i] = ui ? 1.0f : 0.0f;
+  }
+  if (a.degree_total != nullptr) {
+    d = in && gl == 0 ? d : 0;
+    for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(kFull, d, o);
+    if (lane == 0) s_warp[threadIdx.x >> 5] = d;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int block = 0;
+      for (int w = 0; w < kThreads / 32; ++w) block += s_warp[w];
+      if (block != 0) atomicAdd(a.degree_total + rep, static_cast<double>(block));
+    }
   }
 }
 
-// Launch 2: w[i, s] = 1 / (1 + max(d_i, d_nbr)) on live slots, 0 elsewhere,
-// and w_self[i] = 1 minus the row's weights added in ascending slot order
-// (lane l holds slot s0 + l; lane 0's sum walks them through __shfl_sync).
+// The weight pass: a thread a row, kThreads rows a block (fewer where a
+// block's [rows, k] tile of weights would pass the default 48 KB). Each
+// thread walks its row's live slots off the bit words (no float array read
+// back), kSlotBatch at a time in ascending order: their neighbours'
+// indices, then those rows' counts, in flight together; w = 1 / (1 +
+// max(d_i, d_nbr)) into a zeroed tile in shared memory, and the row's sum
+// of them in registers, in slot order (a dead or padded slot's +0 is
+// skipped: a sum of weights >= +0 is the same with it); w_self = 1 minus
+// the sum. The block copies the tile out coalesced.
 template <typename Real>
-__global__ void __launch_bounds__(kThreads) slot_weight_kernel(SlotArgs a) {
+__global__ void __launch_bounds__(kThreads) slot_weight_kernel(SlotArgs a, int rows) {
   using O = Rn<Real>;
   launch_counts::add(kSlotSlotRound);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kSlotWarps + warp;
+  extern __shared__ __align__(16) unsigned char slot_smem[];
+  const int k = static_cast<int>(a.k);
+  const int words = (k + 31) / 32;
+  Real* tile = reinterpret_cast<Real*>(slot_smem);  // [rows, k]
   const int64_t rep = blockIdx.y;
-  if (i >= a.n) return;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows;
+  const int nrows = static_cast<int>(rows < a.n - row0 ? rows : a.n - row0);
+  const int total = nrows * k;
+  for (int q = threadIdx.x; q < total; q += blockDim.x) tile[q] = Real(0);
+  const int r = threadIdx.x;
   const int32_t* deg = a.deg + rep * a.n;
-  const int di = deg[i];
-  const int64_t row = i * a.k;
-  const float* live = a.live + rep * a.n * a.k + row;
-  Real* w = static_cast<Real*>(a.w) + rep * a.n * a.k + row;
-  const Real one = Real(1);
-  Real sum = Real(0);
-  for (int64_t s0 = 0; s0 < a.k; s0 += 32) {
-    const int64_t s = s0 + lane;
-    Real wv = Real(0);
-    if (s < a.k) {
-      if (live[s] != 0.0f) {
-        wv = O::div(one, O::add(one, static_cast<Real>(max(di, deg[a.nbr[row + s]]))));
-      }
-      w[s] = wv;
-    }
-    const int nslots = a.k - s0 < 32 ? static_cast<int>(a.k - s0) : 32;
-    for (int l = 0; l < nslots; ++l) sum = O::add(sum, __shfl_sync(kFull, wv, l));
+  const int64_t i = row0 + r;
+  const int64_t base = i * a.k;
+  const uint32_t* bits = a.bits + (rep * a.n + i) * words;
+  int di = 0;
+  uint32_t b = 0u;
+  if (r < nrows) {
+    di = deg[i];
+    b = bits[0];
   }
-  if (lane == 0) static_cast<Real*>(a.w_self)[rep * a.n + i] = O::sub(one, sum);
+  __syncthreads();  // the zeros land before the rows' weights
+  if (r < nrows) {
+    int w = 0;
+    Real* row = tile + r * k;
+    const Real one = Real(1);
+    Real sum = Real(0);
+    for (;;) {
+      int s[kSlotBatch], j[kSlotBatch], dj[kSlotBatch];
+#pragma unroll
+      for (int u = 0; u < kSlotBatch; ++u) {
+        while (b == 0u && w + 1 < words) b = bits[++w];
+        s[u] = b != 0u ? w * 32 + __ffs(b) - 1 : -1;
+        b &= b - 1u;
+      }
+#pragma unroll
+      for (int u = 0; u < kSlotBatch; ++u) j[u] = s[u] >= 0 ? a.nbr[base + s[u]] : 0;
+#pragma unroll
+      for (int u = 0; u < kSlotBatch; ++u) dj[u] = s[u] >= 0 ? deg[j[u]] : 0;
+#pragma unroll
+      for (int u = 0; u < kSlotBatch; ++u) {
+        if (s[u] < 0) break;
+        const Real wv = O::div(one, O::add(one, static_cast<Real>(max(di, dj[u]))));
+        row[s[u]] = wv;
+        sum = O::add(sum, wv);
+      }
+      if (s[kSlotBatch - 1] < 0) break;
+    }
+    static_cast<Real*>(a.w_self)[rep * a.n + i] = O::sub(one, sum);
+  }
+  __syncthreads();
+  Real* out = static_cast<Real*>(a.w) + (rep * a.n + row0) * a.k;
+  for (int q = threadIdx.x; q < total; q += blockDim.x) out[q] = tile[q];
 }
 
 // ---- the timeline -----------------------------------------------------------
@@ -964,25 +1083,58 @@ int launch_round(const RoundArgs* args, void* stream) {
   return finish();
 }
 
+// The slot round's two launches: the live pass with G lanes a row,
+// kThreads / G rows a block; the weight pass a thread a row, as many rows
+// a block as a [rows, k] tile of weights in the default 48 KB holds (at
+// most kThreads; a multiple of 32 past 32).
+template <int G, typename Real>
+int launch_slot_passes(const SlotArgs& a, cudaStream_t s) {
+  if (a.passes & kLivePass) {
+    constexpr int64_t rows = kThreads / G;
+    const dim3 blocks(static_cast<unsigned>((a.n + rows - 1) / rows),
+                      static_cast<unsigned>(a.replicas));
+    slot_live_kernel<G><<<blocks, kThreads, 0, s>>>(a);
+    const int err = finish();
+    if (err != 0) return err;
+  }
+  if (a.passes & kWeightPass) {
+    int64_t rows = std::min<int64_t>(kThreads,
+                                     static_cast<int64_t>(kDefaultShared / sizeof(Real)) / a.k);
+    rows = rows > 32 ? rows / 32 * 32 : std::max<int64_t>(rows, 1);
+    const size_t bytes = static_cast<size_t>(rows * a.k) * sizeof(Real);
+    if (bytes > kMaxShared) return static_cast<int>(cudaErrorInvalidValue);
+    if (bytes > kDefaultShared) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          slot_weight_kernel<Real>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(bytes));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const dim3 blocks(static_cast<unsigned>((a.n + rows - 1) / rows),
+                      static_cast<unsigned>(a.replicas));
+    const int threads = static_cast<int>((rows + 31) / 32 * 32);
+    slot_weight_kernel<Real><<<blocks, threads, bytes, s>>>(a, static_cast<int>(rows));
+    return finish();
+  }
+  return 0;
+}
+
 template <typename Real>
 int launch_slot_round(const SlotArgs* args, void* stream) {
   const SlotArgs& a = *args;
   const bool timeline_edges = a.edge_up != nullptr;
-  if (a.n <= 0 || a.n > kMaxRows || a.k <= 0 || a.replicas < 1 || a.replicas > 65535 ||
-      a.t == nullptr || a.nbr == nullptr || a.cnt == nullptr || a.live == nullptr ||
-      a.w == nullptr || a.w_self == nullptr || a.active == nullptr || a.deg == nullptr ||
+  const bool live_pass = (a.passes & kLivePass) != 0, weight_pass = (a.passes & kWeightPass) != 0;
+  if (a.n <= 0 || a.n > kMaxRows || a.k <= 0 || a.k > kMaxRows || a.replicas < 1 ||
+      a.replicas > 65535 || a.passes < 1 || a.passes > (kLivePass | kWeightPass) ||
+      a.nbr == nullptr || a.deg == nullptr || a.bits == nullptr ||
+      (live_pass && (a.t == nullptr || (a.cnt == nullptr && a.mask == nullptr) ||
+                     a.live == nullptr || a.active == nullptr)) ||
+      (weight_pass && (a.w == nullptr || a.w_self == nullptr)) ||
       (timeline_edges && (a.n_edges <= 0 || a.eid == nullptr)) ||
       ((timeline_edges || a.node_up != nullptr || a.part_up != nullptr) && a.horizon <= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 blocks(static_cast<unsigned>((a.n + kSlotWarps - 1) / kSlotWarps),
-                    static_cast<unsigned>(a.replicas));
   const auto s = static_cast<cudaStream_t>(stream);
-  slot_live_kernel<<<blocks, kThreads, 0, s>>>(a);
-  const int err = finish();
-  if (err != 0) return err;
-  slot_weight_kernel<Real><<<blocks, kThreads, 0, s>>>(a);
-  return finish();
+  return a.k <= 2 ? launch_slot_passes<2, Real>(a, s) : launch_slot_passes<8, Real>(a, s);
 }
 
 // The payload over x [n, d] (keys null) or over R replicas' [R, n, d]

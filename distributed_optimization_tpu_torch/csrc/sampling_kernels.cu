@@ -11,9 +11,10 @@
 //                  gathered, the batch's rows Xb [N, b, d] and yb [N, b]; the
 //                  indices alone for sample_batch_indices (:56); and the dense
 //                  weights of a shard longer than 64 rows;
-//                  in its event mode, the asynchronous event clock's batch of
-//                  one worker (backends/async_scan.py:514-519: one
-//                  sample_batch_indices at a per-event key, and the gather).
+//                  in its event mode, the asynchronous event clock's batches
+//                  of a block of events (backends/async_scan.py:514-519: one
+//                  sample_batch_indices at a per-event key, and the gather,
+//                  for each event of the block).
 // The plain versions are distributed_optimization_tpu_torch/ops/sampling.py
 // (on the twin of jax.random in ops/prng.py); the kernels equal them bit for
 // bit.
@@ -83,17 +84,28 @@
 //   r. The single-run entry points pass their two words by value and no
 //   array (R = 1).
 //
-// - The event mode (sample_event_*): one launch an event (or a local
-//   descent), one worker, select_kernel's selection. The kernel reads the
-//   event cursor e from device memory, then worker[e] and local_step[e]
-//   (int64 schedule arrays), and derives the key in the kernel:
+// - The event mode (sample_event_*): one launch for a block of B events of
+//   the event clock's schedule, before the block's first event, at tau
+//   draws an event (the local descents); select_kernel's selection, a
+//   block (p) of the grid for each of the B * tau draws, so the launch
+//   fills the card where a launch an event kept one SM of 132 busy. Block
+//   p reads the event cursor c from device memory, then event e = c + p /
+//   tau's worker[e] and local_step[e] (int64 schedule arrays), and derives
+//   the key in the kernel:
 //     worker key = threefry2x32(base key, (0, worker))   base key = fold_in(
 //     step key   = threefry2x32(worker key, (0, step))     key(seed), 0xA57E)
-//     (descent m: threefry2x32(step key, (0, m)) once more)
+//     (descent m = m0 + p % tau: threefry2x32(step key, (0, m)) once more)
 //   the worker first, then its own step count (the rounds fold t first).
-//   It writes the b indices and weights and, optionally, gathers Xb [b, d]
-//   and yb [b] from the worker's shard. The cursor lives on the card, so a
-//   CUDA graph of many events replays with the current one.
+//   An event's batch never depends on the models, so the whole block's are
+//   drawn at once, each the per-event launch's bits (the same key chain,
+//   selection and tie order). It writes the b indices and weights and,
+//   optionally, gathers Xb [b, d] and yb [b] from the worker's shard, into
+//   output p of buffers whose outputs are xstride (Xb) and vstride (idx,
+//   w, yb) elements apart (the event clock pads them to 256 bytes, the
+//   alignment a fresh tensor of the per-event launch had). An event at or
+//   past the schedule's end draws no row (weights 0); the event clock never
+//   asks for one. The cursor lives on the card, so a CUDA graph of many
+//   events replays with the current one.
 //
 // Each launch adds one to its kernel's slot of launch_counts.cuh (slot 0 the
 // dense weights, either kernel; 1 the gather form; 2 the event mode: the
@@ -224,13 +236,16 @@ struct Args {
   const int64_t* t;
   uint32_t k0, k1;
   const int64_t* keys;     // non-null: [R, 2] slot-key words, replica blockIdx.y's in place of k0, k1
-  // The event mode (non-null cursor): the event e = *cursor, its worker
-  // ev_worker[e] and step ev_step[e]; k0, k1 the base key; descent >= 0
-  // folded in after the step. t is null there.
+  // The event mode (non-null cursor): block p of the grid draws event e =
+  // *cursor + p / tau (its worker ev_worker[e] and step ev_step[e]) at
+  // descent descent + p % tau (none where descent < 0), into output p;
+  // k0, k1 the base key. An event at or past n_events draws nothing. t is
+  // null there.
   const int64_t* cursor;
   const int64_t* ev_worker;
   const int64_t* ev_step;
-  int descent;
+  int64_t n_events;
+  int descent, tau;
   int n, replicas;         // workers; replicas (the grid's y)
   const int64_t* n_valid;  // null: every row valid
   const uint64_t* scores;  // non-null: [N, L] scores in place of the draw (select_top)
@@ -241,6 +256,7 @@ struct Args {
   Real* w;        // [N, b], or [N, L] in the weights form
   Real* Xb;       // [N, b, d]
   Real* yb;       // [N, b]
+  int64_t xstride, vstride;  // elements from one output's Xb, and idx, w, yb, to the next
   unsigned char* workspace;  // survivors past shared memory, ws_stride bytes a worker; or null
   int64_t ws_stride;
 };
@@ -304,19 +320,22 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
   extern __shared__ __align__(16) unsigned char smem[];
   State<Key>* st = Group::leader(reinterpret_cast<State<Key>*>(smem));
   const int rank = Group::rank();
-  const int64_t event = a.cursor != nullptr ? *a.cursor : -1;
-  const int worker =
-      event >= 0 ? static_cast<int>(a.ev_worker[event]) : static_cast<int>(blockIdx.x) / Group::size();
+  const int pair = static_cast<int>(blockIdx.x) / Group::size();
+  const int64_t event = a.cursor != nullptr ? *a.cursor + pair / a.tau : -1;
+  // An event past the schedule's end (none on the event clock's path) draws
+  // no row: worker 0 with no valid row, weights 0.
+  const bool drawn = event >= 0 && event < a.n_events;
+  const int worker = event >= 0 ? (drawn ? static_cast<int>(a.ev_worker[event]) : 0) : pair;
   // The worker's place in the [R, N, ...] outputs and the workspace (the
-  // event mode writes one worker's, at 0).
-  const int64_t out = event >= 0 ? 0 : static_cast<int64_t>(blockIdx.y) * a.n + worker;
+  // event mode's: its (event, descent) pair's).
+  const int64_t out = event >= 0 ? pair : static_cast<int64_t>(blockIdx.y) * a.n + worker;
   Key* skey = a.workspace != nullptr
                   ? reinterpret_cast<Key*>(a.workspace + out * a.ws_stride)
                   : reinterpret_cast<Key*>(st + 1);
   int* srow = reinterpret_cast<int*>(skey + cap);
   int* top = srow + cap;
   const int L = a.L, b = a.b;
-  const int64_t nv = a.n_valid != nullptr ? a.n_valid[worker] : L;
+  const int64_t nv = event >= 0 && !drawn ? 0 : a.n_valid != nullptr ? a.n_valid[worker] : L;
   const uint32_t tt = a.t != nullptr ? static_cast<uint32_t>(*a.t) : 0u;
   if (rank == 0) {
     for (int i = threadIdx.x; i < kBins; i += blockDim.x) st->hist[i] = 0;
@@ -338,10 +357,12 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
   // kRecomputed, rows first, first + stride, ..., each key recomputed where
   // it is read.
   uint2 wkey = make_uint2(0u, 0u);
-  if (event >= 0) {
+  if (drawn) {
     const uint2 wk = threefry2x32(a.k0, a.k1, 0u, static_cast<uint32_t>(worker));
     wkey = threefry2x32(wk.x, wk.y, 0u, static_cast<uint32_t>(a.ev_step[event]));
-    if (a.descent >= 0) wkey = threefry2x32(wkey.x, wkey.y, 0u, static_cast<uint32_t>(a.descent));
+    if (a.descent >= 0) {
+      wkey = threefry2x32(wkey.x, wkey.y, 0u, static_cast<uint32_t>(a.descent + pair % a.tau));
+    }
   } else if (a.scores == nullptr) {
     uint32_t k0 = a.k0, k1 = a.k1;
     if (a.keys != nullptr) {
@@ -431,7 +452,7 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
     });
   } else {
     for (int j = first; j < b; j += stride) {
-      const int64_t at = out * b + j;
+      const int64_t at = out * a.vstride + j;
       if (a.idx != nullptr) a.idx[at] = top_row(top, j % k, need);
       if (a.w != nullptr) a.w[at] = j < eff ? inv : Real(0);
     }
@@ -441,8 +462,8 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
       const int d = a.d, width = d + 1, total = b * width;
       const Real* __restrict__ X = a.X + static_cast<int64_t>(worker) * L * d;
       const Real* __restrict__ y = a.y + static_cast<int64_t>(worker) * L;
-      Real* __restrict__ Xb = a.Xb + out * b * d;
-      Real* __restrict__ yb = a.yb + out * b;
+      Real* __restrict__ Xb = a.Xb + out * a.xstride;
+      Real* __restrict__ yb = a.yb + out * a.vstride;
       const int step_j = stride / width, step_c = stride - step_j * width;
       int j = first / width, c = first - j * width;
       for (int base = first; base < total; base += kCopy * stride) {
@@ -638,6 +659,8 @@ int sample_batches(const void* t, uint32_t k0, uint32_t k1, const void* keys, in
   a.b = static_cast<int>(b);
   a.d = static_cast<int>(d);
   a.slot = kSlotBatches;
+  a.xstride = b * d;
+  a.vstride = b;
   a.X = static_cast<const Real*>(X);
   a.y = static_cast<const Real*>(y);
   a.idx = static_cast<int64_t*>(idx);
@@ -648,15 +671,21 @@ int sample_batches(const void* t, uint32_t k0, uint32_t k1, const void* keys, in
   return launch_select<Real, false>(a, n, stream);
 }
 
-// The event mode: one worker's batch at the event *cursor (see Args).
+// The event mode: the batches of the events *cursor .. *cursor + events - 1,
+// tau draws an event (descents descent .. descent + tau - 1, or one draw
+// with no descent folded where descent is -1), output p = event * tau +
+// descent at p * xstride of Xb and p * vstride of idx, w and yb (see Args).
 template <typename Real>
-int sample_event(const void* cursor, const void* workers, const void* steps, int64_t descent,
-                 uint32_t k0, uint32_t k1, const void* n_valid, int64_t L, int64_t b, int64_t d,
-                 const void* X, const void* y, void* idx, void* w, void* Xb, void* yb,
-                 void* workspace, void* stream) {
+int sample_event(const void* cursor, const void* workers, const void* steps, int64_t n_events,
+                 int64_t events, int64_t tau, int64_t descent, uint32_t k0, uint32_t k1,
+                 const void* n_valid, int64_t L, int64_t b, int64_t d, const void* X,
+                 const void* y, void* idx, void* w, void* Xb, void* yb, int64_t xstride,
+                 int64_t vstride, void* workspace, void* stream) {
   if (cursor == nullptr || workers == nullptr || steps == nullptr || n_valid == nullptr ||
-      refused(1, L, b) || descent < -1 || descent > 0x7FFFFFFF ||
-      (X != nullptr && (d <= 0 || d > 0x7FFFFFFF || b * (d + 1) > 0x7FFFFFFF))) {
+      refused(1, L, b) || events < 1 || tau < 1 || events * tau > 0x7FFFFFFF ||
+      descent < -1 || (descent == -1 && tau != 1) || descent + tau > 0x7FFFFFFF ||
+      n_events < 0 || vstride < b ||
+      (X != nullptr && (d <= 0 || d > 0x7FFFFFFF || b * (d + 1) > 0x7FFFFFFF || xstride < b * d))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args<Real> a = {};
@@ -666,7 +695,9 @@ int sample_event(const void* cursor, const void* workers, const void* steps, int
   a.cursor = static_cast<const int64_t*>(cursor);
   a.ev_worker = static_cast<const int64_t*>(workers);
   a.ev_step = static_cast<const int64_t*>(steps);
+  a.n_events = n_events;
   a.descent = static_cast<int>(descent);
+  a.tau = static_cast<int>(tau);
   a.n_valid = static_cast<const int64_t*>(n_valid);
   a.L = static_cast<int>(L);
   a.b = static_cast<int>(b);
@@ -678,8 +709,10 @@ int sample_event(const void* cursor, const void* workers, const void* steps, int
   a.w = static_cast<Real*>(w);
   a.Xb = static_cast<Real*>(Xb);
   a.yb = static_cast<Real*>(yb);
+  a.xstride = xstride;
+  a.vstride = vstride;
   a.workspace = static_cast<unsigned char*>(workspace);
-  return launch_select<Real, false>(a, 1, stream);
+  return launch_select<Real, false>(a, events * tau, stream);
 }
 
 template <typename Real>
@@ -695,6 +728,7 @@ int select_top(const void* scores, int64_t n, int64_t L, int64_t b, int64_t clus
   a.L = static_cast<int>(L);
   a.b = static_cast<int>(b);
   a.slot = kNoSlot;
+  a.vstride = b;
   a.idx = static_cast<int64_t*>(idx);
   a.workspace = static_cast<unsigned char*>(workspace);
   return launch_select<Real, false>(a, n, stream, static_cast<int>(cluster));
@@ -749,12 +783,14 @@ extern "C" {
                                 w, Xb, yb, workspace, stream);                                   \
   }                                                                                              \
   int sample_event_##suffix(const void* cursor, const void* workers, const void* steps,          \
-                            int64_t descent, uint32_t k0, uint32_t k1, const void* n_valid,      \
-                            int64_t L, int64_t b, int64_t d, const void* X, const void* y,       \
-                            void* idx, void* w, void* Xb, void* yb, void* workspace,             \
-                            void* stream) {                                                      \
-    return sample_event<Real>(cursor, workers, steps, descent, k0, k1, n_valid, L, b, d, X, y,   \
-                              idx, w, Xb, yb, workspace, stream);                                \
+                            int64_t n_events, int64_t events, int64_t tau, int64_t descent,      \
+                            uint32_t k0, uint32_t k1, const void* n_valid, int64_t L, int64_t b, \
+                            int64_t d, const void* X, const void* y, void* idx, void* w,         \
+                            void* Xb, void* yb, int64_t xstride, int64_t vstride,                \
+                            void* workspace, void* stream) {                                     \
+    return sample_event<Real>(cursor, workers, steps, n_events, events, tau, descent, k0, k1,    \
+                              n_valid, L, b, d, X, y, idx, w, Xb, yb, xstride, vstride,          \
+                              workspace, stream);                                                \
   }
 
 SAMPLING_ENTRY_POINTS(float, f32)

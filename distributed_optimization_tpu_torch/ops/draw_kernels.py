@@ -24,8 +24,11 @@ graph, so the card takes each as one kernel:
   over the ``[N, k_max]`` neighbour table (``SlotTables``) with no
   ``[N, N]`` object: the float32 live slots, ``active``, the MH slot
   weights ``w`` and ``w_self`` in the run's accumulation dtype and the
-  round's degree count; two launches (the liveness and each row's count,
-  then the weights, which need the neighbours' counts);
+  round's degree count; two launches (the liveness, each row's count and
+  its live bits, then the weights, which need the neighbours' counts);
+  ``slot_liveness``: the first launch alone over any caller's table (a
+  mask where its real slots are not a prefix of each row), the JAX
+  package's ``make_neighbor_liveness`` over that table;
 - ``fault_timeline``: the per-edge Gilbert-Elliott chains, the
   crash-recovery node chains (with their rejoin rounds) and the
   participation stream over a horizon, as ``[T, E]`` / ``[T, N]`` bool;
@@ -501,16 +504,20 @@ def realize_round_rows_plain(t, keys, tables: RoundTables, rows, *, drop_prob: f
 
 
 class SlotTables(NamedTuple):
-    """A matrix-free graph's neighbour table for ``realize_slot_round``, on
-    one device: ``nbr [N, k]`` int32 (row i's neighbours ascending, padded
-    with i), ``cnt [N]`` int32 its real slots (the first cnt[i]) and, with a
+    """A neighbour table for ``realize_slot_round`` and ``slot_liveness``, on
+    one device: ``nbr [N, k]`` int32 (row i's neighbours, padded with i),
+    ``cnt [N]`` int32 its real slots (the first cnt[i]) and, with a
     timeline's edges, ``eid [N, k]`` int32 each slot's edge id (−1 on
-    padded slots)."""
+    padded slots). ``mask`` (float32 ``[N, k]``, or None): a caller's slot
+    mask where its real slots are not the first cnt[i] of each row, or are
+    weighed by other values than 0 and 1; ``slot_liveness`` alone takes
+    it."""
 
     n: int
     nbr: torch.Tensor
     cnt: torch.Tensor
     eid: Optional[torch.Tensor] = None
+    mask: Optional[torch.Tensor] = None
 
 
 class SlotRound(NamedTuple):
@@ -524,12 +531,10 @@ class SlotRound(NamedTuple):
     active: torch.Tensor
 
 
-def realize_slot_round_plain(t, tables: SlotTables, timeline: Optional[RoundTimeline] = None, *,
-                             weights: torch.dtype = torch.float32,
-                             degree_total: Optional[torch.Tensor] = None) -> SlotRound:
-    """The plain version of ``realize_slot_round``, in torch ops: the same
-    slots and weights, w_self adding the slots in ascending order (a loop
-    of k adds)."""
+def _slot_states(t, tables: SlotTables, timeline: Optional[RoundTimeline]):
+    """(the nodes that are up [N], each slot's liveness [N, k] bool) at
+    ``timeline_row(t, T)``: a slot is live iff it is real, both ends are up
+    and its edge is up."""
     n, dev = tables.n, tables.nbr.device
     k = tables.nbr.shape[1]
     up = torch.ones(n, dtype=torch.bool, device=dev)
@@ -542,17 +547,39 @@ def realize_slot_round_plain(t, tables: SlotTables, timeline: Optional[RoundTime
         if timeline.edge_up is not None:
             edge_at = timeline.edge_up.index_select(0, row)[0].bool()
     nbr = tables.nbr.long()
-    live = torch.arange(k, device=dev)[None, :] < tables.cnt[:, None]
+    if tables.mask is not None:
+        live = tables.mask != 0
+    else:
+        live = torch.arange(k, device=dev)[None, :] < tables.cnt[:, None]
     live = live & up[:, None] & up[nbr]
     if edge_at is not None:
         live = live & edge_at[tables.eid.long().clamp(min=0)]
+    return up, live
+
+
+def slot_liveness_plain(t, tables: SlotTables,
+                        timeline: Optional[RoundTimeline] = None) -> torch.Tensor:
+    """The plain version of ``slot_liveness``: float32 ``[N, k]``, the
+    caller's mask times each slot's liveness (0 or 1), or the liveness
+    where the table has no mask."""
+    _, live = _slot_states(t, tables, timeline)
+    return live.float() if tables.mask is None else tables.mask * live.float()
+
+
+def realize_slot_round_plain(t, tables: SlotTables, timeline: Optional[RoundTimeline] = None, *,
+                             weights: torch.dtype = torch.float32,
+                             degree_total: Optional[torch.Tensor] = None) -> SlotRound:
+    """The plain version of ``realize_slot_round``, in torch ops: the same
+    slots and weights, w_self adding the slots in ascending order (a loop
+    of k adds)."""
+    up, live = _slot_states(t, tables, timeline)
     d = live.sum(dim=1)
     if degree_total is not None:
         degree_total.add_(d.sum().to(torch.float64))
     deg = d.to(weights)
-    one = torch.ones((), dtype=weights, device=dev)
-    w = torch.where(live, one / (one + torch.maximum(deg[:, None], deg[nbr])), 0.0)
-    total = torch.zeros(n, dtype=weights, device=dev)
+    one = torch.ones((), dtype=weights, device=tables.nbr.device)
+    w = torch.where(live, one / (one + torch.maximum(deg[:, None], deg[tables.nbr.long()])), 0.0)
+    total = torch.zeros(tables.n, dtype=weights, device=tables.nbr.device)
     for col in w.unbind(1):
         total = total + col
     return SlotRound(live.float(), w, one - total, up.float())
@@ -572,6 +599,11 @@ def _check_slot_round(t, tables: SlotTables, timeline, weights, degree_total,
             raise ValueError(f"tables.{name} must be a contiguous int32 tensor of N rows on {dev}")
     if tables.nbr.dim() != 2 or tables.nbr.shape[1] < 1:
         raise ValueError("tables.nbr must be [N, k] with k >= 1")
+    if tables.mask is not None and (tables.mask.dtype != torch.float32
+                                    or tables.mask.shape != tables.nbr.shape
+                                    or tables.mask.device != dev
+                                    or not tables.mask.is_contiguous()):
+        raise ValueError(f"tables.mask must be a contiguous float32 [N, k] tensor on {dev}")
     if weights not in (torch.float32, torch.float64):
         raise TypeError(f"weights must be float32 or float64, got {weights}")
     if replicas is not None and not 1 <= replicas <= 65535:
@@ -585,9 +617,49 @@ class _SlotArgs(ctypes.Structure):
     """``SlotArgs`` of csrc/draw_kernels.cu, field for field."""
 
     _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "t", "nbr", "cnt", "eid", "edge_up", "node_up", "part_up", "live", "w", "w_self",
-        "active", "deg", "degree_total")]
-        + [(name, ctypes.c_int64) for name in ("n", "k", "n_edges", "horizon", "replicas")])
+        "t", "nbr", "cnt", "eid", "mask", "edge_up", "node_up", "part_up", "live", "w",
+        "w_self", "active", "deg", "bits", "degree_total")]
+        + [(name, ctypes.c_int64) for name in ("n", "k", "n_edges", "horizon", "replicas")]
+        + [("passes", ctypes.c_int32)])
+
+
+# SlotArgs.passes: the live pass (live, active, each row's count and live
+# bits, the degree count), the weight pass (w and w_self), or both.
+LIVE_PASS, WEIGHT_PASS = 1, 2
+
+
+def _slot_launch(t, tables: SlotTables, timeline, weights, degree_total, replicas, passes):
+    """The card's slot-round outputs and workspace, and ``launch(passes)``,
+    which launches the asked passes over them on the current stream."""
+    dev = tables.nbr.device
+    n, k = tables.n, tables.nbr.shape[1]
+    lead = () if replicas is None else (replicas,)
+    live = torch.empty(lead + (n, k), dtype=torch.float32, device=dev)
+    active = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    deg = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    bits = torch.empty(lead + (n, (k + 31) // 32), dtype=torch.int32, device=dev)
+    w = w_self = None
+    if passes & WEIGHT_PASS:
+        w = torch.empty(lead + (n, k), dtype=weights, device=dev)
+        w_self = torch.empty(lead + (n,), dtype=weights, device=dev)
+    tl = timeline if timeline is not None else RoundTimeline()
+    fn = getattr(_library(), "realize_slot_round_" + ("f64" if weights == torch.float64
+                                                      else "f32"))
+
+    def launch(which: int) -> None:
+        # The pointers are taken here, so the closure holds every buffer.
+        args = _SlotArgs(
+            t.data_ptr(), tables.nbr.data_ptr(), tables.cnt.data_ptr(), _ptr(tables.eid),
+            _ptr(tables.mask), _ptr(tl.edge_up), _ptr(tl.node_up), _ptr(tl.part_up),
+            live.data_ptr(), _ptr(w), _ptr(w_self), active.data_ptr(), deg.data_ptr(),
+            bits.data_ptr(), _ptr(degree_total), n, k,
+            tl.edge_up.shape[-1] if tl.edge_up is not None else 0, tl.horizon, replicas or 1,
+            which)
+        with torch.cuda.device(dev):
+            err = fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+        _raise(err, "realize_slot_round")
+
+    return SlotRound(live, w, w_self, active), launch
 
 
 def realize_slot_round(t, tables: SlotTables, timeline: Optional[RoundTimeline] = None, *,
@@ -603,10 +675,13 @@ def realize_slot_round(t, tables: SlotTables, timeline: Optional[RoundTimeline] 
     ``degree_total`` (float64) where given. On the replica axis
     (``replicas`` R; ``[R, T, ...]`` timeline states; ``degree_total [R]``)
     every output gains a leading ``[R]``, in one launch pair. On the card
-    two launches (``SLOT_ROUND_LAUNCHES``)."""
+    two launches (``SLOT_ROUND_LAUNCHES``: the live pass, then the weight
+    pass)."""
     _check_slot_round(t, tables, timeline, weights, degree_total, replicas)
-    dev = tables.nbr.device
-    if dev.type == "cpu":
+    if tables.mask is not None:
+        raise ValueError("realize_slot_round takes a table whose real slots come first in "
+                         "each row (no mask); slot_liveness takes a caller's mask")
+    if tables.nbr.device.type == "cpu":
         if replicas is None:
             return realize_slot_round_plain(t, tables, timeline, weights=weights,
                                             degree_total=degree_total)
@@ -615,25 +690,45 @@ def realize_slot_round(t, tables: SlotTables, timeline: Optional[RoundTimeline] 
             degree_total=degree_total[r:r + 1] if degree_total is not None else None)
             for r in range(replicas)]
         return SlotRound(*(torch.stack(parts) for parts in zip(*rounds)))
-    n, k = tables.n, tables.nbr.shape[1]
-    lead = () if replicas is None else (replicas,)
-    live = torch.empty(lead + (n, k), dtype=torch.float32, device=dev)
-    w = torch.empty(lead + (n, k), dtype=weights, device=dev)
-    w_self = torch.empty(lead + (n,), dtype=weights, device=dev)
-    active = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
-    deg = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
-    tl = timeline if timeline is not None else RoundTimeline()
-    args = _SlotArgs(
-        t.data_ptr(), tables.nbr.data_ptr(), tables.cnt.data_ptr(), _ptr(tables.eid),
-        _ptr(tl.edge_up), _ptr(tl.node_up), _ptr(tl.part_up), live.data_ptr(), w.data_ptr(),
-        w_self.data_ptr(), active.data_ptr(), deg.data_ptr(), _ptr(degree_total), n, k,
-        tl.edge_up.shape[-1] if tl.edge_up is not None else 0, tl.horizon, replicas or 1)
-    fn = getattr(_library(), "realize_slot_round_" + ("f64" if weights == torch.float64
-                                                      else "f32"))
-    with torch.cuda.device(dev):
-        err = fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
-    _raise(err, "realize_slot_round")
-    return SlotRound(live, w, w_self, active)
+    out, launch = _slot_launch(t, tables, timeline, weights, degree_total, replicas,
+                               LIVE_PASS | WEIGHT_PASS)
+    launch(LIVE_PASS | WEIGHT_PASS)
+    return out
+
+
+def slot_liveness(t, tables: SlotTables, timeline: Optional[RoundTimeline] = None, *,
+                  replicas: Optional[int] = None) -> torch.Tensor:
+    """The float32 liveness ``[N, k]`` (``[R, N, k]`` on the replica axis) of
+    each slot of any caller's table at ``t``: its mask (1 on the first
+    cnt[i] slots without one) times [both ends up and the slot's edge up],
+    the JAX package's ``mask · edge_up[t][slots] · m[i] · m[nbr]``. On the
+    card one launch, the slot round's live pass."""
+    _check_slot_round(t, tables, timeline, torch.float32, None, replicas)
+    if tables.nbr.device.type == "cpu":
+        if replicas is None:
+            return slot_liveness_plain(t, tables, timeline)
+        return torch.stack([slot_liveness_plain(t, tables, timeline.replica(r)
+                                                if timeline is not None else None)
+                            for r in range(replicas)])
+    out, launch = _slot_launch(t, tables, timeline, torch.float32, None, replicas, LIVE_PASS)
+    launch(LIVE_PASS)
+    return out.live
+
+
+def slot_round_passes(t, tables: SlotTables, timeline: Optional[RoundTimeline] = None, *,
+                      weights: torch.dtype = torch.float32,
+                      degree_total: Optional[torch.Tensor] = None):
+    """For measuring the two passes apart on the card: ``(out, live_pass,
+    weight_pass)``, the round's outputs and two zero-argument calls that
+    launch one pass each over them (the weight pass reads the counts and
+    bits the live pass last wrote). Launching both in turn is one
+    ``realize_slot_round``."""
+    _check_slot_round(t, tables, timeline, weights, degree_total, None)
+    if tables.nbr.device.type != "cpu" and tables.mask is None:
+        out, launch = _slot_launch(t, tables, timeline, weights, degree_total, None,
+                                   LIVE_PASS | WEIGHT_PASS)
+        return out, (lambda: launch(LIVE_PASS)), (lambda: launch(WEIGHT_PASS))
+    raise ValueError("slot_round_passes takes a maskless table on a card")
 
 
 # --- the timeline ------------------------------------------------------------------

@@ -199,3 +199,20 @@ def sample_event_batch(base_key, cursor: torch.Tensor, workers: torch.Tensor,
     Xb = X.index_select(0, worker)[:, indices]
     yb = y.index_select(0, worker)[:, indices]
     return Xb, yb, weights[None, :]
+
+
+def sample_event_block(base_key, cursor: torch.Tensor, workers: torch.Tensor,
+                       steps: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
+                       n_valid: torch.Tensor, batch_size: int, events: int,
+                       descents: int | None = None):
+    """``(Xb [B, τ, b, d], yb [B, τ, b], weights [B, τ, b])``: the batches
+    of events ``cursor`` … ``cursor + B − 1`` (B = ``events``), each
+    ``sample_event_batch`` at its event, with no descent folded in
+    (``descents`` None, τ = 1) or at descents 0 … τ − 1 (an int τ),
+    stacked."""
+    draws = [[sample_event_batch(base_key, cursor + e, workers, steps, X, y, n_valid,
+                                 batch_size, m)
+              for m in ((None,) if descents is None else range(descents))]
+             for e in range(events)]
+    return tuple(torch.stack([torch.cat([one[part] for one in event]) for event in draws])
+                 for part in range(3))

@@ -45,16 +45,23 @@ outputs from the shared shards; replica r's are the single launch's with
 slot key r, bit for bit, and on the CPU the plain versions take the same
 stack. The workspace then holds R·N workers' survivors.
 
-The asynchronous event clock (``backends/async_scan.py``) draws one
-worker's batch an event: ``sample_event_batch`` (the rows ``Xb [1, b,
-d]``, ``yb [1, b]`` and weights ``[1, b]``) and ``event_batch_indices``
-(the indices and weights ``[b]``) take the event clock's base key (two host
-words, ``sampling.event_key``), the event cursor (an int64 one-element
-tensor) and the schedule's int64 ``[E]`` worker and step arrays. On the
-card one launch of the gather kernel's event mode reads the cursor, the
-event's worker and step, derives the key and selects and gathers the
-rows; both count under ``sample_event_batch``. On the CPU the plain
-versions of ``ops/sampling.py``.
+The asynchronous event clock (``backends/async_scan.py``) draws the
+batches of a block of B events at the block's head: ``sample_event_block``
+(the rows ``Xb [B, τ, b, d]``, ``yb [B, τ, b]`` and weights ``[B, τ, b]``
+of events cursor … cursor + B − 1, τ local descents each) takes the event
+clock's base key (two host words, ``sampling.event_key``), the event cursor
+(an int64 one-element tensor) and the schedule's int64 ``[E]`` worker and
+step arrays, and writes into a buffer of the run (``event_block_buffer``),
+whose event e, descent m is a static view. An event's batch depends on its
+worker, its step and the descent alone, never on the models, so the block
+is drawn before its first event. On the card one launch of the gather
+kernel's event mode, a block of the grid a draw: each reads the cursor,
+its event's worker and step, derives the key and selects and gathers the
+rows, the bits of one launch an event. ``sample_event_batch`` (``[1, b,
+d]``, ``[1, b]``, ``[1, b]``) and ``event_batch_indices`` (the indices and
+weights ``[b]``) are the block entry at B = 1. All count under
+``sample_event_block``. On the CPU the plain versions of
+``ops/sampling.py``.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -70,7 +78,7 @@ from distributed_optimization_tpu_torch.ops import _cuda_build, sampling
 SOURCE = _cuda_build.CSRC / "sampling_kernels.cu"
 
 # In the order of the kernels' launch-count slots (csrc/sampling_kernels.cu).
-KERNELS = ("sample_worker_batch_weights", "sample_worker_batches", "sample_event_batch")
+KERNELS = ("sample_worker_batch_weights", "sample_worker_batches", "sample_event_block")
 
 # The kernels' constants (csrc/sampling_kernels.cu).
 BINS = 256              # a radix digit of 8 bits
@@ -94,9 +102,11 @@ def _library() -> ctypes.CDLL:
                 fn.argtypes = first + rest + [ptr, ptr]  # ..., workspace, stream
                 fn.restype = ctypes.c_int
         fn = getattr(lib, f"sample_event_{suffix}")
-        # cursor, workers, steps, descent, k0, k1, n_valid, L, b, d, X, y,
-        # idx, w, Xb, yb, workspace, stream
-        fn.argtypes = [ptr, ptr, ptr, i64, u32, u32, ptr, i64, i64, i64] + [ptr] * 8
+        # cursor, workers, steps, n_events, events, tau, descent, k0, k1,
+        # n_valid, L, b, d, X, y, idx, w, Xb, yb, xstride, vstride,
+        # workspace, stream
+        fn.argtypes = ([ptr] * 3 + [i64] * 4 + [u32, u32, ptr] + [i64] * 3 + [ptr] * 6
+                       + [i64, i64, ptr, ptr])
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"select_top_{suffix}")
         fn.argtypes = [ptr, i64, i64, i64, i64, ptr, ptr, ptr]
@@ -214,14 +224,9 @@ def sample_worker_batches(slot_key, t, X: torch.Tensor, y: torch.Tensor, n_valid
     (``[R, N, ...]`` for a stack of R slot keys, from the same shards)."""
     if n_valid.device.type == "cpu":
         return sampling.sample_worker_batches(slot_key, t, X, y, n_valid, batch_size)
-    if X.dim() != 3 or not X.is_contiguous():
-        raise ValueError(f"X must be a contiguous [N, L, d] tensor, got shape {tuple(X.shape)}")
+    _check_shards(X, y, n_valid)
     n, n_local, d = X.shape
     _check(slot_key, t, n_valid, n_local, batch_size, X.dtype)
-    _cuda_build.check_like(y, X, "y")
-    if y.shape != (n, n_local) or n_valid.shape[0] != n or X.device != n_valid.device:
-        raise ValueError(f"X {tuple(X.shape)}, y {tuple(y.shape)} and n_valid "
-                         f"{tuple(n_valid.shape)} must share N and L and lie on one card")
     lead = _lead(slot_key)
     Xb = torch.empty(lead + (n, batch_size, d), dtype=X.dtype, device=X.device)
     yb = torch.empty(lead + (n, batch_size), dtype=X.dtype, device=X.device)
@@ -232,10 +237,11 @@ def sample_worker_batches(slot_key, t, X: torch.Tensor, y: torch.Tensor, n_valid
 
 
 def _check_event(base_key, cursor, workers, steps, n_valid: torch.Tensor, n_local: int,
-                 batch_size: int, dtype: torch.dtype, descent) -> None:
+                 batch_size: int, dtype: torch.dtype, events: int, descents) -> None:
     """What the event mode takes: a base key of two host words, the cursor
     an int64 one-element tensor and the schedule's worker and step arrays
-    contiguous int64 [E] tensors, all on n_valid's card."""
+    contiguous int64 [E] tensors, all on n_valid's card; B >= 1 events and
+    descents None or (first, count)."""
     if isinstance(base_key, torch.Tensor) or len(base_key) != 2:
         raise TypeError("the event clock's base key must be two host words (ints)")
     for name, v in (("cursor", cursor), ("workers", workers), ("steps", steps)):
@@ -250,35 +256,133 @@ def _check_event(base_key, cursor, workers, steps, n_valid: torch.Tensor, n_loca
         raise TypeError(f"dtype must be float32 or float64, got {dtype}")
     if n_local < 1 or batch_size < 1:
         raise ValueError(f"the shard length ({n_local}) and batch ({batch_size}) must be positive")
-    if descent is not None and not 0 <= descent < 2**31:
-        raise ValueError(f"descent must lie in [0, 2^31), got {descent}")
+    first, count = (-1, 1) if descents is None else descents
+    if events < 1 or count < 1 or events * count >= 2**31:
+        raise ValueError(f"a block takes 1 <= B·τ < 2^31 draws, got B={events}, τ={count}")
+    if descents is not None and not 0 <= first <= 2**31 - 1 - count:
+        raise ValueError(f"descents must lie in [0, 2^31), got {first} … {first + count - 1}")
 
 
-def _event_call(out_like, base_key, cursor, workers, steps, n_valid, n_local, batch_size,
-                descent, d, X, y, idx, w, Xb, yb):
-    workspace = workspace_for(1, n_local, batch_size, out_like.dtype, n_valid.device)
-    _cuda_build.call(_library(), "sample_event", out_like, cursor.data_ptr(), workers.data_ptr(),
-                     steps.data_ptr(), -1 if descent is None else descent,
+# Each draw's outputs in an event block start this many bytes apart at least,
+# the alignment a fresh tensor of its own has (cuBLAS picks its kernel by it).
+EVENT_ALIGN = 256
+
+
+class EventBlock(NamedTuple):
+    """A block's batches, ``Xb [B, τ, b, d]``, ``yb [B, τ, b]`` and ``w [B,
+    τ, b]``: views of padded storage, each draw's rows EVENT_ALIGN-aligned
+    (``Xb[e, m]`` is a contiguous [b, d])."""
+
+    Xb: torch.Tensor
+    yb: torch.Tensor
+    w: torch.Tensor
+
+
+def _padded(width: int, dtype: torch.dtype) -> int:
+    """Elements from one draw's output of ``width`` elements to the next."""
+    per = EVENT_ALIGN // torch.empty((), dtype=dtype).element_size()
+    return -(-width // per) * per
+
+
+def event_block_buffer(events: int, tau: int, batch_size: int, d: int, dtype: torch.dtype,
+                       device) -> EventBlock:
+    """The buffer a run's blocks of ``events`` events at ``tau`` draws each
+    write into (allocated once a run)."""
+    draws = events * tau
+
+    def part(width, shape):
+        store = torch.empty((draws, _padded(width, dtype)), dtype=dtype, device=device)
+        return store[:, :width].view(events, tau, *shape)
+
+    return EventBlock(part(batch_size * d, (batch_size, d)), part(batch_size, (batch_size,)),
+                      part(batch_size, (batch_size,)))
+
+
+def _event_launch(base_key, cursor, workers, steps, X, y, n_valid, n_local, batch_size, d,
+                  events, descents, idx, w, Xb, yb, xstride, vstride):
+    first, count = (-1, 1) if descents is None else descents
+    workspace = workspace_for(events * count, n_local, batch_size, w.dtype, n_valid.device)
+    _cuda_build.call(_library(), "sample_event", w, cursor.data_ptr(), workers.data_ptr(),
+                     steps.data_ptr(), workers.shape[0], events, count, first,
                      base_key[0] & 0xFFFFFFFF, base_key[1] & 0xFFFFFFFF, n_valid.data_ptr(),
                      n_local, batch_size, d, *(v.data_ptr() if v is not None else None
                                                for v in (X, y, idx, w, Xb, yb)),
+                     xstride, vstride,
                      workspace.data_ptr() if workspace is not None else None,
                      invalid=f"sample_event refuses a shard of {n_local} rows with a batch of "
-                             f"{batch_size} in {out_like.dtype}")
+                             f"{batch_size} in {w.dtype}")
+
+
+def _check_shards(X: torch.Tensor, y: torch.Tensor, n_valid: torch.Tensor) -> None:
+    if X.dim() != 3 or not X.is_contiguous():
+        raise ValueError(f"X must be a contiguous [N, L, d] tensor, got shape {tuple(X.shape)}")
+    _cuda_build.check_like(y, X, "y")
+    n, n_local, _ = X.shape
+    if y.shape != (n, n_local) or n_valid.shape[0] != n or X.device != n_valid.device:
+        raise ValueError(f"X {tuple(X.shape)}, y {tuple(y.shape)} and n_valid "
+                         f"{tuple(n_valid.shape)} must share N and L and lie on one card")
+
+
+def _check_buffer(out: EventBlock, events: int, tau: int, b: int, d: int, X) -> None:
+    """``out`` is ``event_block_buffer(events, tau, b, d)`` of X's dtype on
+    X's device: each draw's Xb a contiguous [b, d], every draw
+    ``stride(0) / tau`` elements after the one before (yb's and w's alike)."""
+    ok = all(part.dtype == X.dtype and part.device == X.device and part.stride(0) % tau == 0
+             and (tau == 1 or part.stride(1) * tau == part.stride(0))
+             for part in out)
+    ok = ok and out.Xb.shape == (events, tau, b, d) and out.Xb.stride()[2:] == (d, 1)
+    ok = ok and all(part.shape == (events, tau, b) and part.stride(2) == 1
+                    for part in out[1:]) and out.yb.stride(0) == out.w.stride(0)
+    if not ok:
+        raise ValueError(f"out must be event_block_buffer({events}, {tau}, {b}, {d}, "
+                         f"{X.dtype}) on {X.device}")
+
+
+def sample_event_block(base_key, cursor, workers, steps, X: torch.Tensor, y: torch.Tensor,
+                       n_valid: torch.Tensor, batch_size: int, events: int,
+                       descents: int | None = None, out: EventBlock | None = None) -> EventBlock:
+    """The batches of events ``cursor`` … ``cursor + events − 1`` (B =
+    ``events``), each gathered from its worker's shard of ``X [N, L, d]``,
+    ``y [N, L]``: ``descents`` None draws once an event with no descent
+    folded in (τ = 1), an int τ draws descents 0 … τ − 1; into ``out``
+    (``event_block_buffer``, else a new one). Event e, descent m is
+    ``sample_event_batch`` at cursor + e (descent m), bit for bit. One
+    launch on the card; the block must lie within the schedule."""
+    tau = 1 if descents is None else int(descents)
+    d = X.shape[-1]
+    if n_valid.device.type != "cpu":
+        _check_shards(X, y, n_valid)
+        _check_event(base_key, cursor, workers, steps, n_valid, X.shape[1], batch_size, X.dtype,
+                     events, None if descents is None else (0, tau))
+    if out is None:
+        out = event_block_buffer(events, tau, batch_size, d, X.dtype, X.device)
+    _check_buffer(out, events, tau, batch_size, d, X)
+    if n_valid.device.type == "cpu":
+        for part, plain in zip(out, sampling.sample_event_block(
+                base_key, cursor, workers, steps, X, y, n_valid, batch_size, events, descents)):
+            part.copy_(plain)
+        return out
+    _event_launch(base_key, cursor, workers, steps, X, y, n_valid, X.shape[1], batch_size, d,
+                  events, None if descents is None else (0, tau), None, out.w, out.Xb, out.yb,
+                  out.Xb.stride(0) // tau, out.w.stride(0) // tau)
+    return out
 
 
 def event_batch_indices(base_key, cursor, workers, steps, n_valid: torch.Tensor, n_local: int,
                         batch_size: int, dtype: torch.dtype, descent: int | None = None):
     """``(indices [b] int64, weights [b])`` of event ``cursor``'s batch, on
-    its worker's and step's key (``descent`` folded in after, where given)."""
+    its worker's and step's key (``descent`` folded in after, where given):
+    the block entry at B = 1, with no rows gathered."""
     if n_valid.device.type == "cpu":
         return sampling.event_batch_indices(base_key, cursor, workers, steps, n_valid, n_local,
                                             batch_size, dtype, descent)
-    _check_event(base_key, cursor, workers, steps, n_valid, n_local, batch_size, dtype, descent)
+    descents = None if descent is None else (descent, 1)
+    _check_event(base_key, cursor, workers, steps, n_valid, n_local, batch_size, dtype, 1,
+                 descents)
     idx = torch.empty(batch_size, dtype=torch.int64, device=n_valid.device)
     w = torch.empty(batch_size, dtype=dtype, device=n_valid.device)
-    _event_call(w, base_key, cursor, workers, steps, n_valid, n_local, batch_size, descent, 0,
-                None, None, idx, w, None, None)
+    _event_launch(base_key, cursor, workers, steps, None, None, n_valid, n_local, batch_size, 0,
+                  1, descents, idx, w, None, None, 0, batch_size)
     return idx, w
 
 
@@ -286,23 +390,20 @@ def sample_event_batch(base_key, cursor, workers, steps, X: torch.Tensor, y: tor
                        n_valid: torch.Tensor, batch_size: int, descent: int | None = None):
     """``(Xb [1, b, d], yb [1, b], weights [1, b])``: event ``cursor``'s
     batch gathered from its worker's shard of ``X [N, L, d]``, ``y [N, L]``
-    (one launch on the card)."""
+    (the block entry at B = 1: one launch on the card)."""
     if n_valid.device.type == "cpu":
         return sampling.sample_event_batch(base_key, cursor, workers, steps, X, y, n_valid,
                                            batch_size, descent)
-    if X.dim() != 3 or not X.is_contiguous():
-        raise ValueError(f"X must be a contiguous [N, L, d] tensor, got shape {tuple(X.shape)}")
+    _check_shards(X, y, n_valid)
     n, n_local, d = X.shape
-    _check_event(base_key, cursor, workers, steps, n_valid, n_local, batch_size, X.dtype, descent)
-    _cuda_build.check_like(y, X, "y")
-    if y.shape != (n, n_local) or n_valid.shape[0] != n or X.device != n_valid.device:
-        raise ValueError(f"X {tuple(X.shape)}, y {tuple(y.shape)} and n_valid "
-                         f"{tuple(n_valid.shape)} must share N and L and lie on one card")
+    descents = None if descent is None else (descent, 1)
+    _check_event(base_key, cursor, workers, steps, n_valid, n_local, batch_size, X.dtype, 1,
+                 descents)
     Xb = torch.empty((1, batch_size, d), dtype=X.dtype, device=X.device)
     yb = torch.empty((1, batch_size), dtype=X.dtype, device=X.device)
     w = torch.empty((1, batch_size), dtype=X.dtype, device=X.device)
-    _event_call(X, base_key, cursor, workers, steps, n_valid, n_local, batch_size, descent, d,
-                X, y, None, w, Xb, yb)
+    _event_launch(base_key, cursor, workers, steps, X, y, n_valid, n_local, batch_size, d, 1,
+                  descents, None, w, Xb, yb, batch_size * d, batch_size)
     return Xb, yb, w
 
 

@@ -487,22 +487,29 @@ def round_tables(topo: Topology, edge_index: Optional[np.ndarray] = None, *,
 
 def slot_tables(nbr_idx: np.ndarray, nbr_mask: np.ndarray,
                 edge_index: Optional[np.ndarray] = None, *, device) -> draw_kernels.SlotTables:
-    """The slot round's tables on ``device``: the neighbour table, each row's
-    real slots (a prefix of the row, as every builder lays them out) and,
-    with a timeline's ``edge_index``, each slot's edge id
-    (``incident_edge_slots``; −1 on padded slots). O(N·k_max) on the host."""
-    cnt = nbr_mask.sum(axis=1)
-    if not np.array_equal(nbr_mask, np.arange(nbr_mask.shape[1])[None, :] < cnt[:, None]):
-        raise ValueError("a neighbour table's real slots must come first in each row")
+    """The slot round's tables of a neighbour table on ``device``: the
+    table, each row's real slots (its count) and, with a timeline's
+    ``edge_index``, each slot's edge id (``incident_edge_slots``; −1 on
+    padded slots). Where the mask's real slots are not the first of each
+    row (as every topology constructor lays them out), or it holds values other than 0
+    and 1, the float32 mask goes along (``slot_liveness`` takes it).
+    O(N·k_max) on the host."""
+    nbr_mask = np.asarray(nbr_mask)
+    real = nbr_mask != 0
+    cnt = real.sum(axis=1)
+    prefix = np.array_equal(real, np.arange(nbr_mask.shape[1])[None, :] < cnt[:, None])
+    binary = bool(np.all((nbr_mask == 0) | (nbr_mask == 1)))
     eid = None
     if edge_index is not None:
-        eid = np.where(nbr_mask, incident_edge_slots(nbr_idx, nbr_mask, edge_index), -1)
+        eid = np.where(real, incident_edge_slots(nbr_idx, real, edge_index), -1)
 
     def put(a):
         return None if a is None else torch.as_tensor(
             np.ascontiguousarray(a, dtype=np.int32), device=device)
 
-    return draw_kernels.SlotTables(nbr_idx.shape[0], put(nbr_idx), put(cnt), put(eid))
+    mask = None if prefix and binary else torch.as_tensor(
+        np.ascontiguousarray(nbr_mask, dtype=np.float32), device=device)
+    return draw_kernels.SlotTables(nbr_idx.shape[0], put(nbr_idx), put(cnt), put(eid), mask)
 
 
 def _add_matched(degree_total: Optional[torch.Tensor], partner: torch.Tensor) -> None:
@@ -578,10 +585,6 @@ class Round:
         return torch.where(take[..., None], nbr_avg, x.to(acc)).to(x.dtype)
 
 
-OWN_TABLE_MSG = ("a matrix-free round's liveness is over its topology's own neighbour "
-                 "table; pass the table FaultyMixing.own_table returns")
-
-
 class GatherRound:
     """One round of the matrix-free (gather) form on the run's device: the
     operations of ``Round`` over the realized slot table. ``A`` and ``W``
@@ -591,9 +594,11 @@ class GatherRound:
 
     A = W = partner = None
 
-    def __init__(self, realized: draw_kernels.SlotRound, nbr: torch.Tensor, *, rejoin=None):
+    def __init__(self, realized: draw_kernels.SlotRound, nbr: torch.Tensor, *, rejoin=None,
+                 liveness=None):
         self._r, self._nbr = realized, nbr  # nbr: int64 [N, k] on the device
         self.active, self.rejoin = realized.active, rejoin
+        self._liveness = liveness  # SlotTables -> this round's liveness over that table
 
     def _gathered(self, x: torch.Tensor) -> torch.Tensor:
         """x's rows at each slot's neighbour, in promote(float32, dtype): [...,
@@ -616,13 +621,18 @@ class GatherRound:
         acc = _acc(x.dtype)
         return slot_sum(self._r.live.to(acc)[..., None] * self._gathered(x)).to(x.dtype)
 
-    def live(self, nbr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """The float32 liveness of each slot of the graph's own table:
-        ``nbr`` must be the very tensor ``FaultyMixing.own_table`` gave,
-        which checked the caller's table against the topology's once."""
-        if nbr is not self._nbr:
-            raise ValueError(OWN_TABLE_MSG)
-        return self._r.live
+    def live(self, nbr, mask) -> torch.Tensor:
+        """The float32 liveness of each slot of a neighbour table, as
+        ``FaultyMixing.device_table`` gives it: the graph's own (this round's
+        live slots; ``mask`` is the table's own and unread) or a caller's
+        ``SlotTables``, whose liveness at this round is one launch of the
+        slot round's live pass (its mask in the tables)."""
+        if nbr is self._nbr:
+            return self._r.live
+        if not isinstance(nbr, draw_kernels.SlotTables):
+            raise TypeError("a matrix-free round's liveness takes the table "
+                            "FaultyMixing.device_table gives")
+        return self._liveness(nbr)
 
     def restart(self, x: torch.Tensor) -> torch.Tensor:
         """``neighbor_restart``: a rejoining node with realized neighbours
@@ -670,6 +680,7 @@ class FaultyMixing:
                 edge_index = (timeline.edge_index if timeline.edge_index is not None
                               else _edge_list(topo))
         self._tables = self._slots = None
+        self._edge_index = edge_index
         if topo.is_matrix_free:
             self._slots = slot_tables(topo.nbr_idx, topo.nbr_mask, edge_index, device=device)
             self._nbr = self._slots.nbr.long()
@@ -689,7 +700,8 @@ class FaultyMixing:
             out = draw_kernels.realize_slot_round(t, self._slots, self._tl, weights=self.acc,
                                                   degree_total=degree_total,
                                                   replicas=self.replicas)
-            return GatherRound(out, self._nbr, rejoin=self._rejoin_at(t))
+            return GatherRound(out, self._nbr, rejoin=self._rejoin_at(t),
+                               liveness=lambda tables: self._slot_liveness(t, tables))
         if self._partners is not None:
             phase = torch.remainder(t, self._partners.shape[0])
             partner = self._partners.index_select(0, phase)[0]
@@ -749,24 +761,34 @@ class FaultyMixing:
     def rejoin_restart(self, t, x: torch.Tensor) -> torch.Tensor:
         return self.realize(self._t(t)).restart(x)
 
-    def own_table(self, nbr_idx: np.ndarray, nbr_mask: np.ndarray) -> torch.Tensor:
-        """The device table a matrix-free round's ``live`` takes, once the
-        caller's host table is checked to be the topology's own (there is
-        exactly one table, and the slot round realizes only its slots)."""
+    def _slot_liveness(self, t: torch.Tensor, tables: draw_kernels.SlotTables) -> torch.Tensor:
+        return draw_kernels.slot_liveness(t, tables, self._tl, replicas=self.replicas)
+
+    def device_table(self, nbr_idx: np.ndarray, nbr_mask: np.ndarray):
+        """The device table a matrix-free round's ``live`` takes for the
+        caller's host table: the topology's own table's int64 tensor (the
+        slot round realizes its slots), or, for any other table, its
+        ``SlotTables`` (the edge ids of its slots from the timeline's edge
+        list, and its mask where its real slots are not a prefix of each
+        row), built once here."""
         topo = self.topo
-        if not (np.array_equal(np.asarray(nbr_idx), topo.nbr_idx)
+        if (np.array_equal(np.asarray(nbr_idx), topo.nbr_idx)
                 and np.array_equal(np.asarray(nbr_mask), topo.nbr_mask)):
-            raise ValueError(OWN_TABLE_MSG)
-        return self._nbr
+            return self._nbr
+        return slot_tables(np.asarray(nbr_idx), nbr_mask, self._edge_index, device=self.device)
 
     def make_neighbor_liveness(self, nbr_idx: np.ndarray, nbr_mask: np.ndarray):
         """``live(t)``: the float32 liveness of each slot of an undirected
-        neighbour table at t (a matrix-free graph's own), the per-slot
-        gather of the round's realized graph (the JAX package's function of
-        that name)."""
+        neighbour table at t (the JAX package's function of that name): on
+        a dense graph, the per-slot gather of the round's realized graph;
+        on a matrix-free one, the slot round's liveness over the topology's
+        own table, or the live pass over the caller's
+        (``mask · edge_up[t][slots] · m[i] · m[nbr]``)."""
         if self._slots is not None:
-            nbr = self.own_table(nbr_idx, nbr_mask)
-            return lambda t: self.realize(self._t(t)).live(nbr, None)
+            table = self.device_table(nbr_idx, nbr_mask)
+            if table is self._nbr:
+                return lambda t: self.realize(self._t(t)).live(table, None)
+            return lambda t: self._slot_liveness(self._t(t), table)
         nbr = torch.as_tensor(np.asarray(nbr_idx), dtype=torch.int64, device=self.device)
         mask = torch.as_tensor(np.asarray(nbr_mask), dtype=torch.float32, device=self.device)
         return lambda t: self.realize(self._t(t)).live(nbr, mask)

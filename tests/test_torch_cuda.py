@@ -49,14 +49,18 @@ The replica axis: one sampler (both forms), round or noise launch over R =
 flags a replica) gives each replica the single launch's bits, and a
 ``run_batch`` graph run equals its measured run with one sampler, round and
 noise launch a step whatever R is. The matrix-free fault form: the slot
-round (both launches) at ring N=256, ER N=1,024 and ER N=100,000, R = 1, 3
-and 8, and the timeline's per-edge stream bitwise their plain versions; a
+round (both launches) at ring N=256, ER N=1,024 and ER N=100,000, R = 1, 3,
+4 and 8, its live pass alone over a caller's table (slots reordered, a
+masked hole) and the timeline's per-edge stream bitwise their plain
+versions; a
 faulted matrix-free run's graph bitwise its measured run with two slot-round
 launches a step; and the dense round at N = 65,537 (counters past 2³²)
 bitwise the rows-only plain version. The async event clock: the event
-sampler (the gather kernel's event mode, one launch an event) bitwise its
-plain version in both dtypes, which tests/test_torch_events.py holds to the
-JAX package; and the event graph run bitwise the same events run eagerly,
+sampler (the gather kernel's event mode, one launch a block of events, a
+grid block a draw) bitwise its plain version in both dtypes, a block as B
+per-event launches, which tests/test_torch_events.py and
+tests/test_torch_event_block.py hold to the JAX package and the per-event
+draws; and the event graph run bitwise the same events run eagerly,
 float64 within 1e-12 of the CPU's.
 """
 
@@ -1779,7 +1783,7 @@ def _slot_topology(key):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R", [1, 3, 8])
+@pytest.mark.parametrize("R", [1, 3, 4, 8])
 @pytest.mark.parametrize("graph", sorted(SLOT_GRAPHS))
 def test_cuda_slot_round_is_bitwise_its_plain_version(cuda_device, graph, R):
     """One launch pair of the slot round against its plain version on the
@@ -1889,10 +1893,11 @@ EVENT_SHAPES = [(256, 49, 16), (32, 50, 16), (9, 7, 16), (6, 1100, 16), (4, 2049
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", EVENT_SHAPES)
 def test_cuda_event_sampler_bitwise_equals_the_plain_version(cuda_device, shape, dtype):
-    """One launch an event: the kernel reads the cursor, the event's worker
-    and step, folds worker then step (then the descent) into the base key
-    and selects and gathers; indices, weights and rows bitwise the plain
-    version's at every event, and one count a launch."""
+    """The block entry at B = 1, one launch an event: the kernel reads the
+    cursor, the event's worker and step, folds worker then step (then the
+    descent) into the base key and selects and gathers; indices, weights
+    and rows bitwise the plain version's at every event, and one count a
+    launch."""
     n, L, b = shape
     nv = _sampling_n_valid(cuda_device, n, L, b)
     X, y = _rows(cuda_device, n, L, dtype)
@@ -1917,9 +1922,87 @@ def test_cuda_event_sampler_bitwise_equals_the_plain_version(cuda_device, shape,
                 sk.reset_launch_counts()
                 Xb, yb, wb = sk.sample_event_batch(key, cursor, workers, steps, X, y, nv, b,
                                                    descent)
-                assert sk.LAUNCHES["sample_event_batch"] == 1
+                assert sk.LAUNCHES["sample_event_block"] == 1
                 assert torch.equal(Xb[0], X[w, want[0]]) and torch.equal(yb[0], y[w, want[0]])
                 assert torch.equal(wb[0], want[1])
+
+
+# (B, τ, first event): main's block (256 events), bench_async's (200), a
+# short one, and blocks that end at the schedule's last event.
+EVENT_BLOCKS = [(256, 1, 0), (200, 2, 40), (5, 3, 3), (12, 1, None), (4, 2, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", EVENT_SHAPES)
+def test_cuda_event_block_bitwise_equals_the_plain_version(cuda_device, shape, dtype):
+    """One launch for a block of B events at τ draws each (a grid block a
+    draw): Xb, yb and the weights bitwise the plain block (B per-event
+    draws stacked) and B·τ per-event launches, into the run's padded
+    buffer; one count a launch."""
+    n, L, b = shape
+    nv = _sampling_n_valid(cuda_device, n, L, b)
+    X, y = _rows(cuda_device, n, L, dtype)
+    gen = np.random.default_rng(2)
+    E = 260
+    workers = torch.as_tensor(gen.integers(0, n, E), dtype=torch.int64, device=cuda_device)
+    steps = torch.as_tensor(gen.integers(0, 2**32, E), dtype=torch.int64, device=cuda_device)
+    key = sampling.event_key(42, x64=dtype == torch.float64)
+    for B, tau, first in EVENT_BLOCKS:
+        first = E - B if first is None else first
+        cursor = torch.tensor([first], dtype=torch.int64, device=cuda_device)
+        descents = None if tau == 1 else tau
+        out = sk.event_block_buffer(B, tau, b, X.shape[2], dtype, cuda_device)
+        sk.reset_launch_counts()
+        got = sk.sample_event_block(key, cursor, workers, steps, X, y, nv, b, B,
+                                    descents=descents, out=out)
+        assert sk.LAUNCHES["sample_event_block"] == 1 and got is out
+        want = sampling.sample_event_block(key, cursor, workers, steps, X, y, nv, b, B,
+                                           descents)
+        assert _same(got, want), (B, tau, first)
+        one = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+        for e in (0, B // 2, B - 1):
+            for m in range(tau):
+                one.fill_(first + e)
+                Xb, yb, wb = sk.sample_event_batch(key, one, workers, steps, X, y, nv, b,
+                                                   None if tau == 1 else m)
+                assert torch.equal(Xb[0], got.Xb[e, m]) and torch.equal(yb[0], got.yb[e, m])
+                assert torch.equal(wb[0], got.w[e, m])
+        assert out.Xb[0, 0].data_ptr() % sk.EVENT_ALIGN == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", sorted(SLOT_GRAPHS))
+def test_cuda_slot_liveness_over_a_caller_table(cuda_device, graph):
+    """The live pass alone over a caller's table: its slots reversed (a
+    prefix still) and a float mask with a hole (not a prefix), at R = 1
+    and 4, bitwise the plain version; one count a launch."""
+    from distributed_optimization_tpu_torch.parallel import faults
+
+    topo = _slot_topology(graph)
+    nbr, mask = topo.nbr_idx.copy(), topo.nbr_mask.copy()
+    cnt = mask.sum(1)
+    rev = nbr.copy()
+    for i in np.nonzero(cnt > 1)[0]:
+        rev[i, :cnt[i]] = nbr[i, :cnt[i]][::-1]
+    holed = np.where(mask, 0.5 + np.arange(mask.shape[1])[None, :], 0.0).astype(np.float32)
+    holed[::3, 0] = 0.0
+    for R in (1, 4):
+        seeds = list(REPLICA_SEEDS[:R]) if R > 1 else 203
+        fm = faults.make_faulty_mixing(topo, seed=seeds, horizon=SLOT_HORIZON,
+                                       device=cuda_device, **SLOT_MODES["bursty-churn-restart"])
+        for table in (fm.device_table(rev, mask), fm.device_table(nbr, holed)):
+            assert isinstance(table, dk.SlotTables)
+            for t in (0, 7, SLOT_HORIZON + 5):
+                tt = torch.tensor([t], device=cuda_device)
+                sk.reset_launch_counts()
+                dk.reset_launch_counts()
+                got = dk.slot_liveness(tt, table, fm._tl, replicas=R if R > 1 else None)
+                assert dk.LAUNCHES["realize_slot_round"] == 1
+                for r in range(R):
+                    tl = fm._tl.replica(r) if R > 1 else fm._tl
+                    want = dk.slot_liveness_plain(tt, table, tl)
+                    assert torch.equal(got[r] if R > 1 else got, want), (t, r)
 
 
 # (name, config fields) of the async event clock's graph runs: sampled
@@ -1940,8 +2023,8 @@ def test_cuda_async_graph_run_is_bitwise_its_uncaptured_run(cuda_device, graph_d
     """The event clock's graph run (blocks of events replayed over the
     device cursor, the metrics graph once a window) equals the same events
     run eagerly from the host bit for bit, with the event sampler launched
-    once an event and local descent (none on the full shard) and a faulted
-    run's timeline twice; the float64 run also within 1e-12 of the CPU's."""
+    once a block of events (none on the full shard) and a faulted run's
+    timeline twice; the float64 run also within 1e-12 of the CPU's."""
     from distributed_optimization_tpu_torch.backends import async_scan
 
     base, ds, f_opt = graph_data["sorted"]
@@ -1963,7 +2046,9 @@ def test_cuda_async_graph_run_is_bitwise_its_uncaptured_run(cuda_device, graph_d
     events = cfg.n_iterations * cfg.n_workers
     sampled = cfg.local_batch_size < 100
     want = {k: 0 for k in glaunch}
-    want["sample_event_batch"] = events * cfg.local_steps if sampled else 0
+    # One block draw a block of events, whatever τ.
+    B = async_scan.event_block(cfg.eval_every * cfg.n_workers)
+    want["sample_event_block"] = events // B if sampled else 0
     # A faulted config's chains: the timeline's two launches, once a run.
     want["fault_timeline"] = dk.TIMELINE_LAUNCHES if cfg.faults_active else 0
     assert glaunch == want

@@ -144,7 +144,7 @@ def test_slot_round_is_the_gather_fault_form(graph, mode, dtype):
             assert rnd.A is None and rnd.W is None
             assert float(total) == float(ref.realized_degree_sum(t))
             assert np.array_equal(rnd.active.numpy(), np.asarray(ref.active(t)))
-            lv = rnd.live(fm.own_table(nbr, mask), torch.from_numpy(mask).float())
+            lv = rnd.live(fm.device_table(nbr, mask), torch.from_numpy(mask).float())
             assert np.array_equal(lv.numpy(), np.asarray(ref_live(t))), t
             assert torch.equal(live_fn(t), lv)
             if x64:
@@ -237,22 +237,77 @@ def test_matrix_free_refusals_are_the_jax_package_s():
                                                          **kw)) == want
 
 
-def test_liveness_refuses_a_table_not_the_topology_s():
-    """A matrix-free round realizes only its own table's slots: a table of
-    the same shape with other neighbours is refused, not read as its own."""
+# Caller tables over a matrix-free graph, each against the JAX package's
+# make_neighbor_liveness over the same table.
+FOREIGN_CASES = [(g, m) for g in (GRAPHS[0], GRAPHS[3])
+                 for m in ("bursty-edges", "churn-restart", "participation")]
+
+
+def _foreign_liveness_is_the_jax_package_s(graph, mode, table):
+    """live(t) over the caller's table ``table(nbr_idx, nbr_mask)`` at every
+    t of TS, in a float32 and a float64 run, bitwise the JAX package's, both
+    through make_neighbor_liveness and through a round's live."""
+    ours_topo, ref_topo = _graph(*graph)
+    nbr, mask = table(ours_topo.nbr_idx.copy(), ours_topo.nbr_mask.copy())
+    for x64 in (False, True):
+        fm = faults.make_faulty_mixing(ours_topo, seed=11, horizon=H, device="cpu", x64=x64,
+                                       **MODES[mode])
+        live_fn = fm.make_neighbor_liveness(nbr, mask)
+        device_table = fm.device_table(nbr, mask)
+        assert isinstance(device_table, dk.SlotTables)
+        with jax.enable_x64(x64):
+            ref_live = _ref_mixing(ref_topo, MODES[mode], x64).make_neighbor_liveness(nbr, mask)
+            for t in TS:
+                want = np.asarray(ref_live(t))
+                got = live_fn(t)
+                assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want), t
+                rnd = fm.realize(torch.tensor([t]))
+                assert torch.equal(rnd.live(device_table, None), got)
+
+
+@pytest.mark.parametrize("graph,mode", FOREIGN_CASES,
+                         ids=[f"{g[0]}-{m}" for g, m in FOREIGN_CASES])
+def test_liveness_over_a_table_with_permuted_slots(graph, mode):
+    """The topology's neighbours in another slot order (each row's real
+    slots reversed, still a prefix): the slots' edge ids follow them."""
+    def reverse(nbr, mask):
+        for i in range(nbr.shape[0]):
+            c = int(mask[i].sum())
+            nbr[i, :c] = nbr[i, :c][::-1]
+        return nbr, mask
+
+    _foreign_liveness_is_the_jax_package_s(graph, mode, reverse)
+
+
+@pytest.mark.parametrize("graph,mode", FOREIGN_CASES,
+                         ids=[f"{g[0]}-{m}" for g, m in FOREIGN_CASES])
+def test_liveness_over_a_table_with_a_masked_hole(graph, mode):
+    """Every third row's first real slot masked out (a hole before the
+    real slots that follow, not a prefix), and a float mask of other
+    weights than 0 and 1 on the others: the caller's mask times the
+    liveness."""
+    def hole(nbr, mask):
+        weights = np.where(mask, 0.5 + np.arange(mask.shape[1])[None, :], 0.0)
+        weights[::3, 0] = 0.0
+        return nbr, weights.astype(np.float32)
+
+    _foreign_liveness_is_the_jax_package_s(graph, mode, hole)
+
+
+def test_own_table_keeps_the_slot_round_s_liveness():
+    """The topology's own table is the slot round's own slots: the round's
+    live tensor itself, and a zero mask is a table of no real slots."""
     topo, _ = _graph("ring", 16, None)
     fm = faults.make_faulty_mixing(topo, 0.2, 5, horizon=H, device="cpu")
     nbr, mask = topo.nbr_idx, topo.nbr_mask
-    other = np.roll(nbr, 1, axis=0)
-    with pytest.raises(ValueError, match="own neighbour table"):
-        fm.make_neighbor_liveness(other, mask)
-    with pytest.raises(ValueError, match="own neighbour table"):
-        fm.own_table(nbr, np.zeros_like(mask))
     rnd = fm.realize(torch.tensor([3]))
-    with pytest.raises(ValueError, match="own neighbour table"):
-        rnd.live(torch.from_numpy(nbr).long(), torch.from_numpy(mask).float())
-    assert torch.equal(rnd.live(fm.own_table(nbr, mask), None),
+    assert fm.device_table(nbr, mask) is fm._nbr
+    assert rnd.live(fm.device_table(nbr, mask), None) is rnd._r.live
+    assert torch.equal(rnd.live(fm.device_table(nbr, mask), None),
                        fm.make_neighbor_liveness(nbr, mask)(3))
+    assert not fm.make_neighbor_liveness(nbr, np.zeros_like(mask))(3).any()
+    with pytest.raises(TypeError, match="device_table"):
+        rnd.live(torch.from_numpy(nbr).long(), torch.from_numpy(mask).float())
 
 
 @pytest.mark.parametrize("n", [5, 16, 255, 65_535])

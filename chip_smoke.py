@@ -353,6 +353,30 @@ Phases:
     plain version and its events' own launches, timed in a graph and
     event-timed beside 256 launches of the per-event entry (its record in
     the ``kernels`` line).
+24. bfloat16: ``dtype='bfloat16'``, rounded op by op as the JAX package
+    rounds it (``ops/rounding.py``). Every bfloat16 kernel instance
+    against its twin on the card: the ring kernels bitwise at main's shape
+    and the compute-bound widths [8, 2,097,664] and [8, 4,194,816]; the fc
+    kernels bitwise the mirror of their order and within a bfloat16 ulp of
+    the twin (the elements that differ counted) at N=25, 256 and 4,096;
+    both samplers bitwise (indices, weights, rows and int32 labels, the
+    weights the float32 draw's cast) at the sampling phase's inputs; each
+    timed in a graph and event-timed beside its plain version, the library
+    call in bfloat16 and the bound of 2-byte elements (records named
+    ``<kernel>, bfloat16``). Main's config (N=256 ring, logistic, b=16,
+    T=30,000) in bfloat16 and float32, pallas and stencil: iters/s, the
+    final gap and the iteration at ε=0.08 where crossed; the card against
+    the port's CPU run of it at T=100 (dense sampling on both), the gap
+    within ``BF16_GAP_ULPS`` bfloat16 ulps of f(x̄); main's shapes under 20%
+    drops and 10% stragglers (T=1,000): the floats sent equal the float32
+    run's exactly; short runs (T=500) that launch ring_mix (GT, parity
+    ring), ring_neighbor_sum (ADMM, main's ring), fc_mix and
+    fc_neighbor_sum (D-SGD and ADMM, fully connected N=25) and the gather
+    sampler, each counted exactly; and ``bench_compute_bound.py``'s
+    d4096_bf16 and d8192_bf16 cells (softmax K=512, N=8, b=2048, stencil
+    and pallas): the 512 labels exact (int32), finite and decreasing over
+    T=200, TFLOP/s = 4·N·b·d·K × iters/s against the dense bfloat16 peak of
+    989 TFLOP/s.
 
 Every run goes through the port's run loop: after a warm-up chunk, CUDA
 graph replays (``backends/torch_backend.py``). The kernels count their own
@@ -367,8 +391,9 @@ drops) with ``torch.profiler`` (and main's shapes under 20% drops and 10%
 stragglers, three of ``FAULT_ROWS``' N=64 cells, CHOCO with random_k and
 compressed GT with qsgd on the main path's data, D-SGD on the topologies phase's ER graph
 under dense, gather and sparse, push-sum on its directed ER, Huber at
-N=256, softmax K=10 at N=25, and the compute-bound cell at d=4,096 under
-both precisions, 40 iterations at eval every 10, and the federated phase's
+N=256, softmax K=10 at N=25, main's config in bfloat16 (pallas and
+stencil), and the compute-bound cell at d=4,096 under both precisions and
+in bfloat16, 40 iterations at eval every 10, and the federated phase's
 cells, ``_profile_federated``), each as the
 graph run and as the ``measure_timestamps=True`` run, over the iterations
 after the warm-up chunk; ``ab`` (``--phases card,ab --ab-baseline DIR``,
@@ -402,7 +427,8 @@ import time
 
 PHASES = ("card", "kernels", "sampling", "reference", "parity", "main", "mixing", "fc", "admm",
           "tracking", "compression", "topologies", "push_sum", "study", "byzantine", "robust",
-          "robust_mixing", "objectives", "faults", "churn", "replicas", "federated", "async")
+          "robust_mixing", "objectives", "faults", "churn", "replicas", "federated", "async",
+          "bfloat16")
 # Run only when asked for: profile, a torch.profiler trace of the main
 # path's, the admm ring's, the robust cell's and the federated cells' steady
 # loops, graph and measured; ab (with --ab-baseline), every kernel's wrapper
@@ -500,6 +526,12 @@ REPLACES = {
 REPLICA_KERNELS = ("sample_worker_batch_weights", "sample_worker_batches", "realize_round",
                    "large_noise")
 REPLACES.update({f"{name}, replica axis": REPLACES[name] for name in REPLICA_KERNELS})
+# The bfloat16 instances (the bfloat16 phase) of the ring, fc and sampling
+# kernels: the same sources, entry points suffixed _bf16.
+BF16_KERNELS = ("fused_ring_dsgd_step", "ring_mix", "ring_neighbor_sum", "fc_mix",
+                "fc_neighbor_sum", "sample_worker_batch_weights", "sample_worker_batches")
+REPLACES.update({f"{name}, bfloat16": REPLACES[name] for name in BF16_KERNELS})
+SOURCES.update({f"{name}, bfloat16": SOURCES[name] for name in BF16_KERNELS})
 # Floating-point operations per element of the [N, d] output.
 OPS_PER_ELEMENT = {"fused_ring_dsgd_step": 4, "ring_mix": 3, "ring_neighbor_sum": 1,
                    "fc_mix": 2, "fc_neighbor_sum": 2}
@@ -883,6 +915,21 @@ COMPUTE_BOUND_EVAL_EVERY = 50
 # limit lies between the two with room on both sides, and 'default' must
 # land farther off.
 COMPUTE_BOUND_CHECK_ITERATIONS = 3
+# The bfloat16 phase. bench_compute_bound.py's d4096_bf16 and d8192_bf16
+# cells (softmax K=512, N=8, b=2048) against the dense bfloat16 tensor-core
+# peak; the card against the port's CPU run of main's config at a short T;
+# the bfloat16 kernels' runs (ring_mix, ring_neighbor_sum, fc_mix,
+# fc_neighbor_sum, the gather sampler), each short.
+PEAK_BF16_FLOPS = 989e12
+BF16_CPU_ITERATIONS = 100
+BF16_FAULT_ITERATIONS = 1_000
+BF16_SHORT_ITERATIONS = 500
+# The card's bfloat16 run against the port's CPU run of the same config: the
+# gap within GAP_ULPS bfloat16 ulps of f(x̄) at every eval, the most the CPU
+# run measured against the JAX package's flat scan
+# (tests/torch_bfloat16_agreement.py); the models' largest difference is
+# printed.
+BF16_GAP_ULPS = 7
 COMPUTE_BOUND_TOL = {"gap": 1e-7, "models": 1e-4}
 # NVIDIA H100 SXM data sheet, dense: TF32 on the tensor cores (FP32 is
 # PEAK_FLOPS["float32"], outside them).
@@ -4685,6 +4732,317 @@ def phase_objectives(torch, np, pkg, kernels, topology, card):
     return huber, softmax
 
 
+# --- bfloat16 ---------------------------------------------------------------
+
+
+def _bf16_ulp(torch, v):
+    """A bfloat16 ulp of each |v|, in float32."""
+    a = v.abs().float().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _bf16_bound(name: str, n: int, d: int):
+    """The ring and fc kernels in bfloat16: 2-byte elements read and written
+    once; the operations are float32's (each computed in float32)."""
+    arrays = 3 if name == "fused_ring_dsgd_step" else 2
+    nbytes = arrays * n * d * 2 + (2 if name == "fused_ring_dsgd_step" else 0)
+    return _bound(nbytes, OPS_PER_ELEMENT[name] * n * d, "float32")
+
+
+def bf16_kernel_records(torch, np, rk, fk, sk, sampling, prng, topology, card):
+    """Every bfloat16 kernel instance against its twin on the card: ring
+    bitwise at main's shape and the compute-bound widths, fc bitwise the
+    mirror of its order and within a bfloat16 ulp of the twin (the elements
+    that differ counted), both samplers bitwise (indices, weights, rows,
+    int32 labels; the weights the float32 draw's cast); each timed in a
+    graph and event-timed beside its plain version, the library call in
+    bfloat16 and the bound of 2-byte elements. Returns the records."""
+    bf16 = torch.bfloat16
+    records = {}
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    k = COMPUTE_BOUND["n_classes"]
+    for n, d in (MAIN_SHAPE, *((8, (f + 1) * k) for f in COMPUTE_BOUND_FEATURES)):
+        x = torch.randn((n, d), generator=gen, device="cuda").to(bf16)
+        g = (30 * torch.randn((n, d), generator=gen, device="cuda")).to(bf16)
+        eta = torch.tensor([0.05 / 7.0], device="cuda").to(bf16)
+        W, A, form = ring_matrices(torch, topology, n, bf16)
+        launches = 50 if d > 1_000_000 else TIMED_LAUNCHES
+        for name in rk.KERNELS:
+            if (n, d) != MAIN_SHAPE and name != "fused_ring_dsgd_step":
+                continue
+            kernel, plain, library = _ring_calls(torch, rk, name, x, g, eta, W, A)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            check(got.dtype == bf16 and torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                  f"{name} [{n}, {d}] bfloat16: not bitwise its plain version ({err:.3e})")
+            ms, in_graph = time_ms(torch, kernel, launches), graph_ms(torch, kernel, launches)
+            plain_ms, lib_ms = time_ms(torch, plain, launches), time_ms(torch, library, launches)
+            b_ms, b_by = _bf16_bound(name, n, d)
+            say(f"[bfloat16] {name:22s} [{n}, {d}] bitwise its plain version: in a graph "
+                f"{in_graph * 1e3:.3f} us, event-timed {ms * 1e3:.3f} us, plain "
+                f"{plain_ms * 1e3:.3f} us, library ({form} W, bfloat16) {lib_ms * 1e3:.3f} us, "
+                f"bound {b_ms * 1e3:.4f} us ({b_by}), bound/in-graph {b_ms / in_graph:.1%} ({card})")
+            if (n, d) == MAIN_SHAPE:
+                records[f"{name}, bfloat16"] = _record(f"{name}, bfloat16", err, ms, plain_ms,
+                                                       b_ms, b_by, lib_ms, graph_ms=in_graph)
+            else:
+                records[f"{name}, bfloat16"].setdefault("wide", {})[f"8x{d}"] = {
+                    "graph_ms": in_graph, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": b_ms}
+        del x, g, W, A
+    torch.cuda.empty_cache()
+    for n, d in ((25, 81), MAIN_SHAPE, (4096, 1024)):
+        x = (4 * torch.randn((n, d), generator=gen, device="cuda")).to(bf16)
+        for name in fk.KERNELS:
+            kernel, plain, library = _fc_calls(torch, fk, name, x)
+            plan = fk.plan_for(name, x)
+            got, want, mirror = kernel(), plain(), fk.MIRRORS[name](x, plan)
+            torch.cuda.synchronize()
+            check(torch.equal(got, mirror), f"{name} [{n}, {d}] bfloat16: not bitwise the "
+                                            f"mirror of its order ({plan.describe()})")
+            total = x.float().sum(0, keepdim=True).expand_as(x)
+            tol = (_bf16_ulp(torch, got) if name == "fc_mix"
+                   else _bf16_ulp(torch, total) + _bf16_ulp(torch, got))
+            diff = (got.float() - want.float()).abs()
+            err, parted = float(diff.max()), int((diff > 0).sum())
+            check(bool((diff <= tol).all()), f"{name} [{n}, {d}] bfloat16: beyond a bfloat16 ulp "
+                                             f"of the twin ({err:.3e})")
+            ms, in_graph = time_ms(torch, kernel), graph_ms(torch, kernel)
+            plain_ms, lib_ms = time_ms(torch, plain), time_ms(torch, library)
+            b_ms, b_by = _bf16_bound(name, n, d)
+            say(f"[bfloat16] {name:22s} [{n}, {d}] bitwise the mirror; against the twin "
+                f"{parted} of {n * d} elements differ, by at most {err:.3e} (within a bfloat16 "
+                f"ulp); in a graph {in_graph * 1e3:.3f} us, event-timed {ms * 1e3:.3f} us, plain "
+                f"{plain_ms * 1e3:.3f} us, library ({'torch.mean' if name == 'fc_mix' else 'torch.sum'}"
+                f", bfloat16) {lib_ms * 1e3:.3f} us, bound {b_ms * 1e3:.4f} us ({b_by}); plan "
+                f"{plan.describe()} ({card})")
+            if (n, d) == FC_RECORD_SHAPE:
+                records[f"{name}, bfloat16"] = _record(f"{name}, bfloat16", err, ms, plain_ms,
+                                                       b_ms, b_by, lib_ms, graph_ms=in_graph,
+                                                       parted=parted)
+        del x
+    t = torch.zeros(1, dtype=torch.int64, device="cuda")
+    checked = 0
+    for label, n, L, b in SAMPLING_SHAPES:
+        nv = sampling_n_valid(torch, n, L, b)
+        X, _ = sampling_rows(torch, n, L, bf16)
+        labels = torch.randint(0, k, (n, L), generator=gen, device="cuda", dtype=torch.int32)
+        for seed in SAMPLING_SEEDS["float32"]:
+            key = prng.fold_in(prng.key(seed, x64=False), 0)
+            for counter in SAMPLING_COUNTERS:
+                t.fill_(counter)
+                what = f"{label} N={n} L={L} b={b} bfloat16 seed={seed} t={counter}"
+                w = sk.sample_worker_batch_weights(key, t, nv, L, b, bf16)
+                check(torch.equal(w, sampling.sample_worker_batch_weights(key, t, nv, L, b, bf16))
+                      and torch.equal(w, sk.sample_worker_batch_weights(
+                          key, t, nv, L, b, torch.float32).to(bf16)),
+                      f"bfloat16 weights {what}: not bitwise the twin's and the float32 draw's")
+                want = sampling.sample_batch_indices(key, t, nv, L, b, bf16)
+                check(_same(torch, sk.sample_batch_indices(key, t, nv, L, b, bf16), want),
+                      f"bfloat16 indices {what}: not bitwise")
+                got = sk.sample_worker_batches(key, t, X, labels, nv, b)
+                check(got[1].dtype == torch.int32
+                      and _same(torch, got, (*sampling.gather_batches(X, labels, want[0]), want[1])),
+                      f"bfloat16 batches {what}: not bitwise (rows, int32 labels, weights)")
+                checked += 1
+    say(f"[bfloat16] both samplers bitwise the twin at {checked} inputs ({len(SAMPLING_SHAPES)} "
+        f"shapes, ragged shards, seeds {SAMPLING_SEEDS['float32']}, t {SAMPLING_COUNTERS}): "
+        f"float32 selection, weights the float32 draw's cast, bfloat16 rows and int32 labels")
+    key = prng.fold_in(prng.key(203, x64=False), 0)
+    t.fill_(12_345)
+    for name, (label, n, L, b) in SAMPLING_RECORD.items():
+        nv = sampling_n_valid(torch, n, L, b)
+        X, _ = sampling_rows(torch, n, L, bf16)
+        labels = torch.randint(0, k, (n, L), generator=gen, device="cuda", dtype=torch.int32)
+        if name == "sample_worker_batch_weights":
+            kernel = lambda: sk.sample_worker_batch_weights(key, t, nv, L, b, bf16)  # noqa: E731
+            plain = lambda: sampling.sample_worker_batch_weights(key, t, nv, L, b, bf16)  # noqa: E731
+            moved = n * L * 2
+        else:
+            kernel = lambda: sk.sample_worker_batches(key, t, X, labels, nv, b)  # noqa: E731
+            plain = lambda: sampling.sample_worker_batches(key, t, X, labels, nv, b)  # noqa: E731
+            kk = min(b, L)
+            moved = n * kk * (SAMPLING_D * 2 + 4) + n * b * (SAMPLING_D * 2 + 4 + 2)
+        got, want = kernel(), plain()
+        got, want = ((got,), (want,)) if isinstance(got, torch.Tensor) else (got, want)
+        check(_same(torch, got, want), f"bfloat16 {name}: not bitwise at its timed input")
+        ms, in_graph, plain_ms = time_ms(torch, kernel), graph_ms(torch, kernel), time_ms(torch, plain)
+        b_ms, b_by = sampling_bound(name, n, L, b, 2)
+        t_bytes = (8 + 8 * n + moved) / PEAK_BYTES_PER_S * 1e3
+        if t_bytes > b_ms:
+            b_ms, b_by = t_bytes, "bytes"
+        say(f"[bfloat16] {name:22s} {label} N={n} L={L} b={b}: in a graph {in_graph * 1e3:.3f} us, "
+            f"event-timed {ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, bound "
+            f"{b_ms * 1e3:.4f} us ({b_by}) ({card})")
+        records[f"{name}, bfloat16"] = _record(f"{name}, bfloat16", 0.0, ms, plain_ms, b_ms, b_by,
+                                               None, graph_ms=in_graph)
+    return records
+
+
+def _bf16_run(torch, pkg, counters, cfg, ds, f_opt, label):
+    """One bfloat16 (or float32) run on the card with its launch counts:
+    finite, decreasing; iters/s, the final gap and the iteration at ε."""
+    res, launches = _converging_run(torch, pkg, counters, cfg, ds, f_opt, label,
+                                    converges=False)
+    h = res.history
+    check(h.objective[-1] < h.objective[0], f"{label}: the gap did not decrease ({h.objective})")
+    return res, launches
+
+
+def phase_bfloat16(torch, np, pkg, kernels, topology, sampling, prng, card):
+    """bfloat16 on the card: the kernels' instances against their twins,
+    main's config beside float32, the card against the port's CPU run, main's
+    shapes under faults, the kernels' short runs and the compute-bound
+    cells. Returns (records, counted, paths)."""
+    rk, fk, sk, dk = kernels["rk"], kernels["fk"], kernels["sk"], kernels["dk"]
+    counters = [kernels[k] for k in ("rk", "fk", "bk", "sk", "ck", "dk")]
+    records = bf16_kernel_records(torch, np, rk, fk, sk, sampling, prng, topology, card)
+    counted, paths = {}, {}
+
+    def count(name, launches, path):
+        counted[f"{name}, bfloat16"] = {f"{name}, bfloat16": launches[name]}
+        paths[f"{name}, bfloat16"] = path
+
+    T = MAIN_ITERATIONS
+    main = pkg.ExperimentConfig(problem_type="logistic", algorithm="dsgd", topology="ring",
+                                n_workers=256, n_iterations=T, eval_every=1)
+    ds = pkg.generate_synthetic_dataset(main)
+    _, f_opt = pkg.compute_reference_optimum(ds, main.reg_param)
+    ips = {}
+    for dtype in ("float32", "bfloat16"):
+        for impl in ("pallas", "stencil"):
+            cfg = main.replace(dtype=dtype, mixing_impl=impl)
+            res, launches = _bf16_run(torch, pkg, counters, cfg, ds, f_opt,
+                                      f"bfloat16: main {dtype}")
+            h = res.history
+            crossed = pkg.iterations_to_threshold(h.objective, cfg.suboptimality_threshold,
+                                                  h.eval_iterations)
+            ips[dtype, impl] = h.iters_per_second
+            check(launches["sample_worker_batch_weights"] == T,
+                  f"main {dtype} {impl}: the dense sampler launched "
+                  f"{launches['sample_worker_batch_weights']} times, not T")
+            if impl == "pallas":
+                check(launches["fused_ring_dsgd_step"] == T,
+                      f"main {dtype}: the fused step launched {launches['fused_ring_dsgd_step']}")
+            if dtype == "bfloat16":
+                say(f"[bfloat16] main {impl}: {h.iters_per_second:.1f} iters/s (float32 "
+                    f"{ips['float32', impl]:.1f}), final gap {h.objective[-1]:.6f}, iteration at "
+                    f"eps={cfg.suboptimality_threshold}: "
+                    f"{crossed if crossed > 0 else 'not crossed within T'} ({card})")
+                if impl == "pallas":
+                    count("fused_ring_dsgd_step", launches,
+                          "bfloat16: main, dsgd, ring, N=256, pallas, bfloat16, T=30,000")
+                    count("sample_worker_batch_weights", launches,
+                          "bfloat16: main, N=256, dense sampling, bfloat16, once a step")
+    # The card against the port's CPU run of the same config at a short T.
+    cfg = main.replace(dtype="bfloat16", mixing_impl="pallas", n_iterations=BF16_CPU_ITERATIONS,
+                       eval_every=10, sampling_impl="dense")
+    card_run = pkg.run(cfg, ds, f_opt, device="cuda")
+    t0 = time.perf_counter()
+    host = pkg.run(cfg, ds, f_opt, device="cpu")
+    host_s = time.perf_counter() - t0
+    f_star = float(torch.tensor(f_opt, dtype=torch.float64).to(torch.bfloat16))
+    fx = np.abs(host.history.objective + f_star)
+    ulps = np.abs(card_run.history.objective - host.history.objective) / np.exp2(
+        np.floor(np.log2(np.maximum(fx, 2.0 ** -126))) - 7)
+    models = float(np.max(np.abs(card_run.final_models - host.final_models))
+                   / np.max(np.abs(host.final_models)))
+    say(f"[bfloat16] main's config T={cfg.n_iterations}, eval every 10, card vs the port's CPU "
+        f"run ({host_s:.1f} s there): gap {float(ulps.max()):.1f} bfloat16 ulps of f(x) at most "
+        f"({int(np.sum(ulps > 0))} of {ulps.size} evals differ), models "
+        f"{'bitwise' if np.array_equal(card_run.final_models, host.final_models) else f'{models:.3e} of the largest |x|'}")
+    check(bool(np.all(ulps <= BF16_GAP_ULPS)),
+          f"bfloat16 card vs CPU: the gap parts by {float(ulps.max()):.1f} ulps, beyond "
+          f"{BF16_GAP_ULPS}")
+    # Main's shapes under 20% drops and 10% stragglers: the floats the realized
+    # edges carried are the float32 run's exactly (float32 W_t, the keys of a
+    # float32 run).
+    faulted = main.replace(edge_drop_prob=0.2, straggler_prob=0.1, mixing_impl="stencil",
+                           n_iterations=BF16_FAULT_ITERATIONS, eval_every=10)
+    floats = {}
+    for dtype in ("float32", "bfloat16"):
+        res, launches = _bf16_run(torch, pkg, counters, faulted.replace(dtype=dtype), ds,
+                                  f_opt, f"bfloat16: faults {dtype}")
+        floats[dtype] = res.history.total_floats_transmitted
+        check(launches["realize_round"] == faulted.n_iterations,
+              f"faults {dtype}: the round launched {launches['realize_round']} times, not T")
+    say(f"[bfloat16] main's shapes, 20% drops, 10% stragglers, T={faulted.n_iterations}: floats "
+        f"sent bfloat16 {floats['bfloat16']:.1f}, float32 {floats['float32']:.1f} "
+        f"({'equal' if floats['bfloat16'] == floats['float32'] else 'DIFFER'})")
+    check(floats["bfloat16"] == floats["float32"], "bfloat16 faults: floats sent differ")
+    # The kernels' short runs: GT on the parity ring (gather sampler, ring_mix
+    # 2T), ADMM on main's ring (ring_neighbor_sum T + 1), D-SGD and ADMM on
+    # the fully connected N=25 (fc_mix T, fc_neighbor_sum T + 1).
+    S = BF16_SHORT_ITERATIONS
+    parity = pkg.ExperimentConfig(problem_type="logistic", dtype="bfloat16", n_iterations=S,
+                                  eval_every=10, mixing_impl="pallas")
+    pds = pkg.generate_synthetic_dataset(parity)
+    _, p_opt = pkg.compute_reference_optimum(pds, parity.reg_param)
+    for label, cfg, data, opt, want in (
+            ("gt parity ring", parity.replace(algorithm="gradient_tracking"), pds, p_opt,
+             {"ring_mix": 2 * S, "sample_worker_batches": S}),
+            ("admm main ring", main.replace(dtype="bfloat16", algorithm="admm",
+                                            mixing_impl="pallas", n_iterations=S,
+                                            eval_every=10), ds, f_opt,
+             {"ring_neighbor_sum": S + 1, "sample_worker_batch_weights": S}),
+            ("dsgd fc N=25", parity.replace(topology="fully_connected"), pds, p_opt,
+             {"fc_mix": S, "sample_worker_batches": S}),
+            ("admm fc N=25", parity.replace(topology="fully_connected", algorithm="admm"), pds,
+             p_opt, {"fc_neighbor_sum": S + 1, "sample_worker_batches": S})):
+        res, launches = _bf16_run(torch, pkg, counters, cfg, data, opt,
+                                  f"bfloat16: {label}")
+        check(launches == _only(launches, **want), f"bfloat16 {label}: launches {launches}, "
+                                                   f"not {want}")
+        for name in want:
+            if f"{name}, bfloat16" not in counted:
+                count(name, launches, f"bfloat16: {label}, pallas, bfloat16, T={S}")
+    compute_bound_bf16(torch, np, pkg, counters, card)
+    return records, counted, paths
+
+
+def compute_bound_bf16(torch, np, pkg, counters, card):
+    """bench_compute_bound.py's d4096_bf16 and d8192_bf16 cells, stencil and
+    pallas: finite and decreasing over T (metrics on), every one of the 512
+    labels through exact (int32), then timed with metrics off; TFLOP/s =
+    4·N·b·d·K × iters/s against the dense bfloat16 peak."""
+    n, b, k = COMPUTE_BOUND["n_workers"], COMPUTE_BOUND["local_batch_size"], COMPUTE_BOUND["n_classes"]
+    T, every = COMPUTE_BOUND_ITERATIONS, COMPUTE_BOUND_EVAL_EVERY
+    for d_feat in COMPUTE_BOUND_FEATURES:
+        ds = _bench_dataset(np, pkg, n, b, d_feat, k)
+        stacked = pkg.stack_shards(ds, "bfloat16")
+        labels = np.concatenate([ds.y_full[idx] for idx in ds.shard_indices])
+        check(stacked.y.dtype == np.int32 and np.array_equal(stacked.y.reshape(-1), labels)
+              and len(np.unique(stacked.y)) == k,
+              f"d={d_feat}: the {k} labels did not come through exact as int32")
+        d = d_feat + 1
+        flops = 4.0 * n * b * d * k
+        base = pkg.ExperimentConfig(**{**COMPUTE_BOUND, "dtype": "bfloat16"}, n_samples=n * b,
+                                    n_features=d_feat, n_iterations=T, eval_every=every,
+                                    matmul_precision="default")
+        for impl in ("stencil", "pallas"):
+            cfg = base.replace(mixing_impl=impl)
+            label = f"compute-bound d{d_feat}_bf16 K={k} {impl}"
+            for c in counters:
+                c.reset_launch_counts()
+            h = pkg.run(cfg, ds, 0.0, device="cuda").history
+            counted = {name: v for c in counters for name, v in c.LAUNCHES.items()}
+            want = _only(counted, **({"fused_ring_dsgd_step": T} if impl == "pallas" else {}))
+            check(counted == want, f"{label}: launches {counted}, not {want}")
+            check(bool(np.all(np.isfinite(h.objective))) and h.objective[-1] < h.objective[0],
+                  f"{label}: the objective {h.objective} is not finite and decreasing")
+            timed = pkg.run(cfg, ds, 0.0, device="cuda", collect_metrics=False).history
+            ips = timed.iters_per_second
+            say(f"[bfloat16] {label}: objective {h.objective[0]:.4f} -> {h.objective[-1]:.4f} over "
+                f"T={T}, {k} labels exact (int32); metrics off {ips:.2f} iters/s = "
+                f"{flops * ips / 1e12:.2f} TFLOP/s ({flops / 1e9:.1f} GFLOP an iteration), "
+                f"{flops * ips / PEAK_BF16_FLOPS:.1%} of the dense bfloat16 peak "
+                f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; metrics on {h.iters_per_second:.2f} "
+                f"iters/s; warm-up and capture {timed.compile_seconds:.2f} s ({card})")
+        del ds, stacked
+        torch.cuda.empty_cache()
+
+
 def _profile_window(torch, prof, steady):
     """Device operations inside the run loop's steady range (the iterations
     after the warm-up chunk): (events, start, end) in µs. The profiler
@@ -4779,6 +5137,11 @@ def phase_profile(torch, pkg, steady, T: int = 300):
         cfg = pkg.ExperimentConfig(**fields, n_iterations=T, mixing_impl="pallas",
                                    dtype="float32", eval_every=1)
         _profile_run(torch, pkg, steady, cfg, f"{label} pallas", T)
+    for impl in ("pallas", "stencil"):
+        cfg = pkg.ExperimentConfig(problem_type="logistic", algorithm="dsgd", n_workers=256,
+                                   n_iterations=T, mixing_impl=impl, dtype="bfloat16",
+                                   eval_every=1)
+        _profile_run(torch, pkg, steady, cfg, f"dsgd N=256 {impl} bfloat16", T)
     import numpy as np
 
     d_feat = COMPUTE_BOUND_FEATURES[0]
@@ -4790,6 +5153,11 @@ def phase_profile(torch, pkg, steady, T: int = 300):
                                    matmul_precision=precision)
         _profile_run(torch, pkg, steady, cfg, f"compute-bound d={d_feat} {precision} pallas "
                      "(eval every 10)", cfg.n_iterations, data)
+    cfg = pkg.ExperimentConfig(**{**COMPUTE_BOUND, "dtype": "bfloat16"}, n_samples=n * b,
+                               n_features=d_feat, n_iterations=40, eval_every=10,
+                               mixing_impl="pallas")
+    _profile_run(torch, pkg, steady, cfg, f"compute-bound d={d_feat} bfloat16 pallas "
+                 "(eval every 10)", cfg.n_iterations, data)
     _profile_federated(torch, pkg, steady)
 
 
@@ -5004,6 +5372,14 @@ def main(argv=None) -> int:
         records["sample_event_block"], launches = phase_async(torch, np, pkg, kernels)
         counted["sample_event_block"] = launches
         lap("async")
+
+    if "bfloat16" in phases:
+        bf16_records, bf16_counted, bf16_paths = phase_bfloat16(
+            torch, np, pkg, kernels, topology, sampling, prng, card)
+        records.update(bf16_records)
+        counted.update(bf16_counted)
+        paths.update(bf16_paths)
+        lap("bfloat16")
 
     if "profile" in phases:
         from distributed_optimization_tpu_torch.backends.torch_backend import STEADY_LOOP

@@ -28,6 +28,7 @@ from distributed_optimization_tpu_torch.algorithms.base import (
     StepContext,
     register_algorithm,
 )
+from distributed_optimization_tpu_torch.ops.rounding import scalar
 
 
 def _init(x0, config, *, neighbor_sum=None) -> State:
@@ -38,13 +39,16 @@ def _init(x0, config, *, neighbor_sum=None) -> State:
 
 def _step(state: State, ctx: StepContext) -> State:
     x, alpha, nbr_x = state["x"], state["alpha"], state["nbr_x"]
-    c = ctx.config.admm_c
-    rho = ctx.config.admm_rho
+    # The constants rounded to the run dtype first, as the JAX package's
+    # weak-typed Python floats are (ops/rounding.py).
+    c = scalar(ctx.config.admm_c, x.dtype)
+    half_c = scalar(0.5 * ctx.config.admm_c, x.dtype)
+    rho = scalar(ctx.config.admm_rho, x.dtype)
     deg = ctx.degrees  # [N, 1]
     g = ctx.grad(x, 0)
-    x_new = (rho * x + 0.5 * c * (deg * x + nbr_x) - g - alpha) / (rho + c * deg)
+    x_new = (rho * x + half_c * (deg * x + nbr_x) - g - alpha) / (rho + c * deg)
     nbr_new = ctx.neighbor_sum(x_new)
-    alpha_new = alpha + 0.5 * c * (deg * x_new - nbr_new)
+    alpha_new = alpha + half_c * (deg * x_new - nbr_new)
     return {"x": x_new, "alpha": alpha_new, "nbr_x": nbr_new}
 
 

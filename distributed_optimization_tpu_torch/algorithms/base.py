@@ -24,7 +24,9 @@ class StepContext:
     """What a step rule may touch.
 
     ``grad(params, slot)``: stochastic gradient at ``params`` ([N, d] ->
-    [N, d]) for batch draw ``slot``. ``mix``: x -> W x. ``neighbor_sum``:
+    [N, d]) for batch draw ``slot``; ``grad(params, slot, unrounded=True)``
+    gives a bfloat16 run's gradient as float32, its last addition
+    unrounded, for a rule that reduces it over the workers. ``mix``: x -> W x. ``neighbor_sum``:
     x -> A x. ``eta``: this iteration's step size, a one-element tensor in
     the run dtype on the run device. ``config``: the ExperimentConfig.
     ``degrees``: [N, 1] node degrees in the run dtype on the run device

@@ -21,8 +21,10 @@ def _init(x0, config, *, neighbor_sum=None) -> State:
 
 def _step(state: State, ctx: StepContext) -> State:
     x = state["x"]
-    grads = ctx.grad(x, 0)
-    avg_grad = grads.mean(dim=-2, keepdim=True)
+    # In bfloat16 the gradients' last addition goes into the mean
+    # unrounded, as the JAX package's XLA fuses it into the reduction.
+    grads = ctx.grad(x, 0, unrounded=True)
+    avg_grad = grads.mean(dim=-2, keepdim=True).to(x.dtype)
     return {"x": x - ctx.eta * avg_grad}
 
 

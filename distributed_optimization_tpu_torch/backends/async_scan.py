@@ -269,7 +269,8 @@ def _make_block(config, problem, data, sched: _Schedule, state: dict, cursor: to
                           dtype=dtype, device=dev) if sched.batches is not None else None)
     drawn = None
     if sched.batches is None and not full_batch:
-        drawn = sampling_kernels.event_block_buffer(B, tau, b, X.shape[2], dtype, dev)
+        drawn = sampling_kernels.event_block_buffer(B, tau, b, X.shape[2], dtype, dev,
+                                                    y_data.dtype)
 
     def grad(params, i, e, m):
         """The stale-read gradient of the m-th local descent of the block's
@@ -430,7 +431,7 @@ def run_async(
     problem = get_problem(config.problem_type, huber_delta=config.huber_delta,
                           n_classes=config.n_classes)
     n = config.n_workers
-    host = stack_shards(dataset, dtype=np.dtype(config.dtype))
+    host = stack_shards(dataset, dtype=config.dtype)
     X = torch.as_tensor(host.X, device=dev)
     y_data = torch.as_tensor(host.y, device=dev)
     n_valid = torch.as_tensor(host.n_valid, dtype=torch.int64, device=dev)

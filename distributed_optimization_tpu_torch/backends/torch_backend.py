@@ -62,6 +62,20 @@ and swept scalars are its own. Replica r is the sequential run of
 single run has no replica axis: its shapes, kernels and bits are as
 before.
 
+bfloat16 (``dtype='bfloat16'``, the synchronous single run on the dense
+graph): every operation rounds as the JAX package's bfloat16 run rounds
+it on the CPU. Elementwise operations round to bfloat16 one by one;
+reductions and products accumulate in float32 and round once (cuBLAS
+bfloat16 with float32 accumulation, its reduced-precision reduction off),
+the last elementwise operation before a sum summed unrounded (XLA fuses
+it: the objective's weighted sums, the consensus, centralized's mean of the
+gradients' last addition); every Python scalar is rounded to bfloat16 before it is applied
+(``ops/rounding.py``), the step sizes are computed in float32 and cast,
+f* is cast to bfloat16 before the subtraction, and the keys are the
+float32 run's. The fault layer keeps W_t, the active mask and the degree
+count in float32 and mixes in float32, those products in full FP32 (no
+TF32). The histories and final models come back as float64.
+
 Timing: ``compile_seconds`` covers the algorithm's init, the warm-up chunk
 and the capture, synchronised. ``iters_per_second`` counts the
 iterations after the warm-up chunk (the replays, or the eager chunks)
@@ -95,6 +109,7 @@ from distributed_optimization_tpu_torch.metrics import (
 )
 from distributed_optimization_tpu_torch.models import get_problem
 from distributed_optimization_tpu_torch.ops import compression, prng, ring_kernels, sampling_kernels
+from distributed_optimization_tpu_torch.ops.losses import sq_norm
 from distributed_optimization_tpu_torch.ops.mixing import MixingOp, make_mixing_op
 from distributed_optimization_tpu_torch.ops.robust_aggregation import (
     make_gather_robust_aggregator,
@@ -106,6 +121,7 @@ from distributed_optimization_tpu_torch.ops.robust_kernels import (
     make_fused_robust_aggregator,
     make_fused_robust_dsgd_step,
 )
+from distributed_optimization_tpu_torch.ops.rounding import scalar, sum_of
 from distributed_optimization_tpu_torch.ops.sampling import gather_batches
 from distributed_optimization_tpu_torch.parallel.adversary import (
     Adversary,
@@ -124,7 +140,7 @@ from distributed_optimization_tpu_torch.parallel.topology import (
 )
 from distributed_optimization_tpu_torch.utils.data import HostDataset, stack_shards
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
 
 # The profiler range around the iterations after the warm-up chunk.
 STEADY_LOOP = "torch_backend.steady_loop"
@@ -137,10 +153,14 @@ DENSE_SAMPLING_WARN_ROWS = 256
 def tf32_for(config, dev: torch.device) -> Optional[bool]:
     """Whether a run's float32 products use TF32 on the card: off under
     ``matmul_precision='highest'`` (full FP32), on under 'high' and
-    'default' (what XLA does with those precisions on an NVIDIA GPU).
-    None where the setting does not apply: float64, or the CPU."""
-    if dev.type != "cuda" or config.dtype != "float32":
+    'default' (what XLA does with those precisions on an NVIDIA GPU); off
+    in a bfloat16 run, whose float32 products (the fault layer's W_t x)
+    run in full FP32. None where the setting does not apply: float64, or
+    the CPU."""
+    if dev.type != "cuda" or config.dtype == "float64":
         return None
+    if config.dtype == "bfloat16":
+        return False
     return config.matmul_precision != "highest"
 
 
@@ -165,7 +185,9 @@ def make_full_objective_fn(problem, reg: float):
         per_worker = problem.objective_weighted(
             w.expand(n, -1), X, y, mask / total, 0.0
         )
-        return per_worker.sum() + 0.5 * reg * torch.dot(w, w)
+        # bfloat16: ‖w‖² as the JAX package's dot (float32, rounded once).
+        norm = sq_norm(w) if w.dtype == torch.bfloat16 else torch.dot(w, w)
+        return per_worker.sum() + scalar(0.5 * reg, w.dtype) * norm
 
     return full_objective
 
@@ -173,7 +195,11 @@ def make_full_objective_fn(problem, reg: float):
 def make_eta_schedule(config, T: int, device, dtype, eta0=None) -> torch.Tensor:
     """``[T]`` step sizes in the run dtype: η₀/√(t+1) or constant η₀. With
     ``eta0`` a list of R (the replica axis), ``[T, R]``: column r replica
-    r's schedule, each entry the single run's."""
+    r's schedule, each entry the single run's. A bfloat16 schedule is the
+    float32 one cast (the JAX package computes ``eta0 / sqrt(t + 1.0)`` in
+    float32 and casts it; bfloat16 would round t + 1 past 256)."""
+    if dtype == torch.bfloat16:
+        return make_eta_schedule(config, T, device, torch.float32, eta0).to(dtype)
     if eta0 is None:
         eta0 = torch.full((T,), config.learning_rate_eta0, dtype=dtype, device=device)
         t1 = torch.arange(T, dtype=dtype, device=device) + 1.0
@@ -266,7 +292,7 @@ class _Program:
         gap = self.full_objective(xbar, *self.data) - f_opt
         if not with_consensus:
             return gap, None
-        sq = torch.sum((x - xbar.unsqueeze(-2)) ** 2, dim=-1)
+        sq = sum_of(torch.square, x - xbar.unsqueeze(-2), dim=-1)
         return gap, (torch.mean(sq, dim=-1) if hw is None else torch.sum(hw * sq, dim=-1) / nh)
 
 
@@ -485,7 +511,7 @@ def _make_grad_factory(problem, reg, config, X, y, n_valid, schedule, sampling_i
         slot_key = stacks.__getitem__
 
     def grad_for(t: torch.Tensor):
-        def grad(params, slot):
+        def grad(params, slot, unrounded=False):
             if schedule is not None:
                 idx = schedule.index_select(0, t)[0]  # [N, b] injected batch indices
                 Xb, yb = gather_batches(X, y, idx)
@@ -501,6 +527,8 @@ def _make_grad_factory(problem, reg, config, X, y, n_valid, schedule, sampling_i
                 Xb, yb, wts = sampling_kernels.sample_worker_batches(
                     slot_key(slot), t, X, y, n_valid, batch_size
                 )
+            if unrounded:  # a problem whose gradient takes the keyword (ops/losses.py)
+                return problem.gradient_weighted(params, Xb, yb, wts, reg, unrounded=True)
             return problem.gradient_weighted(params, Xb, yb, wts, reg)
 
         return grad
@@ -643,7 +671,7 @@ def _build(config, dataset: HostDataset, f_opt: float, dev: torch.device, *,
     flags = replicas.configs[0] if replicas is not None else config
     lead = () if seeds is None else (len(seeds),)
 
-    host = stack_shards(dataset, dtype=np.dtype(config.dtype))
+    host = stack_shards(dataset, dtype=config.dtype)
     X = torch.as_tensor(host.X, device=dev)
     y = torch.as_tensor(host.y, device=dev)
     n_valid = torch.as_tensor(host.n_valid, dtype=torch.int64, device=dev)
@@ -748,8 +776,12 @@ def _build(config, dataset: HostDataset, f_opt: float, dev: torch.device, *,
     gap_hist = torch.empty((n_evals, *lead), dtype=dtype, device=dev)
     cons_hist = torch.empty((n_evals, *lead), dtype=dtype, device=dev)
 
+    # f* in the run dtype before the subtraction, as the JAX package's weak
+    # Python float is.
+    f_star = scalar(f_opt, dtype)
+
     def write_metrics(state, k):
-        gap, spread = program.metrics(state["x"], f_opt, track_consensus)
+        gap, spread = program.metrics(state["x"], f_star, track_consensus)
         gap_hist.index_copy_(0, k, gap.reshape(1, *lead))
         if track_consensus:
             cons_hist.index_copy_(0, k, spread.reshape(1, *lead))
@@ -790,12 +822,17 @@ def _execute(built: _Built, config, dev: torch.device, measure_timestamps: bool)
 
     graph = None
     tf32 = tf32_for(config, dev)
-    caller_tf32 = torch.backends.cuda.matmul.allow_tf32
+    matmul = torch.backends.cuda.matmul
+    caller_tf32 = matmul.allow_tf32
+    caller_bf16 = matmul.allow_bf16_reduced_precision_reduction
     try:
         if tf32 is not None:
             # Before the warm-up and the capture: a CUDA graph keeps the
             # cuBLAS algorithm chosen while it was captured.
-            torch.backends.cuda.matmul.allow_tf32 = tf32
+            matmul.allow_tf32 = tf32
+        if config.dtype == "bfloat16" and dev.type == "cuda":
+            # bfloat16 products accumulate in float32 and round once.
+            matmul.allow_bf16_reduced_precision_reduction = False
         sync()
         t0 = time.perf_counter()
         # Eager, once, before the warm-up.
@@ -824,18 +861,24 @@ def _execute(built: _Built, config, dev: torch.device, measure_timestamps: bool)
             sync()
         run_seconds = time.perf_counter() - t0
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = caller_tf32
+        matmul.allow_tf32 = caller_tf32
+        matmul.allow_bf16_reduced_precision_reduction = caller_bf16
         if graph is not None:
             graph.reset()
     return state, compile_seconds, run_seconds, stamps
+
+
+def _host64(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host float64 array (numpy has no bfloat16)."""
+    return t.detach().to(device="cpu", dtype=torch.float64).numpy()
 
 
 def _histories(built: _Built, collect_metrics: bool):
     """The gap and consensus histories on the host, float64."""
     if not collect_metrics:
         return np.empty((0,) + tuple(built.gap_hist.shape[1:])), None
-    gap = built.gap_hist.cpu().numpy().astype(np.float64)
-    cons = built.cons_hist.cpu().numpy().astype(np.float64) if built.track_consensus else None
+    gap = _host64(built.gap_hist)
+    cons = _host64(built.cons_hist) if built.track_consensus else None
     return gap, cons
 
 
@@ -906,7 +949,7 @@ def run(
         fault_setup_seconds=built.fault_seconds,
         topology_setup_seconds=built.topology_seconds,
     )
-    final_models = state["x"].cpu().numpy().astype(np.float64)
+    final_models = _host64(state["x"])
     # Under an attack the reported model is the honest average.
     adversary = program.byz.adversary if program.byz is not None else None
     honest = adversary.honest if adversary is not None else slice(None)
@@ -914,7 +957,7 @@ def run(
         history=history,
         final_models=final_models,
         final_avg_model=final_models[honest].mean(axis=0),
-        final_state=({key: value.cpu().numpy().astype(np.float64) for key, value in state.items()}
+        final_state=({key: _host64(value) for key, value in state.items()}
                      if return_state else None),
     )
 
@@ -983,6 +1026,12 @@ def batch_unsupported_reason(config) -> Optional[str]:
             "config.seed internally, which the batched per-replica seed "
             "axis cannot reach — replicas would silently share "
             "compression draws"
+        )
+    if config.dtype == "bfloat16":
+        return (
+            "run_batch with dtype='bfloat16': the PyTorch port does not "
+            "have it yet (the replica entries of the sampling, round and "
+            "noise kernels have no bfloat16 instance)"
         )
     if config.execution == "async":
         return (

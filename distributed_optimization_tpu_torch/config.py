@@ -27,7 +27,7 @@ RANDOM_TOPOLOGIES = ("erdos_renyi", "directed_erdos_renyi")
 PROBLEM_TYPES = ("logistic", "quadratic", "huber", "softmax")
 MIXING_IMPLS = ("auto", "stencil", "dense", "pallas", "gather", "sparse")
 SAMPLING_IMPLS = ("auto", "dense", "gather")
-DTYPES = ("float32", "float64")
+DTYPES = ("float32", "float64", "bfloat16")
 # The JAX package's jax.default_matmul_precision values. On a card, float32
 # products run in full FP32 under 'highest' and in TF32 under 'high' and
 # 'default' (what XLA does with those precisions on an NVIDIA GPU).
@@ -231,6 +231,7 @@ class ExperimentConfig:
         self._validate_faults()
         self._validate_topology()
         self._validate_replicas()
+        self._validate_bfloat16()
         if self.n_workers <= 0:
             raise ValueError("n_workers must be positive")
         if self.n_informative_features > self.n_features:
@@ -297,6 +298,30 @@ class ExperimentConfig:
                     "whole compiled program, but the fused pallas kernel "
                     "addresses unbatched VMEM blocks — use 'auto', "
                     "'gather', or 'dense'"
+                )
+
+    def _validate_bfloat16(self) -> None:
+        """The compositions a bfloat16 run does not have yet: their kernels
+        (the robust screens, the compressor, the noise draw, the slot round
+        and gather mix, the event and replica entries) have no bfloat16
+        instance. Checked against the resolved values."""
+        if self.dtype != "bfloat16":
+            return
+        for refused, what in (
+            (self.execution == "async", "execution='async'"),
+            (self.replicas > 1, f"replicas={self.replicas}"),
+            (self.algorithm == "choco", "algorithm='choco'"),
+            (self.compression != "none", f"compression={self.compression!r}"),
+            (self.attack != "none", f"attack={self.attack!r}"),
+            (self.aggregation != "gossip", f"aggregation={self.aggregation!r}"),
+            (self.resolved_topology_impl() == "neighbor",
+             "a matrix-free topology (topology_impl resolves to 'neighbor')"),
+        ):
+            if refused:
+                raise ValueError(
+                    f"dtype='bfloat16' with {what}: the PyTorch port does not "
+                    "have it yet (bfloat16 runs the synchronous single run on "
+                    "the dense graph, without compression or Byzantine layers)"
                 )
 
     def _validate_topology(self) -> None:

@@ -36,12 +36,20 @@
 //   fixed, so launches are deterministic, but it is not torch.sum's: the
 //   kernel agrees with the plain version to N·eps·max|x|.
 //
+// bfloat16 (the *_bf16 entry points): 8 elements a 16-byte access, the
+// column sums in float32 in the same order, rounded once: the mean after
+// its float32 division (jnp.mean and torch.mean sum in float32 and round
+// once), the neighbour sum as bf16(total) - x[i, j], that difference
+// rounded (jnp.sum rounds the total to bfloat16 before the subtraction).
+// ops/fc_kernels.py's mirror repeats this order bit for bit.
+//
 // Every operation is a round-to-nearest intrinsic (no FMA contraction; the
 // build also passes --fmad=false). Each launch adds one to its kernel's slot
 // of launch_counts.cuh (slot 0 fc_mix, 1 fc_neighbor_sum: the order of
 // KERNELS in ops/fc_kernels.py). The kernels allocate nothing, launch on
 // the caller's stream and return cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -66,6 +74,24 @@ template <> struct Rn<double> {
 template <typename T> struct Vec;
 template <> struct Vec<float> { using type = float4; static constexpr int kWidth = 4; };
 template <> struct Vec<double> { using type = double2; static constexpr int kWidth = 2; };
+template <> struct Vec<__nv_bfloat16> { using type = uint4; static constexpr int kWidth = 8; };
+
+// The type the column sums accumulate in (float for bfloat16, else the
+// element's own), and the conversions to and from it.
+template <typename T> struct Acc {
+  using type = T;
+  static __device__ __forceinline__ T up(T a) { return a; }
+  static __device__ __forceinline__ T down(T a) { return a; }
+};
+template <> struct Acc<__nv_bfloat16> {
+  using type = float;
+  static __device__ __forceinline__ float up(__nv_bfloat16 a) { return __bfloat162float(a); }
+  static __device__ __forceinline__ __nv_bfloat16 down(float a) { return __float2bfloat16_rn(a); }
+};
+
+// The type a scalar access moves the element's bits as.
+template <typename T> struct Raw { using type = T; };
+template <> struct Raw<__nv_bfloat16> { using type = unsigned short; };
 
 template <typename T, int V> struct alignas(sizeof(T) * V) Pack { T v[V]; };
 
@@ -73,7 +99,9 @@ template <typename T, int V>
 __device__ __forceinline__ Pack<T, V> load_global(const T* p) {
   Pack<T, V> r;
   if constexpr (V == 1) {
-    r.v[0] = __ldg(p);
+    using R = typename Raw<T>::type;
+    const R raw = __ldg(reinterpret_cast<const R*>(p));
+    r.v[0] = *reinterpret_cast<const T*>(&raw);
   } else {
     using VT = typename Vec<T>::type;
     *reinterpret_cast<VT*>(r.v) = __ldg(reinterpret_cast<const VT*>(p));
@@ -84,7 +112,8 @@ __device__ __forceinline__ Pack<T, V> load_global(const T* p) {
 template <typename T, int V>
 __device__ __forceinline__ void store_global(T* p, const Pack<T, V>& r) {
   if constexpr (V == 1) {
-    __stcs(p, r.v[0]);
+    using R = typename Raw<T>::type;
+    __stcs(reinterpret_cast<R*>(p), *reinterpret_cast<const R*>(r.v));
   } else {
     using VT = typename Vec<T>::type;
     __stcs(reinterpret_cast<VT*>(p), *reinterpret_cast<const VT*>(r.v));
@@ -98,15 +127,17 @@ constexpr int kUnroll = 8;  // rows loaded before they are added
 // registers; the order of the last two is the C interface's tile code.
 enum class Mode { kMean, kNeighbor, kNeighborRegisters };
 
-// Dynamic shared memory: the groups' partial sums, [groups][lanes·V].
+// Dynamic shared memory: the groups' partial sums, [groups][lanes·V], in
+// the accumulation type A.
 template <typename T, int V, Mode M>
 __global__ void __launch_bounds__(kMaxThreads)
 fc_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, int64_t d) {
   launch_counts::add(M == Mode::kMean ? 0 : 1);
+  using A = typename Acc<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const int groups = blockDim.y;
   const int width = blockDim.x * V;
-  T* partial = reinterpret_cast<T*>(smem);
+  A* partial = reinterpret_cast<A*>(smem);
 
   const int lane_col = threadIdx.x * V;
   const int64_t j = static_cast<int64_t>(blockIdx.x) * width + lane_col;
@@ -117,10 +148,10 @@ fc_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, int64_t d) {
   // row past N reads as +0: a sum started from +0 is never -0, so adding
   // +0 leaves its bits as they are. kNeighborRegisters runs one batch
   // (n <= kUnroll·groups) and keeps it in v for pass 2.
-  Pack<T, V> s;
+  Pack<A, V> s;
   Pack<T, V> v[kUnroll];
 #pragma unroll
-  for (int k = 0; k < V; ++k) s.v[k] = T(0);
+  for (int k = 0; k < V; ++k) s.v[k] = A{};
   if (active) {
     const T* p = x + threadIdx.y * d + j;
     for (int64_t i = threadIdx.y; i < n; i += kUnroll * groups, p += kUnroll * step) {
@@ -130,35 +161,39 @@ fc_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, int64_t d) {
           v[u] = load_global<T, V>(p + u * step);
         } else {
 #pragma unroll
-          for (int k = 0; k < V; ++k) v[u].v[k] = T(0);
+          for (int k = 0; k < V; ++k) v[u].v[k] = T{};
         }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
 #pragma unroll
-        for (int k = 0; k < V; ++k) s.v[k] = Rn<T>::add(s.v[k], v[u].v[k]);
+        for (int k = 0; k < V; ++k) s.v[k] = Rn<A>::add(s.v[k], Acc<T>::up(v[u].v[k]));
       }
     }
   }
-  *reinterpret_cast<Pack<T, V>*>(partial + threadIdx.y * width + lane_col) = s;
+  *reinterpret_cast<Pack<A, V>*>(partial + threadIdx.y * width + lane_col) = s;
   __syncthreads();
 
   // The column totals: every thread adds its own columns' group sums in
   // group order.
-  Pack<T, V> tot;
+  Pack<A, V> sum;
 #pragma unroll
   for (int k = 0; k < V; ++k) {
-    T t = partial[lane_col + k];
+    A t = partial[lane_col + k];
 #pragma unroll 8
-    for (int g = 1; g < groups; ++g) t = Rn<T>::add(t, partial[g * width + lane_col + k]);
-    tot.v[k] = t;
+    for (int g = 1; g < groups; ++g) t = Rn<A>::add(t, partial[g * width + lane_col + k]);
+    sum.v[k] = t;
   }
 
-  // Pass 2: this thread's rows of out, kUnroll at a time.
+  // Pass 2: this thread's rows of out, kUnroll at a time. The totals round
+  // once to T: the mean after its division, the neighbour sum's total
+  // before its subtraction.
   if (active) {
-    if constexpr (M == Mode::kMean) {
+    Pack<T, V> tot;
 #pragma unroll
-      for (int k = 0; k < V; ++k) tot.v[k] = Rn<T>::div(tot.v[k], static_cast<T>(n));
+    for (int k = 0; k < V; ++k) {
+      tot.v[k] = Acc<T>::down(M == Mode::kMean ? Rn<A>::div(sum.v[k], static_cast<A>(n))
+                                               : sum.v[k]);
     }
     for (int64_t i = threadIdx.y, e = threadIdx.y * d + j; i < n;
          i += kUnroll * groups, e += kUnroll * step) {
@@ -176,7 +211,9 @@ fc_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, int64_t d) {
           } else {
             Pack<T, V> r;
 #pragma unroll
-            for (int k = 0; k < V; ++k) r.v[k] = Rn<T>::sub(tot.v[k], v[u].v[k]);
+            for (int k = 0; k < V; ++k) {
+              r.v[k] = Acc<T>::down(Rn<A>::sub(Acc<T>::up(tot.v[k]), Acc<T>::up(v[u].v[k])));
+            }
             store_global<T, V>(out + e + u * step, r);
           }
         }
@@ -193,7 +230,7 @@ int launch_plan(const T* x, T* out, int64_t n, int64_t d, int lanes, int groups,
   const int64_t width = static_cast<int64_t>(lanes) * V;
   const int64_t strips = (d + width - 1) / width;
   if (strips > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = static_cast<size_t>(groups * width) * sizeof(T);
+  const size_t smem = static_cast<size_t>(groups * width) * sizeof(typename Acc<T>::type);
   const dim3 block(static_cast<unsigned>(lanes), static_cast<unsigned>(groups));
   fc_kernel<T, V, M><<<static_cast<unsigned>(strips), block, smem, stream>>>(x, out, n, d);
   return static_cast<int>(cudaGetLastError());
@@ -251,6 +288,14 @@ int fc_neighbor_sum_f32(const void* x, void* out, int64_t n, int64_t d, int vec,
 int fc_neighbor_sum_f64(const void* x, void* out, int64_t n, int64_t d, int vec, int lanes,
                         int groups, int tile, void* stream) {
   return launch<double, false>(x, out, n, d, vec, lanes, groups, tile, stream);
+}
+int fc_mix_bf16(const void* x, void* out, int64_t n, int64_t d, int vec, int lanes, int groups,
+                int tile, void* stream) {
+  return launch<__nv_bfloat16, true>(x, out, n, d, vec, lanes, groups, tile, stream);
+}
+int fc_neighbor_sum_bf16(const void* x, void* out, int64_t n, int64_t d, int vec, int lanes,
+                         int groups, int tile, void* stream) {
+  return launch<__nv_bfloat16, false>(x, out, n, d, vec, lanes, groups, tile, stream);
 }
 
 }  // extern "C"

@@ -28,7 +28,7 @@
 //   dozens of dependent instructions on sm_90). The index type is uint32_t
 //   when total < 2^31 and uint64_t otherwise, chosen once on the host.
 // - V elements per thread with 16-byte accesses: V = 4 in float32, 2 in
-//   float64. A thread loads its x and g as one float4/double2 through the
+//   float64, 8 in bfloat16 (one uint4). A thread loads its x and g as one float4/double2 through the
 //   read-only path and stores one; ring_neighbor_sum loads no x of its own,
 //   only the two neighbours. The neighbour vectors x[e ± d, +V) are 16-byte
 //   aligned only when d % V == 0, and only then can they not straddle the
@@ -66,12 +66,23 @@
 // is 1/3 rounded once to the working type. eta is read from a one-element
 // device array in the working type (no host synchronisation).
 //
+// bfloat16 (the *_bf16 entry points): the same stencil on 2-byte elements,
+// each operation computed in float32 with the intrinsics and rounded to
+// bfloat16 at once, in the same order: ((x_i + x_{i-1}) + x_{i+1}) *
+// bf16(1/3), then - bf16(eta * g). That is what PyTorch's bfloat16
+// operations compute, and what the JAX package's ring stencil and Pallas
+// kernels compute in bfloat16 on the CPU (its accumulation in float32,
+// rounded once, would differ in about a third of the elements). The bound
+// halves with the bytes; rows of d % 8 != 0 elements take the vector
+// instance with scalar neighbours.
+//
 // Each launch adds one to its kernel's slot of launch_counts.cuh (slot 0
 // fused_ring_dsgd_step, 1 ring_mix, 2 ring_neighbor_sum: the order of
 // KERNELS in ops/ring_kernels.py). The kernels allocate nothing, launch on
 // the caller's stream and return cudaGetLastError(). ring_launch_floor launches an empty kernel through
 // the same interface, for measuring what a launch costs; it is on no path.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -93,6 +104,19 @@ template <> struct Rn<double> {
   static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
   static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
   static __device__ __forceinline__ double third() { return 1.0 / 3.0; }
+};
+
+// bfloat16: each operation in float32, rounded to bfloat16 at once, as
+// PyTorch's bfloat16 operations (and the JAX package's on the CPU) round.
+// A product of two bfloat16 values is exact in float32, so it rounds once.
+template <> struct Rn<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ float f(T a) { return __bfloat162float(a); }
+  static __device__ __forceinline__ T add(T a, T b) { return __float2bfloat16_rn(__fadd_rn(f(a), f(b))); }
+  static __device__ __forceinline__ T sub(T a, T b) { return __float2bfloat16_rn(__fsub_rn(f(a), f(b))); }
+  static __device__ __forceinline__ T mul(T a, T b) { return __float2bfloat16_rn(__fmul_rn(f(a), f(b))); }
+  // bfloat16(1/3) = 0.333984375, as the JAX package's weak-typed 1/3 rounds.
+  static __device__ __forceinline__ T third() { return __float2bfloat16_rn(static_cast<float>(1.0 / 3.0)); }
 };
 
 constexpr int kThreads = 256;
@@ -119,6 +143,24 @@ int max_blocks() {
 template <typename T> struct Vec;
 template <> struct Vec<float> { using type = float4; static constexpr int kWidth = 4; };
 template <> struct Vec<double> { using type = double2; static constexpr int kWidth = 2; };
+template <> struct Vec<__nv_bfloat16> { using type = uint4; static constexpr int kWidth = 8; };
+
+// The type a scalar access moves the element's bits as.
+template <typename T> struct Raw { using type = T; };
+template <> struct Raw<__nv_bfloat16> { using type = unsigned short; };
+
+template <typename T>
+__device__ __forceinline__ T ldg1(const T* p) {
+  using R = typename Raw<T>::type;
+  const R r = __ldg(reinterpret_cast<const R*>(p));
+  return *reinterpret_cast<const T*>(&r);
+}
+
+template <typename T>
+__device__ __forceinline__ void stcs1(T* p, T v) {
+  using R = typename Raw<T>::type;
+  __stcs(reinterpret_cast<R*>(p), *reinterpret_cast<const R*>(&v));
+}
 
 // How a thread loads: one element (kScalar); V elements as one vector with
 // scalar neighbour loads (kVector); or neighbours as vectors too
@@ -140,7 +182,7 @@ template <typename T, int V>
 __device__ __forceinline__ Pack<T, V> load(const T* p) {
   Pack<T, V> r;
   if constexpr (V == 1) {
-    r.v[0] = __ldg(p);
+    r.v[0] = ldg1(p);
   } else {
     using VT = typename Vec<T>::type;
     *reinterpret_cast<VT*>(r.v) = __ldg(reinterpret_cast<const VT*>(p));
@@ -151,7 +193,7 @@ __device__ __forceinline__ Pack<T, V> load(const T* p) {
 template <typename T, int V>
 __device__ __forceinline__ void store(T* p, const Pack<T, V>& r) {
   if constexpr (V == 1) {
-    __stcs(p, r.v[0]);
+    stcs1(p, r.v[0]);
   } else {
     using VT = typename Vec<T>::type;
     __stcs(reinterpret_cast<VT*>(p), *reinterpret_cast<const VT*>(r.v));
@@ -173,8 +215,8 @@ __device__ __forceinline__ void stencil(const T* __restrict__ x, const T* __rest
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const I k = e + j;
-      prev.v[j] = __ldg(x + (k >= d ? k - d : k + far));
-      next.v[j] = __ldg(x + (k >= far ? k - far : k + d));
+      prev.v[j] = ldg1(x + (k >= d ? k - d : k + far));
+      next.v[j] = ldg1(x + (k >= far ? k - far : k + d));
     }
   }
   Pack<T, V> grad;
@@ -204,8 +246,8 @@ ring_stencil_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* _
   launch_counts::add(count_slot(kOp));
   constexpr int V = L == Layout::kScalar ? 1 : Vec<T>::kWidth;
   const I far = total - d;
-  T step = T(0);
-  if constexpr (kOp == Op::kStep) step = __ldg(eta);
+  T step{};
+  if constexpr (kOp == Op::kStep) step = ldg1(eta);
   const I first = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x;
   const I stride = static_cast<I>(gridDim.x) * kThreads;
   const I nvec = total / V;  // V is a power of two: a shift
@@ -282,6 +324,16 @@ int ring_neighbor_sum_f32(const void* x, void* out, int64_t n, int64_t d, void* 
 }
 int ring_neighbor_sum_f64(const void* x, void* out, int64_t n, int64_t d, void* stream) {
   return launch_ring<double, Op::kNeighborSum>(x, nullptr, nullptr, out, n, d, stream);
+}
+int fused_ring_dsgd_step_bf16(const void* x, const void* g, const void* eta, void* out,
+                              int64_t n, int64_t d, void* stream) {
+  return launch_ring<__nv_bfloat16, Op::kStep>(x, g, eta, out, n, d, stream);
+}
+int ring_mix_bf16(const void* x, void* out, int64_t n, int64_t d, void* stream) {
+  return launch_ring<__nv_bfloat16, Op::kMix>(x, nullptr, nullptr, out, n, d, stream);
+}
+int ring_neighbor_sum_bf16(const void* x, void* out, int64_t n, int64_t d, void* stream) {
+  return launch_ring<__nv_bfloat16, Op::kNeighborSum>(x, nullptr, nullptr, out, n, d, stream);
 }
 int ring_launch_floor(void* stream) {
   empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();

@@ -75,6 +75,14 @@
 // - The weight is 1/max(b_eff, 1) in the run's type, rounded to float32 and
 //   back (the JAX sampler returns float32 weights, which the run casts),
 //   with the round-to-nearest intrinsics.
+// - bfloat16 (the *_bf16 entry points): a bfloat16 run is no x64 run, so its
+//   keys, scores (24 bits) and selection are the float32 run's, and its
+//   weight is the float32 weight rounded to bfloat16; the gathered rows are
+//   2-byte copies. The score type follows the key, the output type the run.
+// - Every gathered value is copied as its bits; a label is y_bytes wide (the
+//   C argument): the run dtype's (2, 4 or 8 bytes), or softmax's int32
+//   class indices, which are int32 in every run dtype (bfloat16 would round
+//   every odd label above 256).
 // - The replica axis (the *_batch entry points): R replicas' slot keys, an
 //   [R, 2] int64 array of words in device memory, in one launch, the
 //   replica on the grid's y axis. Every replica reads the same shards (X,
@@ -120,10 +128,12 @@
 //   one and is given none returns cudaErrorInvalidValue.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "launch_counts.cuh"
 #include "radix_select.cuh"
@@ -172,6 +182,19 @@ struct Score<double> {
   }
   static __device__ __forceinline__ double weight(int eff) {
     return static_cast<double>(__double2float_rn(__ddiv_rn(1.0, static_cast<double>(eff))));
+  }
+};
+
+// A bfloat16 run keys as a float32 run (it is no x64 run): float32 scores
+// of 24 bits and the float32 weight, cast to bfloat16 (the JAX package's
+// float32 sampler output, cast to the run dtype).
+template <>
+struct Score<__nv_bfloat16> {
+  static constexpr int kBits = 24;
+  using DenseKey = uint32_t;
+  static __device__ __forceinline__ uint64_t of(uint2 w) { return Score<float>::of(w); }
+  static __device__ __forceinline__ __nv_bfloat16 weight(int eff) {
+    return __float2bfloat16_rn(Score<float>::weight(eff));
   }
 };
 
@@ -226,7 +249,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int l = lane + 32 * h;
-    if (l < L) w[(static_cast<int64_t>(rep) * n + worker) * L + l] = rank[h] < eff ? inv : Real(0);
+    if (l < L) w[(static_cast<int64_t>(rep) * n + worker) * L + l] = rank[h] < eff ? inv : Real{};
   }
 }
 
@@ -251,11 +274,12 @@ struct Args {
   const uint64_t* scores;  // non-null: [N, L] scores in place of the draw (select_top)
   int L, b, d, slot;
   const Real* X;  // [N, L, d]; null: no rows gathered
-  const Real* y;  // [N, L]
+  const void* y;  // [N, L] labels of y_bytes each (the run dtype's, or int32 class indices)
   int64_t* idx;   // [N, b]
   Real* w;        // [N, b], or [N, L] in the weights form
   Real* Xb;       // [N, b, d]
-  Real* yb;       // [N, b]
+  void* yb;       // [N, b], y's type
+  int y_bytes;    // 2, 4 or 8: a label is copied as its bits
   int64_t xstride, vstride;  // elements from one output's Xb, and idx, w, yb, to the next
   unsigned char* workspace;  // survivors past shared memory, ws_stride bytes a worker; or null
   int64_t ws_stride;
@@ -306,10 +330,85 @@ struct Cluster {
   }
 };
 
+// An element's bits as an unsigned integer of its size.
+template <typename Real> struct RawBits;
+template <> struct RawBits<float> { using type = uint32_t; };
+template <> struct RawBits<double> { using type = uint64_t; };
+template <> struct RawBits<__nv_bfloat16> { using type = uint16_t; };
+
+// Label i of y, y_bytes wide, as its bits; and back into yb.
+__device__ __forceinline__ uint64_t load_label(const void* y, int64_t i, int y_bytes) {
+  if (y_bytes == 2) return static_cast<const uint16_t*>(y)[i];
+  if (y_bytes == 4) return static_cast<const uint32_t*>(y)[i];
+  return static_cast<const uint64_t*>(y)[i];
+}
+
+__device__ __forceinline__ void store_label(void* yb, int64_t i, uint64_t bits, int y_bytes) {
+  if (y_bytes == 2) {
+    static_cast<uint16_t*>(yb)[i] = static_cast<uint16_t>(bits);
+  } else if (y_bytes == 4) {
+    static_cast<uint32_t*>(yb)[i] = static_cast<uint32_t>(bits);
+  } else {
+    static_cast<uint64_t*>(yb)[i] = bits;
+  }
+}
+
 // The row at position i of a worker's order: the selection's, or past the
 // valid rows, the padding row i.
 __device__ __forceinline__ int top_row(const int* top, int i, int need) {
   return i < need ? top[i] : i;
+}
+
+// The batch's rows, b of d + 1 values (X's, then the label), in order,
+// kCopy loads a thread in flight; (row, column) advance by the stride. Every
+// value moves as its bits: X's as Bits, a label as Bits where kSame (it is
+// as wide as an element), else as its y_bytes.
+template <typename Bits, bool kSame>
+__device__ __forceinline__ void gather_rows(const Bits* __restrict__ X, Bits* __restrict__ Xb,
+                                            const void* y, void* yb, int64_t y0, int64_t yb0,
+                                            int y_bytes, const int* top, int k, int need, int d,
+                                            int b, int first, int stride) {
+  using Value = std::conditional_t<kSame, Bits, uint64_t>;
+  const Bits* __restrict__ ys = static_cast<const Bits*>(y) + y0;
+  Bits* __restrict__ ybs = static_cast<Bits*>(yb) + yb0;
+  const int width = d + 1, total = b * width;
+  const int step_j = stride / width, step_c = stride - step_j * width;
+  int j = first / width, c = first - j * width;
+  for (int base = first; base < total; base += kCopy * stride) {
+    Value v[kCopy];
+    int at[kCopy];
+#pragma unroll
+    for (int u = 0; u < kCopy; ++u) {
+      at[u] = c < d ? j * d + c : -1 - j;  // Xb's element, or -1 - yb's
+      if (base + u * stride < total) {
+        const int row = top_row(top, j < k ? j : j % k, need);
+        if constexpr (kSame) {
+          v[u] = c < d ? X[static_cast<int64_t>(row) * d + c] : ys[row];
+        } else {
+          v[u] = c < d ? static_cast<uint64_t>(X[static_cast<int64_t>(row) * d + c])
+                       : load_label(y, y0 + row, y_bytes);
+        }
+      }
+      c += step_c;
+      j += step_j;
+      if (c >= width) {
+        c -= width;
+        ++j;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kCopy; ++u) {
+      if (base + u * stride < total) {
+        if (at[u] >= 0) {
+          Xb[at[u]] = static_cast<Bits>(v[u]);
+        } else if constexpr (kSame) {
+          ybs[-1 - at[u]] = v[u];
+        } else {
+          store_label(yb, yb0 - 1 - at[u], v[u], y_bytes);
+        }
+      }
+    }
+  }
 }
 
 template <typename Real, typename Key, int R, typename Group, bool kWeights>
@@ -448,51 +547,28 @@ __global__ void __launch_bounds__(kMaxThreads) select_kernel(Args<Real> a, int c
   if (kWeights) {
     const Key threshold = need > 0 ? st->threshold : Key(0);
     each(L, [&](int l, Key key) {
-      a.w[out * L + l] = need > 0 && key >= threshold ? inv : Real(0);
+      a.w[out * L + l] = need > 0 && key >= threshold ? inv : Real{};
     });
   } else {
     for (int j = first; j < b; j += stride) {
       const int64_t at = out * a.vstride + j;
       if (a.idx != nullptr) a.idx[at] = top_row(top, j % k, need);
-      if (a.w != nullptr) a.w[at] = j < eff ? inv : Real(0);
+      if (a.w != nullptr) a.w[at] = j < eff ? inv : Real{};
     }
     if (a.X != nullptr) {
-      // The batch's rows, b of d + 1 values (X's, then y's), in order,
-      // kCopy loads a thread in flight; (row, column) advance by the stride.
-      const int d = a.d, width = d + 1, total = b * width;
-      const Real* __restrict__ X = a.X + static_cast<int64_t>(worker) * L * d;
-      const Real* __restrict__ y = a.y + static_cast<int64_t>(worker) * L;
-      Real* __restrict__ Xb = a.Xb + out * a.xstride;
-      Real* __restrict__ yb = a.yb + out * a.vstride;
-      const int step_j = stride / width, step_c = stride - step_j * width;
-      int j = first / width, c = first - j * width;
-      for (int base = first; base < total; base += kCopy * stride) {
-        Real v[kCopy];
-        int at[kCopy];
-#pragma unroll
-        for (int u = 0; u < kCopy; ++u) {
-          at[u] = c < d ? j * d + c : -1 - j;  // Xb's element, or -1 - yb's
-          if (base + u * stride < total) {
-            const int row = top_row(top, j < k ? j : j % k, need);
-            v[u] = c < d ? X[static_cast<int64_t>(row) * d + c] : y[row];
-          }
-          c += step_c;
-          j += step_j;
-          if (c >= width) {
-            c -= width;
-            ++j;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kCopy; ++u) {
-          if (base + u * stride < total) {
-            if (at[u] >= 0) {
-              Xb[at[u]] = v[u];
-            } else {
-              yb[-1 - at[u]] = v[u];
-            }
-          }
-        }
+      using Bits = typename RawBits<Real>::type;
+      const Bits* X = reinterpret_cast<const Bits*>(a.X) + static_cast<int64_t>(worker) * L * a.d;
+      Bits* Xb = reinterpret_cast<Bits*>(a.Xb) + out * a.xstride;
+      const int64_t y0 = static_cast<int64_t>(worker) * L, yb0 = out * a.vstride;
+      // Labels as wide as an element (the run dtype's, or int32 beside
+      // float32) move with the rows as Bits; others (int32 beside float64
+      // or bfloat16) as their own width. The test is uniform.
+      if (a.y_bytes == static_cast<int>(sizeof(Real))) {
+        gather_rows<Bits, true>(X, Xb, a.y, a.yb, y0, yb0, a.y_bytes, top, k, need, a.d, b,
+                                first, stride);
+      } else {
+        gather_rows<Bits, false>(X, Xb, a.y, a.yb, y0, yb0, a.y_bytes, top, k, need, a.d, b,
+                                 first, stride);
       }
     }
   }
@@ -601,6 +677,8 @@ int64_t workspace_bytes(int64_t n, int64_t L, int64_t b) {
   return need(uint64_t{});
 }
 
+bool label_bytes_ok(int64_t y_bytes) { return y_bytes == 2 || y_bytes == 4 || y_bytes == 8; }
+
 bool refused(int64_t n, int64_t L, int64_t b) {
   return L <= 0 || b <= 0 || n > 0x7FFFFFFF || L > 0x7FFFFFFF || b > 0x7FFFFFFF;
 }
@@ -642,9 +720,10 @@ template <typename Real>
 int sample_batches(const void* t, uint32_t k0, uint32_t k1, const void* keys, int64_t replicas,
                    const void* n_valid, int64_t n, int64_t L, int64_t b, int64_t d,
                    const void* X, const void* y, void* idx, void* w, void* Xb, void* yb,
-                   void* workspace, void* stream) {
+                   int64_t y_bytes, void* workspace, void* stream) {
   if (n <= 0 || replicas == 0) return static_cast<int>(cudaSuccess);
-  if (refused(n, L, b) || (X != nullptr && (d <= 0 || d > 0x7FFFFFFF || b * (d + 1) > 0x7FFFFFFF)) ||
+  if (refused(n, L, b) || (X != nullptr && (d <= 0 || d > 0x7FFFFFFF || b * (d + 1) > 0x7FFFFFFF ||
+                                           !label_bytes_ok(y_bytes))) ||
       replicas < 0 || replicas > 65535 || (replicas > 1 && keys == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -662,11 +741,12 @@ int sample_batches(const void* t, uint32_t k0, uint32_t k1, const void* keys, in
   a.xstride = b * d;
   a.vstride = b;
   a.X = static_cast<const Real*>(X);
-  a.y = static_cast<const Real*>(y);
+  a.y = y;
   a.idx = static_cast<int64_t*>(idx);
   a.w = static_cast<Real*>(w);
   a.Xb = static_cast<Real*>(Xb);
-  a.yb = static_cast<Real*>(yb);
+  a.yb = yb;
+  a.y_bytes = static_cast<int>(y_bytes);
   a.workspace = static_cast<unsigned char*>(workspace);
   return launch_select<Real, false>(a, n, stream);
 }
@@ -679,13 +759,14 @@ template <typename Real>
 int sample_event(const void* cursor, const void* workers, const void* steps, int64_t n_events,
                  int64_t events, int64_t tau, int64_t descent, uint32_t k0, uint32_t k1,
                  const void* n_valid, int64_t L, int64_t b, int64_t d, const void* X,
-                 const void* y, void* idx, void* w, void* Xb, void* yb, int64_t xstride,
-                 int64_t vstride, void* workspace, void* stream) {
+                 const void* y, void* idx, void* w, void* Xb, void* yb, int64_t y_bytes,
+                 int64_t xstride, int64_t vstride, void* workspace, void* stream) {
   if (cursor == nullptr || workers == nullptr || steps == nullptr || n_valid == nullptr ||
       refused(1, L, b) || events < 1 || tau < 1 || events * tau > 0x7FFFFFFF ||
       descent < -1 || (descent == -1 && tau != 1) || descent + tau > 0x7FFFFFFF ||
       n_events < 0 || vstride < b ||
-      (X != nullptr && (d <= 0 || d > 0x7FFFFFFF || b * (d + 1) > 0x7FFFFFFF || xstride < b * d))) {
+      (X != nullptr && (d <= 0 || d > 0x7FFFFFFF || b * (d + 1) > 0x7FFFFFFF || xstride < b * d ||
+                        !label_bytes_ok(y_bytes)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args<Real> a = {};
@@ -704,11 +785,12 @@ int sample_event(const void* cursor, const void* workers, const void* steps, int
   a.d = static_cast<int>(d);
   a.slot = kSlotEvents;
   a.X = static_cast<const Real*>(X);
-  a.y = static_cast<const Real*>(y);
+  a.y = y;
   a.idx = static_cast<int64_t*>(idx);
   a.w = static_cast<Real*>(w);
   a.Xb = static_cast<Real*>(Xb);
-  a.yb = static_cast<Real*>(yb);
+  a.yb = yb;
+  a.y_bytes = static_cast<int>(y_bytes);
   a.xstride = xstride;
   a.vstride = vstride;
   a.workspace = static_cast<unsigned char*>(workspace);
@@ -760,41 +842,47 @@ extern "C" {
                               int64_t n, int64_t L, int64_t b, void* idx, void* w,               \
                               void* workspace, void* stream) {                                   \
     return sample_batches<Real>(t, k0, k1, nullptr, 1, n_valid, n, L, b, 0, nullptr, nullptr,    \
-                                idx, w, nullptr, nullptr, workspace, stream);                    \
+                                idx, w, nullptr, nullptr, 0, workspace, stream);                 \
   }                                                                                              \
   int sample_indices_batch_##suffix(const void* t, const void* keys, int64_t replicas,           \
                                     const void* n_valid, int64_t n, int64_t L, int64_t b,        \
                                     void* idx, void* w, void* workspace, void* stream) {         \
     return sample_batches<Real>(t, 0u, 0u, keys, replicas, n_valid, n, L, b, 0, nullptr,         \
-                                nullptr, idx, w, nullptr, nullptr, workspace, stream);           \
+                                nullptr, idx, w, nullptr, nullptr, 0, workspace, stream);        \
   }                                                                                              \
   int sample_batches_##suffix(const void* t, uint32_t k0, uint32_t k1, const void* n_valid,      \
                               int64_t n, int64_t L, int64_t b, int64_t d, const void* X,         \
-                              const void* y, void* w, void* Xb, void* yb, void* workspace,       \
-                              void* stream) {                                                    \
+                              const void* y, void* w, void* Xb, void* yb, int64_t y_bytes,       \
+                              void* workspace, void* stream) {                                   \
     return sample_batches<Real>(t, k0, k1, nullptr, 1, n_valid, n, L, b, d, X, y, nullptr, w,    \
-                                Xb, yb, workspace, stream);                                      \
+                                Xb, yb, y_bytes, workspace, stream);                             \
   }                                                                                              \
   int sample_batches_batch_##suffix(const void* t, const void* keys, int64_t replicas,           \
                                     const void* n_valid, int64_t n, int64_t L, int64_t b,        \
                                     int64_t d, const void* X, const void* y, void* w, void* Xb,  \
-                                    void* yb, void* workspace, void* stream) {                   \
+                                    void* yb, int64_t y_bytes, void* workspace, void* stream) {  \
     return sample_batches<Real>(t, 0u, 0u, keys, replicas, n_valid, n, L, b, d, X, y, nullptr,   \
-                                w, Xb, yb, workspace, stream);                                   \
-  }                                                                                              \
+                                w, Xb, yb, y_bytes, workspace, stream);                          \
+  }
+
+// The event mode: float32 and float64 (the event clock has no bfloat16 run).
+#define SAMPLING_EVENT_ENTRY_POINT(Real, suffix)                                                 \
   int sample_event_##suffix(const void* cursor, const void* workers, const void* steps,          \
                             int64_t n_events, int64_t events, int64_t tau, int64_t descent,      \
                             uint32_t k0, uint32_t k1, const void* n_valid, int64_t L, int64_t b, \
                             int64_t d, const void* X, const void* y, void* idx, void* w,         \
-                            void* Xb, void* yb, int64_t xstride, int64_t vstride,                \
-                            void* workspace, void* stream) {                                     \
+                            void* Xb, void* yb, int64_t y_bytes, int64_t xstride,                \
+                            int64_t vstride, void* workspace, void* stream) {                    \
     return sample_event<Real>(cursor, workers, steps, n_events, events, tau, descent, k0, k1,    \
-                              n_valid, L, b, d, X, y, idx, w, Xb, yb, xstride, vstride,          \
+                              n_valid, L, b, d, X, y, idx, w, Xb, yb, y_bytes, xstride, vstride, \
                               workspace, stream);                                                \
   }
 
 SAMPLING_ENTRY_POINTS(float, f32)
 SAMPLING_ENTRY_POINTS(double, f64)
+SAMPLING_ENTRY_POINTS(__nv_bfloat16, bf16)
+SAMPLING_EVENT_ENTRY_POINT(float, f32)
+SAMPLING_EVENT_ENTRY_POINT(double, f64)
 
 // For the tests and the plan's measurement: the top rows of given scores
 // ([N, L] uint64, 0 for padding, at most 2^23 in f32 and 2^52 in f64),
@@ -808,6 +896,10 @@ int select_top_f64(const void* scores, int64_t n, int64_t L, int64_t b, int64_t 
                    void* idx, void* workspace, void* stream) {
   return select_top<double>(scores, n, L, b, cluster, idx, workspace, stream);
 }
+int select_top_bf16(const void* scores, int64_t n, int64_t L, int64_t b, int64_t cluster,
+                    void* idx, void* workspace, void* stream) {
+  return select_top<__nv_bfloat16>(scores, n, L, b, cluster, idx, workspace, stream);
+}
 // The workspace bytes a launch over N workers of L rows and batch b needs in
 // float32 / float64 (R * N workers on the replica axis): 0 where every
 // worker's survivors fit in shared memory.
@@ -816,6 +908,9 @@ int64_t select_workspace_bytes_f32(int64_t n, int64_t L, int64_t b) {
 }
 int64_t select_workspace_bytes_f64(int64_t n, int64_t L, int64_t b) {
   return workspace_bytes<double>(n, L, b);
+}
+int64_t select_workspace_bytes_bf16(int64_t n, int64_t L, int64_t b) {
+  return workspace_bytes<__nv_bfloat16>(n, L, b);
 }
 
 }  // extern "C"

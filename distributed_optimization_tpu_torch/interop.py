@@ -34,6 +34,7 @@ def state_from_reference(
     snapshots ``x_read``, with gradient tracking's ``y`` and last gradients
     ``g_prev``, each ``[N, d_model]``: ``async_scan.run_async``'s
     ``state0``.
+    A bfloat16 state (ml_dtypes arrays) is taken bit for bit.
     ``replicas=R`` takes a replica batch's stacked state (the JAX package's
     ``BatchRunResult.final_states``): every leaf ``[R, N, ...]``, as
     ``torch_backend.run_batch``'s ``state0`` takes it."""
@@ -47,8 +48,18 @@ def state_from_reference(
             want = "[N, d_model] or [N, 1]" if not lead else \
                 f"[{replicas}, N, d_model] or [{replicas}, N, 1]"
             raise ValueError(f"state[{key!r}] must be {want}, got shape {arr.shape}")
-        out[key] = torch.tensor(arr, dtype=dtype, device=device).contiguous()
+        out[key] = _tensor(arr).to(dtype=dtype, device=device).contiguous()
     return out
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor of ``arr``'s values. A bfloat16 array (ml_dtypes', which
+    the JAX package's bfloat16 runs return; torch takes no such array) is
+    carried through its raw 16-bit view, without importing ml_dtypes."""
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.tensor(arr)
 
 
 def dataset_from_reference(

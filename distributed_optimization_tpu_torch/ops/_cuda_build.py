@@ -104,17 +104,30 @@ def load(source: pathlib.Path) -> ctypes.CDLL:
 
 # --- the wrappers' shared argument checks -------------------------------------
 
+# The C entry points' suffix for each dtype a kernel has an instance in:
+# float32 and float64 for every kernel; bfloat16 too for the ring, fc and
+# sampling kernels, whose wrappers pass SUFFIX_BF16. A wrapper given a
+# tensor of another dtype raises a TypeError naming it.
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+SUFFIX_BF16 = {**SUFFIX, torch.bfloat16: "bf16"}
 # What a launcher returns when it refuses its arguments.
 CUDA_ERROR_INVALID_VALUE = 1
 
 
-def check_stack(x, what: str = "x") -> None:
-    """A contiguous [N, d] float32 or float64 tensor on the CPU or a card."""
+def check_dtype(dtype: torch.dtype, suffixes=SUFFIX, what: str = "x") -> None:
+    """``dtype`` is one the kernel has an instance in (``suffixes``)."""
+    if dtype not in suffixes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in suffixes)
+        raise TypeError(f"{what} must be {names}, got {dtype}: this kernel has no "
+                        f"{str(dtype).removeprefix('torch.')} instance")
+
+
+def check_stack(x, what: str = "x", suffixes=SUFFIX) -> None:
+    """A contiguous [N, d] tensor, in a dtype of ``suffixes``, on the CPU or
+    a card."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{what} must be a torch.Tensor")
-    if x.dtype not in SUFFIX:
-        raise TypeError(f"{what} must be float32 or float64, got {x.dtype}")
+    check_dtype(x.dtype, suffixes, what)
     if x.dim() != 2:
         raise ValueError(f"{what} must be [N, d], got shape {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -147,11 +160,13 @@ def check_scalar(t, x: torch.Tensor, what: str) -> None:
 
 
 def call(lib: ctypes.CDLL, name: str, x: torch.Tensor, *args,
-         invalid: str | None = None) -> None:
-    """Call ``name_<f32|f64>(*args, stream)`` on x's device and raise on a
-    non-zero CUDA error code: a ValueError saying ``invalid``, where given,
-    when the launcher refuses its arguments (cudaErrorInvalidValue)."""
-    fn = getattr(lib, f"{name}_{SUFFIX[x.dtype]}")
+         invalid: str | None = None, suffixes=SUFFIX) -> None:
+    """Call ``name_<suffix of x's dtype>(*args, stream)`` on x's device and
+    raise on a non-zero CUDA error code: a ValueError saying ``invalid``,
+    where given, when the launcher refuses its arguments
+    (cudaErrorInvalidValue); a TypeError for a dtype ``suffixes`` lacks."""
+    check_dtype(x.dtype, suffixes, name)
+    fn = getattr(lib, f"{name}_{suffixes[x.dtype]}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*args, stream)

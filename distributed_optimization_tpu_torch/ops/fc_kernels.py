@@ -9,7 +9,7 @@ Ports of the Pallas TPU kernels in
 - ``fc_neighbor_sum(x)`` ← ``fc_neighbor_sum`` (:183): A x, the column sum
   minus the row itself.
 
-Each takes a contiguous ``[N, d]`` float32 or float64 tensor. For a CUDA
+Each takes a contiguous ``[N, d]`` float32, float64 or bfloat16 tensor. For a CUDA
 tensor it launches the kernel of ``csrc/fc_kernels.cu`` on the current
 stream, or raises; for a CPU tensor it runs the plain PyTorch version
 (``*_plain``).
@@ -21,7 +21,13 @@ neighbour sum keeps its rows; the C functions take it as arguments. The
 summation order follows from the plan alone, and ``column_sum_mirror``
 repeats it in PyTorch ops: the kernels equal ``fc_mix_mirror`` /
 ``fc_neighbor_sum_mirror`` bit for bit, and agree with the plain versions
-(another order) to N·ε·max|x|. Nothing on a run's path calls the mirrors;
+(another order) to N·ε·max|x|. In bfloat16 the column sums are float32,
+rounded once to bfloat16 (the mean after its division, the neighbour sum's
+total before the subtraction, whose result rounds again), as ``torch.mean``
+and the JAX package's ``jnp.mean`` / ``jnp.sum`` round; the plain versions
+sum in float32 in PyTorch's order, so kernel and twin agree to the
+rounding of the float32 sums (PERF.md states the measured agreement).
+Nothing on a run's path calls the mirrors;
 the tests and ``chip_smoke.py`` do.
 
 ``LAUNCHES`` maps each kernel to its launches on the card, which the kernel
@@ -39,6 +45,8 @@ import torch
 
 from distributed_optimization_tpu_torch.ops import _cuda_build
 
+# The kernels' instances (csrc/fc_kernels.cu).
+SUFFIX = _cuda_build.SUFFIX_BF16
 SOURCE = _cuda_build.CSRC / "fc_kernels.cu"
 # In the order of the kernels' launch-count slots (csrc/fc_kernels.cu).
 KERNELS = ("fc_mix", "fc_neighbor_sum")
@@ -135,7 +143,9 @@ def column_sum_mirror(x: torch.Tensor, p: Plan) -> torch.Tensor:
     """[d] column sums added in the kernels' order under plan ``p``: thread
     group g adds rows g, g + groups, ... from +0, and the block adds its
     groups' sums in group order. Padding adds +0, which leaves a sum
-    started from +0 unchanged."""
+    started from +0 unchanged. bfloat16 sums in float32 (float32 sums)."""
+    if x.dtype == torch.bfloat16:
+        x = x.float()
     n, d = x.shape
     per_group = _ceil(n, p.groups)
     row = torch.arange(per_group * p.groups, device=x.device).view(per_group, p.groups)
@@ -154,11 +164,11 @@ def fc_mix_mirror(x: torch.Tensor, p: Plan) -> torch.Tensor:
     total = column_sum_mirror(x, p)
     # A tensor divisor: PyTorch on the card multiplies by the reciprocal of
     # a Python scalar, which rounds differently.
-    return (total / torch.full_like(total, x.shape[0])).expand_as(x)
+    return (total / torch.full_like(total, x.shape[0])).to(x.dtype).expand_as(x)
 
 
 def fc_neighbor_sum_mirror(x: torch.Tensor, p: Plan) -> torch.Tensor:
-    return column_sum_mirror(x, p).expand_as(x) - x
+    return column_sum_mirror(x, p).to(x.dtype).expand_as(x) - x
 
 
 MIRRORS = {"fc_mix": fc_mix_mirror, "fc_neighbor_sum": fc_neighbor_sum_mirror}
@@ -171,7 +181,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument types of the kernels' C functions."""
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for name in KERNELS:
-        for suffix in ("f32", "f64"):
+        for suffix in SUFFIX.values():
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = [ptr, ptr, i64, i64, i32, i32, i32, i32, ptr]
             fn.restype = ctypes.c_int
@@ -197,12 +207,12 @@ def _launch(lib: ctypes.CDLL, name: str, x: torch.Tensor, p: Plan | None = None)
     out = torch.empty_like(x)
     p = plan_for(name, x, out) if p is None else p
     _cuda_build.call(lib, name, x, x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-                     p.vec, p.lanes, p.groups, TILES.index(p.tile))
+                     p.vec, p.lanes, p.groups, TILES.index(p.tile), suffixes=SUFFIX)
     return out
 
 
 def _run(name: str, x: torch.Tensor, plain) -> torch.Tensor:
-    _cuda_build.check_stack(x)
+    _cuda_build.check_stack(x, "x", SUFFIX)
     if x.device.type == "cpu":
         return plain(x)
     return _launch(library(), name, x)

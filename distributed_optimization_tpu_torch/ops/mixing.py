@@ -45,6 +45,7 @@ from distributed_optimization_tpu_torch.backends.base import resolve_device
 from distributed_optimization_tpu_torch.config import MATRIX_FREE_AUTO_N
 from distributed_optimization_tpu_torch.ops import fc_kernels, ring_kernels
 from distributed_optimization_tpu_torch.ops.robust_aggregation import slot_sum
+from distributed_optimization_tpu_torch.ops.rounding import scalar
 from distributed_optimization_tpu_torch.parallel.topology import (
     NEIGHBOR_TABLE_MAX_CELLS,
     Topology,
@@ -88,7 +89,7 @@ def _grid_stencil(topo: Topology) -> MixingOp:
              + torch.roll(g, 1, -2) + torch.roll(g, -1, -2))
         return s.reshape(x.shape)
 
-    return MixingOp(topo.name, "stencil", lambda x: w * (x + shifts(x)), shifts)
+    return MixingOp(topo.name, "stencil", lambda x: scalar(w, x.dtype) * (x + shifts(x)), shifts)
 
 
 def _resolve_auto(topo: Topology) -> str:
@@ -112,7 +113,17 @@ def _slot_form(topo: Topology, impl: str, idx, w_slot, w_self, mask, *, device,
                dtype) -> MixingOp:
     """W x = w_self ⊙ x + Σ_s w_slot[:, s] ⊙ x[idx[:, s]] and A x = Σ_s
     mask[:, s] ⊙ x[idx[:, s]], each sum over the slots in slot order; the
-    [N, k] tables go to the device once."""
+    [N, k] tables go to the device once. In bfloat16 the gather form sums
+    its slots' float32 products in float32 and rounds once (the JAX
+    package's ``jnp.sum`` over the slot axis, its product fused), the
+    sparse form in bfloat16, an addition at a time (its ``segment_sum``)."""
+    acc = torch.promote_types(torch.float32, dtype) if impl == "gather" else dtype
+
+    def sum_slots(a, b):
+        """Σ_s a ⊙ b: in bfloat16 the gather form's products in float32,
+        unrounded, summed there (XLA fuses the product into the sum)."""
+        return slot_sum(a.to(acc) * b.to(acc)).to(dtype)
+
     def put(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -121,10 +132,10 @@ def _slot_form(topo: Topology, impl: str, idx, w_slot, w_self, mask, *, device,
     w_self = put(w_self)[:, None]
 
     def apply(x):
-        return w_self * x + slot_sum(w_slot * x[..., idx, :])
+        return w_self * x + sum_slots(w_slot, x[..., idx, :])
 
     def neighbor_sum(x):
-        return slot_sum(mask * x[..., idx, :])
+        return sum_slots(mask, x[..., idx, :])
 
     return MixingOp(topo.name, impl, apply, neighbor_sum)
 

@@ -38,6 +38,7 @@ from __future__ import annotations
 import math
 from typing import Union
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -60,6 +61,9 @@ def threefry2x32(key0: Word, key1: Word, c0: Word, c1: Word):
     behind ``jax.random``: ``(x0, x1)`` for the counter ``(c0, c1)``. Each
     word is a Python int or an int64 tensor in [0, 2³²), and tensors
     broadcast; the result is ints when every word is an int."""
+    tensors = [w for w in (key0, key1, c0, c1) if isinstance(w, torch.Tensor)]
+    if tensors and all(w.device.type == "cpu" for w in tensors):
+        return _threefry2x32_host(key0, key1, c0, c1)
     key0, key1 = key0 & MASK32, key1 & MASK32
     ks = (key0, key1, key0 ^ key1 ^ _KS_PARITY)
     x0 = (c0 + ks[0]) & MASK32
@@ -71,6 +75,33 @@ def threefry2x32(key0: Word, key1: Word, c0: Word, c1: Word):
         x0 = (x0 + ks[(group + 1) % 3]) & MASK32
         x1 = (x1 + ks[(group + 2) % 3] + group + 1) & MASK32
     return x0, x1
+
+
+def _threefry2x32_host(key0: Word, key1: Word, c0: Word, c1: Word):
+    """The same rounds for CPU tensors, on numpy uint32 arrays, whose
+    additions wrap at 2³² unmasked: a few times fewer operations than the
+    int64 tensor form, each cheaper on the small draws of a CPU run. Returns
+    int64 CPU tensors of the words' broadcast shape."""
+    def u32(w):
+        w = w.numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+        return (w.astype(np.int64) & MASK32).astype(np.uint32)
+
+    words = np.broadcast_arrays(*(u32(w) for w in (key0, key1, c0, c1)))
+    shape = words[0].shape
+    # At least 1-d: a 0-d operation gives a numpy scalar, which warns where
+    # it wraps.
+    k0, k1, x0, x1 = (np.atleast_1d(w).copy() for w in words)
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(_KS_PARITY))
+    x0 += ks[0]
+    x1 += ks[1]
+    for group in range(5):
+        for r in _ROTATIONS[4 * (group % 2): 4 * (group % 2) + 4]:
+            x0 += x1
+            x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+        x0 += ks[(group + 1) % 3]
+        x1 += ks[(group + 2) % 3]
+        x1 += np.uint32(group + 1)
+    return tuple(torch.from_numpy(x.astype(np.int64).reshape(shape)) for x in (x0, x1))
 
 
 def _words(key: Key):

@@ -8,7 +8,8 @@ Ports of the Pallas TPU kernels in
 - ``ring_mix(x)`` ← ``ring_mix`` (:137): W x on the MH ring;
 - ``ring_neighbor_sum(x)`` ← ``ring_neighbor_sum`` (:177): A x on the ring.
 
-Each takes a contiguous ``[N, d]`` float32 or float64 tensor with N >= 3.
+Each takes a contiguous ``[N, d]`` float32, float64 or bfloat16 tensor
+with N >= 3.
 For a CUDA tensor it launches the kernel of ``csrc/ring_kernels.cu`` on the
 current stream, or raises; for a CPU tensor it runs the plain PyTorch
 version beside it (``*_plain``), which the kernel matches bit for bit.
@@ -17,8 +18,8 @@ The three share one kernel, a flat stencil: on the row-major array,
 ``roll(x, ±1, 0)`` is a shift by ∓d over the N·d elements, wrapping at
 the ends, so element e reads e − d and e + d (each moved by N·d where it
 falls outside) with no integer division; ``ring_neighbor_sum`` reads only
-those two, the other two x_e as well. A thread takes 4 float32 or 2
-float64 elements as one 16-byte load and store; the neighbours are vectors
+those two, the other two x_e as well. A thread takes 4 float32, 2
+float64 or 8 bfloat16 elements as one 16-byte load and store; the neighbours are vectors
 too when d is a multiple of that width, else one scalar load per element,
 each with its own wrap. A tensor whose address is not 16-byte aligned (a
 view at an odd offset) takes the one-element instance of the same kernel.
@@ -26,7 +27,11 @@ The grid takes up to 64 full waves (8 blocks of 256 a multiprocessor) and
 loops beyond that; stores are evict-first; indices are 32-bit below 2³¹
 elements and 64-bit above. The sums keep the plain version's order,
 ``((x_e + x_prev) + x_next)·⅓`` then ``− (η·g_e)``, each rounded on its
-own, and ``x_prev + x_next`` for the neighbour sum. A tensor-core form
+own, and ``x_prev + x_next`` for the neighbour sum. In bfloat16 each
+operation is computed in float32 and rounded to bfloat16 at once, ⅓ and
+η·g included (⅓ is bfloat16(1/3), as the JAX package's weak-typed ``1/3``
+rounds): PyTorch's bfloat16 operations, and the JAX package's on the CPU,
+round so. A tensor-core form
 would sum the three products in another order, so there is none.
 
 ``launch_floor`` launches an empty kernel through the same interface, so
@@ -49,8 +54,11 @@ import functools
 import torch
 
 from distributed_optimization_tpu_torch.ops import _cuda_build
+from distributed_optimization_tpu_torch.ops.rounding import scalar
 
 THIRD = 1.0 / 3.0
+# The kernels' instances (csrc/ring_kernels.cu).
+SUFFIX = _cuda_build.SUFFIX_BF16
 
 SOURCE = _cuda_build.CSRC / "ring_kernels.cu"
 
@@ -63,10 +71,12 @@ KERNELS = ("fused_ring_dsgd_step", "ring_mix", "ring_neighbor_sum")
 
 def ring_mix_plain(x: torch.Tensor) -> torch.Tensor:
     """The worker axis is −2, so a leading replica axis passes through."""
-    return (x + torch.roll(x, 1, -2) + torch.roll(x, -1, -2)) * THIRD
+    return (x + torch.roll(x, 1, -2) + torch.roll(x, -1, -2)) * scalar(THIRD, x.dtype)
 
 
 def fused_ring_dsgd_step_plain(x: torch.Tensor, g: torch.Tensor, eta) -> torch.Tensor:
+    if not isinstance(eta, torch.Tensor):
+        eta = scalar(eta, x.dtype)
     return ring_mix_plain(x) - eta * g
 
 
@@ -80,7 +90,7 @@ def ring_neighbor_sum_plain(x: torch.Tensor) -> torch.Tensor:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument types of the three kernels' C functions."""
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    for suffix in ("f32", "f64"):
+    for suffix in SUFFIX.values():
         fused = getattr(lib, f"fused_ring_dsgd_step_{suffix}")
         fused.argtypes = [ptr, ptr, ptr, ptr, i64, i64, ptr]
         fused.restype = ctypes.c_int
@@ -110,7 +120,7 @@ def reset_launch_counts() -> None:
 
 
 def _check_state(x: torch.Tensor, what: str = "x") -> None:
-    _cuda_build.check_stack(x, what)
+    _cuda_build.check_stack(x, what, SUFFIX)
     if x.shape[0] < 3:
         raise ValueError(f"the ring kernels need N >= 3 workers, got {x.shape[0]}")
 
@@ -120,7 +130,7 @@ def launch(lib: ctypes.CDLL, name: str, x: torch.Tensor, *args: torch.Tensor) ->
     ``args``; returns its output. Checks nothing."""
     out = torch.empty_like(x)
     _cuda_build.call(lib, name, x, *(a.data_ptr() for a in (x, *args)),
-                     out.data_ptr(), x.shape[0], x.shape[1])
+                     out.data_ptr(), x.shape[0], x.shape[1], suffixes=SUFFIX)
     return out
 
 

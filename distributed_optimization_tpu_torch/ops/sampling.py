@@ -7,7 +7,8 @@ JAX package's batches bit for bit through ``ops/prng.py``, the twin of
 the iteration ``t``, then the worker (``worker_keys``); each worker scores
 its L rows with ``uniform(worker_key, (L,))`` in the run dtype, −inf on
 padding rows (``masked_scores``). A float64 run draws 64-bit uniforms, as
-the JAX package does under its float64 runs' ``enable_x64``.
+the JAX package does under its float64 runs' ``enable_x64``; a bfloat16
+run is no x64 run and draws the float32 run's uniforms (``score_dtype``).
 
 These are the plain versions. The run loop goes through
 ``ops/sampling_kernels.py``, which launches the card's sampling kernel on a
@@ -30,9 +31,9 @@ to the lower row index (a stable descending sort). The dense form returns
 ``[N, L]`` weights carrying ``1/b_eff`` on the chosen rows; the gather form
 returns the chosen rows' indices, which ``gather_batches`` takes
 (``sample_worker_batches`` does both). The
-weight is ``1/b_eff`` computed in the run dtype, rounded to float32 and
-cast back, as the JAX package's sampler returns float32 weights that its
-backend casts to the run dtype.
+weight is ``1/b_eff`` computed in the score dtype, rounded to float32 and
+cast to the run dtype, as the JAX package's sampler returns float32
+weights that its backend casts to the run dtype.
 """
 
 from __future__ import annotations
@@ -44,6 +45,12 @@ from distributed_optimization_tpu_torch.ops.prng import threefry2x32  # noqa: F4
 
 # The event clock's stream tag, folded into the run's key.
 ASYNC_BATCH_TAG = 0xA57E
+
+
+def score_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a run of ``dtype`` draws its scores in: the key's, float64
+    under x64 (float64 runs), else float32 (bfloat16 runs too)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def stacked(slot_key) -> bool:
@@ -63,10 +70,10 @@ def worker_keys(slot_key, t: int | torch.Tensor, n_workers: int, device) -> torc
 def masked_scores(
     slot_key, t: int | torch.Tensor, n_valid: torch.Tensor, n_local: int, dtype: torch.dtype
 ) -> torch.Tensor:
-    """``[N, L]`` uniform ranking scores in ``dtype`` (``[R, N, L]`` for R
-    slot keys); −inf on padding rows."""
+    """``[N, L]`` uniform ranking scores in ``score_dtype(dtype)`` (``[R,
+    N, L]`` for R slot keys); −inf on padding rows."""
     keys = worker_keys(slot_key, t, n_valid.shape[0], n_valid.device)
-    scores = prng.uniform(keys, (n_local,), dtype)
+    scores = prng.uniform(keys, (n_local,), score_dtype(dtype))
     rows = torch.arange(n_local, device=n_valid.device)
     return torch.where(rows[None, :] < n_valid[:, None], scores, float("-inf"))
 
@@ -77,8 +84,9 @@ def _effective_batch(batch_size: int, n_valid: torch.Tensor, n_local: int):
 
 
 def batch_weight(effective: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """1/max(b_eff, 1) in ``dtype``, rounded through float32."""
-    inv = 1.0 / torch.clamp(effective, min=1).to(dtype)
+    """1/max(b_eff, 1) in the score dtype, rounded through float32, in
+    ``dtype``."""
+    inv = 1.0 / torch.clamp(effective, min=1).to(score_dtype(dtype))
     return inv.to(torch.float32).to(dtype)
 
 
@@ -173,7 +181,7 @@ def event_batch_indices(base_key, cursor: torch.Tensor, workers: torch.Tensor,
     if descent is not None:
         key = prng.fold_in(key, descent)
     nv = n_valid.index_select(0, worker)
-    scores = prng.uniform(key, (n_local,), dtype).to(n_valid.device)
+    scores = prng.uniform(key, (n_local,), score_dtype(dtype)).to(n_valid.device)
     rows = torch.arange(n_local, device=n_valid.device)
     u = torch.where(rows[None, :] < nv[:, None], scores, float("-inf"))
     order = torch.sort(u[0], descending=True, stable=True).indices

@@ -31,6 +31,12 @@ capture from the graph's pool).
 for the tests; ``_select`` runs the kernel's selection on given scores on the
 card. Nothing on a run's path calls either.
 
+A bfloat16 run draws as a float32 run (its key is no x64 key): float32
+scores, the float32 weight cast to bfloat16, rows copied as 2-byte values;
+the weights and gather forms have bfloat16 instances, the event mode has
+none. Labels go along as their bits: the run dtype's, or softmax's int32
+class indices (int32 in every run dtype).
+
 The shared library is built at first use by ``ops/_cuda_build.py``.
 ``LAUNCHES`` maps each kernel to its launches on the card, which the kernel
 counts where it runs (``_cuda_build.LaunchCounts``); the gather form counts
@@ -84,8 +90,15 @@ KERNELS = ("sample_worker_batch_weights", "sample_worker_batches", "sample_event
 BINS = 256              # a radix digit of 8 bits
 SURVIVOR_SLACK = 128    # survivors beyond k that end the radix passes
 # Bits of the selection key's score, the mantissa plus one: 2^23 (float32)
-# and 2^52 (float64) at most.
-SCORE_BITS = {torch.float32: 24, torch.float64: 53}
+# and 2^52 (float64) at most. They follow the key, not the run dtype: a
+# bfloat16 run draws float32 scores.
+SCORE_BITS = {torch.float32: 24, torch.float64: 53, torch.bfloat16: 24}
+# The C entry points' instances: the weights and gather forms in three
+# dtypes, the event mode in float32 and float64.
+SUFFIX = _cuda_build.SUFFIX_BF16
+EVENT_SUFFIX = _cuda_build.SUFFIX
+# The label dtypes besides the run dtype: softmax's int32 class indices.
+LABEL_DTYPES = (torch.int32,)
 
 
 @functools.lru_cache(maxsize=1)
@@ -94,20 +107,22 @@ def _library() -> ctypes.CDLL:
     ptr, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
     head = [ptr, u32, u32, ptr, i64, i64, i64]  # t, k0, k1, n_valid, N, L, b
     batch_head = [ptr, ptr, i64, ptr, i64, i64, i64]  # t, keys, R, n_valid, N, L, b
-    for suffix in ("f32", "f64"):
+    for suffix in SUFFIX.values():
+        # sample_batches: ..., d, X, y, w, Xb, yb, y_bytes
         for name, rest in (("sample_weights", [ptr]), ("sample_indices", [ptr, ptr]),
-                           ("sample_batches", [i64, ptr, ptr, ptr, ptr, ptr])):
+                           ("sample_batches", [i64, ptr, ptr, ptr, ptr, ptr, i64])):
             for form, first in (("", head), ("_batch", batch_head)):
                 fn = getattr(lib, f"{name}{form}_{suffix}")
                 fn.argtypes = first + rest + [ptr, ptr]  # ..., workspace, stream
                 fn.restype = ctypes.c_int
-        fn = getattr(lib, f"sample_event_{suffix}")
-        # cursor, workers, steps, n_events, events, tau, descent, k0, k1,
-        # n_valid, L, b, d, X, y, idx, w, Xb, yb, xstride, vstride,
-        # workspace, stream
-        fn.argtypes = ([ptr] * 3 + [i64] * 4 + [u32, u32, ptr] + [i64] * 3 + [ptr] * 6
-                       + [i64, i64, ptr, ptr])
-        fn.restype = ctypes.c_int
+        if suffix in EVENT_SUFFIX.values():
+            fn = getattr(lib, f"sample_event_{suffix}")
+            # cursor, workers, steps, n_events, events, tau, descent, k0, k1,
+            # n_valid, L, b, d, X, y, idx, w, Xb, yb, y_bytes, xstride,
+            # vstride, workspace, stream
+            fn.argtypes = ([ptr] * 3 + [i64] * 4 + [u32, u32, ptr] + [i64] * 3 + [ptr] * 6
+                           + [i64, i64, i64, ptr, ptr])
+            fn.restype = ctypes.c_int
         fn = getattr(lib, f"select_top_{suffix}")
         fn.argtypes = [ptr, i64, i64, i64, i64, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
@@ -144,8 +159,7 @@ def _check(slot_key, t, n_valid: torch.Tensor, n_local: int, batch_size: int,
         raise ValueError(f"t lies on {t.device}, n_valid on {n_valid.device}")
     if n_valid.dtype != torch.int64 or n_valid.dim() != 1 or not n_valid.is_contiguous():
         raise ValueError("n_valid must be a contiguous int64 [N] tensor")
-    if dtype not in _cuda_build.SUFFIX:
-        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+    _cuda_build.check_dtype(dtype, SUFFIX, "the sampler's dtype")
     if n_local < 1 or batch_size < 1:
         raise ValueError(f"the shard length ({n_local}) and batch ({batch_size}) must be positive")
 
@@ -164,7 +178,7 @@ def workspace_for(n: int, n_local: int, batch_size: int, dtype: torch.dtype,
 def _workspace_bytes(n: int, n_local: int, batch_size: int, dtype: torch.dtype) -> int:
     if n < 1 or n_local < 1 or batch_size < 1:
         return 0
-    return getattr(_library(), f"select_workspace_bytes_{_cuda_build.SUFFIX[dtype]}")(
+    return getattr(_library(), f"select_workspace_bytes_{SUFFIX[dtype]}")(
         n, n_local, batch_size)
 
 
@@ -185,7 +199,7 @@ def _call(name: str, out: torch.Tensor, slot_key, t, n_valid, n_local, batch_siz
                      n_valid.data_ptr(), n_valid.shape[0], n_local, batch_size, *args,
                      workspace.data_ptr() if workspace is not None else None,
                      invalid=f"{name} refuses a shard of {n_local} rows with a batch of "
-                             f"{batch_size} in {out.dtype}")
+                             f"{batch_size} in {out.dtype}", suffixes=SUFFIX)
 
 
 def sample_worker_batch_weights(slot_key, t, n_valid: torch.Tensor, n_local: int,
@@ -229,10 +243,11 @@ def sample_worker_batches(slot_key, t, X: torch.Tensor, y: torch.Tensor, n_valid
     _check(slot_key, t, n_valid, n_local, batch_size, X.dtype)
     lead = _lead(slot_key)
     Xb = torch.empty(lead + (n, batch_size, d), dtype=X.dtype, device=X.device)
-    yb = torch.empty(lead + (n, batch_size), dtype=X.dtype, device=X.device)
+    yb = torch.empty(lead + (n, batch_size), dtype=y.dtype, device=X.device)
     w = torch.empty(lead + (n, batch_size), dtype=X.dtype, device=X.device)
     _call("sample_batches", w, slot_key, t, n_valid, n_local, batch_size, d,
-          X.data_ptr(), y.data_ptr(), w.data_ptr(), Xb.data_ptr(), yb.data_ptr())
+          X.data_ptr(), y.data_ptr(), w.data_ptr(), Xb.data_ptr(), yb.data_ptr(),
+          y.element_size())
     return Xb, yb, w
 
 
@@ -252,8 +267,7 @@ def _check_event(base_key, cursor, workers, steps, n_valid: torch.Tensor, n_loca
         raise ValueError("the cursor holds one element; workers and steps one an event")
     if n_valid.dtype != torch.int64 or n_valid.dim() != 1 or not n_valid.is_contiguous():
         raise ValueError("n_valid must be a contiguous int64 [N] tensor")
-    if dtype not in _cuda_build.SUFFIX:
-        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+    _cuda_build.check_dtype(dtype, EVENT_SUFFIX, "the event sampler's dtype")
     if n_local < 1 or batch_size < 1:
         raise ValueError(f"the shard length ({n_local}) and batch ({batch_size}) must be positive")
     first, count = (-1, 1) if descents is None else descents
@@ -271,7 +285,8 @@ EVENT_ALIGN = 256
 class EventBlock(NamedTuple):
     """A block's batches, ``Xb [B, τ, b, d]``, ``yb [B, τ, b]`` and ``w [B,
     τ, b]``: views of padded storage, each draw's rows EVENT_ALIGN-aligned
-    (``Xb[e, m]`` is a contiguous [b, d])."""
+    (``Xb[e, m]`` is a contiguous [b, d]); yb in the labels' dtype, its
+    draws as many elements apart as w's."""
 
     Xb: torch.Tensor
     yb: torch.Tensor
@@ -285,16 +300,18 @@ def _padded(width: int, dtype: torch.dtype) -> int:
 
 
 def event_block_buffer(events: int, tau: int, batch_size: int, d: int, dtype: torch.dtype,
-                       device) -> EventBlock:
+                       device, label_dtype: torch.dtype | None = None) -> EventBlock:
     """The buffer a run's blocks of ``events`` events at ``tau`` draws each
-    write into (allocated once a run)."""
+    write into (allocated once a run); the labels in ``label_dtype``
+    (``dtype`` by default)."""
     draws = events * tau
 
-    def part(width, shape):
-        store = torch.empty((draws, _padded(width, dtype)), dtype=dtype, device=device)
+    def part(width, shape, kind=dtype):
+        store = torch.empty((draws, _padded(width, dtype)), dtype=kind, device=device)
         return store[:, :width].view(events, tau, *shape)
 
-    return EventBlock(part(batch_size * d, (batch_size, d)), part(batch_size, (batch_size,)),
+    return EventBlock(part(batch_size * d, (batch_size, d)),
+                      part(batch_size, (batch_size,), label_dtype or dtype),
                       part(batch_size, (batch_size,)))
 
 
@@ -307,29 +324,32 @@ def _event_launch(base_key, cursor, workers, steps, X, y, n_valid, n_local, batc
                      base_key[0] & 0xFFFFFFFF, base_key[1] & 0xFFFFFFFF, n_valid.data_ptr(),
                      n_local, batch_size, d, *(v.data_ptr() if v is not None else None
                                                for v in (X, y, idx, w, Xb, yb)),
-                     xstride, vstride,
+                     y.element_size() if y is not None else 0, xstride, vstride,
                      workspace.data_ptr() if workspace is not None else None,
                      invalid=f"sample_event refuses a shard of {n_local} rows with a batch of "
-                             f"{batch_size} in {w.dtype}")
+                             f"{batch_size} in {w.dtype}", suffixes=EVENT_SUFFIX)
 
 
 def _check_shards(X: torch.Tensor, y: torch.Tensor, n_valid: torch.Tensor) -> None:
+    """X a contiguous [N, L, d] stack; y contiguous [N, L] labels in X's
+    dtype or int32 (softmax's class indices), on X's device."""
     if X.dim() != 3 or not X.is_contiguous():
         raise ValueError(f"X must be a contiguous [N, L, d] tensor, got shape {tuple(X.shape)}")
-    _cuda_build.check_like(y, X, "y")
+    _cuda_build.check_like(y, X, "y", dtype=y.dtype if y.dtype in LABEL_DTYPES else None)
     n, n_local, _ = X.shape
     if y.shape != (n, n_local) or n_valid.shape[0] != n or X.device != n_valid.device:
         raise ValueError(f"X {tuple(X.shape)}, y {tuple(y.shape)} and n_valid "
                          f"{tuple(n_valid.shape)} must share N and L and lie on one card")
 
 
-def _check_buffer(out: EventBlock, events: int, tau: int, b: int, d: int, X) -> None:
-    """``out`` is ``event_block_buffer(events, tau, b, d)`` of X's dtype on
-    X's device: each draw's Xb a contiguous [b, d], every draw
-    ``stride(0) / tau`` elements after the one before (yb's and w's alike)."""
-    ok = all(part.dtype == X.dtype and part.device == X.device and part.stride(0) % tau == 0
+def _check_buffer(out: EventBlock, events: int, tau: int, b: int, d: int, X, y) -> None:
+    """``out`` is ``event_block_buffer(events, tau, b, d)`` of X's dtype (its
+    labels of y's) on X's device: each draw's Xb a contiguous [b, d], every
+    draw ``stride(0) / tau`` elements after the one before (yb's and w's
+    alike)."""
+    ok = all(part.dtype == kind and part.device == X.device and part.stride(0) % tau == 0
              and (tau == 1 or part.stride(1) * tau == part.stride(0))
-             for part in out)
+             for part, kind in zip(out, (X.dtype, y.dtype, X.dtype)))
     ok = ok and out.Xb.shape == (events, tau, b, d) and out.Xb.stride()[2:] == (d, 1)
     ok = ok and all(part.shape == (events, tau, b) and part.stride(2) == 1
                     for part in out[1:]) and out.yb.stride(0) == out.w.stride(0)
@@ -355,8 +375,8 @@ def sample_event_block(base_key, cursor, workers, steps, X: torch.Tensor, y: tor
         _check_event(base_key, cursor, workers, steps, n_valid, X.shape[1], batch_size, X.dtype,
                      events, None if descents is None else (0, tau))
     if out is None:
-        out = event_block_buffer(events, tau, batch_size, d, X.dtype, X.device)
-    _check_buffer(out, events, tau, batch_size, d, X)
+        out = event_block_buffer(events, tau, batch_size, d, X.dtype, X.device, y.dtype)
+    _check_buffer(out, events, tau, batch_size, d, X, y)
     if n_valid.device.type == "cpu":
         for part, plain in zip(out, sampling.sample_event_block(
                 base_key, cursor, workers, steps, X, y, n_valid, batch_size, events, descents)):
@@ -400,7 +420,7 @@ def sample_event_batch(base_key, cursor, workers, steps, X: torch.Tensor, y: tor
     _check_event(base_key, cursor, workers, steps, n_valid, n_local, batch_size, X.dtype, 1,
                  descents)
     Xb = torch.empty((1, batch_size, d), dtype=X.dtype, device=X.device)
-    yb = torch.empty((1, batch_size), dtype=X.dtype, device=X.device)
+    yb = torch.empty((1, batch_size), dtype=y.dtype, device=X.device)
     w = torch.empty((1, batch_size), dtype=X.dtype, device=X.device)
     _event_launch(base_key, cursor, workers, steps, X, y, n_valid, n_local, batch_size, d, 1,
                   descents, None, w, Xb, yb, batch_size * d, batch_size)
@@ -424,7 +444,7 @@ def _select(scores: torch.Tensor, batch_size: int, dtype: torch.dtype,
                      cluster, idx.data_ptr(),
                      workspace.data_ptr() if workspace is not None else None,
                      invalid=f"select_top refuses N={n}, L={n_local}, b={batch_size}, "
-                             f"cluster {cluster}")
+                             f"cluster {cluster}", suffixes=SUFFIX)
     return idx
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,10 +49,11 @@ class HostDataset:
 @dataclasses.dataclass(frozen=True)
 class DeviceDataset:
     """Stacked, padded per-worker shards: ``X [N, L, d]``, ``y [N, L]``,
-    ``n_valid [N]``; rows at index >= n_valid[i] are zero padding."""
+    ``n_valid [N]``; rows at index >= n_valid[i] are zero padding. X and y
+    are numpy arrays, or CPU torch tensors in bfloat16 (``stack_shards``)."""
 
-    X: np.ndarray
-    y: np.ndarray
+    X: np.ndarray | torch.Tensor
+    y: np.ndarray | torch.Tensor
     n_valid: np.ndarray
 
     @property
@@ -249,7 +251,7 @@ def generate_synthetic_dataset(config) -> HostDataset:
         y = y.astype(np.float64) * 2.0 - 1.0
     elif config.problem_type == "softmax":
         # The logistic generator with K classes; the labels stay the class
-        # indices 0 … K−1, stored as floats (stack_shards).
+        # indices 0 … K−1 (stored as int32 on the device: stack_shards).
         if config.n_classes > 2**config.n_informative_features:
             raise ValueError(
                 f"n_classes ({config.n_classes}) exceeds what "
@@ -303,19 +305,31 @@ def generate_synthetic_dataset(config) -> HostDataset:
 def stack_shards(dataset: HostDataset, dtype=np.float32) -> DeviceDataset:
     """Stack the ragged shards into zero-padded ``[N, L, d]`` arrays.
 
-    Every ``y`` is stored in the run dtype, softmax's class indices too:
-    they are exact up to 2²⁴ in float32, so the gather sampling kernel
-    copies them with the rows, and the loss casts them to int64. (The JAX
-    package stores them as int32, against bfloat16's rounding, which the
-    port does not have.)"""
+    ``dtype`` names the run dtype (a string, numpy or torch dtype). X and a
+    scalar family's y are stored in it; softmax's labels are class indices,
+    stored as int32 in every dtype, as the JAX package stores them (under
+    bfloat16 every odd label above 256 would round). numpy has no
+    bfloat16, so a bfloat16 stack is stacked in float64 and cast by torch,
+    bit for bit the JAX package's ml_dtypes cast: X and y are then CPU
+    torch tensors (y int32 numpy under softmax), f32/f64 stacks numpy
+    arrays."""
     n = dataset.n_workers
     d = dataset.n_features
     sizes = np.array([len(idx) for idx in dataset.shard_indices], dtype=np.int32)
     L = int(sizes.max()) if n else 0
-    X = np.zeros((n, L, d), dtype=dtype)
-    y = np.zeros((n, L), dtype=dtype)
+    name = (str(dtype).removeprefix("torch.") if isinstance(dtype, (str, torch.dtype))
+            else np.dtype(dtype).name)
+    bf16 = name == "bfloat16"
+    stack = np.dtype(np.float64 if bf16 else name)
+    softmax = dataset.problem_type == "softmax"
+    X = np.zeros((n, L, d), dtype=stack)
+    y = np.zeros((n, L), dtype=np.int32 if softmax else stack)
     for i in range(n):
         Xi, yi = dataset.shard(i)
         X[i, : sizes[i]] = Xi
         y[i, : sizes[i]] = yi
+    if bf16:
+        X = torch.from_numpy(X).to(torch.bfloat16)
+        if not softmax:
+            y = torch.from_numpy(y).to(torch.bfloat16)
     return DeviceDataset(X=X, y=y, n_valid=sizes)

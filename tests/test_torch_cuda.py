@@ -2060,3 +2060,190 @@ def test_cuda_async_graph_run_is_bitwise_its_uncaptured_run(cuda_device, graph_d
         np.testing.assert_allclose(graph.final_models, host.final_models, rtol=1e-12,
                                    atol=1e-12)
         assert graph.total_floats_transmitted == host.total_floats_transmitted
+
+
+# --- bfloat16 -----------------------------------------------------------------
+#
+# The bfloat16 instances of the ring, fc and both sampling kernels: the ring
+# kernels bitwise their plain versions at every residue of d and N·d modulo 8
+# (the bfloat16 vector width), on a misaligned view and at the compute-bound
+# width; the fc kernels bitwise the mirror of their order and within a
+# bfloat16 ulp of the twin (both sum in float32 and round once; the neighbour
+# sum rounds its total, then the difference); the samplers' indices, weights,
+# rows and int32 labels bitwise the twin, the weights the float32 draw's
+# cast; a bfloat16 graph run bitwise its measured run with its launches
+# counted; every wrapper without a bfloat16 instance raises a TypeError
+# naming it, on the card, with no fallback.
+
+BF16_RING_SHAPES = [(3, 1), (5, 8), (7, 6), (9, 7), (11, 5), (13, 3), (37, 12), (256, 41),
+                    (256, 81), (256, 1024), (8, 2_097_664)]
+
+
+def _bf16_ulp(v):
+    """A bfloat16 ulp of each |v| (float32)."""
+    a = v.abs().float().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_RING_SHAPES)
+def test_cuda_ring_kernels_bfloat16_bitwise(cuda_device, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    x = torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    g = (30 * torch.randn(shape, generator=gen, device=cuda_device)).to(torch.bfloat16)
+    eta = torch.tensor([0.05 / 7.0], device=cuda_device).to(torch.bfloat16)
+    rk.reset_launch_counts()
+    for got, want in ((rk.fused_ring_dsgd_step(x, g, eta), rk.fused_ring_dsgd_step_plain(x, g, eta)),
+                      (rk.ring_mix(x), rk.ring_mix_plain(x)),
+                      (rk.ring_neighbor_sum(x), rk.ring_neighbor_sum_plain(x))):
+        assert got.dtype == torch.bfloat16 and torch.equal(got.view(torch.int16),
+                                                            want.view(torch.int16))
+    assert rk.LAUNCHES == {name: 1 for name in rk.KERNELS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(9, 7), (256, 81), (256, 1024)])
+def test_cuda_ring_kernels_bfloat16_on_a_misaligned_view(cuda_device, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    n, d = shape
+    buf = torch.randn(n * d + 1, generator=gen, device=cuda_device).to(torch.bfloat16)
+    x = buf[1:].view(n, d)
+    assert x.data_ptr() % 16 != 0
+    g = torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    eta = torch.tensor([0.013], device=cuda_device).to(torch.bfloat16)
+    assert torch.equal(rk.fused_ring_dsgd_step(x, g, eta), rk.fused_ring_dsgd_step_plain(x, g, eta))
+    assert torch.equal(rk.ring_mix(x), rk.ring_mix_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", fk.KERNELS)
+@pytest.mark.parametrize("shape", [(3, 1), (9, 7), (25, 81), (256, 41), (256, 81), (1024, 1000),
+                                   (4096, 1024)])
+def test_cuda_fc_kernels_bfloat16(cuda_device, name, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    x = (4 * torch.randn(shape, generator=gen, device=cuda_device)).to(torch.bfloat16)
+    got = getattr(fk, name)(x)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, fk.MIRRORS[name](x, fk.plan_for(name, x)))
+    want = getattr(fk, f"{name}_plain")(x)
+    total = x.float().sum(0, keepdim=True).expand_as(x)
+    tol = _bf16_ulp(got) if name == "fc_mix" else _bf16_ulp(total) + _bf16_ulp(got)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 49, 16), (25, 500, 16), (9, 7, 16), (5, 1, 4),
+                                   (4, 1100, 16), (4, 9000, 16)])
+def test_cuda_sampling_kernels_bfloat16_bitwise(cuda_device, shape):
+    """The float32 run's selection, its weights cast, the rows copied, and
+    int32 labels copied bit for bit."""
+    n, L, b = shape
+    nv = _sampling_n_valid(cuda_device, n, L, b)
+    X, _ = _rows(cuda_device, n, L, torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(24)
+    labels = torch.randint(0, 512, (n, L), generator=gen, device=cuda_device,
+                           dtype=torch.int32)
+    t = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    for seed in (0, 2**31 - 1):
+        key = prng.fold_in(prng.key(seed, x64=False), 0)
+        for counter in (0, 12_345):
+            t.fill_(counter)
+            w = sk.sample_worker_batch_weights(key, t, nv, L, b, torch.bfloat16)
+            assert torch.equal(w, sampling.sample_worker_batch_weights(key, t, nv, L, b,
+                                                                       torch.bfloat16))
+            assert torch.equal(w, sk.sample_worker_batch_weights(key, t, nv, L, b,
+                                                                 torch.float32).to(torch.bfloat16))
+            want = sampling.sample_batch_indices(key, t, nv, L, b, torch.bfloat16)
+            assert _same(sk.sample_batch_indices(key, t, nv, L, b, torch.bfloat16), want)
+            got = sk.sample_worker_batches(key, t, X, labels, nv, b)
+            assert got[1].dtype == torch.int32 and got[2].dtype == torch.bfloat16
+            assert _same(got, (*sampling.gather_batches(X, labels, want[0]), want[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_gather_sampler_copies_int32_labels(cuda_device, dtype):
+    """Softmax's labels are int32 in every run dtype: the gather form copies
+    them beside float32 and float64 rows bit for bit."""
+    n, L, b = 25, 500, 16
+    nv = _sampling_n_valid(cuda_device, n, L, b)
+    X, _ = _rows(cuda_device, n, L, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(25)
+    labels = torch.randint(0, 512, (n, L), generator=gen, device=cuda_device, dtype=torch.int32)
+    key = prng.fold_in(prng.key(203, x64=dtype == torch.float64), 0)
+    t = torch.full((1,), 7, dtype=torch.int64, device=cuda_device)
+    got = sk.sample_worker_batches(key, t, X, labels, nv, b)
+    assert _same(got, sampling.sample_worker_batches(key, t, X, labels, nv, b))
+
+
+BF16_GRAPH_RUNS = {
+    "dsgd-ring-pallas-dense": dict(mixing_impl="pallas", sampling_impl="dense",
+                                   n_samples=800),
+    "gt-ring-pallas": dict(algorithm="gradient_tracking", mixing_impl="pallas"),
+    "admm-fc-pallas": dict(algorithm="admm", topology="fully_connected", mixing_impl="pallas"),
+    "dsgd-ring-drops": dict(edge_drop_prob=0.2, straggler_prob=0.1),
+    "dsgd-softmax-ring-pallas": dict(problem_type="softmax", n_classes=7, mixing_impl="pallas"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BF16_GRAPH_RUNS))
+def test_cuda_bfloat16_graph_run_is_bitwise_its_measured_run(cuda_device, graph_data, name):
+    base, _, _ = graph_data["sorted"]
+    from distributed_optimization_tpu_torch.utils.data import generate_synthetic_dataset
+    from distributed_optimization_tpu_torch.utils.oracle import compute_reference_optimum
+
+    cfg = base.replace(dtype="bfloat16", n_iterations=200, eval_every=10,
+                       **BF16_GRAPH_RUNS[name])
+    ds = generate_synthetic_dataset(cfg)
+    f_opt = compute_reference_optimum(ds, cfg.reg_param)[1]
+    graph, graph_launches = _counted_run(cfg, ds, f_opt)
+    eager, eager_launches = _counted_run(cfg, ds, f_opt, measure_timestamps=True)
+    np.testing.assert_array_equal(graph.history.objective, eager.history.objective)
+    np.testing.assert_array_equal(graph.final_models, eager.final_models)
+    assert graph_launches == eager_launches
+    T = cfg.n_iterations
+    want = {k: 0 for k in graph_launches}
+    want.update({"dsgd-ring-pallas-dense": {"fused_ring_dsgd_step": T,
+                                            "sample_worker_batch_weights": T},
+                 "gt-ring-pallas": {"ring_mix": 2 * T, "sample_worker_batches": T},
+                 "admm-fc-pallas": {"fc_neighbor_sum": T + 1, "sample_worker_batches": T},
+                 "dsgd-ring-drops": {"realize_round": T, "sample_worker_batches": T},
+                 "dsgd-softmax-ring-pallas": {"fused_ring_dsgd_step": T,
+                                              "sample_worker_batches": T}}[name])
+    assert graph_launches == want
+    assert np.all(np.isfinite(graph.history.objective))
+    assert graph.history.objective[-1] < graph.history.objective[0]
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_without_a_bfloat16_instance_raise(cuda_device):
+    """Robust, compression, noise, slot round and event entry: a TypeError
+    naming bfloat16 on the card, never the twin."""
+    x = torch.randn((16, 5), device=cuda_device).to(torch.bfloat16)
+    nbr, _ = neighbor_table(np.roll(np.eye(16), 1, 1) + np.roll(np.eye(16), -1, 1))
+    agg = bk.make_fused_robust_aggregator("trimmed_mean", 1, nbr, device=cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        agg(torch.ones(nbr.shape, device=cuda_device), x)
+    comp = compression.make_compressor("top_k", 5, 2)
+    t = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    draw = compression.Draw(compression.tag_key(1, x64=False), t, 0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ck.ef_compress(comp, draw, x, torch.zeros_like(x))
+    with pytest.raises(TypeError, match="bfloat16"):
+        dk.large_noise(prng.key(1, x64=False), t, torch.ones(16, dtype=torch.uint8,
+                                                             device=cuda_device), x, 1.0)
+    from distributed_optimization_tpu_torch.parallel import faults
+    from distributed_optimization_tpu_torch.parallel.topology import build_topology
+
+    topo = build_topology("ring", 16, impl="neighbor")
+    tables = faults.slot_tables(topo.nbr_idx, topo.nbr_mask, device=cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        dk.realize_slot_round(t, tables, weights=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        sk.sample_event_batch(sampling.event_key(1, x64=False), t,
+                              torch.zeros(4, dtype=torch.int64, device=cuda_device),
+                              torch.zeros(4, dtype=torch.int64, device=cuda_device),
+                              x.reshape(4, 4, 5).contiguous(),
+                              torch.zeros((4, 4), dtype=torch.bfloat16, device=cuda_device),
+                              torch.full((4,), 4, dtype=torch.int64, device=cuda_device), 2)

@@ -273,6 +273,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     for path in files:
         for module in _imports(path):
             root = module.split(".")[0]
-            assert root not in ("jax", "jaxlib", "distributed_optimization_tpu"), (
+            # Nor ml_dtypes or scikit-learn: the card's machine has neither.
+            assert root not in ("jax", "jaxlib", "distributed_optimization_tpu", "ml_dtypes",
+                                "sklearn"), (
                 f"{path.relative_to(REPO)} imports {module}"
             )

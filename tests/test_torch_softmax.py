@@ -1,7 +1,7 @@
 """The softmax family of the port against the JAX package.
 
 The weighted torch forms against ``ops/losses.py`` (float64, a non-square
-[d, K], the port's float labels against JAX's int32 ones), the numpy twins,
+[d, K], int32 labels in both), the numpy twins,
 the scipy oracle, the K-class data bit for bit, ``param_dim`` and the per-K
 cache, and runs on the CPU against ``jax_backend.run`` in float64 on the
 JAX package's own batches to 1e-12 (rtol and atol): the flat [N, d·K]
@@ -159,10 +159,11 @@ def test_dataset_is_the_reference_s_bit_for_bit():
         np.testing.assert_array_equal(ours.X_full, ref.X_full)
         for a, b in zip(ours.shard_indices, ref.shard_indices, strict=True):
             np.testing.assert_array_equal(a, b)
-    # The labels are class indices stored in the run dtype; JAX keeps int32.
+    # The labels are class indices stored as int32 in every run dtype, as
+    # the JAX package stores them.
     for dtype in (np.float32, np.float64):
         got, want = stack_shards(ours, dtype), ref_stack(ref, dtype)
-        assert got.y.dtype == dtype and want.y.dtype == np.int32
+        assert got.y.dtype == want.y.dtype == np.int32
         np.testing.assert_array_equal(got.y, want.y)
 
 

@@ -376,7 +376,18 @@ Phases:
     d4096_bf16 and d8192_bf16 cells (softmax K=512, N=8, b=2048, stencil
     and pallas): the 512 labels exact (int32), finite and decreasing over
     T=200, TFLOP/s = 4·N·b·d·K × iters/s against the dense bfloat16 peak of
-    989 TFLOP/s.
+    989 TFLOP/s. The robust and compression kernels' bfloat16 instances:
+    the robust kernels at the kernels phase's four inputs, every screen,
+    aggregator and step (count rules bitwise the twin, clipping within a
+    bfloat16 ulp and its step bf16(agg) − bf16(η·g) of its own aggregate),
+    timed at the ring and the ER N=64 table beside the float32 instance;
+    the compression kernel bitwise its twin at every shape and operator of
+    the compression phase, timed at main's shape beside float32. Then the
+    robust cell's fused trimmed mean under 10% edge drops (D-SGD T=1,000,
+    and GT T=500 for the aggregator) and choco_randk27 (T=1,000) in
+    bfloat16 beside float32, launches counted exactly, and the card
+    against the port's CPU run of each at T=100, the gap within
+    ``BF16_GAP_ULPS`` bfloat16 ulps.
 
 Every run goes through the port's run loop: after a warm-up chunk, CUDA
 graph replays (``backends/torch_backend.py``). The kernels count their own
@@ -417,6 +428,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -529,7 +541,9 @@ REPLACES.update({f"{name}, replica axis": REPLACES[name] for name in REPLICA_KER
 # The bfloat16 instances (the bfloat16 phase) of the ring, fc and sampling
 # kernels: the same sources, entry points suffixed _bf16.
 BF16_KERNELS = ("fused_ring_dsgd_step", "ring_mix", "ring_neighbor_sum", "fc_mix",
-                "fc_neighbor_sum", "sample_worker_batch_weights", "sample_worker_batches")
+                "fc_neighbor_sum", "sample_worker_batch_weights", "sample_worker_batches",
+                "make_fused_robust_aggregator", "make_fused_robust_dsgd_step",
+                "compress_exchange")
 REPLACES.update({f"{name}, bfloat16": REPLACES[name] for name in BF16_KERNELS})
 SOURCES.update({f"{name}, bfloat16": SOURCES[name] for name in BF16_KERNELS})
 # Floating-point operations per element of the [N, d] output.
@@ -930,6 +944,13 @@ BF16_SHORT_ITERATIONS = 500
 # (tests/torch_bfloat16_agreement.py); the models' largest difference is
 # printed.
 BF16_GAP_ULPS = 7
+# The bfloat16 layers: the robust cell's fused trimmed mean under 10% edge
+# drops (its GT form launches the aggregator) and choco_randk27, each in
+# bfloat16 beside float32, and the card against the port's CPU run of each
+# at BF16_CPU_ITERATIONS.
+BF16_LAYER_ITERATIONS = 1_000
+BF16_LAYER_SEEDS = (0, 2**31 - 1)
+BF16_LAYER_COUNTERS = (0, 2**32 + 5)
 COMPUTE_BOUND_TOL = {"gap": 1e-7, "models": 1e-4}
 # NVIDIA H100 SXM data sheet, dense: TF32 on the tensor cores (FP32 is
 # PEAK_FLOPS["float32"], outside them).
@@ -4273,6 +4294,28 @@ def ab_calls(torch, np, pkg, topology) -> dict:
         return lambda: m["ck"].ef_compress(comp, draw, v, memory)
 
     calls["compress_exchange"] = compress
+    # Every screen and the runs' compression operators in float32 and
+    # float64: the bfloat16 instances share these kernels' templates.
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).removeprefix("torch.")
+        x_d, g_d, eta_d = x_r.to(dtype), g_r.to(dtype), eta.to(dtype)
+        for rule, ct in SCREENS:
+            for factory, args in (("make_fused_robust_aggregator", ()),
+                                  ("make_fused_robust_dsgd_step", (g_d, eta_d))):
+                def robust_d(m, factory=factory, rule=rule, ct=ct, x_d=x_d, args=args):
+                    fn = getattr(m["bk"], factory)(rule, 1, nbr, ct, device=dev)
+                    return lambda: fn(live, x_d, *args)
+
+                calls[f"{factory}, {rule} tau={ct}, {dname}"] = robust_d
+        v_d, memory_d = compression_inputs(torch, n, d, dtype)
+        for operator, k in COMPRESSION_TIMED:
+            def compress_d(m, operator=operator, k=k, v_d=v_d, memory_d=memory_d, dtype=dtype):
+                c = m["ck"].compression
+                comp = c.make_compressor(operator, d, k)
+                draw = c.Draw(c.tag_key(203, x64=dtype == torch.float64), t, 0)
+                return lambda: m["ck"].ef_compress(comp, draw, v_d, memory_d)
+
+            calls[f"compress_exchange, {operator} k={k}, {dname}"] = compress_d
     fm = faults.make_faulty_mixing(pkg.build_topology("ring", 256), 0.2, 203,
                                    straggler_prob=0.1, device=dev)
     total = torch.zeros((), dtype=torch.float64, device=dev)
@@ -4330,7 +4373,8 @@ def phase_ab(torch, np, pkg, kernels, topology, baseline: str):
         n = getattr(new, "graph_n", TIMED_LAUNCHES)
         us = [graph_ms(torch, f, n=n) * 1e3 for f in (old, new, new, old)]
         change = min(us[1], us[2]) / min(us[0], us[3]) - 1.0
-        say(f"[ab] {name} (its path's input, float32): baseline {us[0]:.3f} {us[3]:.3f} us, "
+        say(f"[ab] {name} (float32 at its path's input unless named): baseline {us[0]:.3f} "
+            f"{us[3]:.3f} us, "
             f"this tree {us[1]:.3f} {us[2]:.3f} us a call in a graph of {n}: "
             f"{change * 100:+.1f}% (bitwise equal)")
     say(f"[ab] not compared: {', '.join(skipped) if skipped else 'none'}")
@@ -4880,6 +4924,221 @@ def bf16_kernel_records(torch, np, rk, fk, sk, sampling, prng, topology, card):
     return records
 
 
+def _bf16_card_vs_cpu(torch, np, pkg, cfg, ds, f_opt, label):
+    """``cfg`` in bfloat16 at BF16_CPU_ITERATIONS, an eval every 10, on the
+    card and through the port on the CPU: the gap within BF16_GAP_ULPS
+    bfloat16 ulps of f(x̄) at every eval; the models' difference printed."""
+    cfg = cfg.replace(dtype="bfloat16", n_iterations=BF16_CPU_ITERATIONS, eval_every=10)
+    card_run = pkg.run(cfg, ds, f_opt, device="cuda")
+    t0 = time.perf_counter()
+    host = pkg.run(cfg, ds, f_opt, device="cpu")
+    host_s = time.perf_counter() - t0
+    f_star = float(torch.tensor(f_opt, dtype=torch.float64).to(torch.bfloat16))
+    fx = np.abs(host.history.objective + f_star)
+    ulps = np.abs(card_run.history.objective - host.history.objective) / np.exp2(
+        np.floor(np.log2(np.maximum(fx, 2.0 ** -126))) - 7)
+    models = float(np.max(np.abs(card_run.final_models - host.final_models))
+                   / np.max(np.abs(host.final_models)))
+    say(f"[bfloat16] {label} T={cfg.n_iterations}, eval every 10, card vs the port's CPU run "
+        f"({host_s:.1f} s there): gap {float(ulps.max()):.1f} bfloat16 ulps of f(x) at most "
+        f"({int(np.sum(ulps > 0))} of {ulps.size} evals differ), models "
+        f"{'bitwise' if np.array_equal(card_run.final_models, host.final_models) else f'{models:.3e} of the largest |x|'}")
+    check(bool(np.all(ulps <= BF16_GAP_ULPS)),
+          f"bfloat16 {label} card vs CPU: the gap parts by {float(ulps.max()):.1f} ulps, beyond "
+          f"{BF16_GAP_ULPS}")
+
+
+def bf16_robust_records(torch, np, bk, topology, card):
+    """The robust kernels' bfloat16 instance against its twin at the kernels
+    phase's four inputs, every screen, aggregator and D-SGD step: the count
+    rules bitwise; clipping within a bfloat16 ulp of the twin (plus float32's
+    clipping tolerance: the norms sum in another float32 order) and its step
+    exactly bf16(agg) − bf16(η·g) of its own aggregate. At the ring and the
+    ER table (the paths' inputs) each is timed in a graph of 200 and
+    event-timed beside its plain version, the float32 instance in a graph on
+    the same values, and the bound of 2-byte elements at the float32 rate. Returns the records (ring, trimmed_mean), with the ER N=64
+    table's times."""
+    bf16 = torch.bfloat16
+    records, er_rows = {}, {}
+    for label, nbr_np, live_np, x_np in robust_inputs(np, topology):
+        n, k = nbr_np.shape
+        d = x_np.shape[1]
+        live = torch.as_tensor(live_np, device="cuda")
+        nbr64 = torch.as_tensor(nbr_np, dtype=torch.int64, device="cuda")
+        x = torch.as_tensor(x_np, dtype=torch.float32, device="cuda").to(bf16)
+        x32 = x.float()
+        tol32 = _robust_tol32(torch, x32, live, nbr64)
+        gen = torch.Generator(device="cuda").manual_seed(n + d)
+        g = (30 * torch.randn(x.shape, generator=gen, device="cuda")).to(bf16)
+        eta = torch.tensor([0.05 / 7.0], device="cuda").to(bf16)
+        g32, eta32 = g.float(), eta.float()
+        for rule, ct in SCREENS:
+            adaptive = rule == "clipped_gossip" and ct == 0.0
+            tau = torch.tensor([ct], dtype=torch.float32, device="cuda")
+            agg = bk.make_fused_robust_aggregator(rule, 1, nbr_np, ct, device="cuda")
+            step = bk.make_fused_robust_dsgd_step(rule, 1, nbr_np, ct, device="cuda")
+            variants = (
+                ("make_fused_robust_aggregator", lambda: agg(live, x), lambda: agg(live, x32),
+                 lambda: bk.fused_robust_plain(rule, 1, nbr64, live, x, tau, adaptive=adaptive),
+                 False),
+                ("make_fused_robust_dsgd_step", lambda: step(live, x, g, eta),
+                 lambda: step(live, x32, g32, eta32),
+                 lambda: bk.fused_robust_plain(rule, 1, nbr64, live, x, tau, adaptive=adaptive,
+                                               g=g, eta=eta), True),
+            )
+            for name, kernel, kernel32, plain, with_sgd in variants:
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                what = f"{name} {rule} tau={ct} {label} bfloat16"
+                check(got.dtype == bf16, f"{what}: not bfloat16")
+                err = float(torch.nan_to_num((got.float() - want.float()).abs()).max())
+                parted = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+                if rule in ("trimmed_mean", "median"):
+                    check(_nan_equal(torch, got, want), f"{what}: not bitwise its twin ({err:.3e})")
+                else:
+                    tol = _bf16_ulp(torch, want) + tol32
+                    if with_sgd:
+                        own = agg(live, x) - eta * g
+                        check(torch.equal(got.view(torch.int16), own.view(torch.int16)),
+                              f"{what}: not bf16(agg) - bf16(eta g) of its own aggregate")
+                        tol = tol + _bf16_ulp(torch, agg(live, x))
+                    check(bool(torch.all((got.float() - want.float()).abs() <= tol)),
+                          f"{what}: beyond a bfloat16 ulp of its twin ({err:.3e})")
+                if label not in ("ring", "er64"):  # the stress tables: checked, not timed
+                    continue
+                ms, in_graph = time_ms(torch, kernel), graph_ms(torch, kernel)
+                plain_ms, f32_graph = time_ms(torch, plain), graph_ms(torch, kernel32)
+                b_ms, b_by = robust_bound(rule, n, d, k, "float32", 2, with_sgd)
+                say(f"[bfloat16] {name[10:]} {rule[:8]} tau={ct} {label:8s} N={n} d={d} k={k}: "
+                    f"{'bitwise' if parted == 0 else f'{parted} elements within an ulp of'} its "
+                    f"twin; in a graph {in_graph * 1e3:.3f} us (float32 {f32_graph * 1e3:.3f} us), "
+                    f"event-timed {ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, bound "
+                    f"{b_ms * 1e3:.4f} us ({b_by}) ({card})")
+                if (label, rule, ct) == (*ROBUST_RECORD, 0.0):
+                    records[f"{name}, bfloat16"] = _record(
+                        f"{name}, bfloat16", err, ms, plain_ms, b_ms, b_by, None,
+                        graph_ms=in_graph, float32_graph_ms=f32_graph)
+                if (label, rule, ct) == ("er64", ROBUST_RECORD[1], 0.0):
+                    er_rows[f"{name}, bfloat16"] = dict(
+                        er64_graph_ms=in_graph, er64_ms=ms, er64_plain_ms=plain_ms,
+                        er64_bound_ms=b_ms, er64_float32_graph_ms=f32_graph)
+    for name, extra in er_rows.items():
+        records[name].update(extra)
+    return records
+
+
+def bf16_compression_records(torch, ck, card):
+    """The compression kernel's bfloat16 instance bitwise its twin (memory⁺
+    and the mask bits or qsgd levels) at every shape and operator of the
+    compression phase, seeds past 2³¹, t past 2³², rounds 0 and 1; then
+    the runs' operators at main's shape timed in a graph and event-timed
+    beside the plain version and the float32 instance. Returns the record
+    of COMPRESSION_RECORD."""
+    compression = ck.compression
+    bf16 = torch.bfloat16
+    t = torch.zeros(1, dtype=torch.int64, device="cuda")
+    checked = 0
+    for n, d in COMPRESSION_SHAPES:
+        v, memory = compression_inputs(torch, n, d, torch.float32)
+        v, memory = (4 * v).to(bf16), memory.to(bf16)
+        for name, k in COMPRESSION_OPERATORS:
+            comp = compression.make_compressor(name, d, d if k is None else k)
+            draws = ([(seed, counter, rnd) for seed in BF16_LAYER_SEEDS
+                      for counter in BF16_LAYER_COUNTERS for rnd in COMPRESSION_ROUNDS]
+                     if name != "top_k" else [(0, 0, 0)])
+            for seed, counter, rnd in draws:
+                t.fill_(counter)
+                draw = compression.Draw(compression.tag_key(seed, x64=False), t, rnd)
+                got = ck.ef_compress(comp, draw, v, memory)
+                out, levels = ck.ef_levels(comp, draw, v, memory)
+                want = compression.ef_compress_plain(comp, draw, v, memory)
+                check(got.dtype == bf16 and torch.equal(got.view(torch.int16), want.view(torch.int16))
+                      and torch.equal(out.view(torch.int16), got.view(torch.int16))
+                      and torch.equal(levels, ck.levels_plain(comp, draw, v, memory)),
+                      f"compression bfloat16 {name} k={comp.k} N={n} d={d} seed={seed} "
+                      f"t={counter} round={rnd}: not bitwise its twin")
+                checked += 1
+    say(f"[bfloat16] compression kernel bitwise its twin at {checked} inputs "
+        f"({len(COMPRESSION_SHAPES)} shapes, {len(COMPRESSION_OPERATORS)} operators, seeds "
+        f"{BF16_LAYER_SEEDS}, t {BF16_LAYER_COUNTERS}, rounds {COMPRESSION_ROUNDS}; memory⁺, "
+        f"mask bits and qsgd levels)")
+    n, d = MAIN_SHAPE
+    v, memory = compression_inputs(torch, n, d, torch.float32)
+    v, memory = (4 * v).to(bf16), memory.to(bf16)
+    v32, memory32 = v.float(), memory.float()
+    t.fill_(12_345)
+    draw = compression.Draw(compression.tag_key(203, x64=False), t, 0)
+    record = None
+    for name, k in COMPRESSION_TIMED:
+        comp = compression.make_compressor(name, d, k)
+        kernel = lambda: ck.ef_compress(comp, draw, v, memory)  # noqa: E731
+        kernel32 = lambda: ck.ef_compress(comp, draw, v32, memory32)  # noqa: E731
+        plain = lambda: compression.ef_compress_plain(comp, draw, v, memory)  # noqa: E731
+        got, want = kernel(), plain()
+        check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+              f"compression bfloat16 {name} timed input: not bitwise")
+        ms, in_graph = time_ms(torch, kernel), graph_ms(torch, kernel)
+        plain_ms, f32_graph = time_ms(torch, plain), graph_ms(torch, kernel32)
+        b_ms, b_by = compression_bound(name, n, d, k, 2)
+        say(f"[bfloat16] compress_exchange[{name} k={k}] N={n} d={d}: in a graph "
+            f"{in_graph * 1e3:.3f} us (float32 {f32_graph * 1e3:.3f} us), event-timed "
+            f"{ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, bound {b_ms * 1e3:.4f} us "
+            f"({b_by}) ({card})")
+        if (name, k) == COMPRESSION_RECORD:
+            record = _record("compress_exchange, bfloat16", 0.0, ms, plain_ms, b_ms, b_by, None,
+                             graph_ms=in_graph, float32_graph_ms=f32_graph)
+    return record
+
+
+def bf16_layer_runs(torch, np, pkg, counters, card, count):
+    """The robust cell's fused trimmed mean under 10% edge drops (D-SGD, and
+    GT for the aggregator) and choco_randk27 on main's data, in bfloat16
+    beside float32 with their launches counted exactly, and the card
+    against the port's CPU run of each at BF16_CPU_ITERATIONS: the gap
+    within BF16_GAP_ULPS bfloat16 ulps of f(x̄) at every eval."""
+    T = BF16_LAYER_ITERATIONS
+    attack = dict(attack="sign_flip", n_byzantine=12, attack_scale=5.0)
+    robust = robust_config(pkg, T).replace(**attack, aggregation="trimmed_mean", robust_b=1,
+                                           robust_impl="fused", edge_drop_prob=ROBUST_EDGE_DROP)
+    rds = pkg.generate_synthetic_dataset(robust)
+    _, r_opt = pkg.compute_reference_optimum(rds, robust.reg_param)
+    choco = pkg.ExperimentConfig(problem_type="logistic", topology="ring", n_workers=256,
+                                 eval_every=1, n_iterations=T, mixing_impl="pallas",
+                                 **COMPRESSION_RUNS["choco_randk27"][0])
+    cds = pkg.generate_synthetic_dataset(choco)
+    _, c_opt = pkg.compute_reference_optimum(cds, choco.reg_param)
+    gt = robust.replace(algorithm="gradient_tracking", n_iterations=BF16_SHORT_ITERATIONS)
+    # (label, config, data, f*, launches, the kernel it counts, whether the
+    # gap must decrease: GT's tracked gradient is not screened, and under
+    # the attack its gap grows in float32 as in bfloat16, as in the robust
+    # phase's GT run).
+    cells = (
+        ("robust edges10 trimmed_mean fused", robust, rds, r_opt,
+         {"make_fused_robust_dsgd_step": T, "realize_round": T}, "make_fused_robust_dsgd_step",
+         True),
+        ("robust edges10 GT trimmed_mean fused", gt, rds, r_opt,
+         {"make_fused_robust_aggregator": 2 * gt.n_iterations, "realize_round": gt.n_iterations},
+         "make_fused_robust_aggregator", False),
+        ("choco_randk27", choco, cds, c_opt, {"compress_exchange": T, "ring_mix": T,
+                                              "sample_worker_batch_weights": T},
+         "compress_exchange", True),
+    )
+    for label, cfg, data, opt, want, name, decreases in cells:
+        ips = {}
+        for dtype in ("float32", "bfloat16"):
+            run = _bf16_run if decreases else functools.partial(_converging_run, converges=False)
+            res, launches = run(torch, pkg, counters, cfg.replace(dtype=dtype), data, opt,
+                                f"bfloat16: {label} {dtype}")
+            ips[dtype] = res.history.iters_per_second
+            got = {key: launches[key] for key in want}
+            check(got == want, f"bfloat16 {label} {dtype}: launches {got}, not {want}")
+        h = res.history
+        say(f"[bfloat16] {label} T={cfg.n_iterations}: {ips['bfloat16']:.1f} iters/s (float32 "
+            f"{ips['float32']:.1f}), final gap {h.objective[-1]:.6f} ({card})")
+        count(name, launches, f"bfloat16: {label}, N=256, bfloat16, T={cfg.n_iterations}")
+        _bf16_card_vs_cpu(torch, np, pkg, cfg, data, opt, label)
+
+
 def _bf16_run(torch, pkg, counters, cfg, ds, f_opt, label):
     """One bfloat16 (or float32) run on the card with its launch counts:
     finite, decreasing; iters/s, the final gap and the iteration at ε."""
@@ -4936,25 +5195,8 @@ def phase_bfloat16(torch, np, pkg, kernels, topology, sampling, prng, card):
                     count("sample_worker_batch_weights", launches,
                           "bfloat16: main, N=256, dense sampling, bfloat16, once a step")
     # The card against the port's CPU run of the same config at a short T.
-    cfg = main.replace(dtype="bfloat16", mixing_impl="pallas", n_iterations=BF16_CPU_ITERATIONS,
-                       eval_every=10, sampling_impl="dense")
-    card_run = pkg.run(cfg, ds, f_opt, device="cuda")
-    t0 = time.perf_counter()
-    host = pkg.run(cfg, ds, f_opt, device="cpu")
-    host_s = time.perf_counter() - t0
-    f_star = float(torch.tensor(f_opt, dtype=torch.float64).to(torch.bfloat16))
-    fx = np.abs(host.history.objective + f_star)
-    ulps = np.abs(card_run.history.objective - host.history.objective) / np.exp2(
-        np.floor(np.log2(np.maximum(fx, 2.0 ** -126))) - 7)
-    models = float(np.max(np.abs(card_run.final_models - host.final_models))
-                   / np.max(np.abs(host.final_models)))
-    say(f"[bfloat16] main's config T={cfg.n_iterations}, eval every 10, card vs the port's CPU "
-        f"run ({host_s:.1f} s there): gap {float(ulps.max()):.1f} bfloat16 ulps of f(x) at most "
-        f"({int(np.sum(ulps > 0))} of {ulps.size} evals differ), models "
-        f"{'bitwise' if np.array_equal(card_run.final_models, host.final_models) else f'{models:.3e} of the largest |x|'}")
-    check(bool(np.all(ulps <= BF16_GAP_ULPS)),
-          f"bfloat16 card vs CPU: the gap parts by {float(ulps.max()):.1f} ulps, beyond "
-          f"{BF16_GAP_ULPS}")
+    _bf16_card_vs_cpu(torch, np, pkg, main.replace(mixing_impl="pallas", sampling_impl="dense"),
+                      ds, f_opt, "main's config")
     # Main's shapes under 20% drops and 10% stragglers: the floats the realized
     # edges carried are the float32 run's exactly (float32 W_t, the keys of a
     # float32 run).
@@ -4997,6 +5239,9 @@ def phase_bfloat16(torch, np, pkg, kernels, topology, sampling, prng, card):
         for name in want:
             if f"{name}, bfloat16" not in counted:
                 count(name, launches, f"bfloat16: {label}, pallas, bfloat16, T={S}")
+    records.update(bf16_robust_records(torch, np, kernels["bk"], topology, card))
+    records["compress_exchange, bfloat16"] = bf16_compression_records(torch, kernels["ck"], card)
+    bf16_layer_runs(torch, np, pkg, counters, card, count)
     compute_bound_bf16(torch, np, pkg, counters, card)
     return records, counted, paths
 

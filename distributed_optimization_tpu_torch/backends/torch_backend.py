@@ -62,10 +62,12 @@ and swept scalars are its own. Replica r is the sequential run of
 single run has no replica axis: its shapes, kernels and bits are as
 before.
 
-bfloat16 (``dtype='bfloat16'``, the synchronous single run on the dense
-graph): every operation rounds as the JAX package's bfloat16 run rounds
-it on the CPU. Elementwise operations round to bfloat16 one by one;
-reductions and products accumulate in float32 and round once (cuBLAS
+bfloat16 (``dtype='bfloat16'``, the synchronous single run: every
+algorithm, compression, attack and robust rule, the dense and the
+matrix-free graphs; not the event clock or the replica axis): every
+operation rounds as the JAX package's bfloat16 run rounds it on the CPU.
+Elementwise operations round to bfloat16 one by one; reductions and
+products accumulate in float32 and round once (cuBLAS
 bfloat16 with float32 accumulation, its reduced-precision reduction off),
 the last elementwise operation before a sum summed unrounded (XLA fuses
 it: the objective's weighted sums, the consensus, centralized's mean of the
@@ -74,7 +76,11 @@ gradients' last addition); every Python scalar is rounded to bfloat16 before it 
 f* is cast to bfloat16 before the subtraction, and the keys are the
 float32 run's. The fault layer keeps W_t, the active mask and the degree
 count in float32 and mixes in float32, those products in full FP32 (no
-TF32). The histories and final models come back as float64.
+TF32); the matrix-free mix contracts its slot sum into fused multiply-adds,
+as XLA's jitted mix does. The robust screens run in float32 and round the
+aggregate once; the compressors draw float32 uniforms, and qsgd sums its
+norm's squares in float32 and rounds the sum once. The histories and final
+models come back as float64.
 
 Timing: ``compile_seconds`` covers the algorithm's init, the warm-up chunk
 and the capture, synchronised. ``iters_per_second`` counts the

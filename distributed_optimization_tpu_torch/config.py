@@ -302,26 +302,19 @@ class ExperimentConfig:
 
     def _validate_bfloat16(self) -> None:
         """The compositions a bfloat16 run does not have yet: their kernels
-        (the robust screens, the compressor, the noise draw, the slot round
-        and gather mix, the event and replica entries) have no bfloat16
-        instance. Checked against the resolved values."""
+        (the event entry of the sampler, the replica entries of the
+        sampling, round and noise kernels) have no bfloat16 instance."""
         if self.dtype != "bfloat16":
             return
         for refused, what in (
             (self.execution == "async", "execution='async'"),
             (self.replicas > 1, f"replicas={self.replicas}"),
-            (self.algorithm == "choco", "algorithm='choco'"),
-            (self.compression != "none", f"compression={self.compression!r}"),
-            (self.attack != "none", f"attack={self.attack!r}"),
-            (self.aggregation != "gossip", f"aggregation={self.aggregation!r}"),
-            (self.resolved_topology_impl() == "neighbor",
-             "a matrix-free topology (topology_impl resolves to 'neighbor')"),
         ):
             if refused:
                 raise ValueError(
                     f"dtype='bfloat16' with {what}: the PyTorch port does not "
-                    "have it yet (bfloat16 runs the synchronous single run on "
-                    "the dense graph, without compression or Byzantine layers)"
+                    "have it yet (bfloat16 runs the synchronous single run, "
+                    "without the event clock or the replica axis)"
                 )
 
     def _validate_topology(self) -> None:

@@ -76,6 +76,18 @@
 //   that a second pass rereads them and draws as it goes.
 // k >= d keeps every column without a rank.
 //
+// bfloat16 (the *_bf16 entry points): v, memory and memory' are bfloat16,
+// and each operation is computed in float32 and rounded to bfloat16 at
+// once, as the JAX package's bfloat16 run rounds it on the CPU, except
+// where that run computes in float32: random_k and qsgd draw float32
+// uniforms (jax.random.uniform's default type; the warp and radix keys
+// then rank float32 mantissas), so qsgd's u < p_up compares in float32;
+// qsgd's norm sums the float32 squares in float32 (the order above) and
+// rounds the sum once to bfloat16 before the rounded square root
+// (jnp.linalg.norm's fused reduction). top_k ranks the 15 magnitude bits of
+// bf16(v - memory), ties to the lower column. omega is rounded to
+// bfloat16, as a weak-typed scalar.
+//
 // Each launch of ef_compress_* adds one to slot 0 of launch_counts.cuh
 // (compress_exchange, the order of KERNELS in ops/compression_kernels.py);
 // ef_levels_*, an entry point for the tests that also writes each element's
@@ -84,6 +96,7 @@
 // return cudaGetLastError(); N or d of 2^31 or more, an unknown operator or
 // k outside its range returns cudaErrorInvalidValue.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -115,14 +128,25 @@ struct Ops;
 template <>
 struct Ops<float> {
   using WideKey = uint64_t;
+  using Draw = float;  // the uniforms' type
+  using Sum = float;   // qsgd's sum of squares
   static constexpr int kMagnitudeBits = 31;
   static constexpr int kMantissaBits = 23;
   static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
   static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
   static __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
-  static __device__ __forceinline__ float sqrt(float a) { return __fsqrt_rn(a); }
   static __device__ __forceinline__ float of(double a) { return __double2float_rn(a); }
+  static __device__ __forceinline__ float abs(float a) { return fabsf(a); }
+  static __device__ __forceinline__ float floor(float a) { return floorf(a); }
+  static __device__ __forceinline__ bool positive(float a) { return a > 0.0f; }
+  static __device__ __forceinline__ bool below(float u, float p) { return u < p; }
+  static __device__ __forceinline__ float sign(float a) {
+    return static_cast<float>(static_cast<int>(a > 0.0f) - static_cast<int>(a < 0.0f));
+  }
+  static __device__ __forceinline__ int32_t level(float a) { return static_cast<int32_t>(a); }
+  static __device__ __forceinline__ float add_square(float acc, float a) { return add(acc, mul(a, a)); }
+  static __device__ __forceinline__ float root(float sum) { return __fsqrt_rn(sum); }
   // |a|'s bits, every NaN as the one value just above +inf.
   static __device__ __forceinline__ uint32_t magnitude(float a) {
     return min(__float_as_uint(fabsf(a)), 0x7F800001u);
@@ -137,14 +161,25 @@ struct Ops<float> {
 template <>
 struct Ops<double> {
   using WideKey = u128;
+  using Draw = double;
+  using Sum = double;
   static constexpr int kMagnitudeBits = 63;
   static constexpr int kMantissaBits = 52;
   static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
   static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
   static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
   static __device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
-  static __device__ __forceinline__ double sqrt(double a) { return __dsqrt_rn(a); }
   static __device__ __forceinline__ double of(double a) { return a; }
+  static __device__ __forceinline__ double abs(double a) { return fabs(a); }
+  static __device__ __forceinline__ double floor(double a) { return ::floor(a); }
+  static __device__ __forceinline__ bool positive(double a) { return a > 0.0; }
+  static __device__ __forceinline__ bool below(double u, double p) { return u < p; }
+  static __device__ __forceinline__ double sign(double a) {
+    return static_cast<double>(static_cast<int>(a > 0.0) - static_cast<int>(a < 0.0));
+  }
+  static __device__ __forceinline__ int32_t level(double a) { return static_cast<int32_t>(a); }
+  static __device__ __forceinline__ double add_square(double acc, double a) { return add(acc, mul(a, a)); }
+  static __device__ __forceinline__ double root(double sum) { return __dsqrt_rn(sum); }
   static __device__ __forceinline__ uint64_t magnitude(double a) {
     const uint64_t bits = static_cast<uint64_t>(__double_as_longlong(fabs(a)));
     return bits < 0x7FF0000000000001ull ? bits : 0x7FF0000000000001ull;
@@ -155,6 +190,44 @@ struct Ops<double> {
   static __device__ __forceinline__ double uniform(uint64_t m) {
     return __longlong_as_double(static_cast<long long>(m | 0x3FF0000000000000ull)) - 1.0;
   }
+};
+
+// bfloat16: each operation in float32, rounded to bfloat16 at once; the
+// draws, uniforms and qsgd's sum are float32's.
+template <>
+struct Ops<__nv_bfloat16> {
+  using B = __nv_bfloat16;
+  using WideKey = uint64_t;
+  using Draw = float;
+  using Sum = float;
+  static constexpr int kMagnitudeBits = 15;
+  static constexpr int kMantissaBits = Ops<float>::kMantissaBits;
+  static __device__ __forceinline__ float f(B a) { return __bfloat162float(a); }
+  static __device__ __forceinline__ B rn(float a) { return __float2bfloat16_rn(a); }
+  static __device__ __forceinline__ B add(B a, B b) { return rn(__fadd_rn(f(a), f(b))); }
+  static __device__ __forceinline__ B sub(B a, B b) { return rn(__fsub_rn(f(a), f(b))); }
+  static __device__ __forceinline__ B mul(B a, B b) { return rn(__fmul_rn(f(a), f(b))); }
+  static __device__ __forceinline__ B div(B a, B b) { return rn(__fdiv_rn(f(a), f(b))); }
+  // A double (omega, s) through float32, as PyTorch rounds a Python float
+  // to bfloat16.
+  static __device__ __forceinline__ B of(double a) { return rn(__double2float_rn(a)); }
+  static __device__ __forceinline__ B abs(B a) { return rn(fabsf(f(a))); }
+  static __device__ __forceinline__ B floor(B a) { return rn(floorf(f(a))); }
+  static __device__ __forceinline__ bool positive(B a) { return f(a) > 0.0f; }
+  static __device__ __forceinline__ bool below(float u, B p) { return u < f(p); }
+  static __device__ __forceinline__ B sign(B a) { return rn(Ops<float>::sign(f(a))); }
+  static __device__ __forceinline__ int32_t level(B a) { return static_cast<int32_t>(f(a)); }
+  // The square of a bfloat16 value is exact in float32; the sum is not
+  // rounded to bfloat16 until root.
+  static __device__ __forceinline__ float add_square(float acc, B a) {
+    return __fadd_rn(acc, __fmul_rn(f(a), f(a)));
+  }
+  static __device__ __forceinline__ B root(float sum) { return rn(__fsqrt_rn(f(rn(sum)))); }
+  static __device__ __forceinline__ uint32_t magnitude(B a) {
+    return min(static_cast<uint32_t>(__bfloat16_as_ushort(a) & 0x7FFFu), 0x7F81u);
+  }
+  static __device__ __forceinline__ uint32_t mantissa(uint2 w) { return Ops<float>::mantissa(w); }
+  static __device__ __forceinline__ float uniform(uint32_t m) { return Ops<float>::uniform(m); }
 };
 
 // Bits of a selection score: the magnitude (top_k) or the mantissa (random_k).
@@ -219,7 +292,7 @@ template <typename Real>
 __device__ __forceinline__ void write_masked(const Args<Real>& a, int64_t at, Real mem, Real diff,
                                              bool keep) {
   using O = Ops<Real>;
-  a.out[at] = O::add(mem, O::mul(diff, keep ? Real(1) : Real(0)));
+  a.out[at] = O::add(mem, O::mul(diff, O::of(keep ? 1.0 : 0.0)));
   if (a.levels != nullptr) a.levels[at] = keep ? 1 : 0;
 }
 
@@ -240,8 +313,8 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes) warp_select_kernel(Ar
 #pragma unroll
   for (int h = 0; h < J; ++h) {
     const int c = lane + kLanes * h;
-    mem[h] = c < d ? a.memory[base + c] : Real(0);
-    diff[h] = c < d ? O::sub(a.v[base + c], mem[h]) : Real(0);
+    mem[h] = c < d ? a.memory[base + c] : O::of(0.0);
+    diff[h] = c < d ? O::sub(a.v[base + c], mem[h]) : O::of(0.0);
   }
   uint2 key = make_uint2(0u, 0u);
   if (kMode == kRandK) key = step_key(a);
@@ -372,20 +445,21 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes) warp_qsgd_kernel(Args
   const int d = a.d;
   const int64_t base = row * d;
   constexpr int kHeld = J > 0 ? J : 1;
-  Real mem[kHeld], diff[kHeld], u[kHeld];
+  Real mem[kHeld], diff[kHeld];
+  typename O::Draw u[kHeld];
   if constexpr (J > 0) {
 #pragma unroll
     for (int h = 0; h < J; ++h) {
       const int c = lane + kLanes * h;
-      mem[h] = c < d ? a.memory[base + c] : Real(0);
-      diff[h] = c < d ? O::sub(a.v[base + c], mem[h]) : Real(0);
+      mem[h] = c < d ? a.memory[base + c] : O::of(0.0);
+      diff[h] = c < d ? O::sub(a.v[base + c], mem[h]) : O::of(0.0);
     }
   }
   const uint2 key = step_key(a);
   auto uniform_at = [&](int64_t at) {
     return O::uniform(O::mantissa(threefry_at(key.x, key.y, static_cast<uint64_t>(at))));
   };
-  Real acc = Real(0);
+  typename O::Sum acc = 0;
   if constexpr (J > 0) {
     // The draws need only the step key: drawn first, their Threefry calls
     // overlap the sum and the butterfly.
@@ -393,32 +467,29 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes) warp_qsgd_kernel(Args
     for (int h = 0; h < J; ++h) u[h] = uniform_at(base + lane + kLanes * h);
 #pragma unroll
     for (int h = 0; h < J; ++h) {
-      if (lane + kLanes * h < d) acc = O::add(acc, O::mul(diff[h], diff[h]));
+      if (lane + kLanes * h < d) acc = O::add_square(acc, diff[h]);
     }
   } else {
 #pragma unroll 4
     for (int64_t c = lane; c < d; c += kLanes) {
-      const Real x = O::sub(a.v[base + c], a.memory[base + c]);
-      acc = O::add(acc, O::mul(x, x));
+      acc = O::add_square(acc, O::sub(a.v[base + c], a.memory[base + c]));
     }
   }
 #pragma unroll
   for (int offset = kLanes / 2; offset > 0; offset /= 2) {
-    acc = O::add(acc, __shfl_xor_sync(kFullMask, acc, offset));
+    acc = Ops<typename O::Sum>::add(acc, __shfl_xor_sync(kFullMask, acc, offset));
   }
-  const Real norm = O::sqrt(acc);
-  const Real scale = norm > Real(0) ? norm : Real(1);
-  const Real s = static_cast<Real>(1u << a.k);
+  const Real norm = O::root(acc);
+  const Real scale = O::positive(norm) ? norm : O::of(1.0);
+  const Real s = O::of(static_cast<double>(1u << a.k));
   const Real weight = O::mul(O::of(a.omega), norm);
-  auto quantize = [&](int64_t at, Real m, Real df, Real uu) {
-    const Real level = O::mul(O::div(fabs(df), scale), s);
-    const Real low = floor(level);
-    const Real up = uu < O::sub(level, low) ? Real(1) : Real(0);
+  auto quantize = [&](int64_t at, Real m, Real df, typename O::Draw uu) {
+    const Real level = O::mul(O::div(O::abs(df), scale), s);
+    const Real low = O::floor(level);
+    const Real up = O::of(O::below(uu, O::sub(level, low)) ? 1.0 : 0.0);
     const Real lev = O::add(low, up);
-    const Real sign = static_cast<Real>(static_cast<int>(df > Real(0)) -
-                                        static_cast<int>(df < Real(0)));
-    a.out[at] = O::add(m, O::mul(O::mul(weight, sign), O::div(lev, s)));
-    if (a.levels != nullptr) a.levels[at] = static_cast<int32_t>(lev);
+    a.out[at] = O::add(m, O::mul(O::mul(weight, O::sign(df)), O::div(lev, s)));
+    if (a.levels != nullptr) a.levels[at] = O::level(lev);
   };
   if constexpr (J > 0) {
 #pragma unroll
@@ -532,6 +603,12 @@ int ef_compress_f64(const void* v, const void* memory, void* out, int64_t n, int
   return launch<double>(v, memory, out, nullptr, n, d, mode, k, t, k0, k1, round, omega,
                         kSlotCompress, stream);
 }
+int ef_compress_bf16(const void* v, const void* memory, void* out, int64_t n, int64_t d,
+                     int64_t mode, int64_t k, const void* t, uint32_t k0, uint32_t k1,
+                     uint32_t round, double omega, void* stream) {
+  return launch<__nv_bfloat16>(v, memory, out, nullptr, n, d, mode, k, t, k0, k1, round, omega,
+                               kSlotCompress, stream);
+}
 // For the tests and chip_smoke.py: the same update, and each element's mask
 // bit or qsgd level into levels ([N, d] int32); counts no launch.
 int ef_levels_f32(const void* v, const void* memory, void* out, void* levels, int64_t n,
@@ -545,6 +622,12 @@ int ef_levels_f64(const void* v, const void* memory, void* out, void* levels, in
                   uint32_t round, double omega, void* stream) {
   return launch<double>(v, memory, out, levels, n, d, mode, k, t, k0, k1, round, omega, kNoSlot,
                         stream);
+}
+int ef_levels_bf16(const void* v, const void* memory, void* out, void* levels, int64_t n,
+                   int64_t d, int64_t mode, int64_t k, const void* t, uint32_t k0, uint32_t k1,
+                   uint32_t round, double omega, void* stream) {
+  return launch<__nv_bfloat16>(v, memory, out, levels, n, d, mode, k, t, k0, k1, round, omega,
+                               kNoSlot, stream);
 }
 
 }  // extern "C"

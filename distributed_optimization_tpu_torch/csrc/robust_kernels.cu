@@ -58,6 +58,21 @@
 // count rules are bitwise equal to the plain version; clipping's norm is a
 // reduction over d in another order, so there the two agree to a tolerance.
 //
+// bfloat16 (fused_robust_bf16): the rows are stored in bfloat16 and the
+// screen runs in float32, as _fused_robust_body does (promote(float32,
+// bfloat16) is float32): every load widens to float32, the sort network,
+// the trimmed sum and divisor, the median's 0.5 * (lo + hi), the clipping
+// norms, radius, weights and factors are the float32 instance's operations,
+// and tau is float32. The aggregate is rounded once to bfloat16; the D-SGD
+// form then computes bf16(agg) - bf16(eta * g) with eta bfloat16, each
+// operation in float32 and rounded to bfloat16 at once, as the Pallas
+// kernel's agg.astype(dtype) - eta_ref[0] * g_ref[:] rounds (and as
+// ring_kernels.cu's Rn<__nv_bfloat16>). Where a row allows it (d % 8 == 0
+// and x, g and out 16-byte aligned), a thread moves 8 elements a 16-byte
+// access: the count rules take 8 columns a thread (sort width <= 8), and
+// warp clipping 8 consecutive columns a lane; otherwise one element an
+// access. The float32 and float64 instances take one element an access.
+//
 // Bound: memory for the count rules on a ring (x, g and out once, nbr and
 // live once: at N=256, d=41, k_max=2 in float32 about 130 KB, 0.04 us); the
 // sort network's 2 * (compare-exchanges) operations per element bound them
@@ -68,9 +83,12 @@
 // launch_counts.cuh: slot 0 the aggregator (g null), 1 the D-SGD step (the
 // order of KERNELS in ops/robust_kernels.py).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <cfloat>
+#include <cstring>
+#include <type_traits>
 #include <utility>
 
 #include "launch_counts.cuh"
@@ -133,6 +151,86 @@ __device__ __forceinline__ T vmax(T a, T b) {
   return (a != a || b != b) ? Num<T>::nan() : Num<T>::fmax(a, b);
 }
 
+// The stored element type S and the working type T the screen runs in:
+// promote(float32, S), so S itself for float and double, and float for
+// bfloat16. load widens an element, store rounds a working value to S, and
+// step is the D-SGD form's agg - eta * g, each operation rounded as the
+// plain version rounds it.
+template <typename S> struct Storage {
+  using T = S;
+  static __device__ __forceinline__ T load(S a) { return a; }
+  static __device__ __forceinline__ S store(T a) { return a; }
+  static __device__ __forceinline__ S step(T agg, S eta, S g) {
+    return Num<T>::sub(agg, Num<T>::mul(eta, g));
+  }
+};
+
+template <> struct Storage<__nv_bfloat16> {
+  using S = __nv_bfloat16;
+  using T = float;
+  static __device__ __forceinline__ T load(S a) { return __bfloat162float(a); }
+  static __device__ __forceinline__ S store(T a) { return __float2bfloat16_rn(a); }
+  // bf16(agg) - bf16(eta * g): the product of two bfloat16 values is exact
+  // in float32, so each operation rounds once.
+  static __device__ __forceinline__ S step(T agg, S eta, S g) {
+    const float prod = __bfloat162float(__float2bfloat16_rn(__fmul_rn(load(eta), load(g))));
+    return __float2bfloat16_rn(__fsub_rn(load(store(agg)), prod));
+  }
+};
+
+// V consecutive elements at p as working values, and back: one 16-byte
+// access when V * sizeof(S) == 16 (p then 16-byte aligned), else V loads.
+template <typename S, int V>
+__device__ __forceinline__ void load_vec(const S* p, typename Storage<S>::T* out) {
+  if constexpr (V * sizeof(S) == 16) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    S e[V];
+    memcpy(e, &raw, sizeof(raw));
+#pragma unroll
+    for (int q = 0; q < V; ++q) out[q] = Storage<S>::load(e[q]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < V; ++q) out[q] = Storage<S>::load(p[q]);
+  }
+}
+
+template <typename S, int V>
+__device__ __forceinline__ void store_vec(S* p, const S* in) {
+  if constexpr (V * sizeof(S) == 16) {
+    uint4 raw;
+    memcpy(&raw, in, sizeof(raw));
+    *reinterpret_cast<uint4*>(p) = raw;
+  } else {
+#pragma unroll
+    for (int q = 0; q < V; ++q) p[q] = in[q];
+  }
+}
+
+// The aggregate of V columns written as S: itself, or with g the D-SGD
+// step agg - eta * g.
+template <typename S, int V>
+__device__ __forceinline__ void write_out(S* out, const S* g, const S* eta,
+                                          const typename Storage<S>::T* agg) {
+  S res[V];
+  if (g == nullptr) {
+#pragma unroll
+    for (int q = 0; q < V; ++q) res[q] = Storage<S>::store(agg[q]);
+  } else {
+    S gv[V];
+    if constexpr (V * sizeof(S) == 16) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(g);
+      memcpy(gv, &raw, sizeof(raw));
+    } else {
+#pragma unroll
+      for (int q = 0; q < V; ++q) gv[q] = g[q];
+    }
+    const S e = eta[0];
+#pragma unroll
+    for (int q = 0; q < V; ++q) res[q] = Storage<S>::step(agg[q], e, gv[q]);
+  }
+  store_vec<S, V>(out, res);
+}
+
 // The odd-even transposition network of _sort_columns over v[0..width).
 template <typename T>
 __device__ __forceinline__ void sort_network(T* v, int width) {
@@ -192,12 +290,15 @@ enum Rule { kTrimmedMean = 0, kMedian = 1 };
 // 128 / strip rows, so at most this many rows.
 constexpr int kCountRows = 4;
 
-template <typename T, int W>
+// V columns a thread (V = 8 for 16-byte bfloat16 accesses, else 1); the
+// block's x extent counts V-column units.
+template <typename S, int W, int V>
 __global__ void count_rule_kernel(int rule, int budget, const int32_t* __restrict__ nbr,
-                                  const float* __restrict__ live, const T* __restrict__ x,
-                                  const T* __restrict__ g, const T* __restrict__ eta,
-                                  T* __restrict__ out, int64_t n, int64_t d) {
+                                  const float* __restrict__ live, const S* __restrict__ x,
+                                  const S* __restrict__ g, const S* __restrict__ eta,
+                                  S* __restrict__ out, int64_t n, int64_t d) {
   launch_counts::add(g == nullptr ? 0 : 1);
+  using T = typename Storage<S>::T;
   constexpr int K = W - 1;
   __shared__ int32_t s_nbr[kCountRows][K];
   __shared__ T s_live[kCountRows][K];
@@ -208,7 +309,7 @@ __global__ void count_rule_kernel(int rule, int budget, const int32_t* __restric
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.y + ty;
   const bool in_rows = i < n;
 
-  const int64_t j = static_cast<int64_t>(blockIdx.y) * blockDim.x + tx;
+  const int64_t j = (static_cast<int64_t>(blockIdx.y) * blockDim.x + tx) * V;
   const bool in_cols = in_rows && j < d;
   const int64_t e = i * d + j;
   if (in_rows && tx < K) {
@@ -219,16 +320,31 @@ __global__ void count_rule_kernel(int rule, int budget, const int32_t* __restric
     s_live[ty][tx] = static_cast<T>(lf);
     s_nbr[ty][tx] = lf > 0.0f ? nb : -1;
   }
-  const T self = in_cols ? x[e] : T(0);
+  T self[V];
+  if (in_cols) {
+    load_vec<S, V>(x + e, self);
+  } else {
+#pragma unroll
+    for (int q = 0; q < V; ++q) self[q] = T(0);
+  }
   __syncthreads();
   // Every element's neighbour loads are in flight while one thread a row
   // turns its degree into the selection.
-  T v[W];
-  v[0] = self;
+  T v[V][W];
+#pragma unroll
+  for (int q = 0; q < V; ++q) v[q][0] = self[q];
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     const int32_t nb = s_nbr[ty][s];
-    v[s + 1] = in_cols && nb >= 0 ? x[static_cast<int64_t>(nb) * d + j] : Num<T>::inf();
+    T col[V];
+    if (in_cols && nb >= 0) {
+      load_vec<S, V>(x + static_cast<int64_t>(nb) * d + j, col);
+    } else {
+#pragma unroll
+      for (int q = 0; q < V; ++q) col[q] = Num<T>::inf();
+    }
+#pragma unroll
+    for (int q = 0; q < V; ++q) v[q][s + 1] = col[q];
   }
   if (in_rows && tx == 0) {
     T deg = T(0);
@@ -260,47 +376,51 @@ __global__ void count_rule_kernel(int rule, int budget, const int32_t* __restric
   __syncthreads();
   if (!in_cols) return;
 
-  bool has_nan = false;
+  T agg[V];
 #pragma unroll
-  for (int s = 0; s < W; ++s) has_nan |= v[s] != v[s];
-  if (has_nan) {
+  for (int q = 0; q < V; ++q) {
+    T* c = v[q];
+    bool has_nan = false;
 #pragma unroll
-    for (int p = 0; p < W; ++p) {
+    for (int s = 0; s < W; ++s) has_nan |= c[s] != c[s];
+    if (has_nan) {
 #pragma unroll
-      for (int a = p & 1; a < W - 1; a += 2) {
-        const T lo = vmin(v[a], v[a + 1]);
-        const T hi = vmax(v[a], v[a + 1]);
-        v[a] = lo;
-        v[a + 1] = hi;
+      for (int p = 0; p < W; ++p) {
+#pragma unroll
+        for (int a = p & 1; a < W - 1; a += 2) {
+          const T lo = vmin(c[a], c[a + 1]);
+          const T hi = vmax(c[a], c[a + 1]);
+          c[a] = lo;
+          c[a + 1] = hi;
+        }
       }
+    } else {
+      merge_sort<W>(c, std::make_integer_sequence<int, kMerge<W>.size>{});
     }
-  } else {
-    merge_sort<W>(v, std::make_integer_sequence<int, kMerge<W>.size>{});
-  }
 
-  T agg;
-  if (rule == kTrimmedMean) {
-    const int stop = s_pos[ty][0];
-    T total = T(0);
+    if (rule == kTrimmedMean) {
+      const int stop = s_pos[ty][0];
+      T total = T(0);
 #pragma unroll
-    for (int s = 0; s < W; ++s) {
-      if (s >= budget && s < stop) total = Num<T>::add(total, v[s]);
-    }
-    agg = s_pos[ty][1] ? Num<T>::div(total, s_den[ty]) : self;
-  } else {
-    const int lo_at = s_pos[ty][0];
-    const int hi_at = s_pos[ty][1];
-    T pick_lo = T(0), pick_hi = T(0);
+      for (int s = 0; s < W; ++s) {
+        if (s >= budget && s < stop) total = Num<T>::add(total, c[s]);
+      }
+      agg[q] = s_pos[ty][1] ? Num<T>::div(total, s_den[ty]) : self[q];
+    } else {
+      const int lo_at = s_pos[ty][0];
+      const int hi_at = s_pos[ty][1];
+      T pick_lo = T(0), pick_hi = T(0);
 #pragma unroll
-    for (int s = 0; s < W; ++s) {
-      pick_lo = s == lo_at ? v[s] : pick_lo;
-      pick_hi = s == hi_at ? v[s] : pick_hi;
+      for (int s = 0; s < W; ++s) {
+        pick_lo = s == lo_at ? c[s] : pick_lo;
+        pick_hi = s == hi_at ? c[s] : pick_hi;
+      }
+      // +0 + pick: the one-hot sum of the plain version, which turns -0 into +0.
+      agg[q] = Num<T>::mul(T(0.5), Num<T>::add(Num<T>::add(T(0), pick_lo),
+                                              Num<T>::add(T(0), pick_hi)));
     }
-    // +0 + pick: the one-hot sum of the plain version, which turns -0 into +0.
-    agg = Num<T>::mul(T(0.5), Num<T>::add(Num<T>::add(T(0), pick_lo),
-                                         Num<T>::add(T(0), pick_hi)));
   }
-  out[e] = g == nullptr ? agg : Num<T>::sub(agg, Num<T>::mul(eta[0], g[e]));
+  write_out<S, V>(out + e, g == nullptr ? nullptr : g + e, eta, agg);
 }
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -339,14 +459,17 @@ template <> struct Log2<1> { static constexpr int value = 0; };
 // k_max <= KB: the slots sit in registers, unrolled over KB. A lane past
 // k_max stands for a padded slot that points at i, with live 0 and factor
 // 1: its norm is never read, and it adds exact zeros to deg and to moved,
-// whose sums start at +0 and so are never -0.
-template <typename T, int KB>
+// whose sums start at +0 and so are never -0. A lane takes V consecutive
+// columns an access (V = 8 for 16-byte bfloat16 accesses, else 1).
+template <typename S, int KB, int V>
 __global__ void clip_warp_kernel(int budget, int adaptive, int k_max,
                                  const int32_t* __restrict__ nbr, const float* __restrict__ live,
-                                 const T* __restrict__ x, const T* __restrict__ tau_in,
-                                 const T* __restrict__ g, const T* __restrict__ eta,
-                                 T* __restrict__ out, int64_t n, int64_t d) {
+                                 const S* __restrict__ x,
+                                 const typename Storage<S>::T* __restrict__ tau_in,
+                                 const S* __restrict__ g, const S* __restrict__ eta,
+                                 S* __restrict__ out, int64_t n, int64_t d) {
   launch_counts::add(g == nullptr ? 0 : 1);
+  using T = typename Storage<S>::T;
   __shared__ T s_rank[kClipWarps][kWarpSlots];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -356,8 +479,8 @@ __global__ void clip_warp_kernel(int budget, int adaptive, int k_max,
   const int32_t nb = slot ? nbr[i * k_max + lane] : static_cast<int32_t>(i);
   const T lv = slot ? static_cast<T>(live[i * k_max + lane]) : T(0);
   const int dd = static_cast<int>(d);  // the host keeps d below 2^31
-  const T* xi = x + i * d;
-  const T* xs[KB];
+  const S* xi = x + i * d;
+  const S* xs[KB];
 #pragma unroll
   for (int s = 0; s < KB; ++s) xs[s] = x + static_cast<int64_t>(__shfl_sync(kFullMask, nb, s)) * d;
 
@@ -379,12 +502,18 @@ __global__ void clip_warp_kernel(int budget, int adaptive, int k_max,
   T part[KB];
 #pragma unroll
   for (int s = 0; s < KB; ++s) part[s] = T(0);
-  for (int j = lane; j < dd; j += 32) {
-    const T xij = xi[j];
+  for (int j = lane * V; j < dd; j += 32 * V) {
+    T xij[V];
+    load_vec<S, V>(xi + j, xij);
 #pragma unroll
     for (int s = 0; s < KB; ++s) {
-      const T diff = Num<T>::sub(xs[s][j], xij);
-      part[s] = Num<T>::add(part[s], Num<T>::mul(diff, diff));
+      T xsj[V];
+      load_vec<S, V>(xs[s] + j, xsj);
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const T diff = Num<T>::sub(xsj[q], xij[q]);
+        part[s] = Num<T>::add(part[s], Num<T>::mul(diff, diff));
+      }
     }
   }
   const T sq = reduce_scatter<KB>(part, lane);
@@ -428,18 +557,27 @@ __global__ void clip_warp_kernel(int budget, int adaptive, int k_max,
     w[s] = __shfl_sync(kFullMask, w_mine, s);
     fac[s] = __shfl_sync(kFullMask, fac_mine, s);
   }
-  T* oi = out + i * d;
-  const T* gi = g == nullptr ? nullptr : g + i * d;
-  for (int j = lane; j < dd; j += 32) {
-    const T xij = xi[j];
-    T moved = T(0);
+  S* oi = out + i * d;
+  const S* gi = g == nullptr ? nullptr : g + i * d;
+  for (int j = lane * V; j < dd; j += 32 * V) {
+    T xij[V], moved[V];
+    load_vec<S, V>(xi + j, xij);
+#pragma unroll
+    for (int q = 0; q < V; ++q) moved[q] = T(0);
 #pragma unroll
     for (int s = 0; s < KB; ++s) {
-      const T diff = Num<T>::sub(xs[s][j], xij);
-      moved = Num<T>::add(moved, Num<T>::mul(Num<T>::mul(w[s], diff), fac[s]));
+      T xsj[V];
+      load_vec<S, V>(xs[s] + j, xsj);
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const T diff = Num<T>::sub(xsj[q], xij[q]);
+        moved[q] = Num<T>::add(moved[q], Num<T>::mul(Num<T>::mul(w[s], diff), fac[s]));
+      }
     }
-    const T agg = Num<T>::add(xij, moved);
-    oi[j] = g == nullptr ? agg : Num<T>::sub(agg, Num<T>::mul(eta[0], gi[j]));
+    T agg[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) agg[q] = Num<T>::add(xij[q], moved[q]);
+    write_out<S, V>(oi + j, gi == nullptr ? nullptr : gi + j, eta, agg);
   }
 }
 
@@ -453,14 +591,16 @@ size_t clip_smem_bytes(int k_max) {
 constexpr int kThreads = 256;
 
 // Fixed-radius clipping for k_max > 32: one block a row, each warp taking
-// slots s = warp, warp + 8, ... for the norms.
-template <typename T>
+// slots s = warp, warp + 8, ... for the norms; one element an access.
+template <typename S>
 __global__ void clip_wide_kernel(int k_max, const int32_t* __restrict__ nbr,
-                                 const float* __restrict__ live, const T* __restrict__ x,
-                                 const T* __restrict__ tau_in, const T* __restrict__ g,
-                                 const T* __restrict__ eta, T* __restrict__ out, int64_t n,
-                                 int64_t d) {
+                                 const float* __restrict__ live, const S* __restrict__ x,
+                                 const typename Storage<S>::T* __restrict__ tau_in,
+                                 const S* __restrict__ g, const S* __restrict__ eta,
+                                 S* __restrict__ out, int64_t n, int64_t d) {
   launch_counts::add(g == nullptr ? 0 : 1);
+  using T = typename Storage<S>::T;
+  using St = Storage<S>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_lv = reinterpret_cast<T*>(smem);
   T* s_norm = s_lv + k_max;
@@ -473,7 +613,7 @@ __global__ void clip_wide_kernel(int k_max, const int32_t* __restrict__ nbr,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int n_warps = blockDim.x >> 5;
-  const T* xi = x + i * d;
+  const S* xi = x + i * d;
 
   for (int s = tid; s < k_max; s += blockDim.x) {
     s_nbr[s] = nbr[i * k_max + s];
@@ -482,10 +622,10 @@ __global__ void clip_wide_kernel(int k_max, const int32_t* __restrict__ nbr,
   __syncthreads();
 
   for (int s = warp; s < k_max; s += n_warps) {
-    const T* xs = x + static_cast<int64_t>(s_nbr[s]) * d;
+    const S* xs = x + static_cast<int64_t>(s_nbr[s]) * d;
     T sq = T(0);
     for (int64_t j = lane; j < d; j += 32) {
-      const T diff = Num<T>::sub(xs[j], xi[j]);
+      const T diff = Num<T>::sub(St::load(xs[j]), St::load(xi[j]));
       sq = Num<T>::add(sq, Num<T>::mul(diff, diff));
     }
     for (int off = 16; off > 0; off >>= 1) sq = Num<T>::add(sq, __shfl_xor_sync(kFullMask, sq, off));
@@ -506,51 +646,79 @@ __global__ void clip_wide_kernel(int k_max, const int32_t* __restrict__ nbr,
   __syncthreads();
 
   for (int64_t j = tid; j < d; j += blockDim.x) {
-    const T xij = xi[j];
+    const T xij = St::load(xi[j]);
     T moved = T(0);
     for (int s = 0; s < k_max; ++s) {
-      const T diff = Num<T>::sub(x[static_cast<int64_t>(s_nbr[s]) * d + j], xij);
+      const T diff = Num<T>::sub(St::load(x[static_cast<int64_t>(s_nbr[s]) * d + j]), xij);
       moved = Num<T>::add(moved, Num<T>::mul(Num<T>::mul(s_w[s], diff), s_fac[s]));
     }
     const T agg = Num<T>::add(xij, moved);
-    out[i * d + j] = g == nullptr ? agg : Num<T>::sub(agg, Num<T>::mul(eta[0], g[i * d + j]));
+    out[i * d + j] = g == nullptr ? St::store(agg) : St::step(agg, eta[0], g[i * d + j]);
   }
 }
 
-template <typename T, int W>
-int launch_count(int rule, int budget, const int32_t* nbr, const float* live, const T* x,
-                 const T* g, const T* eta, T* out, int64_t n, int64_t d, cudaStream_t stream) {
-  // Strips of at most 128 columns, as even as d allows, rounded up to whole
-  // warps; the rest of 128 threads take further rows.
-  const int64_t strips = (d + 127) / 128;
+// 8 bfloat16 elements a 16-byte access where every row and pointer allows
+// it; else one.
+template <typename S>
+bool vectorized(const void* x, const void* g, const void* out, int64_t d) {
+  if constexpr (!std::is_same_v<S, __nv_bfloat16>) {
+    return false;
+  } else {
+    auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
+    return d % 8 == 0 && aligned(x) && aligned(out) && (g == nullptr || aligned(g));
+  }
+}
+
+template <typename S, int W, int V>
+int launch_count(int rule, int budget, const int32_t* nbr, const float* live, const S* x,
+                 const S* g, const S* eta, S* out, int64_t n, int64_t d, cudaStream_t stream) {
+  // Strips of at most 128 units of V columns, as even as d allows, rounded
+  // up to whole warps; the rest of 128 threads take further rows.
+  const int64_t units = d / V;
+  const int64_t strips = (units + 127) / 128;
   if (strips > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int cols = static_cast<int>((d + strips - 1) / strips);
+  const int cols = static_cast<int>((units + strips - 1) / strips);
   const int tx = (cols + 31) / 32 * 32;
   const int ty = 128 / tx;
   const dim3 block(tx, ty);
   const dim3 grid(static_cast<unsigned>((n + ty - 1) / ty), static_cast<unsigned>(strips));
-  count_rule_kernel<T, W><<<grid, block, 0, stream>>>(rule, budget, nbr, live, x, g, eta, out, n, d);
+  count_rule_kernel<S, W, V><<<grid, block, 0, stream>>>(rule, budget, nbr, live, x, g, eta, out,
+                                                          n, d);
   return static_cast<int>(cudaSuccess);
 }
 
-template <typename T>
+// The count rules' instance for sort width W: 8 columns a thread for
+// vectorized bfloat16 rows up to W = 8 (64 working values a thread), else 1.
+template <typename S, int W>
+int launch_count(int rule, int budget, const int32_t* nbr, const float* live, const S* x,
+                 const S* g, const S* eta, S* out, int64_t n, int64_t d, cudaStream_t stream) {
+  if constexpr (std::is_same_v<S, __nv_bfloat16> && W <= 8) {
+    if (vectorized<S>(x, g, out, d)) {
+      return launch_count<S, W, 8>(rule, budget, nbr, live, x, g, eta, out, n, d, stream);
+    }
+  }
+  return launch_count<S, W, 1>(rule, budget, nbr, live, x, g, eta, out, n, d, stream);
+}
+
+template <typename S>
 int fused_robust(int rule, int budget, int adaptive, int k_max, const void* nbr_v,
                  const void* live_v, const void* x_v, const void* tau_v, const void* g_v,
                  const void* eta_v, void* out_v, int64_t n, int64_t d, void* stream_v) {
+  using T = typename Storage<S>::T;
   const auto* nbr = static_cast<const int32_t*>(nbr_v);
   const auto* live = static_cast<const float*>(live_v);
-  const auto* x = static_cast<const T*>(x_v);
+  const auto* x = static_cast<const S*>(x_v);
   const auto* tau = static_cast<const T*>(tau_v);
-  const auto* g = static_cast<const T*>(g_v);
-  const auto* eta = static_cast<const T*>(eta_v);
-  auto* out = static_cast<T*>(out_v);
+  const auto* g = static_cast<const S*>(g_v);
+  const auto* eta = static_cast<const S*>(eta_v);
+  auto* out = static_cast<S*>(out_v);
   auto stream = static_cast<cudaStream_t>(stream_v);
   if (n * d <= 0) return static_cast<int>(cudaGetLastError());
   if (rule == kTrimmedMean || rule == kMedian) {
     int err;
     switch (k_max + 1) {
 #define ROBUST_WIDTH(W) \
-  case W: err = launch_count<T, W>(rule, budget, nbr, live, x, g, eta, out, n, d, stream); break;
+  case W: err = launch_count<S, W>(rule, budget, nbr, live, x, g, eta, out, n, d, stream); break;
       ROBUST_WIDTH(2) ROBUST_WIDTH(3) ROBUST_WIDTH(4) ROBUST_WIDTH(5) ROBUST_WIDTH(6)
       ROBUST_WIDTH(7) ROBUST_WIDTH(8) ROBUST_WIDTH(9) ROBUST_WIDTH(10) ROBUST_WIDTH(11)
       ROBUST_WIDTH(12) ROBUST_WIDTH(13) ROBUST_WIDTH(14) ROBUST_WIDTH(15) ROBUST_WIDTH(16)
@@ -561,9 +729,17 @@ int fused_robust(int rule, int budget, int adaptive, int k_max, const void* nbr_
   } else if (k_max <= kWarpSlots) {
     if (d >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
     const unsigned blocks = static_cast<unsigned>((n + kClipWarps - 1) / kClipWarps);
-#define CLIP_SLOTS(KB)                                                              \
-  clip_warp_kernel<T, KB><<<blocks, kClipWarps * 32, 0, stream>>>(                 \
-      budget, adaptive, k_max, nbr, live, x, tau, g, eta, out, n, d)
+    const bool vec = vectorized<S>(x, g, out, d);
+#define CLIP_SLOTS(KB)                                                                      \
+  do {                                                                                      \
+    if (vec) {                                                                              \
+      clip_warp_kernel<S, KB, 8><<<blocks, kClipWarps * 32, 0, stream>>>(                  \
+          budget, adaptive, k_max, nbr, live, x, tau, g, eta, out, n, d);                   \
+    } else {                                                                                \
+      clip_warp_kernel<S, KB, 1><<<blocks, kClipWarps * 32, 0, stream>>>(                  \
+          budget, adaptive, k_max, nbr, live, x, tau, g, eta, out, n, d);                   \
+    }                                                                                       \
+  } while (0)
     if (k_max <= 2) CLIP_SLOTS(2);
     else if (k_max <= 4) CLIP_SLOTS(4);
     else if (k_max <= 8) CLIP_SLOTS(8);
@@ -574,7 +750,7 @@ int fused_robust(int rule, int budget, int adaptive, int k_max, const void* nbr_
     // Only a fixed radius is taken this wide; the wrapper keeps smem within
     // the 48 KiB default.
     if (adaptive) return static_cast<int>(cudaErrorInvalidValue);
-    clip_wide_kernel<T><<<static_cast<unsigned>(n), kThreads, clip_smem_bytes<T>(k_max), stream>>>(
+    clip_wide_kernel<S><<<static_cast<unsigned>(n), kThreads, clip_smem_bytes<T>(k_max), stream>>>(
         k_max, nbr, live, x, tau, g, eta, out, n, d);
   }
   return static_cast<int>(cudaGetLastError());
@@ -597,6 +773,13 @@ int fused_robust_f64(int rule, int budget, int adaptive, int k_max, const void* 
                      const void* eta, void* out, int64_t n, int64_t d, void* stream) {
   return fused_robust<double>(rule, budget, adaptive, k_max, nbr, live, x, tau, g, eta, out, n, d,
                               stream);
+}
+// tau is float32 (the working type); x, g, eta and out bfloat16.
+int fused_robust_bf16(int rule, int budget, int adaptive, int k_max, const void* nbr,
+                      const void* live, const void* x, const void* tau, const void* g,
+                      const void* eta, void* out, int64_t n, int64_t d, void* stream) {
+  return fused_robust<__nv_bfloat16>(rule, budget, adaptive, k_max, nbr, live, x, tau, g, eta,
+                                     out, n, d, stream);
 }
 
 }  // extern "C"

@@ -105,9 +105,10 @@ def load(source: pathlib.Path) -> ctypes.CDLL:
 # --- the wrappers' shared argument checks -------------------------------------
 
 # The C entry points' suffix for each dtype a kernel has an instance in:
-# float32 and float64 for every kernel; bfloat16 too for the ring, fc and
-# sampling kernels, whose wrappers pass SUFFIX_BF16. A wrapper given a
-# tensor of another dtype raises a TypeError naming it.
+# float32 and float64 for every kernel; bfloat16 too for the ring, fc,
+# sampling, robust and compression kernels, whose wrappers pass
+# SUFFIX_BF16. A wrapper given a tensor of another dtype raises a TypeError
+# naming it.
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 SUFFIX_BF16 = {**SUFFIX, torch.bfloat16: "bf16"}
 # What a launcher returns when it refuses its arguments.

@@ -31,6 +31,14 @@ JAX code leaves a choice to the compiler, the twin fixes it:
   kernel (``row_norm``); the JAX package's XLA reduction may sum in another,
   so qsgd agrees with it to the rounding of a sum (1e-12 relative in
   float64), and on the card the kernel equals the twin bit for bit;
+- bfloat16 rounds as the JAX package's bfloat16 run on the CPU: the
+  uniforms of random_k and qsgd are float32's (``sampling.score_dtype``:
+  ``jax.random.uniform`` draws in the default float type), so qsgd's
+  ``u < p_up`` compares in float32; qsgd's norm sums the float32 squares
+  unrounded and rounds the sum once (``jnp.linalg.norm``'s fused
+  reduction), then its square root; every other operation rounds to
+  bfloat16, and the exchange's γ is rounded to bfloat16 before it is
+  applied (``rounding.scalar``), as ω is;
 - ``none`` is the identity, and the exchange computes
   ``memory + (v − memory)`` literally, which differs from v in the last bit.
 
@@ -49,6 +57,8 @@ import torch
 
 from distributed_optimization_tpu_torch.config import COMPRESSIONS
 from distributed_optimization_tpu_torch.ops import prng
+from distributed_optimization_tpu_torch.ops.rounding import scalar
+from distributed_optimization_tpu_torch.ops.sampling import score_dtype
 
 # The stream tag folded into the run key before t (the JAX package's
 # _COMPRESSION_TAG): fold_in(fold_in(key(seed), TAG), t).
@@ -109,11 +119,14 @@ def row_norm(v: torch.Tensor) -> torch.Tensor:
     """‖v_r‖ of each row, ``[N, 1]``, summed in the card kernel's order: lane
     j of 32 adds the squares of columns j, j + 32, j + 64, … in turn, then
     the lanes are summed by a butterfly (lane j adds lane j ^ o for o = 16,
-    8, 4, 2, 1), and the square root is taken of the sum."""
+    8, 4, 2, 1), and the square root is taken of the sum. A bfloat16 row
+    sums its float32 squares in float32 and rounds the sum once to
+    bfloat16 before the root."""
     n, d = v.shape
+    wide = v.float() if v.dtype == torch.bfloat16 else v
     chunks = max(1, -(-d // NORM_LANES))
-    sq = torch.zeros((n, chunks * NORM_LANES), dtype=v.dtype, device=v.device)
-    sq[:, :d] = v * v
+    sq = torch.zeros((n, chunks * NORM_LANES), dtype=wide.dtype, device=v.device)
+    sq[:, :d] = wide * wide
     sq = sq.view(n, chunks, NORM_LANES)
     acc = sq[:, 0]
     for c in range(1, chunks):
@@ -123,14 +136,20 @@ def row_norm(v: torch.Tensor) -> torch.Tensor:
     while offset:
         acc = acc + acc[:, lanes ^ offset]
         offset //= 2
-    return torch.sqrt(acc[:, :1])
+    return torch.sqrt(acc[:, :1].to(v.dtype))
 
 
-def top_scored_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
-    """``[N, d]`` 0/1 in the scores' dtype: each row's k top scores, in
-    stable descending order (ties to the lower column)."""
+def top_scored_mask(scores: torch.Tensor, k: int, dtype=None) -> torch.Tensor:
+    """``[N, d]`` 0/1 in ``dtype`` (the scores' by default): each row's k top
+    scores, in stable descending order (ties to the lower column)."""
     idx = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :k]
-    return torch.zeros_like(scores).scatter_(1, idx, 1.0)
+    return torch.zeros_like(scores, dtype=dtype).scatter_(1, idx, 1.0)
+
+
+def uniforms(key, v: torch.Tensor) -> torch.Tensor:
+    """The compressor's ``[N, d]`` uniforms for the rows ``v``, in the run's
+    score dtype (float32 for a bfloat16 run), on v's device."""
+    return prng.uniform(key, v.shape, score_dtype(v.dtype)).to(v.device)
 
 
 def qsgd_levels(v: torch.Tensor, u: torch.Tensor, s: float):
@@ -161,8 +180,7 @@ def make_compressor(name: str, d: int, k: int = 0) -> Compressor:
         def apply_qsgd(key, v):
             if key is None:
                 raise ValueError("qsgd compression needs a PRNG key")
-            u = prng.uniform(key, v.shape, v.dtype).to(v.device)
-            norm, levels = qsgd_levels(v, u, s)
+            norm, levels = qsgd_levels(v, uniforms(key, v), s)
             w = torch.tensor(omega, dtype=v.dtype)  # ω in the run dtype, as a scalar
             return w * norm * _sign(v) * (levels / s)
 
@@ -179,8 +197,7 @@ def make_compressor(name: str, d: int, k: int = 0) -> Compressor:
     def apply_randk(key, v):
         if key is None:
             raise ValueError("random_k compression needs a PRNG key")
-        u = prng.uniform(key, v.shape, v.dtype).to(v.device)
-        return v * top_scored_mask(u, k)
+        return v * top_scored_mask(uniforms(key, v), k, v.dtype)
 
     return Compressor("random_k", apply_randk, 2.0 * k, k / d, k)
 
@@ -219,7 +236,7 @@ class ErrorFeedbackGossip:
         from distributed_optimization_tpu_torch.ops import compression_kernels
 
         memory_new = compression_kernels.ef_compress(self.compressor, draw, v, memory)
-        v_new = v + self.gamma * (mix(memory_new) - memory_new)
+        v_new = v + scalar(self.gamma, v.dtype) * (mix(memory_new) - memory_new)
         return v_new, memory_new
 
 

@@ -13,6 +13,10 @@ current stream, or raises; for CPU tensors it runs the plain version
 device. On the card ``t`` is the run's int64 counter of one element, read
 from device memory, so a captured CUDA graph replays with the current ``t``.
 
+The kernel has float32, float64 and bfloat16 instances; a bfloat16 row
+rounds as ``ops/compression.py`` sets out (float32 uniforms, qsgd's
+float32 sum rounded once), and the kernel equals that twin bit for bit.
+
 top_k and random_k keep each row's k top scores, ties to the lower column:
 a warp a row ranks them by counting up to 128 columns, and a block a row
 finds the k-th by a radix select past that, at any width; qsgd takes a warp
@@ -53,7 +57,7 @@ def _library() -> ctypes.CDLL:
     ptr, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
     # (v, memory, out, [levels,] N, d, mode, k, t, k0, k1, round, omega, stream)
     tail = [i64, i64, i64, i64, ptr, u32, u32, u32, ctypes.c_double, ptr]
-    for suffix in ("f32", "f64"):
+    for suffix in ("f32", "f64", "bf16"):
         fn = getattr(lib, f"ef_compress_{suffix}")
         fn.argtypes = [ptr, ptr, ptr] + tail
         fn.restype = ctypes.c_int
@@ -75,7 +79,7 @@ def _check(compressor, draw, v: torch.Tensor, memory: torch.Tensor) -> None:
     dtype on one card, N and d below 2³¹, and for the random
     operators a draw whose t is an int64 tensor of one element on that card.
     k's range is the launcher's check (csrc/compression_kernels.cu)."""
-    _cuda_build.check_stack(v, "v")
+    _cuda_build.check_stack(v, "v", suffixes=_cuda_build.SUFFIX_BF16)
     _cuda_build.check_like(memory, v, "memory")
     if memory.shape != v.shape:
         raise ValueError(f"memory {tuple(memory.shape)} and v {tuple(v.shape)} differ")
@@ -106,7 +110,7 @@ def _launch(name: str, compressor, draw, v, memory, *extra) -> torch.Tensor:
     _cuda_build.call(_library(), name, v, v.data_ptr(), memory.data_ptr(), out.data_ptr(),
                      *extra, n, d, MODES[compressor.name], compressor.k, t_ptr,
                      k0 & prng.MASK32, k1 & prng.MASK32, rnd & prng.MASK32,
-                     float(compressor.delta),
+                     float(compressor.delta), suffixes=_cuda_build.SUFFIX_BF16,
                      invalid=f"{name} refuses N={n}, d={d}, {compressor.name} k={compressor.k}")
     return out
 
@@ -135,7 +139,7 @@ def levels_plain(compressor, draw, v: torch.Tensor, memory: torch.Tensor) -> tor
     if compressor.name == "top_k":
         mask = compression.top_scored_mask(diff.abs(), compressor.k)
     else:
-        u = prng.uniform(draw.key(), v.shape, v.dtype).to(v.device)
+        u = compression.uniforms(draw.key(), v)
         if compressor.name == "random_k":
             mask = compression.top_scored_mask(u, compressor.k)
         else:

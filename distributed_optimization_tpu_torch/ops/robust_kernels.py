@@ -23,6 +23,13 @@ the transposition network; it matches the plain version bit for bit for
 the count rules all the same. Clipping's norm is a reduction over d with
 no fixed order, so there the two agree to a tolerance.
 
+bfloat16 rows (``fused_robust_bf16``) screen in float32, as the Pallas
+body does (promote(float32, bfloat16)): the twin widens them, runs the
+float32 screen, rounds the aggregate once to bfloat16, and the D-SGD form
+subtracts ``eta * g`` in bfloat16, each operation rounded; τ stays
+float32 and η is bfloat16. The kernel rounds the same way, bit for bit for
+the count rules.
+
 The factories run on ``cuda`` unless the caller passes ``device="cpu"``,
 and raise when no card is visible. ``LAUNCHES`` maps each factory name to
 its kernel's launches on the card, which the kernel counts where it runs
@@ -182,9 +189,9 @@ def fused_robust_plain(
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the argument types of ``fused_robust_f32``/``_f64``."""
+    """Declare the argument types of ``fused_robust_f32``/``_f64``/``_bf16``."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    for suffix in ("f32", "f64"):
+    for suffix in ("f32", "f64", "bf16"):
         fn = getattr(lib, f"fused_robust_{suffix}")
         fn.argtypes = [i32, i32, i32, i32] + [ptr] * 7 + [i64, i64, ptr]
         fn.restype = ctypes.c_int
@@ -211,7 +218,8 @@ def launch(lib: ctypes.CDLL, name: str, budget: int, adaptive: bool, nbr32, live
     out = torch.empty_like(x)
     ptrs = [t.data_ptr() if t is not None else None for t in (nbr32, live, x, tau, g, eta, out)]
     _cuda_build.call(lib, "fused_robust", x, _RULE_CODE[name], budget, int(adaptive),
-                     nbr32.shape[1], *ptrs, x.shape[0], x.shape[1])
+                     nbr32.shape[1], *ptrs, x.shape[0], x.shape[1],
+                     suffixes=_cuda_build.SUFFIX_BF16)
     return out
 
 
@@ -249,7 +257,7 @@ def _make_fused_robust(name: str, budget: int, nbr_idx, clip_tau, *, with_sgd: b
             for acc in (torch.float32, torch.float64)}
 
     def call(live, x, g=None, eta=None):
-        _cuda_build.check_stack(x)
+        _cuda_build.check_stack(x, suffixes=_cuda_build.SUFFIX_BF16)
         _cuda_build.check_like(live, x, "live", dtype=torch.float32)
         if x.device != nbr32.device:
             raise ValueError(f"x lies on {x.device}, the neighbour table on {nbr32.device}")

@@ -607,14 +607,34 @@ class GatherRound:
 
     def mix(self, x: torch.Tensor) -> torch.Tensor:
         """w_self·x + Σ_s w[:, s]·x[nbr[:, s]] (slots in order), in
-        promote(float32, dtype), cast back."""
+        promote(float32, dtype), cast back. bfloat16 rows take
+        ``_mix_contracted``."""
         acc = _acc(x.dtype)
         if acc != self._r.w.dtype:
             raise ValueError(f"this round's weights were realized in {self._r.w.dtype}, "
                              f"not {acc}")
+        if x.dtype == torch.bfloat16:
+            return self._mix_contracted(x)
         out = self._r.w_self[..., None] * x.to(acc) + slot_sum(
             self._r.w[..., None] * self._gathered(x))
         return out.to(x.dtype)
+
+    def _mix_contracted(self, x: torch.Tensor) -> torch.Tensor:
+        """The bfloat16 mix as the JAX package's jitted mix computes it on the
+        CPU: XLA contracts the float32 slot sum into a chain of fused
+        multiply-adds, s = fma(w_s, x_s, s) from s = w_0·x_0 (rounded), and
+        the self term into one more, fma(w_self, x, s); the float32 result
+        is cast to bfloat16. Each fma is computed in float64 and rounded to
+        float32: a float32 weight times a bfloat16 value is exact in
+        float64, and so is its sum with a float32 value up to a tail that
+        cannot move the float32 rounding, so every step is the fma's."""
+        w = self._r.w.double()[..., None]
+        xs = x.double()[..., self._nbr, :]
+        total = (w[..., 0, :] * xs[..., 0, :]).float()
+        for s in range(1, xs.shape[-2]):
+            total = (w[..., s, :] * xs[..., s, :] + total.double()).float()
+        out = self._r.w_self.double()[..., None] * x.double() + total.double()
+        return out.float().to(x.dtype)
 
     def neighbor_sum(self, x: torch.Tensor) -> torch.Tensor:
         """Σ_s live[:, s]·x[nbr[:, s]]."""

@@ -378,18 +378,29 @@ def test_interop_carries_bfloat16_bit_for_bit(runs):
     assert np.array_equal(from64.double().numpy(), port.final_models)
 
 
-@pytest.mark.parametrize("fields", [
-    dict(execution="async"), dict(replicas=2), dict(algorithm="choco", compression="top_k",
-                                                    compression_k=2),
-    dict(compression="top_k", compression_k=2), dict(attack="sign_flip", n_byzantine=1),
-    dict(aggregation="trimmed_mean", robust_b=1), dict(topology_impl="neighbor"),
-    dict(n_workers=4096, n_samples=8192),
-], ids=["async", "replicas", "choco", "compression", "attack", "aggregation", "neighbor",
-        "auto-neighbor"])
+@pytest.mark.parametrize("fields", [dict(execution="async"), dict(replicas=2)],
+                         ids=["async", "replicas"])
 def test_bfloat16_compositions_without_a_kernel_are_refused(fields):
     with pytest.raises(ValueError, match="bfloat16.*does not have it yet"):
         ExperimentConfig(**{**BASE, **fields})
     assert ExperimentConfig(**{**BASE, "dtype": "float32", **fields}).dtype == "float32"
+
+
+@pytest.mark.parametrize("fields", [
+    dict(algorithm="choco", compression="top_k", compression_k=2),
+    dict(compression="top_k", compression_k=2), dict(attack="sign_flip", n_byzantine=1),
+    dict(aggregation="trimmed_mean", robust_b=1), dict(topology_impl="neighbor"),
+    dict(n_workers=4096, n_samples=8192),
+], ids=["choco", "compression", "attack", "aggregation", "neighbor", "auto-neighbor"])
+def test_bfloat16_compositions_with_their_kernels_run(fields):
+    """The compositions bfloat16 once refused (tests/test_torch_bfloat16_layers.py
+    holds them against the JAX package) are accepted and run a few CPU
+    iterations: finite gaps, bfloat16 models."""
+    cfg = ExperimentConfig(**{**BASE, **fields, "n_iterations": 4, "eval_every": 2})
+    res = torch_backend.run(cfg, generate_synthetic_dataset(cfg), 0.0, device="cpu")
+    assert len(res.history.objective) == 2 and np.all(np.isfinite(res.history.objective))
+    models = torch.from_numpy(res.final_models)
+    assert torch.equal(models.to(BF16).double(), models)
 
 
 def test_run_batch_refuses_bfloat16(data):

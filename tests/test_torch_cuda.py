@@ -2218,18 +2218,11 @@ def test_cuda_bfloat16_graph_run_is_bitwise_its_measured_run(cuda_device, graph_
 
 @pytest.mark.cuda
 def test_cuda_wrappers_without_a_bfloat16_instance_raise(cuda_device):
-    """Robust, compression, noise, slot round and event entry: a TypeError
-    naming bfloat16 on the card, never the twin."""
+    """Noise, slot round and event entry: a TypeError naming bfloat16 on the
+    card, never the twin (the robust and compression kernels have bfloat16
+    instances, held below)."""
     x = torch.randn((16, 5), device=cuda_device).to(torch.bfloat16)
-    nbr, _ = neighbor_table(np.roll(np.eye(16), 1, 1) + np.roll(np.eye(16), -1, 1))
-    agg = bk.make_fused_robust_aggregator("trimmed_mean", 1, nbr, device=cuda_device)
-    with pytest.raises(TypeError, match="bfloat16"):
-        agg(torch.ones(nbr.shape, device=cuda_device), x)
-    comp = compression.make_compressor("top_k", 5, 2)
     t = torch.zeros(1, dtype=torch.int64, device=cuda_device)
-    draw = compression.Draw(compression.tag_key(1, x64=False), t, 0)
-    with pytest.raises(TypeError, match="bfloat16"):
-        ck.ef_compress(comp, draw, x, torch.zeros_like(x))
     with pytest.raises(TypeError, match="bfloat16"):
         dk.large_noise(prng.key(1, x64=False), t, torch.ones(16, dtype=torch.uint8,
                                                              device=cuda_device), x, 1.0)
@@ -2247,3 +2240,170 @@ def test_cuda_wrappers_without_a_bfloat16_instance_raise(cuda_device):
                               x.reshape(4, 4, 5).contiguous(),
                               torch.zeros((4, 4), dtype=torch.bfloat16, device=cuda_device),
                               torch.full((4,), 4, dtype=torch.int64, device=cuda_device), 2)
+
+
+# The bfloat16 instances of the robust and compression kernels. The robust
+# screen runs in float32 and rounds the aggregate once: the count rules are
+# bitwise the twin at every sort width, on the 16-byte path (d % 8 == 0, W
+# <= 8) and the element path (other d, wider sorts, a misaligned view);
+# clipping's norms sum in another float32 order than the twin's torch.sum,
+# so its aggregate is within a bfloat16 ulp (plus float32's clipping
+# tolerance) of the twin's, and its D-SGD form is exactly bf16(agg) -
+# bf16(eta * g) of its own aggregate. The compression kernel is bitwise the
+# twin on the warp and the block paths (float32 uniforms; qsgd's float32
+# sum rounded once).
+
+
+def _bf16(x):
+    return torch.as_tensor(x, device="cpu").to(torch.float32).to(torch.bfloat16)
+
+
+def _robust_bf16(cuda_device, rule, ct, budget, nbr, live, x, offset=0):
+    """(kernel, plain) of the aggregator and the step on bfloat16 rows, and
+    the step the kernel's own aggregate gives; ``offset`` places x at that
+    many elements past a 16-byte boundary."""
+    n, d = x.shape
+    tl = torch.from_numpy(live).to(cuda_device)
+    buf = torch.empty(n * d + offset, dtype=torch.bfloat16, device=cuda_device)
+    tx = buf[offset:].view(n, d)
+    tx.copy_(_bf16(x).to(cuda_device))
+    gen = torch.Generator(device=cuda_device).manual_seed(n + d)
+    g = (30 * torch.randn((n, d), generator=gen, device=cuda_device)).to(torch.bfloat16)
+    eta = torch.tensor([0.013], device=cuda_device).to(torch.bfloat16)
+    nbr64 = torch.from_numpy(nbr).long().to(cuda_device)
+    tau = torch.tensor([ct], dtype=torch.float32, device=cuda_device)
+    adaptive = rule == "clipped_gossip" and ct == 0.0
+    bk.reset_launch_counts()
+    agg = bk.make_fused_robust_aggregator(rule, budget, nbr, ct, device=cuda_device)(tl, tx)
+    step = bk.make_fused_robust_dsgd_step(rule, budget, nbr, ct, device=cuda_device)(tl, tx, g,
+                                                                                     eta)
+    assert bk.LAUNCHES == {name: 1 for name in bk.KERNELS}
+    want = bk.fused_robust_plain(rule, budget, nbr64, tl, tx, tau, adaptive=adaptive)
+    want_step = bk.fused_robust_plain(rule, budget, nbr64, tl, tx, tau, adaptive=adaptive, g=g,
+                                      eta=eta)
+    assert agg.dtype == step.dtype == torch.bfloat16
+    return tx, tl, nbr64, (agg, want), (step, want_step), agg - eta * g
+
+
+def _assert_bf16_robust(rule, tx, tl, nbr64, pair, step_pair, own_step):
+    (agg, want), (step, want_step) = pair, step_pair
+    if rule in COUNT_RULES:
+        assert _nan_equal(agg, want) and _nan_equal(step, want_step)
+        return
+    x = tx.float()
+    row_max = x.abs().amax(1)
+    nbhd_max = torch.maximum(row_max, torch.where(tl > 0, row_max[nbr64], 0.0).amax(1))
+    tol = _bf16_ulp(want) + 1e-5 * nbhd_max[:, None]
+    assert bool(torch.all((agg.float() - want.float()).abs() <= tol))
+    assert torch.equal(step.view(torch.int16), own_step.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [6, 64])
+@pytest.mark.parametrize("rule,ct", SCREENS)
+def test_cuda_robust_kernels_bfloat16_match_their_twin(cuda_device, graph, rule, ct, d):
+    """k_max 4 and 15 with dead slots and two rows scaled by 1e4: count rules
+    bitwise, clipping (adaptive and fixed τ) within a bfloat16 ulp; d = 64
+    takes the 16-byte path where the kernel has one."""
+    nbr, live, _, x = graph
+    if d > x.shape[1]:
+        extra = np.random.default_rng(d).standard_normal((x.shape[0], d - x.shape[1]))
+        x = np.concatenate([x, extra], 1)
+    tx, tl, nbr64, pair, step_pair, own = _robust_bf16(cuda_device, rule, ct, 1, nbr, live, x)
+    _assert_bf16_robust(rule, tx, tl, nbr64, pair, step_pair, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 41, 128, 129])
+@pytest.mark.parametrize("k_max", range(1, 16))
+def test_cuda_count_rules_bfloat16_bitwise_at_every_width(cuda_device, k_max, d):
+    """Every sort width, budgets 1 to k_max, on values with ties, ±0 and
+    ±inf: d = 8 and 128 take 8 columns a thread up to width 8, the others
+    one; and on a misaligned view, which takes one."""
+    nbr, live, x = random_table(53, k_max, seed=200 + k_max, d=d)
+    for rule in COUNT_RULES:
+        for budget in sorted({1, max(1, k_max // 2), k_max}):
+            for offset in (0, 1):
+                tx, tl, nbr64, pair, step_pair, own = _robust_bf16(
+                    cuda_device, rule, 0.0, budget, nbr, live, x, offset)
+                assert _nan_equal(*pair) and _nan_equal(*step_pair), (rule, budget, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [45, 48])
+@pytest.mark.parametrize("k_max", [2, 8, 15])
+def test_cuda_count_rules_bfloat16_bitwise_on_columns_with_nan(cuda_device, k_max, d):
+    nbr, live, x = random_table(64, k_max, seed=9 * k_max, d=d)
+    rng = np.random.default_rng(k_max)
+    x[rng.random(x.shape) < 0.03] = np.nan
+    for rule in COUNT_RULES:
+        _, _, _, pair, step_pair, _ = _robust_bf16(cuda_device, rule, 0.0, 1, nbr, live, x)
+        assert _nan_equal(*pair) and _nan_equal(*step_pair) and bool(torch.isnan(pair[1]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [41, 64])
+@pytest.mark.parametrize("k_max,ct", [*((k, 0.0) for k in range(1, 17)),
+                                      *((k, 0.7) for k in (1, 15, 31, 32, 33, 64))])
+def test_cuda_clipping_bfloat16_at_every_width(cuda_device, k_max, ct, d):
+    """Adaptive clipping at every k_max it takes, fixed τ on both sides of a
+    warp's 32 slots; d = 64 takes 8 columns a lane on the warp path."""
+    nbr, live, x = random_table(70, k_max, seed=k_max, d=d, specials=False)
+    for offset in (0, 1):
+        tx, tl, nbr64, pair, step_pair, own = _robust_bf16(cuda_device, "clipped_gossip", ct, 1,
+                                                           nbr, live, x, offset)
+        _assert_bf16_robust("clipped_gossip", tx, tl, nbr64, pair, step_pair, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", COMPRESSION_SHAPES)
+@pytest.mark.parametrize("name,k", COMPRESSION_OPERATORS)
+def test_cuda_compression_kernel_bfloat16_is_bitwise_its_twin(cuda_device, name, k, shape):
+    """memory⁺ bit for bit and the mask bits or qsgd levels equal, on the
+    warp and block paths, at seeds past 2³¹, t past 2³¹ and 2³², rounds 0
+    and 1; bfloat16 rows tie far more often than float32 rows."""
+    n, d = shape
+    comp = compression.make_compressor(name, d, d if k is None else min(k, d))
+    v, memory = compression_inputs(n, d, torch.float32, cuda_device)
+    v, memory = (4 * v).to(torch.bfloat16), memory.to(torch.bfloat16)
+    t = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    ck.reset_launch_counts()
+    for seed in (203, 2**31 - 1):
+        for counter, rnd in ((0, 0), (2**31 - 1, 1), (2**32 + 5, 0)):
+            t.fill_(counter)
+            draw = compression.Draw(compression.tag_key(seed, x64=False), t, rnd)
+            got = ck.ef_compress(comp, draw, v, memory)
+            out, levels = ck.ef_levels(comp, draw, v, memory)
+            want = compression.ef_compress_plain(comp, draw, v, memory)
+            assert got.dtype == torch.bfloat16
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+            assert torch.equal(out.view(torch.int16), got.view(torch.int16))
+            assert torch.equal(levels, ck.levels_plain(comp, draw, v, memory))
+    assert ck.LAUNCHES["compress_exchange"] == 6
+
+
+@pytest.mark.cuda
+def test_cuda_bfloat16_compositions_launch_their_kernels(cuda_device, graph_data):
+    """A bfloat16 graph run of the fused robust D-SGD step and of CHOCO
+    random_k, each bitwise its measured run, with one launch a step."""
+    base, _, _ = graph_data["sorted"]
+    from distributed_optimization_tpu_torch.utils.data import generate_synthetic_dataset
+    from distributed_optimization_tpu_torch.utils.oracle import compute_reference_optimum
+
+    T = 100
+    for fields, want in (
+            (dict(attack="sign_flip", n_byzantine=1, aggregation="trimmed_mean", robust_b=1,
+                  robust_impl="fused", edge_drop_prob=0.1),
+             {"make_fused_robust_dsgd_step": T, "realize_round": T, "sample_worker_batches": T}),
+            (dict(algorithm="choco", compression="random_k", compression_k=3, choco_gamma=0.3,
+                  mixing_impl="pallas"),
+             {"compress_exchange": T, "ring_mix": T, "sample_worker_batches": T})):
+        cfg = base.replace(dtype="bfloat16", n_iterations=T, eval_every=10, **fields)
+        ds = generate_synthetic_dataset(cfg)
+        f_opt = compute_reference_optimum(ds, cfg.reg_param)[1]
+        graph, graph_launches = _counted_run(cfg, ds, f_opt)
+        eager, _ = _counted_run(cfg, ds, f_opt, measure_timestamps=True)
+        np.testing.assert_array_equal(graph.history.objective, eager.history.objective)
+        np.testing.assert_array_equal(graph.final_models, eager.final_models)
+        assert graph_launches == {**{k: 0 for k in graph_launches}, **want}
+        assert np.all(np.isfinite(graph.history.objective))

@@ -3,8 +3,9 @@
     JAX_PLATFORMS=cpu python tests/torch_bfloat16_agreement.py [name ...]
 
 Not a test (pytest collects ``test_*.py`` only): the measurement that
-``tests/test_torch_bfloat16.py`` and PERF.md state their bfloat16
-tolerances from. Each configuration (N = 8 workers, T = 300, an eval every
+``tests/test_torch_bfloat16.py``, ``tests/test_torch_bfloat16_layers.py``
+and PERF.md state their bfloat16 tolerances from. Each configuration (N = 8
+workers, T = 300, an eval every
 30, the data of the port's generator, f* of the port's oracle) runs through
 ``torch_backend.run(..., device="cpu")`` and through ``jax_backend.run``
 twice: its measured chunk loop (``measure_timestamps=True``), whose eval
@@ -14,6 +15,12 @@ the final models are bitwise, their largest difference relative to the
 largest |x|, and the largest gap difference against each JAX run in
 bfloat16 ulps of f(x̄) = gap + f*. About 10 s a configuration.
 
+XLA's CPU products sum in an order that depends on the host devices it is
+given, and so do the JAX package's bfloat16 runs. The script gives XLA the
+test suite's eight host devices (``tests/conftest.py``) unless XLA_FLAGS
+already sets a count: ``XLA_FLAGS=--xla_force_host_platform_device_count=1``
+measures against the one-device programs.
+
     JAX_PLATFORMS=cpu python tests/torch_bfloat16_agreement.py --split
 
 shows, for the configurations whose trajectories part, the first T at which
@@ -22,7 +29,12 @@ they part on an injected batch schedule.
 
 from __future__ import annotations
 
+import os
 import sys
+
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=8").strip()
 
 import numpy as np
 import torch
@@ -78,6 +90,61 @@ CONFIGS = {
     "dsgd-chain-edge-drop": dict(problem_type="logistic", topology="chain", edge_drop_prob=0.2),
     "admm-full-batch": dict(algorithm="admm", local_batch_size=40),
 }
+# The Byzantine, compressed and matrix-free layers.
+_SIGN_FLIP = dict(attack="sign_flip", n_byzantine=1)
+_ER = dict(topology="erdos_renyi", erdos_renyi_p=0.5)
+_NEIGHBOR = dict(topology_impl="neighbor")
+_EF = dict(compression_k=3, choco_gamma=0.3)
+CONFIGS.update({
+    "trimmed-mean-fused-pallas": dict(**_SIGN_FLIP, aggregation="trimmed_mean", robust_b=1,
+                                      robust_impl="fused", mixing_impl="pallas"),
+    "median-fused-logistic": dict(**_SIGN_FLIP, aggregation="median", robust_b=1,
+                                  robust_impl="fused", problem_type="logistic"),
+    "alie-clipping-fused-huber": dict(attack="alie", n_byzantine=1,
+                                      aggregation="clipped_gossip", robust_b=1,
+                                      robust_impl="fused", problem_type="huber"),
+    "large-noise-clipping-fused": dict(attack="large_noise", n_byzantine=1, attack_scale=5.0,
+                                       aggregation="clipped_gossip", robust_b=1,
+                                       robust_impl="fused"),
+    "large-noise-median-gather-softmax": dict(attack="large_noise", n_byzantine=1,
+                                              aggregation="median", robust_b=1,
+                                              robust_impl="gather", **SOFTMAX),
+    "gt-alie-median-fused-logistic": dict(algorithm="gradient_tracking", attack="alie",
+                                          n_byzantine=1, aggregation="median", robust_b=1,
+                                          robust_impl="fused", problem_type="logistic"),
+    "trimmed-mean-gather-edge-drop": dict(**_SIGN_FLIP, aggregation="trimmed_mean",
+                                          robust_b=1, robust_impl="gather", edge_drop_prob=0.2),
+    "trimmed-mean-dense-fc": dict(**_SIGN_FLIP, aggregation="trimmed_mean", robust_b=1,
+                                  robust_impl="dense", topology="fully_connected"),
+    "trimmed-mean-fused-er": dict(**_SIGN_FLIP, **_ER, aggregation="trimmed_mean", robust_b=1,
+                                  robust_impl="fused"),
+    "choco-top-k": dict(algorithm="choco", compression="top_k", **_EF),
+    "choco-top-k-logistic": dict(algorithm="choco", compression="top_k",
+                                 problem_type="logistic", **_EF),
+    "choco-qsgd-huber": dict(algorithm="choco", compression="qsgd", compression_k=4,
+                             choco_gamma=0.3, problem_type="huber"),
+    "choco-random-k-fc-pallas": dict(algorithm="choco", compression="random_k",
+                                     topology="fully_connected", mixing_impl="pallas", **_EF),
+    "dsgd-qsgd-4-bits": dict(compression="qsgd", compression_k=4, choco_gamma=0.3),
+    "dsgd-top-k-softmax": dict(compression="top_k", **_EF, **SOFTMAX),
+    "gt-random-k": dict(algorithm="gradient_tracking", compression="random_k", **_EF),
+    "gt-qsgd-logistic": dict(algorithm="gradient_tracking", compression="qsgd",
+                             compression_k=4, choco_gamma=0.3, problem_type="logistic"),
+    "neighbor-ring": dict(**_NEIGHBOR),
+    "neighbor-ring-edge-drop": dict(**_NEIGHBOR, edge_drop_prob=0.2),
+    "neighbor-er-edge-drop-participation": dict(**_NEIGHBOR, **_ER, edge_drop_prob=0.2,
+                                                participation_rate=0.5),
+    "neighbor-grid-logistic-stragglers": dict(**_NEIGHBOR, topology="grid", n_workers=9,
+                                              n_samples=360, problem_type="logistic",
+                                              straggler_prob=0.1),
+    "neighbor-er-gather-screen": dict(**_NEIGHBOR, **_ER, **_SIGN_FLIP,
+                                      aggregation="trimmed_mean", robust_b=1,
+                                      robust_impl="gather"),
+    "neighbor-er-gt-edge-drop": dict(**_NEIGHBOR, **_ER, algorithm="gradient_tracking",
+                                     edge_drop_prob=0.2),
+    "neighbor-chain-huber-edge-drop": dict(**_NEIGHBOR, topology="chain", problem_type="huber",
+                                           edge_drop_prob=0.2),
+})
 
 
 def _ulps(diff: np.ndarray, gap: np.ndarray, f_star: float) -> float:
